@@ -1,9 +1,17 @@
 """CLI of the port.
 
     python -m mfx_torch.cli train --preset ml25m_rank64 [--set k=v ...] [--device cuda]
+    python -m mfx_torch.cli recommend --checkpoint ckpt/ --users 3,17 [--fused]
+    python -m mfx_torch.cli similar --checkpoint ckpt/ --items 1,7 [--fused]
+    python -m mfx_torch.cli serve --checkpoint ckpt/ --port 8080 [--fused]
+    python -m mfx_torch.cli export --checkpoint ckpt/ --out model.npz
 
 Configs come from the shared ``mfx.config`` presets and ``--set``
-overrides; ``train`` prints the same JSON object as ``mfx.cli train``.
+overrides. Each subcommand takes the reference's flags (``mfx.cli``) and
+prints the same JSON, plus ``--device`` (default ``cuda``; ``cpu`` runs
+the kernels' plain versions). Datasets named with ``--dataset`` are read
+from ``--root`` (and cached there) when it is given; otherwise their
+seeded synthetic stand-in is generated in memory.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ def cmd_train(args) -> int:
     from mfx_torch.train.driver import train
 
     cfg = apply_overrides(preset(args.preset), args.overrides)
-    result = train(cfg, device=args.device)
+    result = train(cfg, device=args.device, resume=not args.no_resume)
     out = {
         "preset": cfg.name,
         "epochs_run": result.epochs_run,
@@ -31,6 +39,214 @@ def cmd_train(args) -> int:
     return 0
 
 
+def _load_dataset(args):
+    from mfx.data.loaders import load_dataset
+
+    return load_dataset(args.dataset, root=args.root,
+                        cache=args.root is not None)
+
+
+def _no_mmr(args) -> None:
+    if getattr(args, "mmr", None) is not None:
+        raise NotImplementedError(
+            "--mmr: serve/rerank.py is not ported yet (ROADMAP Queue 1 "
+            "item 11)"
+        )
+
+
+def _recommender(args, model, exclude):
+    from mfx_torch.serve import FusedTopKRecommender, TopKRecommender
+
+    if not args.fused:
+        return TopKRecommender(
+            model, train=exclude, batch=args.batch,
+            table_dtype=args.table_dtype, recall_target=args.recall_target,
+            device=args.device,
+        )
+    if args.recall_target is not None:
+        raise SystemExit(
+            "--fused has its own selection scheme (drop --recall-target)"
+        )
+    kw = {}
+    if hasattr(args, "fused_exact"):  # serve's exact-mode flags
+        kw = dict(exact=args.fused_exact, exact_tiles=args.exact_tiles,
+                  exact_depth=args.exact_depth)
+    return FusedTopKRecommender(
+        model, train=exclude, batch=args.batch, table_dtype=args.table_dtype,
+        tile=args.tile, device=args.device, **kw,
+    )
+
+
+def cmd_recommend(args) -> int:
+    """Top-K serving from a checkpoint — one JSON line per user: dense
+    item ids, scores, and raw dataset ids when the loader relabeled."""
+    import numpy as np
+
+    from mfx_torch.train.checkpoint import load_checkpoint
+
+    model, _epoch, _seed = load_checkpoint(args.checkpoint,
+                                           device=args.device)
+    exclude = raw_ids = raw_uids = None
+    if args.dataset is not None:
+        coo = _load_dataset(args)
+        if not args.no_exclude:
+            exclude = coo
+        raw_ids = coo.item_raw_ids
+        raw_uids = coo.user_raw_ids
+    users = np.array([int(u) for u in args.users.split(",")], np.int32)
+    rec = _recommender(args, model, exclude)
+    items, scores = rec.recommend(users, k=args.k)
+    for u, it, sc in zip(users, items, scores):
+        out = {
+            "user": int(u),
+            "items": it.tolist(),
+            "scores": [float(s) for s in sc],
+        }
+        if raw_ids is not None:
+            out["raw_items"] = [int(raw_ids[i]) for i in it]
+        if raw_uids is not None:
+            out["raw_user"] = int(raw_uids[u])
+        print(json.dumps(out))
+    return 0
+
+
+def cmd_similar(args) -> int:
+    """Related items from a checkpoint: top-K nearest items by factor
+    cosine — one JSON line per query item."""
+    import numpy as np
+
+    from mfx_torch.serve import similar_items, similar_items_fused
+    from mfx_torch.train.checkpoint import load_checkpoint
+
+    model, _epoch, _seed = load_checkpoint(args.checkpoint,
+                                           device=args.device)
+    raw_ids = None
+    if args.dataset is not None:
+        raw_ids = _load_dataset(args).item_raw_ids
+    items = np.array([int(i) for i in args.items.split(",")], np.int32)
+    sim = similar_items_fused if args.fused else similar_items
+    nbrs, cos = sim(model, items, k=args.k, batch=args.batch,
+                    device=args.device)
+    for q, it, sc in zip(items, nbrs, cos):
+        out = {
+            "item": int(q),
+            "similar": it.tolist(),
+            "cosine": [float(s) for s in sc],
+        }
+        if raw_ids is not None:
+            out["raw_item"] = int(raw_ids[q])
+            out["raw_similar"] = [int(raw_ids[i]) for i in it]
+        print(json.dumps(out))
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Run the HTTP endpoint (``mfx_torch/serve/server.py``) over a
+    checkpoint: POST /recommend, /similar, /recommend_cold, /reload,
+    GET /healthz, /metrics. POST /reload re-reads the NEWEST checkpoint
+    step and swaps it in without a restart."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+
+    from mfx_torch.serve import (recommend_cold, similar_items,
+                                 similar_items_fused)
+    from mfx_torch.serve.server import RecServer
+    from mfx_torch.train.checkpoint import load_checkpoint
+
+    _no_mmr(args)
+    exclude = raw_ids = None
+    if args.dataset is not None:
+        coo = _load_dataset(args)
+        if not args.no_exclude:
+            exclude = coo
+        raw_ids = coo.item_raw_ids
+
+    def build() -> dict:
+        model, epoch, _seed = load_checkpoint(args.checkpoint,
+                                              device=args.device)
+        # a model grown past the dataset's id space (the reference's
+        # 'update'): widen the exclusion COO's declared shape and extend
+        # the raw-id map with identity for the new dense ids
+        exclude_b, raw_b = exclude, raw_ids
+        if exclude is not None and (
+            model.num_users > exclude.num_users
+            or model.num_items > exclude.num_items
+        ):
+            exclude_b = dataclasses.replace(
+                exclude,
+                num_users=max(model.num_users, exclude.num_users),
+                num_items=max(model.num_items, exclude.num_items),
+            )
+        if raw_b is not None and model.num_items > len(raw_b):
+            raw_b = np.concatenate([
+                raw_b,
+                np.arange(len(raw_b), model.num_items, dtype=raw_b.dtype),
+            ])
+        rec = _recommender(args, model, exclude_b)
+        if args.fused:
+            sim = functools.partial(
+                similar_items_fused, model, tile=args.tile,
+                exact=args.fused_exact, exact_tiles=args.exact_tiles,
+                exact_depth=args.exact_depth, device=args.device,
+            )
+        else:
+            sim = functools.partial(similar_items, model, device=args.device)
+        cold = functools.partial(recommend_cold, model, reg=args.foldin_reg)
+        return {
+            "recommender": rec,
+            "similar": lambda q, k: sim(q, k=k),
+            "cold": lambda hs, k: cold(hs, k=k),
+            "raw_item_ids": raw_b,
+            "info": {"checkpoint_epoch": epoch},
+        }
+
+    first = build()
+    srv = RecServer(
+        first["recommender"], similar=first["similar"],
+        cold=first["cold"], raw_item_ids=first["raw_item_ids"],
+        reload=build, host=args.host, port=args.port,
+    )
+    model = first["recommender"].model
+    print(json.dumps({
+        "serving": f"http://{args.host}:{srv.port}",
+        "recommender": type(first["recommender"]).__name__,
+        "num_users": model.num_users, "num_items": model.num_items,
+    }), flush=True)
+    srv.serve_forever()
+    return 0
+
+
+def cmd_export(args) -> int:
+    """Checkpoint -> portable .npz model file (the reference's format)."""
+    from mfx_torch.train.checkpoint import load_checkpoint
+
+    model, epoch, _seed = load_checkpoint(args.checkpoint)
+    model.save_npz(args.out)
+    print(json.dumps({
+        "out": args.out, "checkpoint_epoch": epoch,
+        "num_users": model.num_users, "num_items": model.num_items,
+        "rank": model.rank,
+    }, sort_keys=True))
+    return 0
+
+
+def _add_device(p) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the kernels' plain versions")
+
+
+def _add_checkpoint_source(p) -> None:
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--dataset", default=None,
+                   help="dataset whose raw id maps are reported (and, for "
+                        "recommend and serve, whose interactions are "
+                        "excluded from results)")
+    p.add_argument("--root", default=None, help="dataset root directory")
+    p.add_argument("--batch", type=int, default=256)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="mfx_torch", description="matrix factorization on PyTorch/CUDA"
@@ -41,9 +257,77 @@ def main(argv=None) -> int:
                    help="named config from mfx.config.PRESETS")
     p.add_argument("--set", dest="overrides", action="append", default=[],
                    metavar="KEY=VALUE", help="dot-path config override")
-    p.add_argument("--device", default="cuda",
-                   help="torch device; 'cpu' runs the kernels' plain versions")
+    p.add_argument("--no-resume", action="store_true",
+                   help="train from scratch over an existing checkpoint "
+                        "directory")
+    _add_device(p)
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("recommend", help="top-K items from a checkpoint")
+    _add_checkpoint_source(p)
+    p.add_argument("--users", required=True,
+                   help="comma-separated dense user ids")
+    p.add_argument("--k", type=int, default=10)
+    p.add_argument("--no-exclude", action="store_true",
+                   help="keep already-seen items in the results")
+    p.add_argument("--table-dtype", choices=("f32", "bf16", "int8"),
+                   default="f32",
+                   help="serving-table precision: bf16 halves / int8 "
+                        "quarters the tables' memory")
+    p.add_argument("--recall-target", type=float, default=None,
+                   help="accepted for the reference's interface; served "
+                        "exactly")
+    p.add_argument("--fused", action="store_true",
+                   help="score-block-free serving through the tile_topk "
+                        "kernel")
+    p.add_argument("--tile", type=int, default=1024,
+                   help="fused path: catalog items per kernel tile")
+    _add_device(p)
+    p.set_defaults(fn=cmd_recommend)
+
+    p = sub.add_parser("similar", help="related items from a checkpoint")
+    _add_checkpoint_source(p)
+    p.add_argument("--items", required=True,
+                   help="comma-separated dense item ids")
+    p.add_argument("--k", type=int, default=10)
+    p.add_argument("--fused", action="store_true",
+                   help="score-block-free related-items path")
+    _add_device(p)
+    p.set_defaults(fn=cmd_similar)
+
+    p = sub.add_parser("serve", help="HTTP serving endpoint over a checkpoint")
+    _add_checkpoint_source(p)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--no-exclude", action="store_true")
+    p.add_argument("--table-dtype", choices=("f32", "bf16", "int8"),
+                   default="f32")
+    p.add_argument("--recall-target", type=float, default=None)
+    p.add_argument("--fused", action="store_true",
+                   help="score-block-free serving through the tile_topk "
+                        "kernel")
+    p.add_argument("--fused-exact", action="store_true",
+                   help="certified-exact fused serving (suspect-tile "
+                        "rescore; falls back to the stock scorer when "
+                        "the union overflows --exact-tiles)")
+    p.add_argument("--exact-tiles", type=int, default=64)
+    p.add_argument("--exact-depth", type=int, default=8,
+                   help="per-tile selection depth in exact mode")
+    p.add_argument("--tile", type=int, default=1024)
+    p.add_argument("--foldin-reg", type=float, default=0.05,
+                   help="L2 of the cold-start fold-in solve "
+                        "(/recommend_cold)")
+    p.add_argument("--mmr", type=float, default=None,
+                   help="MMR diversification (not ported yet)")
+    p.add_argument("--mmr-pool", type=int, default=4)
+    _add_device(p)
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("export", help="checkpoint -> portable .npz model")
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--out", required=True, help="output .npz path")
+    p.set_defaults(fn=cmd_export)
+
     args = parser.parse_args(argv)
     return args.fn(args)
 

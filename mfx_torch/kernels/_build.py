@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``mfx_torch/csrc/*.cu`` compile with ``nvcc`` into one shared library with
-a plain C interface, at first use, under ``build/mfx_torch/`` beside the
-package. The library's name carries a hash of the sources' contents, so an
+``mfx_torch/csrc/*.cu`` compile with ``nvcc`` (one process per source, all
+started together) and link into one shared library with a plain C
+interface, at first use, under ``build/mfx_torch/`` beside the package. The library's name carries a hash of the sources' contents, so an
 edited source rebuilds and a stale library is never loaded. The library is
 loaded with ``ctypes``; pointers and the stream pass as ``c_void_p``.
 Every C entry point returns ``cudaGetLastError()`` after its launches, and
@@ -33,6 +33,7 @@ _SIGNATURES = {
                       _F, _F, _F, _P],
     "mfx_dense_phase": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                         _I, _I, _I, _F, _F, _F, _P],
+    "mfx_tile_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -67,18 +68,33 @@ def load_library() -> ctypes.CDLL:
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", str(tmp),
-            *[str(p) for p in _sources() if p.suffix == ".cu"],
-        ]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / "nvcc.log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}"
-            )
+        # one nvcc per source, all at once, then one link
+        procs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+            procs.append((obj, subprocess.Popen(
+                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+                 "-v", "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )))
+        logs, failed = [], []
+        for obj, proc in procs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append(logs[-1])
+        objs = [str(obj) for obj, _ in procs]
+        if not failed:
+            res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *objs],
+                                 capture_output=True, text=True)
+            logs.append(res.stdout + res.stderr)
+            if res.returncode != 0:
+                failed.append(logs[-1])
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
+        (BUILD_DIR / "nvcc.log").write_text("".join(logs))
+        if failed:
+            raise RuntimeError(f"nvcc failed:\n{failed[0][-4000:]}")
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, args in _SIGNATURES.items():

@@ -3,8 +3,12 @@ of ``mfx/train/driver.py::train``: load (through the shared ``mfx.data``),
 split, initialize, train, evaluate every ``eval_every`` epochs with the
 reference's clipping, and stop early at ``target_rmse``.
 
-Checkpoints, JSONL logging, profiling and resume are not ported yet
-(ROADMAP Queue 1 item 9); a config that asks for them is refused.
+Checkpoints are written as the reference writes them: every
+``checkpoint_every`` epochs and always at the end, synchronously
+(``checkpoint_async`` has no effect). Resume, JSONL logging and profiling
+are not ported yet (ROADMAP Queue 1 item 9): a config that asks for
+them is refused, and so is a checkpoint directory that already holds a
+step unless ``resume=False``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from mfx.data.split import (chronological_split, train_test_split,
 from mfx_torch.eval.metrics import rmse_mae
 from mfx_torch.models.mf import MFModel, init_model
 from mfx_torch.solvers.blocked import train_epochs_blocked
+from mfx_torch.train.checkpoint import latest_step, save_checkpoint
 
 __all__ = ["train", "TrainResult"]
 
@@ -43,7 +48,7 @@ def _check_supported(cfg: TrainConfig) -> None:
             "(ROADMAP Queue 1 items 10-13)"
         )
     wanted = {
-        "checkpoint_dir": cfg.checkpoint_dir, "log_path": cfg.log_path,
+        "log_path": cfg.log_path,
         "profile_dir": cfg.profile_dir, "ranking_k": cfg.ranking_k,
         "profile_phases": cfg.profile_phases or None,
     }
@@ -66,11 +71,21 @@ def _split(cfg: TrainConfig, coo):
     return train_test_split(coo, cfg.data.test_frac, seed=cfg.data.seed)
 
 
-def train(cfg: TrainConfig, device: torch.device | str = "cuda") -> TrainResult:
+def train(cfg: TrainConfig, device: torch.device | str = "cuda",
+          resume: bool = True) -> TrainResult:
     """Train ``cfg`` on ``device``. The dataset is read from
     ``cfg.data.root`` (and cached there) when it is set; otherwise the
-    named dataset's seeded synthetic stand-in is generated in memory."""
+    named dataset's seeded synthetic stand-in is generated in memory.
+    ``resume=False`` trains from scratch over an existing checkpoint
+    directory (its steps are overwritten)."""
     _check_supported(cfg)
+    if (resume and cfg.checkpoint_dir
+            and latest_step(cfg.checkpoint_dir) is not None):
+        raise NotImplementedError(
+            f"mfx_torch.train: {cfg.checkpoint_dir} holds a checkpoint and "
+            "resume is not ported yet (ROADMAP Queue 1 item 9); pass "
+            "--no-resume (resume=False) to train from scratch over it"
+        )
     dev = torch.device(device)
     seed = cfg.data.seed
     coo = load_dataset(cfg.data.dataset, root=cfg.data.root,
@@ -106,12 +121,19 @@ def train(cfg: TrainConfig, device: torch.device | str = "cuda") -> TrainResult:
             rec["test_rmse"] = round(test_rmse, 5)
             rec["test_mae"] = round(test_mae, 5)
         history.append(rec)
+        if cfg.checkpoint_dir and cfg.checkpoint_every and (
+            (epoch + 1) % cfg.checkpoint_every == 0
+        ):
+            save_checkpoint(cfg.checkpoint_dir, epoch, model, seed)
         epochs_run = epoch + 1
         if (cfg.target_rmse is not None and test_rmse is not None
                 and test_rmse <= cfg.target_rmse):
             break
         sync()
         t_prev = time.perf_counter()
+    if cfg.checkpoint_dir:
+        save_checkpoint(cfg.checkpoint_dir, max(0, epochs_run - 1), model,
+                        seed)
     if test_rmse is None:
         test_rmse, test_mae = rmse_mae(model, test_coo, clip=clip)
     return TrainResult(model=model, history=history, test_rmse=test_rmse,

@@ -155,3 +155,117 @@ def test_trainer_through_both_kernels_is_repeatable(cuda):
     assert abs(float(trc) - runs[0][0][0]) <= 1e-5
     np.testing.assert_allclose(mc.P.numpy(), runs[0][0][1].cpu().numpy(),
                                atol=1e-4)
+
+
+# ---- tile_topk (serving) ----------------------------------------------
+
+
+def _serve_tables(dev, B, I, rank, tile, dtype="f32", seed=0):
+    from mfx_torch.kernels.serve_topk import aug_width
+    from mfx_torch.serve.fused import (_augment_catalog,
+                                       _augment_catalog_int8, _augment_rows)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    P = torch.randn(B, rank, device=dev, generator=g)
+    Q = torch.randn(I, rank, device=dev, generator=g) / rank ** 0.5
+    bi = torch.randn(I, device=dev, generator=g) * 0.3
+    ipad = -(-I // tile) * tile
+    if dtype == "int8":
+        Q_aug, sb = _augment_catalog_int8(Q, bi, ipad, tile)
+        return _augment_rows(P, torch.float32, aug_width(rank)), Q_aug, sb
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    return (_augment_rows(P, dt, aug_width(rank)),
+            _augment_catalog(Q, bi, ipad, dt), None)
+
+
+def _same_candidates(got, want, P_aug, Q_aug, sb, tile, tol=1e-4):
+    full = P_aug.double() @ Q_aug.double().T
+    if sb is not None:
+        full = full * sb[:, 0].reshape(1, -1).double() \
+            + sb[:, 1].reshape(1, -1).double()
+    for j in range(0, len(got), 2):
+        (m_k, a_k), (m_p, a_p) = got[j:j + 2], want[j:j + 2]
+        assert a_k.dtype == torch.int32 and m_k.shape == m_p.shape
+        assert float((m_k - m_p).abs().max()) <= tol
+        bad = a_k != a_p
+        if bool(bad.any()):
+            b, t = bad.nonzero(as_tuple=True)
+            s_k = full[b, t * tile + a_k[bad].long()]
+            s_p = full[b, t * tile + a_p[bad].long()]
+            assert float((s_k - s_p).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype,depth,tile,B,rank", [
+    ("f32", 1, 128, 20, 8), ("f32", 2, 1024, 256, 64),
+    ("f32", 8, 1024, 40, 64), ("f32", 32, 2048, 17, 127),
+    ("f32", 3, 256, 16, 31), ("bf16", 2, 1024, 33, 64),
+    ("int8", 2, 1024, 48, 64), ("int8", 8, 128, 5, 16),
+])
+def test_tile_topk_kernel_matches_plain(cuda, dtype, depth, tile, B, rank):
+    from mfx_torch.kernels.serve_topk import tile_topk, tile_topk_plain
+
+    P_aug, Q_aug, sb = _serve_tables(cuda, B, 5000, rank, tile, dtype)
+    before = tile_topk.launches
+    runs = [tile_topk(P_aug, Q_aug, tile=tile, depth=depth, sb=sb)
+            for _ in range(2)]
+    assert tile_topk.launches == before + 2
+    for x, y in zip(*runs):  # bitwise repeatable
+        assert torch.equal(x, y)
+    want = tile_topk_plain(P_aug, Q_aug, tile=tile, depth=depth, sb=sb)
+    _same_candidates(runs[0], want, P_aug, Q_aug, sb, tile)
+
+
+def test_tile_topk_kernel_takes_the_lowest_lane_on_ties(cuda):
+    from mfx_torch.kernels.serve_topk import tile_topk
+
+    P_aug, Q_aug, _ = _serve_tables(cuda, 24, 1024, 8, 256)
+    best = Q_aug[0].clone()
+    best[:8] = 3.0
+    for lane in (200, 40, 33, 7, 256 + 255, 256 + 1):
+        Q_aug[lane] = best
+    P_aug[:, :8] = P_aug[:, :8].abs() + 1.0
+    out = tile_topk(P_aug, Q_aug, tile=256, depth=4)
+    lanes = [out[j][:, :2].cpu() for j in (1, 3, 5, 7)]
+    assert (lanes[0][:, 0] == 7).all() and (lanes[1][:, 0] == 33).all()
+    assert (lanes[2][:, 0] == 40).all() and (lanes[3][:, 0] == 200).all()
+    assert (lanes[0][:, 1] == 1).all() and (lanes[1][:, 1] == 255).all()
+    vals = out[0][:, 0]
+    assert torch.equal(out[2][:, 0], vals) and torch.equal(out[6][:, 0], vals)
+
+
+@pytest.mark.parametrize("exact,table_dtype", [(False, "f32"),
+                                                (False, "bf16"),
+                                                (False, "int8"),
+                                                (True, "f32")])
+def test_fused_recommender_on_the_card_matches_plain(cuda, monkeypatch,
+                                                     exact, table_dtype):
+    """The fused recommender through the kernel equals the same recommender
+    with the kernel's plain version swapped in, on the card; exact mode
+    also equals the stock scorer."""
+    from mfx_torch.convert import model_from_numpy
+    from mfx_torch.kernels import serve_topk
+    from mfx_torch.serve import FusedTopKRecommender, TopKRecommender
+    from mfx_torch.serve import fused
+
+    rng = np.random.default_rng(1)
+    Un, In, r = 300, 9000, 64
+    model = model_from_numpy({
+        "P": rng.normal(0, 0.3, (Un, r)), "Q": rng.normal(0, 0.3, (In, r)),
+        "bu": rng.normal(0, 0.2, Un), "bi": rng.normal(0, 0.2, In),
+        "mu": 3.5}, device=cuda)
+    coo = synthetic.make_synthetic(Un, In, 20_000, seed=3)
+    users = np.arange(Un, dtype=np.int32)
+    kw = dict(train=coo, batch=64, tile=1024, table_dtype=table_dtype,
+              exact=exact, exact_tiles=9, exact_depth=8)
+    before = serve_topk.tile_topk.launches
+    got = FusedTopKRecommender(model, **kw).recommend(users, k=10)
+    assert serve_topk.tile_topk.launches > before
+    monkeypatch.setattr(fused, "tile_topk", serve_topk.tile_topk_plain)
+    want = FusedTopKRecommender(model, **kw).recommend(users, k=10)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
+    assert (got[0] != want[0]).mean() <= 0.01
+    if exact:
+        stock = TopKRecommender(model, train=coo, batch=64).recommend(
+            users, k=10)
+        np.testing.assert_allclose(got[1], stock[1], rtol=1e-5, atol=1e-5)
+        assert (got[0] != stock[0]).mean() <= 0.01

@@ -9,11 +9,13 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from mfx_torch.kernels import _build
 from mfx_torch.kernels.dense_phase import dense_phase
+from mfx_torch.kernels.serve_topk import tile_topk
 from mfx_torch.kernels.sgd_sweep import sgd_sweep
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -23,7 +25,10 @@ MODULES = [
     "mfx_torch.kernels.sgd_sweep", "mfx_torch.kernels.dense_phase",
     "mfx_torch.kernels._build", "mfx_torch.eval.metrics",
     "mfx_torch.solvers.dense_prep", "mfx_torch.solvers.blocked",
-    "mfx_torch.train.driver",
+    "mfx_torch.train.driver", "mfx_torch.train.checkpoint",
+    "mfx_torch.kernels.serve_topk", "mfx_torch.serve", "mfx_torch.serve.topk",
+    "mfx_torch.serve.fused", "mfx_torch.serve.foldin",
+    "mfx_torch.serve.server",
 ]
 
 
@@ -57,9 +62,32 @@ def test_wrappers_on_a_missing_card_raise():
     with pytest.raises((RuntimeError, AssertionError)):
         P = torch.zeros(256, 64, device="cuda")
         dense_phase(P, P, {}, 0.01, 0.04, 3.5, su=256, si=256)
+    with pytest.raises((RuntimeError, AssertionError)):
+        P = torch.zeros(16, 72, device="cuda")
+        tile_topk(P, torch.zeros(1024, 72, device="cuda"), tile=1024)
 
 
-@pytest.mark.parametrize("wrapper", ["sgd_sweep", "dense_phase"])
+def test_recommenders_on_a_missing_card_raise():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; tests/test_torch_gpu.py runs")
+    from mfx_torch.convert import model_from_numpy
+    from mfx_torch.serve import (FusedTopKRecommender, TopKRecommender,
+                                 similar_items_fused)
+
+    model = model_from_numpy({"P": np.ones((4, 8)), "Q": np.ones((300, 8)),
+                              "bu": np.zeros(4), "bi": np.zeros(300),
+                              "mu": 3.0})
+    for build in (lambda: FusedTopKRecommender(model, tile=128,
+                                               device="cuda"),
+                  lambda: TopKRecommender(model, device="cuda"),
+                  lambda: similar_items_fused(model, [0], k=1, tile=128,
+                                              device="cuda")):
+        with pytest.raises((RuntimeError, AssertionError)):
+            build()
+
+
+@pytest.mark.parametrize("wrapper", ["sgd_sweep", "dense_phase",
+                                     "tile_topk"])
 def test_wrappers_reject_devices_without_a_kernel(wrapper):
     P = torch.zeros(256, 64, device="meta")
     i32 = dict(dtype=torch.int32, device="meta")
@@ -68,6 +96,9 @@ def test_wrappers_reject_devices_without_a_kernel(wrapper):
             sgd_sweep(P, P, torch.zeros(1, **i32), torch.zeros(4, **i32),
                       torch.zeros(4, 3, 64, **i32), 0.01, 0.04, 3.5,
                       su=256, si=256, tpg=4)
+        elif wrapper == "tile_topk":
+            tile_topk(torch.zeros(16, 72, device="meta"),
+                      torch.zeros(1024, 72, device="meta"), tile=1024)
         else:
             grp = {"sa": torch.zeros(1, **i32), "sc": torch.zeros(1, **i32),
                    "R": torch.zeros(1, 256, 128, dtype=torch.uint8,

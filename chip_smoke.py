@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. It needs one CUDA device and nvcc, and
-imports nothing of JAX. Phases, each printed as it ends:
+imports nothing of JAX and nothing of the JAX package mfx. Phases, each
+printed as it ends:
 
 1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: both kernels from mfx_torch/csrc;
+2. build: every kernel from mfx_torch/csrc;
 3. kernels against their plain PyTorch versions at the ml25m_rank64
    preset's shapes (su = si = 1024, T = 256, rank 64, int4): the first
    2,048 tiles of the first non-empty sparse sweep and the first 64
@@ -25,11 +26,25 @@ imports nothing of JAX. Phases, each printed as it ends:
    trip), the stock, fused and certified-exact fused recommenders with
    the training ratings excluded (exact == stock; the fused contract and
    its recall@10), the HTTP server (every endpoint 200, answers equal to
-   direct calls) and the CLI, with tile_topk launched (counter > 0).
+   direct calls) and the CLI, with tile_topk launched (counter > 0);
+7. bpr_sweep against its plain version at the BPR cell's shapes (su =
+   si = 512, T = 256, rank 64): the first 2,048 tiles of segment 0 of
+   epoch 0, max abs difference <= 1e-4, two kernel runs bitwise equal,
+   and the time of each;
+8. the BPR path: mfx_torch.parallel.bpr_sharded.train_epochs_bpr_ring with
+   the billion_bpr_sharded preset unchanged but for parallel.model_axis=1,
+   its 5 epochs on the billion-implicit synthetic cut to 1/10 of its users,
+   items and positives (seed 104, test_frac 0.001): the loss falls every
+   epoch and ends below ln 2, bpr_sweep launched (counter > 0), and as a
+   smoke check, not a quality gate (this synthetic is barely learnable at
+   the cell's density), the held-out sampled AUC ends above the untrained
+   model's; HR/NDCG/MRR@10 (sampled protocol) are printed.
 
-The second-to-last line is a JSON object describing each kernel; the last
-is {"ok": true, "device": {...}}. Any failure exits non-zero with no such
-line, and so does a machine without a CUDA device.
+Each phase prints its wall time. The second-to-last line is a JSON object
+describing each kernel (times, launches on the main path, and the bound:
+the least time the card could take for the same bytes and operations);
+the last is {"ok": true, "device": {...}}. Any failure exits non-zero
+with no such line, and so does a machine without a CUDA device.
 """
 
 from __future__ import annotations
@@ -42,6 +57,11 @@ import time
 
 RMSE_GATE = 0.406  # the reference's quality gate on this synthetic
 TOL = 1e-4
+# the BPR cell: billion-implicit cut to 1/10 of BILLION_SHAPE, one shard
+BPR_CUT = 10
+# the card's published peaks (H100 SXM data sheet): HBM bytes/s and f32
+# FLOP/s outside the tensor cores; every kernel here does f32 FMA
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 SWEEP_TILES = 2048
 DENSE_STRATA = 64
 SERVE_ITEMS, SERVE_B, SERVE_TILE = 1_000_000, 256, 1024
@@ -64,6 +84,36 @@ def cuda_ms(fn, reps: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(ms, what sets it): the least time for ``nbytes`` of device memory
+    traffic and ``flops`` f32 operations at the card's peaks."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def sweep_bound(tl, sa, tc, su, si, tpg, rank, row_sides, flops_per_slot):
+    """Bound of a sparse sweep: the tile stream and ids read once, and every
+    distinct table row its real slots touch read once and written once.
+    ``row_sides`` lists (table, tile row) pairs: 'P' rows come from tile
+    row 0 and the user block, 'Q' rows from the given row and the window."""
+    import torch
+
+    real = tl[:, 0, :] < su
+    t_of = torch.arange(tl.shape[0], device=tl.device)[:, None].expand_as(real)
+    rows = {"P": [], "Q": []}
+    for table, r in row_sides:
+        if table == "P":
+            ids = sa.long()[t_of // tpg] * su + tl[:, 0, :].long()
+        else:
+            ids = tc.long()[t_of] * si + tl[:, r, :].long()
+        rows[table].append(ids[real])
+    n_rows = sum(int(torch.unique(torch.cat(v)).numel())
+                 for v in rows.values() if v)
+    nbytes = (tl.numel() + sa.numel() + tc.numel()) * 4 + 2 * n_rows * rank * 4
+    return bound(nbytes, flops_per_slot * rank * int(real.sum()))
 
 
 def compare(name, run_kernel, run_plain, state):
@@ -109,7 +159,8 @@ def _true_scores(P_aug, Q_aug, sb, rows, items):
 
 def topk_phase(dev):
     """Phase 5: tile_topk against its plain version at the serving shape;
-    returns (max abs err over the variants, f32 depth-2 ms, its plain ms)."""
+    returns ((max abs err over the variants, f32 depth-2 ms, its plain
+    ms), the f32 depth-2 bound)."""
     import torch
 
     from mfx_torch.kernels.serve_topk import (aug_width, tile_topk,
@@ -170,10 +221,18 @@ def topk_phase(dev):
             f"{swap_gap:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f}")
         worst = max(worst, err)
         if head is None:
-            head = (ms, plain_ms)
+            # f32 FMA over the augmented width for every (row, item) pair;
+            # the tables read once, each tile's depth (value, lane) written
+            out_bytes = sum(x.numel() * x.element_size() for x in outs[0])
+            head = (ms, plain_ms, bound(
+                P_aug.numel() * P_aug.element_size()
+                + Q_aug.numel() * Q_aug.element_size() + out_bytes,
+                2.0 * P_aug.shape[0] * Q_aug.shape[0] * P_aug.shape[1]))
+            log(f"[kernel] tile_topk f32 depth {depth} bound "
+                f"{head[2][0]:.4f} ms ({head[2][1]})")
         del outs, Q_aug, P_aug, sb
         torch.cuda.empty_cache()
-    return worst, head[0], head[1]
+    return (worst, head[0], head[1]), head[2]
 
 
 def _post(port, path, body=None):
@@ -358,14 +417,167 @@ def serve_phase(model, train, dev, seed):
     return launches
 
 
+def bpr_phases(dev, results, bounds):
+    """Phases 7 and 8: bpr_sweep against its plain version at the BPR
+    cell's shapes, then the BPR path's 5 epochs. Fills ``results`` and
+    ``bounds`` for bpr_sweep; returns its launches on the path."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from mfx_torch.config import apply_overrides, preset
+    from mfx_torch.data.bpr import build_positive_index
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.data.synthetic import (BILLION_SHAPE,
+                                          make_implicit_synthetic)
+    from mfx_torch.eval.metrics import sampled_auc
+    from mfx_torch.eval.ranking import hr_ndcg_at_k
+    from mfx_torch.kernels.bpr_sweep import bpr_sweep, bpr_sweep_plain
+    from mfx_torch.models.mf import init_model
+    from mfx_torch.parallel import bpr_sharded as ring
+    from mfx_torch.solvers.blocked import TPG
+
+    cfg = apply_overrides(preset("billion_bpr_sharded"),
+                          ["parallel.model_axis=1"])
+    bpr, seed = cfg.bpr, cfg.data.seed
+    shape = tuple(x // BPR_CUT for x in BILLION_SHAPE)
+    log(f"[bpr] cell: billion_bpr_sharded with parallel.model_axis=1 (1 "
+        f"shard instead of {preset('billion_bpr_sharded').parallel.model_axis}"
+        f"); billion-implicit cut to 1/{BPR_CUT} of BILLION_SHAPE "
+        f"{BILLION_SHAPE}: {shape[0]} users x {shape[1]} items x {shape[2]} "
+        f"positives; widths unchanged (rank {cfg.model.rank}, su = si = "
+        f"{bpr.ublock}, T = {bpr.tile})")
+    t0 = time.perf_counter()
+    coo = make_implicit_synthetic(*shape, rank=64, seed=104)
+    train, test = train_test_split(coo, cfg.data.test_frac, seed=seed)
+    del coo
+    log(f"[data] {train.num_users} x {train.num_items}, {train.n_ratings} "
+        f"train / {test.n_ratings} test positives in "
+        f"{time.perf_counter() - t0:.1f} s")
+    U, I, rank = train.num_users, train.num_items, cfg.model.rank
+
+    def fresh_model():
+        g = torch.Generator(device=dev)
+        g.manual_seed(cfg.model.seed)
+        return init_model(g, U, I, rank, global_mean=train.global_mean,
+                          init_scale=cfg.model.init_scale)
+
+    # 7. bpr_sweep against its plain version: the first tiles of segment
+    # 0 of epoch 0, from the untrained tables
+    t_phase = time.perf_counter()
+    st = ring.ring_state(fresh_model(), train, bpr, seed=seed, device=dev)
+    tls = ring.ring_epoch_tiles(st, bpr, seed, 0)
+    win0, nw, sa, tc = st.segments()[0]
+    nt = min(SWEEP_TILES, tls[0].shape[2])
+    tl = tls[0][0, 0, :nt].contiguous()
+    sa, tc = sa[:nt // TPG].contiguous(), tc[:nt].contiguous()
+    si = bpr.iblock
+    seg = slice(win0 * si, (win0 + nw) * si)
+    log(f"[kernel] bpr_sweep: {nt} tiles of segment 0 ({len(tls)} segments "
+        f"of {[x.shape[2] for x in tls]} tiles; T={bpr.tile}, rank {rank})")
+    kw = dict(su=bpr.ublock, si=si, tpg=TPG)
+    results["bpr_sweep"] = compare(
+        "bpr_sweep",
+        lambda Pt, Qt: bpr_sweep(Pt, Qt[seg], sa, tc, tl, bpr.lr, bpr.reg,
+                                 **kw),
+        lambda Pt, Qt: bpr_sweep_plain(Pt, Qt[seg], sa, tc, tl, bpr.lr,
+                                       bpr.reg, **kw),
+        (st.P, st.Q),
+    )
+    # per real slot: q_i - q_j (rank), the dot (2 rank), three deltas
+    # (4 rank each) and three row adds (rank each)
+    bounds["bpr_sweep"] = sweep_bound(tl, sa, tc, bpr.ublock, si, TPG, rank,
+                                      [("P", 0), ("Q", 1), ("Q", 2)], 18)
+    log(f"[kernel] bpr_sweep bound {bounds['bpr_sweep'][0]:.4f} ms "
+        f"({bounds['bpr_sweep'][1]})")
+    del st, tls, tl
+    torch.cuda.empty_cache()
+    log(f"[time] phase 7 {time.perf_counter() - t_phase:.1f} s")
+
+    # 8. the BPR path, through the kernel
+    t_phase = time.perf_counter()
+    keys = np.concatenate([build_positive_index(train),
+                           build_positive_index(test)])
+    keys.sort()
+    model = fresh_model()
+    auc0 = sampled_auc(model, test, seed=seed, pos_keys=keys)
+    log(f"[bpr] untrained held-out sampled AUC {auc0:.5f} "
+        f"({test.n_ratings} positives; keys built in "
+        f"{time.perf_counter() - t_phase:.1f} s)")
+    bpr_sweep.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings: dict = {}
+    losses, auc = [], None
+    torch.cuda.synchronize()
+    t_prev = time.perf_counter()
+    for epoch, m, loss in ring.train_epochs_bpr_ring(
+            model, train, bpr, shards=1, seed=seed, device=dev,
+            timings=timings):
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_prev
+        if epoch == 0:
+            log(f"[bpr] prep {timings['prep_s']:.3f} s (positive index, "
+                "window bounds, plan skeleton)")
+            wall -= timings["prep_s"]
+        t_eval = time.perf_counter()
+        auc = sampled_auc(m, test, seed=seed, pos_keys=keys)
+        losses.append(loss)
+        log(f"[bpr] epoch {epoch}: epoch_s {wall:.4f} (negatives "
+            f"{timings['neg_s']:.4f}, plan {timings['plan_s']:.4f}, sweeps "
+            f"{wall - timings['neg_s'] - timings['plan_s']:.4f}) mean_loss "
+            f"{loss:.6f} test_auc {auc:.5f} (eval "
+            f"{time.perf_counter() - t_eval:.1f} s)")
+        finite = all(bool(torch.isfinite(getattr(m, k)).all())
+                     for k in ("P", "Q"))
+        if not finite or m.P.shape != (U, rank) or m.Q.shape != (I, rank):
+            raise AssertionError("BPR tables not finite or mis-shaped")
+        t_prev = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = bpr_sweep.launches
+    # held-out positives whose (user, item) pair also occurs in training
+    tk = build_positive_index(train)
+    q = test.user.astype(np.int64) * I + test.item
+    dup = tk[np.minimum(np.searchsorted(tk, q), len(tk) - 1)] == q
+    new = test.select(np.flatnonzero(~dup))
+    log(f"[bpr] {dup.mean():.5f} of the held-out positives also occur in "
+        f"training; AUC over the others: untrained "
+        f"{sampled_auc(model, new, seed=seed, pos_keys=keys):.5f}, final "
+        f"{sampled_auc(m, new, seed=seed, pos_keys=keys):.5f}")
+    t_eval = time.perf_counter()
+    rk = hr_ndcg_at_k(m, test, k=cfg.ranking_k, seed=seed, pos_keys=keys)
+    log(f"[bpr] test " + " ".join(f"{n}@{cfg.ranking_k} {v:.5f}"
+                                   for n, v in rk.items())
+        + f" (sampled protocol, 100 negatives; "
+        f"{time.perf_counter() - t_eval:.1f} s)")
+    log(f"[bpr] launches {{'bpr_sweep': {launches}}}, peak memory allocated "
+        f"{peak} bytes")
+    if launches < 1:
+        raise AssertionError("bpr_sweep never launched on the BPR path")
+    if len(losses) != bpr.epochs or any(
+            b >= a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"the BPR loss did not fall every epoch: "
+                             f"{losses}")
+    if not losses[-1] < math.log(2):
+        raise AssertionError(f"final BPR loss {losses[-1]} not below ln 2")
+    # a smoke check, not a quality gate: on this synthetic the final AUC
+    # sits within about one standard error of the untrained model's
+    if not auc > auc0:
+        raise AssertionError(f"AUC {auc} not above the untrained {auc0}")
+    log(f"[bpr] AUC smoke check (not a quality gate): final {auc:.5f} > "
+        f"untrained {auc0:.5f}")
+    log(f"[time] phase 8 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port's kernels run only on a GPU")
-    from mfx.config import preset
-    from mfx.data.split import train_test_split
-    from mfx.data.synthetic import ML25M_SHAPE, make_synthetic
+    from mfx_torch.config import preset
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.data.synthetic import ML25M_SHAPE, make_synthetic
     from mfx_torch.eval.metrics import rmse_mae
     from mfx_torch.kernels import _build
     from mfx_torch.kernels import plan_device as pdv
@@ -428,7 +640,8 @@ def main() -> int:
     tl = pdv.epoch_tiles_device(skel, u, i, r, cfg.data.seed, 0)
     P, Q = lane_tables(fresh_model(), su, si, dev)
     mu, lr, reg = float(train.global_mean), sgd.lr, sgd.reg
-    results = {}
+    results, bounds = {}, {}
+    t_phase = time.perf_counter()
 
     win0, nw = meta[0]
     grp = {k: v[:DENSE_STRATA].contiguous() for k, v in groups[0].items()}
@@ -443,6 +656,13 @@ def main() -> int:
                                          su=su, si=si),
         (P, Q),
     )
+    # each stratum: three (su x si x rank) products (S, E Q, E^T P); the
+    # group's tensors read once, each distinct P block and Q window read
+    # and written once
+    n_blk = (grp["sa"].unique().numel() * su + grp["sc"].unique().numel() * si)
+    bounds["dense_phase"] = bound(
+        sum(v.numel() * v.element_size() for v in grp.values())
+        + 2 * n_blk * rank * 4, 6.0 * su * si * rank * grp["sa"].shape[0])
 
     sw = next(s for s in skel.sweeps if s.t1 > s.t0)
     nt = min(SWEEP_TILES, sw.t1 - sw.t0)
@@ -459,10 +679,19 @@ def main() -> int:
                                        mu, su=su, si=si, tpg=tpg),
         (P, Q),
     )
+    # per real slot: the residual's dot (2 rank), two deltas (3 rank each)
+    # and two row adds (rank each)
+    bounds["sgd_sweep"] = sweep_bound(tls, sa, tc, su, si, tpg, rank,
+                                      [("P", 0), ("Q", 1)], 10)
+    for name in ("dense_phase", "sgd_sweep"):
+        log(f"[kernel] {name} bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]})")
+    log(f"[time] phase 3 {time.perf_counter() - t_phase:.1f} s")
     del meta, groups, grp, skel, tl, tls, P, Q, u, i, r
     torch.cuda.empty_cache()
 
     # 4. the main path, through the kernels
+    t_phase = time.perf_counter()
     sgd_sweep.launches = 0
     dense_phase.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -505,21 +734,35 @@ def main() -> int:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     if not test_rmse <= RMSE_GATE:
         raise AssertionError(f"test RMSE {test_rmse} above the {RMSE_GATE} gate")
+    log(f"[time] phase 4 {time.perf_counter() - t_phase:.1f} s")
 
     # 5. tile_topk against its plain version at the serving shape
-    results["tile_topk"] = topk_phase(dev)
+    t_phase = time.perf_counter()
+    results["tile_topk"], bounds["tile_topk"] = topk_phase(dev)
+    log(f"[time] phase 5 {time.perf_counter() - t_phase:.1f} s")
 
     # 6. the serving path, on the model phase 4 trained
+    t0 = time.perf_counter()
     launches["tile_topk"] = serve_phase(m, train, dev, cfg.data.seed)
+    log(f"[time] phase 6 {time.perf_counter() - t0:.1f} s")
+    del m, model, train, test, coo
+    torch.cuda.empty_cache()
+
+    # 7-8. the BPR path
+    launches["bpr_sweep"] = bpr_phases(dev, results, bounds)
 
     replaces = {"sgd_sweep": "mfx/kernels/sgd_pallas.py:63",
                 "dense_phase": "mfx/kernels/dense_pallas.py:86",
-                "tile_topk": "mfx/kernels/serve_pallas.py:42"}
+                "tile_topk": "mfx/kernels/serve_pallas.py:42",
+                "bpr_sweep": "mfx/kernels/bpr_pallas.py:47"}
     log(f"[card] {card}")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"mfx_torch/csrc/{name}.cu",
          "replaces": replaces[name], "launches": launches[name],
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         # no single PyTorch call computes any of these functions
+         "library_ms": None}
         for name, (err, ms, plain_ms) in results.items()
     ]}))
     log(json.dumps({"ok": True, "device": {

@@ -1,14 +1,16 @@
 """CLI of the port.
 
     python -m mfx_torch.cli train --preset ml25m_rank64 [--set k=v ...] [--device cuda]
+    python -m mfx_torch.cli train --preset billion_bpr_sharded \
+        --set parallel.model_axis=1 [--set data.dataset=...]
     python -m mfx_torch.cli recommend --checkpoint ckpt/ --users 3,17 [--fused]
     python -m mfx_torch.cli similar --checkpoint ckpt/ --items 1,7 [--fused]
     python -m mfx_torch.cli serve --checkpoint ckpt/ --port 8080 [--fused]
     python -m mfx_torch.cli export --checkpoint ckpt/ --out model.npz
 
-Configs come from the shared ``mfx.config`` presets and ``--set``
-overrides. Each subcommand takes the reference's flags (``mfx.cli``) and
-prints the same JSON, plus ``--device`` (default ``cuda``; ``cpu`` runs
+Configs come from the ``mfx_torch.config`` presets (the reference's) and
+``--set`` overrides. Each subcommand takes the reference's flags
+(``mfx.cli``) and prints the same JSON, plus ``--device`` (default ``cuda``; ``cpu`` runs
 the kernels' plain versions). Datasets named with ``--dataset`` are read
 from ``--root`` (and cached there) when it is given; otherwise their
 seeded synthetic stand-in is generated in memory.
@@ -22,7 +24,7 @@ import sys
 
 
 def cmd_train(args) -> int:
-    from mfx.config import apply_overrides, preset
+    from mfx_torch.config import apply_overrides, preset
     from mfx_torch.train.driver import train
 
     cfg = apply_overrides(preset(args.preset), args.overrides)
@@ -35,12 +37,19 @@ def cmd_train(args) -> int:
     if result.test_rmse is not None:
         out["test_rmse"] = result.test_rmse
         out["test_mae"] = result.test_mae
+    if result.test_auc is not None:
+        out["test_auc"] = result.test_auc
+    if result.test_ranking is not None:
+        out.update({
+            f"test_{n}@{cfg.ranking_k}": round(v, 5)
+            for n, v in result.test_ranking.items()
+        })
     print(json.dumps(out, sort_keys=True))
     return 0
 
 
 def _load_dataset(args):
-    from mfx.data.loaders import load_dataset
+    from mfx_torch.data.loaders import load_dataset
 
     return load_dataset(args.dataset, root=args.root,
                         cache=args.root is not None)
@@ -222,7 +231,7 @@ def cmd_export(args) -> int:
     """Checkpoint -> portable .npz model file (the reference's format)."""
     from mfx_torch.train.checkpoint import load_checkpoint
 
-    model, epoch, _seed = load_checkpoint(args.checkpoint)
+    model, epoch, _seed = load_checkpoint(args.checkpoint, device="cpu")
     model.save_npz(args.out)
     print(json.dumps({
         "out": args.out, "checkpoint_epoch": epoch,
@@ -254,7 +263,7 @@ def main(argv=None) -> int:
     sub = parser.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("train", help="train a preset config")
     p.add_argument("--preset", default="ml25m_rank64",
-                   help="named config from mfx.config.PRESETS")
+                   help="named config from mfx_torch.config.PRESETS")
     p.add_argument("--set", dest="overrides", action="append", default=[],
                    metavar="KEY=VALUE", help="dot-path config override")
     p.add_argument("--no-resume", action="store_true",

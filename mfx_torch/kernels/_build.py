@@ -34,6 +34,8 @@ _SIGNATURES = {
     "mfx_dense_phase": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                         _I, _I, _I, _F, _F, _F, _P],
     "mfx_tile_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mfx_bpr_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _F, _F, _P],
 }
 
 

@@ -16,33 +16,50 @@ import torch
 
 from mfx_torch.kernels import _build
 
-__all__ = ["sgd_sweep", "sgd_sweep_plain"]
+__all__ = ["sgd_sweep", "sgd_sweep_plain", "check_sweep_args",
+           "check_kernel_limits"]
 
 _RANK = 64
 
 
-def _validate(P, Q, sa, tc, tl, su, si, tpg):
+def check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg):
+    """The sweep wrappers' common argument check (``who`` names the
+    wrapper in the message): devices, dtypes, contiguity, whole blocks,
+    and a tile stream that matches ``sa`` / ``tc``."""
     dev = P.device
     for name, x, dt in (("P", P, torch.float32), ("Q", Q, torch.float32),
                         ("sa", sa, torch.int32), ("tc", tc, torch.int32),
                         ("tl", tl, torch.int32)):
         if x.device != dev:
-            raise ValueError(f"sgd_sweep: {name} is on {x.device}, P on {dev}")
+            raise ValueError(f"{who}: {name} is on {x.device}, P on {dev}")
         if x.dtype != dt:
-            raise TypeError(f"sgd_sweep: {name} must be {dt}, got {x.dtype}")
+            raise TypeError(f"{who}: {name} must be {dt}, got {x.dtype}")
         if not x.is_contiguous():
-            raise ValueError(f"sgd_sweep: {name} must be contiguous")
+            raise ValueError(f"{who}: {name} must be contiguous")
     if P.dim() != 2 or Q.dim() != 2 or P.shape[1] != Q.shape[1]:
-        raise ValueError(f"sgd_sweep: bad table shapes {P.shape}, {Q.shape}")
+        raise ValueError(f"{who}: bad table shapes {P.shape}, {Q.shape}")
     if P.shape[0] % su or Q.shape[0] % si:
-        raise ValueError("sgd_sweep: tables must be padded to whole blocks")
+        raise ValueError(f"{who}: tables must be padded to whole blocks")
     if tl.dim() != 3 or tl.shape[1] != 3:
-        raise ValueError(f"sgd_sweep: tl must be (NT, 3, T), got {tl.shape}")
+        raise ValueError(f"{who}: tl must be (NT, 3, T), got {tl.shape}")
     nt = tl.shape[0]
     if tc.shape != (nt,) or sa.shape != (nt // tpg,) or nt % tpg:
         raise ValueError(
-            f"sgd_sweep: tc {tuple(tc.shape)} / sa {tuple(sa.shape)} do not "
+            f"{who}: tc {tuple(tc.shape)} / sa {tuple(sa.shape)} do not "
             f"match {nt} tiles at tpg={tpg}"
+        )
+
+
+def check_kernel_limits(who, P, tl, su, si):
+    """What the sweep kernels are built for: rank 64, T <= 256, blocks
+    <= 1024."""
+    if P.shape[1] != _RANK:
+        raise NotImplementedError(
+            f"{who} kernel is built for rank {_RANK}, got {P.shape[1]}"
+        )
+    if tl.shape[2] > 256 or su > 1024 or si > 1024:
+        raise NotImplementedError(
+            f"{who} kernel takes tile <= 256 and blocks <= 1024"
         )
 
 
@@ -81,21 +98,14 @@ def sgd_sweep(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg):
     user block of each group of tpg tiles; ``tc`` (NT,) each tile's
     sweep-local window; ``tl`` the (NT, 3, T) tile stream. Updates P and
     Q in place and returns the sweep's SSE as a 0-d f32 tensor."""
-    _validate(P, Q, sa, tc, tl, su, si, tpg)
+    check_sweep_args("sgd_sweep", P, Q, sa, tc, tl, su, si, tpg)
     if P.device.type == "cpu":
         return sgd_sweep_plain(P, Q, sa, tc, tl, lr, reg, mu,
                                su=su, si=si, tpg=tpg)
     if P.device.type != "cuda":
         raise ValueError(f"sgd_sweep: no kernel for device {P.device}")
-    if P.shape[1] != _RANK:
-        raise NotImplementedError(
-            f"sgd_sweep kernel is built for rank {_RANK}, got {P.shape[1]}"
-        )
+    check_kernel_limits("sgd_sweep", P, tl, su, si)
     T = tl.shape[2]
-    if T > 256 or su > 1024 or si > 1024:
-        raise NotImplementedError(
-            "sgd_sweep kernel takes tile <= 256 and blocks <= 1024"
-        )
     lib = _build.load_library()
     sse = torch.empty(1, dtype=torch.float32, device=P.device)
     stream = torch.cuda.current_stream(P.device).cuda_stream

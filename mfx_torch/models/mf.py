@@ -63,8 +63,9 @@ class MFModel(nn.Module):
         )
 
     @staticmethod
-    def load_npz(path, device: torch.device | str = "cpu") -> "MFModel":
-        """Inverse of :meth:`save_npz`; reads files the reference wrote."""
+    def load_npz(path, device: torch.device | str = "cuda") -> "MFModel":
+        """Inverse of :meth:`save_npz`; reads files the reference wrote.
+        The tables land on the card unless ``device`` says otherwise."""
         with np.load(path) as z:
             arrs = {k: z[k] for k in ("P", "Q", "bu", "bi", "mu")}
         return MFModel(
@@ -81,12 +82,15 @@ def init_model(
     rank: int,
     global_mean: float = 0.0,
     init_scale: float | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> MFModel:
     """Scaled-normal init with the reference's scale, 1/sqrt(rank) by
-    default. ``generator`` must live on ``device``. The draws differ from
-    the reference's ``jax.random`` ones; tests hand tables across with
+    default, on the generator's device unless ``device`` names it (the
+    two must agree). The draws differ from the reference's ``jax.random``
+    ones; tests hand tables across with
     ``mfx_torch.convert.model_from_numpy`` instead."""
+    if device is None:
+        device = generator.device
     if init_scale is None:
         init_scale = 1.0 / math.sqrt(rank)
     f32 = torch.float32

@@ -1,8 +1,8 @@
 """Batched top-K recommendation serving, the counterpart of
 ``mfx/serve/topk.py``: one full-catalog product ``P[users] @ Qᵀ`` per user
 batch, plus biases, seen-item exclusion by one scatter of -inf at the
-batch's observed (row, item) pairs (from the shared ``SeenCSR``), and an
-exact top-K.
+batch's observed (row, item) pairs (from ``mfx_torch.data``'s
+``SeenCSR``), and an exact top-K.
 
 The full-catalog product is a plain matrix product outside any kernel, so
 it runs as ``torch.matmul`` in true f32 (TF32 off). The int8 tables score
@@ -20,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from mfx.data.coo import SeenCSR
+from mfx_torch.data.coo import SeenCSR
 from mfx_torch.kernels.serve_topk import matmul_f32
 from mfx_torch.models.mf import MFModel
 

@@ -19,8 +19,8 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from mfx.config import SGDConfig
-from mfx.data.coo import RatingsCOO
+from mfx_torch.config import SGDConfig
+from mfx_torch.data.coo import RatingsCOO
 from mfx_torch.kernels import plan_device as pdv
 from mfx_torch.kernels.dense_phase import dense_phase
 from mfx_torch.kernels.packing import from_lane_model, lane_tables

@@ -19,7 +19,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mfx.data.loaders import GENERATOR_VERSION
+from mfx_torch.data.loaders import GENERATOR_VERSION
 from mfx_torch.models.mf import MFModel
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_step"]
@@ -60,10 +60,11 @@ def latest_step(ckpt_dir) -> int | None:
 
 
 def load_checkpoint(
-    ckpt_dir, step: int | None = None, device: torch.device | str = "cpu"
+    ckpt_dir, step: int | None = None, device: torch.device | str = "cuda"
 ) -> tuple[MFModel, int, int]:
-    """Returns (model on ``device``, epoch, seed). Raises FileNotFoundError
-    if absent, and ValueError for an Orbax checkpoint directory."""
+    """Returns (model on ``device``, the card unless told otherwise, epoch,
+    seed). Raises FileNotFoundError if absent, and ValueError for an Orbax
+    checkpoint directory."""
     ckpt_dir = Path(ckpt_dir).absolute()
     if step is None:
         step = latest_step(ckpt_dir)

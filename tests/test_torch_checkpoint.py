@@ -45,7 +45,7 @@ def test_round_trip_is_bitwise(tmp_path):
     assert sorted(p.name for p in tmp_path.iterdir()) == ["3.npz"]
     with warnings.catch_warnings():
         warnings.simplefilter("error")  # a current stamp warns nothing
-        got, epoch, seed = load_checkpoint(tmp_path)
+        got, epoch, seed = load_checkpoint(tmp_path, device="cpu")
     assert (epoch, seed) == (3, 7)
     _equal(model_to_numpy(got), model_to_numpy(m))
     assert got.P.dtype == torch.float32 and isinstance(got.mu, float)
@@ -68,13 +68,14 @@ def test_port_reads_the_references_files(tmp_path):
     ckpt_j.save_checkpoint(tmp_path / "ck", 2, jm, seed=9)
     if (tmp_path / "ck" / "2").is_dir():
         with pytest.raises(ValueError, match="mfx.cli export"):
-            load_checkpoint(tmp_path / "ck")
+            load_checkpoint(tmp_path / "ck", device="cpu")
     else:
-        got, epoch, seed = load_checkpoint(tmp_path / "ck")
+        got, epoch, seed = load_checkpoint(tmp_path / "ck", device="cpu")
         assert (epoch, seed) == (2, 9)
         _equal(model_to_numpy(got), want)
     jm.save_npz(tmp_path / "model.npz")
-    _equal(model_to_numpy(MFModel.load_npz(tmp_path / "model.npz")), want)
+    _equal(model_to_numpy(MFModel.load_npz(tmp_path / "model.npz",
+                                           device="cpu")), want)
 
 
 def test_latest_step(tmp_path):
@@ -84,10 +85,10 @@ def test_latest_step(tmp_path):
         save_checkpoint(tmp_path, step, _model())
     (tmp_path / "notes.txt").write_text("x")
     assert latest_step(tmp_path) == 12
-    assert load_checkpoint(tmp_path)[1] == 12
-    assert load_checkpoint(tmp_path, step=3)[1] == 3
+    assert load_checkpoint(tmp_path, device="cpu")[1] == 12
+    assert load_checkpoint(tmp_path, step=3, device="cpu")[1] == 3
     with pytest.raises(FileNotFoundError):
-        load_checkpoint(tmp_path / "missing")
+        load_checkpoint(tmp_path / "missing", device="cpu")
 
 
 @pytest.mark.parametrize("stamp", [None, GENERATOR_VERSION - 1])
@@ -98,7 +99,8 @@ def test_data_version_mismatch_warns_like_the_reference(tmp_path, stamp):
         state["data_version"] = np.int32(stamp)
     np.savez(tmp_path / "1.npz", **state)
     messages = []
-    for load in (load_checkpoint, ckpt_j.load_checkpoint):
+    for load in (lambda d: load_checkpoint(d, device="cpu"),
+                 ckpt_j.load_checkpoint):
         with pytest.warns(UserWarning, match="generator") as rec:
             load(tmp_path)
         messages.append(str(rec[0].message))
@@ -122,7 +124,7 @@ def test_driver_checkpoints_and_refuses_to_resume(tmp_path):
     assert res.epochs_run == 3
     # epoch 1 (every 2nd) and the final epoch 2
     assert sorted(p.name for p in ckpt.iterdir()) == ["1.npz", "2.npz"]
-    got, epoch, _ = load_checkpoint(ckpt)
+    got, epoch, _ = load_checkpoint(ckpt, device="cpu")
     assert epoch == 2
     _equal(model_to_numpy(got), model_to_numpy(res.model))
     jm, _, _ = ckpt_j.load_checkpoint(ckpt)

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(small shapes), bitwise run-to-run repeatability, and a short training run
-through both kernels. Marked ``gpu``; they skip where there is no CUDA
-device. Run on the card with
+(small shapes), bitwise run-to-run repeatability, and short training runs
+through the kernels (blocked SGD, the BPR ring). Marked ``gpu``; they skip
+where there is no CUDA device. Run on the card with
 ``python -m pytest --noconftest tests/test_torch_gpu.py`` (the conftest
 imports JAX, which the port and its card do not need)."""
 
@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from mfx.config import SGDConfig
-from mfx.data import synthetic, train_test_split
+from mfx_torch.config import BPRConfig, SGDConfig
+from mfx_torch.data import synthetic, train_test_split
 from mfx_torch.kernels import plan_device as pdv
 from mfx_torch.kernels.dense_phase import dense_phase, dense_phase_plain
 from mfx_torch.kernels.packing import lane_tables
@@ -269,3 +269,99 @@ def test_fused_recommender_on_the_card_matches_plain(cuda, monkeypatch,
             users, k=10)
         np.testing.assert_allclose(got[1], stock[1], rtol=1e-5, atol=1e-5)
         assert (got[0] != stock[0]).mean() <= 0.01
+
+
+# ---- bpr_sweep (the BPR ring) ------------------------------------------
+
+
+BPR = BPRConfig(lr=0.05, reg=0.002, epochs=2, kernel="pallas", ublock=128,
+                iblock=128, tile=64, neg_seed=1)
+
+
+def _bpr_state(dev, tile=64):
+    from mfx_torch.parallel import bpr_sharded as ring
+
+    coo = synthetic.make_implicit_synthetic(700, 600, 30_000, rank=4, seed=5)
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = init_model(g, 700, 600, RANK)
+    cfg = dataclasses.replace(BPR, tile=tile)
+    st = ring.ring_state(model, coo, cfg, seed=0, device=dev)
+    return coo, model, cfg, st, ring.ring_epoch_tiles(st, cfg, 0, 0)
+
+
+@pytest.mark.parametrize("tile", [64, 256])
+def test_bpr_sweep_kernel_matches_plain(cuda, tile):
+    from mfx_torch.kernels.bpr_sweep import bpr_sweep, bpr_sweep_plain
+
+    _, _, cfg, st, tls = _bpr_state(cuda, tile)
+    for (win0, nw, sa, tc), slab in zip(st.segments(), tls):
+        seg = slice(win0 * cfg.iblock, (win0 + nw) * cfg.iblock)
+        args = (sa, tc, slab[0, 0], cfg.lr, cfg.reg)
+        kw = dict(su=cfg.ublock, si=cfg.iblock, tpg=TPG)
+        before = bpr_sweep.launches
+        _check(lambda Pt, Qt: bpr_sweep(Pt, Qt[seg], *args, **kw),
+               lambda Pt, Qt: bpr_sweep_plain(Pt, Qt[seg], *args, **kw),
+               st.P, st.Q)
+        assert bpr_sweep.launches == before + 2
+
+
+@pytest.mark.parametrize("distinct", [4, 64, 512])
+def test_bpr_sweep_kernel_hot_rows_and_pads(cuda, distinct):
+    """Random full tiles at the preset's blocks (512) and tile (256) where
+    every slot repeats one of ``distinct`` rows per side (so positives and
+    negatives share rows, and the negatives' add reads the positives'),
+    the first tile all pad and the last half pad."""
+    from mfx_torch.kernels.bpr_sweep import bpr_sweep, bpr_sweep_plain
+
+    g = torch.Generator(device=cuda).manual_seed(distinct)
+    su = si = 512
+    nt, tile = 32, 256
+    P = torch.randn(2 * su, RANK, device=cuda, generator=g) * 0.1
+    Q = torch.randn(3 * si, RANK, device=cuda, generator=g) * 0.1
+    sa = torch.randint(0, 2, (nt // TPG,), device=cuda, generator=g,
+                       dtype=torch.int32)
+    tc = torch.randint(0, 3, (nt,), device=cuda, generator=g,
+                       dtype=torch.int32)
+    tl = torch.randint(0, distinct, (nt, 3, tile), device=cuda, generator=g,
+                       dtype=torch.int32)
+    tl[0, 0], tl[0, 1:] = su, si
+    tl[-1, 0, tile // 2:] = su
+    tl[-1, 1:, tile // 2:] = si
+    args = (sa, tc, tl, 0.05, 0.002)
+    kw = dict(su=su, si=si, tpg=TPG)
+    _check(lambda Pt, Qt: bpr_sweep(Pt, Qt, *args, **kw),
+           lambda Pt, Qt: bpr_sweep_plain(Pt, Qt, *args, **kw), P, Q)
+
+
+def test_bpr_ring_through_the_kernel_is_repeatable(cuda):
+    from mfx_torch.data.bpr import uniform_below
+    from mfx_torch.kernels.bpr_sweep import bpr_sweep
+    from mfx_torch.parallel import bpr_sharded as ring
+
+    coo, model, cfg, _, _ = _bpr_state(cuda)
+    runs = []
+    for _ in range(2):
+        before = bpr_sweep.launches
+        runs.append([(loss, m.P.clone(), m.Q.clone()) for _, m, loss in
+                     ring.train_epochs_bpr_ring(model, coo, cfg, seed=0,
+                                                device=cuda)])
+        assert bpr_sweep.launches > before
+    for (la, Pa, Qa), (lb, Pb, Qb) in zip(*runs):
+        assert la == lb and torch.equal(Pa, Pb) and torch.equal(Qa, Qb)
+    assert runs[0][1][0] < runs[0][0][0]
+    # one epoch on the CPU from the card's random numbers agrees
+    cpu_model = init_model(torch.Generator().manual_seed(0), 700, 600, RANK)
+    cpu_model.P.copy_(model.P.cpu())
+    cpu_model.Q.copy_(model.Q.cpu())
+    (_, mc, lc), = ring.train_epochs_bpr_ring(
+        cpu_model, coo, dataclasses.replace(cfg, epochs=1), seed=0,
+        device="cpu",
+        plan_rand=lambda e, n: pdv.epoch_rand(n, 0, e, cuda).cpu(),
+        neg_rand=lambda e, nav: uniform_below(
+            nav.to(cuda), ring.neg_generator(0 + cfg.neg_seed, e,
+                                             cuda)).cpu())
+    assert abs(lc - runs[0][0][0]) <= 1e-5 * runs[0][0][0]
+    np.testing.assert_allclose(mc.P.numpy(), runs[0][0][1].cpu().numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(mc.Q.numpy(), runs[0][0][2].cpu().numpy(),
+                               atol=1e-4)

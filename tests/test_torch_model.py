@@ -47,7 +47,7 @@ def test_npz_moves_between_packages(tmp_path, direction):
     jm = _jax_model(3)
     if direction == "jax_to_torch":
         jm.save_npz(path)
-        got = model_to_numpy(MFModel.load_npz(path))
+        got = model_to_numpy(MFModel.load_npz(path, device="cpu"))
         want = _np(jm)
     else:
         tm = model_from_numpy(_np(jm))

@@ -1,6 +1,7 @@
-"""The port imports no JAX, and nothing in it carries on without a card:
-kernel wrappers, the kernel build and chip_smoke.py fail loudly instead
-of falling back to the CPU."""
+"""The port imports neither JAX nor anything of the JAX package ``mfx``,
+and nothing in it carries on without a card: kernel wrappers, loaders
+that default to the card, the kernel build and chip_smoke.py fail loudly
+instead of falling back to the CPU."""
 
 import os
 import shutil
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from mfx_torch.kernels import _build
+from mfx_torch.kernels.bpr_sweep import bpr_sweep
 from mfx_torch.kernels.dense_phase import dense_phase
 from mfx_torch.kernels.serve_topk import tile_topk
 from mfx_torch.kernels.sgd_sweep import sgd_sweep
@@ -28,7 +30,13 @@ MODULES = [
     "mfx_torch.train.driver", "mfx_torch.train.checkpoint",
     "mfx_torch.kernels.serve_topk", "mfx_torch.serve", "mfx_torch.serve.topk",
     "mfx_torch.serve.fused", "mfx_torch.serve.foldin",
-    "mfx_torch.serve.server",
+    "mfx_torch.serve.server", "mfx_torch.config", "mfx_torch.data",
+    "mfx_torch.data.coo", "mfx_torch.data.synthetic",
+    "mfx_torch.data.loaders", "mfx_torch.data.split", "mfx_torch.data.bpr",
+    "mfx_torch.kernels.plan_ring_device", "mfx_torch.kernels.bpr_sweep",
+    "mfx_torch.solvers.bpr", "mfx_torch.parallel",
+    "mfx_torch.parallel.bpr_sharded", "mfx_torch.eval",
+    "mfx_torch.eval.ranking", "mfx_torch.measure_bpr",
 ]
 
 
@@ -39,18 +47,79 @@ def _run(args, cwd, timeout=120):
                           capture_output=True, text=True, timeout=timeout)
 
 
+_NO_REFERENCE = (
+    "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+    "('jax', 'jaxlib', 'mfx'))\n"
+    "assert not bad, bad\n"
+    "print('ok')\n"
+)
+
+
 def test_port_imports_no_jax():
+    """Neither JAX nor any module of the JAX package ``mfx`` (not even a
+    NumPy-only one) is loaded after importing every port module."""
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib'))\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
-    )
+    ) + _NO_REFERENCE
     res = _run(["-c", code], ROOT)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_chip_smoke_imports_no_jax():
+    """The same check over every module that an import statement anywhere
+    in chip_smoke.py names (``from a import b`` also tries module
+    ``a.b``)."""
+    import ast
+
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    mods, subs = set(), set()
+    for n in ast.walk(tree):
+        if isinstance(n, ast.Import):
+            mods.update(a.name for a in n.names)
+        elif isinstance(n, ast.ImportFrom):
+            mods.add(n.module)
+            subs.update(f"{n.module}.{a.name}" for a in n.names)
+    assert "mfx_torch.parallel.bpr_sharded" in subs
+    code = (
+        "import importlib, sys\n"
+        f"for m in {sorted(mods)!r}: importlib.import_module(m)\n"
+        f"for m in {sorted(subs)!r}:\n"
+        "    try:\n"
+        "        importlib.import_module(m)\n"
+        "    except ModuleNotFoundError:\n"
+        "        pass\n"
+    ) + _NO_REFERENCE
+    res = _run(["-c", code], ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_loaders_default_to_the_card(tmp_path):
+    """load_checkpoint and MFModel.load_npz put the tables on the card
+    unless asked otherwise (so here, with no card, they raise), and
+    init_model follows its generator's device."""
+    import inspect
+
+    from mfx_torch.models.mf import MFModel, init_model
+    from mfx_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    assert inspect.signature(load_checkpoint).parameters[
+        "device"].default == "cuda"
+    assert inspect.signature(MFModel.load_npz).parameters[
+        "device"].default == "cuda"
+    model = init_model(torch.Generator().manual_seed(0), 6, 5, 4)
+    assert model.device.type == "cpu"
+    save_checkpoint(tmp_path, 0, model)
+    model.save_npz(tmp_path / "m.npz")
+    assert load_checkpoint(tmp_path, device="cpu")[0].device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the defaults would succeed")
+    with pytest.raises((RuntimeError, AssertionError)):
+        load_checkpoint(tmp_path)
+    with pytest.raises((RuntimeError, AssertionError)):
+        MFModel.load_npz(tmp_path / "m.npz")
 
 
 def test_wrappers_on_a_missing_card_raise():
@@ -65,6 +134,9 @@ def test_wrappers_on_a_missing_card_raise():
     with pytest.raises((RuntimeError, AssertionError)):
         P = torch.zeros(16, 72, device="cuda")
         tile_topk(P, torch.zeros(1024, 72, device="cuda"), tile=1024)
+    with pytest.raises((RuntimeError, AssertionError)):
+        P = torch.zeros(256, 64, device="cuda")
+        bpr_sweep(P, P, P, P, P, 0.05, 0.002, su=256, si=256, tpg=4)
 
 
 def test_recommenders_on_a_missing_card_raise():
@@ -87,7 +159,7 @@ def test_recommenders_on_a_missing_card_raise():
 
 
 @pytest.mark.parametrize("wrapper", ["sgd_sweep", "dense_phase",
-                                     "tile_topk"])
+                                     "tile_topk", "bpr_sweep"])
 def test_wrappers_reject_devices_without_a_kernel(wrapper):
     P = torch.zeros(256, 64, device="meta")
     i32 = dict(dtype=torch.int32, device="meta")
@@ -95,6 +167,10 @@ def test_wrappers_reject_devices_without_a_kernel(wrapper):
         if wrapper == "sgd_sweep":
             sgd_sweep(P, P, torch.zeros(1, **i32), torch.zeros(4, **i32),
                       torch.zeros(4, 3, 64, **i32), 0.01, 0.04, 3.5,
+                      su=256, si=256, tpg=4)
+        elif wrapper == "bpr_sweep":
+            bpr_sweep(P, P, torch.zeros(1, **i32), torch.zeros(4, **i32),
+                      torch.zeros(4, 3, 64, **i32), 0.05, 0.002,
                       su=256, si=256, tpg=4)
         elif wrapper == "tile_topk":
             tile_topk(torch.zeros(16, 72, device="meta"),
@@ -106,6 +182,15 @@ def test_wrappers_reject_devices_without_a_kernel(wrapper):
                    "du_s": torch.zeros(1, 256, device="meta"),
                    "di_s": torch.zeros(1, 256, device="meta")}
             dense_phase(P, P, grp, 0.01, 0.04, 3.5, su=256, si=256)
+
+
+def test_bpr_profile_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from mfx_torch.measure_bpr import main
+
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        main(["profile", "--cut", "100000"])
 
 
 def test_kernel_build_needs_the_toolkit():

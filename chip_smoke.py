@@ -13,7 +13,10 @@ printed as it ends:
    preset's shapes (su = si = 1024, T = 256, rank 64, int4): the first
    2,048 tiles of the first non-empty sparse sweep and the first 64
    strata of the first dense group, max abs difference <= 1e-4, two
-   kernel runs bitwise equal, and the time of each;
+   kernel runs bitwise equal, and the time of each; then the same 2,048
+   tiles through sgd_sweep_tile and sgd_sweep_step_u (tpg = 4) on the
+   plain tables of the same model, so that the lane, tile-bias and
+   step-batched bodies are timed on one tile stream;
 4. main path: two epochs of mfx_torch.solvers.blocked.train_epochs_blocked
    on the full ML-25M-shaped synthetic with the preset unchanged, through
    both kernels (launch counters > 0), held-out RMSE (unclipped) <= 0.406
@@ -38,7 +41,19 @@ printed as it ends:
    epoch and ends below ln 2, bpr_sweep launched (counter > 0), and as a
    smoke check, not a quality gate (this synthetic is barely learnable at
    the cell's density), the held-out sampled AUC ends above the untrained
-   model's; HR/NDCG/MRR@10 (sampled protocol) are printed.
+   model's; HR/NDCG/MRR@10 (sampled protocol) are printed;
+9. sgd_sweep_tile and sgd_sweep_step_u against their plain versions at the
+   ml1m_rank32_biased preset's shapes (su = si = 512, T = 256, rank 32,
+   tpg = 4): the first 2,048 tiles of epoch 0 of the ML-1M-shaped
+   synthetic, same checks and times;
+10. the tile-bias path: train_epochs_blocked with the ml1m_rank32_biased
+   preset unchanged, its 30 epochs on the full ML-1M-shaped synthetic
+   (seed 101), through sgd_sweep_tile; then again with
+   sgd.step_user_batch=true, through sgd_sweep_step_u (each launch counter
+   > 0 in its run). The train RMSE falls, the held-out RMSE (unclipped)
+   ends <= 0.530 and below the untrained model's, the two runs end within
+   1e-3 of each other, and a second step_user_batch run of 2 epochs
+   repeats the first's state after 2 epochs bit for bit.
 
 Each phase prints its wall time. The second-to-last line is a JSON object
 describing each kernel (times, launches on the main path, and the bound:
@@ -56,6 +71,10 @@ import sys
 import time
 
 RMSE_GATE = 0.406  # the reference's quality gate on this synthetic
+# ML-1M-shaped synthetic, 30 epochs: the reference trainer ends at 0.52532
+# from an untrained 0.55114 (whole-star rounding sets a floor near 0.5)
+ML1M_RMSE_GATE = 0.530
+ML1M_BODIES_TOL = 1e-3  # final held-out RMSE, per tile vs step_user_batch
 TOL = 1e-4
 # the BPR cell: billion-implicit cut to 1/10 of BILLION_SHAPE, one shard
 BPR_CUT = 10
@@ -94,11 +113,15 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
                                        else "operations")
 
 
-def sweep_bound(tl, sa, tc, su, si, tpg, rank, row_sides, flops_per_slot):
+def sweep_bound(tl, sa, tc, su, si, tpg, rank, row_sides, flops_per_slot,
+                bias=False):
     """Bound of a sparse sweep: the tile stream and ids read once, and every
     distinct table row its real slots touch read once and written once.
     ``row_sides`` lists (table, tile row) pairs: 'P' rows come from tile
-    row 0 and the user block, 'Q' rows from the given row and the window."""
+    row 0 and the user block, 'Q' rows from the given row and the window.
+    ``bias``: each of those rows also has a 4-byte bias, read once and
+    written once, and a real slot does 6 more operations (two adds into
+    the prediction, two bias deltas of two each)."""
     import torch
 
     real = tl[:, 0, :] < su
@@ -112,8 +135,10 @@ def sweep_bound(tl, sa, tc, su, si, tpg, rank, row_sides, flops_per_slot):
         rows[table].append(ids[real])
     n_rows = sum(int(torch.unique(torch.cat(v)).numel())
                  for v in rows.values() if v)
-    nbytes = (tl.numel() + sa.numel() + tc.numel()) * 4 + 2 * n_rows * rank * 4
-    return bound(nbytes, flops_per_slot * rank * int(real.sum()))
+    row_bytes = rank * 4 + (4 if bias else 0)
+    nbytes = (tl.numel() + sa.numel() + tc.numel()) * 4 + 2 * n_rows * row_bytes
+    return bound(nbytes, (flops_per_slot * rank + (6 if bias else 0))
+                 * int(real.sum()))
 
 
 def compare(name, run_kernel, run_plain, state):
@@ -570,6 +595,185 @@ def bpr_phases(dev, results, bounds):
     return launches
 
 
+def tile_bias_compare(results, bounds, state, seg, sa, tc, tl, lr, reg, mu,
+                      su, si, tpg, tag):
+    """sgd_sweep_tile and sgd_sweep_step_u against their plain versions on
+    one tile stream from the plain tables ``state`` = (P, Q, bu, bi);
+    fills ``results`` and ``bounds`` under the kernels' names plus
+    ``tag``."""
+    from mfx_torch.kernels.sgd_sweep import (sgd_sweep_step_u,
+                                             sgd_sweep_step_u_plain,
+                                             sgd_sweep_tile,
+                                             sgd_sweep_tile_plain)
+
+    rank = state[0].shape[1]
+    log(f"[kernel] tile-bias sweeps{tag}: {tl.shape[0]} tiles (T="
+        f"{tl.shape[2]}, rank {rank}, su={su}, si={si}, tpg={tpg})")
+    kw = dict(su=su, si=si, tpg=tpg)
+    for kernel, plain in ((sgd_sweep_tile, sgd_sweep_tile_plain),
+                          (sgd_sweep_step_u, sgd_sweep_step_u_plain)):
+        name = kernel.__name__ + tag
+        results[name] = compare(
+            name,
+            lambda P, Q, bu, bi: kernel(P, Q[seg], bu, bi[seg], sa, tc, tl,
+                                        lr, reg, mu, **kw),
+            lambda P, Q, bu, bi: plain(P, Q[seg], bu, bi[seg], sa, tc, tl,
+                                       lr, reg, mu, **kw),
+            state,
+        )
+        # per real slot as sgd_sweep (10 rank), plus the bias terms
+        bounds[name] = sweep_bound(tl, sa, tc, su, si, tpg, rank,
+                                   [("P", 0), ("Q", 1)], 10, bias=True)
+        log(f"[kernel] {name} bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]})")
+
+
+def tile_bias_phases(dev):
+    """Phases 9 and 10: the tile-bias kernels against their plain versions
+    at the ml1m_rank32_biased preset's shapes, then the preset's 30 epochs
+    per tile and with sgd.step_user_batch. Returns the two kernels'
+    launches, each from its own run."""
+    import torch
+
+    from mfx_torch.config import apply_overrides, preset
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.data.synthetic import ML1M_SHAPE, make_synthetic
+    from mfx_torch.eval.metrics import rmse_mae
+    from mfx_torch.kernels import plan_device as pdv
+    from mfx_torch.kernels.packing import plain_tables
+    from mfx_torch.kernels.sgd_sweep import sgd_sweep_step_u, sgd_sweep_tile
+    from mfx_torch.models.mf import init_model
+    from mfx_torch.solvers import blocked
+
+    cfg = preset("ml1m_rank32_biased")
+    sgd, seed = cfg.sgd, cfg.data.seed
+    t0 = time.perf_counter()
+    # the ml-1m entry of mfx_torch/data/loaders.py (its seeded synthetic)
+    coo = make_synthetic(*ML1M_SHAPE, rank=32, seed=101, star_step=1.0,
+                         user_zipf_s=0.6)
+    train, test = train_test_split(coo, cfg.data.test_frac, seed=seed)
+    log(f"[tile] cell: ml1m_rank32_biased unchanged (rank {cfg.model.rank}, "
+        f"bias_mode={sgd.bias_mode!r}, su = si = {sgd.ublock}, T = "
+        f"{sgd.tile}, lr {sgd.lr}, decay {sgd.lr_decay}, reg {sgd.reg}, "
+        f"{sgd.epochs} epochs, no dense phase) on the ml-1m synthetic")
+    log(f"[data] {coo.num_users} x {coo.num_items}, {coo.n_ratings} ratings "
+        f"({train.n_ratings} train / {test.n_ratings} test) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    U, I, rank = coo.num_users, coo.num_items, cfg.model.rank
+    su, si, T, tpg = sgd.ublock, sgd.iblock, sgd.tile, blocked.TPG
+    mu = float(train.global_mean)
+
+    def fresh_model():
+        g = torch.Generator(device=dev)
+        g.manual_seed(cfg.model.seed)
+        return init_model(g, U, I, rank, global_mean=train.global_mean,
+                          init_scale=cfg.model.init_scale, device=dev)
+
+    # 9. the kernels against their plain versions at the preset's shapes
+    t_phase = time.perf_counter()
+    u = torch.as_tensor(train.user).to(dev, torch.int32)
+    i = torch.as_tensor(train.item).to(dev, torch.int32)
+    r = torch.as_tensor(train.rating).to(dev, torch.float32)
+    skel = pdv.build_plan_skeleton(u, i, U, I, su, si, T, tpg,
+                                   blocked.sweep_geometry(I, rank, si))
+    tl = pdv.epoch_tiles_device(skel, u, i, r, seed, 0)
+    sw = next(s for s in skel.sweeps if s.t1 > s.t0)
+    nt = min(SWEEP_TILES, sw.t1 - sw.t0)
+    log(f"[tile] plan: {len(skel.sweeps)} sweep(s), {tl.shape[0]} tiles an "
+        f"epoch, {sw.nwin} windows in the first")
+    state = plain_tables(fresh_model(), su, si, dev)
+    seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
+    tile_bias_compare(
+        {}, {}, state, seg, sw.sa[:nt // tpg].contiguous(),
+        sw.tc[:nt].contiguous(), tl[sw.t0:sw.t0 + nt], sgd.lr, sgd.reg, mu,
+        su, si, tpg, "[rank32]")
+    # the whole first sweep, to set beside phase 10's epoch seconds
+    for kernel in (sgd_sweep_tile, sgd_sweep_step_u):
+        P, Q, bu, bi = (x.clone() for x in state)
+        ms = cuda_ms(lambda: kernel(P, Q[seg], bu, bi[seg], sw.sa, sw.tc,
+                                    tl[sw.t0:sw.t1], sgd.lr, sgd.reg, mu,
+                                    su=su, si=si, tpg=tpg), reps=3)
+        log(f"[tile] {kernel.__name__}: sweep 1 of {len(skel.sweeps)} of an "
+            f"epoch, {sw.t1 - sw.t0} tiles, {ms:.4f} ms")
+    del state
+    del skel, tl, u, i, r
+    torch.cuda.empty_cache()
+    log(f"[time] phase 9 {time.perf_counter() - t_phase:.1f} s")
+
+    # 10. the path: 30 epochs per tile, then 30 with step_user_batch
+    t_phase = time.perf_counter()
+    base_rmse, base_mae = rmse_mae(fresh_model(), test)
+    log(f"[tile] untrained held-out rmse {base_rmse:.5f} mae {base_mae:.5f}")
+    launches, finals, after2 = {}, {}, None
+    for step_u in (False, True):
+        kernel = sgd_sweep_step_u if step_u else sgd_sweep_tile
+        tag = "step_u" if step_u else "per-tile"
+        run_sgd = apply_overrides(
+            cfg, [f"sgd.step_user_batch={str(step_u).lower()}"]).sgd
+        sgd_sweep_tile.launches = sgd_sweep_step_u.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        timings: dict = {}
+        trains, epoch_ss, plan_seen = [], [], 0.0
+        torch.cuda.synchronize()
+        t_prev = time.perf_counter()
+        for epoch, m, tr in blocked.train_epochs_blocked(
+                fresh_model(), train, run_sgd, cfg.model.use_bias, seed=seed,
+                device=dev, timings=timings):
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_prev
+            plan_s = timings["plan_s"] - plan_seen
+            plan_seen = timings["plan_s"]
+            epoch_ss.append(wall - plan_s
+                            - (timings["prep_s"] if epoch == 0 else 0.0))
+            trains.append(float(tr))
+            if step_u and epoch == 1:
+                after2 = m
+            t_prev = time.perf_counter()
+        counts = {"sgd_sweep_tile": sgd_sweep_tile.launches,
+                  "sgd_sweep_step_u": sgd_sweep_step_u.launches}
+        launches[kernel.__name__] = kernel.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        test_rmse, test_mae = rmse_mae(m, test)
+        finals[tag] = test_rmse
+        steady = sorted(epoch_ss[1:])[len(epoch_ss[1:]) // 2]
+        log(f"[tile] {tag}: prep {timings['prep_s']:.4f} s, plan "
+            f"{timings['plan_s']:.4f} s in all, epoch_s first "
+            f"{epoch_ss[0]:.4f} median of the others {steady:.4f} sum "
+            f"{sum(epoch_ss):.4f}")
+        log(f"[tile] {tag}: train_rmse " + " ".join(f"{x:.5f}" for x in trains))
+        log(f"[tile] {tag}: held-out rmse {test_rmse:.5f} mae {test_mae:.5f} "
+            f"after epoch {len(trains)} (unclipped); launches {counts}, peak "
+            f"memory allocated {peak} bytes")
+        finite = all(bool(torch.isfinite(getattr(m, k)).all())
+                     for k in ("P", "Q", "bu", "bi"))
+        if (not finite or m.P.shape != (U, rank) or m.Q.shape != (I, rank)
+                or m.bu.shape != (U,) or m.bi.shape != (I,)):
+            raise AssertionError(f"{tag}: tables not finite or mis-shaped")
+        if kernel.launches < 1:
+            raise AssertionError(f"{tag}: {kernel.__name__} never launched")
+        if len(trains) != sgd.epochs or not trains[-1] < trains[0]:
+            raise AssertionError(f"{tag}: the train RMSE did not fall: {trains}")
+        if not (test_rmse <= ML1M_RMSE_GATE and test_rmse < base_rmse):
+            raise AssertionError(
+                f"{tag}: held-out RMSE {test_rmse} above the {ML1M_RMSE_GATE} "
+                f"gate or the untrained {base_rmse}")
+    gap = abs(finals["per-tile"] - finals["step_u"])
+    if gap > ML1M_BODIES_TOL:
+        raise AssertionError(f"the two bodies end {gap} apart: {finals}")
+    log(f"[tile] the two bodies end {gap:.3e} apart (tol {ML1M_BODIES_TOL})")
+    run_sgd = dataclasses.replace(run_sgd, epochs=2)
+    for _, again, _ in blocked.train_epochs_blocked(
+            fresh_model(), train, run_sgd, cfg.model.use_bias, seed=seed,
+            device=dev):
+        pass
+    if not all(torch.equal(getattr(again, k), getattr(after2, k))
+               for k in ("P", "Q", "bu", "bi")):
+        raise AssertionError("step_user_batch: a second run of 2 epochs differs")
+    log("[tile] step_u: a second run of 2 epochs repeats the first bit for bit")
+    log(f"[time] phase 10 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -582,7 +786,7 @@ def main() -> int:
     from mfx_torch.kernels import _build
     from mfx_torch.kernels import plan_device as pdv
     from mfx_torch.kernels.dense_phase import dense_phase, dense_phase_plain
-    from mfx_torch.kernels.packing import lane_tables
+    from mfx_torch.kernels.packing import lane_tables, plain_tables
     from mfx_torch.kernels.sgd_sweep import sgd_sweep, sgd_sweep_plain
     from mfx_torch.models.mf import init_model
     from mfx_torch.solvers import blocked
@@ -683,6 +887,10 @@ def main() -> int:
     # and two row adds (rank each)
     bounds["sgd_sweep"] = sweep_bound(tls, sa, tc, su, si, tpg, rank,
                                       [("P", 0), ("Q", 1)], 10)
+    # the same tiles through the tile-bias and step-batched bodies, on
+    # the plain tables of the same model
+    tile_bias_compare(results, bounds, plain_tables(fresh_model(), su, si, dev),
+                      seg_s, sa, tc, tls, lr, reg, mu, su, si, tpg, "")
     for name in ("dense_phase", "sgd_sweep"):
         log(f"[kernel] {name} bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]})")
@@ -751,14 +959,23 @@ def main() -> int:
     # 7-8. the BPR path
     launches["bpr_sweep"] = bpr_phases(dev, results, bounds)
 
+    # 9-10. the tile-bias path
+    launches.update(tile_bias_phases(dev))
+
     replaces = {"sgd_sweep": "mfx/kernels/sgd_pallas.py:63",
                 "dense_phase": "mfx/kernels/dense_pallas.py:86",
                 "tile_topk": "mfx/kernels/serve_pallas.py:42",
-                "bpr_sweep": "mfx/kernels/bpr_pallas.py:47"}
+                "bpr_sweep": "mfx/kernels/bpr_pallas.py:47",
+                "sgd_sweep_tile": "mfx/kernels/sgd_pallas.py:63",
+                "sgd_sweep_step_u": "mfx/kernels/sgd_pallas.py:363"}
+    variants = {"sgd_sweep": "bias_mode='lane'",
+                "sgd_sweep_tile": "bias_mode='tile'"}
     log(f"[card] {card}")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"mfx_torch/csrc/{name}.cu",
-         "replaces": replaces[name], "launches": launches[name],
+         "replaces": replaces[name],
+         **({"variant": variants[name]} if name in variants else {}),
+         "launches": launches[name],
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          # no single PyTorch call computes any of these functions

@@ -2,7 +2,11 @@
 
 ``init_model`` in the reference draws from ``jax.random``, whose bits torch
 cannot reproduce; the parity tests therefore hand the same initial tables
-to both packages through these two functions.
+to both packages through ``model_from_numpy`` / ``model_to_numpy``.
+
+``merged_to_plain`` / ``plain_to_merged`` read and write the reference
+kernels' merged table layout (``mfx/kernels/packing.py::pack_state``), so
+that the kernel tests can run one state through both packages' sweeps.
 """
 
 from __future__ import annotations
@@ -12,7 +16,11 @@ import torch
 
 from mfx_torch.models.mf import MFModel
 
-__all__ = ["model_from_numpy", "model_to_numpy"]
+__all__ = ["model_from_numpy", "model_to_numpy", "merged_to_plain",
+           "plain_to_merged"]
+
+_LANES = 128     # lanes of a merged row
+_BIAS_ROWS = 8   # bias rows behind each block's factor rows
 
 
 def model_from_numpy(arrays: dict, device: torch.device | str = "cpu") -> MFModel:
@@ -35,3 +43,49 @@ def model_to_numpy(model: MFModel) -> dict:
            for k in ("P", "Q", "bu", "bi")}
     out["mu"] = np.asarray(model.mu, np.float32)
     return out
+
+
+def _split_merged(M: np.ndarray, rank: int, block: int):
+    """One merged table ``(nb * (block/pack + 8), 128)`` -> padded
+    ``(nb * block, rank)`` factors and ``(nb * block,)`` biases. Factor
+    row x of a block sits at packed row ``x // pack``, lanes
+    ``(x % pack) * rank ...``; its bias at bias row ``x // 128``, lane
+    ``x % 128``."""
+    pack = _LANES // rank
+    sup = block // pack
+    M = np.asarray(M, np.float32).reshape(-1, sup + _BIAS_ROWS, _LANES)
+    nb = M.shape[0]
+    F = M[:, :sup].reshape(nb * block, rank)
+    b = M[:, sup:sup + block // _LANES].reshape(nb * block)
+    return F.copy(), b.copy()
+
+
+def _join_merged(F: np.ndarray, b: np.ndarray, rank: int, block: int):
+    """Inverse of :func:`_split_merged` (unused bias rows zero)."""
+    pack = _LANES // rank
+    sup = block // pack
+    nb = F.shape[0] // block
+    M = np.zeros((nb, sup + _BIAS_ROWS, _LANES), np.float32)
+    M[:, :sup] = np.asarray(F, np.float32).reshape(nb, sup, _LANES)
+    M[:, sup:sup + block // _LANES] = np.asarray(b, np.float32).reshape(
+        nb, block // _LANES, _LANES)
+    return M.reshape(nb * (sup + _BIAS_ROWS), _LANES)
+
+
+def merged_to_plain(Pm, Qm, rank: int, su: int, si: int):
+    """The reference's merged kernel tables (numpy) -> the port's plain
+    padded ``(P, Q, bu, bi)`` as CPU tensors (what
+    ``mfx_torch.kernels.packing.plain_tables`` gives for the same model).
+    ``su`` and ``si`` are multiples of 128, at most 1024, and ``rank``
+    divides 128, as ``pack_state`` demands."""
+    P, bu = _split_merged(Pm, rank, su)
+    Q, bi = _split_merged(Qm, rank, si)
+    return tuple(torch.from_numpy(x) for x in (P, Q, bu, bi))
+
+
+def plain_to_merged(P, Q, bu, bi, su: int, si: int):
+    """Inverse of :func:`merged_to_plain`: padded plain tensors -> the
+    merged ``(Pm, Qm)`` numpy arrays."""
+    rank = P.shape[1]
+    P, Q, bu, bi = (x.detach().cpu().numpy() for x in (P, Q, bu, bi))
+    return _join_merged(P, bu, rank, su), _join_merged(Q, bi, rank, si)

@@ -36,6 +36,10 @@ _SIGNATURES = {
     "mfx_tile_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mfx_bpr_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _F, _F, _P],
+    "mfx_sgd_sweep_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _F, _F, _F, _P],
+    "mfx_sgd_sweep_step_u": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _I, _F, _F, _F, _P],
 }
 
 

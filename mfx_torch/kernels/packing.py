@@ -1,13 +1,20 @@
-"""Lane-bias table layout, the counterpart of ``to_lane_model`` and
-``from_lane_model`` in ``mfx/kernels/packing.py``.
+"""The kernels' table forms, the counterpart of ``pack_state``,
+``to_lane_model`` and ``from_lane_model`` in ``mfx/kernels/packing.py``.
 
-With ``bias_mode='lane'`` the biases ride in the factor lanes: P rows
-become ``[p(rank-2), 1, bu]`` and Q rows ``[q(rank-2), bi, 1]``, so the
-plain factor dot carries ``bu + bi`` and the bias lane's SGD step is the
-bias update. The kernels keep plain ``(rows, rank)`` f32 tables, padded
-with zero rows to a whole number of blocks, so that a block-local id plus
-its block offset always addresses a row. The reference's rank packing to
-128 lanes and its merged bias rows are TPU layout and have no counterpart.
+The kernels keep plain ``(rows, rank)`` f32 tables, padded with zero rows
+to a whole number of blocks, so that a block-local id plus its block
+offset always addresses a row. Two forms:
+
+- lane (``bias_mode='lane'``, :func:`lane_tables`): the biases ride in the
+  factor lanes: P rows become ``[p(rank-2), 1, bu]`` and Q rows
+  ``[q(rank-2), bi, 1]``, so the plain factor dot carries ``bu + bi`` and
+  the bias lane's SGD step is the bias update;
+- plain (``bias_mode='tile'`` or no biases, :func:`plain_tables`): the
+  canonical P and Q, with ``bu`` and ``bi`` as padded vectors beside them.
+
+The reference's rank packing to 128 lanes and its merged bias rows are TPU
+layout and have no counterpart (``mfx_torch.convert`` reads and writes
+that layout for the tests).
 """
 
 from __future__ import annotations
@@ -16,7 +23,8 @@ import torch
 
 from mfx_torch.models.mf import MFModel
 
-__all__ = ["to_lane_model", "from_lane_model", "pad_rows", "lane_tables"]
+__all__ = ["to_lane_model", "from_lane_model", "pad_rows", "lane_tables",
+           "plain_tables"]
 
 
 def to_lane_model(model: MFModel) -> MFModel:
@@ -59,3 +67,12 @@ def lane_tables(model: MFModel, su: int, si: int, device):
     padded to A·su rows and Q to C·si rows (fresh, contiguous tensors)."""
     lane = to_lane_model(model)
     return pad_rows(lane.P.to(device), su), pad_rows(lane.Q.to(device), si)
+
+
+def plain_tables(model: MFModel, su: int, si: int, device):
+    """Canonical model -> the tile-bias kernels' state on ``device``:
+    ``(P, Q, bu, bi)`` with P and bu padded to A·su rows, Q and bi to C·si
+    (fresh, contiguous f32 tensors; no lane is rewritten). The inverse is
+    the slice ``[:U]`` / ``[:I]``."""
+    return (pad_rows(model.P.to(device), su), pad_rows(model.Q.to(device), si),
+            pad_rows(model.bu.to(device), su), pad_rows(model.bi.to(device), si))

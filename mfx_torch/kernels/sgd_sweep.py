@@ -1,13 +1,24 @@
-"""Sparse blocked-SGD sweep: wrapper of ``csrc/sgd_sweep.cu`` and its plain
-PyTorch version.
+"""Sparse blocked-SGD sweeps: wrappers of ``csrc/sgd_sweep.cu``,
+``csrc/sgd_sweep_tile.cu`` and ``csrc/sgd_sweep_step_u.cu``, each with its
+plain PyTorch version.
 
-Replaces ``mfx/kernels/sgd_pallas.py::_kernel_body`` on the lane-bias path
-(``bias_mode='lane'``, rank 64). One call runs one item-sweep: the tiles of
-``tl`` in plan order, each a snapshot minibatch (gather, residuals, exact
-segment-summed scatter), on the plain ``(rows, rank)`` f32 tables.
+They replace the two bodies of ``mfx/kernels/sgd_pallas.py``'s sweep call:
 
-On CUDA tensors the wrapper launches the kernel (or raises); on CPU
-tensors it runs :func:`sgd_sweep_plain`. Nothing falls back.
+- :func:`sgd_sweep`: ``_kernel_body`` with ``bias_mode='lane'`` (rank 64;
+  the biases ride in two factor lanes that the update freezes);
+- :func:`sgd_sweep_tile`: ``_kernel_body`` with ``bias_mode='tile'`` or
+  with no biases (ranks 32 and 64; ``bu`` / ``bi`` are vectors beside the
+  tables and every lane updates);
+- :func:`sgd_sweep_step_u`: ``_kernel_body_step_u``
+  (``sgd.step_user_batch``): the same, with the user side batched over
+  each group of ``tpg`` tiles.
+
+One call runs one item-sweep: the tiles of ``tl`` in plan order, each a
+snapshot minibatch (gather, residuals, exact segment-summed scatter), on
+plain ``(rows, rank)`` f32 tables updated in place.
+
+On CUDA tensors a wrapper launches its kernel (or raises); on CPU tensors
+it runs its plain version. Nothing falls back.
 """
 
 from __future__ import annotations
@@ -16,20 +27,23 @@ import torch
 
 from mfx_torch.kernels import _build
 
-__all__ = ["sgd_sweep", "sgd_sweep_plain", "check_sweep_args",
+__all__ = ["sgd_sweep", "sgd_sweep_plain", "sgd_sweep_tile",
+           "sgd_sweep_tile_plain", "sgd_sweep_step_u",
+           "sgd_sweep_step_u_plain", "check_sweep_args",
            "check_kernel_limits"]
 
-_RANK = 64
 
-
-def check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg):
+def check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg, bu=None, bi=None):
     """The sweep wrappers' common argument check (``who`` names the
     wrapper in the message): devices, dtypes, contiguity, whole blocks,
-    and a tile stream that matches ``sa`` / ``tc``."""
+    a tile stream that matches ``sa`` / ``tc``, and, where given, bias
+    vectors as long as their tables."""
     dev = P.device
+    biases = () if bu is None else (("bu", bu, torch.float32),
+                                    ("bi", bi, torch.float32))
     for name, x, dt in (("P", P, torch.float32), ("Q", Q, torch.float32),
                         ("sa", sa, torch.int32), ("tc", tc, torch.int32),
-                        ("tl", tl, torch.int32)):
+                        ("tl", tl, torch.int32)) + biases:
         if x.device != dev:
             raise ValueError(f"{who}: {name} is on {x.device}, P on {dev}")
         if x.dtype != dt:
@@ -48,19 +62,38 @@ def check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg):
             f"{who}: tc {tuple(tc.shape)} / sa {tuple(sa.shape)} do not "
             f"match {nt} tiles at tpg={tpg}"
         )
+    if bu is not None and (bu.shape != P.shape[:1] or bi.shape != Q.shape[:1]):
+        raise ValueError(
+            f"{who}: bu {tuple(bu.shape)} / bi {tuple(bi.shape)} must have "
+            f"one entry a row of P {tuple(P.shape)} / Q {tuple(Q.shape)}"
+        )
 
 
-def check_kernel_limits(who, P, tl, su, si):
-    """What the sweep kernels are built for: rank 64, T <= 256, blocks
-    <= 1024."""
-    if P.shape[1] != _RANK:
+def check_kernel_limits(who, P, tl, su, si, ranks=(64,)):
+    """What the sweep kernels are built for: the ranks in ``ranks``
+    (64 for the lane-bias and BPR sweeps, 32 and 64 for the tile-bias
+    ones), T <= 256, blocks <= 1024."""
+    if P.shape[1] not in ranks:
         raise NotImplementedError(
-            f"{who} kernel is built for rank {_RANK}, got {P.shape[1]}"
+            f"{who} kernel is built for rank "
+            f"{' or '.join(map(str, ranks))}, got {P.shape[1]}"
         )
     if tl.shape[2] > 256 or su > 1024 or si > 1024:
         raise NotImplementedError(
             f"{who} kernel takes tile <= 256 and blocks <= 1024"
         )
+
+
+def _row_add(table, rows, delta):
+    """``table[rows] += delta``, duplicate rows summed, in an order that
+    repeats from run to run on either device: on the CPU ``index_add_``
+    walks the slots in order (``index_put_`` accumulates from several
+    threads there); on CUDA ``index_put_(accumulate=True)`` sorts, where
+    ``index_add_`` uses float atomics."""
+    if table.device.type == "cpu":
+        table.index_add_(0, rows, delta)
+    else:
+        table.index_put_((rows,), delta, accumulate=True)
 
 
 def sgd_sweep_plain(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg):
@@ -85,8 +118,8 @@ def sgd_sweep_plain(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg):
         e = r - ((p * q).sum(1) + mu)
         dp = lr * (e[:, None] * q - reg * p) * mP
         dq = lr * (e[:, None] * p - reg * q) * mQ
-        P.index_put_((rows_u,), dp, accumulate=True)
-        Q.index_put_((rows_i,), dq, accumulate=True)
+        _row_add(P, rows_u, dp)
+        _row_add(Q, rows_i, dq)
         sse = sse + (e * e).sum()
     return sse
 
@@ -119,3 +152,135 @@ def sgd_sweep(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg):
 
 
 sgd_sweep.launches = 0
+
+
+def _tile_terms(P, Q, bu, bi, tl, t, rows_u0, rows_i0, su, mu, use_bias):
+    """One tile's real slots against the given state: global row ids,
+    snapshots, and the residual e = r - (((p.q + mu) + bu) + bi)."""
+    u, i = tl[t, 0].long(), tl[t, 1].long()
+    real = u < su
+    r = tl[t, 2].view(torch.float32)[real]
+    rows_u, rows_i = rows_u0 + u[real], rows_i0 + i[real]
+    p, q = P[rows_u], Q[rows_i]
+    pred = (p * q).sum(1) + mu
+    b_u = b_i = None
+    if use_bias:
+        b_u, b_i = bu[rows_u], bi[rows_i]
+        pred = pred + b_u + b_i
+    return rows_u, rows_i, p, q, b_u, b_i, r - pred
+
+
+def sgd_sweep_tile_plain(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si,
+                         tpg, use_bias=True):
+    """Plain PyTorch version of :func:`sgd_sweep_tile`: tile by tile,
+    gather from the current tables, then segment-summed row and bias
+    updates on all lanes. Updates P, Q (and bu, bi) in place; returns the
+    sweep's SSE (0-d f32)."""
+    sa_h, tc_h = sa.tolist(), tc.tolist()
+    sse = torch.zeros((), dtype=torch.float32, device=P.device)
+    for t in range(tl.shape[0]):
+        rows_u, rows_i, p, q, b_u, b_i, e = _tile_terms(
+            P, Q, bu, bi, tl, t, sa_h[t // tpg] * su, tc_h[t] * si, su, mu,
+            use_bias)
+        _row_add(P, rows_u, lr * (e[:, None] * q - reg * p))
+        _row_add(Q, rows_i, lr * (e[:, None] * p - reg * q))
+        if use_bias:
+            _row_add(bu, rows_u, lr * (e - reg * b_u))
+            _row_add(bi, rows_i, lr * (e - reg * b_i))
+        sse = sse + (e * e).sum()
+    return sse
+
+
+def sgd_sweep_step_u_plain(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si,
+                           tpg, use_bias=True):
+    """Plain PyTorch version of :func:`sgd_sweep_step_u`: per group of
+    ``tpg`` tiles the user rows and user biases are read from the state
+    at the group's start (nothing writes them inside the group); each
+    tile reads and updates the current Q and bi; the user side's deltas
+    of the whole group are segment-summed and applied at its end."""
+    sa_h, tc_h = sa.tolist(), tc.tolist()
+    sse = torch.zeros((), dtype=torch.float32, device=P.device)
+    for g in range(tl.shape[0] // tpg):
+        rows, d_p, d_bu = [], [], []
+        for t in range(g * tpg, (g + 1) * tpg):
+            rows_u, rows_i, p, q, b_u, b_i, e = _tile_terms(
+                P, Q, bu, bi, tl, t, sa_h[g] * su, tc_h[t] * si, su, mu,
+                use_bias)
+            rows.append(rows_u)
+            d_p.append(lr * (e[:, None] * q - reg * p))
+            _row_add(Q, rows_i, lr * (e[:, None] * p - reg * q))
+            if use_bias:
+                d_bu.append(lr * (e - reg * b_u))
+                _row_add(bi, rows_i, lr * (e - reg * b_i))
+            sse = sse + (e * e).sum()
+        rows = torch.cat(rows)
+        _row_add(P, rows, torch.cat(d_p))
+        if use_bias:
+            _row_add(bu, rows, torch.cat(d_bu))
+    return sse
+
+
+def _tile_bias_sweep(wrapper, plain, symbol, P, Q, bu, bi, sa, tc, tl, lr,
+                     reg, mu, su, si, tpg, use_bias, scratch):
+    """The two tile-bias wrappers' common body. ``scratch`` says whether
+    the kernel takes the zeroed pool of a user block's pooled deltas."""
+    who = wrapper.__name__
+    check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg, bu, bi)
+    if P.device.type == "cpu":
+        return plain(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, su=su, si=si,
+                     tpg=tpg, use_bias=use_bias)
+    if P.device.type != "cuda":
+        raise ValueError(f"{who}: no kernel for device {P.device}")
+    check_kernel_limits(who, P, tl, su, si, ranks=(32, 64))
+    if scratch and not 1 <= tpg <= 8:
+        raise NotImplementedError(f"{who} kernel takes tpg 1..8, got {tpg}")
+    rank = P.shape[1]
+    lib = _build.load_library()
+    sse = torch.empty(1, dtype=torch.float32, device=P.device)
+    # su rows of rank pooled row deltas, then su pooled bias deltas
+    pool = [torch.zeros(su * (rank + 1), dtype=torch.float32,
+                        device=P.device)] if scratch else []
+    stream = torch.cuda.current_stream(P.device).cuda_stream
+    _build.check(getattr(lib, symbol)(
+        P.data_ptr(), Q.data_ptr(), bu.data_ptr(), bi.data_ptr(),
+        *(x.data_ptr() for x in pool),
+        sa.data_ptr(), tc.data_ptr(), tl.data_ptr(), sse.data_ptr(),
+        tl.shape[0], tpg, tl.shape[2], su, si, rank, int(bool(use_bias)),
+        float(lr), float(reg), float(mu), stream,
+    ), who)
+    wrapper.launches += 1
+    return sse[0]
+
+
+def sgd_sweep_tile(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si, tpg,
+                   use_bias=True):
+    """One item-sweep with per-tile biases (``bias_mode='tile'``) or, with
+    ``use_bias=False``, none. ``P`` (A·su, rank) and ``Q`` (nwin·si, rank)
+    are the padded canonical tables (``Q`` the sweep's item segment),
+    ``bu`` (A·su,) and ``bi`` (nwin·si,) the biases of the same rows;
+    ``sa``, ``tc``, ``tl`` as in :func:`sgd_sweep`. Per tile: gather
+    p, q, bu[u], bi[i] from the current state; e = r - (p.q + mu + bu +
+    bi); row deltas lr (e q - reg p), lr (e p - reg q) on all lanes and
+    bias deltas lr (e - reg b), summed exactly over duplicate rows. Updates
+    the tables (and the biases) in place and returns the sweep's SSE over
+    real slots as a 0-d f32 tensor."""
+    return _tile_bias_sweep(sgd_sweep_tile, sgd_sweep_tile_plain,
+                            "mfx_sgd_sweep_tile", P, Q, bu, bi, sa, tc, tl,
+                            lr, reg, mu, su, si, tpg, use_bias, scratch=False)
+
+
+def sgd_sweep_step_u(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si, tpg,
+                     use_bias=True):
+    """One item-sweep with the user side batched per group of ``tpg`` tiles
+    (``sgd.step_user_batch``); arguments and result as
+    :func:`sgd_sweep_tile`. Here ``tpg`` is part of the math: a group's
+    tiles read P and bu as the group found them, update Q and bi tile by
+    tile, and the user rows' and user biases' deltas of all tpg·T slots
+    are summed and applied once at the group's end."""
+    return _tile_bias_sweep(sgd_sweep_step_u, sgd_sweep_step_u_plain,
+                            "mfx_sgd_sweep_step_u", P, Q, bu, bi, sa, tc, tl,
+                            lr, reg, mu, su, si, tpg, use_bias, scratch=True)
+
+
+sgd_sweep_tile.launches = 0
+sgd_sweep_step_u.launches = 0

@@ -1,14 +1,21 @@
 """Blocked-SGD trainer, the counterpart of
-``mfx/solvers/blocked.py::train_epochs_blocked`` for the configuration of
-the ``ml25m_rank64`` preset: lane-carried biases, the full-span dense
-phase and the device planner.
+``mfx/solvers/blocked.py::train_epochs_blocked`` with the device planner,
+for two families of configurations:
 
-One epoch is the dense groups in order (``kernels.dense_phase``), then the
-sparse item-sweeps in order (``kernels.sgd_sweep``), on plain padded
-``(rows, rank)`` f32 tables updated in place. Prep (dense carving, the R
-image, the plan skeleton) runs once; the tile stream is rebuilt every
-``replan_every`` epochs. Windows per sweep and per dense group follow the
-reference's geometry so that the port replays its stratum order.
+- lane-carried biases with the full-span dense phase (the ``ml25m_rank64``
+  preset): lane-form tables, ``kernels.dense_phase`` then
+  ``kernels.sgd_sweep``;
+- per-tile biases or none, with no dense phase (the
+  ``ml1m_rank32_biased`` preset): canonical tables with ``bu`` / ``bi``
+  beside them, ``kernels.sgd_sweep_tile`` or, with
+  ``sgd.step_user_batch``, ``kernels.sgd_sweep_step_u``.
+
+One epoch is the dense groups in order, then the sparse item-sweeps in
+order, on plain padded ``(rows, rank)`` f32 tables updated in place. Prep
+(dense carving, the R image, the plan skeleton) runs once; the tile stream
+is rebuilt every ``replan_every`` epochs. Windows per sweep and per dense
+group follow the reference's geometry so that the port replays its stratum
+order.
 """
 
 from __future__ import annotations
@@ -23,17 +30,21 @@ from mfx_torch.config import SGDConfig
 from mfx_torch.data.coo import RatingsCOO
 from mfx_torch.kernels import plan_device as pdv
 from mfx_torch.kernels.dense_phase import dense_phase
-from mfx_torch.kernels.packing import from_lane_model, lane_tables
-from mfx_torch.kernels.sgd_sweep import sgd_sweep
+from mfx_torch.kernels.packing import (from_lane_model, lane_tables,
+                                       plain_tables)
+from mfx_torch.kernels.sgd_sweep import (sgd_sweep, sgd_sweep_step_u,
+                                         sgd_sweep_tile)
 from mfx_torch.models.mf import MFModel
 from mfx_torch.solvers.dense_prep import prepare_dense_full
 
 __all__ = ["train_epochs_blocked", "sweep_geometry", "dense_group_windows",
            "dense_rfmt", "TPG"]
 
-# Tiles per user-block run unit: the reference's grid step of 4 tiles. The
-# planner pads each user block's run of tiles to a multiple of it, so the
-# port's tile stream is the reference's, pad tiles included.
+# Tiles per user-block run unit: the reference trainer's grid step of 4
+# tiles. The planner pads each user block's run of tiles to a multiple of
+# it, so the port's tile stream is the reference's, pad tiles included;
+# with sgd.step_user_batch it is also the user-side batch of
+# kernels.sgd_sweep_step_u (TPG * tile slots).
 TPG = 4
 
 # Order parameters, not memory budgets: the reference sized its item-sweeps
@@ -49,10 +60,19 @@ def _ref_q_row_bytes(rank: int, si: int) -> int:
     return (si // (128 // rank) + 8) * 128 * 4
 
 
-def sweep_geometry(num_items: int, rank: int, si: int) -> int:
-    """Item windows per sparse sweep (the reference's ``sweep_geometry``)."""
+def sweep_geometry(num_items: int, rank: int, si: int,
+                   step_u: tuple[int, int] | None = None) -> int:
+    """Item windows per sparse sweep (the reference's ``sweep_geometry``).
+    With ``sgd.step_user_batch`` pass ``step_u=(su, tile)``: the
+    reference trainer first takes its step-batched operands out of the
+    budget (floored at 2 MB), so its sweeps can be shorter."""
+    budget = _REF_SWEEP_Q_BYTES
+    if step_u is not None:
+        su, tile = step_u
+        budget = max(1 << 21,
+                     budget - TPG * tile * (su // (128 // rank) + 512) * 4)
     c = -(-num_items // si)
-    return min(c, max(1, _REF_SWEEP_Q_BYTES // _ref_q_row_bytes(rank, si)))
+    return min(c, max(1, budget // _ref_q_row_bytes(rank, si)))
 
 
 def dense_group_windows(rank: int, si: int) -> int:
@@ -81,13 +101,10 @@ def _unsupported(cfg: SGDConfig, use_bias: bool) -> str | None:
         return (f"partitioner={cfg.partitioner!r} kernel={cfg.kernel!r} "
                 "(only the blocked fused-kernel path is ported; Queue 1 "
                 "item 10)")
-    if not use_bias or cfg.bias_mode != "lane":
-        return (f"bias_mode={cfg.bias_mode!r} use_bias={use_bias} (sparse "
-                "kernel variants; Queue 2 item 2)")
+    if use_bias and cfg.bias_mode == "epoch":
+        return "bias_mode='epoch' (sparse kernel variants; Queue 2 item 2)"
     if cfg.dense_chi != 0 and cfg.dense_span != "full":
         return "dense_span='head' (Queue 1 item 5)"
-    if cfg.step_user_batch:
-        return "step_user_batch (the step_u body; Queue 2 item 5)"
     if cfg.dense_echo > 1 or cfg.dense_spg > 1:
         return "dense_echo/dense_spg > 1 (dense kernel variants; Queue 2 item 3)"
     if cfg.plan_device == "host":
@@ -122,6 +139,7 @@ def train_epochs_blocked(
     why = _unsupported(cfg, use_bias)
     if why is not None:
         raise NotImplementedError(f"mfx_torch blocked trainer: {why}; see ROADMAP")
+    lane = use_bias and cfg.bias_mode == "lane"
     dev = torch.device(device) if device is not None else model.device
 
     def sync():
@@ -134,6 +152,14 @@ def train_epochs_blocked(
     n_train = train.n_ratings
     want_dense = cfg.dense_chi != 0 and su == si and 128 // rank in (1, 2, 4)
     rfmt = dense_rfmt(cfg, rank, train.rating) if want_dense else "int4"
+    if want_dense and not lane:
+        raise NotImplementedError(
+            f"mfx_torch blocked trainer: bias_mode={cfg.bias_mode!r} "
+            f"use_bias={use_bias} with the dense phase on (dense_chi="
+            f"{cfg.dense_chi}): the dense phase is ported for lane biases "
+            "only (its frozen-bias tensors: Queue 1 item 5; its kernel's "
+            "variants: Queue 2 item 3); see ROADMAP"
+        )
     if want_dense and rfmt != "int4":
         raise NotImplementedError(
             "mfx_torch blocked trainer: the int8 dense rating stream "
@@ -141,7 +167,29 @@ def train_epochs_blocked(
         )
 
     t_prep = time.perf_counter()
-    P, Q = lane_tables(model, su, si, dev)
+    if lane:
+        P, Q = lane_tables(model, su, si, dev)
+        zu = torch.zeros(U, dtype=torch.float32, device=dev)
+        zi = torch.zeros(I, dtype=torch.float32, device=dev)
+
+        def run_sweep(sw, seg, lr):
+            return sgd_sweep(P, Q[seg], sw.sa, sw.tc, tl[sw.t0:sw.t1], lr,
+                             cfg.reg, mu, su=su, si=si, tpg=TPG)
+
+        def canonical():
+            return from_lane_model(MFModel(P[:U], Q[:I], zu, zi, mu))
+    else:
+        P, Q, bu, bi = plain_tables(model, su, si, dev)
+        sweep_fn = sgd_sweep_step_u if cfg.step_user_batch else sgd_sweep_tile
+
+        def run_sweep(sw, seg, lr):
+            return sweep_fn(P, Q[seg], bu, bi[seg], sw.sa, sw.tc,
+                            tl[sw.t0:sw.t1], lr, cfg.reg, mu, su=su, si=si,
+                            tpg=TPG, use_bias=use_bias)
+
+        def canonical():
+            return MFModel(P[:U].clone(), Q[:I].clone(), bu[:U].clone(),
+                           bi[:I].clone(), mu)
     u = torch.as_tensor(train.user).to(dev, torch.int32)
     i = torch.as_tensor(train.item).to(dev, torch.int32)
     r = torch.as_tensor(train.rating).to(dev, torch.float32)
@@ -152,7 +200,8 @@ def train_epochs_blocked(
             nwd=cfg.dense_nwd or dense_group_windows(rank, si), rfmt=rfmt,
         )
     skel = pdv.build_plan_skeleton(
-        u, i, U, I, su, si, T, TPG, sweep_geometry(I, rank, si)
+        u, i, U, I, su, si, T, TPG, sweep_geometry(
+            I, rank, si, step_u=(su, T) if cfg.step_user_batch else None)
     )
     sweeps = [s for s in skel.sweeps if s.t1 > s.t0]
     if timings is not None:
@@ -163,8 +212,6 @@ def train_epochs_blocked(
             timings["dense_info"] = dinfo
 
     tl = None
-    zu = torch.zeros(U, dtype=torch.float32, device=dev)
-    zi = torch.zeros(I, dtype=torch.float32, device=dev)
     for epoch in range(cfg.epochs):
         lr = cfg.lr * (cfg.lr_decay ** epoch)
         if tl is None or (cfg.replan_every and epoch % cfg.replan_every == 0):
@@ -181,9 +228,6 @@ def train_epochs_blocked(
                 su=su, si=si,
             )
         for sw in sweeps:
-            sse = sse + sgd_sweep(
-                P, Q[sw.win0 * si:(sw.win0 + sw.nwin) * si], sw.sa, sw.tc,
-                tl[sw.t0:sw.t1], lr, cfg.reg, mu, su=su, si=si, tpg=TPG,
-            )
-        view = from_lane_model(MFModel(P[:U], Q[:I], zu, zi, mu))
-        yield epoch, view, torch.sqrt(sse / max(1, n_train))
+            seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
+            sse = sse + run_sweep(sw, seg, lr)
+        yield epoch, canonical(), torch.sqrt(sse / max(1, n_train))

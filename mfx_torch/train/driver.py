@@ -1,6 +1,8 @@
 """Training driver, the counterpart of ``mfx/train/driver.py::train`` for
 the ported trainers: single-device blocked SGD (``solver='sgd'``,
-``parallel.mode='single'``) and the fused BPR ring of one shard
+``parallel.mode='single'``; lane biases with the dense phase, or tile
+biases / none without it, per tile or with ``sgd.step_user_batch``) and
+the fused BPR ring of one shard
 (``solver='bpr'``, ``parallel.mode`` 'sharded' or 'hybrid' with
 ``model_axis = data_axis = 1``). Load (through the port's own
 ``mfx_torch.data``), split, initialize, train, evaluate every
@@ -91,7 +93,9 @@ def _check_supported(cfg: TrainConfig) -> None:
         )
     if cfg.model.bias_init != "zero" or cfg.model.dtype != "float32":
         raise NotImplementedError(
-            "mfx_torch.train: bias_init='zero' and float32 tables only"
+            f"mfx_torch.train: model.bias_init={cfg.model.bias_init!r} "
+            f"model.dtype={cfg.model.dtype!r}; only bias_init='zero' and "
+            "float32 tables are ported (ROADMAP Queue 1 item 9)"
         )
 
 

@@ -15,8 +15,11 @@ from mfx_torch.config import BPRConfig, SGDConfig
 from mfx_torch.data import synthetic, train_test_split
 from mfx_torch.kernels import plan_device as pdv
 from mfx_torch.kernels.dense_phase import dense_phase, dense_phase_plain
-from mfx_torch.kernels.packing import lane_tables
-from mfx_torch.kernels.sgd_sweep import sgd_sweep, sgd_sweep_plain
+from mfx_torch.kernels.packing import lane_tables, plain_tables
+from mfx_torch.kernels.sgd_sweep import (sgd_sweep, sgd_sweep_plain,
+                                         sgd_sweep_step_u,
+                                         sgd_sweep_step_u_plain,
+                                         sgd_sweep_tile, sgd_sweep_tile_plain)
 from mfx_torch.models.mf import init_model
 from mfx_torch.solvers.blocked import train_epochs_blocked
 from mfx_torch.solvers.dense_prep import prepare_dense_full
@@ -154,6 +157,149 @@ def test_trainer_through_both_kernels_is_repeatable(cuda):
                                              n, 0, e, cuda).cpu())
     assert abs(float(trc) - runs[0][0][0]) <= 1e-5
     np.testing.assert_allclose(mc.P.numpy(), runs[0][0][1].cpu().numpy(),
+                               atol=1e-4)
+
+
+# ---- sgd_sweep_tile, sgd_sweep_step_u (tile biases) ---------------------
+
+TILE_SWEEPS = {"tile": (sgd_sweep_tile, sgd_sweep_tile_plain),
+               "step_u": (sgd_sweep_step_u, sgd_sweep_step_u_plain)}
+
+
+def _check4(run, plain, state, use_bias=True):
+    """As _check, over (P, Q, bu, bi)."""
+    outs = []
+    for _ in range(2):
+        tabs = [x.clone() for x in state]
+        outs.append((float(run(*tabs)), tabs))
+    (s1, k1), (s2, k2) = outs
+    assert s1 == s2 and all(torch.equal(a, b) for a, b in zip(k1, k2))
+    tabs = [x.clone() for x in state]
+    sp = float(plain(*tabs))
+    for a, b in zip(k1, tabs):
+        assert float((a - b).abs().max()) <= 1e-4
+        assert bool(torch.isfinite(a).all())
+    assert abs(s1 - sp) <= 1e-4 * max(1.0, sp)
+    moved = [not torch.equal(a, b) for a, b in zip(k1, state)]
+    assert moved == [True, True, use_bias, use_bias]
+
+
+@pytest.mark.parametrize("use_bias", [True, False])
+@pytest.mark.parametrize("rank", [32, 64])
+@pytest.mark.parametrize("body", ["tile", "step_u"])
+def test_tile_bias_sweep_kernels_match_plain(cuda, body, rank, use_bias):
+    kernel, plain = TILE_SWEEPS[body]
+    train, _, _, u, i, r = _state(cuda)
+    g = torch.Generator(device=cuda).manual_seed(rank)
+    model = init_model(g, U, I, rank, global_mean=train.global_mean,
+                       device=cuda)
+    model.bu.copy_(torch.randn(U, device=cuda, generator=g) * 0.1)
+    model.bi.copy_(torch.randn(I, device=cuda, generator=g) * 0.1)
+    skel = pdv.build_plan_skeleton(u, i, U, I, SU, SI, T, TPG, 3)
+    tl = pdv.epoch_tiles_device(skel, u, i, r, 0, 0)
+    state = plain_tables(model, SU, SI, cuda)
+    for sw in skel.sweeps:
+        seg = slice(sw.win0 * SI, (sw.win0 + sw.nwin) * SI)
+        args = (sw.sa, sw.tc, tl[sw.t0:sw.t1], LR, REG, model.mu)
+        kw = dict(su=SU, si=SI, tpg=TPG, use_bias=use_bias)
+        before = kernel.launches
+        _check4(lambda P, Q, bu, bi: kernel(P, Q[seg], bu, bi[seg], *args,
+                                            **kw),
+                lambda P, Q, bu, bi: plain(P, Q[seg], bu, bi[seg], *args,
+                                           **kw), state, use_bias)
+        assert kernel.launches == before + 2
+
+
+@pytest.mark.parametrize("rank,tpg,distinct", [
+    (32, 4, 4), (32, 8, 64), (32, 1, 512), (64, 4, 4), (64, 2, 64),
+    (64, 8, 1024)])
+@pytest.mark.parametrize("body", ["tile", "step_u"])
+def test_tile_bias_sweep_kernels_hot_rows_and_pads(cuda, body, rank, tpg,
+                                                   distinct):
+    """Random full tiles (T = 256, blocks of 1024) where every slot repeats
+    one of ``distinct`` rows per side: long duplicate runs inside a tile
+    and across the tiles of a group; a tile of 200 slots' worth of pads,
+    a whole pad tile in the middle of a group, and every tpg."""
+    kernel, plain = TILE_SWEEPS[body]
+    g = torch.Generator(device=cuda).manual_seed(distinct + tpg)
+    su = si = 1024
+    nt, tile = 32, 256
+    P = torch.randn(2 * su, rank, device=cuda, generator=g) * 0.1
+    Q = torch.randn(3 * si, rank, device=cuda, generator=g) * 0.1
+    bu = torch.randn(2 * su, device=cuda, generator=g) * 0.1
+    bi = torch.randn(3 * si, device=cuda, generator=g) * 0.1
+    sa = torch.randint(0, 2, (nt // tpg,), device=cuda, generator=g,
+                       dtype=torch.int32)
+    tc = torch.randint(0, 3, (nt,), device=cuda, generator=g,
+                       dtype=torch.int32)
+    tl = torch.empty(nt, 3, tile, dtype=torch.int32, device=cuda)
+    for row in (0, 1):
+        tl[:, row] = torch.randint(0, distinct, (nt, tile), device=cuda,
+                                   generator=g, dtype=torch.int32)
+    tl[:, 2] = (torch.rand(nt, tile, device=cuda, generator=g) * 4.5
+                + 0.5).view(torch.int32)
+    tl[-1, 0, 56:], tl[-1, 1, 56:] = su, si
+    tl[5, 0], tl[5, 1] = su, si
+    args = (sa, tc, tl, LR, REG, 3.5)
+    kw = dict(su=su, si=si, tpg=tpg)
+    _check4(lambda *t: kernel(*t, *args, **kw),
+            lambda *t: plain(*t, *args, **kw), (P, Q, bu, bi))
+
+
+def test_step_u_kernel_with_groups_of_one_is_the_tile_kernel(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    su = si = 512
+    nt, tile, rank = 16, 256, 32
+    state = (torch.randn(su, rank, device=cuda, generator=g) * 0.1,
+             torch.randn(si, rank, device=cuda, generator=g) * 0.1,
+             torch.randn(su, device=cuda, generator=g) * 0.1,
+             torch.randn(si, device=cuda, generator=g) * 0.1)
+    tl = torch.randint(0, 300, (nt, 3, tile), device=cuda, generator=g,
+                       dtype=torch.int32)
+    tl[:, 2] = (torch.rand(nt, tile, device=cuda, generator=g) * 4.5
+                + 0.5).view(torch.int32)
+    z = torch.zeros(nt, dtype=torch.int32, device=cuda)
+    a, b = [x.clone() for x in state], [x.clone() for x in state]
+    sa_ = sgd_sweep_step_u(*a, z, z, tl, LR, REG, 3.5, su=su, si=si, tpg=1)
+    sb_ = sgd_sweep_tile(*b, z, z, tl, LR, REG, 3.5, su=su, si=si, tpg=1)
+    for x, y in zip(a, b):
+        assert float((x - y).abs().max()) <= 1e-6
+    assert abs(float(sa_) - float(sb_)) <= 1e-6 * float(sb_)
+
+
+@pytest.mark.parametrize("step_u", [False, True])
+def test_tile_bias_trainer_through_the_kernels_is_repeatable(cuda, step_u):
+    train, test, _, *_ = _state(cuda)
+    cfg = SGDConfig(lr=0.01, reg=0.04, lr_decay=0.92, epochs=2,
+                    partitioner="blocked", kernel="pallas", ublock=SU,
+                    iblock=SI, tile=T, step_user_batch=step_u)
+    kernel = sgd_sweep_step_u if step_u else sgd_sweep_tile
+    model = init_model(torch.Generator(device=cuda).manual_seed(0), U, I, 32,
+                       global_mean=train.global_mean, device=cuda)
+    runs = []
+    for _ in range(2):
+        before = kernel.launches
+        runs.append([(float(tr), m.P.clone(), m.bu.clone())
+                     for _, m, tr in train_epochs_blocked(
+                         model, train, cfg, True, seed=0, device=cuda)])
+        assert kernel.launches > before
+    for (ta, Pa, ba), (tb, Pb, bb) in zip(*runs):
+        assert ta == tb and torch.equal(Pa, Pb) and torch.equal(ba, bb)
+    assert runs[0][1][0] < runs[0][0][0]
+    assert float(runs[0][1][2].abs().max()) > 0
+    # one epoch on the CPU from the card's plan bits agrees
+    cpu_model = init_model(torch.Generator().manual_seed(0), U, I, 32)
+    cpu_model.P.copy_(model.P.cpu())
+    cpu_model.Q.copy_(model.Q.cpu())
+    cpu_model.mu = model.mu
+    (_, mc, trc), = train_epochs_blocked(
+        cpu_model, train, dataclasses.replace(cfg, epochs=1), True, seed=0,
+        device="cpu",
+        plan_rand=lambda e, n: pdv.epoch_rand(n, 0, e, cuda).cpu())
+    assert abs(float(trc) - runs[0][0][0]) <= 1e-5
+    np.testing.assert_allclose(mc.P.numpy(), runs[0][0][1].cpu().numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(mc.bu.numpy(), runs[0][0][2].cpu().numpy(),
                                atol=1e-4)
 
 

@@ -11,7 +11,8 @@ from mfx.eval.metrics import rmse_mae as rmse_mae_j
 from mfx.kernels import packing as pk
 from mfx.models import init_model as init_model_j
 from mfx.models.mf import MFModel as JMFModel
-from mfx_torch.convert import model_from_numpy, model_to_numpy
+from mfx_torch.convert import (merged_to_plain, model_from_numpy,
+                               model_to_numpy, plain_to_merged)
 from mfx_torch.eval.metrics import rmse, rmse_mae
 from mfx_torch.kernels import packing as pk_t
 from mfx_torch.models.mf import MFModel, init_model
@@ -89,6 +90,46 @@ def test_lane_tables_pad_to_whole_blocks():
     assert float(P[U:].abs().sum()) == 0 and float(Q[I:].abs().sum()) == 0
     np.testing.assert_array_equal(P[:U, RANK - 1].numpy(), tm.bu.numpy())
     np.testing.assert_array_equal(Q[:I, RANK - 2].numpy(), tm.bi.numpy())
+
+
+def test_plain_tables_pad_to_whole_blocks_and_slice_back():
+    tm = model_from_numpy(_np(_jax_model(6)))
+    P, Q, bu, bi = pk_t.plain_tables(tm, 128, 256, "cpu")
+    assert P.shape == (384, RANK) and Q.shape == (512, RANK)
+    assert bu.shape == (384,) and bi.shape == (512,)
+    for x in (P, Q, bu, bi):
+        assert x.is_contiguous() and x.dtype == torch.float32
+    assert float(P[U:].abs().sum()) == 0 and float(bi[I:].abs().sum()) == 0
+    for got, want in ((P[:U], tm.P), (Q[:I], tm.Q), (bu[:U], tm.bu),
+                      (bi[:I], tm.bi)):
+        assert torch.equal(got, want)
+    P[0, 0] += 1.0  # fresh tensors: the model is not aliased
+    assert not torch.equal(P[:U], tm.P)
+
+
+@pytest.mark.parametrize("rank,su,si", [(32, 128, 256), (64, 256, 128),
+                                        (128, 128, 128), (32, 512, 1024)])
+def test_merged_layout_conversion_matches_reference(rank, su, si):
+    rng = np.random.default_rng(rank)
+    jm = JMFModel(P=jnp.asarray(rng.normal(0, 0.3, (U, rank)), jnp.float32),
+                  Q=jnp.asarray(rng.normal(0, 0.3, (I, rank)), jnp.float32),
+                  bu=jnp.asarray(rng.normal(0, 0.2, U), jnp.float32),
+                  bi=jnp.asarray(rng.normal(0, 0.2, I), jnp.float32),
+                  mu=jnp.float32(3.4))
+    Pm, Qm = pk.pack_state(jm, su, si)
+    plain = merged_to_plain(np.asarray(Pm), np.asarray(Qm), rank, su, si)
+    want = pk_t.plain_tables(model_from_numpy(_np(jm)), su, si, "cpu")
+    for got, w in zip(plain, want):
+        assert torch.equal(got, w)
+    # and back: the reference unpacks what the port packed
+    P, Q, bu, bi = (x + 0.5 for x in plain)
+    Pm2, Qm2 = plain_to_merged(P, Q, bu, bi, su, si)
+    assert Pm2.shape == Pm.shape and Qm2.shape == Qm.shape
+    back = pk.unpack_state(jnp.asarray(Pm2), jnp.asarray(Qm2), jm.mu, U, I,
+                           rank, su, si)
+    for k, x in (("P", P[:U]), ("Q", Q[:I]), ("bu", bu[:U]), ("bi", bi[:I])):
+        np.testing.assert_array_equal(np.asarray(getattr(back, k)), x.numpy(),
+                                      err_msg=k)
 
 
 @pytest.mark.parametrize("clip", [None, (0.5, 5.0)])

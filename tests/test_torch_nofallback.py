@@ -18,7 +18,8 @@ from mfx_torch.kernels import _build
 from mfx_torch.kernels.bpr_sweep import bpr_sweep
 from mfx_torch.kernels.dense_phase import dense_phase
 from mfx_torch.kernels.serve_topk import tile_topk
-from mfx_torch.kernels.sgd_sweep import sgd_sweep
+from mfx_torch.kernels.sgd_sweep import (sgd_sweep, sgd_sweep_step_u,
+                                         sgd_sweep_tile)
 
 ROOT = Path(__file__).resolve().parent.parent
 MODULES = [
@@ -137,6 +138,11 @@ def test_wrappers_on_a_missing_card_raise():
     with pytest.raises((RuntimeError, AssertionError)):
         P = torch.zeros(256, 64, device="cuda")
         bpr_sweep(P, P, P, P, P, 0.05, 0.002, su=256, si=256, tpg=4)
+    for tile_bias_sweep in (sgd_sweep_tile, sgd_sweep_step_u):
+        with pytest.raises((RuntimeError, AssertionError)):
+            P = torch.zeros(256, 32, device="cuda")
+            tile_bias_sweep(P, P, P, P, P, P, P, 0.01, 0.04, 3.5, su=256,
+                            si=256, tpg=4)
 
 
 def test_recommenders_on_a_missing_card_raise():
@@ -159,7 +165,8 @@ def test_recommenders_on_a_missing_card_raise():
 
 
 @pytest.mark.parametrize("wrapper", ["sgd_sweep", "dense_phase",
-                                     "tile_topk", "bpr_sweep"])
+                                     "tile_topk", "bpr_sweep",
+                                     "sgd_sweep_tile", "sgd_sweep_step_u"])
 def test_wrappers_reject_devices_without_a_kernel(wrapper):
     P = torch.zeros(256, 64, device="meta")
     i32 = dict(dtype=torch.int32, device="meta")
@@ -168,6 +175,12 @@ def test_wrappers_reject_devices_without_a_kernel(wrapper):
             sgd_sweep(P, P, torch.zeros(1, **i32), torch.zeros(4, **i32),
                       torch.zeros(4, 3, 64, **i32), 0.01, 0.04, 3.5,
                       su=256, si=256, tpg=4)
+        elif wrapper in ("sgd_sweep_tile", "sgd_sweep_step_u"):
+            b = torch.zeros(256, device="meta")
+            fn = sgd_sweep_tile if wrapper == "sgd_sweep_tile" else sgd_sweep_step_u
+            fn(P, P, b, b, torch.zeros(1, **i32), torch.zeros(4, **i32),
+               torch.zeros(4, 3, 64, **i32), 0.01, 0.04, 3.5, su=256, si=256,
+               tpg=4)
         elif wrapper == "bpr_sweep":
             bpr_sweep(P, P, torch.zeros(1, **i32), torch.zeros(4, **i32),
                       torch.zeros(4, 3, 64, **i32), 0.05, 0.002,

@@ -16,7 +16,11 @@ printed as it ends:
    kernel runs bitwise equal, and the time of each; then the same 2,048
    tiles through sgd_sweep_tile and sgd_sweep_step_u (tpg = 4) on the
    plain tables of the same model, so that the lane, tile-bias and
-   step-batched bodies are timed on one tile stream;
+   step-batched bodies are timed on one tile stream; then sgd_sweep on
+   the whole first sweep from the untrained tables, on one block and on
+   as many as the card holds (twice): tables and SSE bitwise equal, both
+   times, the sweep's tiles and the tiles on its longest dependency
+   chain, and the blocks launched;
 4. main path: two epochs of mfx_torch.solvers.blocked.train_epochs_blocked
    on the full ML-25M-shaped synthetic with the preset unchanged, through
    both kernels (launch counters > 0), held-out RMSE (unclipped) <= 0.406
@@ -33,7 +37,8 @@ printed as it ends:
 7. bpr_sweep against its plain version at the BPR cell's shapes (su =
    si = 512, T = 256, rank 64): the first 2,048 tiles of segment 0 of
    epoch 0, max abs difference <= 1e-4, two kernel runs bitwise equal,
-   and the time of each;
+   and the time of each; then the whole of segment 0 on one block and on
+   as many as the card holds (twice), as in phase 3;
 8. the BPR path: mfx_torch.parallel.bpr_sharded.train_epochs_bpr_ring with
    the billion_bpr_sharded preset unchanged but for parallel.model_axis=1,
    its 5 epochs on the billion-implicit synthetic cut to 1/10 of its users,
@@ -57,9 +62,11 @@ printed as it ends:
 
 Each phase prints its wall time. The second-to-last line is a JSON object
 describing each kernel (times, launches on the main path, and the bound:
-the least time the card could take for the same bytes and operations);
-the last is {"ok": true, "device": {...}}. Any failure exits non-zero
-with no such line, and so does a machine without a CUDA device.
+the least time the card could take for the same bytes and operations; for
+sgd_sweep and bpr_sweep also the whole-sweep times on one block and on
+the card's count); the last is {"ok": true, "device": {...}}. Any failure
+exits non-zero with no such line, and so does a machine without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -171,6 +178,49 @@ def compare(name, run_kernel, run_plain, state):
     log(f"[kernel] {name}: max_abs_err={err:.3e} (tol {TOL}) sse={s1} "
         f"plain_sse={sse_p} ms={ms:.4f} plain_ms={plain_ms:.4f}")
     return err, ms, plain_ms
+
+
+def whole_sweep(name, run, state, deps, max_blocks):
+    """``run(P, Q, blocks)`` over a whole sweep from ``state``, on one
+    block and then twice on as many as the card holds: tables and scalar
+    must be bitwise equal between all three. Returns the times, the
+    blocks launched, the sweep's tiles and its critical path."""
+    import torch
+
+    outs = []
+    for blocks in (1, None, None):
+        tabs = [t.clone() for t in state]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        scalar = run(*tabs, blocks)
+        end.record()
+        end.synchronize()
+        outs.append((tabs, float(scalar), start.elapsed_time(end)))
+    (one, s_one, ms_one), (many, s_many, ms_many) = outs[:2]
+    again, s_again, ms_again = outs[2]
+    if s_one != s_many or any(not torch.equal(a, b)
+                              for a, b in zip(one, many)):
+        raise AssertionError(f"{name}: the card's block count and one block "
+                             f"differ ({s_many} vs {s_one})")
+    if s_many != s_again or any(not torch.equal(a, b)
+                                for a, b in zip(many, again)):
+        raise AssertionError(f"{name}: two runs at the card's block count "
+                             "differ")
+    if not all(bool(torch.isfinite(t).all()) for t in many):
+        raise AssertionError(f"{name}: non-finite tables")
+    grid = min(max_blocks, deps.runs.shape[0])
+    log(f"[kernel] {name} whole sweep: {deps.n_tiles} tiles in "
+        f"{deps.runs.shape[0]} runs, critical path {deps.critical} tiles "
+        f"(x{deps.n_tiles / deps.critical:.2f} at most); 1 block "
+        f"{ms_one:.4f} ms, {grid} blocks {ms_many:.4f} ms and "
+        f"{ms_again:.4f} ms (x{ms_one / ms_many:.2f}); tables and scalar "
+        f"bitwise equal across the three runs (scalar {s_many})")
+    return {"sweep_tiles": deps.n_tiles,
+            "sweep_critical_tiles": deps.critical, "sweep_blocks": grid,
+            "sweep_ms_1_block": ms_one, "sweep_ms": ms_many,
+            "sweep_ms_again": ms_again}
 
 
 def _true_scores(P_aug, Q_aug, sb, rows, items):
@@ -442,10 +492,11 @@ def serve_phase(model, train, dev, seed):
     return launches
 
 
-def bpr_phases(dev, results, bounds):
+def bpr_phases(dev, results, bounds, sweeps):
     """Phases 7 and 8: bpr_sweep against its plain version at the BPR
-    cell's shapes, then the BPR path's 5 epochs. Fills ``results`` and
-    ``bounds`` for bpr_sweep; returns its launches on the path."""
+    cell's shapes and on a whole segment, then the BPR path's 5 epochs.
+    Fills ``results``, ``bounds`` and ``sweeps`` for bpr_sweep; returns its
+    launches on the path."""
     import math
 
     import numpy as np
@@ -458,6 +509,7 @@ def bpr_phases(dev, results, bounds):
                                           make_implicit_synthetic)
     from mfx_torch.eval.metrics import sampled_auc
     from mfx_torch.eval.ranking import hr_ndcg_at_k
+    from mfx_torch.kernels import _build
     from mfx_torch.kernels.bpr_sweep import bpr_sweep, bpr_sweep_plain
     from mfx_torch.models.mf import init_model
     from mfx_torch.parallel import bpr_sharded as ring
@@ -493,19 +545,22 @@ def bpr_phases(dev, results, bounds):
     t_phase = time.perf_counter()
     st = ring.ring_state(fresh_model(), train, bpr, seed=seed, device=dev)
     tls = ring.ring_epoch_tiles(st, bpr, seed, 0)
-    win0, nw, sa, tc = st.segments()[0]
+    win0, nw, sa_all, tc_all, deps_all = st.segments()[0]
     nt = min(SWEEP_TILES, tls[0].shape[2])
     tl = tls[0][0, 0, :nt].contiguous()
-    sa, tc = sa[:nt // TPG].contiguous(), tc[:nt].contiguous()
+    sa, tc = sa_all[:nt // TPG].contiguous(), tc_all[:nt].contiguous()
+    deps = deps_all.prefix(nt)
     si = bpr.iblock
     seg = slice(win0 * si, (win0 + nw) * si)
     log(f"[kernel] bpr_sweep: {nt} tiles of segment 0 ({len(tls)} segments "
-        f"of {[x.shape[2] for x in tls]} tiles; T={bpr.tile}, rank {rank})")
+        f"of {[x.shape[2] for x in tls]} tiles; T={bpr.tile}, rank {rank}); "
+        f"they hold {deps.runs.shape[0]} runs, critical path "
+        f"{deps.critical} tiles")
     kw = dict(su=bpr.ublock, si=si, tpg=TPG)
     results["bpr_sweep"] = compare(
         "bpr_sweep",
         lambda Pt, Qt: bpr_sweep(Pt, Qt[seg], sa, tc, tl, bpr.lr, bpr.reg,
-                                 **kw),
+                                 deps=deps, **kw),
         lambda Pt, Qt: bpr_sweep_plain(Pt, Qt[seg], sa, tc, tl, bpr.lr,
                                        bpr.reg, **kw),
         (st.P, st.Q),
@@ -516,7 +571,22 @@ def bpr_phases(dev, results, bounds):
                                       [("P", 0), ("Q", 1), ("Q", 2)], 18)
     log(f"[kernel] bpr_sweep bound {bounds['bpr_sweep'][0]:.4f} ms "
         f"({bounds['bpr_sweep'][1]})")
-    del st, tls, tl
+    Pt, Qt = st.P.clone(), st.Q.clone()
+    ms_one = cuda_ms(lambda: bpr_sweep(Pt, Qt[seg], sa, tc, tl, bpr.lr,
+                                       bpr.reg, **kw), reps=3)
+    log(f"[kernel] bpr_sweep: the same {nt} tiles on one block in plan "
+        f"order (no dependency table) {ms_one:.4f} ms")
+    del Pt, Qt
+    # the whole of segment 0, on one block and on the card's count
+    whole = tls[0][0, 0]
+    sweeps["bpr_sweep"] = whole_sweep(
+        "bpr_sweep",
+        lambda Pt, Qt, blocks: bpr_sweep(Pt, Qt[seg], sa_all, tc_all, whole,
+                                         bpr.lr, bpr.reg, deps=deps_all,
+                                         blocks=blocks, **kw),
+        (st.P, st.Q), deps_all,
+        _build.load_library().mfx_bpr_sweep_max_blocks(bpr.tile))
+    del st, tls, tl, whole
     torch.cuda.empty_cache()
     log(f"[time] phase 7 {time.perf_counter() - t_phase:.1f} s")
 
@@ -543,7 +613,8 @@ def bpr_phases(dev, results, bounds):
         wall = time.perf_counter() - t_prev
         if epoch == 0:
             log(f"[bpr] prep {timings['prep_s']:.3f} s (positive index, "
-                "window bounds, plan skeleton)")
+                "window bounds, plan skeleton); (tiles, critical path) of "
+                f"each segment {timings['segment_tiles']}")
             wall -= timings["prep_s"]
         t_eval = time.perf_counter()
         auc = sampled_auc(m, test, seed=seed, pos_keys=keys)
@@ -872,13 +943,15 @@ def main() -> int:
     nt = min(SWEEP_TILES, sw.t1 - sw.t0)
     sa, tc = sw.sa[: nt // tpg].contiguous(), sw.tc[:nt].contiguous()
     tls = tl[sw.t0:sw.t0 + nt]
+    deps = sw.deps.prefix(nt)
     seg_s = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
     log(f"[kernel] sgd_sweep: {nt} tiles of the first sweep (T={T}, "
-        f"rank {rank})")
+        f"rank {rank}); they hold {deps.runs.shape[0]} runs, critical path "
+        f"{deps.critical} tiles")
     results["sgd_sweep"] = compare(
         "sgd_sweep",
         lambda Pt, Qt: sgd_sweep(Pt, Qt[seg_s], sa, tc, tls, lr, reg, mu,
-                                 su=su, si=si, tpg=tpg),
+                                 su=su, si=si, tpg=tpg, deps=deps),
         lambda Pt, Qt: sgd_sweep_plain(Pt, Qt[seg_s], sa, tc, tls, lr, reg,
                                        mu, su=su, si=si, tpg=tpg),
         (P, Q),
@@ -887,6 +960,19 @@ def main() -> int:
     # and two row adds (rank each)
     bounds["sgd_sweep"] = sweep_bound(tls, sa, tc, su, si, tpg, rank,
                                       [("P", 0), ("Q", 1)], 10)
+    Pt, Qt = P.clone(), Q.clone()
+    ms_one = cuda_ms(lambda: sgd_sweep(Pt, Qt[seg_s], sa, tc, tls, lr, reg,
+                                       mu, su=su, si=si, tpg=tpg), reps=3)
+    log(f"[kernel] sgd_sweep: the same {nt} tiles on one block in plan "
+        f"order (no dependency table) {ms_one:.4f} ms")
+    del Pt, Qt
+    # the whole first sweep, on one block and on the card's count
+    sweeps = {"sgd_sweep": whole_sweep(
+        "sgd_sweep",
+        lambda Pt, Qt, blocks: sgd_sweep(
+            Pt, Qt[seg_s], sw.sa, sw.tc, tl[sw.t0:sw.t1], lr, reg, mu, su=su,
+            si=si, tpg=tpg, deps=sw.deps, blocks=blocks),
+        (P, Q), sw.deps, _build.load_library().mfx_sgd_sweep_max_blocks(T))}
     # the same tiles through the tile-bias and step-batched bodies, on
     # the plain tables of the same model
     tile_bias_compare(results, bounds, plain_tables(fresh_model(), su, si, dev),
@@ -923,7 +1009,8 @@ def main() -> int:
             log(f"[main] prep {timings['prep_s']:.3f} s: dense_frac "
                 f"{info['dense_frac']:.4f}, {info['num_strata']} strata in "
                 f"{info['num_groups']} groups, R image "
-                f"{info['r_stream_bytes']} bytes")
+                f"{info['r_stream_bytes']} bytes; (tiles, critical path) of "
+                f"each sparse sweep {timings['sweep_tiles']}")
         test_rmse, test_mae = rmse_mae(m, test)
         train_rmse = float(tr)
         log(f"[main] epoch {epoch}: epoch_s {epoch_s:.4f} plan_s {plan_s:.4f} "
@@ -957,7 +1044,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7-8. the BPR path
-    launches["bpr_sweep"] = bpr_phases(dev, results, bounds)
+    launches["bpr_sweep"] = bpr_phases(dev, results, bounds, sweeps)
 
     # 9-10. the tile-bias path
     launches.update(tile_bias_phases(dev))
@@ -979,7 +1066,9 @@ def main() -> int:
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          # no single PyTorch call computes any of these functions
-         "library_ms": None}
+         "library_ms": None,
+         # sgd_sweep, bpr_sweep: a whole sweep on 1 block and on the card's
+         **sweeps.get(name, {})}
         for name, (err, ms, plain_ms) in results.items()
     ]}))
     log(json.dumps({"ok": True, "device": {

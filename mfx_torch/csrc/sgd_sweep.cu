@@ -13,24 +13,36 @@
 //               summed in slot order (the reference's exact segment sum)
 //   sse      += sum_s e_s^2 over real slots (pad slots hold u == su)
 //
-// Order: tiles apply strictly in plan order, as the TPU's sequential grid
-// does. One thread block walks the whole sweep; that loop takes the place
-// of the sequential grid dimension, and every sum is taken in a fixed
-// order (sweep_common.cuh states it; the bias terms of that header are 0
-// here), so a run is bitwise repeatable. No float atomics.
+// Order: the result is that of applying the tiles strictly in plan order,
+// as the TPU's sequential grid does. The launch's blocks share the sweep
+// by sweep_common.cuh's wavefront scheduler: each takes whole user-block
+// runs in plan order and walks a run front to back, and a stratum's first
+// tile waits for the nearest earlier run's tiles of the same item window.
+// A tile touches only its user block's P rows and its window's Q rows, so
+// those two orders fix every value a tile gathers: the tables are bit for
+// bit the one-block walk's, on any number of blocks, and a grid of one
+// block is that walk. Every sum inside a tile is taken in a fixed order
+// (sweep_common.cuh states it; the bias terms of that header are 0 here),
+// and the per-tile SSE goes to a buffer that a second small kernel adds up
+// in tile order, so the scalar is the one-block walk's too. No float
+// atomics; the scheduler uses an integer ticket and integer counts.
 //
-// What bounds it on an H100: one SM does all the work, so the sweep is
-// bound by one SM's latency: each tile's phases (ids, gather, duplicate
-// search, residuals, scatter) are separated by barriers, and the gather
-// of 2*T*rank*4 bytes (128 KB at T=256) waits on L2/HBM. The design keeps
-// the tile's snapshot in shared memory (the >48 KB dynamic opt-in),
-// issues every phase from all 512 threads with 16-byte accesses (16
-// threads per 256-byte row, all of a thread's gather loads in flight at
-// once), and groups duplicate rows with a bitonic sort of (row, slot)
-// keys in shared memory, so each row's deltas sit next to each other in
-// slot order and no thread scans the tile. Running independent strata on
-// the other SMs (the DSGD parallel mode) is the next step and changes
-// the update order.
+// Memory ordering: P and Q rows written on one SM are gathered on another
+// inside the launch, so every table load bypasses L1 and a run's progress
+// is published only after a barrier and a fence (sweep_common.cuh).
+//
+// What bounds it on an H100: a tile's time is one SM's latency: its phases
+// (ids, gather, duplicate search, residuals, scatter) are separated by
+// barriers, and the gather of 2*T*rank*4 bytes (128 KB at T=256) waits on
+// L2. The design keeps the tile's snapshot in shared memory (the >48 KB
+// dynamic opt-in, one block an SM at T=256), runs every phase on all
+// 512 threads with 16-byte accesses (16 threads per 256-byte row, all of a
+// thread's gather loads in flight at once), and groups duplicate rows
+// with a bitonic sort of (row, slot) keys in shared memory, so each row's
+// deltas sit next to each other in slot order and no thread scans the
+// tile. A sweep's time is then the longest dependency chain's tiles (a
+// sweep of W windows keeps at most W blocks busy; the heaviest window's
+// tiles all follow one another) plus the wavefront's ramp.
 
 #include "sweep_common.cuh"
 
@@ -65,59 +77,82 @@ __device__ inline void scatter_quad(
       freeze(run_delta<Q4>(key, own, other, e, p, q, lr, reg), frozen, q));
 }
 
-// P and Q are read and written by this block between barriers, so they
-// are deliberately not const/__restrict__ (see sweep_common.cuh).
+// P and Q are rewritten by this and other blocks during the launch, so
+// they are deliberately not const/__restrict__ and every row is loaded
+// from L2 (see sweep_common.cuh).
 __global__ void __launch_bounds__(THREADS)
 sgd_sweep_kernel(float* P, float* Q, const int* __restrict__ sa,
                  const int* __restrict__ tc, const int* __restrict__ tl,
-                 float* __restrict__ sse_out, int nt, int tpg, int T, int su,
-                 int si, float lr, float reg, float mu) {
+                 Wavefront wf, float* __restrict__ sums, int tpg, int T,
+                 int su, int si, float lr, float reg, float mu) {
   extern __shared__ float4 smem_raw[];
+  __shared__ int run_slot;
   const TileSmem<RANK> sm = TileSmem<RANK>::carve(smem_raw, T);
-  float sse = 0.f;  // thread 0 carries the sweep's sum
 
-  for (int t = 0; t < nt; ++t) {
-    const long long pbase = (long long)sa[t / tpg] * su;
-    const long long qbase = (long long)tc[t] * si;
-    load_ids(sm, tl + (long long)t * 3 * T, T, su);
-    __syncthreads();
-    gather(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su, /*use_bias=*/0);
-    sort_keys(sm.keyU, sm.keyI);
-    residuals(sm, T, su, mu, /*use_bias=*/0);
-    __syncthreads();
+  for (int run = take_run(wf, &run_slot); run < wf.nruns;
+       run = take_run(wf, &run_slot)) {
+    const int t0 = wf.runs[2 * run], n = wf.runs[2 * run + 1];
+    for (int k = 0; k < n; ++k) {
+      const int t = t0 + k;
+      const long long pbase = (long long)sa[t / tpg] * su;
+      const long long qbase = (long long)tc[t] * si;
+      load_ids(sm, tl + (long long)t * 3 * T, T, su);
+      const bool ends_stratum = await_tile(wf, t);
+      __syncthreads();
+      gather(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
+             /*use_bias=*/0);
+      sort_keys(sm.keyU, sm.keyI);
+      residuals(sm, T, su, mu, /*use_bias=*/0);
+      __syncthreads();
 
-    // 5. scatter: one (side, sorted position, column quad) per thread and
-    // step; only the first position of each row's run writes
-    for (int w = threadIdx.x; w < 2 * MAX_T * Q4; w += THREADS) {
-      const int q = w % Q4, rest = w / Q4;
-      if (rest < MAX_T)
-        scatter_quad(P, pbase, sm.keyU, sm.Ps, sm.Qs, sm.e, rest, q,
-                     RANK - 2, lr, reg);
-      else
-        scatter_quad(Q, qbase, sm.keyI, sm.Qs, sm.Ps, sm.e, rest - MAX_T, q,
-                     RANK - 1, lr, reg);
+      // 5. scatter: one (side, sorted position, column quad) per thread
+      // and step; only the first position of each row's run writes
+      for (int w = threadIdx.x; w < 2 * MAX_T * Q4; w += THREADS) {
+        const int q = w % Q4, rest = w / Q4;
+        if (rest < MAX_T)
+          scatter_quad(P, pbase, sm.keyU, sm.Ps, sm.Qs, sm.e, rest, q,
+                       RANK - 2, lr, reg);
+        else
+          scatter_quad(Q, qbase, sm.keyI, sm.Qs, sm.Ps, sm.e, rest - MAX_T,
+                       q, RANK - 1, lr, reg);
+      }
+      const float sse = tile_sse(sm, T);
+      if (threadIdx.x == 0) sums[t] = sse;
+      __syncthreads();
+      publish(wf, ends_stratum, run, k + 1);
     }
-    sse += tile_sse(sm, T);
-    __syncthreads();
   }
-  if (threadIdx.x == 0) sse_out[0] = sse;
 }
 
 }  // namespace
 
+// Thread blocks of sgd_sweep_kernel the device holds at once at tile size
+// T, or minus the CUDA error.
+extern "C" int mfx_sgd_sweep_max_blocks(int T) {
+  if (T < 1 || T > MAX_T) return -(int)cudaErrorInvalidValue;
+  return resident_blocks(sgd_sweep_kernel, THREADS, TileSmem<RANK>::bytes(T));
+}
+
 extern "C" int mfx_sgd_sweep(float* P, float* Q, const int* sa, const int* tc,
-                             const int* tl, float* sse_out, int nt, int tpg,
-                             int T, int su, int si, int rank, float lr,
-                             float reg, float mu, void* stream) {
+                             const int* tl, const int* runs, const int* wait,
+                             int* state, float* sums, float* sse_out, int nt,
+                             int nruns, int blocks, int tpg, int T, int su,
+                             int si, int rank, float lr, float reg, float mu,
+                             void* stream) {
   if (rank != RANK || su > MAX_BLOCK || si > MAX_BLOCK || T < 1 ||
-      T > MAX_T || tpg < 1)
+      T > MAX_T || tpg < 1 || nruns < 1 || blocks < 1)
     return (int)cudaErrorInvalidValue;
   const size_t smem = TileSmem<RANK>::bytes(T);
   cudaError_t err = cudaFuncSetAttribute(
       sgd_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  sgd_sweep_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
-      P, Q, sa, tc, tl, sse_out, nt, tpg, T, su, si, lr, reg, mu);
+  const Wavefront wf{runs, wait, state, nruns};
+  sgd_sweep_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      P, Q, sa, tc, tl, wf, sums, tpg, T, su, si, lr, reg, mu);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ordered_sum_kernel<<<1, SUM_THREADS, 0, (cudaStream_t)stream>>>(
+      sums, nt, sse_out);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,14 @@
-// Building blocks of the sparse SGD sweeps (sgd_sweep.cu, sgd_sweep_tile.cu,
-// sgd_sweep_step_u.cu): one tile's ids, snapshot gather, duplicate-row
-// grouping, residuals and run sums, for plain (rows, RANK) f32 tables,
-// with the biases, where there are any outside the tables, in vectors of
-// their own (use_bias). RANK is 32 or 64 (RANK / 4 float4 a row). One
-// thread block of THREADS threads works on one tile at a time; every
-// function here is called by all of its threads.
+// Building blocks of the sparse sweeps. For the SGD sweeps (sgd_sweep.cu,
+// sgd_sweep_tile.cu, sgd_sweep_step_u.cu): one tile's ids, snapshot gather,
+// duplicate-row grouping, residuals and run sums, for plain (rows, RANK)
+// f32 tables, with the biases, where there are any outside the tables, in
+// vectors of their own (use_bias). RANK is 32 or 64 (RANK / 4 float4 a
+// row). One thread block of THREADS threads works on one tile at a time;
+// every function here is called by all of its threads. For sgd_sweep.cu
+// and bpr_sweep.cu: the wavefront scheduler (at the end of this file),
+// with which the blocks of one launch share a sweep's tiles.
 //
-// Order of every sum, so that a run is bitwise repeatable:
+// Order of every sum inside a tile, so that a run is bitwise repeatable:
 //   dot      8 threads a slot, each a fixed-order fma chain over its
 //            float4 (k, k + 8, ...), then a fixed butterfly over the 8;
 //   pred     ((dot + mu) + bu) + bi;
@@ -14,6 +16,28 @@
 //            bitonic sort of unique (row << 8 | slot) keys puts them
 //            next to each other), added to the row's snapshot last.
 // No float atomics anywhere.
+//
+// Order between tiles. A tile reads and writes only the P rows of its user
+// block and the Q rows of its item window, so the result of a sweep is
+// fixed by two orders: that of the tiles of each user block, and that of
+// the tiles of each window. The plan stream keeps a user block's tiles
+// together (a run); the scheduler gives each run to one block, which walks
+// it front to back, and makes a stratum's first tile wait until the
+// nearest earlier run with tiles in the same window has finished them
+// (the plan's dependency table). Every tile therefore gathers exactly the
+// rows the one-block, plan-order walk would have shown it, and the tables
+// come out bit for bit the same on any number of blocks.
+//
+// Memory ordering of P, Q, bu and bi. Rows written on one SM are gathered
+// on another inside one launch, and an SM's L1 is not coherent with
+// another SM's stores. So (1) every load of a table row goes to L2
+// (ld_row / __ldcg), never through L1 or the read-only path, and the
+// tables are not const __restrict__; (2) a block makes a stratum's rows
+// visible before it says so: the barrier that ends the scatter, then one
+// thread's __threadfence() and a release store of the run's finished-tile
+// count; (3) one thread of a waiting block reads that count with acquire
+// loads, and the block's barrier then orders every thread's gather behind
+// it.
 
 #pragma once
 
@@ -99,11 +123,15 @@ __device__ inline void load_ids(const TileSmem<RANK>& sm, const int* tt, int T,
   }
 }
 
-// 2. snapshot gather (after a barrier behind load_ids): RANK / 4 threads
-// a row, every load issued before any store. P, Q, bu and bi are read as
-// they stand in device memory; they are written by this block between
-// barriers, so they are deliberately not const __restrict__ (a
-// non-coherent cached load could return a row an earlier tile rewrote).
+// A load of table data that another SM may have written in this launch:
+// from L2, past this SM's L1 (see "Memory ordering" above).
+__device__ inline float4 ld_row(const float4* p) { return __ldcg(p); }
+__device__ inline float ld_row(const float* p) { return __ldcg(p); }
+
+// 2. snapshot gather (after a barrier behind load_ids, and behind
+// await_tile where the scheduler is used): RANK / 4 threads a row, every
+// load started before any store. P, Q, bu and bi are read as they stand in
+// L2: earlier tiles of this launch, on this SM or another, rewrote them.
 template <int RANK>
 __device__ inline void gather(const TileSmem<RANK>& sm, const float* P,
                               const float* Q, const float* bu, const float* bi,
@@ -118,8 +146,8 @@ __device__ inline void gather(const TileSmem<RANK>& sm, const float* P,
   if (use_bias && tid < T) {
     const int u = sm.uid[tid];
     if (u < su) {
-      b_u = bu[pbase + u];
-      b_i = bi[qbase + sm.iid[tid]];
+      b_u = ld_row(bu + pbase + u);
+      b_i = ld_row(bi + qbase + sm.iid[tid]);
     }
   }
   float4 pv[GATHER], qv[GATHER];
@@ -130,8 +158,8 @@ __device__ inline void gather(const TileSmem<RANK>& sm, const float* P,
     if (s < T) {
       const int u = sm.uid[s];
       if (u < su) {
-        pv[m] = P4[(pbase + u) * Q4 + k];
-        qv[m] = Qg4[(qbase + sm.iid[s]) * Q4 + k];
+        pv[m] = ld_row(P4 + (pbase + u) * Q4 + k);
+        qv[m] = ld_row(Qg4 + (qbase + sm.iid[s]) * Q4 + k);
       }
     }
   }
@@ -277,6 +305,120 @@ __device__ inline float tile_sse(const TileSmem<RANK>& sm, int T) {
       part += __shfl_xor_sync(0xffffffffu, part, o);
   }
   return threadIdx.x == 0 ? part : 0.f;
+}
+
+// ---- The wavefront scheduler -------------------------------------------
+//
+// One launch walks a whole sweep. Its blocks take the sweep's runs (one
+// user block's tiles each) in plan order by an integer ticket, walk a run
+// front to back, publish how many of its tiles are finished, and before a
+// stratum's first tile wait for the count the dependency table names. A
+// block only ever waits on a run with a smaller ticket, which a running or
+// finished block holds, so any grid size is free of deadlock; a grid of
+// one block walks the tiles in plan order. Integers only: the ticket by
+// atomicAdd, the counts by release stores and acquire loads.
+
+struct Wavefront {
+  const int* runs;  // (nruns, 2) first tile and tile count of each run
+  const int* wait;  // (nt, 3) per tile: the (run, finished tiles) to wait
+                    // for before its gather, run < 0 for none; and
+                    // whether a later run may wait for its end (the last
+                    // tile of a stratum). Null: no tile waits
+  int* state;       // zeroed per launch: [0] the ticket, [1 + r] the tiles
+                    // of run r that are finished and visible
+  int nruns;
+};
+
+__device__ inline int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ inline void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;"
+               : : "l"(p), "r"(v) : "memory");
+}
+
+// The block's next run, or a value >= nruns when none is left. `slot` is
+// one int of shared memory. Begins and ends with a barrier.
+__device__ inline int take_run(const Wavefront& wf, int* slot) {
+  __syncthreads();
+  if (threadIdx.x == 0) *slot = atomicAdd(wf.state, 1);
+  __syncthreads();
+  return *slot;
+}
+
+// The scheduler's thread waits until tile t may gather; the other threads
+// go on to the caller's next barrier, which orders their gather behind
+// the wait. It is the block's last thread: its warp loads no ids, so the
+// wait runs beside load_ids. Returns, on that thread, whether the tile's
+// end is to be published.
+__device__ inline bool await_tile(const Wavefront& wf, int t) {
+  if (threadIdx.x != THREADS - 1 || wf.wait == nullptr) return false;
+  const int run = wf.wait[3 * t], count = wf.wait[3 * t + 1];
+  const bool ends_stratum = wf.wait[3 * t + 2] != 0;
+  if (run >= 0)
+    while (ld_acquire(wf.state + 1 + run) < count) __nanosleep(32);
+  return ends_stratum;
+}
+
+// After the barrier that ends a tile's scatter, with await_tile's answer
+// for the tile: where a later run may wait for it, make the rows of the
+// run's first `finished` tiles visible to every SM and say so.
+__device__ inline void publish(const Wavefront& wf, bool ends_stratum,
+                               int run, int finished) {
+  if (!ends_stratum) return;
+  __threadfence();
+  st_release(wf.state + 1 + run, finished);
+}
+
+// Thread blocks of `kernel` (at `threads` threads and `smem` bytes of
+// dynamic shared memory) that the current device holds at once: SMs x
+// blocks an SM. Minus the CUDA error if a call fails.
+template <class Kernel>
+inline int resident_blocks(Kernel kernel, int threads, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  return err == cudaSuccess ? sms * per_sm : -(int)err;
+}
+
+// out[0] = ((sums[0] + sums[1]) + ...) + sums[n - 1]: the per-tile SSE or
+// loss added in tile order, as one block carrying the sum through the
+// plan-order walk adds them. One thread adds (the chain of dependent adds
+// is the sum's order); the other warps stage the next SUM_CHUNK values in
+// shared memory meanwhile, so the adder never waits on device memory.
+constexpr int SUM_THREADS = 256;
+constexpr int SUM_CHUNK = 2048;
+
+static __global__ void __launch_bounds__(SUM_THREADS)
+ordered_sum_kernel(const float* __restrict__ sums, int n,
+                   float* __restrict__ out) {
+  __shared__ float buf[2][SUM_CHUNK];
+  const int tid = threadIdx.x;
+  float acc = 0.f;
+  for (int c = -SUM_CHUNK, b = 0; c < n; c += SUM_CHUNK, b ^= 1) {
+    // warps 1.. load chunk c + SUM_CHUNK; thread 0 adds chunk c
+    if (tid >= 32) {
+      const int c1 = c + SUM_CHUNK;
+      for (int i = tid - 32; i < SUM_CHUNK && c1 + i < n;
+           i += SUM_THREADS - 32)
+        buf[b ^ 1][i] = sums[c1 + i];
+    } else if (tid == 0 && c >= 0) {
+      const int m = min(SUM_CHUNK, n - c);
+      for (int i = 0; i < m; ++i) acc += buf[b][i];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) out[0] = acc;
 }
 
 }  // namespace mfx_sweep

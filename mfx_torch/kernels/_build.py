@@ -29,13 +29,15 @@ _F = ctypes.c_float
 
 # C signatures (mirrored by the extern "C" definitions in csrc/)
 _SIGNATURES = {
-    "mfx_sgd_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _F, _F, _F, _P],
+    "mfx_sgd_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _F, _F, _F, _P],
+    "mfx_sgd_sweep_max_blocks": [_I],
     "mfx_dense_phase": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                         _I, _I, _I, _F, _F, _F, _P],
     "mfx_tile_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mfx_bpr_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _F, _F, _P],
+    "mfx_bpr_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _F, _F, _P],
+    "mfx_bpr_sweep_max_blocks": [_I],
     "mfx_sgd_sweep_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _F, _F, _F, _P],
     "mfx_sgd_sweep_step_u": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

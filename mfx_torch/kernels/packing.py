@@ -24,7 +24,7 @@ import torch
 from mfx_torch.models.mf import MFModel
 
 __all__ = ["to_lane_model", "from_lane_model", "pad_rows", "lane_tables",
-           "plain_tables"]
+           "plain_tables", "row_add"]
 
 
 def to_lane_model(model: MFModel) -> MFModel:
@@ -76,3 +76,16 @@ def plain_tables(model: MFModel, su: int, si: int, device):
     the slice ``[:U]`` / ``[:I]``."""
     return (pad_rows(model.P.to(device), su), pad_rows(model.Q.to(device), si),
             pad_rows(model.bu.to(device), su), pad_rows(model.bi.to(device), si))
+
+
+def row_add(table, rows, delta):
+    """``table[rows] += delta``, duplicate rows summed, in an order that
+    repeats from run to run on either device: on the CPU ``index_add_``
+    walks the slots in order (``index_put_`` accumulates from several
+    threads there); on CUDA ``index_put_(accumulate=True)`` sorts, where
+    ``index_add_`` uses float atomics. The sweeps' plain versions add
+    every delta with it."""
+    if table.device.type == "cpu":
+        table.index_add_(0, rows, delta)
+    else:
+        table.index_put_((rows,), delta, accumulate=True)

@@ -15,6 +15,17 @@ The random key is a signed int32 compared as such, as the reference's
 ``lax.sort(num_keys=2, is_stable=True)`` does, so the port rebuilds the
 reference's tile stream bit for bit when it is handed the reference's
 random bits (``epoch_tiles_device(..., rand=...)``).
+
+The skeleton also carries each sweep's **dependency table**
+(:class:`SweepDeps`, :func:`sweep_deps`), with which the sweep kernels
+walk a sweep on many SMs and still produce the plan-order result. A tile
+reads and writes only the P rows of its user block and the Q rows of its
+window, so two tiles conflict only if they share one of the two. The
+tiles of one user block are contiguous in the stream (a *run*, walked
+front to back by one thread block), and a stratum's first tile waits for
+the last tile of the nearest earlier run with a non-empty stratum in the
+same window. Any execution that keeps those two orders reads and writes
+the values the plan-order walk does.
 """
 
 from __future__ import annotations
@@ -24,8 +35,106 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["PlanSkeleton", "SweepSlice", "build_plan_skeleton",
-           "epoch_tiles_device", "epoch_rand"]
+__all__ = ["PlanSkeleton", "SweepSlice", "SweepDeps", "build_plan_skeleton",
+           "epoch_tiles_device", "epoch_rand", "sweep_deps", "critical_path",
+           "wavefront_order"]
+
+
+@dataclasses.dataclass
+class SweepDeps:
+    """The order a sweep's tiles must keep beyond "front to back inside a
+    run"; the tensors live on the plan's device."""
+
+    runs: torch.Tensor  # (R, 2) int32: first tile and tile count of each run
+    # (nt, 3) int32 per tile: do not gather before run ``wait[t, 0]`` has
+    # finished ``wait[t, 1]`` of its tiles, (-1, 0) where nothing is
+    # waited for; ``wait[t, 2]`` is 1 where a later run may wait for this
+    # tile's end (the last tile of a stratum)
+    wait: torch.Tensor
+    n_tiles: int  # tiles of the sweep, pad tiles included
+    critical: int  # tiles on the longest dependency chain
+
+    def prefix(self, nt: int) -> "SweepDeps":
+        """The table of the sweep's first ``nt`` tiles (a wait only ever
+        names an earlier run, so a prefix orders itself)."""
+        runs = self.runs.cpu().numpy()
+        runs = runs[runs[:, 0] < nt].copy()
+        runs[:, 1] = np.minimum(runs[:, 1], nt - runs[:, 0])
+        wait = self.wait[:nt].contiguous()
+        return SweepDeps(
+            runs=torch.as_tensor(runs, device=self.runs.device), wait=wait,
+            n_tiles=nt, critical=critical_path(runs, wait.cpu().numpy()))
+
+
+def critical_path(runs: np.ndarray, wait: np.ndarray) -> int:
+    """Tiles on the longest chain of the table: a tile follows its run's
+    previous tile and, where it waits, tile ``wait[t, 1] - 1`` of run
+    ``wait[t, 0]``."""
+    finish = np.zeros(wait.shape[0], np.int64)  # chain length ending at t
+    for base, n in runs.tolist():
+        w = wait[base:base + n]
+        dep = np.where(w[:, 0] >= 0,
+                       finish[runs[w[:, 0].clip(0), 0] + w[:, 1] - 1], 0)
+        # finish[i] = max(finish[i - 1], dep[i]) + 1
+        k = np.arange(n)
+        finish[base:base + n] = k + 1 + np.maximum.accumulate(dep - k)
+    return int(finish.max(initial=0))
+
+
+def sweep_deps(tp: np.ndarray, run_len: np.ndarray, device) -> SweepDeps:
+    """The dependency table of one sweep from its layout: ``tp`` (A, W)
+    real tiles per (user block, window) stratum, ``run_len`` (A,) tiles of
+    each user block's run in the stream (its strata in window order, then
+    pad tiles, which touch nothing and wait for nothing). User blocks
+    with no tiles have no run."""
+    keep = np.flatnonzero(run_len > 0)
+    tp, run_len = tp[keep].astype(np.int64), run_len[keep].astype(np.int64)
+    R, W = tp.shape
+    if R == 0:  # a sweep with no rating
+        return SweepDeps(
+            runs=torch.zeros((0, 2), dtype=torch.int32, device=device),
+            wait=torch.zeros((0, 3), dtype=torch.int32, device=device),
+            n_tiles=0, critical=0)
+    base = np.cumsum(run_len) - run_len
+    nt = int(run_len.sum())
+    end = np.cumsum(tp, axis=1)  # tiles of the run done after the stratum
+    filled = tp > 0
+    # nearest earlier run with a non-empty stratum in the same window
+    last = np.maximum.accumulate(
+        np.where(filled, np.arange(R)[:, None], -1), axis=0)
+    prev = np.vstack([np.full((1, W), -1, np.int64), last[:-1]])
+    count = np.where(prev >= 0,
+                     end[prev.clip(0), np.arange(W)[None, :]], 0)
+    wait = np.tile(np.array([-1, 0, 0], np.int32), (nt, 1))
+    first = (base[:, None] + end - tp)[filled]  # first tile of each stratum
+    wait[first, 0] = prev[filled]
+    wait[first, 1] = count[filled]
+    wait[(base[:, None] + end - 1)[filled], 2] = 1
+    runs = np.stack([base, run_len], axis=1).astype(np.int32)
+    return SweepDeps(runs=torch.as_tensor(runs, device=device),
+                     wait=torch.as_tensor(wait, device=device), n_tiles=nt,
+                     critical=critical_path(runs, wait))
+
+
+def wavefront_order(deps: SweepDeps, seed: int) -> np.ndarray:
+    """A seeded random order of the sweep's tiles that the table allows:
+    at every step one of the runs whose next tile may start, picked at
+    random, advances by one tile. The tests replay the plain versions in
+    such orders to show that the table is enough."""
+    rng = np.random.default_rng(seed)
+    runs = deps.runs.cpu().numpy()
+    wait = deps.wait.cpu().numpy()
+    done = np.zeros(runs.shape[0], np.int64)
+    order = []
+    while len(order) < deps.n_tiles:
+        nxt = runs[:, 0] + done
+        live = np.flatnonzero(done < runs[:, 1])
+        w = wait[nxt[live]]
+        ready = live[(w[:, 0] < 0) | (done[w[:, 0].clip(0)] >= w[:, 1])]
+        r = int(rng.choice(ready))
+        order.append(int(nxt[r]))
+        done[r] += 1
+    return np.asarray(order, np.int64)
 
 
 @dataclasses.dataclass
@@ -39,6 +148,7 @@ class SweepSlice:
     n_real: int
     sa: torch.Tensor  # (nt / tpg,) int32 user block per group of tpg tiles
     tc: torch.Tensor  # (nt,) int32 sweep-local item window per tile
+    deps: SweepDeps  # what orders the sweep's tiles on many SMs
 
 
 @dataclasses.dataclass
@@ -132,6 +242,7 @@ def build_plan_skeleton(
             n_real=int(counts[lo:hi].sum()),
             sa=torch.as_tensor(sa, device=dev),
             tc=torch.as_tensor(tc, device=dev),
+            deps=sweep_deps(tp, padded_per_a, dev),
         ))
         t_cursor += nt
 

@@ -26,7 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from mfx_torch.kernels.plan_device import epoch_rand
+from mfx_torch.kernels.plan_device import SweepDeps, epoch_rand, sweep_deps
 
 __all__ = ["RingSegmentSlice", "RingSkeleton", "build_ring_skeleton",
            "epoch_tiles_ring"]
@@ -41,6 +41,9 @@ class RingSegmentSlice:
     nt: int  # padded tiles per cell (uniform across cells)
     sa: torch.Tensor  # (S, S, nt / tpg) int32 user block per group of tiles
     tc: torch.Tensor  # (S, S, nt) int32 segment-local window per tile
+    # deps[t][s]: what orders the tiles of cell (sub-step t, shard s) on
+    # many SMs (kernels.plan_device.sweep_deps)
+    deps: list[list[SweepDeps]]
 
 
 @dataclasses.dataclass
@@ -129,6 +132,7 @@ def build_ring_skeleton(
 
         sa = np.zeros((S, S, ng), np.int32)
         tc = np.zeros((S, S, nt), np.int32)
+        deps = [[None] * S for _ in range(S)]
         for t in range(S):
             for s in range(S):
                 runs = (padded_per_a[t, s] // tpg).astype(np.int64)
@@ -157,6 +161,11 @@ def build_ring_skeleton(
                 base_local = (run_base[:-1, None] + within).reshape(-1)
                 real_ids = base_local[strat_of_tile] + within_t
                 tc[t, s, real_ids] = (strat_of_tile % nwk).astype(np.int32)
+                # the cell's trailing pad tiles ride at the end of its last
+                # run (sa repeats that block there)
+                run_len = padded_per_a[t, s].copy()
+                run_len[sa[t, s, -1]] += nt - run_base[-1]
+                deps[t][s] = sweep_deps(tp, run_len, dev)
         if S * nt * 3 * tile >= 2**31:
             raise NotImplementedError(
                 f"a single (segment, sub-step) slab ({S}x{nt} tiles x "
@@ -166,6 +175,7 @@ def build_ring_skeleton(
             win0=k * nwin, nwin=nwk, nt=nt,
             sa=torch.as_tensor(sa, device=dev),
             tc=torch.as_tensor(tc, device=dev),
+            deps=deps,
         ))
         f_cursor += S * S * nt
         off += S * S * A * nwk

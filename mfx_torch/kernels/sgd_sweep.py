@@ -13,9 +13,14 @@ They replace the two bodies of ``mfx/kernels/sgd_pallas.py``'s sweep call:
   (``sgd.step_user_batch``): the same, with the user side batched over
   each group of ``tpg`` tiles.
 
-One call runs one item-sweep: the tiles of ``tl`` in plan order, each a
-snapshot minibatch (gather, residuals, exact segment-summed scatter), on
-plain ``(rows, rank)`` f32 tables updated in place.
+One call runs one item-sweep: the tiles of ``tl``, each a snapshot
+minibatch (gather, residuals, exact segment-summed scatter), on plain
+``(rows, rank)`` f32 tables updated in place. The result is that of
+walking the tiles in plan order. :func:`sgd_sweep` (and
+``kernels.bpr_sweep``), given the plan's dependency table
+(``plan_device.SweepDeps``), walks them on as many SMs as the table
+allows and gives the same bits; the two tile-bias kernels walk them on
+one.
 
 On CUDA tensors a wrapper launches its kernel (or raises); on CPU tensors
 it runs its plain version. Nothing falls back.
@@ -26,11 +31,12 @@ from __future__ import annotations
 import torch
 
 from mfx_torch.kernels import _build
+from mfx_torch.kernels.packing import row_add
 
 __all__ = ["sgd_sweep", "sgd_sweep_plain", "sgd_sweep_tile",
            "sgd_sweep_tile_plain", "sgd_sweep_step_u",
            "sgd_sweep_step_u_plain", "check_sweep_args",
-           "check_kernel_limits"]
+           "check_kernel_limits", "wavefront_launch"]
 
 
 def check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg, bu=None, bi=None):
@@ -84,16 +90,41 @@ def check_kernel_limits(who, P, tl, su, si, ranks=(64,)):
         )
 
 
-def _row_add(table, rows, delta):
-    """``table[rows] += delta``, duplicate rows summed, in an order that
-    repeats from run to run on either device: on the CPU ``index_add_``
-    walks the slots in order (``index_put_`` accumulates from several
-    threads there); on CUDA ``index_put_(accumulate=True)`` sorts, where
-    ``index_add_`` uses float atomics."""
-    if table.device.type == "cpu":
-        table.index_add_(0, rows, delta)
+def wavefront_launch(who, lib, deps, nt, T, dev, blocks):
+    """What a wavefront sweep kernel takes beside the tile stream:
+    ``(runs, wait, state, sums, grid)``. ``runs`` / ``wait`` are the
+    dependency table's (with ``deps=None`` one run of all ``nt`` tiles and
+    no waits: one block then walks the stream in plan order); ``state``
+    is the launch's zeroed scheduler memory (the run ticket, then the
+    tiles finished of each run), ``sums`` the per-tile SSE / loss that
+    the kernel adds up in tile order at its end; ``grid`` the thread
+    blocks to launch: ``blocks``, or with ``blocks=None`` as many as the
+    card holds at once, and never more than there are runs."""
+    if deps is None or nt == 0:
+        runs = torch.tensor([[0, nt]], dtype=torch.int32, device=dev)
+        wait = None
     else:
-        table.index_put_((rows,), delta, accumulate=True)
+        runs, wait = deps.runs, deps.wait
+        for name, x, shape in (("runs", runs, (runs.shape[0], 2)),
+                               ("wait", wait, (nt, 3))):
+            if (x.device != dev or x.dtype != torch.int32
+                    or tuple(x.shape) != shape or not x.is_contiguous()):
+                raise ValueError(
+                    f"{who}: deps.{name} must be a contiguous int32 "
+                    f"{shape} tensor on {dev}, got {x.dtype} "
+                    f"{tuple(x.shape)} on {x.device}")
+        if deps.n_tiles != nt:
+            raise ValueError(f"{who}: deps order {deps.n_tiles} tiles, the "
+                             f"stream holds {nt}")
+    if blocks is None:
+        blocks = getattr(lib, f"mfx_{who}_max_blocks")(T)
+        if blocks < 1:
+            raise RuntimeError(f"{who}: CUDA error {-blocks} sizing the grid")
+    elif blocks < 1:
+        raise ValueError(f"{who}: blocks must be >= 1, got {blocks}")
+    state = torch.zeros(1 + runs.shape[0], dtype=torch.int32, device=dev)
+    sums = torch.empty(max(nt, 1), dtype=torch.float32, device=dev)
+    return runs, wait, state, sums, min(int(blocks), max(runs.shape[0], 1))
 
 
 def sgd_sweep_plain(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg):
@@ -118,19 +149,27 @@ def sgd_sweep_plain(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg):
         e = r - ((p * q).sum(1) + mu)
         dp = lr * (e[:, None] * q - reg * p) * mP
         dq = lr * (e[:, None] * p - reg * q) * mQ
-        _row_add(P, rows_u, dp)
-        _row_add(Q, rows_i, dq)
+        row_add(P, rows_u, dp)
+        row_add(Q, rows_i, dq)
         sse = sse + (e * e).sum()
     return sse
 
 
-def sgd_sweep(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg):
+def sgd_sweep(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg, deps=None,
+              blocks=None):
     """One item-sweep. ``P`` is the padded lane-form user table
     (A·su, rank); ``Q`` the sweep's item segment (nwin·si, rank), a
     contiguous row range of the padded item table; ``sa`` (NT/tpg,) the
     user block of each group of tpg tiles; ``tc`` (NT,) each tile's
     sweep-local window; ``tl`` the (NT, 3, T) tile stream. Updates P and
-    Q in place and returns the sweep's SSE as a 0-d f32 tensor."""
+    Q in place and returns the sweep's SSE as a 0-d f32 tensor.
+
+    ``deps`` is the sweep's dependency table from the plan skeleton
+    (``SweepSlice.deps``): with it the kernel walks the sweep's runs on
+    ``blocks`` thread blocks (default: as many as the card holds at once)
+    and the tables and the SSE are bit for bit those of ``blocks=1``, the
+    plan-order walk. Without it one block walks the stream in plan order.
+    The CPU route ignores both."""
     check_sweep_args("sgd_sweep", P, Q, sa, tc, tl, su, si, tpg)
     if P.device.type == "cpu":
         return sgd_sweep_plain(P, Q, sa, tc, tl, lr, reg, mu,
@@ -138,14 +177,18 @@ def sgd_sweep(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg):
     if P.device.type != "cuda":
         raise ValueError(f"sgd_sweep: no kernel for device {P.device}")
     check_kernel_limits("sgd_sweep", P, tl, su, si)
-    T = tl.shape[2]
+    nt, T = tl.shape[0], tl.shape[2]
     lib = _build.load_library()
+    runs, wait, state, sums, grid = wavefront_launch(
+        "sgd_sweep", lib, deps, nt, T, P.device, blocks)
     sse = torch.empty(1, dtype=torch.float32, device=P.device)
     stream = torch.cuda.current_stream(P.device).cuda_stream
     _build.check(lib.mfx_sgd_sweep(
         P.data_ptr(), Q.data_ptr(), sa.data_ptr(), tc.data_ptr(),
-        tl.data_ptr(), sse.data_ptr(), tl.shape[0], tpg, T, su, si,
-        P.shape[1], float(lr), float(reg), float(mu), stream,
+        tl.data_ptr(), runs.data_ptr(),
+        None if wait is None else wait.data_ptr(), state.data_ptr(),
+        sums.data_ptr(), sse.data_ptr(), nt, runs.shape[0], grid, tpg, T,
+        su, si, P.shape[1], float(lr), float(reg), float(mu), stream,
     ), "sgd_sweep")
     sgd_sweep.launches += 1
     return sse[0]
@@ -182,11 +225,11 @@ def sgd_sweep_tile_plain(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si,
         rows_u, rows_i, p, q, b_u, b_i, e = _tile_terms(
             P, Q, bu, bi, tl, t, sa_h[t // tpg] * su, tc_h[t] * si, su, mu,
             use_bias)
-        _row_add(P, rows_u, lr * (e[:, None] * q - reg * p))
-        _row_add(Q, rows_i, lr * (e[:, None] * p - reg * q))
+        row_add(P, rows_u, lr * (e[:, None] * q - reg * p))
+        row_add(Q, rows_i, lr * (e[:, None] * p - reg * q))
         if use_bias:
-            _row_add(bu, rows_u, lr * (e - reg * b_u))
-            _row_add(bi, rows_i, lr * (e - reg * b_i))
+            row_add(bu, rows_u, lr * (e - reg * b_u))
+            row_add(bi, rows_i, lr * (e - reg * b_i))
         sse = sse + (e * e).sum()
     return sse
 
@@ -208,15 +251,15 @@ def sgd_sweep_step_u_plain(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si,
                 use_bias)
             rows.append(rows_u)
             d_p.append(lr * (e[:, None] * q - reg * p))
-            _row_add(Q, rows_i, lr * (e[:, None] * p - reg * q))
+            row_add(Q, rows_i, lr * (e[:, None] * p - reg * q))
             if use_bias:
                 d_bu.append(lr * (e - reg * b_u))
-                _row_add(bi, rows_i, lr * (e - reg * b_i))
+                row_add(bi, rows_i, lr * (e - reg * b_i))
             sse = sse + (e * e).sum()
         rows = torch.cat(rows)
-        _row_add(P, rows, torch.cat(d_p))
+        row_add(P, rows, torch.cat(d_p))
         if use_bias:
-            _row_add(bu, rows, torch.cat(d_bu))
+            row_add(bu, rows, torch.cat(d_bu))
     return sse
 
 

@@ -118,9 +118,11 @@ class RingState:
     si: int
 
     def segments(self):
-        """(win0, nwin, sa, tc) of each segment, for a ring of one shard."""
+        """(win0, nwin, sa, tc, deps) of each segment, for a ring of one
+        shard."""
         return [(seg.win0, seg.nwin, seg.sa[0, 0].contiguous(),
-                 seg.tc[0, 0].contiguous()) for seg in self.skel.segments]
+                 seg.tc[0, 0].contiguous(), seg.deps[0][0])
+                for seg in self.skel.segments]
 
 
 def ring_state(model: MFModel, train: RatingsCOO, cfg: BPRConfig,
@@ -205,11 +207,13 @@ def train_epochs_bpr_ring(
     refuses the rest.
 
     ``device`` defaults to the model's. ``timings``, if given, is filled
-    with ``prep_s`` and, per epoch, ``neg_s`` and ``plan_s`` (each waiting
-    for the device). ``plan_rand(epoch, n)`` supplies the within-stratum
-    shuffle key (n int32) and ``neg_rand(epoch, navail)`` the uniform
-    draws x ~ U[0, max(navail, 1)) instead of the seeded torch generators;
-    the parity tests pass the reference's ``jax.random`` numbers this way.
+    with ``prep_s``, ``segment_tiles`` (per segment its tiles and the
+    tiles on its longest dependency chain) and, per epoch, ``neg_s`` and
+    ``plan_s`` (each waiting for the device). ``plan_rand(epoch, n)``
+    supplies the within-stratum shuffle key (n int32) and
+    ``neg_rand(epoch, navail)`` the uniform draws x ~ U[0, max(navail, 1))
+    instead of the seeded torch generators; the parity tests pass the
+    reference's ``jax.random`` numbers this way.
     """
     t_prep = time.perf_counter()
     st = ring_state(model, train, cfg, shards=shards, seed=seed,
@@ -219,15 +223,18 @@ def train_epochs_bpr_ring(
             torch.cuda.synchronize(st.P.device)
         timings["prep_s"] = time.perf_counter() - t_prep
     segs = st.segments()
+    if timings is not None:
+        timings["segment_tiles"] = [(seg[4].n_tiles, seg[4].critical)
+                                    for seg in segs]
     si, U = st.si, train.num_users
     for epoch in range(cfg.epochs):
         tls = ring_epoch_tiles(st, cfg, seed, epoch, plan_rand=plan_rand,
                                neg_rand=neg_rand, timings=timings)
         loss = torch.zeros((), dtype=torch.float32, device=st.P.device)
-        for (win0, nw, sa, tc), slab in zip(segs, tls):
+        for (win0, nw, sa, tc, deps), slab in zip(segs, tls):
             loss = loss + bpr_sweep(
                 st.P, st.Q[win0 * si:(win0 + nw) * si], sa, tc, slab[0, 0],
-                cfg.lr, cfg.reg, su=st.su, si=si, tpg=TPG,
+                cfg.lr, cfg.reg, su=st.su, si=si, tpg=TPG, deps=deps,
             )
         del tls
         out = MFModel(st.P[:U].clone(), st.Q[st.fwd], model.bu, model.bi,

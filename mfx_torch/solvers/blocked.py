@@ -131,10 +131,13 @@ def train_epochs_blocked(
     ``train_rmse`` a 0-d tensor on ``device`` (reading it waits for the
     epoch). ``device`` defaults to the model's. ``timings``, if given, is
     filled with ``prep_s`` and the cumulative ``plan_s`` (both waiting for
-    the device) and ``dense_info``. ``plan_rand(epoch, n)``, if given,
-    supplies the epoch's within-stratum shuffle key (n int32 values)
-    instead of the seeded torch generator — the parity tests pass the
-    reference planner's bits this way.
+    the device), ``dense_info`` and ``sweep_tiles``: per sparse sweep its
+    tiles and the tiles on its longest dependency chain (their ratio is
+    the most that walking the sweep on many SMs can give).
+    ``plan_rand(epoch, n)``, if given, supplies the epoch's
+    within-stratum shuffle key (n int32 values) instead of the seeded
+    torch generator — the parity tests pass the reference planner's bits
+    this way.
     """
     why = _unsupported(cfg, use_bias)
     if why is not None:
@@ -174,7 +177,7 @@ def train_epochs_blocked(
 
         def run_sweep(sw, seg, lr):
             return sgd_sweep(P, Q[seg], sw.sa, sw.tc, tl[sw.t0:sw.t1], lr,
-                             cfg.reg, mu, su=su, si=si, tpg=TPG)
+                             cfg.reg, mu, su=su, si=si, tpg=TPG, deps=sw.deps)
 
         def canonical():
             return from_lane_model(MFModel(P[:U], Q[:I], zu, zi, mu))
@@ -208,6 +211,8 @@ def train_epochs_blocked(
         sync()
         timings["prep_s"] = time.perf_counter() - t_prep
         timings.setdefault("plan_s", 0.0)
+        timings["sweep_tiles"] = [(sw.deps.n_tiles, sw.deps.critical)
+                                  for sw in sweeps]
         if dinfo is not None:
             timings["dense_info"] = dinfo
 

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from mfx_torch.kernels.packing import row_add
+
 __all__ = ["bpr_compute_deltas", "bpr_apply_deltas", "bpr_minibatch_update"]
 
 
@@ -37,10 +39,11 @@ def bpr_compute_deltas(P, Q, users, pos, neg, weights, lr, reg):
 
 def bpr_apply_deltas(P, Q, users, pos, neg, d_pu, d_qi, d_qj) -> None:
     """Scatter-add the deltas in place: P rows, then Q at the positives,
-    then Q at the negatives (duplicate rows summed)."""
-    P.index_put_((users,), d_pu.to(P.dtype), accumulate=True)
-    Q.index_put_((pos,), d_qi.to(Q.dtype), accumulate=True)
-    Q.index_put_((neg,), d_qj.to(Q.dtype), accumulate=True)
+    then Q at the negatives (duplicate rows summed, each add in an order
+    that repeats from run to run)."""
+    row_add(P, users, d_pu.to(P.dtype))
+    row_add(Q, pos, d_qi.to(Q.dtype))
+    row_add(Q, neg, d_qj.to(Q.dtype))
 
 
 def bpr_minibatch_update(P, Q, users, pos, neg, weights, lr, reg):

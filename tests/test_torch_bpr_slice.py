@@ -190,8 +190,11 @@ def test_ring_on_its_own_generators_repeats_and_reports_times():
                      ring.train_epochs_bpr_ring(
                          model_from_numpy(arrays), train, CFG, seed=SEED,
                          device="cpu", timings=timings)])
+        tiles = timings.pop("segment_tiles")
         assert set(timings) == {"prep_s", "neg_s", "plan_s"}
         assert all(v >= 0.0 for v in timings.values())
+        # per segment: its tiles and the tiles on its longest chain
+        assert tiles and all(1 <= crit <= n for n, crit in tiles)
     assert len(runs[0]) == CFG.epochs
     for (la, ma), (lb, mb) in zip(*runs):
         assert la == lb

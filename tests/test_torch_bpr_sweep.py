@@ -122,3 +122,60 @@ def test_wrapper_validation(bad, exc):
         P = P.t().contiguous().t()
     with pytest.raises(exc):
         bpr_sweep(P, Q, sa, tc, tl, LR, REG, su=SU, si=SI, tpg=TPG)
+
+
+@pytest.fixture
+def four_threads():
+    """Several intra-op threads, whatever the process was set to: a
+    scatter-add that splits its slots between threads must have them to
+    show an order that changes from run to run."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(4)
+    yield
+    torch.set_num_threads(before)
+
+
+def test_plain_repeats_bitwise_with_many_duplicate_rows(four_threads):
+    """Two CPU runs of the plain version at T = 256 where every slot
+    repeats one of 8 rows per side give the same bits: every duplicate
+    row's deltas are added in slot order (``packing.row_add``), not by
+    several threads in an order that changes from run to run."""
+    g = torch.Generator().manual_seed(1)
+    nt, tile = 64, 256
+    P0 = torch.randn(2 * SU, RANK, generator=g) * 0.1
+    Q0 = torch.randn(2 * SI, RANK, generator=g) * 0.1
+    sa = torch.randint(0, 2, (nt // TPG,), generator=g, dtype=torch.int32)
+    tc = torch.randint(0, 2, (nt,), generator=g, dtype=torch.int32)
+    tl = torch.randint(0, 8, (nt, 3, tile), generator=g, dtype=torch.int32)
+    runs = []
+    for _ in range(4):
+        P, Q = P0.clone(), Q0.clone()
+        loss = bpr_sweep_plain(P, Q, sa, tc, tl, LR, REG, su=SU, si=SI,
+                               tpg=TPG)
+        runs.append((P, Q, float(loss)))
+    for P, Q, loss in runs[1:]:
+        assert torch.equal(P, runs[0][0]) and torch.equal(Q, runs[0][1])
+        assert loss == runs[0][2]
+    assert not torch.equal(runs[0][0], P0)
+
+
+@pytest.mark.parametrize("slots", [1024, 4096])
+def test_minibatch_update_repeats_bitwise(slots, four_threads):
+    """The plain version's tile step at more slots than a tile holds, where
+    ``index_put_(accumulate=True)`` on the CPU splits the slots between
+    threads: ``bpr_apply_deltas`` still gives the same bits every run."""
+    from mfx_torch.solvers.bpr import bpr_minibatch_update
+
+    g = torch.Generator().manual_seed(slots)
+    P0 = torch.randn(16, RANK, generator=g) * 0.1
+    Q0 = torch.randn(16, RANK, generator=g) * 0.1
+    u, i, j = (torch.randint(0, 8, (slots,), generator=g) for _ in range(3))
+    w = torch.ones(slots)
+    runs = []
+    for _ in range(6):
+        P, Q = P0.clone(), Q0.clone()
+        loss = bpr_minibatch_update(P, Q, u, i, j, w, LR, REG)
+        runs.append((P, Q, float(loss)))
+    for P, Q, loss in runs[1:]:
+        assert torch.equal(P, runs[0][0]) and torch.equal(Q, runs[0][1])
+        assert loss == runs[0][2]

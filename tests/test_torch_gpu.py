@@ -440,7 +440,7 @@ def test_bpr_sweep_kernel_matches_plain(cuda, tile):
     from mfx_torch.kernels.bpr_sweep import bpr_sweep, bpr_sweep_plain
 
     _, _, cfg, st, tls = _bpr_state(cuda, tile)
-    for (win0, nw, sa, tc), slab in zip(st.segments(), tls):
+    for (win0, nw, sa, tc, _), slab in zip(st.segments(), tls):
         seg = slice(win0 * cfg.iblock, (win0 + nw) * cfg.iblock)
         args = (sa, tc, slab[0, 0], cfg.lr, cfg.reg)
         kw = dict(su=cfg.ublock, si=cfg.iblock, tpg=TPG)
@@ -511,3 +511,90 @@ def test_bpr_ring_through_the_kernel_is_repeatable(cuda):
                                atol=1e-4)
     np.testing.assert_allclose(mc.Q.numpy(), runs[0][0][2].cpu().numpy(),
                                atol=1e-4)
+
+
+# ---- the wavefront: sgd_sweep and bpr_sweep on many SMs -----------------
+
+
+def _wavefront_case(kernel, dev):
+    """A whole small sweep (blocks of 64, so a few dozen runs and several
+    windows): ``(run(P, Q, blocks, table=True), plain(P, Q), P, Q, deps)``;
+    ``table=False`` leaves the dependency table out."""
+    if kernel == "sgd":
+        train, _, model, u, i, r = _state(dev)
+        su = si = 64
+        skel = pdv.build_plan_skeleton(u, i, U, I, su, si, T, TPG, 8)
+        tl = pdv.epoch_tiles_device(skel, u, i, r, 0, 0)
+        P, Q = lane_tables(model, su, si, dev)
+        sw = skel.sweeps[0]
+        seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
+        args = (sw.sa, sw.tc, tl[sw.t0:sw.t1], LR, REG, model.mu)
+        kw = dict(su=su, si=si, tpg=TPG)
+        return (lambda Pt, Qt, blocks, table=True: sgd_sweep(
+                    Pt, Qt[seg], *args, **kw, blocks=blocks,
+                    deps=sw.deps if table else None),
+                lambda Pt, Qt: sgd_sweep_plain(Pt, Qt[seg], *args, **kw),
+                P, Q, sw.deps)
+    from mfx_torch.kernels.bpr_sweep import bpr_sweep, bpr_sweep_plain
+    from mfx_torch.parallel import bpr_sharded as ring
+
+    coo = synthetic.make_implicit_synthetic(700, 600, 30_000, rank=4, seed=5)
+    model = init_model(torch.Generator(device=dev).manual_seed(0), 700, 600,
+                       RANK)
+    cfg = dataclasses.replace(BPR, ublock=64, iblock=64)
+    st = ring.ring_state(model, coo, cfg, seed=0, device=dev)
+    tls = ring.ring_epoch_tiles(st, cfg, 0, 0)
+    win0, nw, sa, tc, deps = st.segments()[0]
+    seg = slice(win0 * 64, (win0 + nw) * 64)
+    args = (sa, tc, tls[0][0, 0], cfg.lr, cfg.reg)
+    kw = dict(su=64, si=64, tpg=TPG)
+    return (lambda Pt, Qt, blocks, table=True: bpr_sweep(
+                Pt, Qt[seg], *args, **kw, blocks=blocks,
+                deps=deps if table else None),
+            lambda Pt, Qt: bpr_sweep_plain(Pt, Qt[seg], *args, **kw),
+            st.P, st.Q, deps)
+
+
+@pytest.mark.parametrize("kernel", ["sgd", "bpr"])
+def test_wavefront_kernels_give_the_one_block_bits(cuda, kernel):
+    """A whole sweep at 1, 2 and 7 blocks and at the card's count: tables
+    and scalar bitwise equal; twenty repeats at the card's count bitwise
+    equal; within 1e-4 of the plain version."""
+    run, plain, P, Q, deps = _wavefront_case(kernel, cuda)
+    assert deps.runs.shape[0] >= 8 and deps.critical < deps.n_tiles
+    outs = []
+    for blocks in (1, 2, 7, None) + (None,) * 19:
+        Pk, Qk = P.clone(), Q.clone()
+        s = run(Pk, Qk, blocks)
+        torch.cuda.synchronize()
+        outs.append((float(s), Pk, Qk))
+    s1, P1, Q1 = outs[0]
+    for s, Pk, Qk in outs[1:]:
+        assert s == s1 and torch.equal(Pk, P1) and torch.equal(Qk, Q1)
+    Pp, Qp = P.clone(), Q.clone()
+    sp = float(plain(Pp, Qp))
+    assert float((P1 - Pp).abs().max()) <= 1e-4
+    assert float((Q1 - Qp).abs().max()) <= 1e-4
+    assert abs(s1 - sp) <= 1e-4 * max(1.0, sp)
+    assert not torch.equal(P1, P) and not torch.equal(Q1, Q)
+
+
+@pytest.mark.parametrize("kernel", ["sgd", "bpr"])
+def test_wavefront_kernels_without_a_table_walk_in_plan_order(cuda, kernel):
+    """No dependency table: one block walks the stream in plan order, to
+    the same bits; a table for another stream and a grid of no blocks are
+    refused."""
+    from mfx_torch.kernels.sgd_sweep import wavefront_launch
+
+    run, _, P, Q, deps = _wavefront_case(kernel, cuda)
+    outs = []
+    for table in (True, False):
+        Pk, Qk = P.clone(), Q.clone()
+        outs.append((float(run(Pk, Qk, None, table)), Pk, Qk))
+    (sa_, Pa, Qa), (sb_, Pb, Qb) = outs
+    assert sa_ == sb_ and torch.equal(Pa, Pb) and torch.equal(Qa, Qb)
+    wrong = dataclasses.replace(deps, n_tiles=deps.n_tiles + TPG)
+    with pytest.raises(ValueError, match="deps"):
+        wavefront_launch("sgd_sweep", None, wrong, deps.n_tiles, T, cuda, 1)
+    with pytest.raises(ValueError, match="blocks"):
+        run(P.clone(), Q.clone(), 0)

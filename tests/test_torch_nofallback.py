@@ -38,6 +38,7 @@ MODULES = [
     "mfx_torch.solvers.bpr", "mfx_torch.parallel",
     "mfx_torch.parallel.bpr_sharded", "mfx_torch.eval",
     "mfx_torch.eval.ranking", "mfx_torch.measure_bpr",
+    "mfx_torch.measure_wavefront",
 ]
 
 
@@ -230,3 +231,31 @@ def test_chip_smoke_fails_without_a_card(tmp_path, where):
     assert "[data]" not in res.stdout  # failed before generating any data
     assert "FAILED" in res.stderr
     assert time.monotonic() - t0 < 30
+
+
+@pytest.mark.parametrize("module,wrappers", [
+    ("sgd_sweep", ["sgd_sweep", "_tile_bias_sweep", "wavefront_launch"]),
+    ("bpr_sweep", ["bpr_sweep"]),
+])
+def test_sweep_wrappers_cuda_route_reaches_no_plain_version(module, wrappers):
+    """In the sweep wrappers' source: no ``try`` at all, and a plain
+    version is called only under ``if P.device.type == "cpu"``, so a
+    failed build or launch on the card can only raise."""
+    import ast
+
+    tree = ast.parse((ROOT / "mfx_torch" / "kernels" / f"{module}.py")
+                     .read_text())
+    defs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    for name in wrappers:
+        fn = defs[name]
+        assert not [n for n in ast.walk(fn) if isinstance(n, ast.Try)], name
+        cpu_only = set()
+        for branch in (n for n in ast.walk(fn) if isinstance(n, ast.If)):
+            if ast.unparse(branch.test) == "P.device.type == 'cpu'":
+                cpu_only.update(id(n) for stmt in branch.body
+                                for n in ast.walk(stmt))
+        plain_calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+                       and "plain" in ast.unparse(n.func)]
+        assert all(id(n) in cpu_only for n in plain_calls), name
+        if name in ("sgd_sweep", "bpr_sweep", "_tile_bias_sweep"):
+            assert plain_calls, name

@@ -13,13 +13,16 @@ printed as it ends:
    preset's shapes (su = si = 1024, T = 256, rank 64, int4): the first
    2,048 tiles of the first non-empty sparse sweep and the first 64
    strata of the first dense group, max abs difference <= 1e-4, two
-   kernel runs bitwise equal, and the time of each; then the same 2,048
-   tiles through sgd_sweep_tile and sgd_sweep_step_u (tpg = 4) on the
+   kernel runs bitwise equal, and the time of each; then dense_phase on
+   the first 256 strata of group 0 twice on one block and twice on the
+   card's count (tables and SSE bitwise equal), and the whole of group 0
+   and the whole dense phase of an epoch on the card's count; then the
+   same 2,048 tiles through sgd_sweep_tile and sgd_sweep_step_u (tpg = 4) on the
    plain tables of the same model, so that the lane, tile-bias and
    step-batched bodies are timed on one tile stream; then sgd_sweep on
-   the whole first sweep from the untrained tables, on one block and on
-   as many as the card holds (twice): tables and SSE bitwise equal, both
-   times, the sweep's tiles and the tiles on its longest dependency
+   the whole first sweep from the untrained tables, twice on one block
+   and twice on as many as the card holds: tables and SSE bitwise equal,
+   the times, the sweep's tiles and the tiles on its longest dependency
    chain, and the blocks launched;
 4. main path: two epochs of mfx_torch.solvers.blocked.train_epochs_blocked
    on the full ML-25M-shaped synthetic with the preset unchanged, through
@@ -37,8 +40,8 @@ printed as it ends:
 7. bpr_sweep against its plain version at the BPR cell's shapes (su =
    si = 512, T = 256, rank 64): the first 2,048 tiles of segment 0 of
    epoch 0, max abs difference <= 1e-4, two kernel runs bitwise equal,
-   and the time of each; then the whole of segment 0 on one block and on
-   as many as the card holds (twice), as in phase 3;
+   and the time of each; then the whole of segment 0 twice on one block
+   and twice on as many as the card holds, as in phase 3;
 8. the BPR path: mfx_torch.parallel.bpr_sharded.train_epochs_bpr_ring with
    the billion_bpr_sharded preset unchanged but for parallel.model_axis=1,
    its 5 epochs on the billion-implicit synthetic cut to 1/10 of its users,
@@ -50,7 +53,9 @@ printed as it ends:
 9. sgd_sweep_tile and sgd_sweep_step_u against their plain versions at the
    ml1m_rank32_biased preset's shapes (su = si = 512, T = 256, rank 32,
    tpg = 4): the first 2,048 tiles of epoch 0 of the ML-1M-shaped
-   synthetic, same checks and times;
+   synthetic, same checks and times; then sgd_sweep_tile over the whole
+   sweep twice on one block and twice on the card's count (tables,
+   biases and SSE bitwise equal), and sgd_sweep_step_u on its one block;
 10. the tile-bias path: train_epochs_blocked with the ml1m_rank32_biased
    preset unchanged, its 30 epochs on the full ML-1M-shaped synthetic
    (seed 101), through sgd_sweep_tile; then again with
@@ -63,8 +68,10 @@ printed as it ends:
 Each phase prints its wall time. The second-to-last line is a JSON object
 describing each kernel (times, launches on the main path, and the bound:
 the least time the card could take for the same bytes and operations; for
-sgd_sweep and bpr_sweep also the whole-sweep times on one block and on
-the card's count); the last is {"ok": true, "device": {...}}. Any failure
+sgd_sweep, bpr_sweep and sgd_sweep_tile also the whole-sweep times on
+one block and on the card's count; for dense_phase those of 256 strata
+and the times of group 0 and of the epoch's dense phase); the last is
+{"ok": true, "device": {...}}. Any failure
 exits non-zero with no such line, and so does a machine without a CUDA
 device.
 """
@@ -90,6 +97,7 @@ BPR_CUT = 10
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 SWEEP_TILES = 2048
 DENSE_STRATA = 64
+DENSE_WHOLE = 256  # strata of group 0 run on 1 block and on the card's count
 SERVE_ITEMS, SERVE_B, SERVE_TILE = 1_000_000, 256, 1024
 TOPK_VARIANTS = (("f32", 2), ("f32", 8), ("bf16", 2), ("int8", 2))
 K = 10
@@ -180,15 +188,18 @@ def compare(name, run_kernel, run_plain, state):
     return err, ms, plain_ms
 
 
-def whole_sweep(name, run, state, deps, max_blocks):
-    """``run(P, Q, blocks)`` over a whole sweep from ``state``, on one
-    block and then twice on as many as the card holds: tables and scalar
-    must be bitwise equal between all three. Returns the times, the
-    blocks launched, the sweep's tiles and its critical path."""
+def whole_sweep(name, run, state, deps, max_blocks, grid=None,
+                unit="tiles"):
+    """``run(*tables, blocks)`` over a whole sweep (or dense strata) from
+    ``state``, twice on one block and then twice on as many as the card
+    holds: tables and scalar must be bitwise equal between all four.
+    Returns the times, the blocks launched, the sweep's tiles (strata) and
+    its critical path. ``grid``: the blocks the wrapper launches at the
+    card's count (default: one a run, at most ``max_blocks``)."""
     import torch
 
     outs = []
-    for blocks in (1, None, None):
+    for blocks in (1, 1, None, None):
         tabs = [t.clone() for t in state]
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -198,29 +209,44 @@ def whole_sweep(name, run, state, deps, max_blocks):
         end.record()
         end.synchronize()
         outs.append((tabs, float(scalar), start.elapsed_time(end)))
-    (one, s_one, ms_one), (many, s_many, ms_many) = outs[:2]
-    again, s_again, ms_again = outs[2]
-    if s_one != s_many or any(not torch.equal(a, b)
-                              for a, b in zip(one, many)):
-        raise AssertionError(f"{name}: the card's block count and one block "
-                             f"differ ({s_many} vs {s_one})")
-    if s_many != s_again or any(not torch.equal(a, b)
-                                for a, b in zip(many, again)):
-        raise AssertionError(f"{name}: two runs at the card's block count "
-                             "differ")
-    if not all(bool(torch.isfinite(t).all()) for t in many):
+    first = outs[0]
+    for k, (tabs, s, _) in enumerate(outs[1:], 1):
+        if s != first[1] or any(not torch.equal(a, b)
+                                for a, b in zip(tabs, first[0])):
+            raise AssertionError(
+                f"{name}: run {k} ({'one block' if k < 2 else 'the card'}'s "
+                f"grid) differs from the first one-block run ({s} vs "
+                f"{first[1]})")
+    if not all(bool(torch.isfinite(t).all()) for t in outs[-1][0]):
         raise AssertionError(f"{name}: non-finite tables")
-    grid = min(max_blocks, deps.runs.shape[0])
-    log(f"[kernel] {name} whole sweep: {deps.n_tiles} tiles in "
-        f"{deps.runs.shape[0]} runs, critical path {deps.critical} tiles "
+    ms_one, ms_one2, ms_many, ms_again = (o[2] for o in outs)
+    if grid is None:
+        grid = min(max_blocks, deps.runs.shape[0])
+    log(f"[kernel] {name} whole: {deps.n_tiles} {unit} in "
+        f"{deps.runs.shape[0]} runs, critical path {deps.critical} {unit} "
         f"(x{deps.n_tiles / deps.critical:.2f} at most); 1 block "
-        f"{ms_one:.4f} ms, {grid} blocks {ms_many:.4f} ms and "
+        f"{ms_one:.4f} and {ms_one2:.4f} ms, {grid} blocks {ms_many:.4f} and "
         f"{ms_again:.4f} ms (x{ms_one / ms_many:.2f}); tables and scalar "
-        f"bitwise equal across the three runs (scalar {s_many})")
+        f"bitwise equal across the four runs (scalar {outs[-1][1]})")
     return {"sweep_tiles": deps.n_tiles,
             "sweep_critical_tiles": deps.critical, "sweep_blocks": grid,
             "sweep_ms_1_block": ms_one, "sweep_ms": ms_many,
             "sweep_ms_again": ms_again}
+
+
+def dense_bound(groups, su, si, rank):
+    """Bound of the dense phase over ``groups``: every group tensor read
+    once, each distinct P block and Q window of a group read and written
+    once, and three (su x si x rank) products a stratum."""
+    nbytes = flops = 0.0
+    for grp in groups:
+        nd = grp["sa"].shape[0]
+        nbytes += sum(grp[k].numel() * grp[k].element_size()
+                      for k in ("sa", "sc", "R", "du_s", "di_s"))
+        nbytes += 2 * rank * 4 * (grp["sa"].unique().numel() * su
+                                  + grp["sc"].unique().numel() * si)
+        flops += 6.0 * su * si * rank * nd
+    return bound(nbytes, flops)
 
 
 def _true_scores(P_aug, Q_aug, sb, rows, items):
@@ -667,11 +693,11 @@ def bpr_phases(dev, results, bounds, sweeps):
 
 
 def tile_bias_compare(results, bounds, state, seg, sa, tc, tl, lr, reg, mu,
-                      su, si, tpg, tag):
-    """sgd_sweep_tile and sgd_sweep_step_u against their plain versions on
-    one tile stream from the plain tables ``state`` = (P, Q, bu, bi);
-    fills ``results`` and ``bounds`` under the kernels' names plus
-    ``tag``."""
+                      su, si, tpg, tag, deps):
+    """sgd_sweep_tile (on the card's count, ordered by ``deps``) and
+    sgd_sweep_step_u (one block) against their plain versions on one tile
+    stream from the plain tables ``state`` = (P, Q, bu, bi); fills
+    ``results`` and ``bounds`` under the kernels' names plus ``tag``."""
     from mfx_torch.kernels.sgd_sweep import (sgd_sweep_step_u,
                                              sgd_sweep_step_u_plain,
                                              sgd_sweep_tile,
@@ -681,13 +707,14 @@ def tile_bias_compare(results, bounds, state, seg, sa, tc, tl, lr, reg, mu,
     log(f"[kernel] tile-bias sweeps{tag}: {tl.shape[0]} tiles (T="
         f"{tl.shape[2]}, rank {rank}, su={su}, si={si}, tpg={tpg})")
     kw = dict(su=su, si=si, tpg=tpg)
-    for kernel, plain in ((sgd_sweep_tile, sgd_sweep_tile_plain),
-                          (sgd_sweep_step_u, sgd_sweep_step_u_plain)):
+    for kernel, plain, table in (
+            (sgd_sweep_tile, sgd_sweep_tile_plain, {"deps": deps}),
+            (sgd_sweep_step_u, sgd_sweep_step_u_plain, {})):
         name = kernel.__name__ + tag
         results[name] = compare(
             name,
             lambda P, Q, bu, bi: kernel(P, Q[seg], bu, bi[seg], sa, tc, tl,
-                                        lr, reg, mu, **kw),
+                                        lr, reg, mu, **kw, **table),
             lambda P, Q, bu, bi: plain(P, Q[seg], bu, bi[seg], sa, tc, tl,
                                        lr, reg, mu, **kw),
             state,
@@ -699,17 +726,19 @@ def tile_bias_compare(results, bounds, state, seg, sa, tc, tl, lr, reg, mu,
             f"({bounds[name][1]})")
 
 
-def tile_bias_phases(dev):
+def tile_bias_phases(dev, sweeps):
     """Phases 9 and 10: the tile-bias kernels against their plain versions
-    at the ml1m_rank32_biased preset's shapes, then the preset's 30 epochs
-    per tile and with sgd.step_user_batch. Returns the two kernels'
-    launches, each from its own run."""
+    at the ml1m_rank32_biased preset's shapes and sgd_sweep_tile over the
+    whole sweep (into ``sweeps``), then the preset's 30 epochs per tile and
+    with sgd.step_user_batch. Returns the two kernels' launches, each from
+    its own run."""
     import torch
 
     from mfx_torch.config import apply_overrides, preset
     from mfx_torch.data.split import train_test_split
     from mfx_torch.data.synthetic import ML1M_SHAPE, make_synthetic
     from mfx_torch.eval.metrics import rmse_mae
+    from mfx_torch.kernels import _build
     from mfx_torch.kernels import plan_device as pdv
     from mfx_torch.kernels.packing import plain_tables
     from mfx_torch.kernels.sgd_sweep import sgd_sweep_step_u, sgd_sweep_tile
@@ -757,15 +786,23 @@ def tile_bias_phases(dev):
     tile_bias_compare(
         {}, {}, state, seg, sw.sa[:nt // tpg].contiguous(),
         sw.tc[:nt].contiguous(), tl[sw.t0:sw.t0 + nt], sgd.lr, sgd.reg, mu,
-        su, si, tpg, "[rank32]")
-    # the whole first sweep, to set beside phase 10's epoch seconds
-    for kernel in (sgd_sweep_tile, sgd_sweep_step_u):
-        P, Q, bu, bi = (x.clone() for x in state)
-        ms = cuda_ms(lambda: kernel(P, Q[seg], bu, bi[seg], sw.sa, sw.tc,
-                                    tl[sw.t0:sw.t1], sgd.lr, sgd.reg, mu,
-                                    su=su, si=si, tpg=tpg), reps=3)
-        log(f"[tile] {kernel.__name__}: sweep 1 of {len(skel.sweeps)} of an "
-            f"epoch, {sw.t1 - sw.t0} tiles, {ms:.4f} ms")
+        su, si, tpg, "[rank32]", sw.deps.prefix(nt))
+    # the whole first sweep, to set beside phase 10's epoch seconds:
+    # sgd_sweep_tile on one block and on the card's count, sgd_sweep_step_u
+    # on its one block
+    sweeps["sgd_sweep_tile"] = whole_sweep(
+        "sgd_sweep_tile",
+        lambda P, Q, bu, bi, blocks: sgd_sweep_tile(
+            P, Q[seg], bu, bi[seg], sw.sa, sw.tc, tl[sw.t0:sw.t1], sgd.lr,
+            sgd.reg, mu, su=su, si=si, tpg=tpg, deps=sw.deps, blocks=blocks),
+        state, sw.deps,
+        _build.load_library().mfx_sgd_sweep_tile_max_blocks(T, rank))
+    P, Q, bu, bi = (x.clone() for x in state)
+    ms = cuda_ms(lambda: sgd_sweep_step_u(
+        P, Q[seg], bu, bi[seg], sw.sa, sw.tc, tl[sw.t0:sw.t1], sgd.lr,
+        sgd.reg, mu, su=su, si=si, tpg=tpg), reps=3)
+    log(f"[tile] sgd_sweep_step_u: sweep 1 of {len(skel.sweeps)} of an "
+        f"epoch, {sw.t1 - sw.t0} tiles, one block, {ms:.4f} ms")
     del state
     del skel, tl, u, i, r
     torch.cuda.empty_cache()
@@ -856,7 +893,8 @@ def main() -> int:
     from mfx_torch.eval.metrics import rmse_mae
     from mfx_torch.kernels import _build
     from mfx_torch.kernels import plan_device as pdv
-    from mfx_torch.kernels.dense_phase import dense_phase, dense_phase_plain
+    from mfx_torch.kernels.dense_phase import (dense_phase, dense_phase_plain,
+                                               group_prefix, plan_launch)
     from mfx_torch.kernels.packing import lane_tables, plain_tables
     from mfx_torch.kernels.sgd_sweep import sgd_sweep, sgd_sweep_plain
     from mfx_torch.models.mf import init_model
@@ -919,25 +957,52 @@ def main() -> int:
     t_phase = time.perf_counter()
 
     win0, nw = meta[0]
-    grp = {k: v[:DENSE_STRATA].contiguous() for k, v in groups[0].items()}
+    grp = group_prefix(groups[0], DENSE_STRATA)
     seg = slice(win0 * si, (win0 + nw) * si)
     log(f"[kernel] dense_phase: {grp['sa'].shape[0]} strata of group 0 "
-        f"({rfmt}, {su}x{si}, rank {rank})")
+        f"({rfmt}, {su}x{si}, rank {rank}); critical path "
+        f"{grp['deps'].critical} strata")
     results["dense_phase"] = compare(
         "dense_phase",
         lambda Pt, Qt: dense_phase(Pt, Qt[seg], grp, lr, reg, mu, su=su,
-                                   si=si),
+                                   si=si, deps=grp["deps"]),
         lambda Pt, Qt: dense_phase_plain(Pt, Qt[seg], grp, lr, reg, mu,
                                          su=su, si=si),
         (P, Q),
     )
-    # each stratum: three (su x si x rank) products (S, E Q, E^T P); the
-    # group's tensors read once, each distinct P block and Q window read
-    # and written once
-    n_blk = (grp["sa"].unique().numel() * su + grp["sc"].unique().numel() * si)
-    bounds["dense_phase"] = bound(
-        sum(v.numel() * v.element_size() for v in grp.values())
-        + 2 * n_blk * rank * 4, 6.0 * su * si * rank * grp["sa"].shape[0])
+    bounds["dense_phase"] = dense_bound([grp], su, si, rank)
+    # the first DENSE_WHOLE strata of group 0 on one block and on the
+    # card's count; then group 0 and the dense phase of an epoch
+    head = group_prefix(groups[0], DENSE_WHOLE)
+    plan_launch(head, su, si)  # the launch order, on the host, untimed
+    dense_card = _build.load_library().mfx_dense_phase_max_blocks()
+    sweeps = {"dense_phase": whole_sweep(
+        "dense_phase",
+        lambda Pt, Qt, blocks: dense_phase(Pt, Qt[seg], head, lr, reg, mu,
+                                           su=su, si=si, deps=head["deps"],
+                                           blocks=blocks),
+        (P, Q), head["deps"], dense_card, grid=dense_card, unit="strata")}
+
+    def dense_groups(grps):
+        Pt, Qt = P.clone(), Q.clone()
+        for (w0, n), g in grps:
+            dense_phase(Pt, Qt[w0 * si:(w0 + n) * si], g, lr, reg, mu, su=su,
+                        si=si, deps=g["deps"])
+
+    for key, grps in (("group0", list(zip(meta, groups))[:1]),
+                      ("epoch_dense", list(zip(meta, groups)))):
+        dense_groups(grps)  # warm-up
+        ms = cuda_ms(lambda: dense_groups(grps), reps=3)
+        b = dense_bound([g for _, g in grps], su, si, rank)
+        strata = sum(g["deps"].n_tiles for _, g in grps)
+        crit = sum(g["deps"].critical for _, g in grps)
+        sweeps["dense_phase"].update({
+            f"{key}_strata": strata, f"{key}_critical_strata": crit,
+            f"{key}_ms": ms, f"{key}_bound_ms": b[0]})
+        log(f"[kernel] dense_phase, {key}: {len(grps)} group(s), {strata} "
+            f"strata, critical path {crit} strata, {dense_card} blocks: "
+            f"{ms:.4f} ms (mean of 3, tables copied in); bound {b[0]:.4f} "
+            f"ms ({b[1]})")
 
     sw = next(s for s in skel.sweeps if s.t1 > s.t0)
     nt = min(SWEEP_TILES, sw.t1 - sw.t0)
@@ -967,16 +1032,16 @@ def main() -> int:
         f"order (no dependency table) {ms_one:.4f} ms")
     del Pt, Qt
     # the whole first sweep, on one block and on the card's count
-    sweeps = {"sgd_sweep": whole_sweep(
+    sweeps["sgd_sweep"] = whole_sweep(
         "sgd_sweep",
         lambda Pt, Qt, blocks: sgd_sweep(
             Pt, Qt[seg_s], sw.sa, sw.tc, tl[sw.t0:sw.t1], lr, reg, mu, su=su,
             si=si, tpg=tpg, deps=sw.deps, blocks=blocks),
-        (P, Q), sw.deps, _build.load_library().mfx_sgd_sweep_max_blocks(T))}
+        (P, Q), sw.deps, _build.load_library().mfx_sgd_sweep_max_blocks(T))
     # the same tiles through the tile-bias and step-batched bodies, on
     # the plain tables of the same model
     tile_bias_compare(results, bounds, plain_tables(fresh_model(), su, si, dev),
-                      seg_s, sa, tc, tls, lr, reg, mu, su, si, tpg, "")
+                      seg_s, sa, tc, tls, lr, reg, mu, su, si, tpg, "", deps)
     for name in ("dense_phase", "sgd_sweep"):
         log(f"[kernel] {name} bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]})")
@@ -1047,7 +1112,7 @@ def main() -> int:
     launches["bpr_sweep"] = bpr_phases(dev, results, bounds, sweeps)
 
     # 9-10. the tile-bias path
-    launches.update(tile_bias_phases(dev))
+    launches.update(tile_bias_phases(dev, sweeps))
 
     replaces = {"sgd_sweep": "mfx/kernels/sgd_pallas.py:63",
                 "dense_phase": "mfx/kernels/dense_pallas.py:86",
@@ -1067,7 +1132,9 @@ def main() -> int:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          # no single PyTorch call computes any of these functions
          "library_ms": None,
-         # sgd_sweep, bpr_sweep: a whole sweep on 1 block and on the card's
+         # sgd_sweep, bpr_sweep, sgd_sweep_tile (ML-1M): a whole sweep on 1
+         # block and on the card's count; dense_phase: DENSE_WHOLE strata
+         # so, then group 0 and the epoch's dense phase on the card's count
          **sweeps.get(name, {})}
         for name, (err, ms, plain_ms) in results.items()
     ]}))

@@ -4,7 +4,7 @@
 // rfmt='int4', echo=1, spg=1), driven by dense_sgd_phase_pallas.
 //
 // What it computes, per dense stratum (user block a = sa[s], item window
-// c = sc[s]), strata in order, each a snapshot minibatch:
+// c = sc[s]), strata in plan order, each a snapshot minibatch:
 //   S = P_blk Q_winᵀ                       (su x si, from the snapshot)
 //   E = [code > 0] ∘ ((code / 2 − S) − mu)  (biases ride in S)
 //   P_blk += lr s_u ∘ (E Q_win − reg Du ∘ P_blk), lane rank-2 frozen
@@ -14,211 +14,515 @@
 // R holds int4 codes round(2 r), 0 = absent, plain (su, si/2) bytes per
 // stratum with the even column in the low nibble.
 //
-// Form: two launches per stratum. (1) over 64 x 64 tiles of the stratum:
-// rebuild S in f32, decode R, form E in shared memory, and write this
-// tile's partial dP (its 64 rows, summed over its 64 columns), partial dQ
-// (its 64 columns, summed over its 64 rows) and partial SSE to scratch.
-// (2) over the rows of P_blk and Q_win: sum the partials in a fixed order,
-// apply the trust-scaled update, and add the stratum's SSE into the
-// phase's accumulator. Both updates read the pre-stratum snapshot, which
-// launch (1) alone reads. Every sum runs in a fixed order and there are
-// no float atomics, so a run is bitwise repeatable.
+// Form: one persistent launch a dense group. Its blocks take work units
+// by an integer ticket; a stratum is 2 pieces of each of its su/64 row
+// panels and then si/256 (si/128 where 256 does not divide si) Q-apply
+// units. Strata are handed out in an order the wrapper gives (from the
+// group's dependency table), or plan order without a table.
+// - A piece of a row panel owns 64 rows of P_blk and half of Q_win's
+//   64-column chunks. Per chunk it builds S and E for its rows from the
+//   snapshot, adds the chunk's E Q to its rows' dP (registers; the second
+//   piece writes each chunk's E Q to scratch instead), and writes the
+//   chunk's Eᵀ P_band to the stratum's slot of a ring of dQ partials. The
+//   last piece of a panel to finish adds the first piece's dP and the
+//   other chunks' partials in chunk order, writes the panel's own P rows
+//   (no other unit of the stratum reads them) and counts the panel done.
+// - A Q-apply unit owns 256 (or 128) rows of Q_win. It waits until
+//   every panel of its stratum is done, adds the partials in panel order,
+//   and writes its Q rows. The last apply unit to finish publishes the
+//   stratum's end.
+// - Two strata conflict only if they share a user block or a window
+//   (the group's dependency table, plan_device.sweep_deps with one "tile"
+//   a stratum): every panel unit of stratum s waits for its user block's
+//   previous stratum, for the stratum the table names, and for the
+//   stratum handed out `ring` places before it, whose slot of the ring it
+//   reuses. The order puts every stratum after those it waits for, so
+//   every wait names a smaller ticket, which a running block holds: any
+//   grid is free of deadlock, and strata whose user blocks and windows
+//   differ run at once.
+// Every value keeps the order of the one-stratum-at-a-time walk: S is a
+// fma chain over k = 0..63 from 0, a dP or dQ partial a chain over the
+// 64 columns of a chunk or the 64 rows of a panel, partials are added
+// from 0 in chunk or panel order, then p + lr·scale·(g − reg·deg·p). So
+// the tables are bit for bit the same on any grid (and those of the
+// earlier two-launches-a-stratum form of this file); the SSE is summed
+// per piece and added in unit order by a second small kernel. No float
+// atomics.
+//
+// Memory ordering: P and Q rows are rewritten by other SMs inside the
+// launch, so every load of them, and of the partials, goes to L2
+// (__ldcg), and P and Q are not const __restrict__. A panel makes its
+// rows and partials visible by barrier, __threadfence() and an atomic
+// count; an apply unit reads the count with ld.acquire.gpu; the stratum's
+// end is published by barrier, __threadfence() and st.release.gpu, and
+// waited for with ld.acquire.gpu (sweep_common.cuh).
 //
 // What bounds it on an H100: the three 64-deep products per cell are
-// 3 * 2 * su * si * 64 FLOP per stratum (about 0.4 GFLOP at 1024²) on the
-// f32 FMA units, against su*si/2 bytes of R; the stratum is compute-bound
-// and, at 256 blocks of 256 threads, fills the card only about two waves
-// deep. The design does all three products from one shared-memory copy
-// of each tile (S is never written out) and keeps the partial sums
-// (2 x 4 MB at 1024²) in L2. wgmma and several independent strata in
-// flight at once are the next steps.
+// 3 * 2 * su * si * 64 FLOP a stratum (0.4 GFLOP at 1024², 6.0 µs of f32
+// FMA on the whole card) against su*si/2 bytes of R: compute. The design
+// feeds 64 FMAs from eight 16-byte shared loads, each one wavefront for
+// the warp (4 x 4 outputs a thread, k / j / r four at a time, the loops
+// unrolled over one block an SM's registers), keeps the products' inputs
+// in shared memory and dP in registers, and keeps as many strata in
+// flight as the dependency table allows; a group's time is then the
+// larger of its work over the card and its longest chain of strata.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sweep_common.cuh"
 
 namespace {
 
 constexpr int RANK = 64;
-constexpr int TB = 64;        // tile edge (rows and columns of a stratum)
-constexpr int PITCH = RANK + 1;
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int R4 = RANK / 4;  // float4 a row
+constexpr int BAND = 64;      // P_blk rows of a panel unit
+constexpr int CH = 64;        // Q_win columns of a chunk
+constexpr int QROWS = 256;    // Q_win rows of an apply unit (128 where
+                              // 256 does not divide si)
+constexpr int PIECES = 2;     // pieces a row panel is cut into
+constexpr int PITCH = RANK + 4;  // shared row pitch in floats (16-byte rows)
+constexpr int NT = 256;       // 16 x 16 threads
 constexpr float DSTAR = 16.f;
 
-constexpr size_t kTileSmem = 3 * TB * PITCH * sizeof(float);
+struct Smem {
+  float Pr[BAND * PITCH];  // P_band snapshot, row-major
+  float Qr[CH * PITCH];    // the chunk's Q rows, row-major
+  float Er[BAND * PITCH];  // E[r][c]
+  float Ec[CH * PITCH];    // E[c][r]
+  uint4 Rs[BAND * CH / 32];  // the chunk's codes: 32 bytes a row
+  float red[NT / 32];
+  int ticket;
+  int flag;
+};
 
-__global__ void __launch_bounds__(THREADS)
-dense_tile_kernel(const float* __restrict__ P, const float* __restrict__ Q,
-                  const int* __restrict__ sa, const int* __restrict__ sc,
-                  const uint8_t* __restrict__ R, float* __restrict__ dP_part,
-                  float* __restrict__ dQ_part, float* __restrict__ sse_part,
-                  int s, int su, int si, float mu) {
-  extern __shared__ float smem[];
-  float* Pt = smem;              // (TB, PITCH) rows of P_blk
-  float* Qt = Pt + TB * PITCH;   // (TB, PITCH) rows of Q_win
-  float* Et = Qt + TB * PITCH;   // (TB, PITCH) E[r][c]
-  __shared__ float red[THREADS / 32];
+struct DenseSched {
+  const int* runs;  // (nruns, 2) first stratum and strata of each user block
+  const int* wait;  // (nd, 3) the table's (run, finished strata) per
+                    // stratum, run < 0 for none; null: every stratum
+                    // waits for the one before it
+  const int* order;  // (nd,) the strata in the order they are handed
+                     // out; null: plan order
+  int* state;       // zeroed per launch: [0] the ticket, then per stratum
+                    // its panels done, its apply units done, its end,
+                    // then per (stratum, panel) its pieces done
+  int nruns, nd, ring;
+};
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int jt = blockIdx.x, it = blockIdx.y;  // column / row tile
-  const int r0 = it * TB, c0 = jt * TB;
-  const float* Pb = P + ((long long)sa[s] * su + r0) * RANK;
-  const float* Qb = Q + ((long long)sc[s] * si + c0) * RANK;
-  for (int idx = tid; idx < TB * RANK; idx += THREADS) {
-    const int row = idx / RANK, k = idx - row * RANK;
-    Pt[row * PITCH + k] = Pb[idx];
-    Qt[row * PITCH + k] = Qb[idx];
+__device__ __forceinline__ float update(float p, float g, float deg,
+                                        float scale, bool frozen, float lr,
+                                        float reg) {
+  const float d = frozen ? 0.f : g - reg * deg * p;
+  return p + lr * scale * d;
+}
+
+// The float4 at row `row`, column `col` of a (rows, PITCH) shared array.
+__device__ __forceinline__ float4 ld4(const float* a, int row, int col) {
+  return *reinterpret_cast<const float4*>(a + row * PITCH + col);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ int stratum_at(const DenseSched& ds, int pos) {
+  return ds.order == nullptr ? pos : ds.order[pos];
+}
+
+__device__ __forceinline__ int apply_rows(int si) {
+  return si % QROWS == 0 ? QROWS : QROWS / 2;
+}
+
+// Thread 0: wait until stratum s, handed out at place pos, may read its
+// rows and write its slot of the ring.
+__device__ void await_stratum(const DenseSched& ds, int s, int pos) {
+  const int* fin = ds.state + 1 + 2 * ds.nd;
+  int prev = s - 1, named = -1;
+  if (ds.wait != nullptr) {
+    int lo = 0, hi = ds.nruns - 1;  // the run of s
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (ds.runs[2 * mid] <= s) lo = mid; else hi = mid - 1;
+    }
+    if (s == ds.runs[2 * lo]) prev = -1;
+    const int w = ds.wait[3 * s];
+    if (w >= 0) named = ds.runs[2 * w] + ds.wait[3 * s + 1] - 1;
   }
-  __syncthreads();
+  const int before[3] = {
+      prev, named, pos >= ds.ring ? stratum_at(ds, pos - ds.ring) : -1};
+  for (int x : before)
+    if (x >= 0)
+      while (mfx_sweep::ld_acquire(fin + x) == 0) __nanosleep(64);
+}
 
-  // S and E for rows ty + 16m, columns tx + 16n
-  float acc[4][4];
+// The chunk's Q rows and codes into registers (4 float4 + 1 uint4).
+__device__ __forceinline__ void load_chunk(float4 (&qn)[4], uint4& rn,
+                                           const float* Q, long long qrow,
+                                           const uint8_t* Rb, int si,
+                                           int ch) {
+  const int tid = threadIdx.x;
+  const float4* Q4 = reinterpret_cast<const float4*>(Q);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int idx = tid + t * NT, row = idx / R4, q = idx % R4;
+    qn[t] = __ldcg(Q4 + (qrow + ch * CH + row) * R4 + q);
+  }
+  if (tid < BAND * 2)
+    rn = *reinterpret_cast<const uint4*>(Rb + (long long)(tid >> 1) * (si / 2)
+                                         + ch * (CH / 2) + (tid & 1) * 16);
+}
+
+__device__ __forceinline__ void store_chunk(Smem& sm, const float4 (&qn)[4],
+                                            const uint4& rn) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int idx = tid + t * NT, row = idx / R4, q = idx % R4;
+    *reinterpret_cast<float4*>(&sm.Qr[row * PITCH + 4 * q]) = qn[t];
+  }
+  if (tid < BAND * 2) sm.Rs[tid] = rn;
+}
+
+// A 64 x 64 tile of dP in device memory, [row][lane], from / into the
+// registers of thread (ty, tx): rows ty + 16m, lanes 4tx + n.
+__device__ __forceinline__ void store_tile(float* t, const float (&v)[4][4],
+                                           int ty, int tx) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    __stcg(reinterpret_cast<float4*>(t + (ty + 16 * m) * RANK + 4 * tx),
+           make_float4(v[m][0], v[m][1], v[m][2], v[m][3]));
+}
+
+__device__ __forceinline__ void load_tile(float (&v)[4][4], const float* t,
+                                          int ty, int tx) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float4 x =
+        __ldcg(reinterpret_cast<const float4*>(t + (ty + 16 * m) * RANK) + tx);
+    v[m][0] = x.x;
+    v[m][1] = x.y;
+    v[m][2] = x.z;
+    v[m][3] = x.w;
+  }
+}
+
+__device__ void panel_unit(Smem& sm, float* P, const float* Q,
+                           const int* sa, const int* sc, const uint8_t* R,
+                           const float* du, float* ring_buf, float* dp_buf,
+                           float* sums, const DenseSched& ds, int s, int pos,
+                           int band, int piece, int su, int si, float lr,
+                           float reg, float mu) {
+  // a warp holds 4 values of ty and 8 of tx, so that each of its 16-byte
+  // shared loads touches at most 128 distinct bytes (one wavefront)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ty = (warp >> 1) * 4 + (lane >> 3);
+  const int tx = (warp & 1) * 8 + (lane & 7);
+  const int nb = su / BAND, nch = si / CH, per_piece = nch / PIECES;
+  const int c0 = piece * per_piece, c1 = c0 + per_piece;
+  // the band's dP scratch: [0] piece 0's sum over its chunks, then the
+  // partial of each later chunk, in chunk order
+  float* dps = dp_buf + ((long long)(pos % ds.ring) * nb + band) *
+                            (nch - per_piece + 1) * BAND * RANK;
+  if (tid == 0) await_stratum(ds, s, pos);
+  __syncthreads();
+  const long long prow = (long long)sa[s] * su + band * BAND;
+  const long long qrow = (long long)sc[s] * si;
+  const uint8_t* Rb = R + ((long long)s * su + band * BAND) * (si / 2);
+  float* slot =
+      ring_buf + ((long long)(pos % ds.ring) * nb + band) * si * RANK;
+  float4* P4 = reinterpret_cast<float4*>(P);
+  for (int idx = tid; idx < BAND * R4; idx += NT) {
+    const int row = idx / R4, q = idx % R4;
+    *reinterpret_cast<float4*>(&sm.Pr[row * PITCH + 4 * q]) =
+        __ldcg(P4 + (prow + row) * R4 + q);
+  }
+  float4 qn[4];
+  uint4 rn = make_uint4(0, 0, 0, 0);
+  load_chunk(qn, rn, Q, qrow, Rb, si, c0);
+  store_chunk(sm, qn, rn);
+
+  float g[4][4];  // dP of rows ty + 16m, lanes 4tx + n, over the chunks
 #pragma unroll
   for (int m = 0; m < 4; ++m)
 #pragma unroll
-    for (int n = 0; n < 4; ++n) acc[m][n] = 0.f;
-  for (int k = 0; k < RANK; ++k) {
-    float a[4], b[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) a[m] = Pt[(ty + 16 * m) * PITCH + k];
-#pragma unroll
-    for (int n = 0; n < 4; ++n) b[n] = Qt[(tx + 16 * n) * PITCH + k];
+    for (int n = 0; n < 4; ++n) g[m][n] = 0.f;
+  float sq = 0.f;
+  const uint8_t* Rs = reinterpret_cast<const uint8_t*>(sm.Rs);
+
+  for (int ch = c0; ch < c1; ++ch) {
+    __syncthreads();
+    if (ch + 1 < c1) load_chunk(qn, rn, Q, qrow, Rb, si, ch + 1);
+
+    // S, then E, for rows ty + 16m and the chunk's columns tx + 16n
+    float acc[4][4];
 #pragma unroll
     for (int m = 0; m < 4; ++m)
 #pragma unroll
-      for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
-  }
-  const uint8_t* Rs = R + (long long)s * su * (si / 2);
-  float sq = 0.f;
+      for (int n = 0; n < 4; ++n) acc[m][n] = 0.f;
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const int r = ty + 16 * m;
+    for (int k = 0; k < RANK; k += 4) {
+      float4 a[4], b[4];
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int c = tx + 16 * n, col = c0 + c;
-      const uint8_t byte = Rs[(long long)(r0 + r) * (si / 2) + (col >> 1)];
-      const int code = (col & 1) ? (byte >> 4) : (byte & 15);
-      const float e = code > 0 ? ((float)code * 0.5f - acc[m][n]) - mu : 0.f;
-      Et[r * PITCH + c] = e;
-      sq = fmaf(e, e, sq);
+      for (int m = 0; m < 4; ++m)
+        a[m] = ld4(sm.Pr, ty + 16 * m, k);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        b[n] = ld4(sm.Qr, tx + 16 * n, k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            acc[m][n] = fmaf(comp(a[m], kk), comp(b[n], kk), acc[m][n]);
     }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int r = ty + 16 * m;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int c = tx + 16 * n;
+        const uint8_t byte = Rs[r * (CH / 2) + (c >> 1)];
+        const int code = (c & 1) ? (byte >> 4) : (byte & 15);
+        const float e = code > 0 ? ((float)code * 0.5f - acc[m][n]) - mu : 0.f;
+        sm.Er[r * PITCH + c] = e;
+        sm.Ec[c * PITCH + r] = e;
+        sq = fmaf(e, e, sq);
+      }
+    }
+    __syncthreads();
+
+    // the chunk's dP: rows ty + 16m, lanes 4tx + n, over its columns j
+    float d[4][4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) d[m][n] = 0.f;
+#pragma unroll
+    for (int j = 0; j < CH; j += 4) {
+      float4 e4[4], q4[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        e4[m] = ld4(sm.Er, ty + 16 * m, j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        q4[jj] = ld4(sm.Qr, j + jj, 4 * tx);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            d[m][n] = fmaf(comp(e4[m], jj), comp(q4[jj], n), d[m][n]);
+    }
+    if (piece == 0) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) g[m][n] += d[m][n];
+    } else {
+      store_tile(dps + (long long)(ch - per_piece + 1) * BAND * RANK, d, ty,
+                 tx);
+    }
+
+    // the chunk's dQ partial: columns ty + 16m, lanes 4tx + n, over the
+    // panel's rows r
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) d[m][n] = 0.f;
+#pragma unroll
+    for (int r = 0; r < BAND; r += 4) {
+      float4 e4[4], p4[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        e4[m] = ld4(sm.Ec, ty + 16 * m, r);
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+        p4[rr] = ld4(sm.Pr, r + rr, 4 * tx);
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            d[m][n] = fmaf(comp(e4[m], rr), comp(p4[rr], n), d[m][n]);
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      __stcg(reinterpret_cast<float4*>(
+                 slot + (long long)(ch * CH + ty + 16 * m) * RANK + 4 * tx),
+             make_float4(d[m][0], d[m][1], d[m][2], d[m][3]));
+    __syncthreads();
+    if (ch + 1 < c1) store_chunk(sm, qn, rn);
   }
-  // fixed-order block reduction of the tile's SSE
+
+  // the unit's SSE: warps' butterflies, then the warps in order
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-  if ((tid & 31) == 0) red[tid >> 5] = sq;
+  if ((tid & 31) == 0) sm.red[tid >> 5] = sq;
+  // the last piece of the band to finish adds the band's dP in chunk
+  // order: piece 0's sum, then every later chunk's partial
+  if (piece == 0) store_tile(dps, g, ty, tx);
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    sm.flag = atomicAdd(ds.state + 1 + 3 * ds.nd + s * nb + band, 1);
+    if (sm.flag == PIECES - 1) __threadfence();
+  }
+  __syncthreads();
+  const bool last = sm.flag == PIECES - 1;
+  if (last) {
+    load_tile(g, dps, ty, tx);
+    for (int e = 1; e <= nch - per_piece; ++e) {
+      float d[4][4];
+      load_tile(d, dps + (long long)e * BAND * RANK, ty, tx);
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) g[m][n] += d[m][n];
+    }
+    // the panel's own P rows, from the snapshot
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int r = ty + 16 * m;
+      const float deg = du[(long long)s * su + band * BAND + r];
+      const float scale = fminf(1.f, DSTAR / fmaxf(deg, 1.f));
+      const float4 p = ld4(sm.Pr, r, 4 * tx);
+      float o[4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        o[n] = update(comp(p, n), g[m][n], deg, scale,
+                      4 * tx + n == RANK - 2, lr, reg);
+      __stcg(P4 + (prow + r) * R4 + tx, make_float4(o[0], o[1], o[2], o[3]));
+    }
+  }
   __syncthreads();
   if (tid == 0) {
     float t = 0.f;
-    for (int w = 0; w < THREADS / 32; ++w) t += red[w];
-    sse_part[it * gridDim.x + jt] = t;
+    for (int w = 0; w < NT / 32; ++w) t += sm.red[w];
+    sums[((long long)s * nb + band) * PIECES + piece] = t;
+    if (last) {
+      __threadfence();
+      atomicAdd(ds.state + 1 + s, 1);
+    }
   }
-
-  // dP partial: rows ty + 16m, lanes tx + 16n, summed over this tile's
-  // columns; dQ partial: columns ty + 16m, lanes tx + 16n, over its rows
-  float dp[4][4], dq[4][4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) dp[m][n] = dq[m][n] = 0.f;
-  for (int j = 0; j < TB; ++j) {
-    float eP[4], eQ[4], q[4], p[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      eP[m] = Et[(ty + 16 * m) * PITCH + j];  // E[row][j]
-      eQ[m] = Et[j * PITCH + ty + 16 * m];    // E[j][col]
-    }
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      q[n] = Qt[j * PITCH + tx + 16 * n];
-      p[n] = Pt[j * PITCH + tx + 16 * n];
-    }
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        dp[m][n] = fmaf(eP[m], q[n], dp[m][n]);
-        dq[m][n] = fmaf(eQ[m], p[n], dq[m][n]);
-      }
-  }
-  float* dPo = dP_part + ((long long)jt * su + r0) * RANK;
-  float* dQo = dQ_part + ((long long)it * si + c0) * RANK;
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      dPo[(ty + 16 * m) * RANK + tx + 16 * n] = dp[m][n];
-      dQo[(ty + 16 * m) * RANK + tx + 16 * n] = dq[m][n];
-    }
 }
 
-// One thread per (row, lane) of P_blk (rows [0, su)) and Q_win (rows
-// [su, su + si)); block 0's first warp also folds the stratum's SSE.
-__global__ void __launch_bounds__(THREADS)
-dense_apply_kernel(float* __restrict__ P, float* __restrict__ Q,
-                   const int* __restrict__ sa, const int* __restrict__ sc,
-                   const float* __restrict__ du, const float* __restrict__ di,
-                   const float* __restrict__ dP_part,
-                   const float* __restrict__ dQ_part,
-                   const float* __restrict__ sse_part,
-                   float* __restrict__ sse_acc, int s, int su, int si,
-                   float lr, float reg) {
-  const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const int nbi = su / TB, nbj = si / TB;
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    float t = 0.f;
-    for (int b = 0; b < nbi * nbj; ++b) t += sse_part[b];
-    sse_acc[0] += t;
+template <int ROWS>
+__device__ void apply_unit(float* Q, const int* sc, const float* di,
+                           const float* ring_buf, const DenseSched& ds, int s,
+                           int pos, int part, int su, int si, float lr,
+                           float reg) {
+  constexpr int PER = ROWS * R4 / NT;  // float4 a thread
+  const int tid = threadIdx.x, nb = su / BAND, nq = si / ROWS;
+  if (tid == 0)
+    while (mfx_sweep::ld_acquire(ds.state + 1 + s) < nb) __nanosleep(64);
+  __syncthreads();
+  const float4* slot = reinterpret_cast<const float4*>(
+      ring_buf + (long long)(pos % ds.ring) * nb * si * RANK);
+  float4 gv[PER];
+#pragma unroll
+  for (int t = 0; t < PER; ++t) gv[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int b = 0; b < nb; ++b) {
+#pragma unroll
+    for (int t = 0; t < PER; ++t) {
+      const int idx = tid + t * NT;
+      const float4 v =
+          __ldcg(slot + ((long long)b * si + part * ROWS) * R4 + idx);
+      gv[t].x += v.x;
+      gv[t].y += v.y;
+      gv[t].z += v.z;
+      gv[t].w += v.w;
+    }
   }
-  const int row = (int)(idx / RANK), k = (int)(idx % RANK);
-  if (row < su) {
-    float g = 0.f;
-    for (int j = 0; j < nbj; ++j)
-      g += dP_part[((long long)j * su + row) * RANK + k];
-    const float deg = du[(long long)s * su + row];
+  float4* Q4 = reinterpret_cast<float4*>(Q);
+  const long long qrow = (long long)sc[s] * si + part * ROWS;
+#pragma unroll
+  for (int t = 0; t < PER; ++t) {
+    const int idx = tid + t * NT, row = idx / R4, q = idx % R4;
+    const float deg = di[(long long)s * si + part * ROWS + row];
     const float scale = fminf(1.f, DSTAR / fmaxf(deg, 1.f));
-    float* p = P + ((long long)sa[s] * su + row) * RANK + k;
-    const float d = k == RANK - 2 ? 0.f : g - reg * deg * *p;
-    *p = *p + lr * scale * d;
-  } else if (row < su + si) {
-    const int c = row - su;
-    float g = 0.f;
-    for (int i = 0; i < nbi; ++i)
-      g += dQ_part[((long long)i * si + c) * RANK + k];
-    const float deg = di[(long long)s * si + c];
-    const float scale = fminf(1.f, DSTAR / fmaxf(deg, 1.f));
-    float* q = Q + ((long long)sc[s] * si + c) * RANK + k;
-    const float d = k == RANK - 1 ? 0.f : g - reg * deg * *q;
-    *q = *q + lr * scale * d;
+    const float4 v = __ldcg(Q4 + (qrow + row) * R4 + q);
+    float o[4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      o[n] = update(comp(v, n), comp(gv[t], n), deg, scale,
+                    4 * q + n == RANK - 1, lr, reg);
+    __stcg(Q4 + (qrow + row) * R4 + q, make_float4(o[0], o[1], o[2], o[3]));
+  }
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(ds.state + 1 + ds.nd + s, 1) == nq - 1) {
+      __threadfence();
+      mfx_sweep::st_release(ds.state + 1 + 2 * ds.nd + s, 1);
+    }
+  }
+}
+
+// P and Q are rewritten by this and other blocks during the launch, so
+// they are deliberately not const/__restrict__ (see the header).
+__global__ void __launch_bounds__(NT, 1)
+dense_phase_kernel(float* P, float* Q, const int* __restrict__ sa,
+                   const int* __restrict__ sc, const uint8_t* __restrict__ R,
+                   const float* __restrict__ du, const float* __restrict__ di,
+                   float* ring_buf, float* dp_buf, float* __restrict__ sums,
+                   DenseSched ds, int su, int si, float lr, float reg,
+                   float mu) {
+  extern __shared__ float4 smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int nb = su / BAND, np = nb * PIECES, qrows = apply_rows(si);
+  const int per = np + si / qrows;
+  for (;;) {
+    __syncthreads();
+    if (threadIdx.x == 0) sm.ticket = atomicAdd(ds.state, 1);
+    __syncthreads();
+    const int u = sm.ticket;
+    if (u >= ds.nd * per) break;
+    const int pos = u / per, j = u - pos * per, s = stratum_at(ds, pos);
+    if (j < np)
+      panel_unit(sm, P, Q, sa, sc, R, du, ring_buf, dp_buf, sums, ds, s, pos,
+                 j / PIECES, j % PIECES, su, si, lr, reg, mu);
+    else if (qrows == QROWS)
+      apply_unit<QROWS>(Q, sc, di, ring_buf, ds, s, pos, j - np, su, si, lr,
+                        reg);
+    else
+      apply_unit<QROWS / 2>(Q, sc, di, ring_buf, ds, s, pos, j - np, su, si,
+                            lr, reg);
   }
 }
 
 }  // namespace
 
+// Thread blocks of dense_phase_kernel the device holds at once, or minus
+// the CUDA error.
+extern "C" int mfx_dense_phase_max_blocks() {
+  return mfx_sweep::resident_blocks(dense_phase_kernel, NT, sizeof(Smem));
+}
+
 extern "C" int mfx_dense_phase(float* P, float* Q, const int* sa,
                                const int* sc, const uint8_t* R,
                                const float* du, const float* di,
-                               float* dP_part, float* dQ_part,
-                               float* sse_part, float* sse_acc, int nd,
-                               int su, int si, int rank, float lr, float reg,
-                               float mu, void* stream) {
-  if (rank != RANK || su % TB || si % TB || nd < 0)
+                               const int* runs, const int* wait,
+                               const int* order, int* state,
+                               float* ring_buf, float* dp_buf, float* sums,
+                               float* sse_out, int nd, int nruns, int ring,
+                               int blocks, int su, int si, int rank,
+                               float lr, float reg, float mu, void* stream) {
+  if (rank != RANK || su < BAND || su % BAND || si < QROWS / 2 ||
+      si % (QROWS / 2) ||
+      nd < 0 || nruns < 1 || ring < 1 || blocks < 1 || (si / CH) % PIECES)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaFuncSetAttribute(
-      dense_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kTileSmem);
+      dense_phase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(Smem));
   if (err != cudaSuccess) return (int)err;
-  const dim3 tiles(si / TB, su / TB);
-  const int apply_blocks =
-      (int)(((long long)(su + si) * RANK + THREADS - 1) / THREADS);
-  for (int s = 0; s < nd; ++s) {
-    dense_tile_kernel<<<tiles, THREADS, kTileSmem, st>>>(
-        P, Q, sa, sc, R, dP_part, dQ_part, sse_part, s, su, si, mu);
-    dense_apply_kernel<<<apply_blocks, THREADS, 0, st>>>(
-        P, Q, sa, sc, du, di, dP_part, dQ_part, sse_part, sse_acc, s, su, si,
-        lr, reg);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+  const DenseSched ds{runs, wait, order, state, nruns, nd, ring};
+  dense_phase_kernel<<<blocks, NT, sizeof(Smem), st>>>(
+      P, Q, sa, sc, R, du, di, ring_buf, dp_buf, sums, ds, su, si, lr, reg,
+      mu);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  mfx_sweep::ordered_sum_kernel<<<1, mfx_sweep::SUM_THREADS, 0, st>>>(
+      sums, nd * (su / BAND) * PIECES, sse_out);
   return (int)cudaGetLastError();
 }

@@ -19,18 +19,31 @@
 //               touch nothing)
 // With use_bias == 0 the bias terms are 0 and bu, bi are left untouched.
 //
-// Order: tiles apply strictly in plan order, as the TPU's sequential grid
-// does; one thread block walks the whole sweep. Every sum is taken in the
-// fixed order sweep_common.cuh states, so a run is bitwise repeatable. No
-// float atomics.
+// Order: the result is that of applying the tiles strictly in plan
+// order, as the TPU's sequential grid does. The launch's blocks share the
+// sweep by sweep_common.cuh's wavefront scheduler, as sgd_sweep.cu's do:
+// each takes whole user-block runs in plan order and walks a run front to
+// back, and a stratum's first tile waits for the nearest earlier run's
+// tiles of the same item window. A tile touches only its user block's P
+// rows and bu entries and its window's Q rows and bi entries, so those two
+// orders fix every value a tile gathers: tables and biases are bit for bit
+// the one-block walk's on any number of blocks, and a grid of one block is
+// that walk. Every sum inside a tile is taken in the fixed order
+// sweep_common.cuh states; the per-tile SSE goes to a buffer that a second
+// small kernel adds up in tile order. No float atomics.
 //
-// What bounds it on an H100: as sgd_sweep.cu, one SM's latency. A tile's
-// phases (ids, gather, sort, residuals, scatter) are separated by
-// barriers and the gather waits on L2 / device memory; 131 SMs idle. The
-// bias vectors add 2 T scalar loads to the gather and 2 T candidate
-// writers to the scatter, no phase and no barrier. Independent strata on
-// the other SMs (the DSGD parallel mode) are the lever and change the
-// update order.
+// Memory ordering: P, Q, bu and bi are written on one SM and gathered on
+// another inside the launch, so every load of them bypasses L1 (the
+// header's gather) and a run's progress is published only after a barrier
+// and a fence.
+//
+// What bounds it on an H100: as sgd_sweep.cu, one SM's latency a tile:
+// its phases (ids, gather, sort, residuals, scatter) are separated by
+// barriers and the gather waits on L2. The bias vectors add 2 T scalar
+// loads to the gather and 2 T candidate writers to the scatter, no phase
+// and no barrier. A sweep's time is the tiles on its longest dependency
+// chain (a sweep of W windows keeps at most W blocks busy) times that
+// latency.
 
 #include "sweep_common.cuh"
 
@@ -38,85 +51,116 @@ namespace {
 
 using namespace mfx_sweep;
 
+// P, Q, bu and bi are rewritten by this and other blocks during the
+// launch, so they are deliberately not const/__restrict__.
 template <int RANK>
 __global__ void __launch_bounds__(THREADS)
 sgd_sweep_tile_kernel(float* P, float* Q, float* bu, float* bi,
                       const int* __restrict__ sa, const int* __restrict__ tc,
-                      const int* __restrict__ tl, float* __restrict__ sse_out,
-                      int nt, int tpg, int T, int su, int si, int use_bias,
-                      float lr, float reg, float mu) {
+                      const int* __restrict__ tl, Wavefront wf,
+                      float* __restrict__ sums, int tpg, int T, int su,
+                      int si, int use_bias, float lr, float reg, float mu) {
   constexpr int Q4 = RANK / 4;
   extern __shared__ float4 smem_raw[];
+  __shared__ int run_slot;
   const TileSmem<RANK> sm = TileSmem<RANK>::carve(smem_raw, T);
   float4* P4w = reinterpret_cast<float4*>(P);
-  float sse = 0.f;  // thread 0 carries the sweep's sum
 
-  for (int t = 0; t < nt; ++t) {
-    const long long pbase = (long long)sa[t / tpg] * su;
-    const long long qbase = (long long)tc[t] * si;
-    load_ids(sm, tl + (long long)t * 3 * T, T, su);
-    __syncthreads();
-    gather(sm, P, Q, bu, bi, pbase, qbase, T, su, use_bias);
-    sort_keys(sm.keyU, sm.keyI);
-    residuals(sm, T, su, mu, use_bias);
-    __syncthreads();
+  for (int run = take_run(wf, &run_slot); run < wf.nruns;
+       run = take_run(wf, &run_slot)) {
+    const int t0 = wf.runs[2 * run], n = wf.runs[2 * run + 1];
+    for (int k = 0; k < n; ++k) {
+      const int t = t0 + k;
+      const long long pbase = (long long)sa[t / tpg] * su;
+      const long long qbase = (long long)tc[t] * si;
+      load_ids(sm, tl + (long long)t * 3 * T, T, su);
+      const bool ends_stratum = await_tile(wf, t);
+      __syncthreads();
+      gather(sm, P, Q, bu, bi, pbase, qbase, T, su, use_bias);
+      sort_keys(sm.keyU, sm.keyI);
+      residuals(sm, T, su, mu, use_bias);
+      __syncthreads();
 
-    // 5. scatter: the first position of each row's run writes
-    for (int w = threadIdx.x; w < MAX_T * Q4; w += THREADS) {
-      const int q = w % Q4, p = w / Q4;
-      if (!starts_run(sm.keyU, p)) continue;
-      const int x = sm.keyU[p] >> 8, j0 = sm.keyU[p] & 255;
-      P4w[(pbase + x) * Q4 + q] =
-          add4(sm.Ps[j0 * Q4 + q],
-               run_delta<Q4>(sm.keyU, sm.Ps, sm.Qs, sm.e, p, q, lr, reg));
+      // 5. scatter: the first position of each row's run writes
+      for (int w = threadIdx.x; w < MAX_T * Q4; w += THREADS) {
+        const int q = w % Q4, p = w / Q4;
+        if (!starts_run(sm.keyU, p)) continue;
+        const int x = sm.keyU[p] >> 8, j0 = sm.keyU[p] & 255;
+        P4w[(pbase + x) * Q4 + q] =
+            add4(sm.Ps[j0 * Q4 + q],
+                 run_delta<Q4>(sm.keyU, sm.Ps, sm.Qs, sm.e, p, q, lr, reg));
+      }
+      // the user biases' writers are the upper half of the block
+      // (scatter_items' bias writers are the lower half)
+      static_assert(THREADS == 2 * MAX_T, "one bias writer a sorted position");
+      const int pb = threadIdx.x - MAX_T;
+      if (use_bias && pb >= 0 && starts_run(sm.keyU, pb)) {
+        const int x = sm.keyU[pb] >> 8, j0 = sm.keyU[pb] & 255;
+        bu[pbase + x] =
+            sm.bus[j0] + run_bias_delta(sm.keyU, sm.bus, sm.e, pb, lr, reg);
+      }
+      scatter_items(sm, Q, bi, qbase, use_bias, lr, reg);
+      const float sse = tile_sse(sm, T);
+      if (threadIdx.x == 0) sums[t] = sse;
+      __syncthreads();
+      publish(wf, ends_stratum, run, k + 1);
     }
-    // the user biases' writers are the upper half of the block
-    // (scatter_items' bias writers are the lower half)
-    static_assert(THREADS == 2 * MAX_T, "one bias writer a sorted position");
-    const int pb = threadIdx.x - MAX_T;
-    if (use_bias && pb >= 0 && starts_run(sm.keyU, pb)) {
-      const int x = sm.keyU[pb] >> 8, j0 = sm.keyU[pb] & 255;
-      bu[pbase + x] =
-          sm.bus[j0] + run_bias_delta(sm.keyU, sm.bus, sm.e, pb, lr, reg);
-    }
-    scatter_items(sm, Q, bi, qbase, use_bias, lr, reg);
-    sse += tile_sse(sm, T);
-    __syncthreads();
   }
-  if (threadIdx.x == 0) sse_out[0] = sse;
 }
 
 template <int RANK>
 int launch(float* P, float* Q, float* bu, float* bi, const int* sa,
-           const int* tc, const int* tl, float* sse_out, int nt, int tpg,
-           int T, int su, int si, int use_bias, float lr, float reg, float mu,
-           cudaStream_t stream) {
+           const int* tc, const int* tl, const Wavefront& wf, float* sums,
+           float* sse_out, int nt, int blocks, int tpg, int T, int su, int si,
+           int use_bias, float lr, float reg, float mu, cudaStream_t stream) {
   const size_t smem = TileSmem<RANK>::bytes(T);
   cudaError_t err = cudaFuncSetAttribute(
       sgd_sweep_tile_kernel<RANK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  sgd_sweep_tile_kernel<RANK><<<1, THREADS, smem, stream>>>(
-      P, Q, bu, bi, sa, tc, tl, sse_out, nt, tpg, T, su, si, use_bias, lr,
-      reg, mu);
+  sgd_sweep_tile_kernel<RANK><<<blocks, THREADS, smem, stream>>>(
+      P, Q, bu, bi, sa, tc, tl, wf, sums, tpg, T, su, si, use_bias, lr, reg,
+      mu);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ordered_sum_kernel<<<1, SUM_THREADS, 0, stream>>>(sums, nt, sse_out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Thread blocks of the rank's kernel the device holds at once at tile
+// size T, or minus the CUDA error.
+extern "C" int mfx_sgd_sweep_tile_max_blocks(int T, int rank) {
+  if (T < 1 || T > MAX_T) return -(int)cudaErrorInvalidValue;
+  if (rank == 64)
+    return resident_blocks(sgd_sweep_tile_kernel<64>, THREADS,
+                           TileSmem<64>::bytes(T));
+  if (rank == 32)
+    return resident_blocks(sgd_sweep_tile_kernel<32>, THREADS,
+                           TileSmem<32>::bytes(T));
+  return -(int)cudaErrorInvalidValue;
+}
+
 extern "C" int mfx_sgd_sweep_tile(float* P, float* Q, float* bu, float* bi,
                                   const int* sa, const int* tc, const int* tl,
-                                  float* sse_out, int nt, int tpg, int T,
-                                  int su, int si, int rank, int use_bias,
-                                  float lr, float reg, float mu,
-                                  void* stream) {
-  if (su > MAX_BLOCK || si > MAX_BLOCK || T < 1 || T > MAX_T || tpg < 1)
+                                  const int* runs, const int* wait,
+                                  int* state, float* sums, float* sse_out,
+                                  int nt, int nruns, int blocks, int tpg,
+                                  int T, int su, int si, int rank,
+                                  int use_bias, float lr, float reg,
+                                  float mu, void* stream) {
+  if (su > MAX_BLOCK || si > MAX_BLOCK || T < 1 || T > MAX_T || tpg < 1 ||
+      nruns < 1 || blocks < 1)
     return (int)cudaErrorInvalidValue;
+  const Wavefront wf{runs, wait, state, nruns};
   if (rank == 64)
-    return launch<64>(P, Q, bu, bi, sa, tc, tl, sse_out, nt, tpg, T, su, si,
-                      use_bias, lr, reg, mu, (cudaStream_t)stream);
+    return launch<64>(P, Q, bu, bi, sa, tc, tl, wf, sums, sse_out, nt,
+                      blocks, tpg, T, su, si, use_bias, lr, reg, mu,
+                      (cudaStream_t)stream);
   if (rank == 32)
-    return launch<32>(P, Q, bu, bi, sa, tc, tl, sse_out, nt, tpg, T, su, si,
-                      use_bias, lr, reg, mu, (cudaStream_t)stream);
+    return launch<32>(P, Q, bu, bi, sa, tc, tl, wf, sums, sse_out, nt,
+                      blocks, tpg, T, su, si, use_bias, lr, reg, mu,
+                      (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

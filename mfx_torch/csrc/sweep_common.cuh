@@ -4,9 +4,11 @@
 // f32 tables, with the biases, where there are any outside the tables, in
 // vectors of their own (use_bias). RANK is 32 or 64 (RANK / 4 float4 a
 // row). One thread block of THREADS threads works on one tile at a time;
-// every function here is called by all of its threads. For sgd_sweep.cu
-// and bpr_sweep.cu: the wavefront scheduler (at the end of this file),
-// with which the blocks of one launch share a sweep's tiles.
+// every function here is called by all of its threads. For sgd_sweep.cu,
+// sgd_sweep_tile.cu and bpr_sweep.cu: the wavefront scheduler (at the end
+// of this file), with which the blocks of one launch share a sweep's
+// tiles; dense_phase.cu uses its release / acquire pair, its grid sizing
+// and its in-order sum.
 //
 // Order of every sum inside a tile, so that a run is bitwise repeatable:
 //   dot      8 threads a slot, each a fixed-order fma chain over its

@@ -32,14 +32,18 @@ _SIGNATURES = {
     "mfx_sgd_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _I, _I, _I, _F, _F, _F, _P],
     "mfx_sgd_sweep_max_blocks": [_I],
-    "mfx_dense_phase": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                        _I, _I, _I, _F, _F, _F, _P],
+    "mfx_dense_phase": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                        _P],
+    "mfx_dense_phase_max_blocks": [],
     "mfx_tile_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mfx_bpr_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _I, _I, _I, _F, _F, _P],
     "mfx_bpr_sweep_max_blocks": [_I],
-    "mfx_sgd_sweep_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _I, _I, _F, _F, _F, _P],
+    "mfx_sgd_sweep_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                           _P],
+    "mfx_sgd_sweep_tile_max_blocks": [_I, _I],
     "mfx_sgd_sweep_step_u": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _I, _F, _F, _F, _P],
 }

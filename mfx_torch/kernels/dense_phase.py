@@ -4,7 +4,7 @@ plain PyTorch version.
 Replaces ``mfx/kernels/dense_pallas.py::_kernel_body`` on the lane-bias
 int4 path (``lane=True``, ``rfmt='int4'``, echo 1, spg 1; the int8 codes
 are ROADMAP Queue 2 item 3). One call runs one dense group: its strata in
-order, each a snapshot minibatch
+plan order, each a snapshot minibatch
 
     S = P_blk Q_winᵀ,  E = [R > 0] ∘ (R − S − μ)
     P_blk += lr·s_u ∘ (E Q_win − reg·Du ∘ P_blk)    (lane rank-2 frozen)
@@ -21,9 +21,11 @@ from __future__ import annotations
 import torch
 
 from mfx_torch.kernels import _build
+from mfx_torch.kernels.sgd_sweep import check_deps
 
-__all__ = ["dense_phase", "dense_phase_plain", "decode_codes", "DSTAR",
-           "R_SCALE", "R4_SCALE"]
+__all__ = ["dense_phase", "dense_phase_plain", "dense_launch", "dense_scratch",
+           "launch", "plan_launch", "decode_codes", "group_prefix", "DSTAR", "R_SCALE",
+           "R4_SCALE"]
 
 # the reference's rating codes (mfx/kernels/dense_pallas.py): int8 holds
 # round(r * R_SCALE), int4 round(r * R4_SCALE); 0 = absent
@@ -33,6 +35,13 @@ R4_SCALE = 2.0
 DSTAR = 16.0
 
 _RANK = 64
+# strata whose dQ partials the kernel keeps at once (su/64 x si x rank f32
+# each: 4 MB at 1024²); a stratum waits for the one handed out this many
+# places before it. 8 runs the ml25m_rank64 dense phase as fast as 16
+# with half the scratch (measure_wavefront orders).
+_RING = 8
+# pieces a row panel is cut into (csrc/dense_phase.cu's PIECES)
+_PIECES = 2
 
 
 def decode_codes(R: torch.Tensor, rfmt: str) -> torch.Tensor:
@@ -99,42 +108,131 @@ def dense_phase_plain(P, Q, grp, lr, reg, mu, *, su, si):
     return sse
 
 
-def dense_phase(P, Q, grp, lr, reg, mu, *, su, si):
+def group_prefix(grp, n):
+    """The group's first ``n`` strata, with the table that orders them."""
+    out = {k: v[:n].contiguous() for k, v in grp.items() if k != "deps"}
+    if "deps" in grp:
+        out["deps"] = grp["deps"].prefix(n)
+    return out
+
+
+def dense_launch(lib, deps, nd, su, si, dev, blocks):
+    """What the kernel takes beside the group and its scratch: ``(runs,
+    wait, order, ring, grid)``.
+
+    ``runs`` / ``wait`` are the dependency table's and ``order`` the order
+    in which the kernel hands the strata out, a list schedule of the table
+    for the grid (``deps.list_order``); ``deps=None`` gives one dummy run,
+    no waits and plan order, so each stratum waits for the one before.
+    ``ring`` is the strata in flight the scratch holds; ``grid`` is
+    ``blocks`` or, with ``blocks=None``, as many as the card holds at
+    once, never more than there are units."""
+    if deps is None:
+        runs = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+        wait = order = None
+    else:
+        check_deps("dense_phase", deps, nd, dev)
+        runs, wait = deps.runs, deps.wait
+    if blocks is None:
+        blocks = lib.mfx_dense_phase_max_blocks()
+        if blocks < 1:
+            raise RuntimeError(
+                f"dense_phase: CUDA error {-blocks} sizing the grid")
+    elif blocks < 1:
+        raise ValueError(f"dense_phase: blocks must be >= 1, got {blocks}")
+    nb = su // 64
+    nq = si // (256 if si % 256 == 0 else 128)
+    grid = min(int(blocks), max(1, nd * (nb * _PIECES + nq)))
+    ring = max(1, min(_RING, nd))
+    if deps is not None:
+        # an apply unit reads 1/nq of the stratum's partials: ~1/10 of a
+        # whole panel's time at 1024²
+        order = deps.list_order(grid, nb * _PIECES, nq, 0.1 * _PIECES, ring)
+    return runs, wait, order, ring, grid
+
+
+def plan_launch(grp, su, si):
+    """Work out, on the host, the order in which the kernel will hand out
+    the group's strata at the card's grid (``deps.list_order``, kept on
+    the table), as the first :func:`dense_phase` call on the card would:
+    the trainer calls it at prep so that no epoch pays for it. Nothing to
+    do on the CPU or without a table."""
+    if grp["R"].device.type == "cuda" and "deps" in grp:
+        dense_launch(_build.load_library(), grp["deps"], grp["sa"].shape[0],
+                     su, si, grp["R"].device, None)
+
+
+def dense_scratch(nd, su, si, ring, dev):
+    """The kernel's scratch for a group of ``nd`` strata: ``(state,
+    ring_buf, dp_buf, sums)``. ``state`` is zeroed: the ticket, then per
+    stratum its panels done, its apply units done and its end, then per
+    panel its pieces done; ``ring_buf`` the ring of dQ partials and
+    ``dp_buf`` that of the second pieces' dP (one slot a stratum in
+    flight); ``sums`` the per-piece SSE, added up in unit order."""
+    nb, nch, f32 = su // 64, si // 64, torch.float32
+    state = torch.zeros(1 + 3 * nd + nd * nb, dtype=torch.int32, device=dev)
+    ring_buf = torch.empty((ring, nb, si, _RANK), dtype=f32, device=dev)
+    dp_buf = torch.empty((ring, nb, nch - nch // _PIECES + 1, 64, _RANK),
+                         dtype=f32, device=dev)
+    sums = torch.empty(max(1, nd * nb * _PIECES), dtype=f32, device=dev)
+    return state, ring_buf, dp_buf, sums
+
+
+def launch(lib, P, Q, grp, lr, reg, mu, su, si, runs, wait, order, ring,
+           grid):
+    """One launch of the kernel on the group with the scheduler arguments
+    of :func:`dense_launch` (``measure_wavefront`` also passes others) and
+    fresh scratch. Returns the SSE (0-d f32)."""
+    nd, dev = grp["sa"].shape[0], P.device
+    state, ring_buf, dp_buf, sums = dense_scratch(nd, su, si, ring, dev)
+    sse = torch.empty(1, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check(lib.mfx_dense_phase(
+        P.data_ptr(), Q.data_ptr(), grp["sa"].data_ptr(),
+        grp["sc"].data_ptr(), grp["R"].data_ptr(), grp["du_s"].data_ptr(),
+        grp["di_s"].data_ptr(), runs.data_ptr(),
+        None if wait is None else wait.data_ptr(),
+        None if order is None else order.data_ptr(), state.data_ptr(),
+        ring_buf.data_ptr(), dp_buf.data_ptr(), sums.data_ptr(),
+        sse.data_ptr(), nd, runs.shape[0], ring, grid, su, si, _RANK,
+        float(lr), float(reg), float(mu), stream,
+    ), "dense_phase")
+    return sse[0]
+
+
+def dense_phase(P, Q, grp, lr, reg, mu, *, su, si, deps=None, blocks=None):
     """One dense group. ``P`` is the padded lane-form user table; ``Q`` the
     group's item segment (a contiguous row range of the padded item
     table); ``grp`` holds ``sa``/``sc`` (ND,) int32 (``sc`` window-local),
     ``R`` the int4 codes (ND, su, si/2) uint8 and the per-stratum degrees
     ``du_s`` (ND, su), ``di_s`` (ND, si).
-    Updates P and Q in place; returns the phase's SSE (0-d f32)."""
+    Updates P and Q in place; returns the phase's SSE (0-d f32).
+
+    On the card the whole group is one launch on ``blocks`` thread blocks
+    (default: as many as the card holds at once). ``deps`` is the group's
+    dependency table (``grp["deps"]``, built at prep): with it strata
+    that share neither a user block nor a window run at once; without it
+    each stratum waits for the one before (its units still spread over
+    the blocks). Tables and SSE are bit for bit the same either way and
+    on any grid. The CPU route ignores both and walks the strata in plan
+    order."""
     _validate(P, Q, grp, su, si)
     if P.device.type == "cpu":
         return dense_phase_plain(P, Q, grp, lr, reg, mu, su=su, si=si)
     if P.device.type != "cuda":
         raise ValueError(f"dense_phase: no kernel for device {P.device}")
-    if P.shape[1] != _RANK or su % 64 or si % 64:
+    if P.shape[1] != _RANK or su % 64 or si % 128:
         raise NotImplementedError(
-            "dense_phase kernel is built for rank 64 and blocks that are "
-            f"multiples of 64 (got rank {P.shape[1]}, su={su}, si={si}); "
-            "see ROADMAP Queue 2"
+            "dense_phase kernel is built for rank 64, user blocks that are "
+            "multiples of 64 and item windows that are multiples of 128 "
+            f"(got rank {P.shape[1]}, su={su}, si={si}); see ROADMAP Queue 2"
         )
-    nd = grp["sa"].shape[0]
-    dev = P.device
-    f32 = torch.float32
-    dP_part = torch.empty((si // 64, su, _RANK), dtype=f32, device=dev)
-    dQ_part = torch.empty((su // 64, si, _RANK), dtype=f32, device=dev)
-    sse_part = torch.empty((su // 64) * (si // 64), dtype=f32, device=dev)
-    sse = torch.zeros(1, dtype=f32, device=dev)
     lib = _build.load_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(lib.mfx_dense_phase(
-        P.data_ptr(), Q.data_ptr(), grp["sa"].data_ptr(),
-        grp["sc"].data_ptr(), grp["R"].data_ptr(), grp["du_s"].data_ptr(),
-        grp["di_s"].data_ptr(), dP_part.data_ptr(), dQ_part.data_ptr(),
-        sse_part.data_ptr(), sse.data_ptr(), nd, su, si, _RANK,
-        float(lr), float(reg), float(mu), stream,
-    ), "dense_phase")
+    sched = dense_launch(lib, deps, grp["sa"].shape[0], su, si, P.device,
+                         blocks)
+    sse = launch(lib, P, Q, grp, lr, reg, mu, su, si, *sched)
     dense_phase.launches += 1
-    return sse[0]
+    return sse
 
 
 dense_phase.launches = 0

@@ -31,13 +31,14 @@ the values the plan-order walk does.
 from __future__ import annotations
 
 import dataclasses
+import heapq
 
 import numpy as np
 import torch
 
 __all__ = ["PlanSkeleton", "SweepSlice", "SweepDeps", "build_plan_skeleton",
-           "epoch_tiles_device", "epoch_rand", "sweep_deps", "critical_path",
-           "wavefront_order"]
+           "epoch_tiles_device", "epoch_rand", "sweep_deps", "chain_depths",
+           "critical_path", "wavefront_order"]
 
 
 @dataclasses.dataclass
@@ -53,6 +54,27 @@ class SweepDeps:
     wait: torch.Tensor
     n_tiles: int  # tiles of the sweep, pad tiles included
     critical: int  # tiles on the longest dependency chain
+    _orders: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+
+    def list_order(self, slots: int, parts: int, tail: int,
+                   tail_cost: float, ring: int) -> torch.Tensor:
+        """An order in which to hand out the tiles (strata) to ``slots``
+        workers, each stratum as ``parts`` units of cost 1 that may start
+        once its predecessors have finished (and the stratum handed out
+        ``ring`` places before it), then ``tail`` units of cost
+        ``tail_cost`` that start once its parts have: a greedy list
+        schedule that takes next the stratum that can start soonest, the
+        one with the longest chain still behind it first. Every stratum
+        comes after all it waits for. An int32 tensor on the table's
+        device, computed once for each set of arguments."""
+        key = (slots, parts, tail, tail_cost, ring)
+        if key not in self._orders:
+            order = _list_schedule(self.runs.cpu().numpy(),
+                                   self.wait.cpu().numpy(), *key)
+            self._orders[key] = torch.as_tensor(order, dtype=torch.int32,
+                                                device=self.runs.device)
+        return self._orders[key]
 
     def prefix(self, nt: int) -> "SweepDeps":
         """The table of the sweep's first ``nt`` tiles (a wait only ever
@@ -66,11 +88,13 @@ class SweepDeps:
             n_tiles=nt, critical=critical_path(runs, wait.cpu().numpy()))
 
 
-def critical_path(runs: np.ndarray, wait: np.ndarray) -> int:
-    """Tiles on the longest chain of the table: a tile follows its run's
-    previous tile and, where it waits, tile ``wait[t, 1] - 1`` of run
-    ``wait[t, 0]``."""
-    finish = np.zeros(wait.shape[0], np.int64)  # chain length ending at t
+def chain_depths(runs: np.ndarray, wait: np.ndarray) -> np.ndarray:
+    """Per tile, the tiles on the longest chain of the table that ends
+    with it: a tile follows its run's previous tile and, where it waits,
+    tile ``wait[t, 1] - 1`` of run ``wait[t, 0]``. A tile's depth exceeds
+    that of every tile it follows, so sorting by depth gives an order the
+    table allows."""
+    finish = np.zeros(wait.shape[0], np.int64)
     for base, n in runs.tolist():
         w = wait[base:base + n]
         dep = np.where(w[:, 0] >= 0,
@@ -78,7 +102,67 @@ def critical_path(runs: np.ndarray, wait: np.ndarray) -> int:
         # finish[i] = max(finish[i - 1], dep[i]) + 1
         k = np.arange(n)
         finish[base:base + n] = k + 1 + np.maximum.accumulate(dep - k)
-    return int(finish.max(initial=0))
+    return finish
+
+
+def critical_path(runs: np.ndarray, wait: np.ndarray) -> int:
+    """Tiles on the longest chain of the table (:func:`chain_depths`)."""
+    return int(chain_depths(runs, wait).max(initial=0))
+
+
+def _preds(runs: np.ndarray, wait: np.ndarray) -> list[list[int]]:
+    """Per tile, the tiles it follows: its run's previous tile and the
+    one its wait names."""
+    first = np.zeros(wait.shape[0], bool)
+    first[runs[:, 0]] = True
+    named = np.where(wait[:, 0] >= 0,
+                     runs[wait[:, 0].clip(0), 0] + wait[:, 1] - 1, -1)
+    return [[p for p in ((t - 1) if not first[t] else -1, named[t]) if p >= 0]
+            for t in range(wait.shape[0])]
+
+
+def _list_schedule(runs, wait, slots, parts, tail, tail_cost, ring):
+    """``SweepDeps.list_order``'s schedule, simulated on ``slots``
+    workers that each take the next unit as they come free."""
+    nd = wait.shape[0]
+    preds = _preds(runs, wait)
+    succs = [[] for _ in range(nd)]
+    for t, ps in enumerate(preds):
+        for p in ps:
+            succs[p].append(t)
+    behind = np.zeros(nd, np.int64)  # the longest chain from t to the end
+    for t in range(nd - 1, -1, -1):
+        behind[t] = 1 + max((behind[x] for x in succs[t]), default=0)
+    left = np.array([len(p) for p in preds])
+    ready_at = np.zeros(nd)
+    finish = np.zeros(nd)
+    free = [0.0] * slots
+    cands = [t for t in range(nd) if left[t] == 0]
+    order = []
+    while cands:
+        now = free[0]
+        t = min(cands, key=lambda x: (max(ready_at[x], now), -behind[x], x))
+        cands.remove(t)
+        if len(order) >= ring:
+            ready_at[t] = max(ready_at[t], finish[order[-ring]])
+        end = 0.0
+        for _ in range(parts):
+            e = max(heapq.heappop(free), ready_at[t]) + 1.0
+            end = max(end, e)
+            heapq.heappush(free, e)
+        done = end
+        for _ in range(tail):
+            e = max(heapq.heappop(free), end) + tail_cost
+            done = max(done, e)
+            heapq.heappush(free, e)
+        finish[t] = done
+        order.append(t)
+        for x in succs[t]:
+            ready_at[x] = max(ready_at[x], done)
+            left[x] -= 1
+            if left[x] == 0:
+                cands.append(x)
+    return np.asarray(order, np.int64)
 
 
 def sweep_deps(tp: np.ndarray, run_len: np.ndarray, device) -> SweepDeps:

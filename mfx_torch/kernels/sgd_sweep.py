@@ -16,11 +16,11 @@ They replace the two bodies of ``mfx/kernels/sgd_pallas.py``'s sweep call:
 One call runs one item-sweep: the tiles of ``tl``, each a snapshot
 minibatch (gather, residuals, exact segment-summed scatter), on plain
 ``(rows, rank)`` f32 tables updated in place. The result is that of
-walking the tiles in plan order. :func:`sgd_sweep` (and
-``kernels.bpr_sweep``), given the plan's dependency table
-(``plan_device.SweepDeps``), walks them on as many SMs as the table
-allows and gives the same bits; the two tile-bias kernels walk them on
-one.
+walking the tiles in plan order. :func:`sgd_sweep`,
+:func:`sgd_sweep_tile` (and ``kernels.bpr_sweep``), given the plan's
+dependency table (``plan_device.SweepDeps``), walk them on as many SMs as
+the table allows and give the same bits; :func:`sgd_sweep_step_u` walks
+them on one.
 
 On CUDA tensors a wrapper launches its kernel (or raises); on CPU tensors
 it runs its plain version. Nothing falls back.
@@ -36,7 +36,7 @@ from mfx_torch.kernels.packing import row_add
 __all__ = ["sgd_sweep", "sgd_sweep_plain", "sgd_sweep_tile",
            "sgd_sweep_tile_plain", "sgd_sweep_step_u",
            "sgd_sweep_step_u_plain", "check_sweep_args",
-           "check_kernel_limits", "wavefront_launch"]
+           "check_kernel_limits", "check_deps", "wavefront_launch"]
 
 
 def check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg, bu=None, bi=None):
@@ -90,7 +90,25 @@ def check_kernel_limits(who, P, tl, su, si, ranks=(64,)):
         )
 
 
-def wavefront_launch(who, lib, deps, nt, T, dev, blocks):
+def check_deps(who, deps, nt, dev):
+    """A dependency table (``plan_device.SweepDeps``) for a stream of
+    ``nt`` tiles (strata, for ``dense_phase``) on ``dev``: contiguous
+    int32 ``runs`` (R, 2) and ``wait`` (nt, 3); raises ValueError."""
+    runs, wait = deps.runs, deps.wait
+    for name, x, shape in (("runs", runs, (runs.shape[0], 2)),
+                           ("wait", wait, (nt, 3))):
+        if (x.device != dev or x.dtype != torch.int32
+                or tuple(x.shape) != shape or not x.is_contiguous()):
+            raise ValueError(
+                f"{who}: deps.{name} must be a contiguous int32 "
+                f"{shape} tensor on {dev}, got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device}")
+    if deps.n_tiles != nt:
+        raise ValueError(f"{who}: deps order {deps.n_tiles} tiles, the "
+                         f"stream holds {nt}")
+
+
+def wavefront_launch(who, lib, deps, nt, T, dev, blocks, rank=None):
     """What a wavefront sweep kernel takes beside the tile stream:
     ``(runs, wait, state, sums, grid)``. ``runs`` / ``wait`` are the
     dependency table's (with ``deps=None`` one run of all ``nt`` tiles and
@@ -99,25 +117,17 @@ def wavefront_launch(who, lib, deps, nt, T, dev, blocks):
     tiles finished of each run), ``sums`` the per-tile SSE / loss that
     the kernel adds up in tile order at its end; ``grid`` the thread
     blocks to launch: ``blocks``, or with ``blocks=None`` as many as the
-    card holds at once, and never more than there are runs."""
+    card holds at once (``mfx_<who>_max_blocks(T[, rank])``), and never
+    more than there are runs."""
     if deps is None or nt == 0:
         runs = torch.tensor([[0, nt]], dtype=torch.int32, device=dev)
         wait = None
     else:
+        check_deps(who, deps, nt, dev)
         runs, wait = deps.runs, deps.wait
-        for name, x, shape in (("runs", runs, (runs.shape[0], 2)),
-                               ("wait", wait, (nt, 3))):
-            if (x.device != dev or x.dtype != torch.int32
-                    or tuple(x.shape) != shape or not x.is_contiguous()):
-                raise ValueError(
-                    f"{who}: deps.{name} must be a contiguous int32 "
-                    f"{shape} tensor on {dev}, got {x.dtype} "
-                    f"{tuple(x.shape)} on {x.device}")
-        if deps.n_tiles != nt:
-            raise ValueError(f"{who}: deps order {deps.n_tiles} tiles, the "
-                             f"stream holds {nt}")
     if blocks is None:
-        blocks = getattr(lib, f"mfx_{who}_max_blocks")(T)
+        sizing = (T,) if rank is None else (T, rank)
+        blocks = getattr(lib, f"mfx_{who}_max_blocks")(*sizing)
         if blocks < 1:
             raise RuntimeError(f"{who}: CUDA error {-blocks} sizing the grid")
     elif blocks < 1:
@@ -264,9 +274,12 @@ def sgd_sweep_step_u_plain(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si,
 
 
 def _tile_bias_sweep(wrapper, plain, symbol, P, Q, bu, bi, sa, tc, tl, lr,
-                     reg, mu, su, si, tpg, use_bias, scratch):
+                     reg, mu, su, si, tpg, use_bias, scratch, deps=None,
+                     blocks=None):
     """The two tile-bias wrappers' common body. ``scratch`` says whether
-    the kernel takes the zeroed pool of a user block's pooled deltas."""
+    the kernel takes the zeroed pool of a user block's pooled deltas (the
+    one-block ``sgd_sweep_step_u``); without it the kernel is a wavefront
+    sweep and takes ``deps`` and ``blocks`` as :func:`sgd_sweep` does."""
     who = wrapper.__name__
     check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg, bu, bi)
     if P.device.type == "cpu":
@@ -277,26 +290,34 @@ def _tile_bias_sweep(wrapper, plain, symbol, P, Q, bu, bi, sa, tc, tl, lr,
     check_kernel_limits(who, P, tl, su, si, ranks=(32, 64))
     if scratch and not 1 <= tpg <= 8:
         raise NotImplementedError(f"{who} kernel takes tpg 1..8, got {tpg}")
-    rank = P.shape[1]
+    nt, T, rank = tl.shape[0], tl.shape[2], P.shape[1]
     lib = _build.load_library()
     sse = torch.empty(1, dtype=torch.float32, device=P.device)
-    # su rows of rank pooled row deltas, then su pooled bias deltas
-    pool = [torch.zeros(su * (rank + 1), dtype=torch.float32,
-                        device=P.device)] if scratch else []
+    if scratch:
+        # su rows of rank pooled row deltas, then su pooled bias deltas
+        pool = torch.zeros(su * (rank + 1), dtype=torch.float32,
+                           device=P.device)
+        extra, tail, sizes = [pool.data_ptr()], [], [nt]
+    else:
+        runs, wait, state, sums, grid = wavefront_launch(
+            who, lib, deps, nt, T, P.device, blocks, rank=rank)
+        extra = []
+        tail = [runs.data_ptr(), None if wait is None else wait.data_ptr(),
+                state.data_ptr(), sums.data_ptr()]
+        sizes = [nt, runs.shape[0], grid]
     stream = torch.cuda.current_stream(P.device).cuda_stream
     _build.check(getattr(lib, symbol)(
-        P.data_ptr(), Q.data_ptr(), bu.data_ptr(), bi.data_ptr(),
-        *(x.data_ptr() for x in pool),
-        sa.data_ptr(), tc.data_ptr(), tl.data_ptr(), sse.data_ptr(),
-        tl.shape[0], tpg, tl.shape[2], su, si, rank, int(bool(use_bias)),
-        float(lr), float(reg), float(mu), stream,
+        P.data_ptr(), Q.data_ptr(), bu.data_ptr(), bi.data_ptr(), *extra,
+        sa.data_ptr(), tc.data_ptr(), tl.data_ptr(),
+        *tail, sse.data_ptr(), *sizes, tpg, T, su, si, rank,
+        int(bool(use_bias)), float(lr), float(reg), float(mu), stream,
     ), who)
     wrapper.launches += 1
     return sse[0]
 
 
 def sgd_sweep_tile(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si, tpg,
-                   use_bias=True):
+                   use_bias=True, deps=None, blocks=None):
     """One item-sweep with per-tile biases (``bias_mode='tile'``) or, with
     ``use_bias=False``, none. ``P`` (A·su, rank) and ``Q`` (nwin·si, rank)
     are the padded canonical tables (``Q`` the sweep's item segment),
@@ -306,20 +327,27 @@ def sgd_sweep_tile(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si, tpg,
     bi); row deltas lr (e q - reg p), lr (e p - reg q) on all lanes and
     bias deltas lr (e - reg b), summed exactly over duplicate rows. Updates
     the tables (and the biases) in place and returns the sweep's SSE over
-    real slots as a 0-d f32 tensor."""
+    real slots as a 0-d f32 tensor. ``deps`` and ``blocks`` as in
+    :func:`sgd_sweep`: the same bits on any grid."""
     return _tile_bias_sweep(sgd_sweep_tile, sgd_sweep_tile_plain,
                             "mfx_sgd_sweep_tile", P, Q, bu, bi, sa, tc, tl,
-                            lr, reg, mu, su, si, tpg, use_bias, scratch=False)
+                            lr, reg, mu, su, si, tpg, use_bias, scratch=False,
+                            deps=deps, blocks=blocks)
 
 
 def sgd_sweep_step_u(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si, tpg,
-                     use_bias=True):
+                     use_bias=True, deps=None):
     """One item-sweep with the user side batched per group of ``tpg`` tiles
     (``sgd.step_user_batch``); arguments and result as
     :func:`sgd_sweep_tile`. Here ``tpg`` is part of the math: a group's
     tiles read P and bu as the group found them, update Q and bi tile by
     tile, and the user rows' and user biases' deltas of all tpg·T slots
-    are summed and applied once at the group's end."""
+    are summed and applied once at the group's end. Its kernel walks the
+    sweep on one block in plan order and takes no dependency table."""
+    if deps is not None:
+        raise NotImplementedError(
+            "sgd_sweep_step_u walks its sweep on one block: it takes no "
+            "dependency table (ROADMAP Queue 2 item 1)")
     return _tile_bias_sweep(sgd_sweep_step_u, sgd_sweep_step_u_plain,
                             "mfx_sgd_sweep_step_u", P, Q, bu, bi, sa, tc, tl,
                             lr, reg, mu, su, si, tpg, use_bias, scratch=True)

@@ -29,7 +29,7 @@ import torch
 from mfx_torch.config import SGDConfig
 from mfx_torch.data.coo import RatingsCOO
 from mfx_torch.kernels import plan_device as pdv
-from mfx_torch.kernels.dense_phase import dense_phase
+from mfx_torch.kernels.dense_phase import dense_phase, plan_launch
 from mfx_torch.kernels.packing import (from_lane_model, lane_tables,
                                        plain_tables)
 from mfx_torch.kernels.sgd_sweep import (sgd_sweep, sgd_sweep_step_u,
@@ -130,8 +130,9 @@ def train_epochs_blocked(
     a fresh canonical copy of the tables after the epoch, and
     ``train_rmse`` a 0-d tensor on ``device`` (reading it waits for the
     epoch). ``device`` defaults to the model's. ``timings``, if given, is
-    filled with ``prep_s`` and the cumulative ``plan_s`` (both waiting for
-    the device), ``dense_info`` and ``sweep_tiles``: per sparse sweep its
+    filled with ``prep_s`` (the dense carving, the dense kernel's launch
+    orders and the plan skeleton) and the cumulative ``plan_s`` (both
+    waiting for the device), ``dense_info`` and ``sweep_tiles``: per sparse sweep its
     tiles and the tiles on its longest dependency chain (their ratio is
     the most that walking the sweep on many SMs can give).
     ``plan_rand(epoch, n)``, if given, supplies the epoch's
@@ -186,9 +187,11 @@ def train_epochs_blocked(
         sweep_fn = sgd_sweep_step_u if cfg.step_user_batch else sgd_sweep_tile
 
         def run_sweep(sw, seg, lr):
+            # the per-tile kernel walks the sweep on many SMs; step_u on one
+            deps = {} if cfg.step_user_batch else {"deps": sw.deps}
             return sweep_fn(P, Q[seg], bu, bi[seg], sw.sa, sw.tc,
                             tl[sw.t0:sw.t1], lr, cfg.reg, mu, su=su, si=si,
-                            tpg=TPG, use_bias=use_bias)
+                            tpg=TPG, use_bias=use_bias, **deps)
 
         def canonical():
             return MFModel(P[:U].clone(), Q[:I].clone(), bu[:U].clone(),
@@ -202,6 +205,8 @@ def train_epochs_blocked(
             u, i, r, U, I, su, si, chi_min=cfg.dense_chi,
             nwd=cfg.dense_nwd or dense_group_windows(rank, si), rfmt=rfmt,
         )
+        for grp in dense_groups:
+            plan_launch(grp, su, si)
     skel = pdv.build_plan_skeleton(
         u, i, U, I, su, si, T, TPG, sweep_geometry(
             I, rank, si, step_u=(su, T) if cfg.step_user_batch else None)
@@ -230,7 +235,7 @@ def train_epochs_blocked(
         for (win0, nw), grp in zip(dense_meta, dense_groups):
             sse = sse + dense_phase(
                 P, Q[win0 * si:(win0 + nw) * si], grp, lr, cfg.reg, mu,
-                su=su, si=si,
+                su=su, si=si, deps=grp["deps"],
             )
         for sw in sweeps:
             seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)

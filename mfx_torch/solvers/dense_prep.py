@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from mfx_torch.kernels.dense_phase import R4_SCALE, R_SCALE
+from mfx_torch.kernels.plan_device import sweep_deps
 
 __all__ = ["auto_dense_threshold", "prepare_dense_full"]
 
@@ -105,8 +106,13 @@ def prepare_dense_full(
     Returns ``(dense_meta, dense_groups, (u_sp, i_sp, r_sp), info)``:
     ``dense_meta`` a tuple of (win0, nwin) per non-empty group,
     ``dense_groups`` the matching dicts {``sa``, ``sc`` (window-local),
-    ``R``, ``du_s``, ``di_s``}, and the sparse remainder in its original
-    order. ``du_s``/``di_s`` count raw ratings, duplicates included."""
+    ``R``, ``du_s``, ``di_s``, ``deps``}, and the sparse remainder in its
+    original order. ``du_s``/``di_s`` count raw ratings, duplicates
+    included. ``deps`` is the group's dependency table
+    (``plan_device.sweep_deps`` with one "tile" a stratum): two strata
+    conflict only if they share a user block or a window, and the group's
+    strata lie in (user block, window) order, the runs' layout, so the
+    table orders what ``kernels.dense_phase`` may run at once."""
     if su != si:
         raise ValueError("dense path requires su == si")
     if rfmt not in ("int4", "int8"):
@@ -152,13 +158,17 @@ def prepare_dense_full(
         if hi == lo:
             continue
         win0 = g * nwd
-        dense_meta.append((win0, min(nwd, C - win0)))
+        nw = min(nwd, C - win0)
+        tp = np.zeros((A, nw), np.int64)
+        tp[a_s[lo:hi], c_s[lo:hi] - win0] = 1
+        dense_meta.append((win0, nw))
         dense_groups.append({
             "sa": sa_all[lo:hi],
             "sc": sc_all[lo:hi],
             "R": R[lo:hi],
             "du_s": du_s[lo:hi].to(torch.float32),
             "di_s": di_s[lo:hi].to(torch.float32),
+            "deps": sweep_deps(tp, tp.sum(1), dev),
         })
     n_dense = int(dpos.shape[0])
     info = {

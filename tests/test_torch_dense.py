@@ -126,15 +126,18 @@ def test_auto_dense_threshold_matches_reference(counts, block):
     assert outcomes == {True, False}
 
 
-def test_plain_dense_phase_matches_pallas_interpret():
-    tr = _train()
-    (meta_j, groups_j, _, _), (meta, groups, _, _) = _preps(tr)
+def _model(tr):
     rng = np.random.default_rng(5)
     m = init_model(2, U, I, RANK, global_mean=tr.global_mean)
-    model = JMFModel(P=m.P, Q=m.Q,
-                     bu=jnp.asarray(rng.normal(0, 0.1, U), jnp.float32),
-                     bi=jnp.asarray(rng.normal(0, 0.1, I), jnp.float32),
-                     mu=m.mu)
+    return JMFModel(P=m.P, Q=m.Q,
+                    bu=jnp.asarray(rng.normal(0, 0.1, U), jnp.float32),
+                    bi=jnp.asarray(rng.normal(0, 0.1, I), jnp.float32),
+                    mu=m.mu)
+
+
+def _pallas_phase(model, meta_j, groups_j):
+    """The reference's dense phase (Pallas in interpret mode), strata in
+    plan order: (canonical model, SSE)."""
     mu = float(model.mu)
     Pm, Qm = pk.pack_state(pk.to_lane_model(model), SU, SI)
     sse_j = 0.0
@@ -146,16 +149,20 @@ def test_plain_dense_phase_matches_pallas_interpret():
         )
         Qm = pk.q_segment_restore(Qm, Qs, win0, RANK, SI)
         sse_j += float(s)
-    ref = pk.from_lane_model(pk.unpack_state(Pm, Qm, model.mu, U, I, RANK,
-                                             SU, SI))
+    return pk.from_lane_model(pk.unpack_state(Pm, Qm, model.mu, U, I, RANK,
+                                              SU, SI)), sse_j
 
+
+def _assert_port_matches(model, ref, sse_j, meta, groups):
+    """The port's dense_phase (the plain version on the CPU) over
+    ``groups`` from ``model``, against the reference's result."""
     tm = model_from_numpy({k: np.asarray(getattr(model, k))
                            for k in ("P", "Q", "bu", "bi", "mu")})
     P, Q = pk_t.lane_tables(tm, SU, SI, "cpu")
     sse_t = 0.0
     for (win0, nw), g in zip(meta, groups):
         sse_t += float(dense_phase(P, Q[win0 * SI:(win0 + nw) * SI], g, LR,
-                                   REG, mu, su=SU, si=SI))
+                                   REG, float(model.mu), su=SU, si=SI))
     P_l, Q_l = P[:U], Q[:I]
     np.testing.assert_array_equal(P_l[:, RANK - 2].numpy(), 1.0)
     np.testing.assert_array_equal(Q_l[:, RANK - 1].numpy(), 1.0)
@@ -168,3 +175,29 @@ def test_plain_dense_phase_matches_pallas_interpret():
         np.testing.assert_allclose(v.numpy(), want, rtol=0, atol=1e-5,
                                    err_msg=k)
     assert abs(sse_t - sse_j) <= 1e-5 * sse_j
+
+
+def test_plain_dense_phase_matches_pallas_interpret():
+    tr = _train()
+    (meta_j, groups_j, _, _), (meta, groups, _, _) = _preps(tr)
+    model = _model(tr)
+    ref, sse_j = _pallas_phase(model, meta_j, groups_j)
+    _assert_port_matches(model, ref, sse_j, meta, groups)
+
+
+def test_an_order_the_table_allows_matches_pallas_interpret():
+    """The port's strata walked in a seeded random order that the group's
+    dependency table allows (as the kernel may run them) against the
+    reference's plan-order walk."""
+    from mfx_torch.kernels import plan_device as pdv
+
+    tr = _train()
+    (meta_j, groups_j, _, _), (meta, groups, _, _) = _preps(tr, chi=0.005)
+    (grp,) = groups
+    order = pdv.wavefront_order(grp["deps"], 0)
+    assert len(order) == 8 and (order != np.arange(8)).any()
+    o = torch.as_tensor(order)
+    moved = {k: v[o].contiguous() for k, v in grp.items() if k != "deps"}
+    model = _model(tr)
+    ref, sse_j = _pallas_phase(model, meta_j, groups_j)
+    _assert_port_matches(model, ref, sse_j, meta, [moved])

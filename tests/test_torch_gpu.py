@@ -127,7 +127,7 @@ def test_dense_phase_kernel_matches_plain(cuda):
         seg = slice(win0 * SI, (win0 + nw) * SI)
         before = dense_phase.launches
         _check(lambda Pt, Qt: dense_phase(Pt, Qt[seg], grp, LR, REG, model.mu,
-                                          su=SU, si=SI),
+                                          su=SU, si=SI, deps=grp["deps"]),
                lambda Pt, Qt: dense_phase_plain(Pt, Qt[seg], grp, LR, REG,
                                                 model.mu, su=SU, si=SI),
                P, Q)
@@ -513,28 +513,53 @@ def test_bpr_ring_through_the_kernel_is_repeatable(cuda):
                                atol=1e-4)
 
 
-# ---- the wavefront: sgd_sweep and bpr_sweep on many SMs -----------------
+# ---- the wavefront: sgd_sweep, bpr_sweep, sgd_sweep_tile and dense_phase
+# on many SMs -------------------------------------------------------------
 
 
 def _wavefront_case(kernel, dev):
     """A whole small sweep (blocks of 64, so a few dozen runs and several
-    windows): ``(run(P, Q, blocks, table=True), plain(P, Q), P, Q, deps)``;
+    windows) or dense group (blocks of 128: 12 user blocks, 11 windows):
+    ``(run(tables, blocks, table=True), plain(tables), tables, deps)``;
     ``table=False`` leaves the dependency table out."""
-    if kernel == "sgd":
+    if kernel in ("sgd", "tile"):
         train, _, model, u, i, r = _state(dev)
         su = si = 64
         skel = pdv.build_plan_skeleton(u, i, U, I, su, si, T, TPG, 8)
         tl = pdv.epoch_tiles_device(skel, u, i, r, 0, 0)
-        P, Q = lane_tables(model, su, si, dev)
         sw = skel.sweeps[0]
         seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
         args = (sw.sa, sw.tc, tl[sw.t0:sw.t1], LR, REG, model.mu)
         kw = dict(su=su, si=si, tpg=TPG)
-        return (lambda Pt, Qt, blocks, table=True: sgd_sweep(
-                    Pt, Qt[seg], *args, **kw, blocks=blocks,
-                    deps=sw.deps if table else None),
-                lambda Pt, Qt: sgd_sweep_plain(Pt, Qt[seg], *args, **kw),
-                P, Q, sw.deps)
+        if kernel == "sgd":
+            return (lambda tabs, blocks, table=True: sgd_sweep(
+                        tabs[0], tabs[1][seg], *args, **kw, blocks=blocks,
+                        deps=sw.deps if table else None),
+                    lambda tabs: sgd_sweep_plain(tabs[0], tabs[1][seg], *args,
+                                                 **kw),
+                    lane_tables(model, su, si, dev), sw.deps)
+        model.bu.copy_(torch.randn(U, device=dev) * 0.1)
+        model.bi.copy_(torch.randn(I, device=dev) * 0.1)
+        return (lambda tabs, blocks, table=True: sgd_sweep_tile(
+                    tabs[0], tabs[1][seg], tabs[2], tabs[3][seg], *args,
+                    **kw, blocks=blocks, deps=sw.deps if table else None),
+                lambda tabs: sgd_sweep_tile_plain(
+                    tabs[0], tabs[1][seg], tabs[2], tabs[3][seg], *args,
+                    **kw),
+                plain_tables(model, su, si, dev), sw.deps)
+    if kernel == "dense":
+        train, _, model, u, i, r = _state(dev)
+        su = si = 128
+        (meta,), (grp,), _, _ = prepare_dense_full(u, i, r, U, I, su, si,
+                                                   chi_min=0.01, nwd=11)
+        seg = slice(meta[0] * si, (meta[0] + meta[1]) * si)
+        kw = dict(su=su, si=si)
+        return (lambda tabs, blocks, table=True: dense_phase(
+                    tabs[0], tabs[1][seg], grp, LR, REG, model.mu, **kw,
+                    blocks=blocks, deps=grp["deps"] if table else None),
+                lambda tabs: dense_phase_plain(tabs[0], tabs[1][seg], grp,
+                                               LR, REG, model.mu, **kw),
+                lane_tables(model, su, si, dev), grp["deps"])
     from mfx_torch.kernels.bpr_sweep import bpr_sweep, bpr_sweep_plain
     from mfx_torch.parallel import bpr_sharded as ring
 
@@ -548,53 +573,57 @@ def _wavefront_case(kernel, dev):
     seg = slice(win0 * 64, (win0 + nw) * 64)
     args = (sa, tc, tls[0][0, 0], cfg.lr, cfg.reg)
     kw = dict(su=64, si=64, tpg=TPG)
-    return (lambda Pt, Qt, blocks, table=True: bpr_sweep(
-                Pt, Qt[seg], *args, **kw, blocks=blocks,
+    return (lambda tabs, blocks, table=True: bpr_sweep(
+                tabs[0], tabs[1][seg], *args, **kw, blocks=blocks,
                 deps=deps if table else None),
-            lambda Pt, Qt: bpr_sweep_plain(Pt, Qt[seg], *args, **kw),
-            st.P, st.Q, deps)
+            lambda tabs: bpr_sweep_plain(tabs[0], tabs[1][seg], *args, **kw),
+            (st.P, st.Q), deps)
 
 
-@pytest.mark.parametrize("kernel", ["sgd", "bpr"])
+WAVEFRONT_KERNELS = ["sgd", "bpr", "tile", "dense"]
+
+
+@pytest.mark.parametrize("kernel", WAVEFRONT_KERNELS)
 def test_wavefront_kernels_give_the_one_block_bits(cuda, kernel):
-    """A whole sweep at 1, 2 and 7 blocks and at the card's count: tables
-    and scalar bitwise equal; twenty repeats at the card's count bitwise
-    equal; within 1e-4 of the plain version."""
-    run, plain, P, Q, deps = _wavefront_case(kernel, cuda)
+    """A whole sweep (dense group) at 1, 2 and 7 blocks and at the card's
+    count: tables and scalar bitwise equal; twenty repeats at the card's
+    count bitwise equal; within 1e-4 of the plain version."""
+    run, plain, state, deps = _wavefront_case(kernel, cuda)
     assert deps.runs.shape[0] >= 8 and deps.critical < deps.n_tiles
     outs = []
     for blocks in (1, 2, 7, None) + (None,) * 19:
-        Pk, Qk = P.clone(), Q.clone()
-        s = run(Pk, Qk, blocks)
+        tabs = [x.clone() for x in state]
+        s = run(tabs, blocks)
         torch.cuda.synchronize()
-        outs.append((float(s), Pk, Qk))
-    s1, P1, Q1 = outs[0]
-    for s, Pk, Qk in outs[1:]:
-        assert s == s1 and torch.equal(Pk, P1) and torch.equal(Qk, Q1)
-    Pp, Qp = P.clone(), Q.clone()
-    sp = float(plain(Pp, Qp))
-    assert float((P1 - Pp).abs().max()) <= 1e-4
-    assert float((Q1 - Qp).abs().max()) <= 1e-4
+        outs.append((float(s), tabs))
+    s1, t1 = outs[0]
+    for s, tabs in outs[1:]:
+        assert s == s1 and all(torch.equal(a, b) for a, b in zip(tabs, t1))
+    tabs = [x.clone() for x in state]
+    sp = float(plain(tabs))
+    for a, b in zip(t1, tabs):
+        assert float((a - b).abs().max()) <= 1e-4
     assert abs(s1 - sp) <= 1e-4 * max(1.0, sp)
-    assert not torch.equal(P1, P) and not torch.equal(Q1, Q)
+    assert not torch.equal(t1[0], state[0]) and not torch.equal(t1[1],
+                                                                 state[1])
 
 
-@pytest.mark.parametrize("kernel", ["sgd", "bpr"])
+@pytest.mark.parametrize("kernel", WAVEFRONT_KERNELS)
 def test_wavefront_kernels_without_a_table_walk_in_plan_order(cuda, kernel):
-    """No dependency table: one block walks the stream in plan order, to
-    the same bits; a table for another stream and a grid of no blocks are
-    refused."""
+    """No dependency table: the stream in plan order (the sweeps on one
+    block, the dense strata one after another), to the same bits; a table
+    for another stream and a grid of no blocks are refused."""
     from mfx_torch.kernels.sgd_sweep import wavefront_launch
 
-    run, _, P, Q, deps = _wavefront_case(kernel, cuda)
+    run, _, state, deps = _wavefront_case(kernel, cuda)
     outs = []
     for table in (True, False):
-        Pk, Qk = P.clone(), Q.clone()
-        outs.append((float(run(Pk, Qk, None, table)), Pk, Qk))
-    (sa_, Pa, Qa), (sb_, Pb, Qb) = outs
-    assert sa_ == sb_ and torch.equal(Pa, Pb) and torch.equal(Qa, Qb)
+        tabs = [x.clone() for x in state]
+        outs.append((float(run(tabs, None, table)), tabs))
+    (sa_, ta), (sb_, tb) = outs
+    assert sa_ == sb_ and all(torch.equal(a, b) for a, b in zip(ta, tb))
     wrong = dataclasses.replace(deps, n_tiles=deps.n_tiles + TPG)
     with pytest.raises(ValueError, match="deps"):
         wavefront_launch("sgd_sweep", None, wrong, deps.n_tiles, T, cuda, 1)
     with pytest.raises(ValueError, match="blocks"):
-        run(P.clone(), Q.clone(), 0)
+        run([x.clone() for x in state], 0)

@@ -15,7 +15,7 @@ from mfx_torch.data import synthetic
 from mfx_torch.kernels import plan_device as pdv
 from mfx_torch.kernels import plan_ring_device as prd
 from mfx_torch.kernels.bpr_sweep import bpr_sweep_plain
-from mfx_torch.kernels.sgd_sweep import sgd_sweep_plain
+from mfx_torch.kernels.sgd_sweep import sgd_sweep_plain, sgd_sweep_tile_plain
 
 # The plain versions are loops of many small tensor ops. When several test
 # processes share a machine, each one's intra-op thread pool fights the
@@ -64,7 +64,7 @@ def _bpr_segments(S=1):
 
 
 def _cells(kind):
-    return {"sgd": _sgd_sweeps, "bpr": _bpr_segments,
+    return {"sgd": _sgd_sweeps, "tile": _sgd_sweeps, "bpr": _bpr_segments,
             "bpr_two_shards": lambda: _bpr_segments(2)}[kind]()
 
 
@@ -128,26 +128,37 @@ def test_table_orders_every_conflicting_pair(kind):
 
 def _replay(kind, sa, tc, tl, order, state):
     """The plain version over the tiles in ``order`` (one user block a
-    tile, so tpg = 1), from ``state``; returns the tables."""
-    P, Q = (x.clone() for x in state)
+    tile, so tpg = 1), from ``state``; returns the tables (with the bias
+    vectors for the tile-bias kind)."""
+    tabs = [x.clone() for x in state]
     o = torch.as_tensor(order)
     sa_t = sa.repeat_interleave(TPG)[o].contiguous()
-    args = (P, Q, sa_t, tc[o].contiguous(), tl[o].contiguous(), LR, REG)
+    stream = (sa_t, tc[o].contiguous(), tl[o].contiguous(), LR, REG)
     if kind == "sgd":
-        sgd_sweep_plain(*args, MU, su=SU, si=SI, tpg=1)
+        sgd_sweep_plain(*tabs[:2], *stream, MU, su=SU, si=SI, tpg=1)
+    elif kind == "tile":
+        sgd_sweep_tile_plain(*tabs, *stream, MU, su=SU, si=SI, tpg=1)
     else:
-        bpr_sweep_plain(*args, su=SU, si=SI, tpg=1)
-    return P, Q
+        bpr_sweep_plain(*tabs[:2], *stream, su=SU, si=SI, tpg=1)
+    return tabs
 
 
 def _tables(seed=0):
+    """P and Q, then the bias vectors bu and bi of the same rows."""
     g = torch.Generator().manual_seed(seed)
-    return (torch.randn(-(-U // SU) * SU, RANK, generator=g) * 0.3,
-            torch.randn(NWIN * SI, RANK, generator=g) * 0.3)
+    nu = -(-U // SU) * SU
+    return (torch.randn(nu, RANK, generator=g) * 0.3,
+            torch.randn(NWIN * SI, RANK, generator=g) * 0.3,
+            torch.randn(nu, generator=g) * 0.1,
+            torch.randn(NWIN * SI, generator=g) * 0.1)
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
-@pytest.mark.parametrize("kind", ["sgd", "bpr"])
+@pytest.mark.parametrize("kind", ["sgd", "bpr", "tile"])
 def test_any_allowed_order_gives_the_plan_order_tables(kind, seed):
     state = _tables()
     moved = 0
@@ -158,12 +169,15 @@ def test_any_allowed_order_gives_the_plan_order_tables(kind, seed):
         assert sorted(order.tolist()) == list(range(nt))
         moved += int((order != np.arange(nt)).sum())
         got = _replay(kind, sa, tc, tl, order, state)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert _same(got, want)
         assert not torch.equal(want[0], state[0])
+        if kind == "tile":  # the biases moved too
+            assert not torch.equal(want[2], state[2])
+            assert not torch.equal(want[3], state[3])
     assert moved > 0  # the orders tried were not the plan's
 
 
-@pytest.mark.parametrize("kind", ["sgd", "bpr"])
+@pytest.mark.parametrize("kind", ["sgd", "bpr", "tile"])
 def test_dropping_one_wait_changes_some_allowed_order(kind):
     """Two user blocks with tiles in one window that share item rows: with
     the second run's wait removed some allowed order runs it first, and
@@ -171,7 +185,7 @@ def test_dropping_one_wait_changes_some_allowed_order(kind):
     g = torch.Generator().manual_seed(5)
     nt = 2 * TPG
     tl = torch.randint(0, 8, (nt, 3, T), generator=g, dtype=torch.int32)
-    if kind == "sgd":
+    if kind != "bpr":
         tl[:, 2] = (torch.rand(nt, T, generator=g) * 4.5 + 0.5).view(
             torch.int32)
     sa = torch.tensor([0, 1], dtype=torch.int32)
@@ -185,7 +199,7 @@ def test_dropping_one_wait_changes_some_allowed_order(kind):
     for seed in range(8):  # the full table: every order agrees
         got = _replay(kind, sa, tc, tl, pdv.wavefront_order(deps, seed),
                       state)
-        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+        assert _same(got, want)
     wait = deps.wait.clone()
     wait[TPG, :2] = torch.tensor([-1, 0], dtype=torch.int32)
     loose = dataclasses.replace(deps, wait=wait)
@@ -276,8 +290,8 @@ def test_launch_arguments_are_checked():
 
 def test_measure_tool_plans_on_the_cpu_and_times_only_on_a_card(capsys):
     """``python -m mfx_torch.measure_wavefront``: ``plan`` prints a sweep's
-    tiles and critical path from the skeleton alone; ``blocks`` needs a
-    CUDA device."""
+    tiles and critical path from the skeleton alone; ``blocks`` and
+    ``orders`` need a CUDA device."""
     import json
 
     from mfx_torch.measure_wavefront import main
@@ -293,3 +307,70 @@ def test_measure_tool_plans_on_the_cpu_and_times_only_on_a_card(capsys):
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         main(["blocks", "--cell", "bpr", "--cut", "5000"])
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        main(["orders", "--cut", "5000"])
+
+
+def test_tile_bias_wrappers_take_the_scheduler_arguments():
+    """``sgd_sweep_tile`` sizes its grid from the rank's kernel
+    (``mfx_sgd_sweep_tile_max_blocks(T, rank)``) and, on the CPU, gives
+    the plain version's bits whatever the table and grid;
+    ``sgd_sweep_step_u`` walks on one block and refuses a table."""
+    from mfx_torch.kernels.sgd_sweep import (sgd_sweep_step_u,
+                                             sgd_sweep_tile,
+                                             wavefront_launch)
+
+    class Lib:
+        asked = []
+
+        def mfx_sgd_sweep_tile_max_blocks(self, *args):
+            self.asked.append(args)
+            return 264
+
+    sa, tc, tl, deps, _ = _sgd_sweeps()[0]
+    nt = deps.n_tiles
+    grid = wavefront_launch("sgd_sweep_tile", Lib(), deps, nt, T,
+                            torch.device("cpu"), None, rank=32)[4]
+    assert Lib.asked == [(T, 32)] and grid == deps.runs.shape[0]
+    state = _tables()
+    outs = []
+    for kw in ({}, {"deps": deps, "blocks": 3}):
+        tabs = [x.clone() for x in state]
+        sse = sgd_sweep_tile(tabs[0], tabs[1], tabs[2], tabs[3], sa, tc, tl,
+                             LR, REG, MU, su=SU, si=SI, tpg=TPG, **kw)
+        outs.append((float(sse), tabs))
+    assert outs[0][0] == outs[1][0] and _same(outs[0][1], outs[1][1])
+    with pytest.raises(NotImplementedError, match="one block"):
+        sgd_sweep_step_u(*state, sa, tc, tl, LR, REG, MU, su=SU, si=SI,
+                         tpg=TPG, deps=deps)
+
+
+@pytest.mark.parametrize("cell,cut", [("sgd", 20), ("tile", 4)])
+def test_measure_tool_plans_the_dense_groups_and_the_tile_cell(capsys, cell,
+                                                               cut):
+    """``plan --cell sgd`` prints a line per dense group (strata, user
+    blocks, the most strata of a window, the chain of its table); ``plan
+    --cell tile`` the tile-bias cell's sweeps."""
+    import json
+
+    from mfx_torch.measure_wavefront import main
+
+    assert main(["plan", "--cell", cell, "--cut", str(cut), "--device",
+                 "cpu"]) == 0
+    rows = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    groups = [r for r in rows if "dense_group" in r]
+    carving = [r["dense_carving"] for r in rows if "dense_carving" in r]
+    sweeps = [r for r in rows if "sweep" in r]
+    if cell == "tile":
+        assert not groups and not carving and sweeps
+        assert all(r["sweep"].startswith("tile sweep") for r in sweeps)
+        return
+    assert groups and [r["dense_group"] for r in groups] == list(
+        range(len(groups)))
+    (info,) = carving
+    assert info["num_strata"] == sum(r["strata"] for r in groups)
+    assert 0 < info["dense_frac"] <= 1 and info["sparse_ratings"] >= 0
+    for r in groups:
+        assert r["user_blocks"] <= r["strata"]
+        assert (r["most_strata_in_a_window"] <= r["critical_strata"]
+                <= r["strata"])

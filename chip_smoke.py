@@ -31,7 +31,8 @@ printed as it ends:
 5. tile_topk against its plain version at 1,000,000 items, rank 64,
    B = 256, tile 1024 (seeded random tables): f32 at depth 2 and 8, bf16
    and int8 at depth 2, values within 1e-4, lanes equal except near-ties,
-   two kernel runs bitwise equal, and the time of each;
+   two kernel runs bitwise equal, and the time of each beside the stock
+   path's (matmul_f32, then torch.topk over each tile);
 6. serving path: the phase-4 model through a checkpoint (bitwise round
    trip), the stock, fused and certified-exact fused recommenders with
    the training ratings excluded (exact == stock; the fused contract and
@@ -53,9 +54,9 @@ printed as it ends:
 9. sgd_sweep_tile and sgd_sweep_step_u against their plain versions at the
    ml1m_rank32_biased preset's shapes (su = si = 512, T = 256, rank 32,
    tpg = 4): the first 2,048 tiles of epoch 0 of the ML-1M-shaped
-   synthetic, same checks and times; then sgd_sweep_tile over the whole
-   sweep twice on one block and twice on the card's count (tables,
-   biases and SSE bitwise equal), and sgd_sweep_step_u on its one block;
+   synthetic, same checks and times; then each over the whole sweep
+   twice on one block and twice on the card's count (tables, biases and
+   SSE bitwise equal);
 10. the tile-bias path: train_epochs_blocked with the ml1m_rank32_biased
    preset unchanged, its 30 epochs on the full ML-1M-shaped synthetic
    (seed 101), through sgd_sweep_tile; then again with
@@ -68,9 +69,10 @@ printed as it ends:
 Each phase prints its wall time. The second-to-last line is a JSON object
 describing each kernel (times, launches on the main path, and the bound:
 the least time the card could take for the same bytes and operations; for
-sgd_sweep, bpr_sweep and sgd_sweep_tile also the whole-sweep times on
-one block and on the card's count; for dense_phase those of 256 strata
-and the times of group 0 and of the epoch's dense phase); the last is
+the sweeps also the whole-sweep times on one block and on the card's
+count; for dense_phase those of 256 strata and the times of group 0 and
+of the epoch's dense phase; for tile_topk every variant's times and the
+stock path's, whose f32 depth-2 time is its library_ms); the last is
 {"ok": true, "device": {...}}. Any failure
 exits non-zero with no such line, and so does a machine without a CUDA
 device.
@@ -98,8 +100,6 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 SWEEP_TILES = 2048
 DENSE_STRATA = 64
 DENSE_WHOLE = 256  # strata of group 0 run on 1 block and on the card's count
-SERVE_ITEMS, SERVE_B, SERVE_TILE = 1_000_000, 256, 1024
-TOPK_VARIANTS = (("f32", 2), ("f32", 8), ("bf16", 2), ("int8", 2))
 K = 10
 
 
@@ -261,34 +261,27 @@ def _true_scores(P_aug, Q_aug, sb, rows, items):
 def topk_phase(dev):
     """Phase 5: tile_topk against its plain version at the serving shape;
     returns ((max abs err over the variants, f32 depth-2 ms, its plain
-    ms), the f32 depth-2 bound)."""
+    ms), the f32 depth-2 bound, each variant's record)."""
     import torch
 
     from mfx_torch.kernels.serve_topk import (aug_width, tile_topk,
                                               tile_topk_plain)
-    from mfx_torch.serve.fused import (_augment_catalog,
-                                       _augment_catalog_int8, _augment_rows)
+    from mfx_torch.measure_topk import (PHASE5_VARIANTS, RANK, SERVE_B,
+                                        SERVE_ITEMS, SERVE_TILE,
+                                        serving_tables, stock_topk)
 
-    rank, tile = 64, SERVE_TILE
-    g = torch.Generator(device=dev).manual_seed(5)
-    P = torch.randn(SERVE_B, rank, device=dev, generator=g)
-    Q = torch.randn(SERVE_ITEMS, rank, device=dev, generator=g) / rank ** 0.5
-    bi = torch.randn(SERVE_ITEMS, device=dev, generator=g) * 0.3
-    ipad = -(-SERVE_ITEMS // tile) * tile
+    rank, tile = RANK, SERVE_TILE
     log(f"[kernel] tile_topk: {SERVE_ITEMS} items, rank {rank}, B {SERVE_B}, "
         f"tile {tile}, augmented width {aug_width(rank)}")
-    worst, head = 0.0, None
-    for dtype, depth in TOPK_VARIANTS:
-        if dtype == "int8":
-            Q_aug, sb = _augment_catalog_int8(Q, bi, ipad, tile)
-            P_aug = _augment_rows(P, torch.float32, aug_width(rank))
-        else:
-            dt = torch.bfloat16 if dtype == "bf16" else torch.float32
-            Q_aug, sb = _augment_catalog(Q, bi, ipad, dt), None
-            P_aug = _augment_rows(P, dt, aug_width(rank))
+    worst, head, variants = 0.0, None, []
+    for dtype, depth in PHASE5_VARIANTS:
+        P_aug, Q_aug, sb = serving_tables(dev, SERVE_B, SERVE_ITEMS, dtype)
 
         def run():
             return tile_topk(P_aug, Q_aug, tile=tile, depth=depth, sb=sb)
+
+        def stock():  # the yardstick: two PyTorch calls (three for int8)
+            return stock_topk(P_aug, Q_aug, sb, tile, depth)
 
         outs = [run(), run()]
         torch.cuda.synchronize()
@@ -317,23 +310,31 @@ def topk_phase(dev):
         ms = cuda_ms(run, reps=5)
         plain_ms = cuda_ms(lambda: tile_topk_plain(P_aug, Q_aug, tile=tile,
                                                    depth=depth, sb=sb))
+        stock()  # warm-up
+        stock_ms = cuda_ms(stock, reps=5)
         log(f"[kernel] tile_topk {dtype} depth {depth}: max_abs_err={err:.3e} "
             f"(tol {TOL}) lane swaps {swaps} (near-ties, gap <= "
-            f"{swap_gap:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f}")
+            f"{swap_gap:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"stock_ms={stock_ms:.4f}")
+        variants.append({"dtype": dtype, "depth": depth, "max_abs_err": err,
+                         "ms": ms, "plain_ms": plain_ms,
+                         "stock_ms": stock_ms})
         worst = max(worst, err)
         if head is None:
-            # f32 FMA over the augmented width for every (row, item) pair;
-            # the tables read once, each tile's depth (value, lane) written
+            # f32 FMA over the rank + 1 lanes that carry a value (the
+            # augmented width's zero lanes and the pad items not counted)
+            # for every (row, item) pair; the tables read once, each
+            # tile's depth (value, lane) written
             out_bytes = sum(x.numel() * x.element_size() for x in outs[0])
             head = (ms, plain_ms, bound(
                 P_aug.numel() * P_aug.element_size()
                 + Q_aug.numel() * Q_aug.element_size() + out_bytes,
-                2.0 * P_aug.shape[0] * Q_aug.shape[0] * P_aug.shape[1]))
+                2.0 * SERVE_B * SERVE_ITEMS * (rank + 1)))
             log(f"[kernel] tile_topk f32 depth {depth} bound "
                 f"{head[2][0]:.4f} ms ({head[2][1]})")
         del outs, Q_aug, P_aug, sb
         torch.cuda.empty_cache()
-    return (worst, head[0], head[1]), head[2]
+    return (worst, head[0], head[1]), head[2], variants
 
 
 def _post(port, path, body=None):
@@ -694,10 +695,10 @@ def bpr_phases(dev, results, bounds, sweeps):
 
 def tile_bias_compare(results, bounds, state, seg, sa, tc, tl, lr, reg, mu,
                       su, si, tpg, tag, deps):
-    """sgd_sweep_tile (on the card's count, ordered by ``deps``) and
-    sgd_sweep_step_u (one block) against their plain versions on one tile
-    stream from the plain tables ``state`` = (P, Q, bu, bi); fills
-    ``results`` and ``bounds`` under the kernels' names plus ``tag``."""
+    """sgd_sweep_tile and sgd_sweep_step_u (on the card's count, ordered
+    by ``deps``) against their plain versions on one tile stream from the
+    plain tables ``state`` = (P, Q, bu, bi); fills ``results`` and
+    ``bounds`` under the kernels' names plus ``tag``."""
     from mfx_torch.kernels.sgd_sweep import (sgd_sweep_step_u,
                                              sgd_sweep_step_u_plain,
                                              sgd_sweep_tile,
@@ -707,14 +708,13 @@ def tile_bias_compare(results, bounds, state, seg, sa, tc, tl, lr, reg, mu,
     log(f"[kernel] tile-bias sweeps{tag}: {tl.shape[0]} tiles (T="
         f"{tl.shape[2]}, rank {rank}, su={su}, si={si}, tpg={tpg})")
     kw = dict(su=su, si=si, tpg=tpg)
-    for kernel, plain, table in (
-            (sgd_sweep_tile, sgd_sweep_tile_plain, {"deps": deps}),
-            (sgd_sweep_step_u, sgd_sweep_step_u_plain, {})):
+    for kernel, plain in ((sgd_sweep_tile, sgd_sweep_tile_plain),
+                          (sgd_sweep_step_u, sgd_sweep_step_u_plain)):
         name = kernel.__name__ + tag
         results[name] = compare(
             name,
             lambda P, Q, bu, bi: kernel(P, Q[seg], bu, bi[seg], sa, tc, tl,
-                                        lr, reg, mu, **kw, **table),
+                                        lr, reg, mu, **kw, deps=deps),
             lambda P, Q, bu, bi: plain(P, Q[seg], bu, bi[seg], sa, tc, tl,
                                        lr, reg, mu, **kw),
             state,
@@ -787,22 +787,29 @@ def tile_bias_phases(dev, sweeps):
         {}, {}, state, seg, sw.sa[:nt // tpg].contiguous(),
         sw.tc[:nt].contiguous(), tl[sw.t0:sw.t0 + nt], sgd.lr, sgd.reg, mu,
         su, si, tpg, "[rank32]", sw.deps.prefix(nt))
-    # the whole first sweep, to set beside phase 10's epoch seconds:
-    # sgd_sweep_tile on one block and on the card's count, sgd_sweep_step_u
-    # on its one block
-    sweeps["sgd_sweep_tile"] = whole_sweep(
-        "sgd_sweep_tile",
-        lambda P, Q, bu, bi, blocks: sgd_sweep_tile(
-            P, Q[seg], bu, bi[seg], sw.sa, sw.tc, tl[sw.t0:sw.t1], sgd.lr,
-            sgd.reg, mu, su=su, si=si, tpg=tpg, deps=sw.deps, blocks=blocks),
-        state, sw.deps,
-        _build.load_library().mfx_sgd_sweep_tile_max_blocks(T, rank))
-    P, Q, bu, bi = (x.clone() for x in state)
-    ms = cuda_ms(lambda: sgd_sweep_step_u(
-        P, Q[seg], bu, bi[seg], sw.sa, sw.tc, tl[sw.t0:sw.t1], sgd.lr,
-        sgd.reg, mu, su=su, si=si, tpg=tpg), reps=3)
-    log(f"[tile] sgd_sweep_step_u: sweep 1 of {len(skel.sweeps)} of an "
-        f"epoch, {sw.t1 - sw.t0} tiles, one block, {ms:.4f} ms")
+    # the whole first sweep, to set beside phase 10's epoch seconds: each
+    # kernel on one block and on the card's count (step_user_batch plans
+    # the same sweeps here: sweep_geometry gives 8 windows either way)
+    if blocked.sweep_geometry(I, rank, si, step_u=(su, T)) != sw.nwin:
+        raise AssertionError("step_user_batch plans other sweeps here")
+    lib = _build.load_library()
+    for kernel, card in (
+            (sgd_sweep_tile, lib.mfx_sgd_sweep_tile_max_blocks(T, rank)),
+            (sgd_sweep_step_u,
+             lib.mfx_sgd_sweep_step_u_max_blocks(T, rank, su))):
+        sweeps[kernel.__name__] = whole_sweep(
+            kernel.__name__,
+            lambda P, Q, bu, bi, blocks, kernel=kernel: kernel(
+                P, Q[seg], bu, bi[seg], sw.sa, sw.tc, tl[sw.t0:sw.t1],
+                sgd.lr, sgd.reg, mu, su=su, si=si, tpg=tpg, deps=sw.deps,
+                blocks=blocks),
+            state, sw.deps, card)
+    # the whole sweep's bound, as tile_bias_compare counts it
+    whole = sweep_bound(tl[sw.t0:sw.t1], sw.sa, sw.tc, su, si, tpg, rank,
+                        [("P", 0), ("Q", 1)], 10, bias=True)
+    log(f"[tile] the whole sweep's bound {whole[0]:.4f} ms ({whole[1]})")
+    for name in ("sgd_sweep_tile", "sgd_sweep_step_u"):
+        sweeps[name]["sweep_bound_ms"] = whole[0]
     del state
     del skel, tl, u, i, r
     torch.cuda.empty_cache()
@@ -1098,7 +1105,7 @@ def main() -> int:
 
     # 5. tile_topk against its plain version at the serving shape
     t_phase = time.perf_counter()
-    results["tile_topk"], bounds["tile_topk"] = topk_phase(dev)
+    results["tile_topk"], bounds["tile_topk"], topk_variants = topk_phase(dev)
     log(f"[time] phase 5 {time.perf_counter() - t_phase:.1f} s")
 
     # 6. the serving path, on the model phase 4 trained
@@ -1130,9 +1137,14 @@ def main() -> int:
          "launches": launches[name],
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         # no single PyTorch call computes any of these functions
-         "library_ms": None,
-         # sgd_sweep, bpr_sweep, sgd_sweep_tile (ML-1M): a whole sweep on 1
+         # no single PyTorch call computes any of these functions; for
+         # tile_topk the stock path's two calls stand in
+         "library_ms": (topk_variants[0]["stock_ms"] if name == "tile_topk"
+                        else None),
+         **({"library": "torch.matmul (TF32 off) then torch.topk over "
+                        "each tile", "variants": topk_variants}
+            if name == "tile_topk" else {}),
+         # the sweeps (the tile-bias ones on ML-1M): a whole sweep on 1
          # block and on the card's count; dense_phase: DENSE_WHOLE strata
          # so, then group 0 and the epoch's dense phase on the card's count
          **sweeps.get(name, {})}

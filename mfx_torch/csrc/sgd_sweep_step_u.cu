@@ -28,21 +28,40 @@
 // becomes start + group sum. The reference adds one sum over all tpg*T
 // slots: a different association of the same f32 terms.
 //
-// Where the group's pooled user deltas live: in `acc`, a device-memory
-// scratch of su*rank + su floats that the wrapper hands in zeroed (256 KB
-// at su = 1024, rank 64: more than a block's shared memory, and resident
-// in L2). The group-start snapshot needs no copy: P and bu are not
-// written before the group ends, so each tile reads them in place. Rows
-// touched in a group are listed in shared memory (a flag a row, an
-// integer counter), so the group's end visits only those, adds their sums
-// to P and bu, and zeroes them again. The list's order varies from run to
-// run and changes nothing: each row's update is independent.
+// Order between tiles: the wavefront of sweep_common.cuh, as in
+// sgd_sweep_tile.cu. Blocks take whole user-block runs by ticket and walk
+// each front to back; a stratum's first tile waits for the (run, count)
+// of the plan's dependency table. The item side is written tile by tile,
+// as in the per-tile body, so the item-side waits are the same table's;
+// the user side of a block is written only by its run. The planner pads
+// every run to a multiple of tpg tiles, so a group never straddles two
+// runs (it may straddle two strata of one run: P and bu are not read by
+// any other run, and the group's end is followed by the next tile's
+// barrier). Every tile therefore sees what the one-block, plan-order walk
+// shows it, and the tables come out bit for bit the same on any grid. The
+// per-tile SSE goes to sums[t]; ordered_sum_kernel adds them in tile
+// order, the association of one thread carrying the sum in plan order.
 //
-// What bounds it on an H100: one SM's latency, as the other sweeps. On
-// the TPU the batching saved matmuls; here a tile costs what it costs in
-// sgd_sweep_tile.cu, plus a read-modify-write of the pooled rows in L2
-// instead of a store to P, plus the group's end (one more pass over the
-// touched rows and one more barrier a group).
+// Where a group's pooled user deltas live: one pool of su*rank + su floats
+// per block in flight, zero between groups. In shared memory where it
+// fits beside the tile's buffers (SMEM_POOL: 67.6 KB at su = 512, rank
+// 32); otherwise in device memory, blocks x pool floats that the wrapper
+// hands in zeroed (266 KB a block at su = 1024, rank 64, resident in L2).
+// smem_pool() below is the one place that decides. Both add the same
+// terms in the same order; where both fit, shared memory was the faster
+// on an H100 (the ML-1M sweep 31.3 against 32.1 ms on 12 blocks). The
+// group-start snapshot needs no copy: P and bu are not written before the
+// group ends, so each tile reads them in place. Rows touched in a group
+// are listed in shared memory (a flag a row, an integer counter), so the
+// group's end visits only those, adds their sums to P and bu, and zeroes
+// them again; a pool is thus zero whenever its block takes a run. The list's order varies
+// from run to run and changes nothing: each row's update is independent.
+//
+// What bounds it on an H100: as the other sweeps, a tile's latency on one
+// SM (phases separated by barriers, the gather waiting on L2), times the
+// tiles on the sweep's longest dependency chain. Beside the per-tile
+// body a tile adds the pooled read-modify-write and, at each group's end,
+// one pass over the touched rows and one barrier.
 
 #include "sweep_common.cuh"
 
@@ -50,39 +69,67 @@ namespace {
 
 using namespace mfx_sweep;
 
-constexpr size_t GROUP_SMEM = (size_t)(2 * MAX_BLOCK + 1) * sizeof(int);
+// flag (MAX_BLOCK), list (MAX_BLOCK), cnt, padded to a float4
+constexpr size_t GROUP_SMEM = (size_t)(2 * MAX_BLOCK + 4) * sizeof(int);
+
+__host__ __device__ inline size_t pool_floats(int su, int rank) {
+  return (size_t)su * (rank + 1);
+}
+
+// Byte offsets in dynamic shared memory: the tile's buffers, the group's
+// row list at a 16-byte boundary, then (SMEM_POOL) the pool.
+template <int RANK>
+__host__ __device__ inline size_t group_offset(int T) {
+  return (TileSmem<RANK>::bytes(T) + 15) & ~(size_t)15;
+}
 
 template <int RANK>
+size_t smem_bytes(int T, int su, bool smem_pool) {
+  return group_offset<RANK>(T) + GROUP_SMEM +
+         (smem_pool ? pool_floats(su, RANK) * sizeof(float) : 0);
+}
+
+// P, Q, bu and bi are rewritten by this and other blocks during the
+// launch, so they are deliberately not const/__restrict__.
+template <int RANK, bool SMEM_POOL>
 __global__ void __launch_bounds__(THREADS)
-sgd_sweep_step_u_kernel(float* P, float* Q, float* bu, float* bi, float* acc,
-                        const int* __restrict__ sa,
+sgd_sweep_step_u_kernel(float* P, float* Q, float* bu, float* bi,
+                        float* pools, const int* __restrict__ sa,
                         const int* __restrict__ tc,
-                        const int* __restrict__ tl,
-                        float* __restrict__ sse_out, int nt, int tpg, int T,
-                        int su, int si, int use_bias, float lr, float reg,
-                        float mu) {
+                        const int* __restrict__ tl, Wavefront wf,
+                        float* __restrict__ sums, int tpg, int T, int su,
+                        int si, int use_bias, float lr, float reg, float mu) {
   constexpr int Q4 = RANK / 4;
   extern __shared__ float4 smem_raw[];
+  __shared__ int run_slot;
   const TileSmem<RANK> sm = TileSmem<RANK>::carve(smem_raw, T);
-  int* flag = reinterpret_cast<int*>(reinterpret_cast<char*>(smem_raw) +
-                                     TileSmem<RANK>::bytes(T));  // (MAX_BLOCK,)
+  char* group = reinterpret_cast<char*>(smem_raw) + group_offset<RANK>(T);
+  int* flag = reinterpret_cast<int*>(group);  // (MAX_BLOCK,)
   int* list = flag + MAX_BLOCK;  // rows touched in this group, any order
   int* cnt = list + MAX_BLOCK;   // their number
-  float4* P4w = reinterpret_cast<float4*>(P);
+  float* acc = SMEM_POOL ? reinterpret_cast<float*>(group + GROUP_SMEM)
+                         : pools + blockIdx.x * pool_floats(su, RANK);
   float4* acc4 = reinterpret_cast<float4*>(acc);  // (su, Q4) pooled row sums
   float* accB = acc + (size_t)su * RANK;          // (su,) pooled bias sums
+  float4* P4w = reinterpret_cast<float4*>(P);
   const int tid = threadIdx.x;
-  float sse = 0.f;  // thread 0 carries the sweep's sum
 
   for (int x = tid; x < MAX_BLOCK; x += THREADS) flag[x] = 0;
+  if (SMEM_POOL)
+    for (int x = tid; x < (int)pool_floats(su, RANK); x += THREADS)
+      acc[x] = 0.f;
   if (tid == 0) *cnt = 0;
 
-  for (int g = 0; g < nt / tpg; ++g) {
-    const long long pbase = (long long)sa[g] * su;
-    for (int j = 0; j < tpg; ++j) {
-      const int t = g * tpg + j;
+  // take_run begins with a barrier: the zeroing above is seen by all
+  for (int run = take_run(wf, &run_slot); run < wf.nruns;
+       run = take_run(wf, &run_slot)) {
+    const int t0 = wf.runs[2 * run], n = wf.runs[2 * run + 1];
+    for (int k = 0; k < n; ++k) {
+      const int t = t0 + k;
+      const long long pbase = (long long)sa[t / tpg] * su;
       const long long qbase = (long long)tc[t] * si;
       load_ids(sm, tl + (long long)t * 3 * T, T, su);
+      const bool ends_stratum = await_tile(wf, t);
       __syncthreads();
       // P and bu still hold the group's start: nothing wrote them since
       gather(sm, P, Q, bu, bi, pbase, qbase, T, su, use_bias);
@@ -111,64 +158,136 @@ sgd_sweep_step_u_kernel(float* P, float* Q, float* bu, float* bi, float* acc,
       }
       // 5b. item side: applied now, the next tile of the group reads it
       scatter_items(sm, Q, bi, qbase, use_bias, lr, reg);
-      sse += tile_sse(sm, T);
+      const float sse = tile_sse(sm, T);
+      if (tid == 0) sums[t] = sse;
       __syncthreads();
-    }
+      publish(wf, ends_stratum, run, k + 1);
+      if ((t + 1) % tpg) continue;
 
-    // the group's end: start + pooled sum for every touched row
-    const int n = *cnt;
-    for (int w = tid; w < n * Q4; w += THREADS) {
-      const int x = list[w / Q4], q = w % Q4;
-      P4w[(pbase + x) * Q4 + q] =
-          add4(P4w[(pbase + x) * Q4 + q], acc4[x * Q4 + q]);
-      acc4[x * Q4 + q] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    for (int w = tid; w < n; w += THREADS) {
-      const int x = list[w];
-      if (use_bias) {
-        bu[pbase + x] += accB[x];
-        accB[x] = 0.f;
+      // the group's end: start + pooled sum for every touched row
+      const int nrows = *cnt;
+      for (int w = tid; w < nrows * Q4; w += THREADS) {
+        const int x = list[w / Q4], q = w % Q4;
+        const long long o = (pbase + x) * Q4 + q;
+        P4w[o] = add4(ld_row(P4w + o), acc4[x * Q4 + q]);
+        acc4[x * Q4 + q] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
-      flag[x] = 0;
+      for (int w = tid; w < nrows; w += THREADS) {
+        const int x = list[w];
+        if (use_bias) {
+          bu[pbase + x] = ld_row(bu + pbase + x) + accB[x];
+          accB[x] = 0.f;
+        }
+        flag[x] = 0;
+      }
+      __syncthreads();
+      if (tid == 0) *cnt = 0;  // next read or bumped several barriers later
     }
-    __syncthreads();
-    if (tid == 0) *cnt = 0;  // next read or bumped several barriers later
   }
-  if (tid == 0) sse_out[0] = sse;
+}
+
+template <int RANK, bool SMEM_POOL>
+int launch(float* P, float* Q, float* bu, float* bi, float* pools,
+           const int* sa, const int* tc, const int* tl, const Wavefront& wf,
+           float* sums, float* sse_out, int nt, int blocks, int tpg, int T,
+           int su, int si, int use_bias, float lr, float reg, float mu,
+           cudaStream_t stream) {
+  const size_t smem = smem_bytes<RANK>(T, su, SMEM_POOL);
+  cudaError_t err = cudaFuncSetAttribute(
+      sgd_sweep_step_u_kernel<RANK, SMEM_POOL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  sgd_sweep_step_u_kernel<RANK, SMEM_POOL>
+      <<<blocks, THREADS, smem, stream>>>(P, Q, bu, bi, pools, sa, tc, tl,
+                                          wf, sums, tpg, T, su, si,
+                                          use_bias, lr, reg, mu);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ordered_sum_kernel<<<1, SUM_THREADS, 0, stream>>>(sums, nt, sse_out);
+  return (int)cudaGetLastError();
+}
+
+// The largest dynamic shared memory a block may take on this device.
+size_t smem_limit() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return (size_t)optin;
+}
+
+// The placement of the pools, decided here only: in shared memory where a
+// pool fits beside the tile's buffers, else in device memory.
+template <int RANK>
+bool smem_pool(int T, int su) {
+  return smem_bytes<RANK>(T, su, true) <= smem_limit();
 }
 
 template <int RANK>
-int launch(float* P, float* Q, float* bu, float* bi, float* acc,
-           const int* sa, const int* tc, const int* tl, float* sse_out,
-           int nt, int tpg, int T, int su, int si, int use_bias, float lr,
-           float reg, float mu, cudaStream_t stream) {
-  const size_t smem = TileSmem<RANK>::bytes(T) + GROUP_SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      sgd_sweep_step_u_kernel<RANK>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  sgd_sweep_step_u_kernel<RANK><<<1, THREADS, smem, stream>>>(
-      P, Q, bu, bi, acc, sa, tc, tl, sse_out, nt, tpg, T, su, si, use_bias,
-      lr, reg, mu);
-  return (int)cudaGetLastError();
+int max_blocks(int T, int su) {
+  const bool shared = smem_pool<RANK>(T, su);
+  return shared ? resident_blocks(sgd_sweep_step_u_kernel<RANK, true>,
+                                  THREADS, smem_bytes<RANK>(T, su, true))
+                : resident_blocks(sgd_sweep_step_u_kernel<RANK, false>,
+                                  THREADS, smem_bytes<RANK>(T, su, false));
+}
+
+bool shape_ok(int T, int rank, int su) {
+  return T >= 1 && T <= MAX_T && su >= 1 && su <= MAX_BLOCK &&
+         (rank == 32 || rank == 64);
 }
 
 }  // namespace
 
+// Thread blocks of the kernel the device holds at once at tile size T,
+// rank and user block su, for the pools' placement the launch will use;
+// minus the CUDA error if a call fails.
+extern "C" int mfx_sgd_sweep_step_u_max_blocks(int T, int rank, int su) {
+  if (!shape_ok(T, rank, su)) return -(int)cudaErrorInvalidValue;
+  return rank == 64 ? max_blocks<64>(T, su) : max_blocks<32>(T, su);
+}
+
+// Floats of device memory each block's pool takes at these shapes: 0 where
+// the pools live in shared memory, else su * (rank + 1); minus the CUDA
+// error for shapes the kernel does not take.
+extern "C" int mfx_sgd_sweep_step_u_pool_floats(int T, int rank, int su) {
+  if (!shape_ok(T, rank, su)) return -(int)cudaErrorInvalidValue;
+  const bool shared =
+      rank == 64 ? smem_pool<64>(T, su) : smem_pool<32>(T, su);
+  return shared ? 0 : (int)pool_floats(su, rank);
+}
+
+// pools: blocks * mfx_sgd_sweep_step_u_pool_floats(T, rank, su) zeroed
+// floats, null where that is 0.
 extern "C" int mfx_sgd_sweep_step_u(float* P, float* Q, float* bu, float* bi,
-                                    float* acc, const int* sa, const int* tc,
-                                    const int* tl, float* sse_out, int nt,
-                                    int tpg, int T, int su, int si, int rank,
+                                    float* pools, const int* sa,
+                                    const int* tc, const int* tl,
+                                    const int* runs, const int* wait,
+                                    int* state, float* sums, float* sse_out,
+                                    int nt, int nruns, int blocks, int tpg,
+                                    int T, int su, int si, int rank,
                                     int use_bias, float lr, float reg,
                                     float mu, void* stream) {
-  if (su > MAX_BLOCK || si > MAX_BLOCK || T < 1 || T > MAX_T || tpg < 1 ||
-      tpg > 8 || nt % tpg)
+  if (!shape_ok(T, rank, su) || si > MAX_BLOCK || tpg < 1 || tpg > 8 ||
+      nt % tpg || nruns < 1 || blocks < 1)
     return (int)cudaErrorInvalidValue;
-  if (rank == 64)
-    return launch<64>(P, Q, bu, bi, acc, sa, tc, tl, sse_out, nt, tpg, T, su,
-                      si, use_bias, lr, reg, mu, (cudaStream_t)stream);
-  if (rank == 32)
-    return launch<32>(P, Q, bu, bi, acc, sa, tc, tl, sse_out, nt, tpg, T, su,
-                      si, use_bias, lr, reg, mu, (cudaStream_t)stream);
+  const bool shared =
+      rank == 64 ? smem_pool<64>(T, su) : smem_pool<32>(T, su);
+  if ((pools == nullptr) != shared) return (int)cudaErrorInvalidValue;
+  const Wavefront wf{runs, wait, state, nruns};
+  cudaStream_t st = (cudaStream_t)stream;
+#define MFX_STEP_U_CASE(R)                                                  \
+  if (rank == R)                                                            \
+    return shared                                                           \
+               ? launch<R, true>(P, Q, bu, bi, pools, sa, tc, tl, wf, sums, \
+                                 sse_out, nt, blocks, tpg, T, su, si,       \
+                                 use_bias, lr, reg, mu, st)                 \
+               : launch<R, false>(P, Q, bu, bi, pools, sa, tc, tl, wf,      \
+                                  sums, sse_out, nt, blocks, tpg, T, su,    \
+                                  si, use_bias, lr, reg, mu, st);
+  MFX_STEP_U_CASE(64)
+  MFX_STEP_U_CASE(32)
+#undef MFX_STEP_U_CASE
   return (int)cudaErrorInvalidValue;
 }

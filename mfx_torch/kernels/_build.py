@@ -36,7 +36,7 @@ _SIGNATURES = {
                         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                         _P],
     "mfx_dense_phase_max_blocks": [],
-    "mfx_tile_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mfx_tile_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mfx_bpr_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _I, _I, _I, _F, _F, _P],
     "mfx_bpr_sweep_max_blocks": [_I],
@@ -44,8 +44,11 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                            _P],
     "mfx_sgd_sweep_tile_max_blocks": [_I, _I],
-    "mfx_sgd_sweep_step_u": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _I, _I, _F, _F, _F, _P],
+    "mfx_sgd_sweep_step_u": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                             _F, _P],
+    "mfx_sgd_sweep_step_u_max_blocks": [_I, _I, _I],
+    "mfx_sgd_sweep_step_u_pool_floats": [_I, _I, _I],
 }
 
 

@@ -30,8 +30,8 @@ __all__ = ["tile_topk", "tile_topk2", "tile_topk_plain", "aug_width",
            "matmul_f32", "AUG_LANES"]
 
 AUG_LANES = 128  # widest augmented row: rank + bias lane < 128 + 1
-MAX_DEPTH = 32   # the kernel's per-lane candidate lists (csrc/tile_topk.cu)
-MAX_TILE = 2048  # the kernel's (16, tile) score block in shared memory
+MAX_DEPTH = 32   # the kernel's candidate lists (csrc/tile_topk.cu)
+MAX_TILE = 2048  # the kernel's tiles: 128-row chunks, at most 16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -136,10 +136,19 @@ def tile_topk(P_aug, Q_aug, tile: int = 1024, depth: int = 2, sb=None):
             f"of 128 up to {MAX_TILE}, got depth={depth} tile={tile} "
             "(ROADMAP Queue 2 item 8)"
         )
+    return _launch(P_aug, Q_aug, tile, depth, sb)
+
+
+def _launch(P_aug, Q_aug, tile, depth, sb, users_per_block=0):
+    """:func:`tile_topk`'s kernel on CUDA tensors already validated.
+    ``users_per_block`` 16 or 128 holds the kernel to one of its two block
+    forms (``measure_topk forms`` times both); 0, as :func:`tile_topk`
+    passes, lets the launch choose."""
     tensors = [P_aug, Q_aug] + ([sb] if sb is not None else [])
     if any(not x.is_contiguous() or x.data_ptr() % 16 for x in tensors):
         raise ValueError("tile_topk: tables must be contiguous and 16-byte "
                          "aligned")
+    dev = P_aug.device
     B, K = P_aug.shape
     ipad = Q_aug.shape[0]
     tn = ipad // tile
@@ -151,7 +160,7 @@ def tile_topk(P_aug, Q_aug, tile: int = 1024, depth: int = 2, sb=None):
         P_aug.data_ptr(), Q_aug.data_ptr(),
         sb.data_ptr() if sb is not None else None, m.data_ptr(),
         a.data_ptr(), B, ipad, K, tile, depth, _DTYPE_CODE[Q_aug.dtype],
-        stream,
+        users_per_block, stream,
     ), "tile_topk")
     tile_topk.launches += 1
     return tuple(x for j in range(depth) for x in (m[j], a[j]))

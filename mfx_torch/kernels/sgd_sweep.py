@@ -16,11 +16,10 @@ They replace the two bodies of ``mfx/kernels/sgd_pallas.py``'s sweep call:
 One call runs one item-sweep: the tiles of ``tl``, each a snapshot
 minibatch (gather, residuals, exact segment-summed scatter), on plain
 ``(rows, rank)`` f32 tables updated in place. The result is that of
-walking the tiles in plan order. :func:`sgd_sweep`,
-:func:`sgd_sweep_tile` (and ``kernels.bpr_sweep``), given the plan's
-dependency table (``plan_device.SweepDeps``), walk them on as many SMs as
-the table allows and give the same bits; :func:`sgd_sweep_step_u` walks
-them on one.
+walking the tiles in plan order. Every wrapper here (and
+``kernels.bpr_sweep``), given the plan's dependency table
+(``plan_device.SweepDeps``), walks them on as many SMs as the table
+allows and gives the same bits.
 
 On CUDA tensors a wrapper launches its kernel (or raises); on CPU tensors
 it runs its plain version. Nothing falls back.
@@ -108,7 +107,7 @@ def check_deps(who, deps, nt, dev):
                          f"stream holds {nt}")
 
 
-def wavefront_launch(who, lib, deps, nt, T, dev, blocks, rank=None):
+def wavefront_launch(who, lib, deps, nt, T, dev, blocks, sizing=()):
     """What a wavefront sweep kernel takes beside the tile stream:
     ``(runs, wait, state, sums, grid)``. ``runs`` / ``wait`` are the
     dependency table's (with ``deps=None`` one run of all ``nt`` tiles and
@@ -117,7 +116,7 @@ def wavefront_launch(who, lib, deps, nt, T, dev, blocks, rank=None):
     tiles finished of each run), ``sums`` the per-tile SSE / loss that
     the kernel adds up in tile order at its end; ``grid`` the thread
     blocks to launch: ``blocks``, or with ``blocks=None`` as many as the
-    card holds at once (``mfx_<who>_max_blocks(T[, rank])``), and never
+    card holds at once (``mfx_<who>_max_blocks(T, *sizing)``), and never
     more than there are runs."""
     if deps is None or nt == 0:
         runs = torch.tensor([[0, nt]], dtype=torch.int32, device=dev)
@@ -126,8 +125,7 @@ def wavefront_launch(who, lib, deps, nt, T, dev, blocks, rank=None):
         check_deps(who, deps, nt, dev)
         runs, wait = deps.runs, deps.wait
     if blocks is None:
-        sizing = (T,) if rank is None else (T, rank)
-        blocks = getattr(lib, f"mfx_{who}_max_blocks")(*sizing)
+        blocks = getattr(lib, f"mfx_{who}_max_blocks")(T, *sizing)
         if blocks < 1:
             raise RuntimeError(f"{who}: CUDA error {-blocks} sizing the grid")
     elif blocks < 1:
@@ -273,13 +271,12 @@ def sgd_sweep_step_u_plain(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si,
     return sse
 
 
-def _tile_bias_sweep(wrapper, plain, symbol, P, Q, bu, bi, sa, tc, tl, lr,
-                     reg, mu, su, si, tpg, use_bias, scratch, deps=None,
-                     blocks=None):
-    """The two tile-bias wrappers' common body. ``scratch`` says whether
-    the kernel takes the zeroed pool of a user block's pooled deltas (the
-    one-block ``sgd_sweep_step_u``); without it the kernel is a wavefront
-    sweep and takes ``deps`` and ``blocks`` as :func:`sgd_sweep` does."""
+def _tile_bias_sweep(wrapper, plain, P, Q, bu, bi, sa, tc, tl, lr, reg, mu,
+                     su, si, tpg, use_bias, deps, blocks, step_u=False):
+    """The two tile-bias wrappers' common body: both kernels are wavefront
+    sweeps and take ``deps`` and ``blocks`` as :func:`sgd_sweep` does.
+    ``step_u`` (``sgd_sweep_step_u``) adds the pools of pooled user deltas
+    and their grid sizing by the user block."""
     who = wrapper.__name__
     check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg, bu, bi)
     if P.device.type == "cpu":
@@ -288,29 +285,32 @@ def _tile_bias_sweep(wrapper, plain, symbol, P, Q, bu, bi, sa, tc, tl, lr,
     if P.device.type != "cuda":
         raise ValueError(f"{who}: no kernel for device {P.device}")
     check_kernel_limits(who, P, tl, su, si, ranks=(32, 64))
-    if scratch and not 1 <= tpg <= 8:
-        raise NotImplementedError(f"{who} kernel takes tpg 1..8, got {tpg}")
     nt, T, rank = tl.shape[0], tl.shape[2], P.shape[1]
+    if step_u and not 1 <= tpg <= 8:
+        raise NotImplementedError(f"{who} kernel takes tpg 1..8, got {tpg}")
     lib = _build.load_library()
+    runs, wait, state, sums, grid = wavefront_launch(
+        who, lib, deps, nt, T, P.device, blocks,
+        sizing=(rank, su) if step_u else (rank,))
+    pools, head = None, []  # step_u: one pool a block, in device memory
+    if step_u:  # where the kernel does not keep it in shared memory
+        per_block = lib.mfx_sgd_sweep_step_u_pool_floats(T, rank, su)
+        if per_block < 0:
+            raise RuntimeError(f"{who}: CUDA error {-per_block} placing the "
+                               "pools")
+        if per_block:
+            pools = torch.zeros(grid * per_block, dtype=torch.float32,
+                                device=P.device)
+        head = [None if pools is None else pools.data_ptr()]
     sse = torch.empty(1, dtype=torch.float32, device=P.device)
-    if scratch:
-        # su rows of rank pooled row deltas, then su pooled bias deltas
-        pool = torch.zeros(su * (rank + 1), dtype=torch.float32,
-                           device=P.device)
-        extra, tail, sizes = [pool.data_ptr()], [], [nt]
-    else:
-        runs, wait, state, sums, grid = wavefront_launch(
-            who, lib, deps, nt, T, P.device, blocks, rank=rank)
-        extra = []
-        tail = [runs.data_ptr(), None if wait is None else wait.data_ptr(),
-                state.data_ptr(), sums.data_ptr()]
-        sizes = [nt, runs.shape[0], grid]
     stream = torch.cuda.current_stream(P.device).cuda_stream
-    _build.check(getattr(lib, symbol)(
-        P.data_ptr(), Q.data_ptr(), bu.data_ptr(), bi.data_ptr(), *extra,
-        sa.data_ptr(), tc.data_ptr(), tl.data_ptr(),
-        *tail, sse.data_ptr(), *sizes, tpg, T, su, si, rank,
-        int(bool(use_bias)), float(lr), float(reg), float(mu), stream,
+    _build.check(getattr(lib, f"mfx_{who}")(
+        P.data_ptr(), Q.data_ptr(), bu.data_ptr(), bi.data_ptr(), *head,
+        sa.data_ptr(), tc.data_ptr(), tl.data_ptr(), runs.data_ptr(),
+        None if wait is None else wait.data_ptr(), state.data_ptr(),
+        sums.data_ptr(), sse.data_ptr(), nt, runs.shape[0], grid, tpg, T, su,
+        si, rank, int(bool(use_bias)), float(lr), float(reg), float(mu),
+        stream,
     ), who)
     wrapper.launches += 1
     return sse[0]
@@ -329,28 +329,28 @@ def sgd_sweep_tile(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si, tpg,
     the tables (and the biases) in place and returns the sweep's SSE over
     real slots as a 0-d f32 tensor. ``deps`` and ``blocks`` as in
     :func:`sgd_sweep`: the same bits on any grid."""
-    return _tile_bias_sweep(sgd_sweep_tile, sgd_sweep_tile_plain,
-                            "mfx_sgd_sweep_tile", P, Q, bu, bi, sa, tc, tl,
-                            lr, reg, mu, su, si, tpg, use_bias, scratch=False,
-                            deps=deps, blocks=blocks)
+    return _tile_bias_sweep(sgd_sweep_tile, sgd_sweep_tile_plain, P, Q, bu,
+                            bi, sa, tc, tl, lr, reg, mu, su, si, tpg,
+                            use_bias, deps, blocks)
 
 
 def sgd_sweep_step_u(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si, tpg,
-                     use_bias=True, deps=None):
+                     use_bias=True, deps=None, blocks=None):
     """One item-sweep with the user side batched per group of ``tpg`` tiles
     (``sgd.step_user_batch``); arguments and result as
     :func:`sgd_sweep_tile`. Here ``tpg`` is part of the math: a group's
     tiles read P and bu as the group found them, update Q and bi tile by
     tile, and the user rows' and user biases' deltas of all tpg·T slots
-    are summed and applied once at the group's end. Its kernel walks the
-    sweep on one block in plan order and takes no dependency table."""
-    if deps is not None:
-        raise NotImplementedError(
-            "sgd_sweep_step_u walks its sweep on one block: it takes no "
-            "dependency table (ROADMAP Queue 2 item 1)")
-    return _tile_bias_sweep(sgd_sweep_step_u, sgd_sweep_step_u_plain,
-                            "mfx_sgd_sweep_step_u", P, Q, bu, bi, sa, tc, tl,
-                            lr, reg, mu, su, si, tpg, use_bias, scratch=True)
+    are summed and applied once at the group's end. ``deps`` and
+    ``blocks`` as in :func:`sgd_sweep`: the same bits on any grid (a group
+    never straddles two runs: the planner pads each run to ``tpg``
+    tiles). Each block's pooled deltas (su·(rank + 1) floats) live in
+    shared memory where they fit beside the tile's buffers, else in
+    device memory; the kernel decides, and the bits are the same either
+    way. The CPU route ignores ``deps`` and ``blocks``."""
+    return _tile_bias_sweep(sgd_sweep_step_u, sgd_sweep_step_u_plain, P, Q,
+                            bu, bi, sa, tc, tl, lr, reg, mu, su, si, tpg,
+                            use_bias, deps, blocks, step_u=True)
 
 
 sgd_sweep_tile.launches = 0

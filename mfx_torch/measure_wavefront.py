@@ -1,10 +1,12 @@
 """Measurements of the wavefront kernels (``sgd_sweep``, ``bpr_sweep``,
-``sgd_sweep_tile``, ``dense_phase``) beyond ``chip_smoke.py``, on its
-training cells.
+``sgd_sweep_tile``, ``sgd_sweep_step_u``, ``dense_phase``) beyond
+``chip_smoke.py``, on its training cells.
 
-    python -m mfx_torch.measure_wavefront plan   --cell sgd|bpr|tile [--cut N]
-    python -m mfx_torch.measure_wavefront blocks --cell sgd|bpr|tile [--cut N]
-                                  [--blocks 1,2,4,...] [--repeats 20]
+    python -m mfx_torch.measure_wavefront plan   --cell sgd|bpr|tile|step_u
+                                  [--cut N]
+    python -m mfx_torch.measure_wavefront blocks --cell sgd|bpr|tile|step_u
+                                  [--cut N] [--blocks 1,2,4,...]
+                                  [--repeats 20]
     python -m mfx_torch.measure_wavefront orders [--cut N] [--repeats 10]
 
 ``--cell sgd`` is the ``ml25m_rank64`` preset on the ML-25M-shaped
@@ -12,9 +14,10 @@ synthetic (the dense carving applied first, as the trainer does);
 ``--cell bpr`` the ``billion_bpr_sharded`` preset with
 ``parallel.model_axis=1`` on the billion-implicit synthetic; ``--cell
 tile`` the ``ml1m_rank32_biased`` preset (tile biases, per tile) on the
-ML-1M-shaped synthetic. ``--cut`` divides the data's users, items and
-ratings (default 1 for sgd and tile, 10 for bpr: ``chip_smoke.py``'s
-sizes).
+ML-1M-shaped synthetic; ``--cell step_u`` the same with
+``sgd.step_user_batch=true`` (``sgd_sweep_step_u``). ``--cut``
+divides the data's users, items and ratings (default 1 for sgd, tile and
+step_u, 10 for bpr: ``chip_smoke.py``'s sizes).
 
 ``plan`` builds the plan skeleton only and prints, per sparse sweep or
 segment, one JSON line: its tiles, runs and windows, the tiles on its
@@ -86,9 +89,9 @@ def _sgd_cell(cut: int, dev):
     return skel, (u, i, r), cfg, train, (meta, groups, info)
 
 
-def _tile_cell(cut: int, dev):
+def _tile_cell(cut: int, dev, step_u: bool = False):
     """(skeleton, device ids and ratings, cfg, train) of the tile-bias
-    cell (no dense phase)."""
+    cell (no dense phase), with ``sgd.step_user_batch`` or not."""
     import torch
 
     from mfx_torch.config import preset
@@ -106,8 +109,9 @@ def _tile_cell(cut: int, dev):
     u = torch.as_tensor(train.user).to(dev, torch.int32)
     i = torch.as_tensor(train.item).to(dev, torch.int32)
     r = torch.as_tensor(train.rating).to(dev, torch.float32)
-    skel = pdv.build_plan_skeleton(u, i, U, I, su, si, sgd.tile, blocked.TPG,
-                                   blocked.sweep_geometry(I, rank, si))
+    skel = pdv.build_plan_skeleton(
+        u, i, U, I, su, si, sgd.tile, blocked.TPG, blocked.sweep_geometry(
+            I, rank, si, step_u=(su, sgd.tile) if step_u else None))
     return skel, (u, i, r), cfg, train
 
 
@@ -187,14 +191,16 @@ def _sweeps(args, dev, tiles: bool):
     from mfx_torch.solvers.blocked import TPG
 
     out, tables = [], None
-    if args.cell in ("sgd", "tile"):
+    if args.cell in ("sgd", "tile", "step_u"):
         from mfx_torch.kernels.packing import lane_tables, plain_tables
-        from mfx_torch.kernels.sgd_sweep import sgd_sweep, sgd_sweep_tile
+        from mfx_torch.kernels.sgd_sweep import (sgd_sweep, sgd_sweep_step_u,
+                                                 sgd_sweep_tile)
 
         if args.cell == "sgd":
             skel, (u, i, r), cfg, train, dense = _sgd_cell(args.cut or 1, dev)
         else:
-            skel, (u, i, r), cfg, train = _tile_cell(args.cut or 1, dev)
+            skel, (u, i, r), cfg, train = _tile_cell(
+                args.cut or 1, dev, step_u=args.cell == "step_u")
             dense = None
         sgd, mu = cfg.sgd, float(train.global_mean)
         su, si = sgd.ublock, sgd.iblock
@@ -219,6 +225,9 @@ def _sweeps(args, dev, tiles: bool):
                     P, Q = tabs
                     return sgd_sweep(P, Q[seg], *stream, **kw, blocks=n)
                 P, Q, bu, bi = tabs
+                if args.cell == "step_u":
+                    return sgd_sweep_step_u(P, Q[seg], bu, bi[seg], *stream,
+                                            **kw, blocks=n)
                 return sgd_sweep_tile(P, Q[seg], bu, bi[seg], *stream,
                                       **kw, blocks=n)
             out.append((f"{args.cell} sweep {k}", sw.tc, sw.deps, sw.nwin,
@@ -400,6 +409,11 @@ def blocks(args) -> int:
     lib = _build.load_library()
     if args.cell == "tile":
         card = lib.mfx_sgd_sweep_tile_max_blocks(T, tables[0].shape[1])
+    elif args.cell == "step_u":
+        from mfx_torch.config import preset
+
+        card = lib.mfx_sgd_sweep_step_u_max_blocks(
+            T, tables[0].shape[1], preset("ml1m_rank32_biased").sgd.ublock)
     else:
         card = getattr(lib, f"mfx_{args.cell}_sweep_max_blocks")(T)
 
@@ -505,7 +519,7 @@ def main(argv=None) -> int:
     for name, fn in (("plan", plan), ("blocks", blocks), ("orders", orders)):
         p = sub.add_parser(name)
         if name != "orders":
-            p.add_argument("--cell", choices=("sgd", "bpr", "tile"),
+            p.add_argument("--cell", choices=("sgd", "bpr", "tile", "step_u"),
                            required=True)
         p.add_argument("--cut", type=int, default=0)
         p.set_defaults(fn=fn)

@@ -187,11 +187,9 @@ def train_epochs_blocked(
         sweep_fn = sgd_sweep_step_u if cfg.step_user_batch else sgd_sweep_tile
 
         def run_sweep(sw, seg, lr):
-            # the per-tile kernel walks the sweep on many SMs; step_u on one
-            deps = {} if cfg.step_user_batch else {"deps": sw.deps}
             return sweep_fn(P, Q[seg], bu, bi[seg], sw.sa, sw.tc,
                             tl[sw.t0:sw.t1], lr, cfg.reg, mu, su=su, si=si,
-                            tpg=TPG, use_bias=use_bias, **deps)
+                            tpg=TPG, use_bias=use_bias, deps=sw.deps)
 
         def canonical():
             return MFModel(P[:U].clone(), Q[:I].clone(), bu[:U].clone(),

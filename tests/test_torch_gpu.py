@@ -13,6 +13,7 @@ import torch
 
 from mfx_torch.config import BPRConfig, SGDConfig
 from mfx_torch.data import synthetic, train_test_split
+from mfx_torch.kernels import _build
 from mfx_torch.kernels import plan_device as pdv
 from mfx_torch.kernels.dense_phase import dense_phase, dense_phase_plain
 from mfx_torch.kernels.packing import lane_tables, plain_tables
@@ -45,12 +46,12 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _state(dev, n=120_000):
-    coo = synthetic.make_synthetic(U, I, n, rank=4, noise=0.3, seed=9,
+def _state(dev, n=120_000, users=U):
+    coo = synthetic.make_synthetic(users, I, n, rank=4, noise=0.3, seed=9,
                                    star_step=0.5, user_zipf_s=0.6)
     train, test = train_test_split(coo, test_frac=0.1, seed=0)
     g = torch.Generator(device=dev).manual_seed(0)
-    model = init_model(g, U, I, RANK, global_mean=train.global_mean,
+    model = init_model(g, users, I, RANK, global_mean=train.global_mean,
                        device=dev)
     u, i, r = (torch.as_tensor(x).to(dev) for x in
                (train.user, train.item, train.rating))
@@ -341,16 +342,26 @@ def _same_candidates(got, want, P_aug, Q_aug, sb, tile, tol=1e-4):
             assert float((s_k - s_p).abs().max()) <= tol
 
 
-@pytest.mark.parametrize("dtype,depth,tile,B,rank", [
-    ("f32", 1, 128, 20, 8), ("f32", 2, 1024, 256, 64),
-    ("f32", 8, 1024, 40, 64), ("f32", 32, 2048, 17, 127),
-    ("f32", 3, 256, 16, 31), ("bf16", 2, 1024, 33, 64),
-    ("int8", 2, 1024, 48, 64), ("int8", 8, 128, 5, 16),
+@pytest.mark.parametrize("dtype,depth,tile,B,rank,items", [
+    ("f32", 1, 128, 20, 8, 5000), ("f32", 2, 1024, 256, 64, 5000),
+    ("f32", 8, 1024, 40, 64, 5000), ("f32", 32, 2048, 17, 127, 5000),
+    ("f32", 3, 256, 16, 31, 5000), ("bf16", 2, 1024, 33, 64, 5000),
+    ("int8", 2, 1024, 48, 64, 5000), ("int8", 8, 128, 5, 16, 5000),
+    # batches that are not a multiple of a block's users (16 or 64), on
+    # either block size; depths 1, 8, 32; tiles 128 and 2048; catalogs
+    # of a few tiles
+    ("f32", 1, 128, 1, 64, 5000), ("f32", 32, 2048, 300, 64, 5000),
+    ("f32", 8, 128, 300, 64, 300), ("f32", 2, 2048, 37, 64, 6000),
+    ("bf16", 8, 2048, 37, 64, 5000), ("bf16", 2, 128, 300, 64, 5000),
+    ("bf16", 32, 128, 1, 16, 500), ("bf16", 1, 1024, 300, 24, 2500),
+    ("int8", 32, 128, 300, 64, 5000), ("int8", 1, 1024, 37, 64, 3000),
+    ("int8", 8, 2048, 1, 32, 4000), ("int8", 2, 128, 300, 8, 256),
 ])
-def test_tile_topk_kernel_matches_plain(cuda, dtype, depth, tile, B, rank):
+def test_tile_topk_kernel_matches_plain(cuda, dtype, depth, tile, B, rank,
+                                        items):
     from mfx_torch.kernels.serve_topk import tile_topk, tile_topk_plain
 
-    P_aug, Q_aug, sb = _serve_tables(cuda, B, 5000, rank, tile, dtype)
+    P_aug, Q_aug, sb = _serve_tables(cuda, B, items, rank, tile, dtype)
     before = tile_topk.launches
     runs = [tile_topk(P_aug, Q_aug, tile=tile, depth=depth, sb=sb)
             for _ in range(2)]
@@ -377,6 +388,24 @@ def test_tile_topk_kernel_takes_the_lowest_lane_on_ties(cuda):
     assert (lanes[0][:, 1] == 1).all() and (lanes[1][:, 1] == 255).all()
     vals = out[0][:, 0]
     assert torch.equal(out[2][:, 0], vals) and torch.equal(out[6][:, 0], vals)
+
+
+@pytest.mark.parametrize("dtype,depth,tile,B", [
+    ("f32", 2, 1024, 1), ("f32", 2, 1024, 37), ("f32", 8, 2048, 300),
+    ("bf16", 1, 128, 37), ("bf16", 8, 1024, 130), ("int8", 32, 256, 130),
+    ("int8", 2, 1024, 256),
+])
+def test_tile_topk_block_forms_give_the_same_bits(cuda, dtype, depth, tile,
+                                                  B):
+    """Held to 16 or to 128 users a block, the kernel gives the bits of the
+    form its launch chooses, whichever that is."""
+    from mfx_torch.kernels.serve_topk import _launch, tile_topk
+
+    P_aug, Q_aug, sb = _serve_tables(cuda, B, 3000, 64, tile, dtype)
+    want = tile_topk(P_aug, Q_aug, tile=tile, depth=depth, sb=sb)
+    for ub in (16, 128):
+        got = _launch(P_aug, Q_aug, tile, depth, sb, ub)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("exact,table_dtype", [(False, "f32"),
@@ -521,11 +550,16 @@ def _wavefront_case(kernel, dev):
     """A whole small sweep (blocks of 64, so a few dozen runs and several
     windows) or dense group (blocks of 128: 12 user blocks, 11 windows):
     ``(run(tables, blocks, table=True), plain(tables), tables, deps)``;
-    ``table=False`` leaves the dependency table out."""
-    if kernel in ("sgd", "tile"):
-        train, _, model, u, i, r = _state(dev)
-        su = si = 64
-        skel = pdv.build_plan_skeleton(u, i, U, I, su, si, T, TPG, 8)
+    ``table=False`` leaves the dependency table out. ``step_u_su1024``
+    takes user blocks of 1,024 (rank 64, as phase 3 of ``chip_smoke.py``
+    runs it) over 9,000 users, where the kernel keeps its pools in device
+    memory; ``step_u`` keeps them in shared memory."""
+    if kernel in ("sgd", "tile", "step_u", "step_u_su1024"):
+        users = 9000 if kernel == "step_u_su1024" else U
+        train, _, model, u, i, r = _state(dev, users=users)
+        su = 1024 if kernel == "step_u_su1024" else 64
+        si = 64
+        skel = pdv.build_plan_skeleton(u, i, users, I, su, si, T, TPG, 8)
         tl = pdv.epoch_tiles_device(skel, u, i, r, 0, 0)
         sw = skel.sweeps[0]
         seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
@@ -538,14 +572,20 @@ def _wavefront_case(kernel, dev):
                     lambda tabs: sgd_sweep_plain(tabs[0], tabs[1][seg], *args,
                                                  **kw),
                     lane_tables(model, su, si, dev), sw.deps)
-        model.bu.copy_(torch.randn(U, device=dev) * 0.1)
+        model.bu.copy_(torch.randn(users, device=dev) * 0.1)
         model.bi.copy_(torch.randn(I, device=dev) * 0.1)
-        return (lambda tabs, blocks, table=True: sgd_sweep_tile(
+        wrapper, plain = sgd_sweep_tile, sgd_sweep_tile_plain
+        if kernel != "tile":
+            wrapper, plain = sgd_sweep_step_u, sgd_sweep_step_u_plain
+            floats = _build.load_library().mfx_sgd_sweep_step_u_pool_floats(
+                T, RANK, su)  # the pools' device memory a block
+            assert floats == (su * (RANK + 1) if su == 1024 else 0)
+        return (lambda tabs, blocks, table=True: wrapper(
                     tabs[0], tabs[1][seg], tabs[2], tabs[3][seg], *args,
                     **kw, blocks=blocks, deps=sw.deps if table else None),
-                lambda tabs: sgd_sweep_tile_plain(
+                lambda tabs: plain(
                     tabs[0], tabs[1][seg], tabs[2], tabs[3][seg], *args,
-                    **kw),
+                    su=su, si=si, tpg=TPG),
                 plain_tables(model, su, si, dev), sw.deps)
     if kernel == "dense":
         train, _, model, u, i, r = _state(dev)
@@ -580,7 +620,8 @@ def _wavefront_case(kernel, dev):
             (st.P, st.Q), deps)
 
 
-WAVEFRONT_KERNELS = ["sgd", "bpr", "tile", "dense"]
+WAVEFRONT_KERNELS = ["sgd", "bpr", "tile", "step_u", "step_u_su1024",
+                     "dense"]
 
 
 @pytest.mark.parametrize("kernel", WAVEFRONT_KERNELS)

@@ -207,6 +207,16 @@ def test_bpr_profile_needs_a_card():
         main(["profile", "--cut", "100000"])
 
 
+@pytest.mark.parametrize("what", ["kernel", "forms"])
+def test_topk_measure_needs_a_card(what):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from mfx_torch.measure_topk import main
+
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        main([what, "--repeats", "1"])
+
+
 def test_kernel_build_needs_the_toolkit():
     from torch.utils.cpp_extension import CUDA_HOME
 

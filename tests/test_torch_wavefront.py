@@ -313,11 +313,15 @@ def test_measure_tool_plans_on_the_cpu_and_times_only_on_a_card(capsys):
 
 def test_tile_bias_wrappers_take_the_scheduler_arguments():
     """``sgd_sweep_tile`` sizes its grid from the rank's kernel
-    (``mfx_sgd_sweep_tile_max_blocks(T, rank)``) and, on the CPU, gives
-    the plain version's bits whatever the table and grid;
-    ``sgd_sweep_step_u`` walks on one block and refuses a table."""
+    (``mfx_sgd_sweep_tile_max_blocks(T, rank)``), ``sgd_sweep_step_u``
+    from the rank's and the user block's, which also place its pools
+    (``mfx_sgd_sweep_step_u_max_blocks(T, rank, su)``); on the
+    CPU both take ``deps`` and ``blocks`` and give the plain version's
+    bits whatever the table and grid."""
     from mfx_torch.kernels.sgd_sweep import (sgd_sweep_step_u,
+                                             sgd_sweep_step_u_plain,
                                              sgd_sweep_tile,
+                                             sgd_sweep_tile_plain,
                                              wavefront_launch)
 
     class Lib:
@@ -327,30 +331,39 @@ def test_tile_bias_wrappers_take_the_scheduler_arguments():
             self.asked.append(args)
             return 264
 
+        def mfx_sgd_sweep_step_u_max_blocks(self, *args):
+            self.asked.append(args)
+            return 132
+
     sa, tc, tl, deps, _ = _sgd_sweeps()[0]
     nt = deps.n_tiles
     grid = wavefront_launch("sgd_sweep_tile", Lib(), deps, nt, T,
-                            torch.device("cpu"), None, rank=32)[4]
+                            torch.device("cpu"), None, sizing=(32,))[4]
     assert Lib.asked == [(T, 32)] and grid == deps.runs.shape[0]
+    grid = wavefront_launch("sgd_sweep_step_u", Lib(), deps, nt, T,
+                            torch.device("cpu"), None,
+                            sizing=(32, SU))[4]
+    assert Lib.asked[1:] == [(T, 32, SU)] and grid == deps.runs.shape[0]
     state = _tables()
-    outs = []
-    for kw in ({}, {"deps": deps, "blocks": 3}):
+    for wrapper, plain in ((sgd_sweep_tile, sgd_sweep_tile_plain),
+                           (sgd_sweep_step_u, sgd_sweep_step_u_plain)):
         tabs = [x.clone() for x in state]
-        sse = sgd_sweep_tile(tabs[0], tabs[1], tabs[2], tabs[3], sa, tc, tl,
-                             LR, REG, MU, su=SU, si=SI, tpg=TPG, **kw)
-        outs.append((float(sse), tabs))
-    assert outs[0][0] == outs[1][0] and _same(outs[0][1], outs[1][1])
-    with pytest.raises(NotImplementedError, match="one block"):
-        sgd_sweep_step_u(*state, sa, tc, tl, LR, REG, MU, su=SU, si=SI,
-                         tpg=TPG, deps=deps)
+        want = [float(plain(*tabs, sa, tc, tl, LR, REG, MU, su=SU, si=SI,
+                            tpg=TPG)), tabs]
+        for kw in ({}, {"deps": deps, "blocks": 3}):
+            tabs = [x.clone() for x in state]
+            sse = wrapper(tabs[0], tabs[1], tabs[2], tabs[3], sa, tc, tl,
+                          LR, REG, MU, su=SU, si=SI, tpg=TPG, **kw)
+            assert float(sse) == want[0] and _same(tabs, want[1])
 
 
-@pytest.mark.parametrize("cell,cut", [("sgd", 20), ("tile", 4)])
+@pytest.mark.parametrize("cell,cut", [("sgd", 20), ("tile", 4),
+                                      ("step_u", 4)])
 def test_measure_tool_plans_the_dense_groups_and_the_tile_cell(capsys, cell,
                                                                cut):
     """``plan --cell sgd`` prints a line per dense group (strata, user
     blocks, the most strata of a window, the chain of its table); ``plan
-    --cell tile`` the tile-bias cell's sweeps."""
+    --cell tile`` and ``--cell step_u`` the tile-bias cell's sweeps."""
     import json
 
     from mfx_torch.measure_wavefront import main
@@ -361,9 +374,9 @@ def test_measure_tool_plans_the_dense_groups_and_the_tile_cell(capsys, cell,
     groups = [r for r in rows if "dense_group" in r]
     carving = [r["dense_carving"] for r in rows if "dense_carving" in r]
     sweeps = [r for r in rows if "sweep" in r]
-    if cell == "tile":
+    if cell != "sgd":
         assert not groups and not carving and sweeps
-        assert all(r["sweep"].startswith("tile sweep") for r in sweeps)
+        assert all(r["sweep"].startswith(f"{cell} sweep") for r in sweeps)
         return
     assert groups and [r["dense_group"] for r in groups] == list(
         range(len(groups)))

@@ -10,7 +10,8 @@ printed as it ends:
 1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: every kernel from mfx_torch/csrc;
 3. kernels against their plain PyTorch versions at the ml25m_rank64
-   preset's shapes (su = si = 1024, T = 256, rank 64, int4): the first
+   preset's shapes (su = si = 1024, T = 256, rank 64, int4; the rank-64
+   instances of the two kernels that phase 11 runs at rank 128): the first
    2,048 tiles of the first non-empty sparse sweep and the first 64
    strata of the first dense group, max abs difference <= 1e-4, two
    kernel runs bitwise equal, and the time of each; then dense_phase on
@@ -64,15 +65,36 @@ printed as it ends:
    > 0 in its run). The train RMSE falls, the held-out RMSE (unclipped)
    ends <= 0.530 and below the untrained model's, the two runs end within
    1e-3 of each other, and a second step_user_batch run of 2 epochs
-   repeats the first's state after 2 epochs bit for bit.
+   repeats the first's state after 2 epochs bit for bit;
+11. sgd_sweep at rank 128 and dense_phase with int8 codes at rank 128
+   against their plain versions at the netflix100m_rank128_dp preset's
+   shapes (su = si = 512, T = 256, rank 128, lane biases, auto carving)
+   on the full netflix synthetic (480,189 x 17,770, 100,480,507 ratings,
+   seed 103, whole stars): the first 2,048 tiles of the sparse sweep and
+   the first 64 strata of dense group 0, same checks and times; the
+   whole sweep and the whole of group 0 twice on one block and twice on
+   the card's count (tables and SSE bitwise equal); then each dense group
+   and the sweep on the card's count, the split of an epoch;
+12. the netflix path: train_epochs_blocked with netflix100m_rank128_dp and
+   parallel.mode=single, 3 of its 15 epochs (epochs are depth, cut for
+   time): both kernels launched, the train RMSE falls every epoch and the
+   held-out RMSE (unclipped) lies below the untrained model's after every
+   epoch (the reference's own held-out RMSE on this synthetic is lowest
+   after the first epoch: tests/test_torch_slice.py::
+   test_netflix_cut_follows_the_reference_trainer), peak memory <= 80 GB,
+   and a second run of 1 epoch repeats the first run's state after epoch
+   1 bit for bit.
 
 Each phase prints its wall time. The second-to-last line is a JSON object
 describing each kernel (times, launches on the main path, and the bound:
 the least time the card could take for the same bytes and operations; for
 the sweeps also the whole-sweep times on one block and on the card's
 count; for dense_phase those of 256 strata and the times of group 0 and
-of the epoch's dense phase; for tile_topk every variant's times and the
-stock path's, whose f32 depth-2 time is its library_ms); the last is
+of the epoch's dense phase, for dense_phase_int8_r128 those of the whole
+group 0; for tile_topk every variant's times and the stock path's, whose
+f32 depth-2 time is its library_ms). The rank-128 forms are entries of
+their own (sgd_sweep_r128, dense_phase_int8_r128), their launches from
+phase 12; the last is
 {"ok": true, "device": {...}}. Any failure
 exits non-zero with no such line, and so does a machine without a CUDA
 device.
@@ -100,6 +122,7 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 SWEEP_TILES = 2048
 DENSE_STRATA = 64
 DENSE_WHOLE = 256  # strata of group 0 run on 1 block and on the card's count
+NETFLIX_EPOCHS = 3  # of netflix100m_rank128_dp's 15: depth, cut for time
 K = 10
 
 
@@ -889,6 +912,267 @@ def tile_bias_phases(dev, sweeps):
     return launches
 
 
+def netflix_phases(dev, results, bounds, sweeps):
+    """Phases 11 and 12: the rank-128 lane sgd_sweep and the int8 rank-128
+    dense_phase against their plain versions at the netflix100m_rank128_dp
+    preset's shapes, each over a whole sweep / group 0 on one block and on
+    the card's count, and the epoch's split; then the preset's path, 3
+    epochs of its 15 (epochs are depth: cut for time), and a 1-epoch
+    repeat. Fills ``results``, ``bounds`` and ``sweeps`` under
+    ``sgd_sweep_r128`` and ``dense_phase_int8_r128``; returns their
+    launches on the path."""
+    import torch
+
+    from mfx_torch.config import apply_overrides, preset
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.data.synthetic import NETFLIX_SHAPE, make_synthetic
+    from mfx_torch.eval.metrics import rmse_mae
+    from mfx_torch.kernels import _build
+    from mfx_torch.kernels import plan_device as pdv
+    from mfx_torch.kernels.dense_phase import (dense_phase, dense_phase_plain,
+                                               group_prefix, plan_launch)
+    from mfx_torch.kernels.packing import lane_tables
+    from mfx_torch.kernels.sgd_sweep import sgd_sweep, sgd_sweep_plain
+    from mfx_torch.models.mf import init_model
+    from mfx_torch.solvers import blocked
+    from mfx_torch.solvers.dense_prep import prepare_dense_full
+
+    cfg = apply_overrides(preset("netflix100m_rank128_dp"),
+                          ["parallel.mode=single"])
+    sgd, seed = cfg.sgd, cfg.data.seed
+    U, I, rank = NETFLIX_SHAPE[0], NETFLIX_SHAPE[1], cfg.model.rank
+    su, si, T, tpg = sgd.ublock, sgd.iblock, sgd.tile, blocked.TPG
+    shards = preset("netflix100m_rank128_dp").parallel.model_axis
+    log(f"[netflix] cell: netflix100m_rank128_dp with parallel.mode=single "
+        f"(one card instead of the preset's {shards}-shard ring); rank "
+        f"{rank}, bias_mode={sgd.bias_mode!r}, su = si = "
+        f"{su}, T = {T}, dense_chi={sgd.dense_chi} dense_span="
+        f"{sgd.dense_span!r}, lr {sgd.lr}, decay {sgd.lr_decay}, reg "
+        f"{sgd.reg}; {NETFLIX_EPOCHS} of its {sgd.epochs} epochs")
+    t0 = time.perf_counter()
+    # the netflix entry of mfx_torch/data/loaders.py (its seeded synthetic)
+    coo = make_synthetic(*NETFLIX_SHAPE, rank=128, seed=103, star_step=1.0,
+                         user_zipf_s=0.6)
+    train, test = train_test_split(coo, cfg.data.test_frac, seed=seed)
+    log(f"[data] {coo.num_users} x {coo.num_items}, {coo.n_ratings} ratings "
+        f"({train.n_ratings} train / {test.n_ratings} test) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del coo
+    mu, lr, reg = float(train.global_mean), sgd.lr, sgd.reg
+
+    def fresh_model():
+        g = torch.Generator(device=dev)
+        g.manual_seed(cfg.model.seed)
+        return init_model(g, U, I, rank, global_mean=train.global_mean,
+                          init_scale=cfg.model.init_scale, device=dev)
+
+    # 11. the kernels at the preset's shapes
+    t_phase = time.perf_counter()
+    rfmt = blocked.dense_rfmt(sgd, rank, train.rating)
+    nwd = blocked.dense_group_windows(rank, si)
+    nwin = blocked.sweep_geometry(I, rank, si)
+    u = torch.as_tensor(train.user).to(dev, torch.int32)
+    i = torch.as_tensor(train.item).to(dev, torch.int32)
+    r = torch.as_tensor(train.rating).to(dev, torch.float32)
+    meta, groups, (u, i, r), info = prepare_dense_full(
+        u, i, r, U, I, su, si, chi_min=sgd.dense_chi, nwd=nwd, rfmt=rfmt)
+    skel = pdv.build_plan_skeleton(u, i, U, I, su, si, T, tpg, nwin)
+    tl = pdv.epoch_tiles_device(skel, u, i, r, seed, 0)
+    sws = [s for s in skel.sweeps if s.t1 > s.t0]
+    A, C = -(-U // su), -(-I // si)
+    log(f"[netflix] geometry: {A} user blocks x {C} windows = {A * C} "
+        f"strata; {nwin} windows a sparse sweep ({len(sws)} sweep(s)), "
+        f"{nwd} a dense group ({len(groups)} groups); {rfmt} codes; "
+        f"{info['num_strata']} dense strata "
+        f"({[g['sa'].shape[0] for g in groups]} a group), dense_frac "
+        f"{info['dense_frac']:.4f}, R image {info['r_stream_bytes']} bytes; "
+        f"{tl.shape[0]} tiles an epoch")
+    if (A, C, nwin, nwd, rfmt) != (938, 35, 35, 16, "int8"):
+        raise AssertionError("the netflix geometry is not the reference's")
+    for g in groups:
+        plan_launch(g, su, si, rank)  # the launch orders, on the host
+    P, Q = lane_tables(fresh_model(), su, si, dev)
+    lib = _build.load_library()
+
+    win0, nw = meta[0]
+    seg = slice(win0 * si, (win0 + nw) * si)
+    grp = group_prefix(groups[0], DENSE_STRATA)
+    log(f"[kernel] dense_phase_int8_r128: {grp['sa'].shape[0]} strata of "
+        f"group 0 ({rfmt}, {su}x{si}, rank {rank}); critical path "
+        f"{grp['deps'].critical} strata")
+    results["dense_phase_int8_r128"] = compare(
+        "dense_phase_int8_r128",
+        lambda Pt, Qt: dense_phase(Pt, Qt[seg], grp, lr, reg, mu, su=su,
+                                   si=si, deps=grp["deps"]),
+        lambda Pt, Qt: dense_phase_plain(Pt, Qt[seg], grp, lr, reg, mu,
+                                         su=su, si=si),
+        (P, Q))
+    bounds["dense_phase_int8_r128"] = dense_bound([grp], su, si, rank)
+    dense_card = lib.mfx_dense_phase_max_blocks(rank, 1)
+    g0 = groups[0]
+    sweeps["dense_phase_int8_r128"] = whole_sweep(
+        "dense_phase_int8_r128 (group 0)",
+        lambda Pt, Qt, blocks: dense_phase(Pt, Qt[seg], g0, lr, reg, mu,
+                                           su=su, si=si, deps=g0["deps"],
+                                           blocks=blocks),
+        (P, Q), g0["deps"], dense_card, grid=dense_card, unit="strata")
+    sweeps["dense_phase_int8_r128"]["sweep_bound_ms"] = dense_bound(
+        [g0], su, si, rank)[0]
+
+    sw = sws[0]
+    nt = min(SWEEP_TILES, sw.t1 - sw.t0)
+    sa, tc = sw.sa[:nt // tpg].contiguous(), sw.tc[:nt].contiguous()
+    tls = tl[sw.t0:sw.t0 + nt]
+    deps = sw.deps.prefix(nt)
+    seg_s = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
+    log(f"[kernel] sgd_sweep_r128: {nt} tiles of the sweep (T={T}, rank "
+        f"{rank}); they hold {deps.runs.shape[0]} runs, critical path "
+        f"{deps.critical} tiles")
+    results["sgd_sweep_r128"] = compare(
+        "sgd_sweep_r128",
+        lambda Pt, Qt: sgd_sweep(Pt, Qt[seg_s], sa, tc, tls, lr, reg, mu,
+                                 su=su, si=si, tpg=tpg, deps=deps),
+        lambda Pt, Qt: sgd_sweep_plain(Pt, Qt[seg_s], sa, tc, tls, lr, reg,
+                                       mu, su=su, si=si, tpg=tpg),
+        (P, Q))
+    # per real slot, as sgd_sweep: 10 rank
+    bounds["sgd_sweep_r128"] = sweep_bound(tls, sa, tc, su, si, tpg, rank,
+                                           [("P", 0), ("Q", 1)], 10)
+    sweeps["sgd_sweep_r128"] = whole_sweep(
+        "sgd_sweep_r128",
+        lambda Pt, Qt, blocks: sgd_sweep(
+            Pt, Qt[seg_s], sw.sa, sw.tc, tl[sw.t0:sw.t1], lr, reg, mu,
+            su=su, si=si, tpg=tpg, deps=sw.deps, blocks=blocks),
+        (P, Q), sw.deps, lib.mfx_sgd_sweep_max_blocks(T, rank))
+    sweeps["sgd_sweep_r128"]["sweep_bound_ms"] = sweep_bound(
+        tl[sw.t0:sw.t1], sw.sa, sw.tc, su, si, tpg, rank,
+        [("P", 0), ("Q", 1)], 10)[0]
+    for name in ("dense_phase_int8_r128", "sgd_sweep_r128"):
+        log(f"[kernel] {name} bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]}); whole {sweeps[name]['sweep_bound_ms']:.4f}"
+            " ms")
+
+    # where an epoch goes: each dense group, then the sparse sweep(s), in
+    # the trainer's order on the card's grid, from the untrained tables
+    # (the kernels' work does not depend on the values)
+    Pt, Qt = P.clone(), Q.clone()
+    split = []
+    for k, ((w0, n), g) in enumerate(zip(meta, groups)):
+        def run_group(g=g, w0=w0, n=n):
+            dense_phase(Pt, Qt[w0 * si:(w0 + n) * si], g, lr, reg, mu, su=su,
+                        si=si, deps=g["deps"])
+        run_group()  # warm-up
+        ms = cuda_ms(run_group, reps=2)
+        b = dense_bound([g], su, si, rank)
+        split.append((f"dense group {k}", g["deps"].n_tiles,
+                      g["deps"].critical, ms, b[0]))
+    for k, s in enumerate(sws):
+        sg = slice(s.win0 * si, (s.win0 + s.nwin) * si)
+
+        def run_sweep(s=s, sg=sg):
+            sgd_sweep(Pt, Qt[sg], s.sa, s.tc, tl[s.t0:s.t1], lr, reg, mu,
+                      su=su, si=si, tpg=tpg, deps=s.deps)
+        ms = cuda_ms(run_sweep, reps=2)
+        b = sweep_bound(tl[s.t0:s.t1], s.sa, s.tc, su, si, tpg, rank,
+                        [("P", 0), ("Q", 1)], 10)
+        split.append((f"sparse sweep {k}", s.deps.n_tiles, s.deps.critical,
+                      ms, b[0]))
+    for what, n, crit, ms, b in split:
+        unit = "strata" if what.startswith("dense") else "tiles"
+        log(f"[netflix] epoch split, {what}: {n} {unit}, critical path "
+            f"{crit}: {ms:.4f} ms (mean of 2) against a bound of {b:.4f} ms")
+    dense_ms = sum(x[3] for x in split if x[0].startswith("dense"))
+    sparse_ms = sum(x[3] for x in split if x[0].startswith("sparse"))
+    log(f"[netflix] epoch split: dense {dense_ms:.4f} ms + sparse "
+        f"{sparse_ms:.4f} ms = {dense_ms + sparse_ms:.4f} ms of kernels")
+    sweeps["dense_phase_int8_r128"]["epoch_dense_ms"] = dense_ms
+    sweeps["sgd_sweep_r128"]["epoch_sparse_ms"] = sparse_ms
+    del Pt, Qt, P, Q, meta, groups, grp, g0, skel, tl, tls, u, i, r, sws
+    torch.cuda.empty_cache()
+    log(f"[time] phase 11 {time.perf_counter() - t_phase:.1f} s")
+
+    # 12. the path, through the trainer
+    t_phase = time.perf_counter()
+    base_rmse, _ = rmse_mae(fresh_model(), test)
+    log(f"[netflix] untrained held-out rmse {base_rmse:.5f} (unclipped)")
+    run_sgd = dataclasses.replace(sgd, epochs=NETFLIX_EPOCHS)
+    sgd_sweep.launches = 0
+    dense_phase.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings: dict = {}
+    trains, tests, epoch_ss, after1, plan_seen = [], [], [], None, 0.0
+    torch.cuda.synchronize()
+    t_prev = time.perf_counter()
+    for epoch, m, tr in blocked.train_epochs_blocked(
+            fresh_model(), train, run_sgd, cfg.model.use_bias, seed=seed,
+            device=dev, timings=timings):
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_prev
+        plan_s = timings["plan_s"] - plan_seen
+        plan_seen = timings["plan_s"]
+        epoch_s = wall - plan_s - (timings["prep_s"] if epoch == 0 else 0.0)
+        if epoch == 0:
+            info = timings["dense_info"]
+            log(f"[netflix] prep {timings['prep_s']:.3f} s: dense_frac "
+                f"{info['dense_frac']:.4f}, {info['num_strata']} strata in "
+                f"{info['num_groups']} groups, R image "
+                f"{info['r_stream_bytes']} bytes; (tiles, critical path) "
+                f"of each sparse sweep {timings['sweep_tiles']}")
+            after1 = {k: getattr(m, k).clone() for k in ("P", "Q", "bu", "bi")}
+            after1["train"] = float(tr)
+        test_rmse, test_mae = rmse_mae(m, test)
+        trains.append(float(tr))
+        tests.append(test_rmse)
+        epoch_ss.append(epoch_s)
+        log(f"[netflix] epoch {epoch}: epoch_s {epoch_s:.4f} plan_s "
+            f"{plan_s:.4f} train_rmse {float(tr):.5f} test_rmse "
+            f"{test_rmse:.5f} test_mae {test_mae:.5f}")
+        finite = all(bool(torch.isfinite(getattr(m, k)).all())
+                     for k in ("P", "Q", "bu", "bi"))
+        if not finite or m.P.shape != (U, rank) or m.Q.shape != (I, rank):
+            raise AssertionError("netflix: tables not finite or mis-shaped")
+        t_prev = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {"sgd_sweep_r128": sgd_sweep.launches,
+                "dense_phase_int8_r128": dense_phase.launches}
+    log(f"[netflix] launches {launches}, peak memory allocated {peak} bytes")
+    log(f"[netflix] steady epoch_s {epoch_ss[-1]:.4f} against phase 11's "
+        f"kernels {(dense_ms + sparse_ms) / 1e3:.4f} s (dense "
+        f"{dense_ms / 1e3:.4f}, sparse {sparse_ms / 1e3:.4f})")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if peak > 80e9:
+        raise AssertionError(f"peak memory {peak} above 80 GB")
+    # the reference's own held-out RMSE on this synthetic is lowest after
+    # the first epoch and rises after it, while the train RMSE falls
+    # (tests/test_torch_slice.py::
+    # test_netflix_cut_follows_the_reference_trainer, at 1/200 of the
+    # shape): so every epoch's held-out RMSE must lie below the untrained
+    # model's and the train RMSE must fall every epoch
+    if (len(tests) != NETFLIX_EPOCHS or max(tests) >= base_rmse
+            or any(b >= a for a, b in zip(trains, trains[1:]))):
+        raise AssertionError(
+            f"netflix: held-out RMSE {tests} not below the untrained "
+            f"{base_rmse} after every epoch, or the train RMSE {trains} "
+            "did not fall every epoch")
+    log(f"[netflix] held-out RMSE below the untrained {base_rmse:.5f} after "
+        f"every epoch ({' '.join(f'{x:.5f}' for x in tests)}; lowest after "
+        f"epoch {1 + tests.index(min(tests))}); train RMSE falls every epoch")
+    del m
+    for _, again, tr in blocked.train_epochs_blocked(
+            fresh_model(), train, dataclasses.replace(sgd, epochs=1),
+            cfg.model.use_bias, seed=seed, device=dev):
+        pass
+    if float(tr) != after1["train"] or not all(
+            torch.equal(getattr(again, k), after1[k])
+            for k in ("P", "Q", "bu", "bi")):
+        raise AssertionError("netflix: a second run of 1 epoch differs")
+    log("[netflix] a second run of 1 epoch repeats the first run's state "
+        "after epoch 1 bit for bit")
+    log(f"[time] phase 12 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -952,7 +1236,7 @@ def main() -> int:
     u = torch.as_tensor(train.user).to(dev, torch.int32)
     i = torch.as_tensor(train.item).to(dev, torch.int32)
     r = torch.as_tensor(train.rating).to(dev, torch.float32)
-    meta, groups, (u, i, r), _ = prepare_dense_full(
+    meta, groups, (u, i, r), info3 = prepare_dense_full(
         u, i, r, U, I, su, si, chi_min=sgd.dense_chi,
         nwd=blocked.dense_group_windows(rank, si), rfmt=rfmt)
     skel = pdv.build_plan_skeleton(u, i, U, I, su, si, T, tpg,
@@ -981,8 +1265,9 @@ def main() -> int:
     # the first DENSE_WHOLE strata of group 0 on one block and on the
     # card's count; then group 0 and the dense phase of an epoch
     head = group_prefix(groups[0], DENSE_WHOLE)
-    plan_launch(head, su, si)  # the launch order, on the host, untimed
-    dense_card = _build.load_library().mfx_dense_phase_max_blocks()
+    plan_launch(head, su, si, rank)  # the launch order, on the host, untimed
+    dense_card = _build.load_library().mfx_dense_phase_max_blocks(
+        rank, int(rfmt == "int8"))
     sweeps = {"dense_phase": whole_sweep(
         "dense_phase",
         lambda Pt, Qt, blocks: dense_phase(Pt, Qt[seg], head, lr, reg, mu,
@@ -1010,6 +1295,30 @@ def main() -> int:
             f"strata, critical path {crit} strata, {dense_card} blocks: "
             f"{ms:.4f} ms (mean of 3, tables copied in); bound {b[0]:.4f} "
             f"ms ({b[1]})")
+
+    # the int8 codes' rank-64 instance on the same strata (the int4 run's
+    # threshold): no preset's path runs it (ml25m_rank64's half-star
+    # ratings take int4), so it is timed here beside int4 and holds no
+    # launch count
+    _, groups8, _, _ = prepare_dense_full(
+        *(torch.as_tensor(x).to(dev) for x in (train.user, train.item,
+                                                train.rating)),
+        U, I, su, si, chi_min=info3["chi_effective"],
+        nwd=blocked.dense_group_windows(rank, si), rfmt="int8")
+    grp8 = group_prefix(groups8[0], DENSE_STRATA)
+    if not torch.equal(grp8["sa"], grp["sa"]):
+        raise AssertionError("the int8 carving took other strata")
+    err8, ms8, plain8 = compare(
+        "dense_phase int8 rank 64",
+        lambda Pt, Qt: dense_phase(Pt, Qt[seg], grp8, lr, reg, mu, su=su,
+                                   si=si, deps=grp8["deps"]),
+        lambda Pt, Qt: dense_phase_plain(Pt, Qt[seg], grp8, lr, reg, mu,
+                                         su=su, si=si),
+        (P, Q))
+    sweeps["dense_phase"]["int8_rank64"] = {
+        "strata": DENSE_STRATA, "max_abs_err": err8, "ms": ms8,
+        "plain_ms": plain8, "bound_ms": dense_bound([grp8], su, si, rank)[0]}
+    del groups8, grp8
 
     sw = next(s for s in skel.sweeps if s.t1 > s.t0)
     nt = min(SWEEP_TILES, sw.t1 - sw.t0)
@@ -1044,7 +1353,8 @@ def main() -> int:
         lambda Pt, Qt, blocks: sgd_sweep(
             Pt, Qt[seg_s], sw.sa, sw.tc, tl[sw.t0:sw.t1], lr, reg, mu, su=su,
             si=si, tpg=tpg, deps=sw.deps, blocks=blocks),
-        (P, Q), sw.deps, _build.load_library().mfx_sgd_sweep_max_blocks(T))
+        (P, Q), sw.deps,
+        _build.load_library().mfx_sgd_sweep_max_blocks(T, rank))
     # the same tiles through the tile-bias and step-batched bodies, on
     # the plain tables of the same model
     tile_bias_compare(results, bounds, plain_tables(fresh_model(), su, si, dev),
@@ -1121,17 +1431,28 @@ def main() -> int:
     # 9-10. the tile-bias path
     launches.update(tile_bias_phases(dev, sweeps))
 
+    # 11-12. the netflix path (rank 128, int8 codes)
+    launches.update(netflix_phases(dev, results, bounds, sweeps))
+
     replaces = {"sgd_sweep": "mfx/kernels/sgd_pallas.py:63",
                 "dense_phase": "mfx/kernels/dense_pallas.py:86",
                 "tile_topk": "mfx/kernels/serve_pallas.py:42",
                 "bpr_sweep": "mfx/kernels/bpr_pallas.py:47",
                 "sgd_sweep_tile": "mfx/kernels/sgd_pallas.py:63",
-                "sgd_sweep_step_u": "mfx/kernels/sgd_pallas.py:363"}
-    variants = {"sgd_sweep": "bias_mode='lane'",
-                "sgd_sweep_tile": "bias_mode='tile'"}
+                "sgd_sweep_step_u": "mfx/kernels/sgd_pallas.py:363",
+                "sgd_sweep_r128": "mfx/kernels/sgd_pallas.py:63",
+                "dense_phase_int8_r128": "mfx/kernels/dense_pallas.py:86"}
+    sources = {"sgd_sweep_r128": "sgd_sweep", "dense_phase_int8_r128":
+               "dense_phase"}
+    variants = {"sgd_sweep": "bias_mode='lane', rank 64",
+                "sgd_sweep_tile": "bias_mode='tile'",
+                "dense_phase": "lane, int4 codes, rank 64",
+                "sgd_sweep_r128": "bias_mode='lane', rank 128",
+                "dense_phase_int8_r128": "lane, int8 codes, rank 128"}
     log(f"[card] {card}")
     log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": f"mfx_torch/csrc/{name}.cu",
+        {"name": name, "route": "cuda",
+         "source": f"mfx_torch/csrc/{sources.get(name, name)}.cu",
          "replaces": replaces[name],
          **({"variant": variants[name]} if name in variants else {}),
          "launches": launches[name],

@@ -1,6 +1,8 @@
 """CLI of the port.
 
     python -m mfx_torch.cli train --preset ml25m_rank64 [--set k=v ...] [--device cuda]
+    python -m mfx_torch.cli train --preset netflix100m_rank128_dp \
+        --set parallel.mode=single
     python -m mfx_torch.cli train --preset billion_bpr_sharded \
         --set parallel.model_axis=1 [--set data.dataset=...]
     python -m mfx_torch.cli recommend --checkpoint ckpt/ --users 3,17 [--fused]

@@ -1,24 +1,32 @@
-// Dense-stratum SGD phase (lane-carried biases, int4 rating codes, rank 64).
+// Dense-stratum SGD phase (lane-carried biases): int4 rating codes at rank
+// 64, int8 codes at ranks 64 and 128.
 //
 // Replaces: mfx/kernels/dense_pallas.py::_kernel_body (lane=True,
-// rfmt='int4', echo=1, spg=1), driven by dense_sgd_phase_pallas.
+// rfmt='int4' or 'int8', echo=1, spg=1), driven by dense_sgd_phase_pallas.
 //
 // What it computes, per dense stratum (user block a = sa[s], item window
 // c = sc[s]), strata in plan order, each a snapshot minibatch:
 //   S = P_blk Q_winᵀ                       (su x si, from the snapshot)
-//   E = [code > 0] ∘ ((code / 2 − S) − mu)  (biases ride in S)
+//   E = [code > 0] ∘ ((code · c − S) − mu)  (biases ride in S; c = 1/2
+//                                            for int4, f32(1/25) for int8)
 //   P_blk += lr s_u ∘ (E Q_win − reg Du ∘ P_blk), lane rank-2 frozen
 //   Q_win += lr s_i ∘ (Eᵀ P_blk − reg Di ∘ Q_win), lane rank-1 frozen
 //   s = min(1, DSTAR / max(deg, 1)), DSTAR = 16; Du/Di = per-stratum raw
 //   rating degrees; sse += Σ E² (first-pass semantics)
 // R holds int4 codes round(2 r), 0 = absent, plain (su, si/2) bytes per
-// stratum with the even column in the low nibble.
+// stratum with the even column in the low nibble; or int8 codes
+// round(25 r), plain (su, si) bytes per stratum. The kernel is a template
+// over the rank (64, 128) and the code format; rank 128 takes int8 only,
+// as the reference does. At rank 128 the snapshot rows and a thread's dP
+// and dQ outputs double (lanes 4 tx + n and 64 + 4 tx + n), and an apply
+// unit owns 128 rows (64 where 128 does not divide si).
 //
 // Form: one persistent launch a dense group. Its blocks take work units
 // by an integer ticket; a stratum is 2 pieces of each of its su/64 row
-// panels and then si/256 (si/128 where 256 does not divide si) Q-apply
-// units. Strata are handed out in an order the wrapper gives (from the
-// group's dependency table), or plan order without a table.
+// panels and then si/256 at rank 64, si/128 at rank 128 (twice as many
+// where that does not divide si) Q-apply units. Strata are handed out in
+// an order the wrapper gives (from the group's dependency table), or plan
+// order without a table.
 // - A piece of a row panel owns 64 rows of P_blk and half of Q_win's
 //   64-column chunks. Per chunk it builds S and E for its rows from the
 //   snapshot, adds the chunk's E Q to its rows' dP (registers; the second
@@ -27,10 +35,10 @@
 //   last piece of a panel to finish adds the first piece's dP and the
 //   other chunks' partials in chunk order, writes the panel's own P rows
 //   (no other unit of the stratum reads them) and counts the panel done.
-// - A Q-apply unit owns 256 (or 128) rows of Q_win. It waits until
-//   every panel of its stratum is done, adds the partials in panel order,
-//   and writes its Q rows. The last apply unit to finish publishes the
-//   stratum's end.
+// - A Q-apply unit owns 256 (or 128) rows of Q_win at rank 64, half as
+//   many at rank 128. It waits until every panel of its stratum is done,
+//   adds the partials in panel order, and writes its Q rows. The last
+//   apply unit to finish publishes the stratum's end.
 // - Two strata conflict only if they share a user block or a window
 //   (the group's dependency table, plan_device.sweep_deps with one "tile"
 //   a stratum): every panel unit of stratum s waits for its user block's
@@ -41,7 +49,7 @@
 //   grid is free of deadlock, and strata whose user blocks and windows
 //   differ run at once.
 // Every value keeps the order of the one-stratum-at-a-time walk: S is a
-// fma chain over k = 0..63 from 0, a dP or dQ partial a chain over the
+// fma chain over k = 0..rank-1 from 0, a dP or dQ partial a chain over the
 // 64 columns of a chunk or the 64 rows of a panel, partials are added
 // from 0 in chunk or panel order, then p + lr·scale·(g − reg·deg·p). So
 // the tables are bit for bit the same on any grid (and those of the
@@ -57,10 +65,11 @@
 // end is published by barrier, __threadfence() and st.release.gpu, and
 // waited for with ld.acquire.gpu (sweep_common.cuh).
 //
-// What bounds it on an H100: the three 64-deep products per cell are
-// 3 * 2 * su * si * 64 FLOP a stratum (0.4 GFLOP at 1024², 6.0 µs of f32
-// FMA on the whole card) against su*si/2 bytes of R: compute. The design
-// feeds 64 FMAs from eight 16-byte shared loads, each one wavefront for
+// What bounds it on an H100: the three rank-deep products per cell are
+// 3 * 2 * su * si * rank FLOP a stratum (0.4 GFLOP at 1024² and rank 64,
+// 6.0 µs of f32 FMA on the whole card; 0.2 GFLOP, 3.0 µs at 512² and rank
+// 128) against su*si/2 (int4) or su*si (int8) bytes of R: compute. The
+// design feeds 64 FMAs from eight 16-byte shared loads, each one wavefront for
 // the warp (4 x 4 outputs a thread, k / j / r four at a time, the loops
 // unrolled over one block an SM's registers), keeps the products' inputs
 // in shared memory and dP in registers, and keeps as many strata in
@@ -71,23 +80,45 @@
 
 namespace {
 
-constexpr int RANK = 64;
-constexpr int R4 = RANK / 4;  // float4 a row
 constexpr int BAND = 64;      // P_blk rows of a panel unit
 constexpr int CH = 64;        // Q_win columns of a chunk
-constexpr int QROWS = 256;    // Q_win rows of an apply unit (128 where
-                              // 256 does not divide si)
 constexpr int PIECES = 2;     // pieces a row panel is cut into
-constexpr int PITCH = RANK + 4;  // shared row pitch in floats (16-byte rows)
+constexpr int EPITCH = CH + 4;  // shared row pitch of E in floats
 constexpr int NT = 256;       // 16 x 16 threads
 constexpr float DSTAR = 16.f;
 
+// The kernel's shapes at rank RANK with int8 (INT8) or int4 codes.
+template <int RANK, bool INT8>
+struct Form {
+  static constexpr int R4 = RANK / 4;      // float4 a row
+  static constexpr int LQ = RANK / 64;     // lane quads a thread owns in
+                                           // dP and dQ: 4 tx + 64 h
+  static constexpr int PITCH = RANK + 4;   // shared row pitch in floats
+                                           // (16-byte rows)
+  static constexpr int CODE_ROW = INT8 ? CH : CH / 2;  // code bytes of a
+                                                       // chunk row
+  static constexpr int CODE_U4 = BAND * CODE_ROW / 16;  // uint4 a chunk
+  static constexpr int QROWS = 256 * 64 / RANK;  // Q_win rows of an apply
+                                                 // unit (half where it
+                                                 // does not divide si)
+  static constexpr float SCALE = INT8 ? 0.04f : 0.5f;  // code -> rating
+
+  static __device__ __forceinline__ int row_bytes(int si) {
+    return INT8 ? si : si / 2;
+  }
+  static __host__ __device__ __forceinline__ int apply_rows(int si) {
+    return si % QROWS == 0 ? QROWS : QROWS / 2;
+  }
+};
+
+template <int RANK, bool INT8>
 struct Smem {
-  float Pr[BAND * PITCH];  // P_band snapshot, row-major
-  float Qr[CH * PITCH];    // the chunk's Q rows, row-major
-  float Er[BAND * PITCH];  // E[r][c]
-  float Ec[CH * PITCH];    // E[c][r]
-  uint4 Rs[BAND * CH / 32];  // the chunk's codes: 32 bytes a row
+  using F = Form<RANK, INT8>;
+  float Pr[BAND * F::PITCH];  // P_band snapshot, row-major
+  float Qr[CH * F::PITCH];    // the chunk's Q rows, row-major
+  float Er[BAND * EPITCH];    // E[r][c]
+  float Ec[CH * EPITCH];      // E[c][r]
+  uint4 Rs[F::CODE_U4];       // the chunk's codes
   float red[NT / 32];
   int ticket;
   int flag;
@@ -114,6 +145,7 @@ __device__ __forceinline__ float update(float p, float g, float deg,
 }
 
 // The float4 at row `row`, column `col` of a (rows, PITCH) shared array.
+template <int PITCH>
 __device__ __forceinline__ float4 ld4(const float* a, int row, int col) {
   return *reinterpret_cast<const float4*>(a + row * PITCH + col);
 }
@@ -124,10 +156,6 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
 
 __device__ __forceinline__ int stratum_at(const DenseSched& ds, int pos) {
   return ds.order == nullptr ? pos : ds.order[pos];
-}
-
-__device__ __forceinline__ int apply_rows(int si) {
-  return si % QROWS == 0 ? QROWS : QROWS / 2;
 }
 
 // Thread 0: wait until stratum s, handed out at place pos, may read its
@@ -152,63 +180,93 @@ __device__ void await_stratum(const DenseSched& ds, int s, int pos) {
       while (mfx_sweep::ld_acquire(fin + x) == 0) __nanosleep(64);
 }
 
-// The chunk's Q rows and codes into registers (4 float4 + 1 uint4).
-__device__ __forceinline__ void load_chunk(float4 (&qn)[4], uint4& rn,
-                                           const float* Q, long long qrow,
-                                           const uint8_t* Rb, int si,
-                                           int ch) {
+// The chunk's Q rows and codes into registers (R4 / 4 float4 + 1 uint4).
+template <int RANK, bool INT8>
+__device__ __forceinline__ void load_chunk(float4 (&qn)[RANK / 16],
+                                           uint4& rn, const float* Q,
+                                           long long qrow, const uint8_t* Rb,
+                                           int si, int ch) {
+  using F = Form<RANK, INT8>;
+  constexpr int R4 = F::R4;
+  constexpr int SHIFT = INT8 ? 2 : 1;  // log2 of the uint4 a chunk row
   const int tid = threadIdx.x;
   const float4* Q4 = reinterpret_cast<const float4*>(Q);
 #pragma unroll
-  for (int t = 0; t < 4; ++t) {
+  for (int t = 0; t < RANK / 16; ++t) {
     const int idx = tid + t * NT, row = idx / R4, q = idx % R4;
     qn[t] = __ldcg(Q4 + (qrow + ch * CH + row) * R4 + q);
   }
-  if (tid < BAND * 2)
-    rn = *reinterpret_cast<const uint4*>(Rb + (long long)(tid >> 1) * (si / 2)
-                                         + ch * (CH / 2) + (tid & 1) * 16);
+  static_assert(F::CODE_ROW == 16 << SHIFT, "a chunk row is 2 or 4 uint4");
+  if (tid < F::CODE_U4)
+    rn = *reinterpret_cast<const uint4*>(
+        Rb + (long long)(tid >> SHIFT) * F::row_bytes(si) +
+        ch * F::CODE_ROW + (tid & ((1 << SHIFT) - 1)) * 16);
 }
 
-__device__ __forceinline__ void store_chunk(Smem& sm, const float4 (&qn)[4],
+template <int RANK, bool INT8>
+__device__ __forceinline__ void store_chunk(Smem<RANK, INT8>& sm,
+                                            const float4 (&qn)[RANK / 16],
                                             const uint4& rn) {
+  using F = Form<RANK, INT8>;
   const int tid = threadIdx.x;
 #pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int idx = tid + t * NT, row = idx / R4, q = idx % R4;
-    *reinterpret_cast<float4*>(&sm.Qr[row * PITCH + 4 * q]) = qn[t];
+  for (int t = 0; t < RANK / 16; ++t) {
+    const int idx = tid + t * NT, row = idx / F::R4, q = idx % F::R4;
+    *reinterpret_cast<float4*>(&sm.Qr[row * F::PITCH + 4 * q]) = qn[t];
   }
-  if (tid < BAND * 2) sm.Rs[tid] = rn;
+  if (tid < F::CODE_U4) sm.Rs[tid] = rn;
 }
 
-// A 64 x 64 tile of dP in device memory, [row][lane], from / into the
-// registers of thread (ty, tx): rows ty + 16m, lanes 4tx + n.
-__device__ __forceinline__ void store_tile(float* t, const float (&v)[4][4],
+// The code of row r, column c of the chunk in shared memory.
+template <bool INT8>
+__device__ __forceinline__ int code_at(const uint8_t* Rs, int r, int c) {
+  if (INT8) return Rs[r * CH + c];
+  const uint8_t byte = Rs[r * (CH / 2) + (c >> 1)];
+  return (c & 1) ? (byte >> 4) : (byte & 15);
+}
+
+// A 64 x RANK tile of dP in device memory, [row][lane], from / into the
+// registers of thread (ty, tx): rows ty + 16m, lanes 64h + 4tx + n held at
+// [m][4h + n].
+template <int RANK>
+__device__ __forceinline__ void store_tile(float* t,
+                                           const float (&v)[4][RANK / 16],
                                            int ty, int tx) {
 #pragma unroll
   for (int m = 0; m < 4; ++m)
-    __stcg(reinterpret_cast<float4*>(t + (ty + 16 * m) * RANK + 4 * tx),
-           make_float4(v[m][0], v[m][1], v[m][2], v[m][3]));
-}
-
-__device__ __forceinline__ void load_tile(float (&v)[4][4], const float* t,
-                                          int ty, int tx) {
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const float4 x =
-        __ldcg(reinterpret_cast<const float4*>(t + (ty + 16 * m) * RANK) + tx);
-    v[m][0] = x.x;
-    v[m][1] = x.y;
-    v[m][2] = x.z;
-    v[m][3] = x.w;
-  }
+    for (int h = 0; h < RANK / 64; ++h)
+      __stcg(reinterpret_cast<float4*>(t + (ty + 16 * m) * RANK + 64 * h +
+                                       4 * tx),
+             make_float4(v[m][4 * h], v[m][4 * h + 1], v[m][4 * h + 2],
+                         v[m][4 * h + 3]));
 }
 
-__device__ void panel_unit(Smem& sm, float* P, const float* Q,
+template <int RANK>
+__device__ __forceinline__ void load_tile(float (&v)[4][RANK / 16],
+                                          const float* t, int ty, int tx) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int h = 0; h < RANK / 64; ++h) {
+      const float4 x = __ldcg(reinterpret_cast<const float4*>(
+          t + (ty + 16 * m) * RANK + 64 * h + 4 * tx));
+      v[m][4 * h] = x.x;
+      v[m][4 * h + 1] = x.y;
+      v[m][4 * h + 2] = x.z;
+      v[m][4 * h + 3] = x.w;
+    }
+}
+
+template <int RANK, bool INT8>
+__device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
                            const int* sa, const int* sc, const uint8_t* R,
                            const float* du, float* ring_buf, float* dp_buf,
                            float* sums, const DenseSched& ds, int s, int pos,
                            int band, int piece, int su, int si, float lr,
                            float reg, float mu) {
+  using F = Form<RANK, INT8>;
+  constexpr int R4 = F::R4, LQ = F::LQ, PITCH = F::PITCH, NO = 4 * LQ;
   // a warp holds 4 values of ty and 8 of tx, so that each of its 16-byte
   // shared loads touches at most 128 distinct bytes (one wavefront)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -224,7 +282,8 @@ __device__ void panel_unit(Smem& sm, float* P, const float* Q,
   __syncthreads();
   const long long prow = (long long)sa[s] * su + band * BAND;
   const long long qrow = (long long)sc[s] * si;
-  const uint8_t* Rb = R + ((long long)s * su + band * BAND) * (si / 2);
+  const uint8_t* Rb =
+      R + ((long long)s * su + band * BAND) * F::row_bytes(si);
   float* slot =
       ring_buf + ((long long)(pos % ds.ring) * nb + band) * si * RANK;
   float4* P4 = reinterpret_cast<float4*>(P);
@@ -233,22 +292,23 @@ __device__ void panel_unit(Smem& sm, float* P, const float* Q,
     *reinterpret_cast<float4*>(&sm.Pr[row * PITCH + 4 * q]) =
         __ldcg(P4 + (prow + row) * R4 + q);
   }
-  float4 qn[4];
+  float4 qn[RANK / 16];
   uint4 rn = make_uint4(0, 0, 0, 0);
-  load_chunk(qn, rn, Q, qrow, Rb, si, c0);
+  load_chunk<RANK, INT8>(qn, rn, Q, qrow, Rb, si, c0);
   store_chunk(sm, qn, rn);
 
-  float g[4][4];  // dP of rows ty + 16m, lanes 4tx + n, over the chunks
+  float g[4][NO];  // dP of rows ty + 16m, lanes 64h + 4tx + n at
+                   // [m][4h + n], over the chunks
 #pragma unroll
   for (int m = 0; m < 4; ++m)
 #pragma unroll
-    for (int n = 0; n < 4; ++n) g[m][n] = 0.f;
+    for (int n = 0; n < NO; ++n) g[m][n] = 0.f;
   float sq = 0.f;
   const uint8_t* Rs = reinterpret_cast<const uint8_t*>(sm.Rs);
 
   for (int ch = c0; ch < c1; ++ch) {
     __syncthreads();
-    if (ch + 1 < c1) load_chunk(qn, rn, Q, qrow, Rb, si, ch + 1);
+    if (ch + 1 < c1) load_chunk<RANK, INT8>(qn, rn, Q, qrow, Rb, si, ch + 1);
 
     // S, then E, for rows ty + 16m and the chunk's columns tx + 16n
     float acc[4][4];
@@ -261,10 +321,10 @@ __device__ void panel_unit(Smem& sm, float* P, const float* Q,
       float4 a[4], b[4];
 #pragma unroll
       for (int m = 0; m < 4; ++m)
-        a[m] = ld4(sm.Pr, ty + 16 * m, k);
+        a[m] = ld4<PITCH>(sm.Pr, ty + 16 * m, k);
 #pragma unroll
       for (int n = 0; n < 4; ++n)
-        b[n] = ld4(sm.Qr, tx + 16 * n, k);
+        b[n] = ld4<PITCH>(sm.Qr, tx + 16 * n, k);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -279,77 +339,92 @@ __device__ void panel_unit(Smem& sm, float* P, const float* Q,
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         const int c = tx + 16 * n;
-        const uint8_t byte = Rs[r * (CH / 2) + (c >> 1)];
-        const int code = (c & 1) ? (byte >> 4) : (byte & 15);
-        const float e = code > 0 ? ((float)code * 0.5f - acc[m][n]) - mu : 0.f;
-        sm.Er[r * PITCH + c] = e;
-        sm.Ec[c * PITCH + r] = e;
+        const int code = code_at<INT8>(Rs, r, c);
+        const float e =
+            code > 0 ? ((float)code * F::SCALE - acc[m][n]) - mu : 0.f;
+        sm.Er[r * EPITCH + c] = e;
+        sm.Ec[c * EPITCH + r] = e;
         sq = fmaf(e, e, sq);
       }
     }
     __syncthreads();
 
-    // the chunk's dP: rows ty + 16m, lanes 4tx + n, over its columns j
-    float d[4][4];
+    // the chunk's dP: rows ty + 16m, lanes 64h + 4tx + n, over its
+    // columns j
+    float d[4][NO];
 #pragma unroll
     for (int m = 0; m < 4; ++m)
 #pragma unroll
-      for (int n = 0; n < 4; ++n) d[m][n] = 0.f;
+      for (int n = 0; n < NO; ++n) d[m][n] = 0.f;
 #pragma unroll
     for (int j = 0; j < CH; j += 4) {
-      float4 e4[4], q4[4];
+      float4 e4[4], q4[4][LQ];
 #pragma unroll
       for (int m = 0; m < 4; ++m)
-        e4[m] = ld4(sm.Er, ty + 16 * m, j);
+        e4[m] = ld4<EPITCH>(sm.Er, ty + 16 * m, j);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
-        q4[jj] = ld4(sm.Qr, j + jj, 4 * tx);
+#pragma unroll
+        for (int h = 0; h < LQ; ++h)
+          q4[jj][h] = ld4<PITCH>(sm.Qr, j + jj, 64 * h + 4 * tx);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
         for (int m = 0; m < 4; ++m)
 #pragma unroll
-          for (int n = 0; n < 4; ++n)
-            d[m][n] = fmaf(comp(e4[m], jj), comp(q4[jj], n), d[m][n]);
+          for (int h = 0; h < LQ; ++h)
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+              d[m][4 * h + n] = fmaf(comp(e4[m], jj), comp(q4[jj][h], n),
+                                     d[m][4 * h + n]);
     }
     if (piece == 0) {
 #pragma unroll
       for (int m = 0; m < 4; ++m)
 #pragma unroll
-        for (int n = 0; n < 4; ++n) g[m][n] += d[m][n];
+        for (int n = 0; n < NO; ++n) g[m][n] += d[m][n];
     } else {
-      store_tile(dps + (long long)(ch - per_piece + 1) * BAND * RANK, d, ty,
-                 tx);
+      store_tile<RANK>(dps + (long long)(ch - per_piece + 1) * BAND * RANK,
+                       d, ty, tx);
     }
 
-    // the chunk's dQ partial: columns ty + 16m, lanes 4tx + n, over the
-    // panel's rows r
+    // the chunk's dQ partial: columns ty + 16m, lanes 64h + 4tx + n, over
+    // the panel's rows r
 #pragma unroll
     for (int m = 0; m < 4; ++m)
 #pragma unroll
-      for (int n = 0; n < 4; ++n) d[m][n] = 0.f;
+      for (int n = 0; n < NO; ++n) d[m][n] = 0.f;
 #pragma unroll
     for (int r = 0; r < BAND; r += 4) {
-      float4 e4[4], p4[4];
+      float4 e4[4], p4[4][LQ];
 #pragma unroll
       for (int m = 0; m < 4; ++m)
-        e4[m] = ld4(sm.Ec, ty + 16 * m, r);
+        e4[m] = ld4<EPITCH>(sm.Ec, ty + 16 * m, r);
 #pragma unroll
       for (int rr = 0; rr < 4; ++rr)
-        p4[rr] = ld4(sm.Pr, r + rr, 4 * tx);
+#pragma unroll
+        for (int h = 0; h < LQ; ++h)
+          p4[rr][h] = ld4<PITCH>(sm.Pr, r + rr, 64 * h + 4 * tx);
 #pragma unroll
       for (int rr = 0; rr < 4; ++rr)
 #pragma unroll
         for (int m = 0; m < 4; ++m)
 #pragma unroll
-          for (int n = 0; n < 4; ++n)
-            d[m][n] = fmaf(comp(e4[m], rr), comp(p4[rr], n), d[m][n]);
+          for (int h = 0; h < LQ; ++h)
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+              d[m][4 * h + n] = fmaf(comp(e4[m], rr), comp(p4[rr][h], n),
+                                     d[m][4 * h + n]);
     }
 #pragma unroll
     for (int m = 0; m < 4; ++m)
-      __stcg(reinterpret_cast<float4*>(
-                 slot + (long long)(ch * CH + ty + 16 * m) * RANK + 4 * tx),
-             make_float4(d[m][0], d[m][1], d[m][2], d[m][3]));
+#pragma unroll
+      for (int h = 0; h < LQ; ++h)
+        __stcg(reinterpret_cast<float4*>(
+                   slot + (long long)(ch * CH + ty + 16 * m) * RANK +
+                   64 * h + 4 * tx),
+               make_float4(d[m][4 * h], d[m][4 * h + 1], d[m][4 * h + 2],
+                           d[m][4 * h + 3]));
     __syncthreads();
     if (ch + 1 < c1) store_chunk(sm, qn, rn);
   }
@@ -360,7 +435,7 @@ __device__ void panel_unit(Smem& sm, float* P, const float* Q,
   if ((tid & 31) == 0) sm.red[tid >> 5] = sq;
   // the last piece of the band to finish adds the band's dP in chunk
   // order: piece 0's sum, then every later chunk's partial
-  if (piece == 0) store_tile(dps, g, ty, tx);
+  if (piece == 0) store_tile<RANK>(dps, g, ty, tx);
   __syncthreads();
   if (tid == 0) {
     __threadfence();
@@ -370,14 +445,14 @@ __device__ void panel_unit(Smem& sm, float* P, const float* Q,
   __syncthreads();
   const bool last = sm.flag == PIECES - 1;
   if (last) {
-    load_tile(g, dps, ty, tx);
+    load_tile<RANK>(g, dps, ty, tx);
     for (int e = 1; e <= nch - per_piece; ++e) {
-      float d[4][4];
-      load_tile(d, dps + (long long)e * BAND * RANK, ty, tx);
+      float d[4][NO];
+      load_tile<RANK>(d, dps + (long long)e * BAND * RANK, ty, tx);
 #pragma unroll
       for (int m = 0; m < 4; ++m)
 #pragma unroll
-        for (int n = 0; n < 4; ++n) g[m][n] += d[m][n];
+        for (int n = 0; n < NO; ++n) g[m][n] += d[m][n];
     }
     // the panel's own P rows, from the snapshot
 #pragma unroll
@@ -385,13 +460,17 @@ __device__ void panel_unit(Smem& sm, float* P, const float* Q,
       const int r = ty + 16 * m;
       const float deg = du[(long long)s * su + band * BAND + r];
       const float scale = fminf(1.f, DSTAR / fmaxf(deg, 1.f));
-      const float4 p = ld4(sm.Pr, r, 4 * tx);
-      float o[4];
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
-        o[n] = update(comp(p, n), g[m][n], deg, scale,
-                      4 * tx + n == RANK - 2, lr, reg);
-      __stcg(P4 + (prow + r) * R4 + tx, make_float4(o[0], o[1], o[2], o[3]));
+      for (int h = 0; h < LQ; ++h) {
+        const float4 p = ld4<PITCH>(sm.Pr, r, 64 * h + 4 * tx);
+        float o[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          o[n] = update(comp(p, n), g[m][4 * h + n], deg, scale,
+                        64 * h + 4 * tx + n == RANK - 2, lr, reg);
+        __stcg(P4 + (prow + r) * R4 + 16 * h + tx,
+               make_float4(o[0], o[1], o[2], o[3]));
+      }
     }
   }
   __syncthreads();
@@ -406,11 +485,12 @@ __device__ void panel_unit(Smem& sm, float* P, const float* Q,
   }
 }
 
-template <int ROWS>
+template <int RANK, int ROWS>
 __device__ void apply_unit(float* Q, const int* sc, const float* di,
                            const float* ring_buf, const DenseSched& ds, int s,
                            int pos, int part, int su, int si, float lr,
                            float reg) {
+  constexpr int R4 = RANK / 4;
   constexpr int PER = ROWS * R4 / NT;  // float4 a thread
   const int tid = threadIdx.x, nb = su / BAND, nq = si / ROWS;
   if (tid == 0)
@@ -460,6 +540,7 @@ __device__ void apply_unit(float* Q, const int* sc, const float* di,
 
 // P and Q are rewritten by this and other blocks during the launch, so
 // they are deliberately not const/__restrict__ (see the header).
+template <int RANK, bool INT8>
 __global__ void __launch_bounds__(NT, 1)
 dense_phase_kernel(float* P, float* Q, const int* __restrict__ sa,
                    const int* __restrict__ sc, const uint8_t* __restrict__ R,
@@ -467,9 +548,10 @@ dense_phase_kernel(float* P, float* Q, const int* __restrict__ sa,
                    float* ring_buf, float* dp_buf, float* __restrict__ sums,
                    DenseSched ds, int su, int si, float lr, float reg,
                    float mu) {
+  using F = Form<RANK, INT8>;
   extern __shared__ float4 smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int nb = su / BAND, np = nb * PIECES, qrows = apply_rows(si);
+  Smem<RANK, INT8>& sm = *reinterpret_cast<Smem<RANK, INT8>*>(smem_raw);
+  const int nb = su / BAND, np = nb * PIECES, qrows = F::apply_rows(si);
   const int per = np + si / qrows;
   for (;;) {
     __syncthreads();
@@ -481,21 +563,57 @@ dense_phase_kernel(float* P, float* Q, const int* __restrict__ sa,
     if (j < np)
       panel_unit(sm, P, Q, sa, sc, R, du, ring_buf, dp_buf, sums, ds, s, pos,
                  j / PIECES, j % PIECES, su, si, lr, reg, mu);
-    else if (qrows == QROWS)
-      apply_unit<QROWS>(Q, sc, di, ring_buf, ds, s, pos, j - np, su, si, lr,
-                        reg);
+    else if (qrows == F::QROWS)
+      apply_unit<RANK, F::QROWS>(Q, sc, di, ring_buf, ds, s, pos, j - np, su,
+                                 si, lr, reg);
     else
-      apply_unit<QROWS / 2>(Q, sc, di, ring_buf, ds, s, pos, j - np, su, si,
-                            lr, reg);
+      apply_unit<RANK, F::QROWS / 2>(Q, sc, di, ring_buf, ds, s, pos, j - np,
+                                     su, si, lr, reg);
   }
+}
+
+template <int RANK, bool INT8>
+int launch(float* P, float* Q, const int* sa, const int* sc,
+           const uint8_t* R, const float* du, const float* di,
+           const DenseSched& ds, float* ring_buf, float* dp_buf, float* sums,
+           float* sse_out, int blocks, int su, int si, float lr, float reg,
+           float mu, cudaStream_t st) {
+  using F = Form<RANK, INT8>;
+  if (su < BAND || su % BAND || si < F::QROWS / 2 || si % (F::QROWS / 2) ||
+      (si / CH) % PIECES)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      dense_phase_kernel<RANK, INT8>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(Smem<RANK, INT8>));
+  if (err != cudaSuccess) return (int)err;
+  dense_phase_kernel<RANK, INT8>
+      <<<blocks, NT, sizeof(Smem<RANK, INT8>), st>>>(
+          P, Q, sa, sc, R, du, di, ring_buf, dp_buf, sums, ds, su, si, lr,
+          reg, mu);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  mfx_sweep::ordered_sum_kernel<<<1, mfx_sweep::SUM_THREADS, 0, st>>>(
+      sums, ds.nd * (su / BAND) * PIECES, sse_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Thread blocks of dense_phase_kernel the device holds at once, or minus
-// the CUDA error.
-extern "C" int mfx_dense_phase_max_blocks() {
-  return mfx_sweep::resident_blocks(dense_phase_kernel, NT, sizeof(Smem));
+// Thread blocks of the form's dense_phase_kernel (rank 64 with int4 or
+// int8 codes, rank 128 with int8) the device holds at once, or minus the
+// CUDA error.
+extern "C" int mfx_dense_phase_max_blocks(int rank, int int8) {
+  if (rank == 64 && !int8)
+    return mfx_sweep::resident_blocks(dense_phase_kernel<64, false>, NT,
+                                      sizeof(Smem<64, false>));
+  if (rank == 64)
+    return mfx_sweep::resident_blocks(dense_phase_kernel<64, true>, NT,
+                                      sizeof(Smem<64, true>));
+  if (rank == 128 && int8)
+    return mfx_sweep::resident_blocks(dense_phase_kernel<128, true>, NT,
+                                      sizeof(Smem<128, true>));
+  return -(int)cudaErrorInvalidValue;
 }
 
 extern "C" int mfx_dense_phase(float* P, float* Q, const int* sa,
@@ -506,23 +624,20 @@ extern "C" int mfx_dense_phase(float* P, float* Q, const int* sa,
                                float* ring_buf, float* dp_buf, float* sums,
                                float* sse_out, int nd, int nruns, int ring,
                                int blocks, int su, int si, int rank,
-                               float lr, float reg, float mu, void* stream) {
-  if (rank != RANK || su < BAND || su % BAND || si < QROWS / 2 ||
-      si % (QROWS / 2) ||
-      nd < 0 || nruns < 1 || ring < 1 || blocks < 1 || (si / CH) % PIECES)
+                               int int8, float lr, float reg, float mu,
+                               void* stream) {
+  if (nd < 0 || nruns < 1 || ring < 1 || blocks < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(
-      dense_phase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sizeof(Smem));
-  if (err != cudaSuccess) return (int)err;
   const DenseSched ds{runs, wait, order, state, nruns, nd, ring};
-  dense_phase_kernel<<<blocks, NT, sizeof(Smem), st>>>(
-      P, Q, sa, sc, R, du, di, ring_buf, dp_buf, sums, ds, su, si, lr, reg,
-      mu);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  mfx_sweep::ordered_sum_kernel<<<1, mfx_sweep::SUM_THREADS, 0, st>>>(
-      sums, nd * (su / BAND) * PIECES, sse_out);
-  return (int)cudaGetLastError();
+  if (rank == 64 && !int8)
+    return launch<64, false>(P, Q, sa, sc, R, du, di, ds, ring_buf, dp_buf,
+                             sums, sse_out, blocks, su, si, lr, reg, mu, st);
+  if (rank == 64)
+    return launch<64, true>(P, Q, sa, sc, R, du, di, ds, ring_buf, dp_buf,
+                            sums, sse_out, blocks, su, si, lr, reg, mu, st);
+  if (rank == 128 && int8)
+    return launch<128, true>(P, Q, sa, sc, R, du, di, ds, ring_buf, dp_buf,
+                             sums, sse_out, blocks, su, si, lr, reg, mu, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,12 @@
 // Building blocks of the sparse sweeps. For the SGD sweeps (sgd_sweep.cu,
 // sgd_sweep_tile.cu, sgd_sweep_step_u.cu): one tile's ids, snapshot gather,
-// duplicate-row grouping, residuals and run sums, for plain (rows, RANK)
+// duplicate-row grouping, residuals and run sums, for plain (rows, rank)
 // f32 tables, with the biases, where there are any outside the tables, in
-// vectors of their own (use_bias). RANK is 32 or 64 (RANK / 4 float4 a
-// row). One thread block of THREADS threads works on one tile at a time;
+// vectors of their own (use_bias). RANK is the lanes of a row that shared
+// memory holds at once: 32 or 64 (RANK / 4 float4 a row); a table row may
+// be wider (ROW_Q4 float4: sgd_sweep.cu at rank 128 holds its rows' lanes
+// 0-63 and 64-127 in turn and carries the dots across the two halves).
+// One thread block of THREADS threads works on one tile at a time;
 // every function here is called by all of its threads. For sgd_sweep.cu,
 // sgd_sweep_tile.cu and bpr_sweep.cu: the wavefront scheduler (at the end
 // of this file), with which the blocks of one launch share a sweep's
@@ -12,7 +15,8 @@
 //
 // Order of every sum inside a tile, so that a run is bitwise repeatable:
 //   dot      8 threads a slot, each a fixed-order fma chain over its
-//            float4 (k, k + 8, ...), then a fixed butterfly over the 8;
+//            float4 (k, k + 8, ... of the row, across both halves where
+//            the row is held in two), then a fixed butterfly over the 8;
 //   pred     ((dot + mu) + bu) + bi;
 //   row sum  the deltas of a row's slots in ascending slot order (a
 //            bitonic sort of unique (row << 8 | slot) keys puts them
@@ -134,11 +138,13 @@ __device__ inline float ld_row(const float* p) { return __ldcg(p); }
 // await_tile where the scheduler is used): RANK / 4 threads a row, every
 // load started before any store. P, Q, bu and bi are read as they stand in
 // L2: earlier tiles of this launch, on this SM or another, rewrote them.
-template <int RANK>
+// The tables' rows are ROW_Q4 float4 wide; the gather takes RANK / 4 of
+// them from float4 q_off on.
+template <int RANK, int ROW_Q4 = RANK / 4>
 __device__ inline void gather(const TileSmem<RANK>& sm, const float* P,
                               const float* Q, const float* bu, const float* bi,
                               long long pbase, long long qbase, int T, int su,
-                              int use_bias) {
+                              int use_bias, int q_off = 0) {
   constexpr int Q4 = RANK / 4;
   constexpr int GATHER = MAX_T * Q4 / THREADS;  // float4 a thread a table
   const int tid = threadIdx.x;
@@ -160,8 +166,8 @@ __device__ inline void gather(const TileSmem<RANK>& sm, const float* P,
     if (s < T) {
       const int u = sm.uid[s];
       if (u < su) {
-        pv[m] = ld_row(P4 + (pbase + u) * Q4 + k);
-        qv[m] = ld_row(Qg4 + (qbase + sm.iid[s]) * Q4 + k);
+        pv[m] = ld_row(P4 + (pbase + u) * ROW_Q4 + q_off + k);
+        qv[m] = ld_row(Qg4 + (qbase + sm.iid[s]) * ROW_Q4 + q_off + k);
       }
     }
   }
@@ -203,30 +209,57 @@ __device__ inline void sort_keys(int* keyU, int* keyI) {
   __syncthreads();
 }
 
-// 4. residuals into sm.e (0 for pad slots)
+// 4. residuals into sm.e (0 for pad slots). A thread's group of 8 takes
+// slots g, g + 64, ...: DOT_SLOTS of them at most.
+constexpr int DOT_SLOTS = MAX_T / (THREADS / 8);
+
+// 4a. this thread's fma chain of each of its slots' dots, over its float4
+// of the lanes in shared memory, carried on from v (0 at the tile's start)
 template <int RANK>
-__device__ inline void residuals(const TileSmem<RANK>& sm, int T, int su,
-                                 float mu, int use_bias) {
+__device__ inline void dot_part(const TileSmem<RANK>& sm, int T,
+                                float (&v)[DOT_SLOTS]) {
   constexpr int Q4 = RANK / 4;
   const int g = threadIdx.x >> 3, k = threadIdx.x & 7;
-  for (int s0 = 0; s0 < T; s0 += THREADS / 8) {
-    const int s = s0 + g;
-    float v = 0.f;
+#pragma unroll
+  for (int n = 0; n < DOT_SLOTS; ++n) {
+    const int s = n * (THREADS / 8) + g;
     if (s < T) {
       const float4* p = sm.Ps + s * Q4;
       const float4* q = sm.Qs + s * Q4;
 #pragma unroll
-      for (int kk = k; kk < Q4; kk += 8) v = dot4(p[kk], q[kk], v);
-    }
-    v += __shfl_xor_sync(0xffffffffu, v, 4);
-    v += __shfl_xor_sync(0xffffffffu, v, 2);
-    v += __shfl_xor_sync(0xffffffffu, v, 1);
-    if (s < T && k == 0) {
-      float pred = v + mu;
-      if (use_bias) pred = (pred + sm.bus[s]) + sm.bis[s];
-      sm.e[s] = sm.uid[s] < su ? sm.e[s] - pred : 0.f;
+      for (int kk = k; kk < Q4; kk += 8) v[n] = dot4(p[kk], q[kk], v[n]);
     }
   }
+}
+
+// 4b. the butterfly over each group's 8 chains, then the residual
+__device__ inline void finish_residuals(float* e, const int* uid,
+                                        const float* bus, const float* bis,
+                                        int T, int su, float mu, int use_bias,
+                                        float (&v)[DOT_SLOTS]) {
+  const int g = threadIdx.x >> 3, k = threadIdx.x & 7;
+#pragma unroll
+  for (int n = 0; n < DOT_SLOTS; ++n) {
+    if (n * (THREADS / 8) >= T) break;  // the same for the whole block
+    const int s = n * (THREADS / 8) + g;
+    float w = v[n];
+    w += __shfl_xor_sync(0xffffffffu, w, 4);
+    w += __shfl_xor_sync(0xffffffffu, w, 2);
+    w += __shfl_xor_sync(0xffffffffu, w, 1);
+    if (s < T && k == 0) {
+      float pred = w + mu;
+      if (use_bias) pred = (pred + bus[s]) + bis[s];
+      e[s] = uid[s] < su ? e[s] - pred : 0.f;
+    }
+  }
+}
+
+template <int RANK>
+__device__ inline void residuals(const TileSmem<RANK>& sm, int T, int su,
+                                 float mu, int use_bias) {
+  float v[DOT_SLOTS] = {};
+  dot_part(sm, T, v);
+  finish_residuals(sm.e, sm.uid, sm.bus, sm.bis, T, su, mu, use_bias, v);
 }
 
 // Does sorted position p hold the first slot of a real row's run?

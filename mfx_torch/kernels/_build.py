@@ -31,11 +31,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "mfx_sgd_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _I, _I, _I, _F, _F, _F, _P],
-    "mfx_sgd_sweep_max_blocks": [_I],
+    "mfx_sgd_sweep_max_blocks": [_I, _I],
     "mfx_dense_phase": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
-                        _P],
-    "mfx_dense_phase_max_blocks": [],
+                        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                        _F, _P],
+    "mfx_dense_phase_max_blocks": [_I, _I],
     "mfx_tile_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mfx_bpr_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _I, _I, _I, _F, _F, _P],

@@ -2,15 +2,18 @@
 plain PyTorch version.
 
 Replaces ``mfx/kernels/dense_pallas.py::_kernel_body`` on the lane-bias
-int4 path (``lane=True``, ``rfmt='int4'``, echo 1, spg 1; the int8 codes
-are ROADMAP Queue 2 item 3). One call runs one dense group: its strata in
-plan order, each a snapshot minibatch
+path (``lane=True``, echo 1, spg 1): int4 codes at rank 64, int8 codes at
+ranks 64 and 128 (the other forms are ROADMAP Queue 2 item 3). One call
+runs one dense group: its strata in plan order, each a snapshot minibatch
 
-    S = P_blk Q_winᵀ,  E = [R > 0] ∘ (R − S − μ)
+    S = P_blk Q_winᵀ,  E = [code > 0] ∘ (code·c − S − μ)
     P_blk += lr·s_u ∘ (E Q_win − reg·Du ∘ P_blk)    (lane rank-2 frozen)
     Q_win += lr·s_i ∘ (Eᵀ P_blk − reg·Di ∘ Q_win)   (lane rank-1 frozen)
 
-with s = min(1, DSTAR / max(deg, 1)) over the per-stratum degrees.
+with s = min(1, DSTAR / max(deg, 1)) over the per-stratum degrees and c
+= 1 / R4_SCALE (int4) or f32(1 / R_SCALE) (int8), as the reference
+decodes. The group's ``R`` says its format: uint8 ``(ND, su, si/2)`` is
+int4, int8 ``(ND, su, si)`` is int8.
 
 On CUDA tensors the wrapper launches the kernel (or raises); on CPU
 tensors it runs :func:`dense_phase_plain`. Nothing falls back.
@@ -24,8 +27,8 @@ from mfx_torch.kernels import _build
 from mfx_torch.kernels.sgd_sweep import check_deps
 
 __all__ = ["dense_phase", "dense_phase_plain", "dense_launch", "dense_scratch",
-           "launch", "plan_launch", "decode_codes", "group_prefix", "DSTAR", "R_SCALE",
-           "R4_SCALE"]
+           "launch", "plan_launch", "check_kernel_form", "code_format",
+           "decode_codes", "group_prefix", "DSTAR", "R_SCALE", "R4_SCALE"]
 
 # the reference's rating codes (mfx/kernels/dense_pallas.py): int8 holds
 # round(r * R_SCALE), int4 round(r * R4_SCALE); 0 = absent
@@ -34,14 +37,22 @@ R4_SCALE = 2.0
 # per-row trust scaling of a whole-stratum batch step (the reference's)
 DSTAR = 16.0
 
-_RANK = 64
+# (rank, code format) of the kernel's instances
+_FORMS = {(64, "int4"), (64, "int8"), (128, "int8")}
 # strata whose dQ partials the kernel keeps at once (su/64 x si x rank f32
-# each: 4 MB at 1024²); a stratum waits for the one handed out this many
+# each: 4 MB at 1024² and rank 64, 2 MB at 512² and rank 128); a stratum
+# waits for the one handed out this many
 # places before it. 8 runs the ml25m_rank64 dense phase as fast as 16
 # with half the scratch (measure_wavefront orders).
 _RING = 8
 # pieces a row panel is cut into (csrc/dense_phase.cu's PIECES)
 _PIECES = 2
+
+
+def code_format(R: torch.Tensor) -> str:
+    """The format of a group's R image: 'int8' for int8 codes (ND, su, si),
+    'int4' for nibble pairs (ND, su, si/2) uint8."""
+    return "int8" if R.dtype == torch.int8 else "int4"
 
 
 def decode_codes(R: torch.Tensor, rfmt: str) -> torch.Tensor:
@@ -56,11 +67,13 @@ def decode_codes(R: torch.Tensor, rfmt: str) -> torch.Tensor:
 def _validate(P, Q, grp, su, si):
     dev = P.device
     nd = grp["sa"].shape[0]
+    int8 = code_format(grp["R"]) == "int8"
     spec = {
         "P": (P, torch.float32, None), "Q": (Q, torch.float32, None),
         "sa": (grp["sa"], torch.int32, (nd,)),
         "sc": (grp["sc"], torch.int32, (nd,)),
-        "R": (grp["R"], torch.uint8, (nd, su, si // 2)),
+        "R": (grp["R"], torch.int8 if int8 else torch.uint8,
+              (nd, su, si if int8 else si // 2)),
         "du_s": (grp["du_s"], torch.float32, (nd, su)),
         "di_s": (grp["di_s"], torch.float32, (nd, si)),
     }
@@ -88,13 +101,15 @@ def dense_phase_plain(P, Q, grp, lr, reg, mu, *, su, si):
     mQ = torch.ones(rank, dtype=P.dtype, device=dev)
     mP[rank - 2] = 0.0
     mQ[rank - 1] = 0.0
+    rfmt = code_format(grp["R"])
+    inv = 1.0 / (R_SCALE if rfmt == "int8" else R4_SCALE)  # f32 in the op
     sse = torch.zeros((), dtype=torch.float32, device=dev)
     for s, (a, c) in enumerate(zip(grp["sa"].tolist(), grp["sc"].tolist())):
         Pb = P[a * su:(a + 1) * su]
         Qw = Q[c * si:(c + 1) * si]
-        code = decode_codes(grp["R"][s], "int4")
+        code = decode_codes(grp["R"][s], rfmt)
         S = Pb @ Qw.T
-        E = torch.where(code > 0, (code.to(torch.float32) / R4_SCALE - S) - mu,
+        E = torch.where(code > 0, (code.to(torch.float32) * inv - S) - mu,
                         torch.zeros((), dtype=torch.float32, device=dev))
         sse = sse + (E * E).sum()
         du = grp["du_s"][s][:, None]
@@ -116,7 +131,13 @@ def group_prefix(grp, n):
     return out
 
 
-def dense_launch(lib, deps, nd, su, si, dev, blocks):
+def _apply_units(si, rank):
+    """Q-apply units a stratum (csrc/dense_phase.cu's ``apply_rows``)."""
+    rows = 256 * 64 // rank
+    return si // (rows if si % rows == 0 else rows // 2)
+
+
+def dense_launch(lib, deps, nd, su, si, dev, blocks, rank, rfmt):
     """What the kernel takes beside the group and its scratch: ``(runs,
     wait, order, ring, grid)``.
 
@@ -126,7 +147,8 @@ def dense_launch(lib, deps, nd, su, si, dev, blocks):
     no waits and plan order, so each stratum waits for the one before.
     ``ring`` is the strata in flight the scratch holds; ``grid`` is
     ``blocks`` or, with ``blocks=None``, as many as the card holds at
-    once, never more than there are units."""
+    once of the (``rank``, ``rfmt``) instance, never more than there are
+    units."""
     if deps is None:
         runs = torch.zeros((1, 2), dtype=torch.int32, device=dev)
         wait = order = None
@@ -134,14 +156,14 @@ def dense_launch(lib, deps, nd, su, si, dev, blocks):
         check_deps("dense_phase", deps, nd, dev)
         runs, wait = deps.runs, deps.wait
     if blocks is None:
-        blocks = lib.mfx_dense_phase_max_blocks()
+        blocks = lib.mfx_dense_phase_max_blocks(rank, int(rfmt == "int8"))
         if blocks < 1:
             raise RuntimeError(
                 f"dense_phase: CUDA error {-blocks} sizing the grid")
     elif blocks < 1:
         raise ValueError(f"dense_phase: blocks must be >= 1, got {blocks}")
     nb = su // 64
-    nq = si // (256 if si % 256 == 0 else 128)
+    nq = _apply_units(si, rank)
     grid = min(int(blocks), max(1, nd * (nb * _PIECES + nq)))
     ring = max(1, min(_RING, nd))
     if deps is not None:
@@ -151,7 +173,7 @@ def dense_launch(lib, deps, nd, su, si, dev, blocks):
     return runs, wait, order, ring, grid
 
 
-def plan_launch(grp, su, si):
+def plan_launch(grp, su, si, rank):
     """Work out, on the host, the order in which the kernel will hand out
     the group's strata at the card's grid (``deps.list_order``, kept on
     the table), as the first :func:`dense_phase` call on the card would:
@@ -159,20 +181,21 @@ def plan_launch(grp, su, si):
     do on the CPU or without a table."""
     if grp["R"].device.type == "cuda" and "deps" in grp:
         dense_launch(_build.load_library(), grp["deps"], grp["sa"].shape[0],
-                     su, si, grp["R"].device, None)
+                     su, si, grp["R"].device, None, rank,
+                     code_format(grp["R"]))
 
 
-def dense_scratch(nd, su, si, ring, dev):
-    """The kernel's scratch for a group of ``nd`` strata: ``(state,
-    ring_buf, dp_buf, sums)``. ``state`` is zeroed: the ticket, then per
-    stratum its panels done, its apply units done and its end, then per
-    panel its pieces done; ``ring_buf`` the ring of dQ partials and
-    ``dp_buf`` that of the second pieces' dP (one slot a stratum in
+def dense_scratch(nd, su, si, ring, dev, rank):
+    """The kernel's scratch for a group of ``nd`` strata at ``rank``:
+    ``(state, ring_buf, dp_buf, sums)``. ``state`` is zeroed: the ticket,
+    then per stratum its panels done, its apply units done and its end,
+    then per panel its pieces done; ``ring_buf`` the ring of dQ partials
+    and ``dp_buf`` that of the second pieces' dP (one slot a stratum in
     flight); ``sums`` the per-piece SSE, added up in unit order."""
     nb, nch, f32 = su // 64, si // 64, torch.float32
     state = torch.zeros(1 + 3 * nd + nd * nb, dtype=torch.int32, device=dev)
-    ring_buf = torch.empty((ring, nb, si, _RANK), dtype=f32, device=dev)
-    dp_buf = torch.empty((ring, nb, nch - nch // _PIECES + 1, 64, _RANK),
+    ring_buf = torch.empty((ring, nb, si, rank), dtype=f32, device=dev)
+    dp_buf = torch.empty((ring, nb, nch - nch // _PIECES + 1, 64, rank),
                          dtype=f32, device=dev)
     sums = torch.empty(max(1, nd * nb * _PIECES), dtype=f32, device=dev)
     return state, ring_buf, dp_buf, sums
@@ -183,8 +206,9 @@ def launch(lib, P, Q, grp, lr, reg, mu, su, si, runs, wait, order, ring,
     """One launch of the kernel on the group with the scheduler arguments
     of :func:`dense_launch` (``measure_wavefront`` also passes others) and
     fresh scratch. Returns the SSE (0-d f32)."""
-    nd, dev = grp["sa"].shape[0], P.device
-    state, ring_buf, dp_buf, sums = dense_scratch(nd, su, si, ring, dev)
+    nd, dev, rank = grp["sa"].shape[0], P.device, P.shape[1]
+    state, ring_buf, dp_buf, sums = dense_scratch(nd, su, si, ring, dev,
+                                                  rank)
     sse = torch.empty(1, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(lib.mfx_dense_phase(
@@ -194,18 +218,36 @@ def launch(lib, P, Q, grp, lr, reg, mu, su, si, runs, wait, order, ring,
         None if wait is None else wait.data_ptr(),
         None if order is None else order.data_ptr(), state.data_ptr(),
         ring_buf.data_ptr(), dp_buf.data_ptr(), sums.data_ptr(),
-        sse.data_ptr(), nd, runs.shape[0], ring, grid, su, si, _RANK,
-        float(lr), float(reg), float(mu), stream,
+        sse.data_ptr(), nd, runs.shape[0], ring, grid, su, si, rank,
+        int(code_format(grp["R"]) == "int8"), float(lr), float(reg),
+        float(mu), stream,
     ), "dense_phase")
     return sse[0]
+
+
+def check_kernel_form(P, grp, su, si):
+    """What the kernel is built for: rank 64 with int4 or int8 codes, rank
+    128 with int8 codes (the reference's forms: it takes int8 only at rank
+    128), user blocks that are multiples of 64 and item windows that are
+    multiples of 128; raises NotImplementedError naming the ROADMAP item
+    otherwise."""
+    rank, rfmt = P.shape[1], code_format(grp["R"])
+    if (rank, rfmt) not in _FORMS or su % 64 or si % 128:
+        raise NotImplementedError(
+            "dense_phase kernel is built for rank 64 (int4 or int8 codes) "
+            "and rank 128 (int8), user blocks that are multiples of 64 and "
+            "item windows that are multiples of 128 (got rank "
+            f"{rank}, {rfmt}, su={su}, si={si}); other forms are ROADMAP "
+            "Queue 2 item 3"
+        )
 
 
 def dense_phase(P, Q, grp, lr, reg, mu, *, su, si, deps=None, blocks=None):
     """One dense group. ``P`` is the padded lane-form user table; ``Q`` the
     group's item segment (a contiguous row range of the padded item
     table); ``grp`` holds ``sa``/``sc`` (ND,) int32 (``sc`` window-local),
-    ``R`` the int4 codes (ND, su, si/2) uint8 and the per-stratum degrees
-    ``du_s`` (ND, su), ``di_s`` (ND, si).
+    ``R`` the codes (int4: (ND, su, si/2) uint8; int8: (ND, su, si) int8)
+    and the per-stratum degrees ``du_s`` (ND, su), ``di_s`` (ND, si).
     Updates P and Q in place; returns the phase's SSE (0-d f32).
 
     On the card the whole group is one launch on ``blocks`` thread blocks
@@ -221,15 +263,10 @@ def dense_phase(P, Q, grp, lr, reg, mu, *, su, si, deps=None, blocks=None):
         return dense_phase_plain(P, Q, grp, lr, reg, mu, su=su, si=si)
     if P.device.type != "cuda":
         raise ValueError(f"dense_phase: no kernel for device {P.device}")
-    if P.shape[1] != _RANK or su % 64 or si % 128:
-        raise NotImplementedError(
-            "dense_phase kernel is built for rank 64, user blocks that are "
-            "multiples of 64 and item windows that are multiples of 128 "
-            f"(got rank {P.shape[1]}, su={su}, si={si}); see ROADMAP Queue 2"
-        )
+    check_kernel_form(P, grp, su, si)
     lib = _build.load_library()
     sched = dense_launch(lib, deps, grp["sa"].shape[0], su, si, P.device,
-                         blocks)
+                         blocks, P.shape[1], code_format(grp["R"]))
     sse = launch(lib, P, Q, grp, lr, reg, mu, su, si, *sched)
     dense_phase.launches += 1
     return sse

@@ -4,8 +4,8 @@ plain PyTorch version.
 
 They replace the two bodies of ``mfx/kernels/sgd_pallas.py``'s sweep call:
 
-- :func:`sgd_sweep`: ``_kernel_body`` with ``bias_mode='lane'`` (rank 64;
-  the biases ride in two factor lanes that the update freezes);
+- :func:`sgd_sweep`: ``_kernel_body`` with ``bias_mode='lane'`` (ranks 64
+  and 128; the biases ride in two factor lanes that the update freezes);
 - :func:`sgd_sweep_tile`: ``_kernel_body`` with ``bias_mode='tile'`` or
   with no biases (ranks 32 and 64; ``bu`` / ``bi`` are vectors beside the
   tables and every lane updates);
@@ -76,12 +76,13 @@ def check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg, bu=None, bi=None):
 
 def check_kernel_limits(who, P, tl, su, si, ranks=(64,)):
     """What the sweep kernels are built for: the ranks in ``ranks``
-    (64 for the lane-bias and BPR sweeps, 32 and 64 for the tile-bias
-    ones), T <= 256, blocks <= 1024."""
+    (64 and 128 for the lane-bias sweep, 64 for BPR, 32 and 64 for the
+    tile-bias ones), T <= 256, blocks <= 1024."""
     if P.shape[1] not in ranks:
         raise NotImplementedError(
             f"{who} kernel is built for rank "
-            f"{' or '.join(map(str, ranks))}, got {P.shape[1]}"
+            f"{' or '.join(map(str, ranks))}, got {P.shape[1]} (other "
+            "ranks: ROADMAP Queue 2 item 2)"
         )
     if tl.shape[2] > 256 or su > 1024 or si > 1024:
         raise NotImplementedError(
@@ -166,11 +167,12 @@ def sgd_sweep_plain(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg):
 def sgd_sweep(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg, deps=None,
               blocks=None):
     """One item-sweep. ``P`` is the padded lane-form user table
-    (A·su, rank); ``Q`` the sweep's item segment (nwin·si, rank), a
-    contiguous row range of the padded item table; ``sa`` (NT/tpg,) the
-    user block of each group of tpg tiles; ``tc`` (NT,) each tile's
-    sweep-local window; ``tl`` the (NT, 3, T) tile stream. Updates P and
-    Q in place and returns the sweep's SSE as a 0-d f32 tensor.
+    (A·su, rank), rank 64 or 128; ``Q`` the sweep's item segment
+    (nwin·si, rank), a contiguous row range of the padded item table;
+    ``sa`` (NT/tpg,) the user block of each group of tpg tiles; ``tc``
+    (NT,) each tile's sweep-local window; ``tl`` the (NT, 3, T) tile
+    stream. Updates P and Q in place and returns the sweep's SSE as a 0-d
+    f32 tensor.
 
     ``deps`` is the sweep's dependency table from the plan skeleton
     (``SweepSlice.deps``): with it the kernel walks the sweep's runs on
@@ -184,11 +186,12 @@ def sgd_sweep(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg, deps=None,
                                su=su, si=si, tpg=tpg)
     if P.device.type != "cuda":
         raise ValueError(f"sgd_sweep: no kernel for device {P.device}")
-    check_kernel_limits("sgd_sweep", P, tl, su, si)
+    check_kernel_limits("sgd_sweep", P, tl, su, si, ranks=(64, 128))
     nt, T = tl.shape[0], tl.shape[2]
     lib = _build.load_library()
     runs, wait, state, sums, grid = wavefront_launch(
-        "sgd_sweep", lib, deps, nt, T, P.device, blocks)
+        "sgd_sweep", lib, deps, nt, T, P.device, blocks,
+        sizing=(P.shape[1],))
     sse = torch.empty(1, dtype=torch.float32, device=P.device)
     stream = torch.cuda.current_stream(P.device).cuda_stream
     _build.check(lib.mfx_sgd_sweep(

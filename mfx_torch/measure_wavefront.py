@@ -414,8 +414,10 @@ def blocks(args) -> int:
 
         card = lib.mfx_sgd_sweep_step_u_max_blocks(
             T, tables[0].shape[1], preset("ml1m_rank32_biased").sgd.ublock)
+    elif args.cell == "sgd":
+        card = lib.mfx_sgd_sweep_max_blocks(T, tables[0].shape[1])
     else:
-        card = getattr(lib, f"mfx_{args.cell}_sweep_max_blocks")(T)
+        card = lib.mfx_bpr_sweep_max_blocks(T)
 
     for name, tc, deps, nwin, run in sweeps:
         _describe(name, deps, tc, nwin)
@@ -426,12 +428,15 @@ def blocks(args) -> int:
         _grid_runs(name, run, tables, sizes, args.repeats, grid_max,
                    deps.n_tiles, deps.critical)
     if dense is not None:
-        _dense_blocks(args, tables, dense, _dense_card(lib))
+        _dense_blocks(args, tables, dense, _dense_card(lib, tables, dense))
     return 0
 
 
-def _dense_card(lib) -> int:
-    card = lib.mfx_dense_phase_max_blocks()
+def _dense_card(lib, tables, dense) -> int:
+    from mfx_torch.kernels.dense_phase import code_format
+
+    card = lib.mfx_dense_phase_max_blocks(
+        tables[0].shape[1], int(code_format(dense[1][0]["R"]) == "int8"))
     if card < 1:
         raise SystemExit(f"dense_phase: CUDA error {-card} sizing the grid")
     return card
@@ -455,8 +460,8 @@ def orders(args) -> int:
     _, tables, _, dense = _sweeps(args, dev, tiles=True)
     meta, groups, mu, lr, reg, su, si, _ = dense
     lib = _build.load_library()
-    card = _dense_card(lib)
-    nq = si // (256 if si % 256 == 0 else 128)
+    card = _dense_card(lib, tables, dense)
+    nq = dp._apply_units(si, tables[0].shape[1])
     # per combination and group: the scheduler arguments of one launch
     combos = {}
     for how in ("list", "depth"):

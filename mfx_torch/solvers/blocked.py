@@ -3,8 +3,9 @@
 for two families of configurations:
 
 - lane-carried biases with the full-span dense phase (the ``ml25m_rank64``
-  preset): lane-form tables, ``kernels.dense_phase`` then
-  ``kernels.sgd_sweep``;
+  preset at rank 64 with int4 codes, ``netflix100m_rank128_dp`` with
+  ``parallel.mode=single`` at rank 128 with int8 codes): lane-form tables,
+  ``kernels.dense_phase`` then ``kernels.sgd_sweep``;
 - per-tile biases or none, with no dense phase (the
   ``ml1m_rank32_biased`` preset): canonical tables with ``bu`` / ``bi``
   beside them, ``kernels.sgd_sweep_tile`` or, with
@@ -164,11 +165,6 @@ def train_epochs_blocked(
             "only (its frozen-bias tensors: Queue 1 item 5; its kernel's "
             "variants: Queue 2 item 3); see ROADMAP"
         )
-    if want_dense and rfmt != "int4":
-        raise NotImplementedError(
-            "mfx_torch blocked trainer: the int8 dense rating stream "
-            "(Queue 2 item 3); see ROADMAP"
-        )
 
     t_prep = time.perf_counter()
     if lane:
@@ -204,7 +200,7 @@ def train_epochs_blocked(
             nwd=cfg.dense_nwd or dense_group_windows(rank, si), rfmt=rfmt,
         )
         for grp in dense_groups:
-            plan_launch(grp, su, si)
+            plan_launch(grp, su, si, rank)
     skel = pdv.build_plan_skeleton(
         u, i, U, I, su, si, T, TPG, sweep_geometry(
             I, rank, si, step_u=(su, T) if cfg.step_user_batch else None)

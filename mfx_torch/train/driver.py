@@ -1,7 +1,10 @@
 """Training driver, the counterpart of ``mfx/train/driver.py::train`` for
 the ported trainers: single-device blocked SGD (``solver='sgd'``,
-``parallel.mode='single'``; lane biases with the dense phase, or tile
-biases / none without it, per tile or with ``sgd.step_user_batch``) and
+``parallel.mode='single'``; lane biases with the dense phase at rank 64 or
+128, or tile biases / none without it, per tile or with
+``sgd.step_user_batch``; ``sgd.dup_trust`` and the ``als`` block, which
+only other modes read, are ignored, as the reference's driver ignores
+them here) and
 the fused BPR ring of one shard
 (``solver='bpr'``, ``parallel.mode`` 'sharded' or 'hybrid' with
 ``model_axis = data_axis = 1``). Load (through the port's own
@@ -77,8 +80,11 @@ def _check_supported(cfg: TrainConfig) -> None:
     elif cfg.solver != "sgd" or mode != "single":
         raise NotImplementedError(
             f"mfx_torch.train: solver={cfg.solver!r} parallel={mode!r}; "
-            "only single-device SGD and the BPR ring of one shard are ported "
-            "(ROADMAP Queue 1 items 10-13)"
+            "only single-device SGD (parallel.mode=single) and the BPR ring "
+            "of one shard are ported: the SGD ring and data-parallel modes "
+            "are ROADMAP Queue 1 item 13 (Q1-13), the other solvers Queue 1 "
+            "items 10 and 12; set parallel.mode=single to train SGD on one "
+            "device"
         )
     wanted = {
         "log_path": cfg.log_path,

@@ -34,13 +34,13 @@ def one_thread():
     torch.set_num_threads(before)
 
 
-def _groups():
+def _groups(rfmt="int4"):
     coo = synthetic.make_synthetic(U, I, 12_000, rank=4, noise=0.3, seed=4,
                                    star_step=0.5, user_zipf_s=1.1)
     meta, groups, _, info = prepare_dense_full(
         torch.as_tensor(coo.user).int(), torch.as_tensor(coo.item).int(),
         torch.as_tensor(coo.rating).float(), U, I, SU, SI, chi_min=0.002,
-        nwd=NWD)
+        nwd=NWD, rfmt=rfmt)
     return meta, groups, info
 
 
@@ -106,9 +106,11 @@ def test_table_orders_every_conflicting_pair():
     assert shorter >= 2  # a one-window group is all chain
 
 
+@pytest.mark.parametrize("rfmt", ["int4", "int8"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_any_allowed_order_gives_the_plan_order_tables(one_thread, seed):
-    meta, groups, _ = _groups()
+def test_any_allowed_order_gives_the_plan_order_tables(one_thread, seed,
+                                                       rfmt):
+    meta, groups, _ = _groups(rfmt)
     state = _tables()
     moved = 0
     for m, grp in zip(meta, groups):
@@ -161,27 +163,30 @@ def test_group_prefix_orders_itself(one_thread):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def test_launch_arguments_are_checked():
+@pytest.mark.parametrize("rank,rfmt", [(64, "int4"), (128, "int8")])
+def test_launch_arguments_are_checked(rank, rfmt):
     """``dense_launch`` (the wrapper's scheduler arguments): no table means
     one dummy run and no waits; the ring and the grid are sized from the
-    group, and so is the kernel's scratch (``dense_scratch``); a table for
-    another group, of the wrong type, or a grid of no blocks is refused;
-    the CPU route ignores the table and the grid, and ``plan_launch`` has
-    nothing to order there."""
-    meta, groups, _ = _groups()
+    group and the kernel's form (an apply unit owns 256 Q rows at rank 64,
+    128 at rank 128), and so is the kernel's scratch (``dense_scratch``);
+    a table for another group, of the wrong type, or a grid of no blocks
+    is refused; the CPU route ignores the table and the grid, and
+    ``plan_launch`` has nothing to order there."""
+    meta, groups, _ = _groups(rfmt)
     grp, deps = groups[0], groups[0]["deps"]
     nd, cpu = deps.n_tiles, torch.device("cpu")
     runs, wait, order, ring, grid = dense_launch(None, None, nd, 256, 512,
-                                                 cpu, 10**6)
+                                                 cpu, 10**6, rank, rfmt)
     assert runs.shape == (1, 2) and wait is None and order is None
-    assert ring == min(8, nd) and grid == nd * (4 * 2 + 2)
-    state, ring_buf, dp, sums = dense_scratch(nd, 256, 512, ring, cpu)
+    nq = {64: 2, 128: 4}[rank]  # apply units of a 512-row window
+    assert ring == min(8, nd) and grid == nd * (4 * 2 + nq)
+    state, ring_buf, dp, sums = dense_scratch(nd, 256, 512, ring, cpu, rank)
     assert state.shape == (1 + 3 * nd + 4 * nd,) and not state.any()
-    assert ring_buf.shape == (min(8, nd), 4, 512, 64)
-    assert dp.shape == (min(8, nd), 4, 8 - 4 + 1, 64, 64)
+    assert ring_buf.shape == (min(8, nd), 4, 512, rank)
+    assert dp.shape == (min(8, nd), 4, 8 - 4 + 1, 64, rank)
     assert sums.shape == (nd * 4 * 2,)
     runs, wait, order, ring, grid = dense_launch(None, deps, nd, SU, 128, cpu,
-                                                 7)
+                                                 7, rank, rfmt)
     assert runs is deps.runs and wait is deps.wait and grid == 7
     assert order is deps.list_order(7, 2, 1, 0.2, min(8, nd))
     assert sorted(order.tolist()) == list(range(nd))
@@ -189,11 +194,11 @@ def test_launch_arguments_are_checked():
                 dataclasses.replace(deps, wait=deps.wait.long()),
                 dataclasses.replace(deps, runs=deps.runs.t())):
         with pytest.raises(ValueError, match="deps"):
-            dense_launch(None, bad, nd, SU, 128, cpu, 1)
+            dense_launch(None, bad, nd, SU, 128, cpu, 1, rank, rfmt)
     with pytest.raises(ValueError, match="blocks"):
-        dense_launch(None, deps, nd, SU, 128, cpu, 0)
+        dense_launch(None, deps, nd, SU, 128, cpu, 0, rank, rfmt)
     known = dict(deps._orders)
-    plan_launch(grp, SU, SI)  # nothing to order on the CPU
+    plan_launch(grp, SU, SI, rank)  # nothing to order on the CPU
     assert deps._orders == known
     state0 = _tables()
     a = [x.clone() for x in state0]

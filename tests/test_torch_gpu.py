@@ -46,12 +46,12 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _state(dev, n=120_000, users=U):
+def _state(dev, n=120_000, users=U, rank=RANK):
     coo = synthetic.make_synthetic(users, I, n, rank=4, noise=0.3, seed=9,
                                    star_step=0.5, user_zipf_s=0.6)
     train, test = train_test_split(coo, test_frac=0.1, seed=0)
     g = torch.Generator(device=dev).manual_seed(0)
-    model = init_model(g, users, I, RANK, global_mean=train.global_mean,
+    model = init_model(g, users, I, rank, global_mean=train.global_mean,
                        device=dev)
     u, i, r = (torch.as_tensor(x).to(dev) for x in
                (train.user, train.item, train.rating))
@@ -74,9 +74,10 @@ def _check(run, plain, P, Q):
     assert bool(torch.isfinite(P1).all()) and bool(torch.isfinite(Q1).all())
 
 
+@pytest.mark.parametrize("rank", [RANK, 128])
 @pytest.mark.parametrize("tile", [T, 200])
-def test_sgd_sweep_kernel_matches_plain(cuda, tile):
-    train, _, model, u, i, r = _state(cuda)
+def test_sgd_sweep_kernel_matches_plain(cuda, tile, rank):
+    train, _, model, u, i, r = _state(cuda, rank=rank)
     skel = pdv.build_plan_skeleton(u, i, U, I, SU, SI, tile, TPG, 3)
     tl = pdv.epoch_tiles_device(skel, u, i, r, 0, 0)
     P, Q = lane_tables(model, SU, SI, cuda)
@@ -90,16 +91,18 @@ def test_sgd_sweep_kernel_matches_plain(cuda, tile):
         assert sgd_sweep.launches == before + 2
 
 
+@pytest.mark.parametrize("rank", [RANK, 128])
 @pytest.mark.parametrize("distinct", [4, 64, 1024])
-def test_sgd_sweep_kernel_hot_rows_and_pads(cuda, distinct):
-    """Random full tiles at the preset's blocks (1024) and tile (256) where
-    every slot repeats one of ``distinct`` rows per side, the last tile
-    half pad: long duplicate runs exercise the kernel's segment sums."""
+def test_sgd_sweep_kernel_hot_rows_and_pads(cuda, distinct, rank):
+    """Random full tiles at blocks of 1024 and T = 256 where every slot
+    repeats one of ``distinct`` rows per side, the last tile half pad:
+    long duplicate runs exercise the kernel's segment sums (at rank 128
+    in both halves of the row)."""
     g = torch.Generator(device=cuda).manual_seed(distinct)
     su = si = 1024
     nt, tile = 32, 256
-    P = torch.randn(2 * su, RANK, device=cuda, generator=g) * 0.1
-    Q = torch.randn(3 * si, RANK, device=cuda, generator=g) * 0.1
+    P = torch.randn(2 * su, rank, device=cuda, generator=g) * 0.1
+    Q = torch.randn(3 * si, rank, device=cuda, generator=g) * 0.1
     sa = torch.randint(0, 2, (nt // TPG,), device=cuda, generator=g,
                        dtype=torch.int32)
     tc = torch.randint(0, 3, (nt,), device=cuda, generator=g,
@@ -118,10 +121,13 @@ def test_sgd_sweep_kernel_hot_rows_and_pads(cuda, distinct):
            lambda Pt, Qt: sgd_sweep_plain(Pt, Qt, *args, **kw), P, Q)
 
 
-def test_dense_phase_kernel_matches_plain(cuda):
-    train, _, model, u, i, r = _state(cuda)
+@pytest.mark.parametrize("rank,rfmt", [(RANK, "int4"), (RANK, "int8"),
+                                       (128, "int8")])
+def test_dense_phase_kernel_matches_plain(cuda, rank, rfmt):
+    train, _, model, u, i, r = _state(cuda, rank=rank)
     meta, groups, _, info = prepare_dense_full(u, i, r, U, I, SU, SI,
-                                               chi_min=0.01, nwd=2)
+                                               chi_min=0.01, nwd=2,
+                                               rfmt=rfmt)
     assert info["num_strata"] > 0
     P, Q = lane_tables(model, SU, SI, cuda)
     for (win0, nw), grp in zip(meta, groups):
@@ -135,8 +141,12 @@ def test_dense_phase_kernel_matches_plain(cuda):
         assert dense_phase.launches == before + 2
 
 
-def test_trainer_through_both_kernels_is_repeatable(cuda):
-    train, test, model, *_ = _state(cuda)
+@pytest.mark.parametrize("rank", [RANK, 128])
+def test_trainer_through_both_kernels_is_repeatable(cuda, rank):
+    """Two runs of the trainer (int4 codes at rank 64, int8 at rank 128)
+    bitwise equal, and one epoch on the CPU from the card's plan bits
+    within 1e-5 / 1e-4."""
+    train, test, model, *_ = _state(cuda, rank=rank)
     runs = []
     for _ in range(2):
         s0, d0 = sgd_sweep.launches, dense_phase.launches
@@ -147,7 +157,7 @@ def test_trainer_through_both_kernels_is_repeatable(cuda):
     for (ta, Pa), (tb, Pb) in zip(*runs):
         assert ta == tb and torch.equal(Pa, Pb)
     assert runs[0][1][0] < runs[0][0][0]
-    cpu_model = init_model(torch.Generator().manual_seed(0), U, I, RANK)
+    cpu_model = init_model(torch.Generator().manual_seed(0), U, I, rank)
     cpu_model.P.copy_(model.P.cpu())
     cpu_model.Q.copy_(model.Q.cpu())
     cpu_model.mu = model.mu
@@ -554,9 +564,10 @@ def _wavefront_case(kernel, dev):
     takes user blocks of 1,024 (rank 64, as phase 3 of ``chip_smoke.py``
     runs it) over 9,000 users, where the kernel keeps its pools in device
     memory; ``step_u`` keeps them in shared memory."""
-    if kernel in ("sgd", "tile", "step_u", "step_u_su1024"):
+    if kernel in ("sgd", "sgd_r128", "tile", "step_u", "step_u_su1024"):
         users = 9000 if kernel == "step_u_su1024" else U
-        train, _, model, u, i, r = _state(dev, users=users)
+        train, _, model, u, i, r = _state(
+            dev, users=users, rank=128 if kernel == "sgd_r128" else RANK)
         su = 1024 if kernel == "step_u_su1024" else 64
         si = 64
         skel = pdv.build_plan_skeleton(u, i, users, I, su, si, T, TPG, 8)
@@ -565,7 +576,7 @@ def _wavefront_case(kernel, dev):
         seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
         args = (sw.sa, sw.tc, tl[sw.t0:sw.t1], LR, REG, model.mu)
         kw = dict(su=su, si=si, tpg=TPG)
-        if kernel == "sgd":
+        if kernel in ("sgd", "sgd_r128"):
             return (lambda tabs, blocks, table=True: sgd_sweep(
                         tabs[0], tabs[1][seg], *args, **kw, blocks=blocks,
                         deps=sw.deps if table else None),
@@ -587,11 +598,14 @@ def _wavefront_case(kernel, dev):
                     tabs[0], tabs[1][seg], tabs[2], tabs[3][seg], *args,
                     su=su, si=si, tpg=TPG),
                 plain_tables(model, su, si, dev), sw.deps)
-    if kernel == "dense":
-        train, _, model, u, i, r = _state(dev)
+    if kernel.startswith("dense"):
+        rfmt = "int8" if "int8" in kernel else "int4"
+        train, _, model, u, i, r = _state(
+            dev, rank=128 if kernel.endswith("r128") else RANK)
         su = si = 128
         (meta,), (grp,), _, _ = prepare_dense_full(u, i, r, U, I, su, si,
-                                                   chi_min=0.01, nwd=11)
+                                                   chi_min=0.01, nwd=11,
+                                                   rfmt=rfmt)
         seg = slice(meta[0] * si, (meta[0] + meta[1]) * si)
         kw = dict(su=su, si=si)
         return (lambda tabs, blocks, table=True: dense_phase(
@@ -620,8 +634,8 @@ def _wavefront_case(kernel, dev):
             (st.P, st.Q), deps)
 
 
-WAVEFRONT_KERNELS = ["sgd", "bpr", "tile", "step_u", "step_u_su1024",
-                     "dense"]
+WAVEFRONT_KERNELS = ["sgd", "sgd_r128", "bpr", "tile", "step_u",
+                     "step_u_su1024", "dense", "dense_int8", "dense_int8_r128"]
 
 
 @pytest.mark.parametrize("kernel", WAVEFRONT_KERNELS)

@@ -20,9 +20,9 @@ from mfx_torch.models.mf import MFModel, init_model
 U, I, RANK = 300, 260, 64
 
 
-def _jax_model(seed=2):
+def _jax_model(seed=2, rank=RANK):
     rng = np.random.default_rng(seed)
-    m = init_model_j(seed, U, I, RANK, global_mean=3.4)
+    m = init_model_j(seed, U, I, rank, global_mean=3.4)
     return JMFModel(P=m.P, Q=m.Q,
                     bu=jnp.asarray(rng.normal(0, 0.2, U), jnp.float32),
                     bi=jnp.asarray(rng.normal(0, 0.2, I), jnp.float32),
@@ -33,8 +33,9 @@ def _np(m):
     return {k: np.asarray(getattr(m, k)) for k in ("P", "Q", "bu", "bi", "mu")}
 
 
-def test_convert_round_trip_is_exact():
-    arrays = _np(_jax_model())
+@pytest.mark.parametrize("rank", [RANK, 128])
+def test_convert_round_trip_is_exact(rank):
+    arrays = _np(_jax_model(rank=rank))
     t = model_from_numpy(arrays)
     back = model_to_numpy(t)
     for k in ("P", "Q", "bu", "bi", "mu"):
@@ -70,8 +71,9 @@ def test_init_model_scale_and_seed():
     assert float(a.bu.abs().sum()) == 0 and a.mu == 3.5
 
 
-def test_lane_layout_matches_reference():
-    jm = _jax_model(4)
+@pytest.mark.parametrize("rank", [RANK, 128])
+def test_lane_layout_matches_reference(rank):
+    jm = _jax_model(4, rank)
     tm = model_from_numpy(_np(jm))
     lane_j, lane_t = pk.to_lane_model(jm), pk_t.to_lane_model(tm)
     for k in ("P", "Q", "bu", "bi"):
@@ -83,13 +85,23 @@ def test_lane_layout_matches_reference():
                                       np.asarray(getattr(back_j, k)), err_msg=k)
 
 
-def test_lane_tables_pad_to_whole_blocks():
-    tm = model_from_numpy(_np(_jax_model(6)))
+@pytest.mark.parametrize("rank", [RANK, 128])
+def test_lane_tables_pad_to_whole_blocks(rank):
+    """Lanes rank-2 and rank-1 (126 and 127 at rank 128) carry P's constant
+    1 and bu, Q's bi and constant 1."""
+    tm = model_from_numpy(_np(_jax_model(6, rank)))
     P, Q = pk_t.lane_tables(tm, 128, 256, "cpu")
-    assert P.shape == (384, RANK) and Q.shape == (512, RANK)
+    assert P.shape == (384, rank) and Q.shape == (512, rank)
     assert float(P[U:].abs().sum()) == 0 and float(Q[I:].abs().sum()) == 0
-    np.testing.assert_array_equal(P[:U, RANK - 1].numpy(), tm.bu.numpy())
-    np.testing.assert_array_equal(Q[:I, RANK - 2].numpy(), tm.bi.numpy())
+    np.testing.assert_array_equal(P[:U, rank - 1].numpy(), tm.bu.numpy())
+    np.testing.assert_array_equal(Q[:I, rank - 2].numpy(), tm.bi.numpy())
+    np.testing.assert_array_equal(P[:U, rank - 2].numpy(), 1.0)
+    np.testing.assert_array_equal(Q[:I, rank - 1].numpy(), 1.0)
+    back = pk_t.from_lane_model(model_from_numpy(
+        {"P": P[:U].numpy(), "Q": Q[:I].numpy(), "bu": np.zeros(U),
+         "bi": np.zeros(I), "mu": tm.mu}))
+    assert torch.equal(back.bu, tm.bu) and torch.equal(back.bi, tm.bi)
+    assert torch.equal(back.P[:, :rank - 2], tm.P[:, :rank - 2])
 
 
 def test_plain_tables_pad_to_whole_blocks_and_slice_back():

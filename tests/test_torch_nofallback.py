@@ -246,6 +246,7 @@ def test_chip_smoke_fails_without_a_card(tmp_path, where):
 @pytest.mark.parametrize("module,wrappers", [
     ("sgd_sweep", ["sgd_sweep", "_tile_bias_sweep", "wavefront_launch"]),
     ("bpr_sweep", ["bpr_sweep"]),
+    ("dense_phase", ["dense_phase", "dense_launch"]),
 ])
 def test_sweep_wrappers_cuda_route_reaches_no_plain_version(module, wrappers):
     """In the sweep wrappers' source: no ``try`` at all, and a plain
@@ -267,5 +268,39 @@ def test_sweep_wrappers_cuda_route_reaches_no_plain_version(module, wrappers):
         plain_calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
                        and "plain" in ast.unparse(n.func)]
         assert all(id(n) in cpu_only for n in plain_calls), name
-        if name in ("sgd_sweep", "bpr_sweep", "_tile_bias_sweep"):
+        if name in ("sgd_sweep", "bpr_sweep", "_tile_bias_sweep",
+                    "dense_phase"):
             assert plain_calls, name
+
+
+@pytest.mark.parametrize("form,item", [
+    ("sgd_sweep rank 32", "Queue 2 item 2"),
+    ("sgd_sweep rank 96", "Queue 2 item 2"),
+    ("dense_phase rank 128 int4", "Queue 2 item 3"),
+    ("dense_phase rank 32 int8", "Queue 2 item 3"),
+])
+def test_forms_without_a_kernel_raise(form, item):
+    """A rank or code format the kernels lack is refused before any launch
+    (the checks the wrappers make on a card's tensors), naming the ROADMAP
+    item; the kernels' own forms pass."""
+    from mfx_torch.kernels.dense_phase import check_kernel_form
+    from mfx_torch.kernels.sgd_sweep import check_kernel_limits
+
+    who, _, rank, *fmt = form.split()
+    rank = int(rank)
+    P = torch.zeros(512, rank)
+    if who == "sgd_sweep":
+        tl = torch.zeros(4, 3, 256, dtype=torch.int32)
+        for ok in (64, 128):
+            check_kernel_limits(who, torch.zeros(512, ok), tl, 512, 512,
+                                ranks=(64, 128))
+        with pytest.raises(NotImplementedError, match=item):
+            check_kernel_limits(who, P, tl, 512, 512, ranks=(64, 128))
+        return
+    codes = {"int4": torch.zeros(1, 512, 256, dtype=torch.uint8),
+             "int8": torch.zeros(1, 512, 512, dtype=torch.int8)}
+    for ok_rank, ok_fmt in ((64, "int4"), (64, "int8"), (128, "int8")):
+        check_kernel_form(torch.zeros(512, ok_rank), {"R": codes[ok_fmt]},
+                          512, 512)
+    with pytest.raises(NotImplementedError, match=item):
+        check_kernel_form(P, {"R": codes[fmt[0]]}, 512, 512)

@@ -24,22 +24,32 @@ U = I = 600
 SU = SI = 256
 T, TPG, RANK = 64, 4, 64
 LR, REG = 0.012, 0.04
+# rank 128 (pack 1, the netflix100m_rank128_dp geometry) at the shapes of
+# tests/unit/test_pallas_kernel.py::test_pallas_rank128_pack1_interpret
+GEOM = {64: dict(users=U, items=I, n=6000, su=SU, tile=T, seed=9, lr=LR,
+                 reg=REG, atol=1e-5),
+        128: dict(users=300, items=260, n=3000, su=128, tile=32, seed=5,
+                  lr=0.05, reg=0.02, atol=2e-6)}
 
 
-def _setup(n=6000, seed=0, epoch=0):
-    coo = synthetic.make_synthetic(U, I, n, rank=4, noise=0.3, seed=9,
-                                   star_step=0.5)
-    nwin = sweep_geometry_j(I, RANK, SI)
+def _setup(n=6000, seed=0, epoch=0, rank=RANK):
+    g = GEOM[rank]
+    users, items, su = g["users"], g["items"], g["su"]
+    n = n if rank == RANK else g["n"]
+    coo = synthetic.make_synthetic(users, items, n, rank=4, noise=0.3,
+                                   seed=g["seed"], star_step=0.5)
+    nwin = sweep_geometry_j(items, rank, su)
     u, i, r = (jnp.asarray(coo.user), jnp.asarray(coo.item),
                jnp.asarray(coo.rating))
-    skel = pdv_j.build_plan_skeleton(u, i, U, I, SU, SI, T, TPG, nwin)
+    skel = pdv_j.build_plan_skeleton(u, i, users, items, su, su, g["tile"],
+                                     TPG, nwin)
     tl = pdv_j.epoch_tiles_device(skel, u, i, r, seed, epoch)
     rng = np.random.default_rng(4)
-    m = init_model(3, U, I, RANK, global_mean=coo.global_mean)
+    m = init_model(3, users, items, rank, global_mean=coo.global_mean)
     model = JMFModel(
         P=m.P, Q=m.Q,
-        bu=jnp.asarray(rng.normal(0, 0.1, U), jnp.float32),
-        bi=jnp.asarray(rng.normal(0, 0.1, I), jnp.float32), mu=m.mu,
+        bu=jnp.asarray(rng.normal(0, 0.1, users), jnp.float32),
+        bi=jnp.asarray(rng.normal(0, 0.1, items), jnp.float32), mu=m.mu,
     )
     return coo, skel, np.array(tl), model
 
@@ -51,45 +61,54 @@ def _numpy(m):
 def test_sweep_geometry_matches_reference():
     for items, si in ((600, 256), (59047, 1024), (3000, 128)):
         assert sweep_geometry(items, RANK, si) == sweep_geometry_j(items, RANK, si)
+    for items, si in ((17770, 512), (260, 128)):
+        assert sweep_geometry(items, 128, si) == sweep_geometry_j(items, 128, si)
+    assert sweep_geometry(17770, 128, 512) == 35  # the netflix preset
 
 
-def test_plain_sweep_matches_pallas_interpret():
-    coo, skel, tl, model = _setup()
+@pytest.mark.parametrize("rank", [64, 128])
+def test_plain_sweep_matches_pallas_interpret(rank):
+    g = GEOM[rank]
+    users, items, su, lr, reg = (g["users"], g["items"], g["su"], g["lr"],
+                                 g["reg"])
+    coo, skel, tl, model = _setup(rank=rank)
     mu = float(model.mu)
     lane = pk.to_lane_model(model)
-    Pm, Qm = pk.pack_state(lane, SU, SI)
+    Pm, Qm = pk.pack_state(lane, su, su)
     sse_j = 0.0
     for sw in skel.sweeps:
-        Qs = pk.q_segment(Qm, sw.win0, sw.nwin, RANK, SI)
+        Qs = pk.q_segment(Qm, sw.win0, sw.nwin, rank, su)
         Pm, Qs, s = blocked_sgd_sweep_pallas(
             Pm, Qs, {"sa": sw.sa, "tc": sw.tc, "tl": jnp.asarray(tl[sw.t0:sw.t1])},
-            LR, REG, mu, su=SU, si=SI, rank=RANK, tpg=TPG, use_bias=True,
+            lr, reg, mu, su=su, si=su, rank=rank, tpg=TPG, use_bias=True,
             exact=True, interpret=True, bias_mode="lane", pack_path="roll",
         )
-        Qm = pk.q_segment_restore(Qm, Qs, sw.win0, RANK, SI)
+        Qm = pk.q_segment_restore(Qm, Qs, sw.win0, rank, su)
         sse_j += float(s[0, 0])
-    ref = pk.from_lane_model(pk.unpack_state(Pm, Qm, model.mu, U, I, RANK,
-                                             SU, SI))
+    ref = pk.from_lane_model(pk.unpack_state(Pm, Qm, model.mu, users, items,
+                                             rank, su, su))
 
     tm = model_from_numpy(_numpy(model))
-    P, Q = pk_t.lane_tables(tm, SU, SI, "cpu")
+    P, Q = pk_t.lane_tables(tm, su, su, "cpu")
     tl_t = torch.as_tensor(tl)
     sse_t = 0.0
     for sw in skel.sweeps:
         sse_t += float(sgd_sweep(
-            P, Q[sw.win0 * SI:(sw.win0 + sw.nwin) * SI],
+            P, Q[sw.win0 * su:(sw.win0 + sw.nwin) * su],
             torch.as_tensor(np.asarray(sw.sa)), torch.as_tensor(np.asarray(sw.tc)),
-            tl_t[sw.t0:sw.t1], LR, REG, mu, su=SU, si=SI, tpg=TPG,
+            tl_t[sw.t0:sw.t1], lr, reg, mu, su=su, si=su, tpg=TPG,
         ))
     got = pk_t.from_lane_model(model_from_numpy(
-        {"P": P[:U].numpy(), "Q": Q[:I].numpy(), "bu": np.zeros(U),
-         "bi": np.zeros(I), "mu": mu}))
-    # the TPU path sums 128 lanes (two rank-64 slots) where the port sums
-    # 64, and the segment sums associate differently: f32 noise only
+        {"P": P[:users].numpy(), "Q": Q[:items].numpy(),
+         "bu": np.zeros(users), "bi": np.zeros(items), "mu": mu}))
+    # rank 64: the TPU path sums 128 lanes (two rank-64 slots) where the
+    # port sums 64, and the segment sums associate differently: f32 noise
+    # only; rank 128 (one slot a lane row) within the reference kernel
+    # test's own 2e-6
     for k in ("P", "Q", "bu", "bi"):
         np.testing.assert_allclose(getattr(got, k).numpy(),
                                    np.asarray(getattr(ref, k)), rtol=0,
-                                   atol=1e-5, err_msg=k)
+                                   atol=g["atol"], err_msg=k)
     assert abs(sse_t - sse_j) <= 1e-5 * sse_j
 
 

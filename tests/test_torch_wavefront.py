@@ -64,7 +64,8 @@ def _bpr_segments(S=1):
 
 
 def _cells(kind):
-    return {"sgd": _sgd_sweeps, "tile": _sgd_sweeps, "bpr": _bpr_segments,
+    return {"sgd": _sgd_sweeps, "sgd_r128": _sgd_sweeps, "tile": _sgd_sweeps,
+            "bpr": _bpr_segments,
             "bpr_two_shards": lambda: _bpr_segments(2)}[kind]()
 
 
@@ -134,7 +135,7 @@ def _replay(kind, sa, tc, tl, order, state):
     o = torch.as_tensor(order)
     sa_t = sa.repeat_interleave(TPG)[o].contiguous()
     stream = (sa_t, tc[o].contiguous(), tl[o].contiguous(), LR, REG)
-    if kind == "sgd":
+    if kind in ("sgd", "sgd_r128"):
         sgd_sweep_plain(*tabs[:2], *stream, MU, su=SU, si=SI, tpg=1)
     elif kind == "tile":
         sgd_sweep_tile_plain(*tabs, *stream, MU, su=SU, si=SI, tpg=1)
@@ -143,12 +144,14 @@ def _replay(kind, sa, tc, tl, order, state):
     return tabs
 
 
-def _tables(seed=0):
-    """P and Q, then the bias vectors bu and bi of the same rows."""
+def _tables(seed=0, kind="sgd"):
+    """P and Q (rank 128 for the rank-128 lane sweep, else RANK), then the
+    bias vectors bu and bi of the same rows."""
     g = torch.Generator().manual_seed(seed)
     nu = -(-U // SU) * SU
-    return (torch.randn(nu, RANK, generator=g) * 0.3,
-            torch.randn(NWIN * SI, RANK, generator=g) * 0.3,
+    rank = 128 if kind == "sgd_r128" else RANK
+    return (torch.randn(nu, rank, generator=g) * 0.3,
+            torch.randn(NWIN * SI, rank, generator=g) * 0.3,
             torch.randn(nu, generator=g) * 0.1,
             torch.randn(NWIN * SI, generator=g) * 0.1)
 
@@ -158,9 +161,9 @@ def _same(a, b):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
-@pytest.mark.parametrize("kind", ["sgd", "bpr", "tile"])
+@pytest.mark.parametrize("kind", ["sgd", "bpr", "tile", "sgd_r128"])
 def test_any_allowed_order_gives_the_plan_order_tables(kind, seed):
-    state = _tables()
+    state = _tables(kind=kind)
     moved = 0
     for sa, tc, tl, deps, _ in _cells(kind):
         nt = tl.shape[0]
@@ -177,7 +180,7 @@ def test_any_allowed_order_gives_the_plan_order_tables(kind, seed):
     assert moved > 0  # the orders tried were not the plan's
 
 
-@pytest.mark.parametrize("kind", ["sgd", "bpr", "tile"])
+@pytest.mark.parametrize("kind", ["sgd", "bpr", "tile", "sgd_r128"])
 def test_dropping_one_wait_changes_some_allowed_order(kind):
     """Two user blocks with tiles in one window that share item rows: with
     the second run's wait removed some allowed order runs it first, and
@@ -194,7 +197,7 @@ def test_dropping_one_wait_changes_some_allowed_order(kind):
                           "cpu")
     assert deps.wait[TPG].tolist() == [0, TPG, 0]
     assert deps.critical == deps.n_tiles == nt
-    state = _tables()
+    state = _tables(kind=kind)
     want = _replay(kind, sa, tc, tl, np.arange(nt), state)
     for seed in range(8):  # the full table: every order agrees
         got = _replay(kind, sa, tc, tl, pdv.wavefront_order(deps, seed),

@@ -83,7 +83,30 @@ printed as it ends:
    after the first epoch: tests/test_torch_slice.py::
    test_netflix_cut_follows_the_reference_trainer), peak memory <= 80 GB,
    and a second run of 1 epoch repeats the first run's state after epoch
-   1 bit for bit.
+   1 bit for bit;
+13. Java parity on the card: mfx_torch.solvers.sgd.train_epochs with
+   partitioner='fixed' and batch_size = 1, 2 epochs on a seeded synthetic
+   of 2,000 ratings (60 x 80, seed 105, rank 8, biases) from tables shared
+   through model_from_numpy: the tables and biases within 5e-5 (the
+   reference's own tolerance) of the float64 sequential oracle
+   (mfx_torch.oracle); a second run bitwise equal; conflict-free batches
+   of 32 and 128 give bitwise-equal tables;
+14. the minibatch path: the ml100k_rank16 preset unchanged (rank 16, no
+   biases, conflict-free batches of 2,048, 30 epochs) on the full
+   ML-100K-shaped synthetic (943 x 1,682, 100,000 ratings): one epoch's
+   plan (batches, real ratings), the epoch dispatched op by op and replayed
+   as a CUDA graph (the trainer's form on the card) bitwise equal, their
+   times, a graph-replayed epoch with no host sync (sync debug mode
+   'error'), a kernel breakdown of 256 batches; then the 30 epochs through
+   mfx_torch.train.driver.train with log_path and checkpoints: the train
+   RMSE falls every epoch, the held-out RMSE ends <= 0.533 and below the
+   untrained model's, one JSONL record an epoch; the run resumed from its
+   epoch-14 checkpoint equals it bit for bit; the CLI's update with a
+   seeded delta of 2,000 ratings (10 new users, 10 new items) grows the
+   tables by 10 and 10 as step 30, and recommend --fused on it launches
+   tile_topk (counter > 0); each of those launches is made again on the
+   inputs recommend gave it (rank 16, tile 128, depth 2) and held against
+   tile_topk_plain as in phase 5.
 
 Each phase prints its wall time. The second-to-last line is a JSON object
 describing each kernel (times, launches on the main path, and the bound:
@@ -92,7 +115,8 @@ the sweeps also the whole-sweep times on one block and on the card's
 count; for dense_phase those of 256 strata and the times of group 0 and
 of the epoch's dense phase, for dense_phase_int8_r128 those of the whole
 group 0; for tile_topk every variant's times and the stock path's, whose
-f32 depth-2 time is its library_ms). The rank-128 forms are entries of
+f32 depth-2 time is its library_ms, and phase 14's launches and check).
+The rank-128 forms are entries of
 their own (sgd_sweep_r128, dense_phase_int8_r128), their launches from
 phase 12; the last is
 {"ok": true, "device": {...}}. Any failure
@@ -124,6 +148,14 @@ DENSE_STRATA = 64
 DENSE_WHOLE = 256  # strata of group 0 run on 1 block and on the card's count
 NETFLIX_EPOCHS = 3  # of netflix100m_rank128_dp's 15: depth, cut for time
 K = 10
+# phase 13: the Java-parity synthetic and the reference's own tolerance
+# (tests/parity/test_java_parity.py)
+JAVA_SHAPE = (60, 80, 2_000)
+JAVA_TOL = 5e-5
+# ml100k_rank16, 30 epochs: the JAX trainer ends at 0.53151 and the port
+# on the CPU at 0.53173 (each from its own seeded init)
+ML100K_GATE = 0.533
+PROFILE_BATCHES = 256  # phase 14's kernel breakdown
 
 
 def log(msg: str) -> None:
@@ -281,6 +313,37 @@ def _true_scores(P_aug, Q_aug, sb, rows, items):
     return s
 
 
+def hold_topk(what, got, P_aug, Q_aug, sb, tile, depth):
+    """Holds tile_topk's result ``got`` against its plain version on the
+    same inputs: every value within TOL, and a lane that differs only
+    where the two lanes' true scores tie within TOL. Returns (max abs
+    err, lane swaps, their largest score gap)."""
+    import torch
+
+    from mfx_torch.kernels.serve_topk import tile_topk_plain
+
+    want = tile_topk_plain(P_aug, Q_aug, tile=tile, depth=depth, sb=sb)
+    err, swaps, swap_gap = 0.0, 0, 0.0
+    for j in range(0, 2 * depth, 2):
+        (m_k, a_k), (m_p, a_p) = got[j:j + 2], want[j:j + 2]
+        if not bool(torch.isfinite(m_k).all()):
+            raise AssertionError(f"{what}: non-finite values")
+        err = max(err, float((m_k - m_p).abs().max()))
+        bad = a_k != a_p
+        if bool(bad.any()):
+            b, t = bad.nonzero(as_tuple=True)
+            base = t * tile
+            gap = (_true_scores(P_aug, Q_aug, sb, b, base + a_k[bad])
+                   - _true_scores(P_aug, Q_aug, sb, b, base + a_p[bad]))
+            swaps += int(bad.sum())
+            swap_gap = max(swap_gap, float(gap.abs().max()))
+    if err > TOL or swap_gap > TOL:
+        raise AssertionError(
+            f"{what} depth {depth}: max abs err {err}, lane swaps {swaps} "
+            f"with score gap {swap_gap} (tol {TOL})")
+    return err, swaps, swap_gap
+
+
 def topk_phase(dev):
     """Phase 5: tile_topk against its plain version at the serving shape;
     returns ((max abs err over the variants, f32 depth-2 ms, its plain
@@ -310,26 +373,8 @@ def topk_phase(dev):
         torch.cuda.synchronize()
         if any(not torch.equal(a, b) for a, b in zip(*outs)):
             raise AssertionError(f"tile_topk {dtype}: two kernel runs differ")
-        want = tile_topk_plain(P_aug, Q_aug, tile=tile, depth=depth, sb=sb)
-        err, swaps, swap_gap = 0.0, 0, 0.0
-        for j in range(0, 2 * depth, 2):
-            (m_k, a_k), (m_p, a_p) = outs[0][j:j + 2], want[j:j + 2]
-            if not bool(torch.isfinite(m_k).all()):
-                raise AssertionError(f"tile_topk {dtype}: non-finite values")
-            err = max(err, float((m_k - m_p).abs().max()))
-            bad = a_k != a_p
-            if bool(bad.any()):
-                b, t = bad.nonzero(as_tuple=True)
-                base = t * tile
-                gap = (_true_scores(P_aug, Q_aug, sb, b, base + a_k[bad])
-                       - _true_scores(P_aug, Q_aug, sb, b, base + a_p[bad]))
-                swaps += int(bad.sum())
-                swap_gap = max(swap_gap, float(gap.abs().max()))
-        if err > TOL or swap_gap > TOL:
-            raise AssertionError(
-                f"tile_topk {dtype} depth {depth}: max abs err {err}, lane "
-                f"swaps {swaps} with score gap {swap_gap} (tol {TOL})")
-        del want
+        err, swaps, swap_gap = hold_topk(f"tile_topk {dtype}", outs[0], P_aug,
+                                         Q_aug, sb, tile, depth)
         ms = cuda_ms(run, reps=5)
         plain_ms = cuda_ms(lambda: tile_topk_plain(P_aug, Q_aug, tile=tile,
                                                    depth=depth, sb=sb))
@@ -1173,6 +1218,312 @@ def netflix_phases(dev, results, bounds, sweeps):
     return launches
 
 
+def java_parity_phase(dev):
+    """Phase 13: the minibatch trainer with batch_size = 1 on the card
+    against the float64 sequential oracle (the Java rule); conflict-free
+    rounds chunk-invariant; a second run bitwise equal."""
+    import numpy as np
+    import torch
+
+    from mfx_torch.config import SGDConfig
+    from mfx_torch.convert import model_from_numpy
+    from mfx_torch.data.split import epoch_permutation
+    from mfx_torch.data.synthetic import make_synthetic
+    from mfx_torch.oracle import (init_oracle_from_arrays,
+                                  train_epoch_sequential)
+    from mfx_torch.solvers.sgd import train_epochs
+
+    t_phase = time.perf_counter()
+    coo = make_synthetic(*JAVA_SHAPE, rank=4, seed=105)
+    U, I, rank = coo.num_users, coo.num_items, 8
+    rng = np.random.default_rng(105)
+    arrays = {"P": rng.normal(size=(U, rank)) / np.sqrt(rank),
+              "Q": rng.normal(size=(I, rank)) / np.sqrt(rank),
+              "bu": np.zeros(U), "bi": np.zeros(I),
+              "mu": np.float32(coo.global_mean)}
+    arrays = {k: np.asarray(v, np.float32) for k, v in arrays.items()}
+    keys = ("P", "Q", "bu", "bi")
+
+    def run(**kw):
+        cfg = SGDConfig(epochs=2, **kw)
+        model = model_from_numpy(arrays, device=dev)
+        for _, model, _ in train_epochs(model, coo, cfg, use_bias=True,
+                                        seed=0):
+            pass
+        return model
+
+    seq = dict(lr=0.02, reg=0.05, batch_size=1, partitioner="fixed")
+    t0 = time.perf_counter()
+    model = run(**seq)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    oracle = init_oracle_from_arrays(*(arrays[k] for k in keys),
+                                     float(arrays["mu"]))
+    for epoch in range(2):
+        train_epoch_sequential(oracle, coo,
+                               epoch_permutation(coo.n_ratings, 0, epoch),
+                               lr=seq["lr"], reg=seq["reg"])
+    err = max(float(np.abs(getattr(model, k).cpu().numpy()
+                           - getattr(oracle, k)).max()) for k in keys)
+    log(f"[java] {coo.n_ratings} ratings ({U} x {I}, seed 105), rank "
+        f"{rank}, batch_size 1, 2 epochs ({2 * coo.n_ratings} batches) on "
+        f"the card in {card_s:.2f} s: max |table - float64 oracle| "
+        f"{err:.3e} (tolerance {JAVA_TOL})")
+    if not err <= JAVA_TOL:
+        raise AssertionError(f"Java parity: {err} > {JAVA_TOL}")
+    again = run(**seq)
+    if not all(torch.equal(getattr(again, k), getattr(model, k))
+               for k in keys):
+        raise AssertionError("Java parity: a second run differs")
+    chunked = [run(lr=0.03, reg=0.02, batch_size=bs,
+                   partitioner="conflict_free") for bs in (32, 128)]
+    if not all(torch.equal(getattr(chunked[0], k), getattr(chunked[1], k))
+               for k in keys):
+        raise AssertionError("conflict-free batches of 32 and 128 differ")
+    log("[java] a second run bitwise equal; conflict-free batches of 32 "
+        "and 128 give bitwise-equal tables")
+    log(f"[time] phase 13 {time.perf_counter() - t_phase:.1f} s")
+
+
+def ml100k_phase(dev):
+    """Phase 14: the ml100k_rank16 preset unchanged through the driver,
+    resume, the CLI's update and recommend (tile_topk launched, then held
+    against its plain version on the inputs recommend gave it). Returns
+    tile_topk's launches in recommend and that check's record."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import warnings
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from mfx_torch import cli
+    from mfx_torch.config import apply_overrides, preset
+    from mfx_torch.data.coo import RatingsCOO
+    from mfx_torch.data.loaders import load_dataset
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.eval.metrics import rmse_mae
+    from mfx_torch.kernels.serve_topk import tile_topk
+    from mfx_torch.models.mf import init_model
+    from mfx_torch.serve import fused
+    from mfx_torch.solvers import sgd
+    from mfx_torch.train.driver import train as drive
+
+    t_phase = time.perf_counter()
+    cfg = preset("ml100k_rank16")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the seeded synthetic stand-in
+        coo = load_dataset(cfg.data.dataset, cache=False)
+    train, test = train_test_split(coo, cfg.data.test_frac,
+                                   seed=cfg.data.seed)
+    clip = (0.5, 5.0) if cfg.clip_predictions else None
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.model.seed)
+    m0 = init_model(gen, coo.num_users, coo.num_items, cfg.model.rank,
+                    global_mean=train.global_mean)
+    base = rmse_mae(m0, test, clip=clip)
+    log(f"[ml100k] {coo.num_users} x {coo.num_items}, {coo.n_ratings} "
+        f"ratings ({train.n_ratings} train / {test.n_ratings} test); "
+        f"untrained held-out RMSE {base[0]:.5f} MAE {base[1]:.5f}")
+
+    # one epoch apart: the plan on the host, then its batches through the
+    # step dispatched op by op and replayed as a CUDA graph (the trainer's
+    # form on the card), bitwise equal, with the host syncs of each
+    t0 = time.perf_counter()
+    plan = sgd.plan_epoch(train, cfg.sgd, cfg.data.seed, 0, device=dev)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    nb = plan.num_batches
+    real = int((plan.batches["weights"] > 0).sum())
+    log(f"[ml100k] epoch 0 plan: {nb} batches of {plan.batch_size} slots, "
+        f"{real} real ratings ({real / (nb * plan.batch_size):.4%} of the "
+        f"slots), planned and uploaded in {plan_s:.3f} s on the host")
+    fns = {"eager": sgd.make_epoch_fn(cfg.sgd, cfg.model.use_bias,
+                                      graph=False),
+           "graph": sgd.make_epoch_fn(cfg.sgd, cfg.model.use_bias)}
+    out = {}
+    for name, fn in fns.items():
+        t0 = time.perf_counter()
+        fn(m0, plan, cfg.sgd.lr)  # warm-up (the graph: its capture)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        m1, sse = fn(m0, plan, cfg.sgd.lr)
+        end.record()
+        host_s = time.perf_counter() - t0
+        end.synchronize()
+        dev_ms = start.elapsed_time(end)
+        out[name] = (m1, float(sse))
+        log(f"[ml100k] one epoch, {name}: {dev_ms:.1f} ms on the card "
+            f"({dev_ms / nb * 1e3:.1f} us a batch), {host_s:.3f} s to dispatch "
+            f"on the host (first call {first_s:.3f} s)")
+    # the trainer's form makes no host sync inside an epoch: any would
+    # raise here
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fns["graph"](m0, plan, cfg.sgd.lr)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("[ml100k] a whole graph-replayed epoch under "
+        "torch.cuda.set_sync_debug_mode('error'): no host sync")
+    (me, se), (mg, sg) = out["eager"], out["graph"]
+    if se != sg or not all(torch.equal(getattr(me, k), getattr(mg, k))
+                           for k in ("P", "Q", "bu", "bi")):
+        raise AssertionError("graph replay and eager loop differ")
+    log(f"[ml100k] graph replay == eager loop, tables and sse ({sg:.3f}) "
+        "bitwise")
+    # the device time of the step by kernel, over the plan's first batches
+    from torch.profiler import ProfilerActivity, profile
+
+    head = sgd.EpochPlan({k: v[:PROFILE_BATCHES]
+                          for k, v in plan.batches.items()}, real)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fns["graph"](m0, head, cfg.sgd.lr)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if getattr(e, "device_time_total", 0) > 0 and e.device_type.name
+           == "CUDA"]
+    total = sum(e.device_time_total for e in evs)
+    top = sorted(evs, key=lambda e: -e.device_time_total)[:6]
+    log(f"[ml100k] profile of {PROFILE_BATCHES} graph-replayed batches: "
+        f"{total / PROFILE_BATCHES:.1f} us of kernels a batch; "
+        + "; ".join(f"{e.key[:60]} x{e.count // PROFILE_BATCHES} "
+                    f"{e.device_time_total / PROFILE_BATCHES:.1f} us"
+                    for e in top))
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tmp = Path(tmp)
+        run_cfg = apply_overrides(cfg, [
+            f"log_path={tmp / 'log.jsonl'}", f"checkpoint_dir={tmp / 'ck'}",
+            "checkpoint_every=15"])
+        t0 = time.perf_counter()
+        res = drive(run_cfg, device=dev)
+        wall = time.perf_counter() - t0
+        hist = res.history
+        trains = [h["train_metric"] for h in hist]
+        epoch_s = sorted(h["epoch_s"] for h in hist)
+        log(f"[ml100k] driver: {res.epochs_run} epochs in {wall:.1f} s, "
+            f"epoch_s median {epoch_s[len(epoch_s) // 2]:.3f} (min "
+            f"{epoch_s[0]:.3f}, max {epoch_s[-1]:.3f}), "
+            f"{res.updates_per_sec:.0f} updates/s in the last; train RMSE "
+            f"{trains[0]:.5f} -> {trains[-1]:.5f}; held-out RMSE "
+            f"{res.test_rmse:.5f} MAE {res.test_mae:.5f}")
+        if res.epochs_run != cfg.sgd.epochs:
+            raise AssertionError(f"{res.epochs_run} epochs run")
+        if any(b >= a for a, b in zip(trains, trains[1:])):
+            raise AssertionError(f"train RMSE did not fall: {trains}")
+        if not res.test_rmse < base[0] or not res.test_rmse <= ML100K_GATE:
+            raise AssertionError(
+                f"held-out RMSE {res.test_rmse} (untrained {base[0]}, gate "
+                f"{ML100K_GATE})")
+        recs = (tmp / "log.jsonl").read_text().splitlines()
+        if [json.loads(x)["epoch"] for x in recs] != list(range(30)):
+            raise AssertionError("the JSONL log is not one record an epoch")
+        fin = [getattr(res.model, k) for k in ("P", "Q", "bu", "bi")]
+        if not all(bool(torch.isfinite(t).all()) for t in fin):
+            raise AssertionError("model tables not finite")
+
+        # resume from the epoch-14 checkpoint
+        (tmp / "ck2").mkdir()
+        shutil.copy(tmp / "ck" / "14.npz", tmp / "ck2" / "14.npz")
+        t0 = time.perf_counter()
+        res2 = drive(apply_overrides(run_cfg, [
+            f"checkpoint_dir={tmp / 'ck2'}", f"log_path={tmp / 'log2.jsonl'}"
+        ]), device=dev)
+        if [h["epoch"] for h in res2.history] != list(range(15, 30)):
+            raise AssertionError("the resumed run did not start at epoch 15")
+        if not all(torch.equal(getattr(res2.model, k), t)
+                   for k, t in zip(("P", "Q", "bu", "bi"), fin)):
+            raise AssertionError("the resumed run differs from the unbroken")
+        log(f"[ml100k] resumed from the epoch-14 checkpoint: epochs 15-29 in "
+            f"{time.perf_counter() - t0:.1f} s, tables bitwise those of the "
+            "unbroken run")
+
+        # the CLI's update with a seeded delta, then recommend
+        rng = np.random.default_rng(106)
+        U, I = coo.num_users, coo.num_items
+        n = 2000
+        du = rng.integers(0, U + 10, n).astype(np.int32)
+        di = rng.integers(0, I + 10, n).astype(np.int32)
+        du[:10] = np.arange(U, U + 10)
+        di[10:20] = np.arange(I, I + 10)
+        dr = rng.integers(1, 6, n).astype(np.float32)
+        RatingsCOO(user=du, item=di, rating=dr, num_users=U + 10,
+                   num_items=I + 10).save_npz(tmp / "delta.npz")
+
+        def cli_run(args):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                if cli.main(args) != 0:
+                    raise AssertionError(f"cli {args[0]} failed")
+            return buf.getvalue().strip().splitlines()
+
+        t0 = time.perf_counter()
+        out = json.loads(cli_run([
+            "update", "--checkpoint", str(tmp / "ck"), "--delta",
+            str(tmp / "delta.npz"), "--device", dev.type])[-1])
+        if (out["grew_users"], out["grew_items"], out["step"]) != (10, 10, 30):
+            raise AssertionError(f"update: {out}")
+        log(f"[ml100k] CLI update in {time.perf_counter() - t0:.2f} s: {out}")
+        # the kernel's inputs as the recommender hands them over, kept
+        # for the check against its plain version below
+        calls = []
+
+        def keep(P_aug, Q_aug, **kw):
+            calls.append((P_aug.clone(), Q_aug.clone(), kw))
+            return tile_topk(P_aug, Q_aug, **kw)
+
+        tile_topk.launches = 0
+        fused.tile_topk = keep
+        t0 = time.perf_counter()
+        try:
+            lines = cli_run(["recommend", "--checkpoint", str(tmp / "ck"),
+                             "--users", f"0,1,{U + 9}", "--fused", "--tile",
+                             "128", "--device", dev.type])
+        finally:
+            fused.tile_topk = tile_topk
+        rec_s = time.perf_counter() - t0
+        launches = tile_topk.launches
+        recs = [json.loads(x) for x in lines]
+        if len(recs) != 3 or any(len(r["items"]) != K for r in recs) or any(
+                max(r["items"]) >= I + 10 for r in recs):
+            raise AssertionError(f"CLI recommend: {lines}")
+        if launches < 1:
+            raise AssertionError("recommend never launched tile_topk")
+        log(f"[ml100k] CLI recommend --fused --tile 128 on the updated "
+            f"checkpoint ({U + 10} x {I + 10}): 3 users in {rec_s:.2f} s, "
+            f"launches {{'tile_topk': {launches}}}")
+        # each of those launches again on the same inputs, held against
+        # the plain version (these launches are not counted above)
+        err = 0.0
+        for P_aug, Q_aug, kw in calls:
+            got = tile_topk(P_aug, Q_aug, **kw)
+            e, swaps, gap = hold_topk("tile_topk (recommend)", got, P_aug,
+                                      Q_aug, kw.get("sb"), kw["tile"],
+                                      kw["depth"])
+            err = max(err, e)
+            log(f"[kernel] tile_topk at recommend's shapes: P_aug "
+                f"{tuple(P_aug.shape)} {P_aug.dtype}, Q_aug "
+                f"{tuple(Q_aug.shape)}, tile {kw['tile']}, depth "
+                f"{kw['depth']}: max_abs_err={e:.3e} (tol {TOL}), lane swaps "
+                f"{swaps} (gap <= {gap:.3e}); launches on the path "
+                f"{launches}")
+    log(f"[time] phase 14 {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "max_abs_err": err,
+            "P_aug": list(calls[0][0].shape), "Q_aug": list(calls[0][1].shape),
+            "tile": calls[0][2]["tile"], "depth": calls[0][2]["depth"]}
+
+
 def main() -> int:
     import torch
 
@@ -1434,6 +1785,10 @@ def main() -> int:
     # 11-12. the netflix path (rank 128, int8 codes)
     launches.update(netflix_phases(dev, results, bounds, sweeps))
 
+    # 13-14. the minibatch path: Java parity, then ml100k_rank16
+    java_parity_phase(dev)
+    topk_ml100k = ml100k_phase(dev)
+
     replaces = {"sgd_sweep": "mfx/kernels/sgd_pallas.py:63",
                 "dense_phase": "mfx/kernels/dense_pallas.py:86",
                 "tile_topk": "mfx/kernels/serve_pallas.py:42",
@@ -1463,7 +1818,8 @@ def main() -> int:
          "library_ms": (topk_variants[0]["stock_ms"] if name == "tile_topk"
                         else None),
          **({"library": "torch.matmul (TF32 off) then torch.topk over "
-                        "each tile", "variants": topk_variants}
+                        "each tile", "variants": topk_variants,
+             "ml100k_recommend": topk_ml100k}
             if name == "tile_topk" else {}),
          # the sweeps (the tile-bias ones on ML-1M): a whole sweep on 1
          # block and on the card's count; dense_phase: DENSE_WHOLE strata

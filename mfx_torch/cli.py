@@ -9,6 +9,9 @@
     python -m mfx_torch.cli similar --checkpoint ckpt/ --items 1,7 [--fused]
     python -m mfx_torch.cli serve --checkpoint ckpt/ --port 8080 [--fused]
     python -m mfx_torch.cli export --checkpoint ckpt/ --out model.npz
+    python -m mfx_torch.cli update --checkpoint ckpt/ --delta delta.npz
+    python -m mfx_torch.cli datasets
+    python -m mfx_torch.cli presets
 
 Configs come from the ``mfx_torch.config`` presets (the reference's) and
 ``--set`` overrides. Each subcommand takes the reference's flags
@@ -243,6 +246,61 @@ def cmd_export(args) -> int:
     return 0
 
 
+def cmd_update(args) -> int:
+    """Online update: checkpoint + delta-ratings .npz -> new checkpoint
+    step (grow the tables for new ids, fold-in init, a few SGD epochs over
+    the delta through ``mfx_torch.train.online.partial_fit``; no full
+    retrain)."""
+    from mfx_torch.config import SGDConfig
+    from mfx_torch.data.coo import RatingsCOO
+    from mfx_torch.train.checkpoint import (latest_step, load_checkpoint,
+                                            save_checkpoint)
+    from mfx_torch.train.online import partial_fit
+
+    model, epoch, seed = load_checkpoint(args.checkpoint, device=args.device)
+    delta = RatingsCOO.load_npz(args.delta)
+    replay = (RatingsCOO.load_npz(args.replay)
+              if args.replay is not None else None)
+    old_shape = (model.num_users, model.num_items)
+    cfg = SGDConfig(
+        lr=args.lr, reg=args.reg, epochs=args.epochs,
+        batch_size=args.batch_size, partitioner="fixed",
+        dup_trust=args.dup_trust,
+    )
+    model, tr = partial_fit(
+        model, delta, cfg, seed=seed,
+        foldin_new=not args.no_foldin, foldin_reg=args.foldin_reg,
+        replay=replay,
+    )
+    out_dir = args.out if args.out is not None else args.checkpoint
+    step = (latest_step(out_dir) or epoch) + 1
+    save_checkpoint(out_dir, step, model, seed=seed)
+    print(json.dumps({
+        "checkpoint": str(out_dir), "step": step,
+        "delta_ratings": delta.n_ratings,
+        "grew_users": model.num_users - old_shape[0],
+        "grew_items": model.num_items - old_shape[1],
+        "train_rmse": None if tr != tr else round(tr, 6),
+    }, sort_keys=True))
+    return 0
+
+
+def cmd_datasets(args) -> int:
+    from mfx_torch.data.loaders import dataset_names
+
+    print("\n".join(dataset_names()))
+    return 0
+
+
+def cmd_presets(args) -> int:
+    from mfx_torch.config import PRESETS
+
+    for name, cfg in sorted(PRESETS.items()):
+        print(f"{name}: solver={cfg.solver} dataset={cfg.data.dataset} "
+              f"rank={cfg.model.rank} parallel={cfg.parallel.mode}")
+    return 0
+
+
 def _add_device(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
@@ -338,6 +396,38 @@ def main(argv=None) -> int:
     p.add_argument("--checkpoint", required=True)
     p.add_argument("--out", required=True, help="output .npz path")
     p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser(
+        "update",
+        help="online update: absorb a delta-ratings .npz into a "
+             "checkpoint (grow + fold-in + a few SGD epochs)",
+    )
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--delta", required=True,
+                   help="RatingsCOO .npz of the new ratings "
+                        "(ids may exceed the model's tables)")
+    p.add_argument("--replay", default=None,
+                   help="optional RatingsCOO .npz of old ratings to "
+                        "train alongside the delta (rehearsal)")
+    p.add_argument("--out", default=None,
+                   help="checkpoint dir for the updated step "
+                        "(default: append to --checkpoint)")
+    p.add_argument("--epochs", type=int, default=2)
+    p.add_argument("--lr", type=float, default=0.01)
+    p.add_argument("--reg", type=float, default=0.02)
+    p.add_argument("--batch-size", type=int, default=8192)
+    p.add_argument("--dup-trust", type=float, default=16.0)
+    p.add_argument("--foldin-reg", type=float, default=0.05)
+    p.add_argument("--no-foldin", action="store_true",
+                   help="skip least-squares init of new rows")
+    _add_device(p)
+    p.set_defaults(fn=cmd_update)
+
+    p = sub.add_parser("datasets", help="list known datasets")
+    p.set_defaults(fn=cmd_datasets)
+
+    p = sub.add_parser("presets", help="list named configs")
+    p.set_defaults(fn=cmd_presets)
 
     args = parser.parse_args(argv)
     return args.fn(args)

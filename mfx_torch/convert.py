@@ -23,10 +23,11 @@ _LANES = 128     # lanes of a merged row
 _BIAS_ROWS = 8   # bias rows behind each block's factor rows
 
 
-def model_from_numpy(arrays: dict, device: torch.device | str = "cpu") -> MFModel:
+def model_from_numpy(arrays: dict,
+                     device: torch.device | str = "cuda") -> MFModel:
     """``{"P", "Q", "bu", "bi", "mu"}`` numpy arrays (e.g. the reference
     ``MFModel``'s fields through ``np.asarray``) -> an ``MFModel`` on
-    ``device``. The tables are copied."""
+    ``device``, the card unless told otherwise. The tables are copied."""
     t = {
         k: torch.tensor(np.asarray(arrays[k]), dtype=torch.float32,
                         device=device)

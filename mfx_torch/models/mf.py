@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["MFModel", "init_model"]
+__all__ = ["MFModel", "init_model", "baseline_biases"]
 
 
 class MFModel(nn.Module):
@@ -104,3 +104,40 @@ def init_model(
         torch.zeros(num_items, dtype=f32, device=device),
         mu=global_mean,
     )
+
+
+def baseline_biases(
+    coo, mu: float | None = None, damping: float = 10.0,
+    device: torch.device | str = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Damped-mean bias initialization (Koren's baseline predictor), the
+    counterpart of ``mfx/models/mf.py::baseline_biases``: item biases are
+    the damped mean residual against the global mean, user biases the
+    damped mean of the item-corrected residual —
+
+        b_i = Σ_{u∈R(i)} (r_ui − μ) / (λ + |R(i)|)
+        b_u = Σ_{i∈R(u)} (r_ui − μ − b_i) / (λ + |R(u)|)
+
+    Four scatter-adds on ``device`` (the card unless told otherwise),
+    each through ``kernels.packing.row_add``. Returns ``(bu, bi)`` as
+    float32; the driver wires it for ``model.bias_init='baseline'``."""
+    from mfx_torch.kernels.packing import row_add
+
+    f = torch.float32
+    u = torch.as_tensor(coo.user).to(device).long()
+    i = torch.as_tensor(coo.item).to(device).long()
+    r = torch.as_tensor(coo.rating).to(device, f)
+    mu = float(coo.global_mean) if mu is None else float(mu)
+    res = r - mu
+    ones = torch.ones_like(res)
+    cnt_i = torch.zeros(coo.num_items, dtype=f, device=device)
+    row_add(cnt_i, i, ones)
+    bi = torch.zeros(coo.num_items, dtype=f, device=device)
+    row_add(bi, i, res)
+    bi = bi / (damping + cnt_i)
+    res_u = res - bi[i]
+    cnt_u = torch.zeros(coo.num_users, dtype=f, device=device)
+    row_add(cnt_u, u, ones)
+    bu = torch.zeros(coo.num_users, dtype=f, device=device)
+    row_add(bu, u, res_u)
+    return bu / (damping + cnt_u), bi

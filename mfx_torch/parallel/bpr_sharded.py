@@ -199,6 +199,7 @@ def train_epochs_bpr_ring(
     timings: dict | None = None,
     plan_rand: Callable[[int, int], torch.Tensor] | None = None,
     neg_rand: Callable[[int, torch.Tensor], torch.Tensor] | None = None,
+    start_epoch: int = 0,
 ) -> Iterator[tuple[int, MFModel, float]]:
     """Fused BPR epochs on a ring of ``shards`` (one) shard; yields
     ``(epoch, model, mean_loss)`` with the model in the original item
@@ -213,7 +214,10 @@ def train_epochs_bpr_ring(
     supplies the within-stratum shuffle key (n int32) and
     ``neg_rand(epoch, navail)`` the uniform draws x ~ U[0, max(navail, 1))
     instead of the seeded torch generators; the parity tests pass the
-    reference's ``jax.random`` numbers this way.
+    reference's ``jax.random`` numbers this way. Epochs run from
+    ``start_epoch``; the item relabelling is the run's and the negatives
+    and plans are seeded by epoch, so a run resumed there from the tables
+    an unbroken run had repeats it bit for bit.
     """
     t_prep = time.perf_counter()
     st = ring_state(model, train, cfg, shards=shards, seed=seed,
@@ -227,7 +231,7 @@ def train_epochs_bpr_ring(
         timings["segment_tiles"] = [(seg[4].n_tiles, seg[4].critical)
                                     for seg in segs]
     si, U = st.si, train.num_users
-    for epoch in range(cfg.epochs):
+    for epoch in range(start_epoch, cfg.epochs):
         tls = ring_epoch_tiles(st, cfg, seed, epoch, plan_rand=plan_rand,
                                neg_rand=neg_rand, timings=timings)
         loss = torch.zeros((), dtype=torch.float32, device=st.P.device)

@@ -98,10 +98,17 @@ def dense_rfmt(cfg: SGDConfig, rank: int, rating: np.ndarray) -> str:
 
 
 def _unsupported(cfg: SGDConfig, use_bias: bool) -> str | None:
-    if cfg.partitioner != "blocked" or cfg.kernel != "pallas":
-        return (f"partitioner={cfg.partitioner!r} kernel={cfg.kernel!r} "
-                "(only the blocked fused-kernel path is ported; Queue 1 "
-                "item 10)")
+    if cfg.partitioner != "blocked":
+        raise ValueError(
+            f"train_epochs_blocked needs partitioner='blocked', got "
+            f"{cfg.partitioner!r} (mfx_torch.solvers.sgd.train_epochs runs "
+            "'fixed' and 'conflict_free')")
+    if cfg.kernel == "blocked_jnp":
+        return ("kernel='blocked_jnp' (the reference's one-hot XLA mirror "
+                "of the fused kernel; the kernels' plain versions stand in "
+                "for it in the tests; Queue 1 item 5)")
+    if cfg.kernel != "pallas":
+        raise ValueError(f"unknown blocked kernel {cfg.kernel!r}")
     if use_bias and cfg.bias_mode == "epoch":
         return "bias_mode='epoch' (sparse kernel variants; Queue 2 item 2)"
     if cfg.dense_chi != 0 and cfg.dense_span != "full":
@@ -124,8 +131,10 @@ def train_epochs_blocked(
     device: torch.device | str | None = None,
     timings: dict | None = None,
     plan_rand: Callable[[int, int], torch.Tensor] | None = None,
+    start_epoch: int = 0,
 ) -> Iterator[tuple[int, MFModel, torch.Tensor]]:
-    """Yields ``(epoch, model, train_rmse)`` like the reference.
+    """Yields ``(epoch, model, train_rmse)`` like the reference, for the
+    epochs from ``start_epoch`` on.
 
     ``model`` is canonical (biases in ``bu``/``bi``); each yielded model is
     a fresh canonical copy of the tables after the epoch, and
@@ -140,6 +149,13 @@ def train_epochs_blocked(
     within-stratum shuffle key (n int32 values) instead of the seeded
     torch generator — the parity tests pass the reference planner's bits
     this way.
+
+    The lr schedule follows the epoch number, and the tile stream of an
+    epoch is the one planned for its last replan epoch (a multiple of
+    ``replan_every``; epoch 0 when that is 0), so a run resumed
+    at ``start_epoch`` from the tables an unbroken run had there repeats
+    that run bit for bit. (The reference plans a resumed run's first
+    epoch with its own number.)
     """
     why = _unsupported(cfg, use_bias)
     if why is not None:
@@ -216,12 +232,14 @@ def train_epochs_blocked(
             timings["dense_info"] = dinfo
 
     tl = None
-    for epoch in range(cfg.epochs):
+    for epoch in range(start_epoch, cfg.epochs):
         lr = cfg.lr * (cfg.lr_decay ** epoch)
         if tl is None or (cfg.replan_every and epoch % cfg.replan_every == 0):
             t_plan = time.perf_counter()
-            rand = plan_rand(epoch, u.shape[0]) if plan_rand else None
-            tl = pdv.epoch_tiles_device(skel, u, i, r, seed, epoch, rand=rand)
+            key = (epoch - epoch % cfg.replan_every if cfg.replan_every
+                   else 0)
+            rand = plan_rand(key, u.shape[0]) if plan_rand else None
+            tl = pdv.epoch_tiles_device(skel, u, i, r, seed, key, rand=rand)
             if timings is not None:
                 sync()
                 timings["plan_s"] += time.perf_counter() - t_plan

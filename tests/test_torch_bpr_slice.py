@@ -72,7 +72,7 @@ def test_two_epochs_match_the_reference_ring():
 
     before = bpr_sweep.launches
     got = [(loss, m) for _, m, loss in ring.train_epochs_bpr_ring(
-        model_from_numpy(arrays), train, CFG, shards=1, seed=SEED,
+        model_from_numpy(arrays, device="cpu"), train, CFG, shards=1, seed=SEED,
         device="cpu", plan_rand=_plan_bits(SEED),
         neg_rand=_neg_bits(SEED + NEG_SEED))]
     assert bpr_sweep.launches == before  # CPU tensors: the plain version
@@ -109,7 +109,7 @@ def test_ring_refusals(change, exc, what):
     train, _ = _split()
     model = model_from_numpy({"P": np.zeros((U, RANK)),
                               "Q": np.zeros((I, RANK)), "bu": np.zeros(U),
-                              "bi": np.zeros(I), "mu": 1.0})
+                              "bi": np.zeros(I), "mu": 1.0}, device="cpu")
     shards, cfg = 1, CFG
     if change == "shards=2":
         shards = 2
@@ -188,7 +188,7 @@ def test_ring_on_its_own_generators_repeats_and_reports_times():
         timings = {}
         runs.append([(loss, model_to_numpy(m)) for _, m, loss in
                      ring.train_epochs_bpr_ring(
-                         model_from_numpy(arrays), train, CFG, seed=SEED,
+                         model_from_numpy(arrays, device="cpu"), train, CFG, seed=SEED,
                          device="cpu", timings=timings)])
         tiles = timings.pop("segment_tiles")
         assert set(timings) == {"prep_s", "neg_s", "plan_s"}

@@ -58,7 +58,7 @@ def test_plain_matches_the_pallas_kernel():
     want = pk.unpack_state(Pm, Qm, 0.0, U, I, RANK, SU, SI)
 
     m = model_from_numpy({k: np.asarray(getattr(m0, k))
-                          for k in ("P", "Q", "bu", "bi", "mu")})
+                          for k in ("P", "Q", "bu", "bi", "mu")}, device="cpu")
     P, Q = pad_rows(m.P, UB), pad_rows(m.Q, IB)
     got_loss = []
     for win0, nw, sa, tc, tl in segs:

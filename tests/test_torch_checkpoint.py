@@ -29,7 +29,7 @@ def _model(seed=0, U=50, I=40, r=8):
         "P": rng.normal(0, 1, (U, r)), "Q": rng.normal(0, 1, (I, r)),
         "bu": rng.normal(0, 0.2, U), "bi": rng.normal(0, 0.2, I),
         "mu": np.float32(3.25),
-    })
+    }, device="cpu")
 
 
 def _equal(a: dict, b: dict):
@@ -117,6 +117,10 @@ def _small_cfg(tmp_path, ckpt, every):
 
 
 def test_driver_checkpoints_and_refuses_to_resume(tmp_path):
+    """Checkpoints every ``checkpoint_every`` epochs and at the end, in
+    the reference's layout. A directory that holds a step is resumed from
+    it (with nothing left to train, the run returns the saved tables);
+    ``resume=False`` refuses to resume and trains from scratch over it."""
     from mfx_torch.train.driver import train
 
     ckpt = tmp_path / "ckpt"
@@ -129,8 +133,9 @@ def test_driver_checkpoints_and_refuses_to_resume(tmp_path):
     _equal(model_to_numpy(got), model_to_numpy(res.model))
     jm, _, _ = ckpt_j.load_checkpoint(ckpt)
     assert isinstance(jm, JMFModel) and jnp.allclose(jm.P, res.model.P.numpy())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        train(_small_cfg(tmp_path, ckpt, every=0), device="cpu")
+    resumed = train(_small_cfg(tmp_path, ckpt, every=0), device="cpu")
+    assert resumed.epochs_run == 0 and resumed.history == []
+    _equal(model_to_numpy(resumed.model), model_to_numpy(got))
     res2 = train(_small_cfg(tmp_path, ckpt, every=0), device="cpu",
                  resume=False)
     assert res2.epochs_run == 3 and latest_step(ckpt) == 2

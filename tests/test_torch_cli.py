@@ -31,7 +31,7 @@ def ckpt(tmp_path_factory):
         "P": rng.normal(0, 0.5, (U, RANK)), "Q": rng.normal(0, 0.5, (I, RANK)),
         "bu": rng.normal(0, 0.2, U), "bi": rng.normal(0, 0.2, I),
         "mu": np.float32(3.5),
-    })
+    }, device="cpu")
     d = tmp_path_factory.mktemp("ckpt")
     save_checkpoint(d, 4, model, seed=1)
     return d

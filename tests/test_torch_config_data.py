@@ -137,3 +137,118 @@ def test_seen_csr_is_equal():
     users = np.array([0, 5, 5, 299, 17], np.int32)
     for x, y in zip(a.batch(users, pad_row=8), b.batch(users, pad_row=8)):
         np.testing.assert_array_equal(x, y)
+
+
+def _skewed(seed):
+    # Zipf-skewed users and items: hot rows force many conflict-free rounds
+    return syn_j.make_synthetic(400, 300, 6_000, rank=4, seed=seed,
+                                user_zipf_s=0.9)
+
+
+@pytest.mark.parametrize("seed,batch_size", [(3, 64), (5, 2048), (7, 1)])
+def test_conflict_free_batches_are_the_references(seed, batch_size):
+    """The partition copy's O(n) loop returns exactly the batches of the
+    reference's native greedy and of its NumPy fallback, conflict-free,
+    in the same order."""
+    from mfx import native
+    from mfx.data import partition as part_j
+    from mfx_torch.data import partition as part_t
+
+    coo = _skewed(seed)
+    perm = split_j.epoch_permutation(coo.n_ratings, seed, 2)
+    got = part_t.partition_conflict_free(
+        coo.user, coo.item, batch_size, perm, num_users=coo.num_users,
+        num_items=coo.num_items)
+    assert native.available()
+    ref = part_j.partition_conflict_free(
+        coo.user, coo.item, batch_size, perm, num_users=coo.num_users,
+        num_items=coo.num_items)
+    others = (ref,
+              part_j._partition_conflict_free_numpy(coo.user, coo.item,
+                                                    batch_size, perm))
+    for want in others:
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    part_t.validate_conflict_free(coo.user, coo.item, got)
+    rounds, n = part_t.conflict_free_rounds(coo.user, coo.item, perm,
+                                            coo.num_users, coo.num_items)
+    want_rounds, want_n = native.conflict_free_rounds(
+        coo.user, coo.item, perm, coo.num_users, coo.num_items)
+    np.testing.assert_array_equal(rounds, want_rounds)
+    assert n == want_n
+
+
+@pytest.mark.parametrize("order", ["flat", "batches"])
+def test_pad_to_batches_is_equal(order):
+    from mfx.data import partition as part_j
+    from mfx_torch.data import partition as part_t
+
+    coo = _skewed(1)
+    perm = split_j.epoch_permutation(coo.n_ratings, 1, 0)
+    if order == "batches":
+        perm = part_j.partition_conflict_free(coo.user, coo.item, 96, perm)
+    extras = {"bin": np.arange(coo.n_ratings, dtype=np.int16)}
+    for sizes in ((coo.num_users, coo.num_items), (None, None)):
+        a = part_t.pad_to_batches(coo.user, coo.item, coo.rating, perm, 96,
+                                  *sizes, extras=extras)
+        b = part_j.pad_to_batches(coo.user, coo.item, coo.rating, perm, 96,
+                                  *sizes, extras=extras)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert part_t.PAD_ID == part_j.PAD_ID
+    np.testing.assert_array_equal(
+        part_t.partition_fixed(coo.n_ratings, 96, perm if order == "flat"
+                               else np.arange(coo.n_ratings)),
+        part_j.partition_fixed(coo.n_ratings, 96, perm if order == "flat"
+                               else np.arange(coo.n_ratings)))
+
+
+def test_validate_conflict_free_rejects_alike():
+    from mfx.data import partition as part_j
+    from mfx_torch.data import partition as part_t
+
+    user = np.array([0, 1, 0, 2], np.int32)
+    item = np.array([0, 1, 2, 1], np.int32)
+    for bad, what in (([np.array([0, 2])], "user"),
+                      ([np.array([1, 3])], "item")):
+        msgs = []
+        for mod in (part_t, part_j):
+            with pytest.raises(AssertionError, match=what) as info:
+                mod.validate_conflict_free(user, item, bad)
+            msgs.append(str(info.value))
+        assert msgs[0] == msgs[1]
+
+
+@pytest.mark.parametrize("use_bias", [True, False])
+def test_java_oracle_copy_is_bitwise_equal(use_bias):
+    """The oracle copy runs the same float64 arithmetic as the original:
+    tables, biases and both RMSEs bit for bit, from a shared init and from
+    each package's own seeded init."""
+    from mfx.oracle import java_oracle as oj
+    from mfx_torch.data.coo import RatingsCOO as CooT
+    from mfx_torch.oracle import java_oracle as ot
+
+    coo_j = syn_j.make_synthetic(40, 50, 900, rank=4, seed=9)
+    coo_t = CooT(user=coo_j.user, item=coo_j.item, rating=coo_j.rating,
+                 num_users=40, num_items=50)
+    a = ot.init_oracle(40, 50, 4, coo_j.global_mean, seed=2)
+    b = oj.init_oracle(40, 50, 4, coo_j.global_mean, seed=2)
+    rng = np.random.default_rng(0)
+    shared = [rng.normal(size=(40, 4)), rng.normal(size=(50, 4)),
+              rng.normal(size=40), rng.normal(size=50), 3.25]
+    c = ot.init_oracle_from_arrays(*shared)
+    d = oj.init_oracle_from_arrays(*shared)
+    for x, y in ((a, b), (c, d)):
+        for epoch in range(2):
+            order = split_j.epoch_permutation(coo_j.n_ratings, 0, epoch)
+            rx = ot.train_epoch_sequential(x, coo_t, order, lr=0.02,
+                                           reg=0.05, use_bias=use_bias)
+            ry = oj.train_epoch_sequential(y, coo_j, order, lr=0.02,
+                                           reg=0.05, use_bias=use_bias)
+            assert rx == ry
+        for k in ("P", "Q", "bu", "bi"):
+            np.testing.assert_array_equal(getattr(x, k), getattr(y, k))
+        assert ot.oracle_rmse(x, coo_t) == oj.oracle_rmse(y, coo_j)

@@ -162,7 +162,7 @@ def _assert_port_matches(model, ref, sse_j, meta, groups, atol=1e-5):
     """The port's dense_phase (the plain version on the CPU) over
     ``groups`` from ``model``, against the reference's result."""
     tm = model_from_numpy({k: np.asarray(getattr(model, k))
-                           for k in ("P", "Q", "bu", "bi", "mu")})
+                           for k in ("P", "Q", "bu", "bi", "mu")}, device="cpu")
     rank = tm.rank
     P, Q = pk_t.lane_tables(tm, SU, SI, "cpu")
     sse_t = 0.0

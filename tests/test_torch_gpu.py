@@ -682,3 +682,44 @@ def test_wavefront_kernels_without_a_table_walk_in_plan_order(cuda, kernel):
         wavefront_launch("sgd_sweep", None, wrong, deps.n_tiles, T, cuda, 1)
     with pytest.raises(ValueError, match="blocks"):
         run([x.clone() for x in state], 0)
+
+
+@pytest.mark.parametrize("partitioner,use_bias,trust", [
+    ("conflict_free", False, 0.0), ("fixed", True, 4.0)])
+def test_minibatch_graph_replay_is_the_eager_loop(cuda, partitioner,
+                                                  use_bias, trust):
+    """The minibatch step replayed as a CUDA graph (the trainer's form on
+    the card) gives the op-by-op loop's tables and SSE bit for bit, twice
+    over, with no host sync inside the epoch (filler batches of sentinel
+    pads included); the CPU's loop agrees within 1e-5."""
+    from mfx_torch.models.mf import MFModel
+    from mfx_torch.solvers import sgd
+
+    coo = synthetic.make_synthetic(400, 300, 8_000, rank=4, seed=3,
+                                   user_zipf_s=0.9)
+    cfg = SGDConfig(lr=0.03, reg=0.02, batch_size=128,
+                    partitioner=partitioner, dup_trust=trust)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    model = init_model(g, 400, 300, 16, global_mean=coo.global_mean,
+                       device=cuda)
+    plan = sgd.plan_epoch(coo, cfg, 0, 0, device=cuda)
+    me, se = sgd.make_epoch_fn(cfg, use_bias, graph=False)(model, plan,
+                                                            cfg.lr)
+    graph = sgd.make_epoch_fn(cfg, use_bias)
+    mg, sg = graph(model, plan, cfg.lr)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mg2, sg2 = graph(model, plan, cfg.lr)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    keys = ("P", "Q", "bu", "bi")
+    for other in (mg, mg2):
+        assert all(torch.equal(getattr(me, k), getattr(other, k))
+                   for k in keys)
+    assert float(se) == float(sg) == float(sg2)
+    cpu = MFModel(*(getattr(model, k).cpu() for k in keys), model.mu)
+    mc, sc = sgd.make_epoch_fn(cfg, use_bias)(
+        cpu, sgd.plan_epoch(coo, cfg, 0, 0, device="cpu"), cfg.lr)
+    for k in keys:
+        torch.testing.assert_close(getattr(me, k).cpu(), getattr(mc, k),
+                                   rtol=0, atol=1e-5)

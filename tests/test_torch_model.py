@@ -36,7 +36,7 @@ def _np(m):
 @pytest.mark.parametrize("rank", [RANK, 128])
 def test_convert_round_trip_is_exact(rank):
     arrays = _np(_jax_model(rank=rank))
-    t = model_from_numpy(arrays)
+    t = model_from_numpy(arrays, device="cpu")
     back = model_to_numpy(t)
     for k in ("P", "Q", "bu", "bi", "mu"):
         np.testing.assert_array_equal(back[k], arrays[k], err_msg=k)
@@ -52,7 +52,7 @@ def test_npz_moves_between_packages(tmp_path, direction):
         got = model_to_numpy(MFModel.load_npz(path, device="cpu"))
         want = _np(jm)
     else:
-        tm = model_from_numpy(_np(jm))
+        tm = model_from_numpy(_np(jm), device="cpu")
         tm.save_npz(path)
         got = _np(JMFModel.load_npz(path, device=False))
         want = model_to_numpy(tm)
@@ -74,7 +74,7 @@ def test_init_model_scale_and_seed():
 @pytest.mark.parametrize("rank", [RANK, 128])
 def test_lane_layout_matches_reference(rank):
     jm = _jax_model(4, rank)
-    tm = model_from_numpy(_np(jm))
+    tm = model_from_numpy(_np(jm), device="cpu")
     lane_j, lane_t = pk.to_lane_model(jm), pk_t.to_lane_model(tm)
     for k in ("P", "Q", "bu", "bi"):
         np.testing.assert_array_equal(getattr(lane_t, k).numpy(),
@@ -89,7 +89,7 @@ def test_lane_layout_matches_reference(rank):
 def test_lane_tables_pad_to_whole_blocks(rank):
     """Lanes rank-2 and rank-1 (126 and 127 at rank 128) carry P's constant
     1 and bu, Q's bi and constant 1."""
-    tm = model_from_numpy(_np(_jax_model(6, rank)))
+    tm = model_from_numpy(_np(_jax_model(6, rank)), device="cpu")
     P, Q = pk_t.lane_tables(tm, 128, 256, "cpu")
     assert P.shape == (384, rank) and Q.shape == (512, rank)
     assert float(P[U:].abs().sum()) == 0 and float(Q[I:].abs().sum()) == 0
@@ -99,13 +99,13 @@ def test_lane_tables_pad_to_whole_blocks(rank):
     np.testing.assert_array_equal(Q[:I, rank - 1].numpy(), 1.0)
     back = pk_t.from_lane_model(model_from_numpy(
         {"P": P[:U].numpy(), "Q": Q[:I].numpy(), "bu": np.zeros(U),
-         "bi": np.zeros(I), "mu": tm.mu}))
+         "bi": np.zeros(I), "mu": tm.mu}, device="cpu"))
     assert torch.equal(back.bu, tm.bu) and torch.equal(back.bi, tm.bi)
     assert torch.equal(back.P[:, :rank - 2], tm.P[:, :rank - 2])
 
 
 def test_plain_tables_pad_to_whole_blocks_and_slice_back():
-    tm = model_from_numpy(_np(_jax_model(6)))
+    tm = model_from_numpy(_np(_jax_model(6)), device="cpu")
     P, Q, bu, bi = pk_t.plain_tables(tm, 128, 256, "cpu")
     assert P.shape == (384, RANK) and Q.shape == (512, RANK)
     assert bu.shape == (384,) and bi.shape == (512,)
@@ -130,7 +130,7 @@ def test_merged_layout_conversion_matches_reference(rank, su, si):
                   mu=jnp.float32(3.4))
     Pm, Qm = pk.pack_state(jm, su, si)
     plain = merged_to_plain(np.asarray(Pm), np.asarray(Qm), rank, su, si)
-    want = pk_t.plain_tables(model_from_numpy(_np(jm)), su, si, "cpu")
+    want = pk_t.plain_tables(model_from_numpy(_np(jm), device="cpu"), su, si, "cpu")
     for got, w in zip(plain, want):
         assert torch.equal(got, w)
     # and back: the reference unpacks what the port packed
@@ -151,16 +151,16 @@ def test_rmse_mae_matches_reference(clip):
     _, test = train_test_split(coo, test_frac=0.1, seed=0)
     jm = _jax_model(7)
     want = rmse_mae_j(jm, test, clip=clip)
-    got = rmse_mae(model_from_numpy(_np(jm)), test, chunk=777, clip=clip)
+    got = rmse_mae(model_from_numpy(_np(jm), device="cpu"), test, chunk=777, clip=clip)
     assert got[0] == pytest.approx(want[0], rel=1e-6)
     assert got[1] == pytest.approx(want[1], rel=1e-6)
-    assert rmse(model_from_numpy(_np(jm)), test, clip=clip) == pytest.approx(
+    assert rmse(model_from_numpy(_np(jm), device="cpu"), test, clip=clip) == pytest.approx(
         want[0], rel=1e-6)
 
 
 def test_predict_matches_reference():
     jm = _jax_model(8)
-    tm = model_from_numpy(_np(jm))
+    tm = model_from_numpy(_np(jm), device="cpu")
     u = np.array([0, 5, 299, 17], np.int32)
     i = np.array([259, 0, 3, 17], np.int32)
     np.testing.assert_allclose(

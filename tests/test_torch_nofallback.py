@@ -38,7 +38,11 @@ MODULES = [
     "mfx_torch.solvers.bpr", "mfx_torch.parallel",
     "mfx_torch.parallel.bpr_sharded", "mfx_torch.eval",
     "mfx_torch.eval.ranking", "mfx_torch.measure_bpr",
-    "mfx_torch.measure_wavefront",
+    "mfx_torch.measure_wavefront", "mfx_torch.data.partition",
+    "mfx_torch.oracle", "mfx_torch.oracle.java_oracle",
+    "mfx_torch.kernels.minibatch", "mfx_torch.solvers.sgd",
+    "mfx_torch.models", "mfx_torch.train.online",
+    "mfx_torch.train.logging", "mfx_torch.train.profile",
 ]
 
 
@@ -99,18 +103,17 @@ def test_chip_smoke_imports_no_jax():
 
 
 def test_loaders_default_to_the_card(tmp_path):
-    """load_checkpoint and MFModel.load_npz put the tables on the card
-    unless asked otherwise (so here, with no card, they raise), and
-    init_model follows its generator's device."""
+    """load_checkpoint, MFModel.load_npz and model_from_numpy put the
+    tables on the card unless asked otherwise (so here, with no card, they
+    raise), and init_model follows its generator's device."""
     import inspect
 
+    from mfx_torch.convert import model_from_numpy, model_to_numpy
     from mfx_torch.models.mf import MFModel, init_model
     from mfx_torch.train.checkpoint import load_checkpoint, save_checkpoint
 
-    assert inspect.signature(load_checkpoint).parameters[
-        "device"].default == "cuda"
-    assert inspect.signature(MFModel.load_npz).parameters[
-        "device"].default == "cuda"
+    for fn in (load_checkpoint, MFModel.load_npz, model_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     model = init_model(torch.Generator().manual_seed(0), 6, 5, 4)
     assert model.device.type == "cpu"
     save_checkpoint(tmp_path, 0, model)
@@ -122,6 +125,10 @@ def test_loaders_default_to_the_card(tmp_path):
         load_checkpoint(tmp_path)
     with pytest.raises((RuntimeError, AssertionError)):
         MFModel.load_npz(tmp_path / "m.npz")
+    arrays = model_to_numpy(model)
+    assert model_from_numpy(arrays, device="cpu").device.type == "cpu"
+    with pytest.raises((RuntimeError, AssertionError)):
+        model_from_numpy(arrays)
 
 
 def test_wrappers_on_a_missing_card_raise():
@@ -155,7 +162,7 @@ def test_recommenders_on_a_missing_card_raise():
 
     model = model_from_numpy({"P": np.ones((4, 8)), "Q": np.ones((300, 8)),
                               "bu": np.zeros(4), "bi": np.zeros(300),
-                              "mu": 3.0})
+                              "mu": 3.0}, device="cpu")
     for build in (lambda: FusedTopKRecommender(model, tile=128,
                                                device="cuda"),
                   lambda: TopKRecommender(model, device="cuda"),

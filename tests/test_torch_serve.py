@@ -39,7 +39,7 @@ def pair():
     arrays = {k: np.asarray(getattr(jm, k))
               for k in ("P", "Q", "bu", "bi", "mu")}
     coo = synthetic.make_synthetic(U, I, 2000, seed=7)
-    return jm, model_from_numpy(arrays), coo
+    return jm, model_from_numpy(arrays, device="cpu"), coo
 
 
 def _agree(got, want, max_swaps=0.05):
@@ -132,7 +132,7 @@ def _one_hot_model(U_, I_, r, pairs):
     arrays = dict(P=P, Q=Q, bu=np.zeros(U_, np.float32),
                   bi=np.zeros(I_, np.float32), mu=np.float32(0.0))
     jm = JMFModel(**{k: jnp.asarray(v) for k, v in arrays.items()})
-    return jm, model_from_numpy(arrays)
+    return jm, model_from_numpy(arrays, device="cpu")
 
 
 def test_pool_exhaustion_raises_in_both(pair):
@@ -193,7 +193,7 @@ def test_fused_rank_limit_matches_reference():
     jm = JMFModel(**{k: jnp.asarray(v) for k, v in arrays.items()})
     msgs = []
     for F, m in ((JFused, jm), (FusedTopKRecommender,
-                                model_from_numpy(arrays))):
+                                model_from_numpy(arrays, device="cpu"))):
         with pytest.raises(ValueError, match="rank") as err:
             F(m)
         msgs.append(str(err.value))

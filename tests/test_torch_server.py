@@ -38,7 +38,7 @@ def _models(seed):
                   bi=jnp.asarray(rng.normal(0, 0.2, I), jnp.float32),
                   mu=m.mu)
     return jm, model_from_numpy({k: np.asarray(getattr(jm, k))
-                                 for k in ("P", "Q", "bu", "bi", "mu")})
+                                 for k in ("P", "Q", "bu", "bi", "mu")}, device="cpu")
 
 
 def _build(model, coo, fused, sim, cold):

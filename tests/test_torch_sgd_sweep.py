@@ -88,7 +88,7 @@ def test_plain_sweep_matches_pallas_interpret(rank):
     ref = pk.from_lane_model(pk.unpack_state(Pm, Qm, model.mu, users, items,
                                              rank, su, su))
 
-    tm = model_from_numpy(_numpy(model))
+    tm = model_from_numpy(_numpy(model), device="cpu")
     P, Q = pk_t.lane_tables(tm, su, su, "cpu")
     tl_t = torch.as_tensor(tl)
     sse_t = 0.0
@@ -100,7 +100,7 @@ def test_plain_sweep_matches_pallas_interpret(rank):
         ))
     got = pk_t.from_lane_model(model_from_numpy(
         {"P": P[:users].numpy(), "Q": Q[:items].numpy(),
-         "bu": np.zeros(users), "bi": np.zeros(items), "mu": mu}))
+         "bu": np.zeros(users), "bi": np.zeros(items), "mu": mu}, device="cpu"))
     # rank 64: the TPU path sums 128 lanes (two rank-64 slots) where the
     # port sums 64, and the segment sums associate differently: f32 noise
     # only; rank 128 (one slot a lane row) within the reference kernel
@@ -114,7 +114,7 @@ def test_plain_sweep_matches_pallas_interpret(rank):
 
 def test_plain_sweep_freezes_constant_lanes_and_skips_pads():
     coo, skel, tl, model = _setup(n=3000)
-    tm = model_from_numpy(_numpy(model))
+    tm = model_from_numpy(_numpy(model), device="cpu")
     P, Q = pk_t.lane_tables(tm, SU, SI, "cpu")
     P0, Q0 = P.clone(), Q.clone()
     sw = skel.sweeps[0]

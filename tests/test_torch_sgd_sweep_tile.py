@@ -60,7 +60,7 @@ def run_port(fn, plans, model, tpg, use_bias):
     """The port's sweep ``fn`` on CPU tensors; returns (padded tables,
     sse)."""
     tm = model_from_numpy({k: np.asarray(getattr(model, k))
-                           for k in KEYS + ("mu",)})
+                           for k in KEYS + ("mu",)}, device="cpu")
     P, Q, bu, bi = pk_t.plain_tables(tm, SU, SI, "cpu")
     sse = 0.0
     for p in plans:
@@ -122,7 +122,7 @@ def test_tile_sweep_of_pad_tiles_changes_nothing():
     rank, tpg = 32, 4
     _, model = sweep_case(rank, tpg)
     tm = model_from_numpy({k: np.asarray(getattr(model, k))
-                           for k in KEYS + ("mu",)})
+                           for k in KEYS + ("mu",)}, device="cpu")
     state = pk_t.plain_tables(tm, SU, SI, "cpu")
     before = [x.clone() for x in state]
     tl = torch.empty(tpg, 3, T, dtype=torch.int32)

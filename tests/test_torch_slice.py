@@ -73,7 +73,7 @@ def test_two_epochs_match_reference_trainer(case):
     timings = {}
     got = []
     for ep, m, tr in train_epochs_blocked(
-        model_from_numpy(arrays), train, CFG, True, seed=0, device="cpu", timings=timings, plan_rand=_jax_bits(0),
+        model_from_numpy(arrays, device="cpu"), train, CFG, True, seed=0, device="cpu", timings=timings, plan_rand=_jax_bits(0),
     ):
         got.append((float(tr), rmse_mae(m, test)[0], model_to_numpy(m)))
 
@@ -122,7 +122,7 @@ def test_netflix_cut_follows_the_reference_trainer():
                      for k in ("P", "Q", "bu", "bi")}))
     got = []
     for _, m, tr in train_epochs_blocked(
-            model_from_numpy(arrays), train, cfg.sgd, True, seed=0,
+            model_from_numpy(arrays, device="cpu"), train, cfg.sgd, True, seed=0,
             device="cpu", plan_rand=_jax_bits(0)):
         got.append((float(tr), rmse_mae(m, test)[0], model_to_numpy(m)))
     assert len(got) == len(ref) == 3
@@ -155,7 +155,7 @@ def test_unported_variants_raise(override, what):
     model = model_from_numpy({
         "P": np.zeros((U, RANK), np.float32), "Q": np.zeros((I, RANK), np.float32),
         "bu": np.zeros(U, np.float32), "bi": np.zeros(I, np.float32), "mu": 3.5,
-    })
+    }, device="cpu")
     with pytest.raises(NotImplementedError, match=what):
         next(train_epochs_blocked(model, train, cfg, True, device="cpu"))
 

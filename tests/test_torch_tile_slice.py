@@ -67,7 +67,7 @@ def test_two_epochs_match_reference_trainer(step_u):
                      for k in ("P", "Q", "bu", "bi")}))
     got = []
     for _, m, tr in train_epochs_blocked(
-            model_from_numpy(arrays), train, cfg.sgd, True, seed=0,
+            model_from_numpy(arrays, device="cpu"), train, cfg.sgd, True, seed=0,
             device="cpu", plan_rand=_jax_bits(0)):
         got.append((float(tr), rmse_mae(m, test)[0], model_to_numpy(m)))
 
@@ -105,7 +105,7 @@ def test_trainer_without_biases_leaves_them_alone():
     arrays = {"P": rng.normal(0, 0.1, (U, 32)), "Q": rng.normal(0, 0.1, (I, 32)),
               "bu": rng.normal(0, 0.1, U), "bi": rng.normal(0, 0.1, I),
               "mu": train.global_mean}
-    model = model_from_numpy(arrays)
+    model = model_from_numpy(arrays, device="cpu")
     (_, m, _), = train_epochs_blocked(model, train, cfg.sgd, False, seed=0,
                                       device="cpu")
     assert torch.equal(m.bu, model.bu) and torch.equal(m.bi, model.bi)
@@ -137,7 +137,7 @@ def test_unported_variants_raise(overrides, what):
     model = model_from_numpy({
         "P": np.zeros((U, 32), np.float32), "Q": np.zeros((I, 32), np.float32),
         "bu": np.zeros(U, np.float32), "bi": np.zeros(I, np.float32),
-        "mu": 3.5})
+        "mu": 3.5}, device="cpu")
     with pytest.raises(NotImplementedError, match=what):
         next(train_epochs_blocked(model, train, cfg.sgd, True, device="cpu"))
 
@@ -162,13 +162,19 @@ def test_train_runs_the_preset_on_cpu(tmp_path, step_u):
 
 
 def test_train_refuses_baseline_bias_init(tmp_path):
+    """``model.bias_init='baseline'`` is ported: a fresh run starts from
+    the baseline predictor's biases. What the driver still refuses beside
+    it is a table dtype other than float32, naming its ROADMAP item."""
     from mfx_torch.train.driver import train
 
     cfg = apply_overrides(preset("ml1m_rank32_biased"),
                           _small_overrides(tmp_path, False)
                           + ["model.bias_init=baseline"])
-    with pytest.raises(NotImplementedError, match="bias_init"):
-        train(cfg, device="cpu")
+    res = train(cfg, device="cpu")
+    assert res.epochs_run == 2 and np.isfinite(res.test_rmse)
+    with pytest.raises(NotImplementedError,
+                       match="model.dtype.*Queue 1 item 9"):
+        train(apply_overrides(cfg, ["model.dtype=bfloat16"]), device="cpu")
 
 
 @pytest.mark.parametrize("step_u", [False, True])

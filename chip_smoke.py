@@ -106,7 +106,33 @@ printed as it ends:
    tables by 10 and 10 as step 30, and recommend --fused on it launches
    tile_topk (counter > 0); each of those launches is made again on the
    inputs recommend gave it (rank 16, tile 128, depth 2) and held against
-   tile_topk_plain as in phase 5.
+   tile_topk_plain as in phase 5;
+15. the time form of sgd_sweep (blocked timeSVD) against its plain
+   version on phase 4's ML-25M-shaped synthetic made temporal (the
+   reference tests' recipe: seeded timestamps in [0, 1e6), a N(0, 0.35)
+   shift per (item, bin) on 30 bins, ratings clipped to [0.5, 5]; seed
+   102) at the blocked timeSVD trainer's shapes (rank 64, 30 bins, su = si
+   = 512, T = 256, tpg 4): the first 2,048 tiles of the first sweep of
+   epoch 0, max abs difference <= 1e-4, two kernel runs bitwise equal, the
+   time of each; the whole first sweep twice on one block and twice on
+   the card's count (tables and SSE bitwise equal); the rank-128 form on
+   the same 2,048 tiles and the whole sweep, checked the same way;
+16. the timeSVD path: mfx_torch.train.driver.train with solver='timesvd',
+   timesvd.kernel='pallas', rank 64 and TimeSVDConfig's defaults (20
+   epochs) but reg_alpha = reg, on phase 15's data handed to the driver
+   through data.root as the loader's synthetic cache: the time form
+   launched (counter > 0, the lane form not at all), the train RMSE falls
+   every epoch, the held-out time-aware RMSE ends below the untrained
+   model's and below lane-biased MF's (sgd_sweep, no dense phase) with
+   the same storage rank, blocks, epochs, lr and reg on the same split,
+   and a second run of 2 epochs repeats the first's state after 2 epochs
+   (its checkpoint) bit for bit; then timesvd.kernel='jnp' (the
+   snapshot-minibatch trainer, with timesvd.dup_trust=16: without it the
+   reference's own trainer reaches NaN on this skew; its 20 epochs)
+   through the driver on the ML-1M-shaped synthetic made temporal the
+   same way (seed 101):
+   the train RMSE falls every epoch, and the held-out RMSE is the
+   time-aware one of the trainer's model.
 
 Each phase prints its wall time. The second-to-last line is a JSON object
 describing each kernel (times, launches on the main path, and the bound:
@@ -118,7 +144,8 @@ group 0; for tile_topk every variant's times and the stock path's, whose
 f32 depth-2 time is its library_ms, and phase 14's launches and check).
 The rank-128 forms are entries of
 their own (sgd_sweep_r128, dense_phase_int8_r128), their launches from
-phase 12; the last is
+phase 12; sgd_sweep_time's launches are phase 16's, and its rank-128 form,
+which no path runs, is its entry's "r128"; the last is
 {"ok": true, "device": {...}}. Any failure
 exits non-zero with no such line, and so does a machine without a CUDA
 device.
@@ -156,6 +183,9 @@ JAVA_TOL = 5e-5
 # on the CPU at 0.53173 (each from its own seeded init)
 ML100K_GATE = 0.533
 PROFILE_BATCHES = 256  # phase 14's kernel breakdown
+# phases 15-16: the temporal recipe of tests/unit/test_timesvd_blocked.py
+# on TimeSVDConfig's 30 bins; the bin shift's spread
+TIME_BINS, TIME_SHIFT = 30, 0.35
 
 
 def log(msg: str) -> None:
@@ -184,11 +214,13 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 
 
 def sweep_bound(tl, sa, tc, su, si, tpg, rank, row_sides, flops_per_slot,
-                bias=False):
+                bias=False, slot_ops=None):
     """Bound of a sparse sweep: the tile stream and ids read once, and every
     distinct table row its real slots touch read once and written once.
     ``row_sides`` lists (table, tile row) pairs: 'P' rows come from tile
     row 0 and the user block, 'Q' rows from the given row and the window.
+    A real slot does ``flops_per_slot`` operations a lane, or ``slot_ops``
+    in all where that is given.
     ``bias``: each of those rows also has a 4-byte bias, read once and
     written once, and a real slot does 6 more operations (two adds into
     the prediction, two bias deltas of two each)."""
@@ -207,8 +239,19 @@ def sweep_bound(tl, sa, tc, su, si, tpg, rank, row_sides, flops_per_slot,
                  for v in rows.values() if v)
     row_bytes = rank * 4 + (4 if bias else 0)
     nbytes = (tl.numel() + sa.numel() + tc.numel()) * 4 + 2 * n_rows * row_bytes
-    return bound(nbytes, (flops_per_slot * rank + (6 if bias else 0))
-                 * int(real.sum()))
+    if slot_ops is None:
+        slot_ops = flops_per_slot * rank + (6 if bias else 0)
+    return bound(nbytes, slot_ops * int(real.sum()))
+
+
+def time_slot_ops(rank, n_bins):
+    """Operations a real slot of the time form needs, with L = rank - 3 -
+    n_bins factor lanes: the prediction, 2 for each of the L factor lanes
+    and of its four scalar terms (bu, bi, bt at the slot's bin, alpha *
+    dev); then 4 for each lane the step updates (P: L, alpha, bu; Q: L, the
+    n_bins bt, bi). Lanes that hold constants or injections add nothing."""
+    L = rank - 3 - n_bins
+    return 2 * (L + 4) + 4 * (L + 2) + 4 * (L + n_bins + 1)
 
 
 def compare(name, run_kernel, run_plain, state):
@@ -1524,6 +1567,303 @@ def ml100k_phase(dev):
             "tile": calls[0][2]["tile"], "depth": calls[0][2]["depth"]}
 
 
+def temporal(coo, seed, n_bins=TIME_BINS):
+    """``coo`` with seeded timestamps in [0, 1e6), each rating shifted by a
+    N(0, TIME_SHIFT) draw of its (item, calendar bin) on ``n_bins`` bins,
+    and clipped to [0.5, 5]. The JAX package's dataset classes take it
+    too: ``tools/timesvd_recipe_check.py`` and the card tests use it."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ts = rng.integers(0, 1_000_000, coo.n_ratings)
+    shift = rng.normal(0, TIME_SHIFT, (coo.num_items, n_bins)).astype(
+        np.float32)
+    r = coo.rating + shift[coo.item, ts * n_bins // 1_000_000]
+    return dataclasses.replace(
+        coo, rating=np.clip(r, 0.5, 5.0).astype(np.float32),
+        timestamp=ts.astype(np.int64))
+
+
+def timesvd_config(root, *extra):
+    """The phase-16 configuration: ml25m_rank64's model and data with
+    solver='timesvd', timesvd.kernel='pallas', TimeSVDConfig's defaults but
+    reg_alpha = reg, the dataset read from ``root``, no early stop."""
+    from mfx_torch.config import TimeSVDConfig, apply_overrides, preset
+
+    reg = TimeSVDConfig().reg
+    cfg = apply_overrides(preset("ml25m_rank64"), [
+        "solver=timesvd", "timesvd.kernel=pallas", f"timesvd.reg_alpha={reg}",
+        f"data.root={root}", *extra])
+    return dataclasses.replace(cfg, target_rmse=None)
+
+
+def time_kernel_phase(dev, tcoo, results, bounds, sweeps):
+    """Phase 15: sgd_sweep_time (ranks 64 and 128) against its plain
+    version on the first sweep of epoch 0 of the temporal ML-25M-shaped
+    synthetic ``tcoo``, at the blocked timeSVD trainer's shapes. Fills
+    ``results``, ``bounds`` and ``sweeps`` under sgd_sweep_time."""
+    import torch
+
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.kernels import _build
+    from mfx_torch.kernels.packing import pad_rows, to_tlane_model
+    from mfx_torch.kernels.sgd_sweep import (sgd_sweep, sgd_sweep_plain,
+                                             sgd_sweep_time)
+    from mfx_torch.models.mf import init_model
+    from mfx_torch.models.timesvd import fit_time_features, init_timesvd
+    from mfx_torch.solvers import timesvd_blocked as tsb
+    from mfx_torch.solvers.blocked import TPG, sweep_geometry
+
+    t_phase = time.perf_counter()
+    cfg = timesvd_config(None)
+    tc, seed = cfg.timesvd, cfg.data.seed
+    train, _ = train_test_split(tcoo, cfg.data.test_frac, seed=seed)
+    U, I, nb = tcoo.num_users, tcoo.num_items, tc.n_bins
+    su = si = tsb.BLOCK
+    T, tpg, lr, reg = tsb.TILE, TPG, tc.lr, tc.reg
+    mu = float(train.global_mean)
+    feats = fit_time_features(train, n_bins=nb, beta=tc.beta)
+    tb, dv = feats.features(train.user, train.timestamp)
+    plan = tsb.build_temporal_plan_skeleton(
+        train, tb, dv, su=su, si=si, tile=T, tpg=tpg,
+        nwin=sweep_geometry(I, cfg.model.rank, si), device=dev)
+    tl, sws = tsb.plan_temporal_epoch_device(*plan, seed, 0)
+    log(f"[time] cell: blocked timeSVD (rank {cfg.model.rank}, {nb} bins, "
+        f"su = si = {su}, T = {T}, tpg {tpg}, lr {lr}, reg {reg}) on the "
+        f"ML-25M-shaped synthetic made temporal ({train.n_ratings} train "
+        f"ratings); {len(sws)} sweep(s) of {[s.t1 - s.t0 for s in sws]} "
+        f"tiles, critical paths {[s.deps.critical for s in sws]}; data, "
+        f"features and plan in {time.perf_counter() - t_phase:.1f} s")
+    lib = _build.load_library()
+
+    def tables(rank):
+        g = torch.Generator(device=dev)
+        g.manual_seed(cfg.model.seed)
+        base = init_model(g, U, I, rank, global_mean=train.global_mean,
+                          init_scale=cfg.model.init_scale, device=dev)
+        lane = to_tlane_model(init_timesvd(None, U, I, rank, nb, base=base),
+                              nb)
+        return pad_rows(lane.P, su), pad_rows(lane.Q, si)
+
+    sw = sws[0]
+    nt = min(SWEEP_TILES, sw.t1 - sw.t0)
+    sa, tcs = sw.sa[:nt // tpg].contiguous(), sw.tc[:nt].contiguous()
+    tls = tl[sw.t0:sw.t0 + nt]
+    deps = sw.deps.prefix(nt)
+    seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
+    kw = dict(su=su, si=si, tpg=tpg, n_bins=nb)
+    whole = {}
+    for rank, name in ((64, "sgd_sweep_time"), (128, "sgd_sweep_time_r128")):
+        P, Q = tables(rank)
+        log(f"[kernel] {name}: {nt} tiles of the first sweep (T={T}, rank "
+            f"{rank}, {nb} bins); they hold {deps.runs.shape[0]} runs, "
+            f"critical path {deps.critical} tiles")
+        res = compare(
+            name,
+            lambda Pt, Qt: sgd_sweep_time(Pt, Qt[seg], sa, tcs, tls, lr, reg,
+                                          mu, **kw, deps=deps),
+            lambda Pt, Qt: sgd_sweep_plain(Pt, Qt[seg], sa, tcs, tls, lr,
+                                           reg, mu, **kw),
+            (P, Q))
+        # the stream's 5 rows are read once
+        bnd = sweep_bound(tls, sa, tcs, su, si, tpg, rank,
+                          [("P", 0), ("Q", 1)], None,
+                          slot_ops=time_slot_ops(rank, nb))
+        card = lib.mfx_sgd_sweep_time_max_blocks(T, rank)
+        # the lane form on the same tiles (rows 0-2) and tables: what the
+        # two stream rows, the injections and the kept lanes cost
+        tl3 = tls[:, :3].contiguous()
+        Pt, Qt = P.clone(), Q.clone()
+        lane_ms = cuda_ms(lambda: sgd_sweep(Pt, Qt[seg], sa, tcs, tl3, lr,
+                                            reg, mu, su=su, si=si, tpg=tpg,
+                                            deps=deps), reps=3)
+        del Pt, Qt
+        log(f"[kernel] {name}: the lane form (sgd_sweep) on the same "
+            f"{nt} tiles {lane_ms:.4f} ms")
+        if rank == 64:
+            results[name], bounds[name] = res, bnd
+            whole = whole_sweep(
+                name,
+                lambda Pt, Qt, blocks: sgd_sweep_time(
+                    Pt, Qt[seg], sw.sa, sw.tc, tl[sw.t0:sw.t1], lr, reg, mu,
+                    **kw, deps=sw.deps, blocks=blocks),
+                (P, Q), sw.deps, card)
+            whole["sweep_bound_ms"], whole["sweep_bound_by"] = sweep_bound(
+                tl[sw.t0:sw.t1], sw.sa, sw.tc, su, si, tpg, rank,
+                [("P", 0), ("Q", 1)], None,
+                slot_ops=time_slot_ops(rank, nb))
+            whole["lane_form_ms"] = lane_ms
+        else:
+            # no path runs the rank-128 form: its numbers go in the rank-64
+            # entry, with the whole sweep on 1 block and the card's count
+            again = whole_sweep(
+                name,
+                lambda Pt, Qt, blocks: sgd_sweep_time(
+                    Pt, Qt[seg], sw.sa, sw.tc, tl[sw.t0:sw.t1], lr, reg, mu,
+                    **kw, deps=sw.deps, blocks=blocks),
+                (P, Q), sw.deps, card)
+            whole["r128"] = {"tiles": nt, "max_abs_err": res[0],
+                             "ms": res[1], "plain_ms": res[2],
+                             "lane_form_ms": lane_ms,
+                             "bound_ms": bnd[0], "bound_by": bnd[1],
+                             **again}
+        log(f"[kernel] {name} bound {bnd[0]:.4f} ms ({bnd[1]}; "
+            f"{time_slot_ops(rank, nb)} operations a real slot)")
+        del P, Q
+    log(f"[kernel] sgd_sweep_time whole sweep bound "
+        f"{whole['sweep_bound_ms']:.4f} ms ({whole['sweep_bound_by']})")
+    sweeps["sgd_sweep_time"] = whole
+    del plan, tl, sws
+    torch.cuda.empty_cache()
+    log(f"[time] phase 15 {time.perf_counter() - t_phase:.1f} s")
+
+
+def time_path_phase(dev, tcoo):
+    """Phase 16: blocked timeSVD through the driver on ``tcoo`` (the
+    loader's synthetic cache under a data root in build/), its gates
+    against the untrained model and lane MF, a 2-epoch repeat; then the
+    minibatch timeSVD trainer through the driver on the temporal ML-1M
+    synthetic. Returns the time form's launches in the first run."""
+    import shutil
+
+    import torch
+
+    from mfx_torch.config import SGDConfig, apply_overrides, preset
+    from mfx_torch.data.loaders import GENERATOR_VERSION
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.data.synthetic import ML1M_SHAPE, make_synthetic
+    from mfx_torch.eval.metrics import rmse_mae
+    from mfx_torch.kernels import _build
+    from mfx_torch.kernels.sgd_sweep import sgd_sweep, sgd_sweep_time
+    from mfx_torch.models.mf import init_model
+    from mfx_torch.models.timesvd import fit_time_features, init_timesvd
+    from mfx_torch.solvers import blocked
+    from mfx_torch.solvers import timesvd_blocked as tsb
+    from mfx_torch.solvers.timesvd import rmse_mae_time, train_epochs_timesvd
+    from mfx_torch.train.checkpoint import load_checkpoint
+    from mfx_torch.train.driver import train as drive
+
+    t_phase = time.perf_counter()
+    root = _build.BUILD_DIR.parent / "chip_smoke_timesvd"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    tcoo.save_npz(root / f"ml-25m.v{GENERATOR_VERSION}.synthetic.npz")
+    ck = root / "ckpt"
+    cfg = timesvd_config(root, f"checkpoint_dir={ck}", "checkpoint_every=2")
+    tc, seed, clip = cfg.timesvd, cfg.data.seed, (0.5, 5.0)
+    train, test = train_test_split(tcoo, cfg.data.test_frac, seed=seed)
+    U, I, rank = tcoo.num_users, tcoo.num_items, cfg.model.rank
+    feats = fit_time_features(train, n_bins=tc.n_bins, beta=tc.beta)
+
+    def fresh_model():  # the driver's initial model
+        g = torch.Generator(device=dev)
+        g.manual_seed(cfg.model.seed)
+        return init_model(g, U, I, rank, global_mean=train.global_mean,
+                          init_scale=cfg.model.init_scale)
+
+    base_rmse, _ = rmse_mae_time(
+        init_timesvd(None, U, I, rank, tc.n_bins, base=fresh_model()), feats,
+        test, clip=clip)
+    log(f"[time] path: solver='timesvd' kernel='pallas', rank {rank}, "
+        f"{tc.n_bins} bins, lr {tc.lr} decay {tc.lr_decay} reg {tc.reg} = "
+        f"reg_alpha, {tc.epochs} epochs (TimeSVDConfig's), su = si = "
+        f"{tsb.BLOCK}, T = {tsb.TILE}; untrained held-out time-aware RMSE "
+        f"{base_rmse:.5f} (clipped, as the driver's)")
+    sgd_sweep_time.launches = sgd_sweep.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = drive(cfg, device=dev, resume=False)
+    wall = time.perf_counter() - t0
+    launches = sgd_sweep_time.launches
+    trains = [r["train_metric"] for r in res.history]
+    epoch_s = [r["epoch_s"] for r in res.history]
+    log(f"[time] driver: {res.epochs_run} epochs in {wall:.1f} s (load, "
+        f"split, features, plan and evals included); epoch_s first "
+        f"{epoch_s[0]} median of the others "
+        f"{sorted(epoch_s[1:])[len(epoch_s[1:]) // 2]} (the driver's, "
+        f"without the eval); launches sgd_sweep_time {launches} sgd_sweep "
+        f"{sgd_sweep.launches}; peak memory allocated "
+        f"{torch.cuda.max_memory_allocated(dev)} bytes")
+    log("[time] train_rmse " + " ".join(f"{x:.5f}" for x in trains))
+    log("[time] held-out time-aware rmse " + " ".join(
+        f"{r['test_rmse']:.5f}" for r in res.history))
+    if launches < 1 or sgd_sweep.launches:
+        raise AssertionError(f"timesvd: launches {launches} of the time form, "
+                             f"{sgd_sweep.launches} of the lane form")
+    if len(trains) != tc.epochs or any(b >= a for a, b in
+                                       zip(trains, trains[1:])):
+        raise AssertionError(f"timesvd: the train RMSE did not fall every "
+                             f"epoch: {trains}")
+
+    # lane-biased MF: the same storage rank, blocks, epochs, lr and reg on
+    # the same split, through sgd_sweep with no dense phase
+    mf_cfg = SGDConfig(
+        lr=tc.lr, reg=tc.reg, lr_decay=tc.lr_decay, epochs=tc.epochs,
+        partitioner="blocked", kernel="pallas", ublock=tsb.BLOCK,
+        iblock=tsb.BLOCK, tile=tsb.TILE, bias_mode="lane", dense_chi=0,
+        plan_device="device")
+    for _, mf, _ in blocked.train_epochs_blocked(fresh_model(), train, mf_cfg,
+                                                 True, seed=seed, device=dev):
+        pass
+    mf_rmse, _ = rmse_mae(mf, test, clip=clip)
+    log(f"[time] held-out RMSE: timeSVD (time-aware) {res.test_rmse:.5f}, "
+        f"lane MF {mf_rmse:.5f}, untrained {base_rmse:.5f}")
+    if not res.test_rmse < min(mf_rmse, base_rmse):
+        raise AssertionError(
+            f"timesvd: held-out {res.test_rmse} not below lane MF's "
+            f"{mf_rmse} and the untrained {base_rmse}")
+    del mf
+    after2, step, _ = load_checkpoint(ck, step=1, device=dev)
+    again = drive(timesvd_config(root, "timesvd.epochs=2"), device=dev,
+                  resume=False)
+    if step != 1 or not all(torch.equal(getattr(again.model, k),
+                                        getattr(after2, k))
+                            for k in ("P", "Q", "bu", "bi")):
+        raise AssertionError("timesvd: a second run of 2 epochs differs from "
+                             "the first run's state after 2 epochs")
+    log("[time] a second run of 2 epochs repeats the first run's state "
+        "after 2 epochs (its checkpoint) bit for bit")
+    t1 = time.perf_counter()
+
+    # the minibatch trainer (timesvd.kernel='jnp') on the temporal ML-1M
+    coo1 = temporal(make_synthetic(*ML1M_SHAPE, rank=32, seed=101,
+                                   star_step=1.0, user_zipf_s=0.6), 101)
+    coo1.save_npz(root / f"ml-1m.v{GENERATOR_VERSION}.synthetic.npz")
+    cfg1 = apply_overrides(preset("ml1m_rank32_biased"), [
+        "solver=timesvd", "timesvd.dup_trust=16", f"data.root={root}"])
+    res1 = drive(cfg1, device=dev, resume=False)
+    trains1 = [r["train_metric"] for r in res1.history]
+    tr1, te1 = train_test_split(coo1, cfg1.data.test_frac,
+                                seed=cfg1.data.seed)
+    g = torch.Generator(device=dev)
+    g.manual_seed(cfg1.model.seed)
+    m1 = init_model(g, coo1.num_users, coo1.num_items, cfg1.model.rank,
+                    global_mean=tr1.global_mean,
+                    init_scale=cfg1.model.init_scale)
+    feats1 = fit_time_features(tr1, n_bins=cfg1.timesvd.n_bins,
+                               beta=cfg1.timesvd.beta)
+    *_, (_, ts1, _) = train_epochs_timesvd(m1, tr1, cfg1.timesvd,
+                                           seed=cfg1.data.seed, feats=feats1)
+    want = rmse_mae_time(ts1, feats1, te1, clip=clip)
+    static, _ = rmse_mae(res1.model, te1, clip=clip)
+    log(f"[time] jnp (ML-1M-shaped, dup_trust 16): {res1.epochs_run} epochs; "
+        f"train_rmse " + " ".join(f"{x:.5f}" for x in trains1))
+    log(f"[time] jnp: held-out time-aware RMSE {res1.test_rmse:.5f} (the "
+        f"trainer's model through rmse_mae_time: {want[0]:.5f}; the MF view "
+        f"at the end of the train window: {static:.5f}); "
+        f"{time.perf_counter() - t1:.1f} s")
+    if any(b >= a for a, b in zip(trains1, trains1[1:])):
+        raise AssertionError(f"timesvd jnp: the train RMSE did not fall "
+                             f"every epoch: {trains1}")
+    if (res1.test_rmse, res1.test_mae) != want:
+        raise AssertionError(f"timesvd jnp: the driver's eval "
+                             f"{res1.test_rmse} is not the time-aware one "
+                             f"{want}")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[time] phase 16 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1773,7 +2113,7 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["tile_topk"] = serve_phase(m, train, dev, cfg.data.seed)
     log(f"[time] phase 6 {time.perf_counter() - t0:.1f} s")
-    del m, model, train, test, coo
+    del m, model, train, test  # coo: phases 15-16 make it temporal
     torch.cuda.empty_cache()
 
     # 7-8. the BPR path
@@ -1789,6 +2129,16 @@ def main() -> int:
     java_parity_phase(dev)
     topk_ml100k = ml100k_phase(dev)
 
+    # 15-16. blocked timeSVD, on phase 4's synthetic made temporal
+    t0 = time.perf_counter()
+    tcoo = temporal(coo, 102)
+    del coo
+    log(f"[time] the temporal ML-25M-shaped synthetic in "
+        f"{time.perf_counter() - t0:.1f} s")
+    time_kernel_phase(dev, tcoo, results, bounds, sweeps)
+    launches["sgd_sweep_time"] = time_path_phase(dev, tcoo)
+    del tcoo
+
     replaces = {"sgd_sweep": "mfx/kernels/sgd_pallas.py:63",
                 "dense_phase": "mfx/kernels/dense_pallas.py:86",
                 "tile_topk": "mfx/kernels/serve_pallas.py:42",
@@ -1796,14 +2146,17 @@ def main() -> int:
                 "sgd_sweep_tile": "mfx/kernels/sgd_pallas.py:63",
                 "sgd_sweep_step_u": "mfx/kernels/sgd_pallas.py:363",
                 "sgd_sweep_r128": "mfx/kernels/sgd_pallas.py:63",
-                "dense_phase_int8_r128": "mfx/kernels/dense_pallas.py:86"}
+                "dense_phase_int8_r128": "mfx/kernels/dense_pallas.py:86",
+                "sgd_sweep_time": "mfx/kernels/sgd_pallas.py:63"}
     sources = {"sgd_sweep_r128": "sgd_sweep", "dense_phase_int8_r128":
-               "dense_phase"}
+               "dense_phase", "sgd_sweep_time": "sgd_sweep"}
     variants = {"sgd_sweep": "bias_mode='lane', rank 64",
                 "sgd_sweep_tile": "bias_mode='tile'",
                 "dense_phase": "lane, int4 codes, rank 64",
                 "sgd_sweep_r128": "bias_mode='lane', rank 128",
-                "dense_phase_int8_r128": "lane, int8 codes, rank 128"}
+                "dense_phase_int8_r128": "lane, int8 codes, rank 128",
+                "sgd_sweep_time": "time_mode=True (bias_mode='lane'), rank "
+                                  f"64, {TIME_BINS} bins"}
     log(f"[card] {card}")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -5,6 +5,9 @@
         --set parallel.mode=single
     python -m mfx_torch.cli train --preset billion_bpr_sharded \
         --set parallel.model_axis=1 [--set data.dataset=...]
+    python -m mfx_torch.cli train --preset ml1m_rank32_biased \
+        --set model.rank=64 --set solver=timesvd --set timesvd.kernel=pallas \
+        --set data.root=DIR
     python -m mfx_torch.cli recommend --checkpoint ckpt/ --users 3,17 [--fused]
     python -m mfx_torch.cli similar --checkpoint ckpt/ --items 1,7 [--fused]
     python -m mfx_torch.cli serve --checkpoint ckpt/ --port 8080 [--fused]
@@ -18,7 +21,9 @@ Configs come from the ``mfx_torch.config`` presets (the reference's) and
 (``mfx.cli``) and prints the same JSON, plus ``--device`` (default ``cuda``; ``cpu`` runs
 the kernels' plain versions). Datasets named with ``--dataset`` are read
 from ``--root`` (and cached there) when it is given; otherwise their
-seeded synthetic stand-in is generated in memory.
+seeded synthetic stand-in is generated in memory. timeSVD needs a
+dataset with timestamps: a real one's cache under ``data.root``
+(``{name}.v{V}.npz``) keeps them; the synthetic stand-ins have none.
 """
 
 from __future__ import annotations

@@ -15,9 +15,10 @@ import numpy as np
 import torch
 
 from mfx_torch.models.mf import MFModel
+from mfx_torch.models.timesvd import TimeSVDModel
 
-__all__ = ["model_from_numpy", "model_to_numpy", "merged_to_plain",
-           "plain_to_merged"]
+__all__ = ["model_from_numpy", "model_to_numpy", "timesvd_from_numpy",
+           "merged_to_plain", "plain_to_merged"]
 
 _LANES = 128     # lanes of a merged row
 _BIAS_ROWS = 8   # bias rows behind each block's factor rows
@@ -44,6 +45,18 @@ def model_to_numpy(model: MFModel) -> dict:
            for k in ("P", "Q", "bu", "bi")}
     out["mu"] = np.asarray(model.mu, np.float32)
     return out
+
+
+def timesvd_from_numpy(arrays: dict,
+                       device: torch.device | str = "cuda") -> TimeSVDModel:
+    """``{"P", "Q", "bu", "bi", "mu", "bt", "alpha"}`` numpy arrays (the
+    reference ``TimeSVDModel``'s fields through ``np.asarray``) -> a
+    ``TimeSVDModel`` on ``device``, the card unless told otherwise. The
+    tables are copied."""
+    m = model_from_numpy(arrays, device=device)
+    t = {k: torch.tensor(np.asarray(arrays[k]), dtype=torch.float32,
+                         device=device) for k in ("bt", "alpha")}
+    return TimeSVDModel(m.P, m.Q, m.bu, m.bi, m.mu, t["bt"], t["alpha"])
 
 
 def _split_merged(M: np.ndarray, rank: int, block: int):

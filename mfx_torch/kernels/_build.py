@@ -32,6 +32,9 @@ _SIGNATURES = {
     "mfx_sgd_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _I, _I, _I, _F, _F, _F, _P],
     "mfx_sgd_sweep_max_blocks": [_I, _I],
+    "mfx_sgd_sweep_time": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P],
+    "mfx_sgd_sweep_time_max_blocks": [_I, _I],
     "mfx_dense_phase": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                         _F, _P],

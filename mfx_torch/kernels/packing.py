@@ -10,7 +10,10 @@ offset always addresses a row. Two forms:
   ``[q(rank-2), bi, 1]``, so the plain factor dot carries ``bu + bi`` and
   the bias lane's SGD step is the bias update;
 - plain (``bias_mode='tile'`` or no biases, :func:`plain_tables`): the
-  canonical P and Q, with ``bu`` and ``bi`` as padded vectors beside them.
+  canonical P and Q, with ``bu`` and ``bi`` as padded vectors beside them;
+- time-lane (blocked timeSVD, :func:`to_tlane_model`): with L = rank - 3 -
+  n_bins latent dims, P rows ``[p(L), 0 x n_bins, alpha, 1, bu]`` and Q
+  rows ``[q(L), bt(n_bins), 0, bi, 1]``.
 
 The reference's rank packing to 128 lanes and its merged bias rows are TPU
 layout and have no counterpart (``mfx_torch.convert`` reads and writes
@@ -22,9 +25,11 @@ from __future__ import annotations
 import torch
 
 from mfx_torch.models.mf import MFModel
+from mfx_torch.models.timesvd import TimeSVDModel
 
-__all__ = ["to_lane_model", "from_lane_model", "pad_rows", "lane_tables",
-           "plain_tables", "row_add"]
+__all__ = ["to_lane_model", "from_lane_model", "to_tlane_model",
+           "from_tlane_model", "pad_rows", "lane_tables", "plain_tables",
+           "row_add"]
 
 
 def to_lane_model(model: MFModel) -> MFModel:
@@ -52,6 +57,45 @@ def from_lane_model(model: MFModel) -> MFModel:
     P[:, r - 2:] = 0.0
     Q[:, r - 2:] = 0.0
     return MFModel(P, Q, bu, bi, mu=model.mu)
+
+
+def to_tlane_model(ts_model, n_bins: int) -> MFModel:
+    """``TimeSVDModel`` -> the time-lane form (bu/bi zeroed; the reserved
+    columns' values discarded: the form trains L = rank - 3 - n_bins latent
+    dims). :func:`from_tlane_model` inverts it exactly."""
+    r = ts_model.rank
+    L = r - 3 - n_bins
+    if L < 1:
+        raise ValueError(f"time-lane layout needs rank > n_bins + 3 (rank "
+                         f"{r}, n_bins {n_bins})")
+    P = ts_model.P.clone()
+    Q = ts_model.Q.clone()
+    P[:, L:L + n_bins] = 0.0
+    P[:, r - 3] = ts_model.alpha
+    P[:, r - 2] = 1.0
+    P[:, r - 1] = ts_model.bu
+    Q[:, L:L + n_bins] = ts_model.bt
+    Q[:, r - 3] = 0.0
+    Q[:, r - 2] = ts_model.bi
+    Q[:, r - 1] = 1.0
+    return MFModel(P, Q, torch.zeros_like(ts_model.bu),
+                   torch.zeros_like(ts_model.bi), mu=ts_model.mu)
+
+
+def from_tlane_model(model: MFModel, n_bins: int):
+    """Inverse of :func:`to_tlane_model`: bu, bi, alpha and bt out of the
+    reserved lanes into a ``TimeSVDModel`` whose reserved factor columns
+    are zero (its full-rank dot is the L-dim one)."""
+    r = model.rank
+    L = r - 3 - n_bins
+    P = model.P.clone()
+    Q = model.Q.clone()
+    P[:, L:] = 0.0
+    Q[:, L:] = 0.0
+    return TimeSVDModel(P, Q, model.P[:, r - 1].clone(),
+                        model.Q[:, r - 2].clone(), model.mu,
+                        model.Q[:, L:L + n_bins].clone(),
+                        model.P[:, r - 3].clone())
 
 
 def pad_rows(x: torch.Tensor, block: int) -> torch.Tensor:

@@ -363,11 +363,17 @@ def epoch_tiles_device(
     seed: int,
     epoch: int,
     rand: torch.Tensor | None = None,
+    extras: tuple[torch.Tensor, ...] = (),
 ) -> torch.Tensor:
-    """The per-epoch pass: the ``(NT, 3, T)`` int32 tile stream on the ids'
-    device. ``rand`` (n int32 values) overrides the seeded shuffle key."""
+    """The per-epoch pass: the ``(NT, 3 + len(extras), T)`` int32 tile
+    stream on the ids' device. ``rand`` (n int32 values) overrides the
+    seeded shuffle key. ``extras`` are int32 per-rating payload rows (f32
+    values bit-cast first) that ride the same sort and land as rows 3, 4,
+    ... (0 in pads); slots do not depend on them, so rows 0-2 are bitwise
+    the 3-row stream's."""
     n = u.shape[0]
-    if n and skel.nt_total * skel.tile * 3 >= 2**31:
+    nrows = 3 + len(extras)
+    if n and skel.nt_total * skel.tile * nrows >= 2**31:
         raise NotImplementedError(
             "tile stream exceeds int32 addressing; split the epoch into "
             "item-range shards"
@@ -384,10 +390,17 @@ def epoch_tiles_device(
     sid_s = sid[order]
     pos = torch.arange(n, device=dev) - skel.strat_start[sid_s]
     d = skel.pos_base[sid_s] + pos  # strictly increasing padded slot
-    o = (d // T) * (3 * T) + d % T
-    flat = torch.tensor([su, si, 0], dtype=torch.int32, device=dev)
-    flat = flat[None, :, None].expand(skel.nt_total, 3, T).reshape(-1).clone()
+    o = (d // T) * (nrows * T) + d % T
+    flat = torch.tensor([su, si] + [0] * (nrows - 2), dtype=torch.int32,
+                        device=dev)
+    flat = flat[None, :, None].expand(skel.nt_total, nrows, T).reshape(-1)
+    flat = flat.clone()
     flat[o] = (u[order] % su).to(torch.int32)
     flat[o + T] = (i[order] % si).to(torch.int32)
     flat[o + 2 * T] = r[order].to(torch.float32).view(torch.int32)
-    return flat.view(skel.nt_total, 3, T)
+    for k, x in enumerate(extras):
+        if x.dtype != torch.int32 or x.shape != (n,):
+            raise ValueError(f"extras[{k}] must be int32 ({n},), got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        flat[o + (3 + k) * T] = x.to(dev)[order]
+    return flat.view(skel.nt_total, nrows, T)

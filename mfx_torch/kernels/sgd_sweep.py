@@ -6,6 +6,9 @@ They replace the two bodies of ``mfx/kernels/sgd_pallas.py``'s sweep call:
 
 - :func:`sgd_sweep`: ``_kernel_body`` with ``bias_mode='lane'`` (ranks 64
   and 128; the biases ride in two factor lanes that the update freezes);
+- :func:`sgd_sweep_time`: the same body with ``time_mode=True`` (blocked
+  timeSVD, ranks 64 and 128): the lane form with each slot's time bin and
+  deviation injected into its snapshot rows;
 - :func:`sgd_sweep_tile`: ``_kernel_body`` with ``bias_mode='tile'`` or
   with no biases (ranks 32 and 64; ``bu`` / ``bi`` are vectors beside the
   tables and every lane updates);
@@ -32,17 +35,18 @@ import torch
 from mfx_torch.kernels import _build
 from mfx_torch.kernels.packing import row_add
 
-__all__ = ["sgd_sweep", "sgd_sweep_plain", "sgd_sweep_tile",
+__all__ = ["sgd_sweep", "sgd_sweep_plain", "sgd_sweep_time", "sgd_sweep_tile",
            "sgd_sweep_tile_plain", "sgd_sweep_step_u",
            "sgd_sweep_step_u_plain", "check_sweep_args",
            "check_kernel_limits", "check_deps", "wavefront_launch"]
 
 
-def check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg, bu=None, bi=None):
+def check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg, bu=None, bi=None,
+                     rows=3):
     """The sweep wrappers' common argument check (``who`` names the
     wrapper in the message): devices, dtypes, contiguity, whole blocks,
-    a tile stream that matches ``sa`` / ``tc``, and, where given, bias
-    vectors as long as their tables."""
+    a tile stream of ``rows`` rows a tile that matches ``sa`` / ``tc``,
+    and, where given, bias vectors as long as their tables."""
     dev = P.device
     biases = () if bu is None else (("bu", bu, torch.float32),
                                     ("bi", bi, torch.float32))
@@ -59,8 +63,8 @@ def check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg, bu=None, bi=None):
         raise ValueError(f"{who}: bad table shapes {P.shape}, {Q.shape}")
     if P.shape[0] % su or Q.shape[0] % si:
         raise ValueError(f"{who}: tables must be padded to whole blocks")
-    if tl.dim() != 3 or tl.shape[1] != 3:
-        raise ValueError(f"{who}: tl must be (NT, 3, T), got {tl.shape}")
+    if tl.dim() != 3 or tl.shape[1] != rows:
+        raise ValueError(f"{who}: tl must be (NT, {rows}, T), got {tl.shape}")
     nt = tl.shape[0]
     if tc.shape != (nt,) or sa.shape != (nt // tpg,) or nt % tpg:
         raise ValueError(
@@ -136,15 +140,25 @@ def wavefront_launch(who, lib, deps, nt, T, dev, blocks, sizing=()):
     return runs, wait, state, sums, min(int(blocks), max(runs.shape[0], 1))
 
 
-def sgd_sweep_plain(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg):
+def sgd_sweep_plain(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg,
+                    n_bins=0):
     """Plain PyTorch version: the same sweep, tile by tile. Updates P and
-    the item segment Q in place; returns the sweep's SSE (0-d f32)."""
+    the item segment Q in place; returns the sweep's SSE (0-d f32).
+
+    ``n_bins`` > 0: the time form (``tl`` of 5 rows). With L = rank - 3 -
+    n_bins, each real slot's snapshot takes 1 more in P lane L + bin and
+    dev more in Q lane rank-3 before the residual and the deltas; P's bin
+    lanes and Q's lane rank-3 are frozen beside the constant-1 lanes."""
     rank = P.shape[1]
     dev = P.device
     mP = torch.ones(rank, dtype=P.dtype, device=dev)
     mQ = torch.ones(rank, dtype=P.dtype, device=dev)
     mP[rank - 2] = 0.0  # P's constant-1 lane
     mQ[rank - 1] = 0.0  # Q's constant-1 lane
+    L = rank - 3 - n_bins
+    if n_bins:
+        mP[L:L + n_bins] = 0.0  # P's bin lanes
+        mQ[rank - 3] = 0.0  # Q's drift lane
     sa_h = sa.tolist()
     tc_h = tc.tolist()
     sse = torch.zeros((), dtype=torch.float32, device=dev)
@@ -155,6 +169,10 @@ def sgd_sweep_plain(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg):
         rows_u = sa_h[t // tpg] * su + u[real]
         rows_i = tc_h[t] * si + i[real]
         p, q = P[rows_u], Q[rows_i]  # the tile's snapshot
+        if n_bins:
+            slots = torch.arange(p.shape[0], device=dev)
+            p[slots, L + tl[t, 3][real].long()] += 1.0
+            q[:, rank - 3] += tl[t, 4].view(torch.float32)[real]
         e = r - ((p * q).sum(1) + mu)
         dp = lr * (e[:, None] * q - reg * p) * mP
         dq = lr * (e[:, None] * p - reg * q) * mQ
@@ -162,6 +180,41 @@ def sgd_sweep_plain(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg):
         row_add(Q, rows_i, dq)
         sse = sse + (e * e).sum()
     return sse
+
+
+def _lane_sweep(wrapper, P, Q, sa, tc, tl, lr, reg, mu, su, si, tpg, deps,
+                blocks, n_bins=0):
+    """The lane wrappers' common body: :func:`sgd_sweep` and, with
+    ``n_bins`` > 0, :func:`sgd_sweep_time`."""
+    who = wrapper.__name__
+    check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg,
+                     rows=5 if n_bins else 3)
+    if n_bins and not 1 <= n_bins <= P.shape[1] - 4:
+        raise ValueError(f"{who}: needs 1 <= n_bins <= rank-4, got {n_bins} "
+                         f"at rank {P.shape[1]}")
+    if P.device.type == "cpu":
+        return sgd_sweep_plain(P, Q, sa, tc, tl, lr, reg, mu, su=su, si=si,
+                               tpg=tpg, n_bins=n_bins)
+    if P.device.type != "cuda":
+        raise ValueError(f"{who}: no kernel for device {P.device}")
+    check_kernel_limits(who, P, tl, su, si, ranks=(64, 128))
+    nt, T = tl.shape[0], tl.shape[2]
+    lib = _build.load_library()
+    runs, wait, state, sums, grid = wavefront_launch(
+        who, lib, deps, nt, T, P.device, blocks, sizing=(P.shape[1],))
+    sse = torch.empty(1, dtype=torch.float32, device=P.device)
+    stream = torch.cuda.current_stream(P.device).cuda_stream
+    time_arg = (n_bins,) if n_bins else ()
+    _build.check(getattr(lib, f"mfx_{who}")(
+        P.data_ptr(), Q.data_ptr(), sa.data_ptr(), tc.data_ptr(),
+        tl.data_ptr(), runs.data_ptr(),
+        None if wait is None else wait.data_ptr(), state.data_ptr(),
+        sums.data_ptr(), sse.data_ptr(), nt, runs.shape[0], grid, tpg, T,
+        su, si, P.shape[1], float(lr), float(reg), float(mu), *time_arg,
+        stream,
+    ), who)
+    wrapper.launches += 1
+    return sse[0]
 
 
 def sgd_sweep(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg, deps=None,
@@ -180,32 +233,29 @@ def sgd_sweep(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg, deps=None,
     and the tables and the SSE are bit for bit those of ``blocks=1``, the
     plan-order walk. Without it one block walks the stream in plan order.
     The CPU route ignores both."""
-    check_sweep_args("sgd_sweep", P, Q, sa, tc, tl, su, si, tpg)
-    if P.device.type == "cpu":
-        return sgd_sweep_plain(P, Q, sa, tc, tl, lr, reg, mu,
-                               su=su, si=si, tpg=tpg)
-    if P.device.type != "cuda":
-        raise ValueError(f"sgd_sweep: no kernel for device {P.device}")
-    check_kernel_limits("sgd_sweep", P, tl, su, si, ranks=(64, 128))
-    nt, T = tl.shape[0], tl.shape[2]
-    lib = _build.load_library()
-    runs, wait, state, sums, grid = wavefront_launch(
-        "sgd_sweep", lib, deps, nt, T, P.device, blocks,
-        sizing=(P.shape[1],))
-    sse = torch.empty(1, dtype=torch.float32, device=P.device)
-    stream = torch.cuda.current_stream(P.device).cuda_stream
-    _build.check(lib.mfx_sgd_sweep(
-        P.data_ptr(), Q.data_ptr(), sa.data_ptr(), tc.data_ptr(),
-        tl.data_ptr(), runs.data_ptr(),
-        None if wait is None else wait.data_ptr(), state.data_ptr(),
-        sums.data_ptr(), sse.data_ptr(), nt, runs.shape[0], grid, tpg, T,
-        su, si, P.shape[1], float(lr), float(reg), float(mu), stream,
-    ), "sgd_sweep")
-    sgd_sweep.launches += 1
-    return sse[0]
+    return _lane_sweep(sgd_sweep, P, Q, sa, tc, tl, lr, reg, mu, su, si,
+                       tpg, deps, blocks)
+
+
+def sgd_sweep_time(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg, n_bins,
+                   deps=None, blocks=None):
+    """One item-sweep of blocked timeSVD (the reference's ``time_mode``):
+    :func:`sgd_sweep` on the time-lane tables
+    (``kernels.packing.to_tlane_model``: P rows ``[p(L), 0 x n_bins,
+    alpha, 1, bu]``, Q rows ``[q(L), bt(n_bins), 0, bi, 1]``, L = rank - 3
+    - n_bins) and a (NT, 5, T) tile stream whose rows 3 and 4 hold each
+    slot's time bin and deviation (f32 bits; 0 in pads). Each real slot
+    adds 1 to its P snapshot's lane L + bin and dev to its Q snapshot's
+    lane rank-3, so one lr and one reg train bt, alpha and the factors;
+    those injections never reach the tables, whose bin lanes and drift
+    lane stay as they were. ``deps`` and ``blocks`` as in
+    :func:`sgd_sweep`: the same bits on any grid."""
+    return _lane_sweep(sgd_sweep_time, P, Q, sa, tc, tl, lr, reg, mu, su, si,
+                       tpg, deps, blocks, n_bins=n_bins)
 
 
 sgd_sweep.launches = 0
+sgd_sweep_time.launches = 0
 
 
 def _tile_terms(P, Q, bu, bi, tl, t, rows_u0, rows_i0, su, mu, use_bias):

@@ -54,9 +54,12 @@ class EpochPlan:
 def plan_epoch(
     coo: RatingsCOO, cfg, seed: int, epoch: int,
     device: torch.device | str = "cuda",
+    extras: dict[str, np.ndarray] | None = None,
 ) -> EpochPlan:
     """Partition one epoch of ratings into padded batches on ``device``:
-    the reference's plan with ``bucket=False``."""
+    the reference's plan with ``bucket=False``. ``extras``: more per-rating
+    columns batched in the same order, zero in pads (the temporal model's
+    bins and deviations)."""
     perm = epoch_permutation(coo.n_ratings, seed, epoch)
     if cfg.partitioner == "fixed":
         order: np.ndarray | list[np.ndarray] = perm
@@ -69,7 +72,7 @@ def plan_epoch(
         )
     arrays = part.pad_to_batches(
         coo.user, coo.item, coo.rating, order, cfg.batch_size,
-        num_users=coo.num_users, num_items=coo.num_items,
+        num_users=coo.num_users, num_items=coo.num_items, extras=extras,
     )
     return EpochPlan(
         batches={k: torch.from_numpy(v).to(device) for k, v in arrays.items()},

@@ -7,7 +7,15 @@ the ported trainers: single-device SGD (``solver='sgd'``,
 ``sgd.step_user_batch``; the ``als`` block, which only other modes read,
 is ignored, as the reference's driver ignores it here); and the fused
 BPR ring of one shard (``solver='bpr'``, ``parallel.mode`` 'sharded' or
-'hybrid' with ``model_axis = data_axis = 1``). Load (through the port's
+'hybrid' with ``model_axis = data_axis = 1``); and timeSVD
+(``solver='timesvd'``, single device), by ``timesvd.kernel``: 'jnp', the
+snapshot-minibatch trainer (``solvers/timesvd.py``), or 'pallas', the
+blocked trainer through the time form of the lane sweep
+(``solvers/timesvd_blocked.py``). Its time features are fitted once from
+the train split; held-out ratings are evaluated at their own timestamps
+(``rmse_mae_time``), and checkpoints, ranking, the AUC and the result get
+the model's biased-MF view at the end of the train window (``as_mf``).
+Load (through the port's
 own ``mfx_torch.data``), split, initialize (``model.bias_init='baseline'``
 starts a fresh run from the baseline predictor's biases), train, evaluate
 every ``eval_every`` epochs (RMSE/MAE with the reference's clipping, or
@@ -40,6 +48,8 @@ from mfx_torch.data.split import (chronological_split, train_test_split,
                                   user_chronological_split)
 from mfx_torch.eval.metrics import rmse_mae, sampled_auc
 from mfx_torch.models.mf import MFModel, baseline_biases, init_model
+from mfx_torch.models.timesvd import fit_time_features
+from mfx_torch.solvers.timesvd import rmse_mae_time
 from mfx_torch.train.checkpoint import (latest_step, load_checkpoint,
                                         save_checkpoint)
 from mfx_torch.train.logging import MetricsLogger
@@ -79,13 +89,20 @@ def _check_supported(cfg: TrainConfig) -> None:
                 "is ported (ROADMAP Queue 1 item 13); set "
                 "parallel.model_axis=1"
             )
+    elif cfg.solver == "timesvd":
+        if mode != "single":
+            raise ValueError(
+                "solver='timesvd' runs single-device; use solver='sgd' "
+                "for the data-parallel / row-sharded paths"
+            )
     elif cfg.solver != "sgd" or mode != "single":
         raise NotImplementedError(
             f"mfx_torch.train: solver={cfg.solver!r} parallel={mode!r}; "
-            "only single-device SGD (parallel.mode=single) and the BPR ring "
-            "of one shard are ported: the SGD ring and data-parallel modes "
-            "are ROADMAP Queue 1 item 13 (Q1-13), the other solvers Queue 1 "
-            "item 12; set parallel.mode=single to train SGD on one device"
+            "only single-device SGD (parallel.mode=single), timeSVD and the "
+            "BPR ring of one shard are ported: the SGD ring and "
+            "data-parallel modes are ROADMAP Queue 1 item 13 (Q1-13), the "
+            "other solvers Queue 1 item 12; set parallel.mode=single to "
+            "train SGD on one device"
         )
     if cfg.ranking_k and cfg.ranking_protocol != "sampled":
         raise NotImplementedError(
@@ -113,7 +130,21 @@ def _split(cfg: TrainConfig, coo):
     return train_test_split(coo, cfg.data.test_frac, seed=cfg.data.seed)
 
 
-def _epochs(cfg: TrainConfig, model, train_coo, seed, dev, start_epoch):
+def _epochs(cfg: TrainConfig, model, train_coo, seed, dev, start_epoch,
+            feats):
+    if cfg.solver == "timesvd":
+        if cfg.timesvd.kernel == "pallas":
+            from mfx_torch.solvers.timesvd_blocked import (
+                train_epochs_timesvd_blocked)
+
+            trainer = train_epochs_timesvd_blocked
+        else:
+            from mfx_torch.solvers.timesvd import train_epochs_timesvd
+
+            trainer = train_epochs_timesvd
+        return trainer(model, train_coo, cfg.timesvd, cfg.model.use_bias,
+                       seed=seed, start_epoch=start_epoch, feats=feats,
+                       device=dev)
     if cfg.solver == "bpr":
         from mfx_torch.parallel.bpr_sharded import train_epochs_bpr_ring
 
@@ -169,6 +200,23 @@ def train(cfg: TrainConfig, device: torch.device | str = "cuda",
     log = MetricsLogger(cfg.log_path)
     clip = (0.5, 5.0) if cfg.clip_predictions else None
     implicit = cfg.solver == "bpr"
+    feats = None
+    if cfg.solver == "timesvd":
+        # the time featurizer, shared by the trainer and the time-aware
+        # eval (deterministic from the train split: refitted, not saved)
+        feats = fit_time_features(train_coo, n_bins=cfg.timesvd.n_bins,
+                                  beta=cfg.timesvd.beta)
+
+    def _mf(m):
+        # a temporal model folds its time terms in at the end of the train
+        # window for the MF-only consumers (AUC, ranking, checkpoints, the
+        # result)
+        return m.as_mf(feats) if hasattr(m, "as_mf") else m
+
+    def _rmse_eval(m):
+        if hasattr(m, "predict_t") and test_coo.timestamp is not None:
+            return rmse_mae_time(m, feats, test_coo, clip=clip)
+        return rmse_mae(_mf(m), test_coo, clip=clip)
 
     # sampled negatives (AUC and the sampled ranking protocol) reject
     # against all observed positives, train and held-out; built once
@@ -185,12 +233,12 @@ def train(cfg: TrainConfig, device: torch.device | str = "cuda",
         return keys
 
     def _auc(m):
-        return sampled_auc(m, test_coo, seed=seed, pos_keys=_keys())
+        return sampled_auc(_mf(m), test_coo, seed=seed, pos_keys=_keys())
 
     def _ranking(m):
         from mfx_torch.eval.ranking import hr_ndcg_at_k
 
-        return hr_ndcg_at_k(m, test_coo, k=cfg.ranking_k, seed=seed,
+        return hr_ndcg_at_k(_mf(m), test_coo, k=cfg.ranking_k, seed=seed,
                             pos_keys=_keys())
 
     def sync():
@@ -204,7 +252,8 @@ def train(cfg: TrainConfig, device: torch.device | str = "cuda",
     t_prev = time.perf_counter()
     with maybe_trace(cfg.profile_dir):
         for epoch, model, train_metric in _epochs(cfg, model, train_coo,
-                                                  seed, dev, start_epoch):
+                                                  seed, dev, start_epoch,
+                                                  feats):
             sync()
             dt = time.perf_counter() - t_prev
             last_ups = train_coo.n_ratings / max(1e-9, dt)
@@ -218,8 +267,7 @@ def train(cfg: TrainConfig, device: torch.device | str = "cuda",
                     test_auc = _auc(model)
                     rec["test_auc"] = round(test_auc, 5)
                 else:
-                    test_rmse, test_mae = rmse_mae(model, test_coo,
-                                                   clip=clip)
+                    test_rmse, test_mae = _rmse_eval(model)
                     rec["test_rmse"] = round(test_rmse, 5)
                     rec["test_mae"] = round(test_mae, 5)
                 if cfg.ranking_k:
@@ -230,7 +278,7 @@ def train(cfg: TrainConfig, device: torch.device | str = "cuda",
             if cfg.checkpoint_dir and cfg.checkpoint_every and (
                 (epoch + 1) % cfg.checkpoint_every == 0
             ):
-                save_checkpoint(cfg.checkpoint_dir, epoch, model, seed)
+                save_checkpoint(cfg.checkpoint_dir, epoch, _mf(model), seed)
             epochs_run = epoch + 1
             if (cfg.target_rmse is not None and test_rmse is not None
                     and test_rmse <= cfg.target_rmse):
@@ -240,17 +288,20 @@ def train(cfg: TrainConfig, device: torch.device | str = "cuda",
             sync()
             t_prev = time.perf_counter()
     if cfg.checkpoint_dir:
-        save_checkpoint(cfg.checkpoint_dir, max(0, epochs_run - 1), model,
-                        seed)
+        save_checkpoint(cfg.checkpoint_dir, max(0, epochs_run - 1),
+                        _mf(model), seed)
     # final eval if none happened yet
     if test_rmse is None and not implicit:
-        test_rmse, test_mae = rmse_mae(model, test_coo, clip=clip)
+        test_rmse, test_mae = _rmse_eval(model)
     if implicit and test_auc is None:
         test_auc = _auc(model)
     if cfg.ranking_k and test_ranking is None:
         test_ranking = _ranking(model)
     log.close()
-    return TrainResult(model=model, history=log.records, test_rmse=test_rmse,
+    # the result carries the MF view (the full temporal state is the
+    # trainers' TimeSVDModel, TimeSVDModel.save_npz)
+    return TrainResult(model=_mf(model), history=log.records,
+                       test_rmse=test_rmse,
                        test_mae=test_mae, epochs_run=epochs_run,
                        updates_per_sec=last_ups, test_auc=test_auc,
                        test_ranking=test_ranking)

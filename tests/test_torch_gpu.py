@@ -20,7 +20,8 @@ from mfx_torch.kernels.packing import lane_tables, plain_tables
 from mfx_torch.kernels.sgd_sweep import (sgd_sweep, sgd_sweep_plain,
                                          sgd_sweep_step_u,
                                          sgd_sweep_step_u_plain,
-                                         sgd_sweep_tile, sgd_sweep_tile_plain)
+                                         sgd_sweep_tile, sgd_sweep_tile_plain,
+                                         sgd_sweep_time)
 from mfx_torch.models.mf import init_model
 from mfx_torch.solvers.blocked import train_epochs_blocked
 from mfx_torch.solvers.dense_prep import prepare_dense_full
@@ -169,6 +170,137 @@ def test_trainer_through_both_kernels_is_repeatable(cuda, rank):
     assert abs(float(trc) - runs[0][0][0]) <= 1e-5
     np.testing.assert_allclose(mc.P.numpy(), runs[0][0][1].cpu().numpy(),
                                atol=1e-4)
+
+
+# ---- sgd_sweep_time (blocked timeSVD) -----------------------------------
+
+
+def _time_case(dev, rank, n_bins, su, tile, nwin, users=U):
+    """A temporal copy of ``_state``'s data (``chip_smoke.temporal``, the
+    reference tests' recipe: timestamps, a shift per (item, bin), ratings
+    clipped), its 5-row plan and the time-lane tables of a model with
+    nonzero temporal terms: ``(train, model, tl, sweeps, P, Q)``."""
+    from chip_smoke import temporal
+    from mfx_torch.kernels.packing import pad_rows, to_tlane_model
+    from mfx_torch.models.timesvd import fit_time_features, init_timesvd
+    from mfx_torch.solvers import timesvd_blocked as tsb
+
+    train, _, model, *_ = _state(dev, users=users, rank=rank)
+    train = temporal(train, 1, n_bins)
+    feats = fit_time_features(train, n_bins=n_bins)
+    tb, dv = feats.features(train.user, train.timestamp)
+    plan = tsb.build_temporal_plan_skeleton(train, tb, dv, su=su, si=su,
+                                            tile=tile, tpg=TPG, nwin=nwin,
+                                            device=dev)
+    tl, sweeps = tsb.plan_temporal_epoch_device(*plan, 0, 0)
+    tsm = init_timesvd(None, users, I, rank, n_bins, base=model)
+    tsm.bt.copy_(torch.randn(I, n_bins, device=dev) * 0.1)
+    tsm.alpha.copy_(torch.randn(users, device=dev) * 0.1)
+    lane = to_tlane_model(tsm, n_bins)
+    return (train, tsm, tl, sweeps, pad_rows(lane.P, su),
+            pad_rows(lane.Q, su))
+
+
+def _frozen_unchanged(P, Q, P0, Q0, rank, n_bins):
+    L = rank - 3 - n_bins
+    assert torch.equal(P[:, L:L + n_bins], P0[:, L:L + n_bins])
+    for T_, T0, lane in ((P, P0, rank - 2), (Q, Q0, rank - 3),
+                         (Q, Q0, rank - 1)):
+        assert torch.equal(T_[:, lane], T0[:, lane])
+
+
+@pytest.mark.parametrize("rank,n_bins", [(RANK, 8), (RANK, 30), (128, 30),
+                                         (128, 70)])
+def test_sgd_sweep_time_kernel_matches_plain(cuda, rank, n_bins):
+    """The time form against its plain version on every sweep of a small
+    temporal plan (at rank 128 with 70 bins the bin lanes straddle lane
+    64, the two halves the kernel holds in turn); the frozen lanes never
+    move; only the time form's counter counts."""
+    _, tsm, tl, sweeps, P, Q = _time_case(cuda, rank, n_bins, SU, T, 3)
+    for sw in sweeps:
+        seg = slice(sw.win0 * SI, (sw.win0 + sw.nwin) * SI)
+        args = (sw.sa, sw.tc, tl[sw.t0:sw.t1], LR, REG, tsm.mu)
+        kw = dict(su=SU, si=SI, tpg=TPG, n_bins=n_bins)
+        before, lane_before = sgd_sweep_time.launches, sgd_sweep.launches
+        _check(lambda Pt, Qt: sgd_sweep_time(Pt, Qt[seg], *args, **kw),
+               lambda Pt, Qt: sgd_sweep_plain(Pt, Qt[seg], *args, **kw), P, Q)
+        assert sgd_sweep_time.launches == before + 2
+        assert sgd_sweep.launches == lane_before
+        Pt, Qt = P.clone(), Q.clone()
+        sgd_sweep_time(Pt, Qt[seg], *args, **kw, deps=sw.deps)
+        _frozen_unchanged(Pt, Qt, P, Q, rank, n_bins)
+
+
+@pytest.mark.parametrize("rank,n_bins", [(RANK, 30), (128, 30), (128, 70)])
+@pytest.mark.parametrize("distinct", [4, 1024])
+def test_sgd_sweep_time_kernel_hot_rows_and_pads(cuda, distinct, rank,
+                                                 n_bins):
+    """Random full tiles (blocks of 1024, T = 256) where every slot repeats
+    one of ``distinct`` rows a side with random bins and deviations, the
+    last tile half pad with garbage bins: one row's slots inject other
+    bins, and only the table's values may be written back."""
+    g = torch.Generator(device=cuda).manual_seed(distinct + rank)
+    su = si = 1024
+    nt, tile = 32, 256
+    P = torch.randn(2 * su, rank, device=cuda, generator=g) * 0.1
+    Q = torch.randn(3 * si, rank, device=cuda, generator=g) * 0.1
+    L = rank - 3 - n_bins
+    P[:, L:L + n_bins] = 0.0
+    P[:, rank - 2] = 1.0
+    Q[:, rank - 3] = 0.0
+    Q[:, rank - 1] = 1.0
+    sa = torch.randint(0, 2, (nt // TPG,), device=cuda, generator=g,
+                       dtype=torch.int32)
+    tc = torch.randint(0, 3, (nt,), device=cuda, generator=g,
+                       dtype=torch.int32)
+    tl = torch.empty(nt, 5, tile, dtype=torch.int32, device=cuda)
+    for row in (0, 1):
+        tl[:, row] = torch.randint(0, distinct, (nt, tile), device=cuda,
+                                   generator=g, dtype=torch.int32)
+    tl[:, 2] = (torch.rand(nt, tile, device=cuda, generator=g) * 4.5
+                + 0.5).view(torch.int32)
+    tl[:, 3] = torch.randint(0, n_bins, (nt, tile), device=cuda,
+                             generator=g, dtype=torch.int32)
+    tl[:, 4] = (torch.randn(nt, tile, device=cuda, generator=g)
+                * 0.5).view(torch.int32)
+    tl[-1, 0, tile // 2:] = su
+    tl[-1, 1, tile // 2:] = si
+    tl[-1, 3, tile // 2:] = 10 ** 6
+    args = (sa, tc, tl, LR, REG, 3.5)
+    kw = dict(su=su, si=si, tpg=TPG, n_bins=n_bins)
+    _check(lambda Pt, Qt: sgd_sweep_time(Pt, Qt, *args, **kw),
+           lambda Pt, Qt: sgd_sweep_plain(Pt, Qt, *args, **kw), P, Q)
+    Pt, Qt = P.clone(), Q.clone()
+    sgd_sweep_time(Pt, Qt, *args, **kw)
+    _frozen_unchanged(Pt, Qt, P, Q, rank, n_bins)
+
+
+@pytest.mark.parametrize("rank", [RANK, 128])
+def test_blocked_timesvd_through_the_kernel_is_repeatable(cuda, rank):
+    """Two runs of ``train_epochs_timesvd_blocked`` (2 epochs) bitwise
+    equal through the time form, never its plain version; the train RMSE
+    falls."""
+    from mfx_torch.config import TimeSVDConfig
+    from mfx_torch.solvers.timesvd_blocked import (
+        train_epochs_timesvd_blocked)
+
+    train, tsm, *_ = _time_case(cuda, rank, 30, SU, T, 3)
+    cfg = TimeSVDConfig(lr=0.01, reg=0.02, epochs=2, n_bins=30,
+                        kernel="pallas", reg_alpha=0.02)
+    base = init_model(torch.Generator(device=cuda).manual_seed(0), U, I,
+                      rank, global_mean=train.global_mean)
+    runs = []
+    for _ in range(2):
+        before = sgd_sweep_time.launches
+        out = [(float(tr), m) for _, m, tr in train_epochs_timesvd_blocked(
+            base, train, cfg, seed=0)]
+        assert sgd_sweep_time.launches > before
+        runs.append(out)
+    for (ta, ma), (tb, mb_) in zip(*runs):
+        assert ta == tb
+        for k in ("P", "Q", "bu", "bi", "bt", "alpha"):
+            assert torch.equal(getattr(ma, k), getattr(mb_, k)), k
+    assert runs[0][1][0] < runs[0][0][0]
 
 
 # ---- sgd_sweep_tile, sgd_sweep_step_u (tile biases) ---------------------
@@ -598,6 +730,19 @@ def _wavefront_case(kernel, dev):
                     tabs[0], tabs[1][seg], tabs[2], tabs[3][seg], *args,
                     su=su, si=si, tpg=TPG),
                 plain_tables(model, su, si, dev), sw.deps)
+    if kernel in ("time", "time_r128"):
+        rank = 128 if kernel == "time_r128" else RANK
+        _, tsm, tl, sweeps, P, Q = _time_case(dev, rank, 30, 64, T, 8)
+        sw = sweeps[0]
+        seg = slice(sw.win0 * 64, (sw.win0 + sw.nwin) * 64)
+        args = (sw.sa, sw.tc, tl[sw.t0:sw.t1], LR, REG, tsm.mu)
+        kw = dict(su=64, si=64, tpg=TPG, n_bins=30)
+        return (lambda tabs, blocks, table=True: sgd_sweep_time(
+                    tabs[0], tabs[1][seg], *args, **kw, blocks=blocks,
+                    deps=sw.deps if table else None),
+                lambda tabs: sgd_sweep_plain(tabs[0], tabs[1][seg], *args,
+                                             **kw),
+                (P, Q), sw.deps)
     if kernel.startswith("dense"):
         rfmt = "int8" if "int8" in kernel else "int4"
         train, _, model, u, i, r = _state(
@@ -635,7 +780,8 @@ def _wavefront_case(kernel, dev):
 
 
 WAVEFRONT_KERNELS = ["sgd", "sgd_r128", "bpr", "tile", "step_u",
-                     "step_u_su1024", "dense", "dense_int8", "dense_int8_r128"]
+                     "step_u_su1024", "dense", "dense_int8", "dense_int8_r128",
+                     "time", "time_r128"]
 
 
 @pytest.mark.parametrize("kernel", WAVEFRONT_KERNELS)

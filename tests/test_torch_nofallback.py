@@ -19,7 +19,7 @@ from mfx_torch.kernels.bpr_sweep import bpr_sweep
 from mfx_torch.kernels.dense_phase import dense_phase
 from mfx_torch.kernels.serve_topk import tile_topk
 from mfx_torch.kernels.sgd_sweep import (sgd_sweep, sgd_sweep_step_u,
-                                         sgd_sweep_tile)
+                                         sgd_sweep_tile, sgd_sweep_time)
 
 ROOT = Path(__file__).resolve().parent.parent
 MODULES = [
@@ -43,6 +43,8 @@ MODULES = [
     "mfx_torch.kernels.minibatch", "mfx_torch.solvers.sgd",
     "mfx_torch.models", "mfx_torch.train.online",
     "mfx_torch.train.logging", "mfx_torch.train.profile",
+    "mfx_torch.models.timesvd", "mfx_torch.solvers.timesvd",
+    "mfx_torch.solvers.timesvd_blocked",
 ]
 
 
@@ -146,6 +148,10 @@ def test_wrappers_on_a_missing_card_raise():
     with pytest.raises((RuntimeError, AssertionError)):
         P = torch.zeros(256, 64, device="cuda")
         bpr_sweep(P, P, P, P, P, 0.05, 0.002, su=256, si=256, tpg=4)
+    with pytest.raises((RuntimeError, AssertionError)):
+        P = torch.zeros(512, 64, device="cuda")
+        sgd_sweep_time(P, P, P, P, P, 0.01, 0.02, 3.5, su=512, si=512,
+                       tpg=4, n_bins=30)
     for tile_bias_sweep in (sgd_sweep_tile, sgd_sweep_step_u):
         with pytest.raises((RuntimeError, AssertionError)):
             P = torch.zeros(256, 32, device="cuda")
@@ -174,7 +180,8 @@ def test_recommenders_on_a_missing_card_raise():
 
 @pytest.mark.parametrize("wrapper", ["sgd_sweep", "dense_phase",
                                      "tile_topk", "bpr_sweep",
-                                     "sgd_sweep_tile", "sgd_sweep_step_u"])
+                                     "sgd_sweep_tile", "sgd_sweep_step_u",
+                                     "sgd_sweep_time"])
 def test_wrappers_reject_devices_without_a_kernel(wrapper):
     P = torch.zeros(256, 64, device="meta")
     i32 = dict(dtype=torch.int32, device="meta")
@@ -183,6 +190,11 @@ def test_wrappers_reject_devices_without_a_kernel(wrapper):
             sgd_sweep(P, P, torch.zeros(1, **i32), torch.zeros(4, **i32),
                       torch.zeros(4, 3, 64, **i32), 0.01, 0.04, 3.5,
                       su=256, si=256, tpg=4)
+        elif wrapper == "sgd_sweep_time":
+            sgd_sweep_time(P, P, torch.zeros(1, **i32),
+                           torch.zeros(4, **i32),
+                           torch.zeros(4, 5, 64, **i32), 0.01, 0.02, 3.5,
+                           su=256, si=256, tpg=4, n_bins=30)
         elif wrapper in ("sgd_sweep_tile", "sgd_sweep_step_u"):
             b = torch.zeros(256, device="meta")
             fn = sgd_sweep_tile if wrapper == "sgd_sweep_tile" else sgd_sweep_step_u
@@ -251,7 +263,8 @@ def test_chip_smoke_fails_without_a_card(tmp_path, where):
 
 
 @pytest.mark.parametrize("module,wrappers", [
-    ("sgd_sweep", ["sgd_sweep", "_tile_bias_sweep", "wavefront_launch"]),
+    ("sgd_sweep", ["sgd_sweep", "sgd_sweep_time", "_lane_sweep",
+                   "_tile_bias_sweep", "wavefront_launch"]),
     ("bpr_sweep", ["bpr_sweep"]),
     ("dense_phase", ["dense_phase", "dense_launch"]),
 ])
@@ -275,7 +288,7 @@ def test_sweep_wrappers_cuda_route_reaches_no_plain_version(module, wrappers):
         plain_calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
                        and "plain" in ast.unparse(n.func)]
         assert all(id(n) in cpu_only for n in plain_calls), name
-        if name in ("sgd_sweep", "bpr_sweep", "_tile_bias_sweep",
+        if name in ("_lane_sweep", "bpr_sweep", "_tile_bias_sweep",
                     "dense_phase"):
             assert plain_calls, name
 

@@ -132,7 +132,38 @@ printed as it ends:
    through the driver on the ML-1M-shaped synthetic made temporal the
    same way (seed 101):
    the train RMSE falls every epoch, and the held-out RMSE is the
-   time-aware one of the trainer's model.
+   time-aware one of the trainer's model;
+17. (run after phase 6, on phase 4's data, plan and trained tables, whose
+   biases are not 0) the epoch form of sgd_sweep_tile.cu
+   (sgd_sweep_epoch) against its plain version on the first 2,048 tiles
+   of the first sweep: tables and residuals within 1e-4, two kernel runs
+   bitwise equal, its time beside the tile form's on the same tiles; the
+   whole first sweep twice on one block and twice on the card's count
+   (tables, residuals and SSE bitwise equal); then the frozen-bias and
+   bias-free forms of dense_phase.cu (int4, rank 64) on the first 64
+   strata of group 0 (tables and the frozen form's row and column sums of
+   E within 1e-4, bitwise across runs), 256 strata on one block and on the
+   card's count (bitwise; then ten more timed runs on the card's count,
+   and one whose launch order the wrapper works out inside the timed
+   call), group 0 and the epoch's dense phase on the
+   card's count with their times and the frozen form's batched bias
+   updates; then the frozen form's int8 instances at ranks 64 and 128
+   on this data carved at the netflix cell's blocks (su = si = 512),
+   checked the same way;
+18. the ml25m_rank64 preset's 2 epochs through train_epochs_blocked in
+   each other bias mode, on phase 4's split: (a) sgd.bias_mode=epoch, (b)
+   sgd.bias_mode=tile, (c) model.use_bias=false. Each launches its
+   kernels ((a) sgd_sweep_epoch and the frozen dense form, (b)
+   sgd_sweep_tile and the frozen form, (c) sgd_sweep_tile and the
+   bias-free form; sgd_sweep and the lane form never), the train RMSE
+   falls, the held-out RMSE (unclipped) after epoch 2 lies below the
+   untrained model's and, for (a) and (b), within 0.03 of phase 4's lane
+   run (the reference's own tolerance between bias modes,
+   tests/unit/test_bias_epoch.py); each epoch's seconds split into dense,
+   sparse and batched-bias time, and the peak memory; a second run of (a)
+   for 1 epoch repeats the first's state after epoch 1 bit for bit; then
+   python -m mfx_torch.cli train --preset ml25m_rank64 --set
+   sgd.bias_mode=epoch --set sgd.epochs=1 prints the reference's JSON.
 
 Each phase prints its wall time. The second-to-last line is a JSON object
 describing each kernel (times, launches on the main path, and the bound:
@@ -145,7 +176,10 @@ f32 depth-2 time is its library_ms, and phase 14's launches and check).
 The rank-128 forms are entries of
 their own (sgd_sweep_r128, dense_phase_int8_r128), their launches from
 phase 12; sgd_sweep_time's launches are phase 16's, and its rank-128 form,
-which no path runs, is its entry's "r128"; the last is
+which no path runs, is its entry's "r128"; sgd_sweep_epoch and
+dense_phase_frozen (the frozen form at int4 and rank 64) take their
+launches from phase 18's mode (a), and dense_phase_frozen's "variants"
+hold the bias-free form and the frozen int8 instances; the last is
 {"ok": true, "device": {...}}. Any failure
 exits non-zero with no such line, and so does a machine without a CUDA
 device.
@@ -173,6 +207,7 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 SWEEP_TILES = 2048
 DENSE_STRATA = 64
 DENSE_WHOLE = 256  # strata of group 0 run on 1 block and on the card's count
+DENSE_REPEATS = 10  # further runs of those strata on the card's count
 NETFLIX_EPOCHS = 3  # of netflix100m_rank128_dp's 15: depth, cut for time
 K = 10
 # phase 13: the Java-parity synthetic and the reference's own tolerance
@@ -214,16 +249,20 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 
 
 def sweep_bound(tl, sa, tc, su, si, tpg, rank, row_sides, flops_per_slot,
-                bias=False, slot_ops=None):
+                bias=None, slot_ops=None, slot_bytes=0):
     """Bound of a sparse sweep: the tile stream and ids read once, and every
     distinct table row its real slots touch read once and written once.
     ``row_sides`` lists (table, tile row) pairs: 'P' rows come from tile
     row 0 and the user block, 'Q' rows from the given row and the window.
     A real slot does ``flops_per_slot`` operations a lane, or ``slot_ops``
     in all where that is given.
-    ``bias``: each of those rows also has a 4-byte bias, read once and
-    written once, and a real slot does 6 more operations (two adds into
-    the prediction, two bias deltas of two each)."""
+    ``bias='update'`` (the tile form): each of those rows also has a
+    4-byte bias, read once and written once, and a real slot does 6 more
+    operations (two adds into the prediction, two bias deltas of two
+    each). ``bias='read'`` (the epoch form): the bias is read once and
+    never written, and a real slot does 2 more operations (bu + bi, and
+    its add into the prediction). ``slot_bytes``: each slot of the stream
+    also writes that many bytes (the epoch form's residual)."""
     import torch
 
     real = tl[:, 0, :] < su
@@ -237,10 +276,13 @@ def sweep_bound(tl, sa, tc, su, si, tpg, rank, row_sides, flops_per_slot,
         rows[table].append(ids[real])
     n_rows = sum(int(torch.unique(torch.cat(v)).numel())
                  for v in rows.values() if v)
-    row_bytes = rank * 4 + (4 if bias else 0)
-    nbytes = (tl.numel() + sa.numel() + tc.numel()) * 4 + 2 * n_rows * row_bytes
+    bias_bytes, bias_ops = {None: (0, 0), "update": (8, 6),
+                            "read": (4, 2)}[bias]
+    nbytes = ((tl.numel() + sa.numel() + tc.numel()) * 4
+              + n_rows * (2 * rank * 4 + bias_bytes)
+              + slot_bytes * tl.shape[0] * tl.shape[2])
     if slot_ops is None:
-        slot_ops = flops_per_slot * rank + (6 if bias else 0)
+        slot_ops = flops_per_slot * rank + bias_ops
     return bound(nbytes, slot_ops * int(real.sum()))
 
 
@@ -332,18 +374,25 @@ def whole_sweep(name, run, state, deps, max_blocks, grid=None,
             "sweep_ms_again": ms_again}
 
 
-def dense_bound(groups, su, si, rank):
+def dense_bound(groups, su, si, rank, frozen=False):
     """Bound of the dense phase over ``groups``: every group tensor read
     once, each distinct P block and Q window of a group read and written
-    once, and three (su x si x rank) products a stratum."""
+    once, and three (su x si x rank) products a stratum. ``frozen``: the
+    frozen-bias form also reads a bias a row of each block and window,
+    writes a row and a column sum a stratum, and does about 4 more
+    operations a cell (two bias subtractions, two sums)."""
     nbytes = flops = 0.0
     for grp in groups:
         nd = grp["sa"].shape[0]
         nbytes += sum(grp[k].numel() * grp[k].element_size()
                       for k in ("sa", "sc", "R", "du_s", "di_s"))
-        nbytes += 2 * rank * 4 * (grp["sa"].unique().numel() * su
-                                  + grp["sc"].unique().numel() * si)
+        rows = (grp["sa"].unique().numel() * su
+                + grp["sc"].unique().numel() * si)
+        nbytes += 2 * rank * 4 * rows
         flops += 6.0 * su * si * rank * nd
+        if frozen:
+            nbytes += 4 * rows + 4 * nd * (su + si)
+            flops += 4.0 * su * si * nd
     return bound(nbytes, flops)
 
 
@@ -832,7 +881,7 @@ def tile_bias_compare(results, bounds, state, seg, sa, tc, tl, lr, reg, mu,
         )
         # per real slot as sgd_sweep (10 rank), plus the bias terms
         bounds[name] = sweep_bound(tl, sa, tc, su, si, tpg, rank,
-                                   [("P", 0), ("Q", 1)], 10, bias=True)
+                                   [("P", 0), ("Q", 1)], 10, bias="update")
         log(f"[kernel] {name} bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]})")
 
@@ -917,7 +966,7 @@ def tile_bias_phases(dev, sweeps):
             state, sw.deps, card)
     # the whole sweep's bound, as tile_bias_compare counts it
     whole = sweep_bound(tl[sw.t0:sw.t1], sw.sa, sw.tc, su, si, tpg, rank,
-                        [("P", 0), ("Q", 1)], 10, bias=True)
+                        [("P", 0), ("Q", 1)], 10, bias="update")
     log(f"[tile] the whole sweep's bound {whole[0]:.4f} ms ({whole[1]})")
     for name in ("sgd_sweep_tile", "sgd_sweep_step_u"):
         sweeps[name]["sweep_bound_ms"] = whole[0]
@@ -1096,7 +1145,7 @@ def netflix_phases(dev, results, bounds, sweeps):
                                          su=su, si=si),
         (P, Q))
     bounds["dense_phase_int8_r128"] = dense_bound([grp], su, si, rank)
-    dense_card = lib.mfx_dense_phase_max_blocks(rank, 1)
+    dense_card = lib.mfx_dense_phase_max_blocks(rank, 1, 0)  # lane form
     g0 = groups[0]
     sweeps["dense_phase_int8_r128"] = whole_sweep(
         "dense_phase_int8_r128 (group 0)",
@@ -1258,6 +1307,371 @@ def netflix_phases(dev, results, bounds, sweeps):
     log("[netflix] a second run of 1 epoch repeats the first run's state "
         "after epoch 1 bit for bit")
     log(f"[time] phase 12 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def dense_form_run(bias, grp, seg, lr, reg, mu, su, si, kernel=True,
+                   blocks=None, table=True):
+    """``run(P, Q, bu, bi, dbu, dbi)``: the dense group ``grp`` (item
+    segment ``seg``) in the given bias form through the kernel on
+    ``blocks`` (ordered by the group's table, or with ``table=False`` by
+    none) or through its plain version, with the frozen form's row and
+    column sums of E copied into ``dbu`` / ``dbi``; returns the SSE. The
+    card tests use it too."""
+    from mfx_torch.kernels.dense_phase import dense_phase, dense_phase_plain
+
+    def run(P, Q, bu, bi, dbu, dbi):
+        kw = dict(su=su, si=si, bias=bias)
+        if bias == "frozen":
+            kw.update(bu=bu, bi=bi[seg])
+        if kernel:
+            out = dense_phase(P, Q[seg], grp, lr, reg, mu, **kw,
+                              deps=grp["deps"] if table else None,
+                              blocks=blocks)
+        else:
+            out = dense_phase_plain(P, Q[seg], grp, lr, reg, mu, **kw)
+        if bias != "frozen":
+            return out
+        dbu.copy_(out[1][0])
+        dbi.copy_(out[1][1])
+        return out[0]
+    return run
+
+
+def dense_form_check(name, bias, groups, meta, state, lr, reg, mu, su, si,
+                     rank, rfmt):
+    """A dense form against its plain version on the first DENSE_STRATA
+    strata of group 0, then DENSE_WHOLE strata twice on one block and
+    twice on the card's count, bitwise. ``state`` is (P, Q, bu, bi).
+    Returns (max_abs_err, ms, plain_ms, whole-run dict, bound)."""
+    import torch
+
+    from mfx_torch.kernels import _build
+    from mfx_torch.kernels.dense_phase import (BIAS_FORMS, group_prefix,
+                                               plan_launch)
+
+    win0, nw = meta[0]
+    seg = slice(win0 * si, (win0 + nw) * si)
+    dev = state[0].device
+    grp = group_prefix(groups[0], DENSE_STRATA)
+
+    def outs(g):
+        n = g["sa"].shape[0]
+        return (torch.zeros(n, su, device=dev), torch.zeros(n, si, device=dev))
+
+    log(f"[bias] {name}: {grp['sa'].shape[0]} strata of group 0 ({rfmt}, "
+        f"{su}x{si}, rank {rank}, bias={bias!r})")
+    err, ms, plain_ms = compare(
+        name, dense_form_run(bias, grp, seg, lr, reg, mu, su, si),
+        dense_form_run(bias, grp, seg, lr, reg, mu, su, si, kernel=False),
+        tuple(state) + outs(grp))
+    card = _build.load_library().mfx_dense_phase_max_blocks(
+        rank, int(rfmt == "int8"), BIAS_FORMS.index(bias))
+
+    def on_card(head):
+        """One timed run of ``head`` on the card's count: events around
+        the wrapper's call, host work included."""
+        tabs = tuple(t.clone() for t in tuple(state) + outs(head))
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dense_form_run(bias, head, seg, lr, reg, mu, su, si,
+                       blocks=card)(*tabs)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    # a run whose launch order is not yet worked out: the wrapper then
+    # list-schedules the strata on the host between the two events
+    cold = on_card(group_prefix(groups[0], DENSE_WHOLE))
+    head = group_prefix(groups[0], DENSE_WHOLE)
+    plan_launch(head, su, si, rank, bias)  # the launch order, untimed
+    whole = whole_sweep(
+        name, lambda *t: dense_form_run(bias, head, seg, lr, reg, mu, su,
+                                         si, blocks=t[-1])(*t[:-1]),
+        tuple(state) + outs(head), head["deps"], card, grid=card,
+        unit="strata")
+    reps = [on_card(head) for _ in range(DENSE_REPEATS)]
+    log(f"[kernel] {name} whole: {DENSE_REPEATS} more runs on {card} blocks "
+        f"(ms): {' '.join(f'{x:.4f}' for x in reps)}; with the launch order "
+        f"worked out inside the timed call {cold:.4f} ms")
+    whole.update({"sweep_ms_repeats": reps, "sweep_ms_order_unplanned": cold})
+    return err, ms, plain_ms, whole, dense_bound([grp], su, si, rank,
+                                                 frozen=bias == "frozen")
+
+
+def bias_form_phases(dev, cfg, train, test, fresh_model, trained, lane_rmse,
+                     results, bounds, sweeps):
+    """Phases 17 and 18: the epoch form of sgd_sweep_tile.cu and the
+    frozen and bias-free forms of dense_phase.cu against their plain
+    versions at the ml25m_rank64 cell's shapes (phase 4's data and plan,
+    the tables of the model ``trained`` there), then the preset's 2
+    epochs in each bias mode through the trainer and mode (a) through the
+    CLI. Fills ``results``, ``bounds`` and ``sweeps`` under
+    sgd_sweep_epoch and dense_phase_frozen and returns their launches,
+    from the run of mode (a)."""
+    import torch
+
+    from mfx_torch.config import apply_overrides
+    from mfx_torch.eval.metrics import rmse_mae
+    from mfx_torch.kernels import _build
+    from mfx_torch.kernels import plan_device as pdv
+    from mfx_torch.kernels.dense_phase import (BIAS_FORMS, dense_bias_update,
+                                               dense_phase)
+    from mfx_torch.kernels.packing import plain_tables
+    from mfx_torch.kernels.sgd_sweep import (sgd_sweep, sgd_sweep_epoch,
+                                             sgd_sweep_epoch_plain,
+                                             sgd_sweep_tile)
+    from mfx_torch.models.mf import init_model
+    from mfx_torch.solvers import blocked
+    from mfx_torch.solvers.dense_prep import prepare_dense_full
+
+    sgd, seed = cfg.sgd, cfg.data.seed
+    U, I, rank = train.num_users, train.num_items, cfg.model.rank
+    su, si, T, tpg = sgd.ublock, sgd.iblock, sgd.tile, blocked.TPG
+    mu, lr, reg = float(train.global_mean), sgd.lr, sgd.reg
+    lib = _build.load_library()
+
+    # 17. the new forms against their plain versions
+    t_phase = time.perf_counter()
+    rfmt = blocked.dense_rfmt(sgd, rank, train.rating)
+    u0, i0, r0 = (torch.as_tensor(x).to(dev) for x in
+                  (train.user, train.item, train.rating))
+    meta, groups, (u, i, r), info = prepare_dense_full(
+        u0.int(), i0.int(), r0.float(), U, I, su, si, chi_min=sgd.dense_chi,
+        nwd=blocked.dense_group_windows(rank, si), rfmt=rfmt)
+    skel = pdv.build_plan_skeleton(u, i, U, I, su, si, T, tpg,
+                                   blocked.sweep_geometry(I, rank, si))
+    tl, d, _, _ = pdv.epoch_tiles_device(skel, u, i, r, seed, 0,
+                                         with_slots=True)
+    state = plain_tables(trained, su, si, dev)
+    if not float(state[2].abs().max()) > 0:
+        raise AssertionError("phase 4's model has no biases to freeze")
+    log(f"[bias] cell: ml25m_rank64's data and plan (phase 4; {rfmt}, "
+        f"dense_frac {info['dense_frac']:.4f}, {info['num_strata']} strata, "
+        f"{tl.shape[0]} tiles, {d.shape[0]} sparse ratings) on the tables "
+        f"phase 4 trained (biases up to {float(state[2].abs().max()):.4f})")
+    sw = next(x for x in skel.sweeps if x.t1 > x.t0)
+    nt = min(SWEEP_TILES, sw.t1 - sw.t0)
+    sa, tc = sw.sa[:nt // tpg].contiguous(), sw.tc[:nt].contiguous()
+    tls, deps = tl[sw.t0:sw.t0 + nt], sw.deps.prefix(nt)
+    seg_s = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
+    kw = dict(su=su, si=si, tpg=tpg)
+    log(f"[bias] sgd_sweep_epoch: {nt} tiles of the first sweep (T={T}, "
+        f"rank {rank}); critical path {deps.critical} tiles")
+    results["sgd_sweep_epoch"] = compare(
+        "sgd_sweep_epoch",
+        lambda P, Q, bu, bi, e: sgd_sweep_epoch(
+            P, Q[seg_s], bu, bi[seg_s], sa, tc, tls, e, lr, reg, mu, **kw,
+            deps=deps),
+        lambda P, Q, bu, bi, e: sgd_sweep_epoch_plain(
+            P, Q[seg_s], bu, bi[seg_s], sa, tc, tls, e, lr, reg, mu, **kw),
+        tuple(state) + (torch.zeros(nt, T, device=dev),))
+    # the tile form on the same tiles and tables, in this run
+    tabs = [x.clone() for x in state]
+    tile_ms = cuda_ms(lambda: sgd_sweep_tile(
+        tabs[0], tabs[1][seg_s], tabs[2], tabs[3][seg_s], sa, tc, tls, lr,
+        reg, mu, **kw, deps=deps), reps=3)
+    del tabs
+    # the factor rows as the tile form counts them, the biases read only,
+    # and the residual a slot writes
+    bounds["sgd_sweep_epoch"] = sweep_bound(
+        tls, sa, tc, su, si, tpg, rank, [("P", 0), ("Q", 1)], 10,
+        bias="read", slot_bytes=4)
+    log(f"[bias] sgd_sweep_epoch: {results['sgd_sweep_epoch'][1]:.4f} ms, "
+        f"sgd_sweep_tile on the same tiles {tile_ms:.4f} ms; bound "
+        f"{bounds['sgd_sweep_epoch'][0]:.4f} ms "
+        f"({bounds['sgd_sweep_epoch'][1]})")
+    sweeps["sgd_sweep_epoch"] = whole_sweep(
+        "sgd_sweep_epoch",
+        lambda P, Q, bu, bi, e, blocks: sgd_sweep_epoch(
+            P, Q[seg_s], bu, bi[seg_s], sw.sa, sw.tc, tl[sw.t0:sw.t1], e, lr,
+            reg, mu, **kw, deps=sw.deps, blocks=blocks),
+        tuple(state) + (torch.zeros(sw.t1 - sw.t0, T, device=dev),),
+        sw.deps, lib.mfx_sgd_sweep_tile_max_blocks(T, rank))
+    whole_b = sweep_bound(tl[sw.t0:sw.t1], sw.sa, sw.tc, su, si, tpg, rank,
+                          [("P", 0), ("Q", 1)], 10, bias="read",
+                          slot_bytes=4)
+    sweeps["sgd_sweep_epoch"].update({"sweep_bound_ms": whole_b[0],
+                                      "tile_form_ms": tile_ms})
+
+    # the dense forms at int4, rank 64, on group 0
+    variants = []
+    for bias in ("frozen", "none"):
+        name = "dense_phase_frozen" if bias == "frozen" else "dense_phase_none"
+        err, ms, plain_ms, whole, b = dense_form_check(
+            name, bias, groups, meta, state, lr, reg, mu, su, si, rank, rfmt)
+        # group 0 and the epoch's dense phase on the card's count, kernels
+        # only (and the frozen form's batched bias updates after them)
+        for key, grps in (("group0", list(zip(meta, groups))[:1]),
+                          ("epoch_dense", list(zip(meta, groups)))):
+            def run_groups(grps=grps, bias=bias):
+                tabs = [x.clone() for x in state]
+                outs = []
+                for (w0, n), g in grps:
+                    sg = slice(w0 * si, (w0 + n) * si)
+                    extra = (dict(bu=tabs[2], bi=tabs[3][sg])
+                             if bias == "frozen" else {})
+                    outs.append(dense_phase(
+                        tabs[0], tabs[1][sg], g, lr, reg, mu, su=su, si=si,
+                        bias=bias, deps=g["deps"], **extra))
+                return tabs, outs
+
+            run_groups()  # warm-up
+            gms = cuda_ms(run_groups, reps=3)
+            gb = dense_bound([g for _, g in grps], su, si, rank,
+                             frozen=bias == "frozen")
+            whole.update({f"{key}_ms": gms, f"{key}_bound_ms": gb[0]})
+            msg = ""
+            if bias == "frozen" and key == "epoch_dense":
+                tabs, outs = run_groups()
+
+                def updates(tabs=tabs, outs=outs):
+                    for ((w0, n), g), (_, (dbu, dbi)) in zip(grps, outs):
+                        dense_bias_update(tabs[2], tabs[3][w0 * si:(w0 + n)
+                                                           * si], g, dbu,
+                                          dbi, lr, reg, su=su, si=si)
+                whole["epoch_bias_update_ms"] = cuda_ms(updates)
+                msg = (f"; the groups' batched bias updates "
+                       f"{whole['epoch_bias_update_ms']:.4f} ms")
+            log(f"[bias] {name}, {key}: {len(grps)} group(s), "
+                f"{sum(g['deps'].n_tiles for _, g in grps)} strata: "
+                f"{gms:.4f} ms (mean of 3, tables copied in); bound "
+                f"{gb[0]:.4f} ms ({gb[1]}){msg}")
+        if bias == "frozen":
+            results[name], bounds[name] = (err, ms, plain_ms), b
+            sweeps[name] = whole
+        else:
+            variants.append({"variant": "no biases, int4, rank 64",
+                             "max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": b[0],
+                             "bound_by": b[1], **whole})
+    del groups, skel, tl, d, u, i, r
+    torch.cuda.empty_cache()
+    # the frozen form's int8 instances at the netflix cell's blocks (su =
+    # si = 512) on this data carved with int8 codes: no path runs them
+    for rk in (64, 128):
+        meta5, groups5, _, _ = prepare_dense_full(
+            u0.int(), i0.int(), r0.float(), U, I, 512, 512,
+            chi_min=sgd.dense_chi, nwd=blocked.dense_group_windows(rk, 512),
+            rfmt="int8")
+        if rk == rank:
+            tabs5 = plain_tables(trained, 512, 512, dev)
+        else:
+            g = torch.Generator(device=dev).manual_seed(rk)
+            m5 = init_model(g, U, I, rk, global_mean=train.global_mean,
+                            device=dev)
+            m5.bu.copy_(torch.randn(U, device=dev, generator=g) * 0.1)
+            m5.bi.copy_(torch.randn(I, device=dev, generator=g) * 0.1)
+            tabs5 = plain_tables(m5, 512, 512, dev)
+        err, ms, plain_ms, whole, b = dense_form_check(
+            f"dense_phase_frozen int8 rank {rk}", "frozen", groups5, meta5,
+            tabs5, lr, reg, mu, 512, 512, rk, "int8")
+        variants.append({"variant": f"frozen biases, int8, rank {rk}, su = "
+                                    "si = 512", "max_abs_err": err,
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+                         "bound_by": b[1], **whole})
+        del meta5, groups5, tabs5
+        torch.cuda.empty_cache()
+    sweeps["dense_phase_frozen"]["variants"] = variants
+    del u0, i0, r0, state
+    log(f"[time] phase 17 {time.perf_counter() - t_phase:.1f} s")
+
+    # 18. the three modes at full width, through the trainer
+    t_phase = time.perf_counter()
+    base_rmse = rmse_mae(fresh_model(), test)[0]
+    modes = {"a": (["sgd.bias_mode=epoch"], sgd_sweep_epoch),
+             "b": (["sgd.bias_mode=tile"], sgd_sweep_tile),
+             "c": (["model.use_bias=false"], sgd_sweep_tile)}
+    launches, after1 = {}, None
+    for tag, (ov, sparse) in modes.items():
+        run_cfg = apply_overrides(cfg, ov + ["sgd.epochs=2"])
+        form = "frozen" if run_cfg.model.use_bias else "none"
+        for k in (sgd_sweep, sgd_sweep_tile, sgd_sweep_epoch, dense_phase):
+            k.launches = 0
+        dense_phase.form_launches = dict.fromkeys(BIAS_FORMS, 0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        timings: dict = {}
+        trains, tests, seen = [], [], dict.fromkeys(
+            ("plan_s", "dense_s", "sparse_s", "bias_s"), 0.0)
+        torch.cuda.synchronize()
+        t_prev = time.perf_counter()
+        for epoch, m, tr in blocked.train_epochs_blocked(
+                fresh_model(), train, run_cfg.sgd, run_cfg.model.use_bias,
+                seed=seed, device=dev, timings=timings):
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_prev
+            part = {k: timings[k] - seen[k] for k in seen}
+            seen = {k: timings[k] for k in seen}
+            epoch_s = (wall - part["plan_s"]
+                       - (timings["prep_s"] if epoch == 0 else 0.0))
+            trains.append(float(tr))
+            tests.append(rmse_mae(m, test)[0])
+            if tag == "a" and epoch == 0:
+                after1 = m
+            log(f"[bias] ({tag}) {' '.join(ov)}: epoch {epoch}: epoch_s "
+                f"{epoch_s:.4f} (dense {part['dense_s']:.4f}, sparse "
+                f"{part['sparse_s']:.4f}, bias_s {part['bias_s']:.4f}, "
+                f"plan {part['plan_s']:.4f}) train_rmse {trains[-1]:.5f} "
+                f"test_rmse {tests[-1]:.5f}")
+            t_prev = time.perf_counter()
+        counts = {"sgd_sweep": sgd_sweep.launches,
+                  "sgd_sweep_tile": sgd_sweep_tile.launches,
+                  "sgd_sweep_epoch": sgd_sweep_epoch.launches,
+                  "dense_phase": dict(dense_phase.form_launches)}
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"[bias] ({tag}): launches {counts}; prep {timings['prep_s']:.4f}"
+            f" s; peak memory allocated {peak} bytes; held-out rmse "
+            f"{tests[-1]:.5f} (untrained {base_rmse:.5f}, phase 4's lane "
+            f"run {lane_rmse:.5f})")
+        others = [f for f in BIAS_FORMS if f != form]
+        if (sparse.launches < 1 or dense_phase.form_launches[form] < 1
+                or sgd_sweep.launches
+                or any(dense_phase.form_launches[f] for f in others)
+                or (tag == "a" and sgd_sweep_tile.launches)
+                or (tag != "a" and sgd_sweep_epoch.launches)):
+            raise AssertionError(f"({tag}): not the expected kernels: {counts}")
+        if not trains[1] < trains[0]:
+            raise AssertionError(f"({tag}): the train RMSE did not fall: "
+                                 f"{trains}")
+        if not tests[-1] < base_rmse:
+            raise AssertionError(f"({tag}): held-out RMSE {tests[-1]} not "
+                                 f"below the untrained {base_rmse}")
+        if tag != "c" and abs(tests[-1] - lane_rmse) > 0.03:
+            raise AssertionError(f"({tag}): held-out RMSE {tests[-1]} more "
+                                 f"than 0.03 from the lane run's {lane_rmse}")
+        finite = all(bool(torch.isfinite(getattr(m, k)).all())
+                     for k in ("P", "Q", "bu", "bi"))
+        if not finite or m.P.shape != (U, rank):
+            raise AssertionError(f"({tag}): tables not finite or mis-shaped")
+        if tag == "a":
+            launches = {"sgd_sweep_epoch": sgd_sweep_epoch.launches,
+                        "dense_phase_frozen":
+                            dense_phase.form_launches["frozen"]}
+    run_cfg = apply_overrides(cfg, ["sgd.bias_mode=epoch", "sgd.epochs=1"])
+    (_, again, _), = blocked.train_epochs_blocked(
+        fresh_model(), train, run_cfg.sgd, True, seed=seed, device=dev)
+    if not all(torch.equal(getattr(again, k), getattr(after1, k))
+               for k in ("P", "Q", "bu", "bi")):
+        raise AssertionError("(a): a second run of 1 epoch differs")
+    log("[bias] (a): a second run of 1 epoch repeats the first run's state "
+        "after epoch 1 bit for bit")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "mfx_torch.cli", "train", "--preset",
+         "ml25m_rank64", "--set", "sgd.bias_mode=epoch", "--set",
+         "sgd.epochs=1"], capture_output=True, text=True, timeout=600)
+    lines = res.stdout.strip().splitlines()
+    out = json.loads(lines[-1]) if res.returncode == 0 and lines else {}
+    if set(out) != {"preset", "epochs_run", "updates_per_sec", "test_rmse",
+                    "test_mae"} or out["epochs_run"] != 1:
+        raise AssertionError(f"CLI train in epoch mode failed:\n"
+                             f"{res.stdout[-1000:]}{res.stderr[-2000:]}")
+    log(f"[bias] CLI train --preset ml25m_rank64 --set sgd.bias_mode=epoch "
+        f"--set sgd.epochs=1: {lines[-1]} ({time.perf_counter() - t0:.1f} s, "
+        "process and data included)")
+    log(f"[time] phase 18 {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1958,7 +2372,7 @@ def main() -> int:
     head = group_prefix(groups[0], DENSE_WHOLE)
     plan_launch(head, su, si, rank)  # the launch order, on the host, untimed
     dense_card = _build.load_library().mfx_dense_phase_max_blocks(
-        rank, int(rfmt == "int8"))
+        rank, int(rfmt == "int8"), 0)  # the lane form
     sweeps = {"dense_phase": whole_sweep(
         "dense_phase",
         lambda Pt, Qt, blocks: dense_phase(Pt, Qt[seg], head, lr, reg, mu,
@@ -2113,6 +2527,10 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["tile_topk"] = serve_phase(m, train, dev, cfg.data.seed)
     log(f"[time] phase 6 {time.perf_counter() - t0:.1f} s")
+
+    # 17-18. the other bias modes of the main path, on phase 4's data
+    launches.update(bias_form_phases(dev, cfg, train, test, fresh_model, m,
+                                     test_rmse, results, bounds, sweeps))
     del m, model, train, test  # coo: phases 15-16 make it temporal
     torch.cuda.empty_cache()
 
@@ -2147,16 +2565,22 @@ def main() -> int:
                 "sgd_sweep_step_u": "mfx/kernels/sgd_pallas.py:363",
                 "sgd_sweep_r128": "mfx/kernels/sgd_pallas.py:63",
                 "dense_phase_int8_r128": "mfx/kernels/dense_pallas.py:86",
-                "sgd_sweep_time": "mfx/kernels/sgd_pallas.py:63"}
+                "sgd_sweep_time": "mfx/kernels/sgd_pallas.py:63",
+                "sgd_sweep_epoch": "mfx/kernels/sgd_pallas.py:63",
+                "dense_phase_frozen": "mfx/kernels/dense_pallas.py:86"}
     sources = {"sgd_sweep_r128": "sgd_sweep", "dense_phase_int8_r128":
-               "dense_phase", "sgd_sweep_time": "sgd_sweep"}
+               "dense_phase", "sgd_sweep_time": "sgd_sweep",
+               "sgd_sweep_epoch": "sgd_sweep_tile",
+               "dense_phase_frozen": "dense_phase"}
     variants = {"sgd_sweep": "bias_mode='lane', rank 64",
                 "sgd_sweep_tile": "bias_mode='tile'",
                 "dense_phase": "lane, int4 codes, rank 64",
                 "sgd_sweep_r128": "bias_mode='lane', rank 128",
                 "dense_phase_int8_r128": "lane, int8 codes, rank 128",
                 "sgd_sweep_time": "time_mode=True (bias_mode='lane'), rank "
-                                  f"64, {TIME_BINS} bins"}
+                                  f"64, {TIME_BINS} bins",
+                "sgd_sweep_epoch": "bias_mode='epoch', rank 64",
+                "dense_phase_frozen": "frozen biases, int4, rank 64"}
     log(f"[card] {card}")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -1,18 +1,29 @@
-// Dense-stratum SGD phase (lane-carried biases): int4 rating codes at rank
-// 64, int8 codes at ranks 64 and 128.
+// Dense-stratum SGD phase in three bias forms: lane-carried biases,
+// frozen biases and none; int4 rating codes at rank 64, int8 codes at
+// ranks 64 and 128.
 //
-// Replaces: mfx/kernels/dense_pallas.py::_kernel_body (lane=True,
-// rfmt='int4' or 'int8', echo=1, spg=1), driven by dense_sgd_phase_pallas.
+// Replaces: mfx/kernels/dense_pallas.py::_kernel_body (rfmt='int4' or
+// 'int8', echo=1, spg=1) with lane=True (the lane form), with
+// use_bias=True, lane=False (frozen) and with use_bias=False (none),
+// driven by dense_sgd_phase_pallas.
 //
 // What it computes, per dense stratum (user block a = sa[s], item window
 // c = sc[s]), strata in plan order, each a snapshot minibatch:
 //   S = P_blk Q_winᵀ                       (su x si, from the snapshot)
-//   E = [code > 0] ∘ ((code · c − S) − mu)  (biases ride in S; c = 1/2
-//                                            for int4, f32(1/25) for int8)
-//   P_blk += lr s_u ∘ (E Q_win − reg Du ∘ P_blk), lane rank-2 frozen
-//   Q_win += lr s_i ∘ (Eᵀ P_blk − reg Di ∘ Q_win), lane rank-1 frozen
+//   E = [code > 0] ∘ ((code · c − S) − mu)  lane (biases ride in S) and
+//                                            none; c = 1/2 for int4,
+//                                            f32(1/25) for int8
+//   E = [code > 0] ∘ ((((code · c − S) − bu) − bi) − mu)   frozen, with
+//       bu = bu[a su + row] and bi = bi[c si + col] read from vectors that
+//       nothing writes during the launch (the group's biases at its start)
+//   P_blk += lr s_u ∘ (E Q_win − reg Du ∘ P_blk), lane rank-2 frozen in
+//            the lane form only
+//   Q_win += lr s_i ∘ (Eᵀ P_blk − reg Di ∘ Q_win), lane rank-1 frozen in
+//            the lane form only
 //   s = min(1, DSTAR / max(deg, 1)), DSTAR = 16; Du/Di = per-stratum raw
 //   rating degrees; sse += Σ E² (first-pass semantics)
+//   frozen only: dbu[s, row] = Σ_col E, dbi[s, col] = Σ_row E, from which
+//   the trainer applies one batched bias update after the group
 // R holds int4 codes round(2 r), 0 = absent, plain (su, si/2) bytes per
 // stratum with the even column in the low nibble; or int8 codes
 // round(25 r), plain (su, si) bytes per stratum. The kernel is a template
@@ -48,14 +59,22 @@
 //   every wait names a smaller ticket, which a running block holds: any
 //   grid is free of deadlock, and strata whose user blocks and windows
 //   differ run at once.
+// - Frozen form, the bias sums: per chunk, a panel piece sums each of
+//   its 64 rows of E over the chunk's 64 columns (column order, from 0)
+//   and adds that to the row's running sum (chunk order); the last piece
+//   of the panel writes dbu = piece 0's sum + piece 1's. It also sums each
+//   of the chunk's 64 columns over its 64 rows (row order, from 0) into a
+//   ring beside the dQ partials' (one value a column and panel), and the
+//   apply unit that owns the columns adds them in panel order into dbi.
 // Every value keeps the order of the one-stratum-at-a-time walk: S is a
 // fma chain over k = 0..rank-1 from 0, a dP or dQ partial a chain over the
 // 64 columns of a chunk or the 64 rows of a panel, partials are added
-// from 0 in chunk or panel order, then p + lr·scale·(g − reg·deg·p). So
-// the tables are bit for bit the same on any grid (and those of the
-// earlier two-launches-a-stratum form of this file); the SSE is summed
-// per piece and added in unit order by a second small kernel. No float
-// atomics.
+// from 0 in chunk or panel order, then p + lr·scale·(g − reg·deg·p), and
+// the bias sums are added in the fixed orders above. So the tables (and
+// dbu, dbi) are bit for bit the same on any grid (the lane form's also
+// those of the earlier two-launches-a-stratum form of this file); the SSE
+// is summed per piece and added in unit order by a second small kernel.
+// No float atomics.
 //
 // Memory ordering: P and Q rows are rewritten by other SMs inside the
 // launch, so every load of them, and of the partials, goes to L2
@@ -76,6 +95,8 @@
 // flight as the dependency table allows; a group's time is then the
 // larger of its work over the card and its longest chain of strata.
 
+#include <type_traits>
+
 #include "sweep_common.cuh"
 
 namespace {
@@ -86,6 +107,9 @@ constexpr int PIECES = 2;     // pieces a row panel is cut into
 constexpr int EPITCH = CH + 4;  // shared row pitch of E in floats
 constexpr int NT = 256;       // 16 x 16 threads
 constexpr float DSTAR = 16.f;
+
+// the bias forms (the wrapper's 'lane', 'frozen', 'none')
+constexpr int LANE = 0, FROZEN = 1, NONE = 2;
 
 // The kernel's shapes at rank RANK with int8 (INT8) or int4 codes.
 template <int RANK, bool INT8>
@@ -122,6 +146,16 @@ struct Smem {
   float red[NT / 32];
   int ticket;
   int flag;
+};
+
+// The frozen form's bias inputs and outputs (all null in the other forms).
+struct BiasSums {
+  const float* bu;  // (A su,) user biases, read only
+  const float* bi;  // (nwin si,) the segment's item biases, read only
+  float* dbu;       // (nd, su) row sums of E
+  float* dbi;       // (nd, si) column sums of E
+  float* rs_buf;    // (ring, nb, PIECES, BAND) a panel piece's row sums
+  float* cs_buf;    // (ring, nb, si) a panel's column sums
 };
 
 struct DenseSched {
@@ -258,13 +292,14 @@ __device__ __forceinline__ void load_tile(float (&v)[4][RANK / 16],
     }
 }
 
-template <int RANK, bool INT8>
+template <int RANK, bool INT8, int BIAS>
 __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
                            const int* sa, const int* sc, const uint8_t* R,
                            const float* du, float* ring_buf, float* dp_buf,
-                           float* sums, const DenseSched& ds, int s, int pos,
-                           int band, int piece, int su, int si, float lr,
-                           float reg, float mu) {
+                           float* sums, const BiasSums& bs,
+                           const DenseSched& ds, int s, int pos, int band,
+                           int piece, int su, int si, float lr, float reg,
+                           float mu) {
   using F = Form<RANK, INT8>;
   constexpr int R4 = F::R4, LQ = F::LQ, PITCH = F::PITCH, NO = 4 * LQ;
   // a warp holds 4 values of ty and 8 of tx, so that each of its 16-byte
@@ -296,6 +331,18 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
   uint4 rn = make_uint4(0, 0, 0, 0);
   load_chunk<RANK, INT8>(qn, rn, Q, qrow, Rb, si, c0);
   store_chunk(sm, qn, rn);
+  // frozen form: the biases of rows ty + 16m and of the chunk's columns
+  // tx + 16n (the next chunk's loaded beside its rows), and the running
+  // row sum of E of row tid (threads 0..63)
+  float bur[4] = {0.f, 0.f, 0.f, 0.f}, bic[4] = {0.f, 0.f, 0.f, 0.f};
+  float bin[4] = {0.f, 0.f, 0.f, 0.f}, rsum = 0.f;
+  if (BIAS == FROZEN) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) bur[m] = __ldg(bs.bu + prow + ty + 16 * m);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      bic[n] = __ldg(bs.bi + qrow + c0 * CH + tx + 16 * n);
+  }
 
   float g[4][NO];  // dP of rows ty + 16m, lanes 64h + 4tx + n at
                    // [m][4h + n], over the chunks
@@ -308,7 +355,14 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
 
   for (int ch = c0; ch < c1; ++ch) {
     __syncthreads();
-    if (ch + 1 < c1) load_chunk<RANK, INT8>(qn, rn, Q, qrow, Rb, si, ch + 1);
+    if (ch + 1 < c1) {
+      load_chunk<RANK, INT8>(qn, rn, Q, qrow, Rb, si, ch + 1);
+      if (BIAS == FROZEN) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          bin[n] = __ldg(bs.bi + qrow + (ch + 1) * CH + tx + 16 * n);
+      }
+    }
 
     // S, then E, for rows ty + 16m and the chunk's columns tx + 16n
     float acc[4][4];
@@ -340,14 +394,36 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
       for (int n = 0; n < 4; ++n) {
         const int c = tx + 16 * n;
         const int code = code_at<INT8>(Rs, r, c);
-        const float e =
-            code > 0 ? ((float)code * F::SCALE - acc[m][n]) - mu : 0.f;
+        float e = 0.f;
+        if (code > 0) {
+          if (BIAS == FROZEN)
+            e = ((((float)code * F::SCALE - acc[m][n]) - bur[m]) - bic[n]) -
+                mu;
+          else
+            e = ((float)code * F::SCALE - acc[m][n]) - mu;
+        }
         sm.Er[r * EPITCH + c] = e;
         sm.Ec[c * EPITCH + r] = e;
         sq = fmaf(e, e, sq);
       }
     }
     __syncthreads();
+    if (BIAS == FROZEN && tid < 2 * BAND) {
+      // the chunk's row sums (threads 0..63, row tid, columns in order)
+      // and column sums (threads 64..127, column tid - 64, rows in order)
+      const bool row = tid < BAND;
+      const int x = row ? tid : tid - BAND;
+      const float* a = row ? sm.Ec + x : sm.Er + x;
+      float t = 0.f;
+#pragma unroll 8
+      for (int y = 0; y < CH; ++y) t += a[y * EPITCH];
+      if (row)
+        rsum += t;
+      else
+        __stcg(bs.cs_buf + ((long long)(pos % ds.ring) * nb + band) * si +
+                   ch * CH + x,
+               t);
+    }
 
     // the chunk's dP: rows ty + 16m, lanes 64h + 4tx + n, over its
     // columns j
@@ -426,7 +502,13 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
                make_float4(d[m][4 * h], d[m][4 * h + 1], d[m][4 * h + 2],
                            d[m][4 * h + 3]));
     __syncthreads();
-    if (ch + 1 < c1) store_chunk(sm, qn, rn);
+    if (ch + 1 < c1) {
+      store_chunk(sm, qn, rn);
+      if (BIAS == FROZEN) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) bic[n] = bin[n];
+      }
+    }
   }
 
   // the unit's SSE: warps' butterflies, then the warps in order
@@ -436,6 +518,11 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
   // the last piece of the band to finish adds the band's dP in chunk
   // order: piece 0's sum, then every later chunk's partial
   if (piece == 0) store_tile<RANK>(dps, g, ty, tx);
+  // frozen form: the band's row sums, one row of BAND a piece
+  float* rs = BIAS == FROZEN ? bs.rs_buf + ((long long)(pos % ds.ring) * nb +
+                                            band) * PIECES * BAND
+                             : nullptr;
+  if (BIAS == FROZEN && tid < BAND) __stcg(rs + piece * BAND + tid, rsum);
   __syncthreads();
   if (tid == 0) {
     __threadfence();
@@ -445,6 +532,11 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
   __syncthreads();
   const bool last = sm.flag == PIECES - 1;
   if (last) {
+    if (BIAS == FROZEN && tid < BAND) {
+      float t = __ldcg(rs + tid);
+      for (int p = 1; p < PIECES; ++p) t += __ldcg(rs + p * BAND + tid);
+      bs.dbu[(long long)s * su + band * BAND + tid] = t;
+    }
     load_tile<RANK>(g, dps, ty, tx);
     for (int e = 1; e <= nch - per_piece; ++e) {
       float d[4][NO];
@@ -467,7 +559,8 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
 #pragma unroll
         for (int n = 0; n < 4; ++n)
           o[n] = update(comp(p, n), g[m][4 * h + n], deg, scale,
-                        64 * h + 4 * tx + n == RANK - 2, lr, reg);
+                        BIAS == LANE && 64 * h + 4 * tx + n == RANK - 2, lr,
+                        reg);
         __stcg(P4 + (prow + r) * R4 + 16 * h + tx,
                make_float4(o[0], o[1], o[2], o[3]));
       }
@@ -485,11 +578,11 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
   }
 }
 
-template <int RANK, int ROWS>
+template <int RANK, int ROWS, int BIAS>
 __device__ void apply_unit(float* Q, const int* sc, const float* di,
-                           const float* ring_buf, const DenseSched& ds, int s,
-                           int pos, int part, int su, int si, float lr,
-                           float reg) {
+                           const float* ring_buf, const BiasSums& bs,
+                           const DenseSched& ds, int s, int pos, int part,
+                           int su, int si, float lr, float reg) {
   constexpr int R4 = RANK / 4;
   constexpr int PER = ROWS * R4 / NT;  // float4 a thread
   const int tid = threadIdx.x, nb = su / BAND, nq = si / ROWS;
@@ -498,6 +591,14 @@ __device__ void apply_unit(float* Q, const int* sc, const float* di,
   __syncthreads();
   const float4* slot = reinterpret_cast<const float4*>(
       ring_buf + (long long)(pos % ds.ring) * nb * si * RANK);
+  if (BIAS == FROZEN && tid < ROWS) {
+    // the unit's columns of E summed over the panels, in panel order
+    const float* cs =
+        bs.cs_buf + (long long)(pos % ds.ring) * nb * si + part * ROWS + tid;
+    float t = 0.f;
+    for (int b = 0; b < nb; ++b) t += __ldcg(cs + (long long)b * si);
+    bs.dbi[(long long)s * si + part * ROWS + tid] = t;
+  }
   float4 gv[PER];
 #pragma unroll
   for (int t = 0; t < PER; ++t) gv[t] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -525,7 +626,7 @@ __device__ void apply_unit(float* Q, const int* sc, const float* di,
 #pragma unroll
     for (int n = 0; n < 4; ++n)
       o[n] = update(comp(v, n), comp(gv[t], n), deg, scale,
-                    4 * q + n == RANK - 1, lr, reg);
+                    BIAS == LANE && 4 * q + n == RANK - 1, lr, reg);
     __stcg(Q4 + (qrow + row) * R4 + q, make_float4(o[0], o[1], o[2], o[3]));
   }
   __syncthreads();
@@ -540,14 +641,14 @@ __device__ void apply_unit(float* Q, const int* sc, const float* di,
 
 // P and Q are rewritten by this and other blocks during the launch, so
 // they are deliberately not const/__restrict__ (see the header).
-template <int RANK, bool INT8>
+template <int RANK, bool INT8, int BIAS>
 __global__ void __launch_bounds__(NT, 1)
 dense_phase_kernel(float* P, float* Q, const int* __restrict__ sa,
                    const int* __restrict__ sc, const uint8_t* __restrict__ R,
                    const float* __restrict__ du, const float* __restrict__ di,
                    float* ring_buf, float* dp_buf, float* __restrict__ sums,
-                   DenseSched ds, int su, int si, float lr, float reg,
-                   float mu) {
+                   BiasSums bs, DenseSched ds, int su, int si, float lr,
+                   float reg, float mu) {
   using F = Form<RANK, INT8>;
   extern __shared__ float4 smem_raw[];
   Smem<RANK, INT8>& sm = *reinterpret_cast<Smem<RANK, INT8>*>(smem_raw);
@@ -561,36 +662,41 @@ dense_phase_kernel(float* P, float* Q, const int* __restrict__ sa,
     if (u >= ds.nd * per) break;
     const int pos = u / per, j = u - pos * per, s = stratum_at(ds, pos);
     if (j < np)
-      panel_unit(sm, P, Q, sa, sc, R, du, ring_buf, dp_buf, sums, ds, s, pos,
-                 j / PIECES, j % PIECES, su, si, lr, reg, mu);
+      panel_unit<RANK, INT8, BIAS>(sm, P, Q, sa, sc, R, du, ring_buf, dp_buf,
+                                   sums, bs, ds, s, pos, j / PIECES,
+                                   j % PIECES, su, si, lr, reg, mu);
     else if (qrows == F::QROWS)
-      apply_unit<RANK, F::QROWS>(Q, sc, di, ring_buf, ds, s, pos, j - np, su,
-                                 si, lr, reg);
+      apply_unit<RANK, F::QROWS, BIAS>(Q, sc, di, ring_buf, bs, ds, s, pos,
+                                       j - np, su, si, lr, reg);
     else
-      apply_unit<RANK, F::QROWS / 2>(Q, sc, di, ring_buf, ds, s, pos, j - np,
-                                     su, si, lr, reg);
+      apply_unit<RANK, F::QROWS / 2, BIAS>(Q, sc, di, ring_buf, bs, ds, s,
+                                           pos, j - np, su, si, lr, reg);
   }
 }
 
-template <int RANK, bool INT8>
+template <int RANK, bool INT8, int BIAS>
 int launch(float* P, float* Q, const int* sa, const int* sc,
            const uint8_t* R, const float* du, const float* di,
-           const DenseSched& ds, float* ring_buf, float* dp_buf, float* sums,
-           float* sse_out, int blocks, int su, int si, float lr, float reg,
-           float mu, cudaStream_t st) {
+           const BiasSums& bs, const DenseSched& ds, float* ring_buf,
+           float* dp_buf, float* sums, float* sse_out, int blocks, int su,
+           int si, float lr, float reg, float mu, cudaStream_t st) {
   using F = Form<RANK, INT8>;
   if (su < BAND || su % BAND || si < F::QROWS / 2 || si % (F::QROWS / 2) ||
       (si / CH) % PIECES)
     return (int)cudaErrorInvalidValue;
+  if ((BIAS == FROZEN) != (bs.bu != nullptr && bs.bi != nullptr &&
+                           bs.dbu != nullptr && bs.dbi != nullptr &&
+                           bs.rs_buf != nullptr && bs.cs_buf != nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      dense_phase_kernel<RANK, INT8>,
+      dense_phase_kernel<RANK, INT8, BIAS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)sizeof(Smem<RANK, INT8>));
   if (err != cudaSuccess) return (int)err;
-  dense_phase_kernel<RANK, INT8>
+  dense_phase_kernel<RANK, INT8, BIAS>
       <<<blocks, NT, sizeof(Smem<RANK, INT8>), st>>>(
-          P, Q, sa, sc, R, du, di, ring_buf, dp_buf, sums, ds, su, si, lr,
-          reg, mu);
+          P, Q, sa, sc, R, du, di, ring_buf, dp_buf, sums, bs, ds, su, si,
+          lr, reg, mu);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mfx_sweep::ordered_sum_kernel<<<1, mfx_sweep::SUM_THREADS, 0, st>>>(
@@ -598,46 +704,68 @@ int launch(float* P, float* Q, const int* sa, const int* sc,
   return (int)cudaGetLastError();
 }
 
+// The form's instance: f(kernel-of-the-form marker) for (rank, int8,
+// bias) in the nine built ones, or cudaErrorInvalidValue.
+template <class Fn>
+int with_form(int rank, int int8, int bias, Fn&& fn) {
+  if (bias < LANE || bias > NONE) return -1;
+#define MFX_FORM(R, I8)                                                   \
+  if (rank == R && (int8 != 0) == I8) {                                   \
+    if (bias == LANE) return fn(std::integral_constant<int, R>{},         \
+                                std::bool_constant<I8>{},                 \
+                                std::integral_constant<int, LANE>{});     \
+    if (bias == FROZEN) return fn(std::integral_constant<int, R>{},       \
+                                  std::bool_constant<I8>{},               \
+                                  std::integral_constant<int, FROZEN>{}); \
+    return fn(std::integral_constant<int, R>{}, std::bool_constant<I8>{}, \
+              std::integral_constant<int, NONE>{});                       \
+  }
+  MFX_FORM(64, false)
+  MFX_FORM(64, true)
+  MFX_FORM(128, true)
+#undef MFX_FORM
+  return -1;
+}
+
 }  // namespace
 
 // Thread blocks of the form's dense_phase_kernel (rank 64 with int4 or
-// int8 codes, rank 128 with int8) the device holds at once, or minus the
-// CUDA error.
-extern "C" int mfx_dense_phase_max_blocks(int rank, int int8) {
-  if (rank == 64 && !int8)
-    return mfx_sweep::resident_blocks(dense_phase_kernel<64, false>, NT,
-                                      sizeof(Smem<64, false>));
-  if (rank == 64)
-    return mfx_sweep::resident_blocks(dense_phase_kernel<64, true>, NT,
-                                      sizeof(Smem<64, true>));
-  if (rank == 128 && int8)
-    return mfx_sweep::resident_blocks(dense_phase_kernel<128, true>, NT,
-                                      sizeof(Smem<128, true>));
-  return -(int)cudaErrorInvalidValue;
+// int8 codes, rank 128 with int8; bias 0 lane, 1 frozen, 2 none) the
+// device holds at once, or minus the CUDA error.
+extern "C" int mfx_dense_phase_max_blocks(int rank, int int8, int bias) {
+  const int r = with_form(rank, int8, bias, [](auto R, auto I8, auto B) {
+    return mfx_sweep::resident_blocks(
+        dense_phase_kernel<decltype(R)::value, decltype(I8)::value,
+                           decltype(B)::value>,
+        NT, sizeof(Smem<decltype(R)::value, decltype(I8)::value>));
+  });
+  return r == -1 ? -(int)cudaErrorInvalidValue : r;
 }
 
+// bu, bi, dbu, dbi, rs_buf and cs_buf: the frozen form's (BiasSums), null
+// in the other forms.
 extern "C" int mfx_dense_phase(float* P, float* Q, const int* sa,
                                const int* sc, const uint8_t* R,
                                const float* du, const float* di,
+                               const float* bu, const float* bi, float* dbu,
+                               float* dbi, float* rs_buf, float* cs_buf,
                                const int* runs, const int* wait,
                                const int* order, int* state,
                                float* ring_buf, float* dp_buf, float* sums,
                                float* sse_out, int nd, int nruns, int ring,
                                int blocks, int su, int si, int rank,
-                               int int8, float lr, float reg, float mu,
-                               void* stream) {
+                               int int8, int bias, float lr, float reg,
+                               float mu, void* stream) {
   if (nd < 0 || nruns < 1 || ring < 1 || blocks < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const DenseSched ds{runs, wait, order, state, nruns, nd, ring};
-  if (rank == 64 && !int8)
-    return launch<64, false>(P, Q, sa, sc, R, du, di, ds, ring_buf, dp_buf,
-                             sums, sse_out, blocks, su, si, lr, reg, mu, st);
-  if (rank == 64)
-    return launch<64, true>(P, Q, sa, sc, R, du, di, ds, ring_buf, dp_buf,
-                            sums, sse_out, blocks, su, si, lr, reg, mu, st);
-  if (rank == 128 && int8)
-    return launch<128, true>(P, Q, sa, sc, R, du, di, ds, ring_buf, dp_buf,
-                             sums, sse_out, blocks, su, si, lr, reg, mu, st);
-  return (int)cudaErrorInvalidValue;
+  const BiasSums bs{bu, bi, dbu, dbi, rs_buf, cs_buf};
+  const int r = with_form(rank, int8, bias, [&](auto R_, auto I8, auto B) {
+    return launch<decltype(R_)::value, decltype(I8)::value,
+                  decltype(B)::value>(P, Q, sa, sc, R, du, di, bs, ds,
+                                      ring_buf, dp_buf, sums, sse_out,
+                                      blocks, su, si, lr, reg, mu, st);
+  });
+  return r == -1 ? (int)cudaErrorInvalidValue : r;
 }

@@ -1,8 +1,9 @@
-// Sparse blocked-SGD sweep with per-tile biases (or none), ranks 32 and 64.
+// Sparse blocked-SGD sweep with per-tile biases, epoch-frozen biases or
+// none, ranks 32 and 64.
 //
 // Replaces: mfx/kernels/sgd_pallas.py::_kernel_body with bias_mode='tile'
-// (its tile_bias branches) or use_bias=False, driven by
-// blocked_sgd_sweep_pallas / _sweep_chunk_call.
+// (its tile_bias branches), bias_mode='epoch' (its epoch_bias branches) or
+// use_bias=False, driven by blocked_sgd_sweep_pallas / _sweep_chunk_call.
 //
 // What it computes, per tile of T ratings of one stratum (user block sa,
 // item window tc), in plan order, on plain (rows, rank) tables P, Q and
@@ -17,7 +18,15 @@
 //               summed in slot order (the reference's exact segment sum)
 //   sse      += sum_s e_s^2 over real slots (pad slots hold u == su and
 //               touch nothing)
-// With use_bias == 0 the bias terms are 0 and bu, bi are left untouched.
+// With use_bias == BIAS_NONE the bias terms are 0 and bu, bi are left
+// untouched. With use_bias == BIAS_EPOCH (the reference's bias_mode='epoch')
+// the biases are frozen for the sweep: the gather reads bu_s and bi_s from
+// vectors that nothing writes during the launch, which is exactly the
+// reference's per-slot stream bt = bu[u] + bi[i] built before the sweeps,
+//   e_s       = r_s - ((sum_k p_s[k] q_s[k] + mu) + (bu_s + bi_s)),
+// the row updates are as above, no bias is written, and each slot's
+// residual (0 for pad slots) goes to e_out[t * T + s] for the trainer's
+// batched bias update at the epoch's end.
 //
 // Order: the result is that of applying the tiles strictly in plan
 // order, as the TPU's sequential grid does. The launch's blocks share the
@@ -41,7 +50,8 @@
 // its phases (ids, gather, sort, residuals, scatter) are separated by
 // barriers and the gather waits on L2. The bias vectors add 2 T scalar
 // loads to the gather and 2 T candidate writers to the scatter, no phase
-// and no barrier. A sweep's time is the tiles on its longest dependency
+// and no barrier; the epoch form drops the writers and adds T stores of
+// e_s, off the tile's chain. A sweep's time is the tiles on its longest dependency
 // chain (a sweep of W windows keeps at most W blocks busy) times that
 // latency.
 
@@ -56,6 +66,7 @@ using namespace mfx_sweep;
 template <int RANK>
 __global__ void __launch_bounds__(THREADS)
 sgd_sweep_tile_kernel(float* P, float* Q, float* bu, float* bi,
+                      float* __restrict__ e_out,
                       const int* __restrict__ sa, const int* __restrict__ tc,
                       const int* __restrict__ tl, Wavefront wf,
                       float* __restrict__ sums, int tpg, int T, int su,
@@ -80,6 +91,8 @@ sgd_sweep_tile_kernel(float* P, float* Q, float* bu, float* bi,
       sort_keys(sm.keyU, sm.keyI);
       residuals(sm, T, su, mu, use_bias);
       __syncthreads();
+      if (use_bias == BIAS_EPOCH && threadIdx.x < T)
+        e_out[(long long)t * T + threadIdx.x] = sm.e[threadIdx.x];
 
       // 5. scatter: the first position of each row's run writes
       for (int w = threadIdx.x; w < MAX_T * Q4; w += THREADS) {
@@ -94,7 +107,7 @@ sgd_sweep_tile_kernel(float* P, float* Q, float* bu, float* bi,
       // (scatter_items' bias writers are the lower half)
       static_assert(THREADS == 2 * MAX_T, "one bias writer a sorted position");
       const int pb = threadIdx.x - MAX_T;
-      if (use_bias && pb >= 0 && starts_run(sm.keyU, pb)) {
+      if (use_bias == BIAS_TILE && pb >= 0 && starts_run(sm.keyU, pb)) {
         const int x = sm.keyU[pb] >> 8, j0 = sm.keyU[pb] & 255;
         bu[pbase + x] =
             sm.bus[j0] + run_bias_delta(sm.keyU, sm.bus, sm.e, pb, lr, reg);
@@ -109,18 +122,19 @@ sgd_sweep_tile_kernel(float* P, float* Q, float* bu, float* bi,
 }
 
 template <int RANK>
-int launch(float* P, float* Q, float* bu, float* bi, const int* sa,
-           const int* tc, const int* tl, const Wavefront& wf, float* sums,
-           float* sse_out, int nt, int blocks, int tpg, int T, int su, int si,
-           int use_bias, float lr, float reg, float mu, cudaStream_t stream) {
+int launch(float* P, float* Q, float* bu, float* bi, float* e_out,
+           const int* sa, const int* tc, const int* tl, const Wavefront& wf,
+           float* sums, float* sse_out, int nt, int blocks, int tpg, int T,
+           int su, int si, int use_bias, float lr, float reg, float mu,
+           cudaStream_t stream) {
   const size_t smem = TileSmem<RANK>::bytes(T);
   cudaError_t err = cudaFuncSetAttribute(
       sgd_sweep_tile_kernel<RANK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   sgd_sweep_tile_kernel<RANK><<<blocks, THREADS, smem, stream>>>(
-      P, Q, bu, bi, sa, tc, tl, wf, sums, tpg, T, su, si, use_bias, lr, reg,
-      mu);
+      P, Q, bu, bi, e_out, sa, tc, tl, wf, sums, tpg, T, su, si, use_bias,
+      lr, reg, mu);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ordered_sum_kernel<<<1, SUM_THREADS, 0, stream>>>(sums, nt, sse_out);
@@ -130,7 +144,7 @@ int launch(float* P, float* Q, float* bu, float* bi, const int* sa,
 }  // namespace
 
 // Thread blocks of the rank's kernel the device holds at once at tile
-// size T, or minus the CUDA error.
+// size T, or minus the CUDA error (one kernel for every bias mode).
 extern "C" int mfx_sgd_sweep_tile_max_blocks(int T, int rank) {
   if (T < 1 || T > MAX_T) return -(int)cudaErrorInvalidValue;
   if (rank == 64)
@@ -142,24 +156,28 @@ extern "C" int mfx_sgd_sweep_tile_max_blocks(int T, int rank) {
   return -(int)cudaErrorInvalidValue;
 }
 
+// use_bias: 0 no biases, 1 per-tile biases, 2 epoch-frozen biases (bu
+// and bi then read only). e_out: the (nt, T) f32 residuals, given exactly
+// when use_bias is 2.
 extern "C" int mfx_sgd_sweep_tile(float* P, float* Q, float* bu, float* bi,
-                                  const int* sa, const int* tc, const int* tl,
-                                  const int* runs, const int* wait,
-                                  int* state, float* sums, float* sse_out,
-                                  int nt, int nruns, int blocks, int tpg,
-                                  int T, int su, int si, int rank,
-                                  int use_bias, float lr, float reg,
+                                  float* e_out, const int* sa, const int* tc,
+                                  const int* tl, const int* runs,
+                                  const int* wait, int* state, float* sums,
+                                  float* sse_out, int nt, int nruns,
+                                  int blocks, int tpg, int T, int su, int si,
+                                  int rank, int use_bias, float lr, float reg,
                                   float mu, void* stream) {
   if (su > MAX_BLOCK || si > MAX_BLOCK || T < 1 || T > MAX_T || tpg < 1 ||
-      nruns < 1 || blocks < 1)
+      nruns < 1 || blocks < 1 || use_bias < BIAS_NONE ||
+      use_bias > BIAS_EPOCH || ((use_bias == BIAS_EPOCH) != (e_out != nullptr)))
     return (int)cudaErrorInvalidValue;
   const Wavefront wf{runs, wait, state, nruns};
   if (rank == 64)
-    return launch<64>(P, Q, bu, bi, sa, tc, tl, wf, sums, sse_out, nt,
+    return launch<64>(P, Q, bu, bi, e_out, sa, tc, tl, wf, sums, sse_out, nt,
                       blocks, tpg, T, su, si, use_bias, lr, reg, mu,
                       (cudaStream_t)stream);
   if (rank == 32)
-    return launch<32>(P, Q, bu, bi, sa, tc, tl, wf, sums, sse_out, nt,
+    return launch<32>(P, Q, bu, bi, e_out, sa, tc, tl, wf, sums, sse_out, nt,
                       blocks, tpg, T, su, si, use_bias, lr, reg, mu,
                       (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;

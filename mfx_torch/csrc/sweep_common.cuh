@@ -2,7 +2,8 @@
 // sgd_sweep_tile.cu, sgd_sweep_step_u.cu): one tile's ids, snapshot gather,
 // duplicate-row grouping, residuals and run sums, for plain (rows, rank)
 // f32 tables, with the biases, where there are any outside the tables, in
-// vectors of their own (use_bias). RANK is the lanes of a row that shared
+// vectors of their own (use_bias: BIAS_NONE, BIAS_TILE, or BIAS_EPOCH for
+// biases that are read and never written). RANK is the lanes of a row that shared
 // memory holds at once: 32 or 64 (RANK / 4 float4 a row); a table row may
 // be wider (ROW_Q4 float4: sgd_sweep.cu at rank 128 holds its rows' lanes
 // 0-63 and 64-127 in turn and carries the dots across the two halves).
@@ -17,7 +18,8 @@
 //   dot      8 threads a slot, each a fixed-order fma chain over its
 //            float4 (k, k + 8, ... of the row, across both halves where
 //            the row is held in two), then a fixed butterfly over the 8;
-//   pred     ((dot + mu) + bu) + bi;
+//   pred     ((dot + mu) + bu) + bi per tile, (dot + mu) + (bu + bi)
+//            with epoch-frozen biases (the reference's per-slot stream);
 //   row sum  the deltas of a row's slots in ascending slot order (a
 //            bitonic sort of unique (row << 8 | slot) keys puts them
 //            next to each other), added to the row's snapshot last.
@@ -57,6 +59,10 @@ constexpr int THREADS = 512;
 constexpr int MAX_T = 256;       // tile size limit; slot ids fit 8 bits
 constexpr int MAX_BLOCK = 1024;  // largest su / si
 constexpr int NO_ROW = INT_MAX;  // sort key of a pad slot (sorts last)
+
+// use_bias: no biases; per-tile biases, gathered and scattered like the
+// rows; epoch-frozen biases, gathered only
+constexpr int BIAS_NONE = 0, BIAS_TILE = 1, BIAS_EPOCH = 2;
 
 template <int RANK>
 struct TileSmem {
@@ -248,7 +254,10 @@ __device__ inline void finish_residuals(float* e, const int* uid,
     w += __shfl_xor_sync(0xffffffffu, w, 1);
     if (s < T && k == 0) {
       float pred = w + mu;
-      if (use_bias) pred = (pred + bus[s]) + bis[s];
+      if (use_bias == BIAS_EPOCH)
+        pred = pred + (bus[s] + bis[s]);
+      else if (use_bias == BIAS_TILE)
+        pred = (pred + bus[s]) + bis[s];
       e[s] = uid[s] < su ? e[s] - pred : 0.f;
     }
   }
@@ -301,9 +310,9 @@ __device__ inline float run_bias_delta(const int* key, const float* b,
   return a;
 }
 
-// Item side of step 5, for every (sorted position, column quad) and every
-// sorted position's bias: the first position of a row's run writes
-// snapshot + run sum to Q and bi.
+// Item side of step 5, for every (sorted position, column quad) and, with
+// per-tile biases, every sorted position's bias: the first position of a
+// row's run writes snapshot + run sum to Q and bi.
 template <int RANK>
 __device__ inline void scatter_items(const TileSmem<RANK>& sm, float* Q,
                                      float* bi, long long qbase, int use_bias,
@@ -318,7 +327,7 @@ __device__ inline void scatter_items(const TileSmem<RANK>& sm, float* Q,
         add4(sm.Qs[j0 * Q4 + q],
              run_delta<Q4>(sm.keyI, sm.Qs, sm.Ps, sm.e, p, q, lr, reg));
   }
-  if (use_bias) {
+  if (use_bias == BIAS_TILE) {
     for (int p = threadIdx.x; p < MAX_T; p += THREADS) {
       if (!starts_run(sm.keyI, p)) continue;
       const int x = sm.keyI[p] >> 8, j0 = sm.keyI[p] & 255;

@@ -35,17 +35,15 @@ _SIGNATURES = {
     "mfx_sgd_sweep_time": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                            _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P],
     "mfx_sgd_sweep_time_max_blocks": [_I, _I],
-    "mfx_dense_phase": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                        _F, _P],
-    "mfx_dense_phase_max_blocks": [_I, _I],
+    "mfx_dense_phase": [_P] * 21 + [_I] * 9 + [_F, _F, _F, _P],
+    "mfx_dense_phase_max_blocks": [_I, _I, _I],
     "mfx_tile_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mfx_bpr_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _I, _I, _I, _F, _F, _P],
     "mfx_bpr_sweep_max_blocks": [_I],
     "mfx_sgd_sweep_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
-                           _P],
+                           _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                           _F, _P],
     "mfx_sgd_sweep_tile_max_blocks": [_I, _I],
     "mfx_sgd_sweep_step_u": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,

@@ -364,13 +364,20 @@ def epoch_tiles_device(
     epoch: int,
     rand: torch.Tensor | None = None,
     extras: tuple[torch.Tensor, ...] = (),
-) -> torch.Tensor:
+    with_slots: bool = False,
+):
     """The per-epoch pass: the ``(NT, 3 + len(extras), T)`` int32 tile
     stream on the ids' device. ``rand`` (n int32 values) overrides the
     seeded shuffle key. ``extras`` are int32 per-rating payload rows (f32
     values bit-cast first) that ride the same sort and land as rows 3, 4,
     ... (0 in pads); slots do not depend on them, so rows 0-2 are bitwise
-    the 3-row stream's."""
+    the 3-row stream's.
+
+    ``with_slots`` (``bias_mode='epoch'``) returns ``(tiles, d, u_s,
+    i_s)`` as the reference does: each sorted rating's flat slot ``d`` in
+    the ``(NT, T)`` slot grid (int64, strictly increasing) and its global
+    user and item ids (int64), so that the epoch's per-slot residuals can
+    be read back by rating and summed per row."""
     n = u.shape[0]
     nrows = 3 + len(extras)
     if n and skel.nt_total * skel.tile * nrows >= 2**31:
@@ -403,4 +410,7 @@ def epoch_tiles_device(
             raise ValueError(f"extras[{k}] must be int32 ({n},), got "
                              f"{x.dtype} {tuple(x.shape)}")
         flat[o + (3 + k) * T] = x.to(dev)[order]
-    return flat.view(skel.nt_total, nrows, T)
+    tiles = flat.view(skel.nt_total, nrows, T)
+    if with_slots:
+        return tiles, d, u[order].long(), i[order].long()
+    return tiles

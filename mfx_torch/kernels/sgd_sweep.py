@@ -12,6 +12,10 @@ They replace the two bodies of ``mfx/kernels/sgd_pallas.py``'s sweep call:
 - :func:`sgd_sweep_tile`: ``_kernel_body`` with ``bias_mode='tile'`` or
   with no biases (ranks 32 and 64; ``bu`` / ``bi`` are vectors beside the
   tables and every lane updates);
+- :func:`sgd_sweep_epoch`: the same kernel with ``bias_mode='epoch'``
+  (ranks 32 and 64): the biases frozen for the sweep, every lane updates,
+  and each slot's residual is written out for the trainer's batched bias
+  update at the epoch's end;
 - :func:`sgd_sweep_step_u`: ``_kernel_body_step_u``
   (``sgd.step_user_batch``): the same, with the user side batched over
   each group of ``tpg`` tiles.
@@ -36,7 +40,8 @@ from mfx_torch.kernels import _build
 from mfx_torch.kernels.packing import row_add
 
 __all__ = ["sgd_sweep", "sgd_sweep_plain", "sgd_sweep_time", "sgd_sweep_tile",
-           "sgd_sweep_tile_plain", "sgd_sweep_step_u",
+           "sgd_sweep_tile_plain", "sgd_sweep_epoch", "sgd_sweep_epoch_plain",
+           "sgd_sweep_step_u",
            "sgd_sweep_step_u_plain", "check_sweep_args",
            "check_kernel_limits", "check_deps", "wavefront_launch"]
 
@@ -112,7 +117,8 @@ def check_deps(who, deps, nt, dev):
                          f"stream holds {nt}")
 
 
-def wavefront_launch(who, lib, deps, nt, T, dev, blocks, sizing=()):
+def wavefront_launch(who, lib, deps, nt, T, dev, blocks, sizing=(),
+                     kernel=None):
     """What a wavefront sweep kernel takes beside the tile stream:
     ``(runs, wait, state, sums, grid)``. ``runs`` / ``wait`` are the
     dependency table's (with ``deps=None`` one run of all ``nt`` tiles and
@@ -121,8 +127,9 @@ def wavefront_launch(who, lib, deps, nt, T, dev, blocks, sizing=()):
     tiles finished of each run), ``sums`` the per-tile SSE / loss that
     the kernel adds up in tile order at its end; ``grid`` the thread
     blocks to launch: ``blocks``, or with ``blocks=None`` as many as the
-    card holds at once (``mfx_<who>_max_blocks(T, *sizing)``), and never
-    more than there are runs."""
+    card holds at once (``mfx_<kernel>_max_blocks(T, *sizing)``, the
+    kernel's C name defaulting to ``who``), and never more than there are
+    runs."""
     if deps is None or nt == 0:
         runs = torch.tensor([[0, nt]], dtype=torch.int32, device=dev)
         wait = None
@@ -130,7 +137,7 @@ def wavefront_launch(who, lib, deps, nt, T, dev, blocks, sizing=()):
         check_deps(who, deps, nt, dev)
         runs, wait = deps.runs, deps.wait
     if blocks is None:
-        blocks = getattr(lib, f"mfx_{who}_max_blocks")(T, *sizing)
+        blocks = getattr(lib, f"mfx_{kernel or who}_max_blocks")(T, *sizing)
         if blocks < 1:
             raise RuntimeError(f"{who}: CUDA error {-blocks} sizing the grid")
     elif blocks < 1:
@@ -295,6 +302,36 @@ def sgd_sweep_tile_plain(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si,
     return sse
 
 
+def sgd_sweep_epoch_plain(P, Q, bu, bi, sa, tc, tl, e_out, lr, reg, mu, *,
+                          su, si, tpg):
+    """Plain PyTorch version of :func:`sgd_sweep_epoch`, in the reference's
+    form: the per-slot bias stream bt = bu[u] + bi[i] is built first from
+    the biases as they stand, then tile by tile e = r - ((p.q + mu) + bt)
+    and segment-summed row updates on all lanes. Updates P and Q in place,
+    writes each slot's residual (0 in pads) to ``e_out`` (NT, T); returns
+    the sweep's SSE (0-d f32)."""
+    nt, T = tl.shape[0], tl.shape[2]
+    t_of = torch.arange(nt, device=P.device)[:, None]
+    real = tl[:, 0] < su
+    rows_u = sa.long()[t_of // tpg] * su + tl[:, 0].long()
+    rows_i = tc.long()[t_of] * si + tl[:, 1].long()
+    bt = torch.zeros(nt, T, dtype=torch.float32, device=P.device)
+    bt[real] = bu[rows_u[real]] + bi[rows_i[real]]
+    e_out.zero_()
+    sse = torch.zeros((), dtype=torch.float32, device=P.device)
+    for t in range(nt):
+        m = real[t]
+        ru, ri = rows_u[t][m], rows_i[t][m]
+        p, q = P[ru], Q[ri]
+        e = tl[t, 2].view(torch.float32)[m] - (((p * q).sum(1) + mu)
+                                               + bt[t][m])
+        row_add(P, ru, lr * (e[:, None] * q - reg * p))
+        row_add(Q, ri, lr * (e[:, None] * p - reg * q))
+        e_out[t, m] = e
+        sse = sse + (e * e).sum()
+    return sse
+
+
 def sgd_sweep_step_u_plain(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si,
                            tpg, use_bias=True):
     """Plain PyTorch version of :func:`sgd_sweep_step_u`: per group of
@@ -325,14 +362,27 @@ def sgd_sweep_step_u_plain(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si,
 
 
 def _tile_bias_sweep(wrapper, plain, P, Q, bu, bi, sa, tc, tl, lr, reg, mu,
-                     su, si, tpg, use_bias, deps, blocks, step_u=False):
-    """The two tile-bias wrappers' common body: both kernels are wavefront
-    sweeps and take ``deps`` and ``blocks`` as :func:`sgd_sweep` does.
-    ``step_u`` (``sgd_sweep_step_u``) adds the pools of pooled user deltas
-    and their grid sizing by the user block."""
+                     su, si, tpg, use_bias, deps, blocks, step_u=False,
+                     e_out=None):
+    """The three bias-vector wrappers' common body: the kernels are
+    wavefront sweeps and take ``deps`` and ``blocks`` as :func:`sgd_sweep`
+    does. ``step_u`` (``sgd_sweep_step_u``) adds the pools of pooled user
+    deltas and their grid sizing by the user block; ``e_out``
+    (``sgd_sweep_epoch``) the residuals' output and frozen biases."""
     who = wrapper.__name__
     check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg, bu, bi)
+    shape = (tl.shape[0], tl.shape[2])
+    if e_out is not None and (
+            e_out.device != P.device or e_out.dtype != torch.float32
+            or tuple(e_out.shape) != shape or not e_out.is_contiguous()):
+        raise ValueError(
+            f"{who}: e_out must be a contiguous f32 {shape} tensor on "
+            f"{P.device}, got {e_out.dtype} {tuple(e_out.shape)} on "
+            f"{e_out.device}")
     if P.device.type == "cpu":
+        if e_out is not None:
+            return plain(P, Q, bu, bi, sa, tc, tl, e_out, lr, reg, mu, su=su,
+                         si=si, tpg=tpg)
         return plain(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, su=su, si=si,
                      tpg=tpg, use_bias=use_bias)
     if P.device.type != "cuda":
@@ -342,11 +392,15 @@ def _tile_bias_sweep(wrapper, plain, P, Q, bu, bi, sa, tc, tl, lr, reg, mu,
     if step_u and not 1 <= tpg <= 8:
         raise NotImplementedError(f"{who} kernel takes tpg 1..8, got {tpg}")
     lib = _build.load_library()
+    kernel = "sgd_sweep_step_u" if step_u else "sgd_sweep_tile"
     runs, wait, state, sums, grid = wavefront_launch(
         who, lib, deps, nt, T, P.device, blocks,
-        sizing=(rank, su) if step_u else (rank,))
-    pools, head = None, []  # step_u: one pool a block, in device memory
-    if step_u:  # where the kernel does not keep it in shared memory
+        sizing=(rank, su) if step_u else (rank,), kernel=kernel)
+    # the pointer after bi: step_u's pools (one a block, in device memory
+    # where the kernel does not keep it in shared memory), the tile
+    # kernel's residual output (use_bias 2, the epoch form)
+    extra = None if e_out is None else e_out.data_ptr()
+    if step_u:
         per_block = lib.mfx_sgd_sweep_step_u_pool_floats(T, rank, su)
         if per_block < 0:
             raise RuntimeError(f"{who}: CUDA error {-per_block} placing the "
@@ -354,16 +408,16 @@ def _tile_bias_sweep(wrapper, plain, P, Q, bu, bi, sa, tc, tl, lr, reg, mu,
         if per_block:
             pools = torch.zeros(grid * per_block, dtype=torch.float32,
                                 device=P.device)
-        head = [None if pools is None else pools.data_ptr()]
+            extra = pools.data_ptr()
+    mode = 2 if e_out is not None else int(bool(use_bias))
     sse = torch.empty(1, dtype=torch.float32, device=P.device)
     stream = torch.cuda.current_stream(P.device).cuda_stream
-    _build.check(getattr(lib, f"mfx_{who}")(
-        P.data_ptr(), Q.data_ptr(), bu.data_ptr(), bi.data_ptr(), *head,
+    _build.check(getattr(lib, f"mfx_{kernel}")(
+        P.data_ptr(), Q.data_ptr(), bu.data_ptr(), bi.data_ptr(), extra,
         sa.data_ptr(), tc.data_ptr(), tl.data_ptr(), runs.data_ptr(),
         None if wait is None else wait.data_ptr(), state.data_ptr(),
         sums.data_ptr(), sse.data_ptr(), nt, runs.shape[0], grid, tpg, T, su,
-        si, rank, int(bool(use_bias)), float(lr), float(reg), float(mu),
-        stream,
+        si, rank, mode, float(lr), float(reg), float(mu), stream,
     ), who)
     wrapper.launches += 1
     return sse[0]
@@ -387,6 +441,25 @@ def sgd_sweep_tile(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si, tpg,
                             use_bias, deps, blocks)
 
 
+def sgd_sweep_epoch(P, Q, bu, bi, sa, tc, tl, e_out, lr, reg, mu, *, su, si,
+                    tpg, deps=None, blocks=None):
+    """One item-sweep with epoch-frozen biases (``bias_mode='epoch'``).
+    Arguments as :func:`sgd_sweep_tile`, plus ``e_out``, an (NT, T) f32
+    output. Per tile: gather p, q from the current tables and bu[u], bi[i]
+    from the bias vectors, which the sweep never writes; e = r - ((p.q +
+    mu) + (bu + bi)), the reference's order with its per-slot stream bt =
+    bu + bi; row deltas lr (e q - reg p), lr (e p - reg q) on all lanes,
+    summed exactly over duplicate rows; e_out[t, s] = e of slot s of tile
+    t, 0 in pad slots. Updates P and Q in place (bu and bi stay as they
+    are) and returns the sweep's SSE over real slots as a 0-d f32 tensor.
+    ``deps`` and ``blocks`` as in :func:`sgd_sweep`: the same bits on any
+    grid. With all biases 0 the tables are bit for bit those of
+    :func:`sgd_sweep_tile` with ``use_bias=False``."""
+    return _tile_bias_sweep(sgd_sweep_epoch, sgd_sweep_epoch_plain, P, Q, bu,
+                            bi, sa, tc, tl, lr, reg, mu, su, si, tpg, True,
+                            deps, blocks, e_out=e_out)
+
+
 def sgd_sweep_step_u(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si, tpg,
                      use_bias=True, deps=None, blocks=None):
     """One item-sweep with the user side batched per group of ``tpg`` tiles
@@ -407,4 +480,5 @@ def sgd_sweep_step_u(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si, tpg,
 
 
 sgd_sweep_tile.launches = 0
+sgd_sweep_epoch.launches = 0
 sgd_sweep_step_u.launches = 0

@@ -436,7 +436,8 @@ def _dense_card(lib, tables, dense) -> int:
     from mfx_torch.kernels.dense_phase import code_format
 
     card = lib.mfx_dense_phase_max_blocks(
-        tables[0].shape[1], int(code_format(dense[1][0]["R"]) == "int8"))
+        tables[0].shape[1], int(code_format(dense[1][0]["R"]) == "int8"),
+        0)  # the lane form, which the sgd cell runs
     if card < 1:
         raise SystemExit(f"dense_phase: CUDA error {-card} sizing the grid")
     return card

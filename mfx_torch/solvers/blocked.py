@@ -1,22 +1,29 @@
 """Blocked-SGD trainer, the counterpart of
 ``mfx/solvers/blocked.py::train_epochs_blocked`` with the device planner,
-for two families of configurations:
+for every ``sgd.bias_mode``, with the full-span dense phase on or off:
 
-- lane-carried biases with the full-span dense phase (the ``ml25m_rank64``
-  preset at rank 64 with int4 codes, ``netflix100m_rank128_dp`` with
-  ``parallel.mode=single`` at rank 128 with int8 codes): lane-form tables,
+- ``'lane'`` (the ``ml25m_rank64`` preset at rank 64 with int4 codes,
+  ``netflix100m_rank128_dp`` with ``parallel.mode=single`` at rank 128
+  with int8 codes): lane-form tables, the lane form of
   ``kernels.dense_phase`` then ``kernels.sgd_sweep``;
-- per-tile biases or none, with no dense phase (the
-  ``ml1m_rank32_biased`` preset): canonical tables with ``bu`` / ``bi``
-  beside them, ``kernels.sgd_sweep_tile`` or, with
-  ``sgd.step_user_batch``, ``kernels.sgd_sweep_step_u``.
+- ``'tile'`` (the ``ml1m_rank32_biased`` preset) or no biases
+  (``model.use_bias=false``): canonical tables with ``bu`` / ``bi``
+  beside them; the dense phase in its frozen-bias form, each group
+  followed by one batched bias update (``dense_bias_update``), or its
+  bias-free form; then ``kernels.sgd_sweep_tile`` or, with
+  ``sgd.step_user_batch``, ``kernels.sgd_sweep_step_u``;
+- ``'epoch'``: the same tables and dense phase; the sweeps through
+  ``kernels.sgd_sweep_epoch``, biases frozen for the epoch, each slot's
+  residual written to one buffer, and one batched bias update from the
+  residuals at the epoch's end.
 
 One epoch is the dense groups in order, then the sparse item-sweeps in
 order, on plain padded ``(rows, rank)`` f32 tables updated in place. Prep
 (dense carving, the R image, the plan skeleton) runs once; the tile stream
 is rebuilt every ``replan_every`` epochs. Windows per sweep and per dense
 group follow the reference's geometry so that the port replays its stratum
-order.
+order. Every sum of the bias updates goes through
+``kernels.packing.row_add``: no float atomics.
 """
 
 from __future__ import annotations
@@ -30,11 +37,12 @@ import torch
 from mfx_torch.config import SGDConfig
 from mfx_torch.data.coo import RatingsCOO
 from mfx_torch.kernels import plan_device as pdv
-from mfx_torch.kernels.dense_phase import dense_phase, plan_launch
+from mfx_torch.kernels.dense_phase import (bias_step, dense_bias_update,
+                                           dense_phase, plan_launch)
 from mfx_torch.kernels.packing import (from_lane_model, lane_tables,
-                                       plain_tables)
-from mfx_torch.kernels.sgd_sweep import (sgd_sweep, sgd_sweep_step_u,
-                                         sgd_sweep_tile)
+                                       plain_tables, row_add)
+from mfx_torch.kernels.sgd_sweep import (sgd_sweep, sgd_sweep_epoch,
+                                         sgd_sweep_step_u, sgd_sweep_tile)
 from mfx_torch.models.mf import MFModel
 from mfx_torch.solvers.dense_prep import prepare_dense_full
 
@@ -109,8 +117,6 @@ def _unsupported(cfg: SGDConfig, use_bias: bool) -> str | None:
                 "for it in the tests; Queue 1 item 5)")
     if cfg.kernel != "pallas":
         raise ValueError(f"unknown blocked kernel {cfg.kernel!r}")
-    if use_bias and cfg.bias_mode == "epoch":
-        return "bias_mode='epoch' (sparse kernel variants; Queue 2 item 2)"
     if cfg.dense_chi != 0 and cfg.dense_span != "full":
         return "dense_span='head' (Queue 1 item 5)"
     if cfg.dense_echo > 1 or cfg.dense_spg > 1:
@@ -141,10 +147,14 @@ def train_epochs_blocked(
     ``train_rmse`` a 0-d tensor on ``device`` (reading it waits for the
     epoch). ``device`` defaults to the model's. ``timings``, if given, is
     filled with ``prep_s`` (the dense carving, the dense kernel's launch
-    orders and the plan skeleton) and the cumulative ``plan_s`` (both
-    waiting for the device), ``dense_info`` and ``sweep_tiles``: per sparse sweep its
-    tiles and the tiles on its longest dependency chain (their ratio is
-    the most that walking the sweep on many SMs can give).
+    orders and the plan skeleton), the cumulative ``plan_s``, ``dense_s``
+    (the dense groups' kernels), ``sparse_s`` (the sweeps) and ``bias_s``
+    (the batched bias updates of the frozen-bias dense groups and of
+    ``bias_mode='epoch'``); on the card these three are read from CUDA
+    events around each part, all at the epoch's end (one wait for the
+    device there, none inside the epoch), ``dense_info`` and ``sweep_tiles``: per sparse sweep its tiles and the
+    tiles on its longest dependency chain (their ratio is the most that
+    walking the sweep on many SMs can give).
     ``plan_rand(epoch, n)``, if given, supplies the epoch's
     within-stratum shuffle key (n int32 values) instead of the seeded
     torch generator — the parity tests pass the reference planner's bits
@@ -161,6 +171,8 @@ def train_epochs_blocked(
     if why is not None:
         raise NotImplementedError(f"mfx_torch blocked trainer: {why}; see ROADMAP")
     lane = use_bias and cfg.bias_mode == "lane"
+    epoch_bias = use_bias and cfg.bias_mode == "epoch"
+    dense_bias = "lane" if lane else "frozen" if use_bias else "none"
     dev = torch.device(device) if device is not None else model.device
 
     def sync():
@@ -173,14 +185,6 @@ def train_epochs_blocked(
     n_train = train.n_ratings
     want_dense = cfg.dense_chi != 0 and su == si and 128 // rank in (1, 2, 4)
     rfmt = dense_rfmt(cfg, rank, train.rating) if want_dense else "int4"
-    if want_dense and not lane:
-        raise NotImplementedError(
-            f"mfx_torch blocked trainer: bias_mode={cfg.bias_mode!r} "
-            f"use_bias={use_bias} with the dense phase on (dense_chi="
-            f"{cfg.dense_chi}): the dense phase is ported for lane biases "
-            "only (its frozen-bias tensors: Queue 1 item 5; its kernel's "
-            "variants: Queue 2 item 3); see ROADMAP"
-        )
 
     t_prep = time.perf_counter()
     if lane:
@@ -199,6 +203,11 @@ def train_epochs_blocked(
         sweep_fn = sgd_sweep_step_u if cfg.step_user_batch else sgd_sweep_tile
 
         def run_sweep(sw, seg, lr):
+            if epoch_bias:
+                return sgd_sweep_epoch(P, Q[seg], bu, bi[seg], sw.sa, sw.tc,
+                                       tl[sw.t0:sw.t1], e_all[sw.t0:sw.t1],
+                                       lr, cfg.reg, mu, su=su, si=si, tpg=TPG,
+                                       deps=sw.deps)
             return sweep_fn(P, Q[seg], bu, bi[seg], sw.sa, sw.tc,
                             tl[sw.t0:sw.t1], lr, cfg.reg, mu, su=su, si=si,
                             tpg=TPG, use_bias=use_bias, deps=sw.deps)
@@ -216,20 +225,59 @@ def train_epochs_blocked(
             nwd=cfg.dense_nwd or dense_group_windows(rank, si), rfmt=rfmt,
         )
         for grp in dense_groups:
-            plan_launch(grp, su, si, rank)
+            plan_launch(grp, su, si, rank, dense_bias)
     skel = pdv.build_plan_skeleton(
         u, i, U, I, su, si, T, TPG, sweep_geometry(
             I, rank, si, step_u=(su, T) if cfg.step_user_batch else None)
     )
     sweeps = [s for s in skel.sweeps if s.t1 > s.t0]
+    if epoch_bias:  # each slot's residual of the epoch (0 in pads)
+        e_all = torch.zeros((skel.nt_total, T), dtype=torch.float32,
+                            device=dev)
     if timings is not None:
         sync()
         timings["prep_s"] = time.perf_counter() - t_prep
-        timings.setdefault("plan_s", 0.0)
+        for key in ("plan_s", "dense_s", "sparse_s", "bias_s"):
+            timings.setdefault(key, 0.0)
         timings["sweep_tiles"] = [(sw.deps.n_tiles, sw.deps.critical)
                                   for sw in sweeps]
         if dinfo is not None:
             timings["dense_info"] = dinfo
+
+    marks = []  # (key, start, end) of this epoch's timed parts
+
+    def timed(key, fn, *args):
+        if timings is None:
+            return fn(*args)
+        if dev.type != "cuda":
+            t0 = time.perf_counter()
+            out = fn(*args)
+            timings[key] += time.perf_counter() - t0
+            return out
+        stream = torch.cuda.current_stream(dev)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record(stream)
+        out = fn(*args)
+        end.record(stream)
+        marks.append((key, start, end))
+        return out
+
+    def read_marks():
+        if marks:
+            marks[-1][2].synchronize()
+        for key, start, end in marks:
+            timings[key] += start.elapsed_time(end) / 1e3
+        marks.clear()
+
+    def epoch_bias_update(lr):
+        # the reference's batched update from the epoch's residual sums,
+        # per global row, with the per-row trust scaling of the dense
+        # phase (a d-occurrence batched bias step has curvature lr d)
+        e_r = e_all.view(-1)[d]
+        for b, ids, deg in ((bu, u_s, deg_u), (bi, i_s, deg_i)):
+            esum = torch.zeros_like(b)
+            row_add(esum, ids, e_r)
+            bias_step(b, esum, deg, lr, cfg.reg)
 
     tl = None
     for epoch in range(start_epoch, cfg.epochs):
@@ -239,17 +287,42 @@ def train_epochs_blocked(
             key = (epoch - epoch % cfg.replan_every if cfg.replan_every
                    else 0)
             rand = plan_rand(key, u.shape[0]) if plan_rand else None
-            tl = pdv.epoch_tiles_device(skel, u, i, r, seed, key, rand=rand)
+            if epoch_bias:
+                tl, d, u_s, i_s = pdv.epoch_tiles_device(
+                    skel, u, i, r, seed, key, rand=rand, with_slots=True)
+                deg_u = torch.bincount(u_s, minlength=bu.shape[0]).float()
+                deg_i = torch.bincount(i_s, minlength=bi.shape[0]).float()
+            else:
+                tl = pdv.epoch_tiles_device(skel, u, i, r, seed, key,
+                                            rand=rand)
             if timings is not None:
                 sync()
                 timings["plan_s"] += time.perf_counter() - t_plan
         sse = torch.zeros((), dtype=torch.float32, device=dev)
         for (win0, nw), grp in zip(dense_meta, dense_groups):
-            sse = sse + dense_phase(
-                P, Q[win0 * si:(win0 + nw) * si], grp, lr, cfg.reg, mu,
-                su=su, si=si, deps=grp["deps"],
-            )
-        for sw in sweeps:
-            seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
-            sse = sse + run_sweep(sw, seg, lr)
+            seg = slice(win0 * si, (win0 + nw) * si)
+            if dense_bias != "frozen":
+                sse = sse + timed("dense_s", lambda: dense_phase(
+                    P, Q[seg], grp, lr, cfg.reg, mu, su=su, si=si,
+                    bias=dense_bias, deps=grp["deps"]))
+                continue
+            # frozen biases: the group reads them at its start, then one
+            # batched update, which the next group sees
+            s, (dbu, dbi) = timed("dense_s", lambda: dense_phase(
+                P, Q[seg], grp, lr, cfg.reg, mu, su=su, si=si, bias="frozen",
+                bu=bu, bi=bi[seg], deps=grp["deps"]))
+            sse = sse + s
+            timed("bias_s", lambda: dense_bias_update(
+                bu, bi[seg], grp, dbu, dbi, lr, cfg.reg, su=su, si=si))
+
+        def sparse(sse):
+            for sw in sweeps:
+                seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
+                sse = sse + run_sweep(sw, seg, lr)
+            return sse
+
+        sse = timed("sparse_s", sparse, sse)
+        if epoch_bias:
+            timed("bias_s", epoch_bias_update, lr)
+        read_marks()
         yield epoch, canonical(), torch.sqrt(sse / max(1, n_train))

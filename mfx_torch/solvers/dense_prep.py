@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mfx_torch.kernels.dense_phase import R4_SCALE, R_SCALE
+from mfx_torch.kernels.dense_phase import R4_SCALE, R_SCALE, group_totals
 from mfx_torch.kernels.plan_device import sweep_deps
 
 __all__ = ["auto_dense_threshold", "prepare_dense_full"]
@@ -106,9 +106,11 @@ def prepare_dense_full(
     Returns ``(dense_meta, dense_groups, (u_sp, i_sp, r_sp), info)``:
     ``dense_meta`` a tuple of (win0, nwin) per non-empty group,
     ``dense_groups`` the matching dicts {``sa``, ``sc`` (window-local),
-    ``R``, ``du_s``, ``di_s``, ``deps``}, and the sparse remainder in its
-    original order. ``du_s``/``di_s`` count raw ratings, duplicates
-    included. ``deps`` is the group's dependency table
+    ``R``, ``du_s``, ``di_s``, ``du_tot``, ``di_tot``, ``deps``}, and the
+    sparse remainder in its original order. ``du_s``/``di_s`` count raw
+    ratings, duplicates included, per stratum; ``du_tot`` (A·su,) and
+    ``di_tot`` (nw·si,) count the group's ratings per user row and per row
+    of its item segment (the frozen-bias update after the group). ``deps`` is the group's dependency table
     (``plan_device.sweep_deps`` with one "tile" a stratum): two strata
     conflict only if they share a user block or a window, and the group's
     strata lie in (user block, window) order, the runs' layout, so the
@@ -170,6 +172,8 @@ def prepare_dense_full(
             "di_s": di_s[lo:hi].to(torch.float32),
             "deps": sweep_deps(tp, tp.sum(1), dev),
         })
+        dense_groups[-1].update(group_totals(dense_groups[-1], A * su,
+                                             nw * si))
     n_dense = int(dpos.shape[0])
     info = {
         "dense_frac": n_dense / max(1, int(u.shape[0])),

@@ -1,0 +1,202 @@
+"""The blocked trainer under every bias mode with the dense phase on:
+two epochs of the port's ``train_epochs_blocked`` against the reference
+trainer (Pallas in interpret mode) from the same tables and plan bits, at
+rank 64 with int4 codes, for ``bias_mode`` 'epoch' and 'tile' and for
+``use_bias=False``; 'epoch' also with the dense phase off. Then an
+epoch-mode run resumed at ``start_epoch``, and the driver and CLI on
+``ml25m_rank64 --set sgd.bias_mode=epoch``."""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mfx.config import SGDConfig
+from mfx.data import synthetic, train_test_split
+from mfx.eval.metrics import rmse_mae as rmse_mae_j
+from mfx.models import init_model
+from mfx.solvers.blocked import train_epochs_blocked as train_j
+from mfx_torch.config import apply_overrides, preset
+from mfx_torch.convert import model_from_numpy, model_to_numpy
+from mfx_torch.eval.metrics import rmse_mae
+from mfx_torch.solvers.blocked import train_epochs_blocked
+
+U = I = 600
+RANK = 64
+KEYS = ("P", "Q", "bu", "bi")
+CFG = SGDConfig(
+    lr=0.012, reg=0.04, lr_decay=0.95, epochs=2, partitioner="blocked",
+    kernel="pallas", ublock=256, iblock=256, tile=64, dense_chi=0.01,
+    dense_span="full", plan_device="device",
+)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _split():
+    coo = synthetic.make_synthetic(U, I, 25_000, rank=4, noise=0.3, seed=9,
+                                   star_step=0.5)
+    return train_test_split(coo, test_frac=0.1, seed=0)
+
+
+def _jax_bits(seed):
+    def bits(epoch, n):
+        key = jax.random.fold_in(jax.random.key(seed), epoch)
+        return torch.as_tensor(np.array(
+            jax.random.bits(key, (n,), jnp.uint32).astype(jnp.int32)))
+    return bits
+
+
+def _arrays(train, use_bias):
+    """Shared initial tables: the reference's init, with numpy-seeded
+    biases where the run trains them (so the frozen terms are live)."""
+    m0 = init_model(1, U, I, RANK, global_mean=train.global_mean)
+    out = {k: np.asarray(getattr(m0, k)) for k in KEYS + ("mu",)}
+    if use_bias:
+        rng = np.random.default_rng(3)
+        out["bu"] = rng.normal(0, 0.1, U).astype(np.float32)
+        out["bi"] = rng.normal(0, 0.1, I).astype(np.float32)
+    return out
+
+
+# (bias_mode, use_bias, dense phase on)
+MODES = {"epoch": ("epoch", True, True), "tile": ("tile", True, True),
+         "no_bias": ("tile", False, True),
+         "epoch_no_dense": ("epoch", True, False)}
+
+
+def _cfg(mode):
+    bias_mode, use_bias, dense = MODES[mode]
+    return dataclasses.replace(CFG, bias_mode=bias_mode,
+                               dense_chi=CFG.dense_chi if dense else 0.0)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_two_epochs_match_reference_trainer(mode):
+    """Train and held-out RMSE within 1e-5 each epoch, tables and biases
+    within 1e-4 after 2 (tests/test_torch_slice.py's rank-64
+    tolerances)."""
+    _, use_bias, dense = MODES[mode]
+    cfg = _cfg(mode)
+    train, test = _split()
+    arrays = _arrays(train, use_bias)
+    m0 = init_model(1, U, I, RANK, global_mean=train.global_mean)
+    m0 = m0.__class__(**{k: jnp.asarray(arrays[k]) for k in KEYS}, mu=m0.mu)
+    ref = []
+    for _, view, tr in train_j(m0, train, cfg, use_bias=use_bias, seed=0,
+                               tpg=4, exact=True, interpret=True):
+        m = view.materialize()
+        ref.append((float(tr), rmse_mae_j(m, test)[0],
+                    {k: np.asarray(getattr(m, k)) for k in KEYS}))
+    timings = {}
+    got = [(float(tr), rmse_mae(m, test)[0], model_to_numpy(m))
+           for _, m, tr in train_epochs_blocked(
+               model_from_numpy(arrays, device="cpu"), train, cfg, use_bias,
+               seed=0, device="cpu", timings=timings,
+               plan_rand=_jax_bits(0))]
+    assert len(got) == len(ref) == 2
+    assert ("dense_info" in timings) == dense
+    assert (timings["bias_s"] > 0) == use_bias
+    for (tr_t, te_t, _), (tr_j, te_j, _) in zip(got, ref):
+        assert abs(tr_t - tr_j) <= 1e-5 and abs(te_t - te_j) <= 1e-5
+    for k in KEYS:
+        np.testing.assert_allclose(got[-1][2][k], ref[-1][2][k], rtol=0,
+                                   atol=1e-4, err_msg=k)
+    moved = float(np.abs(got[-1][2]["bu"] - arrays["bu"]).max())
+    assert (moved > 1e-3) == use_bias
+    assert got[1][0] < got[0][0]
+
+
+def test_epoch_mode_resumes_bitwise():
+    """A run resumed at epoch 1 from the tables an unbroken run had there
+    repeats that run's epoch 1 bit for bit."""
+    cfg = dataclasses.replace(_cfg("epoch"), epochs=2)
+    train, _ = _split()
+    arrays = _arrays(train, True)
+    runs = [(m, float(tr)) for _, m, tr in train_epochs_blocked(
+        model_from_numpy(arrays, device="cpu"), train, cfg, True, seed=4,
+        device="cpu")]
+    (_, again, tr), = train_epochs_blocked(runs[0][0], train, cfg, True,
+                                           seed=4, device="cpu",
+                                           start_epoch=1)
+    assert float(tr) == runs[1][1]
+    for k in KEYS:
+        assert torch.equal(getattr(again, k), getattr(runs[1][0], k)), k
+
+
+def _small(root, mode):
+    # synthetic-small (256 x 512) holds two strata of 256 x 256: at chi 0.1
+    # one runs densely and one sparsely
+    out = ["data.dataset=synthetic-small", f"data.root={root}",
+           "sgd.ublock=256", "sgd.iblock=256", "sgd.tile=64", "sgd.epochs=2",
+           "sgd.dense_chi=0.1", "sgd.dense_int4=on", "target_rmse=0.0"]
+    # the reference plans 'epoch' on its device planner only
+    return out + {"epoch": ["sgd.bias_mode=epoch", "sgd.plan_device=device"],
+                  "tile": ["sgd.bias_mode=tile"],
+                  "no_bias": ["model.use_bias=false"]}[mode]
+
+
+@pytest.mark.parametrize("mode", ["epoch", "tile", "no_bias"])
+def test_driver_trains_each_mode_on_cpu(tmp_path, mode):
+    from mfx_torch.train.driver import train
+
+    cfg = apply_overrides(preset("ml25m_rank64"), _small(tmp_path, mode))
+    res = train(cfg, device="cpu")
+    assert res.epochs_run == 2
+    assert res.history[1]["train_metric"] < res.history[0]["train_metric"]
+    assert np.isfinite(res.test_rmse) and 0 < res.test_rmse < 2
+    assert (float(res.model.bu.abs().max()) > 0) == (mode != "no_bias")
+
+
+def test_cli_prints_reference_json_in_epoch_mode(capsys, tmp_path):
+    import mfx.cli
+
+    args = ["train", "--preset", "ml25m_rank64"]
+    for ov in _small(tmp_path / "ref", "epoch"):
+        args += ["--set", ov]
+    assert mfx.cli.main(args) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    from mfx_torch.cli import main
+
+    args = ["train", "--preset", "ml25m_rank64", "--device", "cpu"]
+    for ov in _small(tmp_path / "port", "epoch"):
+        args += ["--set", ov]
+    assert main(args) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(out) == set(want) == {"preset", "epochs_run",
+                                     "updates_per_sec", "test_rmse",
+                                     "test_mae"}
+    assert out["preset"] == want["preset"] == "ml25m_rank64"
+    assert out["epochs_run"] == want["epochs_run"] == 2
+    assert abs(out["test_rmse"] - want["test_rmse"]) < 0.05
+
+
+def test_epoch_mode_with_every_stratum_dense():
+    """With every stratum carved densely there is no sparse sweep: the
+    epoch's residual buffer is empty and only the dense groups' batched
+    updates move the biases (the reference's trainer raises IndexError
+    here, ROADMAP Queue 3)."""
+    from mfx_torch.kernels.sgd_sweep import sgd_sweep_epoch
+
+    cfg = dataclasses.replace(_cfg("epoch"), dense_chi=1e-6, epochs=1)
+    train, _ = _split()
+    arrays = _arrays(train, True)
+    timings = {}
+    before = sgd_sweep_epoch.launches
+    (_, m, tr), = train_epochs_blocked(
+        model_from_numpy(arrays, device="cpu"), train, cfg, True, seed=0,
+        device="cpu", timings=timings)
+    assert timings["dense_info"]["dense_frac"] == 1.0
+    assert timings["sweep_tiles"] == [] and sgd_sweep_epoch.launches == before
+    assert np.isfinite(float(tr))
+    assert float(np.abs(m.bu.numpy() - arrays["bu"]).max()) > 1e-3

@@ -696,7 +696,8 @@ def _wavefront_case(kernel, dev):
     takes user blocks of 1,024 (rank 64, as phase 3 of ``chip_smoke.py``
     runs it) over 9,000 users, where the kernel keeps its pools in device
     memory; ``step_u`` keeps them in shared memory."""
-    if kernel in ("sgd", "sgd_r128", "tile", "step_u", "step_u_su1024"):
+    if kernel in ("sgd", "sgd_r128", "tile", "step_u", "step_u_su1024",
+                  "epoch"):
         users = 9000 if kernel == "step_u_su1024" else U
         train, _, model, u, i, r = _state(
             dev, users=users, rank=128 if kernel == "sgd_r128" else RANK)
@@ -717,6 +718,19 @@ def _wavefront_case(kernel, dev):
                     lane_tables(model, su, si, dev), sw.deps)
         model.bu.copy_(torch.randn(users, device=dev) * 0.1)
         model.bi.copy_(torch.randn(I, device=dev) * 0.1)
+        if kernel == "epoch":  # the residuals ride as a fifth "table"
+            from mfx_torch.kernels.sgd_sweep import (sgd_sweep_epoch,
+                                                     sgd_sweep_epoch_plain)
+
+            e = torch.zeros(sw.t1 - sw.t0, T, device=dev)
+            return (lambda tabs, blocks, table=True: sgd_sweep_epoch(
+                        tabs[0], tabs[1][seg], tabs[2], tabs[3][seg],
+                        *args[:3], tabs[4], *args[3:], **kw, blocks=blocks,
+                        deps=sw.deps if table else None),
+                    lambda tabs: sgd_sweep_epoch_plain(
+                        tabs[0], tabs[1][seg], tabs[2], tabs[3][seg],
+                        *args[:3], tabs[4], *args[3:], **kw),
+                    plain_tables(model, su, si, dev) + (e,), sw.deps)
         wrapper, plain = sgd_sweep_tile, sgd_sweep_tile_plain
         if kernel != "tile":
             wrapper, plain = sgd_sweep_step_u, sgd_sweep_step_u_plain
@@ -753,6 +767,20 @@ def _wavefront_case(kernel, dev):
                                                    rfmt=rfmt)
         seg = slice(meta[0] * si, (meta[0] + meta[1]) * si)
         kw = dict(su=su, si=si)
+        bias = next((b for b in ("frozen", "none") if b in kernel), "lane")
+        if bias != "lane":  # the frozen form's sums ride as two "tables"
+            model.bu.copy_(torch.randn(U, device=dev) * 0.1)
+            model.bi.copy_(torch.randn(I, device=dev) * 0.1)
+            nd = grp["sa"].shape[0]
+            plain = _dense_form_run(bias, grp, seg, model.mu, su, si,
+                                    kernel=False)
+            return (lambda tabs, blocks, table=True: _dense_form_run(
+                        bias, grp, seg, model.mu, su, si, blocks,
+                        table)(*tabs),
+                    lambda tabs: plain(*tabs),
+                    plain_tables(model, su, si, dev)
+                    + (torch.zeros(nd, su, device=dev),
+                       torch.zeros(nd, si, device=dev)), grp["deps"])
         return (lambda tabs, blocks, table=True: dense_phase(
                     tabs[0], tabs[1][seg], grp, LR, REG, model.mu, **kw,
                     blocks=blocks, deps=grp["deps"] if table else None),
@@ -781,7 +809,8 @@ def _wavefront_case(kernel, dev):
 
 WAVEFRONT_KERNELS = ["sgd", "sgd_r128", "bpr", "tile", "step_u",
                      "step_u_su1024", "dense", "dense_int8", "dense_int8_r128",
-                     "time", "time_r128"]
+                     "time", "time_r128", "epoch", "dense_frozen",
+                     "dense_none", "dense_frozen_int8_r128"]
 
 
 @pytest.mark.parametrize("kernel", WAVEFRONT_KERNELS)
@@ -869,3 +898,228 @@ def test_minibatch_graph_replay_is_the_eager_loop(cuda, partitioner,
     for k in keys:
         torch.testing.assert_close(getattr(me, k).cpu(), getattr(mc, k),
                                    rtol=0, atol=1e-5)
+
+
+# ---- sgd_sweep_epoch and the frozen / bias-free dense forms --------------
+
+
+def _biased_plain_state(dev, rank, seed, users=U):
+    """``_state``'s data on canonical plain tables with non-zero biases."""
+    train, _, _, u, i, r = _state(dev, users=users)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = init_model(g, users, I, rank, global_mean=train.global_mean,
+                       device=dev)
+    model.bu.copy_(torch.randn(users, device=dev, generator=g) * 0.1)
+    model.bi.copy_(torch.randn(I, device=dev, generator=g) * 0.1)
+    return train, model, u, i, r
+
+
+def _check_outs(run, plain, state, n_tables, moved):
+    """As _check4 over ``state``, whose last entries are outputs (the
+    epoch form's residuals, the frozen form's bias sums): two kernel runs
+    bitwise equal, within 1e-4 of the plain version; ``moved`` says which
+    entries must change."""
+    outs = []
+    for _ in range(2):
+        tabs = [x.clone() for x in state]
+        outs.append((float(run(*tabs)), tabs))
+    (s1, k1), (s2, k2) = outs
+    assert s1 == s2 and all(torch.equal(a, b) for a, b in zip(k1, k2))
+    tabs = [x.clone() for x in state]
+    sp = float(plain(*tabs))
+    for a, b in zip(k1, tabs):
+        assert float((a - b).abs().max()) <= 1e-4
+        assert bool(torch.isfinite(a).all())
+    assert abs(s1 - sp) <= 1e-4 * max(1.0, sp)
+    assert [not torch.equal(a, b) for a, b in zip(k1, state)][:n_tables] \
+        == moved
+    return k1
+
+
+@pytest.mark.parametrize("rank", [32, 64])
+def test_sgd_sweep_epoch_kernel_matches_plain(cuda, rank):
+    from mfx_torch.kernels.sgd_sweep import (sgd_sweep_epoch,
+                                             sgd_sweep_epoch_plain)
+
+    train, model, u, i, r = _biased_plain_state(cuda, rank, rank)
+    skel = pdv.build_plan_skeleton(u, i, U, I, SU, SI, T, TPG, 3)
+    tl = pdv.epoch_tiles_device(skel, u, i, r, 0, 0)
+    P, Q, bu, bi = plain_tables(model, SU, SI, cuda)
+    for sw in skel.sweeps:
+        seg = slice(sw.win0 * SI, (sw.win0 + sw.nwin) * SI)
+        tls = tl[sw.t0:sw.t1]
+        e0 = torch.full((tls.shape[0], T), 7.0, device=cuda)
+        args = (sw.sa, sw.tc, tls)
+        kw = dict(su=SU, si=SI, tpg=TPG)
+        before = sgd_sweep_epoch.launches
+        k = _check_outs(
+            lambda P_, Q_, bu_, bi_, e: sgd_sweep_epoch(
+                P_, Q_[seg], bu_, bi_[seg], *args, e, LR, REG, model.mu,
+                **kw, deps=sw.deps),
+            lambda P_, Q_, bu_, bi_, e: sgd_sweep_epoch_plain(
+                P_, Q_[seg], bu_, bi_[seg], *args, e, LR, REG, model.mu,
+                **kw),
+            (P, Q, bu, bi, e0), 4, [True, True, False, False])
+        assert sgd_sweep_epoch.launches == before + 2
+        pads = tls[:, 0] >= SU
+        assert bool((k[4][pads] == 0).all()) and bool((k[4][~pads] != 7).all())
+
+
+@pytest.mark.parametrize("rank,distinct", [(32, 4), (32, 512), (64, 4),
+                                           (64, 1024)])
+def test_sgd_sweep_epoch_kernel_hot_rows_and_pads(cuda, rank, distinct):
+    """As the tile-bias kernels' case: full tiles at blocks of 1024, long
+    duplicate runs, a half-pad tile and a whole pad tile."""
+    from mfx_torch.kernels.sgd_sweep import (sgd_sweep_epoch,
+                                             sgd_sweep_epoch_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(distinct)
+    su = si = 1024
+    nt, tile = 32, 256
+    state = (torch.randn(2 * su, rank, device=cuda, generator=g) * 0.1,
+             torch.randn(3 * si, rank, device=cuda, generator=g) * 0.1,
+             torch.randn(2 * su, device=cuda, generator=g) * 0.1,
+             torch.randn(3 * si, device=cuda, generator=g) * 0.1,
+             torch.zeros(nt, tile, device=cuda))
+    sa = torch.randint(0, 2, (nt // TPG,), device=cuda, generator=g,
+                       dtype=torch.int32)
+    tc = torch.randint(0, 3, (nt,), device=cuda, generator=g,
+                       dtype=torch.int32)
+    tl = torch.empty(nt, 3, tile, dtype=torch.int32, device=cuda)
+    for row in (0, 1):
+        tl[:, row] = torch.randint(0, distinct, (nt, tile), device=cuda,
+                                   generator=g, dtype=torch.int32)
+    tl[:, 2] = (torch.rand(nt, tile, device=cuda, generator=g) * 4.5
+                + 0.5).view(torch.int32)
+    tl[-1, 0, 56:], tl[-1, 1, 56:] = su, si
+    tl[5, 0], tl[5, 1] = su, si
+    kw = dict(su=su, si=si, tpg=TPG)
+    k = _check_outs(
+        lambda P, Q, bu, bi, e: sgd_sweep_epoch(P, Q, bu, bi, sa, tc, tl, e,
+                                                LR, REG, 3.5, **kw),
+        lambda P, Q, bu, bi, e: sgd_sweep_epoch_plain(
+            P, Q, bu, bi, sa, tc, tl, e, LR, REG, 3.5, **kw),
+        state, 4, [True, True, False, False])
+    assert bool((k[4][5] == 0).all()) and bool((k[4][-1, 56:] == 0).all())
+
+
+@pytest.mark.parametrize("rank", [32, 64])
+def test_sgd_sweep_epoch_kernel_with_zero_biases_is_the_bias_free_one(
+        cuda, rank):
+    """The reference's own identity (tests/unit/test_bias_epoch.py): with
+    every bias 0 the epoch form's tables are the bias-free tile form's, bit
+    for bit, on one block and on the card's count."""
+    from mfx_torch.kernels.sgd_sweep import sgd_sweep_epoch
+
+    train, model, u, i, r = _biased_plain_state(cuda, rank, 5)
+    model.bu.zero_()
+    model.bi.zero_()
+    skel = pdv.build_plan_skeleton(u, i, U, I, SU, SI, T, TPG, 3)
+    tl = pdv.epoch_tiles_device(skel, u, i, r, 0, 0)
+    for blocks in (1, None):
+        a = plain_tables(model, SU, SI, cuda)
+        b = plain_tables(model, SU, SI, cuda)
+        for sw in skel.sweeps:
+            seg = slice(sw.win0 * SI, (sw.win0 + sw.nwin) * SI)
+            args = (sw.sa, sw.tc, tl[sw.t0:sw.t1])
+            kw = dict(su=SU, si=SI, tpg=TPG, deps=sw.deps, blocks=blocks)
+            e = torch.empty(sw.t1 - sw.t0, T, device=cuda)
+            s1 = sgd_sweep_epoch(a[0], a[1][seg], a[2], a[3][seg], *args, e,
+                                 LR, REG, model.mu, **kw)
+            s2 = sgd_sweep_tile(b[0], b[1][seg], b[2], b[3][seg], *args, LR,
+                                REG, model.mu, use_bias=False, **kw)
+            assert float(s1) == float(s2)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+DENSE_FORMS = [("frozen", 64, "int4"), ("none", 64, "int4"),
+               ("frozen", 64, "int8"), ("none", 64, "int8"),
+               ("frozen", 128, "int8"), ("none", 128, "int8")]
+
+
+def _dense_form_run(bias, grp, seg, mu, su, si, blocks=None, table=True,
+                    kernel=True):
+    """``chip_smoke.dense_form_run`` at this file's lr and reg."""
+    from chip_smoke import dense_form_run
+
+    return dense_form_run(bias, grp, seg, LR, REG, mu, su, si, kernel=kernel,
+                          blocks=blocks, table=table)
+
+
+@pytest.mark.parametrize("bias,rank,rfmt", DENSE_FORMS)
+def test_dense_phase_bias_forms_match_plain(cuda, bias, rank, rfmt):
+    train, model, u, i, r = _biased_plain_state(cuda, rank, 2)
+    meta, groups, _, info = prepare_dense_full(u, i, r, U, I, SU, SI,
+                                               chi_min=0.01, nwd=2,
+                                               rfmt=rfmt)
+    assert info["num_strata"] > 0
+    P, Q, bu, bi = plain_tables(model, SU, SI, cuda)
+    for (win0, nw), grp in zip(meta, groups):
+        seg = slice(win0 * SI, (win0 + nw) * SI)
+        nd = grp["sa"].shape[0]
+        state = (P, Q, bu, bi, torch.zeros(nd, SU, device=cuda),
+                 torch.zeros(nd, SI, device=cuda))
+        before = dense_phase.launches
+        k = _check_outs(_dense_form_run(bias, grp, seg, model.mu, SU, SI),
+                        _dense_form_run(bias, grp, seg, model.mu, SU, SI,
+                                        kernel=False),
+                        state, 6, [True, True, False, False,
+                                   bias == "frozen", bias == "frozen"])
+        assert dense_phase.launches == before + 2
+        if bias == "frozen":  # every rating's residual is in both sums
+            torch.testing.assert_close(k[4].sum(), k[5].sum(), rtol=1e-5,
+                                       atol=1e-3)
+
+
+def _bias_mode_cfg(mode, dense):
+    bias_mode = "tile" if mode == "none" else mode
+    return dataclasses.replace(CFG, bias_mode=bias_mode,
+                               dense_chi=0.01 if dense else 0.0)
+
+
+@pytest.mark.parametrize("mode,dense", [("epoch", True), ("epoch", False),
+                                        ("tile", True), ("none", True)])
+def test_bias_mode_trainer_through_the_kernels_is_repeatable(cuda, mode,
+                                                             dense):
+    """Two runs of the trainer in each bias mode bitwise equal, through the
+    kernels of the mode; one epoch on the CPU from the card's plan bits
+    within 1e-5 (train RMSE) and 1e-4 (tables); and an epoch-mode run
+    resumed at epoch 1 repeats the unbroken one bit for bit."""
+    from mfx_torch.kernels.sgd_sweep import sgd_sweep_epoch
+
+    train, model, *_ = _biased_plain_state(cuda, RANK, 0)
+    use_bias = mode != "none"
+    cfg = _bias_mode_cfg(mode, dense)
+    sparse = sgd_sweep_epoch if mode == "epoch" else sgd_sweep_tile
+    runs = []
+    for _ in range(2):
+        s0, d0, l0 = sparse.launches, dense_phase.launches, sgd_sweep.launches
+        runs.append([(float(tr), m) for _, m, tr in train_epochs_blocked(
+            model, train, cfg, use_bias, seed=0, device=cuda)])
+        assert sparse.launches > s0 and sgd_sweep.launches == l0
+        assert (dense_phase.launches > d0) == dense
+    for (ta, ma), (tb, mb) in zip(*runs):
+        assert ta == tb
+        assert all(torch.equal(getattr(ma, k), getattr(mb, k))
+                   for k in ("P", "Q", "bu", "bi"))
+    assert runs[0][1][0] < runs[0][0][0]
+    if mode == "epoch":
+        m1 = runs[0][0][1]
+        (_, again, _), = train_epochs_blocked(m1, train, cfg, use_bias,
+                                              seed=0, device=cuda,
+                                              start_epoch=1)
+        assert all(torch.equal(getattr(again, k), getattr(runs[0][1][1], k))
+                   for k in ("P", "Q", "bu", "bi"))
+    cpu = init_model(torch.Generator().manual_seed(0), U, I, RANK)
+    for k in ("P", "Q", "bu", "bi"):
+        getattr(cpu, k).copy_(getattr(model, k).cpu())
+    cpu.mu = model.mu
+    (_, mc, trc), = train_epochs_blocked(
+        cpu, train, dataclasses.replace(cfg, epochs=1), use_bias, seed=0,
+        device="cpu",
+        plan_rand=lambda e, n: pdv.epoch_rand(n, 0, e, cuda).cpu())
+    assert abs(float(trc) - runs[0][0][0]) <= 1e-5
+    for k in ("P", "Q", "bu", "bi"):
+        np.testing.assert_allclose(getattr(mc, k).numpy(),
+                                   getattr(runs[0][0][1], k).cpu().numpy(),
+                                   atol=1e-4, err_msg=k)

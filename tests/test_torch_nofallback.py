@@ -217,6 +217,42 @@ def test_wrappers_reject_devices_without_a_kernel(wrapper):
             dense_phase(P, P, grp, 0.01, 0.04, 3.5, su=256, si=256)
 
 
+@pytest.mark.parametrize("form", ["sgd_sweep_epoch", "dense_frozen",
+                                  "dense_none"])
+@pytest.mark.parametrize("device", ["cuda", "meta"])
+def test_bias_forms_have_no_fallback(form, device):
+    """The epoch form of the tile sweep and the frozen and bias-free forms
+    of the dense phase launch their kernel or raise: on a missing card
+    (RuntimeError / AssertionError) and on a device with no kernel
+    (ValueError); neither runs the plain version."""
+    from mfx_torch.kernels.sgd_sweep import sgd_sweep_epoch
+
+    if device == "cuda" and torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; tests/test_torch_gpu.py runs")
+    dev = torch.device(device)
+    i32 = dict(dtype=torch.int32, device=dev)
+    want = (ValueError,) if device == "meta" else (RuntimeError,
+                                                   AssertionError)
+    with pytest.raises(want):  # without a card, already at the inputs
+        P = torch.zeros(256, 64, device=dev)
+        b = torch.zeros(256, device=dev)
+        if form == "sgd_sweep_epoch":
+            sgd_sweep_epoch(P, P, b, b, torch.zeros(1, **i32),
+                            torch.zeros(4, **i32),
+                            torch.zeros(4, 3, 64, **i32),
+                            torch.zeros(4, 64, device=dev), 0.01, 0.04, 3.5,
+                            su=256, si=256, tpg=4)
+        else:
+            grp = {"sa": torch.zeros(1, **i32), "sc": torch.zeros(1, **i32),
+                   "R": torch.zeros(1, 256, 128, dtype=torch.uint8,
+                                    device=dev),
+                   "du_s": torch.zeros(1, 256, device=dev),
+                   "di_s": torch.zeros(1, 256, device=dev)}
+            extra = (dict(bias="frozen", bu=b, bi=b) if form == "dense_frozen"
+                     else dict(bias="none"))
+            dense_phase(P, P, grp, 0.01, 0.04, 3.5, su=256, si=256, **extra)
+
+
 def test_bpr_profile_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

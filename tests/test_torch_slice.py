@@ -146,7 +146,14 @@ def test_netflix_cut_follows_the_reference_trainer():
     ("plan_device=host", "plan_device"),
 ])
 def test_unported_variants_raise(override, what):
+    """Each variant raises, naming its field; except ``bias_mode=tile``
+    (tile biases with the dense phase on), which raised until the
+    frozen-bias dense form was ported: it now trains (its parity with the
+    reference: tests/test_torch_bias_modes.py), and what still raises
+    beside it is the card's form check at rank 32 (Queue 2 item 3)."""
     import dataclasses
+
+    from mfx_torch.kernels.dense_phase import check_kernel_form
 
     key, val = override.split("=")
     cfg = dataclasses.replace(
@@ -156,6 +163,17 @@ def test_unported_variants_raise(override, what):
         "P": np.zeros((U, RANK), np.float32), "Q": np.zeros((I, RANK), np.float32),
         "bu": np.zeros(U, np.float32), "bi": np.zeros(I, np.float32), "mu": 3.5,
     }, device="cpu")
+    if override == "bias_mode=tile":
+        timings = {}
+        (_, m, tr), = train_epochs_blocked(
+            model, train, dataclasses.replace(cfg, epochs=1), True,
+            device="cpu", timings=timings)
+        assert timings["dense_info"]["num_strata"] == 5
+        assert np.isfinite(float(tr)) and float(m.bu.abs().max()) > 0
+        grp = {"R": torch.zeros((1, 256, 128), dtype=torch.uint8)}
+        with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
+            check_kernel_form(torch.zeros(256, 32), grp, 256, 256)
+        return
     with pytest.raises(NotImplementedError, match=what):
         next(train_epochs_blocked(model, train, cfg, True, device="cpu"))
 

@@ -132,12 +132,38 @@ def test_sweep_geometry_takes_the_step_u_budget_cut(items, rank, su, si, tile):
     (["sgd.kernel=blocked_jnp"], "kernel"),
 ])
 def test_unported_variants_raise(overrides, what):
+    """Each variant raises, naming its field; except the first three
+    (tile biases with the dense phase on, per tile and with
+    ``step_user_batch``, and ``bias_mode='epoch'``), which raised until
+    the frozen-bias dense form and the epoch form were ported: they now
+    train on the CPU (rank 32 through the plain versions; their parity
+    with the reference: tests/test_torch_bias_modes.py), and what still
+    raises beside them is the card's dense form check at rank 32 (Queue 2
+    item 3) and, for 'epoch', the reference's own refusal of
+    ``step_user_batch``."""
+    from mfx_torch.kernels.dense_phase import check_kernel_form
+
     cfg = apply_overrides(preset("ml1m_rank32_biased"), CUT + overrides)
     train, _ = _split()
     model = model_from_numpy({
         "P": np.zeros((U, 32), np.float32), "Q": np.zeros((I, 32), np.float32),
         "bu": np.zeros(U, np.float32), "bi": np.zeros(I, np.float32),
         "mu": 3.5}, device="cpu")
+    if what in ("bias_mode.*dense", "bias_mode='epoch'"):
+        timings = {}
+        (_, m, tr), = train_epochs_blocked(
+            model, train, dataclasses.replace(cfg.sgd, epochs=1), True,
+            device="cpu", timings=timings)
+        assert np.isfinite(float(tr)) and float(m.bu.abs().max()) > 0
+        assert ("dense_info" in timings) == (what != "bias_mode='epoch'")
+        if what == "bias_mode='epoch'":
+            with pytest.raises(ValueError, match="step_user_batch"):
+                apply_overrides(cfg, ["sgd.step_user_batch=true"])
+        else:
+            grp = {"R": torch.zeros((1, 128, 64), dtype=torch.uint8)}
+            with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
+                check_kernel_form(torch.zeros(128, 32), grp, 128, 128)
+        return
     with pytest.raises(NotImplementedError, match=what):
         next(train_epochs_blocked(model, train, cfg.sgd, True, device="cpu"))
 

@@ -141,8 +141,9 @@ printed as it ends:
    whole first sweep twice on one block and twice on the card's count
    (tables, residuals and SSE bitwise equal); then the frozen-bias and
    bias-free forms of dense_phase.cu (int4, rank 64) on the first 64
-   strata of group 0 (tables and the frozen form's row and column sums of
-   E within 1e-4, bitwise across runs), 256 strata on one block and on the
+   strata of group 0 (tables within 1e-4, the frozen form's row and
+   column sums of E within sqrt(terms) ulps of the largest and 1e-4,
+   bitwise across runs), 256 strata on one block and on the
    card's count (bitwise; then ten more timed runs on the card's count,
    and one whose launch order the wrapper works out inside the timed
    call), group 0 and the epoch's dense phase on the
@@ -163,7 +164,45 @@ printed as it ends:
    sparse and batched-bias time, and the peak memory; a second run of (a)
    for 1 epoch repeats the first's state after epoch 1 bit for bit; then
    python -m mfx_torch.cli train --preset ml25m_rank64 --set
-   sgd.bias_mode=epoch --set sgd.epochs=1 prints the reference's JSON.
+   sgd.bias_mode=epoch --set sgd.epochs=1 prints the reference's JSON;
+19. the rank-32 forms against their plain versions. On ml1m_rank32_biased
+   and the full ML-1M-shaped synthetic, as phase 20's runs plan and carve
+   it (su = si = 512, T = 256): sgd_sweep (lane) on the first 2,048 tiles
+   of the first sweep of run (a)'s plan (no dense phase), within 1e-5,
+   its time beside the rank-64 lane form's on the same tiles, and the
+   whole sweep twice on one block and twice on the card's count
+   (bitwise); dense_phase in the lane, frozen-bias and bias-free forms
+   with int4 codes on all of group 0 of the carving of runs (b)-(d)
+   (within 1e-5; the frozen form's row and column sums of E as phase
+   17's), the same strata on one
+   block and on the card's count (bitwise), group 0 and the epoch's dense
+   phase; the lane and frozen forms with int8 codes on the same strata
+   (within 1e-4). The same checks on phase 4's data at the ml25m_rank64
+   preset's shapes (su = si = 1024; 64 strata against plain, 256 on one
+   block and the card's count), which no preset runs at rank 32, run
+   after phase 18. After phase 15, the time form at rank 32 on the first
+   2,048 tiles of phase 15's data at the blocked timeSVD trainer's shapes
+   (su = si = 512, T = 256) with 16 bins and with 28 (the most rank 32
+   holds), within 1e-5, and with 16 the whole first sweep on one block
+   and the card's count;
+20. ml1m_rank32_biased on the full ML-1M-shaped synthetic, its 30 epochs
+   through train_epochs_blocked in four runs: (a) sgd.bias_mode=lane (the
+   lane sweep at rank 32, no dense phase), (b) sgd.dense_span=full
+   sgd.dense_chi=-1 (every stratum dense: the frozen dense form), (c) (b)
+   with sgd.bias_mode=lane (the lane dense form), (d) (b) with
+   model.use_bias=false (the bias-free form). Each launches its rank-32
+   form and no other kernel, the train RMSE falls, the held-out RMSE
+   (unclipped) ends below the untrained model's and, for (a), <= 0.530,
+   for (b)-(d) within RANK32_RUNS' range (the JAX trainer's full-size CPU
+   run, tools/bias_mode_check.py, within 0.003); each run's epoch seconds,
+   split into dense, sparse and batched-bias time, and peak memory. Then
+   (e) solver=timesvd timesvd.kernel=pallas model.rank=32
+   timesvd.n_bins=16 through mfx_torch.train.driver on phase 16's temporal
+   ML-1M synthetic: the time form at rank 32 launched, the train RMSE
+   falls every epoch, the time-aware held-out RMSE ends below the
+   untrained model's, a 2-epoch repeat is bitwise; then python -m
+   mfx_torch.cli train on run (c) for 2 epochs prints the reference's
+   JSON.
 
 Each phase prints its wall time. The second-to-last line is a JSON object
 describing each kernel (times, launches on the main path, and the bound:
@@ -179,7 +218,12 @@ phase 12; sgd_sweep_time's launches are phase 16's, and its rank-128 form,
 which no path runs, is its entry's "r128"; sgd_sweep_epoch and
 dense_phase_frozen (the frozen form at int4 and rank 64) take their
 launches from phase 18's mode (a), and dense_phase_frozen's "variants"
-hold the bias-free form and the frozen int8 instances; the last is
+hold the bias-free form and the frozen int8 instances; the rank-32 forms
+(sgd_sweep_r32, sgd_sweep_time_r32, dense_phase_r32 (lane, int4; its
+"variants" the int8 instances), dense_phase_frozen_r32,
+dense_phase_none_r32) take their launches from phase 20's runs (a), (e),
+(c), (b) and (d), and hold phase 19's checks at the ml25m_rank64 cell's
+shapes as their "ml25m_cell"; the last is
 {"ok": true, "device": {...}}. Any failure
 exits non-zero with no such line, and so does a machine without a CUDA
 device.
@@ -189,6 +233,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -296,9 +341,29 @@ def time_slot_ops(rank, n_bins):
     return 2 * (L + 4) + 4 * (L + 2) + 4 * (L + n_bins + 1)
 
 
-def compare(name, run_kernel, run_plain, state):
-    """Kernel twice from the same state (bitwise equal), plain once;
-    returns (max_abs_err, kernel ms, plain ms)."""
+def ulps(t) -> float:
+    """The spacing of float32 values at the largest magnitude in ``t``."""
+    import torch
+
+    m = t.abs().max().float()
+    return float(torch.nextafter(m, torch.full_like(m, float("inf"))) - m)
+
+
+def sums_limit(plain, terms) -> float:
+    """How far a kernel's sums of ``terms`` terms each, added in another
+    order, may lie from ``plain``'s: sqrt(terms) ulps of the largest (the
+    spread of a reordered sum's rounding), at most TOL."""
+    return min(TOL, math.sqrt(terms) * ulps(plain))
+
+
+def compare(name, run_kernel, run_plain, state, tol=TOL, sums=()):
+    """Kernel twice from the same state (bitwise equal), plain once, within
+    ``tol`` of it. The last len(``sums``) entries of ``state`` are sums of
+    ``sums[k]`` terms each (the frozen dense form's row and column sums of
+    E, added in another order than plain's): each within sqrt(terms) ulps
+    of its largest magnitude (the spread of a reordered sum's rounding)
+    and within TOL. Returns (max_abs_err over every entry, kernel ms,
+    plain ms)."""
     import torch
 
     outs = []
@@ -313,19 +378,29 @@ def compare(name, run_kernel, run_plain, state):
     tabs = [t.clone() for t in state]
     sse_p = float(run_plain(*tabs))
     torch.cuda.synchronize()
-    err = max(float((a - b).abs().max()) for a, b in zip(k1, tabs))
+    errs = [float((a - b).abs().max()) for a, b in zip(k1, tabs)]
+    n = len(errs) - len(sums)
+    spacing = [ulps(b) for b in tabs[n:]]
+    limits = [sums_limit(b, t) for b, t in zip(tabs[n:], sums)]
     if not all(bool(torch.isfinite(t).all()) for t in k1):
         raise AssertionError(f"{name}: non-finite tables")
-    if err > TOL or abs(s1 - sse_p) > TOL * max(1.0, abs(sse_p)):
+    if (max(errs[:n]) > tol or any(e > x for e, x in zip(errs[n:], limits))
+            or abs(s1 - sse_p) > tol * max(1.0, abs(sse_p))):
         raise AssertionError(
-            f"{name}: max abs err {err} (sse {s1} vs {sse_p}) above {TOL}")
+            f"{name}: max abs err {errs} (sse {s1} vs {sse_p}) above {tol} "
+            f"(the last {len(sums)} above {limits})")
     tabs = [t.clone() for t in state]
     ms = cuda_ms(lambda: run_kernel(*tabs), reps=3)
     tabs = [t.clone() for t in state]
     plain_ms = cuda_ms(lambda: run_plain(*tabs))
-    log(f"[kernel] {name}: max_abs_err={err:.3e} (tol {TOL}) sse={s1} "
+    held = f"tol {tol}"
+    if sums:
+        held = f"tables {max(errs[:n]):.3e} ({held}), sums " + ", ".join(
+            f"{e:.3e} = {e / x:g} ulps of {x:.3e} (limit {lim:.3e})"
+            for e, x, lim in zip(errs[n:], spacing, limits))
+    log(f"[kernel] {name}: max_abs_err={max(errs):.3e} ({held}) sse={s1} "
         f"plain_sse={sse_p} ms={ms:.4f} plain_ms={plain_ms:.4f}")
-    return err, ms, plain_ms
+    return max(errs), ms, plain_ms
 
 
 def whole_sweep(name, run, state, deps, max_blocks, grid=None,
@@ -1339,11 +1414,13 @@ def dense_form_run(bias, grp, seg, lr, reg, mu, su, si, kernel=True,
 
 
 def dense_form_check(name, bias, groups, meta, state, lr, reg, mu, su, si,
-                     rank, rfmt):
-    """A dense form against its plain version on the first DENSE_STRATA
-    strata of group 0, then DENSE_WHOLE strata twice on one block and
-    twice on the card's count, bitwise. ``state`` is (P, Q, bu, bi).
-    Returns (max_abs_err, ms, plain_ms, whole-run dict, bound)."""
+                     rank, rfmt, tol=TOL, strata=DENSE_STRATA,
+                     whole=DENSE_WHOLE):
+    """A dense form against its plain version on the first ``strata``
+    strata of group 0 (within ``tol``), then the first ``whole`` twice on
+    one block and twice on the card's count, bitwise. ``state`` is (P, Q,
+    bu, bi). Returns (max_abs_err, ms, plain_ms, whole-run dict,
+    bound)."""
     import torch
 
     from mfx_torch.kernels import _build
@@ -1353,7 +1430,7 @@ def dense_form_check(name, bias, groups, meta, state, lr, reg, mu, su, si,
     win0, nw = meta[0]
     seg = slice(win0 * si, (win0 + nw) * si)
     dev = state[0].device
-    grp = group_prefix(groups[0], DENSE_STRATA)
+    grp = group_prefix(groups[0], strata)
 
     def outs(g):
         n = g["sa"].shape[0]
@@ -1364,7 +1441,8 @@ def dense_form_check(name, bias, groups, meta, state, lr, reg, mu, su, si,
     err, ms, plain_ms = compare(
         name, dense_form_run(bias, grp, seg, lr, reg, mu, su, si),
         dense_form_run(bias, grp, seg, lr, reg, mu, su, si, kernel=False),
-        tuple(state) + outs(grp))
+        tuple(state) + outs(grp), tol,
+        sums=(si, su) if bias == "frozen" else ())
     card = _build.load_library().mfx_dense_phase_max_blocks(
         rank, int(rfmt == "int8"), BIAS_FORMS.index(bias))
 
@@ -1384,10 +1462,10 @@ def dense_form_check(name, bias, groups, meta, state, lr, reg, mu, su, si,
 
     # a run whose launch order is not yet worked out: the wrapper then
     # list-schedules the strata on the host between the two events
-    cold = on_card(group_prefix(groups[0], DENSE_WHOLE))
-    head = group_prefix(groups[0], DENSE_WHOLE)
+    cold = on_card(group_prefix(groups[0], whole))
+    head = group_prefix(groups[0], whole)
     plan_launch(head, su, si, rank, bias)  # the launch order, untimed
-    whole = whole_sweep(
+    runs = whole_sweep(
         name, lambda *t: dense_form_run(bias, head, seg, lr, reg, mu, su,
                                          si, blocks=t[-1])(*t[:-1]),
         tuple(state) + outs(head), head["deps"], card, grid=card,
@@ -1396,9 +1474,250 @@ def dense_form_check(name, bias, groups, meta, state, lr, reg, mu, su, si,
     log(f"[kernel] {name} whole: {DENSE_REPEATS} more runs on {card} blocks "
         f"(ms): {' '.join(f'{x:.4f}' for x in reps)}; with the launch order "
         f"worked out inside the timed call {cold:.4f} ms")
-    whole.update({"sweep_ms_repeats": reps, "sweep_ms_order_unplanned": cold})
-    return err, ms, plain_ms, whole, dense_bound([grp], su, si, rank,
+    runs.update({"sweep_ms_repeats": reps, "sweep_ms_order_unplanned": cold})
+    return err, ms, plain_ms, runs, dense_bound([grp], su, si, rank,
                                                  frozen=bias == "frozen")
+
+
+def dense_group_times(name, bias, groups, meta, state, lr, reg, mu, su, si,
+                      rank):
+    """Group 0 and the epoch's dense phase (every group in turn) in the
+    given bias form on the card's count, from ``state`` = (P, Q, bu, bi),
+    kernels only, and for the frozen form then the groups' batched bias
+    updates: their times (mean of 3, tables copied in) and bounds."""
+    from mfx_torch.kernels.dense_phase import dense_bias_update, dense_phase
+
+    out = {}
+    for key, grps in (("group0", list(zip(meta, groups))[:1]),
+                      ("epoch_dense", list(zip(meta, groups)))):
+        def run_groups(grps=grps):
+            tabs = [x.clone() for x in state]
+            outs = []
+            for (w0, n), g in grps:
+                sg = slice(w0 * si, (w0 + n) * si)
+                extra = (dict(bu=tabs[2], bi=tabs[3][sg])
+                         if bias == "frozen" else {})
+                outs.append(dense_phase(
+                    tabs[0], tabs[1][sg], g, lr, reg, mu, su=su, si=si,
+                    bias=bias, deps=g["deps"], **extra))
+            return tabs, outs
+
+        run_groups()  # warm-up
+        gms = cuda_ms(run_groups, reps=3)
+        gb = dense_bound([g for _, g in grps], su, si, rank,
+                         frozen=bias == "frozen")
+        out.update({f"{key}_ms": gms, f"{key}_bound_ms": gb[0]})
+        msg = ""
+        if bias == "frozen" and key == "epoch_dense":
+            tabs, outs = run_groups()
+
+            def updates(tabs=tabs, outs=outs, grps=grps):
+                for ((w0, n), g), (_, (dbu, dbi)) in zip(grps, outs):
+                    dense_bias_update(tabs[2], tabs[3][w0 * si:(w0 + n) * si],
+                                      g, dbu, dbi, lr, reg, su=su, si=si)
+            out["epoch_bias_update_ms"] = cuda_ms(updates)
+            msg = (f"; the groups' batched bias updates "
+                   f"{out['epoch_bias_update_ms']:.4f} ms")
+        log(f"[bias] {name}, {key}: {len(grps)} group(s), "
+            f"{sum(g['deps'].n_tiles for _, g in grps)} strata: "
+            f"{gms:.4f} ms (mean of 3, tables copied in); bound "
+            f"{gb[0]:.4f} ms ({gb[1]}){msg}")
+    return out
+
+
+TRAIN_KERNELS = ("sgd_sweep", "sgd_sweep_tile", "sgd_sweep_step_u",
+                 "sgd_sweep_epoch", "sgd_sweep_time")
+
+
+def kernel_counts(reset=False):
+    """The training kernels' launch counts, dense_phase's by bias form
+    ('dense_phase:<form>'); with ``reset`` they are set to 0 first."""
+    from mfx_torch.kernels import sgd_sweep as sweeps
+    from mfx_torch.kernels.dense_phase import BIAS_FORMS, dense_phase
+
+    if reset:
+        for k in TRAIN_KERNELS:
+            getattr(sweeps, k).launches = 0
+        dense_phase.launches = 0
+        dense_phase.form_launches = dict.fromkeys(BIAS_FORMS, 0)
+    return {**{k: getattr(sweeps, k).launches for k in TRAIN_KERNELS},
+            **{f"dense_phase:{f}": n
+               for f, n in dense_phase.form_launches.items()}}
+
+
+def expect_kernels(what, counts, want):
+    """Every kernel of ``want`` launched, and no other."""
+    if any(counts[k] < 1 for k in want) or any(
+            n for k, n in counts.items() if k not in want):
+        raise AssertionError(f"{what}: not the expected kernels "
+                             f"{sorted(want)}: {counts}")
+
+
+def train_runs(dev, cfg, train, test, fresh_model, runs, tag):
+    """Each run of ``runs`` ({key: (overrides of ``cfg``, the kernels it
+    launches and no other, (lo, hi) that its last held-out RMSE lies in,
+    or None)}) through train_epochs_blocked from ``fresh_model()``: the
+    train RMSE falls, the held-out RMSE (unclipped) ends below the
+    untrained model's, the tables are finite. Logs each epoch's seconds
+    (plan and the first epoch's prep left out), the split of the median
+    one after the first into dense, sparse and batched-bias time, the
+    peak memory and the RMSEs. Returns (untrained RMSE, {key: (launch
+    counts, the model after the first epoch)})."""
+    import torch
+
+    from mfx_torch.config import apply_overrides
+    from mfx_torch.eval.metrics import rmse_mae
+    from mfx_torch.solvers import blocked
+
+    base = rmse_mae(fresh_model(), test)[0]
+    out = {}
+    for key, (ov, want, window) in runs.items():
+        run_cfg = apply_overrides(cfg, ov)
+        kernel_counts(reset=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        timings: dict = {}
+        trains, tests, epoch_ss, parts, first = [], [], [], [], None
+        seen = dict.fromkeys(("plan_s", "dense_s", "sparse_s", "bias_s"), 0.0)
+        torch.cuda.synchronize()
+        t_prev = time.perf_counter()
+        for epoch, m, tr in blocked.train_epochs_blocked(
+                fresh_model(), train, run_cfg.sgd, run_cfg.model.use_bias,
+                seed=run_cfg.data.seed, device=dev, timings=timings):
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_prev
+            part = {k: timings[k] - seen[k] for k in seen}
+            seen = {k: timings[k] for k in seen}
+            epoch_ss.append(wall - part["plan_s"]
+                            - (timings["prep_s"] if epoch == 0 else 0.0))
+            parts.append(part)
+            trains.append(float(tr))
+            tests.append(rmse_mae(m, test)[0])
+            first = m if first is None else first
+            t_prev = time.perf_counter()
+        counts = kernel_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        mid = sorted(range(1, len(epoch_ss)), key=epoch_ss.__getitem__)[
+            (len(epoch_ss) - 1) // 2]
+        info = timings.get("dense_info", {})
+        log(f"[{tag}] ({key}) {' '.join(ov)}: prep {timings['prep_s']:.4f} "
+            f"s; dense_frac {info.get('dense_frac', 0.0):.4f} "
+            f"({info.get('num_strata', 0)} strata); epoch_s "
+            + " ".join(f"{x:.4f}" for x in epoch_ss)
+            + f" (sum {sum(epoch_ss):.4f}; the median after the first, epoch "
+            f"{mid}: " + " ".join(f"{k} {parts[mid][k]:.4f}" for k in seen)
+            + f"); peak memory allocated {peak} bytes")
+        log(f"[{tag}] ({key}) train_rmse "
+            + " ".join(f"{x:.5f}" for x in trains))
+        log(f"[{tag}] ({key}) held-out rmse "
+            + " ".join(f"{x:.5f}" for x in tests)
+            + f" (untrained {base:.5f}); launches {counts}")
+        expect_kernels(f"({key})", counts, want)
+        if len(trains) != run_cfg.sgd.epochs or not trains[-1] < trains[0]:
+            raise AssertionError(f"({key}): the train RMSE did not fall: "
+                                 f"{trains}")
+        lo, hi = window or (-float("inf"), float("inf"))
+        if not (tests[-1] < base and lo <= tests[-1] <= hi):
+            raise AssertionError(
+                f"({key}): held-out RMSE {tests[-1]} not below the untrained "
+                f"{base} or outside [{lo}, {hi}]")
+        finite = all(bool(torch.isfinite(getattr(m, k)).all())
+                     for k in ("P", "Q", "bu", "bi"))
+        if not finite or m.P.shape != (train.num_users, run_cfg.model.rank):
+            raise AssertionError(f"({key}): tables not finite or mis-shaped")
+        out[key] = (counts, first)
+    return base, out
+
+
+def cli_train(preset_name, overrides, epochs):
+    """python -m mfx_torch.cli train --preset ``preset_name`` with
+    ``overrides`` for ``epochs`` epochs: its last line must be the
+    reference's JSON, with that many epochs run."""
+    t0 = time.perf_counter()
+    args = [sys.executable, "-m", "mfx_torch.cli", "train", "--preset",
+            preset_name]
+    for o in overrides + [f"sgd.epochs={epochs}"]:
+        args += ["--set", o]
+    res = subprocess.run(args, capture_output=True, text=True, timeout=600)
+    lines = res.stdout.strip().splitlines()
+    out = json.loads(lines[-1]) if res.returncode == 0 and lines else {}
+    if set(out) != {"preset", "epochs_run", "updates_per_sec", "test_rmse",
+                    "test_mae"} or out["epochs_run"] != epochs:
+        raise AssertionError(f"CLI {' '.join(args[2:])} failed:\n"
+                             f"{res.stdout[-1000:]}{res.stderr[-2000:]}")
+    log(f"[cli] {' '.join(args[2:])}: {lines[-1]} "
+        f"({time.perf_counter() - t0:.1f} s, process and data included)")
+
+
+def timesvd_driver_run(dev, cfg, again, tcoo, tag):
+    """Blocked timeSVD through mfx_torch.train.driver with ``cfg`` (which
+    loads ``tcoo`` from its data root and keeps a checkpoint every 2
+    epochs): sgd_sweep_time launches and no other kernel, the train RMSE
+    falls every epoch, the time-aware held-out RMSE (clipped, as the
+    driver's) ends below the untrained model's; then ``again`` (the same
+    run for 2 epochs) repeats the checkpoint after 2 epochs bit for bit.
+    Returns (the driver's result, the untrained RMSE, the driver's initial
+    model as a function, train split, test split, launches)."""
+    import torch
+
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.models.mf import init_model
+    from mfx_torch.models.timesvd import fit_time_features, init_timesvd
+    from mfx_torch.solvers.timesvd import rmse_mae_time
+    from mfx_torch.train.checkpoint import load_checkpoint
+    from mfx_torch.train.driver import train as drive
+
+    tc = cfg.timesvd
+    train, test = train_test_split(tcoo, cfg.data.test_frac,
+                                   seed=cfg.data.seed)
+    U, I, rank = tcoo.num_users, tcoo.num_items, cfg.model.rank
+
+    def fresh_model():  # the driver's initial model
+        g = torch.Generator(device=dev)
+        g.manual_seed(cfg.model.seed)
+        return init_model(g, U, I, rank, global_mean=train.global_mean,
+                          init_scale=cfg.model.init_scale)
+
+    feats = fit_time_features(train, n_bins=tc.n_bins, beta=tc.beta)
+    base, _ = rmse_mae_time(
+        init_timesvd(None, U, I, rank, tc.n_bins, base=fresh_model()), feats,
+        test, clip=(0.5, 5.0))
+    kernel_counts(reset=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = drive(cfg, device=dev, resume=False)
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    trains = [x["train_metric"] for x in res.history]
+    epoch_s = [x["epoch_s"] for x in res.history]
+    log(f"[{tag}] driver: solver='timesvd' kernel='pallas', rank {rank}, "
+        f"{tc.n_bins} bins, lr {tc.lr} decay {tc.lr_decay} reg {tc.reg} = "
+        f"reg_alpha: {res.epochs_run} epochs in {wall:.1f} s (load, split, "
+        f"features, plan and evals included); epoch_s first {epoch_s[0]} "
+        f"median of the others {sorted(epoch_s[1:])[len(epoch_s[1:]) // 2]} "
+        f"(the driver's, without the eval); launches {counts}; peak memory "
+        f"allocated {torch.cuda.max_memory_allocated(dev)} bytes")
+    log(f"[{tag}] train_rmse " + " ".join(f"{x:.5f}" for x in trains))
+    log(f"[{tag}] held-out time-aware rmse " + " ".join(
+        f"{x['test_rmse']:.5f}" for x in res.history)
+        + f" (untrained {base:.5f}, clipped as the driver's)")
+    expect_kernels(tag, counts, {"sgd_sweep_time"})
+    if len(trains) != tc.epochs or any(b >= a for a, b in
+                                       zip(trains, trains[1:])):
+        raise AssertionError(f"{tag}: the train RMSE did not fall every "
+                             f"epoch: {trains}")
+    if not res.test_rmse < base:
+        raise AssertionError(f"{tag}: held-out {res.test_rmse} not below the "
+                             f"untrained {base}")
+    after2, step, _ = load_checkpoint(cfg.checkpoint_dir, step=1, device=dev)
+    rerun = drive(again, device=dev, resume=False)
+    if step != 1 or not all(torch.equal(getattr(rerun.model, k),
+                                        getattr(after2, k))
+                            for k in ("P", "Q", "bu", "bi")):
+        raise AssertionError(f"{tag}: a second run of 2 epochs differs from "
+                             "the first run's state after 2 epochs")
+    log(f"[{tag}] a second run of 2 epochs repeats the first run's state "
+        "after 2 epochs (its checkpoint) bit for bit")
+    return res, base, fresh_model, train, test, counts["sgd_sweep_time"]
 
 
 def bias_form_phases(dev, cfg, train, test, fresh_model, trained, lane_rmse,
@@ -1414,13 +1733,10 @@ def bias_form_phases(dev, cfg, train, test, fresh_model, trained, lane_rmse,
     import torch
 
     from mfx_torch.config import apply_overrides
-    from mfx_torch.eval.metrics import rmse_mae
     from mfx_torch.kernels import _build
     from mfx_torch.kernels import plan_device as pdv
-    from mfx_torch.kernels.dense_phase import (BIAS_FORMS, dense_bias_update,
-                                               dense_phase)
     from mfx_torch.kernels.packing import plain_tables
-    from mfx_torch.kernels.sgd_sweep import (sgd_sweep, sgd_sweep_epoch,
+    from mfx_torch.kernels.sgd_sweep import (sgd_sweep_epoch,
                                              sgd_sweep_epoch_plain,
                                              sgd_sweep_tile)
     from mfx_torch.models.mf import init_model
@@ -1502,43 +1818,8 @@ def bias_form_phases(dev, cfg, train, test, fresh_model, trained, lane_rmse,
         name = "dense_phase_frozen" if bias == "frozen" else "dense_phase_none"
         err, ms, plain_ms, whole, b = dense_form_check(
             name, bias, groups, meta, state, lr, reg, mu, su, si, rank, rfmt)
-        # group 0 and the epoch's dense phase on the card's count, kernels
-        # only (and the frozen form's batched bias updates after them)
-        for key, grps in (("group0", list(zip(meta, groups))[:1]),
-                          ("epoch_dense", list(zip(meta, groups)))):
-            def run_groups(grps=grps, bias=bias):
-                tabs = [x.clone() for x in state]
-                outs = []
-                for (w0, n), g in grps:
-                    sg = slice(w0 * si, (w0 + n) * si)
-                    extra = (dict(bu=tabs[2], bi=tabs[3][sg])
-                             if bias == "frozen" else {})
-                    outs.append(dense_phase(
-                        tabs[0], tabs[1][sg], g, lr, reg, mu, su=su, si=si,
-                        bias=bias, deps=g["deps"], **extra))
-                return tabs, outs
-
-            run_groups()  # warm-up
-            gms = cuda_ms(run_groups, reps=3)
-            gb = dense_bound([g for _, g in grps], su, si, rank,
-                             frozen=bias == "frozen")
-            whole.update({f"{key}_ms": gms, f"{key}_bound_ms": gb[0]})
-            msg = ""
-            if bias == "frozen" and key == "epoch_dense":
-                tabs, outs = run_groups()
-
-                def updates(tabs=tabs, outs=outs):
-                    for ((w0, n), g), (_, (dbu, dbi)) in zip(grps, outs):
-                        dense_bias_update(tabs[2], tabs[3][w0 * si:(w0 + n)
-                                                           * si], g, dbu,
-                                          dbi, lr, reg, su=su, si=si)
-                whole["epoch_bias_update_ms"] = cuda_ms(updates)
-                msg = (f"; the groups' batched bias updates "
-                       f"{whole['epoch_bias_update_ms']:.4f} ms")
-            log(f"[bias] {name}, {key}: {len(grps)} group(s), "
-                f"{sum(g['deps'].n_tiles for _, g in grps)} strata: "
-                f"{gms:.4f} ms (mean of 3, tables copied in); bound "
-                f"{gb[0]:.4f} ms ({gb[1]}){msg}")
+        whole.update(dense_group_times(name, bias, groups, meta, state, lr,
+                                       reg, mu, su, si, rank))
         if bias == "frozen":
             results[name], bounds[name] = (err, ms, plain_ms), b
             sweeps[name] = whole
@@ -1580,75 +1861,17 @@ def bias_form_phases(dev, cfg, train, test, fresh_model, trained, lane_rmse,
 
     # 18. the three modes at full width, through the trainer
     t_phase = time.perf_counter()
-    base_rmse = rmse_mae(fresh_model(), test)[0]
-    modes = {"a": (["sgd.bias_mode=epoch"], sgd_sweep_epoch),
-             "b": (["sgd.bias_mode=tile"], sgd_sweep_tile),
-             "c": (["model.use_bias=false"], sgd_sweep_tile)}
-    launches, after1 = {}, None
-    for tag, (ov, sparse) in modes.items():
-        run_cfg = apply_overrides(cfg, ov + ["sgd.epochs=2"])
-        form = "frozen" if run_cfg.model.use_bias else "none"
-        for k in (sgd_sweep, sgd_sweep_tile, sgd_sweep_epoch, dense_phase):
-            k.launches = 0
-        dense_phase.form_launches = dict.fromkeys(BIAS_FORMS, 0)
-        torch.cuda.reset_peak_memory_stats(dev)
-        timings: dict = {}
-        trains, tests, seen = [], [], dict.fromkeys(
-            ("plan_s", "dense_s", "sparse_s", "bias_s"), 0.0)
-        torch.cuda.synchronize()
-        t_prev = time.perf_counter()
-        for epoch, m, tr in blocked.train_epochs_blocked(
-                fresh_model(), train, run_cfg.sgd, run_cfg.model.use_bias,
-                seed=seed, device=dev, timings=timings):
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t_prev
-            part = {k: timings[k] - seen[k] for k in seen}
-            seen = {k: timings[k] for k in seen}
-            epoch_s = (wall - part["plan_s"]
-                       - (timings["prep_s"] if epoch == 0 else 0.0))
-            trains.append(float(tr))
-            tests.append(rmse_mae(m, test)[0])
-            if tag == "a" and epoch == 0:
-                after1 = m
-            log(f"[bias] ({tag}) {' '.join(ov)}: epoch {epoch}: epoch_s "
-                f"{epoch_s:.4f} (dense {part['dense_s']:.4f}, sparse "
-                f"{part['sparse_s']:.4f}, bias_s {part['bias_s']:.4f}, "
-                f"plan {part['plan_s']:.4f}) train_rmse {trains[-1]:.5f} "
-                f"test_rmse {tests[-1]:.5f}")
-            t_prev = time.perf_counter()
-        counts = {"sgd_sweep": sgd_sweep.launches,
-                  "sgd_sweep_tile": sgd_sweep_tile.launches,
-                  "sgd_sweep_epoch": sgd_sweep_epoch.launches,
-                  "dense_phase": dict(dense_phase.form_launches)}
-        peak = torch.cuda.max_memory_allocated(dev)
-        log(f"[bias] ({tag}): launches {counts}; prep {timings['prep_s']:.4f}"
-            f" s; peak memory allocated {peak} bytes; held-out rmse "
-            f"{tests[-1]:.5f} (untrained {base_rmse:.5f}, phase 4's lane "
-            f"run {lane_rmse:.5f})")
-        others = [f for f in BIAS_FORMS if f != form]
-        if (sparse.launches < 1 or dense_phase.form_launches[form] < 1
-                or sgd_sweep.launches
-                or any(dense_phase.form_launches[f] for f in others)
-                or (tag == "a" and sgd_sweep_tile.launches)
-                or (tag != "a" and sgd_sweep_epoch.launches)):
-            raise AssertionError(f"({tag}): not the expected kernels: {counts}")
-        if not trains[1] < trains[0]:
-            raise AssertionError(f"({tag}): the train RMSE did not fall: "
-                                 f"{trains}")
-        if not tests[-1] < base_rmse:
-            raise AssertionError(f"({tag}): held-out RMSE {tests[-1]} not "
-                                 f"below the untrained {base_rmse}")
-        if tag != "c" and abs(tests[-1] - lane_rmse) > 0.03:
-            raise AssertionError(f"({tag}): held-out RMSE {tests[-1]} more "
-                                 f"than 0.03 from the lane run's {lane_rmse}")
-        finite = all(bool(torch.isfinite(getattr(m, k)).all())
-                     for k in ("P", "Q", "bu", "bi"))
-        if not finite or m.P.shape != (U, rank):
-            raise AssertionError(f"({tag}): tables not finite or mis-shaped")
-        if tag == "a":
-            launches = {"sgd_sweep_epoch": sgd_sweep_epoch.launches,
-                        "dense_phase_frozen":
-                            dense_phase.form_launches["frozen"]}
+    near_lane = (lane_rmse - 0.03, lane_rmse + 0.03)
+    _, runs = train_runs(dev, cfg, train, test, fresh_model, {
+        "a": (["sgd.bias_mode=epoch", "sgd.epochs=2"],
+              {"sgd_sweep_epoch", "dense_phase:frozen"}, near_lane),
+        "b": (["sgd.bias_mode=tile", "sgd.epochs=2"],
+              {"sgd_sweep_tile", "dense_phase:frozen"}, near_lane),
+        "c": (["model.use_bias=false", "sgd.epochs=2"],
+              {"sgd_sweep_tile", "dense_phase:none"}, None)}, "bias")
+    counts, after1 = runs["a"]
+    launches = {"sgd_sweep_epoch": counts["sgd_sweep_epoch"],
+                "dense_phase_frozen": counts["dense_phase:frozen"]}
     run_cfg = apply_overrides(cfg, ["sgd.bias_mode=epoch", "sgd.epochs=1"])
     (_, again, _), = blocked.train_epochs_blocked(
         fresh_model(), train, run_cfg.sgd, True, seed=seed, device=dev)
@@ -1657,20 +1880,7 @@ def bias_form_phases(dev, cfg, train, test, fresh_model, trained, lane_rmse,
         raise AssertionError("(a): a second run of 1 epoch differs")
     log("[bias] (a): a second run of 1 epoch repeats the first run's state "
         "after epoch 1 bit for bit")
-    t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-m", "mfx_torch.cli", "train", "--preset",
-         "ml25m_rank64", "--set", "sgd.bias_mode=epoch", "--set",
-         "sgd.epochs=1"], capture_output=True, text=True, timeout=600)
-    lines = res.stdout.strip().splitlines()
-    out = json.loads(lines[-1]) if res.returncode == 0 and lines else {}
-    if set(out) != {"preset", "epochs_run", "updates_per_sec", "test_rmse",
-                    "test_mae"} or out["epochs_run"] != 1:
-        raise AssertionError(f"CLI train in epoch mode failed:\n"
-                             f"{res.stdout[-1000:]}{res.stderr[-2000:]}")
-    log(f"[bias] CLI train --preset ml25m_rank64 --set sgd.bias_mode=epoch "
-        f"--set sgd.epochs=1: {lines[-1]} ({time.perf_counter() - t0:.1f} s, "
-        "process and data included)")
+    cli_train("ml25m_rank64", ["sgd.bias_mode=epoch"], 1)
     log(f"[time] phase 18 {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -2148,13 +2358,11 @@ def time_path_phase(dev, tcoo):
     from mfx_torch.data.synthetic import ML1M_SHAPE, make_synthetic
     from mfx_torch.eval.metrics import rmse_mae
     from mfx_torch.kernels import _build
-    from mfx_torch.kernels.sgd_sweep import sgd_sweep, sgd_sweep_time
     from mfx_torch.models.mf import init_model
-    from mfx_torch.models.timesvd import fit_time_features, init_timesvd
+    from mfx_torch.models.timesvd import fit_time_features
     from mfx_torch.solvers import blocked
     from mfx_torch.solvers import timesvd_blocked as tsb
     from mfx_torch.solvers.timesvd import rmse_mae_time, train_epochs_timesvd
-    from mfx_torch.train.checkpoint import load_checkpoint
     from mfx_torch.train.driver import train as drive
 
     t_phase = time.perf_counter()
@@ -2162,52 +2370,13 @@ def time_path_phase(dev, tcoo):
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     tcoo.save_npz(root / f"ml-25m.v{GENERATOR_VERSION}.synthetic.npz")
-    ck = root / "ckpt"
-    cfg = timesvd_config(root, f"checkpoint_dir={ck}", "checkpoint_every=2")
+    cfg = timesvd_config(root, f"checkpoint_dir={root / 'ckpt'}",
+                         "checkpoint_every=2")
     tc, seed, clip = cfg.timesvd, cfg.data.seed, (0.5, 5.0)
-    train, test = train_test_split(tcoo, cfg.data.test_frac, seed=seed)
-    U, I, rank = tcoo.num_users, tcoo.num_items, cfg.model.rank
-    feats = fit_time_features(train, n_bins=tc.n_bins, beta=tc.beta)
-
-    def fresh_model():  # the driver's initial model
-        g = torch.Generator(device=dev)
-        g.manual_seed(cfg.model.seed)
-        return init_model(g, U, I, rank, global_mean=train.global_mean,
-                          init_scale=cfg.model.init_scale)
-
-    base_rmse, _ = rmse_mae_time(
-        init_timesvd(None, U, I, rank, tc.n_bins, base=fresh_model()), feats,
-        test, clip=clip)
-    log(f"[time] path: solver='timesvd' kernel='pallas', rank {rank}, "
-        f"{tc.n_bins} bins, lr {tc.lr} decay {tc.lr_decay} reg {tc.reg} = "
-        f"reg_alpha, {tc.epochs} epochs (TimeSVDConfig's), su = si = "
-        f"{tsb.BLOCK}, T = {tsb.TILE}; untrained held-out time-aware RMSE "
-        f"{base_rmse:.5f} (clipped, as the driver's)")
-    sgd_sweep_time.launches = sgd_sweep.launches = 0
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    res = drive(cfg, device=dev, resume=False)
-    wall = time.perf_counter() - t0
-    launches = sgd_sweep_time.launches
-    trains = [r["train_metric"] for r in res.history]
-    epoch_s = [r["epoch_s"] for r in res.history]
-    log(f"[time] driver: {res.epochs_run} epochs in {wall:.1f} s (load, "
-        f"split, features, plan and evals included); epoch_s first "
-        f"{epoch_s[0]} median of the others "
-        f"{sorted(epoch_s[1:])[len(epoch_s[1:]) // 2]} (the driver's, "
-        f"without the eval); launches sgd_sweep_time {launches} sgd_sweep "
-        f"{sgd_sweep.launches}; peak memory allocated "
-        f"{torch.cuda.max_memory_allocated(dev)} bytes")
-    log("[time] train_rmse " + " ".join(f"{x:.5f}" for x in trains))
-    log("[time] held-out time-aware rmse " + " ".join(
-        f"{r['test_rmse']:.5f}" for r in res.history))
-    if launches < 1 or sgd_sweep.launches:
-        raise AssertionError(f"timesvd: launches {launches} of the time form, "
-                             f"{sgd_sweep.launches} of the lane form")
-    if len(trains) != tc.epochs or any(b >= a for a, b in
-                                       zip(trains, trains[1:])):
-        raise AssertionError(f"timesvd: the train RMSE did not fall every "
-                             f"epoch: {trains}")
+    log(f"[time] path: TimeSVDConfig's {tc.epochs} epochs, su = si = "
+        f"{tsb.BLOCK}, T = {tsb.TILE}")
+    res, base_rmse, fresh_model, train, test, launches = timesvd_driver_run(
+        dev, cfg, timesvd_config(root, "timesvd.epochs=2"), tcoo, "time")
 
     # lane-biased MF: the same storage rank, blocks, epochs, lr and reg on
     # the same split, through sgd_sweep with no dense phase
@@ -2227,16 +2396,6 @@ def time_path_phase(dev, tcoo):
             f"timesvd: held-out {res.test_rmse} not below lane MF's "
             f"{mf_rmse} and the untrained {base_rmse}")
     del mf
-    after2, step, _ = load_checkpoint(ck, step=1, device=dev)
-    again = drive(timesvd_config(root, "timesvd.epochs=2"), device=dev,
-                  resume=False)
-    if step != 1 or not all(torch.equal(getattr(again.model, k),
-                                        getattr(after2, k))
-                            for k in ("P", "Q", "bu", "bi")):
-        raise AssertionError("timesvd: a second run of 2 epochs differs from "
-                             "the first run's state after 2 epochs")
-    log("[time] a second run of 2 epochs repeats the first run's state "
-        "after 2 epochs (its checkpoint) bit for bit")
     t1 = time.perf_counter()
 
     # the minibatch trainer (timesvd.kernel='jnp') on the temporal ML-1M
@@ -2275,6 +2434,337 @@ def time_path_phase(dev, tcoo):
                              f"{want}")
     shutil.rmtree(root, ignore_errors=True)
     log(f"[time] phase 16 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# the rank-32 runs of ml1m_rank32_biased (phase 20): the overrides of each,
+# the kernels it launches, and the range its held-out RMSE after 30 epochs
+# must end in. (a): the preset's gate. (b)-(d): the JAX trainer on the same
+# full data on a CPU (tools/bias_mode_check.py --preset ml1m_rank32_biased
+# --cut 1: 0.52711, 0.52917, 0.52533 from its own seeded init) within
+# 0.003, the spread its init may add
+RANK32_DENSE = ["sgd.dense_span=full", "sgd.dense_chi=-1"]
+RANK32_RUNS = {
+    "a": (["sgd.bias_mode=lane"], {"sgd_sweep"}, (0.0, ML1M_RMSE_GATE)),
+    "b": (RANK32_DENSE, {"dense_phase:frozen"}, (0.52411, 0.53011)),
+    "c": (["sgd.bias_mode=lane"] + RANK32_DENSE, {"dense_phase:lane"},
+          (0.52617, 0.53217)),
+    "d": (["model.use_bias=false"] + RANK32_DENSE, {"dense_phase:none"},
+          (0.52233, 0.52833)),
+}
+# each rank-32 form's entry: the run and the count its launches come from
+RANK32_LAUNCHES = {"sgd_sweep_r32": ("a", "sgd_sweep"),
+                   "dense_phase_frozen_r32": ("b", "dense_phase:frozen"),
+                   "dense_phase_r32": ("c", "dense_phase:lane"),
+                   "dense_phase_none_r32": ("d", "dense_phase:none")}
+RANK32_TOL = 1e-5  # the rank-32 forms against plain; int8 dense: TOL
+RANK32_BINS = 16  # run (e)'s time bins (L = 13 latent lanes at rank 32)
+
+
+def rank32_forms(dev, sweep_sgd, dense_sgd, train, seed, cell, results,
+                 bounds, sweeps, strata=None):
+    """Phase 19: the rank-32 forms of sgd_sweep.cu (lane) and
+    dense_phase.cu (lane, frozen and bias-free with the carving's codes;
+    lane and frozen with int8 codes) against their plain versions on
+    ``train`` as train_epochs_blocked plans it with ``sweep_sgd`` (the
+    ratings its carving leaves, if it has one) and carves it with
+    ``dense_sgd``, from seeded rank-32 tables with biases: the first
+    SWEEP_TILES tiles of the first sweep, then the whole sweep on one
+    block and on the card's count (bitwise); the first ``strata[0]``
+    strata of group 0 (all of them by default), then ``strata[1]`` on one
+    block and on the card's count (bitwise), group 0 and the epoch's dense
+    phase. Fills ``results``, ``bounds`` and ``sweeps`` under
+    sgd_sweep_r32, dense_phase_r32 (the int8 runs as its "variants"),
+    dense_phase_frozen_r32 and dense_phase_none_r32."""
+    import torch
+
+    from mfx_torch.kernels import _build
+    from mfx_torch.kernels import plan_device as pdv
+    from mfx_torch.kernels.dense_phase import group_prefix
+    from mfx_torch.kernels.packing import lane_tables, plain_tables
+    from mfx_torch.kernels.sgd_sweep import sgd_sweep, sgd_sweep_plain
+    from mfx_torch.models.mf import init_model
+    from mfx_torch.solvers import blocked
+    from mfx_torch.solvers.dense_prep import prepare_dense_full
+
+    t_phase = time.perf_counter()
+    rank, U, I = 32, train.num_users, train.num_items
+    su, si, T, tpg = sweep_sgd.ublock, sweep_sgd.iblock, sweep_sgd.tile, \
+        blocked.TPG
+    mu, lr, reg = float(train.global_mean), sweep_sgd.lr, sweep_sgd.reg
+    u0, i0, r0 = (torch.as_tensor(x).to(dev) for x in
+                  (train.user, train.item, train.rating))
+
+    def carve(sgd, rfmt, chi=None):
+        """The trainer's dense carving of ``train`` with ``sgd``."""
+        return prepare_dense_full(
+            u0.int(), i0.int(), r0.float(), U, I, su, si,
+            chi_min=sgd.dense_chi if chi is None else chi,
+            nwd=sgd.dense_nwd or blocked.dense_group_windows(rank, si),
+            rfmt=rfmt)
+
+    u, i, r = u0.int(), i0.int(), r0.float()
+    if sweep_sgd.dense_chi != 0:
+        _, _, (u, i, r), _ = carve(
+            sweep_sgd, blocked.dense_rfmt(sweep_sgd, rank, train.rating))
+    skel = pdv.build_plan_skeleton(u, i, U, I, su, si, T, tpg,
+                                   blocked.sweep_geometry(I, rank, si))
+    tl = pdv.epoch_tiles_device(skel, u, i, r, seed, 0)
+    g = torch.Generator(device=dev).manual_seed(rank)
+    model = init_model(g, U, I, rank, global_mean=train.global_mean,
+                       device=dev)
+    model.bu.copy_(torch.randn(U, device=dev, generator=g) * 0.1)
+    model.bi.copy_(torch.randn(I, device=dev, generator=g) * 0.1)
+    lane, plain = lane_tables(model, su, si, dev), plain_tables(model, su, si,
+                                                                dev)
+    sw = next(x for x in skel.sweeps if x.t1 > x.t0)
+    nt = min(SWEEP_TILES, sw.t1 - sw.t0)
+    sa, tc = sw.sa[:nt // tpg].contiguous(), sw.tc[:nt].contiguous()
+    tls, deps = tl[sw.t0:sw.t0 + nt], sw.deps.prefix(nt)
+    seg_s = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
+    kw = dict(su=su, si=si, tpg=tpg)
+    lib = _build.load_library()
+    log(f"[rank32] {cell}: {U} x {I}, {train.n_ratings} train ratings, su = "
+        f"si = {su}, T = {T}; the sweep's plan: {u.shape[0]} sparse ratings, "
+        f"{tl.shape[0]} tiles in {len(skel.sweeps)} sweep(s); seeded rank-32 "
+        f"tables, biases N(0, 0.1)")
+    log(f"[kernel] sgd_sweep_r32: {nt} tiles of the first sweep (T={T}, "
+        f"rank 32); they hold {deps.runs.shape[0]} runs, critical path "
+        f"{deps.critical} tiles")
+    results["sgd_sweep_r32"] = compare(
+        "sgd_sweep_r32",
+        lambda P, Q: sgd_sweep(P, Q[seg_s], sa, tc, tls, lr, reg, mu, **kw,
+                               deps=deps),
+        lambda P, Q: sgd_sweep_plain(P, Q[seg_s], sa, tc, tls, lr, reg, mu,
+                                     **kw),
+        lane, RANK32_TOL)
+    bounds["sgd_sweep_r32"] = sweep_bound(tls, sa, tc, su, si, tpg, rank,
+                                          [("P", 0), ("Q", 1)], 10)
+    # the rank-64 lane form on the same tiles, timed in this run
+    m64 = init_model(torch.Generator(device=dev).manual_seed(64), U, I, 64,
+                     global_mean=train.global_mean, device=dev)
+    P64, Q64 = lane_tables(m64, su, si, dev)
+    r64_ms = cuda_ms(lambda: sgd_sweep(P64, Q64[seg_s], sa, tc, tls, lr, reg,
+                                       mu, **kw, deps=deps), reps=3)
+    del m64, P64, Q64
+    log(f"[kernel] sgd_sweep_r32: {results['sgd_sweep_r32'][1]:.4f} ms, the "
+        f"rank-64 lane form on the same tiles {r64_ms:.4f} ms; bound "
+        f"{bounds['sgd_sweep_r32'][0]:.4f} ms ({bounds['sgd_sweep_r32'][1]})")
+    whole = whole_sweep(
+        "sgd_sweep_r32",
+        lambda P, Q, blocks: sgd_sweep(
+            P, Q[seg_s], sw.sa, sw.tc, tl[sw.t0:sw.t1], lr, reg, mu, **kw,
+            deps=sw.deps, blocks=blocks),
+        lane, sw.deps, lib.mfx_sgd_sweep_max_blocks(T, rank))
+    whole["sweep_bound_ms"], whole["sweep_bound_by"] = sweep_bound(
+        tl[sw.t0:sw.t1], sw.sa, sw.tc, su, si, tpg, rank,
+        [("P", 0), ("Q", 1)], 10)
+    whole["rank64_lane_ms"] = r64_ms
+    sweeps["sgd_sweep_r32"] = whole
+    del skel, tl, tls, u, i, r
+
+    # the dense forms on group 0: the lane form on the lane tables, the
+    # frozen and bias-free forms on the plain ones
+    rfmt = blocked.dense_rfmt(dense_sgd, rank, train.rating)
+    meta, groups, _, info = carve(dense_sgd, rfmt)
+    n0 = groups[0]["sa"].shape[0]
+    head, n_whole = strata or (n0, n0)
+    log(f"[rank32] {cell}: the dense carving ({rfmt}, dense_frac "
+        f"{info['dense_frac']:.4f}, {info['num_strata']} strata in "
+        f"{len(groups)} groups, {n0} in group 0)")
+    for bias, name in (("lane", "dense_phase_r32"),
+                       ("frozen", "dense_phase_frozen_r32"),
+                       ("none", "dense_phase_none_r32")):
+        state = (lane + plain[2:]) if bias == "lane" else plain
+        err, ms, plain_ms, whole, b = dense_form_check(
+            name, bias, groups, meta, state, lr, reg, mu, su, si, rank, rfmt,
+            RANK32_TOL, strata=head, whole=n_whole)
+        whole.update(dense_group_times(name, bias, groups, meta, state, lr,
+                                       reg, mu, su, si, rank))
+        results[name], bounds[name], sweeps[name] = (err, ms, plain_ms), b, \
+            whole
+    del groups, meta
+    torch.cuda.empty_cache()
+    # int8 codes at rank 32 (the same threshold): no path runs them
+    meta8, groups8, _, _ = carve(dense_sgd, "int8", info["chi_effective"])
+    w0, n = meta8[0]
+    grp8 = group_prefix(groups8[0], head)
+    variants = []
+    for bias in ("lane", "frozen"):
+        state = (lane + plain[2:]) if bias == "lane" else plain
+        nd = grp8["sa"].shape[0]
+        extra = (torch.zeros(nd, su, device=dev),
+                 torch.zeros(nd, si, device=dev))
+        err, ms, plain_ms = compare(
+            f"dense_phase {bias} int8 rank 32",
+            dense_form_run(bias, grp8, slice(w0 * si, (w0 + n) * si), lr,
+                           reg, mu, su, si),
+            dense_form_run(bias, grp8, slice(w0 * si, (w0 + n) * si), lr,
+                           reg, mu, su, si, kernel=False),
+            tuple(state) + extra, sums=(si, su) if bias == "frozen" else ())
+        b = dense_bound([grp8], su, si, rank, frozen=bias == "frozen")
+        variants.append({"variant": f"{bias}, int8, rank 32",
+                         "strata": nd, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": b[0],
+                         "bound_by": b[1]})
+    sweeps["dense_phase_r32"]["variants"] = variants
+    del groups8, grp8, lane, plain, u0, i0, r0
+    torch.cuda.empty_cache()
+    log(f"[time] phase 19 ({cell}) {time.perf_counter() - t_phase:.1f} s")
+
+
+def rank32_time_phase(dev, tcoo, results, bounds, sweeps):
+    """Phase 19, second part: the time form of sgd_sweep.cu at rank 32
+    against its plain version on phase 15's temporal data at the blocked
+    timeSVD trainer's shapes (su = si = 512, T = 256), with RANK32_BINS
+    bins and with 28 (the most rank 32 holds): 2,048 tiles of the first
+    sweep, and with RANK32_BINS the whole first sweep on one block and on
+    the card's count, bitwise. Fills ``results``, ``bounds`` and
+    ``sweeps`` under sgd_sweep_time_r32."""
+    import torch
+
+    from mfx_torch.config import TimeSVDConfig
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.kernels import _build
+    from mfx_torch.kernels.packing import pad_rows, to_tlane_model
+    from mfx_torch.kernels.sgd_sweep import sgd_sweep_plain, sgd_sweep_time
+    from mfx_torch.models.mf import init_model
+    from mfx_torch.models.timesvd import fit_time_features, init_timesvd
+    from mfx_torch.solvers import timesvd_blocked as tsb
+    from mfx_torch.solvers.blocked import TPG, sweep_geometry
+
+    t_phase = time.perf_counter()
+    cfg = timesvd_config(None)
+    tc, seed, rank = cfg.timesvd, cfg.data.seed, 32
+    train, _ = train_test_split(tcoo, cfg.data.test_frac, seed=seed)
+    U, I = tcoo.num_users, tcoo.num_items
+    su = si = tsb.BLOCK
+    T, tpg, lr, reg = tsb.TILE, TPG, tc.lr, tc.reg
+    mu = float(train.global_mean)
+    card = _build.load_library().mfx_sgd_sweep_time_max_blocks(T, rank)
+    entry = {}
+    for nb in (RANK32_BINS, rank - 4):
+        feats = fit_time_features(train, n_bins=nb, beta=TimeSVDConfig().beta)
+        tb, dv = feats.features(train.user, train.timestamp)
+        plan = tsb.build_temporal_plan_skeleton(
+            train, tb, dv, su=su, si=si, tile=T, tpg=tpg,
+            nwin=sweep_geometry(I, rank, si), device=dev)
+        tl, sws = tsb.plan_temporal_epoch_device(*plan, seed, 0)
+        g = torch.Generator(device=dev).manual_seed(cfg.model.seed)
+        base = init_model(g, U, I, rank, global_mean=train.global_mean,
+                          device=dev)
+        ts = init_timesvd(None, U, I, rank, nb, base=base)
+        ts.bt.copy_(torch.randn(I, nb, device=dev, generator=g) * 0.1)
+        ts.alpha.copy_(torch.randn(U, device=dev, generator=g) * 0.1)
+        lanes = to_tlane_model(ts, nb)
+        P, Q = pad_rows(lanes.P, su), pad_rows(lanes.Q, si)
+        sw = sws[0]
+        nt = min(SWEEP_TILES, sw.t1 - sw.t0)
+        sa, tcs = sw.sa[:nt // tpg].contiguous(), sw.tc[:nt].contiguous()
+        tls, deps = tl[sw.t0:sw.t0 + nt], sw.deps.prefix(nt)
+        seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
+        kw = dict(su=su, si=si, tpg=tpg, n_bins=nb)
+        name = f"sgd_sweep_time_r32 ({nb} bins)"
+        log(f"[kernel] {name}: {nt} tiles of the first sweep (T={T}, rank "
+            f"32, L = {rank - 3 - nb} latent lanes); {len(sws)} sweep(s), "
+            f"critical path of the tiles {deps.critical}")
+        res = compare(
+            name,
+            lambda Pt, Qt: sgd_sweep_time(Pt, Qt[seg], sa, tcs, tls, lr, reg,
+                                          mu, **kw, deps=deps),
+            lambda Pt, Qt: sgd_sweep_plain(Pt, Qt[seg], sa, tcs, tls, lr,
+                                           reg, mu, **kw),
+            (P, Q), RANK32_TOL)
+        bnd = sweep_bound(tls, sa, tcs, su, si, tpg, rank,
+                          [("P", 0), ("Q", 1)], None,
+                          slot_ops=time_slot_ops(rank, nb))
+        log(f"[kernel] {name} bound {bnd[0]:.4f} ms ({bnd[1]}; "
+            f"{time_slot_ops(rank, nb)} operations a real slot)")
+        if nb == RANK32_BINS:
+            results["sgd_sweep_time_r32"], bounds["sgd_sweep_time_r32"] = \
+                res, bnd
+            entry = whole_sweep(
+                "sgd_sweep_time_r32",
+                lambda Pt, Qt, blocks: sgd_sweep_time(
+                    Pt, Qt[seg], sw.sa, sw.tc, tl[sw.t0:sw.t1], lr, reg, mu,
+                    **kw, deps=sw.deps, blocks=blocks),
+                (P, Q), sw.deps, card)
+            entry["sweep_bound_ms"], entry["sweep_bound_by"] = sweep_bound(
+                tl[sw.t0:sw.t1], sw.sa, sw.tc, su, si, tpg, rank,
+                [("P", 0), ("Q", 1)], None, slot_ops=time_slot_ops(rank, nb))
+        else:
+            entry[f"bins{nb}"] = {"tiles": nt, "max_abs_err": res[0],
+                                  "ms": res[1], "plain_ms": res[2],
+                                  "bound_ms": bnd[0], "bound_by": bnd[1]}
+        del plan, tl, sws, P, Q, lanes, ts, base
+        torch.cuda.empty_cache()
+    sweeps["sgd_sweep_time_r32"] = entry
+    log(f"[time] phase 19 (time form) {time.perf_counter() - t_phase:.1f} s")
+
+
+def rank32_path_phase(dev, results, bounds, sweeps):
+    """Phases 19 and 20 on ml1m_rank32_biased and the full ML-1M-shaped
+    synthetic: the rank-32 lane sweep and dense forms against their plain
+    versions on the plan of run (a) and the carving of runs (b)-(d)
+    (rank32_forms, into ``results``, ``bounds`` and ``sweeps``); then the
+    runs RANK32_RUNS (a)-(d), each its 30 epochs through
+    train_epochs_blocked, (e) blocked timeSVD at rank 32 with RANK32_BINS
+    bins through the driver on the temporal ML-1M synthetic, and the CLI
+    on run (c). Returns the launches of each rank-32 form on its run."""
+    import shutil
+
+    import torch
+
+    from mfx_torch.config import apply_overrides, preset
+    from mfx_torch.data.loaders import GENERATOR_VERSION
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.data.synthetic import ML1M_SHAPE, make_synthetic
+    from mfx_torch.kernels import _build
+    from mfx_torch.models.mf import init_model
+
+    cfg = preset("ml1m_rank32_biased")
+    coo = make_synthetic(*ML1M_SHAPE, rank=32, seed=101, star_step=1.0,
+                         user_zipf_s=0.6)
+    train, test = train_test_split(coo, cfg.data.test_frac,
+                                   seed=cfg.data.seed)
+    U, I, rank = coo.num_users, coo.num_items, cfg.model.rank
+    rank32_forms(dev, apply_overrides(cfg, RANK32_RUNS["a"][0]).sgd,
+                 apply_overrides(cfg, RANK32_RUNS["c"][0]).sgd, train,
+                 cfg.data.seed, "ml1m_rank32_biased's runs", results, bounds,
+                 sweeps)
+
+    t_phase = time.perf_counter()
+
+    def fresh_model():
+        g = torch.Generator(device=dev)
+        g.manual_seed(cfg.model.seed)
+        return init_model(g, U, I, rank, global_mean=train.global_mean,
+                          init_scale=cfg.model.init_scale, device=dev)
+
+    log(f"[rank32] path: ml1m_rank32_biased (rank {rank}, su = si = "
+        f"{cfg.sgd.ublock}, T = {cfg.sgd.tile}, {cfg.sgd.epochs} epochs) on "
+        f"the ml-1m synthetic ({train.n_ratings} train ratings)")
+    _, runs = train_runs(dev, cfg, train, test, fresh_model, RANK32_RUNS,
+                         "rank32")
+    launches = {name: runs[tag][0][key]
+                for name, (tag, key) in RANK32_LAUNCHES.items()}
+
+    # (e) blocked timeSVD at rank 32 through the driver
+    root = _build.BUILD_DIR.parent / "chip_smoke_rank32"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    tcoo = temporal(coo, 101)
+    tcoo.save_npz(root / f"ml-1m.v{GENERATOR_VERSION}.synthetic.npz")
+    over = ["solver=timesvd", "timesvd.kernel=pallas", "model.rank=32",
+            f"timesvd.n_bins={RANK32_BINS}", f"data.root={root}"]
+    *_, launches["sgd_sweep_time_r32"] = timesvd_driver_run(
+        dev, apply_overrides(cfg, over + [f"checkpoint_dir={root / 'ckpt'}",
+                                          "checkpoint_every=2"]),
+        apply_overrides(cfg, over + ["timesvd.epochs=2"]), tcoo, "rank32 (e)")
+    shutil.rmtree(root, ignore_errors=True)
+
+    cli_train("ml1m_rank32_biased", RANK32_RUNS["c"][0], 2)
+    log(f"[time] phase 20 {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -2531,6 +3021,13 @@ def main() -> int:
     # 17-18. the other bias modes of the main path, on phase 4's data
     launches.update(bias_form_phases(dev, cfg, train, test, fresh_model, m,
                                      test_rmse, results, bounds, sweeps))
+
+    # 19 (its extra cell). the rank-32 lane sweep and dense forms on phase
+    # 4's data at ml25m_rank64's shapes, which no preset runs at rank 32
+    cell25 = ({}, {}, {})
+    rank32_forms(dev, sgd, sgd, train, cfg.data.seed,
+                 "ml25m_rank64's cell at rank 32", *cell25,
+                 strata=(DENSE_STRATA, DENSE_WHOLE))
     del m, model, train, test  # coo: phases 15-16 make it temporal
     torch.cuda.empty_cache()
 
@@ -2554,8 +3051,19 @@ def main() -> int:
     log(f"[time] the temporal ML-25M-shaped synthetic in "
         f"{time.perf_counter() - t0:.1f} s")
     time_kernel_phase(dev, tcoo, results, bounds, sweeps)
+    # 19 (second part). the rank-32 time form, on phase 15's data
+    rank32_time_phase(dev, tcoo, results, bounds, sweeps)
     launches["sgd_sweep_time"] = time_path_phase(dev, tcoo)
     del tcoo
+
+    # 19-20. ml1m_rank32_biased: the rank-32 forms against plain on its
+    # runs' plan and carving, then the runs through them
+    launches.update(rank32_path_phase(dev, results, bounds, sweeps))
+    for name, (err, ms, plain_ms) in cell25[0].items():
+        sweeps[name]["ml25m_cell"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": cell25[1][name][0], "bound_by": cell25[1][name][1],
+            **cell25[2][name]}
 
     replaces = {"sgd_sweep": "mfx/kernels/sgd_pallas.py:63",
                 "dense_phase": "mfx/kernels/dense_pallas.py:86",
@@ -2567,11 +3075,20 @@ def main() -> int:
                 "dense_phase_int8_r128": "mfx/kernels/dense_pallas.py:86",
                 "sgd_sweep_time": "mfx/kernels/sgd_pallas.py:63",
                 "sgd_sweep_epoch": "mfx/kernels/sgd_pallas.py:63",
-                "dense_phase_frozen": "mfx/kernels/dense_pallas.py:86"}
+                "dense_phase_frozen": "mfx/kernels/dense_pallas.py:86",
+                "sgd_sweep_r32": "mfx/kernels/sgd_pallas.py:63",
+                "sgd_sweep_time_r32": "mfx/kernels/sgd_pallas.py:63",
+                "dense_phase_r32": "mfx/kernels/dense_pallas.py:86",
+                "dense_phase_frozen_r32": "mfx/kernels/dense_pallas.py:86",
+                "dense_phase_none_r32": "mfx/kernels/dense_pallas.py:86"}
     sources = {"sgd_sweep_r128": "sgd_sweep", "dense_phase_int8_r128":
                "dense_phase", "sgd_sweep_time": "sgd_sweep",
                "sgd_sweep_epoch": "sgd_sweep_tile",
-               "dense_phase_frozen": "dense_phase"}
+               "dense_phase_frozen": "dense_phase",
+               "sgd_sweep_r32": "sgd_sweep", "sgd_sweep_time_r32": "sgd_sweep",
+               "dense_phase_r32": "dense_phase",
+               "dense_phase_frozen_r32": "dense_phase",
+               "dense_phase_none_r32": "dense_phase"}
     variants = {"sgd_sweep": "bias_mode='lane', rank 64",
                 "sgd_sweep_tile": "bias_mode='tile'",
                 "dense_phase": "lane, int4 codes, rank 64",
@@ -2580,7 +3097,13 @@ def main() -> int:
                 "sgd_sweep_time": "time_mode=True (bias_mode='lane'), rank "
                                   f"64, {TIME_BINS} bins",
                 "sgd_sweep_epoch": "bias_mode='epoch', rank 64",
-                "dense_phase_frozen": "frozen biases, int4, rank 64"}
+                "dense_phase_frozen": "frozen biases, int4, rank 64",
+                "sgd_sweep_r32": "bias_mode='lane', rank 32",
+                "sgd_sweep_time_r32": "time_mode=True (bias_mode='lane'), "
+                                      f"rank 32, {RANK32_BINS} bins",
+                "dense_phase_r32": "lane, int4 codes, rank 32",
+                "dense_phase_frozen_r32": "frozen biases, int4, rank 32",
+                "dense_phase_none_r32": "no biases, int4, rank 32"}
     log(f"[card] {card}")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -1,6 +1,6 @@
 // Dense-stratum SGD phase in three bias forms: lane-carried biases,
-// frozen biases and none; int4 rating codes at rank 64, int8 codes at
-// ranks 64 and 128.
+// frozen biases and none; int4 rating codes at ranks 32 and 64, int8 codes
+// at ranks 32, 64 and 128.
 //
 // Replaces: mfx/kernels/dense_pallas.py::_kernel_body (rfmt='int4' or
 // 'int8', echo=1, spg=1) with lane=True (the lane form), with
@@ -27,15 +27,18 @@
 // R holds int4 codes round(2 r), 0 = absent, plain (su, si/2) bytes per
 // stratum with the even column in the low nibble; or int8 codes
 // round(25 r), plain (su, si) bytes per stratum. The kernel is a template
-// over the rank (64, 128) and the code format; rank 128 takes int8 only,
-// as the reference does. At rank 128 the snapshot rows and a thread's dP
-// and dQ outputs double (lanes 4 tx + n and 64 + 4 tx + n), and an apply
-// unit owns 128 rows (64 where 128 does not divide si).
+// over the rank (32, 64, 128) and the code format; rank 128 takes int8
+// only, as the reference does. At rank 128 the snapshot rows and a thread's
+// dP and dQ outputs double (lanes 4 tx + n and 64 + 4 tx + n), and an apply
+// unit owns 128 rows (64 where 128 does not divide si). At rank 32 a row
+// is 8 lane quads: a thread owns 2 rows (or columns) of dP and dQ, one
+// lane quad each, tx's upper half taking the band's rows 32-63 (Form), and
+// an apply unit owns 256 rows as at rank 64.
 //
 // Form: one persistent launch a dense group. Its blocks take work units
 // by an integer ticket; a stratum is 2 pieces of each of its su/64 row
-// panels and then si/256 at rank 64, si/128 at rank 128 (twice as many
-// where that does not divide si) Q-apply units. Strata are handed out in
+// panels and then si/256 at ranks 32 and 64, si/128 at rank 128 (twice as
+// many where that does not divide si) Q-apply units. Strata are handed out in
 // an order the wrapper gives (from the group's dependency table), or plan
 // order without a table.
 // - A piece of a row panel owns 64 rows of P_blk and half of Q_win's
@@ -46,8 +49,8 @@
 //   last piece of a panel to finish adds the first piece's dP and the
 //   other chunks' partials in chunk order, writes the panel's own P rows
 //   (no other unit of the stratum reads them) and counts the panel done.
-// - A Q-apply unit owns 256 (or 128) rows of Q_win at rank 64, half as
-//   many at rank 128. It waits until every panel of its stratum is done,
+// - A Q-apply unit owns 256 (or 128) rows of Q_win at ranks 32 and 64,
+//   half as many at rank 128. It waits until every panel of its stratum is done,
 //   adds the partials in panel order, and writes its Q rows. The last
 //   apply unit to finish publishes the stratum's end.
 // - Two strata conflict only if they share a user block or a window
@@ -112,19 +115,26 @@ constexpr float DSTAR = 16.f;
 constexpr int LANE = 0, FROZEN = 1, NONE = 2;
 
 // The kernel's shapes at rank RANK with int8 (INT8) or int4 codes.
+// A thread's part of dP and dQ (64 rows, or columns, by RANK lanes): MR
+// rows r0 + 16 m and the lanes 64 h + 4 lx + n of each, with
+// lx = tx % TXL and r0 = ty + 16 MR (tx / TXL). At ranks 64 and 128 that is
+// 4 rows ty + 16 m and 4 LQ lanes; at rank 32 (8 lane quads a row) the
+// upper half of tx takes the band's rows 32-63, 2 rows a thread.
 template <int RANK, bool INT8>
 struct Form {
   static constexpr int R4 = RANK / 4;      // float4 a row
-  static constexpr int LQ = RANK / 64;     // lane quads a thread owns in
-                                           // dP and dQ: 4 tx + 64 h
+  static constexpr int TXL = RANK < 64 ? R4 : 16;  // tx across a row's lanes
+  static constexpr int LQ = RANK < 64 ? 1 : RANK / 64;  // lane quads a
+                                                        // thread owns a row
+  static constexpr int MR = 4 * TXL / 16;  // rows a thread owns
   static constexpr int PITCH = RANK + 4;   // shared row pitch in floats
                                            // (16-byte rows)
   static constexpr int CODE_ROW = INT8 ? CH : CH / 2;  // code bytes of a
                                                        // chunk row
   static constexpr int CODE_U4 = BAND * CODE_ROW / 16;  // uint4 a chunk
-  static constexpr int QROWS = 256 * 64 / RANK;  // Q_win rows of an apply
-                                                 // unit (half where it
-                                                 // does not divide si)
+  static constexpr int QROWS = RANK < 64 ? 256 : 256 * 64 / RANK;
+                                       // Q_win rows of an apply unit (half
+                                       // where it does not divide si)
   static constexpr float SCALE = INT8 ? 0.04f : 0.5f;  // code -> rating
 
   static __device__ __forceinline__ int row_bytes(int si) {
@@ -260,31 +270,31 @@ __device__ __forceinline__ int code_at(const uint8_t* Rs, int r, int c) {
 }
 
 // A 64 x RANK tile of dP in device memory, [row][lane], from / into the
-// registers of thread (ty, tx): rows ty + 16m, lanes 64h + 4tx + n held at
-// [m][4h + n].
-template <int RANK>
+// registers of the thread whose part is rows r0 + 16m, lanes 64h + 4lx + n
+// (Form), held at [m][4h + n].
+template <int RANK, int MR, int LQ>
 __device__ __forceinline__ void store_tile(float* t,
-                                           const float (&v)[4][RANK / 16],
-                                           int ty, int tx) {
+                                           const float (&v)[MR][4 * LQ],
+                                           int r0, int lx) {
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
+  for (int m = 0; m < MR; ++m)
 #pragma unroll
-    for (int h = 0; h < RANK / 64; ++h)
-      __stcg(reinterpret_cast<float4*>(t + (ty + 16 * m) * RANK + 64 * h +
-                                       4 * tx),
+    for (int h = 0; h < LQ; ++h)
+      __stcg(reinterpret_cast<float4*>(t + (r0 + 16 * m) * RANK + 64 * h +
+                                       4 * lx),
              make_float4(v[m][4 * h], v[m][4 * h + 1], v[m][4 * h + 2],
                          v[m][4 * h + 3]));
 }
 
-template <int RANK>
-__device__ __forceinline__ void load_tile(float (&v)[4][RANK / 16],
-                                          const float* t, int ty, int tx) {
+template <int RANK, int MR, int LQ>
+__device__ __forceinline__ void load_tile(float (&v)[MR][4 * LQ],
+                                          const float* t, int r0, int lx) {
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
+  for (int m = 0; m < MR; ++m)
 #pragma unroll
-    for (int h = 0; h < RANK / 64; ++h) {
+    for (int h = 0; h < LQ; ++h) {
       const float4 x = __ldcg(reinterpret_cast<const float4*>(
-          t + (ty + 16 * m) * RANK + 64 * h + 4 * tx));
+          t + (r0 + 16 * m) * RANK + 64 * h + 4 * lx));
       v[m][4 * h] = x.x;
       v[m][4 * h + 1] = x.y;
       v[m][4 * h + 2] = x.z;
@@ -302,11 +312,14 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
                            float mu) {
   using F = Form<RANK, INT8>;
   constexpr int R4 = F::R4, LQ = F::LQ, PITCH = F::PITCH, NO = 4 * LQ;
+  constexpr int MR = F::MR;
   // a warp holds 4 values of ty and 8 of tx, so that each of its 16-byte
   // shared loads touches at most 128 distinct bytes (one wavefront)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ty = (warp >> 1) * 4 + (lane >> 3);
   const int tx = (warp & 1) * 8 + (lane & 7);
+  // this thread's part of dP and dQ (Form)
+  const int lx = tx % F::TXL, r0 = ty + 16 * MR * (tx / F::TXL);
   const int nb = su / BAND, nch = si / CH, per_piece = nch / PIECES;
   const int c0 = piece * per_piece, c1 = c0 + per_piece;
   // the band's dP scratch: [0] piece 0's sum over its chunks, then the
@@ -344,10 +357,10 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
       bic[n] = __ldg(bs.bi + qrow + c0 * CH + tx + 16 * n);
   }
 
-  float g[4][NO];  // dP of rows ty + 16m, lanes 64h + 4tx + n at
-                   // [m][4h + n], over the chunks
+  float g[MR][NO];  // dP of rows r0 + 16m, lanes 64h + 4lx + n at
+                    // [m][4h + n], over the chunks
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
+  for (int m = 0; m < MR; ++m)
 #pragma unroll
     for (int n = 0; n < NO; ++n) g[m][n] = 0.f;
   float sq = 0.f;
@@ -425,28 +438,28 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
                t);
     }
 
-    // the chunk's dP: rows ty + 16m, lanes 64h + 4tx + n, over its
+    // the chunk's dP: rows r0 + 16m, lanes 64h + 4lx + n, over its
     // columns j
-    float d[4][NO];
+    float d[MR][NO];
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
+    for (int m = 0; m < MR; ++m)
 #pragma unroll
       for (int n = 0; n < NO; ++n) d[m][n] = 0.f;
 #pragma unroll
     for (int j = 0; j < CH; j += 4) {
-      float4 e4[4], q4[4][LQ];
+      float4 e4[MR], q4[4][LQ];
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
-        e4[m] = ld4<EPITCH>(sm.Er, ty + 16 * m, j);
+      for (int m = 0; m < MR; ++m)
+        e4[m] = ld4<EPITCH>(sm.Er, r0 + 16 * m, j);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
         for (int h = 0; h < LQ; ++h)
-          q4[jj][h] = ld4<PITCH>(sm.Qr, j + jj, 64 * h + 4 * tx);
+          q4[jj][h] = ld4<PITCH>(sm.Qr, j + jj, 64 * h + 4 * lx);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
-        for (int m = 0; m < 4; ++m)
+        for (int m = 0; m < MR; ++m)
 #pragma unroll
           for (int h = 0; h < LQ; ++h)
 #pragma unroll
@@ -456,35 +469,35 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
     }
     if (piece == 0) {
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
+      for (int m = 0; m < MR; ++m)
 #pragma unroll
         for (int n = 0; n < NO; ++n) g[m][n] += d[m][n];
     } else {
-      store_tile<RANK>(dps + (long long)(ch - per_piece + 1) * BAND * RANK,
-                       d, ty, tx);
+      store_tile<RANK, MR, LQ>(
+          dps + (long long)(ch - per_piece + 1) * BAND * RANK, d, r0, lx);
     }
 
-    // the chunk's dQ partial: columns ty + 16m, lanes 64h + 4tx + n, over
+    // the chunk's dQ partial: columns r0 + 16m, lanes 64h + 4lx + n, over
     // the panel's rows r
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
+    for (int m = 0; m < MR; ++m)
 #pragma unroll
       for (int n = 0; n < NO; ++n) d[m][n] = 0.f;
 #pragma unroll
     for (int r = 0; r < BAND; r += 4) {
-      float4 e4[4], p4[4][LQ];
+      float4 e4[MR], p4[4][LQ];
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
-        e4[m] = ld4<EPITCH>(sm.Ec, ty + 16 * m, r);
+      for (int m = 0; m < MR; ++m)
+        e4[m] = ld4<EPITCH>(sm.Ec, r0 + 16 * m, r);
 #pragma unroll
       for (int rr = 0; rr < 4; ++rr)
 #pragma unroll
         for (int h = 0; h < LQ; ++h)
-          p4[rr][h] = ld4<PITCH>(sm.Pr, r + rr, 64 * h + 4 * tx);
+          p4[rr][h] = ld4<PITCH>(sm.Pr, r + rr, 64 * h + 4 * lx);
 #pragma unroll
       for (int rr = 0; rr < 4; ++rr)
 #pragma unroll
-        for (int m = 0; m < 4; ++m)
+        for (int m = 0; m < MR; ++m)
 #pragma unroll
           for (int h = 0; h < LQ; ++h)
 #pragma unroll
@@ -493,12 +506,12 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
                                      d[m][4 * h + n]);
     }
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
+    for (int m = 0; m < MR; ++m)
 #pragma unroll
       for (int h = 0; h < LQ; ++h)
         __stcg(reinterpret_cast<float4*>(
-                   slot + (long long)(ch * CH + ty + 16 * m) * RANK +
-                   64 * h + 4 * tx),
+                   slot + (long long)(ch * CH + r0 + 16 * m) * RANK +
+                   64 * h + 4 * lx),
                make_float4(d[m][4 * h], d[m][4 * h + 1], d[m][4 * h + 2],
                            d[m][4 * h + 3]));
     __syncthreads();
@@ -517,7 +530,7 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
   if ((tid & 31) == 0) sm.red[tid >> 5] = sq;
   // the last piece of the band to finish adds the band's dP in chunk
   // order: piece 0's sum, then every later chunk's partial
-  if (piece == 0) store_tile<RANK>(dps, g, ty, tx);
+  if (piece == 0) store_tile<RANK, MR, LQ>(dps, g, r0, lx);
   // frozen form: the band's row sums, one row of BAND a piece
   float* rs = BIAS == FROZEN ? bs.rs_buf + ((long long)(pos % ds.ring) * nb +
                                             band) * PIECES * BAND
@@ -537,31 +550,31 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
       for (int p = 1; p < PIECES; ++p) t += __ldcg(rs + p * BAND + tid);
       bs.dbu[(long long)s * su + band * BAND + tid] = t;
     }
-    load_tile<RANK>(g, dps, ty, tx);
+    load_tile<RANK, MR, LQ>(g, dps, r0, lx);
     for (int e = 1; e <= nch - per_piece; ++e) {
-      float d[4][NO];
-      load_tile<RANK>(d, dps + (long long)e * BAND * RANK, ty, tx);
+      float d[MR][NO];
+      load_tile<RANK, MR, LQ>(d, dps + (long long)e * BAND * RANK, r0, lx);
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
+      for (int m = 0; m < MR; ++m)
 #pragma unroll
         for (int n = 0; n < NO; ++n) g[m][n] += d[m][n];
     }
     // the panel's own P rows, from the snapshot
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int r = ty + 16 * m;
+    for (int m = 0; m < MR; ++m) {
+      const int r = r0 + 16 * m;
       const float deg = du[(long long)s * su + band * BAND + r];
       const float scale = fminf(1.f, DSTAR / fmaxf(deg, 1.f));
 #pragma unroll
       for (int h = 0; h < LQ; ++h) {
-        const float4 p = ld4<PITCH>(sm.Pr, r, 64 * h + 4 * tx);
+        const float4 p = ld4<PITCH>(sm.Pr, r, 64 * h + 4 * lx);
         float o[4];
 #pragma unroll
         for (int n = 0; n < 4; ++n)
           o[n] = update(comp(p, n), g[m][4 * h + n], deg, scale,
-                        BIAS == LANE && 64 * h + 4 * tx + n == RANK - 2, lr,
+                        BIAS == LANE && 64 * h + 4 * lx + n == RANK - 2, lr,
                         reg);
-        __stcg(P4 + (prow + r) * R4 + 16 * h + tx,
+        __stcg(P4 + (prow + r) * R4 + 16 * h + lx,
                make_float4(o[0], o[1], o[2], o[3]));
       }
     }
@@ -705,7 +718,7 @@ int launch(float* P, float* Q, const int* sa, const int* sc,
 }
 
 // The form's instance: f(kernel-of-the-form marker) for (rank, int8,
-// bias) in the nine built ones, or cudaErrorInvalidValue.
+// bias) in the fifteen built ones, or cudaErrorInvalidValue.
 template <class Fn>
 int with_form(int rank, int int8, int bias, Fn&& fn) {
   if (bias < LANE || bias > NONE) return -1;
@@ -720,6 +733,8 @@ int with_form(int rank, int int8, int bias, Fn&& fn) {
     return fn(std::integral_constant<int, R>{}, std::bool_constant<I8>{}, \
               std::integral_constant<int, NONE>{});                       \
   }
+  MFX_FORM(32, false)
+  MFX_FORM(32, true)
   MFX_FORM(64, false)
   MFX_FORM(64, true)
   MFX_FORM(128, true)
@@ -729,9 +744,9 @@ int with_form(int rank, int int8, int bias, Fn&& fn) {
 
 }  // namespace
 
-// Thread blocks of the form's dense_phase_kernel (rank 64 with int4 or
-// int8 codes, rank 128 with int8; bias 0 lane, 1 frozen, 2 none) the
-// device holds at once, or minus the CUDA error.
+// Thread blocks of the form's dense_phase_kernel (ranks 32 and 64 with
+// int4 or int8 codes, rank 128 with int8; bias 0 lane, 1 frozen, 2 none)
+// the device holds at once, or minus the CUDA error.
 extern "C" int mfx_dense_phase_max_blocks(int rank, int int8, int bias) {
   const int r = with_form(rank, int8, bias, [](auto R, auto I8, auto B) {
     return mfx_sweep::resident_blocks(

@@ -1,9 +1,10 @@
-// Sparse blocked-SGD sweep (lane-carried biases, ranks 64 and 128), and its
-// time form (blocked timeSVD).
+// Sparse blocked-SGD sweep (lane-carried biases, ranks 32, 64 and 128), and
+// its time form (blocked timeSVD).
 //
 // Replaces: mfx/kernels/sgd_pallas.py::_kernel_body (bias_mode='lane',
-// pack_path='roll' at rank 64, pack 1 at rank 128; with time_mode=True the
-// time form), driven by blocked_sgd_sweep_pallas / _sweep_chunk_call.
+// pack 4 at rank 32, pack_path='roll' at rank 64, pack 1 at rank 128; with
+// time_mode=True the time form), driven by blocked_sgd_sweep_pallas /
+// _sweep_chunk_call.
 //
 // What it computes, per tile of T ratings of one stratum (user block sa,
 // item window tc), in plan order:
@@ -47,6 +48,10 @@
 // not touch lanes 0-63, and under the wavefront no other block writes the
 // tile's rows while it runs. One sort of the slot ids serves both halves.
 // The rank-64 instance takes the one-half path: one gather, one scatter.
+// So does rank 32, whose whole row is its "half" (the sweep_common.cuh
+// buffers at 32 lanes, 71 KB at T = 256: 8 threads a row, one float4 of
+// each dot a thread); the time form's frozen and injected lanes then all
+// lie in lanes 0-31 (n_bins <= 28).
 //
 // The time form (TIME, timeSVD's temporal terms in the lanes). With
 // L = rank - 3 - n_bins, P rows are [p(L), 0 x n_bins, alpha_u, 1, bu] and
@@ -83,8 +88,10 @@ namespace {
 
 using namespace mfx_sweep;
 
-constexpr int HALF = 64;        // lanes of a row in shared memory at once
-constexpr int HQ4 = HALF / 4;   // float4 of a row in shared memory
+// lanes of a row in shared memory at once: the whole row at rank 32, 64
+// lanes at ranks 64 and 128
+template <int RANK>
+constexpr int HALF = RANK < 64 ? RANK : 64;
 
 // The lanes of one side whose deltas are dropped: [lo, hi) and `one`.
 struct Frozen {
@@ -132,24 +139,26 @@ __device__ inline void load_time(const TimeSmem& ts, const int* tt, int T) {
   }
 }
 
-// 2b. after a gather of the lanes [lane0, lane0 + 64) and a barrier: each
+// 2b. after a gather of the lanes [lane0, lane0 + HALF) and a barrier: each
 // real slot adds 1 to its P snapshot's lane L + bin and dev to its Q
 // snapshot's lane rank-3, where they lie in those lanes, keeping the values
 // it found there. Ends before the caller's barrier.
 template <int RANK>
-__device__ inline void inject(const TileSmem<HALF>& sm, const TimeSmem& ts,
-                              int T, int su, int L, int n_bins, int lane0) {
+__device__ inline void inject(const TileSmem<HALF<RANK>>& sm,
+                              const TimeSmem& ts, int T, int su, int L,
+                              int n_bins, int lane0) {
+  constexpr int H = HALF<RANK>, HQ4 = H / 4;
   const int s = threadIdx.x;
   if (s >= T || sm.uid[s] >= su) return;
   float* ps = reinterpret_cast<float*>(sm.Ps + s * HQ4);
   float* qs = reinterpret_cast<float*>(sm.Qs + s * HQ4);
   const int b = ts.bin[s];
   const int lp = L + b - lane0, lq = RANK - 3 - lane0;
-  if (b >= 0 && b < n_bins && lp >= 0 && lp < HALF) {
+  if (b >= 0 && b < n_bins && lp >= 0 && lp < H) {
     ts.p_clean[s] = ps[lp];
     ps[lp] += 1.f;
   }
-  if (lq >= 0 && lq < HALF) {
+  if (lq >= 0 && lq < H) {
     ts.q_clean[s] = qs[lq];
     qs[lq] += ts.dev[s];
   }
@@ -164,12 +173,13 @@ struct Injected {
   const float* val;
 };
 
-// Column quad q of the shared half (the row's quad q_off + q) of the row
-// at sorted position p on one side (P or Q). If p starts its row's run of
-// equal keys, write snapshot + the run's summed deltas, the side's frozen
-// lanes left as they were: where the first slot's snapshot holds an
-// injection, the table's value goes back in its place.
-template <int ROW_Q4>
+// Column quad q of the shared half (HQ4 float4 a row; the row's quad
+// q_off + q) of the row at sorted position p on one side (P or Q). If p
+// starts its row's run of equal keys, write snapshot + the run's summed
+// deltas, the side's frozen lanes left as they were: where the first
+// slot's snapshot holds an injection, the table's value goes back in its
+// place.
+template <int ROW_Q4, int HQ4>
 __device__ inline void scatter_quad(
     float* table, long long base, const int* key, const float4* own,
     const float4* other, const float* e, int p, int q, int q_off, Frozen fz,
@@ -195,19 +205,20 @@ __device__ inline void scatter_quad(
 // run writes. `fp` / `fq`: each side's frozen lanes, `ip` / `iq` its
 // injections.
 template <int RANK>
-__device__ inline void scatter_half(const TileSmem<HALF>& sm, float* P,
+__device__ inline void scatter_half(const TileSmem<HALF<RANK>>& sm, float* P,
                                     float* Q, long long pbase,
                                     long long qbase, int q_off, Frozen fp,
                                     Frozen fq, Injected ip, Injected iq,
                                     float lr, float reg) {
+  constexpr int HQ4 = HALF<RANK> / 4;
   for (int w = threadIdx.x; w < 2 * MAX_T * HQ4; w += THREADS) {
     const int q = w % HQ4, rest = w / HQ4;
     if (rest < MAX_T)
-      scatter_quad<RANK / 4>(P, pbase, sm.keyU, sm.Ps, sm.Qs, sm.e, rest, q,
-                             q_off, fp, ip, lr, reg);
+      scatter_quad<RANK / 4, HQ4>(P, pbase, sm.keyU, sm.Ps, sm.Qs, sm.e,
+                                  rest, q, q_off, fp, ip, lr, reg);
     else
-      scatter_quad<RANK / 4>(Q, qbase, sm.keyI, sm.Qs, sm.Ps, sm.e,
-                             rest - MAX_T, q, q_off, fq, iq, lr, reg);
+      scatter_quad<RANK / 4, HQ4>(Q, qbase, sm.keyI, sm.Qs, sm.Ps, sm.e,
+                                  rest - MAX_T, q, q_off, fq, iq, lr, reg);
   }
 }
 
@@ -221,13 +232,14 @@ sgd_sweep_kernel(float* P, float* Q, const int* __restrict__ sa,
                  const int* __restrict__ tc, const int* __restrict__ tl,
                  Wavefront wf, float* __restrict__ sums, int tpg, int T,
                  int su, int si, float lr, float reg, float mu, int n_bins) {
-  constexpr int ROW_Q4 = RANK / 4, HALVES = RANK / HALF;
+  constexpr int H = HALF<RANK>, HQ4 = H / 4;
+  constexpr int ROW_Q4 = RANK / 4, HALVES = RANK / H;
   constexpr int ROWS = TIME ? 5 : 3;  // tile stream rows
   extern __shared__ float4 smem_raw[];
   __shared__ int run_slot;
-  const TileSmem<HALF> sm = TileSmem<HALF>::carve(smem_raw, T);
+  const TileSmem<H> sm = TileSmem<H>::carve(smem_raw, T);
   const TimeSmem ts = TimeSmem::carve(
-      reinterpret_cast<char*>(smem_raw) + TileSmem<HALF>::bytes(T), T);
+      reinterpret_cast<char*>(smem_raw) + TileSmem<H>::bytes(T), T);
   const int L = RANK - 3 - n_bins;  // the time form's latent lanes
   const Frozen fp = TIME ? Frozen{L, L + n_bins, RANK - 2}
                          : Frozen{0, 0, RANK - 2};
@@ -250,7 +262,7 @@ sgd_sweep_kernel(float* P, float* Q, const int* __restrict__ sa,
       if (TIME) load_time(ts, tt, T);
       const bool ends_stratum = await_tile(wf, t);
       __syncthreads();
-      gather<HALF, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
+      gather<H, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
                            /*use_bias=*/0);
       sort_keys(sm.keyU, sm.keyI);
       if (TIME) {
@@ -262,11 +274,11 @@ sgd_sweep_kernel(float* P, float* Q, const int* __restrict__ sa,
 #pragma unroll
       for (int h = 1; h < HALVES; ++h) {  // rank 128: lanes 64-127
         __syncthreads();
-        gather<HALF, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T,
+        gather<H, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T,
                              su, /*use_bias=*/0, h * HQ4);
         __syncthreads();
         if (TIME) {
-          inject<RANK>(sm, ts, T, su, L, n_bins, h * HALF);
+          inject<RANK>(sm, ts, T, su, L, n_bins, h * H);
           __syncthreads();
         }
         dot_part(sm, T, v);
@@ -281,7 +293,7 @@ sgd_sweep_kernel(float* P, float* Q, const int* __restrict__ sa,
                          ip, iq, lr, reg);
       if (HALVES > 1) {
         __syncthreads();
-        gather<HALF, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T,
+        gather<H, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T,
                              su, /*use_bias=*/0);
         __syncthreads();
         if (TIME) {
@@ -299,9 +311,9 @@ sgd_sweep_kernel(float* P, float* Q, const int* __restrict__ sa,
   }
 }
 
-template <bool TIME>
+template <int RANK, bool TIME>
 size_t smem_bytes(int T) {
-  return TileSmem<HALF>::bytes(T) + (TIME ? TimeSmem::bytes(T) : 0);
+  return TileSmem<HALF<RANK>>::bytes(T) + (TIME ? TimeSmem::bytes(T) : 0);
 }
 
 template <int RANK, bool TIME>
@@ -309,7 +321,7 @@ int launch(float* P, float* Q, const int* sa, const int* tc, const int* tl,
            const Wavefront& wf, float* sums, float* sse_out, int nt,
            int blocks, int tpg, int T, int su, int si, float lr, float reg,
            float mu, int n_bins, cudaStream_t stream) {
-  const size_t smem = smem_bytes<TIME>(T);
+  const size_t smem = smem_bytes<RANK, TIME>(T);
   cudaError_t err = cudaFuncSetAttribute(
       sgd_sweep_kernel<RANK, TIME>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -325,11 +337,15 @@ int launch(float* P, float* Q, const int* sa, const int* tc, const int* tl,
 template <bool TIME>
 int max_blocks(int T, int rank) {
   if (T < 1 || T > MAX_T) return -(int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<TIME>(T);
+  if (rank == 32)
+    return resident_blocks(sgd_sweep_kernel<32, TIME>, THREADS,
+                           smem_bytes<32, TIME>(T));
   if (rank == 64)
-    return resident_blocks(sgd_sweep_kernel<64, TIME>, THREADS, smem);
+    return resident_blocks(sgd_sweep_kernel<64, TIME>, THREADS,
+                           smem_bytes<64, TIME>(T));
   if (rank == 128)
-    return resident_blocks(sgd_sweep_kernel<128, TIME>, THREADS, smem);
+    return resident_blocks(sgd_sweep_kernel<128, TIME>, THREADS,
+                           smem_bytes<128, TIME>(T));
   return -(int)cudaErrorInvalidValue;
 }
 
@@ -344,6 +360,10 @@ int sweep(float* P, float* Q, const int* sa, const int* tc, const int* tl,
       (TIME && (n_bins < 1 || n_bins > rank - 4)))
     return (int)cudaErrorInvalidValue;
   const Wavefront wf{runs, wait, state, nruns};
+  if (rank == 32)
+    return launch<32, TIME>(P, Q, sa, tc, tl, wf, sums, sse_out, nt, blocks,
+                            tpg, T, su, si, lr, reg, mu, n_bins,
+                            (cudaStream_t)stream);
   if (rank == 64)
     return launch<64, TIME>(P, Q, sa, tc, tl, wf, sums, sse_out, nt, blocks,
                             tpg, T, su, si, lr, reg, mu, n_bins,

@@ -2,8 +2,8 @@
 plain PyTorch version.
 
 Replaces ``mfx/kernels/dense_pallas.py::_kernel_body`` (echo 1, spg 1)
-in its three bias forms, each with int4 codes at rank 64 and int8 codes
-at ranks 64 and 128 (rank 32, echo and spg are ROADMAP Queue 2 item 3):
+in its three bias forms, each with int4 codes at ranks 32 and 64 and int8
+codes at ranks 32, 64 and 128 (echo and spg are ROADMAP Queue 2 item 3):
 
 - ``bias='lane'`` (``lane=True``; ``bias_mode='lane'``): the biases ride
   in two factor lanes of the tables, which the update freezes;
@@ -55,7 +55,8 @@ DSTAR = 16.0
 
 # (rank, code format) of the kernel's instances, each built in every bias
 # form (csrc/dense_phase.cu's LANE, FROZEN, NONE)
-_FORMS = {(64, "int4"), (64, "int8"), (128, "int8")}
+_FORMS = {(32, "int4"), (32, "int8"), (64, "int4"), (64, "int8"),
+          (128, "int8")}
 BIAS_FORMS = ("lane", "frozen", "none")
 # strata whose dQ partials the kernel keeps at once (su/64 x si x rank f32
 # each: 4 MB at 1024² and rank 64, 2 MB at 512² and rank 128); a stratum
@@ -232,8 +233,10 @@ def group_prefix(grp, n):
 
 
 def _apply_units(si, rank):
-    """Q-apply units a stratum (csrc/dense_phase.cu's ``apply_rows``)."""
-    rows = 256 * 64 // rank
+    """Q-apply units a stratum (csrc/dense_phase.cu's ``apply_rows``:
+    256 rows a unit at ranks 32 and 64, 128 at rank 128; half where that
+    does not divide si)."""
+    rows = min(256, 256 * 64 // rank)
     return si // (rows if si % rows == 0 else rows // 2)
 
 
@@ -347,18 +350,17 @@ def launch(lib, P, Q, grp, lr, reg, mu, su, si, runs, wait, order, ring,
 
 
 def check_kernel_form(P, grp, su, si):
-    """What the kernel is built for, in each of its bias forms: rank 64
-    with int4 or int8 codes, rank 128 with int8 codes (the reference's
-    forms: it takes int8 only at rank 128), user blocks that are multiples
-    of 64 and item windows that are multiples of 128; raises
-    NotImplementedError naming the ROADMAP item otherwise (rank 32: the
-    plain version runs it on the CPU, the card has no instance yet)."""
+    """What the kernel is built for, in each of its bias forms: ranks 32
+    and 64 with int4 or int8 codes, rank 128 with int8 codes (the
+    reference's forms: it takes int8 only at rank 128), user blocks that
+    are multiples of 64 and item windows that are multiples of 128; raises
+    NotImplementedError naming the ROADMAP item otherwise."""
     rank, rfmt = P.shape[1], code_format(grp["R"])
     if (rank, rfmt) not in _FORMS or su % 64 or si % 128:
         raise NotImplementedError(
-            "dense_phase kernel is built for rank 64 (int4 or int8 codes) "
-            "and rank 128 (int8), user blocks that are multiples of 64 and "
-            "item windows that are multiples of 128 (got rank "
+            "dense_phase kernel is built for ranks 32 and 64 (int4 or int8 "
+            "codes) and rank 128 (int8), user blocks that are multiples of "
+            "64 and item windows that are multiples of 128 (got rank "
             f"{rank}, {rfmt}, su={su}, si={si}); other forms are ROADMAP "
             "Queue 2 item 3"
         )

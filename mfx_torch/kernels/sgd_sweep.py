@@ -4,11 +4,12 @@ plain PyTorch version.
 
 They replace the two bodies of ``mfx/kernels/sgd_pallas.py``'s sweep call:
 
-- :func:`sgd_sweep`: ``_kernel_body`` with ``bias_mode='lane'`` (ranks 64
-  and 128; the biases ride in two factor lanes that the update freezes);
+- :func:`sgd_sweep`: ``_kernel_body`` with ``bias_mode='lane'`` (ranks 32,
+  64 and 128; the biases ride in two factor lanes that the update
+  freezes);
 - :func:`sgd_sweep_time`: the same body with ``time_mode=True`` (blocked
-  timeSVD, ranks 64 and 128): the lane form with each slot's time bin and
-  deviation injected into its snapshot rows;
+  timeSVD, ranks 32, 64 and 128): the lane form with each slot's time bin
+  and deviation injected into its snapshot rows;
 - :func:`sgd_sweep_tile`: ``_kernel_body`` with ``bias_mode='tile'`` or
   with no biases (ranks 32 and 64; ``bu`` / ``bi`` are vectors beside the
   tables and every lane updates);
@@ -39,11 +40,15 @@ import torch
 from mfx_torch.kernels import _build
 from mfx_torch.kernels.packing import row_add
 
-__all__ = ["sgd_sweep", "sgd_sweep_plain", "sgd_sweep_time", "sgd_sweep_tile",
+__all__ = ["LANE_RANKS", "sgd_sweep", "sgd_sweep_plain", "sgd_sweep_time",
+           "sgd_sweep_tile",
            "sgd_sweep_tile_plain", "sgd_sweep_epoch", "sgd_sweep_epoch_plain",
            "sgd_sweep_step_u",
            "sgd_sweep_step_u_plain", "check_sweep_args",
            "check_kernel_limits", "check_deps", "wavefront_launch"]
+
+# the ranks csrc/sgd_sweep.cu is built for, in its lane and time forms
+LANE_RANKS = (32, 64, 128)
 
 
 def check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg, bu=None, bi=None,
@@ -85,8 +90,8 @@ def check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg, bu=None, bi=None,
 
 def check_kernel_limits(who, P, tl, su, si, ranks=(64,)):
     """What the sweep kernels are built for: the ranks in ``ranks``
-    (64 and 128 for the lane-bias sweep, 64 for BPR, 32 and 64 for the
-    tile-bias ones), T <= 256, blocks <= 1024."""
+    (32, 64 and 128 for the lane-bias sweep and its time form, 64 for BPR,
+    32 and 64 for the tile-bias ones), T <= 256, blocks <= 1024."""
     if P.shape[1] not in ranks:
         raise NotImplementedError(
             f"{who} kernel is built for rank "
@@ -204,7 +209,7 @@ def _lane_sweep(wrapper, P, Q, sa, tc, tl, lr, reg, mu, su, si, tpg, deps,
                                tpg=tpg, n_bins=n_bins)
     if P.device.type != "cuda":
         raise ValueError(f"{who}: no kernel for device {P.device}")
-    check_kernel_limits(who, P, tl, su, si, ranks=(64, 128))
+    check_kernel_limits(who, P, tl, su, si, ranks=LANE_RANKS)
     nt, T = tl.shape[0], tl.shape[2]
     lib = _build.load_library()
     runs, wait, state, sums, grid = wavefront_launch(
@@ -227,7 +232,7 @@ def _lane_sweep(wrapper, P, Q, sa, tc, tl, lr, reg, mu, su, si, tpg, deps,
 def sgd_sweep(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg, deps=None,
               blocks=None):
     """One item-sweep. ``P`` is the padded lane-form user table
-    (A·su, rank), rank 64 or 128; ``Q`` the sweep's item segment
+    (A·su, rank), rank 32, 64 or 128; ``Q`` the sweep's item segment
     (nwin·si, rank), a contiguous row range of the padded item table;
     ``sa`` (NT/tpg,) the user block of each group of tpg tiles; ``tc``
     (NT,) each tile's sweep-local window; ``tl`` the (NT, 3, T) tile

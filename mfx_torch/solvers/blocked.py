@@ -4,8 +4,9 @@ for every ``sgd.bias_mode``, with the full-span dense phase on or off:
 
 - ``'lane'`` (the ``ml25m_rank64`` preset at rank 64 with int4 codes,
   ``netflix100m_rank128_dp`` with ``parallel.mode=single`` at rank 128
-  with int8 codes): lane-form tables, the lane form of
-  ``kernels.dense_phase`` then ``kernels.sgd_sweep``;
+  with int8 codes, ``ml1m_rank32_biased`` with ``sgd.bias_mode=lane`` at
+  rank 32): lane-form tables, the lane form of ``kernels.dense_phase``
+  then ``kernels.sgd_sweep``;
 - ``'tile'`` (the ``ml1m_rank32_biased`` preset) or no biases
   (``model.use_bias=false``): canonical tables with ``bu`` / ``bi``
   beside them; the dense phase in its frozen-bias form, each group

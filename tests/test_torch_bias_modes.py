@@ -200,3 +200,68 @@ def test_epoch_mode_with_every_stratum_dense():
     assert timings["sweep_tiles"] == [] and sgd_sweep_epoch.launches == before
     assert np.isfinite(float(tr))
     assert float(np.abs(m.bu.numpy() - arrays["bu"]).max()) > 1e-3
+
+
+# ml1m_rank32_biased on an ML-1M-shaped cut (users and items / 10, ratings
+# / 100, the ml-1m synthetic's whole stars and skew) at su = si = 256,
+# T = 64, 3 epochs: the dense phase on with the preset's automatic
+# carving (every stratum dense here, as on the full data) in each bias
+# form, and the lane sweep with the dense phase off
+RANK32_RUNS = {
+    "lane": ["sgd.bias_mode=lane", "sgd.dense_span=full", "sgd.dense_chi=-1"],
+    "tile": ["sgd.dense_span=full", "sgd.dense_chi=-1"],
+    "no_bias": ["model.use_bias=false", "sgd.dense_span=full",
+                "sgd.dense_chi=-1"],
+    "lane_no_dense": ["sgd.bias_mode=lane"],
+}
+
+
+@pytest.mark.parametrize("run", list(RANK32_RUNS))
+def test_rank32_runs_match_reference_trainer(run):
+    """The port's CPU run against the reference trainer (Pallas in
+    interpret mode) on the reference's plan bits, from the same tables:
+    train and held-out RMSE within 1e-5 each epoch, tables and biases
+    within 1e-4 after 3 epochs (the rank-64 tolerances above)."""
+    from mfx.config import apply_overrides as apply_j
+    from mfx.config import preset as preset_j
+
+    over = RANK32_RUNS[run] + ["sgd.ublock=256", "sgd.iblock=256",
+                               "sgd.tile=64", "sgd.epochs=3",
+                               "sgd.plan_device=device"]
+    cfg_t, cfg_j = (apply_overrides(preset("ml1m_rank32_biased"), over),
+                    apply_j(preset_j("ml1m_rank32_biased"), over))
+    use_bias, rank = cfg_t.model.use_bias, cfg_t.model.rank
+    coo = synthetic.make_synthetic(604, 370, 10_002, rank=32, seed=101,
+                                   star_step=1.0, user_zipf_s=0.6)
+    train, test = train_test_split(coo, test_frac=0.1, seed=0)
+    m0 = init_model(1, coo.num_users, coo.num_items, rank,
+                    global_mean=train.global_mean)
+    arrays = {k: np.asarray(getattr(m0, k)) for k in KEYS + ("mu",)}
+    if use_bias:
+        rng = np.random.default_rng(3)
+        arrays["bu"] = rng.normal(0, 0.1, coo.num_users).astype(np.float32)
+        arrays["bi"] = rng.normal(0, 0.1, coo.num_items).astype(np.float32)
+    m0 = m0.__class__(**{k: jnp.asarray(arrays[k]) for k in KEYS}, mu=m0.mu)
+    ref = []
+    for _, view, tr in train_j(m0, train, cfg_j.sgd, use_bias=use_bias,
+                               seed=0, tpg=4, exact=True, interpret=True):
+        m = view.materialize()
+        ref.append((float(tr), rmse_mae_j(m, test)[0],
+                    {k: np.asarray(getattr(m, k)) for k in KEYS}))
+    timings = {}
+    got = [(float(tr), rmse_mae(m, test)[0], model_to_numpy(m))
+           for _, m, tr in train_epochs_blocked(
+               model_from_numpy(arrays, device="cpu"), train, cfg_t.sgd,
+               use_bias, seed=0, device="cpu", timings=timings,
+               plan_rand=_jax_bits(0))]
+    assert len(got) == len(ref) == 3
+    dense = "dense_info" in timings
+    assert dense == (run != "lane_no_dense")
+    if dense:  # the automatic carving leaves no stratum sparse here
+        assert timings["dense_info"]["dense_frac"] == 1.0
+    for (tr_t, te_t, _), (tr_j, te_j, _) in zip(got, ref):
+        assert abs(tr_t - tr_j) <= 1e-5 and abs(te_t - te_j) <= 1e-5
+    for k in KEYS:
+        np.testing.assert_allclose(got[-1][2][k], ref[-1][2][k], rtol=0,
+                                   atol=1e-4, err_msg=k)
+    assert got[-1][0] < got[0][0]

@@ -15,6 +15,7 @@ import mfx_torch.config as cfg_t
 from mfx_torch.data import loaders as loaders_t
 from mfx_torch.data import split as split_t
 from mfx_torch.data import synthetic as syn_t
+from torch_native_lib import native_lib
 
 
 def _coo_equal(a, b):
@@ -150,7 +151,6 @@ def test_conflict_free_batches_are_the_references(seed, batch_size):
     """The partition copy's O(n) loop returns exactly the batches of the
     reference's native greedy and of its NumPy fallback, conflict-free,
     in the same order."""
-    from mfx import native
     from mfx.data import partition as part_j
     from mfx_torch.data import partition as part_t
 
@@ -159,6 +159,7 @@ def test_conflict_free_batches_are_the_references(seed, batch_size):
     got = part_t.partition_conflict_free(
         coo.user, coo.item, batch_size, perm, num_users=coo.num_users,
         num_items=coo.num_items)
+    native = native_lib()
     assert native.available()
     ref = part_j.partition_conflict_free(
         coo.user, coo.item, batch_size, perm, num_users=coo.num_users,

@@ -183,12 +183,15 @@ def _assert_port_matches(model, ref, sse_j, meta, groups, atol=1e-5):
     assert abs(sse_t - sse_j) <= 1e-5 * sse_j
 
 
-# int4 at rank 64 (the ml25m_rank64 form) within 1e-5; the int8 forms
-# (rank 128 is the netflix100m_rank128_dp form) within the reference's own
-# dense-kernel tolerance, 5e-6 (tests/unit/test_dense_path.py)
+# int4 at ranks 64 (the ml25m_rank64 form) and 32 (ml1m_rank32_biased
+# with the dense phase on) within 1e-5; the int8 forms (rank 128 is the
+# netflix100m_rank128_dp form) within the reference's own dense-kernel
+# tolerance, 5e-6 (tests/unit/test_dense_path.py)
 @pytest.mark.parametrize("rank,rfmt,atol", [(64, "int4", 1e-5),
                                             (64, "int8", 5e-6),
-                                            (128, "int8", 5e-6)])
+                                            (128, "int8", 5e-6),
+                                            (32, "int4", 1e-5),
+                                            (32, "int8", 5e-6)])
 def test_plain_dense_phase_matches_pallas_interpret(rank, rfmt, atol):
     tr = _train()
     (meta_j, groups_j, _, _), (meta, groups, _, _) = _preps(tr, rfmt=rfmt,

@@ -62,8 +62,10 @@ def _model(coo, rank):
                        mu=m.mu)
 
 
-# int4 (the ml25m_rank64 form) and int8 codes at rank 64; int8 at rank 128
-FORMS = [(64, "int4", 0.5), (64, "int8", None), (128, "int8", 1.0)]
+# int4 (the ml25m_rank64 form) and int8 codes at rank 64; int8 at rank
+# 128; int4 (ml1m_rank32_biased's whole stars) and int8 at rank 32
+FORMS = [(64, "int4", 0.5), (64, "int8", None), (128, "int8", 1.0),
+         (32, "int4", 1.0), (32, "int8", None)]
 
 
 @pytest.mark.parametrize("rank,rfmt,star", FORMS)

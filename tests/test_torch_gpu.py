@@ -75,7 +75,7 @@ def _check(run, plain, P, Q):
     assert bool(torch.isfinite(P1).all()) and bool(torch.isfinite(Q1).all())
 
 
-@pytest.mark.parametrize("rank", [RANK, 128])
+@pytest.mark.parametrize("rank", [RANK, 128, 32])
 @pytest.mark.parametrize("tile", [T, 200])
 def test_sgd_sweep_kernel_matches_plain(cuda, tile, rank):
     train, _, model, u, i, r = _state(cuda, rank=rank)
@@ -92,13 +92,13 @@ def test_sgd_sweep_kernel_matches_plain(cuda, tile, rank):
         assert sgd_sweep.launches == before + 2
 
 
-@pytest.mark.parametrize("rank", [RANK, 128])
+@pytest.mark.parametrize("rank", [RANK, 128, 32])
 @pytest.mark.parametrize("distinct", [4, 64, 1024])
 def test_sgd_sweep_kernel_hot_rows_and_pads(cuda, distinct, rank):
     """Random full tiles at blocks of 1024 and T = 256 where every slot
     repeats one of ``distinct`` rows per side, the last tile half pad:
     long duplicate runs exercise the kernel's segment sums (at rank 128
-    in both halves of the row)."""
+    in both halves of the row, at rank 32 on 8 threads a row)."""
     g = torch.Generator(device=cuda).manual_seed(distinct)
     su = si = 1024
     nt, tile = 32, 256
@@ -123,7 +123,8 @@ def test_sgd_sweep_kernel_hot_rows_and_pads(cuda, distinct, rank):
 
 
 @pytest.mark.parametrize("rank,rfmt", [(RANK, "int4"), (RANK, "int8"),
-                                       (128, "int8")])
+                                       (128, "int8"), (32, "int4"),
+                                       (32, "int8")])
 def test_dense_phase_kernel_matches_plain(cuda, rank, rfmt):
     train, _, model, u, i, r = _state(cuda, rank=rank)
     meta, groups, _, info = prepare_dense_full(u, i, r, U, I, SU, SI,
@@ -142,10 +143,10 @@ def test_dense_phase_kernel_matches_plain(cuda, rank, rfmt):
         assert dense_phase.launches == before + 2
 
 
-@pytest.mark.parametrize("rank", [RANK, 128])
+@pytest.mark.parametrize("rank", [RANK, 128, 32])
 def test_trainer_through_both_kernels_is_repeatable(cuda, rank):
-    """Two runs of the trainer (int4 codes at rank 64, int8 at rank 128)
-    bitwise equal, and one epoch on the CPU from the card's plan bits
+    """Two runs of the trainer (int4 codes at ranks 64 and 32, int8 at rank
+    128) bitwise equal, and one epoch on the CPU from the card's plan bits
     within 1e-5 / 1e-4."""
     train, test, model, *_ = _state(cuda, rank=rank)
     runs = []
@@ -210,7 +211,7 @@ def _frozen_unchanged(P, Q, P0, Q0, rank, n_bins):
 
 
 @pytest.mark.parametrize("rank,n_bins", [(RANK, 8), (RANK, 30), (128, 30),
-                                         (128, 70)])
+                                         (128, 70), (32, 16), (32, 28)])
 def test_sgd_sweep_time_kernel_matches_plain(cuda, rank, n_bins):
     """The time form against its plain version on every sweep of a small
     temporal plan (at rank 128 with 70 bins the bin lanes straddle lane
@@ -231,7 +232,8 @@ def test_sgd_sweep_time_kernel_matches_plain(cuda, rank, n_bins):
         _frozen_unchanged(Pt, Qt, P, Q, rank, n_bins)
 
 
-@pytest.mark.parametrize("rank,n_bins", [(RANK, 30), (128, 30), (128, 70)])
+@pytest.mark.parametrize("rank,n_bins", [(RANK, 30), (128, 30), (128, 70),
+                                         (32, 16), (32, 28)])
 @pytest.mark.parametrize("distinct", [4, 1024])
 def test_sgd_sweep_time_kernel_hot_rows_and_pads(cuda, distinct, rank,
                                                  n_bins):
@@ -275,17 +277,18 @@ def test_sgd_sweep_time_kernel_hot_rows_and_pads(cuda, distinct, rank,
     _frozen_unchanged(Pt, Qt, P, Q, rank, n_bins)
 
 
-@pytest.mark.parametrize("rank", [RANK, 128])
+@pytest.mark.parametrize("rank", [RANK, 128, 32])
 def test_blocked_timesvd_through_the_kernel_is_repeatable(cuda, rank):
-    """Two runs of ``train_epochs_timesvd_blocked`` (2 epochs) bitwise
-    equal through the time form, never its plain version; the train RMSE
-    falls."""
+    """Two runs of ``train_epochs_timesvd_blocked`` (2 epochs; 30 bins, 16
+    at rank 32) bitwise equal through the time form, never its plain
+    version; the train RMSE falls."""
     from mfx_torch.config import TimeSVDConfig
     from mfx_torch.solvers.timesvd_blocked import (
         train_epochs_timesvd_blocked)
 
-    train, tsm, *_ = _time_case(cuda, rank, 30, SU, T, 3)
-    cfg = TimeSVDConfig(lr=0.01, reg=0.02, epochs=2, n_bins=30,
+    nb = 16 if rank == 32 else 30
+    train, tsm, *_ = _time_case(cuda, rank, nb, SU, T, 3)
+    cfg = TimeSVDConfig(lr=0.01, reg=0.02, epochs=2, n_bins=nb,
                         kernel="pallas", reg_alpha=0.02)
     base = init_model(torch.Generator(device=cuda).manual_seed(0), U, I,
                       rank, global_mean=train.global_mean)
@@ -696,11 +699,13 @@ def _wavefront_case(kernel, dev):
     takes user blocks of 1,024 (rank 64, as phase 3 of ``chip_smoke.py``
     runs it) over 9,000 users, where the kernel keeps its pools in device
     memory; ``step_u`` keeps them in shared memory."""
-    if kernel in ("sgd", "sgd_r128", "tile", "step_u", "step_u_su1024",
-                  "epoch"):
+    # the rank of a case named ..._r128 or ..._r32
+    rank = (128 if kernel.endswith("_r128") else 32 if kernel.endswith("_r32")
+            else RANK)
+    if kernel in ("sgd", "sgd_r128", "sgd_r32", "tile", "step_u",
+                  "step_u_su1024", "epoch"):
         users = 9000 if kernel == "step_u_su1024" else U
-        train, _, model, u, i, r = _state(
-            dev, users=users, rank=128 if kernel == "sgd_r128" else RANK)
+        train, _, model, u, i, r = _state(dev, users=users, rank=rank)
         su = 1024 if kernel == "step_u_su1024" else 64
         si = 64
         skel = pdv.build_plan_skeleton(u, i, users, I, su, si, T, TPG, 8)
@@ -709,7 +714,7 @@ def _wavefront_case(kernel, dev):
         seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
         args = (sw.sa, sw.tc, tl[sw.t0:sw.t1], LR, REG, model.mu)
         kw = dict(su=su, si=si, tpg=TPG)
-        if kernel in ("sgd", "sgd_r128"):
+        if kernel.startswith("sgd"):
             return (lambda tabs, blocks, table=True: sgd_sweep(
                         tabs[0], tabs[1][seg], *args, **kw, blocks=blocks,
                         deps=sw.deps if table else None),
@@ -744,13 +749,13 @@ def _wavefront_case(kernel, dev):
                     tabs[0], tabs[1][seg], tabs[2], tabs[3][seg], *args,
                     su=su, si=si, tpg=TPG),
                 plain_tables(model, su, si, dev), sw.deps)
-    if kernel in ("time", "time_r128"):
-        rank = 128 if kernel == "time_r128" else RANK
-        _, tsm, tl, sweeps, P, Q = _time_case(dev, rank, 30, 64, T, 8)
+    if kernel.startswith("time"):
+        nb = 16 if rank == 32 else 30
+        _, tsm, tl, sweeps, P, Q = _time_case(dev, rank, nb, 64, T, 8)
         sw = sweeps[0]
         seg = slice(sw.win0 * 64, (sw.win0 + sw.nwin) * 64)
         args = (sw.sa, sw.tc, tl[sw.t0:sw.t1], LR, REG, tsm.mu)
-        kw = dict(su=64, si=64, tpg=TPG, n_bins=30)
+        kw = dict(su=64, si=64, tpg=TPG, n_bins=nb)
         return (lambda tabs, blocks, table=True: sgd_sweep_time(
                     tabs[0], tabs[1][seg], *args, **kw, blocks=blocks,
                     deps=sw.deps if table else None),
@@ -759,8 +764,7 @@ def _wavefront_case(kernel, dev):
                 (P, Q), sw.deps)
     if kernel.startswith("dense"):
         rfmt = "int8" if "int8" in kernel else "int4"
-        train, _, model, u, i, r = _state(
-            dev, rank=128 if kernel.endswith("r128") else RANK)
+        train, _, model, u, i, r = _state(dev, rank=rank)
         su = si = 128
         (meta,), (grp,), _, _ = prepare_dense_full(u, i, r, U, I, su, si,
                                                    chi_min=0.01, nwd=11,
@@ -810,7 +814,10 @@ def _wavefront_case(kernel, dev):
 WAVEFRONT_KERNELS = ["sgd", "sgd_r128", "bpr", "tile", "step_u",
                      "step_u_su1024", "dense", "dense_int8", "dense_int8_r128",
                      "time", "time_r128", "epoch", "dense_frozen",
-                     "dense_none", "dense_frozen_int8_r128"]
+                     "dense_none", "dense_frozen_int8_r128", "sgd_r32",
+                     "time_r32", "dense_r32", "dense_int8_r32",
+                     "dense_frozen_r32", "dense_none_r32",
+                     "dense_frozen_int8_r32"]
 
 
 @pytest.mark.parametrize("kernel", WAVEFRONT_KERNELS)
@@ -1034,7 +1041,9 @@ def test_sgd_sweep_epoch_kernel_with_zero_biases_is_the_bias_free_one(
 
 DENSE_FORMS = [("frozen", 64, "int4"), ("none", 64, "int4"),
                ("frozen", 64, "int8"), ("none", 64, "int8"),
-               ("frozen", 128, "int8"), ("none", 128, "int8")]
+               ("frozen", 128, "int8"), ("none", 128, "int8"),
+               ("frozen", 32, "int4"), ("none", 32, "int4"),
+               ("frozen", 32, "int8"), ("none", 32, "int8")]
 
 
 def _dense_form_run(bias, grp, seg, mu, su, si, blocks=None, table=True,

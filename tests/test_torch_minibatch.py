@@ -35,6 +35,7 @@ from mfx_torch.eval.metrics import rmse_mae
 from mfx_torch.kernels import minibatch as mb
 from mfx_torch.models.mf import baseline_biases
 from mfx_torch.solvers import sgd
+from torch_native_lib import native_lib
 
 KEYS = ("P", "Q", "bu", "bi")
 
@@ -216,7 +217,6 @@ def test_conflict_free_plan_of_ml100k_is_fast():
     0.05 s unloaded), where the reference's NumPy fallback takes about a
     minute; its batches are the native planner's. Best of five, so that a
     loaded runner does not decide the time."""
-    from mfx import native
     from mfx.data import partition as part_j
 
     cfg = preset("ml100k_rank16")
@@ -230,6 +230,7 @@ def test_conflict_free_plan_of_ml100k_is_fast():
             train.user, train.item, cfg.sgd.batch_size, perm,
             num_users=train.num_users, num_items=train.num_items)
         best = min(best, time.perf_counter() - t0)
+    native = native_lib()
     assert native.available()
     want = part_j.partition_conflict_free(
         train.user, train.item, cfg.sgd.batch_size, perm,

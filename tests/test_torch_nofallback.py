@@ -330,33 +330,71 @@ def test_sweep_wrappers_cuda_route_reaches_no_plain_version(module, wrappers):
 
 
 @pytest.mark.parametrize("form,item", [
-    ("sgd_sweep rank 32", "Queue 2 item 2"),
+    ("sgd_sweep rank 16", "Queue 2 item 2"),
     ("sgd_sweep rank 96", "Queue 2 item 2"),
     ("dense_phase rank 128 int4", "Queue 2 item 3"),
-    ("dense_phase rank 32 int8", "Queue 2 item 3"),
+    ("dense_phase rank 16 int8", "Queue 2 item 3"),
 ])
 def test_forms_without_a_kernel_raise(form, item):
     """A rank or code format the kernels lack is refused before any launch
     (the checks the wrappers make on a card's tensors), naming the ROADMAP
     item; the kernels' own forms pass."""
     from mfx_torch.kernels.dense_phase import check_kernel_form
-    from mfx_torch.kernels.sgd_sweep import check_kernel_limits
+    from mfx_torch.kernels.sgd_sweep import LANE_RANKS, check_kernel_limits
 
     who, _, rank, *fmt = form.split()
     rank = int(rank)
     P = torch.zeros(512, rank)
     if who == "sgd_sweep":
         tl = torch.zeros(4, 3, 256, dtype=torch.int32)
-        for ok in (64, 128):
+        for ok in LANE_RANKS:
             check_kernel_limits(who, torch.zeros(512, ok), tl, 512, 512,
-                                ranks=(64, 128))
+                                ranks=LANE_RANKS)
         with pytest.raises(NotImplementedError, match=item):
-            check_kernel_limits(who, P, tl, 512, 512, ranks=(64, 128))
+            check_kernel_limits(who, P, tl, 512, 512, ranks=LANE_RANKS)
         return
     codes = {"int4": torch.zeros(1, 512, 256, dtype=torch.uint8),
              "int8": torch.zeros(1, 512, 512, dtype=torch.int8)}
-    for ok_rank, ok_fmt in ((64, "int4"), (64, "int8"), (128, "int8")):
+    for ok_rank, ok_fmt in ((32, "int4"), (32, "int8"), (64, "int4"),
+                            (64, "int8"), (128, "int8")):
         check_kernel_form(torch.zeros(512, ok_rank), {"R": codes[ok_fmt]},
                           512, 512)
     with pytest.raises(NotImplementedError, match=item):
         check_kernel_form(P, {"R": codes[fmt[0]]}, 512, 512)
+
+
+def test_chip_smoke_holds_each_run_to_its_kernels():
+    """``chip_smoke.kernel_counts`` reads every training kernel's launches
+    (``dense_phase`` by bias form) and zeroes them on ``reset``;
+    ``expect_kernels`` fails a run that missed a wanted kernel or launched
+    any other."""
+    import chip_smoke as cs
+
+    saved = (sgd_sweep.launches, sgd_sweep_time.launches,
+             dict(dense_phase.form_launches))
+    try:
+        counts = cs.kernel_counts(reset=True)
+        assert set(counts) == set(cs.TRAIN_KERNELS) | {
+            f"dense_phase:{f}" for f in ("lane", "frozen", "none")}
+        assert not any(counts.values())
+        sgd_sweep.launches, dense_phase.form_launches["frozen"] = 3, 2
+        counts = cs.kernel_counts()
+        cs.expect_kernels("run", counts, {"sgd_sweep", "dense_phase:frozen"})
+        for want in ({"sgd_sweep"}, {"sgd_sweep", "dense_phase:frozen",
+                                     "sgd_sweep_time"}):
+            with pytest.raises(AssertionError, match="not the expected"):
+                cs.expect_kernels("run", counts, want)
+    finally:
+        sgd_sweep.launches, sgd_sweep_time.launches = saved[:2]
+        dense_phase.form_launches = saved[2]
+
+
+def test_chip_smoke_sums_limit_scales_with_the_largest_sum():
+    """``chip_smoke.sums_limit``: sqrt(terms) float32 spacings at a sum
+    tensor's largest magnitude (``ulps``), never more than TOL."""
+    import chip_smoke as cs
+
+    assert cs.ulps(torch.tensor([300.0, -2.0])) == 2.0 ** -15
+    assert cs.ulps(torch.tensor([-0.75, 0.5])) == 2.0 ** -24
+    assert cs.sums_limit(torch.tensor([40.0, -3.0]), 256) == 16 * 2.0 ** -18
+    assert cs.sums_limit(torch.tensor([-3000.0]), 1024) == cs.TOL

@@ -25,8 +25,11 @@ SU = SI = 256
 T, TPG, RANK = 64, 4, 64
 LR, REG = 0.012, 0.04
 # rank 128 (pack 1, the netflix100m_rank128_dp geometry) at the shapes of
-# tests/unit/test_pallas_kernel.py::test_pallas_rank128_pack1_interpret
-GEOM = {64: dict(users=U, items=I, n=6000, su=SU, tile=T, seed=9, lr=LR,
+# tests/unit/test_pallas_kernel.py::test_pallas_rank128_pack1_interpret;
+# rank 32 (pack 4, ml1m_rank32_biased with bias_mode='lane') at rank 64's
+GEOM = {32: dict(users=U, items=I, n=6000, su=SU, tile=T, seed=9, lr=LR,
+                 reg=REG, atol=1e-5),
+        64: dict(users=U, items=I, n=6000, su=SU, tile=T, seed=9, lr=LR,
                  reg=REG, atol=1e-5),
         128: dict(users=300, items=260, n=3000, su=128, tile=32, seed=5,
                   lr=0.05, reg=0.02, atol=2e-6)}
@@ -66,7 +69,7 @@ def test_sweep_geometry_matches_reference():
     assert sweep_geometry(17770, 128, 512) == 35  # the netflix preset
 
 
-@pytest.mark.parametrize("rank", [64, 128])
+@pytest.mark.parametrize("rank", [32, 64, 128])
 def test_plain_sweep_matches_pallas_interpret(rank):
     g = GEOM[rank]
     users, items, su, lr, reg = (g["users"], g["items"], g["su"], g["lr"],
@@ -101,10 +104,10 @@ def test_plain_sweep_matches_pallas_interpret(rank):
     got = pk_t.from_lane_model(model_from_numpy(
         {"P": P[:users].numpy(), "Q": Q[:items].numpy(),
          "bu": np.zeros(users), "bi": np.zeros(items), "mu": mu}, device="cpu"))
-    # rank 64: the TPU path sums 128 lanes (two rank-64 slots) where the
-    # port sums 64, and the segment sums associate differently: f32 noise
-    # only; rank 128 (one slot a lane row) within the reference kernel
-    # test's own 2e-6
+    # ranks 32 and 64: the TPU path sums 128 lanes (four or two slots)
+    # where the port sums the rank's, and the segment sums associate
+    # differently: f32 noise only; rank 128 (one slot a lane row) within
+    # the reference kernel test's own 2e-6
     for k in ("P", "Q", "bu", "bi"):
         np.testing.assert_allclose(getattr(got, k).numpy(),
                                    np.asarray(getattr(ref, k)), rtol=0,

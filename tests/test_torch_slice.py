@@ -149,8 +149,9 @@ def test_unported_variants_raise(override, what):
     """Each variant raises, naming its field; except ``bias_mode=tile``
     (tile biases with the dense phase on), which raised until the
     frozen-bias dense form was ported: it now trains (its parity with the
-    reference: tests/test_torch_bias_modes.py), and what still raises
-    beside it is the card's form check at rank 32 (Queue 2 item 3)."""
+    reference: tests/test_torch_bias_modes.py); the card's form check
+    takes rank 32 and still refuses a rank it has no instance of (Queue 2
+    item 3)."""
     import dataclasses
 
     from mfx_torch.kernels.dense_phase import check_kernel_form
@@ -171,8 +172,9 @@ def test_unported_variants_raise(override, what):
         assert timings["dense_info"]["num_strata"] == 5
         assert np.isfinite(float(tr)) and float(m.bu.abs().max()) > 0
         grp = {"R": torch.zeros((1, 256, 128), dtype=torch.uint8)}
+        check_kernel_form(torch.zeros(256, 32), grp, 256, 256)
         with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-            check_kernel_form(torch.zeros(256, 32), grp, 256, 256)
+            check_kernel_form(torch.zeros(256, 16), grp, 256, 256)
         return
     with pytest.raises(NotImplementedError, match=what):
         next(train_epochs_blocked(model, train, cfg, True, device="cpu"))

@@ -137,10 +137,10 @@ def test_unported_variants_raise(overrides, what):
     ``step_user_batch``, and ``bias_mode='epoch'``), which raised until
     the frozen-bias dense form and the epoch form were ported: they now
     train on the CPU (rank 32 through the plain versions; their parity
-    with the reference: tests/test_torch_bias_modes.py), and what still
-    raises beside them is the card's dense form check at rank 32 (Queue 2
-    item 3) and, for 'epoch', the reference's own refusal of
-    ``step_user_batch``."""
+    with the reference: tests/test_torch_bias_modes.py); the card's dense
+    form check takes rank 32 and still refuses a rank it has no instance
+    of (Queue 2 item 3); for 'epoch', the reference's own refusal of
+    ``step_user_batch`` stands."""
     from mfx_torch.kernels.dense_phase import check_kernel_form
 
     cfg = apply_overrides(preset("ml1m_rank32_biased"), CUT + overrides)
@@ -161,8 +161,9 @@ def test_unported_variants_raise(overrides, what):
                 apply_overrides(cfg, ["sgd.step_user_batch=true"])
         else:
             grp = {"R": torch.zeros((1, 128, 64), dtype=torch.uint8)}
+            check_kernel_form(torch.zeros(128, 32), grp, 128, 128)
             with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-                check_kernel_form(torch.zeros(128, 32), grp, 128, 128)
+                check_kernel_form(torch.zeros(128, 16), grp, 128, 128)
         return
     with pytest.raises(NotImplementedError, match=what):
         next(train_epochs_blocked(model, train, cfg.sgd, True, device="cpu"))

@@ -28,8 +28,8 @@ from mfx_torch.config import TimeSVDConfig
 from mfx_torch.convert import model_from_numpy
 from mfx_torch.kernels import packing as pk_t
 from mfx_torch.kernels import plan_device as pdv
-from mfx_torch.kernels.sgd_sweep import (check_kernel_limits, sgd_sweep_plain,
-                                         sgd_sweep_time)
+from mfx_torch.kernels.sgd_sweep import (LANE_RANKS, check_kernel_limits,
+                                         sgd_sweep_plain, sgd_sweep_time)
 from mfx_torch.models.mf import MFModel
 from mfx_torch.models.timesvd import fit_time_features
 from mfx_torch.solvers import timesvd_blocked as tsb
@@ -76,22 +76,22 @@ def _arrays(m):
     return {k: np.asarray(getattr(m, k)) for k in ("P", "Q", "bu", "bi", "mu")}
 
 
-def _start(U, I, rank, seed, mu):
+def _start(U, I, rank, seed, mu, nb=NB):
     """Shared initial tables with nonzero biases and temporal terms."""
     rng = np.random.default_rng(seed)
     m = init_model(seed, U, I, rank, global_mean=mu)
-    ts = init_timesvd_j(0, U, I, rank, NB, base=JMFModel(
+    ts = init_timesvd_j(0, U, I, rank, nb, base=JMFModel(
         P=m.P, Q=m.Q, bu=jnp.asarray(rng.normal(0, 0.1, U), jnp.float32),
         bi=jnp.asarray(rng.normal(0, 0.1, I), jnp.float32), mu=m.mu))
     return dataclasses.replace(
-        ts, bt=jnp.asarray(rng.normal(0, 0.1, (I, NB)), jnp.float32),
+        ts, bt=jnp.asarray(rng.normal(0, 0.1, (I, nb)), jnp.float32),
         alpha=jnp.asarray(rng.normal(0, 0.1, U), jnp.float32))
 
 
-def _plans(coo, su, tile, rank, seed=5):
+def _plans(coo, su, tile, rank, seed=5, nb=NB):
     """Both packages' (NT, 5, T) streams of one epoch on the reference's
-    shuffle bits, and the reference's skeleton."""
-    feats = fit_j(coo, n_bins=NB)
+    shuffle bits (``nb`` time bins), and the reference's skeleton."""
+    feats = fit_j(coo, n_bins=nb)
     tb, dv = feats.features(coo.user, coo.timestamp)
     nwin = sweep_geometry_j(coo.num_items, rank, su)
     skel_j, u, i, r, tb_j, dvb_j = tsb_j.build_temporal_plan_skeleton(
@@ -132,13 +132,23 @@ def test_temporal_plan_is_the_reference_plan(su, tile):
 # tests/test_torch_sgd_sweep.py)
 @pytest.mark.parametrize("rank", [32, 64])
 def test_plain_time_sweep_matches_pallas_interpret(rank):
+    _time_sweep_against_pallas(rank, NB)
+
+
+def test_plain_time_sweep_with_the_most_bins_matches_pallas_interpret():
+    """n_bins = rank - 4 = 28 at rank 32, the most the lanes hold: L = 1
+    latent lane, the bins in lanes 1-28."""
+    _time_sweep_against_pallas(32, 28)
+
+
+def _time_sweep_against_pallas(rank, nb):
     U = I = 600
     su, tile, lr, reg = 256, 64, 0.012, 0.04
-    coo = temporal_coo(U, I, 6_000, seed=9)
-    tl_j, skel_j, tl, sweeps, _ = _plans(coo, su, tile, rank)
-    ts0 = _start(U, I, rank, 3, float(coo.global_mean))
+    coo = temporal_coo(U, I, 6_000, seed=9, n_bins=nb)
+    tl_j, skel_j, tl, sweeps, _ = _plans(coo, su, tile, rank, nb=nb)
+    ts0 = _start(U, I, rank, 3, float(coo.global_mean), nb=nb)
     mu = float(ts0.mu)
-    Pm, Qm = pk.pack_state(pk.to_tlane_model(ts0, NB), su, su)
+    Pm, Qm = pk.pack_state(pk.to_tlane_model(ts0, nb), su, su)
     sse_j = 0.0
     for sw in skel_j.sweeps:
         Qs = pk.q_segment(Qm, sw.win0, sw.nwin, rank, su)
@@ -147,25 +157,25 @@ def test_plain_time_sweep_matches_pallas_interpret(rank):
                      "tl": jnp.asarray(tl_j[sw.t0:sw.t1])},
             lr, reg, mu, su=su, si=su, rank=rank, tpg=4, use_bias=True,
             exact=True, interpret=True, bias_mode="lane", time_mode=True,
-            n_bins=NB)
+            n_bins=nb)
         Qm = pk.q_segment_restore(Qm, Qs, sw.win0, rank, su)
         sse_j += float(s[0, 0])
     ref = pk.from_tlane_model(pk.unpack_state(Pm, Qm, ts0.mu, U, I, rank,
-                                              su, su), NB)
+                                              su, su), nb)
 
     arrays = {k: np.asarray(getattr(ts0, k)) for k in KEYS + ("mu",)}
     from mfx_torch.convert import timesvd_from_numpy
 
-    lane = pk_t.to_tlane_model(timesvd_from_numpy(arrays, device="cpu"), NB)
+    lane = pk_t.to_tlane_model(timesvd_from_numpy(arrays, device="cpu"), nb)
     P, Q = pk_t.pad_rows(lane.P, su), pk_t.pad_rows(lane.Q, su)
     P0, Q0 = P.clone(), Q.clone()
     sse_t = 0.0
     for sw in sweeps:
         sse_t += float(sgd_sweep_time(
             P, Q[sw.win0 * su:(sw.win0 + sw.nwin) * su], sw.sa, sw.tc,
-            tl[sw.t0:sw.t1], lr, reg, mu, su=su, si=su, tpg=4, n_bins=NB))
+            tl[sw.t0:sw.t1], lr, reg, mu, su=su, si=su, tpg=4, n_bins=nb))
     got = pk_t.from_tlane_model(MFModel(P[:U], Q[:I], torch.zeros(U),
-                                        torch.zeros(I), mu), NB)
+                                        torch.zeros(I), mu), nb)
     for k in KEYS:
         np.testing.assert_allclose(getattr(got, k).numpy(),
                                    np.asarray(getattr(ref, k)), rtol=0,
@@ -173,8 +183,8 @@ def test_plain_time_sweep_matches_pallas_interpret(rank):
     assert abs(sse_t - sse_j) <= 1e-5 * sse_j
     # the frozen lanes never move: P's bin lanes and constant 1, Q's drift
     # lane and constant 1; nor do the pad rows
-    L = rank - 3 - NB
-    for T_, T0, lanes in ((P, P0, list(range(L, L + NB)) + [rank - 2]),
+    L = rank - 3 - nb
+    for T_, T0, lanes in ((P, P0, list(range(L, L + nb)) + [rank - 2]),
                           (Q, Q0, [rank - 3, rank - 1])):
         assert torch.equal(T_[:, lanes], T0[:, lanes])
     assert torch.equal(P[U:], P0[U:]) and torch.equal(Q[I:], Q0[I:])
@@ -335,17 +345,18 @@ def test_reg_alpha_none_warns_as_the_reference_does():
 
 
 def test_time_form_kernel_limits():
-    """The time form's kernel is built for ranks 64 and 128, like the lane
-    form; rank 32 (the plain version takes it) is refused on a card's
-    tensors, naming ROADMAP Queue 2 item 2; a bin count the lanes cannot
-    hold is refused on any device."""
+    """The time form's kernel is built for ranks 32, 64 and 128, like the
+    lane form; another rank (16: the plain version takes it) is refused on
+    a card's tensors, naming ROADMAP Queue 2 item 2; a bin count the lanes
+    cannot hold is refused on any device."""
     tl = torch.zeros(4, 5, 256, dtype=torch.int32)
-    for ok in (64, 128):
+    assert LANE_RANKS == (32, 64, 128)
+    for ok in LANE_RANKS:
         check_kernel_limits("sgd_sweep_time", torch.zeros(512, ok), tl, 512,
-                            512, ranks=(64, 128))
+                            512, ranks=LANE_RANKS)
     with pytest.raises(NotImplementedError, match="Queue 2 item 2"):
-        check_kernel_limits("sgd_sweep_time", torch.zeros(512, 32), tl, 512,
-                            512, ranks=(64, 128))
+        check_kernel_limits("sgd_sweep_time", torch.zeros(512, 16), tl, 512,
+                            512, ranks=LANE_RANKS)
     P = torch.zeros(512, 64)
     i32 = dict(dtype=torch.int32)
     with pytest.raises(ValueError, match="n_bins"):

@@ -1,0 +1,154 @@
+"""SHA-256 digests of what each form of the training kernels computes on
+seeded inputs, one JSON line a form, so that two checkouts can be held
+bit for bit against each other on one card:
+
+    python tools/kernel_digest.py > a.jsonl
+    PYTHONPATH=<other checkout> python <other checkout>/tools/kernel_digest.py > b.jsonl
+    diff a.jsonl b.jsonl
+
+Forms: ``sgd_sweep`` (lane, ranks 32, 64, 128; the time form at ranks 32,
+64 and 128), ``sgd_sweep_tile`` (tile biases and none, epoch biases at
+ranks 32 and 64), ``dense_phase`` (lane, frozen and none at ranks 32 and
+64 with int4 and int8 codes, and at rank 128 with int8). Each runs once
+on the card's count of blocks from random tables, on random tiles of
+blocks of 1,024 with long duplicate runs and pads (the card tests' hot-row
+case), or on random dense strata of 512 x 512; the digest covers every
+table, output and the returned scalar. A form the checkout does not have
+prints its error instead. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+
+LR, REG, MU, TPG = 0.012, 0.04, 3.5, 4
+
+
+def _digest(*xs) -> str:
+    h = hashlib.sha256()
+    for x in xs:
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _tiles(g, dev, rows=3, n_bins=0):
+    su = si = 1024
+    nt, T = 32, 256
+    sa = torch.randint(0, 2, (nt // TPG,), device=dev, generator=g,
+                       dtype=torch.int32)
+    tc = torch.randint(0, 3, (nt,), device=dev, generator=g,
+                       dtype=torch.int32)
+    tl = torch.zeros(nt, rows, T, dtype=torch.int32, device=dev)
+    for row in (0, 1):
+        tl[:, row] = torch.randint(0, 64, (nt, T), device=dev, generator=g,
+                                   dtype=torch.int32)
+    tl[:, 2] = (torch.rand(nt, T, device=dev, generator=g) * 4.5
+                + 0.5).view(torch.int32)
+    if n_bins:
+        tl[:, 3] = torch.randint(0, n_bins, (nt, T), device=dev, generator=g,
+                                 dtype=torch.int32)
+        tl[:, 4] = (torch.randn(nt, T, device=dev, generator=g)
+                    * 0.5).view(torch.int32)
+    tl[-1, 0, T // 2:], tl[-1, 1, T // 2:] = su, si
+    return sa, tc, tl, su, si
+
+
+def _tables(g, dev, rank, users, items):
+    return (torch.randn(users, rank, device=dev, generator=g) * 0.1,
+            torch.randn(items, rank, device=dev, generator=g) * 0.1,
+            torch.randn(users, device=dev, generator=g) * 0.1,
+            torch.randn(items, device=dev, generator=g) * 0.1)
+
+
+def _group(g, dev, rfmt, nd=12, su=512, si=512):
+    """Random dense strata over 3 user blocks and 4 windows."""
+    sa = torch.randint(0, 3, (nd,), device=dev, generator=g,
+                       dtype=torch.int32)
+    sc = torch.randint(0, 4, (nd,), device=dev, generator=g,
+                       dtype=torch.int32)
+    top = 10 if rfmt == "int4" else 125
+    codes = torch.randint(0, top + 1, (nd, su, si), device=dev, generator=g)
+    codes[torch.rand(nd, su, si, device=dev, generator=g) < 0.7] = 0
+    if rfmt == "int4":
+        R = (codes[..., 0::2] | (codes[..., 1::2] << 4)).to(torch.uint8)
+    else:
+        R = codes.to(torch.int8)
+    deg = (codes > 0).float()
+    return {"sa": sa, "sc": sc, "R": R.contiguous(),
+            "du_s": deg.sum(2).contiguous(), "di_s": deg.sum(1).contiguous()}
+
+
+def main() -> int:
+    from mfx_torch.kernels import dense_phase as dp
+    from mfx_torch.kernels import sgd_sweep as ss
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_digest: needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    forms = []
+    for rank in (32, 64, 128):
+        forms.append((f"sgd_sweep lane r{rank}", rank, "lane", 0))
+    for rank, nb in ((32, 16), (32, 28), (64, 30), (128, 70)):
+        forms.append((f"sgd_sweep time r{rank} {nb} bins", rank, "time", nb))
+    for rank in (32, 64):
+        for mode in ("tile", "none", "epoch"):
+            forms.append((f"sgd_sweep_tile {mode} r{rank}", rank, mode, 0))
+    for rank, rfmt in ((32, "int4"), (32, "int8"), (64, "int4"),
+                       (64, "int8"), (128, "int8")):
+        for bias in dp.BIAS_FORMS:
+            forms.append((f"dense_phase {bias} {rfmt} r{rank}", rank, bias,
+                          rfmt))
+    for name, rank, mode, extra in forms:
+        g = torch.Generator(device=dev).manual_seed(len(name) * 7919 + rank)
+        try:
+            if name.startswith("sgd_sweep "):
+                sa, tc, tl, su, si = _tiles(g, dev, 5 if extra else 3, extra)
+                P, Q, _, _ = _tables(g, dev, rank, 2 * su, 3 * si)
+                kw = dict(su=su, si=si, tpg=TPG)
+                if extra:
+                    s = ss.sgd_sweep_time(P, Q, sa, tc, tl, LR, REG, MU,
+                                          n_bins=extra, **kw)
+                else:
+                    s = ss.sgd_sweep(P, Q, sa, tc, tl, LR, REG, MU, **kw)
+                out = (P, Q, s)
+            elif name.startswith("sgd_sweep_tile"):
+                sa, tc, tl, su, si = _tiles(g, dev)
+                P, Q, bu, bi = _tables(g, dev, rank, 2 * su, 3 * si)
+                kw = dict(su=su, si=si, tpg=TPG)
+                if mode == "epoch":
+                    e = torch.zeros(tl.shape[0], tl.shape[2], device=dev)
+                    s = ss.sgd_sweep_epoch(P, Q, bu, bi, sa, tc, tl, e, LR,
+                                           REG, MU, **kw)
+                    out = (P, Q, bu, bi, e, s)
+                else:
+                    s = ss.sgd_sweep_tile(P, Q, bu, bi, sa, tc, tl, LR, REG,
+                                          MU, use_bias=mode == "tile", **kw)
+                    out = (P, Q, bu, bi, s)
+            else:
+                grp = _group(g, dev, extra)
+                P, Q, bu, bi = _tables(g, dev, rank, 3 * 512, 4 * 512)
+                kw = dict(su=512, si=512, bias=mode)
+                if mode == "frozen":
+                    s, (dbu, dbi) = dp.dense_phase(P, Q, grp, LR, REG, MU,
+                                                   bu=bu, bi=bi, **kw)
+                    out = (P, Q, dbu, dbi, s)
+                else:
+                    s = dp.dense_phase(P, Q, grp, LR, REG, MU, **kw)
+                    out = (P, Q, s)
+            torch.cuda.synchronize()
+            row = {"form": name, "sha256": _digest(*out)}
+        except (NotImplementedError, RuntimeError, ValueError) as exc:
+            row = {"form": name, "error": type(exc).__name__}
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -202,7 +202,38 @@ printed as it ends:
    falls every epoch, the time-aware held-out RMSE ends below the
    untrained model's, a 2-epoch repeat is bitwise; then python -m
    mfx_torch.cli train on run (c) for 2 epochs prints the reference's
-   JSON.
+   JSON;
+21. the rank-128 forms of sgd_sweep_tile.cu and sgd_sweep_step_u.cu, the
+   frozen and bias-free int8 rank-128 forms of dense_phase.cu and
+   bpr_sweep.cu at ranks 32 and 128 against their plain versions. Run
+   after phase 11, on its netflix plan and carving, with the untrained
+   model's plain tables and seeded N(0, 0.1) biases: the tile form with
+   and without biases, the epoch form (its residuals compared too) and
+   step_u (tpg 4) on the first 2,048 tiles of the sparse sweep (within
+   1e-4, two kernel runs bitwise), each over the whole sweep twice on one
+   block and twice on the card's count (tables, biases, residuals and SSE
+   bitwise); the two dense forms on group 0 as phase 17 holds them (64
+   strata within 1e-4, the frozen sums within sqrt(terms) ulps; 256 on
+   one block and the card's count, bitwise), and group 0 and the epoch's
+   dense phase on the card's count. Run after phase 7, on its data:
+   bpr_sweep at ranks 32 and 128 as phase 7 holds rank 64 (2,048 tiles of
+   segment 0, then the whole segment 0 on one block and on the card's
+   count);
+22. the paths of phase 21's forms. After phase 12: netflix100m_rank128_dp
+   with parallel.mode=single, 2 epochs each from phase 12's untrained
+   model with (a) sgd.bias_mode=tile, (b) sgd.bias_mode=epoch, (c)
+   sgd.bias_mode=tile sgd.step_user_batch=true, (d) model.use_bias=false:
+   each launches its rank-128 sweep form and its int8 rank-128 dense form
+   (frozen, or none in (d)) and no other kernel, the train RMSE falls
+   every epoch, the held-out RMSE (unclipped) lies below the untrained
+   model's after every epoch, (a), (b) and (d) end within 0.03 of phase
+   12's lane run after the same epoch and (c) within 0.03 of (a), peak
+   memory <= 80 GB; a second run of (c) for 1 epoch repeats its state
+   after epoch 1 bit for bit. After phase 8: billion_bpr_sharded with
+   parallel.model_axis=1 and model.rank=32, then =128, on phase 8's data
+   for the preset's 5 epochs: bpr_sweep launched, the loss falls every
+   epoch and ends below ln 2, and (a smoke check, as phase 8's) the
+   sampled AUC ends above the untrained model's.
 
 Each phase prints its wall time. The second-to-last line is a JSON object
 describing each kernel (times, launches on the main path, and the bound:
@@ -223,7 +254,12 @@ hold the bias-free form and the frozen int8 instances; the rank-32 forms
 "variants" the int8 instances), dense_phase_frozen_r32,
 dense_phase_none_r32) take their launches from phase 20's runs (a), (e),
 (c), (b) and (d), and hold phase 19's checks at the ml25m_rank64 cell's
-shapes as their "ml25m_cell"; the last is
+shapes as their "ml25m_cell"; the forms of phases 21-22 are entries of
+their own (bpr_sweep_r32, bpr_sweep_r128, sgd_sweep_tile_r128,
+sgd_sweep_tile_none_r128, sgd_sweep_epoch_r128, sgd_sweep_step_u_r128,
+dense_phase_frozen_int8_r128, dense_phase_none_int8_r128), their
+launches from phase 22's runs; the script's total seconds are printed
+before the card's line; the last is
 {"ok": true, "device": {...}}. Any failure
 exits non-zero with no such line, and so does a machine without a CUDA
 device.
@@ -754,11 +790,70 @@ def serve_phase(model, train, dev, seed):
     return launches
 
 
+def bpr_form_check(name, st, bpr, seed, results, bounds, sweeps):
+    """bpr_sweep at the ring state ``st``'s rank against its plain version
+    on the first SWEEP_TILES tiles of segment 0 of epoch 0 from its tables
+    (within TOL, two kernel runs bitwise), the same tiles on one block in
+    plan order, then the whole of segment 0 twice on one block and twice
+    on as many as the card holds (bitwise). Fills ``results``, ``bounds``
+    and ``sweeps`` under ``name``."""
+    from mfx_torch.kernels import _build
+    from mfx_torch.kernels.bpr_sweep import bpr_sweep, bpr_sweep_plain
+    from mfx_torch.parallel import bpr_sharded as ring
+    from mfx_torch.solvers.blocked import TPG
+
+    rank = st.P.shape[1]
+    tls = ring.ring_epoch_tiles(st, bpr, seed, 0)
+    win0, nw, sa_all, tc_all, deps_all = st.segments()[0]
+    nt = min(SWEEP_TILES, tls[0].shape[2])
+    tl = tls[0][0, 0, :nt].contiguous()
+    sa, tc = sa_all[:nt // TPG].contiguous(), tc_all[:nt].contiguous()
+    deps = deps_all.prefix(nt)
+    si = bpr.iblock
+    seg = slice(win0 * si, (win0 + nw) * si)
+    log(f"[kernel] {name}: {nt} tiles of segment 0 ({len(tls)} segments "
+        f"of {[x.shape[2] for x in tls]} tiles; T={bpr.tile}, rank {rank}); "
+        f"they hold {deps.runs.shape[0]} runs, critical path "
+        f"{deps.critical} tiles")
+    kw = dict(su=bpr.ublock, si=si, tpg=TPG)
+    results[name] = compare(
+        name,
+        lambda Pt, Qt: bpr_sweep(Pt, Qt[seg], sa, tc, tl, bpr.lr, bpr.reg,
+                                 deps=deps, **kw),
+        lambda Pt, Qt: bpr_sweep_plain(Pt, Qt[seg], sa, tc, tl, bpr.lr,
+                                       bpr.reg, **kw),
+        (st.P, st.Q),
+    )
+    # per real slot: q_i - q_j (rank), the dot (2 rank), three deltas
+    # (4 rank each) and three row adds (rank each)
+    bounds[name] = sweep_bound(tl, sa, tc, bpr.ublock, si, TPG, rank,
+                               [("P", 0), ("Q", 1), ("Q", 2)], 18)
+    log(f"[kernel] {name} bound {bounds[name][0]:.4f} ms "
+        f"({bounds[name][1]})")
+    Pt, Qt = st.P.clone(), st.Q.clone()
+    ms_one = cuda_ms(lambda: bpr_sweep(Pt, Qt[seg], sa, tc, tl, bpr.lr,
+                                       bpr.reg, **kw), reps=3)
+    log(f"[kernel] {name}: the same {nt} tiles on one block in plan "
+        f"order (no dependency table) {ms_one:.4f} ms")
+    del Pt, Qt
+    # the whole of segment 0, on one block and on the card's count
+    whole = tls[0][0, 0]
+    sweeps[name] = whole_sweep(
+        name,
+        lambda Pt, Qt, blocks: bpr_sweep(Pt, Qt[seg], sa_all, tc_all, whole,
+                                         bpr.lr, bpr.reg, deps=deps_all,
+                                         blocks=blocks, **kw),
+        (st.P, st.Q), deps_all,
+        _build.load_library().mfx_bpr_sweep_max_blocks(bpr.tile, rank))
+
+
 def bpr_phases(dev, results, bounds, sweeps):
     """Phases 7 and 8: bpr_sweep against its plain version at the BPR
-    cell's shapes and on a whole segment, then the BPR path's 5 epochs.
-    Fills ``results``, ``bounds`` and ``sweeps`` for bpr_sweep; returns its
-    launches on the path."""
+    cell's shapes and on a whole segment, then the BPR path's 5 epochs;
+    and the BPR parts of phases 21 and 22 on the same data: the same
+    checks and the path at ranks 32 and 128. Fills ``results``,
+    ``bounds`` and ``sweeps`` for bpr_sweep, bpr_sweep_r32 and
+    bpr_sweep_r128; returns their launches on the path."""
     import math
 
     import numpy as np
@@ -771,11 +866,9 @@ def bpr_phases(dev, results, bounds, sweeps):
                                           make_implicit_synthetic)
     from mfx_torch.eval.metrics import sampled_auc
     from mfx_torch.eval.ranking import hr_ndcg_at_k
-    from mfx_torch.kernels import _build
-    from mfx_torch.kernels.bpr_sweep import bpr_sweep, bpr_sweep_plain
+    from mfx_torch.kernels.bpr_sweep import bpr_sweep
     from mfx_torch.models.mf import init_model
     from mfx_torch.parallel import bpr_sharded as ring
-    from mfx_torch.solvers.blocked import TPG
 
     cfg = apply_overrides(preset("billion_bpr_sharded"),
                           ["parallel.model_axis=1"])
@@ -796,61 +889,27 @@ def bpr_phases(dev, results, bounds, sweeps):
         f"{time.perf_counter() - t0:.1f} s")
     U, I, rank = train.num_users, train.num_items, cfg.model.rank
 
-    def fresh_model():
+    def fresh_model(rk=rank):
         g = torch.Generator(device=dev)
         g.manual_seed(cfg.model.seed)
-        return init_model(g, U, I, rank, global_mean=train.global_mean,
+        return init_model(g, U, I, rk, global_mean=train.global_mean,
                           init_scale=cfg.model.init_scale)
 
     # 7. bpr_sweep against its plain version: the first tiles of segment
-    # 0 of epoch 0, from the untrained tables
+    # 0 of epoch 0, from the untrained tables; then (phase 21) the same at
+    # ranks 32 and 128 on the same data
     t_phase = time.perf_counter()
-    st = ring.ring_state(fresh_model(), train, bpr, seed=seed, device=dev)
-    tls = ring.ring_epoch_tiles(st, bpr, seed, 0)
-    win0, nw, sa_all, tc_all, deps_all = st.segments()[0]
-    nt = min(SWEEP_TILES, tls[0].shape[2])
-    tl = tls[0][0, 0, :nt].contiguous()
-    sa, tc = sa_all[:nt // TPG].contiguous(), tc_all[:nt].contiguous()
-    deps = deps_all.prefix(nt)
-    si = bpr.iblock
-    seg = slice(win0 * si, (win0 + nw) * si)
-    log(f"[kernel] bpr_sweep: {nt} tiles of segment 0 ({len(tls)} segments "
-        f"of {[x.shape[2] for x in tls]} tiles; T={bpr.tile}, rank {rank}); "
-        f"they hold {deps.runs.shape[0]} runs, critical path "
-        f"{deps.critical} tiles")
-    kw = dict(su=bpr.ublock, si=si, tpg=TPG)
-    results["bpr_sweep"] = compare(
-        "bpr_sweep",
-        lambda Pt, Qt: bpr_sweep(Pt, Qt[seg], sa, tc, tl, bpr.lr, bpr.reg,
-                                 deps=deps, **kw),
-        lambda Pt, Qt: bpr_sweep_plain(Pt, Qt[seg], sa, tc, tl, bpr.lr,
-                                       bpr.reg, **kw),
-        (st.P, st.Q),
-    )
-    # per real slot: q_i - q_j (rank), the dot (2 rank), three deltas
-    # (4 rank each) and three row adds (rank each)
-    bounds["bpr_sweep"] = sweep_bound(tl, sa, tc, bpr.ublock, si, TPG, rank,
-                                      [("P", 0), ("Q", 1), ("Q", 2)], 18)
-    log(f"[kernel] bpr_sweep bound {bounds['bpr_sweep'][0]:.4f} ms "
-        f"({bounds['bpr_sweep'][1]})")
-    Pt, Qt = st.P.clone(), st.Q.clone()
-    ms_one = cuda_ms(lambda: bpr_sweep(Pt, Qt[seg], sa, tc, tl, bpr.lr,
-                                       bpr.reg, **kw), reps=3)
-    log(f"[kernel] bpr_sweep: the same {nt} tiles on one block in plan "
-        f"order (no dependency table) {ms_one:.4f} ms")
-    del Pt, Qt
-    # the whole of segment 0, on one block and on the card's count
-    whole = tls[0][0, 0]
-    sweeps["bpr_sweep"] = whole_sweep(
-        "bpr_sweep",
-        lambda Pt, Qt, blocks: bpr_sweep(Pt, Qt[seg], sa_all, tc_all, whole,
-                                         bpr.lr, bpr.reg, deps=deps_all,
-                                         blocks=blocks, **kw),
-        (st.P, st.Q), deps_all,
-        _build.load_library().mfx_bpr_sweep_max_blocks(bpr.tile))
-    del st, tls, tl, whole
-    torch.cuda.empty_cache()
-    log(f"[time] phase 7 {time.perf_counter() - t_phase:.1f} s")
+    for rk in (rank, 32, 128):
+        bpr_form_check("bpr_sweep" if rk == rank else f"bpr_sweep_r{rk}",
+                       ring.ring_state(fresh_model(rk), train, bpr, seed=seed,
+                                       device=dev), bpr, seed,
+                       results, bounds, sweeps)
+        torch.cuda.empty_cache()
+        if rk == rank:
+            log(f"[time] phase 7 {time.perf_counter() - t_phase:.1f} s")
+            t_phase = time.perf_counter()
+    log(f"[time] phase 21 (bpr_sweep at ranks 32 and 128) "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
     # 8. the BPR path, through the kernel
     t_phase = time.perf_counter()
@@ -925,6 +984,71 @@ def bpr_phases(dev, results, bounds, sweeps):
     log(f"[bpr] AUC smoke check (not a quality gate): final {auc:.5f} > "
         f"untrained {auc0:.5f}")
     log(f"[time] phase 8 {time.perf_counter() - t_phase:.1f} s")
+
+    # 22 (BPR). the path at ranks 32 and 128, the preset otherwise as above
+    t_phase = time.perf_counter()
+    out = {"bpr_sweep": launches}
+    for rk in (32, 128):
+        out[f"bpr_sweep_r{rk}"] = bpr_rank_run(
+            dev, fresh_model(rk), train, test, bpr, seed, keys)
+    log(f"[time] phase 22 (the BPR path at ranks 32 and 128) "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def bpr_rank_run(dev, model, train, test, bpr, seed, keys):
+    """Phase 22, the BPR part: train_epochs_bpr_ring from ``model`` (a
+    rank other than the preset's) for the preset's epochs: bpr_sweep
+    launched, the loss falls every epoch and ends below ln 2, the sampled
+    AUC ends above the untrained model's (a smoke check, as phase 8's).
+    Returns bpr_sweep's launches."""
+    import math
+
+    import torch
+
+    from mfx_torch.eval.metrics import sampled_auc
+    from mfx_torch.kernels.bpr_sweep import bpr_sweep
+    from mfx_torch.parallel import bpr_sharded as ring
+
+    tag = f"bpr r{model.rank}"
+    auc0 = sampled_auc(model, test, seed=seed, pos_keys=keys)
+    bpr_sweep.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings: dict = {}
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    t_prev = time.perf_counter()
+    for epoch, m, loss in ring.train_epochs_bpr_ring(
+            model, train, bpr, shards=1, seed=seed, device=dev,
+            timings=timings):
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t_prev
+                     - (timings["prep_s"] if epoch == 0 else 0.0))
+        losses.append(loss)
+        if not all(bool(torch.isfinite(getattr(m, k)).all())
+                   for k in ("P", "Q")):
+            raise AssertionError(f"{tag}: tables not finite")
+        t_prev = time.perf_counter()
+    auc = sampled_auc(m, test, seed=seed, pos_keys=keys)
+    launches = bpr_sweep.launches
+    log(f"[{tag}] prep {timings['prep_s']:.3f} s; (tiles, critical path) of "
+        f"each segment {timings['segment_tiles']}; epoch_s "
+        + " ".join(f"{x:.4f}" for x in walls)
+        + "; mean_loss " + " ".join(f"{x:.6f}" for x in losses)
+        + f"; held-out sampled AUC {auc0:.5f} untrained, {auc:.5f} final; "
+        f"launches {launches}, peak memory allocated "
+        f"{torch.cuda.max_memory_allocated(dev)} bytes")
+    if launches < 1:
+        raise AssertionError(f"{tag}: bpr_sweep never launched")
+    if len(losses) != bpr.epochs or any(
+            b >= a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"{tag}: the loss did not fall every epoch: "
+                             f"{losses}")
+    if not losses[-1] < math.log(2):
+        raise AssertionError(f"{tag}: final loss {losses[-1]} not below ln 2")
+    if not auc > auc0:
+        raise AssertionError(f"{tag}: AUC {auc} not above the untrained "
+                             f"{auc0}")
     return launches
 
 
@@ -1130,9 +1254,11 @@ def netflix_phases(dev, results, bounds, sweeps):
     preset's shapes, each over a whole sweep / group 0 on one block and on
     the card's count, and the epoch's split; then the preset's path, 3
     epochs of its 15 (epochs are depth: cut for time), and a 1-epoch
-    repeat. Fills ``results``, ``bounds`` and ``sweeps`` under
-    ``sgd_sweep_r128`` and ``dense_phase_int8_r128``; returns their
-    launches on the path."""
+    repeat; and the netflix parts of phases 21 (netflix_forms, after phase
+    11, on its plan and carving) and 22 (netflix_bias_runs, after phase
+    12). Fills ``results``, ``bounds`` and ``sweeps`` under
+    ``sgd_sweep_r128``, ``dense_phase_int8_r128`` and the forms of
+    NETFLIX_LAUNCHES; returns their launches on the path."""
     import torch
 
     from mfx_torch.config import apply_overrides, preset
@@ -1299,9 +1425,16 @@ def netflix_phases(dev, results, bounds, sweeps):
         f"{sparse_ms:.4f} ms = {dense_ms + sparse_ms:.4f} ms of kernels")
     sweeps["dense_phase_int8_r128"]["epoch_dense_ms"] = dense_ms
     sweeps["sgd_sweep_r128"]["epoch_sparse_ms"] = sparse_ms
-    del Pt, Qt, P, Q, meta, groups, grp, g0, skel, tl, tls, u, i, r, sws
+    del Pt, Qt, P, Q, grp, g0, tls, u, i, r
     torch.cuda.empty_cache()
     log(f"[time] phase 11 {time.perf_counter() - t_phase:.1f} s")
+
+    # 21 (netflix). the rank-128 tile-bias, epoch and step_u sweeps and the
+    # frozen and bias-free int8 rank-128 dense forms on this plan
+    netflix_forms(dev, sgd, fresh_model, sws[0], tl, meta, groups, mu,
+                  results, bounds, sweeps)
+    del meta, groups, skel, tl, sws
+    torch.cuda.empty_cache()
 
     # 12. the path, through the trainer
     t_phase = time.perf_counter()
@@ -1382,7 +1515,203 @@ def netflix_phases(dev, results, bounds, sweeps):
     log("[netflix] a second run of 1 epoch repeats the first run's state "
         "after epoch 1 bit for bit")
     log(f"[time] phase 12 {time.perf_counter() - t_phase:.1f} s")
+
+    # 22 (netflix). the other bias modes through the trainer
+    launches.update(netflix_bias_runs(dev, cfg, train, test, fresh_model,
+                                      tests))
     return launches
+
+
+# phase 22's netflix runs: each form's entry in the kernels line, the run
+# whose launches it reports, and the count it reads there
+NETFLIX_RUNS = {
+    "a": ["sgd.bias_mode=tile"],
+    "b": ["sgd.bias_mode=epoch"],
+    "c": ["sgd.bias_mode=tile", "sgd.step_user_batch=true"],
+    "d": ["model.use_bias=false"],
+}
+NETFLIX_RUN_EPOCHS = 2
+NETFLIX_LAUNCHES = {
+    "sgd_sweep_tile_r128": ("a", "sgd_sweep_tile"),
+    "sgd_sweep_epoch_r128": ("b", "sgd_sweep_epoch"),
+    "sgd_sweep_step_u_r128": ("c", "sgd_sweep_step_u"),
+    "sgd_sweep_tile_none_r128": ("d", "sgd_sweep_tile"),
+    "dense_phase_frozen_int8_r128": ("a", "dense_phase:frozen"),
+    "dense_phase_none_int8_r128": ("d", "dense_phase:none"),
+}
+BIAS_MODES_TOL = 0.03  # between bias modes: tests/unit/test_bias_epoch.py
+
+
+def netflix_forms(dev, sgd, fresh_model, sw, tl, meta, groups, mu, results,
+                  bounds, sweeps):
+    """Phase 21, the netflix part, on phase 11's plan and carving: the
+    rank-128 forms of sgd_sweep_tile.cu (tile biases, none, epoch) and
+    sgd_sweep_step_u.cu (tpg 4) against their plain versions on the first
+    SWEEP_TILES tiles of the sparse sweep ``sw`` (within TOL, the epoch
+    form's residuals too; two kernel runs bitwise), then each over the
+    whole sweep twice on one block and twice on the card's count (tables,
+    biases, residuals and SSE bitwise); then the frozen and bias-free int8
+    rank-128 dense forms on group 0 (dense_form_check, dense_group_times).
+    The tables are phase 11's untrained model on plain tables with seeded
+    N(0, 0.1) biases, so that every bias term is live. Fills ``results``,
+    ``bounds`` and ``sweeps``."""
+    import torch
+
+    from mfx_torch.kernels import _build
+    from mfx_torch.kernels.packing import plain_tables
+    from mfx_torch.kernels.sgd_sweep import (sgd_sweep_epoch,
+                                             sgd_sweep_epoch_plain,
+                                             sgd_sweep_step_u,
+                                             sgd_sweep_step_u_plain,
+                                             sgd_sweep_tile,
+                                             sgd_sweep_tile_plain)
+    from mfx_torch.solvers.blocked import TPG
+
+    t_phase = time.perf_counter()
+    su, si, T, lr, reg = sgd.ublock, sgd.iblock, sgd.tile, sgd.lr, sgd.reg
+    model = fresh_model()
+    rank = model.rank
+    g = torch.Generator(device=dev).manual_seed(rank)
+    model.bu.copy_(torch.randn(model.bu.shape, device=dev, generator=g) * 0.1)
+    model.bi.copy_(torch.randn(model.bi.shape, device=dev, generator=g) * 0.1)
+    state = plain_tables(model, su, si, dev)
+    del model
+    lib = _build.load_library()
+    seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
+    nt = min(SWEEP_TILES, sw.t1 - sw.t0)
+    head = (sw.sa[:nt // TPG].contiguous(), sw.tc[:nt].contiguous(),
+            tl[sw.t0:sw.t0 + nt], sw.deps.prefix(nt))
+    whole = (sw.sa, sw.tc, tl[sw.t0:sw.t1], sw.deps)
+    kw = dict(su=su, si=si, tpg=TPG)
+    # name: (kernel, plain, use_bias, sweep_bound's bias, slot bytes, grid)
+    forms = {
+        "sgd_sweep_tile_r128": (sgd_sweep_tile, sgd_sweep_tile_plain, True,
+                                "update", 0,
+                                lib.mfx_sgd_sweep_tile_max_blocks(T, rank)),
+        "sgd_sweep_tile_none_r128": (sgd_sweep_tile, sgd_sweep_tile_plain,
+                                     False, None, 0,
+                                     lib.mfx_sgd_sweep_tile_max_blocks(
+                                         T, rank)),
+        "sgd_sweep_epoch_r128": (sgd_sweep_epoch, sgd_sweep_epoch_plain,
+                                 True, "read", 4,
+                                 lib.mfx_sgd_sweep_tile_max_blocks(T, rank)),
+        "sgd_sweep_step_u_r128": (sgd_sweep_step_u, sgd_sweep_step_u_plain,
+                                  True, "update", 0,
+                                  lib.mfx_sgd_sweep_step_u_max_blocks(
+                                      T, rank, su)),
+    }
+
+    def run_form(name, tiles, kernel=True, blocks=None):
+        """run(P, Q, bu, bi[, e]) of the named form over ``tiles`` (sa,
+        tc, tl, deps): through the kernel on ``blocks`` or its plain
+        version; returns the SSE."""
+        fn, plain, use_bias = forms[name][:3]
+        sa, tc, tls, deps = tiles
+        extra = dict(deps=deps, blocks=blocks) if kernel else {}
+        call = fn if kernel else plain
+
+        def run(P, Q, bu, bi, e=None):
+            if e is not None:  # the epoch form: its residuals' output
+                return call(P, Q[seg], bu, bi[seg], sa, tc, tls, e, lr, reg,
+                            mu, **kw, **extra)
+            return call(P, Q[seg], bu, bi[seg], sa, tc, tls, lr, reg, mu,
+                        **kw, use_bias=use_bias, **extra)
+        return run
+
+    log(f"[kernel] netflix rank-128 tile-bias forms: {nt} tiles of the "
+        f"sweep (T={T}, su = si = {su}, tpg {TPG}); critical path "
+        f"{head[3].critical} tiles; the whole sweep {sw.t1 - sw.t0} tiles, "
+        f"critical path {sw.deps.critical}")
+    for name, (_, _, _, bias, slot_bytes, card) in forms.items():
+        epoch = name.startswith("sgd_sweep_epoch")
+        st_head = tuple(state) + ((torch.zeros(nt, T, device=dev),)
+                                  if epoch else ())
+        results[name] = compare(
+            name, run_form(name, head), run_form(name, head, kernel=False),
+            st_head)
+        bounds[name] = sweep_bound(head[2], head[0], head[1], su, si, TPG,
+                                   rank, [("P", 0), ("Q", 1)], 10, bias=bias,
+                                   slot_bytes=slot_bytes)
+        st_whole = tuple(state) + ((torch.zeros(sw.t1 - sw.t0, T,
+                                                device=dev),)
+                                   if epoch else ())
+        sweeps[name] = whole_sweep(
+            name, lambda *t, name=name: run_form(name, whole,
+                                                 blocks=t[-1])(*t[:-1]),
+            st_whole, sw.deps, card)
+        sweeps[name]["sweep_bound_ms"] = sweep_bound(
+            whole[2], whole[0], whole[1], su, si, TPG, rank,
+            [("P", 0), ("Q", 1)], 10, bias=bias, slot_bytes=slot_bytes)[0]
+        log(f"[kernel] {name} bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]}); whole sweep "
+            f"{sweeps[name]['sweep_bound_ms']:.4f} ms")
+        del st_head, st_whole
+        torch.cuda.empty_cache()
+
+    # the frozen and bias-free int8 rank-128 dense forms on group 0
+    for name, bias in (("dense_phase_frozen_int8_r128", "frozen"),
+                       ("dense_phase_none_int8_r128", "none")):
+        err, ms, plain_ms, runs, b = dense_form_check(
+            name, bias, groups, meta, state, lr, reg, mu, su, si, rank,
+            "int8")
+        runs.update(dense_group_times(name, bias, groups, meta, state, lr,
+                                      reg, mu, su, si, rank))
+        results[name], bounds[name] = (err, ms, plain_ms), b
+        sweeps[name] = runs
+    del state
+    torch.cuda.empty_cache()
+    log(f"[time] phase 21 (the netflix rank-128 forms) "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def netflix_bias_runs(dev, cfg, train, test, fresh_model, lane_tests):
+    """Phase 22, the netflix part: netflix100m_rank128_dp with
+    parallel.mode=single in NETFLIX_RUNS (a) sgd.bias_mode=tile, (b)
+    sgd.bias_mode=epoch, (c) tile with sgd.step_user_batch=true, (d)
+    model.use_bias=false, NETFLIX_RUN_EPOCHS epochs each from phase 12's
+    untrained model, through train_runs (its kernels and no other, the
+    train RMSE falls every epoch, the held-out RMSE below the untrained
+    model's after every epoch, peak memory <= 80 GB); (a), (b) and (d)
+    end within BIAS_MODES_TOL of phase 12's lane run after the same epoch
+    (``lane_tests``), (c) within BIAS_MODES_TOL of (a); a second run of
+    (c) for 1 epoch repeats its state after epoch 1 bit for bit. Returns
+    each rank-128 form's launches (NETFLIX_LAUNCHES)."""
+    import torch
+
+    from mfx_torch.config import apply_overrides
+    from mfx_torch.solvers import blocked
+
+    t_phase = time.perf_counter()
+    e = NETFLIX_RUN_EPOCHS
+    lane = lane_tests[e - 1]
+    near = (lane - BIAS_MODES_TOL, lane + BIAS_MODES_TOL)
+    frozen = "dense_phase:frozen"
+    want = {"a": ({"sgd_sweep_tile", frozen}, near),
+            "b": ({"sgd_sweep_epoch", frozen}, near),
+            "c": ({"sgd_sweep_step_u", frozen}, None),
+            "d": ({"sgd_sweep_tile", "dense_phase:none"}, near)}
+    log(f"[netflix] the other bias modes, {e} epochs each; lane's held-out "
+        f"RMSE after epoch {e}: {lane:.5f}")
+    _, runs = train_runs(dev, cfg, train, test, fresh_model, {
+        k: (ov + [f"sgd.epochs={e}"], *want[k])
+        for k, ov in NETFLIX_RUNS.items()}, "netflix", every_epoch=True)
+    gap = abs(runs["c"][2][-1] - runs["a"][2][-1])
+    if gap > BIAS_MODES_TOL:
+        raise AssertionError(f"(c) ends {gap} from (a)")
+    log(f"[netflix] (c) ends {gap:.5f} from (a) (tol {BIAS_MODES_TOL})")
+    run_cfg = apply_overrides(cfg, NETFLIX_RUNS["c"] + ["sgd.epochs=1"])
+    (_, again, _), = blocked.train_epochs_blocked(
+        fresh_model(), train, run_cfg.sgd, True, seed=cfg.data.seed,
+        device=dev)
+    if not all(torch.equal(getattr(again, k), getattr(runs["c"][1], k))
+               for k in ("P", "Q", "bu", "bi")):
+        raise AssertionError("(c): a second run of 1 epoch differs")
+    log("[netflix] (c): a second run of 1 epoch repeats the first run's "
+        "state after epoch 1 bit for bit (its pools in device memory)")
+    log(f"[time] phase 22 (the netflix bias modes) "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {name: runs[run][0][key]
+            for name, (run, key) in NETFLIX_LAUNCHES.items()}
 
 
 def dense_form_run(bias, grp, seg, lr, reg, mu, su, si, kernel=True,
@@ -1553,16 +1882,20 @@ def expect_kernels(what, counts, want):
                              f"{sorted(want)}: {counts}")
 
 
-def train_runs(dev, cfg, train, test, fresh_model, runs, tag):
+def train_runs(dev, cfg, train, test, fresh_model, runs, tag,
+               every_epoch=False):
     """Each run of ``runs`` ({key: (overrides of ``cfg``, the kernels it
     launches and no other, (lo, hi) that its last held-out RMSE lies in,
     or None)}) through train_epochs_blocked from ``fresh_model()``: the
     train RMSE falls, the held-out RMSE (unclipped) ends below the
-    untrained model's, the tables are finite. Logs each epoch's seconds
-    (plan and the first epoch's prep left out), the split of the median
-    one after the first into dense, sparse and batched-bias time, the
-    peak memory and the RMSEs. Returns (untrained RMSE, {key: (launch
-    counts, the model after the first epoch)})."""
+    untrained model's, the tables are finite, the peak memory is at most
+    80 GB; with ``every_epoch`` the train RMSE falls every epoch and the
+    held-out RMSE lies below the untrained model's after every epoch.
+    Logs each epoch's seconds (plan and the first epoch's prep left out),
+    the split of the median one after the first into dense, sparse and
+    batched-bias time, the peak memory and the RMSEs. Returns (untrained
+    RMSE, {key: (launch counts, the model after the first epoch, the
+    held-out RMSE after each epoch)})."""
     import torch
 
     from mfx_torch.config import apply_overrides
@@ -1612,19 +1945,24 @@ def train_runs(dev, cfg, train, test, fresh_model, runs, tag):
             + " ".join(f"{x:.5f}" for x in tests)
             + f" (untrained {base:.5f}); launches {counts}")
         expect_kernels(f"({key})", counts, want)
-        if len(trains) != run_cfg.sgd.epochs or not trains[-1] < trains[0]:
+        falls = (any(b >= a for a, b in zip(trains, trains[1:]))
+                 if every_epoch else not trains[-1] < trains[0])
+        if len(trains) != run_cfg.sgd.epochs or falls:
             raise AssertionError(f"({key}): the train RMSE did not fall: "
                                  f"{trains}")
         lo, hi = window or (-float("inf"), float("inf"))
-        if not (tests[-1] < base and lo <= tests[-1] <= hi):
+        if not (max(tests if every_epoch else tests[-1:]) < base
+                and lo <= tests[-1] <= hi):
             raise AssertionError(
-                f"({key}): held-out RMSE {tests[-1]} not below the untrained "
-                f"{base} or outside [{lo}, {hi}]")
+                f"({key}): held-out RMSE {tests} not below the untrained "
+                f"{base} or outside [{lo}, {hi}] at the end")
+        if peak > 80e9:
+            raise AssertionError(f"({key}): peak memory {peak} above 80 GB")
         finite = all(bool(torch.isfinite(getattr(m, k)).all())
                      for k in ("P", "Q", "bu", "bi"))
         if not finite or m.P.shape != (train.num_users, run_cfg.model.rank):
             raise AssertionError(f"({key}): tables not finite or mis-shaped")
-        out[key] = (counts, first)
+        out[key] = (counts, first, tests)
     return base, out
 
 
@@ -1869,7 +2207,7 @@ def bias_form_phases(dev, cfg, train, test, fresh_model, trained, lane_rmse,
               {"sgd_sweep_tile", "dense_phase:frozen"}, near_lane),
         "c": (["model.use_bias=false", "sgd.epochs=2"],
               {"sgd_sweep_tile", "dense_phase:none"}, None)}, "bias")
-    counts, after1 = runs["a"]
+    counts, after1, _ = runs["a"]
     launches = {"sgd_sweep_epoch": counts["sgd_sweep_epoch"],
                 "dense_phase_frozen": counts["dense_phase:frozen"]}
     run_cfg = apply_overrides(cfg, ["sgd.bias_mode=epoch", "sgd.epochs=1"])
@@ -2773,6 +3111,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port's kernels run only on a GPU")
+    t_start = time.perf_counter()
     from mfx_torch.config import preset
     from mfx_torch.data.split import train_test_split
     from mfx_torch.data.synthetic import ML25M_SHAPE, make_synthetic
@@ -3031,13 +3370,14 @@ def main() -> int:
     del m, model, train, test  # coo: phases 15-16 make it temporal
     torch.cuda.empty_cache()
 
-    # 7-8. the BPR path
-    launches["bpr_sweep"] = bpr_phases(dev, results, bounds, sweeps)
+    # 7-8. the BPR path; 21-22 at ranks 32 and 128
+    launches.update(bpr_phases(dev, results, bounds, sweeps))
 
     # 9-10. the tile-bias path
     launches.update(tile_bias_phases(dev, sweeps))
 
-    # 11-12. the netflix path (rank 128, int8 codes)
+    # 11-12. the netflix path (rank 128, int8 codes); 21-22 in the other
+    # bias modes
     launches.update(netflix_phases(dev, results, bounds, sweeps))
 
     # 13-14. the minibatch path: Java parity, then ml100k_rank16
@@ -3080,7 +3420,17 @@ def main() -> int:
                 "sgd_sweep_time_r32": "mfx/kernels/sgd_pallas.py:63",
                 "dense_phase_r32": "mfx/kernels/dense_pallas.py:86",
                 "dense_phase_frozen_r32": "mfx/kernels/dense_pallas.py:86",
-                "dense_phase_none_r32": "mfx/kernels/dense_pallas.py:86"}
+                "dense_phase_none_r32": "mfx/kernels/dense_pallas.py:86",
+                "bpr_sweep_r32": "mfx/kernels/bpr_pallas.py:47",
+                "bpr_sweep_r128": "mfx/kernels/bpr_pallas.py:47",
+                "sgd_sweep_tile_r128": "mfx/kernels/sgd_pallas.py:63",
+                "sgd_sweep_tile_none_r128": "mfx/kernels/sgd_pallas.py:63",
+                "sgd_sweep_epoch_r128": "mfx/kernels/sgd_pallas.py:63",
+                "sgd_sweep_step_u_r128": "mfx/kernels/sgd_pallas.py:363",
+                "dense_phase_frozen_int8_r128":
+                    "mfx/kernels/dense_pallas.py:86",
+                "dense_phase_none_int8_r128":
+                    "mfx/kernels/dense_pallas.py:86"}
     sources = {"sgd_sweep_r128": "sgd_sweep", "dense_phase_int8_r128":
                "dense_phase", "sgd_sweep_time": "sgd_sweep",
                "sgd_sweep_epoch": "sgd_sweep_tile",
@@ -3088,7 +3438,14 @@ def main() -> int:
                "sgd_sweep_r32": "sgd_sweep", "sgd_sweep_time_r32": "sgd_sweep",
                "dense_phase_r32": "dense_phase",
                "dense_phase_frozen_r32": "dense_phase",
-               "dense_phase_none_r32": "dense_phase"}
+               "dense_phase_none_r32": "dense_phase",
+               "bpr_sweep_r32": "bpr_sweep", "bpr_sweep_r128": "bpr_sweep",
+               "sgd_sweep_tile_r128": "sgd_sweep_tile",
+               "sgd_sweep_tile_none_r128": "sgd_sweep_tile",
+               "sgd_sweep_epoch_r128": "sgd_sweep_tile",
+               "sgd_sweep_step_u_r128": "sgd_sweep_step_u",
+               "dense_phase_frozen_int8_r128": "dense_phase",
+               "dense_phase_none_int8_r128": "dense_phase"}
     variants = {"sgd_sweep": "bias_mode='lane', rank 64",
                 "sgd_sweep_tile": "bias_mode='tile'",
                 "dense_phase": "lane, int4 codes, rank 64",
@@ -3103,7 +3460,17 @@ def main() -> int:
                                       f"rank 32, {RANK32_BINS} bins",
                 "dense_phase_r32": "lane, int4 codes, rank 32",
                 "dense_phase_frozen_r32": "frozen biases, int4, rank 32",
-                "dense_phase_none_r32": "no biases, int4, rank 32"}
+                "dense_phase_none_r32": "no biases, int4, rank 32",
+                "bpr_sweep_r32": "rank 32", "bpr_sweep_r128": "rank 128",
+                "sgd_sweep_tile_r128": "bias_mode='tile', rank 128",
+                "sgd_sweep_tile_none_r128": "no biases, rank 128",
+                "sgd_sweep_epoch_r128": "bias_mode='epoch', rank 128",
+                "sgd_sweep_step_u_r128": "bias_mode='tile', "
+                                         "step_user_batch, rank 128, tpg 4",
+                "dense_phase_frozen_int8_r128": "frozen biases, int8, "
+                                                "rank 128",
+                "dense_phase_none_int8_r128": "no biases, int8, rank 128"}
+    log(f"[time] total {time.perf_counter() - t_start:.1f} s")
     log(f"[card] {card}")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

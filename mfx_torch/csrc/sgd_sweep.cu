@@ -88,11 +88,6 @@ namespace {
 
 using namespace mfx_sweep;
 
-// lanes of a row in shared memory at once: the whole row at rank 32, 64
-// lanes at ranks 64 and 128
-template <int RANK>
-constexpr int HALF = RANK < 64 ? RANK : 64;
-
 // The lanes of one side whose deltas are dropped: [lo, hi) and `one`.
 struct Frozen {
   int lo, hi, one;
@@ -264,7 +259,7 @@ sgd_sweep_kernel(float* P, float* Q, const int* __restrict__ sa,
       __syncthreads();
       gather<H, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
                            /*use_bias=*/0);
-      sort_keys(sm.keyU, sm.keyI);
+      sort_keys<2>(sm.keyU);
       if (TIME) {
         inject<RANK>(sm, ts, T, su, L, n_bins, 0);
         __syncthreads();

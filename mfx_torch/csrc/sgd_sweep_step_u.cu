@@ -1,5 +1,6 @@
 // Sparse blocked-SGD sweep with the user side batched over each group of
-// tpg tiles (sgd.step_user_batch), per-tile biases or none, ranks 32, 64.
+// tpg tiles (sgd.step_user_batch), per-tile biases or none, ranks 32, 64
+// and 128.
 //
 // Replaces: mfx/kernels/sgd_pallas.py::_kernel_body_step_u (:363), driven
 // by blocked_sgd_sweep_pallas / _sweep_chunk_call with step_u=True.
@@ -57,6 +58,13 @@
 // them again; a pool is thus zero whenever its block takes a run. The list's order varies
 // from run to run and changes nothing: each row's update is independent.
 //
+// Rank 128: the tile's snapshots hold lanes 0-63 and 64-127 of its rows in
+// turn, as in sgd_sweep_tile.cu (sweep_common.cuh, "Rank 128"); each half
+// adds its lanes of the tile's user-row sums into the pool and scatters
+// its lanes of the item side; the biases are pooled and written once. A
+// pool stays one whole row of rank + 1 floats a user (258 KB a block at
+// su = 512), so at that block size it lives in device memory.
+//
 // What bounds it on an H100: as the other sweeps, a tile's latency on one
 // SM (phases separated by barriers, the gather waiting on L2), times the
 // tiles on the sweep's longest dependency chain. Beside the per-tile
@@ -76,11 +84,12 @@ __host__ __device__ inline size_t pool_floats(int su, int rank) {
   return (size_t)su * (rank + 1);
 }
 
-// Byte offsets in dynamic shared memory: the tile's buffers, the group's
-// row list at a 16-byte boundary, then (SMEM_POOL) the pool.
+// Byte offsets in dynamic shared memory: the tile's buffers (HALF<RANK>
+// lanes a row), the group's row list at a 16-byte boundary, then
+// (SMEM_POOL) the pool (RANK + 1 floats a user).
 template <int RANK>
 __host__ __device__ inline size_t group_offset(int T) {
-  return (TileSmem<RANK>::bytes(T) + 15) & ~(size_t)15;
+  return (TileSmem<HALF<RANK>>::bytes(T) + 15) & ~(size_t)15;
 }
 
 template <int RANK>
@@ -99,17 +108,18 @@ sgd_sweep_step_u_kernel(float* P, float* Q, float* bu, float* bi,
                         const int* __restrict__ tl, Wavefront wf,
                         float* __restrict__ sums, int tpg, int T, int su,
                         int si, int use_bias, float lr, float reg, float mu) {
-  constexpr int Q4 = RANK / 4;
+  constexpr int H = HALF<RANK>, HQ4 = H / 4, ROW_Q4 = RANK / 4;
+  constexpr int HALVES = RANK / H;
   extern __shared__ float4 smem_raw[];
   __shared__ int run_slot;
-  const TileSmem<RANK> sm = TileSmem<RANK>::carve(smem_raw, T);
+  const TileSmem<H> sm = TileSmem<H>::carve(smem_raw, T);
   char* group = reinterpret_cast<char*>(smem_raw) + group_offset<RANK>(T);
   int* flag = reinterpret_cast<int*>(group);  // (MAX_BLOCK,)
   int* list = flag + MAX_BLOCK;  // rows touched in this group, any order
   int* cnt = list + MAX_BLOCK;   // their number
   float* acc = SMEM_POOL ? reinterpret_cast<float*>(group + GROUP_SMEM)
                          : pools + blockIdx.x * pool_floats(su, RANK);
-  float4* acc4 = reinterpret_cast<float4*>(acc);  // (su, Q4) pooled row sums
+  float4* acc4 = reinterpret_cast<float4*>(acc);  // (su, ROW_Q4) row sums
   float* accB = acc + (size_t)su * RANK;          // (su,) pooled bias sums
   float4* P4w = reinterpret_cast<float4*>(P);
   const int tid = threadIdx.x;
@@ -132,32 +142,44 @@ sgd_sweep_step_u_kernel(float* P, float* Q, float* bu, float* bi,
       const bool ends_stratum = await_tile(wf, t);
       __syncthreads();
       // P and bu still hold the group's start: nothing wrote them since
-      gather(sm, P, Q, bu, bi, pbase, qbase, T, su, use_bias);
-      sort_keys(sm.keyU, sm.keyI);
-      residuals(sm, T, su, mu, use_bias);
-      __syncthreads();
+      gather_residuals<RANK>(sm, P, Q, bu, bi, pbase, qbase, T, su, mu,
+                             use_bias);
 
-      // 5a. user side: the tile's row sums go into the group's pool
-      for (int w = tid; w < MAX_T * Q4; w += THREADS) {
-        const int q = w % Q4, p = w / Q4;
-        if (!starts_run(sm.keyU, p)) continue;
-        const int x = sm.keyU[p] >> 8;
-        acc4[x * Q4 + q] =
-            add4(acc4[x * Q4 + q],
-                 run_delta<Q4>(sm.keyU, sm.Ps, sm.Qs, sm.e, p, q, lr, reg));
-        if (q == 0 && !flag[x]) {  // one thread a row and tile
-          flag[x] = 1;
-          list[atomicAdd(cnt, 1)] = x;
+      // 5. the half in shared memory; at rank 128 then lanes 0-63 again
+#pragma unroll
+      for (int h = HALVES - 1; h >= 0; --h) {
+        const int q_off = h * HQ4;
+        if (h < HALVES - 1) {
+          __syncthreads();
+          gather<H, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
+                            BIAS_NONE, q_off);
+          __syncthreads();
         }
+        // 5a. user side: the tile's row sums go into the group's pool
+        for (int w = tid; w < MAX_T * HQ4; w += THREADS) {
+          const int q = w % HQ4, p = w / HQ4;
+          if (!starts_run(sm.keyU, p)) continue;
+          const int x = sm.keyU[p] >> 8;
+          float4* a = acc4 + x * ROW_Q4 + q_off + q;
+          *a = add4(*a, run_delta<HQ4>(sm.keyU, sm.Ps, sm.Qs, sm.e, p, q, lr,
+                                       reg));
+          if (q_off + q == 0 && !flag[x]) {  // one thread a row and tile
+            flag[x] = 1;
+            list[atomicAdd(cnt, 1)] = x;
+          }
+        }
+        const bool biases = use_bias && h == HALVES - 1;
+        static_assert(THREADS == 2 * MAX_T, "one bias writer a position");
+        const int pb = tid - MAX_T;
+        if (biases && pb >= 0 && starts_run(sm.keyU, pb)) {
+          const int x = sm.keyU[pb] >> 8;
+          accB[x] += run_bias_delta(sm.keyU, sm.bus, sm.e, pb, lr, reg);
+        }
+        // 5b. item side: applied now, the next tile of the group reads it
+        scatter_side<HQ4, ROW_Q4>(Q, qbase, sm.keyI, sm.Qs, sm.Ps, sm.e,
+                                  q_off, lr, reg);
+        if (biases) scatter_bias(bi, qbase, sm.keyI, sm.bis, sm.e, 0, lr, reg);
       }
-      static_assert(THREADS == 2 * MAX_T, "one bias writer a sorted position");
-      const int pb = tid - MAX_T;
-      if (use_bias && pb >= 0 && starts_run(sm.keyU, pb)) {
-        const int x = sm.keyU[pb] >> 8;
-        accB[x] += run_bias_delta(sm.keyU, sm.bus, sm.e, pb, lr, reg);
-      }
-      // 5b. item side: applied now, the next tile of the group reads it
-      scatter_items(sm, Q, bi, qbase, use_bias, lr, reg);
       const float sse = tile_sse(sm, T);
       if (tid == 0) sums[t] = sse;
       __syncthreads();
@@ -166,11 +188,11 @@ sgd_sweep_step_u_kernel(float* P, float* Q, float* bu, float* bi,
 
       // the group's end: start + pooled sum for every touched row
       const int nrows = *cnt;
-      for (int w = tid; w < nrows * Q4; w += THREADS) {
-        const int x = list[w / Q4], q = w % Q4;
-        const long long o = (pbase + x) * Q4 + q;
-        P4w[o] = add4(ld_row(P4w + o), acc4[x * Q4 + q]);
-        acc4[x * Q4 + q] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int w = tid; w < nrows * ROW_Q4; w += THREADS) {
+        const int x = list[w / ROW_Q4], q = w % ROW_Q4;
+        const long long o = (pbase + x) * ROW_Q4 + q;
+        P4w[o] = add4(ld_row(P4w + o), acc4[x * ROW_Q4 + q]);
+        acc4[x * ROW_Q4 + q] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
       for (int w = tid; w < nrows; w += THREADS) {
         const int x = list[w];
@@ -235,7 +257,14 @@ int max_blocks(int T, int su) {
 
 bool shape_ok(int T, int rank, int su) {
   return T >= 1 && T <= MAX_T && su >= 1 && su <= MAX_BLOCK &&
-         (rank == 32 || rank == 64);
+         (rank == 32 || rank == 64 || rank == 128);
+}
+
+// smem_pool for the rank's instance (a rank shape_ok takes)
+bool rank_smem_pool(int T, int rank, int su) {
+  return rank == 128  ? smem_pool<128>(T, su)
+         : rank == 64 ? smem_pool<64>(T, su)
+                      : smem_pool<32>(T, su);
 }
 
 }  // namespace
@@ -245,7 +274,9 @@ bool shape_ok(int T, int rank, int su) {
 // minus the CUDA error if a call fails.
 extern "C" int mfx_sgd_sweep_step_u_max_blocks(int T, int rank, int su) {
   if (!shape_ok(T, rank, su)) return -(int)cudaErrorInvalidValue;
-  return rank == 64 ? max_blocks<64>(T, su) : max_blocks<32>(T, su);
+  return rank == 128  ? max_blocks<128>(T, su)
+         : rank == 64 ? max_blocks<64>(T, su)
+                      : max_blocks<32>(T, su);
 }
 
 // Floats of device memory each block's pool takes at these shapes: 0 where
@@ -253,9 +284,7 @@ extern "C" int mfx_sgd_sweep_step_u_max_blocks(int T, int rank, int su) {
 // error for shapes the kernel does not take.
 extern "C" int mfx_sgd_sweep_step_u_pool_floats(int T, int rank, int su) {
   if (!shape_ok(T, rank, su)) return -(int)cudaErrorInvalidValue;
-  const bool shared =
-      rank == 64 ? smem_pool<64>(T, su) : smem_pool<32>(T, su);
-  return shared ? 0 : (int)pool_floats(su, rank);
+  return rank_smem_pool(T, rank, su) ? 0 : (int)pool_floats(su, rank);
 }
 
 // pools: blocks * mfx_sgd_sweep_step_u_pool_floats(T, rank, su) zeroed
@@ -272,8 +301,7 @@ extern "C" int mfx_sgd_sweep_step_u(float* P, float* Q, float* bu, float* bi,
   if (!shape_ok(T, rank, su) || si > MAX_BLOCK || tpg < 1 || tpg > 8 ||
       nt % tpg || nruns < 1 || blocks < 1)
     return (int)cudaErrorInvalidValue;
-  const bool shared =
-      rank == 64 ? smem_pool<64>(T, su) : smem_pool<32>(T, su);
+  const bool shared = rank_smem_pool(T, rank, su);
   if ((pools == nullptr) != shared) return (int)cudaErrorInvalidValue;
   const Wavefront wf{runs, wait, state, nruns};
   cudaStream_t st = (cudaStream_t)stream;
@@ -286,6 +314,7 @@ extern "C" int mfx_sgd_sweep_step_u(float* P, float* Q, float* bu, float* bi,
                : launch<R, false>(P, Q, bu, bi, pools, sa, tc, tl, wf,      \
                                   sums, sse_out, nt, blocks, tpg, T, su,    \
                                   si, use_bias, lr, reg, mu, st);
+  MFX_STEP_U_CASE(128)
   MFX_STEP_U_CASE(64)
   MFX_STEP_U_CASE(32)
 #undef MFX_STEP_U_CASE

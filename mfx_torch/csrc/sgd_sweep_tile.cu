@@ -1,5 +1,5 @@
 // Sparse blocked-SGD sweep with per-tile biases, epoch-frozen biases or
-// none, ranks 32 and 64.
+// none, ranks 32, 64 and 128.
 //
 // Replaces: mfx/kernels/sgd_pallas.py::_kernel_body with bias_mode='tile'
 // (its tile_bias branches), bias_mode='epoch' (its epoch_bias branches) or
@@ -46,6 +46,14 @@
 // header's gather) and a run's progress is published only after a barrier
 // and a fence.
 //
+// Rank 128: shared memory holds lanes 0-63 and 64-127 of the tile's rows
+// in turn (sweep_common.cuh, "Rank 128"; the rank-64 buffers, 138 KB at
+// T = 256): the dots are carried across the two gathers, lanes 64-127 are
+// scattered first, then lanes 0-63 are gathered again (still the tile-start
+// values) and scattered. The biases are gathered with the first half and
+// written once, the epoch form's residuals stored once. The table rows are
+// RANK / 4 float4 wide, the shared rows HALF / 4.
+//
 // What bounds it on an H100: as sgd_sweep.cu, one SM's latency a tile:
 // its phases (ids, gather, sort, residuals, scatter) are separated by
 // barriers and the gather waits on L2. The bias vectors add 2 T scalar
@@ -71,11 +79,11 @@ sgd_sweep_tile_kernel(float* P, float* Q, float* bu, float* bi,
                       const int* __restrict__ tl, Wavefront wf,
                       float* __restrict__ sums, int tpg, int T, int su,
                       int si, int use_bias, float lr, float reg, float mu) {
-  constexpr int Q4 = RANK / 4;
+  constexpr int H = HALF<RANK>, HQ4 = H / 4, ROW_Q4 = RANK / 4;
+  constexpr int HALVES = RANK / H;
   extern __shared__ float4 smem_raw[];
   __shared__ int run_slot;
-  const TileSmem<RANK> sm = TileSmem<RANK>::carve(smem_raw, T);
-  float4* P4w = reinterpret_cast<float4*>(P);
+  const TileSmem<H> sm = TileSmem<H>::carve(smem_raw, T);
 
   for (int run = take_run(wf, &run_slot); run < wf.nruns;
        run = take_run(wf, &run_slot)) {
@@ -87,32 +95,30 @@ sgd_sweep_tile_kernel(float* P, float* Q, float* bu, float* bi,
       load_ids(sm, tl + (long long)t * 3 * T, T, su);
       const bool ends_stratum = await_tile(wf, t);
       __syncthreads();
-      gather(sm, P, Q, bu, bi, pbase, qbase, T, su, use_bias);
-      sort_keys(sm.keyU, sm.keyI);
-      residuals(sm, T, su, mu, use_bias);
-      __syncthreads();
+      gather_residuals<RANK>(sm, P, Q, bu, bi, pbase, qbase, T, su, mu,
+                             use_bias);
       if (use_bias == BIAS_EPOCH && threadIdx.x < T)
         e_out[(long long)t * T + threadIdx.x] = sm.e[threadIdx.x];
 
-      // 5. scatter: the first position of each row's run writes
-      for (int w = threadIdx.x; w < MAX_T * Q4; w += THREADS) {
-        const int q = w % Q4, p = w / Q4;
-        if (!starts_run(sm.keyU, p)) continue;
-        const int x = sm.keyU[p] >> 8, j0 = sm.keyU[p] & 255;
-        P4w[(pbase + x) * Q4 + q] =
-            add4(sm.Ps[j0 * Q4 + q],
-                 run_delta<Q4>(sm.keyU, sm.Ps, sm.Qs, sm.e, p, q, lr, reg));
+      // 5. scatter the half in shared memory (the biases with it); at
+      // rank 128 then gather lanes 0-63 again and scatter them
+#pragma unroll
+      for (int h = HALVES - 1; h >= 0; --h) {
+        if (h < HALVES - 1) {
+          __syncthreads();
+          gather<H, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
+                            BIAS_NONE, h * HQ4);
+          __syncthreads();
+        }
+        const bool biases = use_bias == BIAS_TILE && h == HALVES - 1;
+        scatter_side<HQ4, ROW_Q4>(P, pbase, sm.keyU, sm.Ps, sm.Qs, sm.e,
+                                  h * HQ4, lr, reg);
+        if (biases) scatter_bias(bu, pbase, sm.keyU, sm.bus, sm.e, MAX_T, lr,
+                                 reg);
+        scatter_side<HQ4, ROW_Q4>(Q, qbase, sm.keyI, sm.Qs, sm.Ps, sm.e,
+                                  h * HQ4, lr, reg);
+        if (biases) scatter_bias(bi, qbase, sm.keyI, sm.bis, sm.e, 0, lr, reg);
       }
-      // the user biases' writers are the upper half of the block
-      // (scatter_items' bias writers are the lower half)
-      static_assert(THREADS == 2 * MAX_T, "one bias writer a sorted position");
-      const int pb = threadIdx.x - MAX_T;
-      if (use_bias == BIAS_TILE && pb >= 0 && starts_run(sm.keyU, pb)) {
-        const int x = sm.keyU[pb] >> 8, j0 = sm.keyU[pb] & 255;
-        bu[pbase + x] =
-            sm.bus[j0] + run_bias_delta(sm.keyU, sm.bus, sm.e, pb, lr, reg);
-      }
-      scatter_items(sm, Q, bi, qbase, use_bias, lr, reg);
       const float sse = tile_sse(sm, T);
       if (threadIdx.x == 0) sums[t] = sse;
       __syncthreads();
@@ -127,7 +133,7 @@ int launch(float* P, float* Q, float* bu, float* bi, float* e_out,
            float* sums, float* sse_out, int nt, int blocks, int tpg, int T,
            int su, int si, int use_bias, float lr, float reg, float mu,
            cudaStream_t stream) {
-  const size_t smem = TileSmem<RANK>::bytes(T);
+  const size_t smem = TileSmem<HALF<RANK>>::bytes(T);
   cudaError_t err = cudaFuncSetAttribute(
       sgd_sweep_tile_kernel<RANK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -147,6 +153,9 @@ int launch(float* P, float* Q, float* bu, float* bi, float* e_out,
 // size T, or minus the CUDA error (one kernel for every bias mode).
 extern "C" int mfx_sgd_sweep_tile_max_blocks(int T, int rank) {
   if (T < 1 || T > MAX_T) return -(int)cudaErrorInvalidValue;
+  if (rank == 128)
+    return resident_blocks(sgd_sweep_tile_kernel<128>, THREADS,
+                           TileSmem<HALF<128>>::bytes(T));
   if (rank == 64)
     return resident_blocks(sgd_sweep_tile_kernel<64>, THREADS,
                            TileSmem<64>::bytes(T));
@@ -172,6 +181,10 @@ extern "C" int mfx_sgd_sweep_tile(float* P, float* Q, float* bu, float* bi,
       use_bias > BIAS_EPOCH || ((use_bias == BIAS_EPOCH) != (e_out != nullptr)))
     return (int)cudaErrorInvalidValue;
   const Wavefront wf{runs, wait, state, nruns};
+  if (rank == 128)
+    return launch<128>(P, Q, bu, bi, e_out, sa, tc, tl, wf, sums, sse_out,
+                       nt, blocks, tpg, T, su, si, use_bias, lr, reg, mu,
+                       (cudaStream_t)stream);
   if (rank == 64)
     return launch<64>(P, Q, bu, bi, e_out, sa, tc, tl, wf, sums, sse_out, nt,
                       blocks, tpg, T, su, si, use_bias, lr, reg, mu,

@@ -3,16 +3,18 @@
 // duplicate-row grouping, residuals and run sums, for plain (rows, rank)
 // f32 tables, with the biases, where there are any outside the tables, in
 // vectors of their own (use_bias: BIAS_NONE, BIAS_TILE, or BIAS_EPOCH for
-// biases that are read and never written). RANK is the lanes of a row that shared
-// memory holds at once: 32 or 64 (RANK / 4 float4 a row); a table row may
-// be wider (ROW_Q4 float4: sgd_sweep.cu at rank 128 holds its rows' lanes
-// 0-63 and 64-127 in turn and carries the dots across the two halves).
+// biases that are read and never written). Shared memory holds HALF<RANK>
+// lanes of a row at once: the whole row at ranks 32 and 64 (RANK / 4
+// float4 a row), lanes 0-63 and 64-127 in turn at rank 128, whose two
+// 128-lane snapshots at T = 256 (256 KB) would not fit a block's 227 KB;
+// the dots are carried across the two halves. The row gather and the key
+// sort also serve bpr_sweep.cu's three sides.
 // One thread block of THREADS threads works on one tile at a time;
 // every function here is called by all of its threads. For sgd_sweep.cu,
-// sgd_sweep_tile.cu and bpr_sweep.cu: the wavefront scheduler (at the end
-// of this file), with which the blocks of one launch share a sweep's
-// tiles; dense_phase.cu uses its release / acquire pair, its grid sizing
-// and its in-order sum.
+// sgd_sweep_tile.cu, sgd_sweep_step_u.cu and bpr_sweep.cu: the wavefront
+// scheduler (at the end of this file), with which the blocks of one launch
+// share a sweep's tiles; dense_phase.cu uses its release / acquire pair,
+// its grid sizing and its in-order sum.
 //
 // Order of every sum inside a tile, so that a run is bitwise repeatable:
 //   dot      8 threads a slot, each a fixed-order fma chain over its
@@ -24,6 +26,15 @@
 //            bitonic sort of unique (row << 8 | slot) keys puts them
 //            next to each other), added to the row's snapshot last.
 // No float atomics anywhere.
+//
+// Rank 128, in the tile-bias, epoch and step_u sweeps (sgd_sweep.cu's lane
+// and time forms do the same with their own injections): gather lanes 0-63
+// (and the biases) and take each thread's part of the dots, gather lanes
+// 64-127 and carry the same chains on, finish the residuals, scatter lanes
+// 64-127, then gather lanes 0-63 again and scatter them. The second gather
+// of lanes 0-63 still reads the tile-start values: the first scatter
+// writes only lanes 64-127, and under the wavefront no other block writes
+// the tile's rows while it runs. The biases are gathered and written once.
 //
 // Order between tiles. A tile reads and writes only the P rows of its user
 // block and the Q rows of its item window, so the result of a sweep is
@@ -64,7 +75,12 @@ constexpr int NO_ROW = INT_MAX;  // sort key of a pad slot (sorts last)
 // rows; epoch-frozen biases, gathered only
 constexpr int BIAS_NONE = 0, BIAS_TILE = 1, BIAS_EPOCH = 2;
 
+// Lanes of a row in shared memory at once: the whole row at ranks 32 and
+// 64, 64 lanes (two halves) at rank 128.
 template <int RANK>
+constexpr int HALF = RANK < 64 ? RANK : 64;
+
+template <int RANK>  // lanes a row in shared memory
 struct TileSmem {
   static constexpr int Q4 = RANK / 4;  // float4 per row
   float4* Ps;  // (T, Q4) user-row snapshot
@@ -75,7 +91,8 @@ struct TileSmem {
   float* bus;  // (T,) user-bias snapshot (unused without biases)
   float* bis;  // (T,) item-bias snapshot
   int* keyU;   // (MAX_T,) (user id << 8 | slot), sorted ascending
-  int* keyI;   // (MAX_T,) (item id << 8 | slot), sorted ascending
+  int* keyI;   // (MAX_T,) (item id << 8 | slot), sorted ascending; right
+               // after keyU (sort_keys<2>(keyU) sorts both)
 
   __host__ __device__ static size_t bytes(int T) {
     return (size_t)2 * T * RANK * sizeof(float) + (size_t)5 * T * 4 +
@@ -140,22 +157,51 @@ __device__ inline void load_ids(const TileSmem<RANK>& sm, const int* tt, int T,
 __device__ inline float4 ld_row(const float4* p) { return __ldcg(p); }
 __device__ inline float ld_row(const float* p) { return __ldcg(p); }
 
-// 2. snapshot gather (after a barrier behind load_ids, and behind
-// await_tile where the scheduler is used): RANK / 4 threads a row, every
-// load started before any store. P, Q, bu and bi are read as they stand in
-// L2: earlier tiles of this launch, on this SM or another, rewrote them.
-// The tables' rows are ROW_Q4 float4 wide; the gather takes RANK / 4 of
-// them from float4 q_off on.
+// 2. snapshot gather of N tables' rows for the T slots of a tile: for each
+// n, float4 [q_off, q_off + HQ4) of row base[n] + id[n][s] of table src[n]
+// (rows ROW_Q4 float4 wide) into dst[n] (T, HQ4), zeros where slot s is a
+// pad (uid[s] >= su). HQ4 threads a row, every load started before any
+// store. The tables are read as they stand in L2: earlier tiles of this
+// launch, on this SM or another, rewrote them. After a barrier behind the
+// ids (and behind await_tile where the scheduler is used).
+template <int HQ4, int ROW_Q4, int N>
+__device__ inline void gather_rows(float4* const* dst, const float* const* src,
+                                   const long long* base,
+                                   const int* const* id, const int* uid,
+                                   int T, int su, int q_off) {
+  constexpr int GATHER = MAX_T * HQ4 / THREADS;  // float4 a thread a table
+  const int tid = threadIdx.x;
+  float4 v[N][GATHER];
+#pragma unroll
+  for (int m = 0; m < GATHER; ++m) {
+    const int idx = tid + m * THREADS, s = idx / HQ4, k = idx % HQ4;
+#pragma unroll
+    for (int n = 0; n < N; ++n) v[n][m] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (s < T && uid[s] < su) {
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        v[n][m] = ld_row(reinterpret_cast<const float4*>(src[n]) +
+                         (base[n] + id[n][s]) * ROW_Q4 + q_off + k);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < GATHER; ++m) {
+    const int idx = tid + m * THREADS;
+    if (idx < T * HQ4) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) dst[n][idx] = v[n][m];
+    }
+  }
+}
+
+// 2 for the SGD sweeps: the P and Q rows' float4 [q_off, q_off + RANK / 4)
+// of rows ROW_Q4 float4 wide, and with use_bias the slots' biases.
 template <int RANK, int ROW_Q4 = RANK / 4>
 __device__ inline void gather(const TileSmem<RANK>& sm, const float* P,
                               const float* Q, const float* bu, const float* bi,
                               long long pbase, long long qbase, int T, int su,
                               int use_bias, int q_off = 0) {
-  constexpr int Q4 = RANK / 4;
-  constexpr int GATHER = MAX_T * Q4 / THREADS;  // float4 a thread a table
   const int tid = threadIdx.x;
-  const float4* P4 = reinterpret_cast<const float4*>(P);
-  const float4* Qg4 = reinterpret_cast<const float4*>(Q);
   float b_u = 0.f, b_i = 0.f;
   if (use_bias && tid < T) {
     const int u = sm.uid[tid];
@@ -164,50 +210,37 @@ __device__ inline void gather(const TileSmem<RANK>& sm, const float* P,
       b_i = ld_row(bi + qbase + sm.iid[tid]);
     }
   }
-  float4 pv[GATHER], qv[GATHER];
-#pragma unroll
-  for (int m = 0; m < GATHER; ++m) {
-    const int idx = tid + m * THREADS, s = idx / Q4, k = idx % Q4;
-    pv[m] = qv[m] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (s < T) {
-      const int u = sm.uid[s];
-      if (u < su) {
-        pv[m] = ld_row(P4 + (pbase + u) * ROW_Q4 + q_off + k);
-        qv[m] = ld_row(Qg4 + (qbase + sm.iid[s]) * ROW_Q4 + q_off + k);
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < GATHER; ++m) {
-    const int idx = tid + m * THREADS;
-    if (idx < T * Q4) {
-      sm.Ps[idx] = pv[m];
-      sm.Qs[idx] = qv[m];
-    }
-  }
+  float4* const dst[2] = {sm.Ps, sm.Qs};
+  const float* const src[2] = {P, Q};
+  const long long base[2] = {pbase, qbase};
+  const int* const id[2] = {sm.uid, sm.iid};
+  gather_rows<RANK / 4, ROW_Q4, 2>(dst, src, base, id, sm.uid, T, su, q_off);
   if (use_bias && tid < T) {
     sm.bus[tid] = b_u;
     sm.bis[tid] = b_i;
   }
 }
 
-// 3. bitonic sort of both key arrays (threads [0, 256) sort the user keys,
-// [256, 512) the item keys); keys are unique, so the order is exact and a
-// row's slots end up adjacent in ascending slot order. Begins and ends
-// with a barrier.
-__device__ inline void sort_keys(int* keyU, int* keyI) {
-  const int tid = threadIdx.x;
-  int* key = tid < MAX_T ? keyU : keyI;
-  const int i = tid & (MAX_T - 1);
+// 3. bitonic sort of N key arrays of MAX_T, one after another from key:
+// MAX_T / 2 compare-exchange pairs an array and step, one a thread of
+// [0, N * MAX_T / 2). Keys are unique, so the order is exact and a row's
+// slots end up adjacent in ascending slot order. Begins and ends with a
+// barrier.
+template <int N>
+__device__ inline void sort_keys(int* key) {
+  static_assert(N * MAX_T / 2 <= THREADS, "one thread a pair");
+  const int tid = threadIdx.x, side = tid / (MAX_T / 2);
+  const int pair = tid % (MAX_T / 2);
+  int* k_side = key + side * MAX_T;
   for (int k = 2; k <= MAX_T; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
       __syncthreads();
-      const int ixj = i ^ j;
-      if (ixj > i) {
-        const int a = key[i], b = key[ixj];
+      if (side < N) {
+        const int i = (pair / j) * 2 * j + pair % j, ixj = i + j;
+        const int a = k_side[i], b = k_side[ixj];
         if ((a > b) == ((i & k) == 0)) {
-          key[i] = b;
-          key[ixj] = a;
+          k_side[i] = b;
+          k_side[ixj] = a;
         }
       }
     }
@@ -263,12 +296,33 @@ __device__ inline void finish_residuals(float* e, const int* uid,
   }
 }
 
+// 2-4 of the tile-bias, epoch and step_u sweeps for rows of RANK lanes:
+// gather lanes 0 .. HALF - 1 and the biases, sort the keys, take each
+// thread's part of the dots; at rank 128 gather lanes 64-127 and carry the
+// chains on; then the residuals. After the barrier behind load_ids (and
+// await_tile); ends with a barrier, the last half gathered in sm.
 template <int RANK>
-__device__ inline void residuals(const TileSmem<RANK>& sm, int T, int su,
-                                 float mu, int use_bias) {
+__device__ inline void gather_residuals(const TileSmem<HALF<RANK>>& sm,
+                                        const float* P, const float* Q,
+                                        const float* bu, const float* bi,
+                                        long long pbase, long long qbase,
+                                        int T, int su, float mu,
+                                        int use_bias) {
+  constexpr int H = HALF<RANK>, HQ4 = H / 4, ROW_Q4 = RANK / 4;
+  gather<H, ROW_Q4>(sm, P, Q, bu, bi, pbase, qbase, T, su, use_bias);
+  sort_keys<2>(sm.keyU);
   float v[DOT_SLOTS] = {};
   dot_part(sm, T, v);
+#pragma unroll
+  for (int h = 1; h < RANK / H; ++h) {
+    __syncthreads();
+    gather<H, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
+                      BIAS_NONE, h * HQ4);
+    __syncthreads();
+    dot_part(sm, T, v);
+  }
   finish_residuals(sm.e, sm.uid, sm.bus, sm.bis, T, su, mu, use_bias, v);
+  __syncthreads();
 }
 
 // Does sorted position p hold the first slot of a real row's run?
@@ -310,31 +364,39 @@ __device__ inline float run_bias_delta(const int* key, const float* b,
   return a;
 }
 
-// Item side of step 5, for every (sorted position, column quad) and, with
-// per-tile biases, every sorted position's bias: the first position of a
-// row's run writes snapshot + run sum to Q and bi.
-template <int RANK>
-__device__ inline void scatter_items(const TileSmem<RANK>& sm, float* Q,
-                                     float* bi, long long qbase, int use_bias,
-                                     float lr, float reg) {
-  constexpr int Q4 = RANK / 4;
-  float4* Q4w = reinterpret_cast<float4*>(Q);
-  for (int w = threadIdx.x; w < MAX_T * Q4; w += THREADS) {
-    const int q = w % Q4, p = w / Q4;
-    if (!starts_run(sm.keyI, p)) continue;
-    const int x = sm.keyI[p] >> 8, j0 = sm.keyI[p] & 255;
-    Q4w[(qbase + x) * Q4 + q] =
-        add4(sm.Qs[j0 * Q4 + q],
-             run_delta<Q4>(sm.keyI, sm.Qs, sm.Ps, sm.e, p, q, lr, reg));
+// 5. one side's scatter of the lanes in shared memory (HQ4 float4 a row
+// there; float4 [q_off, q_off + HQ4) of the table's rows, ROW_Q4 wide):
+// for every (sorted position, column quad), the first position of each
+// row's run writes snapshot + run sum. `own` is the side's snapshot,
+// `other` the other side's.
+template <int HQ4, int ROW_Q4>
+__device__ inline void scatter_side(float* table, long long base,
+                                    const int* key, const float4* own,
+                                    const float4* other, const float* e,
+                                    int q_off, float lr, float reg) {
+  float4* T4 = reinterpret_cast<float4*>(table);
+  for (int w = threadIdx.x; w < MAX_T * HQ4; w += THREADS) {
+    const int q = w % HQ4, p = w / HQ4;
+    if (!starts_run(key, p)) continue;
+    const int x = key[p] >> 8, j0 = key[p] & 255;
+    T4[(base + x) * ROW_Q4 + q_off + q] =
+        add4(own[j0 * HQ4 + q],
+             run_delta<HQ4>(key, own, other, e, p, q, lr, reg));
   }
-  if (use_bias == BIAS_TILE) {
-    for (int p = threadIdx.x; p < MAX_T; p += THREADS) {
-      if (!starts_run(sm.keyI, p)) continue;
-      const int x = sm.keyI[p] >> 8, j0 = sm.keyI[p] & 255;
-      bi[qbase + x] =
-          sm.bis[j0] + run_bias_delta(sm.keyI, sm.bis, sm.e, p, lr, reg);
-    }
-  }
+}
+
+// 5. one side's per-tile biases: thread lo + p, for each sorted position p
+// that starts a row's run, writes the bias snapshot + the run's summed
+// deltas (the item side's writers are threads [0, MAX_T), the user side's
+// [MAX_T, 2 MAX_T), beside the row scatters).
+__device__ inline void scatter_bias(float* b, long long base, const int* key,
+                                    const float* snap, const float* e,
+                                    int lo, float lr, float reg) {
+  static_assert(THREADS == 2 * MAX_T, "one bias writer a sorted position");
+  const int p = threadIdx.x - lo;
+  if (p < 0 || p >= MAX_T || !starts_run(key, p)) return;
+  const int x = key[p] >> 8, j0 = key[p] & 255;
+  b[base + x] = snap[j0] + run_bias_delta(key, snap, e, p, lr, reg);
 }
 
 // The tile's sum of squared residuals; the value is whole on lane 0 of

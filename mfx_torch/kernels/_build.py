@@ -40,7 +40,7 @@ _SIGNATURES = {
     "mfx_tile_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mfx_bpr_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _I, _I, _I, _F, _F, _P],
-    "mfx_bpr_sweep_max_blocks": [_I],
+    "mfx_bpr_sweep_max_blocks": [_I, _I],
     "mfx_sgd_sweep_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                            _F, _P],

@@ -2,14 +2,14 @@
 version.
 
 Replaces ``mfx/kernels/bpr_pallas.py::_kernel_body`` (driven by
-``bpr_sweep_pallas`` / ``_chunk_call``), rank 64. One call runs one whole
-segment of the ring: the tiles of ``tl``, each a snapshot minibatch of T
-(user, positive, negative) triples of one stratum, on the plain
-``(rows, rank)`` f32 tables, with the result of walking them in plan
-order. Given the plan's dependency table the kernel walks the segment's
-user-block runs on many SMs and gives the same bits. The reference chunks
-the stream only to bound the TPU's scalar-prefetch memory; here one
-launch takes it all.
+``bpr_sweep_pallas`` / ``_chunk_call``), ranks 32, 64 and 128. One call
+runs one whole segment of the ring: the tiles of ``tl``, each a snapshot
+minibatch of T (user, positive, negative) triples of one stratum, on the
+plain ``(rows, rank)`` f32 tables, with the result of walking them in
+plan order. Given the plan's dependency table the kernel walks the
+segment's user-block runs on many SMs and gives the same bits. The
+reference chunks the stream only to bound the TPU's scalar-prefetch
+memory; here one launch takes it all.
 
 On CUDA tensors the wrapper launches the kernel (or raises); on CPU
 tensors it runs :func:`bpr_sweep_plain`. Nothing falls back.
@@ -67,7 +67,8 @@ def bpr_sweep(P, Q, sa, tc, tl, lr, reg, *, su, si, tpg, deps=None,
     nt, T = tl.shape[0], tl.shape[2]
     lib = _build.load_library()
     runs, wait, state, sums, grid = wavefront_launch(
-        "bpr_sweep", lib, deps, nt, T, P.device, blocks)
+        "bpr_sweep", lib, deps, nt, T, P.device, blocks,
+        sizing=(P.shape[1],))
     loss = torch.empty(1, dtype=torch.float32, device=P.device)
     stream = torch.cuda.current_stream(P.device).cuda_stream
     _build.check(lib.mfx_bpr_sweep(

@@ -11,15 +11,16 @@ They replace the two bodies of ``mfx/kernels/sgd_pallas.py``'s sweep call:
   timeSVD, ranks 32, 64 and 128): the lane form with each slot's time bin
   and deviation injected into its snapshot rows;
 - :func:`sgd_sweep_tile`: ``_kernel_body`` with ``bias_mode='tile'`` or
-  with no biases (ranks 32 and 64; ``bu`` / ``bi`` are vectors beside the
-  tables and every lane updates);
+  with no biases (ranks 32, 64 and 128; ``bu`` / ``bi`` are vectors beside
+  the tables and every lane updates);
 - :func:`sgd_sweep_epoch`: the same kernel with ``bias_mode='epoch'``
-  (ranks 32 and 64): the biases frozen for the sweep, every lane updates,
+  (ranks 32, 64 and 128): the biases frozen for the sweep, every lane
+  updates,
   and each slot's residual is written out for the trainer's batched bias
   update at the epoch's end;
 - :func:`sgd_sweep_step_u`: ``_kernel_body_step_u``
-  (``sgd.step_user_batch``): the same, with the user side batched over
-  each group of ``tpg`` tiles.
+  (``sgd.step_user_batch``, ranks 32, 64 and 128): the same, with the
+  user side batched over each group of ``tpg`` tiles.
 
 One call runs one item-sweep: the tiles of ``tl``, each a snapshot
 minibatch (gather, residuals, exact segment-summed scatter), on plain
@@ -40,15 +41,16 @@ import torch
 from mfx_torch.kernels import _build
 from mfx_torch.kernels.packing import row_add
 
-__all__ = ["LANE_RANKS", "sgd_sweep", "sgd_sweep_plain", "sgd_sweep_time",
+__all__ = ["SWEEP_RANKS", "sgd_sweep", "sgd_sweep_plain", "sgd_sweep_time",
            "sgd_sweep_tile",
            "sgd_sweep_tile_plain", "sgd_sweep_epoch", "sgd_sweep_epoch_plain",
            "sgd_sweep_step_u",
            "sgd_sweep_step_u_plain", "check_sweep_args",
            "check_kernel_limits", "check_deps", "wavefront_launch"]
 
-# the ranks csrc/sgd_sweep.cu is built for, in its lane and time forms
-LANE_RANKS = (32, 64, 128)
+# the ranks every sweep kernel is built for: csrc/sgd_sweep.cu (lane and
+# time forms), sgd_sweep_tile.cu, sgd_sweep_step_u.cu and bpr_sweep.cu
+SWEEP_RANKS = (32, 64, 128)
 
 
 def check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg, bu=None, bi=None,
@@ -88,14 +90,13 @@ def check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg, bu=None, bi=None,
         )
 
 
-def check_kernel_limits(who, P, tl, su, si, ranks=(64,)):
-    """What the sweep kernels are built for: the ranks in ``ranks``
-    (32, 64 and 128 for the lane-bias sweep and its time form, 64 for BPR,
-    32 and 64 for the tile-bias ones), T <= 256, blocks <= 1024."""
-    if P.shape[1] not in ranks:
+def check_kernel_limits(who, P, tl, su, si):
+    """What the sweep kernels are built for: the ranks of SWEEP_RANKS,
+    T <= 256, blocks <= 1024."""
+    if P.shape[1] not in SWEEP_RANKS:
         raise NotImplementedError(
             f"{who} kernel is built for rank "
-            f"{' or '.join(map(str, ranks))}, got {P.shape[1]} (other "
+            f"{' or '.join(map(str, SWEEP_RANKS))}, got {P.shape[1]} (other "
             "ranks: ROADMAP Queue 2 item 2)"
         )
     if tl.shape[2] > 256 or su > 1024 or si > 1024:
@@ -209,7 +210,7 @@ def _lane_sweep(wrapper, P, Q, sa, tc, tl, lr, reg, mu, su, si, tpg, deps,
                                tpg=tpg, n_bins=n_bins)
     if P.device.type != "cuda":
         raise ValueError(f"{who}: no kernel for device {P.device}")
-    check_kernel_limits(who, P, tl, su, si, ranks=LANE_RANKS)
+    check_kernel_limits(who, P, tl, su, si)
     nt, T = tl.shape[0], tl.shape[2]
     lib = _build.load_library()
     runs, wait, state, sums, grid = wavefront_launch(
@@ -392,7 +393,7 @@ def _tile_bias_sweep(wrapper, plain, P, Q, bu, bi, sa, tc, tl, lr, reg, mu,
                      tpg=tpg, use_bias=use_bias)
     if P.device.type != "cuda":
         raise ValueError(f"{who}: no kernel for device {P.device}")
-    check_kernel_limits(who, P, tl, su, si, ranks=(32, 64))
+    check_kernel_limits(who, P, tl, su, si)
     nt, T, rank = tl.shape[0], tl.shape[2], P.shape[1]
     if step_u and not 1 <= tpg <= 8:
         raise NotImplementedError(f"{who} kernel takes tpg 1..8, got {tpg}")

@@ -116,7 +116,7 @@ def _run_port(fn, model, skel, tl, **kw):
     return {"P": P, "Q": Q, "bu": bu, "bi": bi}, e_all, sse
 
 
-@pytest.mark.parametrize("rank", [32, 64])
+@pytest.mark.parametrize("rank", [32, 64, 128])
 def test_slots_match_the_reference(rank):
     """``with_slots=True`` gives the reference's tiles, slot of each
     sorted rating and sorted global ids under the same plan bits, and the
@@ -138,7 +138,7 @@ def test_slots_match_the_reference(rank):
     assert bool((flat[:, 0][~real] == SU).all())
 
 
-@pytest.mark.parametrize("rank", [32, 64])
+@pytest.mark.parametrize("rank", [32, 64, 128])
 def test_epoch_sweep_matches_pallas_interpret(rank):
     """Non-zero biases: the tables and each slot's residual within 1e-4
     (the rank-64 tolerance of tests/test_torch_slice.py: the reference's
@@ -164,7 +164,7 @@ def test_epoch_sweep_matches_pallas_interpret(rank):
     assert float(e_t.view(-1)[d].abs().max()) > 0.1
 
 
-@pytest.mark.parametrize("rank", [32, 64])
+@pytest.mark.parametrize("rank", [32, 64, 128])
 def test_zero_biases_give_the_bias_free_tile_sweep_bitwise(rank):
     """The reference's own identity (tests/unit/test_bias_epoch.py): with
     all biases 0 the epoch form's factor updates are the bias-free tile

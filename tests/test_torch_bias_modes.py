@@ -216,23 +216,12 @@ RANK32_RUNS = {
 }
 
 
-@pytest.mark.parametrize("run", list(RANK32_RUNS))
-def test_rank32_runs_match_reference_trainer(run):
-    """The port's CPU run against the reference trainer (Pallas in
-    interpret mode) on the reference's plan bits, from the same tables:
-    train and held-out RMSE within 1e-5 each epoch, tables and biases
-    within 1e-4 after 3 epochs (the rank-64 tolerances above)."""
-    from mfx.config import apply_overrides as apply_j
-    from mfx.config import preset as preset_j
-
-    over = RANK32_RUNS[run] + ["sgd.ublock=256", "sgd.iblock=256",
-                               "sgd.tile=64", "sgd.epochs=3",
-                               "sgd.plan_device=device"]
-    cfg_t, cfg_j = (apply_overrides(preset("ml1m_rank32_biased"), over),
-                    apply_j(preset_j("ml1m_rank32_biased"), over))
-    use_bias, rank = cfg_t.model.use_bias, cfg_t.model.rank
-    coo = synthetic.make_synthetic(604, 370, 10_002, rank=32, seed=101,
-                                   star_step=1.0, user_zipf_s=0.6)
+def _run_both(cfg_t, cfg_j, coo, rank):
+    """Both packages' trainers on ``coo`` split 0.9 / 0.1 from the
+    reference's init (numpy-seeded biases where they train) with the
+    reference's plan bits: (port's, reference's) per-epoch (train RMSE,
+    held-out RMSE, tables), the port's timings and the initial tables."""
+    use_bias = cfg_t.model.use_bias
     train, test = train_test_split(coo, test_frac=0.1, seed=0)
     m0 = init_model(1, coo.num_users, coo.num_items, rank,
                     global_mean=train.global_mean)
@@ -254,14 +243,82 @@ def test_rank32_runs_match_reference_trainer(run):
                model_from_numpy(arrays, device="cpu"), train, cfg_t.sgd,
                use_bias, seed=0, device="cpu", timings=timings,
                plan_rand=_jax_bits(0))]
-    assert len(got) == len(ref) == 3
+    return got, ref, timings, arrays
+
+
+def _close(got, ref, rmse_tol, tab_tol):
+    assert len(got) == len(ref)
+    for (tr_t, te_t, _), (tr_j, te_j, _) in zip(got, ref):
+        assert abs(tr_t - tr_j) <= rmse_tol and abs(te_t - te_j) <= rmse_tol
+    for k in KEYS:
+        np.testing.assert_allclose(got[-1][2][k], ref[-1][2][k], rtol=0,
+                                   atol=tab_tol, err_msg=k)
+
+
+@pytest.mark.parametrize("run", list(RANK32_RUNS))
+def test_rank32_runs_match_reference_trainer(run):
+    """The port's CPU run against the reference trainer (Pallas in
+    interpret mode) on the reference's plan bits, from the same tables:
+    train and held-out RMSE within 1e-5 each epoch, tables and biases
+    within 1e-4 after 3 epochs (the rank-64 tolerances above)."""
+    from mfx.config import apply_overrides as apply_j
+    from mfx.config import preset as preset_j
+
+    over = RANK32_RUNS[run] + ["sgd.ublock=256", "sgd.iblock=256",
+                               "sgd.tile=64", "sgd.epochs=3",
+                               "sgd.plan_device=device"]
+    cfg_t, cfg_j = (apply_overrides(preset("ml1m_rank32_biased"), over),
+                    apply_j(preset_j("ml1m_rank32_biased"), over))
+    coo = synthetic.make_synthetic(604, 370, 10_002, rank=32, seed=101,
+                                   star_step=1.0, user_zipf_s=0.6)
+    got, ref, timings, _ = _run_both(cfg_t, cfg_j, coo, cfg_t.model.rank)
+    assert len(got) == 3
     dense = "dense_info" in timings
     assert dense == (run != "lane_no_dense")
     if dense:  # the automatic carving leaves no stratum sparse here
         assert timings["dense_info"]["dense_frac"] == 1.0
-    for (tr_t, te_t, _), (tr_j, te_j, _) in zip(got, ref):
-        assert abs(tr_t - tr_j) <= 1e-5 and abs(te_t - te_j) <= 1e-5
-    for k in KEYS:
-        np.testing.assert_allclose(got[-1][2][k], ref[-1][2][k], rtol=0,
-                                   atol=1e-4, err_msg=k)
+    _close(got, ref, 1e-5, 1e-4)
     assert got[-1][0] < got[0][0]
+
+
+# netflix100m_rank128_dp with parallel.mode=single (rank 128, su = si =
+# 512, T = 256, int8 codes) in each bias form but lane, on the netflix
+# synthetic cut to 1/2000 of its users and ratings (240 users, all 17,770
+# items; the full cell's generator, seed and whole stars), 1 epoch. At
+# this size the automatic carving takes every stratum dense, so
+# sgd.dense_chi=0.002 carves 14 of the 35 strata dense and leaves the rest
+# to the sparse sweeps: each run goes through a rank-128 sweep form and a
+# rank-128 int8 dense form.
+NETFLIX_RUNS = {
+    "tile": ["sgd.bias_mode=tile"],
+    "epoch": ["sgd.bias_mode=epoch"],
+    "step_u": ["sgd.bias_mode=tile", "sgd.step_user_batch=true"],
+    "no_bias": ["model.use_bias=false"],
+}
+
+
+@pytest.mark.parametrize("run", list(NETFLIX_RUNS))
+def test_netflix_rank128_runs_match_reference_trainer(run):
+    """As test_rank32_runs_match_reference_trainer, at the tolerances of
+    tests/test_torch_slice.py::test_netflix_cut_follows_the_reference_trainer
+    (RMSE 1e-6, tables 1e-5): both packages sum the 128 lanes of a dot."""
+    from mfx.config import apply_overrides as apply_j
+    from mfx.config import preset as preset_j
+    from mfx.data.synthetic import NETFLIX_SHAPE
+
+    over = NETFLIX_RUNS[run] + ["parallel.mode=single", "sgd.epochs=1",
+                                "sgd.dense_chi=0.002",
+                                "sgd.plan_device=device"]
+    cfg_t, cfg_j = (apply_overrides(preset("netflix100m_rank128_dp"), over),
+                    apply_j(preset_j("netflix100m_rank128_dp"), over))
+    coo = synthetic.make_synthetic(
+        NETFLIX_SHAPE[0] // 2000, NETFLIX_SHAPE[1], NETFLIX_SHAPE[2] // 2000,
+        rank=128, seed=103, star_step=1.0, user_zipf_s=0.6)
+    got, ref, timings, arrays = _run_both(cfg_t, cfg_j, coo, 128)
+    info = timings["dense_info"]
+    assert info["num_strata"] == 14 and 0 < info["dense_frac"] < 1
+    assert info["r_stream_bytes"] == 14 * 512 * 512  # int8 codes
+    assert sum(n for n, _ in timings["sweep_tiles"]) > 0  # sparse tiles too
+    _close(got, ref, 1e-6, 1e-5)
+    moved = float(np.abs(got[-1][2]["bu"] - arrays["bu"]).max())
+    assert (moved > 1e-3) == cfg_t.model.use_bias  # biases train when asked

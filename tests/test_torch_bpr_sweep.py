@@ -41,21 +41,24 @@ def _stream(n=2_500):
             for seg, slab in zip(skel.segments, slabs)]
 
 
-def test_plain_matches_the_pallas_kernel():
-    segs = _stream()
-    m0 = init_model(3, U, I, RANK, global_mean=0.0)
+def _hold_plain_to_the_pallas_kernel(rank, n):
+    """Both packages' sweeps over the two segments of ``_stream(n)`` from
+    the same tables: tables within 2e-6 (+ 1e-5 relative), losses within
+    1e-4 relative."""
+    segs = _stream(n)
+    m0 = init_model(3, U, I, rank, global_mean=0.0)
     Pm, Qm = pk.pack_state(m0, SU, SI)
     want_loss = []
     for win0, nw, sa, tc, tl in segs:
-        Qs = pk.q_segment(Qm, win0, nw, RANK, SI)
+        Qs = pk.q_segment(Qm, win0, nw, rank, SI)
         Pm, Qs, loss = bpr_sweep_pallas(
             Pm, Qs, {"sa": jnp.asarray(sa), "tc": jnp.asarray(tc),
                      "tl": jnp.asarray(tl)},
-            LR, REG, su=SU, si=SI, rank=RANK, tpg=TPG, exact=True,
+            LR, REG, su=SU, si=SI, rank=rank, tpg=TPG, exact=True,
             interpret=True)
-        Qm = pk.q_segment_restore(Qm, Qs, win0, RANK, SI)
+        Qm = pk.q_segment_restore(Qm, Qs, win0, rank, SI)
         want_loss.append(float(loss[0, 0]))
-    want = pk.unpack_state(Pm, Qm, 0.0, U, I, RANK, SU, SI)
+    want = pk.unpack_state(Pm, Qm, 0.0, U, I, rank, SU, SI)
 
     m = model_from_numpy({k: np.asarray(getattr(m0, k))
                           for k in ("P", "Q", "bu", "bi", "mu")}, device="cpu")
@@ -73,6 +76,18 @@ def test_plain_matches_the_pallas_kernel():
     np.testing.assert_allclose(got_loss, want_loss, rtol=1e-4)
     assert not torch.equal(P[:U], m.P)
     assert float(Q[I:].abs().max()) == 0.0  # pad rows untouched
+
+
+def test_plain_matches_the_pallas_kernel():
+    _hold_plain_to_the_pallas_kernel(RANK, 2_500)
+
+
+@pytest.mark.parametrize("rank", [32, 128])
+def test_plain_matches_the_pallas_kernel_at_other_ranks(rank):
+    """The kernel's other forms: pack 4 and pack 1 in the reference. Rank
+    128 on 1,000 triples, as the reference's own test keeps its interpret
+    mode cheap (tests/unit/test_bpr_pallas.py)."""
+    _hold_plain_to_the_pallas_kernel(rank, 1_000 if rank == 128 else 2_500)
 
 
 def _args(nt=8):
@@ -115,7 +130,7 @@ def test_wrapper_validation(bad, exc):
     elif bad == "unpadded":
         Q = Q[:-1]
     elif bad == "ranks":
-        Q = Q[:, :32].contiguous()
+        Q = Q[:, :16].contiguous()
     elif bad == "tl_shape":
         tl = tl[:, :2].contiguous()
     else:

@@ -331,7 +331,7 @@ def _check4(run, plain, state, use_bias=True):
 
 
 @pytest.mark.parametrize("use_bias", [True, False])
-@pytest.mark.parametrize("rank", [32, 64])
+@pytest.mark.parametrize("rank", [32, 64, 128])
 @pytest.mark.parametrize("body", ["tile", "step_u"])
 def test_tile_bias_sweep_kernels_match_plain(cuda, body, rank, use_bias):
     kernel, plain = TILE_SWEEPS[body]
@@ -358,7 +358,7 @@ def test_tile_bias_sweep_kernels_match_plain(cuda, body, rank, use_bias):
 
 @pytest.mark.parametrize("rank,tpg,distinct", [
     (32, 4, 4), (32, 8, 64), (32, 1, 512), (64, 4, 4), (64, 2, 64),
-    (64, 8, 1024)])
+    (64, 8, 1024), (128, 4, 4), (128, 2, 64), (128, 8, 1024)])
 @pytest.mark.parametrize("body", ["tile", "step_u"])
 def test_tile_bias_sweep_kernels_hot_rows_and_pads(cuda, body, rank, tpg,
                                                    distinct):
@@ -598,22 +598,23 @@ BPR = BPRConfig(lr=0.05, reg=0.002, epochs=2, kernel="pallas", ublock=128,
                 iblock=128, tile=64, neg_seed=1)
 
 
-def _bpr_state(dev, tile=64):
+def _bpr_state(dev, tile=64, rank=RANK):
     from mfx_torch.parallel import bpr_sharded as ring
 
     coo = synthetic.make_implicit_synthetic(700, 600, 30_000, rank=4, seed=5)
     g = torch.Generator(device=dev).manual_seed(0)
-    model = init_model(g, 700, 600, RANK)
+    model = init_model(g, 700, 600, rank)
     cfg = dataclasses.replace(BPR, tile=tile)
     st = ring.ring_state(model, coo, cfg, seed=0, device=dev)
     return coo, model, cfg, st, ring.ring_epoch_tiles(st, cfg, 0, 0)
 
 
+@pytest.mark.parametrize("rank", [RANK, 32, 128])
 @pytest.mark.parametrize("tile", [64, 256])
-def test_bpr_sweep_kernel_matches_plain(cuda, tile):
+def test_bpr_sweep_kernel_matches_plain(cuda, tile, rank):
     from mfx_torch.kernels.bpr_sweep import bpr_sweep, bpr_sweep_plain
 
-    _, _, cfg, st, tls = _bpr_state(cuda, tile)
+    _, _, cfg, st, tls = _bpr_state(cuda, tile, rank)
     for (win0, nw, sa, tc, _), slab in zip(st.segments(), tls):
         seg = slice(win0 * cfg.iblock, (win0 + nw) * cfg.iblock)
         args = (sa, tc, slab[0, 0], cfg.lr, cfg.reg)
@@ -625,8 +626,9 @@ def test_bpr_sweep_kernel_matches_plain(cuda, tile):
         assert bpr_sweep.launches == before + 2
 
 
+@pytest.mark.parametrize("rank", [RANK, 32, 128])
 @pytest.mark.parametrize("distinct", [4, 64, 512])
-def test_bpr_sweep_kernel_hot_rows_and_pads(cuda, distinct):
+def test_bpr_sweep_kernel_hot_rows_and_pads(cuda, distinct, rank):
     """Random full tiles at the preset's blocks (512) and tile (256) where
     every slot repeats one of ``distinct`` rows per side (so positives and
     negatives share rows, and the negatives' add reads the positives'),
@@ -636,8 +638,8 @@ def test_bpr_sweep_kernel_hot_rows_and_pads(cuda, distinct):
     g = torch.Generator(device=cuda).manual_seed(distinct)
     su = si = 512
     nt, tile = 32, 256
-    P = torch.randn(2 * su, RANK, device=cuda, generator=g) * 0.1
-    Q = torch.randn(3 * si, RANK, device=cuda, generator=g) * 0.1
+    P = torch.randn(2 * su, rank, device=cuda, generator=g) * 0.1
+    Q = torch.randn(3 * si, rank, device=cuda, generator=g) * 0.1
     sa = torch.randint(0, 2, (nt // TPG,), device=cuda, generator=g,
                        dtype=torch.int32)
     tc = torch.randint(0, 3, (nt,), device=cuda, generator=g,
@@ -702,8 +704,7 @@ def _wavefront_case(kernel, dev):
     # the rank of a case named ..._r128 or ..._r32
     rank = (128 if kernel.endswith("_r128") else 32 if kernel.endswith("_r32")
             else RANK)
-    if kernel in ("sgd", "sgd_r128", "sgd_r32", "tile", "step_u",
-                  "step_u_su1024", "epoch"):
+    if kernel.startswith(("sgd", "tile", "step_u", "epoch")):
         users = 9000 if kernel == "step_u_su1024" else U
         train, _, model, u, i, r = _state(dev, users=users, rank=rank)
         su = 1024 if kernel == "step_u_su1024" else 64
@@ -723,7 +724,7 @@ def _wavefront_case(kernel, dev):
                     lane_tables(model, su, si, dev), sw.deps)
         model.bu.copy_(torch.randn(users, device=dev) * 0.1)
         model.bi.copy_(torch.randn(I, device=dev) * 0.1)
-        if kernel == "epoch":  # the residuals ride as a fifth "table"
+        if kernel.startswith("epoch"):  # the residuals: a fifth "table"
             from mfx_torch.kernels.sgd_sweep import (sgd_sweep_epoch,
                                                      sgd_sweep_epoch_plain)
 
@@ -737,11 +738,11 @@ def _wavefront_case(kernel, dev):
                         *args[:3], tabs[4], *args[3:], **kw),
                     plain_tables(model, su, si, dev) + (e,), sw.deps)
         wrapper, plain = sgd_sweep_tile, sgd_sweep_tile_plain
-        if kernel != "tile":
+        if not kernel.startswith("tile"):
             wrapper, plain = sgd_sweep_step_u, sgd_sweep_step_u_plain
             floats = _build.load_library().mfx_sgd_sweep_step_u_pool_floats(
-                T, RANK, su)  # the pools' device memory a block
-            assert floats == (su * (RANK + 1) if su == 1024 else 0)
+                T, rank, su)  # the pools' device memory a block
+            assert floats == (su * (rank + 1) if su == 1024 else 0)
         return (lambda tabs, blocks, table=True: wrapper(
                     tabs[0], tabs[1][seg], tabs[2], tabs[3][seg], *args,
                     **kw, blocks=blocks, deps=sw.deps if table else None),
@@ -796,7 +797,7 @@ def _wavefront_case(kernel, dev):
 
     coo = synthetic.make_implicit_synthetic(700, 600, 30_000, rank=4, seed=5)
     model = init_model(torch.Generator(device=dev).manual_seed(0), 700, 600,
-                       RANK)
+                       rank)
     cfg = dataclasses.replace(BPR, ublock=64, iblock=64)
     st = ring.ring_state(model, coo, cfg, seed=0, device=dev)
     tls = ring.ring_epoch_tiles(st, cfg, 0, 0)
@@ -817,7 +818,8 @@ WAVEFRONT_KERNELS = ["sgd", "sgd_r128", "bpr", "tile", "step_u",
                      "dense_none", "dense_frozen_int8_r128", "sgd_r32",
                      "time_r32", "dense_r32", "dense_int8_r32",
                      "dense_frozen_r32", "dense_none_r32",
-                     "dense_frozen_int8_r32"]
+                     "dense_frozen_int8_r32", "tile_r128", "step_u_r128",
+                     "epoch_r128", "bpr_r32", "bpr_r128"]
 
 
 @pytest.mark.parametrize("kernel", WAVEFRONT_KERNELS)
@@ -943,7 +945,7 @@ def _check_outs(run, plain, state, n_tables, moved):
     return k1
 
 
-@pytest.mark.parametrize("rank", [32, 64])
+@pytest.mark.parametrize("rank", [32, 64, 128])
 def test_sgd_sweep_epoch_kernel_matches_plain(cuda, rank):
     from mfx_torch.kernels.sgd_sweep import (sgd_sweep_epoch,
                                              sgd_sweep_epoch_plain)
@@ -973,7 +975,7 @@ def test_sgd_sweep_epoch_kernel_matches_plain(cuda, rank):
 
 
 @pytest.mark.parametrize("rank,distinct", [(32, 4), (32, 512), (64, 4),
-                                           (64, 1024)])
+                                           (64, 1024), (128, 4), (128, 1024)])
 def test_sgd_sweep_epoch_kernel_hot_rows_and_pads(cuda, rank, distinct):
     """As the tile-bias kernels' case: full tiles at blocks of 1024, long
     duplicate runs, a half-pad tile and a whole pad tile."""
@@ -1010,7 +1012,7 @@ def test_sgd_sweep_epoch_kernel_hot_rows_and_pads(cuda, rank, distinct):
     assert bool((k[4][5] == 0).all()) and bool((k[4][-1, 56:] == 0).all())
 
 
-@pytest.mark.parametrize("rank", [32, 64])
+@pytest.mark.parametrize("rank", [32, 64, 128])
 def test_sgd_sweep_epoch_kernel_with_zero_biases_is_the_bias_free_one(
         cuda, rank):
     """The reference's own identity (tests/unit/test_bias_epoch.py): with
@@ -1132,3 +1134,33 @@ def test_bias_mode_trainer_through_the_kernels_is_repeatable(cuda, mode,
         np.testing.assert_allclose(getattr(mc, k).numpy(),
                                    getattr(runs[0][0][1], k).cpu().numpy(),
                                    atol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("mode", ["tile", "epoch", "step_u", "none"])
+def test_rank128_trainer_through_the_kernels_is_repeatable(cuda, mode):
+    """Rank 128 with the dense phase on (int8 codes) in each bias form but
+    lane: two runs bitwise equal, through the mode's rank-128 sweep form
+    and its dense form, and never the lane sweep."""
+    from mfx_torch.kernels.sgd_sweep import sgd_sweep_epoch
+
+    train, model, *_ = _biased_plain_state(cuda, 128, 0)
+    use_bias = mode != "none"
+    cfg = dataclasses.replace(_bias_mode_cfg(
+        "tile" if mode == "step_u" else mode, True),
+        step_user_batch=mode == "step_u")
+    sparse = {"epoch": sgd_sweep_epoch,
+              "step_u": sgd_sweep_step_u}.get(mode, sgd_sweep_tile)
+    form = "frozen" if use_bias else "none"
+    runs = []
+    for _ in range(2):
+        s0, l0 = sparse.launches, sgd_sweep.launches
+        d0 = dense_phase.form_launches[form]
+        runs.append([(float(tr), m) for _, m, tr in train_epochs_blocked(
+            model, train, cfg, use_bias, seed=0, device=cuda)])
+        assert sparse.launches > s0 and sgd_sweep.launches == l0
+        assert dense_phase.form_launches[form] > d0
+    for (ta, ma), (tb, mb) in zip(*runs):
+        assert ta == tb
+        assert all(torch.equal(getattr(ma, k), getattr(mb, k))
+                   for k in ("P", "Q", "bu", "bi"))
+    assert runs[0][1][0] < runs[0][0][0]

@@ -332,6 +332,8 @@ def test_sweep_wrappers_cuda_route_reaches_no_plain_version(module, wrappers):
 @pytest.mark.parametrize("form,item", [
     ("sgd_sweep rank 16", "Queue 2 item 2"),
     ("sgd_sweep rank 96", "Queue 2 item 2"),
+    ("sgd_sweep_tile rank 16", "Queue 2 item 2"),
+    ("bpr_sweep rank 16", "Queue 2 item 2"),
     ("dense_phase rank 128 int4", "Queue 2 item 3"),
     ("dense_phase rank 16 int8", "Queue 2 item 3"),
 ])
@@ -340,18 +342,18 @@ def test_forms_without_a_kernel_raise(form, item):
     (the checks the wrappers make on a card's tensors), naming the ROADMAP
     item; the kernels' own forms pass."""
     from mfx_torch.kernels.dense_phase import check_kernel_form
-    from mfx_torch.kernels.sgd_sweep import LANE_RANKS, check_kernel_limits
+    from mfx_torch.kernels.sgd_sweep import SWEEP_RANKS, check_kernel_limits
 
     who, _, rank, *fmt = form.split()
     rank = int(rank)
     P = torch.zeros(512, rank)
-    if who == "sgd_sweep":
+    if who != "dense_phase":
+        # every sweep wrapper makes this check
         tl = torch.zeros(4, 3, 256, dtype=torch.int32)
-        for ok in LANE_RANKS:
-            check_kernel_limits(who, torch.zeros(512, ok), tl, 512, 512,
-                                ranks=LANE_RANKS)
+        for ok in SWEEP_RANKS:
+            check_kernel_limits(who, torch.zeros(512, ok), tl, 512, 512)
         with pytest.raises(NotImplementedError, match=item):
-            check_kernel_limits(who, P, tl, 512, 512, ranks=LANE_RANKS)
+            check_kernel_limits(who, P, tl, 512, 512)
         return
     codes = {"int4": torch.zeros(1, 512, 256, dtype=torch.uint8),
              "int8": torch.zeros(1, 512, 512, dtype=torch.int8)}

@@ -16,9 +16,19 @@ from test_torch_sgd_sweep_tile import (KEYS, LR, REG, SI, SU, T,
                                        touched_rows)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One torch thread a process: under ``pytest -n 6`` the workers'
+    thread pools otherwise fight for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("tpg", [4, 2])
 @pytest.mark.parametrize("use_bias", [True, False])
-@pytest.mark.parametrize("rank", [32, 64])
+@pytest.mark.parametrize("rank", [32, 64, 128])
 def test_step_u_sweep_matches_pallas_interpret(rank, use_bias, tpg):
     plans, model = sweep_case(rank, tpg)
     ref, sse_j = run_reference(plans, model, rank, tpg, use_bias, step_u=True)
@@ -31,7 +41,7 @@ def test_step_u_sweep_matches_pallas_interpret(rank, use_bias, tpg):
     assert (moved > 1e-4) == use_bias
 
 
-@pytest.mark.parametrize("rank", [32, 64])
+@pytest.mark.parametrize("rank", [32, 64, 128])
 def test_step_u_with_groups_of_one_tile_is_the_per_tile_sweep(rank):
     plans, model = sweep_case(rank, 1)
     a, sa = run_port(sgd_sweep_step_u, plans, model, 1, True)
@@ -41,7 +51,7 @@ def test_step_u_with_groups_of_one_tile_is_the_per_tile_sweep(rank):
     assert abs(sa - sb) <= 1e-6 * sb
 
 
-@pytest.mark.parametrize("rank", [32, 64])
+@pytest.mark.parametrize("rank", [32, 64, 128])
 def test_step_u_differs_from_per_tile_within_the_staleness_envelope(rank):
     plans, model = sweep_case(rank, 4)
     a, _ = run_port(sgd_sweep_step_u, plans, model, 4, True)
@@ -86,7 +96,7 @@ def test_step_u_reads_the_item_side_fresh_inside_a_group():
     torch.testing.assert_close(sse, e0 * e0 + e1 * e1, rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("rank", [32, 64])
+@pytest.mark.parametrize("rank", [32, 64, 128])
 def test_step_u_pads_are_exact_noops(rank):
     plans, model = sweep_case(rank, 4)
     got, _ = run_port(sgd_sweep_step_u, plans, model, 4, True)

@@ -25,6 +25,16 @@ LR, REG = 0.05, 0.02
 KEYS = ("P", "Q", "bu", "bi")
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One torch thread a process: under ``pytest -n 6`` the workers'
+    thread pools otherwise fight for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def sweep_case(rank, tpg):
     """(plans, model): the reference tests' geometry (su = si = 128,
     T = 32, two windows a sweep) on a 300 x 260 x 3000 synthetic, with
@@ -92,7 +102,7 @@ def touched_rows(plans, tpg):
 
 
 @pytest.mark.parametrize("use_bias", [True, False])
-@pytest.mark.parametrize("rank", [32, 64])
+@pytest.mark.parametrize("rank", [32, 64, 128])
 def test_tile_sweep_matches_pallas_interpret(rank, use_bias):
     plans, model = sweep_case(rank, 4)
     ref, sse_j = run_reference(plans, model, rank, 4, use_bias)
@@ -105,7 +115,7 @@ def test_tile_sweep_matches_pallas_interpret(rank, use_bias):
     assert (moved > 1e-4) == use_bias  # the biases train only when asked to
 
 
-@pytest.mark.parametrize("rank", [32, 64])
+@pytest.mark.parametrize("rank", [32, 64, 128])
 def test_tile_sweep_pads_are_exact_noops(rank):
     plans, model = sweep_case(rank, 4)
     assert any((p.tl[:, 0] == SU).all(axis=1).any() for p in plans)  # pad tiles

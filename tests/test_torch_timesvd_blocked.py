@@ -28,7 +28,7 @@ from mfx_torch.config import TimeSVDConfig
 from mfx_torch.convert import model_from_numpy
 from mfx_torch.kernels import packing as pk_t
 from mfx_torch.kernels import plan_device as pdv
-from mfx_torch.kernels.sgd_sweep import (LANE_RANKS, check_kernel_limits,
+from mfx_torch.kernels.sgd_sweep import (SWEEP_RANKS, check_kernel_limits,
                                          sgd_sweep_plain, sgd_sweep_time)
 from mfx_torch.models.mf import MFModel
 from mfx_torch.models.timesvd import fit_time_features
@@ -350,13 +350,13 @@ def test_time_form_kernel_limits():
     a card's tensors, naming ROADMAP Queue 2 item 2; a bin count the lanes
     cannot hold is refused on any device."""
     tl = torch.zeros(4, 5, 256, dtype=torch.int32)
-    assert LANE_RANKS == (32, 64, 128)
-    for ok in LANE_RANKS:
+    assert SWEEP_RANKS == (32, 64, 128)
+    for ok in SWEEP_RANKS:
         check_kernel_limits("sgd_sweep_time", torch.zeros(512, ok), tl, 512,
-                            512, ranks=LANE_RANKS)
+                            512)
     with pytest.raises(NotImplementedError, match="Queue 2 item 2"):
         check_kernel_limits("sgd_sweep_time", torch.zeros(512, 16), tl, 512,
-                            512, ranks=LANE_RANKS)
+                            512)
     P = torch.zeros(512, 64)
     i32 = dict(dtype=torch.int32)
     with pytest.raises(ValueError, match="n_bins"):

@@ -8,13 +8,16 @@ bit for bit against each other on one card:
 
 Forms: ``sgd_sweep`` (lane, ranks 32, 64, 128; the time form at ranks 32,
 64 and 128), ``sgd_sweep_tile`` (tile biases and none, epoch biases at
-ranks 32 and 64), ``dense_phase`` (lane, frozen and none at ranks 32 and
-64 with int4 and int8 codes, and at rank 128 with int8). Each runs once
-on the card's count of blocks from random tables, on random tiles of
-blocks of 1,024 with long duplicate runs and pads (the card tests' hot-row
-case), or on random dense strata of 512 x 512; the digest covers every
-table, output and the returned scalar. A form the checkout does not have
-prints its error instead. Needs a CUDA device.
+ranks 32, 64 and 128), ``sgd_sweep_step_u`` (tile biases, ranks 32, 64
+and 128: its pools in shared memory at rank 32, in device memory at 64
+and 128), ``bpr_sweep`` (ranks 32, 64 and 128), ``dense_phase`` (lane,
+frozen and none at ranks 32 and 64 with int4 and int8 codes, and at rank
+128 with int8). Each runs once on the card's count of blocks from random
+tables, on random tiles of blocks of 1,024 with long duplicate runs and
+pads (the card tests' hot-row case), or on random dense strata of 512 x
+512; the digest covers every table, output and the returned scalar. A
+form the checkout does not have prints its error instead. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ def _digest(*xs) -> str:
     return h.hexdigest()[:16]
 
 
-def _tiles(g, dev, rows=3, n_bins=0):
+def _tiles(g, dev, rows=3, n_bins=0, bpr=False):
     su = si = 1024
     nt, T = 32, 256
     sa = torch.randint(0, 2, (nt // TPG,), device=dev, generator=g,
@@ -49,6 +52,11 @@ def _tiles(g, dev, rows=3, n_bins=0):
     for row in (0, 1):
         tl[:, row] = torch.randint(0, 64, (nt, T), device=dev, generator=g,
                                    dtype=torch.int32)
+    if bpr:  # the negatives, then pads on every side
+        tl[:, 2] = torch.randint(0, 64, (nt, T), device=dev, generator=g,
+                                 dtype=torch.int32)
+        tl[-1, 0, T // 2:], tl[-1, 1:, T // 2:] = su, si
+        return sa, tc, tl, su, si
     tl[:, 2] = (torch.rand(nt, T, device=dev, generator=g) * 4.5
                 + 0.5).view(torch.int32)
     if n_bins:
@@ -86,6 +94,7 @@ def _group(g, dev, rfmt, nd=12, su=512, si=512):
 
 
 def main() -> int:
+    from mfx_torch.kernels import bpr_sweep as bs
     from mfx_torch.kernels import dense_phase as dp
     from mfx_torch.kernels import sgd_sweep as ss
 
@@ -97,9 +106,13 @@ def main() -> int:
         forms.append((f"sgd_sweep lane r{rank}", rank, "lane", 0))
     for rank, nb in ((32, 16), (32, 28), (64, 30), (128, 70)):
         forms.append((f"sgd_sweep time r{rank} {nb} bins", rank, "time", nb))
-    for rank in (32, 64):
+    for rank in (32, 64, 128):
         for mode in ("tile", "none", "epoch"):
             forms.append((f"sgd_sweep_tile {mode} r{rank}", rank, mode, 0))
+    for rank in (32, 64, 128):
+        forms.append((f"sgd_sweep_step_u tile r{rank}", rank, "step_u", 0))
+    for rank in (32, 64, 128):
+        forms.append((f"bpr_sweep r{rank}", rank, "bpr", 0))
     for rank, rfmt in ((32, "int4"), (32, "int8"), (64, "int4"),
                        (64, "int8"), (128, "int8")):
         for bias in dp.BIAS_FORMS:
@@ -118,11 +131,21 @@ def main() -> int:
                 else:
                     s = ss.sgd_sweep(P, Q, sa, tc, tl, LR, REG, MU, **kw)
                 out = (P, Q, s)
-            elif name.startswith("sgd_sweep_tile"):
+            elif name.startswith("bpr_sweep"):
+                sa, tc, tl, su, si = _tiles(g, dev, bpr=True)
+                P, Q, _, _ = _tables(g, dev, rank, 2 * su, 3 * si)
+                s = bs.bpr_sweep(P, Q, sa, tc, tl, LR, REG, su=su, si=si,
+                                 tpg=TPG)
+                out = (P, Q, s)
+            elif name.startswith("sgd_sweep_"):
                 sa, tc, tl, su, si = _tiles(g, dev)
                 P, Q, bu, bi = _tables(g, dev, rank, 2 * su, 3 * si)
                 kw = dict(su=su, si=si, tpg=TPG)
-                if mode == "epoch":
+                if mode == "step_u":
+                    s = ss.sgd_sweep_step_u(P, Q, bu, bi, sa, tc, tl, LR,
+                                            REG, MU, **kw)
+                    out = (P, Q, bu, bi, s)
+                elif mode == "epoch":
                     e = torch.zeros(tl.shape[0], tl.shape[2], device=dev)
                     s = ss.sgd_sweep_epoch(P, Q, bu, bi, sa, tc, tl, e, LR,
                                            REG, MU, **kw)

@@ -164,7 +164,8 @@ printed as it ends:
    sparse and batched-bias time, and the peak memory; a second run of (a)
    for 1 epoch repeats the first's state after epoch 1 bit for bit; then
    python -m mfx_torch.cli train --preset ml25m_rank64 --set
-   sgd.bias_mode=epoch --set sgd.epochs=1 prints the reference's JSON;
+   sgd.bias_mode=epoch --set sgd.epochs=1 (on phase 23's dataset cache,
+   removed after it) prints the reference's JSON;
 19. the rank-32 forms against their plain versions. On ml1m_rank32_biased
    and the full ML-1M-shaped synthetic, as phase 20's runs plan and carve
    it (su = si = 512, T = 256): sgd_sweep (lane) on the first 2,048 tiles
@@ -233,7 +234,39 @@ printed as it ends:
    parallel.model_axis=1 and model.rank=32, then =128, on phase 8's data
    for the preset's 5 epochs: bpr_sweep launched, the loss falls every
    epoch and ends below ln 2, and (a smoke check, as phase 8's) the
-   sampled AUC ends above the untrained model's.
+   sampled AUC ends above the untrained model's;
+23. (run after phase 6, on phase 4's model, data and split) the deep form
+   of tile_topk (depth > 32 or tile > 2048) against its plain version at
+   1,000,000 items x 256 users (seeded random tables, as phase 5): f32 at
+   depths 33, 64 and 256 on tiles of 1024, depth 64 on tiles of 4096,
+   depth 2 on tiles of 8192, bf16 and int8 at depth 64, and at the serving
+   path's shapes (the trained catalog, 256 users, depth 64, tiles of
+   4096): values within 1e-4, lanes equal but at near-ties, two runs
+   bitwise, each time beside the stock path's and the bound; then the
+   serving path through it, its launches counted alone (> 0): certified
+   exact at exact_depth 64 on tiles of 4096 (k = 100 on 1,024 users equal
+   to the stock exact scorer, the phase-6 gate) and the approximate
+   recommender on tiles of 4096; then the CLI on the phase-4 checkpoint
+   and data (written as the loader's cache): eval in the full and user
+   protocols on the uniform split's whole test split (RMSE and MAE equal
+   the trained model's clipped held-out values within 1e-6) and in the
+   sampled protocol on the leave-one-out split, serve --fused
+   --fused-exact --exact-depth 64 --tile 4096 (k = 100 equal to a direct
+   call and to stock exact), serve --mmr 0.7 (equal to a direct call and
+   to rerank_mmr on CPU copies of the same pools) and recommend --fused
+   --tile 4096, the processes side by side; the full protocol's ranks of
+   2,048 positives against a float64 host recount, and the CLI's full
+   hr/ndcg/mrr@10 against full_hr_ndcg_at_k in this process (1e-6);
+24. ml100k_rank16 with model.dtype=bfloat16 through the training driver for its 30
+   epochs: bf16 tables, the train RMSE falls every epoch, the held-out
+   RMSE ends within 0.003 of the reference trainer's bf16 run on the CPU
+   (tools/bf16_check.py), the last checkpoint loads back bf16 bit for
+   bit; before it, the bf16 tables' scatter-add kernel (bf16_row_add,
+   csrc/row_add_bf16.cu) against its plain version on CPU copies at the
+   step's shapes (2,048 slots into the rank-16 table; distinct rows and
+   64 hot rows), bitwise, its time beside index_put_'s; then one
+   ml25m_rank64 epoch with profile_phases on phase 23's data, whose
+   record carries plan_ms, dense_ms, sparse_ms and eval_ms.
 
 Each phase prints its wall time. The second-to-last line is a JSON object
 describing each kernel (times, launches on the main path, and the bound:
@@ -258,8 +291,18 @@ shapes as their "ml25m_cell"; the forms of phases 21-22 are entries of
 their own (bpr_sweep_r32, bpr_sweep_r128, sgd_sweep_tile_r128,
 sgd_sweep_tile_none_r128, sgd_sweep_epoch_r128, sgd_sweep_step_u_r128,
 dense_phase_frozen_int8_r128, dense_phase_none_int8_r128), their
-launches from phase 22's runs; the script's total seconds are printed
-before the card's line; the last is
+launches from phase 22's runs; tile_topk_deep (the deep form, phase
+23) takes its launches from phase 23's serving path, its time and bound
+from the serving path's shapes, the stock path's time as its library_ms,
+and holds the 1M-item cases as its "variants"; bf16_row_add (phase 24)
+takes its launches from the bf16 training-driver run (the wrapper's
+outside a graph capture, plus the launches a captured step holds times
+its replays, counted by the step runner: solvers/sgd.py
+GRAPH_LAUNCHES), its plain_ms from the host CPU and its library_ms from
+index_put_. The BPR and netflix phases' host data are made in processes
+of their own from the script's start (make_data); stderr repeats each
+line after the seconds since the start. The script's total seconds are
+printed before the card's line; the last is
 {"ok": true, "device": {...}}. Any failure
 exits non-zero with no such line, and so does a machine without a CUDA
 device.
@@ -304,8 +347,96 @@ PROFILE_BATCHES = 256  # phase 14's kernel breakdown
 TIME_BINS, TIME_SHIFT = 30, 0.35
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """``msg`` on stdout; on stderr its head after the seconds since the
+    script started (where a run's time goes)."""
     print(msg, flush=True)
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg[:120]}",
+          file=sys.stderr, flush=True)
+
+
+# host data of the BPR and netflix phases: numpy on the host takes minutes
+# for each, so each is made, split and saved from the script's start in a
+# process of its own (make_data), and its phase loads it (wait_data)
+DATA_JOBS = ("bpr", "netflix")
+_CHILDREN: list = []
+
+
+def make_data(kind: str, out: str) -> None:
+    """The train and test splits of ``kind``'s seeded synthetic, as its
+    phase would make them, saved under ``out`` (in a child process)."""
+    from pathlib import Path
+
+    from mfx_torch.config import preset
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.data.synthetic import (BILLION_SHAPE, NETFLIX_SHAPE,
+                                          make_implicit_synthetic,
+                                          make_synthetic)
+
+    t0 = time.perf_counter()
+    if kind == "bpr":  # billion-implicit cut to 1/BPR_CUT
+        cfg = preset("billion_bpr_sharded")
+        coo = make_implicit_synthetic(*(x // BPR_CUT for x in BILLION_SHAPE),
+                                      rank=64, seed=104)
+    else:  # the netflix entry of mfx_torch/data/loaders.py
+        cfg = preset("netflix100m_rank128_dp")
+        coo = make_synthetic(*NETFLIX_SHAPE, rank=128, seed=103,
+                             star_step=1.0, user_zipf_s=0.6)
+    train, test = train_test_split(coo, cfg.data.test_frac,
+                                   seed=cfg.data.seed)
+    out = Path(out)
+    train.save_npz(out / "train.npz")
+    test.save_npz(out / "test.npz")
+    (out / "seconds").write_text(f"{time.perf_counter() - t0:.1f}")
+
+
+def start_data() -> None:
+    """Starts a make_data process for each of DATA_JOBS."""
+    import shutil
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    for kind in DATA_JOBS:
+        out = here / "build" / f"chip_smoke_data_{kind}"
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        _CHILDREN.append((kind, out, subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.make_data(sys.argv[1], sys.argv[2])", kind,
+             str(out)], cwd=here, stderr=subprocess.PIPE, text=True)))
+
+
+def wait_data(kind: str):
+    """``kind``'s (train, test), once its process has made them; the
+    files are removed."""
+    import shutil
+
+    from mfx_torch.data.coo import RatingsCOO
+
+    t0 = time.perf_counter()
+    _, out, proc = next(c for c in _CHILDREN if c[0] == kind)
+    _, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"making the {kind} data failed:\n"
+                             f"{err[-3000:]}")
+    train = RatingsCOO.load_npz(out / "train.npz")
+    test = RatingsCOO.load_npz(out / "test.npz")
+    made = (out / "seconds").read_text()
+    shutil.rmtree(out)
+    log(f"[data] {kind}: made and split in {made} s in a process of its "
+        f"own from the start; waited for and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return train, test
+
+
+def stop_children() -> None:
+    for _, _, proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
 
 
 def cuda_ms(fn, reps: int = 1) -> float:
@@ -861,9 +992,7 @@ def bpr_phases(dev, results, bounds, sweeps):
 
     from mfx_torch.config import apply_overrides, preset
     from mfx_torch.data.bpr import build_positive_index
-    from mfx_torch.data.split import train_test_split
-    from mfx_torch.data.synthetic import (BILLION_SHAPE,
-                                          make_implicit_synthetic)
+    from mfx_torch.data.synthetic import BILLION_SHAPE
     from mfx_torch.eval.metrics import sampled_auc
     from mfx_torch.eval.ranking import hr_ndcg_at_k
     from mfx_torch.kernels.bpr_sweep import bpr_sweep
@@ -880,13 +1009,9 @@ def bpr_phases(dev, results, bounds, sweeps):
         f"{BILLION_SHAPE}: {shape[0]} users x {shape[1]} items x {shape[2]} "
         f"positives; widths unchanged (rank {cfg.model.rank}, su = si = "
         f"{bpr.ublock}, T = {bpr.tile})")
-    t0 = time.perf_counter()
-    coo = make_implicit_synthetic(*shape, rank=64, seed=104)
-    train, test = train_test_split(coo, cfg.data.test_frac, seed=seed)
-    del coo
+    train, test = wait_data("bpr")  # make_data: seed 104, as before
     log(f"[data] {train.num_users} x {train.num_items}, {train.n_ratings} "
-        f"train / {test.n_ratings} test positives in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"train / {test.n_ratings} test positives")
     U, I, rank = train.num_users, train.num_items, cfg.model.rank
 
     def fresh_model(rk=rank):
@@ -1262,8 +1387,7 @@ def netflix_phases(dev, results, bounds, sweeps):
     import torch
 
     from mfx_torch.config import apply_overrides, preset
-    from mfx_torch.data.split import train_test_split
-    from mfx_torch.data.synthetic import NETFLIX_SHAPE, make_synthetic
+    from mfx_torch.data.synthetic import NETFLIX_SHAPE
     from mfx_torch.eval.metrics import rmse_mae
     from mfx_torch.kernels import _build
     from mfx_torch.kernels import plan_device as pdv
@@ -1287,15 +1411,11 @@ def netflix_phases(dev, results, bounds, sweeps):
         f"{su}, T = {T}, dense_chi={sgd.dense_chi} dense_span="
         f"{sgd.dense_span!r}, lr {sgd.lr}, decay {sgd.lr_decay}, reg "
         f"{sgd.reg}; {NETFLIX_EPOCHS} of its {sgd.epochs} epochs")
-    t0 = time.perf_counter()
     # the netflix entry of mfx_torch/data/loaders.py (its seeded synthetic)
-    coo = make_synthetic(*NETFLIX_SHAPE, rank=128, seed=103, star_step=1.0,
-                         user_zipf_s=0.6)
-    train, test = train_test_split(coo, cfg.data.test_frac, seed=seed)
-    log(f"[data] {coo.num_users} x {coo.num_items}, {coo.n_ratings} ratings "
-        f"({train.n_ratings} train / {test.n_ratings} test) in "
-        f"{time.perf_counter() - t0:.1f} s")
-    del coo
+    train, test = wait_data("netflix")
+    log(f"[data] {train.num_users} x {train.num_items}, "
+        f"{train.n_ratings + test.n_ratings} ratings ({train.n_ratings} "
+        f"train / {test.n_ratings} test)")
     mu, lr, reg = float(train.global_mean), sgd.lr, sgd.reg
 
     def fresh_model():
@@ -2059,13 +2179,14 @@ def timesvd_driver_run(dev, cfg, again, tcoo, tag):
 
 
 def bias_form_phases(dev, cfg, train, test, fresh_model, trained, lane_rmse,
-                     results, bounds, sweeps):
+                     results, bounds, sweeps, data_root):
     """Phases 17 and 18: the epoch form of sgd_sweep_tile.cu and the
     frozen and bias-free forms of dense_phase.cu against their plain
     versions at the ml25m_rank64 cell's shapes (phase 4's data and plan,
     the tables of the model ``trained`` there), then the preset's 2
     epochs in each bias mode through the trainer and mode (a) through the
-    CLI. Fills ``results``, ``bounds`` and ``sweeps`` under
+    CLI (on the dataset's cache under ``data_root``, phase 23's). Fills
+    ``results``, ``bounds`` and ``sweeps`` under
     sgd_sweep_epoch and dense_phase_frozen and returns their launches,
     from the run of mode (a)."""
     import torch
@@ -2218,7 +2339,8 @@ def bias_form_phases(dev, cfg, train, test, fresh_model, trained, lane_rmse,
         raise AssertionError("(a): a second run of 1 epoch differs")
     log("[bias] (a): a second run of 1 epoch repeats the first run's state "
         "after epoch 1 bit for bit")
-    cli_train("ml25m_rank64", ["sgd.bias_mode=epoch"], 1)
+    cli_train("ml25m_rank64", ["sgd.bias_mode=epoch", "data.dataset=ml-25m",
+                               f"data.root={data_root}"], 1)
     log(f"[time] phase 18 {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -3106,7 +3228,471 @@ def rank32_path_phase(dev, results, bounds, sweeps):
     return launches
 
 
+# phase 23: the deep form of tile_topk at 1M items (depth, tile, dtype)
+DEEP_CASES = (("f32", 33, 1024), ("f32", 64, 1024), ("f32", 256, 1024),
+              ("f32", 64, 4096), ("f32", 2, 8192), ("bf16", 64, 1024),
+              ("int8", 64, 1024))
+# the serving path's certified-exact settings and its k
+EXACT_DEPTH, DEEP_TILE, DEEP_K = 64, 4096, 100
+FULL_RECOUNT = 2048  # full protocol's positives recounted in float64
+# phase 24: the reference's minibatch trainer with bf16 tables on the full
+# ml100k_rank16 cell ends at this held-out RMSE (tools/bf16_check.py, on
+# the CPU); the port's run must end within BF16_TOL of it
+BF16_REF, BF16_TOL = 0.537165, 0.003
+
+
+def deep_case(what, P_aug, Q_aug, sb, tile, depth, items, rank):
+    """The deep form against its plain version on these tables (values
+    within TOL, lanes equal but at near-ties, two runs bitwise), its time
+    beside the plain version's, the stock path's and the bound, counted as
+    phase 5 counts it: f32 FMA over the rank + 1 lanes that carry a value
+    for every (user row, real item) pair, 2 B items (rank + 1) operations
+    (the augmented width's zero lanes and the pad items not counted),
+    against those lanes of the user rows and of the real items read once
+    (with int8 their scale and bias) and depth B n_tiles (value, lane)
+    pairs written."""
+    import torch
+
+    from mfx_torch.kernels.serve_topk import tile_topk, tile_topk_plain
+    from mfx_torch.measure_topk import stock_topk
+
+    def run():
+        return tile_topk(P_aug, Q_aug, tile=tile, depth=depth, sb=sb)
+
+    outs = [run(), run()]
+    torch.cuda.synchronize()
+    if any(not torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError(f"{what}: two kernel runs differ")
+    err, swaps, gap = hold_topk(what, outs[0], P_aug, Q_aug, sb, tile, depth)
+    del outs
+    ms = cuda_ms(run, reps=3)
+    plain_ms = cuda_ms(lambda: tile_topk_plain(P_aug, Q_aug, tile=tile,
+                                               depth=depth, sb=sb))
+    stock_topk(P_aug, Q_aug, sb, tile, depth)  # warm-up
+    stock_ms = cuda_ms(lambda: stock_topk(P_aug, Q_aug, sb, tile, depth),
+                       reps=3)
+    B, K = P_aug.shape
+    ipad = Q_aug.shape[0]
+    nbytes = ((B * P_aug.element_size() + items * Q_aug.element_size())
+              * (rank + 1) + (items * 8 if sb is not None else 0)
+              + depth * B * (ipad // tile) * 8)
+    b = bound(nbytes, 2.0 * B * items * (rank + 1))
+    log(f"[deep] {what}: B {B}, I_pad {ipad}, K {K}, tile {tile}, depth "
+        f"{depth}: max_abs_err={err:.3e} (tol {TOL}), lane swaps {swaps} "
+        f"(gap <= {gap:.3e}); ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"stock_ms={stock_ms:.4f} bound_ms={b[0]:.4f} ({b[1]})")
+    return {"dtype": str(Q_aug.dtype).removeprefix("torch."), "B": B,
+            "items_padded": ipad, "tile": tile, "depth": depth,
+            "max_abs_err": err, "lane_swaps": swaps, "ms": ms,
+            "plain_ms": plain_ms, "stock_ms": stock_ms, "bound_ms": b[0],
+            "bound_by": b[1]}
+
+
+def _spawn(args):
+    return subprocess.Popen([sys.executable, "-m", "mfx_torch.cli", *args,
+                             "--device", "cuda"], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish(proc, what, timeout=600):
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI {what} failed:\n{err[-3000:]}")
+    return out.strip().splitlines()
+
+
+def deep_serve_phase(dev, model, coo, train, test, cfg, results, bounds,
+                     sweeps, library):
+    """Phase 23: the deep form against its plain version at 1M items and
+    at the serving path's shapes; the serving path through it (certified
+    exact at depth 64 on tiles of 4096, the approximate recommender on
+    tiles of 4096), its launches counted; then the CLI on phase 4's
+    checkpoint and data: eval in the three protocols, serve
+    --fused-exact --exact-depth 64 --tile 4096, serve --mmr 0.7,
+    recommend --fused --tile 4096. Returns the deep form's launches and
+    the data root (the dataset's cache) for phase 24."""
+    import urllib.request
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from mfx_torch.data.loaders import GENERATOR_VERSION
+    from mfx_torch.eval.metrics import rmse_mae
+    from mfx_torch.eval.ranking import full_hr_ndcg_at_k, full_ranks
+    from mfx_torch.kernels.serve_topk import aug_width, tile_topk
+    from mfx_torch.measure_topk import (RANK, SERVE_B, SERVE_ITEMS,
+                                        serving_tables)
+    from mfx_torch.serve import (FusedTopKRecommender, MMRRecommender,
+                                 TopKRecommender, rerank_mmr)
+    from mfx_torch.serve.fused import _augment_catalog, _augment_rows
+    from mfx_torch.train.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    variants = []
+    for dtype, depth, tile in DEEP_CASES:
+        P_aug, Q_aug, sb = serving_tables(dev, SERVE_B, SERVE_ITEMS, dtype,
+                                          tile=tile)
+        variants.append(deep_case(f"1M items, {dtype}", P_aug, Q_aug, sb,
+                                  tile, depth, SERVE_ITEMS, RANK))
+        del P_aug, Q_aug, sb
+        torch.cuda.empty_cache()
+    # the serving path's own shapes: the trained model's catalog, a batch
+    # of 256 users
+    rng = np.random.default_rng(cfg.data.seed)
+    users = rng.choice(model.num_users, 1024, replace=False).astype(np.int32)
+    ipad = -(-model.num_items // DEEP_TILE) * DEEP_TILE
+    P_aug = _augment_rows(model.P[torch.as_tensor(users[:SERVE_B],
+                                                  device=dev).long()],
+                          torch.float32, aug_width(model.rank))
+    Q_aug = _augment_catalog(model.Q, model.bi, ipad, torch.float32)
+    head = deep_case("the trained ML-25M model", P_aug, Q_aug, None,
+                     DEEP_TILE, EXACT_DEPTH, model.num_items, model.rank)
+    del P_aug, Q_aug
+    results["tile_topk_deep"] = (max([head["max_abs_err"]] + [
+        v["max_abs_err"] for v in variants]), head["ms"], head["plain_ms"])
+    bounds["tile_topk_deep"] = (head["bound_ms"], head["bound_by"])
+    library["tile_topk_deep"] = head["stock_ms"]
+    sweeps["tile_topk_deep"] = {"serving_case": head, "variants": variants}
+
+    # the serving path through the deep form, its launches counted alone
+    tile_topk.launches = tile_topk.deep_launches = 0
+    t0 = time.perf_counter()
+    exact = FusedTopKRecommender(model, train=coo, exact=True,
+                                 exact_depth=EXACT_DEPTH, tile=DEEP_TILE,
+                                 device=dev)
+    approx = FusedTopKRecommender(model, train=coo, tile=DEEP_TILE,
+                                  device=dev)
+    ei, es = exact.recommend(users, k=DEEP_K)
+    ai, as_ = approx.recommend(users[:SERVE_B], k=K)
+    torch.cuda.synchronize()
+    launches = tile_topk.deep_launches
+    path_s = time.perf_counter() - t0
+    log(f"[deep] serving path: exact (depth {EXACT_DEPTH}, tile "
+        f"{DEEP_TILE}, max_k {exact.max_k}) k={DEEP_K} for {len(users)} "
+        f"users and approximate (tile {DEEP_TILE}, max_k {approx.max_k}) "
+        f"k={K} for {SERVE_B} in {path_s:.2f} s; exact_fallbacks "
+        f"{exact.exact_fallbacks}; launches {{'tile_topk_deep': {launches}, "
+        f"'tile_topk': {tile_topk.launches}}}")
+    if launches < 1 or tile_topk.launches:
+        raise AssertionError("the serving path did not run the deep form "
+                             "alone")
+    stock = TopKRecommender(model, train=coo, device=dev)
+    si, ss = stock.recommend(users, k=DEEP_K)
+    gap = np.abs(es - ss)
+    if not np.all(np.isfinite(es)) or not np.all(gap <= TOL):
+        raise AssertionError(f"exact != stock at k={DEEP_K}: {gap.max()}")
+    if ((np.diff(as_, axis=1) > 0).any() or (ai >= model.num_items).any()
+            or not np.isfinite(as_).all()):
+        raise AssertionError("approximate recommender at tile 4096 broken")
+    log(f"[deep] exact == stock at k={DEEP_K} on {len(users)} users: "
+        f"{int((ei != si).sum())} item swaps, all near-ties (score gap <= "
+        f"{gap.max():.3e}); approximate recall@{K} against stock "
+        f"{np.mean([len(set(ai[b]) & set(si[b, :K])) / K for b in range(SERVE_B)]):.4f}")
+
+    # the CLI on the trained model and the same data (a cache the loader
+    # reads under --root)
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_eval"
+    root = work / "data"
+    root.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # the loader's cache of a synthetic stand-in (a cache under the real
+    # name is renamed to this one by the first process that reads it)
+    coo.save_npz(root / f"ml-25m.v{GENERATOR_VERSION}.synthetic.npz")
+    ck = work / "ck"
+    save_checkpoint(ck, 1, model, seed=cfg.data.seed)
+    log(f"[cli] dataset cache and checkpoint written in "
+        f"{time.perf_counter() - t0:.1f} s ({work})")
+    src = ["--checkpoint", str(ck), "--dataset", "ml-25m", "--root",
+           str(root)]
+    t0 = time.perf_counter()
+    procs = {
+        "eval full": _spawn(["eval", *src, "--test-frac",
+                             str(cfg.data.test_frac), "--ranking-k", "10",
+                             "--ranking-protocol", "full"]),
+        "eval user": _spawn(["eval", *src, "--test-frac",
+                             str(cfg.data.test_frac), "--ranking-k", "10",
+                             "--ranking-protocol", "user"]),
+        # the sampled protocol's 100 host draws a positive: on the
+        # leave-one-out split (one positive a user), its usual pairing
+        "eval sampled": _spawn(["eval", *src, "--split", "loo",
+                                "--ranking-k", "10", "--ranking-protocol",
+                                "sampled"]),
+        "recommend": _spawn(["recommend", *src, "--users", "0,1,2",
+                             "--fused", "--tile", str(DEEP_TILE)]),
+    }
+    servers = {
+        "exact": _spawn(["serve", *src, "--port", "0", "--fused",
+                         "--fused-exact", "--exact-depth", str(EXACT_DEPTH),
+                         "--tile", str(DEEP_TILE)]),
+        "mmr": _spawn(["serve", *src, "--port", "0", "--mmr", "0.7"]),
+    }
+    try:
+        urls = {}
+        for key, proc in servers.items():
+            line = proc.stdout.readline()
+            if not line:
+                raise AssertionError(f"serve {key} did not start:\n"
+                                     f"{proc.stderr.read()[-3000:]}")
+            urls[key] = json.loads(line)["serving"]
+        q = users[:8].tolist()
+
+        def post(url, k):
+            req = urllib.request.Request(
+                url + "/recommend", data=json.dumps({"users": q, "k": k})
+                .encode(), headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return json.loads(r.read())
+
+        ans = post(urls["exact"], DEEP_K)
+        d_i, d_s = exact.recommend(q, k=DEEP_K)  # the server's batch
+        if ans["items"] != d_i.tolist() or ans["scores"] != d_s.tolist():
+            raise AssertionError("serve --fused-exact != a direct call")
+        if not np.all(np.abs(d_s - ss[:8]) <= TOL):
+            raise AssertionError("serve --fused-exact != stock exact")
+        log(f"[cli] serve --fused --fused-exact --exact-depth {EXACT_DEPTH} "
+            f"--tile {DEEP_TILE}: /recommend k={DEEP_K} for 8 users equals "
+            "the direct exact call on the same batch, and stock exact; "
+            f"exact_fallbacks {exact.exact_fallbacks}")
+        ans = post(urls["mmr"], K)
+        direct = MMRRecommender(stock, lam=0.7).recommend(q, k=K)
+        pools = stock.recommend(q, k=4 * K)
+        cpu_q = model.Q.detach().cpu()
+        on_cpu = rerank_mmr(cpu_q, *pools, k=K, lam=0.7)
+        if (ans["items"] != direct[0].tolist()
+                or ans["items"] != on_cpu[0].tolist()
+                or ans["scores"] != direct[1].tolist()):
+            raise AssertionError("serve --mmr != direct call / CPU rerank")
+        log(f"[cli] serve --mmr 0.7: /recommend k={K} for 8 users equals "
+            "the direct MMRRecommender call and rerank_mmr on CPU copies "
+            "of the same pools")
+    finally:
+        for proc in servers.values():
+            proc.kill()
+            proc.wait(timeout=60)
+    # the full protocol in this process, on the same model and split,
+    # while the CLI's processes run
+    t1 = time.perf_counter()
+    full = full_hr_ndcg_at_k(model, test, train=train, k=10)
+    full_s = time.perf_counter() - t1
+    outs = {key: _finish(proc, key) for key, proc in procs.items()}
+    log(f"[cli] eval x3 and recommend, run side by side, in "
+        f"{time.perf_counter() - t0:.1f} s (processes and data included)")
+    recs = [json.loads(x) for x in outs["recommend"]]
+    if len(recs) != 3 or any(len(r["items"]) != K for r in recs):
+        raise AssertionError(f"recommend --fused --tile {DEEP_TILE}: {recs}")
+    held = rmse_mae(model, test, clip=(0.5, 5.0))
+    for key in ("eval full", "eval user", "eval sampled"):
+        got = json.loads(outs[key][-1])
+        log(f"[cli] {key}: {outs[key][-1]}")
+        if got["checkpoint_epoch"] != 1:
+            raise AssertionError(f"{key}: {got}")
+        if key != "eval sampled" and (abs(got["rmse"] - held[0]) > 1e-6
+                                      or abs(got["mae"] - held[1]) > 1e-6):
+            raise AssertionError(f"{key}: RMSE {got['rmse']} != the "
+                                 f"trainer's held-out {held[0]}")
+        if key == "eval full":
+            gap = max(abs(got[f"{m}@10"] - full[m]) for m in full)
+            if not gap <= 1e-6:
+                raise AssertionError(f"eval full's ranking metrics {got} != "
+                                     f"full_hr_ndcg_at_k's {full}")
+            log(f"[cli] eval full's hr/ndcg/mrr@10 equal full_hr_ndcg_at_k "
+                f"on the same model and split in this process (largest gap "
+                f"{gap:.3e}, limit 1e-6; {full_s:.1f} s)")
+    # the full protocol's ranks of the first positives against a float64
+    # recount on the host
+    u, p = test.user[:FULL_RECOUNT], test.item[:FULL_RECOUNT]
+    seen = train.seen_csr()
+    ranks = full_ranks(model, u, p, seen).cpu().numpy()
+    P64, Q64 = model.P.double().cpu().numpy(), model.Q.double().cpu().numpy()
+    bi64 = model.bi.double().cpu().numpy()
+    off, worst = 0, 0
+    for a in range(0, FULL_RECOUNT, 256):
+        s = P64[u[a:a + 256]] @ Q64.T + bi64
+        rows = np.arange(s.shape[0])
+        s_pos = s[rows, p[a:a + 256]].copy()
+        for b, uu in enumerate(u[a:a + 256]):
+            s[b, seen.items[seen.offsets[uu]:seen.offsets[uu + 1]]] = -np.inf
+        s[rows, p[a:a + 256]] = -np.inf
+        r64 = 1 + (s > s_pos[:, None]).sum(1) + 0.5 * (s == s_pos[:, None]
+                                                       ).sum(1)
+        near = (np.abs(s - s_pos[:, None]) <= 1e-5).sum(1)
+        d = np.abs(ranks[a:a + 256] - r64)
+        if (d > near).any():
+            raise AssertionError("full protocol ranks != the f64 recount")
+        off += int((d > 0).sum())
+        worst = max(worst, float(d.max()))
+    log(f"[cli] full protocol: the ranks of {FULL_RECOUNT} positives equal "
+        f"a float64 host recount ({off} differ, by at most {worst}, each "
+        "within its competitors 1e-5 from the positive's score)")
+    log(f"[time] phase 23 {time.perf_counter() - t_phase:.1f} s")
+    return launches, root
+
+
+def bf16_add_check(dev, what, table, rows, delta):
+    """bf16_row_add (csrc/row_add_bf16.cu) against its plain version on CPU
+    copies of the same inputs (bitwise: the same adds in the same order),
+    two runs bitwise; its time (the rows' sort included, and with the
+    sorted rows handed in) beside the plain version's (on the host) and
+    index_put_(accumulate=True)'s on the card, and its bound: the row
+    ids (8 B each) and the deltas read once, the touched elements read
+    and written once, one add a delta element."""
+    import torch
+
+    from mfx_torch.kernels.packing import bf16_order, bf16_row_add
+
+    want = table.cpu()
+    bf16_row_add(want, rows.cpu(), delta.cpu())
+    outs = []
+    for _ in range(2):
+        t = table.clone()
+        bf16_row_add(t, rows, delta)
+        outs.append(t)
+    torch.cuda.synchronize()
+    if not (torch.equal(outs[0].view(torch.int16), outs[1].view(torch.int16))
+            and torch.equal(outs[0].cpu().view(torch.int16),
+                            want.view(torch.int16))):
+        raise AssertionError(f"bf16_row_add {what}: not the plain version's "
+                             "bits or not repeatable")
+    t = table.clone()
+    ms = cuda_ms(lambda: bf16_row_add(t, rows, delta), reps=20)
+    order = bf16_order(t, rows)  # as the minibatch step shares it
+    sorted_ms = cuda_ms(lambda: bf16_row_add(t, rows, delta, order), reps=20)
+    tc, rc, dc = table.cpu(), rows.cpu(), delta.cpu()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        bf16_row_add(tc, rc, dc)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / 5
+    flat = table.view(-1)
+    w = table.shape[1] if table.dim() > 1 else 1
+    idx = ((rows[:, None] * w + torch.arange(w, device=dev)).reshape(-1)
+           if table.dim() > 1 else rows)
+    put = flat.clone()
+    put.index_put_((idx,), delta.reshape(-1), accumulate=True)
+    off = int((put.cpu() != want.view(-1)).sum())
+    lib_ms = cuda_ms(lambda: put.index_put_((idx,), delta.reshape(-1),
+                                            accumulate=True), reps=20)
+    n = idx.numel()
+    touched = int(torch.unique(idx).numel())
+    b = bound(rows.numel() * 8 + n * 2 + touched * 2 * 2, n)
+    log(f"[bf16] bf16_row_add, {what}: {rows.numel()} rows, {n} deltas into "
+        f"{touched} elements: bitwise the plain version's (slot order, each "
+        f"sum rounded), ms={ms:.4f} (with the rows sorted beforehand "
+        f"{sorted_ms:.4f}) plain_ms (host) {plain_ms:.4f} index_put_ ms="
+        f"{lib_ms:.4f} (its result differs at {off} elements) bound_ms="
+        f"{b[0]:.6f} ({b[1]})")
+    return {"what": what, "rows": rows.numel(), "deltas": n,
+            "elements": touched, "index_put_differs_at": off, "ms": ms,
+            "presorted_ms": sorted_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b[0],
+            "bound_by": b[1]}
+
+
+def bf16_profile_phase(dev, root, results, bounds, sweeps, library):
+    """Phase 24: bf16_row_add against its plain version at the minibatch
+    path's shapes; ml100k_rank16 with bf16 tables through the training driver (its
+    30 epochs; bf16_row_add's launches counted) and their checkpoint bit
+    for bit; one ml25m_rank64 epoch with profile_phases on phase 23's
+    data. Returns bf16_row_add's launches."""
+    import tempfile
+    import warnings
+    from pathlib import Path
+
+    import torch
+
+    from mfx_torch.config import apply_overrides, preset
+    from mfx_torch.train.checkpoint import load_checkpoint
+    from mfx_torch.train.driver import train as drive
+
+    t_phase = time.perf_counter()
+    # the minibatch step's scatter at the preset's shapes: a batch of
+    # 2,048 slots into the rank-16 user table with its 2,048 sink rows
+    # (conflict-free: distinct rows), and the same slots over 64 hot rows
+    # as a fixed partitioner's batch can hold them
+    g = torch.Generator(device=dev).manual_seed(24)
+    table = (torch.randn(943 + 2048, 16, device=dev, generator=g)
+             * 0.3).bfloat16()
+    delta = (torch.randn(2048, 16, device=dev, generator=g)
+             * 0.01).bfloat16()
+    cases = [bf16_add_check(dev, "distinct rows", table,
+                            torch.randperm(943 + 2048, device=dev,
+                                           generator=g)[:2048], delta),
+             bf16_add_check(dev, "64 hot rows", table,
+                            torch.randint(0, 64, (2048,), device=dev,
+                                          generator=g), delta)]
+    results["bf16_row_add"] = (0.0, cases[0]["ms"], cases[0]["plain_ms"])
+    bounds["bf16_row_add"] = (cases[0]["bound_ms"], cases[0]["bound_by"])
+    library["bf16_row_add"] = cases[0]["library_ms"]
+    sweeps["bf16_row_add"] = {"plain_on": "the host CPU", "variants": cases}
+
+    from mfx_torch.kernels.packing import bf16_row_add
+    from mfx_torch.solvers.sgd import GRAPH_LAUNCHES
+
+    build = Path(__file__).resolve().parent / "build"
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        cfg = apply_overrides(preset("ml100k_rank16"), [
+            "model.dtype=bfloat16", f"checkpoint_dir={Path(tmp) / 'ck'}"])
+        t0 = time.perf_counter()
+        bf16_row_add.launches = 0
+        GRAPH_LAUNCHES.update(captured=0, replayed=0)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the seeded synthetic stand-in
+            res = drive(cfg, device=dev)
+        # the wrapper counts the launches it makes and those it records
+        # into the step's graph; the epochs' replays launch the recorded
+        # ones again, counted by the step runner that replays them
+        wrapper, graph = bf16_row_add.launches, dict(GRAPH_LAUNCHES)
+        launches = wrapper - graph["captured"] + graph["replayed"]
+        log(f"[bf16] launches {{'bf16_row_add': {launches}}}: "
+            f"{wrapper - graph['captured']} from the wrapper outside a "
+            f"capture, {graph['replayed']} by graph replays "
+            f"({graph['captured']} recorded into captured steps)")
+        if graph["replayed"] < 1 or wrapper < 1:
+            raise AssertionError("the bf16 path never launched bf16_row_add")
+        trains = [h["train_metric"] for h in res.history]
+        tests = [h["test_rmse"] for h in res.history if "test_rmse" in h]
+        epoch_s = sorted(h["epoch_s"] for h in res.history)
+        log(f"[bf16] ml100k_rank16 model.dtype=bfloat16: {res.epochs_run} "
+            f"epochs in {time.perf_counter() - t0:.1f} s (epoch_s median "
+            f"{epoch_s[len(epoch_s) // 2]:.3f}); train RMSE "
+            + " ".join(f"{x:.5f}" for x in trains) + "; held-out RMSE "
+            + " ".join(f"{x:.5f}" for x in tests)
+            + f"; the reference's bf16 run ends at {BF16_REF}")
+        if res.model.P.dtype != torch.bfloat16 or res.epochs_run != 30:
+            raise AssertionError("not a 30-epoch bf16 run")
+        if any(b >= a for a, b in zip(trains, trains[1:])):
+            raise AssertionError(f"train RMSE did not fall: {trains}")
+        if abs(res.test_rmse - BF16_REF) > BF16_TOL:
+            raise AssertionError(f"held-out {res.test_rmse} not within "
+                                 f"{BF16_TOL} of {BF16_REF}")
+        saved, epoch, _ = load_checkpoint(Path(tmp) / "ck", device=dev)
+        same = all(getattr(saved, k).dtype == torch.bfloat16
+                   and torch.equal(getattr(saved, k).view(torch.int16),
+                                   getattr(res.model, k).view(torch.int16))
+                   for k in ("P", "Q", "bu", "bi"))
+        if not same or saved.mu != res.model.mu or epoch != 29:
+            raise AssertionError("the bf16 checkpoint lost its bits")
+        log(f"[bf16] checkpoint of epoch {epoch} loaded back bf16, bit for "
+            "bit")
+    cfg = apply_overrides(preset("ml25m_rank64"), [
+        "data.dataset=ml-25m", f"data.root={root}", "sgd.epochs=1",
+        "profile_phases=true"])
+    t0 = time.perf_counter()
+    res = drive(cfg, device=dev)
+    rec = res.history[0]
+    log(f"[profile] ml25m_rank64, 1 epoch with profile_phases in "
+        f"{time.perf_counter() - t0:.1f} s (data, prep and eval included): "
+        + json.dumps(rec, sort_keys=True))
+    if not {"plan_ms", "dense_ms", "sparse_ms", "eval_ms"} <= set(rec) or (
+            rec["dense_ms"] <= 0 or rec["sparse_ms"] <= 0):
+        raise AssertionError(f"profile_phases record: {rec}")
+    log(f"[time] phase 24 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
+    import shutil
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3126,6 +3712,7 @@ def main() -> int:
     from mfx_torch.solvers import blocked
     from mfx_torch.solvers.dense_prep import prepare_dense_full
 
+    start_data()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3356,10 +3943,20 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["tile_topk"] = serve_phase(m, train, dev, cfg.data.seed)
     log(f"[time] phase 6 {time.perf_counter() - t0:.1f} s")
+    library = {"tile_topk": topk_variants[0]["stock_ms"]}
+
+    # 23-24. the deep form of tile_topk, evaluating and serving the
+    # phase-4 model through the CLI; bf16 tables and profile_phases
+    launches["tile_topk_deep"], data_root = deep_serve_phase(
+        dev, m, coo, train, test, cfg, results, bounds, sweeps, library)
+    launches["bf16_row_add"] = bf16_profile_phase(dev, data_root, results,
+                                                  bounds, sweeps, library)
 
     # 17-18. the other bias modes of the main path, on phase 4's data
     launches.update(bias_form_phases(dev, cfg, train, test, fresh_model, m,
-                                     test_rmse, results, bounds, sweeps))
+                                     test_rmse, results, bounds, sweeps,
+                                     data_root))
+    shutil.rmtree(data_root.parent)  # phase 23's dataset cache
 
     # 19 (its extra cell). the rank-32 lane sweep and dense forms on phase
     # 4's data at ml25m_rank64's shapes, which no preset runs at rank 32
@@ -3430,7 +4027,10 @@ def main() -> int:
                 "dense_phase_frozen_int8_r128":
                     "mfx/kernels/dense_pallas.py:86",
                 "dense_phase_none_int8_r128":
-                    "mfx/kernels/dense_pallas.py:86"}
+                    "mfx/kernels/dense_pallas.py:86",
+                "tile_topk_deep": "mfx/kernels/serve_pallas.py:42",
+                # not a Pallas kernel: the reference's XLA bf16 scatter
+                "bf16_row_add": "mfx/kernels/jnp_ref.py:109"}
     sources = {"sgd_sweep_r128": "sgd_sweep", "dense_phase_int8_r128":
                "dense_phase", "sgd_sweep_time": "sgd_sweep",
                "sgd_sweep_epoch": "sgd_sweep_tile",
@@ -3445,7 +4045,9 @@ def main() -> int:
                "sgd_sweep_epoch_r128": "sgd_sweep_tile",
                "sgd_sweep_step_u_r128": "sgd_sweep_step_u",
                "dense_phase_frozen_int8_r128": "dense_phase",
-               "dense_phase_none_int8_r128": "dense_phase"}
+               "dense_phase_none_int8_r128": "dense_phase",
+               "tile_topk_deep": "tile_topk",
+               "bf16_row_add": "row_add_bf16"}
     variants = {"sgd_sweep": "bias_mode='lane', rank 64",
                 "sgd_sweep_tile": "bias_mode='tile'",
                 "dense_phase": "lane, int4 codes, rank 64",
@@ -3469,7 +4071,13 @@ def main() -> int:
                                          "step_user_batch, rank 128, tpg 4",
                 "dense_phase_frozen_int8_r128": "frozen biases, int8, "
                                                 "rank 128",
-                "dense_phase_none_int8_r128": "no biases, int8, rank 128"}
+                "dense_phase_none_int8_r128": "no biases, int8, rank 128",
+                "tile_topk_deep": "the deep form (depth > 32 or tile > "
+                                  f"2048): depth {EXACT_DEPTH}, tile "
+                                  f"{DEEP_TILE}, the trained ML-25M catalog",
+                "bf16_row_add": "bf16 tables' scatter-add in slot order "
+                                "(minibatch SGD, model.dtype=bfloat16); "
+                                "library_ms: index_put_(accumulate=True)"}
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")
     log(f"[card] {card}")
     log(json.dumps({"kernels": [
@@ -3481,12 +4089,11 @@ def main() -> int:
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          # no single PyTorch call computes any of these functions; for
-         # tile_topk the stock path's two calls stand in
-         "library_ms": (topk_variants[0]["stock_ms"] if name == "tile_topk"
-                        else None),
+         # tile_topk's forms the stock path's two calls stand in
+         "library_ms": library.get(name),
          **({"library": "torch.matmul (TF32 off) then torch.topk over "
-                        "each tile", "variants": topk_variants,
-             "ml100k_recommend": topk_ml100k}
+                        "each tile"} if name.startswith("tile_topk") else {}),
+         **({"variants": topk_variants, "ml100k_recommend": topk_ml100k}
             if name == "tile_topk" else {}),
          # the sweeps (the tile-bias ones on ML-1M): a whole sweep on 1
          # block and on the card's count; dense_phase: DENSE_WHOLE strata
@@ -3509,3 +4116,5 @@ if __name__ == "__main__":
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {exc!r}", file=sys.stderr)
         sys.exit(1)
+    finally:
+        stop_children()

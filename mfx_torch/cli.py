@@ -8,9 +8,12 @@
     python -m mfx_torch.cli train --preset ml1m_rank32_biased \
         --set model.rank=64 --set solver=timesvd --set timesvd.kernel=pallas \
         --set data.root=DIR
+    python -m mfx_torch.cli eval --checkpoint ckpt/ --dataset ml-25m \
+        [--split loo] [--ranking-k 10 --ranking-protocol full]
     python -m mfx_torch.cli recommend --checkpoint ckpt/ --users 3,17 [--fused]
     python -m mfx_torch.cli similar --checkpoint ckpt/ --items 1,7 [--fused]
-    python -m mfx_torch.cli serve --checkpoint ckpt/ --port 8080 [--fused]
+    python -m mfx_torch.cli serve --checkpoint ckpt/ --port 8080 [--fused] \
+        [--fused-exact --exact-depth 64 --tile 4096] [--mmr 0.7]
     python -m mfx_torch.cli export --checkpoint ckpt/ --out model.npz
     python -m mfx_torch.cli update --checkpoint ckpt/ --delta delta.npz
     python -m mfx_torch.cli datasets
@@ -65,12 +68,34 @@ def _load_dataset(args):
                         cache=args.root is not None)
 
 
-def _no_mmr(args) -> None:
-    if getattr(args, "mmr", None) is not None:
-        raise NotImplementedError(
-            "--mmr: serve/rerank.py is not ported yet (ROADMAP Queue 1 "
-            "item 11)"
-        )
+def cmd_eval(args) -> int:
+    """Held-out metrics of a checkpoint on a split of ``--dataset``: one
+    JSON line, the reference's keys (``mfx_torch.api.evaluate``) and
+    ``checkpoint_epoch``. The uniform and leave-one-out splits take the
+    checkpoint's seed, as the reference's do."""
+    from mfx_torch.api import (chronological_split, evaluate,
+                               leave_one_out_split, train_test_split,
+                               user_chronological_split)
+    from mfx_torch.train.checkpoint import load_checkpoint
+
+    model, epoch, seed = load_checkpoint(args.checkpoint, device=args.device)
+    coo = _load_dataset(args)
+    if args.split == "loo":
+        tr, test = leave_one_out_split(coo, seed=seed)
+    elif args.split == "loo-time":
+        tr, test = leave_one_out_split(coo, by="time")
+    elif args.split == "time":
+        tr, test = chronological_split(coo, test_frac=args.test_frac)
+    elif args.split == "user-time":
+        tr, test = user_chronological_split(coo, test_frac=args.test_frac)
+    else:
+        tr, test = train_test_split(coo, test_frac=args.test_frac, seed=seed)
+    print(json.dumps({
+        "checkpoint_epoch": epoch,
+        **evaluate(model, test, args.implicit, ranking_k=args.ranking_k,
+                   ranking_protocol=args.ranking_protocol, train=tr),
+    }, sort_keys=True))
+    return 0
 
 
 def _recommender(args, model, exclude):
@@ -174,7 +199,6 @@ def cmd_serve(args) -> int:
     from mfx_torch.serve.server import RecServer
     from mfx_torch.train.checkpoint import load_checkpoint
 
-    _no_mmr(args)
     exclude = raw_ids = None
     if args.dataset is not None:
         coo = _load_dataset(args)
@@ -204,6 +228,11 @@ def cmd_serve(args) -> int:
                 np.arange(len(raw_b), model.num_items, dtype=raw_b.dtype),
             ])
         rec = _recommender(args, model, exclude_b)
+        if args.mmr is not None:
+            from mfx_torch.serve import MMRRecommender
+
+            rec = MMRRecommender(rec, model=model, lam=args.mmr,
+                                 pool=args.mmr_pool)
         if args.fused:
             sim = functools.partial(
                 similar_items_fused, model, tile=args.tile,
@@ -337,6 +366,32 @@ def main(argv=None) -> int:
     _add_device(p)
     p.set_defaults(fn=cmd_train)
 
+    p = sub.add_parser("eval", help="evaluate a checkpoint")
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--root", default=None, help="dataset root directory")
+    p.add_argument("--test-frac", type=float, default=0.1)
+    p.add_argument("--implicit", action="store_true")
+    p.add_argument("--split",
+                   choices=("uniform", "loo", "time", "user-time",
+                            "loo-time"),
+                   default="uniform",
+                   help="held-out protocol: uniform fraction, "
+                        "leave-one-out, global chronological cut, "
+                        "per-user timeline cut, or per-user latest-item "
+                        "leave-one-out (the time protocols need a dataset "
+                        "with timestamps)")
+    p.add_argument("--ranking-k", type=int, default=None,
+                   help="also report HR/NDCG/MRR at this K")
+    p.add_argument("--ranking-protocol",
+                   choices=("sampled", "full", "user"),
+                   default="sampled",
+                   help="rank against 100 sampled candidates, the full "
+                        "catalog, or per-user Recall/Precision/NDCG/MAP "
+                        "and coverage/novelty of the served top-K lists")
+    _add_device(p)
+    p.set_defaults(fn=cmd_eval)
+
     p = sub.add_parser("recommend", help="top-K items from a checkpoint")
     _add_checkpoint_source(p)
     p.add_argument("--users", required=True,
@@ -392,7 +447,9 @@ def main(argv=None) -> int:
                    help="L2 of the cold-start fold-in solve "
                         "(/recommend_cold)")
     p.add_argument("--mmr", type=float, default=None,
-                   help="MMR diversification (not ported yet)")
+                   help="diversify /recommend lists by greedy MMR with "
+                        "this relevance weight in [0,1] (1 = pure "
+                        "relevance); over-fetches --mmr-pool x k")
     p.add_argument("--mmr-pool", type=int, default=4)
     _add_device(p)
     p.set_defaults(fn=cmd_serve)

@@ -24,24 +24,27 @@ _LANES = 128     # lanes of a merged row
 _BIAS_ROWS = 8   # bias rows behind each block's factor rows
 
 
-def model_from_numpy(arrays: dict,
-                     device: torch.device | str = "cuda") -> MFModel:
+def model_from_numpy(arrays: dict, device: torch.device | str = "cuda",
+                     dtype="float32") -> MFModel:
     """``{"P", "Q", "bu", "bi", "mu"}`` numpy arrays (e.g. the reference
-    ``MFModel``'s fields through ``np.asarray``) -> an ``MFModel`` on
-    ``device``, the card unless told otherwise. The tables are copied."""
+    ``MFModel``'s fields through ``np.asarray(x, np.float32)``) -> an
+    ``MFModel`` on ``device``, the card unless told otherwise, with tables
+    (and ``mu``) in ``dtype`` ('float32' or 'bfloat16'; a reference bf16
+    model passes through f32 exactly). The tables are copied."""
     t = {
-        k: torch.tensor(np.asarray(arrays[k]), dtype=torch.float32,
-                        device=device)
+        k: torch.tensor(np.asarray(arrays[k], np.float32),
+                        dtype=torch.float32, device=device)
         for k in ("P", "Q", "bu", "bi")
     }
     return MFModel(t["P"], t["Q"], t["bu"], t["bi"],
-                   mu=float(np.asarray(arrays["mu"])))
+                   mu=float(np.asarray(arrays["mu"]))).astype(dtype)
 
 
 def model_to_numpy(model: MFModel) -> dict:
-    """Inverse of :func:`model_from_numpy`: host numpy copies of the
-    tables, ``mu`` as a 0-d float32 array (the reference's dtype)."""
-    out = {k: getattr(model, k).detach().cpu().numpy().copy()
+    """Inverse of :func:`model_from_numpy`: host float32 numpy copies of
+    the tables (bf16 ones exactly), ``mu`` as a 0-d float32 array (the
+    reference's dtype)."""
+    out = {k: getattr(model, k).detach().float().cpu().numpy().copy()
            for k in ("P", "Q", "bu", "bi")}
     out["mu"] = np.asarray(model.mu, np.float32)
     return out

@@ -45,6 +45,27 @@
 //     threads a user each merge their share into a sorted top-DCAP list
 //     in registers (DCAP 8 or 32), and at a tile's end those lists merge
 //     by `depth` rounds of a shuffle argmax on (value, -lane).
+// Those forms take depth <= 32 and tiles of at most 2048 items.
+//
+// The deep form (tile_topk_deep_kernel: depth > 32 or tile > 2048, any
+// depth up to the tile and any tile that is a multiple of 128) keeps the
+// chunk pipeline and the scoring of the 16-user form, and keeps each
+// user's running top-`depth` list, sorted, in memory instead of
+// registers. After a chunk is scored, the 16 threads of a half-warp own
+// one user: they compact the user's candidates (every score while the
+// list fills, then only those above a full list's last value) by warp
+// ballots, bitonic-sort them in shared memory (value descending, then
+// lane ascending; padded to a power of two), then merge them into the
+// running list by rank (merge path: each element's place in the merged
+// list is its own index plus the count of the other list's elements
+// ahead of it, found by binary search; an element of the list precedes a
+// chunk element of equal value, whose lane is higher), writing the first
+// `depth` places to the other of two buffers. A chunk with no candidate
+// is skipped. The lists sit in shared memory where 2 x 16 x depth x 8
+// bytes fit beside the chunk buffers without costing the SM a block
+// (the occupancy query decides), else in a device scratch of the blocks
+// in flight (the wrapper allocates it). The list carries over a tile's chunks, so a tile may
+// hold any number of them. Every score is the 16-user form's FMA chain.
 // No atomics: a run is bitwise repeatable.
 
 #include <cuda_bf16.h>
@@ -258,6 +279,54 @@ __device__ __forceinline__ void pop_best(float (&lv)[D], int (&li)[D],
   }
 }
 
+// Score one landed chunk: acc[u][j] is user ty*TU + u against item
+// tx*4 + j (j < 4) and 64 + tx*4 + j - 4, one fmaf chain over k
+// ascending; int8 catalogs then take each item's scale and bias from sb
+// (tile t, chunk rows c0...).
+template <int DT, int UB>
+__device__ __forceinline__ void score_chunk(float (&acc)[UB / 16][8],
+                                            const float* pt, const float* qt,
+                                            const float* __restrict__ sb,
+                                            int K, int ty, int tx,
+                                            long long t, int tile, int c0) {
+  constexpr int TU = UB / 16;
+#pragma unroll
+  for (int u = 0; u < TU; ++u)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[u][j] = 0.f;
+  const float* pa = pt + ty * TU;
+  const float* qa = qt + tx * 4;
+#pragma unroll 8
+  for (int k = 0; k < K; ++k) {
+    float a[TU];
+    load_users<TU>(a, pa + k * UB);
+    const float4 b0 = *reinterpret_cast<const float4*>(qa + k * QP);
+    const float4 b1 = *reinterpret_cast<const float4*>(qa + k * QP + 64);
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int u = 0; u < TU; ++u)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[u][j] = fmaf(a[u], b[j], acc[u][j]);
+  }
+  if (DT == DT_INT8) {
+    const float* sbt = sb + t * 2 * tile + c0 + tx * 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 sc4 = __ldg(reinterpret_cast<const float4*>(sbt + 64 * h));
+      const float4 bi4 =
+          __ldg(reinterpret_cast<const float4*>(sbt + tile + 64 * h));
+      const float scl[4] = {sc4.x, sc4.y, sc4.z, sc4.w};
+      const float bia[4] = {bi4.x, bi4.y, bi4.z, bi4.w};
+#pragma unroll
+      for (int u = 0; u < TU; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[u][4 * h + e] =
+              __fadd_rn(__fmul_rn(acc[u][4 * h + e], scl[e]), bia[e]);
+    }
+  }
+}
+
 template <int DT, int UB, int DCAP>
 __global__ void __launch_bounds__(THREADS, UB <= 16 ? 2 : 1)
 tile_topk_kernel(const void* __restrict__ P, const void* __restrict__ Q,
@@ -317,42 +386,7 @@ tile_topk_kernel(const void* __restrict__ P, const void* __restrict__ Q,
     }
 
     float acc[TU][8];
-#pragma unroll
-    for (int u = 0; u < TU; ++u)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[u][j] = 0.f;
-    const float* pa = pt + ty * TU;
-    const float* qa = qt + tx * 4;
-#pragma unroll 8
-    for (int k = 0; k < K; ++k) {
-      float a[TU];
-      load_users<TU>(a, pa + k * UB);
-      const float4 b0 = *reinterpret_cast<const float4*>(qa + k * QP);
-      const float4 b1 = *reinterpret_cast<const float4*>(qa + k * QP + 64);
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int u = 0; u < TU; ++u)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[u][j] = fmaf(a[u], b[j], acc[u][j]);
-    }
-    if (DT == DT_INT8) {
-      const float* sbt = sb + (long long)t * 2 * tile + c0 + tx * 4;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float4 sc4 =
-            __ldg(reinterpret_cast<const float4*>(sbt + 64 * h));
-        const float4 bi4 =
-            __ldg(reinterpret_cast<const float4*>(sbt + tile + 64 * h));
-        const float scl[4] = {sc4.x, sc4.y, sc4.z, sc4.w};
-        const float bia[4] = {bi4.x, bi4.y, bi4.z, bi4.w};
-#pragma unroll
-        for (int u = 0; u < TU; ++u)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[u][4 * h + e] =
-                __fadd_rn(__fmul_rn(acc[u][4 * h + e], scl[e]), bia[e]);
-      }
-    }
+    score_chunk<DT, UB>(acc, pt, qt, sb, K, ty, tx, t, tile, c0);
     const bool tile_end = c0 + CH == tile;
 
     if constexpr (IN_REGS) {
@@ -449,6 +483,275 @@ tile_topk_kernel(const void* __restrict__ P, const void* __restrict__ Q,
       clear(lv[0], li[0]);
     }
   }
+}
+
+// ---- the deep form ------------------------------------------------------
+
+constexpr int DUB = 16;         // users a block of the deep form
+constexpr int DG = THREADS / DUB;  // threads a user: a half-warp
+
+// (a, ia) ranks ahead of (b, ib): the higher value, then the lower lane
+__device__ __forceinline__ bool ahead(float a, int ia, float b, int ib) {
+  return a > b || (a == b && ia < ib);
+}
+
+// Shared memory of the deep form, in bytes: the 16-user form's users,
+// raw and f32 chunks and (16, SCP) scores, then the candidates' lanes and
+// values (16, CH) each, then, when `lists_shared`, two buffers of 16
+// lists of `depth` values and `depth` lanes.
+template <int DT>
+size_t deep_smem(int K, int depth, bool lists_shared) {
+  return Layout<DT, DUB, MAX_DEPTH>{K}.bytes() + 8 * (size_t)DUB * CH +
+         (lists_shared ? (size_t)2 * DUB * depth * 8 : 0);
+}
+
+template <int DT>
+__global__ void __launch_bounds__(THREADS, 2)
+tile_topk_deep_kernel(const void* __restrict__ P, const void* __restrict__ Q,
+                      const float* __restrict__ sb, float* __restrict__ m_out,
+                      int* __restrict__ a_out, float* __restrict__ scratch,
+                      int B, int K, int tile, int depth, int tn, int n_ub,
+                      int S) {
+  const Layout<DT, DUB, MAX_DEPTH> lay{K};
+  extern __shared__ float4 smem4[];
+  float* pt = reinterpret_cast<float*>(smem4);  // (K, DUB) users, k-major
+  uint32_t* raw = reinterpret_cast<uint32_t*>(pt + lay.users());
+  float* qt = reinterpret_cast<float*>(raw + lay.raw());  // (K, QP)
+  float* sc = qt + lay.chunk();                           // (DUB, SCP)
+  int* sl = reinterpret_cast<int*>(sc + lay.tail());      // (DUB, CH)
+  float* cv = reinterpret_cast<float*>(sl + DUB * CH);    // (DUB, CH)
+  // the lists: [buffer][user][depth] values, then as many lanes
+  float* lists = scratch != nullptr
+                     ? scratch + (size_t)blockIdx.x * 4 * DUB * depth
+                     : cv + DUB * CH;
+
+  const int tid = threadIdx.x;
+  const int s = blockIdx.x / n_ub, ub = blockIdx.x - s * n_ub;
+  const int u0 = ub * DUB;
+  const int W = lay.row_words(), RWP = lay.raw_pitch();
+  const int cpt = tile / CH;
+  const int nq = ((tn - 1 - s) / S + 1) * cpt;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ty = (warp >> 1) * 4 + (lane >> 3);
+  const int tx = (warp & 1) * 8 + (lane & 7);
+  // selection: user ul's half-warp, thread r of it
+  const int ul = tid / DG, r = tid - ul * DG;
+  const unsigned half = 0xffffu << (lane & 16);
+  const float* scu = sc + ul * SCP;
+  float* cvu = cv + ul * CH;
+  int* slu = sl + ul * CH;
+
+  issue_chunk(raw, Q, (long long)s * tile, W, RWP);
+  for (int e = tid; e < DUB * K; e += THREADS) {
+    const int u = e % DUB, k = e / DUB;
+    float v = 0.f;
+    if (u0 + u < B) {
+      const long long o = (long long)(u0 + u) * K + k;
+      v = DT == DT_BF16
+              ? __bfloat162float(static_cast<const __nv_bfloat16*>(P)[o])
+              : static_cast<const float*>(P)[o];
+    }
+    pt[k * DUB + u] = v;
+  }
+
+  int cur = 0;  // the buffer that holds user ul's list
+  for (int q = 0; q < nq; ++q) {
+    const int t = s + (q / cpt) * S, c0 = (q % cpt) * CH;
+    cp_async_wait_all();
+    __syncthreads();
+    convert_chunk<DT>(qt, raw, K, RWP);
+    __syncthreads();
+    if (q + 1 < nq) {
+      const int t1 = s + ((q + 1) / cpt) * S, c1 = ((q + 1) % cpt) * CH;
+      issue_chunk(raw, Q, (long long)t1 * tile + c1, W, RWP);
+    }
+    float acc[1][8];
+    score_chunk<DT, DUB>(acc, pt, qt, sb, K, ty, tx, t, tile, c0);
+    {
+      float* row = sc + ty * SCP + tx * 4;
+      *reinterpret_cast<float4*>(row) =
+          make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
+      *reinterpret_cast<float4*>(row + 64) =
+          make_float4(acc[0][4], acc[0][5], acc[0][6], acc[0][7]);
+    }
+    __syncthreads();
+
+    // from here on each half-warp works on its own user alone
+    const int L = min(depth, c0);  // the list's length before this chunk
+    float* ov = lists + (size_t)(cur * DUB + ul) * 2 * depth;
+    int* oi = reinterpret_cast<int*>(ov + depth);
+    // the candidates: every score while the list fills, then those above
+    // its last value (one of equal value ranks behind it: a higher lane),
+    // compacted in lane order into (cvu, slu)
+    const bool full = L == depth;
+    const float thr = full ? ov[depth - 1] : 0.f;
+    int n = 0;
+#pragma unroll
+    for (int m = 0; m < CH / DG; ++m) {
+      const int e = r + DG * m;
+      const float v = scu[e];
+      const bool keep = !full || v > thr;
+      const unsigned bits = (__ballot_sync(FULL, keep) & half) >> (lane & 16);
+      if (keep) {
+        const int at = n + __popc(bits & ((1u << r) - 1));
+        cvu[at] = v;
+        slu[at] = c0 + e;
+      }
+      n += __popc(bits);
+    }
+    if (n > 0) {
+      // pad to a power of two with entries that rank behind any score,
+      // then a bitonic sort, the pair ahead first
+      int np = 1;
+      while (np < n) np <<= 1;
+      for (int x = n + r; x < np; x += DG) {
+        cvu[x] = -INFINITY;
+        slu[x] = INT32_MAX;
+      }
+      __syncwarp(half);
+      for (int k = 2; k <= np; k <<= 1)
+        for (int j = k >> 1; j > 0; j >>= 1) {
+          for (int x = r; x < np / 2; x += DG) {  // pair x of the stage
+            const int e = ((x & ~(j - 1)) << 1) | (x & (j - 1));
+            const int f = e | j;
+            const float ve = cvu[e], vf = cvu[f];
+            const int ie = slu[e], jf = slu[f];
+            const bool swap = (e & k) == 0 ? ahead(vf, jf, ve, ie)
+                                           : ahead(ve, ie, vf, jf);
+            if (swap) {
+              cvu[e] = vf;
+              cvu[f] = ve;
+              slu[e] = jf;
+              slu[f] = ie;
+            }
+          }
+          __syncwarp(half);
+        }
+      // merge by rank into the other buffer, truncated to depth
+      float* nv = lists + (size_t)((cur ^ 1) * DUB + ul) * 2 * depth;
+      int* ni = reinterpret_cast<int*>(nv + depth);
+      for (int x = r; x < L; x += DG) {  // the list's elements
+        const float v = ov[x];
+        int lo = 0, hi = n;  // candidates ahead: values above v
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (cvu[mid] > v)
+            lo = mid + 1;
+          else
+            hi = mid;
+        }
+        if (x + lo < depth) {
+          nv[x + lo] = v;
+          ni[x + lo] = oi[x];
+        }
+      }
+      for (int x = r; x < min(n, depth); x += DG) {  // the candidates
+        const float v = cvu[x];
+        int lo = 0, hi = L;  // list elements ahead: values at least v
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (ov[mid] >= v)
+            lo = mid + 1;
+          else
+            hi = mid;
+        }
+        if (x + lo < depth) {
+          nv[x + lo] = v;
+          ni[x + lo] = slu[x];
+        }
+      }
+      __syncwarp(half);
+      cur ^= 1;
+    }
+    if (c0 + CH == tile) {  // the tile's end: write the user's list
+      const int b = u0 + ul;
+      const float* fv = lists + (size_t)(cur * DUB + ul) * 2 * depth;
+      const int* fi = reinterpret_cast<const int*>(fv + depth);
+      if (b < B)
+        for (int j = r; j < depth; j += DG) {
+          const long long o = ((long long)j * B + b) * tn + t;
+          m_out[o] = fv[j];
+          a_out[o] = fi[j];
+        }
+    }
+  }
+}
+
+// The deep form's launch: its dynamic shared memory, whether the lists
+// live there, and the grid (n_ub user blocks x S tile strides, as many as
+// fill the card's slots). Returns a CUDA error, or 0.
+template <int DT>
+int deep_plan(int B, int ipad, int K, int tile, int depth, int lists,
+              size_t& smem, bool& lists_shared, int& n_ub, int& S) {
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  // the lists in shared memory where the SM keeps as many blocks with
+  // them there as without, else in the device scratch (a block's lists
+  // stay in L2). measure_topk deep, H100: where the SM keeps 2 blocks
+  // either way, shared memory is 1-3% faster; where it would cost the
+  // second block, up to 37% slower. The occupancy query, not the bytes,
+  // decides: an SM's shared memory also holds a reserve a block.
+  const size_t with = deep_smem<DT>(K, depth, true);
+  const size_t without = deep_smem<DT>(K, depth, false);
+  err = cudaFuncSetAttribute(tile_topk_deep_kernel<DT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+  int per_with = 0, per_without = 0;
+  if (err == cudaSuccess && with <= (size_t)optin)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_with, tile_topk_deep_kernel<DT>, THREADS, with);
+  if (err == cudaSuccess && without <= (size_t)optin)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_without, tile_topk_deep_kernel<DT>, THREADS, without);
+  if (err != cudaSuccess) return (int)err;
+  lists_shared =
+      lists == 1 || (lists == 0 && per_with > 0 && per_with >= per_without);
+  smem = lists_shared ? with : without;
+  const int per_sm = lists_shared ? per_with : per_without;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int tn = ipad / tile;
+  n_ub = (B + DUB - 1) / DUB;
+  S = max(1, min(tn, sms * per_sm / n_ub));
+  return 0;
+}
+
+template <int DT>
+int deep_scratch_words(int B, int ipad, int K, int tile, int depth,
+                       int lists, long long& words) {
+  size_t smem;
+  bool shared;
+  int n_ub, S;
+  const int err =
+      deep_plan<DT>(B, ipad, K, tile, depth, lists, smem, shared, n_ub, S);
+  words = shared ? 0 : (long long)n_ub * S * 4 * DUB * depth;
+  return err;
+}
+
+template <int DT>
+int launch_deep(const void* P, const void* Q, const float* sb, float* m_out,
+                int* a_out, float* scratch, long long scratch_words, int B,
+                int ipad, int K, int tile, int depth, int lists,
+                cudaStream_t st) {
+  size_t smem;
+  bool shared;
+  int n_ub, S;
+  const int err =
+      deep_plan<DT>(B, ipad, K, tile, depth, lists, smem, shared, n_ub, S);
+  if (err) return err;
+  if (!shared &&
+      (scratch == nullptr ||
+       scratch_words < (long long)n_ub * S * 4 * DUB * depth))
+    return (int)cudaErrorInvalidValue;
+  tile_topk_deep_kernel<DT><<<n_ub * S, THREADS, smem, st>>>(
+      P, Q, sb, m_out, a_out, shared ? nullptr : scratch, B, K, tile, depth,
+      ipad / tile, n_ub, S);
+  return (int)cudaGetLastError();
 }
 
 // Blocks of one kernel an SM at its shared memory: 0 where it does not
@@ -563,6 +866,69 @@ extern "C" int mfx_tile_topk(const void* P, const void* Q, const float* sb,
     case DT_INT8:
       return launch_depth<DT_INT8>(P, Q, sb, m_out, a_out, B, ipad, K, tile,
                                    depth, ub, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The deep form: any 1 <= depth <= tile and any tile that is a multiple
+// of 128; the rest as mfx_tile_topk (the launch chooses its own block
+// form). scratch: scratch_words f32 words of device memory, at least
+// what mfx_tile_topk_deep_scratch asks for (unused, and may be null, when
+// that is 0). lists: where the running lists live: 0 as the launch
+// chooses, 1 shared memory, 2 the scratch (measure_topk deep times the
+// two).
+extern "C" int mfx_tile_topk_deep(const void* P, const void* Q,
+                                  const float* sb, float* m_out, int* a_out,
+                                  float* scratch, long long scratch_words,
+                                  int B, int ipad, int K, int tile, int depth,
+                                  int dtype, int lists, void* stream) {
+  if (B < 0 || K <= 0 || K % 8 || K > MAX_K || tile <= 0 || tile % CH ||
+      ipad < 0 || ipad % tile || depth < 1 || depth > tile ||
+      lists < 0 || lists > 2 || (dtype == DT_INT8 && sb == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || ipad == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (dtype) {
+    case DT_F32:
+      return launch_deep<DT_F32>(P, Q, sb, m_out, a_out, scratch,
+                                 scratch_words, B, ipad, K, tile, depth,
+                                 lists, st);
+    case DT_BF16:
+      return launch_deep<DT_BF16>(P, Q, sb, m_out, a_out, scratch,
+                                  scratch_words, B, ipad, K, tile, depth,
+                                  lists, st);
+    case DT_INT8:
+      return launch_deep<DT_INT8>(P, Q, sb, m_out, a_out, scratch,
+                                  scratch_words, B, ipad, K, tile, depth,
+                                  lists, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// f32 words of device scratch mfx_tile_topk_deep needs for these shapes
+// and `lists` (0 where the lists live in shared memory) into *words;
+// returns a CUDA error, or 0.
+extern "C" int mfx_tile_topk_deep_scratch(int B, int ipad, int K, int tile,
+                                          int depth, int dtype, int lists,
+                                          long long* words) {
+  *words = 0;
+  if (B < 0 || K <= 0 || K % 8 || K > MAX_K || tile <= 0 || tile % CH ||
+      ipad < 0 || ipad % tile || depth < 1 || depth > tile || lists < 0 ||
+      lists > 2)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || ipad == 0) return 0;
+  switch (dtype) {
+    case DT_F32:
+      return deep_scratch_words<DT_F32>(B, ipad, K, tile, depth, lists,
+                                        *words);
+    case DT_BF16:
+      return deep_scratch_words<DT_BF16>(B, ipad, K, tile, depth, lists,
+                                         *words);
+    case DT_INT8:
+      return deep_scratch_words<DT_INT8>(B, ipad, K, tile, depth, lists,
+                                         *words);
     default:
       return (int)cudaErrorInvalidValue;
   }

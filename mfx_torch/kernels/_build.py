@@ -26,6 +26,7 @@ BUILD_DIR = CSRC.parent.parent / "build" / "mfx_torch"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 
 # C signatures (mirrored by the extern "C" definitions in csrc/)
 _SIGNATURES = {
@@ -38,6 +39,9 @@ _SIGNATURES = {
     "mfx_dense_phase": [_P] * 21 + [_I] * 9 + [_F, _F, _F, _P],
     "mfx_dense_phase_max_blocks": [_I, _I, _I],
     "mfx_tile_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mfx_tile_topk_deep": [_P] * 6 + [_LL] + [_I] * 7 + [_P],
+    "mfx_tile_topk_deep_scratch": [_I] * 7 + [_P],
+    "mfx_row_add_bf16": [_P, _P, _P, _P, _LL, _I, _P],
     "mfx_bpr_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _I, _I, _I, _F, _F, _P],
     "mfx_bpr_sweep_max_blocks": [_I, _I],

@@ -26,13 +26,24 @@ puts duplicate rows in a batch).
 The tables are updated in place; the functions that take an ``MFModel``
 clone them first and return a new one, as the reference's return new
 arrays.
+
+bf16 tables (``model.dtype='bfloat16'``) follow the reference's step as
+its compiled program rounds it on the CPU: ``lr`` and ``reg`` are rounded
+to the table dtype (:func:`as_scalar`); the prediction's products are
+summed in f32, and that dot and every add but the last are rounded to
+bf16, the last add is f32 (XLA drops a rounding whose only consumer
+widens the value again); the
+residual and the deltas are f32; each delta is rounded to bf16 where it
+is added (:func:`apply`), and duplicate rows add one bf16 delta after
+another, in slot order, each sum rounded to bf16, as the reference's
+scatter does.
 """
 
 from __future__ import annotations
 
 import torch
 
-from mfx_torch.kernels.packing import row_add
+from mfx_torch.kernels.packing import bf16_order, row_add
 from mfx_torch.models.mf import MFModel
 
 __all__ = [
@@ -48,14 +59,14 @@ __all__ = [
 PAD_COUNT_ID = 0x3FFFFFFF
 
 
-def as_f32(x, device) -> torch.Tensor:
-    """A Python float (or 0-d tensor) as an f32 0-d tensor on ``device``:
-    the reference's ``jnp.asarray(lr, P.dtype)``. A float is filled in on
-    the device (rounded to f32 as that does), so that no host copy, and
-    on the card no host sync, is made."""
+def as_scalar(x, device, dtype=torch.float32) -> torch.Tensor:
+    """A Python float (or 0-d tensor) as a 0-d ``dtype`` tensor on
+    ``device``: the reference's ``jnp.asarray(lr, P.dtype)``. A float is
+    filled in on the device (rounded to ``dtype`` as that does), so that
+    no host copy, and on the card no host sync, is made."""
     if isinstance(x, torch.Tensor):
-        return x.to(device, torch.float32)
-    return torch.full((), x, dtype=torch.float32, device=device)
+        return x.to(device, dtype)
+    return torch.full((), x, dtype=dtype, device=device)
 
 
 def clamp_ids(ids: torch.Tensor, rows: int) -> torch.Tensor:
@@ -78,11 +89,16 @@ def deltas(P, Q, bu, bi, mu, u, i, ratings, weights, lr, reg,
     reference's order of operations throughout."""
     pu = P.index_select(0, u)
     qi = Q.index_select(0, i)
-    pred = (pu * qi).sum(-1) + mu
+    # for bf16 tables, the rounding of the reference's compiled step: the
+    # products summed in f32, the dot and every add but the last rounded
+    # to bf16, the last add (whose result only meets the f32 rating) f32
+    pred = (pu.float() * qi.float()).sum(-1).to(P.dtype)
     if use_bias:
         bu_ = bu.index_select(0, u)
         bi_ = bi.index_select(0, i)
-        pred = pred + bu_ + bi_
+        pred = (pred + mu + bu_).float() + bi_.float()
+    else:
+        pred = pred.float() + mu
     err = (ratings - pred) * weights
     e = err[:, None]
     w = weights[:, None]
@@ -117,11 +133,14 @@ def apply(P, Q, bu, bi, u, i, d_pu, d_qi, d_bu, d_bi, *, use_bias: bool,
         if use_bias:
             d_bu = d_bu * su[:, 0]
             d_bi = d_bi * si[:, 0]
-    row_add(P, u, d_pu)
-    row_add(Q, i, d_qi)
+    # deltas in the tables' dtype (no copy for f32 tables); bf16 tables on
+    # the card sort each side's rows once for its two tables
+    ou, oi = bf16_order(P, u), bf16_order(Q, i)
+    row_add(P, u, d_pu.to(P.dtype), ou)
+    row_add(Q, i, d_qi.to(Q.dtype), oi)
     if use_bias:
-        row_add(bu, u, d_bu)
-        row_add(bi, i, d_bi)
+        row_add(bu, u, d_bu.to(bu.dtype), ou)
+        row_add(bi, i, d_bi.to(bi.dtype), oi)
 
 
 def count_ids(ids: torch.Tensor, weights: torch.Tensor | None) -> torch.Tensor:
@@ -137,12 +156,14 @@ def sgd_compute_deltas(model: MFModel, users, items, ratings, weights, lr,
     """Per-rating factor/bias deltas from the batch-entry snapshot.
 
     Returns ``(d_pu [B,k], d_qi [B,k], d_bu [B], d_bi [B], sq_err)``;
-    ``lr`` and ``reg`` are Python floats or f32 0-d tensors."""
-    dev = model.device
+    ``lr`` and ``reg`` are Python floats or 0-d tensors, taken in the
+    tables' dtype."""
+    dev, dt = model.device, model.P.dtype
     d_pu, d_qi, d_bu, d_bi, sq = deltas(
         model.P, model.Q, model.bu, model.bi, model.mu,
         clamp_ids(users, model.num_users), clamp_ids(items, model.num_items),
-        ratings, weights, as_f32(lr, dev), as_f32(reg, dev), use_bias)
+        ratings, weights, as_scalar(lr, dev, dt), as_scalar(reg, dev, dt),
+        use_bias)
     if not use_bias:
         d_bu = torch.zeros_like(ratings, dtype=torch.float32)
         d_bi = torch.zeros_like(d_bu)

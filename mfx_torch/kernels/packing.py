@@ -29,7 +29,7 @@ from mfx_torch.models.timesvd import TimeSVDModel
 
 __all__ = ["to_lane_model", "from_lane_model", "to_tlane_model",
            "from_tlane_model", "pad_rows", "lane_tables", "plain_tables",
-           "row_add"]
+           "row_add", "bf16_order", "bf16_row_add"]
 
 
 def to_lane_model(model: MFModel) -> MFModel:
@@ -122,14 +122,69 @@ def plain_tables(model: MFModel, su: int, si: int, device):
             pad_rows(model.bu.to(device), su), pad_rows(model.bi.to(device), si))
 
 
-def row_add(table, rows, delta):
+def row_add(table, rows, delta, order=None):
     """``table[rows] += delta``, duplicate rows summed, in an order that
     repeats from run to run on either device: on the CPU ``index_add_``
     walks the slots in order (``index_put_`` accumulates from several
     threads there); on CUDA ``index_put_(accumulate=True)`` sorts, where
     ``index_add_`` uses float atomics. The sweeps' plain versions add
-    every delta with it."""
+    every delta with it.
+
+    bf16 tables go through :func:`bf16_row_add` (``order``: the rows'
+    :func:`bf16_order`, where the caller shares it between tables)."""
+    if table.dtype == torch.bfloat16:
+        bf16_row_add(table, rows, delta, order)
+        return
     if table.device.type == "cpu":
         table.index_add_(0, rows, delta)
     else:
         table.index_put_((rows,), delta, accumulate=True)
+
+
+def bf16_order(table, rows):
+    """The order in which :func:`bf16_row_add` adds into ``table`` on the
+    card: ``(rows sorted stably, their slots)``, to be shared by the
+    tables that take the same rows (P and bu, Q and bi); None where no
+    kernel takes it (f32 tables, the CPU)."""
+    if table.dtype != torch.bfloat16 or table.device.type != "cuda":
+        return None
+    return torch.sort(rows.long(), stable=True)
+
+
+def bf16_row_add(table, rows, delta, order=None):
+    """``row_add`` of a bf16 table: each delta added on its own, the sum
+    rounded to bf16, duplicate rows in slot order, as the reference's bf16
+    scatter adds them. On the CPU, the plain version: ``index_add_`` on
+    the table's flat view, one element a delta (on a 2-D table it would
+    sum duplicate rows in f32 and round once). On CUDA it launches
+    ``csrc/row_add_bf16.cu`` (``index_put_`` does not keep the order
+    there) on the rows sorted stably (``order``, else sorted here), or
+    raises."""
+    width = table.shape[1] if table.dim() > 1 else 1
+    if table.device.type == "cpu":
+        if table.dim() > 1:
+            lanes = torch.arange(width, device=rows.device)
+            rows = (rows[:, None] * width + lanes).reshape(-1)
+            table, delta = table.view(-1), delta.reshape(-1)
+        table.index_add_(0, rows, delta)
+        return
+    if table.device.type != "cuda":
+        raise ValueError(f"bf16_row_add: no kernel for device {table.device}")
+    from mfx_torch.kernels import _build
+
+    if (table.dim() > 2 or not table.is_contiguous()
+            or delta.dtype != torch.bfloat16):
+        raise ValueError("bf16_row_add: a contiguous 1-D or 2-D bf16 table "
+                         "and bf16 deltas")
+    srows, slots = order if order is not None else torch.sort(
+        rows.long(), stable=True)
+    delta = delta.contiguous()
+    _build.check(_build.load_library().mfx_row_add_bf16(
+        table.data_ptr(), srows.data_ptr(), slots.data_ptr(),
+        delta.data_ptr(), srows.shape[0], width,
+        torch.cuda.current_stream(table.device).cuda_stream),
+        "bf16_row_add")
+    bf16_row_add.launches += 1
+
+
+bf16_row_add.launches = 0

@@ -15,12 +15,18 @@ The augmented width is ``rank + 1`` padded to a multiple of 8
 plain version's matmul runs with TF32 off, the kernel with f32 FMA.
 
 On CUDA tensors :func:`tile_topk` launches the kernel (or raises); on CPU
-tensors it runs :func:`tile_topk_plain`. Nothing falls back.
+tensors it runs :func:`tile_topk_plain`. Nothing falls back. The kernel
+has two forms: its lists in registers for ``depth <= 32`` on tiles of at
+most 2,048 items, and the deep form for any other depth and tile that is
+a multiple of 128 (its lists sorted in shared or device memory,
+``csrc/tile_topk.cu``). ``tile_topk.launches`` counts the first form's
+launches, ``tile_topk.deep_launches`` the deep form's.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 
 import torch
 
@@ -30,8 +36,10 @@ __all__ = ["tile_topk", "tile_topk2", "tile_topk_plain", "aug_width",
            "matmul_f32", "AUG_LANES"]
 
 AUG_LANES = 128  # widest augmented row: rank + bias lane < 128 + 1
-MAX_DEPTH = 32   # the kernel's candidate lists (csrc/tile_topk.cu)
-MAX_TILE = 2048  # the kernel's tiles: 128-row chunks, at most 16
+# the register-list form's limits (csrc/tile_topk.cu); beyond them the
+# deep form runs
+MAX_DEPTH = 32
+MAX_TILE = 2048
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -130,43 +138,82 @@ def tile_topk(P_aug, Q_aug, tile: int = 1024, depth: int = 2, sb=None):
         return tile_topk_plain(P_aug, Q_aug, tile=tile, depth=depth, sb=sb)
     if dev.type != "cuda":
         raise ValueError(f"tile_topk: no kernel for device {dev}")
-    if depth > MAX_DEPTH or tile % 128 or tile > MAX_TILE:
-        raise NotImplementedError(
-            f"tile_topk kernel takes depth <= {MAX_DEPTH} and tile a multiple "
-            f"of 128 up to {MAX_TILE}, got depth={depth} tile={tile} "
-            "(ROADMAP Queue 2 item 8)"
+    if tile % 128:
+        raise ValueError(
+            f"tile_topk kernel takes tiles that are a multiple of 128, got "
+            f"{tile}"
         )
+    if depth > MAX_DEPTH or tile > MAX_TILE:
+        return _launch_deep(P_aug, Q_aug, tile, depth, sb)
     return _launch(P_aug, Q_aug, tile, depth, sb)
 
 
-def _launch(P_aug, Q_aug, tile, depth, sb, users_per_block=0):
-    """:func:`tile_topk`'s kernel on CUDA tensors already validated.
-    ``users_per_block`` 16 or 128 holds the kernel to one of its two block
-    forms (``measure_topk forms`` times both); 0, as :func:`tile_topk`
-    passes, lets the launch choose."""
+def _outputs(P_aug, Q_aug, tile, depth, sb):
+    """The (depth, B, n_tiles) value and lane outputs of a launch, after
+    the layout checks the kernel needs."""
     tensors = [P_aug, Q_aug] + ([sb] if sb is not None else [])
     if any(not x.is_contiguous() or x.data_ptr() % 16 for x in tensors):
         raise ValueError("tile_topk: tables must be contiguous and 16-byte "
                          "aligned")
-    dev = P_aug.device
-    B, K = P_aug.shape
-    ipad = Q_aug.shape[0]
-    tn = ipad // tile
-    m = torch.empty(depth, B, tn, dtype=torch.float32, device=dev)
-    a = torch.empty(depth, B, tn, dtype=torch.int32, device=dev)
-    lib = _build.load_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(lib.mfx_tile_topk(
-        P_aug.data_ptr(), Q_aug.data_ptr(),
-        sb.data_ptr() if sb is not None else None, m.data_ptr(),
-        a.data_ptr(), B, ipad, K, tile, depth, _DTYPE_CODE[Q_aug.dtype],
-        users_per_block, stream,
-    ), "tile_topk")
-    tile_topk.launches += 1
+    shape = (depth, P_aug.shape[0], Q_aug.shape[0] // tile)
+    return (torch.empty(shape, dtype=torch.float32, device=P_aug.device),
+            torch.empty(shape, dtype=torch.int32, device=P_aug.device))
+
+
+def _pairs(m, a, depth):
     return tuple(x for j in range(depth) for x in (m[j], a[j]))
 
 
+def _launch(P_aug, Q_aug, tile, depth, sb, users_per_block=0):
+    """:func:`tile_topk`'s register-list form on CUDA tensors already
+    validated (``depth <= 32``, ``tile <= 2048``). ``users_per_block`` 16
+    or 128 holds the kernel to one of its two block forms
+    (``measure_topk forms`` times both); 0, as :func:`tile_topk` passes,
+    lets the launch choose."""
+    m, a = _outputs(P_aug, Q_aug, tile, depth, sb)
+    B, K = P_aug.shape
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(P_aug.device).cuda_stream
+    _build.check(lib.mfx_tile_topk(
+        P_aug.data_ptr(), Q_aug.data_ptr(),
+        sb.data_ptr() if sb is not None else None, m.data_ptr(),
+        a.data_ptr(), B, Q_aug.shape[0], K, tile, depth,
+        _DTYPE_CODE[Q_aug.dtype], users_per_block, stream,
+    ), "tile_topk")
+    tile_topk.launches += 1
+    return _pairs(m, a, depth)
+
+
+def _launch_deep(P_aug, Q_aug, tile, depth, sb, lists=0):
+    """:func:`tile_topk`'s deep form on CUDA tensors already validated:
+    any depth and any tile that is a multiple of 128. Its running lists
+    take a device scratch where they do not fit in shared memory; the
+    kernel says how much. ``lists`` 1 (shared memory) or 2 (the scratch)
+    holds them to one place (``measure_topk deep`` times both); 0, as
+    :func:`tile_topk` passes, lets the launch choose."""
+    m, a = _outputs(P_aug, Q_aug, tile, depth, sb)
+    B, K = P_aug.shape
+    ipad, code = Q_aug.shape[0], _DTYPE_CODE[Q_aug.dtype]
+    lib = _build.load_library()
+    words = ctypes.c_longlong(0)
+    _build.check(lib.mfx_tile_topk_deep_scratch(
+        B, ipad, K, tile, depth, code, lists, ctypes.byref(words)),
+        "tile_topk deep scratch")
+    scratch = (torch.empty(words.value, dtype=torch.float32,
+                           device=P_aug.device) if words.value else None)
+    stream = torch.cuda.current_stream(P_aug.device).cuda_stream
+    _build.check(lib.mfx_tile_topk_deep(
+        P_aug.data_ptr(), Q_aug.data_ptr(),
+        sb.data_ptr() if sb is not None else None, m.data_ptr(),
+        a.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+        words.value, B, ipad, K, tile, depth, code, lists, stream,
+    ), "tile_topk deep")
+    tile_topk.deep_launches += 1
+    return _pairs(m, a, depth)
+
+
 tile_topk.launches = 0
+tile_topk.deep_launches = 0
 
 
 def tile_topk2(P_aug, Q_aug, tile: int = 1024):

@@ -3,6 +3,7 @@ forms across batch sizes, on ``chip_smoke.py``'s serving shapes.
 
     python -m mfx_torch.measure_topk kernel [--repeats 20]
     python -m mfx_torch.measure_topk forms  [--repeats 20]
+    python -m mfx_torch.measure_topk deep   [--repeats 20]
 
 The tables are phase 5's: seeded random user rows (``B`` x rank 64) and
 catalog (rank 64, item biases), augmented to width 72 as the fused
@@ -22,6 +23,13 @@ each.
 one): the kernel as ``tile_topk`` launches it, and held to each of its
 two block forms, 16 and 128 users a block, interleaved; one JSON line
 each, the forced forms checked bitwise against the launch's own choice.
+
+``deep``: the deep form's two places for its running lists, at 1,000,000
+items, B = 256, tile 1024, f32 and bf16, at depths 33-64 (the launch
+keeps the lists in shared memory where the SM keeps as many blocks): the
+kernel as ``tile_topk`` launches it, and held to the lists in shared
+memory and in the device scratch, interleaved; one JSON line each, the
+held forms checked bitwise against the launch's own choice.
 
 It calls only ``tile_topk`` and the fused recommenders' augmentation,
 which earlier trees of the port have too, so it also times an earlier
@@ -46,10 +54,10 @@ PHASE5_VARIANTS = (("f32", 2), ("f32", 8), ("bf16", 2), ("int8", 2))
 BATCHES = (1, 8, 16, 37, 64, 128, 256)
 
 
-def serving_tables(dev, B, items, dtype):
+def serving_tables(dev, B, items, dtype, tile=SERVE_TILE):
     """Seeded random ``(P_aug, Q_aug, sb)`` at B user rows and ``items``
-    catalog rows (padded to tiles of SERVE_TILE) in ``dtype`` 'f32',
-    'bf16' or 'int8' (``sb`` None but for int8)."""
+    catalog rows (padded to tiles of ``tile``) in ``dtype`` 'f32', 'bf16'
+    or 'int8' (``sb`` None but for int8)."""
     import torch
 
     from mfx_torch.kernels.serve_topk import aug_width
@@ -60,9 +68,9 @@ def serving_tables(dev, B, items, dtype):
     P = torch.randn(B, RANK, device=dev, generator=g)
     Q = torch.randn(items, RANK, device=dev, generator=g) / RANK ** 0.5
     bi = torch.randn(items, device=dev, generator=g) * 0.3
-    ipad = -(-items // SERVE_TILE) * SERVE_TILE
+    ipad = -(-items // tile) * tile
     if dtype == "int8":
-        Q_aug, sb = _augment_catalog_int8(Q, bi, ipad, SERVE_TILE)
+        Q_aug, sb = _augment_catalog_int8(Q, bi, ipad, tile)
         return _augment_rows(P, torch.float32, aug_width(RANK)), Q_aug, sb
     dt = torch.bfloat16 if dtype == "bf16" else torch.float32
     return (_augment_rows(P, dt, aug_width(RANK)),
@@ -177,18 +185,54 @@ def forms(args, head, dev) -> None:
             torch.cuda.empty_cache()
 
 
+DEEP_DEPTHS = (33, 35, 37, 40, 48, 64)
+
+
+def deep(args, head, dev) -> None:
+    import torch
+
+    from mfx_torch.kernels import serve_topk
+
+    for dtype in ("f32", "bf16"):
+        P_aug, Q_aug, sb = serving_tables(dev, SERVE_B, SERVE_ITEMS, dtype)
+        for depth in DEEP_DEPTHS:
+            fns = {"auto_ms": lambda: serve_topk.tile_topk(
+                P_aug, Q_aug, tile=SERVE_TILE, depth=depth, sb=sb)}
+            want = fns["auto_ms"]()
+            for lists, key in ((1, "shared_ms"), (2, "scratch_ms")):
+                fn = (lambda lists=lists: serve_topk._launch_deep(
+                    P_aug, Q_aug, SERVE_TILE, depth, sb, lists))
+                try:
+                    got = fn()
+                except RuntimeError:  # the lists do not fit in shared memory
+                    continue
+                if any(not torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(
+                        f"tile_topk deep: lists {key} differ from the "
+                        f"launch's choice at depth {depth}, {dtype}")
+                fns[key] = fn
+            print(json.dumps({**head, "deep": f"tile_topk {dtype}",
+                              "items": SERVE_ITEMS, "depth": depth,
+                              "B": SERVE_B, "tile": SERVE_TILE,
+                              "repeats": args.repeats,
+                              **_timed(fns, args.repeats)}), flush=True)
+        del P_aug, Q_aug, sb
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(prog="mfx_torch.measure_topk")
-    ap.add_argument("what", choices=("kernel", "forms"))
+    ap.add_argument("what", choices=("kernel", "forms", "deep"))
     ap.add_argument("--repeats", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure_topk: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    {"kernel": kernel, "forms": forms}[args.what](args, _header(), dev)
+    {"kernel": kernel, "forms": forms, "deep": deep}[args.what](
+        args, _header(), dev)
     return 0
 
 

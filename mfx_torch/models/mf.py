@@ -1,9 +1,15 @@
 """MFModel — factor-model state, the counterpart of ``mfx/models/mf.py``.
 
-``P (U, rank)``, ``Q (I, rank)``, ``bu (U,)``, ``bi (I,)`` are f32 buffers
-of an ``nn.Module``; ``mu`` is a Python float. No autograd: the trainers
-write their updates by hand. ``save_npz``/``load_npz`` use the reference's
-npz format, so a model moves between the two packages through one file.
+``P (U, rank)``, ``Q (I, rank)``, ``bu (U,)``, ``bi (I,)`` are buffers of
+an ``nn.Module``, float32 or, as the reference's ``model.dtype`` allows,
+bfloat16 (:meth:`MFModel.astype`, ``init_model(dtype=)``); ``mu`` is a
+Python float (for bf16 tables the bf16 value of the global mean, as the
+reference rounds its ``mu``). No autograd: the trainers write their
+updates by hand. ``save_npz``/``load_npz`` use the reference's npz format,
+so a model moves between the two packages through one file. numpy has no
+bfloat16: bf16 arrays are stored as their 2-byte values (``|V2``), as
+numpy writes the reference's ``ml_dtypes`` bfloat16 arrays, and read back
+bit for bit (:func:`to_numpy`, :func:`from_numpy`).
 """
 
 from __future__ import annotations
@@ -14,7 +20,43 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["MFModel", "init_model", "baseline_biases"]
+__all__ = ["MFModel", "init_model", "baseline_biases", "to_numpy",
+           "from_numpy", "TABLE_DTYPES"]
+
+# the reference's model.dtype names and their torch dtypes
+TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def table_dtype(dtype) -> torch.dtype:
+    """A table dtype given as the reference's name or a torch dtype."""
+    if isinstance(dtype, torch.dtype) and dtype in TABLE_DTYPES.values():
+        return dtype
+    if dtype in TABLE_DTYPES:
+        return TABLE_DTYPES[dtype]
+    raise ValueError(f"table dtype must be one of {sorted(TABLE_DTYPES)}, "
+                     f"got {dtype!r}")
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t``; bfloat16 as its 2-byte values (``|V2``)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    """Inverse of :func:`to_numpy`: ``|V2`` arrays are bfloat16 bits;
+    other arrays become float32 (the reference's f32 tables)."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+
+def _round_mu(mu: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(mu, dtype=torch.float32).to(dtype))
 
 
 class MFModel(nn.Module):
@@ -45,6 +87,18 @@ class MFModel(nn.Module):
     def device(self) -> torch.device:
         return self.P.device
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.P.dtype
+
+    def astype(self, dtype) -> "MFModel":
+        """The model with every table (and ``mu``) rounded to ``dtype``
+        (``'float32'`` / ``'bfloat16'`` or the torch dtype)."""
+        dt = table_dtype(dtype)
+        mu = self.mu if dt == torch.float32 else _round_mu(self.mu, dt)
+        return MFModel(self.P.to(dt), self.Q.to(dt), self.bu.to(dt),
+                       self.bi.to(dt), mu)
+
     def predict(self, users: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
         """Batched prediction ``μ + bu + bi + p·q`` for id vectors."""
         return (
@@ -55,24 +109,30 @@ class MFModel(nn.Module):
     def save_npz(self, path) -> None:
         """Write the reference's npz format (``mfx.models.mf.MFModel.load_npz``
         reads it)."""
-        np.savez_compressed(
-            path,
-            P=self.P.cpu().numpy(), Q=self.Q.cpu().numpy(),
-            bu=self.bu.cpu().numpy(), bi=self.bi.cpu().numpy(),
-            mu=np.asarray(self.mu, np.float32),
-        )
+        np.savez_compressed(path, **self.state_arrays())
+
+    def state_arrays(self) -> dict:
+        """Host copies of the five arrays of the npz format: the tables in
+        their dtype (:func:`to_numpy`), ``mu`` in the tables' dtype."""
+        out = {k: to_numpy(getattr(self, k)) for k in ("P", "Q", "bu", "bi")}
+        out["mu"] = to_numpy(torch.tensor(self.mu, dtype=self.dtype))
+        return out
+
+    @staticmethod
+    def from_arrays(arrs: dict, device) -> "MFModel":
+        """Inverse of :meth:`state_arrays` on ``device``."""
+        return MFModel(*(from_numpy(arrs[k], device)
+                         for k in ("P", "Q", "bu", "bi")),
+                       mu=float(from_numpy(arrs["mu"], "cpu")))
 
     @staticmethod
     def load_npz(path, device: torch.device | str = "cuda") -> "MFModel":
         """Inverse of :meth:`save_npz`; reads files the reference wrote.
-        The tables land on the card unless ``device`` says otherwise."""
+        The tables land on the card unless ``device`` says otherwise, in
+        the dtype they were saved in."""
         with np.load(path) as z:
             arrs = {k: z[k] for k in ("P", "Q", "bu", "bi", "mu")}
-        return MFModel(
-            *(torch.as_tensor(arrs[k], dtype=torch.float32, device=device)
-              for k in ("P", "Q", "bu", "bi")),
-            mu=float(arrs["mu"]),
-        )
+        return MFModel.from_arrays(arrs, device)
 
 
 def init_model(
@@ -83,11 +143,13 @@ def init_model(
     global_mean: float = 0.0,
     init_scale: float | None = None,
     device: torch.device | str | None = None,
+    dtype="float32",
 ) -> MFModel:
     """Scaled-normal init with the reference's scale, 1/sqrt(rank) by
     default, on the generator's device unless ``device`` names it (the
-    two must agree). The draws differ from the reference's ``jax.random``
-    ones; tests hand tables across with
+    two must agree), in table ``dtype`` (``'float32'`` or ``'bfloat16'``:
+    drawn in f32, then rounded, ``mu`` too). The draws differ from the
+    reference's ``jax.random`` ones; tests hand tables across with
     ``mfx_torch.convert.model_from_numpy`` instead."""
     if device is None:
         device = generator.device
@@ -103,7 +165,7 @@ def init_model(
         torch.zeros(num_users, dtype=f32, device=device),
         torch.zeros(num_items, dtype=f32, device=device),
         mu=global_mean,
-    )
+    ).astype(dtype)
 
 
 def baseline_biases(

@@ -41,14 +41,15 @@ def _fold_in_solve(model, items, ratings, lengths, reg, *, use_bias,
     F = model.P if transpose else model.Q
     bias = model.bu if transpose else model.bi
     k = F.shape[1]
-    f = F.dtype
+    # bf16 tables solve in f32 (the batched Cholesky takes no bf16)
+    f = torch.float32 if F.dtype == torch.bfloat16 else F.dtype
     D = items.shape[1]
     lane = torch.arange(D, dtype=torch.int32, device=F.device)
     mask = (lane[None, :] < lengths[:, None]).to(f)  # (B, D)
     idx = items.long().clamp(0, F.shape[0] - 1)  # the reference's mode="clip"
-    q = F[idx]  # (B, D, k)
+    q = F[idx].to(f)  # (B, D, k)
     resid = ratings - torch.tensor(model.mu, dtype=f, device=F.device) \
-        - bias[idx]
+        - bias[idx].to(f)
     if use_bias:
         q = torch.cat([q, torch.ones(q.shape[:2] + (1,), dtype=f,
                                      device=F.device)], dim=2)

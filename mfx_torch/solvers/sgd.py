@@ -29,9 +29,18 @@ from mfx_torch.data import partition as part
 from mfx_torch.data.coo import RatingsCOO
 from mfx_torch.data.split import epoch_permutation
 from mfx_torch.kernels import minibatch as mb
+from mfx_torch.kernels.packing import bf16_row_add
 from mfx_torch.models.mf import MFModel
 
-__all__ = ["EpochPlan", "plan_epoch", "make_epoch_fn", "train_epochs"]
+__all__ = ["EpochPlan", "plan_epoch", "make_epoch_fn", "train_epochs",
+           "GRAPH_LAUNCHES"]
+
+# bf16_row_add's launches in captured steps (bf16 tables on the card): the
+# wrapper counts a launch as it records it into a graph ("captured"); each
+# replay of the graph launches the kernel again, unseen by the wrapper
+# ("replayed", counted where the step is replayed). The kernel's launches
+# are the wrapper's count - captured + replayed.
+GRAPH_LAUNCHES = {"captured": 0, "replayed": 0}
 
 
 @dataclasses.dataclass
@@ -134,10 +143,11 @@ class _CapturedStep:
         self.cap = cap
         self.k = torch.zeros(1, dtype=torch.int64, device=dev)
         self.sse = torch.zeros((), dtype=torch.float32, device=dev)
-        self.lr = torch.zeros((), dtype=torch.float32, device=dev)
+        # lr and reg in the tables' dtype, as the reference casts them
+        self.lr = torch.zeros((), dtype=model.P.dtype, device=dev)
         # every tensor the graph reads stays referenced here: the graph
         # holds addresses, and a freed one would be handed out again
-        self.reg = mb.as_f32(reg, dev)
+        self.reg = mb.as_scalar(reg, dev, model.P.dtype)
         mu = model.mu
 
         def body():
@@ -156,13 +166,16 @@ class _CapturedStep:
                 body()
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
+        before = bf16_row_add.launches
         with torch.cuda.graph(self.graph):
             body()
+        self.row_adds = bf16_row_add.launches - before  # a replay's
+        GRAPH_LAUNCHES["captured"] += self.row_adds
 
     @staticmethod
     def key_of(model: MFModel, plan: EpochPlan):
         return (tuple(model.P.shape), tuple(model.Q.shape), plan.batch_size,
-                model.mu, model.device)
+                model.mu, model.device, model.P.dtype)
 
     def fits(self, model: MFModel, plan: EpochPlan) -> bool:
         return (self.key == self.key_of(model, plan)
@@ -180,6 +193,7 @@ class _CapturedStep:
         self.lr.fill_(lr)
         for _ in range(nb):
             self.graph.replay()
+        GRAPH_LAUNCHES["replayed"] += self.row_adds * nb
         return ([t[:n].clone() for t, n in zip(self.tabs, self.rows)],
                 self.sse.clone())
 
@@ -212,7 +226,9 @@ def make_epoch_fn(cfg: SGDConfig, use_bias: bool, graph: bool | None = None):
             tabs, sse = captured[0].run(model, plan, lr, trust)
             return MFModel(*tabs, model.mu), sse
         tabs = mb.with_sinks(_tables(model), plan.batch_size)
-        lr_t, reg_t = mb.as_f32(lr, dev), mb.as_f32(cfg.reg, dev)
+        dt = model.P.dtype
+        lr_t, reg_t = mb.as_scalar(lr, dev, dt), mb.as_scalar(cfg.reg, dev,
+                                                               dt)
         x = _epoch_inputs(model, plan, trust)
         sse = torch.zeros((), dtype=torch.float32, device=dev)
         for k in range(plan.num_batches):

@@ -113,7 +113,7 @@ def timesvd_minibatch_update(
     Padded slots carry weight 0 (and may carry out-of-range sentinel ids)."""
     dev, B, nb = model.device, users.shape[0], model.n_bins
     tabs = _sinked(model, B)
-    rates = tuple(mb.as_f32(x, dev) for x in (lr, lr_t, lr_a, reg, reg_t,
+    rates = tuple(mb.as_scalar(x, dev) for x in (lr, lr_t, lr_a, reg, reg_t,
                                               reg_a))
     counts = _counts(users, items, tbins, weights, nb)
     sq = _step(tabs, model.mu, nb, mb.clamp_ids(users, model.num_users + B),
@@ -165,7 +165,7 @@ def train_epochs_timesvd(
     nb = ts.n_bins
     for epoch in range(start_epoch, cfg.epochs):
         decay = cfg.lr_decay ** epoch
-        rates = tuple(mb.as_f32(x, dev) for x in (
+        rates = tuple(mb.as_scalar(x, dev) for x in (
             cfg.lr * decay, lr_t0 * decay, lr_a0 * decay, cfg.reg, reg_t,
             reg_a))
         plan = plan_epoch(train, cfg, seed, epoch, device=dev, extras=extras)

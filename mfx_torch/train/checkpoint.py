@@ -7,7 +7,11 @@ checkpoints. Orbax directories are not read here: export them first
 (``python -m mfx.cli export``).
 
 Saves are synchronous and atomic (written to a temporary file, then
-renamed), so a reader never sees a half-written step.
+renamed), so a reader never sees a half-written step. The tables keep
+their dtype: bfloat16 tables (``model.dtype='bfloat16'``) and their
+``mu`` are stored as their 2-byte values, as numpy writes the
+reference's bfloat16 arrays (``MFModel.state_arrays``), and load back
+bit for bit.
 """
 
 from __future__ import annotations
@@ -32,10 +36,8 @@ def save_checkpoint(ckpt_dir, step: int, model: MFModel, seed: int = 0) -> str:
     ckpt_dir = Path(ckpt_dir).absolute()
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     path = ckpt_dir / f"{step}"
-    state = {k: getattr(model, k).detach().cpu().numpy()
-             for k in ("P", "Q", "bu", "bi")}
+    state = model.state_arrays()
     state.update(
-        mu=np.asarray(model.mu, np.float32),
         epoch=np.asarray(step, np.int32),
         seed=np.asarray(seed, np.int32),
         data_version=np.asarray(GENERATOR_VERSION, np.int32),
@@ -93,9 +95,5 @@ def load_checkpoint(
             "written by the same version.",
             stacklevel=2,
         )
-    model = MFModel(
-        *(torch.as_tensor(state[k], dtype=torch.float32, device=device)
-          for k in ("P", "Q", "bu", "bi")),
-        mu=float(state["mu"]),
-    )
+    model = MFModel.from_arrays(state, device)
     return model, int(state["epoch"]), int(state["seed"])

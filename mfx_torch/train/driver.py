@@ -29,9 +29,21 @@ the reference writes them: every ``checkpoint_every`` epochs and always
 at the end, synchronously (``checkpoint_async`` has no effect). A
 checkpoint directory that already holds a step is resumed from its
 latest step (the run goes on at the next epoch, bit for bit the unbroken
-run) unless ``resume=False``. Still refused, each naming its ROADMAP
-item: ``profile_phases``, ``model.dtype`` other than float32 and the
-'full' / 'user' ranking protocols.
+run) unless ``resume=False``.
+
+``ranking_protocol`` takes the reference's three protocols ('sampled',
+'full' against the whole catalog minus the train items, 'user' over the
+served top-K lists), with its record keys. ``model.dtype='bfloat16'``
+trains bf16 tables where the reference does, on the minibatch path
+(``sgd.kernel='jnp'``); the fused blocked kernel (``'pallas'``) is
+refused with the reference's own error, and the BPR ring and timeSVD keep
+float32 tables here. ``profile_phases`` (``solver='sgd'``,
+``parallel.mode='single'``) adds the reference's per-epoch fields:
+``plan_ms``, the epoch's planning time; for the blocked trainer
+``dense_ms`` and ``sparse_ms``, its dense groups' and sparse sweeps'
+device time in the epoch (CUDA events on the card; the reference times
+them once, standalone, and leaves them out in ``bias_mode='epoch'``, as
+the port does); and ``eval_ms`` on the epochs that evaluate.
 """
 
 from __future__ import annotations
@@ -47,7 +59,8 @@ from mfx_torch.data.loaders import load_dataset
 from mfx_torch.data.split import (chronological_split, train_test_split,
                                   user_chronological_split)
 from mfx_torch.eval.metrics import rmse_mae, sampled_auc
-from mfx_torch.models.mf import MFModel, baseline_biases, init_model
+from mfx_torch.models.mf import (TABLE_DTYPES, MFModel, baseline_biases,
+                                 init_model)
 from mfx_torch.models.timesvd import fit_time_features
 from mfx_torch.solvers.timesvd import rmse_mae_time
 from mfx_torch.train.checkpoint import (latest_step, load_checkpoint,
@@ -104,22 +117,28 @@ def _check_supported(cfg: TrainConfig) -> None:
             "other solvers Queue 1 item 12; set parallel.mode=single to "
             "train SGD on one device"
         )
-    if cfg.ranking_k and cfg.ranking_protocol != "sampled":
-        raise NotImplementedError(
-            f"mfx_torch.train: ranking_protocol="
-            f"{cfg.ranking_protocol!r}; only 'sampled' is ported "
-            "(ROADMAP Queue 1 item 11)"
-        )
-    if cfg.profile_phases:
-        raise NotImplementedError(
-            "mfx_torch.train: profile_phases is not ported yet (ROADMAP "
-            "Queue 1 item 9)"
-        )
     if cfg.model.dtype != "float32":
-        raise NotImplementedError(
-            f"mfx_torch.train: model.dtype={cfg.model.dtype!r}; only "
-            "float32 tables are ported (ROADMAP Queue 1 item 9)"
-        )
+        if cfg.model.dtype not in TABLE_DTYPES:
+            raise NotImplementedError(
+                f"mfx_torch.train: model.dtype={cfg.model.dtype!r}; the "
+                f"port's tables are {sorted(TABLE_DTYPES)}"
+            )
+        if cfg.sgd.kernel == "pallas":
+            # the reference's own refusal (mfx/train/driver.py)
+            raise ValueError(
+                "the fused Pallas kernel keeps factor tables in float32 "
+                "(bf16 accumulation loses SGD deltas); use kernel='jnp' or "
+                "'blocked_jnp' for low-precision tables"
+            )
+        if cfg.solver != "sgd" or cfg.sgd.partitioner == "blocked":
+            raise NotImplementedError(
+                f"mfx_torch.train: model.dtype={cfg.model.dtype!r} with "
+                f"solver={cfg.solver!r}, partitioner="
+                f"{cfg.sgd.partitioner!r}; bf16 tables train on the "
+                "minibatch path only (solver='sgd', partitioner 'fixed' or "
+                "'conflict_free'): the BPR ring and timeSVD trainers keep "
+                "float32 tables (ROADMAP Queue 1 item 12)"
+            )
 
 
 def _split(cfg: TrainConfig, coo):
@@ -131,7 +150,7 @@ def _split(cfg: TrainConfig, coo):
 
 
 def _epochs(cfg: TrainConfig, model, train_coo, seed, dev, start_epoch,
-            feats):
+            feats, timings):
     if cfg.solver == "timesvd":
         if cfg.timesvd.kernel == "pallas":
             from mfx_torch.solvers.timesvd_blocked import (
@@ -154,7 +173,8 @@ def _epochs(cfg: TrainConfig, model, train_coo, seed, dev, start_epoch,
     from mfx_torch.solvers.sgd import train_epochs
 
     return train_epochs(model, train_coo, cfg.sgd, cfg.model.use_bias,
-                        seed=seed, start_epoch=start_epoch, device=dev)
+                        seed=seed, start_epoch=start_epoch, device=dev,
+                        timings=timings)
 
 
 def train(cfg: TrainConfig, device: torch.device | str = "cuda",
@@ -189,14 +209,16 @@ def train(cfg: TrainConfig, device: torch.device | str = "cuda",
         gen.manual_seed(cfg.model.seed)
         model = init_model(gen, coo.num_users, coo.num_items,
                            cfg.model.rank, global_mean=train_coo.global_mean,
-                           init_scale=cfg.model.init_scale)
+                           init_scale=cfg.model.init_scale,
+                           dtype=cfg.model.dtype)
         if cfg.model.bias_init == "baseline" and cfg.model.use_bias:
             # fresh runs only (a resumed checkpoint carries trained
             # biases): start from the damped-mean baseline predictor
             bu0, bi0 = baseline_biases(train_coo,
                                        damping=cfg.model.bias_damping,
                                        device=dev)
-            model = MFModel(model.P, model.Q, bu0, bi0, model.mu)
+            model = MFModel(model.P, model.Q, bu0.to(model.dtype),
+                            bi0.to(model.dtype), model.mu)
     log = MetricsLogger(cfg.log_path)
     clip = (0.5, 5.0) if cfg.clip_predictions else None
     implicit = cfg.solver == "bpr"
@@ -236,10 +258,28 @@ def train(cfg: TrainConfig, device: torch.device | str = "cuda",
         return sampled_auc(_mf(m), test_coo, seed=seed, pos_keys=_keys())
 
     def _ranking(m):
-        from mfx_torch.eval.ranking import hr_ndcg_at_k
+        from mfx_torch.eval.ranking import (full_hr_ndcg_at_k, hr_ndcg_at_k,
+                                            user_topk_metrics)
 
-        return hr_ndcg_at_k(_mf(m), test_coo, k=cfg.ranking_k, seed=seed,
-                            pos_keys=_keys())
+        m = _mf(m)
+        k = cfg.ranking_k
+        if cfg.ranking_protocol == "sampled":
+            return hr_ndcg_at_k(m, test_coo, k=k, seed=seed,
+                                pos_keys=_keys())
+        if cfg.ranking_protocol == "full":
+            return full_hr_ndcg_at_k(m, test_coo, train=train_coo, k=k)
+        if cfg.ranking_protocol == "user":
+            return user_topk_metrics(m, test_coo, train=train_coo, k=k)
+        raise ValueError(
+            "ranking_protocol must be 'sampled', 'full', or 'user', got "
+            f"{cfg.ranking_protocol!r}"
+        )
+
+    # profile_phases: the trainer fills plan_s (and, blocked, dense_s /
+    # sparse_s) cumulatively; each record gets this epoch's share
+    timings = {"plan_s": 0.0} if (cfg.profile_phases and cfg.solver == "sgd"
+                                  and cfg.parallel.mode == "single") else None
+    seen = {}
 
     def sync():
         if dev.type == "cuda":
@@ -253,7 +293,7 @@ def train(cfg: TrainConfig, device: torch.device | str = "cuda",
     with maybe_trace(cfg.profile_dir):
         for epoch, model, train_metric in _epochs(cfg, model, train_coo,
                                                   seed, dev, start_epoch,
-                                                  feats):
+                                                  feats, timings):
             sync()
             dt = time.perf_counter() - t_prev
             last_ups = train_coo.n_ratings / max(1e-9, dt)
@@ -262,6 +302,16 @@ def train(cfg: TrainConfig, device: torch.device | str = "cuda",
                    "epoch_s": round(dt, 3),
                    "updates_per_sec": round(last_ups, 1),
                    "updates_per_sec_per_chip": round(last_ups, 1)}
+            if timings is not None:
+                parts = ["plan"]
+                if "dense_s" in timings and cfg.sgd.bias_mode != "epoch":
+                    parts += ["dense", "sparse"]
+                for part in parts:
+                    total = timings[f"{part}_s"]
+                    rec[f"{part}_ms"] = round(
+                        (total - seen.get(part, 0.0)) * 1e3, 2)
+                    seen[part] = total
+            t_eval = time.perf_counter()
             if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
                 if implicit:
                     test_auc = _auc(model)
@@ -274,6 +324,9 @@ def train(cfg: TrainConfig, device: torch.device | str = "cuda",
                     test_ranking = _ranking(model)
                     rec.update({f"test_{n}@{cfg.ranking_k}": round(v, 5)
                                 for n, v in test_ranking.items()})
+                if timings is not None:
+                    rec["eval_ms"] = round(
+                        (time.perf_counter() - t_eval) * 1e3, 2)
             log.log(**rec)
             if cfg.checkpoint_dir and cfg.checkpoint_every and (
                 (epoch + 1) % cfg.checkpoint_every == 0

@@ -155,7 +155,7 @@ def _overrides(root):
     (["parallel.model_axis=1", "parallel.data_axis=2"], "Queue 1 item 13"),
     (["parallel.mode=single"], "Queue 1 item 12"),
     (["parallel.mode=dp"], "Queue 1 item 12"),
-    (["parallel.model_axis=1", "ranking_protocol=full"], "Queue 1 item 11"),
+    (["parallel.model_axis=1", "model.dtype=bfloat16"], "Queue 1 item 12"),
 ])
 def test_driver_refusals(override, what):
     from mfx_torch.train.driver import train

@@ -91,8 +91,11 @@ def test_export_writes_the_references_model(ckpt, tmp_path):
 
 
 def test_serve_refuses_mmr(ckpt):
+    """serve --mmr is ported (tests/test_torch_rerank.py serves it); a
+    relevance weight outside [0, 1] is refused before the server starts,
+    with the reference's error."""
     from mfx_torch.cli import main
 
-    with pytest.raises(NotImplementedError, match="rerank"):
-        main(["serve", "--checkpoint", str(ckpt), "--mmr", "0.5",
+    with pytest.raises(ValueError, match=r"lam must be in \[0, 1\]"):
+        main(["serve", "--checkpoint", str(ckpt), "--mmr", "1.5",
               "--device", "cpu", "--port", "0"])

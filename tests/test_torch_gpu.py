@@ -553,6 +553,78 @@ def test_tile_topk_block_forms_give_the_same_bits(cuda, dtype, depth, tile,
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize("dtype,depth,tile,B,rank,items", [
+    # depths past 32 on tiles of 128-2048; tiles past 2048 at small and
+    # large depths; lists in shared memory and, at depth 1024, in the
+    # device scratch; batches of 1, 37 and 300 users
+    ("f32", 33, 256, 37, 64, 5000), ("f32", 48, 256, 300, 64, 5000),
+    ("f32", 64, 1024, 300, 64, 9000), ("f32", 256, 1024, 37, 64, 9000),
+    ("f32", 1024, 1024, 20, 64, 5000), ("f32", 128, 128, 1, 64, 500),
+    ("f32", 2, 2304, 300, 64, 9000), ("f32", 40, 2304, 37, 64, 9000),
+    ("f32", 2, 4096, 37, 64, 20000), ("f32", 40, 4096, 1, 127, 9000),
+    ("f32", 64, 8192, 16, 64, 20000), ("bf16", 64, 1024, 300, 64, 9000),
+    ("bf16", 40, 2304, 37, 64, 9000), ("bf16", 2, 4096, 1, 16, 9000),
+    ("int8", 64, 1024, 300, 64, 9000), ("int8", 40, 2304, 37, 64, 9000),
+    ("int8", 2, 4096, 300, 8, 9000), ("int8", 300, 512, 17, 32, 3000),
+])
+def test_tile_topk_deep_form_matches_plain(cuda, dtype, depth, tile, B,
+                                           rank, items):
+    """The deep form (depth > 32 or tile > 2048) against the plain
+    version: values within 1e-4, lanes equal but at near-ties, two runs
+    bitwise equal; only the deep form's counter moves."""
+    from mfx_torch.kernels.serve_topk import tile_topk, tile_topk_plain
+
+    P_aug, Q_aug, sb = _serve_tables(cuda, B, items, rank, tile, dtype)
+    before = (tile_topk.launches, tile_topk.deep_launches)
+    runs = [tile_topk(P_aug, Q_aug, tile=tile, depth=depth, sb=sb)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (tile_topk.launches, tile_topk.deep_launches) == (
+        before[0], before[1] + 2)
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    want = tile_topk_plain(P_aug, Q_aug, tile=tile, depth=depth, sb=sb)
+    _same_candidates(runs[0], want, P_aug, Q_aug, sb, tile)
+
+
+def test_tile_topk_deep_form_takes_the_lowest_lane_on_ties(cuda):
+    """Equal scores across chunks and within one: lower lanes first, as
+    the reference's max-extract takes them."""
+    from mfx_torch.kernels.serve_topk import tile_topk
+
+    P_aug, Q_aug, _ = _serve_tables(cuda, 24, 4096, 8, 4096)
+    best = Q_aug[0].clone()
+    best[:8] = 3.0
+    tied = (4000, 2100, 700, 129, 128, 7, 3)
+    for lane in tied:
+        Q_aug[lane] = best
+    P_aug[:, :8] = P_aug[:, :8].abs() + 1.0
+    out = tile_topk(P_aug, Q_aug, tile=4096, depth=40)
+    lanes = torch.stack([out[j][:, 0] for j in range(1, 2 * len(tied), 2)])
+    assert (lanes.cpu().T == torch.tensor(sorted(tied))).all()
+    vals = torch.stack([out[j][:, 0] for j in range(0, 2 * len(tied), 2)])
+    assert bool((vals == vals[0]).all())
+
+
+def test_tile_topk_deep_form_raises_when_the_library_fails(cuda,
+                                                           monkeypatch):
+    """On the card the deep form launches or raises: with the library
+    failing to load, depth 64 raises and never runs the plain version."""
+    from mfx_torch.kernels import serve_topk
+
+    def no_library():
+        raise RuntimeError("no library")
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(serve_topk._build, "load_library", no_library)
+    monkeypatch.setattr(serve_topk, "tile_topk_plain", plain)
+    P_aug, Q_aug, _ = _serve_tables(cuda, 16, 2048, 64, 1024)
+    with pytest.raises(RuntimeError, match="no library"):
+        serve_topk.tile_topk(P_aug, Q_aug, tile=1024, depth=64)
+
+
 @pytest.mark.parametrize("exact,table_dtype", [(False, "f32"),
                                                 (False, "bf16"),
                                                 (False, "int8"),
@@ -907,6 +979,107 @@ def test_minibatch_graph_replay_is_the_eager_loop(cuda, partitioner,
     for k in keys:
         torch.testing.assert_close(getattr(me, k).cpu(), getattr(mc, k),
                                    rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("width", [16, 0])
+def test_bf16_row_add_on_the_card_is_the_cpus(cuda, width, shared):
+    """bf16 tables (2-D, and 1-D biases): duplicate rows add one bf16
+    delta after another in slot order on the card as on the CPU, bit for
+    bit, and twice alike; with the rows' order sorted by the wrapper or
+    handed in (``bf16_order``, as the minibatch step shares it)."""
+    from mfx_torch.kernels.packing import bf16_order, bf16_row_add, row_add
+
+    g = torch.Generator().manual_seed(width)
+    shape = (50, width) if width else (50,)
+    table = torch.randn(shape, generator=g).bfloat16()
+    rows = torch.randint(0, 6, (4096,), generator=g)
+    rows[::7] = torch.randint(0, 50, (586,), generator=g)
+    delta = (torch.randn((4096,) + shape[1:], generator=g) * 0.01).bfloat16()
+
+    want = table.clone()
+    row_add(want, rows, delta)
+    assert bf16_order(want, rows) is None
+    for _ in range(2):
+        got = table.to(cuda)
+        before = bf16_row_add.launches
+        rc = rows.to(cuda)
+        row_add(got, rc, delta.to(cuda),
+                bf16_order(got, rc) if shared else None)
+        assert bf16_row_add.launches == before + 1
+        assert torch.equal(got.cpu().view(torch.int16),
+                           want.view(torch.int16))
+
+
+@pytest.mark.parametrize("partitioner,trust", [("conflict_free", 0.0),
+                                               ("fixed", 16.0)])
+def test_bf16_minibatch_on_the_card(cuda, partitioner, trust):
+    """bf16 tables: the graph-replayed epoch is the eager loop's bit for
+    bit and repeatable, its replays' scatter-adds counted; after 2 epochs the card's held-out RMSE is within
+    1e-3 of the CPU's (the dot's f32 sum order may differ on the card and
+    flip a bf16 rounding)."""
+    from mfx_torch.eval.metrics import rmse_mae
+    from mfx_torch.models.mf import MFModel
+    from mfx_torch.solvers import sgd
+
+    coo = synthetic.make_synthetic(400, 300, 8_000, rank=4, seed=3,
+                                   user_zipf_s=0.9)
+    train, test = train_test_split(coo, test_frac=0.1, seed=0)
+    cfg = SGDConfig(lr=0.03, reg=0.02, batch_size=128, epochs=2,
+                    partitioner=partitioner, dup_trust=trust)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    model = init_model(g, 400, 300, 16, global_mean=train.global_mean,
+                       device=cuda, dtype="bfloat16")
+    plan = sgd.plan_epoch(train, cfg, 0, 0, device=cuda)
+    me, se = sgd.make_epoch_fn(cfg, True, graph=False)(model, plan, cfg.lr)
+    graph = sgd.make_epoch_fn(cfg, True)
+    replayed = sgd.GRAPH_LAUNCHES["replayed"]
+    runs = [graph(model, plan, cfg.lr) for _ in range(2)]
+    # four scatter-adds a step (P, Q, bu, bi), one replay a batch
+    assert (sgd.GRAPH_LAUNCHES["replayed"] - replayed
+            == 2 * 4 * plan.num_batches)
+    keys = ("P", "Q", "bu", "bi")
+    for mg, sg in runs:
+        assert mg.P.dtype == torch.bfloat16 and float(sg) == float(se)
+        assert all(torch.equal(getattr(me, k), getattr(mg, k)) for k in keys)
+    card = list(sgd.train_epochs(model, train, cfg, True, seed=0))
+    cpu = MFModel(*(getattr(model, k).cpu() for k in keys), model.mu)
+    host = list(sgd.train_epochs(cpu, train, cfg, True, seed=0))
+    a = rmse_mae(card[-1][1], test)[0]
+    b = rmse_mae(host[-1][1], test)[0]
+    assert abs(a - b) <= 1e-3 and card[-1][2] < card[0][2]
+
+
+def test_mmr_and_full_ranks_on_the_card_are_the_cpus(cuda):
+    """rerank_mmr and the full protocol's ranks on the card against the
+    same calls on CPU copies: items equal; ranks equal but where a
+    competitor's score lies within 1e-5 of the positive's."""
+    from mfx_torch.convert import model_from_numpy
+    from mfx_torch.eval.ranking import full_ranks
+    from mfx_torch.serve import TopKRecommender, rerank_mmr
+
+    rng = np.random.default_rng(7)
+    arrays = {"P": rng.normal(0, 0.4, (300, 32)),
+              "Q": rng.normal(0, 0.4, (5000, 32)),
+              "bu": rng.normal(0, 0.2, 300), "bi": rng.normal(0, 0.2, 5000),
+              "mu": 3.5}
+    gpu = model_from_numpy(arrays, device=cuda)
+    cpu = model_from_numpy(arrays, device="cpu")
+    coo = synthetic.make_synthetic(300, 5000, 20_000, seed=4)
+    users = np.arange(300, dtype=np.int32)
+    items, scores = TopKRecommender(cpu, train=coo).recommend(users, k=40)
+    for lam in (0.0, 0.7, 1.0):
+        a = rerank_mmr(gpu, items, scores, k=10, lam=lam)
+        b = rerank_mmr(cpu, items, scores, k=10, lam=lam)
+        assert (a[0] != b[0]).mean() <= 0.002
+    u, p = coo.user[:1000], coo.item[:1000]
+    seen = coo.seen_csr()
+    rg = full_ranks(gpu, u, p, seen).cpu()
+    rc = full_ranks(cpu, u, p, seen)
+    s = cpu.P[torch.as_tensor(u).long()] @ cpu.Q.T + cpu.bi
+    s_pos = s[torch.arange(1000), torch.as_tensor(p).long()]
+    near = ((s - s_pos[:, None]).abs() <= 1e-5).sum(1).double()
+    assert bool(((rg - rc).abs() <= near).all())
 
 
 # ---- sgd_sweep_epoch and the frozen / bias-free dense forms --------------

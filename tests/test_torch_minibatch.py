@@ -361,23 +361,28 @@ def test_driver_ranking_and_baseline_biases(tmp_path):
     assert float(res.model.bu.abs().max()) > 0
 
 
-@pytest.mark.parametrize("override,what", [
-    ("profile_phases=true", "profile_phases.*Queue 1 item 9"),
-    ("model.dtype=bfloat16", "model.dtype.*Queue 1 item 9"),
-    ("ranking_protocol=full", "ranking_protocol.*Queue 1 item 11"),
-    ("ranking_protocol=user", "ranking_protocol.*Queue 1 item 11"),
-    ("sgd.partitioner=blocked", "blocked_jnp.*Queue 1 item 5"),
+@pytest.mark.parametrize("overrides,error,what", [
+    (["model.dtype=float16"], NotImplementedError, "model.dtype.*float32"),
+    # the reference's own refusal of bf16 tables for the fused kernel
+    (["model.dtype=bfloat16", "sgd.kernel=pallas"], ValueError,
+     "fused Pallas kernel keeps factor tables in float32"),
+    (["model.dtype=bfloat16", "sgd.partitioner=blocked",
+      "sgd.kernel=blocked_jnp"], NotImplementedError,
+     "minibatch path only.*Queue 1 item 12"),
+    (["ranking_protocol=bogus", "ranking_k=5"], ValueError,
+     "ranking_protocol must be"),
+    (["sgd.partitioner=blocked", "sgd.kernel=blocked_jnp"],
+     NotImplementedError, "blocked_jnp.*Queue 1 item 5"),
 ])
-def test_driver_still_refuses(tmp_path, override, what):
+def test_driver_still_refuses(tmp_path, overrides, error, what):
+    """What the driver refuses now that profile_phases, bf16 tables on the
+    minibatch path and the 'full' / 'user' protocols are ported: other
+    table dtypes, bf16 where the reference refuses it or the port keeps
+    f32, an unknown protocol (the reference's error), blocked_jnp."""
     from mfx_torch.train.driver import train
 
-    extra = [override]
-    if "ranking_protocol" in override:
-        extra.append("ranking_k=5")
-    if "partitioner" in override:
-        extra.append("sgd.kernel=blocked_jnp")
-    with pytest.raises(NotImplementedError, match=what):
-        train(_small(tmp_path, *extra), device="cpu")
+    with pytest.raises(error, match=what):
+        train(_small(tmp_path, *overrides), device="cpu")
 
 
 def test_cli_trains_the_preset(capsys, tmp_path):

@@ -44,7 +44,8 @@ MODULES = [
     "mfx_torch.models", "mfx_torch.train.online",
     "mfx_torch.train.logging", "mfx_torch.train.profile",
     "mfx_torch.models.timesvd", "mfx_torch.solvers.timesvd",
-    "mfx_torch.solvers.timesvd_blocked",
+    "mfx_torch.solvers.timesvd_blocked", "mfx_torch.api",
+    "mfx_torch.serve.rerank", "mfx_torch.version",
 ]
 
 
@@ -400,3 +401,56 @@ def test_chip_smoke_sums_limit_scales_with_the_largest_sum():
     assert cs.ulps(torch.tensor([-0.75, 0.5])) == 2.0 ** -24
     assert cs.sums_limit(torch.tensor([40.0, -3.0]), 256) == 16 * 2.0 ** -18
     assert cs.sums_limit(torch.tensor([-3000.0]), 1024) == cs.TOL
+
+
+def test_tile_topk_cuda_route_reaches_no_plain_version():
+    """``tile_topk`` and both launches (the register-list form and the
+    deep form of any depth or tile) hold no ``try``, and the plain version
+    is called only under ``if dev.type == "cpu"``: on the card a deep
+    depth (64) launches its kernel or raises (``tests/test_torch_gpu.py::
+    test_tile_topk_deep_form_raises_when_the_library_fails`` makes the
+    library fail there)."""
+    import ast
+
+    tree = ast.parse((ROOT / "mfx_torch" / "kernels" / "serve_topk.py")
+                     .read_text())
+    defs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    for name in ("tile_topk", "_launch", "_launch_deep"):
+        fn = defs[name]
+        assert not [n for n in ast.walk(fn) if isinstance(n, ast.Try)], name
+        cpu_only = set()
+        for branch in (n for n in ast.walk(fn) if isinstance(n, ast.If)):
+            if ast.unparse(branch.test) == "dev.type == 'cpu'":
+                cpu_only.update(id(n) for stmt in branch.body
+                                for n in ast.walk(stmt))
+        plain = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+                 and "plain" in ast.unparse(n.func)]
+        assert all(id(n) in cpu_only for n in plain), name
+        assert bool(plain) == (name == "tile_topk"), name
+    calls = {ast.unparse(n.func) for n in ast.walk(defs["tile_topk"])
+             if isinstance(n, ast.Call)}
+    assert {"_launch", "_launch_deep"} <= calls
+    if torch.cuda.is_available():
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        P = torch.zeros(16, 72, device="cuda")
+        tile_topk(P, torch.zeros(4096, 72, device="cuda"), tile=1024,
+                  depth=64)
+
+
+@pytest.mark.parametrize("device", ["cuda", "meta"])
+def test_bf16_row_add_has_no_fallback(device):
+    """bf16 tables' scatter-add launches csrc/row_add_bf16.cu or raises
+    off the CPU: on a missing card (RuntimeError / AssertionError) and on
+    a device with no kernel (ValueError)."""
+    from mfx_torch.kernels.packing import bf16_row_add, row_add
+
+    if device == "cuda" and torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; tests/test_torch_gpu.py runs")
+    want = (ValueError,) if device == "meta" else (RuntimeError,
+                                                   AssertionError)
+    for fn in (row_add, bf16_row_add):
+        with pytest.raises(want):
+            t = torch.zeros(8, 4, dtype=torch.bfloat16, device=device)
+            fn(t, torch.zeros(3, dtype=torch.long, device=device),
+               torch.zeros(3, 4, dtype=torch.bfloat16, device=device))

@@ -191,7 +191,8 @@ def test_train_runs_the_preset_on_cpu(tmp_path, step_u):
 def test_train_refuses_baseline_bias_init(tmp_path):
     """``model.bias_init='baseline'`` is ported: a fresh run starts from
     the baseline predictor's biases. What the driver still refuses beside
-    it is a table dtype other than float32, naming its ROADMAP item."""
+    it is bf16 tables for the fused blocked kernel, with the reference's
+    own error."""
     from mfx_torch.train.driver import train
 
     cfg = apply_overrides(preset("ml1m_rank32_biased"),
@@ -199,8 +200,7 @@ def test_train_refuses_baseline_bias_init(tmp_path):
                           + ["model.bias_init=baseline"])
     res = train(cfg, device="cpu")
     assert res.epochs_run == 2 and np.isfinite(res.test_rmse)
-    with pytest.raises(NotImplementedError,
-                       match="model.dtype.*Queue 1 item 9"):
+    with pytest.raises(ValueError, match="keeps factor tables in float32"):
         train(apply_overrides(cfg, ["model.dtype=bfloat16"]), device="cpu")
 
 

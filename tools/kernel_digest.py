@@ -12,10 +12,16 @@ ranks 32, 64 and 128), ``sgd_sweep_step_u`` (tile biases, ranks 32, 64
 and 128: its pools in shared memory at rank 32, in device memory at 64
 and 128), ``bpr_sweep`` (ranks 32, 64 and 128), ``dense_phase`` (lane,
 frozen and none at ranks 32 and 64 with int4 and int8 codes, and at rank
-128 with int8). Each runs once on the card's count of blocks from random
+128 with int8), ``tile_topk`` (f32, bf16 and int8 catalogs at depths 1,
+2, 8 and 32 on tiles of 128-2048, and the deep form: depths 33-300 and
+tiles of 2,304-4,096; a checkout without the deep form prints its error
+for those). Each training form runs once on the card's count of blocks from random
 tables, on random tiles of blocks of 1,024 with long duplicate runs and
 pads (the card tests' hot-row case), or on random dense strata of 512 x
-512; the digest covers every table, output and the returned scalar. A
+512; the digest covers every table, output and the returned scalar.
+``tile_topk`` scores 300 seeded random users against a catalog of
+5,000 seeded random items (rank 64, item biases) and digests every
+(value, lane) output. A
 form the checkout does not have prints its error instead. Needs a CUDA
 device.
 """
@@ -93,6 +99,29 @@ def _group(g, dev, rfmt, nd=12, su=512, si=512):
             "du_s": deg.sum(2).contiguous(), "di_s": deg.sum(1).contiguous()}
 
 
+# tile_topk: (depth, tile) of the register-list form, then the deep form's
+TOPK_FORMS = ((1, 128), (2, 1024), (2, 2048), (8, 256), (8, 2048),
+              (32, 128), (32, 1024), (32, 2048))
+TOPK_DEEP = ((33, 256), (64, 1024), (300, 512), (2, 2304), (40, 4096))
+
+
+def _topk_tables(g, dev, dtype, tile, B=300, items=5000, rank=64):
+    from mfx_torch.kernels.serve_topk import aug_width
+    from mfx_torch.serve.fused import (_augment_catalog,
+                                       _augment_catalog_int8, _augment_rows)
+
+    P = torch.randn(B, rank, device=dev, generator=g)
+    Q = torch.randn(items, rank, device=dev, generator=g) / rank ** 0.5
+    bi = torch.randn(items, device=dev, generator=g) * 0.3
+    ipad = -(-items // tile) * tile
+    if dtype == "int8":
+        Q_aug, sb = _augment_catalog_int8(Q, bi, ipad, tile)
+        return _augment_rows(P, torch.float32, aug_width(rank)), Q_aug, sb
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    return (_augment_rows(P, dt, aug_width(rank)),
+            _augment_catalog(Q, bi, ipad, dt), None)
+
+
 def main() -> int:
     from mfx_torch.kernels import bpr_sweep as bs
     from mfx_torch.kernels import dense_phase as dp
@@ -118,6 +147,10 @@ def main() -> int:
         for bias in dp.BIAS_FORMS:
             forms.append((f"dense_phase {bias} {rfmt} r{rank}", rank, bias,
                           rfmt))
+    for dtype in ("f32", "bf16", "int8"):
+        for depth, tile in TOPK_FORMS + TOPK_DEEP:
+            forms.append((f"tile_topk {dtype} depth {depth} tile {tile}", 64,
+                          dtype, (depth, tile)))
     for name, rank, mode, extra in forms:
         g = torch.Generator(device=dev).manual_seed(len(name) * 7919 + rank)
         try:
@@ -131,6 +164,12 @@ def main() -> int:
                 else:
                     s = ss.sgd_sweep(P, Q, sa, tc, tl, LR, REG, MU, **kw)
                 out = (P, Q, s)
+            elif name.startswith("tile_topk"):
+                from mfx_torch.kernels.serve_topk import tile_topk
+
+                depth, tile = extra
+                P_aug, Q_aug, sb = _topk_tables(g, dev, mode, tile)
+                out = tile_topk(P_aug, Q_aug, tile=tile, depth=depth, sb=sb)
             elif name.startswith("bpr_sweep"):
                 sa, tc, tl, su, si = _tiles(g, dev, bpr=True)
                 P, Q, _, _ = _tables(g, dev, rank, 2 * su, 3 * si)

@@ -266,7 +266,36 @@ printed as it ends:
    step's shapes (2,048 slots into the rank-16 table; distinct rows and
    64 hot rows), bitwise, its time beside index_put_'s; then one
    ml25m_rank64 epoch with profile_phases on phase 23's data, whose
-   record carries plan_ms, dense_ms, sparse_ms and eval_ms.
+   record carries plan_ms, dense_ms, sparse_ms and eval_ms;
+25. the forms of the last reference branches of the trainer's kernels
+   against their plain versions: the bf16 form (sgd.mxu='bf16') of every
+   SGD sweep body (lane, tile biases, none, epoch-frozen, step_u) on phase
+   3's 2,048 tiles (rank 64, plain tables with seeded N(0, 0.1) biases),
+   tables bitwise equal to the plain version's (it sums in the kernel's
+   order; the SSE within 1e-4) and the f32 form from the same state not,
+   each beside the f32 form's time on the same tiles, and on the whole
+   first sweep twice on one block and twice on the card's count
+   (bitwise); echo=2 of dense_phase in the lane and bias-free forms on
+   the first 64 strata of phase 3's group 0 (int4, rank 64), the first
+   256 on one block and the card's count (bitwise), group 0 and the
+   epoch's dense phase at echo 2. The same at rank 32 on phase 19's
+   ML-1M plan and carving (all of group 0) and at rank 128 on phase 21's
+   netflix plan (the lane echo form on group 0, int8); each echo form
+   within 1e-4 of its plain version, each bf16 form as above;
+26. (after phase 18, on phase 4's data and untrained model) the
+   ml25m_rank64 preset for 2 epochs through train_epochs_blocked in each
+   of nine runs: (a) sgd.dense_echo=2, (b) sgd.dense_spg=2, (c)
+   sgd.mxu=bf16, (d) sgd.dense_chi=0.0025 sgd.dense_span=head, (e)
+   sgd.mxu=bf16 sgd.bias_mode=tile sgd.step_user_batch=true, (f) bf16 with
+   sgd.bias_mode=epoch, (g) bf16 with sgd.bias_mode=tile, (h) bf16 with
+   model.use_bias=false, (i) sgd.dense_echo=2 with model.use_bias=false.
+   Each launches its kernels and no other, the train RMSE falls, the
+   held-out RMSE (unclipped) ends below the untrained model's; (a), (b),
+   (d) <= 0.406, (c) <= 0.406 and within 0.003 of phase 4's, (e)-(g)
+   within 0.03 of phase 4's (the bias modes' tolerance); (b) ends with
+   phase 4's tables and held-out RMSE bit for bit and pads its carving;
+   each run's epoch seconds split into dense, sparse and bias time, its
+   dense_info and held-out RMSE after each epoch.
 
 Each phase prints its wall time. The second-to-last line is a JSON object
 describing each kernel (times, launches on the main path, and the bound:
@@ -299,7 +328,12 @@ takes its launches from the bf16 training-driver run (the wrapper's
 outside a graph capture, plus the launches a captured step holds times
 its replays, counted by the step runner: solvers/sgd.py
 GRAPH_LAUNCHES), its plain_ms from the host CPU and its library_ms from
-index_put_. The BPR and netflix phases' host data are made in processes
+index_put_. The forms of phase 25 are entries of their own at rank 64
+(sgd_sweep_bf16, sgd_sweep_tile_bf16, sgd_sweep_tile_none_bf16,
+sgd_sweep_epoch_bf16, sgd_sweep_step_u_bf16, dense_phase_echo,
+dense_phase_none_echo), their launches from phase 26's runs (c), (g),
+(h), (f), (e), (a) and (i), with the rank-32 and rank-128 checks as their
+"variants". The BPR and netflix phases' host data are made in processes
 of their own from the script's start (make_data); stderr repeats each
 line after the seconds since the start. The script's total seconds are
 printed before the card's line; the last is
@@ -523,14 +557,19 @@ def sums_limit(plain, terms) -> float:
     return min(TOL, math.sqrt(terms) * ulps(plain))
 
 
-def compare(name, run_kernel, run_plain, state, tol=TOL, sums=()):
+def compare(name, run_kernel, run_plain, state, tol=TOL, sums=(),
+            plain_again=True, sse_tol=None, control=None):
     """Kernel twice from the same state (bitwise equal), plain once, within
-    ``tol`` of it. The last len(``sums``) entries of ``state`` are sums of
-    ``sums[k]`` terms each (the frozen dense form's row and column sums of
+    ``tol`` of it (the scalar within ``sse_tol``, default ``tol``, of
+    plain's, relative above 1). ``control``: another kernel run from the
+    same state that must land farther than ``tol`` from plain (a form the
+    check must tell apart). The last len(``sums``) entries of ``state``
+    are sums of ``sums[k]`` terms each (the frozen dense form's row and column sums of
     E, added in another order than plain's): each within sqrt(terms) ulps
     of its largest magnitude (the spread of a reordered sum's rounding)
     and within TOL. Returns (max_abs_err over every entry, kernel ms,
-    plain ms)."""
+    plain ms); the plain version's time is that of a second run, or with
+    ``plain_again=False`` of the first."""
     import torch
 
     outs = []
@@ -543,24 +582,35 @@ def compare(name, run_kernel, run_plain, state, tol=TOL, sums=()):
     if s1 != s2 or any(not torch.equal(a, b) for a, b in zip(k1, k2)):
         raise AssertionError(f"{name}: two kernel runs differ")
     tabs = [t.clone() for t in state]
-    sse_p = float(run_plain(*tabs))
-    torch.cuda.synchronize()
+    first_ms = cuda_ms(lambda: outs.append(run_plain(*tabs)))
+    sse_p = float(outs[-1])
     errs = [float((a - b).abs().max()) for a, b in zip(k1, tabs)]
     n = len(errs) - len(sums)
     spacing = [ulps(b) for b in tabs[n:]]
     limits = [sums_limit(b, t) for b, t in zip(tabs[n:], sums)]
     if not all(bool(torch.isfinite(t).all()) for t in k1):
         raise AssertionError(f"{name}: non-finite tables")
+    sse_tol = tol if sse_tol is None else sse_tol
     if (max(errs[:n]) > tol or any(e > x for e, x in zip(errs[n:], limits))
-            or abs(s1 - sse_p) > tol * max(1.0, abs(sse_p))):
+            or abs(s1 - sse_p) > sse_tol * max(1.0, abs(sse_p))):
         raise AssertionError(
             f"{name}: max abs err {errs} (sse {s1} vs {sse_p}) above {tol} "
             f"(the last {len(sums)} above {limits})")
     tabs = [t.clone() for t in state]
     ms = cuda_ms(lambda: run_kernel(*tabs), reps=3)
-    tabs = [t.clone() for t in state]
-    plain_ms = cuda_ms(lambda: run_plain(*tabs))
+    plain_ms = first_ms
+    if plain_again:
+        tabs = [t.clone() for t in state]
+        plain_ms = cuda_ms(lambda: run_plain(*tabs))
     held = f"tol {tol}"
+    if control is not None:
+        ctl = [t.clone() for t in state]
+        control(*ctl)
+        c_err = max(float((a - b).abs().max()) for a, b in zip(ctl, tabs))
+        if not c_err > tol:
+            raise AssertionError(f"{name}: the control run is {c_err} from "
+                                 f"plain, not above {tol}")
+        held += f"; control {c_err:.3e} from plain"
     if sums:
         held = f"tables {max(errs[:n]):.3e} ({held}), sums " + ", ".join(
             f"{e:.3e} = {e / x:g} ulps of {x:.3e} (limit {lim:.3e})"
@@ -616,10 +666,11 @@ def whole_sweep(name, run, state, deps, max_blocks, grid=None,
             "sweep_ms_again": ms_again}
 
 
-def dense_bound(groups, su, si, rank, frozen=False):
+def dense_bound(groups, su, si, rank, frozen=False, echo=1):
     """Bound of the dense phase over ``groups``: every group tensor read
     once, each distinct P block and Q window of a group read and written
-    once, and three (su x si x rank) products a stratum. ``frozen``: the
+    once, and three (su x si x rank) products a stratum, ``echo`` times
+    (each pass's operations, the codes read once). ``frozen``: the
     frozen-bias form also reads a bias a row of each block and window,
     writes a row and a column sum a stratum, and does about 4 more
     operations a cell (two bias subtractions, two sums)."""
@@ -631,7 +682,7 @@ def dense_bound(groups, su, si, rank, frozen=False):
         rows = (grp["sa"].unique().numel() * su
                 + grp["sc"].unique().numel() * si)
         nbytes += 2 * rank * 4 * rows
-        flops += 6.0 * su * si * rank * nd
+        flops += 6.0 * su * si * rank * nd * echo
         if frozen:
             nbytes += 4 * rows + 4 * nd * (su + si)
             flops += 4.0 * su * si * nd
@@ -1678,7 +1729,7 @@ def netflix_forms(dev, sgd, fresh_model, sw, tl, meta, groups, mu, results,
     import torch
 
     from mfx_torch.kernels import _build
-    from mfx_torch.kernels.packing import plain_tables
+    from mfx_torch.kernels.packing import lane_tables, plain_tables
     from mfx_torch.kernels.sgd_sweep import (sgd_sweep_epoch,
                                              sgd_sweep_epoch_plain,
                                              sgd_sweep_step_u,
@@ -1778,9 +1829,23 @@ def netflix_forms(dev, sgd, fresh_model, sw, tl, meta, groups, mu, results,
                                       reg, mu, su, si, rank))
         results[name], bounds[name] = (err, ms, plain_ms), b
         sweeps[name] = runs
-    del state
-    torch.cuda.empty_cache()
     log(f"[time] phase 21 (the netflix rank-128 forms) "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # 25 (netflix). the bf16 sweeps at rank 128 on this plan, and echo 2 in
+    # the lane form (int8, rank 128) on group 0
+    t_phase = time.perf_counter()
+    lane = lane_tables(fresh_model(), su, si, dev)
+    store_forms(bf16_forms("_r128", lane, state, sw, tl, lr, reg, mu, su, si,
+                           TPG, tiles=VARIANT_TILES), results, bounds, sweeps,
+                "rank 128, the netflix cell's plan")
+    store_forms(echo_forms("_int8_r128", groups, meta, lane, state, lr, reg,
+                           mu, su, si, "int8", DENSE_STRATA, DENSE_WHOLE,
+                           biases=("lane",)), results, bounds, sweeps,
+                "lane, int8 codes, rank 128, the netflix cell's group 0")
+    del state, lane
+    torch.cuda.empty_cache()
+    log(f"[time] phase 25 (the netflix cell) "
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
@@ -1978,20 +2043,33 @@ TRAIN_KERNELS = ("sgd_sweep", "sgd_sweep_tile", "sgd_sweep_step_u",
                  "sgd_sweep_epoch", "sgd_sweep_time")
 
 
+BF16_KERNELS = ("sgd_sweep", "sgd_sweep_tile", "sgd_sweep_step_u",
+                "sgd_sweep_epoch")
+
+
 def kernel_counts(reset=False):
-    """The training kernels' launch counts, dense_phase's by bias form
-    ('dense_phase:<form>'); with ``reset`` they are set to 0 first."""
+    """The training kernels' launch counts, the bf16 forms' again as
+    '<kernel>:bf16', dense_phase's by bias form ('dense_phase:<form>') and
+    those with echo > 1 again as 'dense_phase:<form>:echo'; with ``reset``
+    they are set to 0 first."""
     from mfx_torch.kernels import sgd_sweep as sweeps
     from mfx_torch.kernels.dense_phase import BIAS_FORMS, dense_phase
 
     if reset:
         for k in TRAIN_KERNELS:
             getattr(sweeps, k).launches = 0
+        for k in BF16_KERNELS:
+            getattr(sweeps, k).bf16_launches = 0
         dense_phase.launches = 0
         dense_phase.form_launches = dict.fromkeys(BIAS_FORMS, 0)
+        dense_phase.echo_launches = dict.fromkeys(BIAS_FORMS, 0)
     return {**{k: getattr(sweeps, k).launches for k in TRAIN_KERNELS},
+            **{f"{k}:bf16": getattr(sweeps, k).bf16_launches
+               for k in BF16_KERNELS},
             **{f"dense_phase:{f}": n
-               for f, n in dense_phase.form_launches.items()}}
+               for f, n in dense_phase.form_launches.items()},
+            **{f"dense_phase:{f}:echo": n
+               for f, n in dense_phase.echo_launches.items()}}
 
 
 def expect_kernels(what, counts, want):
@@ -2003,7 +2081,7 @@ def expect_kernels(what, counts, want):
 
 
 def train_runs(dev, cfg, train, test, fresh_model, runs, tag,
-               every_epoch=False):
+               every_epoch=False, last=None):
     """Each run of ``runs`` ({key: (overrides of ``cfg``, the kernels it
     launches and no other, (lo, hi) that its last held-out RMSE lies in,
     or None)}) through train_epochs_blocked from ``fresh_model()``: the
@@ -2013,9 +2091,10 @@ def train_runs(dev, cfg, train, test, fresh_model, runs, tag,
     held-out RMSE lies below the untrained model's after every epoch.
     Logs each epoch's seconds (plan and the first epoch's prep left out),
     the split of the median one after the first into dense, sparse and
-    batched-bias time, the peak memory and the RMSEs. Returns (untrained
-    RMSE, {key: (launch counts, the model after the first epoch, the
-    held-out RMSE after each epoch)})."""
+    batched-bias time, the carving's dense_info, the peak memory and the
+    RMSEs. Returns (untrained RMSE, {key: (launch counts, the model after
+    the first epoch, the held-out RMSE after each epoch)}); ``last``, if
+    given, takes {key: (the model after the last epoch, dense_info)}."""
     import torch
 
     from mfx_torch.config import apply_overrides
@@ -2059,6 +2138,8 @@ def train_runs(dev, cfg, train, test, fresh_model, runs, tag,
             + f" (sum {sum(epoch_ss):.4f}; the median after the first, epoch "
             f"{mid}: " + " ".join(f"{k} {parts[mid][k]:.4f}" for k in seen)
             + f"); peak memory allocated {peak} bytes")
+        if info:
+            log(f"[{tag}] ({key}) dense_info {json.dumps(info)}")
         log(f"[{tag}] ({key}) train_rmse "
             + " ".join(f"{x:.5f}" for x in trains))
         log(f"[{tag}] ({key}) held-out rmse "
@@ -2083,6 +2164,8 @@ def train_runs(dev, cfg, train, test, fresh_model, runs, tag,
         if not finite or m.P.shape != (train.num_users, run_cfg.model.rank):
             raise AssertionError(f"({key}): tables not finite or mis-shaped")
         out[key] = (counts, first, tests)
+        if last is not None:
+            last[key] = (m, info)
     return base, out
 
 
@@ -2922,7 +3005,7 @@ RANK32_BINS = 16  # run (e)'s time bins (L = 13 latent lanes at rank 32)
 
 
 def rank32_forms(dev, sweep_sgd, dense_sgd, train, seed, cell, results,
-                 bounds, sweeps, strata=None):
+                 bounds, sweeps, strata=None, new_forms=False):
     """Phase 19: the rank-32 forms of sgd_sweep.cu (lane) and
     dense_phase.cu (lane, frozen and bias-free with the carving's codes;
     lane and frozen with int8 codes) against their plain versions on
@@ -2935,7 +3018,10 @@ def rank32_forms(dev, sweep_sgd, dense_sgd, train, seed, cell, results,
     block and on the card's count (bitwise), group 0 and the epoch's dense
     phase. Fills ``results``, ``bounds`` and ``sweeps`` under
     sgd_sweep_r32, dense_phase_r32 (the int8 runs as its "variants"),
-    dense_phase_frozen_r32 and dense_phase_none_r32."""
+    dense_phase_frozen_r32 and dense_phase_none_r32. With ``new_forms``
+    (phase 25 at rank 32) also the bf16 sweeps on the same plan and echo
+    2 in the lane and bias-free forms on all of group 0, as "variants" of
+    their rank-64 entries."""
     import torch
 
     from mfx_torch.kernels import _build
@@ -3021,6 +3107,11 @@ def rank32_forms(dev, sweep_sgd, dense_sgd, train, seed, cell, results,
         [("P", 0), ("Q", 1)], 10)
     whole["rank64_lane_ms"] = r64_ms
     sweeps["sgd_sweep_r32"] = whole
+    if new_forms:
+        store_forms(bf16_forms("_r32", lane, plain, sw, tl, lr, reg, mu, su,
+                               si, tpg, tiles=VARIANT_TILES), results,
+                    bounds, sweeps,
+                    f"rank 32, {cell}")
     del skel, tl, tls, u, i, r
 
     # the dense forms on group 0: the lane form on the lane tables, the
@@ -3043,6 +3134,11 @@ def rank32_forms(dev, sweep_sgd, dense_sgd, train, seed, cell, results,
                                        reg, mu, su, si, rank))
         results[name], bounds[name], sweeps[name] = (err, ms, plain_ms), b, \
             whole
+    if new_forms:
+        store_forms(echo_forms("_r32", groups, meta, lane, plain, lr, reg, mu,
+                               su, si, rfmt, head, n_whole), results, bounds,
+                    sweeps, f"{rfmt} codes, rank 32, all of group 0 of "
+                    f"{cell}")
     del groups, meta
     torch.cuda.empty_cache()
     # int8 codes at rank 32 (the same threshold): no path runs them
@@ -3191,7 +3287,7 @@ def rank32_path_phase(dev, results, bounds, sweeps):
     rank32_forms(dev, apply_overrides(cfg, RANK32_RUNS["a"][0]).sgd,
                  apply_overrides(cfg, RANK32_RUNS["c"][0]).sgd, train,
                  cfg.data.seed, "ml1m_rank32_biased's runs", results, bounds,
-                 sweeps)
+                 sweeps, new_forms=True)
 
     t_phase = time.perf_counter()
 
@@ -3690,6 +3786,320 @@ def bf16_profile_phase(dev, root, results, bounds, sweeps, library):
     return launches
 
 
+# ---- phases 25-26: the bf16 sweeps, the dense echo passes, and the main
+# path under every dense and MXU setting -----------------------------------
+
+# the bf16 forms, each named at rank 64: (body, sweep_bound's bias, slot
+# bytes); the bound is the f32 form's
+BF16_FORMS = {
+    "sgd_sweep_bf16": ("lane", None, 0),
+    "sgd_sweep_tile_bf16": ("tile", "update", 0),
+    "sgd_sweep_tile_none_bf16": ("none", None, 0),
+    "sgd_sweep_epoch_bf16": ("epoch", "read", 4),
+    "sgd_sweep_step_u_bf16": ("step_u", "update", 0),
+}
+# tiles of the bf16 forms' check against plain at the rank-32 and rank-128
+# cells (SWEEP_TILES at ml25m_rank64's): the plain version takes each sum
+# in the kernel's order, which costs time on hot rows
+VARIANT_TILES = 512
+# the echo forms (echo 2), named at rank 64 with int4 codes
+ECHO_FORMS = {"dense_phase_echo": "lane", "dense_phase_none_echo": "none"}
+ECHO = 2
+
+
+def sweep_form_run(body, tiles, seg, lr, reg, mu, su, si, tpg, kernel=True,
+                   blocks=None, bf16=True):
+    """``run(*tables)`` of a sweep body ('lane', 'tile', 'none', 'epoch',
+    'step_u') over ``tiles`` = (sa, tc, tl, deps) on the item segment
+    ``seg``: through its kernel on ``blocks``, or its plain version; the
+    tables are (P, Q) for 'lane', (P, Q, bu, bi) for the others and the
+    epoch form's residual output after them. Returns the SSE."""
+    from mfx_torch.kernels import sgd_sweep as ss
+
+    sa, tc, tls, deps = tiles
+    kw = dict(su=su, si=si, tpg=tpg, bf16=bf16)
+    if kernel:
+        kw.update(deps=deps, blocks=blocks)
+    if body == "lane":
+        fn = ss.sgd_sweep if kernel else ss.sgd_sweep_plain
+        return lambda P, Q: fn(P, Q[seg], sa, tc, tls, lr, reg, mu, **kw)
+    if body == "epoch":
+        fn = ss.sgd_sweep_epoch if kernel else ss.sgd_sweep_epoch_plain
+        return lambda P, Q, bu, bi, e: fn(P, Q[seg], bu, bi[seg], sa, tc, tls,
+                                          e, lr, reg, mu, **kw)
+    fn = {("step_u", True): ss.sgd_sweep_step_u,
+          ("step_u", False): ss.sgd_sweep_step_u_plain}.get(
+        (body, kernel), ss.sgd_sweep_tile if kernel
+        else ss.sgd_sweep_tile_plain)
+    return lambda P, Q, bu, bi: fn(P, Q[seg], bu, bi[seg], sa, tc, tls, lr,
+                                   reg, mu, use_bias=body != "none", **kw)
+
+
+def bf16_forms(tag, lane_state, plain_state, sw, tl, lr, reg, mu, su, si,
+               tpg, bodies=tuple(BF16_FORMS), tiles=SWEEP_TILES):
+    """Phase 25's bf16 sweeps at one cell: each of ``bodies`` (names of
+    BF16_FORMS) against its plain version with ``bf16=True`` on the first
+    ``tiles`` tiles of the sweep ``sw``: the plain version takes every sum
+    in the kernel's order, so the tables must be bitwise equal (the SSE,
+    summed in another order, within TOL), two kernel runs bitwise, and the
+    f32 form from the same state must differ from that plain version (a
+    kernel that ignored the flag would fail); the f32 form on the same
+    tiles timed beside it, then the whole sweep twice on one block and
+    twice on the card's count (tables, biases, residuals and SSE bitwise).
+    ``lane_state`` = (P, Q) lane tables, ``plain_state`` = (P, Q, bu, bi).
+    Returns {name: ((err, ms, plain_ms), bound, whole-run dict)}."""
+    import torch
+
+    from mfx_torch.kernels import _build
+
+    lib = _build.load_library()
+    rank, T, dev = lane_state[0].shape[1], tl.shape[2], tl.device
+    seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
+    nt = min(tiles, sw.t1 - sw.t0)
+    head = (sw.sa[:nt // tpg].contiguous(), sw.tc[:nt].contiguous(),
+            tl[sw.t0:sw.t0 + nt], sw.deps.prefix(nt))
+    whole = (sw.sa, sw.tc, tl[sw.t0:sw.t1], sw.deps)
+    card = {"lane": lib.mfx_sgd_sweep_max_blocks(T, rank),
+            "step_u": lib.mfx_sgd_sweep_step_u_max_blocks(T, rank, su)}
+    out = {}
+    for name in bodies:
+        body, bias, slot_bytes = BF16_FORMS[name]
+        label = name + tag
+
+        def state(n, body=body):
+            if body == "lane":
+                return tuple(lane_state)
+            return tuple(plain_state) + ((torch.zeros(n, T, device=dev),)
+                                         if body == "epoch" else ())
+
+        args = (lr, reg, mu, su, si, tpg)
+        res = compare(label, sweep_form_run(body, head, seg, *args),
+                      sweep_form_run(body, head, seg, *args, kernel=False),
+                      state(nt), tol=0.0, sse_tol=TOL, plain_again=False,
+                      control=sweep_form_run(body, head, seg, *args,
+                                             bf16=False))
+        tabs = state(nt)
+        tabs = tuple(t.clone() for t in tabs)
+        f32_ms = cuda_ms(lambda: sweep_form_run(body, head, seg, *args,
+                                                bf16=False)(*tabs), reps=3)
+        b = sweep_bound(head[2], head[0], head[1], su, si, tpg, rank,
+                        [("P", 0), ("Q", 1)], 10, bias=bias,
+                        slot_bytes=slot_bytes)
+        runs = whole_sweep(
+            label, lambda *t, body=body: sweep_form_run(
+                body, whole, seg, *args, blocks=t[-1])(*t[:-1]),
+            state(sw.t1 - sw.t0), sw.deps,
+            card.get(body, lib.mfx_sgd_sweep_tile_max_blocks(T, rank)))
+        runs.update({"f32_form_ms": f32_ms, "sweep_bound_ms": sweep_bound(
+            whole[2], whole[0], whole[1], su, si, tpg, rank,
+            [("P", 0), ("Q", 1)], 10, bias=bias, slot_bytes=slot_bytes)[0]})
+        log(f"[kernel] {label}: {nt} tiles {res[1]:.4f} ms, the f32 form on "
+            f"the same tiles {f32_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]})")
+        runs["tiles"] = nt
+        out[name] = (res, b, runs)
+        del tabs
+        torch.cuda.empty_cache()
+    return out
+
+
+def echo_forms(tag, groups, meta, lane_state, plain_state, lr, reg, mu, su,
+               si, rfmt, strata, whole, biases=("lane", "none"), tol=TOL,
+               times=False):
+    """Phase 25's dense echo passes at one cell: echo=2 in each bias form
+    of ``biases`` against dense_phase_plain(echo=2) on the first
+    ``strata`` strata of group 0 (within ``tol``, two kernel runs
+    bitwise), the echo=1 form on them timed beside it, then the first
+    ``whole`` strata (2 ``whole`` slots) twice on one block and twice on
+    the card's count (bitwise); with ``times`` also group 0 and the
+    epoch's dense phase at echo 2 on the card's count. Returns {name:
+    ((err, ms, plain_ms), bound, whole-run dict)}."""
+    import torch
+
+    from mfx_torch.kernels import _build
+    from mfx_torch.kernels.dense_phase import (BIAS_FORMS, dense_phase,
+                                               dense_phase_plain,
+                                               group_prefix, plan_launch)
+
+    lib = _build.load_library()
+    rank = lane_state[0].shape[1]
+    win0, nw = meta[0]
+    seg = slice(win0 * si, (win0 + nw) * si)
+
+    def echoed(g):  # the group with its slots' table
+        return dict(g, deps=g["deps"].repeat(ECHO))
+
+    n0 = groups[0]["sa"].shape[0]
+    strata, whole = min(strata, n0), min(whole, n0)
+    grp, head = (echoed(group_prefix(groups[0], n)) for n in (strata, whole))
+    out = {}
+    for name, bias in ECHO_FORMS.items():
+        if bias not in biases:
+            continue
+        label = name + tag
+        st = tuple(lane_state) if bias == "lane" else tuple(plain_state[:2])
+        kw = dict(su=su, si=si, bias=bias)
+        log(f"[kernel] {label}: {grp['sa'].shape[0]} strata of group 0, "
+            f"echo {ECHO} ({rfmt}, {su}x{si}, rank {rank}, bias={bias!r}); "
+            f"critical path {grp['deps'].critical} slots")
+        res = compare(
+            label,
+            lambda P, Q: dense_phase(P, Q[seg], grp, lr, reg, mu, **kw,
+                                     echo=ECHO, deps=grp["deps"]),
+            lambda P, Q: dense_phase_plain(P, Q[seg], grp, lr, reg, mu, **kw,
+                                           echo=ECHO), st, tol)
+        one = group_prefix(groups[0], strata)
+        plan_launch(one, su, si, rank, bias)  # untimed, as for ``grp``
+        tabs = tuple(t.clone() for t in st)
+
+        def echo1():
+            dense_phase(tabs[0], tabs[1][seg], one, lr, reg, mu, **kw,
+                        deps=one["deps"])
+        echo1()  # warm-up
+        echo1_ms = cuda_ms(echo1, reps=3)
+        b = dense_bound([grp], su, si, rank, echo=ECHO)
+        card = lib.mfx_dense_phase_max_blocks(rank, int(rfmt == "int8"),
+                                              BIAS_FORMS.index(bias))
+        plan_launch(head, su, si, rank, bias, ECHO)  # untimed
+        runs = whole_sweep(
+            label, lambda P, Q, blocks: dense_phase(
+                P, Q[seg], head, lr, reg, mu, **kw, echo=ECHO,
+                deps=head["deps"], blocks=blocks),
+            st, head["deps"], card, grid=card, unit="slots")
+        runs["echo1_ms"] = echo1_ms
+        log(f"[kernel] {label}: {res[1]:.4f} ms, echo 1 on the same strata "
+            f"{echo1_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]})")
+        if times:
+            for key, grps in (("group0", list(zip(meta, groups))[:1]),
+                              ("epoch_dense", list(zip(meta, groups)))):
+                grps = [(m, echoed(g)) for m, g in grps]
+                for _, g in grps:
+                    plan_launch(g, su, si, rank, bias, ECHO)
+
+                def run_groups(grps=grps):
+                    t = [x.clone() for x in st]
+                    for (w0, n), g in grps:
+                        dense_phase(t[0], t[1][w0 * si:(w0 + n) * si], g, lr,
+                                    reg, mu, **kw, echo=ECHO,
+                                    deps=g["deps"])
+                run_groups()  # warm-up
+                gms = cuda_ms(run_groups, reps=3)
+                gb = dense_bound([g for _, g in grps], su, si, rank,
+                                 echo=ECHO)
+                runs.update({f"{key}_ms": gms, f"{key}_bound_ms": gb[0]})
+                log(f"[kernel] {label}, {key}: {len(grps)} group(s), "
+                    f"{sum(g['deps'].n_tiles for _, g in grps)} slots: "
+                    f"{gms:.4f} ms (mean of 3, tables copied in); bound "
+                    f"{gb[0]:.4f} ms ({gb[1]})")
+        out[name] = (res, b, runs)
+        del tabs
+        torch.cuda.empty_cache()
+    return out
+
+
+def store_forms(forms, results, bounds, sweeps, variant=None):
+    """Phase 25's checks into the kernels line: at ml25m_rank64's cell (no
+    ``variant``) as entries of their own, at another cell as "variants" of
+    that entry of the same form, described by ``variant`` (no path runs
+    them)."""
+    for name, (res, b, runs) in forms.items():
+        if variant is None:
+            results[name], bounds[name], sweeps[name] = res, b, runs
+            continue
+        sweeps[name].setdefault("variants", []).append({
+            "variant": variant, "max_abs_err": res[0], "ms": res[1],
+            "plain_ms": res[2], "bound_ms": b[0], "bound_by": b[1], **runs})
+
+
+# phase 26: ml25m_rank64 with each dense and MXU setting, from phase 4's
+# untrained model: (overrides, the kernels it launches and no other, its
+# held-out window: 'gate' <= RMSE_GATE, 'bf16' within BF16_TOL of phase 4
+# and <= RMSE_GATE, 'modes' within BIAS_MODES_TOL of phase 4, None below
+# the untrained model's only)
+VARIANT_RUNS = {
+    "a": (["sgd.dense_echo=2"],
+          {"sgd_sweep", "dense_phase:lane", "dense_phase:lane:echo"}, "gate"),
+    "b": (["sgd.dense_spg=2"], {"sgd_sweep", "dense_phase:lane"}, "gate"),
+    "c": (["sgd.mxu=bf16"], {"sgd_sweep", "sgd_sweep:bf16",
+                             "dense_phase:lane"}, "bf16"),
+    "d": (["sgd.dense_chi=0.0025", "sgd.dense_span=head"],
+          {"sgd_sweep", "dense_phase:lane"}, "gate"),
+    "e": (["sgd.mxu=bf16", "sgd.bias_mode=tile", "sgd.step_user_batch=true"],
+          {"sgd_sweep_step_u", "sgd_sweep_step_u:bf16",
+           "dense_phase:frozen"}, "modes"),
+    "f": (["sgd.mxu=bf16", "sgd.bias_mode=epoch"],
+          {"sgd_sweep_epoch", "sgd_sweep_epoch:bf16", "dense_phase:frozen"},
+          "modes"),
+    "g": (["sgd.mxu=bf16", "sgd.bias_mode=tile"],
+          {"sgd_sweep_tile", "sgd_sweep_tile:bf16", "dense_phase:frozen"},
+          "modes"),
+    "h": (["sgd.mxu=bf16", "model.use_bias=false"],
+          {"sgd_sweep_tile", "sgd_sweep_tile:bf16", "dense_phase:none"},
+          None),
+    "i": (["sgd.dense_echo=2", "model.use_bias=false"],
+          {"sgd_sweep_tile", "dense_phase:none", "dense_phase:none:echo"},
+          None),
+}
+VARIANT_EPOCHS = 2
+VARIANT_LAUNCHES = {
+    "dense_phase_echo": ("a", "dense_phase:lane:echo"),
+    "sgd_sweep_bf16": ("c", "sgd_sweep:bf16"),
+    "sgd_sweep_step_u_bf16": ("e", "sgd_sweep_step_u:bf16"),
+    "sgd_sweep_epoch_bf16": ("f", "sgd_sweep_epoch:bf16"),
+    "sgd_sweep_tile_bf16": ("g", "sgd_sweep_tile:bf16"),
+    "sgd_sweep_tile_none_bf16": ("h", "sgd_sweep_tile:bf16"),
+    "dense_phase_none_echo": ("i", "dense_phase:none:echo"),
+}
+BF16_TOL = 0.003  # of the f32 run's held-out RMSE
+
+
+def variant_runs(dev, cfg, train, test, fresh_model, trained, lane_rmse):
+    """Phase 26: the ml25m_rank64 preset for VARIANT_EPOCHS epochs in each
+    run of VARIANT_RUNS through train_epochs_blocked, from phase 4's
+    untrained model on its split. Each launches its kernels and no other,
+    its train RMSE falls and its held-out RMSE (unclipped) ends below the
+    untrained model's and in its window; (b) ends with the tables and
+    held-out RMSE of phase 4's run (``trained``, ``lane_rmse``) bit for
+    bit and counts the reference's padding (strata_padded > num_strata).
+    Returns the
+    launches of VARIANT_LAUNCHES."""
+    import torch
+
+    t_phase = time.perf_counter()
+    runs, last = {}, {}
+    for key, (ov, want, window) in VARIANT_RUNS.items():
+        lo, hi = {"gate": (-float("inf"), RMSE_GATE),
+                  "bf16": (lane_rmse - BF16_TOL,
+                           min(RMSE_GATE, lane_rmse + BF16_TOL)),
+                  "modes": (lane_rmse - BIAS_MODES_TOL,
+                            lane_rmse + BIAS_MODES_TOL)}.get(window,
+                                                             (None, None))
+        runs[key] = (ov + [f"sgd.epochs={VARIANT_EPOCHS}"], want,
+                     None if lo is None else (lo, hi))
+    _, out = train_runs(dev, cfg, train, test, fresh_model, runs, "variant",
+                        last=last)
+    model_b, info_b = last["b"]
+    if not (all(torch.equal(getattr(model_b, k), getattr(trained, k))
+                for k in ("P", "Q", "bu", "bi"))
+            and out["b"][2][-1] == lane_rmse):
+        raise AssertionError("(b) dense_spg=2: not phase 4's tables and "
+                             f"held-out RMSE ({out['b'][2][-1]} vs "
+                             f"{lane_rmse})")
+    if not info_b["strata_padded"] > info_b["num_strata"]:
+        raise AssertionError(f"(b): no padding counted {info_b}")
+    log(f"[variant] (b) dense_spg=2: tables and held-out RMSE "
+        f"{out['b'][2][-1]:.5f} bit for bit phase 4's; {info_b['num_strata']}"
+        f" strata (the reference pads them to {info_b['strata_padded']})")
+    log("[variant] held-out RMSE after each epoch, unrounded: " + "; ".join(
+        f"({k}) {' '.join(repr(x) for x in v[2])}" for k, v in out.items())
+        + f"; phase 4's {lane_rmse!r}")
+    log(f"[variant] (d) the head carving: dense_frac "
+        f"{last['d'][1]['dense_frac']:.4f} ({last['d'][1]['num_strata']} "
+        "strata)")
+    log(f"[time] phase 26 {time.perf_counter() - t_phase:.1f} s")
+    return {name: out[run][0][k]
+            for name, (run, k) in VARIANT_LAUNCHES.items()}
+
+
 def main() -> int:
     import shutil
 
@@ -3708,7 +4118,7 @@ def main() -> int:
                                                group_prefix, plan_launch)
     from mfx_torch.kernels.packing import lane_tables, plain_tables
     from mfx_torch.kernels.sgd_sweep import sgd_sweep, sgd_sweep_plain
-    from mfx_torch.models.mf import init_model
+    from mfx_torch.models.mf import MFModel, init_model
     from mfx_torch.solvers import blocked
     from mfx_torch.solvers.dense_prep import prepare_dense_full
 
@@ -3880,6 +4290,23 @@ def main() -> int:
     # the plain tables of the same model
     tile_bias_compare(results, bounds, plain_tables(fresh_model(), su, si, dev),
                       seg_s, sa, tc, tls, lr, reg, mu, su, si, tpg, "", deps)
+    # 25 (ml25m_rank64's cell). the bf16 sweeps on these tiles and the
+    # echo passes on group 0, from the same untrained tables (the plain
+    # ones with seeded N(0, 0.1) biases, so that every bias term is live)
+    t25 = time.perf_counter()
+    g25 = torch.Generator(device=dev).manual_seed(25)
+    m25 = fresh_model()
+    m25.bu.copy_(torch.randn(U, device=dev, generator=g25) * 0.1)
+    m25.bi.copy_(torch.randn(I, device=dev, generator=g25) * 0.1)
+    plain25 = plain_tables(m25, su, si, dev)
+    store_forms(bf16_forms("", (P, Q), plain25, sw, tl, lr, reg, mu, su, si,
+                           tpg), results, bounds, sweeps)
+    store_forms(echo_forms("", groups, meta, (P, Q), plain25, lr, reg, mu, su,
+                           si, rfmt, DENSE_STRATA, DENSE_WHOLE, times=True),
+                results, bounds, sweeps)
+    del m25, plain25
+    log(f"[time] phase 25 (ml25m_rank64's cell) "
+        f"{time.perf_counter() - t25:.1f} s")
     for name in ("dense_phase", "sgd_sweep"):
         log(f"[kernel] {name} bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]})")
@@ -3927,6 +4354,8 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated(dev)
     launches = {"sgd_sweep": sgd_sweep.launches,
                 "dense_phase": dense_phase.launches}
+    m4 = MFModel(*(getattr(m, k).clone() for k in ("P", "Q", "bu", "bi")),
+                 m.mu)  # for phase 26's (b)
     log(f"[main] launches {launches}, peak memory allocated {peak} bytes")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
@@ -3957,6 +4386,10 @@ def main() -> int:
                                      test_rmse, results, bounds, sweeps,
                                      data_root))
     shutil.rmtree(data_root.parent)  # phase 23's dataset cache
+
+    # 26. the main path under each dense and MXU setting, on phase 4's data
+    launches.update(variant_runs(dev, cfg, train, test, fresh_model, m4,
+                                 test_rmse))
 
     # 19 (its extra cell). the rank-32 lane sweep and dense forms on phase
     # 4's data at ml25m_rank64's shapes, which no preset runs at rank 32
@@ -4030,7 +4463,17 @@ def main() -> int:
                     "mfx/kernels/dense_pallas.py:86",
                 "tile_topk_deep": "mfx/kernels/serve_pallas.py:42",
                 # not a Pallas kernel: the reference's XLA bf16 scatter
-                "bf16_row_add": "mfx/kernels/jnp_ref.py:109"}
+                "bf16_row_add": "mfx/kernels/jnp_ref.py:109",
+                # the mxu_bf16 branch of _kernel_body (:63) and of
+                # _kernel_body_step_u (:363)
+                "sgd_sweep_bf16": "mfx/kernels/sgd_pallas.py:121",
+                "sgd_sweep_tile_bf16": "mfx/kernels/sgd_pallas.py:121",
+                "sgd_sweep_tile_none_bf16": "mfx/kernels/sgd_pallas.py:121",
+                "sgd_sweep_epoch_bf16": "mfx/kernels/sgd_pallas.py:121",
+                "sgd_sweep_step_u_bf16": "mfx/kernels/sgd_pallas.py:392",
+                # the echo branch of dense_pallas.py's _kernel_body (:86)
+                "dense_phase_echo": "mfx/kernels/dense_pallas.py:237",
+                "dense_phase_none_echo": "mfx/kernels/dense_pallas.py:237"}
     sources = {"sgd_sweep_r128": "sgd_sweep", "dense_phase_int8_r128":
                "dense_phase", "sgd_sweep_time": "sgd_sweep",
                "sgd_sweep_epoch": "sgd_sweep_tile",
@@ -4047,7 +4490,14 @@ def main() -> int:
                "dense_phase_frozen_int8_r128": "dense_phase",
                "dense_phase_none_int8_r128": "dense_phase",
                "tile_topk_deep": "tile_topk",
-               "bf16_row_add": "row_add_bf16"}
+               "bf16_row_add": "row_add_bf16",
+               "sgd_sweep_bf16": "sgd_sweep",
+               "sgd_sweep_tile_bf16": "sgd_sweep_tile",
+               "sgd_sweep_tile_none_bf16": "sgd_sweep_tile",
+               "sgd_sweep_epoch_bf16": "sgd_sweep_tile",
+               "sgd_sweep_step_u_bf16": "sgd_sweep_step_u",
+               "dense_phase_echo": "dense_phase",
+               "dense_phase_none_echo": "dense_phase"}
     variants = {"sgd_sweep": "bias_mode='lane', rank 64",
                 "sgd_sweep_tile": "bias_mode='tile'",
                 "dense_phase": "lane, int4 codes, rank 64",
@@ -4077,7 +4527,18 @@ def main() -> int:
                                   f"{DEEP_TILE}, the trained ML-25M catalog",
                 "bf16_row_add": "bf16 tables' scatter-add in slot order "
                                 "(minibatch SGD, model.dtype=bfloat16); "
-                                "library_ms: index_put_(accumulate=True)"}
+                                "library_ms: index_put_(accumulate=True)",
+                "sgd_sweep_bf16": "bias_mode='lane', mxu='bf16', rank 64",
+                "sgd_sweep_tile_bf16": "bias_mode='tile', mxu='bf16', "
+                                       "rank 64",
+                "sgd_sweep_tile_none_bf16": "no biases, mxu='bf16', rank 64",
+                "sgd_sweep_epoch_bf16": "bias_mode='epoch', mxu='bf16', "
+                                        "rank 64",
+                "sgd_sweep_step_u_bf16": "bias_mode='tile', step_user_batch, "
+                                         "mxu='bf16', rank 64, tpg 4",
+                "dense_phase_echo": f"lane, echo {ECHO}, int4 codes, rank 64",
+                "dense_phase_none_echo": f"no biases, echo {ECHO}, int4 "
+                                         "codes, rank 64"}
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")
     log(f"[card] {card}")
     log(json.dumps({"kernels": [

@@ -3,9 +3,11 @@
 // at ranks 32, 64 and 128.
 //
 // Replaces: mfx/kernels/dense_pallas.py::_kernel_body (rfmt='int4' or
-// 'int8', echo=1, spg=1) with lane=True (the lane form), with
-// use_bias=True, lane=False (frozen) and with use_bias=False (none),
-// driven by dense_sgd_phase_pallas.
+// 'int8') with lane=True (the lane form), with use_bias=True, lane=False
+// (frozen) and with use_bias=False (none), its echo passes in the lane and
+// bias-free forms, driven by dense_sgd_phase_pallas. Its spg batching has
+// no form here: the null strata it pads with are exact no-ops, so the
+// prep carves none (solvers/dense_prep.py::prepare_dense_full).
 //
 // What it computes, per dense stratum (user block a = sa[s], item window
 // c = sc[s]), strata in plan order, each a snapshot minibatch:
@@ -22,6 +24,14 @@
 //            the lane form only
 //   s = min(1, DSTAR / max(deg, 1)), DSTAR = 16; Du/Di = per-stratum raw
 //   rating degrees; sse += Σ E² (first-pass semantics)
+//   echo > 1 (lane and none): the whole step is taken echo times on each
+//   stratum before the next, each pass from the tables the pass before it
+//   wrote; sse counts the first pass only. The launch's work is then
+//   nd * echo slots: slot k runs stratum k / echo (its sa, sc, codes and
+//   degrees), and the group's dependency table, one "tile" a slot
+//   (plan_device.SweepDeps.repeat), chains a stratum's passes as it chains
+//   the strata of one user block. A slot that is not a first pass writes 0
+//   to its pieces' SSE.
 //   frozen only: dbu[s, row] = Σ_col E, dbi[s, col] = Σ_row E, from which
 //   the trainer applies one batched bias update after the group
 // R holds int4 codes round(2 r), 0 = absent, plain (su, si/2) bytes per
@@ -168,17 +178,19 @@ struct BiasSums {
   float* cs_buf;    // (ring, nb, si) a panel's column sums
 };
 
+// The schedule's "strata" are slots: nd = strata * echo, slot s running
+// stratum s / echo's pass s % echo.
 struct DenseSched {
-  const int* runs;  // (nruns, 2) first stratum and strata of each user block
-  const int* wait;  // (nd, 3) the table's (run, finished strata) per
-                    // stratum, run < 0 for none; null: every stratum
-                    // waits for the one before it
-  const int* order;  // (nd,) the strata in the order they are handed
+  const int* runs;  // (nruns, 2) first slot and slots of each user block
+  const int* wait;  // (nd, 3) the table's (run, finished slots) per
+                    // slot, run < 0 for none; null: every slot waits for
+                    // the one before it
+  const int* order;  // (nd,) the slots in the order they are handed
                      // out; null: plan order
-  int* state;       // zeroed per launch: [0] the ticket, then per stratum
+  int* state;       // zeroed per launch: [0] the ticket, then per slot
                     // its panels done, its apply units done, its end,
-                    // then per (stratum, panel) its pieces done
-  int nruns, nd, ring;
+                    // then per (slot, panel) its pieces done
+  int nruns, nd, ring, echo;
 };
 
 __device__ __forceinline__ float update(float p, float g, float deg,
@@ -328,10 +340,11 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
                             (nch - per_piece + 1) * BAND * RANK;
   if (tid == 0) await_stratum(ds, s, pos);
   __syncthreads();
-  const long long prow = (long long)sa[s] * su + band * BAND;
-  const long long qrow = (long long)sc[s] * si;
+  const int d = s / ds.echo;  // the slot's stratum
+  const long long prow = (long long)sa[d] * su + band * BAND;
+  const long long qrow = (long long)sc[d] * si;
   const uint8_t* Rb =
-      R + ((long long)s * su + band * BAND) * F::row_bytes(si);
+      R + ((long long)d * su + band * BAND) * F::row_bytes(si);
   float* slot =
       ring_buf + ((long long)(pos % ds.ring) * nb + band) * si * RANK;
   float4* P4 = reinterpret_cast<float4*>(P);
@@ -548,7 +561,7 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
     if (BIAS == FROZEN && tid < BAND) {
       float t = __ldcg(rs + tid);
       for (int p = 1; p < PIECES; ++p) t += __ldcg(rs + p * BAND + tid);
-      bs.dbu[(long long)s * su + band * BAND + tid] = t;
+      bs.dbu[(long long)d * su + band * BAND + tid] = t;
     }
     load_tile<RANK, MR, LQ>(g, dps, r0, lx);
     for (int e = 1; e <= nch - per_piece; ++e) {
@@ -563,7 +576,7 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
 #pragma unroll
     for (int m = 0; m < MR; ++m) {
       const int r = r0 + 16 * m;
-      const float deg = du[(long long)s * su + band * BAND + r];
+      const float deg = du[(long long)d * su + band * BAND + r];
       const float scale = fminf(1.f, DSTAR / fmaxf(deg, 1.f));
 #pragma unroll
       for (int h = 0; h < LQ; ++h) {
@@ -583,7 +596,9 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
   if (tid == 0) {
     float t = 0.f;
     for (int w = 0; w < NT / 32; ++w) t += sm.red[w];
-    sums[((long long)s * nb + band) * PIECES + piece] = t;
+    // the SSE of first passes only
+    sums[((long long)s * nb + band) * PIECES + piece] =
+        s % ds.echo == 0 ? t : 0.f;
     if (last) {
       __threadfence();
       atomicAdd(ds.state + 1 + s, 1);
@@ -604,13 +619,14 @@ __device__ void apply_unit(float* Q, const int* sc, const float* di,
   __syncthreads();
   const float4* slot = reinterpret_cast<const float4*>(
       ring_buf + (long long)(pos % ds.ring) * nb * si * RANK);
+  const int d = s / ds.echo;  // the slot's stratum
   if (BIAS == FROZEN && tid < ROWS) {
     // the unit's columns of E summed over the panels, in panel order
     const float* cs =
         bs.cs_buf + (long long)(pos % ds.ring) * nb * si + part * ROWS + tid;
     float t = 0.f;
     for (int b = 0; b < nb; ++b) t += __ldcg(cs + (long long)b * si);
-    bs.dbi[(long long)s * si + part * ROWS + tid] = t;
+    bs.dbi[(long long)d * si + part * ROWS + tid] = t;
   }
   float4 gv[PER];
 #pragma unroll
@@ -628,11 +644,11 @@ __device__ void apply_unit(float* Q, const int* sc, const float* di,
     }
   }
   float4* Q4 = reinterpret_cast<float4*>(Q);
-  const long long qrow = (long long)sc[s] * si + part * ROWS;
+  const long long qrow = (long long)sc[d] * si + part * ROWS;
 #pragma unroll
   for (int t = 0; t < PER; ++t) {
     const int idx = tid + t * NT, row = idx / R4, q = idx % R4;
-    const float deg = di[(long long)s * si + part * ROWS + row];
+    const float deg = di[(long long)d * si + part * ROWS + row];
     const float scale = fminf(1.f, DSTAR / fmaxf(deg, 1.f));
     const float4 v = __ldcg(Q4 + (qrow + row) * R4 + q);
     float o[4];
@@ -758,7 +774,8 @@ extern "C" int mfx_dense_phase_max_blocks(int rank, int int8, int bias) {
 }
 
 // bu, bi, dbu, dbi, rs_buf and cs_buf: the frozen form's (BiasSums), null
-// in the other forms.
+// in the other forms. nd counts slots: strata * echo (echo 1 in the frozen
+// form); runs, wait and order are the slots' table and order.
 extern "C" int mfx_dense_phase(float* P, float* Q, const int* sa,
                                const int* sc, const uint8_t* R,
                                const float* du, const float* di,
@@ -769,12 +786,13 @@ extern "C" int mfx_dense_phase(float* P, float* Q, const int* sa,
                                float* ring_buf, float* dp_buf, float* sums,
                                float* sse_out, int nd, int nruns, int ring,
                                int blocks, int su, int si, int rank,
-                               int int8, int bias, float lr, float reg,
-                               float mu, void* stream) {
-  if (nd < 0 || nruns < 1 || ring < 1 || blocks < 1)
+                               int int8, int bias, int echo, float lr,
+                               float reg, float mu, void* stream) {
+  if (nd < 0 || nruns < 1 || ring < 1 || blocks < 1 || echo < 1 ||
+      nd % echo || (echo > 1 && bias == FROZEN))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const DenseSched ds{runs, wait, order, state, nruns, nd, ring};
+  const DenseSched ds{runs, wait, order, state, nruns, nd, ring, echo};
   const BiasSums bs{bu, bi, dbu, dbi, rs_buf, cs_buf};
   const int r = with_form(rank, int8, bias, [&](auto R_, auto I8, auto B) {
     return launch<decltype(R_)::value, decltype(I8)::value,

@@ -15,6 +15,10 @@
 //   row       = snapshot + sum of the deltas of every slot with that row,
 //               summed in slot order (the reference's exact segment sum)
 //   sse      += sum_s e_s^2 over real slots (pad slots hold u == su)
+// bf16 (the reference's mxu_bf16 branch, sgd.mxu='bf16'; the lane form
+// only, a runtime flag): p_s and q_s enter e_s and the deltas rounded to
+// bf16, each delta is rounded to bf16 before the run's f32 sum, and a row
+// becomes its f32 snapshot + that sum (sweep_common.cuh).
 //
 // Order: the result is that of applying the tiles strictly in plan order,
 // as the TPU's sequential grid does. The launch's blocks share the sweep
@@ -178,11 +182,12 @@ template <int ROW_Q4, int HQ4>
 __device__ inline void scatter_quad(
     float* table, long long base, const int* key, const float4* own,
     const float4* other, const float* e, int p, int q, int q_off, Frozen fz,
-    Injected inj, float lr, float reg) {
+    Injected inj, float lr, float reg, bool bf16) {
   if (!starts_run(key, p)) return;
   const int x = key[p] >> 8, j0 = key[p] & 255;
   float4 w = add4(own[j0 * HQ4 + q],
-                  freeze(run_delta<HQ4>(key, own, other, e, p, q, lr, reg),
+                  freeze(run_delta<HQ4>(key, own, other, e, p, q, lr, reg,
+                                        bf16),
                          fz, q_off + q));
   if (inj.val != nullptr) {
     const int b = inj.bin != nullptr ? inj.bin[j0] : 0;
@@ -204,29 +209,32 @@ __device__ inline void scatter_half(const TileSmem<HALF<RANK>>& sm, float* P,
                                     float* Q, long long pbase,
                                     long long qbase, int q_off, Frozen fp,
                                     Frozen fq, Injected ip, Injected iq,
-                                    float lr, float reg) {
+                                    float lr, float reg, bool bf16) {
   constexpr int HQ4 = HALF<RANK> / 4;
   for (int w = threadIdx.x; w < 2 * MAX_T * HQ4; w += THREADS) {
     const int q = w % HQ4, rest = w / HQ4;
     if (rest < MAX_T)
       scatter_quad<RANK / 4, HQ4>(P, pbase, sm.keyU, sm.Ps, sm.Qs, sm.e,
-                                  rest, q, q_off, fp, ip, lr, reg);
+                                  rest, q, q_off, fp, ip, lr, reg, bf16);
     else
       scatter_quad<RANK / 4, HQ4>(Q, qbase, sm.keyI, sm.Qs, sm.Ps, sm.e,
-                                  rest - MAX_T, q, q_off, fq, iq, lr, reg);
+                                  rest - MAX_T, q, q_off, fq, iq, lr, reg,
+                                  bf16);
   }
 }
 
 // P and Q are rewritten by this and other blocks during the launch, so
 // they are deliberately not const/__restrict__ and every row is loaded
 // from L2 (see sweep_common.cuh). TIME: the time form (n_bins bins; the
-// lane form ignores n_bins).
+// lane form ignores n_bins). bf16: the lane form's bf16 rounding (the time
+// form passes 0).
 template <int RANK, bool TIME>
 __global__ void __launch_bounds__(THREADS)
 sgd_sweep_kernel(float* P, float* Q, const int* __restrict__ sa,
                  const int* __restrict__ tc, const int* __restrict__ tl,
                  Wavefront wf, float* __restrict__ sums, int tpg, int T,
-                 int su, int si, float lr, float reg, float mu, int n_bins) {
+                 int su, int si, float lr, float reg, float mu, int n_bins,
+                 int bf16) {
   constexpr int H = HALF<RANK>, HQ4 = H / 4;
   constexpr int ROW_Q4 = RANK / 4, HALVES = RANK / H;
   constexpr int ROWS = TIME ? 5 : 3;  // tile stream rows
@@ -265,7 +273,7 @@ sgd_sweep_kernel(float* P, float* Q, const int* __restrict__ sa,
         __syncthreads();
       }
       float v[DOT_SLOTS] = {};
-      dot_part(sm, T, v);
+      dot_part(sm, T, v, bf16);
 #pragma unroll
       for (int h = 1; h < HALVES; ++h) {  // rank 128: lanes 64-127
         __syncthreads();
@@ -276,7 +284,7 @@ sgd_sweep_kernel(float* P, float* Q, const int* __restrict__ sa,
           inject<RANK>(sm, ts, T, su, L, n_bins, h * H);
           __syncthreads();
         }
-        dot_part(sm, T, v);
+        dot_part(sm, T, v, bf16);
       }
       finish_residuals(sm.e, sm.uid, sm.bus, sm.bis, T, su, mu,
                        /*use_bias=*/0, v);
@@ -285,7 +293,7 @@ sgd_sweep_kernel(float* P, float* Q, const int* __restrict__ sa,
       // 5. scatter the half in shared memory; at rank 128 then gather
       // lanes 0-63 again (still the tile-start values) and scatter them
       scatter_half<RANK>(sm, P, Q, pbase, qbase, (HALVES - 1) * HQ4, fp, fq,
-                         ip, iq, lr, reg);
+                         ip, iq, lr, reg, bf16);
       if (HALVES > 1) {
         __syncthreads();
         gather<H, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T,
@@ -296,7 +304,7 @@ sgd_sweep_kernel(float* P, float* Q, const int* __restrict__ sa,
           __syncthreads();
         }
         scatter_half<RANK>(sm, P, Q, pbase, qbase, 0, fp, fq, ip, iq, lr,
-                           reg);
+                           reg, bf16);
       }
       const float sse = tile_sse(sm, T);
       if (threadIdx.x == 0) sums[t] = sse;
@@ -315,14 +323,15 @@ template <int RANK, bool TIME>
 int launch(float* P, float* Q, const int* sa, const int* tc, const int* tl,
            const Wavefront& wf, float* sums, float* sse_out, int nt,
            int blocks, int tpg, int T, int su, int si, float lr, float reg,
-           float mu, int n_bins, cudaStream_t stream) {
+           float mu, int n_bins, int bf16, cudaStream_t stream) {
   const size_t smem = smem_bytes<RANK, TIME>(T);
   cudaError_t err = cudaFuncSetAttribute(
       sgd_sweep_kernel<RANK, TIME>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   sgd_sweep_kernel<RANK, TIME><<<blocks, THREADS, smem, stream>>>(
-      P, Q, sa, tc, tl, wf, sums, tpg, T, su, si, lr, reg, mu, n_bins);
+      P, Q, sa, tc, tl, wf, sums, tpg, T, su, si, lr, reg, mu, n_bins,
+      bf16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ordered_sum_kernel<<<1, SUM_THREADS, 0, stream>>>(sums, nt, sse_out);
@@ -349,24 +358,24 @@ int sweep(float* P, float* Q, const int* sa, const int* tc, const int* tl,
           const int* runs, const int* wait, int* state, float* sums,
           float* sse_out, int nt, int nruns, int blocks, int tpg, int T,
           int su, int si, int rank, float lr, float reg, float mu,
-          int n_bins, void* stream) {
+          int n_bins, int bf16, void* stream) {
   if (su > MAX_BLOCK || si > MAX_BLOCK || T < 1 || T > MAX_T || tpg < 1 ||
       nruns < 1 || blocks < 1 ||
-      (TIME && (n_bins < 1 || n_bins > rank - 4)))
+      (TIME && (n_bins < 1 || n_bins > rank - 4 || bf16)))
     return (int)cudaErrorInvalidValue;
   const Wavefront wf{runs, wait, state, nruns};
   if (rank == 32)
     return launch<32, TIME>(P, Q, sa, tc, tl, wf, sums, sse_out, nt, blocks,
-                            tpg, T, su, si, lr, reg, mu, n_bins,
+                            tpg, T, su, si, lr, reg, mu, n_bins, bf16,
                             (cudaStream_t)stream);
   if (rank == 64)
     return launch<64, TIME>(P, Q, sa, tc, tl, wf, sums, sse_out, nt, blocks,
-                            tpg, T, su, si, lr, reg, mu, n_bins,
+                            tpg, T, su, si, lr, reg, mu, n_bins, bf16,
                             (cudaStream_t)stream);
   if (rank == 128)
     return launch<128, TIME>(P, Q, sa, tc, tl, wf, sums, sse_out, nt,
                              blocks, tpg, T, su, si, lr, reg, mu, n_bins,
-                             (cudaStream_t)stream);
+                             bf16, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -383,15 +392,16 @@ extern "C" int mfx_sgd_sweep_time_max_blocks(int T, int rank) {
   return max_blocks<true>(T, rank);
 }
 
+// bf16: 1 for the bf16 form (sgd.mxu='bf16'), 0 for f32.
 extern "C" int mfx_sgd_sweep(float* P, float* Q, const int* sa, const int* tc,
                              const int* tl, const int* runs, const int* wait,
                              int* state, float* sums, float* sse_out, int nt,
                              int nruns, int blocks, int tpg, int T, int su,
                              int si, int rank, float lr, float reg, float mu,
-                             void* stream) {
+                             int bf16, void* stream) {
   return sweep<false>(P, Q, sa, tc, tl, runs, wait, state, sums, sse_out, nt,
                       nruns, blocks, tpg, T, su, si, rank, lr, reg, mu, 0,
-                      stream);
+                      bf16, stream);
 }
 
 // The time form: tl holds 5 rows a tile (u, i, r bits, bin, dev bits).
@@ -405,5 +415,5 @@ extern "C" int mfx_sgd_sweep_time(float* P, float* Q, const int* sa,
                                   void* stream) {
   return sweep<true>(P, Q, sa, tc, tl, runs, wait, state, sums, sse_out, nt,
                      nruns, blocks, tpg, T, su, si, rank, lr, reg, mu, n_bins,
-                     stream);
+                     0, stream);
 }

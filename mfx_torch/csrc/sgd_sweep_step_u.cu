@@ -21,6 +21,11 @@
 //     pad tiles touch nothing.
 // With use_bias == 0 the bias terms are 0 and bu, bi are left untouched.
 // tpg is part of the math here: it sets the user-side batch.
+// bf16 (the reference's mxu_bf16 branch, sgd.mxu='bf16'; a runtime flag):
+// the group-start user rows and biases, and each tile's item rows and
+// biases, enter e_s and the deltas rounded to bf16; each delta, pooled or
+// applied, is rounded to bf16 before it is summed in f32; a row or bias
+// becomes its f32 value + that sum (sweep_common.cuh).
 //
 // Order of every sum (a run is bitwise repeatable; no float atomics):
 // dot and pred as sweep_common.cuh states. A user row's group sum is
@@ -107,7 +112,8 @@ sgd_sweep_step_u_kernel(float* P, float* Q, float* bu, float* bi,
                         const int* __restrict__ tc,
                         const int* __restrict__ tl, Wavefront wf,
                         float* __restrict__ sums, int tpg, int T, int su,
-                        int si, int use_bias, float lr, float reg, float mu) {
+                        int si, int use_bias, int bf16, float lr, float reg,
+                        float mu) {
   constexpr int H = HALF<RANK>, HQ4 = H / 4, ROW_Q4 = RANK / 4;
   constexpr int HALVES = RANK / H;
   extern __shared__ float4 smem_raw[];
@@ -143,7 +149,7 @@ sgd_sweep_step_u_kernel(float* P, float* Q, float* bu, float* bi,
       __syncthreads();
       // P and bu still hold the group's start: nothing wrote them since
       gather_residuals<RANK>(sm, P, Q, bu, bi, pbase, qbase, T, su, mu,
-                             use_bias);
+                             use_bias, bf16);
 
       // 5. the half in shared memory; at rank 128 then lanes 0-63 again
 #pragma unroll
@@ -162,7 +168,7 @@ sgd_sweep_step_u_kernel(float* P, float* Q, float* bu, float* bi,
           const int x = sm.keyU[p] >> 8;
           float4* a = acc4 + x * ROW_Q4 + q_off + q;
           *a = add4(*a, run_delta<HQ4>(sm.keyU, sm.Ps, sm.Qs, sm.e, p, q, lr,
-                                       reg));
+                                       reg, bf16));
           if (q_off + q == 0 && !flag[x]) {  // one thread a row and tile
             flag[x] = 1;
             list[atomicAdd(cnt, 1)] = x;
@@ -173,12 +179,13 @@ sgd_sweep_step_u_kernel(float* P, float* Q, float* bu, float* bi,
         const int pb = tid - MAX_T;
         if (biases && pb >= 0 && starts_run(sm.keyU, pb)) {
           const int x = sm.keyU[pb] >> 8;
-          accB[x] += run_bias_delta(sm.keyU, sm.bus, sm.e, pb, lr, reg);
+          accB[x] += run_bias_delta(sm.keyU, sm.bus, sm.e, pb, lr, reg, bf16);
         }
         // 5b. item side: applied now, the next tile of the group reads it
         scatter_side<HQ4, ROW_Q4>(Q, qbase, sm.keyI, sm.Qs, sm.Ps, sm.e,
-                                  q_off, lr, reg);
-        if (biases) scatter_bias(bi, qbase, sm.keyI, sm.bis, sm.e, 0, lr, reg);
+                                  q_off, lr, reg, bf16);
+        if (biases)
+          scatter_bias(bi, qbase, sm.keyI, sm.bis, sm.e, 0, lr, reg, bf16);
       }
       const float sse = tile_sse(sm, T);
       if (tid == 0) sums[t] = sse;
@@ -212,8 +219,8 @@ template <int RANK, bool SMEM_POOL>
 int launch(float* P, float* Q, float* bu, float* bi, float* pools,
            const int* sa, const int* tc, const int* tl, const Wavefront& wf,
            float* sums, float* sse_out, int nt, int blocks, int tpg, int T,
-           int su, int si, int use_bias, float lr, float reg, float mu,
-           cudaStream_t stream) {
+           int su, int si, int use_bias, int bf16, float lr, float reg,
+           float mu, cudaStream_t stream) {
   const size_t smem = smem_bytes<RANK>(T, su, SMEM_POOL);
   cudaError_t err = cudaFuncSetAttribute(
       sgd_sweep_step_u_kernel<RANK, SMEM_POOL>,
@@ -222,7 +229,7 @@ int launch(float* P, float* Q, float* bu, float* bi, float* pools,
   sgd_sweep_step_u_kernel<RANK, SMEM_POOL>
       <<<blocks, THREADS, smem, stream>>>(P, Q, bu, bi, pools, sa, tc, tl,
                                           wf, sums, tpg, T, su, si,
-                                          use_bias, lr, reg, mu);
+                                          use_bias, bf16, lr, reg, mu);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ordered_sum_kernel<<<1, SUM_THREADS, 0, stream>>>(sums, nt, sse_out);
@@ -288,7 +295,7 @@ extern "C" int mfx_sgd_sweep_step_u_pool_floats(int T, int rank, int su) {
 }
 
 // pools: blocks * mfx_sgd_sweep_step_u_pool_floats(T, rank, su) zeroed
-// floats, null where that is 0.
+// floats, null where that is 0. bf16: 1 for the bf16 form, 0 for f32.
 extern "C" int mfx_sgd_sweep_step_u(float* P, float* Q, float* bu, float* bi,
                                     float* pools, const int* sa,
                                     const int* tc, const int* tl,
@@ -296,8 +303,8 @@ extern "C" int mfx_sgd_sweep_step_u(float* P, float* Q, float* bu, float* bi,
                                     int* state, float* sums, float* sse_out,
                                     int nt, int nruns, int blocks, int tpg,
                                     int T, int su, int si, int rank,
-                                    int use_bias, float lr, float reg,
-                                    float mu, void* stream) {
+                                    int use_bias, int bf16, float lr,
+                                    float reg, float mu, void* stream) {
   if (!shape_ok(T, rank, su) || si > MAX_BLOCK || tpg < 1 || tpg > 8 ||
       nt % tpg || nruns < 1 || blocks < 1)
     return (int)cudaErrorInvalidValue;
@@ -310,10 +317,10 @@ extern "C" int mfx_sgd_sweep_step_u(float* P, float* Q, float* bu, float* bi,
     return shared                                                           \
                ? launch<R, true>(P, Q, bu, bi, pools, sa, tc, tl, wf, sums, \
                                  sse_out, nt, blocks, tpg, T, su, si,       \
-                                 use_bias, lr, reg, mu, st)                 \
+                                 use_bias, bf16, lr, reg, mu, st)           \
                : launch<R, false>(P, Q, bu, bi, pools, sa, tc, tl, wf,      \
                                   sums, sse_out, nt, blocks, tpg, T, su,    \
-                                  si, use_bias, lr, reg, mu, st);
+                                  si, use_bias, bf16, lr, reg, mu, st);
   MFX_STEP_U_CASE(128)
   MFX_STEP_U_CASE(64)
   MFX_STEP_U_CASE(32)

@@ -27,6 +27,12 @@
 // the row updates are as above, no bias is written, and each slot's
 // residual (0 for pad slots) goes to e_out[t * T + s] for the trainer's
 // batched bias update at the epoch's end.
+// bf16 (the reference's mxu_bf16 branch, sgd.mxu='bf16'; a runtime flag, in
+// every bias mode): p_s, q_s and, per tile, bu_s and bi_s enter e_s and the
+// deltas rounded to bf16, each delta is rounded to bf16 before the run's
+// f32 sum, and a row or bias becomes its f32 snapshot + that sum; the
+// epoch form's frozen biases are the reference's f32 stream, not rounded
+// (sweep_common.cuh).
 //
 // Order: the result is that of applying the tiles strictly in plan
 // order, as the TPU's sequential grid does. The launch's blocks share the
@@ -78,7 +84,8 @@ sgd_sweep_tile_kernel(float* P, float* Q, float* bu, float* bi,
                       const int* __restrict__ sa, const int* __restrict__ tc,
                       const int* __restrict__ tl, Wavefront wf,
                       float* __restrict__ sums, int tpg, int T, int su,
-                      int si, int use_bias, float lr, float reg, float mu) {
+                      int si, int use_bias, int bf16, float lr, float reg,
+                      float mu) {
   constexpr int H = HALF<RANK>, HQ4 = H / 4, ROW_Q4 = RANK / 4;
   constexpr int HALVES = RANK / H;
   extern __shared__ float4 smem_raw[];
@@ -96,7 +103,7 @@ sgd_sweep_tile_kernel(float* P, float* Q, float* bu, float* bi,
       const bool ends_stratum = await_tile(wf, t);
       __syncthreads();
       gather_residuals<RANK>(sm, P, Q, bu, bi, pbase, qbase, T, su, mu,
-                             use_bias);
+                             use_bias, bf16);
       if (use_bias == BIAS_EPOCH && threadIdx.x < T)
         e_out[(long long)t * T + threadIdx.x] = sm.e[threadIdx.x];
 
@@ -112,12 +119,13 @@ sgd_sweep_tile_kernel(float* P, float* Q, float* bu, float* bi,
         }
         const bool biases = use_bias == BIAS_TILE && h == HALVES - 1;
         scatter_side<HQ4, ROW_Q4>(P, pbase, sm.keyU, sm.Ps, sm.Qs, sm.e,
-                                  h * HQ4, lr, reg);
+                                  h * HQ4, lr, reg, bf16);
         if (biases) scatter_bias(bu, pbase, sm.keyU, sm.bus, sm.e, MAX_T, lr,
-                                 reg);
+                                 reg, bf16);
         scatter_side<HQ4, ROW_Q4>(Q, qbase, sm.keyI, sm.Qs, sm.Ps, sm.e,
-                                  h * HQ4, lr, reg);
-        if (biases) scatter_bias(bi, qbase, sm.keyI, sm.bis, sm.e, 0, lr, reg);
+                                  h * HQ4, lr, reg, bf16);
+        if (biases)
+          scatter_bias(bi, qbase, sm.keyI, sm.bis, sm.e, 0, lr, reg, bf16);
       }
       const float sse = tile_sse(sm, T);
       if (threadIdx.x == 0) sums[t] = sse;
@@ -131,8 +139,8 @@ template <int RANK>
 int launch(float* P, float* Q, float* bu, float* bi, float* e_out,
            const int* sa, const int* tc, const int* tl, const Wavefront& wf,
            float* sums, float* sse_out, int nt, int blocks, int tpg, int T,
-           int su, int si, int use_bias, float lr, float reg, float mu,
-           cudaStream_t stream) {
+           int su, int si, int use_bias, int bf16, float lr, float reg,
+           float mu, cudaStream_t stream) {
   const size_t smem = TileSmem<HALF<RANK>>::bytes(T);
   cudaError_t err = cudaFuncSetAttribute(
       sgd_sweep_tile_kernel<RANK>,
@@ -140,7 +148,7 @@ int launch(float* P, float* Q, float* bu, float* bi, float* e_out,
   if (err != cudaSuccess) return (int)err;
   sgd_sweep_tile_kernel<RANK><<<blocks, THREADS, smem, stream>>>(
       P, Q, bu, bi, e_out, sa, tc, tl, wf, sums, tpg, T, su, si, use_bias,
-      lr, reg, mu);
+      bf16, lr, reg, mu);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ordered_sum_kernel<<<1, SUM_THREADS, 0, stream>>>(sums, nt, sse_out);
@@ -167,15 +175,15 @@ extern "C" int mfx_sgd_sweep_tile_max_blocks(int T, int rank) {
 
 // use_bias: 0 no biases, 1 per-tile biases, 2 epoch-frozen biases (bu
 // and bi then read only). e_out: the (nt, T) f32 residuals, given exactly
-// when use_bias is 2.
+// when use_bias is 2. bf16: 1 for the bf16 form, 0 for f32.
 extern "C" int mfx_sgd_sweep_tile(float* P, float* Q, float* bu, float* bi,
                                   float* e_out, const int* sa, const int* tc,
                                   const int* tl, const int* runs,
                                   const int* wait, int* state, float* sums,
                                   float* sse_out, int nt, int nruns,
                                   int blocks, int tpg, int T, int su, int si,
-                                  int rank, int use_bias, float lr, float reg,
-                                  float mu, void* stream) {
+                                  int rank, int use_bias, int bf16, float lr,
+                                  float reg, float mu, void* stream) {
   if (su > MAX_BLOCK || si > MAX_BLOCK || T < 1 || T > MAX_T || tpg < 1 ||
       nruns < 1 || blocks < 1 || use_bias < BIAS_NONE ||
       use_bias > BIAS_EPOCH || ((use_bias == BIAS_EPOCH) != (e_out != nullptr)))
@@ -183,15 +191,15 @@ extern "C" int mfx_sgd_sweep_tile(float* P, float* Q, float* bu, float* bi,
   const Wavefront wf{runs, wait, state, nruns};
   if (rank == 128)
     return launch<128>(P, Q, bu, bi, e_out, sa, tc, tl, wf, sums, sse_out,
-                       nt, blocks, tpg, T, su, si, use_bias, lr, reg, mu,
+                       nt, blocks, tpg, T, su, si, use_bias, bf16, lr, reg, mu,
                        (cudaStream_t)stream);
   if (rank == 64)
     return launch<64>(P, Q, bu, bi, e_out, sa, tc, tl, wf, sums, sse_out, nt,
-                      blocks, tpg, T, su, si, use_bias, lr, reg, mu,
+                      blocks, tpg, T, su, si, use_bias, bf16, lr, reg, mu,
                       (cudaStream_t)stream);
   if (rank == 32)
     return launch<32>(P, Q, bu, bi, e_out, sa, tc, tl, wf, sums, sse_out, nt,
-                      blocks, tpg, T, su, si, use_bias, lr, reg, mu,
+                      blocks, tpg, T, su, si, use_bias, bf16, lr, reg, mu,
                       (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

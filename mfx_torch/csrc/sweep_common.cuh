@@ -16,6 +16,19 @@
 // share a sweep's tiles; dense_phase.cu uses its release / acquire pair,
 // its grid sizing and its in-order sum.
 //
+// bf16 (sgd.mxu='bf16', the reference's mxu_bf16 branch; a runtime flag of
+// the SGD sweeps): the values read from the tables enter the residual and
+// the deltas rounded to bf16 (round to nearest even): each row's lanes in
+// dot_part and run_delta, the per-tile biases in finish_residuals and
+// run_bias_delta; each slot's delta is rounded to bf16 before the run's
+// sum, which is f32. The rounding happens at these points of use only: the
+// snapshot in shared memory stays f32, so a row's new value is its f32
+// value plus the sum of its rounded deltas, as the reference's one-hot
+// scatter adds them to its f32 table. A bf16 delta is computed with
+// __fmul_rn / __fsub_rn, one rounding an operation and no contraction
+// into an fma, as the plain version's separate tensor ops round; with
+// the flag off every expression is the f32 form's, bit for bit.
+//
 // Order of every sum inside a tile, so that a run is bitwise repeatable:
 //   dot      8 threads a slot, each a fixed-order fma chain over its
 //            float4 (k, k + 8, ... of the row, across both halves where
@@ -60,6 +73,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -124,6 +138,24 @@ __device__ inline float dot4(float4 a, float4 b, float acc) {
 __device__ inline float delta(float e, float other, float own, float lr,
                               float reg) {
   return lr * (e * other - reg * own);
+}
+
+// x rounded to bf16 (round to nearest even) and widened back to f32
+__device__ inline float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ inline float4 bf16r4(float4 v) {
+  return make_float4(bf16r(v.x), bf16r(v.y), bf16r(v.z), bf16r(v.w));
+}
+
+// The bf16 form's delta of one lane: the operands rounded, lr (e other -
+// reg own) with one rounding an operation, the result rounded.
+__device__ inline float delta_bf16(float e, float other, float own, float lr,
+                                   float reg) {
+  return bf16r(__fmul_rn(
+      lr, __fsub_rn(__fmul_rn(e, bf16r(other)),
+                    __fmul_rn(reg, bf16r(own)))));
 }
 
 __device__ inline float4 add4(float4 a, float4 b) {
@@ -253,10 +285,11 @@ __device__ inline void sort_keys(int* key) {
 constexpr int DOT_SLOTS = MAX_T / (THREADS / 8);
 
 // 4a. this thread's fma chain of each of its slots' dots, over its float4
-// of the lanes in shared memory, carried on from v (0 at the tile's start)
+// of the lanes in shared memory, carried on from v (0 at the tile's start);
+// with bf16 of the lanes rounded to bf16
 template <int RANK>
 __device__ inline void dot_part(const TileSmem<RANK>& sm, int T,
-                                float (&v)[DOT_SLOTS]) {
+                                float (&v)[DOT_SLOTS], bool bf16 = false) {
   constexpr int Q4 = RANK / 4;
   const int g = threadIdx.x >> 3, k = threadIdx.x & 7;
 #pragma unroll
@@ -265,17 +298,26 @@ __device__ inline void dot_part(const TileSmem<RANK>& sm, int T,
     if (s < T) {
       const float4* p = sm.Ps + s * Q4;
       const float4* q = sm.Qs + s * Q4;
+      if (bf16) {
 #pragma unroll
-      for (int kk = k; kk < Q4; kk += 8) v[n] = dot4(p[kk], q[kk], v[n]);
+        for (int kk = k; kk < Q4; kk += 8)
+          v[n] = dot4(bf16r4(p[kk]), bf16r4(q[kk]), v[n]);
+      } else {
+#pragma unroll
+        for (int kk = k; kk < Q4; kk += 8) v[n] = dot4(p[kk], q[kk], v[n]);
+      }
     }
   }
 }
 
-// 4b. the butterfly over each group's 8 chains, then the residual
+// 4b. the butterfly over each group's 8 chains, then the residual; with
+// bf16 per-tile biases enter it rounded (epoch-frozen ones do not: they are
+// the reference's f32 stream)
 __device__ inline void finish_residuals(float* e, const int* uid,
                                         const float* bus, const float* bis,
                                         int T, int su, float mu, int use_bias,
-                                        float (&v)[DOT_SLOTS]) {
+                                        float (&v)[DOT_SLOTS],
+                                        bool bf16 = false) {
   const int g = threadIdx.x >> 3, k = threadIdx.x & 7;
 #pragma unroll
   for (int n = 0; n < DOT_SLOTS; ++n) {
@@ -289,6 +331,8 @@ __device__ inline void finish_residuals(float* e, const int* uid,
       float pred = w + mu;
       if (use_bias == BIAS_EPOCH)
         pred = pred + (bus[s] + bis[s]);
+      else if (use_bias == BIAS_TILE && bf16)
+        pred = (pred + bf16r(bus[s])) + bf16r(bis[s]);
       else if (use_bias == BIAS_TILE)
         pred = (pred + bus[s]) + bis[s];
       e[s] = uid[s] < su ? e[s] - pred : 0.f;
@@ -307,21 +351,22 @@ __device__ inline void gather_residuals(const TileSmem<HALF<RANK>>& sm,
                                         const float* bu, const float* bi,
                                         long long pbase, long long qbase,
                                         int T, int su, float mu,
-                                        int use_bias) {
+                                        int use_bias, bool bf16) {
   constexpr int H = HALF<RANK>, HQ4 = H / 4, ROW_Q4 = RANK / 4;
   gather<H, ROW_Q4>(sm, P, Q, bu, bi, pbase, qbase, T, su, use_bias);
   sort_keys<2>(sm.keyU);
   float v[DOT_SLOTS] = {};
-  dot_part(sm, T, v);
+  dot_part(sm, T, v, bf16);
 #pragma unroll
   for (int h = 1; h < RANK / H; ++h) {
     __syncthreads();
     gather<H, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
                       BIAS_NONE, h * HQ4);
     __syncthreads();
-    dot_part(sm, T, v);
+    dot_part(sm, T, v, bf16);
   }
-  finish_residuals(sm.e, sm.uid, sm.bus, sm.bis, T, su, mu, use_bias, v);
+  finish_residuals(sm.e, sm.uid, sm.bus, sm.bis, T, su, mu, use_bias, v,
+                   bf16);
   __syncthreads();
 }
 
@@ -332,34 +377,47 @@ __device__ inline bool starts_run(const int* key, int p) {
 }
 
 // Column quad q of the summed deltas of the run that starts at sorted
-// position p, its slots in ascending order.
+// position p, its slots in ascending order (each rounded to bf16 first
+// with bf16).
 template <int Q4>
 __device__ inline float4 run_delta(const int* key, const float4* own,
                                    const float4* other, const float* e, int p,
-                                   int q, float lr, float reg) {
+                                   int q, float lr, float reg,
+                                   bool bf16 = false) {
   const int x = key[p] >> 8;
   float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int pp = p; pp < MAX_T && (key[pp] >> 8) == x; ++pp) {
     const int j = key[pp] & 255;
     const float ej = e[j];
     const float4 o = other[j * Q4 + q], w = own[j * Q4 + q];
-    a.x += delta(ej, o.x, w.x, lr, reg);
-    a.y += delta(ej, o.y, w.y, lr, reg);
-    a.z += delta(ej, o.z, w.z, lr, reg);
-    a.w += delta(ej, o.w, w.w, lr, reg);
+    if (bf16) {
+      a.x += delta_bf16(ej, o.x, w.x, lr, reg);
+      a.y += delta_bf16(ej, o.y, w.y, lr, reg);
+      a.z += delta_bf16(ej, o.z, w.z, lr, reg);
+      a.w += delta_bf16(ej, o.w, w.w, lr, reg);
+    } else {
+      a.x += delta(ej, o.x, w.x, lr, reg);
+      a.y += delta(ej, o.y, w.y, lr, reg);
+      a.z += delta(ej, o.z, w.z, lr, reg);
+      a.w += delta(ej, o.w, w.w, lr, reg);
+    }
   }
   return a;
 }
 
-// The summed bias deltas lr (e - reg b) of the same run.
+// The summed bias deltas lr (e - reg b) of the same run (with bf16: b
+// rounded, each delta rounded).
 __device__ inline float run_bias_delta(const int* key, const float* b,
                                        const float* e, int p, float lr,
-                                       float reg) {
+                                       float reg, bool bf16 = false) {
   const int x = key[p] >> 8;
   float a = 0.f;
   for (int pp = p; pp < MAX_T && (key[pp] >> 8) == x; ++pp) {
     const int j = key[pp] & 255;
-    a += lr * (e[j] - reg * b[j]);
+    if (bf16)
+      a += bf16r(__fmul_rn(lr, __fsub_rn(e[j], __fmul_rn(reg, bf16r(b[j])))));
+    else
+      a += lr * (e[j] - reg * b[j]);
   }
   return a;
 }
@@ -373,7 +431,8 @@ template <int HQ4, int ROW_Q4>
 __device__ inline void scatter_side(float* table, long long base,
                                     const int* key, const float4* own,
                                     const float4* other, const float* e,
-                                    int q_off, float lr, float reg) {
+                                    int q_off, float lr, float reg,
+                                    bool bf16) {
   float4* T4 = reinterpret_cast<float4*>(table);
   for (int w = threadIdx.x; w < MAX_T * HQ4; w += THREADS) {
     const int q = w % HQ4, p = w / HQ4;
@@ -381,7 +440,7 @@ __device__ inline void scatter_side(float* table, long long base,
     const int x = key[p] >> 8, j0 = key[p] & 255;
     T4[(base + x) * ROW_Q4 + q_off + q] =
         add4(own[j0 * HQ4 + q],
-             run_delta<HQ4>(key, own, other, e, p, q, lr, reg));
+             run_delta<HQ4>(key, own, other, e, p, q, lr, reg, bf16));
   }
 }
 
@@ -391,12 +450,12 @@ __device__ inline void scatter_side(float* table, long long base,
 // [MAX_T, 2 MAX_T), beside the row scatters).
 __device__ inline void scatter_bias(float* b, long long base, const int* key,
                                     const float* snap, const float* e,
-                                    int lo, float lr, float reg) {
+                                    int lo, float lr, float reg, bool bf16) {
   static_assert(THREADS == 2 * MAX_T, "one bias writer a sorted position");
   const int p = threadIdx.x - lo;
   if (p < 0 || p >= MAX_T || !starts_run(key, p)) return;
   const int x = key[p] >> 8, j0 = key[p] & 255;
-  b[base + x] = snap[j0] + run_bias_delta(key, snap, e, p, lr, reg);
+  b[base + x] = snap[j0] + run_bias_delta(key, snap, e, p, lr, reg, bf16);
 }
 
 // The tile's sum of squared residuals; the value is whole on lane 0 of

@@ -31,12 +31,12 @@ _LL = ctypes.c_longlong
 # C signatures (mirrored by the extern "C" definitions in csrc/)
 _SIGNATURES = {
     "mfx_sgd_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _I, _I, _I, _I, _I, _F, _F, _F, _P],
+                      _I, _I, _I, _I, _I, _F, _F, _F, _I, _P],
     "mfx_sgd_sweep_max_blocks": [_I, _I],
     "mfx_sgd_sweep_time": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                            _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P],
     "mfx_sgd_sweep_time_max_blocks": [_I, _I],
-    "mfx_dense_phase": [_P] * 21 + [_I] * 9 + [_F, _F, _F, _P],
+    "mfx_dense_phase": [_P] * 21 + [_I] * 10 + [_F, _F, _F, _P],
     "mfx_dense_phase_max_blocks": [_I, _I, _I],
     "mfx_tile_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mfx_tile_topk_deep": [_P] * 6 + [_LL] + [_I] * 7 + [_P],
@@ -46,12 +46,12 @@ _SIGNATURES = {
                       _I, _I, _I, _I, _I, _F, _F, _P],
     "mfx_bpr_sweep_max_blocks": [_I, _I],
     "mfx_sgd_sweep_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                           _F, _P],
+                           _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                           _F, _F, _P],
     "mfx_sgd_sweep_tile_max_blocks": [_I, _I],
     "mfx_sgd_sweep_step_u": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                             _F, _P],
+                             _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                             _F, _F, _P],
     "mfx_sgd_sweep_step_u_max_blocks": [_I, _I, _I],
     "mfx_sgd_sweep_step_u_pool_floats": [_I, _I, _I],
 }

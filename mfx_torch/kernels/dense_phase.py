@@ -1,9 +1,12 @@
 """Dense-stratum SGD phase: wrapper of ``csrc/dense_phase.cu`` and its
 plain PyTorch version.
 
-Replaces ``mfx/kernels/dense_pallas.py::_kernel_body`` (echo 1, spg 1)
-in its three bias forms, each with int4 codes at ranks 32 and 64 and int8
-codes at ranks 32, 64 and 128 (echo and spg are ROADMAP Queue 2 item 3):
+Replaces ``mfx/kernels/dense_pallas.py::_kernel_body`` in its three bias
+forms, each with int4 codes at ranks 32 and 64 and int8 codes at ranks 32,
+64 and 128 (the reference has no other dense rank), with its ``echo``
+passes (lane and bias-free forms, as the reference); its ``spg``
+batching has no form here (the null strata it pads with are exact no-ops,
+:func:`mfx_torch.solvers.dense_prep.prepare_dense_full`):
 
 - ``bias='lane'`` (``lane=True``; ``bias_mode='lane'``): the biases ride
   in two factor lanes of the tables, which the update freezes;
@@ -27,6 +30,17 @@ over the per-stratum degrees and c = 1 / R4_SCALE (int4) or f32(1 /
 R_SCALE) (int8), as the reference decodes. The group's ``R`` says its
 format: uint8 ``(ND, su, si/2)`` is int4, int8 ``(ND, su, si)`` is int8.
 
+``echo`` > 1 (``sgd.dense_echo``) repeats that step ``echo`` times on each
+stratum before the next, each pass reading the tables the pass before it
+wrote; the SSE counts the first pass only. The reference refuses it with
+frozen biases (their batched update takes one pass's E sums), and so does
+this wrapper. On the card the passes are ``echo`` consecutive *slots* of
+the launch: slot k runs data stratum k // echo, and the group's
+dependency table, repeated per slot (``SweepDeps.repeat``), chains them.
+
+A stratum with no codes and no degrees (the reference's ``spg`` padding)
+is an exact no-op: E = 0 and reg·deg = 0.
+
 On CUDA tensors the wrapper launches the kernel (or raises); on CPU
 tensors it runs :func:`dense_phase_plain`. Nothing falls back.
 """
@@ -40,6 +54,7 @@ from mfx_torch.kernels.packing import row_add
 from mfx_torch.kernels.sgd_sweep import check_deps
 
 __all__ = ["dense_phase", "dense_phase_plain", "dense_bias_update",
+           "check_echo",
            "bias_step", "dense_launch", "dense_scratch", "bias_scratch",
            "launch",
            "plan_launch", "check_kernel_form", "code_format", "decode_codes",
@@ -83,10 +98,11 @@ def decode_codes(R: torch.Tensor, rfmt: str) -> torch.Tensor:
     return torch.stack([b & 15, b >> 4], dim=-1).reshape(R.shape[0], -1)
 
 
-def _validate(P, Q, grp, su, si, bias="lane", bu=None, bi=None):
+def _validate(P, Q, grp, su, si, bias="lane", bu=None, bi=None, echo=1):
     if bias not in BIAS_FORMS:
         raise ValueError(f"dense_phase: bias must be one of {BIAS_FORMS}, "
                          f"got {bias!r}")
+    check_echo(echo, bias)
     if (bias == "frozen") != (bu is not None and bi is not None):
         raise ValueError("dense_phase: bu and bi are given with "
                          "bias='frozen' and only then")
@@ -120,13 +136,26 @@ def _validate(P, Q, grp, su, si, bias="lane", bu=None, bi=None):
         raise ValueError("dense_phase: tables must be padded to whole blocks")
 
 
+def check_echo(echo, bias):
+    """The reference's checks of ``echo``: >= 1, and 1 in the frozen form
+    (ValueError, NotImplementedError)."""
+    if echo < 1:
+        raise ValueError(f"dense_phase: echo must be >= 1, got {echo}")
+    if echo > 1 and bias == "frozen":
+        raise NotImplementedError(
+            "dense echo > 1 requires lane-carried biases "
+            "(sgd.bias_mode='lane') or use_bias=False: the frozen-bias "
+            "post-phase update consumes single-pass E sums")
+
+
 def dense_phase_plain(P, Q, grp, lr, reg, mu, *, su, si, bias="lane",
-                      bu=None, bi=None):
-    """Plain PyTorch version: the same strata, one by one. Updates P and
-    the group's item segment Q in place; returns the phase's SSE, and in
-    the frozen form ``(sse, (dbu, dbi))``: each stratum's row sums (ND,
-    su) and column sums (ND, si) of E. ``bu`` and ``bi`` (frozen form) are
-    read, never written."""
+                      bu=None, bi=None, echo=1):
+    """Plain PyTorch version: the same strata, one by one, each ``echo``
+    times. Updates P and the group's item segment Q in place; returns the
+    phase's SSE (first passes only), and in the frozen form ``(sse, (dbu,
+    dbi))``: each stratum's row sums (ND, su) and column sums (ND, si) of
+    E. ``bu`` and ``bi`` (frozen form) are read, never written."""
+    check_echo(echo, bias)
     rank = P.shape[1]
     dev = P.device
     lane = bias == "lane"
@@ -147,29 +176,31 @@ def dense_phase_plain(P, Q, grp, lr, reg, mu, *, su, si, bias="lane",
         Pb = P[a * su:(a + 1) * su]
         Qw = Q[c * si:(c + 1) * si]
         code = decode_codes(grp["R"][s], rfmt)
-        S = Pb @ Qw.T
-        X = code.to(torch.float32) * inv - S
-        if frozen:  # the reference's order: (((c·code − S) − bu) − bi) − μ
-            X = ((X - bu[a * su:(a + 1) * su, None])
-                 - bi[None, c * si:(c + 1) * si])
-        E = torch.where(code > 0, X - mu,
-                        torch.zeros((), dtype=torch.float32, device=dev))
-        sse = sse + (E * E).sum()
-        if frozen:
-            dbu[s] = E.sum(1)
-            dbi[s] = E.sum(0)
         du = grp["du_s"][s][:, None]
         di = grp["di_s"][s][:, None]
         s_u = torch.clamp(DSTAR / torch.clamp(du, min=1.0), max=1.0)
         s_i = torch.clamp(DSTAR / torch.clamp(di, min=1.0), max=1.0)
-        gP = E @ Qw - reg * du * Pb
-        gQ = E.T @ Pb - reg * di * Qw
-        if lane:
-            gP, gQ = gP * mP, gQ * mQ
-        newP = Pb + lr * s_u * gP
-        newQ = Qw + lr * s_i * gQ
-        Pb.copy_(newP)
-        Qw.copy_(newQ)
+        for it in range(echo):
+            S = Pb @ Qw.T
+            X = code.to(torch.float32) * inv - S
+            if frozen:  # the reference's: (((c·code − S) − bu) − bi) − μ
+                X = ((X - bu[a * su:(a + 1) * su, None])
+                     - bi[None, c * si:(c + 1) * si])
+            E = torch.where(code > 0, X - mu,
+                            torch.zeros((), dtype=torch.float32, device=dev))
+            if it == 0:
+                sse = sse + (E * E).sum()
+            if frozen:
+                dbu[s] = E.sum(1)
+                dbi[s] = E.sum(0)
+            gP = E @ Qw - reg * du * Pb
+            gQ = E.T @ Pb - reg * di * Qw
+            if lane:
+                gP, gQ = gP * mP, gQ * mQ
+            newP = Pb + lr * s_u * gP
+            newQ = Qw + lr * s_i * gQ
+            Pb.copy_(newP)
+            Qw.copy_(newQ)
     return (sse, (dbu, dbi)) if frozen else sse
 
 
@@ -243,7 +274,8 @@ def _apply_units(si, rank):
 def dense_launch(lib, deps, nd, su, si, dev, blocks, rank, rfmt,
                  bias="lane"):
     """What the kernel takes beside the group and its scratch: ``(runs,
-    wait, order, ring, grid)``.
+    wait, order, ring, grid)``. ``nd`` counts the launch's slots (strata
+    times echo passes).
 
     ``runs`` / ``wait`` are the dependency table's and ``order`` the order
     in which the kernel hands the strata out, a list schedule of the table
@@ -278,16 +310,17 @@ def dense_launch(lib, deps, nd, su, si, dev, blocks, rank, rfmt,
     return runs, wait, order, ring, grid
 
 
-def plan_launch(grp, su, si, rank, bias="lane"):
+def plan_launch(grp, su, si, rank, bias="lane", echo=1):
     """Work out, on the host, the order in which the kernel will hand out
     the group's strata at the card's grid (``deps.list_order``, kept on
-    the table), as the first :func:`dense_phase` call on the card would:
-    the trainer calls it at prep so that no epoch pays for it. Nothing to
-    do on the CPU or without a table."""
+    the table, which orders ``echo`` slots a stratum), as the first
+    :func:`dense_phase` call on the card would: the trainer calls it at
+    prep so that no epoch pays for it. Nothing to do on the CPU or without
+    a table."""
     if grp["R"].device.type == "cuda" and "deps" in grp:
-        dense_launch(_build.load_library(), grp["deps"], grp["sa"].shape[0],
-                     su, si, grp["R"].device, None, rank,
-                     code_format(grp["R"]), bias)
+        dense_launch(_build.load_library(), grp["deps"],
+                     grp["sa"].shape[0] * echo, su, si, grp["R"].device,
+                     None, rank, code_format(grp["R"]), bias)
 
 
 def dense_scratch(nd, su, si, ring, dev, rank):
@@ -319,14 +352,14 @@ def bias_scratch(nd, su, si, ring, dev):
 
 
 def launch(lib, P, Q, grp, lr, reg, mu, su, si, runs, wait, order, ring,
-           grid, bias="lane", bu=None, bi=None):
+           grid, bias="lane", bu=None, bi=None, echo=1):
     """One launch of the kernel on the group with the scheduler arguments
     of :func:`dense_launch` (``measure_wavefront`` also passes others) and
     fresh scratch. Returns the SSE (0-d f32), and in the frozen form
     ``(sse, (dbu, dbi))`` as :func:`dense_phase`."""
     nd, dev, rank = grp["sa"].shape[0], P.device, P.shape[1]
-    state, ring_buf, dp_buf, sums = dense_scratch(nd, su, si, ring, dev,
-                                                  rank)
+    state, ring_buf, dp_buf, sums = dense_scratch(nd * echo, su, si, ring,
+                                                  dev, rank)
     frozen = bias == "frozen"
     dbu, dbi, rs_buf, cs_buf = (bias_scratch(nd, su, si, ring, dev)
                                 if frozen else (None,) * 4)
@@ -342,9 +375,10 @@ def launch(lib, P, Q, grp, lr, reg, mu, su, si, runs, wait, order, ring,
         grp["di_s"].data_ptr(), ptr(bu), ptr(bi), ptr(dbu), ptr(dbi),
         ptr(rs_buf), ptr(cs_buf), runs.data_ptr(), ptr(wait), ptr(order),
         state.data_ptr(), ring_buf.data_ptr(), dp_buf.data_ptr(),
-        sums.data_ptr(), sse.data_ptr(), nd, runs.shape[0], ring, grid, su,
-        si, rank, int(code_format(grp["R"]) == "int8"),
-        BIAS_FORMS.index(bias), float(lr), float(reg), float(mu), stream,
+        sums.data_ptr(), sse.data_ptr(), nd * echo, runs.shape[0], ring,
+        grid, su, si, rank, int(code_format(grp["R"]) == "int8"),
+        BIAS_FORMS.index(bias), echo, float(lr), float(reg), float(mu),
+        stream,
     ), "dense_phase")
     return (sse[0], (dbu, dbi)) if frozen else sse[0]
 
@@ -352,22 +386,22 @@ def launch(lib, P, Q, grp, lr, reg, mu, su, si, runs, wait, order, ring,
 def check_kernel_form(P, grp, su, si):
     """What the kernel is built for, in each of its bias forms: ranks 32
     and 64 with int4 or int8 codes, rank 128 with int8 codes (the
-    reference's forms: it takes int8 only at rank 128), user blocks that
-    are multiples of 64 and item windows that are multiples of 128; raises
-    NotImplementedError naming the ROADMAP item otherwise."""
+    reference's forms: it has no other dense rank and takes int8 only at
+    rank 128), user blocks that are multiples of 64 and item windows that
+    are multiples of 128; raises NotImplementedError otherwise."""
     rank, rfmt = P.shape[1], code_format(grp["R"])
     if (rank, rfmt) not in _FORMS or su % 64 or si % 128:
         raise NotImplementedError(
             "dense_phase kernel is built for ranks 32 and 64 (int4 or int8 "
             "codes) and rank 128 (int8), user blocks that are multiples of "
             "64 and item windows that are multiples of 128 (got rank "
-            f"{rank}, {rfmt}, su={su}, si={si}); other forms are ROADMAP "
-            "Queue 2 item 3"
+            f"{rank}, {rfmt}, su={su}, si={si}); the reference's dense "
+            "path has no other form"
         )
 
 
 def dense_phase(P, Q, grp, lr, reg, mu, *, su, si, bias="lane", bu=None,
-                bi=None, deps=None, blocks=None):
+                bi=None, deps=None, blocks=None, echo=1):
     """One dense group. ``P`` is the padded user table (lane form for
     ``bias='lane'``, canonical otherwise); ``Q`` the group's item segment
     (a contiguous row range of the padded item table); ``grp`` holds
@@ -389,24 +423,33 @@ def dense_phase(P, Q, grp, lr, reg, mu, *, su, si, bias="lane", bu=None,
     each stratum waits for the one before (its units still spread over
     the blocks). Tables and SSE are bit for bit the same either way and
     on any grid. The CPU route ignores both and walks the strata in plan
-    order."""
-    _validate(P, Q, grp, su, si, bias, bu, bi)
+    order.
+
+    ``echo`` (lane and bias-free forms): SGD passes a stratum, the SSE of
+    the first. With ``deps`` the table must order ``echo`` slots a
+    stratum (``grp["deps"].repeat(echo)``)."""
+    _validate(P, Q, grp, su, si, bias, bu, bi, echo)
     if P.device.type == "cpu":
         return dense_phase_plain(P, Q, grp, lr, reg, mu, su=su, si=si,
-                                 bias=bias, bu=bu, bi=bi)
+                                 bias=bias, bu=bu, bi=bi, echo=echo)
     if P.device.type != "cuda":
         raise ValueError(f"dense_phase: no kernel for device {P.device}")
     check_kernel_form(P, grp, su, si)
     lib = _build.load_library()
-    sched = dense_launch(lib, deps, grp["sa"].shape[0], su, si, P.device,
-                         blocks, P.shape[1], code_format(grp["R"]), bias)
+    sched = dense_launch(lib, deps, grp["sa"].shape[0] * echo, su, si,
+                         P.device, blocks, P.shape[1], code_format(grp["R"]),
+                         bias)
     out = launch(lib, P, Q, grp, lr, reg, mu, su, si, *sched, bias=bias,
-                 bu=bu, bi=bi)
+                 bu=bu, bi=bi, echo=echo)
     dense_phase.launches += 1
     dense_phase.form_launches[bias] += 1
+    if echo > 1:
+        dense_phase.echo_launches[bias] += 1
     return out
 
 
 dense_phase.launches = 0
 # the same launches by bias form, so that a run can show which form it took
 dense_phase.form_launches = dict.fromkeys(BIAS_FORMS, 0)
+# the launches with echo > 1, by bias form (counted above too)
+dense_phase.echo_launches = dict.fromkeys(BIAS_FORMS, 0)

@@ -76,6 +76,25 @@ class SweepDeps:
                                                 device=self.runs.device)
         return self._orders[key]
 
+    def repeat(self, k: int) -> "SweepDeps":
+        """The table of the stream with each tile replaced by ``k``
+        consecutive copies (the dense phase's echo passes, one slot each):
+        a copy follows the one before it in its run, the first copy of a
+        tile waits for what the tile waited for (counted in copies), and
+        only the last copy of a stratum's last tile may be waited for."""
+        if k == 1:
+            return self
+        runs = self.runs.cpu().numpy().astype(np.int64) * k
+        w = self.wait.cpu().numpy()
+        wait = np.tile(np.array([-1, 0, 0], np.int32), (w.shape[0] * k, 1))
+        wait[0::k, :2] = np.stack([w[:, 0], w[:, 1] * k], axis=1)
+        wait[k - 1::k, 2] = w[:, 2]
+        runs = runs.astype(np.int32)
+        return SweepDeps(
+            runs=torch.as_tensor(runs, device=self.runs.device),
+            wait=torch.as_tensor(wait, device=self.wait.device),
+            n_tiles=self.n_tiles * k, critical=critical_path(runs, wait))
+
     def prefix(self, nt: int) -> "SweepDeps":
         """The table of the sweep's first ``nt`` tiles (a wait only ever
         names an earlier run, so a prefix orders itself)."""

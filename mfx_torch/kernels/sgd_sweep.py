@@ -30,6 +30,29 @@ walking the tiles in plan order. Every wrapper here (and
 (``plan_device.SweepDeps``), walks them on as many SMs as the table
 allows and gives the same bits.
 
+``bf16=True`` (``sgd.mxu='bf16'``; every wrapper but
+:func:`sgd_sweep_time`, whose reference form takes no ``mxu``) is the
+reference's ``mxu_bf16`` branch: the gathered factor rows (and, with tile
+biases, the gathered biases) enter the residual and the deltas rounded to
+bf16 (round to nearest even), each slot's delta is rounded to bf16 before
+the run's sum, and the sum is taken in f32. The tables stay f32: a row's
+new value is its f32 value plus the sum of its rounded deltas. A rounding
+to bf16 is a step of 2^-8 of the value, so an ulp's difference in a
+residual can move a delta by a whole bf16 step; the plain versions of the
+bf16 form therefore take every sum in the kernels' order (the dot's fma
+chains, :func:`kernel_dot`; each row's deltas from 0 in slot order, then
+added to the row, :func:`run_add`; step_u's pool, :func:`_pool_add`) and
+so give the kernels' values.
+
+The f32 plain versions keep the plain sums (``(p * q).sum(1)``,
+``packing.row_add``): the fork is ``_dot`` / ``_add`` and step_u's pool.
+Their tests against the reference pass in the kernels' order too, but
+that order walks each row's run one occurrence at a time and each dot in
+f64 steps: 3-6 times the plain sums' time on the card's 2,048-tile check,
+and more on hot tiles, on every CPU trainer run. An f32 delta is not
+rounded again, so a one-ulp difference in a sum stays one ulp, and the
+f32 forms are held to a tolerance, not to the bits.
+
 On CUDA tensors a wrapper launches its kernel (or raises); on CPU tensors
 it runs its plain version. Nothing falls back.
 """
@@ -41,16 +64,78 @@ import torch
 from mfx_torch.kernels import _build
 from mfx_torch.kernels.packing import row_add
 
-__all__ = ["SWEEP_RANKS", "sgd_sweep", "sgd_sweep_plain", "sgd_sweep_time",
-           "sgd_sweep_tile",
+__all__ = ["SWEEP_RANKS", "bf16_round", "kernel_dot", "run_sums", "run_add",
+           "sgd_sweep", "sgd_sweep_plain", "sgd_sweep_time", "sgd_sweep_tile",
            "sgd_sweep_tile_plain", "sgd_sweep_epoch", "sgd_sweep_epoch_plain",
-           "sgd_sweep_step_u",
-           "sgd_sweep_step_u_plain", "check_sweep_args",
+           "sgd_sweep_step_u", "sgd_sweep_step_u_plain", "check_sweep_args",
            "check_kernel_limits", "check_deps", "wavefront_launch"]
 
 # the ranks every sweep kernel is built for: csrc/sgd_sweep.cu (lane and
 # time forms), sgd_sweep_tile.cu, sgd_sweep_step_u.cu and bpr_sweep.cu
 SWEEP_RANKS = (32, 64, 128)
+
+
+def bf16_round(x: torch.Tensor, on: bool = True) -> torch.Tensor:
+    """``x`` rounded to bf16 (round to nearest even) and widened back to
+    f32 where ``on``; ``x`` itself otherwise."""
+    return x.to(torch.bfloat16).to(torch.float32) if on else x
+
+
+def kernel_dot(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Each row's dot of ``p`` and ``q`` (n, rank) in the sweep kernels'
+    order (``csrc/sweep_common.cuh``, ``dot_part``): 8 chains, chain k an
+    fma over lanes 4 (k + 8 j) .. 4 (k + 8 j) + 3 for j ascending (each fma
+    one rounding: the product is exact in f64 and the f64 sum is rounded
+    to f32), then ((c0 + c4) + (c2 + c6)) + ((c1 + c5) + (c3 + c7))."""
+    n, rank = p.shape
+    a = p.double().reshape(n, rank // 32, 8, 4)
+    b = q.double().reshape(n, rank // 32, 8, 4)
+    c = torch.zeros(n, 8, dtype=torch.float32, device=p.device)
+    for j in range(rank // 32):
+        for x in range(4):
+            c = (a[:, j, :, x] * b[:, j, :, x] + c.double()).float()
+    return (((c[:, 0] + c[:, 4]) + (c[:, 2] + c[:, 6]))
+            + ((c[:, 1] + c[:, 5]) + (c[:, 3] + c[:, 7])))
+
+
+def run_sums(rows: torch.Tensor, delta: torch.Tensor):
+    """``(uniq, sums)``: the distinct ``rows`` (ascending) and each one's
+    ``delta`` rows summed from 0 in slot order, as a kernel sums a row's
+    run, on either device."""
+    uniq, inv = torch.unique(rows, return_inverse=True)
+    sums = torch.zeros((uniq.shape[0],) + delta.shape[1:],
+                       dtype=delta.dtype, device=delta.device)
+    if rows.numel() == 0:
+        return uniq, sums
+    by_row = torch.sort(inv, stable=True).indices
+    counts = torch.bincount(inv, minlength=uniq.shape[0])
+    starts = torch.cumsum(counts, 0) - counts
+    occ = torch.empty_like(inv)  # each slot's place in its row's run
+    occ[by_row] = (torch.arange(inv.shape[0], device=inv.device)
+                   - starts[inv[by_row]])
+    for k in range(int(occ.max()) + 1):
+        at = occ == k  # at most one slot a row
+        sums[inv[at]] = sums[inv[at]] + delta[at]
+    return uniq, sums
+
+
+def run_add(table: torch.Tensor, rows: torch.Tensor,
+            delta: torch.Tensor) -> None:
+    """``table[rows] += delta`` as a kernel writes a tile's runs: each
+    distinct row becomes its value plus its deltas' :func:`run_sums`."""
+    uniq, sums = run_sums(rows, delta)
+    table[uniq] = table[uniq] + sums
+
+
+def _dot(p, q, bf16):
+    return kernel_dot(p, q) if bf16 else (p * q).sum(1)
+
+
+def _add(table, rows, delta, bf16):
+    if bf16:
+        run_add(table, rows, delta)
+    else:
+        row_add(table, rows, delta)
 
 
 def check_sweep_args(who, P, Q, sa, tc, tl, su, si, tpg, bu=None, bi=None,
@@ -154,14 +239,17 @@ def wavefront_launch(who, lib, deps, nt, T, dev, blocks, sizing=(),
 
 
 def sgd_sweep_plain(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg,
-                    n_bins=0):
+                    n_bins=0, bf16=False):
     """Plain PyTorch version: the same sweep, tile by tile. Updates P and
     the item segment Q in place; returns the sweep's SSE (0-d f32).
+    ``bf16``: the rounded form (module docstring); not with ``n_bins``.
 
     ``n_bins`` > 0: the time form (``tl`` of 5 rows). With L = rank - 3 -
     n_bins, each real slot's snapshot takes 1 more in P lane L + bin and
     dev more in Q lane rank-3 before the residual and the deltas; P's bin
     lanes and Q's lane rank-3 are frozen beside the constant-1 lanes."""
+    if n_bins and bf16:
+        raise ValueError("sgd_sweep_plain: the time form takes no bf16")
     rank = P.shape[1]
     dev = P.device
     mP = torch.ones(rank, dtype=P.dtype, device=dev)
@@ -186,17 +274,18 @@ def sgd_sweep_plain(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg,
             slots = torch.arange(p.shape[0], device=dev)
             p[slots, L + tl[t, 3][real].long()] += 1.0
             q[:, rank - 3] += tl[t, 4].view(torch.float32)[real]
-        e = r - ((p * q).sum(1) + mu)
-        dp = lr * (e[:, None] * q - reg * p) * mP
-        dq = lr * (e[:, None] * p - reg * q) * mQ
-        row_add(P, rows_u, dp)
-        row_add(Q, rows_i, dq)
+        p, q = bf16_round(p, bf16), bf16_round(q, bf16)
+        e = r - (_dot(p, q, bf16) + mu)
+        dp = bf16_round(lr * (e[:, None] * q - reg * p), bf16) * mP
+        dq = bf16_round(lr * (e[:, None] * p - reg * q), bf16) * mQ
+        _add(P, rows_u, dp, bf16)
+        _add(Q, rows_i, dq, bf16)
         sse = sse + (e * e).sum()
     return sse
 
 
 def _lane_sweep(wrapper, P, Q, sa, tc, tl, lr, reg, mu, su, si, tpg, deps,
-                blocks, n_bins=0):
+                blocks, n_bins=0, bf16=False):
     """The lane wrappers' common body: :func:`sgd_sweep` and, with
     ``n_bins`` > 0, :func:`sgd_sweep_time`."""
     who = wrapper.__name__
@@ -207,7 +296,7 @@ def _lane_sweep(wrapper, P, Q, sa, tc, tl, lr, reg, mu, su, si, tpg, deps,
                          f"at rank {P.shape[1]}")
     if P.device.type == "cpu":
         return sgd_sweep_plain(P, Q, sa, tc, tl, lr, reg, mu, su=su, si=si,
-                               tpg=tpg, n_bins=n_bins)
+                               tpg=tpg, n_bins=n_bins, bf16=bf16)
     if P.device.type != "cuda":
         raise ValueError(f"{who}: no kernel for device {P.device}")
     check_kernel_limits(who, P, tl, su, si)
@@ -217,21 +306,23 @@ def _lane_sweep(wrapper, P, Q, sa, tc, tl, lr, reg, mu, su, si, tpg, deps,
         who, lib, deps, nt, T, P.device, blocks, sizing=(P.shape[1],))
     sse = torch.empty(1, dtype=torch.float32, device=P.device)
     stream = torch.cuda.current_stream(P.device).cuda_stream
-    time_arg = (n_bins,) if n_bins else ()
+    form_arg = (n_bins,) if n_bins else (int(bf16),)
     _build.check(getattr(lib, f"mfx_{who}")(
         P.data_ptr(), Q.data_ptr(), sa.data_ptr(), tc.data_ptr(),
         tl.data_ptr(), runs.data_ptr(),
         None if wait is None else wait.data_ptr(), state.data_ptr(),
         sums.data_ptr(), sse.data_ptr(), nt, runs.shape[0], grid, tpg, T,
-        su, si, P.shape[1], float(lr), float(reg), float(mu), *time_arg,
+        su, si, P.shape[1], float(lr), float(reg), float(mu), *form_arg,
         stream,
     ), who)
     wrapper.launches += 1
+    if bf16:
+        wrapper.bf16_launches += 1
     return sse[0]
 
 
 def sgd_sweep(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg, deps=None,
-              blocks=None):
+              blocks=None, bf16=False):
     """One item-sweep. ``P`` is the padded lane-form user table
     (A·su, rank), rank 32, 64 or 128; ``Q`` the sweep's item segment
     (nwin·si, rank), a contiguous row range of the padded item table;
@@ -245,9 +336,10 @@ def sgd_sweep(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg, deps=None,
     ``blocks`` thread blocks (default: as many as the card holds at once)
     and the tables and the SSE are bit for bit those of ``blocks=1``, the
     plan-order walk. Without it one block walks the stream in plan order.
-    The CPU route ignores both."""
+    The CPU route ignores both. ``bf16``: the rounded form (``sgd.mxu=
+    'bf16'``, module docstring)."""
     return _lane_sweep(sgd_sweep, P, Q, sa, tc, tl, lr, reg, mu, su, si,
-                       tpg, deps, blocks)
+                       tpg, deps, blocks, bf16=bf16)
 
 
 def sgd_sweep_time(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg, n_bins,
@@ -269,53 +361,62 @@ def sgd_sweep_time(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg, n_bins,
 
 sgd_sweep.launches = 0
 sgd_sweep_time.launches = 0
+# the launches of the bf16 form (sgd.mxu='bf16'), counted in launches too
+sgd_sweep.bf16_launches = 0
 
 
-def _tile_terms(P, Q, bu, bi, tl, t, rows_u0, rows_i0, su, mu, use_bias):
+def _tile_terms(P, Q, bu, bi, tl, t, rows_u0, rows_i0, su, mu, use_bias,
+                bf16=False):
     """One tile's real slots against the given state: global row ids,
-    snapshots, and the residual e = r - (((p.q + mu) + bu) + bi)."""
+    snapshots (rounded to bf16 with ``bf16``), and the residual e = r -
+    (((p.q + mu) + bu) + bi)."""
     u, i = tl[t, 0].long(), tl[t, 1].long()
     real = u < su
     r = tl[t, 2].view(torch.float32)[real]
     rows_u, rows_i = rows_u0 + u[real], rows_i0 + i[real]
-    p, q = P[rows_u], Q[rows_i]
-    pred = (p * q).sum(1) + mu
+    p, q = bf16_round(P[rows_u], bf16), bf16_round(Q[rows_i], bf16)
+    pred = _dot(p, q, bf16) + mu
     b_u = b_i = None
     if use_bias:
-        b_u, b_i = bu[rows_u], bi[rows_i]
+        b_u, b_i = bf16_round(bu[rows_u], bf16), bf16_round(bi[rows_i], bf16)
         pred = pred + b_u + b_i
     return rows_u, rows_i, p, q, b_u, b_i, r - pred
 
 
 def sgd_sweep_tile_plain(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si,
-                         tpg, use_bias=True):
+                         tpg, use_bias=True, bf16=False):
     """Plain PyTorch version of :func:`sgd_sweep_tile`: tile by tile,
     gather from the current tables, then segment-summed row and bias
     updates on all lanes. Updates P, Q (and bu, bi) in place; returns the
-    sweep's SSE (0-d f32)."""
+    sweep's SSE (0-d f32). ``bf16``: the rounded form (module
+    docstring)."""
     sa_h, tc_h = sa.tolist(), tc.tolist()
     sse = torch.zeros((), dtype=torch.float32, device=P.device)
     for t in range(tl.shape[0]):
         rows_u, rows_i, p, q, b_u, b_i, e = _tile_terms(
             P, Q, bu, bi, tl, t, sa_h[t // tpg] * su, tc_h[t] * si, su, mu,
-            use_bias)
-        row_add(P, rows_u, lr * (e[:, None] * q - reg * p))
-        row_add(Q, rows_i, lr * (e[:, None] * p - reg * q))
+            use_bias, bf16)
+        _add(P, rows_u, bf16_round(lr * (e[:, None] * q - reg * p), bf16),
+             bf16)
+        _add(Q, rows_i, bf16_round(lr * (e[:, None] * p - reg * q), bf16),
+             bf16)
         if use_bias:
-            row_add(bu, rows_u, lr * (e - reg * b_u))
-            row_add(bi, rows_i, lr * (e - reg * b_i))
+            _add(bu, rows_u, bf16_round(lr * (e - reg * b_u), bf16), bf16)
+            _add(bi, rows_i, bf16_round(lr * (e - reg * b_i), bf16), bf16)
         sse = sse + (e * e).sum()
     return sse
 
 
 def sgd_sweep_epoch_plain(P, Q, bu, bi, sa, tc, tl, e_out, lr, reg, mu, *,
-                          su, si, tpg):
+                          su, si, tpg, bf16=False):
     """Plain PyTorch version of :func:`sgd_sweep_epoch`, in the reference's
     form: the per-slot bias stream bt = bu[u] + bi[i] is built first from
     the biases as they stand, then tile by tile e = r - ((p.q + mu) + bt)
     and segment-summed row updates on all lanes. Updates P and Q in place,
     writes each slot's residual (0 in pads) to ``e_out`` (NT, T); returns
-    the sweep's SSE (0-d f32)."""
+    the sweep's SSE (0-d f32). ``bf16``: the factor rows and the deltas
+    rounded (module docstring); bt is the reference's f32 stream, not
+    rounded."""
     nt, T = tl.shape[0], tl.shape[2]
     t_of = torch.arange(nt, device=P.device)[:, None]
     real = tl[:, 0] < su
@@ -328,23 +429,24 @@ def sgd_sweep_epoch_plain(P, Q, bu, bi, sa, tc, tl, e_out, lr, reg, mu, *,
     for t in range(nt):
         m = real[t]
         ru, ri = rows_u[t][m], rows_i[t][m]
-        p, q = P[ru], Q[ri]
-        e = tl[t, 2].view(torch.float32)[m] - (((p * q).sum(1) + mu)
+        p, q = bf16_round(P[ru], bf16), bf16_round(Q[ri], bf16)
+        e = tl[t, 2].view(torch.float32)[m] - ((_dot(p, q, bf16) + mu)
                                                + bt[t][m])
-        row_add(P, ru, lr * (e[:, None] * q - reg * p))
-        row_add(Q, ri, lr * (e[:, None] * p - reg * q))
+        _add(P, ru, bf16_round(lr * (e[:, None] * q - reg * p), bf16), bf16)
+        _add(Q, ri, bf16_round(lr * (e[:, None] * p - reg * q), bf16), bf16)
         e_out[t, m] = e
         sse = sse + (e * e).sum()
     return sse
 
 
 def sgd_sweep_step_u_plain(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si,
-                           tpg, use_bias=True):
+                           tpg, use_bias=True, bf16=False):
     """Plain PyTorch version of :func:`sgd_sweep_step_u`: per group of
     ``tpg`` tiles the user rows and user biases are read from the state
     at the group's start (nothing writes them inside the group); each
     tile reads and updates the current Q and bi; the user side's deltas
-    of the whole group are segment-summed and applied at its end."""
+    of the whole group are segment-summed and applied at its end.
+    ``bf16``: the rounded form (module docstring)."""
     sa_h, tc_h = sa.tolist(), tc.tolist()
     sse = torch.zeros((), dtype=torch.float32, device=P.device)
     for g in range(tl.shape[0] // tpg):
@@ -352,14 +454,20 @@ def sgd_sweep_step_u_plain(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si,
         for t in range(g * tpg, (g + 1) * tpg):
             rows_u, rows_i, p, q, b_u, b_i, e = _tile_terms(
                 P, Q, bu, bi, tl, t, sa_h[g] * su, tc_h[t] * si, su, mu,
-                use_bias)
+                use_bias, bf16)
             rows.append(rows_u)
-            d_p.append(lr * (e[:, None] * q - reg * p))
-            row_add(Q, rows_i, lr * (e[:, None] * p - reg * q))
+            d_p.append(bf16_round(lr * (e[:, None] * q - reg * p), bf16))
+            _add(Q, rows_i, bf16_round(lr * (e[:, None] * p - reg * q), bf16),
+                 bf16)
             if use_bias:
-                d_bu.append(lr * (e - reg * b_u))
-                row_add(bi, rows_i, lr * (e - reg * b_i))
+                d_bu.append(bf16_round(lr * (e - reg * b_u), bf16))
+                _add(bi, rows_i, bf16_round(lr * (e - reg * b_i), bf16), bf16)
             sse = sse + (e * e).sum()
+        if bf16:  # the kernel's pool: each tile's run sums, tile by tile
+            _pool_add(P, rows, d_p)
+            if use_bias:
+                _pool_add(bu, rows, d_bu)
+            continue
         rows = torch.cat(rows)
         row_add(P, rows, torch.cat(d_p))
         if use_bias:
@@ -367,9 +475,23 @@ def sgd_sweep_step_u_plain(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si,
     return sse
 
 
+def _pool_add(table, rows, deltas):
+    """A group's user side as the step_u kernel pools it: each tile's
+    :func:`run_sums` added, tile by tile, to a pool that starts at 0; then
+    each touched row becomes its value plus its pool."""
+    touched = torch.unique(torch.cat(rows))
+    pool = torch.zeros((touched.shape[0],) + deltas[0].shape[1:],
+                       dtype=deltas[0].dtype, device=table.device)
+    for r, d in zip(rows, deltas):
+        uniq, sums = run_sums(r, d)
+        at = torch.searchsorted(touched, uniq)
+        pool[at] = pool[at] + sums
+    table[touched] = table[touched] + pool
+
+
 def _tile_bias_sweep(wrapper, plain, P, Q, bu, bi, sa, tc, tl, lr, reg, mu,
                      su, si, tpg, use_bias, deps, blocks, step_u=False,
-                     e_out=None):
+                     e_out=None, bf16=False):
     """The three bias-vector wrappers' common body: the kernels are
     wavefront sweeps and take ``deps`` and ``blocks`` as :func:`sgd_sweep`
     does. ``step_u`` (``sgd_sweep_step_u``) adds the pools of pooled user
@@ -388,9 +510,9 @@ def _tile_bias_sweep(wrapper, plain, P, Q, bu, bi, sa, tc, tl, lr, reg, mu,
     if P.device.type == "cpu":
         if e_out is not None:
             return plain(P, Q, bu, bi, sa, tc, tl, e_out, lr, reg, mu, su=su,
-                         si=si, tpg=tpg)
+                         si=si, tpg=tpg, bf16=bf16)
         return plain(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, su=su, si=si,
-                     tpg=tpg, use_bias=use_bias)
+                     tpg=tpg, use_bias=use_bias, bf16=bf16)
     if P.device.type != "cuda":
         raise ValueError(f"{who}: no kernel for device {P.device}")
     check_kernel_limits(who, P, tl, su, si)
@@ -423,14 +545,16 @@ def _tile_bias_sweep(wrapper, plain, P, Q, bu, bi, sa, tc, tl, lr, reg, mu,
         sa.data_ptr(), tc.data_ptr(), tl.data_ptr(), runs.data_ptr(),
         None if wait is None else wait.data_ptr(), state.data_ptr(),
         sums.data_ptr(), sse.data_ptr(), nt, runs.shape[0], grid, tpg, T, su,
-        si, rank, mode, float(lr), float(reg), float(mu), stream,
+        si, rank, mode, int(bf16), float(lr), float(reg), float(mu), stream,
     ), who)
     wrapper.launches += 1
+    if bf16:
+        wrapper.bf16_launches += 1
     return sse[0]
 
 
 def sgd_sweep_tile(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si, tpg,
-                   use_bias=True, deps=None, blocks=None):
+                   use_bias=True, deps=None, blocks=None, bf16=False):
     """One item-sweep with per-tile biases (``bias_mode='tile'``) or, with
     ``use_bias=False``, none. ``P`` (A·su, rank) and ``Q`` (nwin·si, rank)
     are the padded canonical tables (``Q`` the sweep's item segment),
@@ -441,14 +565,15 @@ def sgd_sweep_tile(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si, tpg,
     bias deltas lr (e - reg b), summed exactly over duplicate rows. Updates
     the tables (and the biases) in place and returns the sweep's SSE over
     real slots as a 0-d f32 tensor. ``deps`` and ``blocks`` as in
-    :func:`sgd_sweep`: the same bits on any grid."""
+    :func:`sgd_sweep`: the same bits on any grid. ``bf16``: the rounded
+    form, the gathered biases rounded too (module docstring)."""
     return _tile_bias_sweep(sgd_sweep_tile, sgd_sweep_tile_plain, P, Q, bu,
                             bi, sa, tc, tl, lr, reg, mu, su, si, tpg,
-                            use_bias, deps, blocks)
+                            use_bias, deps, blocks, bf16=bf16)
 
 
 def sgd_sweep_epoch(P, Q, bu, bi, sa, tc, tl, e_out, lr, reg, mu, *, su, si,
-                    tpg, deps=None, blocks=None):
+                    tpg, deps=None, blocks=None, bf16=False):
     """One item-sweep with epoch-frozen biases (``bias_mode='epoch'``).
     Arguments as :func:`sgd_sweep_tile`, plus ``e_out``, an (NT, T) f32
     output. Per tile: gather p, q from the current tables and bu[u], bi[i]
@@ -460,14 +585,16 @@ def sgd_sweep_epoch(P, Q, bu, bi, sa, tc, tl, e_out, lr, reg, mu, *, su, si,
     are) and returns the sweep's SSE over real slots as a 0-d f32 tensor.
     ``deps`` and ``blocks`` as in :func:`sgd_sweep`: the same bits on any
     grid. With all biases 0 the tables are bit for bit those of
-    :func:`sgd_sweep_tile` with ``use_bias=False``."""
+    :func:`sgd_sweep_tile` with ``use_bias=False``. ``bf16``: the factor
+    rows and the deltas rounded, the frozen biases not (the reference's
+    f32 stream)."""
     return _tile_bias_sweep(sgd_sweep_epoch, sgd_sweep_epoch_plain, P, Q, bu,
                             bi, sa, tc, tl, lr, reg, mu, su, si, tpg, True,
-                            deps, blocks, e_out=e_out)
+                            deps, blocks, e_out=e_out, bf16=bf16)
 
 
 def sgd_sweep_step_u(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si, tpg,
-                     use_bias=True, deps=None, blocks=None):
+                     use_bias=True, deps=None, blocks=None, bf16=False):
     """One item-sweep with the user side batched per group of ``tpg`` tiles
     (``sgd.step_user_batch``); arguments and result as
     :func:`sgd_sweep_tile`. Here ``tpg`` is part of the math: a group's
@@ -479,12 +606,16 @@ def sgd_sweep_step_u(P, Q, bu, bi, sa, tc, tl, lr, reg, mu, *, su, si, tpg,
     tiles). Each block's pooled deltas (su·(rank + 1) floats) live in
     shared memory where they fit beside the tile's buffers, else in
     device memory; the kernel decides, and the bits are the same either
-    way. The CPU route ignores ``deps`` and ``blocks``."""
+    way. The CPU route ignores ``deps`` and ``blocks``. ``bf16``: the
+    rounded form (module docstring): the group-start gather of user rows
+    and biases rounded, and every pooled delta rounded before its sum."""
     return _tile_bias_sweep(sgd_sweep_step_u, sgd_sweep_step_u_plain, P, Q,
                             bu, bi, sa, tc, tl, lr, reg, mu, su, si, tpg,
-                            use_bias, deps, blocks, step_u=True)
+                            use_bias, deps, blocks, step_u=True, bf16=bf16)
 
 
 sgd_sweep_tile.launches = 0
 sgd_sweep_epoch.launches = 0
 sgd_sweep_step_u.launches = 0
+for _wrapper in (sgd_sweep_tile, sgd_sweep_epoch, sgd_sweep_step_u):
+    _wrapper.bf16_launches = 0

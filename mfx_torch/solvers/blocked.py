@@ -1,6 +1,9 @@
 """Blocked-SGD trainer, the counterpart of
 ``mfx/solvers/blocked.py::train_epochs_blocked`` with the device planner,
-for every ``sgd.bias_mode``, with the full-span dense phase on or off:
+for every ``sgd.bias_mode``, with the dense phase off, over the full item
+span (``sgd.dense_span='full'``, with ``sgd.dense_spg``) or over the head
+(``'head'``, the first ``ceil(8192 / si)`` windows), with
+``sgd.dense_echo`` passes, and with ``sgd.mxu`` 'f32' or 'bf16':
 
 - ``'lane'`` (the ``ml25m_rank64`` preset at rank 64 with int4 codes,
   ``netflix100m_rank128_dp`` with ``parallel.mode=single`` at rank 128
@@ -19,7 +22,12 @@ for every ``sgd.bias_mode``, with the full-span dense phase on or off:
   residuals at the epoch's end.
 
 One epoch is the dense groups in order, then the sparse item-sweeps in
-order, on plain padded ``(rows, rank)`` f32 tables updated in place. Prep
+order, on plain padded ``(rows, rank)`` f32 tables updated in place.
+``sgd.mxu='bf16'`` runs every sweep in its bf16-rounded form
+(``kernels.sgd_sweep``); the dense phase takes no ``mxu``, as the
+reference's. ``sgd.dense_spg`` changes no stratum: the reference's
+padding for it adds only exact no-ops, so the run is the ``spg=1`` run
+(``dense_info`` counts the padding's slots). Prep
 (dense carving, the R image, the plan skeleton) runs once; the tile stream
 is rebuilt every ``replan_every`` epochs. Windows per sweep and per dense
 group follow the reference's geometry so that the port replays its stratum
@@ -45,7 +53,8 @@ from mfx_torch.kernels.packing import (from_lane_model, lane_tables,
 from mfx_torch.kernels.sgd_sweep import (sgd_sweep, sgd_sweep_epoch,
                                          sgd_sweep_step_u, sgd_sweep_tile)
 from mfx_torch.models.mf import MFModel
-from mfx_torch.solvers.dense_prep import prepare_dense_full
+from mfx_torch.solvers.dense_prep import (prepare_dense_device,
+                                          prepare_dense_full)
 
 __all__ = ["train_epochs_blocked", "sweep_geometry", "dense_group_windows",
            "dense_rfmt", "TPG"]
@@ -64,6 +73,9 @@ TPG = 4
 # order; choosing them for this card is later work (ROADMAP).
 _REF_SWEEP_Q_BYTES = 11 * 1024 * 1024
 _REF_DENSE_Q_BYTES = 4_300_000
+# the item span of the head-only dense split (the reference's
+# DENSE_HEAD_ITEMS)
+DENSE_HEAD_ITEMS = 8192
 
 
 def _ref_q_row_bytes(rank: int, si: int) -> int:
@@ -118,14 +130,9 @@ def _unsupported(cfg: SGDConfig, use_bias: bool) -> str | None:
                 "for it in the tests; Queue 1 item 5)")
     if cfg.kernel != "pallas":
         raise ValueError(f"unknown blocked kernel {cfg.kernel!r}")
-    if cfg.dense_chi != 0 and cfg.dense_span != "full":
-        return "dense_span='head' (Queue 1 item 5)"
-    if cfg.dense_echo > 1 or cfg.dense_spg > 1:
-        return "dense_echo/dense_spg > 1 (dense kernel variants; Queue 2 item 3)"
     if cfg.plan_device == "host":
-        return "plan_device='host' (the port plans on the device only)"
-    if cfg.mxu != "f32":
-        return f"mxu={cfg.mxu!r} (f32 only; Queue 2 item 4)"
+        return ("plan_device='host' (the port plans on the device only; "
+                "Queue 1 item 5)")
     return None
 
 
@@ -171,6 +178,8 @@ def train_epochs_blocked(
     why = _unsupported(cfg, use_bias)
     if why is not None:
         raise NotImplementedError(f"mfx_torch blocked trainer: {why}; see ROADMAP")
+    bf16 = cfg.mxu == "bf16"
+    echo = cfg.dense_echo
     lane = use_bias and cfg.bias_mode == "lane"
     epoch_bias = use_bias and cfg.bias_mode == "epoch"
     dense_bias = "lane" if lane else "frozen" if use_bias else "none"
@@ -185,6 +194,10 @@ def train_epochs_blocked(
     mu = model.mu
     n_train = train.n_ratings
     want_dense = cfg.dense_chi != 0 and su == si and 128 // rank in (1, 2, 4)
+    if want_dense and echo > 1 and use_bias and cfg.bias_mode == "tile":
+        raise ValueError(
+            "sgd.dense_echo > 1 with biases requires sgd.bias_mode='lane' "
+            "(the frozen-bias dense path consumes single-pass E sums)")
     rfmt = dense_rfmt(cfg, rank, train.rating) if want_dense else "int4"
 
     t_prep = time.perf_counter()
@@ -195,7 +208,8 @@ def train_epochs_blocked(
 
         def run_sweep(sw, seg, lr):
             return sgd_sweep(P, Q[seg], sw.sa, sw.tc, tl[sw.t0:sw.t1], lr,
-                             cfg.reg, mu, su=su, si=si, tpg=TPG, deps=sw.deps)
+                             cfg.reg, mu, su=su, si=si, tpg=TPG, deps=sw.deps,
+                             bf16=bf16)
 
         def canonical():
             return from_lane_model(MFModel(P[:U], Q[:I], zu, zi, mu))
@@ -208,10 +222,11 @@ def train_epochs_blocked(
                 return sgd_sweep_epoch(P, Q[seg], bu, bi[seg], sw.sa, sw.tc,
                                        tl[sw.t0:sw.t1], e_all[sw.t0:sw.t1],
                                        lr, cfg.reg, mu, su=su, si=si, tpg=TPG,
-                                       deps=sw.deps)
+                                       deps=sw.deps, bf16=bf16)
             return sweep_fn(P, Q[seg], bu, bi[seg], sw.sa, sw.tc,
                             tl[sw.t0:sw.t1], lr, cfg.reg, mu, su=su, si=si,
-                            tpg=TPG, use_bias=use_bias, deps=sw.deps)
+                            tpg=TPG, use_bias=use_bias, deps=sw.deps,
+                            bf16=bf16)
 
         def canonical():
             return MFModel(P[:U].clone(), Q[:I].clone(), bu[:U].clone(),
@@ -220,13 +235,22 @@ def train_epochs_blocked(
     i = torch.as_tensor(train.item).to(dev, torch.int32)
     r = torch.as_tensor(train.rating).to(dev, torch.float32)
     dense_meta, dense_groups, dinfo = (), (), None
-    if want_dense:
+    if want_dense and cfg.dense_span == "full":
         dense_meta, dense_groups, (u, i, r), dinfo = prepare_dense_full(
             u, i, r, U, I, su, si, chi_min=cfg.dense_chi,
             nwd=cfg.dense_nwd or dense_group_windows(rank, si), rfmt=rfmt,
+            spg=cfg.dense_spg,
         )
-        for grp in dense_groups:
-            plan_launch(grp, su, si, rank, dense_bias)
+    elif want_dense:
+        dense_meta, dense_groups, (u, i, r), dinfo = prepare_dense_device(
+            u, i, r, U, I, su, si, chi_min=cfg.dense_chi,
+            nwin_head=min(-(-DENSE_HEAD_ITEMS // si), -(-I // si)),
+            rfmt=rfmt)
+    # the groups the kernel runs: their strata ordered echo slots each
+    dense_groups = tuple(dict(g, deps=g["deps"].repeat(echo))
+                         for g in dense_groups)
+    for grp in dense_groups:
+        plan_launch(grp, su, si, rank, dense_bias, echo)
     skel = pdv.build_plan_skeleton(
         u, i, U, I, su, si, T, TPG, sweep_geometry(
             I, rank, si, step_u=(su, T) if cfg.step_user_batch else None)
@@ -305,7 +329,7 @@ def train_epochs_blocked(
             if dense_bias != "frozen":
                 sse = sse + timed("dense_s", lambda: dense_phase(
                     P, Q[seg], grp, lr, cfg.reg, mu, su=su, si=si,
-                    bias=dense_bias, deps=grp["deps"]))
+                    bias=dense_bias, deps=grp["deps"], echo=echo))
                 continue
             # frozen biases: the group reads them at its start, then one
             # batched update, which the next group sees

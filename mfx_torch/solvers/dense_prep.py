@@ -1,6 +1,7 @@
 """Dense-stratum carving and the R image, the counterpart of
-``auto_dense_threshold`` and ``prepare_dense_full`` in
-``mfx/solvers/dense_prep.py`` (full item span, one stratum per step).
+``auto_dense_threshold``, ``prepare_dense_full`` (full item span) and
+``prepare_dense_device`` (the head-only split) in
+``mfx/solvers/dense_prep.py``.
 
 Once per run, the strata whose rating count reaches the threshold are
 carved out of the training set and densified on the device into an image
@@ -25,7 +26,8 @@ import torch
 from mfx_torch.kernels.dense_phase import R4_SCALE, R_SCALE, group_totals
 from mfx_torch.kernels.plan_device import sweep_deps
 
-__all__ = ["auto_dense_threshold", "prepare_dense_full"]
+__all__ = ["auto_dense_threshold", "prepare_dense_full",
+           "prepare_dense_device"]
 
 # The reference's carving policy (mfx/solvers/dense_prep.py), copied so
 # that both packages carve the same strata. They model the reference's
@@ -100,6 +102,7 @@ def prepare_dense_full(
     chi_min: float,
     nwd: int,
     rfmt: str = "int4",
+    spg: int = 1,
 ):
     """Full-item-span dense split on the ratings' device.
 
@@ -114,21 +117,88 @@ def prepare_dense_full(
     (``plan_device.sweep_deps`` with one "tile" a stratum): two strata
     conflict only if they share a user block or a window, and the group's
     strata lie in (user block, window) order, the runs' layout, so the
-    table orders what ``kernels.dense_phase`` may run at once."""
-    if su != si:
-        raise ValueError("dense path requires su == si")
+    table orders what ``kernels.dense_phase`` may run at once.
+
+    ``spg`` (``sgd.dense_spg``) changes no stratum. The reference pads
+    each (group, user block) run of strata to a multiple of ``spg`` with
+    null strata (no codes, no degrees: exact no-ops) for its grid steps of
+    ``spg`` strata; the kernel here takes one stratum a unit, so the
+    groups are the ``spg=1`` groups and ``info`` only counts the slots the
+    reference's padding would hold (``strata_padded``) and holds ``spg``.
+    ``r_stream_bytes`` counts the image carved here, without padding. The
+    threshold does not depend on ``spg`` (the reference's measured cost
+    model)."""
     if rfmt not in ("int4", "int8"):
         raise ValueError(f"rfmt must be 'int4' or 'int8', got {rfmt!r}")
-    dev = u.device
-    A = -(-num_users // su)
-    C = -(-num_items // si)
-    ul, il = u.long(), i.long()
-    strat = (ul // su) * C + il // si
-    counts = torch.bincount(strat, minlength=A * C).cpu().numpy()
+    if spg < 1:
+        raise ValueError(f"spg must be >= 1, got {spg}")
+    A, C, strat, counts = _strata_counts(u, i, num_users, num_items, su, si)
     thresh = _dense_thresh(chi_min, counts, su, si, rfmt)
     idx = np.flatnonzero(counts >= thresh)
+    out = _carve(u, i, r, strat, idx, A, C, su, si, nwd, rfmt)
+    if out[1]:
+        # each (group, user block) run of strata rounded up to spg
+        _, runs = np.unique((idx % C) // nwd * A + idx // C,
+                            return_counts=True)
+        out[3].update({
+            "strata_padded": int((-(-runs // spg) * spg).sum()),
+            "spg": spg,
+            "thresh_ratings": float(thresh),
+            "chi_effective": float(thresh) / (su * si),
+        })
+    return out
+
+
+def prepare_dense_device(
+    u: torch.Tensor,
+    i: torch.Tensor,
+    r: torch.Tensor,
+    num_users: int,
+    num_items: int,
+    su: int,
+    si: int,
+    chi_min: float,
+    nwin_head: int,
+    rfmt: str = "int4",
+):
+    """The head-only dense split (``sgd.dense_span='head'``), the
+    counterpart of the reference's ``prepare_dense_device``: the strata of
+    at least ``max(1, chi_min·su·si)`` ratings whose window is one of the
+    first ``nwin_head`` (the trainer's ``ceil(8192 / si)``, at most the
+    item windows), one dense group over those windows, strata in (user
+    block, window) order. Returns what :func:`prepare_dense_full` returns
+    (one group, or none), with ``info`` {``dense_frac``, ``num_strata``,
+    ``r_stream_bytes``} as the reference's."""
+    if rfmt not in ("int4", "int8"):
+        raise ValueError(f"rfmt must be 'int4' or 'int8', got {rfmt!r}")
+    A, C, strat, counts = _strata_counts(u, i, num_users, num_items, su, si)
+    nwin_head = min(nwin_head, C)
+    eligible = (counts >= max(1.0, chi_min * su * si)).reshape(A, C)
+    eligible[:, nwin_head:] = False
+    idx = np.flatnonzero(eligible.reshape(-1))
+    meta, groups, sparse, info = _carve(u, i, r, strat, idx, A, C, su, si,
+                                        nwin_head, rfmt)
+    keep = ("dense_frac", "num_strata", "r_stream_bytes")
+    return meta, groups, sparse, {k: v for k, v in info.items() if k in keep}
+
+
+def _strata_counts(u, i, num_users, num_items, su, si):
+    """Blocks, windows, each rating's stratum and the ratings a stratum."""
+    if su != si:
+        raise ValueError("dense path requires su == si")
+    A = -(-num_users // su)
+    C = -(-num_items // si)
+    strat = (u.long() // su) * C + i.long() // si
+    counts = torch.bincount(strat, minlength=A * C).cpu().numpy()
+    return A, C, strat, counts
+
+
+def _carve(u, i, r, strat, idx, A, C, su, si, nwd, rfmt):
+    """Carve the strata ``idx`` (flat ids a·C + c) out of the ratings into
+    groups of ``nwd`` windows (see :func:`prepare_dense_full`)."""
     if idx.size == 0:
         return (), (), (u, i, r), {"dense_frac": 0.0}
+    dev = u.device
     a_s, c_s = idx // C, idx % C
     g_s = c_s // nwd
     order = np.lexsort((c_s, a_s, g_s))  # groups contiguous, (a, c) inside
@@ -146,8 +216,8 @@ def prepare_dense_full(
     u_sp, i_sp, r_sp = u[spos], i[spos], r[spos]
 
     st = st_full[dpos]
-    lu = ul[dpos] % su
-    li = il[dpos] % si
+    lu = u.long()[dpos] % su
+    li = i.long()[dpos] % si
     du_s = torch.bincount(st * su + lu, minlength=nd * su).view(nd, su)
     di_s = torch.bincount(st * si + li, minlength=nd * si).view(nd, si)
     R = _build_r_image(st, lu, li, r[dpos], nd, su, si, rfmt)
@@ -179,8 +249,6 @@ def prepare_dense_full(
         "dense_frac": n_dense / max(1, int(u.shape[0])),
         "num_strata": nd,
         "num_groups": len(dense_groups),
-        "thresh_ratings": float(thresh),
-        "chi_effective": float(thresh) / (su * si),
         "r_stream_bytes": int(R.numel() * R.element_size()),
     }
     return tuple(dense_meta), tuple(dense_groups), (u_sp, i_sp, r_sp), info

@@ -773,9 +773,11 @@ def _wavefront_case(kernel, dev):
     takes user blocks of 1,024 (rank 64, as phase 3 of ``chip_smoke.py``
     runs it) over 9,000 users, where the kernel keeps its pools in device
     memory; ``step_u`` keeps them in shared memory."""
-    # the rank of a case named ..._r128 or ..._r32
+    # the rank of a case named ..._r128 or ..._r32; ..._bf16... is the
+    # sweep's bf16 form, ..._echo... the dense phase's echo=2
     rank = (128 if kernel.endswith("_r128") else 32 if kernel.endswith("_r32")
             else RANK)
+    bf16 = "_bf16" in kernel
     if kernel.startswith(("sgd", "tile", "step_u", "epoch")):
         users = 9000 if kernel == "step_u_su1024" else U
         train, _, model, u, i, r = _state(dev, users=users, rank=rank)
@@ -786,7 +788,7 @@ def _wavefront_case(kernel, dev):
         sw = skel.sweeps[0]
         seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
         args = (sw.sa, sw.tc, tl[sw.t0:sw.t1], LR, REG, model.mu)
-        kw = dict(su=su, si=si, tpg=TPG)
+        kw = dict(su=su, si=si, tpg=TPG, bf16=bf16)
         if kernel.startswith("sgd"):
             return (lambda tabs, blocks, table=True: sgd_sweep(
                         tabs[0], tabs[1][seg], *args, **kw, blocks=blocks,
@@ -820,7 +822,7 @@ def _wavefront_case(kernel, dev):
                     **kw, blocks=blocks, deps=sw.deps if table else None),
                 lambda tabs: plain(
                     tabs[0], tabs[1][seg], tabs[2], tabs[3][seg], *args,
-                    su=su, si=si, tpg=TPG),
+                    su=su, si=si, tpg=TPG, bf16=bf16),
                 plain_tables(model, su, si, dev), sw.deps)
     if kernel.startswith("time"):
         nb = 16 if rank == 32 else 30
@@ -845,6 +847,18 @@ def _wavefront_case(kernel, dev):
         seg = slice(meta[0] * si, (meta[0] + meta[1]) * si)
         kw = dict(su=su, si=si)
         bias = next((b for b in ("frozen", "none") if b in kernel), "lane")
+        echo = 2 if "_echo" in kernel else 1
+        if echo > 1:  # the lane or bias-free form, the echo slots' table
+            deps = grp["deps"].repeat(echo)
+            kw.update(bias=bias, echo=echo)
+            tabs0 = (lane_tables(model, su, si, dev) if bias == "lane"
+                     else plain_tables(model, su, si, dev)[:2])
+            return (lambda tabs, blocks, table=True: dense_phase(
+                        tabs[0], tabs[1][seg], grp, LR, REG, model.mu, **kw,
+                        blocks=blocks, deps=deps if table else None),
+                    lambda tabs: dense_phase_plain(
+                        tabs[0], tabs[1][seg], grp, LR, REG, model.mu, **kw),
+                    tabs0, deps)
         if bias != "lane":  # the frozen form's sums ride as two "tables"
             model.bu.copy_(torch.randn(U, device=dev) * 0.1)
             model.bi.copy_(torch.randn(I, device=dev) * 0.1)
@@ -891,7 +905,12 @@ WAVEFRONT_KERNELS = ["sgd", "sgd_r128", "bpr", "tile", "step_u",
                      "time_r32", "dense_r32", "dense_int8_r32",
                      "dense_frozen_r32", "dense_none_r32",
                      "dense_frozen_int8_r32", "tile_r128", "step_u_r128",
-                     "epoch_r128", "bpr_r32", "bpr_r128"]
+                     "epoch_r128", "bpr_r32", "bpr_r128",
+                     "sgd_bf16", "sgd_bf16_r32", "sgd_bf16_r128", "tile_bf16",
+                     "tile_bf16_r128", "step_u_bf16", "step_u_bf16_r32",
+                     "epoch_bf16", "dense_echo", "dense_none_echo",
+                     "dense_int8_echo_r128", "dense_echo_r32",
+                     "dense_none_int8_echo_r32"]
 
 
 @pytest.mark.parametrize("kernel", WAVEFRONT_KERNELS)
@@ -1337,3 +1356,162 @@ def test_rank128_trainer_through_the_kernels_is_repeatable(cuda, mode):
         assert all(torch.equal(getattr(ma, k), getattr(mb, k))
                    for k in ("P", "Q", "bu", "bi"))
     assert runs[0][1][0] < runs[0][0][0]
+
+
+# ---- the bf16 sweeps and the dense echo passes ---------------------------
+
+BF16_BODIES = ["lane", "tile", "none", "step_u", "epoch"]
+
+
+def _hot_tiles(dev, seed, distinct, su=1024, nt=32, tile=256):
+    """Random full tiles at blocks of 1024 and T = 256, every slot one of
+    ``distinct`` rows a side, the last tile half pad (the hot-row case)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sa = torch.randint(0, 2, (nt // TPG,), device=dev, generator=g,
+                       dtype=torch.int32)
+    tc = torch.randint(0, 3, (nt,), device=dev, generator=g,
+                       dtype=torch.int32)
+    tl = torch.empty(nt, 3, tile, dtype=torch.int32, device=dev)
+    for row in (0, 1):
+        tl[:, row] = torch.randint(0, distinct, (nt, tile), device=dev,
+                                   generator=g, dtype=torch.int32)
+    tl[:, 2] = (torch.rand(nt, tile, device=dev, generator=g) * 4.5
+                + 0.5).view(torch.int32)
+    tl[-1, 0, tile // 2:] = su
+    tl[-1, 1, tile // 2:] = su
+    return g, sa, tc, tl
+
+
+@pytest.mark.parametrize("distinct", [4, 1024])
+@pytest.mark.parametrize("rank", [32, 64, 128])
+@pytest.mark.parametrize("body", BF16_BODIES)
+def test_bf16_sweep_kernels_hot_rows_and_pads(cuda, body, rank, distinct):
+    """Each sweep's bf16 form against its plain version (``bf16=True``) on
+    hot rows and pads: within 1e-4, bitwise repeatable, and another
+    computation than the f32 form on the same inputs. step_u pools a
+    group's 4 tiles, up to 256 deltas of one row at 4 distinct rows: at
+    the f32 lr that step diverges in f32 as well, so it takes lr / 8."""
+    from mfx_torch.kernels.sgd_sweep import (sgd_sweep_epoch,
+                                             sgd_sweep_epoch_plain)
+
+    g, sa, tc, tl = _hot_tiles(cuda, rank + distinct, distinct)
+    su = si = 1024
+    state = tuple(x * 0.1 for x in (
+        torch.randn(2 * su, rank, device=cuda, generator=g),
+        torch.randn(3 * si, rank, device=cuda, generator=g),
+        torch.randn(2 * su, device=cuda, generator=g),
+        torch.randn(3 * si, device=cuda, generator=g)))
+    args = (sa, tc, tl, LR / 8 if body == "step_u" else LR, REG, 3.5)
+    kw = dict(su=su, si=si, tpg=TPG)
+    if body == "lane":
+        def run(P, Q, bu, bi, fn=sgd_sweep, bf16=True):
+            return fn(P, Q, *args, bf16=bf16, **kw)
+        plain = lambda *t: run(*t, fn=sgd_sweep_plain)  # noqa: E731
+    elif body == "epoch":
+        def run(P, Q, bu, bi, fn=sgd_sweep_epoch, bf16=True):
+            e = torch.zeros(tl.shape[0], tl.shape[2], device=cuda)
+            return fn(P, Q, bu, bi, *args[:3], e, *args[3:], bf16=bf16, **kw)
+        plain = lambda *t: run(*t, fn=sgd_sweep_epoch_plain)  # noqa: E731
+    else:
+        kernel, plain_fn = TILE_SWEEPS["step_u" if body == "step_u" else
+                                       "tile"]
+
+        def run(P, Q, bu, bi, fn=kernel, bf16=True):
+            return fn(P, Q, bu, bi, *args, use_bias=body != "none",
+                      bf16=bf16, **kw)
+        plain = lambda *t: run(*t, fn=plain_fn)  # noqa: E731
+    biased = body in ("tile", "step_u")
+    _check4(run, plain, state, use_bias=biased)
+    a = [x.clone() for x in state]
+    b = [x.clone() for x in state]
+    run(*a)
+    run(*b, bf16=False)
+    assert not torch.equal(a[0], b[0])
+
+
+DENSE_ECHO = [("lane", 64, "int4"), ("none", 64, "int4"),
+              ("lane", 64, "int8"), ("lane", 128, "int8"),
+              ("none", 128, "int8"), ("lane", 32, "int4"),
+              ("none", 32, "int8")]
+
+
+@pytest.mark.parametrize("bias,rank,rfmt", DENSE_ECHO)
+def test_dense_echo_kernel_matches_plain(cuda, bias, rank, rfmt):
+    """echo=2 on the card against ``dense_phase_plain(echo=2)``: within
+    1e-4, bitwise repeatable, on the slots' table and without one; the
+    frozen form refuses echo > 1 on the card too."""
+    train, _, model, u, i, r = _state(cuda, rank=rank)
+    meta, groups, _, _ = prepare_dense_full(u, i, r, U, I, SU, SI,
+                                            chi_min=0.01, nwd=2, rfmt=rfmt)
+    tabs = (lane_tables(model, SU, SI, cuda) if bias == "lane"
+            else plain_tables(model, SU, SI, cuda)[:2])
+    for (win0, nw), grp in zip(meta, groups):
+        seg = slice(win0 * SI, (win0 + nw) * SI)
+        kw = dict(su=SU, si=SI, bias=bias, echo=2)
+        deps = grp["deps"].repeat(2)
+        before = dense_phase.echo_launches[bias]
+        for table in (deps, None):
+            _check(lambda Pt, Qt: dense_phase(Pt, Qt[seg], grp, LR, REG,
+                                              model.mu, deps=table, **kw),
+                   lambda Pt, Qt: dense_phase_plain(Pt, Qt[seg], grp, LR,
+                                                    REG, model.mu, **kw),
+                   *tabs)
+        assert dense_phase.echo_launches[bias] == before + 4
+    with pytest.raises(NotImplementedError, match="echo"):
+        P, Q, bu, bi = plain_tables(model, SU, SI, cuda)
+        dense_phase(P, Q[seg], grp, LR, REG, model.mu, su=SU, si=SI,
+                    bias="frozen", bu=bu, bi=bi[seg], echo=2)
+
+
+VARIANTS = {"echo": dict(dense_echo=2), "spg": dict(dense_spg=2),
+            "bf16": dict(mxu="bf16"),
+            "head": dict(dense_span="head", dense_chi=0.0025),
+            "bf16_step_u": dict(mxu="bf16", bias_mode="tile",
+                                step_user_batch=True)}
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_variant_trainer_through_the_kernels_is_repeatable(cuda, name):
+    """The trainer with each setting the port took last: two runs bitwise
+    equal through the kernels, the spg run bit for bit the spg=1 run, and
+    one epoch on the CPU from the card's plan bits within 1e-5 (train
+    RMSE) and 1e-4 (tables), 1e-4 and 2e-3 in bf16 (a residual an ulp off
+    can move a delta across a bf16 rounding boundary)."""
+    train, _, model, *_ = _state(cuda)
+    cfg = dataclasses.replace(CFG, **VARIANTS[name])
+    use_bias = True
+    runs = []
+    for _ in range(2):
+        e0 = dense_phase.echo_launches["lane"]
+        b0 = sgd_sweep.bf16_launches + sgd_sweep_step_u.bf16_launches
+        runs.append([(float(tr), m) for _, m, tr in train_epochs_blocked(
+            model, train, cfg, use_bias, seed=0, device=cuda)])
+        assert (dense_phase.echo_launches["lane"] > e0) == (name == "echo")
+        assert (sgd_sweep.bf16_launches + sgd_sweep_step_u.bf16_launches
+                > b0) == name.startswith("bf16")
+    keys = ("P", "Q", "bu", "bi")
+    for (ta, ma), (tb, mb) in zip(*runs):
+        assert ta == tb
+        assert all(torch.equal(getattr(ma, k), getattr(mb, k)) for k in keys)
+    assert runs[0][1][0] < runs[0][0][0]
+    if name == "spg":
+        once = [(float(tr), m) for _, m, tr in train_epochs_blocked(
+            model, train, CFG, use_bias, seed=0, device=cuda)]
+        for (ta, ma), (tb, mb) in zip(runs[0], once):
+            assert ta == tb
+            assert all(torch.equal(getattr(ma, k), getattr(mb, k))
+                       for k in keys)
+    cpu = init_model(torch.Generator().manual_seed(0), U, I, RANK)
+    for k in keys:
+        getattr(cpu, k).copy_(getattr(model, k).cpu())
+    cpu.mu = model.mu
+    (_, mc, trc), = train_epochs_blocked(
+        cpu, train, dataclasses.replace(cfg, epochs=1), use_bias, seed=0,
+        device="cpu",
+        plan_rand=lambda e, n: pdv.epoch_rand(n, 0, e, cuda).cpu())
+    bf16 = cfg.mxu == "bf16"
+    assert abs(float(trc) - runs[0][0][0]) <= (1e-4 if bf16 else 1e-5)
+    for k in keys:
+        np.testing.assert_allclose(getattr(mc, k).numpy(),
+                                   getattr(runs[0][0][1], k).cpu().numpy(),
+                                   atol=2e-3 if bf16 else 1e-4, err_msg=k)

@@ -335,13 +335,14 @@ def test_sweep_wrappers_cuda_route_reaches_no_plain_version(module, wrappers):
     ("sgd_sweep rank 96", "Queue 2 item 2"),
     ("sgd_sweep_tile rank 16", "Queue 2 item 2"),
     ("bpr_sweep rank 16", "Queue 2 item 2"),
-    ("dense_phase rank 128 int4", "Queue 2 item 3"),
-    ("dense_phase rank 16 int8", "Queue 2 item 3"),
+    ("dense_phase rank 128 int4", "reference's dense path has no other"),
+    ("dense_phase rank 16 int8", "reference's dense path has no other"),
 ])
 def test_forms_without_a_kernel_raise(form, item):
     """A rank or code format the kernels lack is refused before any launch
     (the checks the wrappers make on a card's tensors), naming the ROADMAP
-    item; the kernels' own forms pass."""
+    item, or for the dense phase saying that the reference has no such
+    form either; the kernels' own forms pass."""
     from mfx_torch.kernels.dense_phase import check_kernel_form
     from mfx_torch.kernels.sgd_sweep import SWEEP_RANKS, check_kernel_limits
 
@@ -374,11 +375,15 @@ def test_chip_smoke_holds_each_run_to_its_kernels():
     import chip_smoke as cs
 
     saved = (sgd_sweep.launches, sgd_sweep_time.launches,
-             dict(dense_phase.form_launches))
+             dict(dense_phase.form_launches), sgd_sweep.bf16_launches,
+             dict(dense_phase.echo_launches))
+    forms = ("lane", "frozen", "none")
     try:
         counts = cs.kernel_counts(reset=True)
-        assert set(counts) == set(cs.TRAIN_KERNELS) | {
-            f"dense_phase:{f}" for f in ("lane", "frozen", "none")}
+        assert set(counts) == (
+            set(cs.TRAIN_KERNELS) | {f"{k}:bf16" for k in cs.BF16_KERNELS}
+            | {f"dense_phase:{f}" for f in forms}
+            | {f"dense_phase:{f}:echo" for f in forms})
         assert not any(counts.values())
         sgd_sweep.launches, dense_phase.form_launches["frozen"] = 3, 2
         counts = cs.kernel_counts()
@@ -387,9 +392,20 @@ def test_chip_smoke_holds_each_run_to_its_kernels():
                                      "sgd_sweep_time"}):
             with pytest.raises(AssertionError, match="not the expected"):
                 cs.expect_kernels("run", counts, want)
+        # the bf16 and echo launches count as kernels of their own
+        sgd_sweep.bf16_launches, dense_phase.echo_launches["lane"] = 3, 1
+        counts = cs.kernel_counts()
+        with pytest.raises(AssertionError, match="not the expected"):
+            cs.expect_kernels("run", counts,
+                              {"sgd_sweep", "dense_phase:frozen"})
+        cs.expect_kernels("run", counts, {
+            "sgd_sweep", "sgd_sweep:bf16", "dense_phase:frozen",
+            "dense_phase:lane:echo"})
     finally:
         sgd_sweep.launches, sgd_sweep_time.launches = saved[:2]
         dense_phase.form_launches = saved[2]
+        sgd_sweep.bf16_launches = saved[3]
+        dense_phase.echo_launches = saved[4]
 
 
 def test_chip_smoke_sums_limit_scales_with_the_largest_sum():

@@ -144,40 +144,53 @@ def test_netflix_cut_follows_the_reference_trainer():
     ("dense_echo=2", "dense_echo"),
     ("mxu=bf16", "mxu"),
     ("plan_device=host", "plan_device"),
+    ("bias_mode=tile dense_echo=2", "dense_echo"),
 ])
 def test_unported_variants_raise(override, what):
-    """Each variant raises, naming its field; except ``bias_mode=tile``
-    (tile biases with the dense phase on), which raised until the
-    frozen-bias dense form was ported: it now trains (its parity with the
-    reference: tests/test_torch_bias_modes.py); the card's form check
-    takes rank 32 and still refuses a rank it has no instance of (Queue 2
-    item 3)."""
+    """What the trainer refuses, naming the field: ``plan_device=host``
+    (no kernel form; Queue 1 item 5) and, as the reference trainer does,
+    ``dense_echo`` > 1 with tile biases (ValueError). The other variants
+    raised until their kernel forms were ported and now train one epoch
+    (their parity with the reference: tests/test_torch_bias_modes.py for
+    ``bias_mode=tile``, tests/test_torch_dense_variants.py for the rest);
+    the card's dense form check takes rank 32 and refuses a rank the
+    reference has no dense form for."""
     import dataclasses
 
     from mfx_torch.kernels.dense_phase import check_kernel_form
 
-    key, val = override.split("=")
-    cfg = dataclasses.replace(
-        CFG, **{key: int(val) if val.isdigit() else val})
+    fields = dict(kv.split("=") for kv in override.split())
+    cfg = dataclasses.replace(CFG, **{
+        k: int(v) if v.isdigit() else v for k, v in fields.items()})
     train, _ = _split()
     model = model_from_numpy({
         "P": np.zeros((U, RANK), np.float32), "Q": np.zeros((I, RANK), np.float32),
         "bu": np.zeros(U, np.float32), "bi": np.zeros(I, np.float32), "mu": 3.5,
     }, device="cpu")
+    if override == "plan_device=host":
+        with pytest.raises(NotImplementedError, match=what):
+            next(train_epochs_blocked(model, train, cfg, True, device="cpu"))
+        return
+    if len(fields) > 1:
+        with pytest.raises(ValueError, match=what):
+            next(train_epochs_blocked(model, train, cfg, True, device="cpu"))
+        return
+    timings = {}
+    (_, m, tr), = train_epochs_blocked(
+        model, train, dataclasses.replace(cfg, epochs=1), True,
+        device="cpu", timings=timings)
+    info = timings["dense_info"]
+    assert info["num_strata"] == 5 and np.isfinite(float(tr))
+    assert float(m.bu.abs().max()) > 0
+    if what == "dense_spg":
+        assert info["spg"] == 2 and info["strata_padded"] > 5
+    if what == "dense_span":  # the reference's head info
+        assert set(info) == {"dense_frac", "num_strata", "r_stream_bytes"}
     if override == "bias_mode=tile":
-        timings = {}
-        (_, m, tr), = train_epochs_blocked(
-            model, train, dataclasses.replace(cfg, epochs=1), True,
-            device="cpu", timings=timings)
-        assert timings["dense_info"]["num_strata"] == 5
-        assert np.isfinite(float(tr)) and float(m.bu.abs().max()) > 0
         grp = {"R": torch.zeros((1, 256, 128), dtype=torch.uint8)}
         check_kernel_form(torch.zeros(256, 32), grp, 256, 256)
-        with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
+        with pytest.raises(NotImplementedError, match="no other form"):
             check_kernel_form(torch.zeros(256, 16), grp, 256, 256)
-        return
-    with pytest.raises(NotImplementedError, match=what):
-        next(train_epochs_blocked(model, train, cfg, True, device="cpu"))
 
 
 def _small_overrides(root, target=0.0, name="ml25m_rank64"):

@@ -139,8 +139,10 @@ def test_unported_variants_raise(overrides, what):
     train on the CPU (rank 32 through the plain versions; their parity
     with the reference: tests/test_torch_bias_modes.py); the card's dense
     form check takes rank 32 and still refuses a rank it has no instance
-    of (Queue 2 item 3); for 'epoch', the reference's own refusal of
-    ``step_user_batch`` stands."""
+    of (the reference's dense path has none either); for 'epoch', the
+    reference's own refusal of ``step_user_batch`` stands. ``mxu=bf16``
+    raised until the sweeps' bf16 form was ported: it now trains
+    (its parity: tests/test_torch_sgd_bf16.py)."""
     from mfx_torch.kernels.dense_phase import check_kernel_form
 
     cfg = apply_overrides(preset("ml1m_rank32_biased"), CUT + overrides)
@@ -149,20 +151,26 @@ def test_unported_variants_raise(overrides, what):
         "P": np.zeros((U, 32), np.float32), "Q": np.zeros((I, 32), np.float32),
         "bu": np.zeros(U, np.float32), "bi": np.zeros(I, np.float32),
         "mu": 3.5}, device="cpu")
-    if what in ("bias_mode.*dense", "bias_mode='epoch'"):
+    if what in ("bias_mode.*dense", "bias_mode='epoch'", "mxu"):
         timings = {}
         (_, m, tr), = train_epochs_blocked(
             model, train, dataclasses.replace(cfg.sgd, epochs=1), True,
             device="cpu", timings=timings)
         assert np.isfinite(float(tr)) and float(m.bu.abs().max()) > 0
-        assert ("dense_info" in timings) == (what != "bias_mode='epoch'")
-        if what == "bias_mode='epoch'":
+        assert ("dense_info" in timings) == (what == "bias_mode.*dense")
+        if what == "mxu":  # the bf16 form differs from the f32 one
+            (_, m32, _), = train_epochs_blocked(
+                model, train, dataclasses.replace(cfg.sgd, epochs=1,
+                                                  mxu="f32"), True,
+                device="cpu")
+            assert not torch.equal(m.bu, m32.bu)
+        elif what == "bias_mode='epoch'":
             with pytest.raises(ValueError, match="step_user_batch"):
                 apply_overrides(cfg, ["sgd.step_user_batch=true"])
         else:
             grp = {"R": torch.zeros((1, 128, 64), dtype=torch.uint8)}
             check_kernel_form(torch.zeros(128, 32), grp, 128, 128)
-            with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
+            with pytest.raises(NotImplementedError, match="no other form"):
                 check_kernel_form(torch.zeros(128, 16), grp, 128, 128)
         return
     with pytest.raises(NotImplementedError, match=what):

@@ -10,9 +10,11 @@ Forms: ``sgd_sweep`` (lane, ranks 32, 64, 128; the time form at ranks 32,
 64 and 128), ``sgd_sweep_tile`` (tile biases and none, epoch biases at
 ranks 32, 64 and 128), ``sgd_sweep_step_u`` (tile biases, ranks 32, 64
 and 128: its pools in shared memory at rank 32, in device memory at 64
-and 128), ``bpr_sweep`` (ranks 32, 64 and 128), ``dense_phase`` (lane,
-frozen and none at ranks 32 and 64 with int4 and int8 codes, and at rank
-128 with int8), ``tile_topk`` (f32, bf16 and int8 catalogs at depths 1,
+and 128), each SGD sweep but the time form also in its bf16 form (a
+``bf16`` in the name), ``bpr_sweep`` (ranks 32, 64 and 128),
+``dense_phase`` (lane, frozen and none at ranks 32 and 64 with int4 and
+int8 codes, and at rank 128 with int8; lane and none with ``echo2``, two
+passes a stratum), ``tile_topk`` (f32, bf16 and int8 catalogs at depths 1,
 2, 8 and 32 on tiles of 128-2048, and the deep form: depths 33-300 and
 tiles of 2,304-4,096; a checkout without the deep form prints its error
 for those). Each training form runs once on the card's count of blocks from random
@@ -142,22 +144,35 @@ def main() -> int:
         forms.append((f"sgd_sweep_step_u tile r{rank}", rank, "step_u", 0))
     for rank in (32, 64, 128):
         forms.append((f"bpr_sweep r{rank}", rank, "bpr", 0))
+    for rank in (32, 64, 128):
+        forms.append((f"sgd_sweep lane bf16 r{rank}", rank, "lane", 0))
+        for mode in ("tile", "none", "epoch"):
+            forms.append((f"sgd_sweep_tile {mode} bf16 r{rank}", rank, mode,
+                          0))
+        forms.append((f"sgd_sweep_step_u tile bf16 r{rank}", rank, "step_u",
+                       0))
     for rank, rfmt in ((32, "int4"), (32, "int8"), (64, "int4"),
                        (64, "int8"), (128, "int8")):
         for bias in dp.BIAS_FORMS:
             forms.append((f"dense_phase {bias} {rfmt} r{rank}", rank, bias,
                           rfmt))
+        for bias in ("lane", "none"):
+            forms.append((f"dense_phase {bias} echo2 {rfmt} r{rank}", rank,
+                          bias, rfmt))
     for dtype in ("f32", "bf16", "int8"):
         for depth, tile in TOPK_FORMS + TOPK_DEEP:
             forms.append((f"tile_topk {dtype} depth {depth} tile {tile}", 64,
                           dtype, (depth, tile)))
     for name, rank, mode, extra in forms:
         g = torch.Generator(device=dev).manual_seed(len(name) * 7919 + rank)
+        # the new forms' options, passed only where they are on
+        bf16 = {"bf16": True} if " bf16 " in name else {}
+        echo = {"echo": 2} if " echo2 " in name else {}
         try:
             if name.startswith("sgd_sweep "):
                 sa, tc, tl, su, si = _tiles(g, dev, 5 if extra else 3, extra)
                 P, Q, _, _ = _tables(g, dev, rank, 2 * su, 3 * si)
-                kw = dict(su=su, si=si, tpg=TPG)
+                kw = dict(su=su, si=si, tpg=TPG, **bf16)
                 if extra:
                     s = ss.sgd_sweep_time(P, Q, sa, tc, tl, LR, REG, MU,
                                           n_bins=extra, **kw)
@@ -179,7 +194,7 @@ def main() -> int:
             elif name.startswith("sgd_sweep_"):
                 sa, tc, tl, su, si = _tiles(g, dev)
                 P, Q, bu, bi = _tables(g, dev, rank, 2 * su, 3 * si)
-                kw = dict(su=su, si=si, tpg=TPG)
+                kw = dict(su=su, si=si, tpg=TPG, **bf16)
                 if mode == "step_u":
                     s = ss.sgd_sweep_step_u(P, Q, bu, bi, sa, tc, tl, LR,
                                             REG, MU, **kw)
@@ -202,7 +217,7 @@ def main() -> int:
                                                    bu=bu, bi=bi, **kw)
                     out = (P, Q, dbu, dbi, s)
                 else:
-                    s = dp.dense_phase(P, Q, grp, LR, REG, MU, **kw)
+                    s = dp.dense_phase(P, Q, grp, LR, REG, MU, **kw, **echo)
                     out = (P, Q, s)
             torch.cuda.synchronize()
             row = {"form": name, "sha256": _digest(*out)}

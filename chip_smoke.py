@@ -8,20 +8,20 @@ imports nothing of JAX and nothing of the JAX package mfx. Phases, each
 printed as it ends:
 
 1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: every kernel from mfx_torch/csrc;
+2. build: every kernel from mfx_torch/csrc, beside the ML-25M data;
 3. kernels against their plain PyTorch versions at the ml25m_rank64
    preset's shapes (su = si = 1024, T = 256, rank 64, int4; the rank-64
    instances of the two kernels that phase 11 runs at rank 128): the first
    2,048 tiles of the first non-empty sparse sweep and the first 64
    strata of the first dense group, max abs difference <= 1e-4, two
    kernel runs bitwise equal, and the time of each; then dense_phase on
-   the first 256 strata of group 0 twice on one block and twice on the
+   the first 256 strata of group 0 once on one block and twice on the
    card's count (tables and SSE bitwise equal), and the whole of group 0
    and the whole dense phase of an epoch on the card's count; then the
    same 2,048 tiles through sgd_sweep_tile and sgd_sweep_step_u (tpg = 4) on the
    plain tables of the same model, so that the lane, tile-bias and
    step-batched bodies are timed on one tile stream; then sgd_sweep on
-   the whole first sweep from the untrained tables, twice on one block
+   the whole first sweep from the untrained tables, once on one block
    and twice on as many as the card holds: tables and SSE bitwise equal,
    the times, the sweep's tiles and the tiles on its longest dependency
    chain, and the blocks launched;
@@ -42,8 +42,8 @@ printed as it ends:
 7. bpr_sweep against its plain version at the BPR cell's shapes (su =
    si = 512, T = 256, rank 64): the first 2,048 tiles of segment 0 of
    epoch 0, max abs difference <= 1e-4, two kernel runs bitwise equal,
-   and the time of each; then the whole of segment 0 twice on one block
-   and twice on as many as the card holds, as in phase 3;
+   and the time of each; then the whole of segment 0 once on one block
+   and twice on as many as the card holds (bitwise);
 8. the BPR path: mfx_torch.parallel.bpr_sharded.train_epochs_bpr_ring with
    the billion_bpr_sharded preset unchanged but for parallel.model_axis=1,
    its 5 epochs on the billion-implicit synthetic cut to 1/10 of its users,
@@ -56,7 +56,7 @@ printed as it ends:
    ml1m_rank32_biased preset's shapes (su = si = 512, T = 256, rank 32,
    tpg = 4): the first 2,048 tiles of epoch 0 of the ML-1M-shaped
    synthetic, same checks and times; then each over the whole sweep
-   twice on one block and twice on the card's count (tables, biases and
+   once on one block and twice on the card's count (tables, biases and
    SSE bitwise equal);
 10. the tile-bias path: train_epochs_blocked with the ml1m_rank32_biased
    preset unchanged, its 30 epochs on the full ML-1M-shaped synthetic
@@ -72,7 +72,7 @@ printed as it ends:
    on the full netflix synthetic (480,189 x 17,770, 100,480,507 ratings,
    seed 103, whole stars): the first 2,048 tiles of the sparse sweep and
    the first 64 strata of dense group 0, same checks and times; the
-   whole sweep and the whole of group 0 twice on one block and twice on
+   whole sweep and the whole of group 0 once on one block and twice on
    the card's count (tables and SSE bitwise equal); then each dense group
    and the sweep on the card's count, the split of an epoch;
 12. the netflix path: train_epochs_blocked with netflix100m_rank128_dp and
@@ -114,7 +114,7 @@ printed as it ends:
    102) at the blocked timeSVD trainer's shapes (rank 64, 30 bins, su = si
    = 512, T = 256, tpg 4): the first 2,048 tiles of the first sweep of
    epoch 0, max abs difference <= 1e-4, two kernel runs bitwise equal, the
-   time of each; the whole first sweep twice on one block and twice on
+   time of each; the whole first sweep once on one block and twice on
    the card's count (tables and SSE bitwise equal); the rank-128 form on
    the same 2,048 tiles and the whole sweep, checked the same way;
 16. the timeSVD path: mfx_torch.train.driver.train with solver='timesvd',
@@ -128,7 +128,8 @@ printed as it ends:
    and a second run of 2 epochs repeats the first's state after 2 epochs
    (its checkpoint) bit for bit; then timesvd.kernel='jnp' (the
    snapshot-minibatch trainer, with timesvd.dup_trust=16: without it the
-   reference's own trainer reaches NaN on this skew; its 20 epochs)
+   reference's own trainer reaches NaN on this skew; JNP_TIME_EPOCHS of
+   its 20 epochs, a depth cut for the script's time)
    through the driver on the ML-1M-shaped synthetic made temporal the
    same way (seed 101):
    the train RMSE falls every epoch, and the held-out RMSE is the
@@ -138,7 +139,7 @@ printed as it ends:
    (sgd_sweep_epoch) against its plain version on the first 2,048 tiles
    of the first sweep: tables and residuals within 1e-4, two kernel runs
    bitwise equal, its time beside the tile form's on the same tiles; the
-   whole first sweep twice on one block and twice on the card's count
+   whole first sweep once on one block and twice on the card's count
    (tables, residuals and SSE bitwise equal); then the frozen-bias and
    bias-free forms of dense_phase.cu (int4, rank 64) on the first 64
    strata of group 0 (tables within 1e-4, the frozen form's row and
@@ -171,7 +172,7 @@ printed as it ends:
    it (su = si = 512, T = 256): sgd_sweep (lane) on the first 2,048 tiles
    of the first sweep of run (a)'s plan (no dense phase), within 1e-5,
    its time beside the rank-64 lane form's on the same tiles, and the
-   whole sweep twice on one block and twice on the card's count
+   whole sweep once on one block and twice on the card's count
    (bitwise); dense_phase in the lane, frozen-bias and bias-free forms
    with int4 codes on all of group 0 of the carving of runs (b)-(d)
    (within 1e-5; the frozen form's row and column sums of E as phase
@@ -211,7 +212,7 @@ printed as it ends:
    model's plain tables and seeded N(0, 0.1) biases: the tile form with
    and without biases, the epoch form (its residuals compared too) and
    step_u (tpg 4) on the first 2,048 tiles of the sparse sweep (within
-   1e-4, two kernel runs bitwise), each over the whole sweep twice on one
+   1e-4, two kernel runs bitwise), each over the whole sweep once on one
    block and twice on the card's count (tables, biases, residuals and SSE
    bitwise); the two dense forms on group 0 as phase 17 holds them (64
    strata within 1e-4, the frozen sums within sqrt(terms) ulps; 256 on
@@ -269,12 +270,13 @@ printed as it ends:
    record carries plan_ms, dense_ms, sparse_ms and eval_ms;
 25. the forms of the last reference branches of the trainer's kernels
    against their plain versions: the bf16 form (sgd.mxu='bf16') of every
-   SGD sweep body (lane, tile biases, none, epoch-frozen, step_u) on phase
-   3's 2,048 tiles (rank 64, plain tables with seeded N(0, 0.1) biases),
+   SGD sweep body (lane, tile biases, none, epoch-frozen, step_u) on the
+   first BF16_CELL_TILES (1,024) of phase 3's tiles (rank 64, plain
+   tables with seeded N(0, 0.1) biases; a cut for the script's time),
    tables bitwise equal to the plain version's (it sums in the kernel's
    order; the SSE within 1e-4) and the f32 form from the same state not,
    each beside the f32 form's time on the same tiles, and on the whole
-   first sweep twice on one block and twice on the card's count
+   first sweep once on one block and twice on the card's count
    (bitwise); echo=2 of dense_phase in the lane and bias-free forms on
    the first 64 strata of phase 3's group 0 (int4, rank 64), the first
    256 on one block and the card's count (bitwise), group 0 and the
@@ -295,7 +297,42 @@ printed as it ends:
    within 0.03 of phase 4's (the bias modes' tolerance); (b) ends with
    phase 4's tables and held-out RMSE bit for bit and pads its carving;
    each run's epoch seconds split into dense, sparse and bias time, its
-   dense_info and held-out RMSE after each epoch.
+   dense_info and held-out RMSE after each epoch;
+27. ranks 16, 8 and 4 of the four sweep kernels against their plain
+   versions. On ml1m_rank32_biased's plan (su = si = 512, T = 256, the
+   full ML-1M-shaped synthetic), from seeded tables with N(0, 0.1)
+   biases at each rank: the lane, tile, bias-free, epoch and step_u (tpg
+   4) forms on the first 512 tiles of the first sweep (within 1e-4, two
+   kernel runs bitwise), each bf16 form on the first 256 (bitwise to its
+   kernel-order plain version, the f32 form from the same state the
+   control that must land off), every form over the whole sweep once on
+   one block and twice on the card's count (bitwise). The time form on
+   phase 15's data at the blocked timeSVD trainer's shapes, rank 16 with
+   12 bins and rank 8 with 4 (512 tiles, then the whole first sweep once
+   on one block and twice on the card's count).
+   bpr_sweep on the BPR cell's segment 0 (512 tiles, then the whole
+   segment once on one block and twice on the card's count). Times,
+   bounds and critical paths printed;
+28. the paths through them, each from the seeded untrained model of its
+   rank: ml1m_rank32_biased unchanged but for (a) model.rank=16, (b) =8,
+   (c) =4 (tile biases, through sgd_sweep_tile), (d) rank 16 with
+   sgd.bias_mode=lane (sgd_sweep), (e) rank 16 with
+   sgd.step_user_batch=true (sgd_sweep_step_u), (f) rank 16 with
+   sgd.mxu=bf16: each its 30 epochs, its kernel launched and no other,
+   the train RMSE falls every epoch, the held-out RMSE (unclipped) below
+   the untrained model's after every epoch, (a) and (b) within 0.003 of
+   the JAX trainer's CPU run at full size (tools/bias_mode_check.py
+   --rank), (f) within 0.003 of (d); (d)'s model through the stock, fused
+   and certified-exact recommenders (tile_topk at the augmented width 24;
+   exact == stock within 1e-4 modulo near-ties). (g) ml25m_rank64 unchanged
+   but for model.rank=16, 2 epochs on phase 4's data, every rating through
+   the rank-16 lane sweep: held-out below the untrained model's, a second
+   run bit for bit. (h) solver=timesvd at rank 16 with 12 bins, 20 epochs
+   on phase 15's data: the time form launched, the train RMSE falls every
+   epoch, the time-aware held-out RMSE below the untrained model's and
+   lane MF's at rank 16. (i) billion_bpr_sharded as phase 8 runs it at
+   model.rank=16 and =8: the loss falls every epoch and ends below ln 2
+   (the AUC printed). Both phases' wall times are printed at the end.
 
 Each phase prints its wall time. The second-to-last line is a JSON object
 describing each kernel (times, launches on the main path, and the bound:
@@ -333,10 +370,15 @@ index_put_. The forms of phase 25 are entries of their own at rank 64
 sgd_sweep_epoch_bf16, sgd_sweep_step_u_bf16, dense_phase_echo,
 dense_phase_none_echo), their launches from phase 26's runs (c), (g),
 (h), (f), (e), (a) and (i), with the rank-32 and rank-128 checks as their
-"variants". The BPR and netflix phases' host data are made in processes
-of their own from the script's start (make_data); stderr repeats each
-line after the seconds since the start. The script's total seconds are
-printed before the card's line; the last is
+"variants". The forms of phase 27 that phase 28 runs are entries of their
+own (sgd_sweep_r16, sgd_sweep_tile_r16, _r8 and _r4,
+sgd_sweep_step_u_r16, sgd_sweep_tile_bf16_r16, sgd_sweep_time_r16,
+bpr_sweep_r16 and _r8), their launches from runs (d), (a)-(c), (e), (f),
+(h) and (i); each holds the forms of its kernel that no path runs as its
+"variants" (NARROW_ENTRIES). The BPR and netflix phases' host data are
+made in processes of their own from the script's start (make_data);
+stderr repeats each line after the seconds since the start. The script's
+total seconds are printed before the card's line; the last is
 {"ok": true, "device": {...}}. Any failure
 exits non-zero with no such line, and so does a machine without a CUDA
 device.
@@ -379,6 +421,9 @@ PROFILE_BATCHES = 256  # phase 14's kernel breakdown
 # phases 15-16: the temporal recipe of tests/unit/test_timesvd_blocked.py
 # on TimeSVDConfig's 30 bins; the bin shift's spread
 TIME_BINS, TIME_SHIFT = 30, 0.35
+# phase 16's minibatch timeSVD run on the temporal ML-1M: 10 of
+# TimeSVDConfig's 20 epochs, a cut for the script's time
+JNP_TIME_EPOCHS = 10
 
 
 _T0 = time.perf_counter()
@@ -623,15 +668,15 @@ def compare(name, run_kernel, run_plain, state, tol=TOL, sums=(),
 def whole_sweep(name, run, state, deps, max_blocks, grid=None,
                 unit="tiles"):
     """``run(*tables, blocks)`` over a whole sweep (or dense strata) from
-    ``state``, twice on one block and then twice on as many as the card
-    holds: tables and scalar must be bitwise equal between all four.
+    ``state``, once on one block and then twice on as many as the card
+    holds: tables and scalar must be bitwise equal between the three runs.
     Returns the times, the blocks launched, the sweep's tiles (strata) and
     its critical path. ``grid``: the blocks the wrapper launches at the
     card's count (default: one a run, at most ``max_blocks``)."""
     import torch
 
     outs = []
-    for blocks in (1, 1, None, None):
+    for blocks in (1, None, None):
         tabs = [t.clone() for t in state]
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -646,20 +691,19 @@ def whole_sweep(name, run, state, deps, max_blocks, grid=None,
         if s != first[1] or any(not torch.equal(a, b)
                                 for a, b in zip(tabs, first[0])):
             raise AssertionError(
-                f"{name}: run {k} ({'one block' if k < 2 else 'the card'}'s "
-                f"grid) differs from the first one-block run ({s} vs "
-                f"{first[1]})")
+                f"{name}: run {k} (the card's grid) differs from the "
+                f"one-block run ({s} vs {first[1]})")
     if not all(bool(torch.isfinite(t).all()) for t in outs[-1][0]):
         raise AssertionError(f"{name}: non-finite tables")
-    ms_one, ms_one2, ms_many, ms_again = (o[2] for o in outs)
+    ms_one, ms_many, ms_again = (o[2] for o in outs)
     if grid is None:
         grid = min(max_blocks, deps.runs.shape[0])
     log(f"[kernel] {name} whole: {deps.n_tiles} {unit} in "
         f"{deps.runs.shape[0]} runs, critical path {deps.critical} {unit} "
         f"(x{deps.n_tiles / deps.critical:.2f} at most); 1 block "
-        f"{ms_one:.4f} and {ms_one2:.4f} ms, {grid} blocks {ms_many:.4f} and "
-        f"{ms_again:.4f} ms (x{ms_one / ms_many:.2f}); tables and scalar "
-        f"bitwise equal across the four runs (scalar {outs[-1][1]})")
+        f"{ms_one:.4f} ms, {grid} blocks {ms_many:.4f} and {ms_again:.4f} ms "
+        f"(x{ms_one / ms_many:.2f}); tables and scalar bitwise equal across "
+        f"the three runs (scalar {outs[-1][1]})")
     return {"sweep_tiles": deps.n_tiles,
             "sweep_critical_tiles": deps.critical, "sweep_blocks": grid,
             "sweep_ms_1_block": ms_one, "sweep_ms": ms_many,
@@ -972,13 +1016,14 @@ def serve_phase(model, train, dev, seed):
     return launches
 
 
-def bpr_form_check(name, st, bpr, seed, results, bounds, sweeps):
+def bpr_form_check(name, st, bpr, seed, results, bounds, sweeps,
+                   tiles=SWEEP_TILES):
     """bpr_sweep at the ring state ``st``'s rank against its plain version
-    on the first SWEEP_TILES tiles of segment 0 of epoch 0 from its tables
+    on the first ``tiles`` tiles of segment 0 of epoch 0 from its tables
     (within TOL, two kernel runs bitwise), the same tiles on one block in
-    plan order, then the whole of segment 0 twice on one block and twice
-    on as many as the card holds (bitwise). Fills ``results``, ``bounds``
-    and ``sweeps`` under ``name``."""
+    plan order, then the whole of segment 0 once on one block and twice
+    on as many as the card holds (bitwise). Fills
+    ``results``, ``bounds`` and ``sweeps`` under ``name``."""
     from mfx_torch.kernels import _build
     from mfx_torch.kernels.bpr_sweep import bpr_sweep, bpr_sweep_plain
     from mfx_torch.parallel import bpr_sharded as ring
@@ -987,7 +1032,7 @@ def bpr_form_check(name, st, bpr, seed, results, bounds, sweeps):
     rank = st.P.shape[1]
     tls = ring.ring_epoch_tiles(st, bpr, seed, 0)
     win0, nw, sa_all, tc_all, deps_all = st.segments()[0]
-    nt = min(SWEEP_TILES, tls[0].shape[2])
+    nt = min(tiles, tls[0].shape[2])
     tl = tls[0][0, 0, :nt].contiguous()
     sa, tc = sa_all[:nt // TPG].contiguous(), tc_all[:nt].contiguous()
     deps = deps_all.prefix(nt)
@@ -1027,15 +1072,21 @@ def bpr_form_check(name, st, bpr, seed, results, bounds, sweeps):
                                          blocks=blocks, **kw),
         (st.P, st.Q), deps_all,
         _build.load_library().mfx_bpr_sweep_max_blocks(bpr.tile, rank))
+    sweeps[name]["tiles"] = nt
+    sweeps[name]["critical_tiles"] = deps.critical
 
 
-def bpr_phases(dev, results, bounds, sweeps):
+def bpr_phases(dev, results, bounds, sweeps, forms):
     """Phases 7 and 8: bpr_sweep against its plain version at the BPR
     cell's shapes and on a whole segment, then the BPR path's 5 epochs;
     and the BPR parts of phases 21 and 22 on the same data: the same
     checks and the path at ranks 32 and 128. Fills ``results``,
     ``bounds`` and ``sweeps`` for bpr_sweep, bpr_sweep_r32 and
-    bpr_sweep_r128; returns their launches on the path."""
+    bpr_sweep_r128; returns their launches on the path. Then the BPR parts
+    of phases 27 and 28: ranks 16, 8 and 4 against plain on NARROW_TILES
+    tiles and segment 0 (once on one block, twice on the card's count),
+    into ``forms``; the path at ranks 16 and 8, their launches returned
+    too."""
     import math
 
     import numpy as np
@@ -1169,15 +1220,34 @@ def bpr_phases(dev, results, bounds, sweeps):
             dev, fresh_model(rk), train, test, bpr, seed, keys)
     log(f"[time] phase 22 (the BPR path at ranks 32 and 128) "
         f"{time.perf_counter() - t_phase:.1f} s")
+
+    # 27-28 (BPR). ranks 16, 8 and 4 against plain; the path at 16 and 8
+    t_phase = time.perf_counter()
+    checks = ({}, {}, {})
+    for rk in NARROW_RANKS:
+        name = f"bpr_sweep_r{rk}"
+        bpr_form_check(name, ring.ring_state(fresh_model(rk), train, bpr,
+                                             seed=seed, device=dev),
+                       bpr, seed, *checks, tiles=NARROW_TILES)
+        forms[name] = tuple(c[name] for c in checks)
+        torch.cuda.empty_cache()
+    narrow_time("27", t_phase, "bpr_sweep at ranks 16, 8 and 4")
+    t_phase = time.perf_counter()
+    for rk in NARROW_PATH_BPR:
+        out[f"bpr_sweep_r{rk}"] = bpr_rank_run(
+            dev, fresh_model(rk), train, test, bpr, seed, keys,
+            auc_check=False)
+    narrow_time("28", t_phase, "(i) the BPR path at ranks 16 and 8")
     return out
 
 
-def bpr_rank_run(dev, model, train, test, bpr, seed, keys):
+def bpr_rank_run(dev, model, train, test, bpr, seed, keys, auc_check=True):
     """Phase 22, the BPR part: train_epochs_bpr_ring from ``model`` (a
     rank other than the preset's) for the preset's epochs: bpr_sweep
     launched, the loss falls every epoch and ends below ln 2, the sampled
-    AUC ends above the untrained model's (a smoke check, as phase 8's).
-    Returns bpr_sweep's launches."""
+    AUC ends above the untrained model's (a smoke check, as phase 8's;
+    with ``auc_check=False``, as in phase 28, printed only). Returns
+    bpr_sweep's launches."""
     import math
 
     import torch
@@ -1222,7 +1292,7 @@ def bpr_rank_run(dev, model, train, test, bpr, seed, keys):
                              f"{losses}")
     if not losses[-1] < math.log(2):
         raise AssertionError(f"{tag}: final loss {losses[-1]} not below ln 2")
-    if not auc > auc0:
+    if auc_check and not auc > auc0:
         raise AssertionError(f"{tag}: AUC {auc} not above the untrained "
                              f"{auc0}")
     return launches
@@ -1720,7 +1790,7 @@ def netflix_forms(dev, sgd, fresh_model, sw, tl, meta, groups, mu, results,
     sgd_sweep_step_u.cu (tpg 4) against their plain versions on the first
     SWEEP_TILES tiles of the sparse sweep ``sw`` (within TOL, the epoch
     form's residuals too; two kernel runs bitwise), then each over the
-    whole sweep twice on one block and twice on the card's count (tables,
+    whole sweep once on one block and twice on the card's count (tables,
     biases, residuals and SSE bitwise); then the frozen and bias-free int8
     rank-128 dense forms on group 0 (dense_form_check, dense_group_times).
     The tables are phase 11's untrained model on plain tables with seeded
@@ -1931,7 +2001,7 @@ def dense_form_check(name, bias, groups, meta, state, lr, reg, mu, su, si,
                      rank, rfmt, tol=TOL, strata=DENSE_STRATA,
                      whole=DENSE_WHOLE):
     """A dense form against its plain version on the first ``strata``
-    strata of group 0 (within ``tol``), then the first ``whole`` twice on
+    strata of group 0 (within ``tol``), then the first ``whole`` once on
     one block and twice on the card's count, bitwise. ``state`` is (P, Q,
     bu, bi). Returns (max_abs_err, ms, plain_ms, whole-run dict,
     bound)."""
@@ -2946,7 +3016,8 @@ def time_path_phase(dev, tcoo):
                                    star_step=1.0, user_zipf_s=0.6), 101)
     coo1.save_npz(root / f"ml-1m.v{GENERATOR_VERSION}.synthetic.npz")
     cfg1 = apply_overrides(preset("ml1m_rank32_biased"), [
-        "solver=timesvd", "timesvd.dup_trust=16", f"data.root={root}"])
+        "solver=timesvd", "timesvd.dup_trust=16",
+        f"timesvd.epochs={JNP_TIME_EPOCHS}", f"data.root={root}"])
     res1 = drive(cfg1, device=dev, resume=False)
     trains1 = [r["train_metric"] for r in res1.history]
     tr1, te1 = train_test_split(coo1, cfg1.data.test_frac,
@@ -3802,6 +3873,8 @@ BF16_FORMS = {
 # cells (SWEEP_TILES at ml25m_rank64's): the plain version takes each sum
 # in the kernel's order, which costs time on hot rows
 VARIANT_TILES = 512
+# and at ml25m_rank64's cell: 1,024 tiles, a cut for the script's time
+BF16_CELL_TILES = 1024
 # the echo forms (echo 2), named at rank 64 with int4 codes
 ECHO_FORMS = {"dense_phase_echo": "lane", "dense_phase_none_echo": "none"}
 ECHO = 2
@@ -3844,7 +3917,7 @@ def bf16_forms(tag, lane_state, plain_state, sw, tl, lr, reg, mu, su, si,
     summed in another order, within TOL), two kernel runs bitwise, and the
     f32 form from the same state must differ from that plain version (a
     kernel that ignored the flag would fail); the f32 form on the same
-    tiles timed beside it, then the whole sweep twice on one block and
+    tiles timed beside it, then the whole sweep once on one block and
     twice on the card's count (tables, biases, residuals and SSE bitwise).
     ``lane_state`` = (P, Q) lane tables, ``plain_state`` = (P, Q, bu, bi).
     Returns {name: ((err, ms, plain_ms), bound, whole-run dict)}."""
@@ -3909,7 +3982,7 @@ def echo_forms(tag, groups, meta, lane_state, plain_state, lr, reg, mu, su,
     of ``biases`` against dense_phase_plain(echo=2) on the first
     ``strata`` strata of group 0 (within ``tol``, two kernel runs
     bitwise), the echo=1 form on them timed beside it, then the first
-    ``whole`` strata (2 ``whole`` slots) twice on one block and twice on
+    ``whole`` strata (2 ``whole`` slots) once on one block and twice on
     the card's count (bitwise); with ``times`` also group 0 and the
     epoch's dense phase at echo 2 on the card's count. Returns {name:
     ((err, ms, plain_ms), bound, whole-run dict)}."""
@@ -4100,8 +4173,477 @@ def variant_runs(dev, cfg, train, test, fresh_model, trained, lane_rmse):
             for name, (run, k) in VARIANT_LAUNCHES.items()}
 
 
+# ---- phases 27-28: ranks 16, 8 and 4 of the four sweep kernels ----------
+
+NARROW_RANKS = (16, 8, 4)
+NARROW_TILES = 512  # phase 27: the f32 forms against plain (tiles)
+NARROW_BF16_TILES = 256  # its bf16 forms (the plain sums in kernel order)
+NARROW_BINS = {16: 12, 8: 4}  # the time form's bins: the most each holds
+# phase 27's f32 sweep forms at each rank: (body, bias traffic, residual
+# bytes a slot), as BF16_FORMS
+NARROW_FORMS = {"sgd_sweep": ("lane", None, 0),
+                "sgd_sweep_tile": ("tile", "update", 0),
+                "sgd_sweep_tile_none": ("none", None, 0),
+                "sgd_sweep_epoch": ("epoch", "read", 4),
+                "sgd_sweep_step_u": ("step_u", "update", 0)}
+# phase 28 on ml1m_rank32_biased: (rank, overrides, the kernels it launches
+# and no other, the kernels-line entry its launches go to, that entry's
+# count)
+NARROW_RUNS = {
+    "a": (16, [], {"sgd_sweep_tile"}, "sgd_sweep_tile_r16", "sgd_sweep_tile"),
+    "b": (8, [], {"sgd_sweep_tile"}, "sgd_sweep_tile_r8", "sgd_sweep_tile"),
+    "c": (4, [], {"sgd_sweep_tile"}, "sgd_sweep_tile_r4", "sgd_sweep_tile"),
+    "d": (16, ["sgd.bias_mode=lane"], {"sgd_sweep"}, "sgd_sweep_r16",
+          "sgd_sweep"),
+    "e": (16, ["sgd.step_user_batch=true"], {"sgd_sweep_step_u"},
+          "sgd_sweep_step_u_r16", "sgd_sweep_step_u"),
+    "f": (16, ["sgd.mxu=bf16"], {"sgd_sweep_tile", "sgd_sweep_tile:bf16"},
+          "sgd_sweep_tile_bf16_r16", "sgd_sweep_tile:bf16"),
+}
+# (a) and (b): the JAX trainer's run of the same configuration on the same
+# full data on a CPU (tools/bias_mode_check.py --preset ml1m_rank32_biased
+# --cut 1 --rank R, from its own seeded init), held-out RMSE after 30
+# epochs; the port's run must end within NARROW_JAX_TOL of it
+NARROW_JAX = {16: 0.52536, 8: 0.52582}
+NARROW_JAX_TOL = 0.003
+NARROW_BF16_TOL = 0.003  # (f) against (d)
+NARROW_PATH_BPR = (16, 8)  # phase 28 (i)
+NARROW_SERVE_TILE = 256  # (d)'s model served
+# the kernels line: each entry of phases 27-28 that a path of phase 28
+# runs, and the forms no path runs, held as its "variants"
+NARROW_ENTRIES = {
+    "sgd_sweep_r16": ("sgd_sweep_r8", "sgd_sweep_r4"),
+    "sgd_sweep_tile_r16": ("sgd_sweep_tile_none_r16", "sgd_sweep_epoch_r16"),
+    "sgd_sweep_tile_r8": ("sgd_sweep_tile_none_r8", "sgd_sweep_epoch_r8"),
+    "sgd_sweep_tile_r4": ("sgd_sweep_tile_none_r4", "sgd_sweep_epoch_r4"),
+    "sgd_sweep_step_u_r16": ("sgd_sweep_step_u_r8", "sgd_sweep_step_u_r4"),
+    "sgd_sweep_tile_bf16_r16": tuple(
+        f"{n}_r{r}" for r in NARROW_RANKS for n in BF16_FORMS
+        if (n, r) != ("sgd_sweep_tile_bf16", 16)),
+    "sgd_sweep_time_r16": ("sgd_sweep_time_r8",),
+    "bpr_sweep_r16": (),
+    "bpr_sweep_r8": ("bpr_sweep_r4",),
+}
+_NARROW_S = {"27": 0.0, "28": 0.0}
+
+
+def narrow_time(phase, t0, what):
+    """Adds the seconds since ``t0`` to phase 27's or 28's wall time and
+    prints them."""
+    dt = time.perf_counter() - t0
+    _NARROW_S[phase] += dt
+    log(f"[time] phase {phase} ({what}) {dt:.1f} s")
+
+
+def narrow_sweep_forms(dev, cfg, train, forms):
+    """Phase 27 on ``cfg``'s (ml1m_rank32_biased's) plan of ``train`` (su
+    = si = 512, T = 256): at each rank of NARROW_RANKS, from seeded tables
+    with N(0, 0.1) biases, each f32 form of NARROW_FORMS against its plain
+    version on the first NARROW_TILES tiles of the first sweep (within
+    TOL, two kernel runs bitwise) and each bf16 form of BF16_FORMS on the
+    first NARROW_BF16_TILES (bf16_forms: bitwise, the f32 form from the
+    same state the control that must land off); every form then over the
+    whole sweep once on one block and twice on the card's count
+    (bitwise). Fills ``forms`` {name_r<rank>: ((err, ms, plain_ms),
+    bound, whole-run dict)}."""
+    import torch
+
+    from mfx_torch.kernels import _build
+    from mfx_torch.kernels import plan_device as pdv
+    from mfx_torch.kernels.packing import lane_tables, plain_tables
+    from mfx_torch.models.mf import init_model
+    from mfx_torch.solvers import blocked
+
+    sgd, seed = cfg.sgd, cfg.data.seed
+    U, I = train.num_users, train.num_items
+    su, si, T, tpg = sgd.ublock, sgd.iblock, sgd.tile, blocked.TPG
+    args = (sgd.lr, sgd.reg, float(train.global_mean), su, si, tpg)
+    u, i, r = (torch.as_tensor(x).to(dev) for x in
+               (train.user, train.item, train.rating))
+    u, i, r = u.int(), i.int(), r.float()
+    lib = _build.load_library()
+    for rank in NARROW_RANKS:
+        skel = pdv.build_plan_skeleton(u, i, U, I, su, si, T, tpg,
+                                       blocked.sweep_geometry(I, rank, si))
+        tl = pdv.epoch_tiles_device(skel, u, i, r, seed, 0)
+        g = torch.Generator(device=dev).manual_seed(rank)
+        model = init_model(g, U, I, rank, global_mean=train.global_mean,
+                           device=dev)
+        model.bu.copy_(torch.randn(U, device=dev, generator=g) * 0.1)
+        model.bi.copy_(torch.randn(I, device=dev, generator=g) * 0.1)
+        lane = lane_tables(model, su, si, dev)
+        plain = plain_tables(model, su, si, dev)
+        sw = next(x for x in skel.sweeps if x.t1 > x.t0)
+        seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
+        nt = min(NARROW_TILES, sw.t1 - sw.t0)
+        head = (sw.sa[:nt // tpg].contiguous(), sw.tc[:nt].contiguous(),
+                tl[sw.t0:sw.t0 + nt], sw.deps.prefix(nt))
+        whole = (sw.sa, sw.tc, tl[sw.t0:sw.t1], sw.deps)
+        log(f"[narrow] rank {rank}: {len(skel.sweeps)} sweep(s) of "
+            f"{tl.shape[0]} tiles; the first {sw.t1 - sw.t0} tiles in "
+            f"{sw.deps.runs.shape[0]} runs, critical path {sw.deps.critical}"
+            f"; its first {nt}: critical path {head[3].critical}; seeded "
+            f"rank-{rank} tables, biases N(0, 0.1)")
+        card = {"lane": lib.mfx_sgd_sweep_max_blocks(T, rank),
+                "step_u": lib.mfx_sgd_sweep_step_u_max_blocks(T, rank, su)}
+        for name, (body, bias, slot_bytes) in NARROW_FORMS.items():
+            label = f"{name}_r{rank}"
+
+            def state(n, body=body):
+                if body == "lane":
+                    return tuple(lane)
+                return tuple(plain) + ((torch.zeros(n, T, device=dev),)
+                                       if body == "epoch" else ())
+
+            res = compare(
+                label, sweep_form_run(body, head, seg, *args, bf16=False),
+                sweep_form_run(body, head, seg, *args, kernel=False,
+                               bf16=False), state(nt), plain_again=False)
+            b = sweep_bound(head[2], head[0], head[1], su, si, tpg, rank,
+                            [("P", 0), ("Q", 1)], 10, bias=bias,
+                            slot_bytes=slot_bytes)
+            runs = whole_sweep(
+                label, lambda *t, body=body: sweep_form_run(
+                    body, whole, seg, *args, blocks=t[-1],
+                    bf16=False)(*t[:-1]),
+                state(sw.t1 - sw.t0), sw.deps,
+                card.get(body, lib.mfx_sgd_sweep_tile_max_blocks(T, rank)))
+            runs.update({"tiles": nt, "critical_tiles": head[3].critical,
+                         "sweep_bound_ms": sweep_bound(
+                             whole[2], whole[0], whole[1], su, si, tpg, rank,
+                             [("P", 0), ("Q", 1)], 10, bias=bias,
+                             slot_bytes=slot_bytes)[0]})
+            log(f"[kernel] {label}: {nt} tiles {res[1]:.4f} ms, plain "
+                f"{res[2]:.4f} ms; bound {b[0]:.4f} ms ({b[1]})")
+            forms[label] = (res, b, runs)
+        for name, out in bf16_forms(f"_r{rank}", lane, plain, sw, tl, *args,
+                                    tiles=NARROW_BF16_TILES).items():
+            out[2]["critical_tiles"] = sw.deps.prefix(out[2]["tiles"]).critical
+            forms[f"{name}_r{rank}"] = out
+        del skel, tl, lane, plain, model, head, whole
+        torch.cuda.empty_cache()
+
+
+def narrow_ml1m_phases(dev, forms):
+    """Phases 27 and 28 on ml1m_rank32_biased and the full ML-1M-shaped
+    synthetic: narrow_sweep_forms, then the runs of NARROW_RUNS, each its
+    30 epochs through train_epochs_blocked from the seeded untrained model
+    of its rank: its kernels and no other launched, the train RMSE falls
+    every epoch and the held-out RMSE (unclipped) lies below the untrained
+    model's after every epoch; (a) and (b) end within NARROW_JAX_TOL of
+    the JAX trainer's run (NARROW_JAX), (f) within NARROW_BF16_TOL of
+    (d). Then (d)'s rank-16 model through the stock, fused and
+    certified-exact recommenders (narrow_serve). Returns each run's
+    launches under its kernels-line entry."""
+    import torch
+
+    from mfx_torch.config import apply_overrides, preset
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.data.synthetic import ML1M_SHAPE, make_synthetic
+    from mfx_torch.models.mf import init_model
+
+    t_phase = time.perf_counter()
+    cfg = preset("ml1m_rank32_biased")
+    coo = make_synthetic(*ML1M_SHAPE, rank=32, seed=101, star_step=1.0,
+                         user_zipf_s=0.6)
+    train, test = train_test_split(coo, cfg.data.test_frac,
+                                   seed=cfg.data.seed)
+    narrow_sweep_forms(dev, cfg, train, forms)
+    narrow_time("27", t_phase, "the ML-1M forms at ranks 16, 8 and 4")
+
+    t_phase = time.perf_counter()
+    log(f"[narrow] path: ml1m_rank32_biased (su = si = {cfg.sgd.ublock}, T "
+        f"= {cfg.sgd.tile}, {cfg.sgd.epochs} epochs, bias_mode "
+        f"{cfg.sgd.bias_mode!r}) at ranks {NARROW_RANKS} on the ml-1m "
+        f"synthetic ({train.n_ratings} train ratings)")
+    launches, finals, last = {}, {}, {}
+    for key, (rank, ov, want, entry, count) in NARROW_RUNS.items():
+        def fresh_model(rank=rank):
+            g = torch.Generator(device=dev)
+            g.manual_seed(cfg.model.seed)
+            return init_model(g, coo.num_users, coo.num_items, rank,
+                              global_mean=train.global_mean,
+                              init_scale=cfg.model.init_scale, device=dev)
+
+        window = None
+        if NARROW_JAX.get(rank) is not None and not ov:
+            window = (NARROW_JAX[rank] - NARROW_JAX_TOL,
+                      NARROW_JAX[rank] + NARROW_JAX_TOL)
+        if key == "f":
+            window = (finals["d"] - NARROW_BF16_TOL,
+                      finals["d"] + NARROW_BF16_TOL)
+        _, out = train_runs(dev, cfg, train, test, fresh_model,
+                            {key: ([f"model.rank={rank}"] + ov, want,
+                                   window)},
+                            "narrow", every_epoch=True, last=last)
+        launches[entry] = out[key][0][count]
+        finals[key] = out[key][2][-1]
+        if window is not None:
+            log(f"[narrow] ({key}) held-out {finals[key]:.5f} within "
+                f"[{window[0]:.5f}, {window[1]:.5f}]")
+    log(f"[narrow] held-out RMSE after 30 epochs, unrounded: " + "; ".join(
+        f"({k}) {v!r}" for k, v in finals.items())
+        + f"; (f) - (a) {finals['f'] - finals['a']:.3e}")
+    narrow_serve(dev, last["d"][0], train)
+    narrow_time("28", t_phase, "(a)-(f) on ML-1M, and (d) served")
+    return launches
+
+
+def narrow_serve(dev, model, train):
+    """Phase 28 (d)'s rank-16 model through the stock, fused and
+    certified-exact fused recommenders (tile_topk at the augmented width
+    24): exact == stock within TOL modulo near-ties on 1,024 drawn users
+    and the 256 heaviest; the fused contract as phase 6 holds it;
+    tile_topk launched."""
+    import numpy as np
+    import torch
+
+    from mfx_torch.kernels.serve_topk import aug_width, tile_topk
+    from mfx_torch.serve import FusedTopKRecommender, TopKRecommender
+
+    if aug_width(model.rank) != 24:
+        raise AssertionError(f"rank {model.rank}: augmented width "
+                             f"{aug_width(model.rank)}, not 24")
+    tile_topk.launches = 0
+    stock = TopKRecommender(model, train=train, device=dev)
+    # tiles of NARROW_SERVE_TILE: ML-1M's 3,706 items make 15, whose
+    # depth-2 pool holds the K = 10 the approximate path returns
+    approx = FusedTopKRecommender(model, train=train, tile=NARROW_SERVE_TILE,
+                                  device=dev)
+    exact = FusedTopKRecommender(model, train=train, tile=NARROW_SERVE_TILE,
+                                 exact=True, exact_tiles=16, device=dev)
+    counts = np.bincount(train.user, minlength=model.num_users)
+    rng = np.random.default_rng(16)
+    users = np.concatenate([
+        rng.choice(np.flatnonzero(counts > 0), 1024, replace=False),
+        np.argsort(counts, kind="stable")[-256:]]).astype(np.int32)
+    si, ss = stock.recommend(users, k=K)
+    ei, es = exact.recommend(users, k=K)
+    gap = np.abs(es - ss)
+    if not np.all(gap <= TOL) or not np.all(np.isfinite(es)):
+        raise AssertionError(f"rank 16: exact != stock: gap {gap.max()}")
+    ai, as_ = approx.recommend(users[:1024], k=K)
+    u_t = torch.as_tensor(users[:1024], device=dev).long()[:, None]
+    i_t = torch.as_tensor(ai, device=dev).long()
+    true = (model.mu + model.bu[u_t] + model.bi[i_t]
+            + (model.P[u_t] * model.Q[i_t]).sum(-1)).double()
+    err = float((true - torch.as_tensor(as_, device=dev)).abs().max())
+    if (err > TOL or (ai >= model.num_items).any()
+            or (np.diff(as_, axis=1) > 0).any()):
+        raise AssertionError(f"rank 16: fused contract broken ({err})")
+    recall = np.mean([len(set(ai[b]) & set(si[b])) / K
+                      for b in range(1024)])
+    log(f"[narrow] serve (d)'s rank-16 model (augmented width 24, tiles of "
+        f"{NARROW_SERVE_TILE}): exact == "
+        f"stock on {len(users)} users, {int((ei != si).sum())} item swaps, "
+        f"all near-ties (score gap <= {gap.max():.3e}), exact_fallbacks "
+        f"{exact.exact_fallbacks}; fused scores within {err:.3e} of the "
+        f"true scores, recall@{K} against stock {recall:.4f}; tile_topk "
+        f"launches {tile_topk.launches}")
+    if tile_topk.launches < 1:
+        raise AssertionError("rank 16: tile_topk never launched")
+
+
+def narrow_ml25m_run(dev, cfg, train, test):
+    """Phase 28 (g): ml25m_rank64 unchanged but for model.rank=16, 2
+    epochs on phase 4's data from the seeded untrained rank-16 model:
+    every rating through the rank-16 lane sweep (no dense phase runs at
+    pack 8), held-out RMSE (unclipped) below the untrained model's, and a
+    second run bit for bit the first."""
+    import torch
+
+    from mfx_torch.models.mf import init_model
+
+    t_phase = time.perf_counter()
+
+    def fresh_model():
+        g = torch.Generator(device=dev)
+        g.manual_seed(cfg.model.seed)
+        return init_model(g, train.num_users, train.num_items, 16,
+                          global_mean=train.global_mean, device=dev)
+
+    runs = {"g": (["model.rank=16", "sgd.epochs=2"], {"sgd_sweep"}, None)}
+    firsts, lasts = [], []
+    for _ in range(2):
+        last: dict = {}
+        _, out = train_runs(dev, cfg, train, test, fresh_model, runs,
+                            "narrow", last=last)
+        firsts.append(out["g"])
+        lasts.append(last["g"])
+    (m1, info), (m2, _) = lasts
+    if info.get("num_strata", 0) or not all(
+            torch.equal(getattr(m1, k), getattr(m2, k))
+            for k in ("P", "Q", "bu", "bi")) or firsts[0][2] != firsts[1][2]:
+        raise AssertionError("(g): a dense phase ran, or a second run "
+                             "differs from the first")
+    log(f"[narrow] (g) ml25m_rank64 at rank 16: a second run repeats the "
+        f"tables and held-out RMSEs {firsts[0][2]} bit for bit; lane sweep "
+        f"launches {firsts[0][0]['sgd_sweep']}")
+    narrow_time("28", t_phase, "(g) ml25m_rank64 at rank 16")
+
+
+def narrow_time_phase(dev, tcoo, forms):
+    """Phase 27's time form on phase 15's temporal data ``tcoo`` at the
+    blocked timeSVD trainer's shapes (su = si = 512, T = 256): at rank 16
+    with 12 bins and at rank 8 with 4 (NARROW_BINS), NARROW_TILES tiles of
+    the first sweep against plain (within TOL, two kernel runs bitwise)
+    and the whole first sweep once on one block and twice on the card's
+    count (bitwise), into ``forms``. Then phase 28 (h): solver=timesvd at
+    rank 16 with 12 bins, TimeSVDConfig's epochs through
+    train_epochs_timesvd_blocked from the seeded rank-16 model: the time
+    form launched and no other kernel, the train RMSE falls every epoch,
+    the time-aware held-out RMSE (clipped to [0.5, 5], as the driver's)
+    ends below the untrained model's and below lane MF's at rank 16 (the
+    same blocks, epochs, lr and reg through sgd_sweep, as phase 16's).
+    Returns the time form's launches in (h)."""
+    import torch
+
+    from mfx_torch.config import SGDConfig
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.eval.metrics import rmse_mae
+    from mfx_torch.kernels import _build
+    from mfx_torch.kernels.packing import pad_rows, to_tlane_model
+    from mfx_torch.kernels.sgd_sweep import sgd_sweep_plain, sgd_sweep_time
+    from mfx_torch.models.mf import init_model
+    from mfx_torch.models.timesvd import fit_time_features, init_timesvd
+    from mfx_torch.solvers import blocked
+    from mfx_torch.solvers import timesvd_blocked as tsb
+    from mfx_torch.solvers.timesvd import rmse_mae_time
+
+    t_phase = time.perf_counter()
+    cfg = timesvd_config(None)
+    tc, seed = cfg.timesvd, cfg.data.seed
+    train, test = train_test_split(tcoo, cfg.data.test_frac, seed=seed)
+    U, I = tcoo.num_users, tcoo.num_items
+    su = si = tsb.BLOCK
+    T, tpg, lr, reg = tsb.TILE, blocked.TPG, tc.lr, tc.reg
+    mu = float(train.global_mean)
+    lib = _build.load_library()
+
+    def fresh_model(rank):
+        g = torch.Generator(device=dev)
+        g.manual_seed(cfg.model.seed)
+        return init_model(g, U, I, rank, global_mean=train.global_mean,
+                          init_scale=cfg.model.init_scale, device=dev)
+
+    for rank, nb in NARROW_BINS.items():
+        feats = fit_time_features(train, n_bins=nb, beta=tc.beta)
+        tb, dv = feats.features(train.user, train.timestamp)
+        plan = tsb.build_temporal_plan_skeleton(
+            train, tb, dv, su=su, si=si, tile=T, tpg=tpg,
+            nwin=blocked.sweep_geometry(I, rank, si), device=dev)
+        tl, sws = tsb.plan_temporal_epoch_device(*plan, seed, 0)
+        g = torch.Generator(device=dev).manual_seed(rank)
+        ts = init_timesvd(None, U, I, rank, nb, base=fresh_model(rank))
+        ts.bt.copy_(torch.randn(I, nb, device=dev, generator=g) * 0.1)
+        ts.alpha.copy_(torch.randn(U, device=dev, generator=g) * 0.1)
+        lanes = to_tlane_model(ts, nb)
+        P, Q = pad_rows(lanes.P, su), pad_rows(lanes.Q, si)
+        sw = sws[0]
+        nt = min(NARROW_TILES, sw.t1 - sw.t0)
+        sa, tcs = sw.sa[:nt // tpg].contiguous(), sw.tc[:nt].contiguous()
+        tls, deps = tl[sw.t0:sw.t0 + nt], sw.deps.prefix(nt)
+        seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
+        kw = dict(su=su, si=si, tpg=tpg, n_bins=nb)
+        name = f"sgd_sweep_time_r{rank}"
+        log(f"[kernel] {name}: {nt} tiles of the first sweep (T={T}, rank "
+            f"{rank}, {nb} bins, L = {rank - 3 - nb} latent lanes); "
+            f"{len(sws)} sweep(s), critical path of the tiles "
+            f"{deps.critical}")
+        res = compare(
+            name,
+            lambda Pt, Qt: sgd_sweep_time(Pt, Qt[seg], sa, tcs, tls, lr, reg,
+                                          mu, **kw, deps=deps),
+            lambda Pt, Qt: sgd_sweep_plain(Pt, Qt[seg], sa, tcs, tls, lr,
+                                           reg, mu, **kw),
+            (P, Q), plain_again=False)
+        bnd = sweep_bound(tls, sa, tcs, su, si, tpg, rank,
+                          [("P", 0), ("Q", 1)], None,
+                          slot_ops=time_slot_ops(rank, nb))
+        runs = whole_sweep(
+            name,
+            lambda Pt, Qt, blocks: sgd_sweep_time(
+                Pt, Qt[seg], sw.sa, sw.tc, tl[sw.t0:sw.t1], lr, reg, mu,
+                **kw, deps=sw.deps, blocks=blocks),
+            (P, Q), sw.deps, lib.mfx_sgd_sweep_time_max_blocks(T, rank))
+        runs.update({"tiles": nt, "critical_tiles": deps.critical,
+                     "n_bins": nb, "sweep_bound_ms": sweep_bound(
+                         tl[sw.t0:sw.t1], sw.sa, sw.tc, su, si, tpg, rank,
+                         [("P", 0), ("Q", 1)], None,
+                         slot_ops=time_slot_ops(rank, nb))[0]})
+        log(f"[kernel] {name} bound {bnd[0]:.4f} ms ({bnd[1]}; "
+            f"{time_slot_ops(rank, nb)} operations a real slot)")
+        forms[name] = (res, bnd, runs)
+        del plan, tl, sws, P, Q, lanes, ts
+        torch.cuda.empty_cache()
+    narrow_time("27", t_phase, "the time form at ranks 16 and 8")
+
+    # 28 (h). blocked timeSVD at rank 16, 12 bins, against lane MF
+    t_phase = time.perf_counter()
+    rank, nb, clip = 16, NARROW_BINS[16], (0.5, 5.0)
+    tc = dataclasses.replace(tc, n_bins=nb)
+    feats = fit_time_features(train, n_bins=nb, beta=tc.beta)
+    base, _ = rmse_mae_time(init_timesvd(None, U, I, rank, nb,
+                                         base=fresh_model(rank)),
+                            feats, test, clip=clip)
+    kernel_counts(reset=True)
+    trains, walls = [], []
+    torch.cuda.synchronize()
+    t_prev = time.perf_counter()
+    for _, ts, tr in tsb.train_epochs_timesvd_blocked(
+            fresh_model(rank), train, tc, seed=seed, feats=feats,
+            device=dev):
+        trains.append(float(tr))
+        walls.append(time.perf_counter() - t_prev)
+        t_prev = time.perf_counter()
+    counts = kernel_counts()
+    got, _ = rmse_mae_time(ts, feats, test, clip=clip)
+    mf_cfg = SGDConfig(
+        lr=tc.lr, reg=tc.reg, lr_decay=tc.lr_decay, epochs=tc.epochs,
+        partitioner="blocked", kernel="pallas", ublock=su, iblock=si,
+        tile=T, bias_mode="lane", dense_chi=0, plan_device="device")
+    for _, mf, _ in blocked.train_epochs_blocked(fresh_model(rank), train,
+                                                 mf_cfg, True, seed=seed,
+                                                 device=dev):
+        pass
+    mf_rmse, _ = rmse_mae(mf, test, clip=clip)
+    log(f"[narrow] (h) blocked timeSVD, rank {rank}, {nb} bins, "
+        f"{tc.epochs} epochs: epoch s (first, median of the others) "
+        f"{walls[0]:.4f}, {sorted(walls[1:])[len(walls[1:]) // 2]:.4f}; "
+        f"train_rmse " + " ".join(f"{x:.5f}" for x in trains)
+        + f"; held-out time-aware {got:.5f}, lane MF at rank {rank} "
+        f"{mf_rmse:.5f}, untrained {base:.5f}; launches {counts}")
+    expect_kernels("(h)", counts, {"sgd_sweep_time"})
+    if len(trains) != tc.epochs or any(b >= a for a, b in
+                                       zip(trains, trains[1:])):
+        raise AssertionError(f"(h): the train RMSE did not fall every "
+                             f"epoch: {trains}")
+    if not got < min(mf_rmse, base):
+        raise AssertionError(f"(h): held-out {got} not below lane MF's "
+                             f"{mf_rmse} and the untrained {base}")
+    narrow_time("28", t_phase, "(h) blocked timeSVD at rank 16")
+    return counts["sgd_sweep_time"]
+
+
+def store_narrow(forms, results, bounds, sweeps):
+    """Phases 27-28 into the kernels line: each entry of NARROW_ENTRIES
+    with its check, bound and whole-sweep runs, the forms no path runs as
+    its "variants"."""
+    for name, others in NARROW_ENTRIES.items():
+        res, b, runs = forms[name]
+        results[name], bounds[name], sweeps[name] = res, b, dict(runs)
+        sweeps[name]["variants"] = [
+            {"variant": other, "max_abs_err": forms[other][0][0],
+             "ms": forms[other][0][1], "plain_ms": forms[other][0][2],
+             "bound_ms": forms[other][1][0], "bound_by": forms[other][1][1],
+             **forms[other][2]} for other in others]
+    log(f"[time] phase 27 {_NARROW_S['27']:.1f} s, phase 28 "
+        f"{_NARROW_S['28']:.1f} s")
+
+
 def main() -> int:
     import shutil
+    import threading
 
     import torch
 
@@ -4137,22 +4679,35 @@ def main() -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}")
 
-    # 2. build
+    # 2. build, in a thread beside the ML-25M data below (nvcc runs in
+    # processes of its own; the thread only waits on them)
     t0 = time.perf_counter()
-    _build.load_library()
-    log(f"[build] all kernels built and loaded in "
-        f"{time.perf_counter() - t0:.1f} s ({_build.BUILD_DIR})")
+    build: dict = {}
+
+    def build_kernels():
+        try:
+            _build.load_library()
+        except Exception as exc:  # raised again in the main thread
+            build["error"] = exc
+        build["s"] = time.perf_counter() - t0
+
+    build_thread = threading.Thread(target=build_kernels)
+    build_thread.start()
 
     # data: the ml-25m entry of mfx/data/loaders.py (its seeded synthetic)
     cfg = preset("ml25m_rank64")
     sgd = cfg.sgd
-    t0 = time.perf_counter()
     coo = make_synthetic(*ML25M_SHAPE, rank=64, seed=102, star_step=0.5,
                          user_zipf_s=0.6)
     train, test = train_test_split(coo, cfg.data.test_frac, seed=cfg.data.seed)
     log(f"[data] {coo.num_users} x {coo.num_items}, {coo.n_ratings} ratings "
         f"({train.n_ratings} train / {test.n_ratings} test) in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s, beside the build")
+    build_thread.join()
+    if "error" in build:
+        raise build["error"]
+    log(f"[build] all kernels built and loaded in {build['s']:.1f} s "
+        f"({_build.BUILD_DIR})")
     U, I, rank = coo.num_users, coo.num_items, cfg.model.rank
     su, si, T, tpg = sgd.ublock, sgd.iblock, sgd.tile, blocked.TPG
 
@@ -4300,7 +4855,8 @@ def main() -> int:
     m25.bi.copy_(torch.randn(I, device=dev, generator=g25) * 0.1)
     plain25 = plain_tables(m25, su, si, dev)
     store_forms(bf16_forms("", (P, Q), plain25, sw, tl, lr, reg, mu, su, si,
-                           tpg), results, bounds, sweeps)
+                           tpg, tiles=BF16_CELL_TILES), results, bounds,
+                sweeps)
     store_forms(echo_forms("", groups, meta, (P, Q), plain25, lr, reg, mu, su,
                            si, rfmt, DENSE_STRATA, DENSE_WHOLE, times=True),
                 results, bounds, sweeps)
@@ -4390,6 +4946,8 @@ def main() -> int:
     # 26. the main path under each dense and MXU setting, on phase 4's data
     launches.update(variant_runs(dev, cfg, train, test, fresh_model, m4,
                                  test_rmse))
+    # 28 (g). the main path's preset at rank 16, on phase 4's data
+    narrow_ml25m_run(dev, cfg, train, test)
 
     # 19 (its extra cell). the rank-32 lane sweep and dense forms on phase
     # 4's data at ml25m_rank64's shapes, which no preset runs at rank 32
@@ -4400,8 +4958,9 @@ def main() -> int:
     del m, model, train, test  # coo: phases 15-16 make it temporal
     torch.cuda.empty_cache()
 
-    # 7-8. the BPR path; 21-22 at ranks 32 and 128
-    launches.update(bpr_phases(dev, results, bounds, sweeps))
+    # 7-8. the BPR path; 21-22 at ranks 32 and 128; 27-28 at 16, 8 and 4
+    narrow: dict = {}  # phase 27's forms, stored with store_narrow
+    launches.update(bpr_phases(dev, results, bounds, sweeps, narrow))
 
     # 9-10. the tile-bias path
     launches.update(tile_bias_phases(dev, sweeps))
@@ -4424,11 +4983,17 @@ def main() -> int:
     # 19 (second part). the rank-32 time form, on phase 15's data
     rank32_time_phase(dev, tcoo, results, bounds, sweeps)
     launches["sgd_sweep_time"] = time_path_phase(dev, tcoo)
+    # 27-28 (timeSVD). the time form at ranks 16 and 8; the path at 16
+    launches["sgd_sweep_time_r16"] = narrow_time_phase(dev, tcoo, narrow)
     del tcoo
 
     # 19-20. ml1m_rank32_biased: the rank-32 forms against plain on its
     # runs' plan and carving, then the runs through them
     launches.update(rank32_path_phase(dev, results, bounds, sweeps))
+    # 27-28 (ML-1M). ranks 16, 8 and 4 of the SGD sweeps against plain on
+    # ml1m_rank32_biased's plan, then its paths at those ranks
+    launches.update(narrow_ml1m_phases(dev, narrow))
+    store_narrow(narrow, results, bounds, sweeps)
     for name, (err, ms, plain_ms) in cell25[0].items():
         sweeps[name]["ml25m_cell"] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -4473,7 +5038,17 @@ def main() -> int:
                 "sgd_sweep_step_u_bf16": "mfx/kernels/sgd_pallas.py:392",
                 # the echo branch of dense_pallas.py's _kernel_body (:86)
                 "dense_phase_echo": "mfx/kernels/dense_pallas.py:237",
-                "dense_phase_none_echo": "mfx/kernels/dense_pallas.py:237"}
+                "dense_phase_none_echo": "mfx/kernels/dense_pallas.py:237",
+                # ranks 16, 8 and 4 (pack 8, 16, 32) of the same bodies
+                "sgd_sweep_r16": "mfx/kernels/sgd_pallas.py:63",
+                "sgd_sweep_tile_r16": "mfx/kernels/sgd_pallas.py:63",
+                "sgd_sweep_tile_r8": "mfx/kernels/sgd_pallas.py:63",
+                "sgd_sweep_tile_r4": "mfx/kernels/sgd_pallas.py:63",
+                "sgd_sweep_step_u_r16": "mfx/kernels/sgd_pallas.py:363",
+                "sgd_sweep_tile_bf16_r16": "mfx/kernels/sgd_pallas.py:121",
+                "sgd_sweep_time_r16": "mfx/kernels/sgd_pallas.py:63",
+                "bpr_sweep_r16": "mfx/kernels/bpr_pallas.py:47",
+                "bpr_sweep_r8": "mfx/kernels/bpr_pallas.py:47"}
     sources = {"sgd_sweep_r128": "sgd_sweep", "dense_phase_int8_r128":
                "dense_phase", "sgd_sweep_time": "sgd_sweep",
                "sgd_sweep_epoch": "sgd_sweep_tile",
@@ -4497,7 +5072,15 @@ def main() -> int:
                "sgd_sweep_epoch_bf16": "sgd_sweep_tile",
                "sgd_sweep_step_u_bf16": "sgd_sweep_step_u",
                "dense_phase_echo": "dense_phase",
-               "dense_phase_none_echo": "dense_phase"}
+               "dense_phase_none_echo": "dense_phase",
+               "sgd_sweep_r16": "sgd_sweep",
+               "sgd_sweep_tile_r16": "sgd_sweep_tile",
+               "sgd_sweep_tile_r8": "sgd_sweep_tile",
+               "sgd_sweep_tile_r4": "sgd_sweep_tile",
+               "sgd_sweep_step_u_r16": "sgd_sweep_step_u",
+               "sgd_sweep_tile_bf16_r16": "sgd_sweep_tile",
+               "sgd_sweep_time_r16": "sgd_sweep",
+               "bpr_sweep_r16": "bpr_sweep", "bpr_sweep_r8": "bpr_sweep"}
     variants = {"sgd_sweep": "bias_mode='lane', rank 64",
                 "sgd_sweep_tile": "bias_mode='tile'",
                 "dense_phase": "lane, int4 codes, rank 64",
@@ -4538,7 +5121,18 @@ def main() -> int:
                                          "mxu='bf16', rank 64, tpg 4",
                 "dense_phase_echo": f"lane, echo {ECHO}, int4 codes, rank 64",
                 "dense_phase_none_echo": f"no biases, echo {ECHO}, int4 "
-                                         "codes, rank 64"}
+                                         "codes, rank 64",
+                "sgd_sweep_r16": "bias_mode='lane', rank 16",
+                "sgd_sweep_tile_r16": "bias_mode='tile', rank 16",
+                "sgd_sweep_tile_r8": "bias_mode='tile', rank 8",
+                "sgd_sweep_tile_r4": "bias_mode='tile', rank 4",
+                "sgd_sweep_step_u_r16": "bias_mode='tile', step_user_batch, "
+                                        "rank 16, tpg 4",
+                "sgd_sweep_tile_bf16_r16": "bias_mode='tile', mxu='bf16', "
+                                           "rank 16",
+                "sgd_sweep_time_r16": "time_mode=True (bias_mode='lane'), "
+                                      f"rank 16, {NARROW_BINS[16]} bins",
+                "bpr_sweep_r16": "rank 16", "bpr_sweep_r8": "rank 8"}
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")
     log(f"[card] {card}")
     log(json.dumps({"kernels": [

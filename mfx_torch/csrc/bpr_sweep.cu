@@ -1,5 +1,5 @@
-// Fused BPR sweep over (user, positive, negative) triples, ranks 32, 64
-// and 128.
+// Fused BPR sweep over (user, positive, negative) triples, ranks 4, 8, 16,
+// 32, 64 and 128.
 //
 // Replaces: mfx/kernels/bpr_pallas.py::_kernel_body, driven by
 // bpr_sweep_pallas / _chunk_call (the DSGD-ring BPR sub-step).
@@ -57,8 +57,10 @@
 // longest dependency chain's tiles (a segment of W windows keeps at most
 // W blocks busy) plus the wavefront's ramp.
 //
-// Ranks 32 and 128. At rank 32 a row is 32 lanes (8 threads a row, one
-// float4 of each dot a thread): 96 KB of snapshots at T = 256. At rank 128
+// Ranks 4 to 32 and 128. At rank 32 a row is 32 lanes (8 threads a row,
+// one float4 of each dot a thread): 96 KB of snapshots at T = 256; at ranks
+// 16, 8 and 4 threads 0-3, 0-1 or 0 of a row's 8 hold a float4 and the rest
+// add zeros (sweep_common.cuh), 48, 24 and 12 KB of snapshots. At rank 128
 // the three snapshots would take 384 KB, so shared memory holds lanes 0-63
 // and 64-127 of the rows in turn (HALF, as in the SGD sweeps): gather
 // lanes 0-63 of p, qi and qj and take each thread's part of x = p.(qi -
@@ -362,17 +364,13 @@ int launch(float* P, float* Q, const int* sa, const int* tc, const int* tl,
 // Thread blocks of the rank's bpr_sweep_kernel the device holds at once at
 // tile size T, or minus the CUDA error.
 extern "C" int mfx_bpr_sweep_max_blocks(int T, int rank) {
-  if (T < 1 || T > MAX_T) return -(int)cudaErrorInvalidValue;
-  if (rank == 128)
-    return resident_blocks(bpr_sweep_kernel<128>, THREADS,
-                           SweepSmem<HALF<128>>::bytes(T));
-  if (rank == 64)
-    return resident_blocks(bpr_sweep_kernel<64>, THREADS,
-                           SweepSmem<64>::bytes(T));
-  if (rank == 32)
-    return resident_blocks(bpr_sweep_kernel<32>, THREADS,
-                           SweepSmem<32>::bytes(T));
-  return -(int)cudaErrorInvalidValue;
+  const int bad = -(int)cudaErrorInvalidValue;
+  if (T < 1 || T > MAX_T) return bad;
+  return with_rank(rank, bad, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return resident_blocks(bpr_sweep_kernel<R>, THREADS,
+                           SweepSmem<HALF<R>>::bytes(T));
+  });
 }
 
 extern "C" int mfx_bpr_sweep(float* P, float* Q, const int* sa, const int* tc,
@@ -381,19 +379,14 @@ extern "C" int mfx_bpr_sweep(float* P, float* Q, const int* sa, const int* tc,
                              int nruns, int blocks, int tpg, int T, int su,
                              int si, int rank, float lr, float reg,
                              void* stream) {
+  const int bad = (int)cudaErrorInvalidValue;
   if (su > MAX_BLOCK || si > MAX_BLOCK || T < 1 || T > MAX_T || tpg < 1 ||
       nruns < 1 || blocks < 1)
-    return (int)cudaErrorInvalidValue;
+    return bad;
   const Wavefront wf{runs, wait, state, nruns};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (rank == 128)
-    return launch<128>(P, Q, sa, tc, tl, wf, sums, loss_out, nt, blocks, tpg,
-                       T, su, si, lr, reg, st);
-  if (rank == 64)
-    return launch<64>(P, Q, sa, tc, tl, wf, sums, loss_out, nt, blocks, tpg,
-                      T, su, si, lr, reg, st);
-  if (rank == 32)
-    return launch<32>(P, Q, sa, tc, tl, wf, sums, loss_out, nt, blocks, tpg,
-                      T, su, si, lr, reg, st);
-  return (int)cudaErrorInvalidValue;
+  return with_rank(rank, bad, [&](auto r) {
+    return launch<decltype(r)::value>(P, Q, sa, tc, tl, wf, sums, loss_out,
+                                      nt, blocks, tpg, T, su, si, lr, reg,
+                                      (cudaStream_t)stream);
+  });
 }

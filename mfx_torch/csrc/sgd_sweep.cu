@@ -1,10 +1,10 @@
-// Sparse blocked-SGD sweep (lane-carried biases, ranks 32, 64 and 128), and
-// its time form (blocked timeSVD).
+// Sparse blocked-SGD sweep (lane-carried biases, ranks 4, 8, 16, 32, 64 and
+// 128), and its time form (blocked timeSVD; ranks 8 to 128).
 //
 // Replaces: mfx/kernels/sgd_pallas.py::_kernel_body (bias_mode='lane',
-// pack 4 at rank 32, pack_path='roll' at rank 64, pack 1 at rank 128; with
-// time_mode=True the time form), driven by blocked_sgd_sweep_pallas /
-// _sweep_chunk_call.
+// pack 32, 16, 8 and 4 at ranks 4 to 32, pack_path='roll' at rank 64, pack
+// 1 at rank 128; with time_mode=True the time form), driven by
+// blocked_sgd_sweep_pallas / _sweep_chunk_call.
 //
 // What it computes, per tile of T ratings of one stratum (user block sa,
 // item window tc), in plan order:
@@ -52,10 +52,12 @@
 // not touch lanes 0-63, and under the wavefront no other block writes the
 // tile's rows while it runs. One sort of the slot ids serves both halves.
 // The rank-64 instance takes the one-half path: one gather, one scatter.
-// So does rank 32, whose whole row is its "half" (the sweep_common.cuh
-// buffers at 32 lanes, 71 KB at T = 256: 8 threads a row, one float4 of
-// each dot a thread); the time form's frozen and injected lanes then all
-// lie in lanes 0-31 (n_bins <= 28).
+// So do ranks 32 down to 4, whose whole row is their "half" (the
+// sweep_common.cuh buffers at RANK lanes, 71 KB at rank 32 and T = 256;
+// below rank 32 a slot's 8 dot threads hold RANK / 4 float4 and the rest
+// add zeros, sweep_common.cuh); the time form's frozen and injected lanes
+// then all lie in the row (n_bins <= rank - 4: 28, 12 and 4 at ranks 32,
+// 16 and 8; none at rank 4, which has no time form).
 //
 // The time form (TIME, timeSVD's temporal terms in the lanes). With
 // L = rank - 3 - n_bins, P rows are [p(L), 0 x n_bins, alpha_u, 1, bu] and
@@ -340,17 +342,16 @@ int launch(float* P, float* Q, const int* sa, const int* tc, const int* tl,
 
 template <bool TIME>
 int max_blocks(int T, int rank) {
-  if (T < 1 || T > MAX_T) return -(int)cudaErrorInvalidValue;
-  if (rank == 32)
-    return resident_blocks(sgd_sweep_kernel<32, TIME>, THREADS,
-                           smem_bytes<32, TIME>(T));
-  if (rank == 64)
-    return resident_blocks(sgd_sweep_kernel<64, TIME>, THREADS,
-                           smem_bytes<64, TIME>(T));
-  if (rank == 128)
-    return resident_blocks(sgd_sweep_kernel<128, TIME>, THREADS,
-                           smem_bytes<128, TIME>(T));
-  return -(int)cudaErrorInvalidValue;
+  const int bad = -(int)cudaErrorInvalidValue;
+  if (T < 1 || T > MAX_T) return bad;
+  return with_rank(rank, bad, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if constexpr (TIME && R < 8)  // no bin fits at rank 4
+      return bad;
+    else
+      return resident_blocks(sgd_sweep_kernel<R, TIME>, THREADS,
+                             smem_bytes<R, TIME>(T));
+  });
 }
 
 template <bool TIME>
@@ -359,24 +360,21 @@ int sweep(float* P, float* Q, const int* sa, const int* tc, const int* tl,
           float* sse_out, int nt, int nruns, int blocks, int tpg, int T,
           int su, int si, int rank, float lr, float reg, float mu,
           int n_bins, int bf16, void* stream) {
+  const int bad = (int)cudaErrorInvalidValue;
   if (su > MAX_BLOCK || si > MAX_BLOCK || T < 1 || T > MAX_T || tpg < 1 ||
       nruns < 1 || blocks < 1 ||
       (TIME && (n_bins < 1 || n_bins > rank - 4 || bf16)))
-    return (int)cudaErrorInvalidValue;
+    return bad;
   const Wavefront wf{runs, wait, state, nruns};
-  if (rank == 32)
-    return launch<32, TIME>(P, Q, sa, tc, tl, wf, sums, sse_out, nt, blocks,
-                            tpg, T, su, si, lr, reg, mu, n_bins, bf16,
-                            (cudaStream_t)stream);
-  if (rank == 64)
-    return launch<64, TIME>(P, Q, sa, tc, tl, wf, sums, sse_out, nt, blocks,
-                            tpg, T, su, si, lr, reg, mu, n_bins, bf16,
-                            (cudaStream_t)stream);
-  if (rank == 128)
-    return launch<128, TIME>(P, Q, sa, tc, tl, wf, sums, sse_out, nt,
-                             blocks, tpg, T, su, si, lr, reg, mu, n_bins,
-                             bf16, (cudaStream_t)stream);
-  return (int)cudaErrorInvalidValue;
+  return with_rank(rank, bad, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if constexpr (TIME && R < 8)
+      return bad;
+    else
+      return launch<R, TIME>(P, Q, sa, tc, tl, wf, sums, sse_out, nt, blocks,
+                             tpg, T, su, si, lr, reg, mu, n_bins, bf16,
+                             (cudaStream_t)stream);
+  });
 }
 
 }  // namespace

@@ -1,6 +1,6 @@
 // Sparse blocked-SGD sweep with the user side batched over each group of
-// tpg tiles (sgd.step_user_batch), per-tile biases or none, ranks 32, 64
-// and 128.
+// tpg tiles (sgd.step_user_batch), per-tile biases or none, ranks 4, 8, 16,
+// 32, 64 and 128.
 //
 // Replaces: mfx/kernels/sgd_pallas.py::_kernel_body_step_u (:363), driven
 // by blocked_sgd_sweep_pallas / _sweep_chunk_call with step_u=True.
@@ -51,8 +51,9 @@
 // Where a group's pooled user deltas live: one pool of su*rank + su floats
 // per block in flight, zero between groups. In shared memory where it
 // fits beside the tile's buffers (SMEM_POOL: 67.6 KB at su = 512, rank
-// 32); otherwise in device memory, blocks x pool floats that the wrapper
-// hands in zeroed (266 KB a block at su = 1024, rank 64, resident in L2).
+// 32, 34.8 KB at rank 16); otherwise in device memory, blocks x pool
+// floats that the wrapper hands in zeroed (266 KB a block at su = 1024,
+// rank 64, resident in L2).
 // smem_pool() below is the one place that decides. Both add the same
 // terms in the same order; where both fit, shared memory was the faster
 // on an H100 (the ML-1M sweep 31.3 against 32.1 ms on 12 blocks). The
@@ -262,36 +263,33 @@ int max_blocks(int T, int su) {
                                   THREADS, smem_bytes<RANK>(T, su, false));
 }
 
-bool shape_ok(int T, int rank, int su) {
-  return T >= 1 && T <= MAX_T && su >= 1 && su <= MAX_BLOCK &&
-         (rank == 32 || rank == 64 || rank == 128);
-}
-
-// smem_pool for the rank's instance (a rank shape_ok takes)
-bool rank_smem_pool(int T, int rank, int su) {
-  return rank == 128  ? smem_pool<128>(T, su)
-         : rank == 64 ? smem_pool<64>(T, su)
-                      : smem_pool<32>(T, su);
+bool shape_ok(int T, int su) {
+  return T >= 1 && T <= MAX_T && su >= 1 && su <= MAX_BLOCK;
 }
 
 }  // namespace
 
 // Thread blocks of the kernel the device holds at once at tile size T,
 // rank and user block su, for the pools' placement the launch will use;
-// minus the CUDA error if a call fails.
+// minus the CUDA error if a call fails or the shapes are not the kernel's.
 extern "C" int mfx_sgd_sweep_step_u_max_blocks(int T, int rank, int su) {
-  if (!shape_ok(T, rank, su)) return -(int)cudaErrorInvalidValue;
-  return rank == 128  ? max_blocks<128>(T, su)
-         : rank == 64 ? max_blocks<64>(T, su)
-                      : max_blocks<32>(T, su);
+  const int bad = -(int)cudaErrorInvalidValue;
+  if (!shape_ok(T, su)) return bad;
+  return with_rank(rank, bad, [&](auto r) {
+    return max_blocks<decltype(r)::value>(T, su);
+  });
 }
 
 // Floats of device memory each block's pool takes at these shapes: 0 where
 // the pools live in shared memory, else su * (rank + 1); minus the CUDA
 // error for shapes the kernel does not take.
 extern "C" int mfx_sgd_sweep_step_u_pool_floats(int T, int rank, int su) {
-  if (!shape_ok(T, rank, su)) return -(int)cudaErrorInvalidValue;
-  return rank_smem_pool(T, rank, su) ? 0 : (int)pool_floats(su, rank);
+  const int bad = -(int)cudaErrorInvalidValue;
+  if (!shape_ok(T, su)) return bad;
+  return with_rank(rank, bad, [&](auto r) {
+    return smem_pool<decltype(r)::value>(T, su) ? 0
+                                                : (int)pool_floats(su, rank);
+  });
 }
 
 // pools: blocks * mfx_sgd_sweep_step_u_pool_floats(T, rank, su) zeroed
@@ -305,25 +303,21 @@ extern "C" int mfx_sgd_sweep_step_u(float* P, float* Q, float* bu, float* bi,
                                     int T, int su, int si, int rank,
                                     int use_bias, int bf16, float lr,
                                     float reg, float mu, void* stream) {
-  if (!shape_ok(T, rank, su) || si > MAX_BLOCK || tpg < 1 || tpg > 8 ||
-      nt % tpg || nruns < 1 || blocks < 1)
-    return (int)cudaErrorInvalidValue;
-  const bool shared = rank_smem_pool(T, rank, su);
-  if ((pools == nullptr) != shared) return (int)cudaErrorInvalidValue;
+  const int bad = (int)cudaErrorInvalidValue;
+  if (!shape_ok(T, su) || si > MAX_BLOCK || tpg < 1 || tpg > 8 || nt % tpg ||
+      nruns < 1 || blocks < 1)
+    return bad;
   const Wavefront wf{runs, wait, state, nruns};
   cudaStream_t st = (cudaStream_t)stream;
-#define MFX_STEP_U_CASE(R)                                                  \
-  if (rank == R)                                                            \
-    return shared                                                           \
-               ? launch<R, true>(P, Q, bu, bi, pools, sa, tc, tl, wf, sums, \
-                                 sse_out, nt, blocks, tpg, T, su, si,       \
-                                 use_bias, bf16, lr, reg, mu, st)           \
-               : launch<R, false>(P, Q, bu, bi, pools, sa, tc, tl, wf,      \
-                                  sums, sse_out, nt, blocks, tpg, T, su,    \
-                                  si, use_bias, bf16, lr, reg, mu, st);
-  MFX_STEP_U_CASE(128)
-  MFX_STEP_U_CASE(64)
-  MFX_STEP_U_CASE(32)
-#undef MFX_STEP_U_CASE
-  return (int)cudaErrorInvalidValue;
+  return with_rank(rank, bad, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    const bool shared = smem_pool<R>(T, su);
+    if ((pools == nullptr) != shared) return bad;
+    return shared ? launch<R, true>(P, Q, bu, bi, pools, sa, tc, tl, wf, sums,
+                                    sse_out, nt, blocks, tpg, T, su, si,
+                                    use_bias, bf16, lr, reg, mu, st)
+                  : launch<R, false>(P, Q, bu, bi, pools, sa, tc, tl, wf,
+                                     sums, sse_out, nt, blocks, tpg, T, su,
+                                     si, use_bias, bf16, lr, reg, mu, st);
+  });
 }

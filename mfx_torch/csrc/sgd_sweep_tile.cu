@@ -1,5 +1,5 @@
 // Sparse blocked-SGD sweep with per-tile biases, epoch-frozen biases or
-// none, ranks 32, 64 and 128.
+// none, ranks 4, 8, 16, 32, 64 and 128.
 //
 // Replaces: mfx/kernels/sgd_pallas.py::_kernel_body with bias_mode='tile'
 // (its tile_bias branches), bias_mode='epoch' (its epoch_bias branches) or
@@ -58,7 +58,8 @@
 // scattered first, then lanes 0-63 are gathered again (still the tile-start
 // values) and scattered. The biases are gathered with the first half and
 // written once, the epoch form's residuals stored once. The table rows are
-// RANK / 4 float4 wide, the shared rows HALF / 4.
+// RANK / 4 float4 wide, the shared rows HALF / 4. Ranks 4 to 32 hold the
+// whole row (sweep_common.cuh, "Ranks 16, 8 and 4").
 //
 // What bounds it on an H100: as sgd_sweep.cu, one SM's latency a tile:
 // its phases (ids, gather, sort, residuals, scatter) are separated by
@@ -160,17 +161,13 @@ int launch(float* P, float* Q, float* bu, float* bi, float* e_out,
 // Thread blocks of the rank's kernel the device holds at once at tile
 // size T, or minus the CUDA error (one kernel for every bias mode).
 extern "C" int mfx_sgd_sweep_tile_max_blocks(int T, int rank) {
-  if (T < 1 || T > MAX_T) return -(int)cudaErrorInvalidValue;
-  if (rank == 128)
-    return resident_blocks(sgd_sweep_tile_kernel<128>, THREADS,
-                           TileSmem<HALF<128>>::bytes(T));
-  if (rank == 64)
-    return resident_blocks(sgd_sweep_tile_kernel<64>, THREADS,
-                           TileSmem<64>::bytes(T));
-  if (rank == 32)
-    return resident_blocks(sgd_sweep_tile_kernel<32>, THREADS,
-                           TileSmem<32>::bytes(T));
-  return -(int)cudaErrorInvalidValue;
+  const int bad = -(int)cudaErrorInvalidValue;
+  if (T < 1 || T > MAX_T) return bad;
+  return with_rank(rank, bad, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return resident_blocks(sgd_sweep_tile_kernel<R>, THREADS,
+                           TileSmem<HALF<R>>::bytes(T));
+  });
 }
 
 // use_bias: 0 no biases, 1 per-tile biases, 2 epoch-frozen biases (bu
@@ -184,22 +181,15 @@ extern "C" int mfx_sgd_sweep_tile(float* P, float* Q, float* bu, float* bi,
                                   int blocks, int tpg, int T, int su, int si,
                                   int rank, int use_bias, int bf16, float lr,
                                   float reg, float mu, void* stream) {
+  const int bad = (int)cudaErrorInvalidValue;
   if (su > MAX_BLOCK || si > MAX_BLOCK || T < 1 || T > MAX_T || tpg < 1 ||
       nruns < 1 || blocks < 1 || use_bias < BIAS_NONE ||
       use_bias > BIAS_EPOCH || ((use_bias == BIAS_EPOCH) != (e_out != nullptr)))
-    return (int)cudaErrorInvalidValue;
+    return bad;
   const Wavefront wf{runs, wait, state, nruns};
-  if (rank == 128)
-    return launch<128>(P, Q, bu, bi, e_out, sa, tc, tl, wf, sums, sse_out,
-                       nt, blocks, tpg, T, su, si, use_bias, bf16, lr, reg, mu,
-                       (cudaStream_t)stream);
-  if (rank == 64)
-    return launch<64>(P, Q, bu, bi, e_out, sa, tc, tl, wf, sums, sse_out, nt,
-                      blocks, tpg, T, su, si, use_bias, bf16, lr, reg, mu,
-                      (cudaStream_t)stream);
-  if (rank == 32)
-    return launch<32>(P, Q, bu, bi, e_out, sa, tc, tl, wf, sums, sse_out, nt,
-                      blocks, tpg, T, su, si, use_bias, bf16, lr, reg, mu,
-                      (cudaStream_t)stream);
-  return (int)cudaErrorInvalidValue;
+  return with_rank(rank, bad, [&](auto r) {
+    return launch<decltype(r)::value>(
+        P, Q, bu, bi, e_out, sa, tc, tl, wf, sums, sse_out, nt, blocks, tpg,
+        T, su, si, use_bias, bf16, lr, reg, mu, (cudaStream_t)stream);
+  });
 }

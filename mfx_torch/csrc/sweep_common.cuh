@@ -16,6 +16,15 @@
 // share a sweep's tiles; dense_phase.cu uses its release / acquire pair,
 // its grid sizing and its in-order sum.
 //
+// Ranks 16, 8 and 4 (4, 2 and 1 float4 a row) keep every layout and order
+// above: a slot keeps its group of 8 dot threads, of which threads 0-3,
+// 0-1 or 0 hold a float4 and the rest keep a chain of 0, so the butterfly
+// adds exact zeros and the dot is the rank-32 order of the row padded with
+// zero lanes (the plain versions' kernel_dot pads so). A slot with fewer
+// threads would free no barrier: a tile's phases wait on each other, not
+// on the dot's lanes. The gather, the scatters and the pool walk rows of
+// RANK / 4 float4 with one thread a float4, as at the larger ranks.
+//
 // bf16 (sgd.mxu='bf16', the reference's mxu_bf16 branch; a runtime flag of
 // the SGD sweeps): the values read from the tables enter the residual and
 // the deltas rounded to bf16 (round to nearest even): each row's lanes in
@@ -78,6 +87,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace mfx_sweep {
 
 constexpr int THREADS = 512;
@@ -89,8 +100,8 @@ constexpr int NO_ROW = INT_MAX;  // sort key of a pad slot (sorts last)
 // rows; epoch-frozen biases, gathered only
 constexpr int BIAS_NONE = 0, BIAS_TILE = 1, BIAS_EPOCH = 2;
 
-// Lanes of a row in shared memory at once: the whole row at ranks 32 and
-// 64, 64 lanes (two halves) at rank 128.
+// Lanes of a row in shared memory at once: the whole row at ranks 4 to 64,
+// 64 lanes (two halves) at rank 128.
 template <int RANK>
 constexpr int HALF = RANK < 64 ? RANK : 64;
 
@@ -201,7 +212,9 @@ __device__ inline void gather_rows(float4* const* dst, const float* const* src,
                                    const long long* base,
                                    const int* const* id, const int* uid,
                                    int T, int su, int q_off) {
-  constexpr int GATHER = MAX_T * HQ4 / THREADS;  // float4 a thread a table
+  // float4 a thread a table (rounded up: below rank 32 a tile's rows hold
+  // fewer float4 than the block has threads)
+  constexpr int GATHER = (MAX_T * HQ4 + THREADS - 1) / THREADS;
   const int tid = threadIdx.x;
   float4 v[N][GATHER];
 #pragma unroll
@@ -537,6 +550,22 @@ __device__ inline void publish(const Wavefront& wf, bool ends_stratum,
   if (!ends_stratum) return;
   __threadfence();
   st_release(wf.state + 1 + run, finished);
+}
+
+// The sweeps' compile-time ranks (the four SGD and BPR sweeps): returns
+// f(std::integral_constant<int, R>()) for the R equal to `rank`, `other`
+// for any other rank.
+template <class F>
+inline int with_rank(int rank, int other, F&& f) {
+  switch (rank) {
+    case 4: return f(std::integral_constant<int, 4>());
+    case 8: return f(std::integral_constant<int, 8>());
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 128: return f(std::integral_constant<int, 128>());
+    default: return other;
+  }
 }
 
 // Thread blocks of `kernel` (at `threads` threads and `smem` bytes of

@@ -4,23 +4,26 @@ plain PyTorch version.
 
 They replace the two bodies of ``mfx/kernels/sgd_pallas.py``'s sweep call:
 
-- :func:`sgd_sweep`: ``_kernel_body`` with ``bias_mode='lane'`` (ranks 32,
-  64 and 128; the biases ride in two factor lanes that the update
-  freezes);
+- :func:`sgd_sweep`: ``_kernel_body`` with ``bias_mode='lane'`` (the
+  biases ride in two factor lanes that the update freezes);
 - :func:`sgd_sweep_time`: the same body with ``time_mode=True`` (blocked
-  timeSVD, ranks 32, 64 and 128): the lane form with each slot's time bin
-  and deviation injected into its snapshot rows;
+  timeSVD): the lane form with each slot's time bin and deviation
+  injected into its snapshot rows;
 - :func:`sgd_sweep_tile`: ``_kernel_body`` with ``bias_mode='tile'`` or
-  with no biases (ranks 32, 64 and 128; ``bu`` / ``bi`` are vectors beside
-  the tables and every lane updates);
-- :func:`sgd_sweep_epoch`: the same kernel with ``bias_mode='epoch'``
-  (ranks 32, 64 and 128): the biases frozen for the sweep, every lane
-  updates,
-  and each slot's residual is written out for the trainer's batched bias
-  update at the epoch's end;
+  with no biases (``bu`` / ``bi`` are vectors beside the tables and every
+  lane updates);
+- :func:`sgd_sweep_epoch`: the same kernel with ``bias_mode='epoch'``:
+  the biases frozen for the sweep, every lane updates, and each slot's
+  residual is written out for the trainer's batched bias update at the
+  epoch's end;
 - :func:`sgd_sweep_step_u`: ``_kernel_body_step_u``
-  (``sgd.step_user_batch``, ranks 32, 64 and 128): the same, with the
-  user side batched over each group of ``tpg`` tiles.
+  (``sgd.step_user_batch``): the same, with the user side batched over
+  each group of ``tpg`` tiles.
+
+The kernels are built for the ranks of :data:`SWEEP_RANKS`, 4 to 128 (the
+time form from 8: at rank 4 no bin fits); the reference packs 128 // rank
+rows a lane row and takes every rank that divides 128. Ranks 2 and 1 have
+no kernel yet.
 
 One call runs one item-sweep: the tiles of ``tl``, each a snapshot
 minibatch (gather, residuals, exact segment-summed scatter), on plain
@@ -71,8 +74,9 @@ __all__ = ["SWEEP_RANKS", "bf16_round", "kernel_dot", "run_sums", "run_add",
            "check_kernel_limits", "check_deps", "wavefront_launch"]
 
 # the ranks every sweep kernel is built for: csrc/sgd_sweep.cu (lane and
-# time forms), sgd_sweep_tile.cu, sgd_sweep_step_u.cu and bpr_sweep.cu
-SWEEP_RANKS = (32, 64, 128)
+# time forms; the time form's n_bins <= rank - 4 leaves rank 4 none),
+# sgd_sweep_tile.cu, sgd_sweep_step_u.cu and bpr_sweep.cu
+SWEEP_RANKS = (4, 8, 16, 32, 64, 128)
 
 
 def bf16_round(x: torch.Tensor, on: bool = True) -> torch.Tensor:
@@ -86,12 +90,20 @@ def kernel_dot(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     order (``csrc/sweep_common.cuh``, ``dot_part``): 8 chains, chain k an
     fma over lanes 4 (k + 8 j) .. 4 (k + 8 j) + 3 for j ascending (each fma
     one rounding: the product is exact in f64 and the f64 sum is rounded
-    to f32), then ((c0 + c4) + (c2 + c6)) + ((c1 + c5) + (c3 + c7))."""
+    to f32), then ((c0 + c4) + (c2 + c6)) + ((c1 + c5) + (c3 + c7)). Below
+    rank 32 a row has fewer than 8 float4 and the threads past them keep
+    a chain of 0: the rows are padded with zero lanes to 32, which gives
+    the same chains and the same adds."""
     n, rank = p.shape
-    a = p.double().reshape(n, rank // 32, 8, 4)
-    b = q.double().reshape(n, rank // 32, 8, 4)
+    pad = -rank % 32
+    if pad:
+        p = torch.nn.functional.pad(p, (0, pad))
+        q = torch.nn.functional.pad(q, (0, pad))
+    width = (rank + pad) // 32
+    a = p.double().reshape(n, width, 8, 4)
+    b = q.double().reshape(n, width, 8, 4)
     c = torch.zeros(n, 8, dtype=torch.float32, device=p.device)
-    for j in range(rank // 32):
+    for j in range(width):
         for x in range(4):
             c = (a[:, j, :, x] * b[:, j, :, x] + c.double()).float()
     return (((c[:, 0] + c[:, 4]) + (c[:, 2] + c[:, 6]))
@@ -113,9 +125,15 @@ def run_sums(rows: torch.Tensor, delta: torch.Tensor):
     occ = torch.empty_like(inv)  # each slot's place in its row's run
     occ[by_row] = (torch.arange(inv.shape[0], device=inv.device)
                    - starts[inv[by_row]])
-    for k in range(int(occ.max()) + 1):
-        at = occ == k  # at most one slot a row
-        sums[inv[at]] = sums[inv[at]] + delta[at]
+    # the slots by their place in their runs: one host read of the bounds,
+    # then slices, so no step waits on the device
+    by_occ = torch.sort(occ, stable=True).indices
+    lo = 0
+    for hi in torch.bincount(occ).cumsum(0).tolist():
+        at = by_occ[lo:hi]  # at most one slot a row
+        r = inv[at]
+        sums[r] = sums[r] + delta[at]
+        lo = hi
     return uniq, sums
 
 
@@ -181,8 +199,10 @@ def check_kernel_limits(who, P, tl, su, si):
     if P.shape[1] not in SWEEP_RANKS:
         raise NotImplementedError(
             f"{who} kernel is built for rank "
-            f"{' or '.join(map(str, SWEEP_RANKS))}, got {P.shape[1]} (other "
-            "ranks: ROADMAP Queue 2 item 2)"
+            f"{' or '.join(map(str, SWEEP_RANKS))}, got {P.shape[1]} (ranks "
+            "2 and 1, less than a float4 a row: ROADMAP Q2-2b, Queue 2 item "
+            "2b; a rank that does not divide 128 has no form in the "
+            "reference either)"
         )
     if tl.shape[2] > 256 or su > 1024 or si > 1024:
         raise NotImplementedError(
@@ -324,7 +344,7 @@ def _lane_sweep(wrapper, P, Q, sa, tc, tl, lr, reg, mu, su, si, tpg, deps,
 def sgd_sweep(P, Q, sa, tc, tl, lr, reg, mu, *, su, si, tpg, deps=None,
               blocks=None, bf16=False):
     """One item-sweep. ``P`` is the padded lane-form user table
-    (A·su, rank), rank 32, 64 or 128; ``Q`` the sweep's item segment
+    (A·su, rank), a rank of SWEEP_RANKS; ``Q`` the sweep's item segment
     (nwin·si, rank), a contiguous row range of the padded item table;
     ``sa`` (NT/tpg,) the user block of each group of tpg tiles; ``tc``
     (NT,) each tile's sweep-local window; ``tl`` the (NT, 3, T) tile

@@ -28,6 +28,10 @@ from mfx_torch.solvers.dense_prep import prepare_dense_full
 
 pytestmark = pytest.mark.gpu
 
+# the time form's bins by rank (30 at ranks 64 and 128): the most that
+# rank 16 and rank 8 hold (rank - 4), 16 at rank 32
+TIME_BINS = {32: 16, 16: 12, 8: 4}
+
 U, I, RANK = 1500, 1300, 64
 SU = SI = 256
 T, TPG = 64, 4
@@ -75,7 +79,7 @@ def _check(run, plain, P, Q):
     assert bool(torch.isfinite(P1).all()) and bool(torch.isfinite(Q1).all())
 
 
-@pytest.mark.parametrize("rank", [RANK, 128, 32])
+@pytest.mark.parametrize("rank", [RANK, 128, 32, 16, 8, 4])
 @pytest.mark.parametrize("tile", [T, 200])
 def test_sgd_sweep_kernel_matches_plain(cuda, tile, rank):
     train, _, model, u, i, r = _state(cuda, rank=rank)
@@ -92,13 +96,14 @@ def test_sgd_sweep_kernel_matches_plain(cuda, tile, rank):
         assert sgd_sweep.launches == before + 2
 
 
-@pytest.mark.parametrize("rank", [RANK, 128, 32])
+@pytest.mark.parametrize("rank", [RANK, 128, 32, 16, 8, 4])
 @pytest.mark.parametrize("distinct", [4, 64, 1024])
 def test_sgd_sweep_kernel_hot_rows_and_pads(cuda, distinct, rank):
     """Random full tiles at blocks of 1024 and T = 256 where every slot
     repeats one of ``distinct`` rows per side, the last tile half pad:
     long duplicate runs exercise the kernel's segment sums (at rank 128
-    in both halves of the row, at rank 32 on 8 threads a row)."""
+    in both halves of the row, at rank 32 on 8 threads a row, below it on
+    4, 2 and 1 of a slot's 8 dot threads)."""
     g = torch.Generator(device=cuda).manual_seed(distinct)
     su = si = 1024
     nt, tile = 32, 256
@@ -211,7 +216,8 @@ def _frozen_unchanged(P, Q, P0, Q0, rank, n_bins):
 
 
 @pytest.mark.parametrize("rank,n_bins", [(RANK, 8), (RANK, 30), (128, 30),
-                                         (128, 70), (32, 16), (32, 28)])
+                                         (128, 70), (32, 16), (32, 28),
+                                         (16, 12), (8, 4)])
 def test_sgd_sweep_time_kernel_matches_plain(cuda, rank, n_bins):
     """The time form against its plain version on every sweep of a small
     temporal plan (at rank 128 with 70 bins the bin lanes straddle lane
@@ -233,7 +239,8 @@ def test_sgd_sweep_time_kernel_matches_plain(cuda, rank, n_bins):
 
 
 @pytest.mark.parametrize("rank,n_bins", [(RANK, 30), (128, 30), (128, 70),
-                                         (32, 16), (32, 28)])
+                                         (32, 16), (32, 28), (16, 12),
+                                         (8, 4)])
 @pytest.mark.parametrize("distinct", [4, 1024])
 def test_sgd_sweep_time_kernel_hot_rows_and_pads(cuda, distinct, rank,
                                                  n_bins):
@@ -277,16 +284,16 @@ def test_sgd_sweep_time_kernel_hot_rows_and_pads(cuda, distinct, rank,
     _frozen_unchanged(Pt, Qt, P, Q, rank, n_bins)
 
 
-@pytest.mark.parametrize("rank", [RANK, 128, 32])
+@pytest.mark.parametrize("rank", [RANK, 128, 32, 16])
 def test_blocked_timesvd_through_the_kernel_is_repeatable(cuda, rank):
     """Two runs of ``train_epochs_timesvd_blocked`` (2 epochs; 30 bins, 16
-    at rank 32) bitwise equal through the time form, never its plain
-    version; the train RMSE falls."""
+    at rank 32, 12 at rank 16) bitwise equal through the time form, never
+    its plain version; the train RMSE falls."""
     from mfx_torch.config import TimeSVDConfig
     from mfx_torch.solvers.timesvd_blocked import (
         train_epochs_timesvd_blocked)
 
-    nb = 16 if rank == 32 else 30
+    nb = TIME_BINS.get(rank, 30)
     train, tsm, *_ = _time_case(cuda, rank, nb, SU, T, 3)
     cfg = TimeSVDConfig(lr=0.01, reg=0.02, epochs=2, n_bins=nb,
                         kernel="pallas", reg_alpha=0.02)
@@ -331,7 +338,7 @@ def _check4(run, plain, state, use_bias=True):
 
 
 @pytest.mark.parametrize("use_bias", [True, False])
-@pytest.mark.parametrize("rank", [32, 64, 128])
+@pytest.mark.parametrize("rank", [32, 64, 128, 16, 8, 4])
 @pytest.mark.parametrize("body", ["tile", "step_u"])
 def test_tile_bias_sweep_kernels_match_plain(cuda, body, rank, use_bias):
     kernel, plain = TILE_SWEEPS[body]
@@ -358,7 +365,8 @@ def test_tile_bias_sweep_kernels_match_plain(cuda, body, rank, use_bias):
 
 @pytest.mark.parametrize("rank,tpg,distinct", [
     (32, 4, 4), (32, 8, 64), (32, 1, 512), (64, 4, 4), (64, 2, 64),
-    (64, 8, 1024), (128, 4, 4), (128, 2, 64), (128, 8, 1024)])
+    (64, 8, 1024), (128, 4, 4), (128, 2, 64), (128, 8, 1024), (16, 4, 4),
+    (16, 8, 1024), (8, 2, 64), (8, 4, 1024), (4, 4, 4), (4, 1, 512)])
 @pytest.mark.parametrize("body", ["tile", "step_u"])
 def test_tile_bias_sweep_kernels_hot_rows_and_pads(cuda, body, rank, tpg,
                                                    distinct):
@@ -681,7 +689,7 @@ def _bpr_state(dev, tile=64, rank=RANK):
     return coo, model, cfg, st, ring.ring_epoch_tiles(st, cfg, 0, 0)
 
 
-@pytest.mark.parametrize("rank", [RANK, 32, 128])
+@pytest.mark.parametrize("rank", [RANK, 32, 128, 16, 8, 4])
 @pytest.mark.parametrize("tile", [64, 256])
 def test_bpr_sweep_kernel_matches_plain(cuda, tile, rank):
     from mfx_torch.kernels.bpr_sweep import bpr_sweep, bpr_sweep_plain
@@ -698,7 +706,7 @@ def test_bpr_sweep_kernel_matches_plain(cuda, tile, rank):
         assert bpr_sweep.launches == before + 2
 
 
-@pytest.mark.parametrize("rank", [RANK, 32, 128])
+@pytest.mark.parametrize("rank", [RANK, 32, 128, 16, 8, 4])
 @pytest.mark.parametrize("distinct", [4, 64, 512])
 def test_bpr_sweep_kernel_hot_rows_and_pads(cuda, distinct, rank):
     """Random full tiles at the preset's blocks (512) and tile (256) where
@@ -773,10 +781,10 @@ def _wavefront_case(kernel, dev):
     takes user blocks of 1,024 (rank 64, as phase 3 of ``chip_smoke.py``
     runs it) over 9,000 users, where the kernel keeps its pools in device
     memory; ``step_u`` keeps them in shared memory."""
-    # the rank of a case named ..._r128 or ..._r32; ..._bf16... is the
-    # sweep's bf16 form, ..._echo... the dense phase's echo=2
-    rank = (128 if kernel.endswith("_r128") else 32 if kernel.endswith("_r32")
-            else RANK)
+    # the rank of a case named ..._r<rank> (rank 64 without); ..._bf16...
+    # is the sweep's bf16 form, ..._echo... the dense phase's echo=2
+    tail = kernel.rsplit("_r", 1)
+    rank = int(tail[1]) if len(tail) == 2 and tail[1].isdigit() else RANK
     bf16 = "_bf16" in kernel
     if kernel.startswith(("sgd", "tile", "step_u", "epoch")):
         users = 9000 if kernel == "step_u_su1024" else U
@@ -825,7 +833,7 @@ def _wavefront_case(kernel, dev):
                     su=su, si=si, tpg=TPG, bf16=bf16),
                 plain_tables(model, su, si, dev), sw.deps)
     if kernel.startswith("time"):
-        nb = 16 if rank == 32 else 30
+        nb = TIME_BINS.get(rank, 30)
         _, tsm, tl, sweeps, P, Q = _time_case(dev, rank, nb, 64, T, 8)
         sw = sweeps[0]
         seg = slice(sw.win0 * 64, (sw.win0 + sw.nwin) * 64)
@@ -910,7 +918,11 @@ WAVEFRONT_KERNELS = ["sgd", "sgd_r128", "bpr", "tile", "step_u",
                      "tile_bf16_r128", "step_u_bf16", "step_u_bf16_r32",
                      "epoch_bf16", "dense_echo", "dense_none_echo",
                      "dense_int8_echo_r128", "dense_echo_r32",
-                     "dense_none_int8_echo_r32"]
+                     "dense_none_int8_echo_r32"] + [
+    f"{k}_r{rank}" for rank in (16, 8, 4)
+    for k in ("sgd", "tile", "step_u", "epoch", "bpr", "sgd_bf16",
+              "tile_bf16", "step_u_bf16", "epoch_bf16")] + [
+    "time_r16", "time_r8"]
 
 
 @pytest.mark.parametrize("kernel", WAVEFRONT_KERNELS)
@@ -1137,7 +1149,7 @@ def _check_outs(run, plain, state, n_tables, moved):
     return k1
 
 
-@pytest.mark.parametrize("rank", [32, 64, 128])
+@pytest.mark.parametrize("rank", [32, 64, 128, 16, 8, 4])
 def test_sgd_sweep_epoch_kernel_matches_plain(cuda, rank):
     from mfx_torch.kernels.sgd_sweep import (sgd_sweep_epoch,
                                              sgd_sweep_epoch_plain)
@@ -1167,7 +1179,8 @@ def test_sgd_sweep_epoch_kernel_matches_plain(cuda, rank):
 
 
 @pytest.mark.parametrize("rank,distinct", [(32, 4), (32, 512), (64, 4),
-                                           (64, 1024), (128, 4), (128, 1024)])
+                                           (64, 1024), (128, 4), (128, 1024),
+                                           (16, 4), (8, 512), (4, 1024)])
 def test_sgd_sweep_epoch_kernel_hot_rows_and_pads(cuda, rank, distinct):
     """As the tile-bias kernels' case: full tiles at blocks of 1024, long
     duplicate runs, a half-pad tile and a whole pad tile."""
@@ -1383,7 +1396,7 @@ def _hot_tiles(dev, seed, distinct, su=1024, nt=32, tile=256):
 
 
 @pytest.mark.parametrize("distinct", [4, 1024])
-@pytest.mark.parametrize("rank", [32, 64, 128])
+@pytest.mark.parametrize("rank", [32, 64, 128, 16, 8, 4])
 @pytest.mark.parametrize("body", BF16_BODIES)
 def test_bf16_sweep_kernels_hot_rows_and_pads(cuda, body, rank, distinct):
     """Each sweep's bf16 form against its plain version (``bf16=True``) on
@@ -1427,6 +1440,28 @@ def test_bf16_sweep_kernels_hot_rows_and_pads(cuda, body, rank, distinct):
     run(*a)
     run(*b, bf16=False)
     assert not torch.equal(a[0], b[0])
+
+
+@pytest.mark.parametrize("rank", [16, 8, 4])
+@pytest.mark.parametrize("body", ["sgd", "tile", "step_u", "epoch"])
+def test_bf16_sweep_kernels_below_rank_32_are_the_plain_bits(cuda, body,
+                                                             rank):
+    """The bf16 forms at ranks 16, 8 and 4 over a whole small sweep: on 1
+    block and on the card's count the tables are bit for bit the plain
+    version's (it takes every sum in the kernel's order: a dot padded with
+    zero lanes to 32), and the f32 form from the same state lands off
+    them."""
+    run, plain, state, _ = _wavefront_case(f"{body}_bf16_r{rank}", cuda)
+    f32, _, _, _ = _wavefront_case(f"{body}_r{rank}", cuda)
+    want = [x.clone() for x in state]
+    plain(want)
+    for blocks in (1, None):
+        tabs = [x.clone() for x in state]
+        run(tabs, blocks)
+        assert all(torch.equal(a, b) for a, b in zip(tabs, want)), blocks
+    tabs = [x.clone() for x in state]
+    f32(tabs, None)
+    assert not torch.equal(tabs[0], want[0])
 
 
 DENSE_ECHO = [("lane", 64, "int4"), ("none", 64, "int4"),

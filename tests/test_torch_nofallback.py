@@ -331,10 +331,10 @@ def test_sweep_wrappers_cuda_route_reaches_no_plain_version(module, wrappers):
 
 
 @pytest.mark.parametrize("form,item", [
-    ("sgd_sweep rank 16", "Queue 2 item 2"),
+    ("sgd_sweep rank 2", "Q2-2b"),
     ("sgd_sweep rank 96", "Queue 2 item 2"),
-    ("sgd_sweep_tile rank 16", "Queue 2 item 2"),
-    ("bpr_sweep rank 16", "Queue 2 item 2"),
+    ("sgd_sweep_tile rank 2", "Q2-2b"),
+    ("bpr_sweep rank 1", "Q2-2b"),
     ("dense_phase rank 128 int4", "reference's dense path has no other"),
     ("dense_phase rank 16 int8", "reference's dense path has no other"),
 ])

@@ -3,7 +3,8 @@ with ``bf16=True`` against the reference Pallas kernel with
 ``mxu_bf16=True, exact=False`` in interpret mode (``exact`` wins over
 ``mxu_bf16`` in the reference), in every body the trainer runs (lane,
 tile biases, no biases, the step-batched user side, epoch-frozen biases)
-at ranks 32, 64 and 128, on the same tile plans and initial tables."""
+at ranks 4 to 128, on the same tile plans and initial tables; and the
+kernels' dot order that those plain versions take."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +15,7 @@ from mfx.kernels import packing as pk
 from mfx.kernels.sgd_pallas import blocked_sgd_sweep_pallas
 from mfx_torch.convert import model_from_numpy
 from mfx_torch.kernels import packing as pk_t
-from mfx_torch.kernels.sgd_sweep import (bf16_round, sgd_sweep,
+from mfx_torch.kernels.sgd_sweep import (bf16_round, kernel_dot, sgd_sweep,
                                          sgd_sweep_epoch, sgd_sweep_plain,
                                          sgd_sweep_step_u, sgd_sweep_tile)
 from test_torch_bias_epoch import TILE, TPG
@@ -117,7 +118,7 @@ def _port(body, rank, bf16):
             "bi": bi[:items]}, sse
 
 
-@pytest.mark.parametrize("rank", [32, 64, 128])
+@pytest.mark.parametrize("rank", [32, 64, 128, 16, 8, 4])
 @pytest.mark.parametrize("body", BODIES)
 def test_bf16_sweep_matches_pallas_interpret(body, rank):
     """Tables within ATOL of the reference's bf16 form, their mean
@@ -139,6 +140,40 @@ def test_bf16_sweep_matches_pallas_interpret(body, rank):
     if body in ("none", "epoch"):  # no bias vector is written
         for k in ("bu", "bi"):
             assert torch.equal(got[k], f32[k]), k
+
+
+def _dot_part_and_butterfly(p, q):
+    """The sweep kernels' dot of one row pair as csrc/sweep_common.cuh
+    takes it, written out thread by thread: 8 threads, thread k an fma
+    chain (exact product, one rounding) over float4 k, k + 8, ... of the
+    row, which is empty and stays 0 past the row's float4; then the
+    butterfly (xor 4, 2, 1) read on thread 0."""
+    f32 = np.float32
+    q4 = len(p) // 4
+    chains = []
+    for k in range(8):
+        acc = f32(0)
+        for kk in range(k, q4, 8):
+            for c in range(4):
+                acc = f32(np.float64(p[4 * kk + c]) * np.float64(q[4 * kk + c])
+                          + np.float64(acc))
+        chains.append(acc)
+    for mask in (4, 2, 1):
+        chains = [f32(chains[k] + chains[k ^ mask]) for k in range(8)]
+    return chains[0]
+
+
+@pytest.mark.parametrize("rank", [4, 8, 16, 32, 64, 128])
+def test_kernel_dot_is_the_kernels_order_at_every_rank(rank):
+    """kernel_dot at every rank the sweep kernels take against the
+    kernels' own order written out thread by thread; below rank 32 the
+    threads past the row's float4 add zeros."""
+    g = torch.Generator().manual_seed(rank)
+    p = torch.randn(6, rank, generator=g)
+    q = torch.randn(6, rank, generator=g)
+    want = torch.tensor([_dot_part_and_butterfly(a.numpy(), b.numpy())
+                         for a, b in zip(p, q)])
+    assert torch.equal(kernel_dot(p, q), want)
 
 
 def test_bf16_round_is_round_to_nearest_even():

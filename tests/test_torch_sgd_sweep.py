@@ -26,13 +26,12 @@ T, TPG, RANK = 64, 4, 64
 LR, REG = 0.012, 0.04
 # rank 128 (pack 1, the netflix100m_rank128_dp geometry) at the shapes of
 # tests/unit/test_pallas_kernel.py::test_pallas_rank128_pack1_interpret;
-# rank 32 (pack 4, ml1m_rank32_biased with bias_mode='lane') at rank 64's
-GEOM = {32: dict(users=U, items=I, n=6000, su=SU, tile=T, seed=9, lr=LR,
-                 reg=REG, atol=1e-5),
-        64: dict(users=U, items=I, n=6000, su=SU, tile=T, seed=9, lr=LR,
-                 reg=REG, atol=1e-5),
-        128: dict(users=300, items=260, n=3000, su=128, tile=32, seed=5,
-                  lr=0.05, reg=0.02, atol=2e-6)}
+# rank 32 (pack 4, ml1m_rank32_biased with bias_mode='lane') and ranks 16,
+# 8 and 4 (pack 8, 16 and 32) at rank 64's
+GEOM = {r: dict(users=U, items=I, n=6000, su=SU, tile=T, seed=9, lr=LR,
+                reg=REG, atol=1e-5) for r in (4, 8, 16, 32, 64)}
+GEOM[128] = dict(users=300, items=260, n=3000, su=128, tile=32, seed=5,
+                 lr=0.05, reg=0.02, atol=2e-6)
 
 
 def _setup(n=6000, seed=0, epoch=0, rank=RANK):
@@ -67,9 +66,15 @@ def test_sweep_geometry_matches_reference():
     for items, si in ((17770, 512), (260, 128)):
         assert sweep_geometry(items, 128, si) == sweep_geometry_j(items, 128, si)
     assert sweep_geometry(17770, 128, 512) == 35  # the netflix preset
+    # ranks 16, 8 and 4: the order parameter stays the reference's
+    for rank in (16, 8, 4):
+        for items, si in ((600, 256), (3706, 512), (59047, 1024),
+                          (17770, 512)):
+            assert (sweep_geometry(items, rank, si)
+                    == sweep_geometry_j(items, rank, si)), (rank, items, si)
 
 
-@pytest.mark.parametrize("rank", [32, 64, 128])
+@pytest.mark.parametrize("rank", [32, 64, 128, 16, 8, 4])
 def test_plain_sweep_matches_pallas_interpret(rank):
     g = GEOM[rank]
     users, items, su, lr, reg = (g["users"], g["items"], g["su"], g["lr"],

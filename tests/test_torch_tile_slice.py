@@ -32,6 +32,17 @@ CUT = ["sgd.ublock=128", "sgd.iblock=128", "sgd.tile=32", "sgd.epochs=2",
        "sgd.plan_device=device"]
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One torch thread a process: the plain sweeps loop over many small
+    CPU ops, and under ``pytest -n 6`` the workers' thread pools otherwise
+    fight for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _split():
     coo = synthetic.make_synthetic(U, I, N, rank=4, noise=0.3, seed=9,
                                    star_step=1.0)
@@ -81,6 +92,35 @@ def test_two_epochs_match_reference_trainer(step_u):
     assert np.abs(got[-1][2]["bu"]).max() > 0  # the biases train
     assert got[1][0] < got[0][0]  # it trains
     assert got[-1][2]["P"].shape == (U, rank)
+
+
+@pytest.mark.parametrize("rank", [16, 8])
+def test_one_epoch_below_rank_32_matches_reference_trainer(rank):
+    """The preset with ``model.rank`` 16 or 8 (pack 8 or 16 in the
+    reference; no dense phase in either package): one epoch of the port's
+    trainer against the reference's on the same plan bits, the RMSEs
+    within 1e-5."""
+    ov = CUT + ["sgd.epochs=1", f"model.rank={rank}"]
+    cfg_j = apply_overrides_j(preset_j("ml1m_rank32_biased"), ov)
+    cfg = apply_overrides(preset("ml1m_rank32_biased"), ov)
+    assert cfg.model.rank == cfg_j.model.rank == rank
+    train, test = _split()
+    m0 = init_model(1, U, I, rank, global_mean=train.global_mean)
+    arrays = {k: np.asarray(getattr(m0, k))
+              for k in ("P", "Q", "bu", "bi", "mu")}
+    (_, view, tr_j), = train_j(m0, train, cfg_j.sgd, use_bias=True, seed=0,
+                               tpg=4, exact=True, interpret=True)
+    ref = view.materialize()
+    (_, m, tr_t), = train_epochs_blocked(
+        model_from_numpy(arrays, device="cpu"), train, cfg.sgd, True, seed=0,
+        device="cpu", plan_rand=_jax_bits(0))
+    assert abs(float(tr_t) - float(tr_j)) <= 1e-5
+    assert abs(rmse_mae(m, test)[0] - rmse_mae_j(ref, test)[0]) <= 1e-5
+    got = model_to_numpy(m)
+    for k in ("P", "Q", "bu", "bi"):
+        np.testing.assert_allclose(got[k], np.asarray(getattr(ref, k)),
+                                   rtol=0, atol=1e-5, err_msg=k)
+    assert got["P"].shape == (U, rank) and np.abs(got["bu"]).max() > 0
 
 
 def test_the_two_bodies_differ_from_the_first_epoch():

@@ -126,13 +126,15 @@ def test_temporal_plan_is_the_reference_plan(su, tile):
         pdv.epoch_tiles_device(skel, u, i, r, 5, 0, extras=(tb.long(),))
 
 
-# rank 32 packs four slots into a reference lane row, rank 64 two: the
-# reference's dot sums 128 lanes where the port sums `rank`, and its segment
-# sums associate differently; f32 noise only (the lane form's tolerance in
-# tests/test_torch_sgd_sweep.py)
-@pytest.mark.parametrize("rank", [32, 64])
+# rank 32 packs four slots into a reference lane row, rank 64 two, ranks
+# 16 and 8 eight and sixteen: the reference's dot sums 128 lanes where the
+# port sums `rank`, and its segment sums associate differently; f32 noise
+# only (the lane form's tolerance in tests/test_torch_sgd_sweep.py). Ranks
+# 16 and 8 take the most bins, n_bins = rank - 4 (12 and 4; L = 1 latent
+# lane); at rank 4 no bin fits.
+@pytest.mark.parametrize("rank", [32, 64, 16, 8])
 def test_plain_time_sweep_matches_pallas_interpret(rank):
-    _time_sweep_against_pallas(rank, NB)
+    _time_sweep_against_pallas(rank, {16: 12, 8: 4}.get(rank, NB))
 
 
 def test_plain_time_sweep_with_the_most_bins_matches_pallas_interpret():
@@ -345,18 +347,24 @@ def test_reg_alpha_none_warns_as_the_reference_does():
 
 
 def test_time_form_kernel_limits():
-    """The time form's kernel is built for ranks 32, 64 and 128, like the
-    lane form; another rank (16: the plain version takes it) is refused on
-    a card's tensors, naming ROADMAP Queue 2 item 2; a bin count the lanes
-    cannot hold is refused on any device."""
+    """The time form's kernel is built for the lane form's ranks (at rank
+    4 no bin fits, so the bin check below refuses it); another rank (2:
+    the plain version takes it) is refused on a card's tensors, naming
+    ROADMAP Q2-2b; a bin count the lanes cannot hold is refused on any
+    device."""
     tl = torch.zeros(4, 5, 256, dtype=torch.int32)
-    assert SWEEP_RANKS == (32, 64, 128)
+    assert SWEEP_RANKS == (4, 8, 16, 32, 64, 128)
     for ok in SWEEP_RANKS:
         check_kernel_limits("sgd_sweep_time", torch.zeros(512, ok), tl, 512,
                             512)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 2"):
-        check_kernel_limits("sgd_sweep_time", torch.zeros(512, 16), tl, 512,
+    with pytest.raises(NotImplementedError, match="Q2-2b"):
+        check_kernel_limits("sgd_sweep_time", torch.zeros(512, 2), tl, 512,
                             512)
+    with pytest.raises(ValueError, match="n_bins"):
+        P4 = torch.zeros(512, 4)
+        sgd_sweep_time(P4, P4, torch.zeros(1, dtype=torch.int32),
+                       torch.zeros(4, dtype=torch.int32), tl, 0.01, 0.02,
+                       3.5, su=512, si=512, tpg=4, n_bins=1)
     P = torch.zeros(512, 64)
     i32 = dict(dtype=torch.int32)
     with pytest.raises(ValueError, match="n_bins"):

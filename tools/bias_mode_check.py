@@ -5,6 +5,8 @@ the settings that reach each form of the training kernels, beside
     JAX_PLATFORMS=cpu python tools/bias_mode_check.py --cut 5
     JAX_PLATFORMS=cpu python tools/bias_mode_check.py \\
         --preset ml1m_rank32_biased --cut 1
+    JAX_PLATFORMS=cpu python tools/bias_mode_check.py \\
+        --preset ml1m_rank32_biased --cut 1 --rank 16
 
 The preset's synthetic with users and ratings divided by ``--cut`` and
 every item kept, so that a stratum of the preset's blocks holds about the
@@ -27,6 +29,10 @@ whole stars, user Zipf 0.6; 30 epochs): (a) ``sgd.bias_mode=lane`` (no
 dense phase), (b) ``sgd.dense_span=full sgd.dense_chi=-1`` (tile biases,
 every stratum dense on the full data), (c) (b) with
 ``sgd.bias_mode=lane``, (d) (b) with ``model.use_bias=false``.
+
+``--rank R`` runs the preset unchanged but for ``model.rank=R`` instead
+(phase 28 (a)-(c) at ranks 16, 8 and 4: tile biases, no dense phase,
+which needs 128 // rank in (1, 2, 4)).
 
 Prints the threshold where it is fixed, each run's train RMSE and
 held-out RMSE (unclipped) after every epoch, the untrained model's, and
@@ -95,9 +101,13 @@ def main() -> None:
     ap.add_argument("--preset", choices=sorted(CELLS), default="ml25m_rank64")
     ap.add_argument("--cut", type=int, default=None)
     ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--rank", type=int, default=None,
+                    help="run the preset unchanged but for model.rank")
     args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
     shape, rank, seed, star, cut, epochs, fixed_chi, runs = CELLS[args.preset]
+    if args.rank is not None:
+        runs = {f"rank {args.rank}": [f"model.rank={args.rank}"]}
     cut, epochs = args.cut or cut, args.epochs or epochs
     base = preset(args.preset)
     chi = (full_size_chi(shape, rank, seed, star, base) if fixed_chi
@@ -107,7 +117,7 @@ def main() -> None:
                          user_zipf_s=0.6)
     train, test = train_test_split(coo, base.data.test_frac,
                                    seed=base.data.seed)
-    model = init_model(base.model.seed, U, I, base.model.rank,
+    model = init_model(base.model.seed, U, I, args.rank or base.model.rank,
                        global_mean=train.global_mean)
     print(f"cut 1/{cut}: {U} x {I}, {train.n_ratings} train / "
           f"{test.n_ratings} test; untrained held-out rmse "

@@ -6,12 +6,13 @@ bit for bit against each other on one card:
     PYTHONPATH=<other checkout> python <other checkout>/tools/kernel_digest.py > b.jsonl
     diff a.jsonl b.jsonl
 
-Forms: ``sgd_sweep`` (lane, ranks 32, 64, 128; the time form at ranks 32,
-64 and 128), ``sgd_sweep_tile`` (tile biases and none, epoch biases at
-ranks 32, 64 and 128), ``sgd_sweep_step_u`` (tile biases, ranks 32, 64
-and 128: its pools in shared memory at rank 32, in device memory at 64
-and 128), each SGD sweep but the time form also in its bf16 form (a
-``bf16`` in the name), ``bpr_sweep`` (ranks 32, 64 and 128),
+Forms: ``sgd_sweep`` (lane, ranks 4 to 128; the time form at ranks 8 to
+128), ``sgd_sweep_tile`` (tile biases and none, epoch biases at ranks 4
+to 128), ``sgd_sweep_step_u`` (tile biases, ranks 4 to 128: its pools in
+shared memory at ranks 4 to 32, in device memory at 64 and 128), each SGD
+sweep but the time form also in its bf16 form (a ``bf16`` in the name),
+``bpr_sweep`` (ranks 4 to 128; ranks 16, 8 and 4 of every sweep are
+listed after the other forms),
 ``dense_phase`` (lane, frozen and none at ranks 32 and 64 with int4 and
 int8 codes, and at rank 128 with int8; lane and none with ``echo2``, two
 passes a stratum), ``tile_topk`` (f32, bf16 and int8 catalogs at depths 1,
@@ -163,6 +164,18 @@ def main() -> int:
         for depth, tile in TOPK_FORMS + TOPK_DEEP:
             forms.append((f"tile_topk {dtype} depth {depth} tile {tile}", 64,
                           dtype, (depth, tile)))
+    # ranks 16, 8 and 4 of the sweeps (the time form at 16 and 8)
+    for rank in (16, 8, 4):
+        for bf16 in ("", " bf16"):
+            forms.append((f"sgd_sweep lane{bf16} r{rank}", rank, "lane", 0))
+            for mode in ("tile", "none", "epoch"):
+                forms.append((f"sgd_sweep_tile {mode}{bf16} r{rank}", rank,
+                              mode, 0))
+            forms.append((f"sgd_sweep_step_u tile{bf16} r{rank}", rank,
+                          "step_u", 0))
+        forms.append((f"bpr_sweep r{rank}", rank, "bpr", 0))
+    for rank, nb in ((16, 12), (8, 4)):
+        forms.append((f"sgd_sweep time r{rank} {nb} bins", rank, "time", nb))
     for name, rank, mode, extra in forms:
         g = torch.Generator(device=dev).manual_seed(len(name) * 7919 + rank)
         # the new forms' options, passed only where they are on

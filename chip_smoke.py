@@ -237,13 +237,17 @@ printed as it ends:
    epoch and ends below ln 2, and (a smoke check, as phase 8's) the
    sampled AUC ends above the untrained model's;
 23. (run after phase 6, on phase 4's model, data and split) the deep form
-   of tile_topk (depth > 32 or tile > 2048) against its plain version at
-   1,000,000 items x 256 users (seeded random tables, as phase 5): f32 at
+   of tile_topk (depth > 32 or tile > 2048) bitwise equal to its plain
+   version on tables whose scores are exact in any order (the serving
+   shapes, a split into many pieces a tile, depth 300), then against its
+   plain version at 1,000,000 items x 256 users (seeded random tables, as
+   phase 5): f32 at
    depths 33, 64 and 256 on tiles of 1024, depth 64 on tiles of 4096,
    depth 2 on tiles of 8192, bf16 and int8 at depth 64, and at the serving
    path's shapes (the trained catalog, 256 users, depth 64, tiles of
    4096): values within 1e-4, lanes equal but at near-ties, two runs
-   bitwise, each time beside the stock path's and the bound; then the
+   bitwise, each time in turns with the stock path (stock, kernel,
+   kernel, stock) and beside the bound; then the
    serving path through it, its launches counted alone (> 0): certified
    exact at exact_depth 64 on tiles of 4096 (k = 100 on 1,024 users equal
    to the stock exact scorer, the phase-6 gate) and the approximate
@@ -3432,12 +3436,12 @@ def deep_case(what, P_aug, Q_aug, sb, tile, depth, items, rank):
         raise AssertionError(f"{what}: two kernel runs differ")
     err, swaps, gap = hold_topk(what, outs[0], P_aug, Q_aug, sb, tile, depth)
     del outs
-    ms = cuda_ms(run, reps=3)
     plain_ms = cuda_ms(lambda: tile_topk_plain(P_aug, Q_aug, tile=tile,
                                                depth=depth, sb=sb))
     stock_topk(P_aug, Q_aug, sb, tile, depth)  # warm-up
-    stock_ms = cuda_ms(lambda: stock_topk(P_aug, Q_aug, sb, tile, depth),
-                       reps=3)
+    # in turns: stock, kernel, kernel, stock (3 calls each time)
+    stock_ms, ms = in_turns(
+        lambda: stock_topk(P_aug, Q_aug, sb, tile, depth), run, reps=3)
     B, K = P_aug.shape
     ipad = Q_aug.shape[0]
     nbytes = ((B * P_aug.element_size() + items * Q_aug.element_size())
@@ -3446,13 +3450,61 @@ def deep_case(what, P_aug, Q_aug, sb, tile, depth, items, rank):
     b = bound(nbytes, 2.0 * B * items * (rank + 1))
     log(f"[deep] {what}: B {B}, I_pad {ipad}, K {K}, tile {tile}, depth "
         f"{depth}: max_abs_err={err:.3e} (tol {TOL}), lane swaps {swaps} "
-        f"(gap <= {gap:.3e}); ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"stock_ms={stock_ms:.4f} bound_ms={b[0]:.4f} ({b[1]})")
+        f"(gap <= {gap:.3e}); in turns with the stock path: ms={ms:.4f} "
+        f"stock_ms={stock_ms:.4f} ({stock_ms / ms:.2f}x); "
+        f"plain_ms={plain_ms:.4f} bound_ms={b[0]:.4f} ({b[1]}, "
+        f"{b[0] / ms:.1%} of it)")
     return {"dtype": str(Q_aug.dtype).removeprefix("torch."), "B": B,
             "items_padded": ipad, "tile": tile, "depth": depth,
             "max_abs_err": err, "lane_swaps": swaps, "ms": ms,
             "plain_ms": plain_ms, "stock_ms": stock_ms, "bound_ms": b[0],
             "bound_by": b[1]}
+
+
+def in_turns(a, b, reps=3):
+    """(ms of a, ms of b), each the mean of two timings of ``reps`` calls
+    taken in turns: a, b, b, a."""
+    ta = cuda_ms(a, reps)
+    tb = cuda_ms(b, reps)
+    tb += cuda_ms(b, reps)
+    ta += cuda_ms(a, reps)
+    return ta / 2, tb / 2
+
+
+# phase 23: tables whose scores are exact in any summation order, at the
+# serving shapes (two pieces a tile) and with many pieces a tile: (B,
+# items, rank, tile, depth)
+DEEP_EXACT = ((256, 59_047, 64, 4096, 64), (16, 9_000, 64, 4096, 64),
+              (17, 3_000, 32, 512, 300))
+
+
+def deep_exact_case(dev, B, items, rank, tile, depth):
+    """The deep form against its plain version on integer and quarter
+    tables (every product and sum exact in f32, many equal scores):
+    values and lanes bitwise equal, whatever order either sums in."""
+    import torch
+
+    from mfx_torch.kernels.serve_topk import (aug_width, tile_topk,
+                                              tile_topk_plain)
+    from mfx_torch.serve.fused import _augment_catalog, _augment_rows
+
+    g = torch.Generator(device=dev).manual_seed(depth)
+    P = torch.randint(-3, 4, (B, rank), device=dev, generator=g).float()
+    Q = torch.randint(-3, 4, (items, rank), device=dev,
+                      generator=g).float() / 4
+    bi = torch.randint(-4, 5, (items,), device=dev, generator=g).float() / 2
+    ipad = -(-items // tile) * tile
+    P_aug = _augment_rows(P, torch.float32, aug_width(rank))
+    Q_aug = _augment_catalog(Q, bi, ipad, torch.float32)
+    got = tile_topk(P_aug, Q_aug, tile=tile, depth=depth)
+    want = tile_topk_plain(P_aug, Q_aug, tile=tile, depth=depth)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"[deep] exact scores, B {B}, {items} items, rank {rank}, tile "
+        f"{tile}, depth {depth}: bitwise equal to plain: {same}")
+    if not same:
+        raise AssertionError("the deep form differs from its plain version "
+                             "on exact scores")
 
 
 def _spawn(args):
@@ -3496,6 +3548,8 @@ def deep_serve_phase(dev, model, coo, train, test, cfg, results, bounds,
     from mfx_torch.train.checkpoint import save_checkpoint
 
     t_phase = time.perf_counter()
+    for case in DEEP_EXACT:
+        deep_exact_case(dev, *case)
     variants = []
     for dtype, depth, tile in DEEP_CASES:
         P_aug, Q_aug, sb = serving_tables(dev, SERVE_B, SERVE_ITEMS, dtype,

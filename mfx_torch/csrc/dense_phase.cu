@@ -55,7 +55,8 @@
 //   64-column chunks. Per chunk it builds S and E for its rows from the
 //   snapshot, adds the chunk's E Q to its rows' dP (registers; the second
 //   piece writes each chunk's E Q to scratch instead), and writes the
-//   chunk's Eᵀ P_band to the stratum's slot of a ring of dQ partials. The
+//   chunk's Eᵀ P_band to the stratum's slot of a ring of dQ partials
+//   (the unit's design is under "What bounds it"). The
 //   last piece of a panel to finish adds the first piece's dP and the
 //   other chunks' partials in chunk order, writes the panel's own P rows
 //   (no other unit of the stratum reads them) and counts the panel done.
@@ -91,7 +92,8 @@
 //
 // Memory ordering: P and Q rows are rewritten by other SMs inside the
 // launch, so every load of them, and of the partials, goes to L2
-// (__ldcg), and P and Q are not const __restrict__. A panel makes its
+// (__ldcg, or cp.async.cg for the band and the chunks), and P and Q are
+// not const __restrict__. A panel makes its
 // rows and partials visible by barrier, __threadfence() and an atomic
 // count; an apply unit reads the count with ld.acquire.gpu; the stratum's
 // end is published by barrier, __threadfence() and st.release.gpu, and
@@ -100,13 +102,37 @@
 // What bounds it on an H100: the three rank-deep products per cell are
 // 3 * 2 * su * si * rank FLOP a stratum (0.4 GFLOP at 1024² and rank 64,
 // 6.0 µs of f32 FMA on the whole card; 0.2 GFLOP, 3.0 µs at 512² and rank
-// 128) against su*si/2 (int4) or su*si (int8) bytes of R: compute. The
-// design feeds 64 FMAs from eight 16-byte shared loads, each one wavefront for
-// the warp (4 x 4 outputs a thread, k / j / r four at a time, the loops
-// unrolled over one block an SM's registers), keeps the products' inputs
-// in shared memory and dP in registers, and keeps as many strata in
-// flight as the dependency table allows; a group's time is then the
-// larger of its work over the card and its longest chain of strata.
+// 128) against su*si/2 (int4) or su*si (int8) bytes of R: compute. A
+// group's time is the larger of its work over the card and its longest
+// chain of strata, so a unit must be both efficient and short.
+// The unit, from its clock64() breakdown (measure_wavefront unit):
+// the earlier unit spent 30% of its time in S and E, 21% each in E Q and
+// Eᵀ P, at about half of the SM's FMA rate, with three barriers a chunk and
+// the next chunk staged through registers. Now:
+// - one pass of fused products a chunk (fused_chunk): S of the next chunk
+//   beside E Q and Eᵀ P of this one, their steps interleaved, so a warp
+//   has three independent sets of fmaf chains to issue while its shared
+//   loads land (64 FMAs per eight 16-byte loads in each set, 4 x 4 outputs
+//   a thread, each load one wavefront for the warp);
+// - the band and the chunks copied by cp.async (no register staging), the
+//   chunk two ahead landing in a third buffer while one is worked on and
+//   the next one's S is computed; E stored once (Eᵀ P reads its columns,
+//   a thread's dQ columns consecutive) in two buffers, this chunk's and
+//   the next one's: one barrier a chunk;
+// - one block of 256 threads an SM (up to 255 registers a thread, 113 KB
+//   of shared memory at rank 64). Two blocks an SM (128 registers)
+//   raised the SM's FMA rate but doubled each unit's time, and with it the
+//   chain of strata: group 0 of ml25m_rank64 took longer. Products split
+//   over three warp groups with 8 x 4 and 8 x 8 tiles (fewer loads a FMA)
+//   were slower still: two warps a product cannot hide their loads'
+//   latency (PERF.md §6).
+// The products stay bound by the shared loads: a warp's 16-byte load
+// takes the shared memory four cycles whatever it broadcasts, so at 4 x 4
+// outputs a thread (eight loads a 64 FMAs) they run at about half of the
+// FMA rate.
+// The fixed orders stay: every chain keeps its order, only the chains'
+// steps are interleaved. The two pieces a panel stay: the SSE is summed
+// per piece, so another cut would change its bits.
 
 #include <type_traits>
 
@@ -117,12 +143,61 @@ namespace {
 constexpr int BAND = 64;      // P_blk rows of a panel unit
 constexpr int CH = 64;        // Q_win columns of a chunk
 constexpr int PIECES = 2;     // pieces a row panel is cut into
-constexpr int EPITCH = CH + 4;  // shared row pitch of E in floats
+constexpr int TPITCH = BAND + 4;  // the frozen form's Eᵀ rows: 4 banks
+                                 // a row, so row sums read no conflict
+constexpr int EPITCH = CH + 8;  // shared row pitch of E in floats: 8
+                                // banks a row, so rows ty..ty+3 of a warp's
+                                // E stores and float4 loads never collide
 constexpr int NT = 256;       // 16 x 16 threads
 constexpr float DSTAR = 16.f;
 
 // the bias forms (the wrapper's 'lane', 'frozen', 'none')
 constexpr int LANE = 0, FROZEN = 1, NONE = 2;
+
+// Measurement-only build (nvcc -DMFX_DENSE_STAMPS, kernels/_build.py's
+// "dense_stamps" variant, driven by measure_wavefront unit): thread 0 of
+// each block adds clock64() deltas to one sum a phase, each stamp behind
+// a __syncthreads() (so a phase's time is its slowest thread's, and the
+// build has barriers the default one lacks); the sums over the blocks and
+// the unit counts go to g_stamps. The default build carries none of it.
+enum {
+  ST_TICKET,      // from a unit's end to the next ticket
+  ST_WAIT,        // a panel piece waiting for its stratum's turn
+  ST_SNAPSHOT,    // the P band and the first chunks landing
+  ST_E,           // S and E of the first chunk; then a chunk's E of the
+                  // next one, its copy's wait and the chunk's barrier
+  ST_FMA,         // a chunk's fused products (S of the next, E Q, E^T P)
+  ST_STORE,       // a chunk's partials written, the frozen form's sums
+  ST_PIECE_END,   // the piece's SSE, dP tile and count
+  ST_LAST,        // the last piece's sums and P rows
+  ST_APPLY_WAIT,  // an apply unit waiting for its stratum's panels
+  ST_APPLY,       // an apply unit's sums and Q rows
+  ST_N
+};
+#ifdef MFX_DENSE_STAMPS
+// per phase the blocks' cycles, then panel pieces, apply units, chunks
+__device__ unsigned long long g_stamps[ST_N + 3];
+#define DENSE_STAMP(sm, k)                                 \
+  do {                                                     \
+    __syncthreads();                                       \
+    if (threadIdx.x == 0) {                                \
+      const long long t_ = clock64();                      \
+      (sm).st[k] += t_ - (sm).st_last;                     \
+      (sm).st_last = t_;                                   \
+    }                                                      \
+  } while (0)
+#define DENSE_COUNT(i)                                           \
+  do {                                                           \
+    if (threadIdx.x == 0) atomicAdd(g_stamps + ST_N + (i), 1ull); \
+  } while (0)
+#else
+#define DENSE_STAMP(sm, k) \
+  do {                     \
+  } while (0)
+#define DENSE_COUNT(i) \
+  do {                 \
+  } while (0)
+#endif
 
 // The kernel's shapes at rank RANK with int8 (INT8) or int4 codes.
 // A thread's part of dP and dQ (64 rows, or columns, by RANK lanes): MR
@@ -158,14 +233,19 @@ struct Form {
 template <int RANK, bool INT8>
 struct Smem {
   using F = Form<RANK, INT8>;
-  float Pr[BAND * F::PITCH];  // P_band snapshot, row-major
-  float Qr[CH * F::PITCH];    // the chunk's Q rows, row-major
-  float Er[BAND * EPITCH];    // E[r][c]
-  float Ec[CH * EPITCH];      // E[c][r]
-  uint4 Rs[F::CODE_U4];       // the chunk's codes
+  float Pr[BAND * F::PITCH];   // P_band snapshot, row-major
+  float Qr[3][CH * F::PITCH];  // three chunks' Q rows, row-major
+  float E[2][BAND * EPITCH];   // two chunks' E[r][c], once each
+  float Et[2][CH * TPITCH];    // frozen form: the same E[c][r], for the
+                               // row sums
+  uint4 Rs[3][F::CODE_U4];     // three chunks' codes
   float red[NT / 32];
   int ticket;
   int flag;
+#ifdef MFX_DENSE_STAMPS
+  long long st[ST_N];
+  long long st_last;
+#endif
 };
 
 // The frozen form's bias inputs and outputs (all null in the other forms).
@@ -236,41 +316,50 @@ __device__ void await_stratum(const DenseSched& ds, int s, int pos) {
       while (mfx_sweep::ld_acquire(fin + x) == 0) __nanosleep(64);
 }
 
-// The chunk's Q rows and codes into registers (R4 / 4 float4 + 1 uint4).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               : : "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" : : : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" : : : "memory");
+}
+
+// every copy group but the last one issued has landed
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" : : : "memory");
+}
+
+// Start copying chunk ch's Q rows and codes into buffer b (cp.async.cg:
+// 16 bytes a copy, through L2 only, so rows other SMs rewrite are read
+// from L2 as the __ldcg loads read them). One commit group.
 template <int RANK, bool INT8>
-__device__ __forceinline__ void load_chunk(float4 (&qn)[RANK / 16],
-                                           uint4& rn, const float* Q,
-                                           long long qrow, const uint8_t* Rb,
-                                           int si, int ch) {
+__device__ __forceinline__ void issue_chunk(Smem<RANK, INT8>& sm, int b,
+                                            const float* Q, long long qrow,
+                                            const uint8_t* Rb, int si,
+                                            int ch) {
   using F = Form<RANK, INT8>;
   constexpr int R4 = F::R4;
   constexpr int SHIFT = INT8 ? 2 : 1;  // log2 of the uint4 a chunk row
+  static_assert(F::CODE_ROW == 16 << SHIFT, "a chunk row is 2 or 4 uint4");
   const int tid = threadIdx.x;
   const float4* Q4 = reinterpret_cast<const float4*>(Q);
 #pragma unroll
   for (int t = 0; t < RANK / 16; ++t) {
     const int idx = tid + t * NT, row = idx / R4, q = idx % R4;
-    qn[t] = __ldcg(Q4 + (qrow + ch * CH + row) * R4 + q);
+    cp_async16(&sm.Qr[b][row * F::PITCH + 4 * q],
+               Q4 + (qrow + ch * CH + row) * R4 + q);
   }
-  static_assert(F::CODE_ROW == 16 << SHIFT, "a chunk row is 2 or 4 uint4");
   if (tid < F::CODE_U4)
-    rn = *reinterpret_cast<const uint4*>(
-        Rb + (long long)(tid >> SHIFT) * F::row_bytes(si) +
-        ch * F::CODE_ROW + (tid & ((1 << SHIFT) - 1)) * 16);
-}
-
-template <int RANK, bool INT8>
-__device__ __forceinline__ void store_chunk(Smem<RANK, INT8>& sm,
-                                            const float4 (&qn)[RANK / 16],
-                                            const uint4& rn) {
-  using F = Form<RANK, INT8>;
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int t = 0; t < RANK / 16; ++t) {
-    const int idx = tid + t * NT, row = idx / F::R4, q = idx % F::R4;
-    *reinterpret_cast<float4*>(&sm.Qr[row * F::PITCH + 4 * q]) = qn[t];
-  }
-  if (tid < F::CODE_U4) sm.Rs[tid] = rn;
+    cp_async16(&sm.Rs[b][tid],
+               Rb + (long long)(tid >> SHIFT) * F::row_bytes(si) +
+                   ch * F::CODE_ROW + (tid & ((1 << SHIFT) - 1)) * 16);
+  cp_async_commit();
 }
 
 // The code of row r, column c of the chunk in shared memory.
@@ -314,6 +403,174 @@ __device__ __forceinline__ void load_tile(float (&v)[MR][4 * LQ],
     }
 }
 
+// S of a chunk for rows ty + 16m and columns tx + 16n: an fmaf chain over
+// k = 0..RANK-1 from 0.
+template <int RANK, bool INT8>
+__device__ __forceinline__ void chunk_s(float (&acc)[4][4], const float* Pr,
+                                        const float* Qc, int ty, int tx) {
+  constexpr int PITCH = Form<RANK, INT8>::PITCH;
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[m][q] = 0.f;
+#pragma unroll
+  for (int k = 0; k < RANK; k += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) a[m] = ld4<PITCH>(Pr, ty + 16 * m, k);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) b[q] = ld4<PITCH>(Qc, tx + 16 * q, k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          acc[m][q] = fmaf(comp(a[m], kk), comp(b[q], kk), acc[m][q]);
+  }
+}
+
+// E of a chunk from its S (rows ty + 16m, columns tx + 16n) into E, and
+// the thread's SSE chain.
+template <int RANK, bool INT8, int BIAS>
+__device__ __forceinline__ void chunk_e(float* E, float* Et,
+                                        const float (&acc)[4][4],
+                                        const uint4* Rs4, const float (&bur)[4],
+                                        const float (&bic)[4], float mu,
+                                        int ty, int tx, float& sq) {
+  using F = Form<RANK, INT8>;
+  const uint8_t* Rs = reinterpret_cast<const uint8_t*>(Rs4);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int r = ty + 16 * m;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = tx + 16 * q;
+      const int code = code_at<INT8>(Rs, r, c);
+      float e = 0.f;
+      if (code > 0) {
+        if (BIAS == FROZEN)
+          e = ((((float)code * F::SCALE - acc[m][q]) - bur[m]) - bic[q]) - mu;
+        else
+          e = ((float)code * F::SCALE - acc[m][q]) - mu;
+      }
+      E[r * EPITCH + c] = e;
+      if (BIAS == FROZEN) Et[c * TPITCH + r] = e;
+      sq = fmaf(e, e, sq);
+    }
+  }
+}
+
+// One pass over a chunk's products, their steps interleaved so that a
+// warp has three independent sets of fmaf chains in flight: (WITH_S) S of
+// the next chunk (rows ty + 16m, columns tx + 16n, over k from 0: acc),
+// the chunk's dP (rows r0 + 16m, lanes 64h + 4lx + n, over its columns j
+// from 0: d) and its dQ (columns cf + m, the same lanes, over the panel's
+// rows from 0: e). Each chain keeps its own order.
+template <int RANK, bool INT8, bool WITH_S>
+__device__ __forceinline__ void fused_chunk(
+    float (&acc)[4][4], float (&d)[Form<RANK, INT8>::MR][4 * Form<RANK, INT8>::LQ],
+    float (&e)[Form<RANK, INT8>::MR][4 * Form<RANK, INT8>::LQ],
+    const float* Pr, const float* Qn, const float* Qc, const float* E, int ty,
+    int tx, int r0, int lx, int cf) {
+  using F = Form<RANK, INT8>;
+  constexpr int PITCH = F::PITCH, MR = F::MR, LQ = F::LQ, NO = 4 * LQ;
+  constexpr int NS = RANK / 4, NP = CH / 4;  // quads of S; of dP and dQ
+  constexpr int NQ = NS > NP ? NS : NP;
+  static_assert(BAND == CH, "dP and dQ take as many quads");
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[m][q] = 0.f;
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int q = 0; q < NO; ++q) {
+      d[m][q] = 0.f;
+      e[m][q] = 0.f;
+    }
+#pragma unroll
+  for (int s4 = 0; s4 < NQ; ++s4) {
+    if (WITH_S && s4 < NS) {
+      const int k = 4 * s4;
+      float4 a[4], b[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) a[m] = ld4<PITCH>(Pr, ty + 16 * m, k);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) b[q] = ld4<PITCH>(Qn, tx + 16 * q, k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            acc[m][q] = fmaf(comp(a[m], kk), comp(b[q], kk), acc[m][q]);
+    }
+    if (s4 < NP) {
+      const int j = 4 * s4;  // dP: columns j..j+3; dQ: rows j..j+3
+      float4 e4[MR], q4[4][LQ], p4[4][LQ];
+      float ec[4][MR];
+#pragma unroll
+      for (int m = 0; m < MR; ++m) e4[m] = ld4<EPITCH>(E, r0 + 16 * m, j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+        for (int h = 0; h < LQ; ++h) {
+          q4[jj][h] = ld4<PITCH>(Qc, j + jj, 64 * h + 4 * lx);
+          p4[jj][h] = ld4<PITCH>(Pr, j + jj, 64 * h + 4 * lx);
+        }
+        if constexpr (MR == 4) {
+          const float4 v = ld4<EPITCH>(E, j + jj, cf);
+#pragma unroll
+          for (int m = 0; m < MR; ++m) ec[jj][m] = comp(v, m);
+        } else {
+          const float2 v =
+              *reinterpret_cast<const float2*>(E + (j + jj) * EPITCH + cf);
+          ec[jj][0] = v.x;
+          ec[jj][MR - 1] = v.y;
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int m = 0; m < MR; ++m)
+#pragma unroll
+          for (int h = 0; h < LQ; ++h)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              d[m][4 * h + q] = fmaf(comp(e4[m], jj), comp(q4[jj][h], q),
+                                     d[m][4 * h + q]);
+              e[m][4 * h + q] = fmaf(ec[jj][m], comp(p4[jj][h], q),
+                                     e[m][4 * h + q]);
+            }
+    }
+  }
+}
+
+// The frozen form's sums of a chunk's E: threads 0..63 add row tid over
+// the chunk's columns in order into their running row sum (from Et, so a
+// warp's reads fall in distinct banks), threads 64..127 column tid - 64
+// over the panel's rows in order into the ring's column sums.
+__device__ __forceinline__ void chunk_sums(const BiasSums& bs, const float* E,
+                                           const float* Et, float& rsum,
+                                           int tid, int pos, int ring, int nb,
+                                           int band, int si, int ch) {
+  if (tid >= 2 * BAND) return;
+  const bool row = tid < BAND;
+  const int x = row ? tid : tid - BAND;
+  const float* a = row ? Et + x : E + x;
+  const int step = row ? TPITCH : EPITCH;
+  float t = 0.f;
+#pragma unroll 8
+  for (int y = 0; y < CH; ++y) t += a[y * step];
+  if (row)
+    rsum += t;
+  else
+    __stcg(bs.cs_buf + ((long long)(pos % ring) * nb + band) * si + ch * CH +
+               x,
+           t);
+}
+
 template <int RANK, bool INT8, int BIAS>
 __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
                            const int* sa, const int* sc, const uint8_t* R,
@@ -340,6 +597,8 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
                             (nch - per_piece + 1) * BAND * RANK;
   if (tid == 0) await_stratum(ds, s, pos);
   __syncthreads();
+  DENSE_STAMP(sm, ST_WAIT);
+  DENSE_COUNT(0);
   const int d = s / ds.echo;  // the slot's stratum
   const long long prow = (long long)sa[d] * su + band * BAND;
   const long long qrow = (long long)sc[d] * si;
@@ -347,27 +606,26 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
       R + ((long long)d * su + band * BAND) * F::row_bytes(si);
   float* slot =
       ring_buf + ((long long)(pos % ds.ring) * nb + band) * si * RANK;
-  float4* P4 = reinterpret_cast<float4*>(P);
+  // the band's rows and chunk c0 (one copy group), then chunk c0 + 1
+  const int n = c1 - c0;  // the piece's chunks
+  const float4* P4 = reinterpret_cast<const float4*>(P);
   for (int idx = tid; idx < BAND * R4; idx += NT) {
     const int row = idx / R4, q = idx % R4;
-    *reinterpret_cast<float4*>(&sm.Pr[row * PITCH + 4 * q]) =
-        __ldcg(P4 + (prow + row) * R4 + q);
+    cp_async16(&sm.Pr[row * PITCH + 4 * q], P4 + (prow + row) * R4 + q);
   }
-  float4 qn[RANK / 16];
-  uint4 rn = make_uint4(0, 0, 0, 0);
-  load_chunk<RANK, INT8>(qn, rn, Q, qrow, Rb, si, c0);
-  store_chunk(sm, qn, rn);
-  // frozen form: the biases of rows ty + 16m and of the chunk's columns
-  // tx + 16n (the next chunk's loaded beside its rows), and the running
-  // row sum of E of row tid (threads 0..63)
+  issue_chunk<RANK, INT8>(sm, 0, Q, qrow, Rb, si, c0);
+  if (n > 1) issue_chunk<RANK, INT8>(sm, 1, Q, qrow, Rb, si, c0 + 1);
+  // frozen form: the biases of rows ty + 16m and of a chunk's columns
+  // tx + 16n (the next chunk's loaded a chunk ahead), and the running row
+  // sum of E of row tid (threads 0..63)
   float bur[4] = {0.f, 0.f, 0.f, 0.f}, bic[4] = {0.f, 0.f, 0.f, 0.f};
-  float bin[4] = {0.f, 0.f, 0.f, 0.f}, rsum = 0.f;
+  float rsum = 0.f;
   if (BIAS == FROZEN) {
 #pragma unroll
     for (int m = 0; m < 4; ++m) bur[m] = __ldg(bs.bu + prow + ty + 16 * m);
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
-      bic[n] = __ldg(bs.bi + qrow + c0 * CH + tx + 16 * n);
+    for (int n4 = 0; n4 < 4; ++n4)
+      bic[n4] = __ldg(bs.bi + qrow + c0 * CH + tx + 16 * n4);
   }
 
   float g[MR][NO];  // dP of rows r0 + 16m, lanes 64h + 4lx + n at
@@ -375,166 +633,83 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
 #pragma unroll
   for (int m = 0; m < MR; ++m)
 #pragma unroll
-    for (int n = 0; n < NO; ++n) g[m][n] = 0.f;
+    for (int q = 0; q < NO; ++q) g[m][q] = 0.f;
   float sq = 0.f;
-  const uint8_t* Rs = reinterpret_cast<const uint8_t*>(sm.Rs);
+  // the columns of this thread's dQ partial: MR consecutive ones
+  const int cf = MR * (ty + 16 * (tx / F::TXL));
+  if (n > 1)
+    cp_async_wait_one();
+  else
+    cp_async_wait_all();
+  __syncthreads();
+  DENSE_STAMP(sm, ST_SNAPSHOT);
+  float acc[4][4];  // S of rows ty + 16m and columns tx + 16n
+  chunk_s<RANK, INT8>(acc, sm.Pr, sm.Qr[0], ty, tx);
+  chunk_e<RANK, INT8, BIAS>(sm.E[0], sm.Et[0], acc, sm.Rs[0], bur, bic, mu,
+                            ty, tx, sq);
+  cp_async_wait_all();
+  __syncthreads();
+  DENSE_STAMP(sm, ST_E);
 
-  for (int ch = c0; ch < c1; ++ch) {
-    __syncthreads();
-    if (ch + 1 < c1) {
-      load_chunk<RANK, INT8>(qn, rn, Q, qrow, Rb, si, ch + 1);
-      if (BIAS == FROZEN) {
+  // Chunk ch = c0 + i: its Q rows and codes in buffer i % 3, its E in
+  // E[i % 2]. One pass of fused products: S of chunk ch + 1 (from its
+  // rows, which have landed), E Q and E^T P of chunk ch; then the partials,
+  // then E of chunk ch + 1, while chunk ch + 2 lands in the third buffer.
+  // One barrier a chunk.
+  for (int i = 0; i < n; ++i) {
+    const int ch = c0 + i, qb = i % 3, qn = (i + 1) % 3, eb = i & 1;
+    DENSE_COUNT(2);
+    if (i + 2 < n)
+      issue_chunk<RANK, INT8>(sm, (i + 2) % 3, Q, qrow, Rb, si, ch + 2);
+    float bin[4] = {0.f, 0.f, 0.f, 0.f};  // frozen: chunk ch + 1's biases
+    if (BIAS == FROZEN && i + 1 < n) {
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
-          bin[n] = __ldg(bs.bi + qrow + (ch + 1) * CH + tx + 16 * n);
-      }
+      for (int n4 = 0; n4 < 4; ++n4)
+        bin[n4] = __ldg(bs.bi + qrow + (ch + 1) * CH + tx + 16 * n4);
     }
-
-    // S, then E, for rows ty + 16m and the chunk's columns tx + 16n
-    float acc[4][4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int n = 0; n < 4; ++n) acc[m][n] = 0.f;
-#pragma unroll
-    for (int k = 0; k < RANK; k += 4) {
-      float4 a[4], b[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-        a[m] = ld4<PITCH>(sm.Pr, ty + 16 * m, k);
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-        b[n] = ld4<PITCH>(sm.Qr, tx + 16 * n, k);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int m = 0; m < 4; ++m)
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-            acc[m][n] = fmaf(comp(a[m], kk), comp(b[n], kk), acc[m][n]);
-    }
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int r = ty + 16 * m;
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const int c = tx + 16 * n;
-        const int code = code_at<INT8>(Rs, r, c);
-        float e = 0.f;
-        if (code > 0) {
-          if (BIAS == FROZEN)
-            e = ((((float)code * F::SCALE - acc[m][n]) - bur[m]) - bic[n]) -
-                mu;
-          else
-            e = ((float)code * F::SCALE - acc[m][n]) - mu;
-        }
-        sm.Er[r * EPITCH + c] = e;
-        sm.Ec[c * EPITCH + r] = e;
-        sq = fmaf(e, e, sq);
-      }
-    }
-    __syncthreads();
-    if (BIAS == FROZEN && tid < 2 * BAND) {
-      // the chunk's row sums (threads 0..63, row tid, columns in order)
-      // and column sums (threads 64..127, column tid - 64, rows in order)
-      const bool row = tid < BAND;
-      const int x = row ? tid : tid - BAND;
-      const float* a = row ? sm.Ec + x : sm.Er + x;
-      float t = 0.f;
-#pragma unroll 8
-      for (int y = 0; y < CH; ++y) t += a[y * EPITCH];
-      if (row)
-        rsum += t;
-      else
-        __stcg(bs.cs_buf + ((long long)(pos % ds.ring) * nb + band) * si +
-                   ch * CH + x,
-               t);
-    }
-
-    // the chunk's dP: rows r0 + 16m, lanes 64h + 4lx + n, over its
-    // columns j
-    float d[MR][NO];
-#pragma unroll
-    for (int m = 0; m < MR; ++m)
-#pragma unroll
-      for (int n = 0; n < NO; ++n) d[m][n] = 0.f;
-#pragma unroll
-    for (int j = 0; j < CH; j += 4) {
-      float4 e4[MR], q4[4][LQ];
-#pragma unroll
-      for (int m = 0; m < MR; ++m)
-        e4[m] = ld4<EPITCH>(sm.Er, r0 + 16 * m, j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int h = 0; h < LQ; ++h)
-          q4[jj][h] = ld4<PITCH>(sm.Qr, j + jj, 64 * h + 4 * lx);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int m = 0; m < MR; ++m)
-#pragma unroll
-          for (int h = 0; h < LQ; ++h)
-#pragma unroll
-            for (int n = 0; n < 4; ++n)
-              d[m][4 * h + n] = fmaf(comp(e4[m], jj), comp(q4[jj][h], n),
-                                     d[m][4 * h + n]);
-    }
+    float d[MR][NO], e[MR][NO];  // the chunk's dP and dQ partials
+    if (i + 1 < n)
+      fused_chunk<RANK, INT8, true>(acc, d, e, sm.Pr, sm.Qr[qn],
+                                    sm.Qr[qb], sm.E[eb], ty, tx, r0, lx,
+                                    cf);
+    else
+      fused_chunk<RANK, INT8, false>(acc, d, e, sm.Pr, sm.Qr[qn],
+                                     sm.Qr[qb], sm.E[eb], ty, tx, r0, lx,
+                                     cf);
+    DENSE_STAMP(sm, ST_FMA);
     if (piece == 0) {
 #pragma unroll
       for (int m = 0; m < MR; ++m)
 #pragma unroll
-        for (int n = 0; n < NO; ++n) g[m][n] += d[m][n];
+        for (int q = 0; q < NO; ++q) g[m][q] += d[m][q];
     } else {
       store_tile<RANK, MR, LQ>(
           dps + (long long)(ch - per_piece + 1) * BAND * RANK, d, r0, lx);
-    }
-
-    // the chunk's dQ partial: columns r0 + 16m, lanes 64h + 4lx + n, over
-    // the panel's rows r
-#pragma unroll
-    for (int m = 0; m < MR; ++m)
-#pragma unroll
-      for (int n = 0; n < NO; ++n) d[m][n] = 0.f;
-#pragma unroll
-    for (int r = 0; r < BAND; r += 4) {
-      float4 e4[MR], p4[4][LQ];
-#pragma unroll
-      for (int m = 0; m < MR; ++m)
-        e4[m] = ld4<EPITCH>(sm.Ec, r0 + 16 * m, r);
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-        for (int h = 0; h < LQ; ++h)
-          p4[rr][h] = ld4<PITCH>(sm.Pr, r + rr, 64 * h + 4 * lx);
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-        for (int m = 0; m < MR; ++m)
-#pragma unroll
-          for (int h = 0; h < LQ; ++h)
-#pragma unroll
-            for (int n = 0; n < 4; ++n)
-              d[m][4 * h + n] = fmaf(comp(e4[m], rr), comp(p4[rr][h], n),
-                                     d[m][4 * h + n]);
     }
 #pragma unroll
     for (int m = 0; m < MR; ++m)
 #pragma unroll
       for (int h = 0; h < LQ; ++h)
         __stcg(reinterpret_cast<float4*>(
-                   slot + (long long)(ch * CH + r0 + 16 * m) * RANK +
-                   64 * h + 4 * lx),
-               make_float4(d[m][4 * h], d[m][4 * h + 1], d[m][4 * h + 2],
-                           d[m][4 * h + 3]));
-    __syncthreads();
-    if (ch + 1 < c1) {
-      store_chunk(sm, qn, rn);
+                   slot + (long long)(ch * CH + cf + m) * RANK + 64 * h +
+                   4 * lx),
+               make_float4(e[m][4 * h], e[m][4 * h + 1], e[m][4 * h + 2],
+                           e[m][4 * h + 3]));
+    if (BIAS == FROZEN)
+      chunk_sums(bs, sm.E[eb], sm.Et[eb], rsum, tid, pos, ds.ring, nb, band,
+                 si, ch);
+    DENSE_STAMP(sm, ST_STORE);
+    if (i + 1 < n) {  // E of chunk ch + 1, from its S
       if (BIAS == FROZEN) {
 #pragma unroll
-        for (int n = 0; n < 4; ++n) bic[n] = bin[n];
+        for (int n4 = 0; n4 < 4; ++n4) bic[n4] = bin[n4];
       }
+      chunk_e<RANK, INT8, BIAS>(sm.E[eb ^ 1], sm.Et[eb ^ 1], acc, sm.Rs[qn],
+                                bur, bic, mu, ty, tx, sq);
     }
+    cp_async_wait_all();
+    __syncthreads();
+    DENSE_STAMP(sm, ST_E);
   }
 
   // the unit's SSE: warps' butterflies, then the warps in order
@@ -556,6 +731,7 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
     if (sm.flag == PIECES - 1) __threadfence();
   }
   __syncthreads();
+  DENSE_STAMP(sm, ST_PIECE_END);
   const bool last = sm.flag == PIECES - 1;
   if (last) {
     if (BIAS == FROZEN && tid < BAND) {
@@ -587,12 +763,13 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
           o[n] = update(comp(p, n), g[m][4 * h + n], deg, scale,
                         BIAS == LANE && 64 * h + 4 * lx + n == RANK - 2, lr,
                         reg);
-        __stcg(P4 + (prow + r) * R4 + 16 * h + lx,
+        __stcg(reinterpret_cast<float4*>(P) + (prow + r) * R4 + 16 * h + lx,
                make_float4(o[0], o[1], o[2], o[3]));
       }
     }
   }
   __syncthreads();
+  DENSE_STAMP(sm, ST_LAST);
   if (tid == 0) {
     float t = 0.f;
     for (int w = 0; w < NT / 32; ++w) t += sm.red[w];
@@ -606,8 +783,8 @@ __device__ void panel_unit(Smem<RANK, INT8>& sm, float* P, const float* Q,
   }
 }
 
-template <int RANK, int ROWS, int BIAS>
-__device__ void apply_unit(float* Q, const int* sc, const float* di,
+template <int RANK, int ROWS, int BIAS, class SM>
+__device__ void apply_unit(SM& sm, float* Q, const int* sc, const float* di,
                            const float* ring_buf, const BiasSums& bs,
                            const DenseSched& ds, int s, int pos, int part,
                            int su, int si, float lr, float reg) {
@@ -617,6 +794,8 @@ __device__ void apply_unit(float* Q, const int* sc, const float* di,
   if (tid == 0)
     while (mfx_sweep::ld_acquire(ds.state + 1 + s) < nb) __nanosleep(64);
   __syncthreads();
+  DENSE_STAMP(sm, ST_APPLY_WAIT);
+  DENSE_COUNT(1);
   const float4* slot = reinterpret_cast<const float4*>(
       ring_buf + (long long)(pos % ds.ring) * nb * si * RANK);
   const int d = s / ds.echo;  // the slot's stratum
@@ -666,6 +845,7 @@ __device__ void apply_unit(float* Q, const int* sc, const float* di,
       mfx_sweep::st_release(ds.state + 1 + 2 * ds.nd + s, 1);
     }
   }
+  DENSE_STAMP(sm, ST_APPLY);
 }
 
 // P and Q are rewritten by this and other blocks during the launch, so
@@ -683,24 +863,36 @@ dense_phase_kernel(float* P, float* Q, const int* __restrict__ sa,
   Smem<RANK, INT8>& sm = *reinterpret_cast<Smem<RANK, INT8>*>(smem_raw);
   const int nb = su / BAND, np = nb * PIECES, qrows = F::apply_rows(si);
   const int per = np + si / qrows;
+#ifdef MFX_DENSE_STAMPS
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < ST_N; ++k) sm.st[k] = 0;
+    sm.st_last = clock64();
+  }
+#endif
   for (;;) {
     __syncthreads();
     if (threadIdx.x == 0) sm.ticket = atomicAdd(ds.state, 1);
     __syncthreads();
     const int u = sm.ticket;
     if (u >= ds.nd * per) break;
+    DENSE_STAMP(sm, ST_TICKET);
     const int pos = u / per, j = u - pos * per, s = stratum_at(ds, pos);
     if (j < np)
       panel_unit<RANK, INT8, BIAS>(sm, P, Q, sa, sc, R, du, ring_buf, dp_buf,
                                    sums, bs, ds, s, pos, j / PIECES,
                                    j % PIECES, su, si, lr, reg, mu);
     else if (qrows == F::QROWS)
-      apply_unit<RANK, F::QROWS, BIAS>(Q, sc, di, ring_buf, bs, ds, s, pos,
+      apply_unit<RANK, F::QROWS, BIAS>(sm, Q, sc, di, ring_buf, bs, ds, s, pos,
                                        j - np, su, si, lr, reg);
     else
-      apply_unit<RANK, F::QROWS / 2, BIAS>(Q, sc, di, ring_buf, bs, ds, s,
+      apply_unit<RANK, F::QROWS / 2, BIAS>(sm, Q, sc, di, ring_buf, bs, ds, s,
                                            pos, j - np, su, si, lr, reg);
   }
+#ifdef MFX_DENSE_STAMPS
+  if (threadIdx.x == 0)
+    for (int k = 0; k < ST_N; ++k)
+      atomicAdd(g_stamps + k, (unsigned long long)sm.st[k]);
+#endif
 }
 
 template <int RANK, bool INT8, int BIAS>
@@ -802,3 +994,20 @@ extern "C" int mfx_dense_phase(float* P, float* Q, const int* sa,
   });
   return r == -1 ? (int)cudaErrorInvalidValue : r;
 }
+
+#ifdef MFX_DENSE_STAMPS
+// The measurement build's sums (ST_N phases' cycles, then panel pieces,
+// apply units and chunks) into out; reset: then zero them.
+extern "C" int mfx_dense_phase_stamps(unsigned long long* out, int reset) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps));
+  if (err == cudaSuccess && reset) {
+    static const unsigned long long zero[ST_N + 3] = {};
+    err = cudaMemcpyToSymbol(g_stamps, zero, sizeof(zero));
+  }
+  return (int)err;
+}
+
+extern "C" int mfx_dense_phase_stamp_count() { return ST_N + 3; }
+#endif

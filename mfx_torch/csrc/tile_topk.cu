@@ -49,24 +49,51 @@
 //
 // The deep form (tile_topk_deep_kernel: depth > 32 or tile > 2048, any
 // depth up to the tile and any tile that is a multiple of 128) keeps the
-// chunk pipeline and the scoring of the 16-user form, and keeps each
-// user's running top-`depth` list, sorted, in memory instead of
-// registers. After a chunk is scored, the 16 threads of a half-warp own
-// one user: they compact the user's candidates (every score while the
-// list fills, then only those above a full list's last value) by warp
-// ballots, bitonic-sort them in shared memory (value descending, then
-// lane ascending; padded to a power of two), then merge them into the
-// running list by rank (merge path: each element's place in the merged
-// list is its own index plus the count of the other list's elements
-// ahead of it, found by binary search; an element of the list precedes a
-// chunk element of equal value, whose lane is higher), writing the first
-// `depth` places to the other of two buffers. A chunk with no candidate
-// is skipped. The lists sit in shared memory where 2 x 16 x depth x 8
-// bytes fit beside the chunk buffers without costing the SM a block
-// (the occupancy query decides), else in a device scratch of the blocks
-// in flight (the wrapper allocates it). The list carries over a tile's chunks, so a tile may
-// hold any number of them. Every score is the 16-user form's FMA chain.
-// No atomics: a run is bitwise repeatable.
+// chunk pipeline and the register forms' scoring, and keeps each user's
+// best `depth` so far in a pool in memory instead of registers.
+// - Scoring: 64 users a block, each thread a 4 x 8 register tile
+//   (score_chunk<DT, 64>: 32 FMAs from three 16-byte shared loads a k), so
+//   a batch of 256 users streams the catalog 4 times. 64, not 128: a
+//   user's pool (below) is depth + 128 slots of 8 bytes, 96 KB for 64 users
+//   at depth 64, which fits beside the users and the two chunk buffers (95
+//   KB at K = 72 in f32) only at 64 users; deeper, 32 users a block (2 x 8
+//   tiles) keep theirs there up to depth ~300 (deep_info's rule). One
+//   block an SM.
+// - Selection by threshold, pruned late: each user's threshold is the
+//   depth-th best (value, lane) of its pool (none while fewer were seen).
+//   Right after a chunk is scored, each thread compares its own 8 scores a
+//   user with the threshold in registers; the 8 lanes of a warp that score
+//   a user reserve slots in the user's pool with one integer atomic on a
+//   shared count and write their candidates there, in any order. No score
+//   tile is written and no barrier stands between scoring and selection,
+//   so a warp that has scored appends while the others still score (this
+//   is the overlap: no warp specialisation). Only when a chunk's
+//   candidates would overflow a pool (the slots that did not fit are
+//   written empty and appended again afterwards, from the registers that
+//   still hold the scores) does one warp prune it (prune_user) to its
+//   depth best, unsorted, whose last is the new threshold. The cut-off is
+//   found in one pass of value-range buckets (monotone in the value, so
+//   higher buckets hold higher values; the cut-off's bucket, rarely more
+//   than a few slots, is ranked by shuffles), or, where a bucket holds more
+//   than 32 slots (the pad items' -1e30 scores, exact ties), by a radix
+//   select over the values' bits and then the lanes. At the end of a piece
+//   the pool is pruned once more and each slot written at its rank (the
+//   count of slots ahead of it; past depth 64 the list is bitonic-sorted
+//   first). Every comparison is (value desc, lane asc), a total order, so
+//   no step depends on the order candidates arrive in. measure_topk split
+//   gives the phases' shares.
+// - The pools sit in shared memory where they fit (depth up to about 70 at
+//   K = 72 in f32 with 64 users a block, up to about 300 with 32), else in
+//   a device scratch, one region a block (the wrapper allocates it).
+// - Grid: work items are (tile, piece) pairs; a tile's chunks are cut into
+//   `pieces` pieces where the tiles x user blocks would not fill the
+//   card's SMs (kernels/serve_topk.py::deep_split plans it, and
+//   deep_pieces gives each piece's chunks). Each piece keeps its own
+//   top-`depth` list; a second small launch (tile_topk_merge_kernel)
+//   merges a tile's piece lists in piece order, one warp a (user, tile).
+// Every score is the register forms' FMA chain. No atomics but the
+// integer slot reservations and histogram counts (whose order changes
+// nothing): a run is bitwise repeatable.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -487,63 +514,615 @@ tile_topk_kernel(const void* __restrict__ P, const void* __restrict__ Q,
 
 // ---- the deep form ------------------------------------------------------
 
-constexpr int DUB = 16;         // users a block of the deep form
-constexpr int DG = THREADS / DUB;  // threads a user: a half-warp
+// Measurement-only build (nvcc -DMFX_TOPK_STAMPS, kernels/_build.py's
+// "topk_stamps" variant): thread 0 of each deep block adds clock64()
+// deltas to one sum a phase, each stamp behind a __syncthreads(); the sums
+// over the blocks go to g_tk. The default build carries none of it.
+enum {
+  TK_WAIT,     // a chunk's copy landing and the loop's barrier
+  TK_APPEND,   // a chunk's candidates into the pools
+  TK_PRUNE,    // pools that overflowed cut back, what did not fit added
+  TK_FINISH,   // a piece's last prunes, sorts and lists
+  TK_CONVERT,  // a chunk to f32, k-major, and the next one's copy issued
+  TK_SCORE,    // a chunk's scores
+  TK_N
+};
+#ifdef MFX_TOPK_STAMPS
+__device__ unsigned long long g_tk[TK_N + 1];  // + the chunks
+#define TOPK_STAMP(k)                                          \
+  do {                                                         \
+    __syncthreads();                                           \
+    if (threadIdx.x == 0) {                                    \
+      const long long t_ = clock64();                          \
+      tk_st[k] += t_ - tk_last;                                \
+      tk_last = t_;                                            \
+    }                                                          \
+  } while (0)
+#else
+#define TOPK_STAMP(k) \
+  do {                \
+  } while (0)
+#endif
+
+constexpr int DWARPS = THREADS / 32;
+constexpr int DCAND = CH;          // pool slots past `depth`: one chunk's
+constexpr int RADIX = 256;         // bins of a radix-select pass
+constexpr int NOLANE = INT32_MAX;  // the lane of an empty slot
+constexpr int MAX_PIECES = 32;     // pieces a tile (one lane each, merge)
+constexpr int RANK_SLOTS = 2;      // a lane's slots when a list is ranked
 
 // (a, ia) ranks ahead of (b, ib): the higher value, then the lower lane
 __device__ __forceinline__ bool ahead(float a, int ia, float b, int ib) {
   return a > b || (a == b && ia < ib);
 }
 
-// Shared memory of the deep form, in bytes: the 16-user form's users,
-// raw and f32 chunks and (16, SCP) scores, then the candidates' lanes and
-// values (16, CH) each, then, when `lists_shared`, two buffers of 16
-// lists of `depth` values and `depth` lanes.
-template <int DT>
-size_t deep_smem(int K, int depth, bool lists_shared) {
-  return Layout<DT, DUB, MAX_DEPTH>{K}.bytes() + 8 * (size_t)DUB * CH +
-         (lists_shared ? (size_t)2 * DUB * depth * 8 : 0);
+// A float's bits as an unsigned key in the floats' order.
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-template <int DT>
-__global__ void __launch_bounds__(THREADS, 2)
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// Add v to a shared-memory counter; the old value.
+__device__ __forceinline__ int shared_fetch_add(int* p, int v) {
+  int old;
+  asm volatile("atom.shared.add.u32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(v)
+               : "memory");
+  return old;
+}
+
+// Add v to a shared-memory counter.
+__device__ __forceinline__ void shared_add(int* p, int v) {
+  asm volatile("red.shared.add.u32 [%0], %1;\n"
+               : : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(v)
+               : "memory");
+}
+
+// The first chunk of piece p when a tile's cpt chunks are cut into
+// `pieces` pieces (kernels/serve_topk.py::deep_pieces is the same rule).
+__host__ __device__ __forceinline__ int piece_first(int p, int cpt,
+                                                    int pieces) {
+  return (int)((long long)p * cpt / pieces);
+}
+
+__host__ __device__ __forceinline__ int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// A user's pool: `depth` slots for its best so far plus one chunk's worth
+// of candidates, at least a power of two past depth (the final sort's).
+__host__ __device__ __forceinline__ int pool_slots(int depth) {
+  const int n = max(depth + DCAND, pow2_at_least(depth));
+  return (n + 3) & ~3;
+}
+
+// Shared memory of the deep form at UB users a block, in bytes: the
+// register forms' users, raw and f32 chunks, each user's threshold value
+// and lane and pool count, a radix histogram a warp, then (`pools_shared`)
+// the pools: UB pools of pool_slots(depth) values, then as many lanes.
+template <int DT, int UB>
+size_t deep_smem(int K, int depth, bool pools_shared) {
+  const Layout<DT, UB, 2> lay{K};
+  const size_t base = lay.users() + lay.raw() + lay.chunk() + 3 * UB +
+                      (size_t)DWARPS * RADIX + 4;
+  return 4 * (base + (pools_shared ? (size_t)UB * 2 * pool_slots(depth)
+                                   : 0));
+}
+
+// A block's selection state (user-indexed); the pools may be in shared or
+// device memory.
+struct DeepState {
+  float* pv;   // (UB, cap) pool values
+  int* pl;     // (UB, cap) pool lanes
+  float* tv;   // (UB,) threshold: the depth-th best of the pool, or -inf
+  int* tl;     // (UB,) and its lane, or NOLANE
+  int* cnt;    // (UB,) pool slots taken (may pass cap on an overflow)
+  int* hist;   // (DWARPS, RADIX) a warp's radix histogram
+  int cap;     // slots a pool
+};
+
+// One warp's radix select (8 bits a pass, high to low): the largest key K
+// with at least `need` of the n keys at K or above, among the keys that
+// key_of(i, &k) marks; `need` becomes the count of those at K that are
+// needed. Every lane returns K.
+template <class KeyOf>
+__device__ __forceinline__ unsigned radix_select(int* hist, int n, int& need,
+                                                 KeyOf key_of, int lane) {
+  unsigned prefix = 0, mask = 0;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int b = lane; b < RADIX; b += 32) hist[b] = 0;
+    __syncwarp();
+    // the lanes that fall in one bin add once (the high digits of
+    // nearby scores are mostly equal: lane by lane they would serialize)
+    for (int i0 = 0; i0 < n; i0 += 32) {
+      const int i = i0 + lane;
+      unsigned k = 0;
+      const bool in = i < n && key_of(i, k) && (k & mask) == prefix;
+      const int bin = in ? (int)((k >> shift) & (RADIX - 1)) : RADIX;
+      const unsigned same = __match_any_sync(FULL, bin);
+      if (in && lane == __ffs(same) - 1)
+        shared_add(hist + bin, __popc(same));
+    }
+    __syncwarp();
+    // lane l holds bins 255 - 8l ... 248 - 8l, the highest first
+    int c[8], s = 0;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      c[e] = hist[RADIX - 1 - 8 * lane - e];
+      s += c[e];
+    }
+    int incl = s;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int x = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += x;
+    }
+    const int excl = incl - s;
+    const unsigned hit = __ballot_sync(FULL, excl < need && need <= incl);
+    const int src = __ffs(hit) - 1;
+    int bin = 0, above = excl;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (bin == 0 && above + c[e] >= need)
+        bin = RADIX - 8 * lane - e;  // the bin + 1, so 0 means not found
+      else if (bin == 0)
+        above += c[e];
+    bin = __shfl_sync(FULL, bin - 1, src);
+    above = __shfl_sync(FULL, above, src);
+    need -= above;
+    prefix |= (unsigned)bin << shift;
+    mask |= (unsigned)(RADIX - 1) << shift;
+    __syncwarp();
+  }
+  return prefix;
+}
+
+// One warp cuts user u's pool (its first min(cnt, cap) slots, empty slots
+// (-inf, NOLANE) among them) to its `depth` best in (value desc, lane asc)
+// order, in place, and makes the depth-th of them the user's threshold.
+// A radix select over the values' keys finds the depth-th value; where
+// more slots hold that value than are needed, a second one over their
+// lanes (inverted: the lowest first) finds the last lane kept.
+// The common case of prune_user, in one histogram pass: RADIX buckets
+// over the pool's finite values, (v - lo) * scale, monotone in v, so a
+// higher bucket holds only higher values; the bucket that holds the
+// depth-th best has few slots, ranked among themselves by shuffles. Finds
+// the depth-th best (tv, tl), or returns false (fewer than two distinct
+// values, fewer than depth finite ones, or more than 32 slots in that
+// bucket: the pad items' -1e30 scores, or exact ties) for the radix select.
+__device__ __forceinline__ bool cutoff_by_buckets(const float* pv,
+                                                  const int* pl, int n,
+                                                  int depth, int* hist,
+                                                  int lane, float& tv,
+                                                  int& tl) {
+  float lo = INFINITY, hi = -INFINITY;
+  for (int i = lane; i < n; i += 32) {
+    const float v = pv[i];
+    if (v > -INFINITY) {
+      lo = fminf(lo, v);
+      hi = fmaxf(hi, v);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    lo = fminf(lo, __shfl_xor_sync(FULL, lo, off));
+    hi = fmaxf(hi, __shfl_xor_sync(FULL, hi, off));
+  }
+  const float scale = (float)RADIX / (hi - lo);
+  if (!(hi > lo) || !(scale > 0.f) || !(scale < INFINITY)) return false;
+  auto bucket = [&](float v) {
+    return v > -INFINITY ? min(RADIX - 1, (int)((v - lo) * scale)) : -1;
+  };
+  for (int b = lane; b < RADIX; b += 32) hist[b] = 0;
+  __syncwarp();
+  for (int i = lane; i < n; i += 32) {
+    const int b = bucket(pv[i]);
+    if (b >= 0) shared_add(hist + b, 1);
+  }
+  __syncwarp();
+  int c[8], sum = 0;  // lane l holds buckets 255 - 8l ... 248 - 8l
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    c[e] = hist[RADIX - 1 - 8 * lane - e];
+    sum += c[e];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int x = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += x;
+  }
+  const int excl = incl - sum;
+  const unsigned hit = __ballot_sync(FULL, excl < depth && depth <= incl);
+  if (hit == 0) return false;  // fewer than depth finite values
+  const int src = __ffs(hit) - 1;
+  int bin = 0, above = excl, m = 0;
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (bin == 0 && above + c[e] >= depth) {
+      bin = RADIX - 8 * lane - e;  // the bucket + 1
+      m = c[e];
+    } else if (bin == 0) {
+      above += c[e];
+    }
+  bin = __shfl_sync(FULL, bin - 1, src);
+  above = __shfl_sync(FULL, above, src);
+  m = __shfl_sync(FULL, m, src);
+  if (m > 32) return false;
+  // the bucket's slots, one a lane, ranked among themselves
+  float bv = -INFINITY;
+  int bl = NOLANE, have = 0;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    float v = 0.f;
+    int id = 0;
+    bool in = false;
+    if (i < n) {
+      v = pv[i];
+      id = pl[i];
+      in = bucket(v) == bin;
+    }
+    const unsigned bits = __ballot_sync(FULL, in);
+    // the bucket's next slots go to lanes have, have + 1, ...
+    for (unsigned b = bits; b; b &= b - 1) {
+      const int from = __ffs(b) - 1;
+      const int to = have + __popc(bits & ((1u << from) - 1));
+      const float vv = __shfl_sync(FULL, v, from);
+      const int ii = __shfl_sync(FULL, id, from);
+      if (lane == to) {
+        bv = vv;
+        bl = ii;
+      }
+    }
+    have += __popc(bits);
+  }
+  int rank = 0;
+  for (int j = 0; j < m; ++j) {
+    const float vj = __shfl_sync(FULL, bv, j);
+    const int lj = __shfl_sync(FULL, bl, j);
+    rank += ahead(vj, lj, bv, bl);
+  }
+  const int need = depth - above;  // 1 <= need <= m
+  const unsigned cut = __ballot_sync(FULL, lane < m && rank == need - 1);
+  const int at = __ffs(cut) - 1;
+  tv = __shfl_sync(FULL, bv, at);
+  tl = __shfl_sync(FULL, bl, at);
+  __syncwarp();
+  return true;
+}
+
+__device__ __forceinline__ void prune_user(const DeepState& st, int u,
+                                           int depth, int lane) {
+  float* pv = st.pv + (size_t)u * st.cap;
+  int* pl = st.pl + (size_t)u * st.cap;
+  int* hist = st.hist + (threadIdx.x >> 5) * RADIX;
+  const int n = min(st.cnt[u], st.cap);
+  float tv;
+  int tl;
+  if (cutoff_by_buckets(pv, pl, n, depth, hist, lane, tv, tl)) {
+    // keep the slots at or ahead of (tv, tl): exactly depth, compacted in
+    // slot order as below
+    int kept = 0;
+    for (int i0 = 0; i0 < n; i0 += 32) {
+      const int i = i0 + lane;
+      float v = 0.f;
+      int id = 0;
+      bool keep = false;
+      if (i < n) {
+        v = pv[i];
+        id = pl[i];
+        keep = ahead(v, id, tv, tl) || (v == tv && id == tl);
+      }
+      const unsigned bits = __ballot_sync(FULL, keep);
+      __syncwarp();
+      if (keep) {
+        const int at = kept + __popc(bits & ((1u << lane) - 1));
+        pv[at] = v;
+        pl[at] = id;
+      }
+      kept += __popc(bits);
+      __syncwarp();
+    }
+    if (lane == 0) {
+      st.cnt[u] = depth;
+      st.tv[u] = tv;
+      st.tl[u] = tl;
+    }
+    __syncwarp();
+    return;
+  }
+  int need = depth;
+  const unsigned K = radix_select(
+      hist, n, need,
+      [&](int i, unsigned& k) {
+        k = order_key(pv[i]);
+        return true;
+      },
+      lane);
+  // the slots at K: how many, and the highest lane among them
+  int tied = 0, top = -1;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    const bool at = i < n && order_key(pv[i]) == K;
+    tied += __popc(__ballot_sync(FULL, at));
+    if (at) top = max(top, pl[i]);
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1)
+    top = max(top, __shfl_xor_sync(FULL, top, off));
+  int last = top;  // the last lane kept at K
+  if (tied > need) {
+    const unsigned L = radix_select(
+        hist, n, need,
+        [&](int i, unsigned& k) {
+          k = ~(unsigned)pl[i];
+          return order_key(pv[i]) == K;
+        },
+        lane);
+    last = (int)~L;
+  }
+  // keep the slots ahead of (K, last) and it: exactly depth, compacted in
+  // slot order, 32 at a time, each batch read before it is written (no
+  // slot is written past the one it was read from)
+  int kept = 0;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    float v = 0.f;
+    int id = 0;
+    bool keep = false;
+    if (i < n) {
+      v = pv[i];
+      id = pl[i];
+      const unsigned k = order_key(v);
+      keep = k > K || (k == K && id <= last);
+    }
+    const unsigned bits = __ballot_sync(FULL, keep);
+    __syncwarp();
+    if (keep) {
+      const int at = kept + __popc(bits & ((1u << lane) - 1));
+      pv[at] = v;
+      pl[at] = id;
+    }
+    kept += __popc(bits);
+    __syncwarp();
+  }
+  if (lane == 0) {
+    st.cnt[u] = depth;
+    st.tv[u] = key_value(K);
+    st.tl[u] = last;
+  }
+  __syncwarp();
+}
+
+// One warp sorts the n slots at (v, l) by (value desc, lane asc): a
+// bitonic sort over np = pow2(n) slots, those past n empty.
+__device__ __forceinline__ void sort_slots(float* v, int* l, int n,
+                                           int lane) {
+  const int np = pow2_at_least(n);
+  for (int x = n + lane; x < np; x += 32) {
+    v[x] = -INFINITY;
+    l[x] = NOLANE;
+  }
+  __syncwarp();
+  for (int k = 2; k <= np; k <<= 1)
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int x = lane; x < np / 2; x += 32) {  // pair x of the stage
+        const int e = ((x & ~(j - 1)) << 1) | (x & (j - 1));
+        const int f = e | j;
+        const float ve = v[e], vf = v[f];
+        const int ie = l[e], jf = l[f];
+        const bool swap =
+            (e & k) == 0 ? ahead(vf, jf, ve, ie) : ahead(ve, ie, vf, jf);
+        if (swap) {
+          v[e] = vf;
+          v[f] = ve;
+          l[e] = jf;
+          l[f] = ie;
+        }
+      }
+      __syncwarp();
+    }
+}
+
+// Append a scored chunk's candidates (the scores ahead of each user's
+// threshold) to the users' pools, for the users in `which` (bit u of a
+// thread's UB / 16): the 8 lanes of a warp that score one user reserve
+// their slots with one shared-memory integer atomic. A group whose slots
+// would pass the pool's end writes nothing but empty slots within it and
+// returns its users' bits: they are pruned, then appended again.
+template <int UB>
+__device__ __forceinline__ unsigned append(const DeepState& st,
+                                           const float (&acc)[UB / 16][8],
+                                           unsigned which, int c0, int ty,
+                                           int tx, int lane) {
+  constexpr int TU = UB / 16;
+  unsigned redo = 0;
+#pragma unroll
+  for (int u = 0; u < TU; ++u) {
+    const int user = ty * TU + u;
+    const float tv = st.tv[user];
+    const int tl = st.tl[user];
+    unsigned km = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (ahead(acc[u][j], c0 + (j >> 2) * 64 + tx * 4 + (j & 3), tv, tl))
+        km |= 1u << j;
+    if (!((which >> u) & 1)) km = 0;
+    const int c = __popc(km);
+    int incl = c;
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) {
+      const int x = __shfl_up_sync(FULL, incl, off, 8);
+      if ((lane & 7) >= off) incl += x;
+    }
+    const int total = __shfl_sync(FULL, incl, 7, 8);
+    int base = 0;
+    if ((lane & 7) == 7 && total > 0)
+      base = shared_fetch_add(st.cnt + user, total);
+    base = __shfl_sync(FULL, base, 7, 8);
+    if (total > 0) {
+      const bool fits = base + total <= st.cap;
+      if (!fits) redo |= 1u << u;
+      float* pv = st.pv + (size_t)user * st.cap;
+      int* pl = st.pl + (size_t)user * st.cap;
+      int at = base + incl - c;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if ((km >> j) & 1) {
+          if (fits) {
+            pv[at] = acc[u][j];
+            pl[at] = c0 + (j >> 2) * 64 + tx * 4 + (j & 3);
+          } else if (at < st.cap) {
+            pv[at] = -INFINITY;
+            pl[at] = NOLANE;
+          }
+          ++at;
+        }
+    }
+  }
+  return redo;
+}
+
+// Write user u's list (its pool's best min(cnt, depth)): each slot j of
+// the list as (v, l) goes to the tile's outputs, or with one piece of
+// several to the piece's list, empty slots past its length n.
+__device__ __forceinline__ void put_slot(int j, float v, int l, int b, int B,
+                                         int depth, int tn, int t, int p,
+                                         int pieces, float* __restrict__ m_out,
+                                         int* __restrict__ a_out,
+                                         float* __restrict__ piece_out) {
+  if (pieces == 1) {
+    const long long o = ((long long)j * B + b) * tn + t;
+    m_out[o] = v;
+    a_out[o] = l;
+  } else {
+    float* po = piece_out + (((long long)b * tn + t) * pieces + p) * 2 * depth;
+    po[j] = v;
+    reinterpret_cast<int*>(po)[depth + j] = l;
+  }
+}
+
+// Output user u's list (its pool's best min(cnt, depth), in order): up to
+// depth 64 each of the (at most RANK_SLOTS a lane) slots is written at
+// its rank, the count of slots ahead of it (the slots passed round by
+// shuffles); deeper lists are bitonic-sorted first (at 8 slots a lane the
+// ranks cost more than the sort: measure_topk split). Then the user
+// starts its next piece empty.
+__device__ __forceinline__ void finish_user(
+    const DeepState& st, int u, int b, int B, int depth, int tn, int t,
+    int p, int pieces, float* __restrict__ m_out, int* __restrict__ a_out,
+    float* __restrict__ piece_out, int lane) {
+  if (st.cnt[u] > depth) prune_user(st, u, depth, lane);
+  const int n = min(st.cnt[u], depth);
+  float* v = st.pv + (size_t)u * st.cap;
+  int* l = st.pl + (size_t)u * st.cap;
+  if (depth <= 32 * RANK_SLOTS) {
+    float x[RANK_SLOTS];
+    int ix[RANK_SLOTS], rk[RANK_SLOTS];
+#pragma unroll
+    for (int h = 0; h < RANK_SLOTS; ++h) {
+      const int j = lane + 32 * h;
+      x[h] = j < n ? v[j] : -INFINITY;
+      ix[h] = j < n ? l[j] : NOLANE;
+      rk[h] = 0;
+    }
+    for (int j = 0; j < n; ++j) {
+      float vj = x[0];
+      int lj = ix[0];
+#pragma unroll
+      for (int h = 1; h < RANK_SLOTS; ++h)
+        if ((j >> 5) == h) {
+          vj = x[h];
+          lj = ix[h];
+        }
+      vj = __shfl_sync(FULL, vj, j & 31);
+      lj = __shfl_sync(FULL, lj, j & 31);
+#pragma unroll
+      for (int h = 0; h < RANK_SLOTS; ++h)
+        rk[h] += ahead(vj, lj, x[h], ix[h]);
+    }
+    if (b < B) {
+#pragma unroll
+      for (int h = 0; h < RANK_SLOTS; ++h) {
+        const int j = lane + 32 * h;
+        if (j < n)
+          put_slot(rk[h], x[h], ix[h], b, B, depth, tn, t, p, pieces, m_out,
+                   a_out, piece_out);
+        else if (j < depth)
+          put_slot(j, -INFINITY, NOLANE, b, B, depth, tn, t, p, pieces,
+                   m_out, a_out, piece_out);
+      }
+    }
+  } else {
+    sort_slots(v, l, n, lane);
+    if (b < B)
+      for (int j = lane; j < depth; j += 32)
+        put_slot(j, j < n ? v[j] : -INFINITY, j < n ? l[j] : NOLANE, b, B,
+                 depth, tn, t, p, pieces, m_out, a_out, piece_out);
+  }
+  __syncwarp();
+  if (lane == 0) {
+    st.tv[u] = -INFINITY;
+    st.tl[u] = NOLANE;
+    st.cnt[u] = 0;
+  }
+  __syncwarp();
+}
+
+template <int DT, int UB>
+__global__ void __launch_bounds__(THREADS, 1)
 tile_topk_deep_kernel(const void* __restrict__ P, const void* __restrict__ Q,
                       const float* __restrict__ sb, float* __restrict__ m_out,
                       int* __restrict__ a_out, float* __restrict__ scratch,
-                      int B, int K, int tile, int depth, int tn, int n_ub,
-                      int S) {
-  const Layout<DT, DUB, MAX_DEPTH> lay{K};
+                      float* __restrict__ piece_out, int B, int K, int tile,
+                      int depth, int tn, int n_ub, int S, int pieces) {
+  constexpr int TU = UB / 16;      // users a thread scores
+  constexpr int UW = UB / DWARPS;  // users a warp selects for
+  const Layout<DT, UB, 2> lay{K};
   extern __shared__ float4 smem4[];
-  float* pt = reinterpret_cast<float*>(smem4);  // (K, DUB) users, k-major
+  float* pt = reinterpret_cast<float*>(smem4);  // (K, UB) users, k-major
   uint32_t* raw = reinterpret_cast<uint32_t*>(pt + lay.users());
   float* qt = reinterpret_cast<float*>(raw + lay.raw());  // (K, QP)
-  float* sc = qt + lay.chunk();                           // (DUB, SCP)
-  int* sl = reinterpret_cast<int*>(sc + lay.tail());      // (DUB, CH)
-  float* cv = reinterpret_cast<float*>(sl + DUB * CH);    // (DUB, CH)
-  // the lists: [buffer][user][depth] values, then as many lanes
-  float* lists = scratch != nullptr
-                     ? scratch + (size_t)blockIdx.x * 4 * DUB * depth
-                     : cv + DUB * CH;
+  DeepState st;
+  st.cap = pool_slots(depth);
+  st.tv = qt + lay.chunk();
+  st.tl = reinterpret_cast<int*>(st.tv + UB);
+  st.cnt = st.tl + UB;
+  st.hist = st.cnt + UB;
+  // the pools: after the histograms (4 words of padding: 16-byte aligned),
+  // or in the scratch
+  float* pools =
+      scratch != nullptr
+          ? scratch + (size_t)blockIdx.x * UB * 2 * st.cap
+          : reinterpret_cast<float*>(st.hist + DWARPS * RADIX + 4);
+  st.pv = pools;  // (UB, cap) values, then (UB, cap) lanes
+  st.pl = reinterpret_cast<int*>(pools + (size_t)UB * st.cap);
 
   const int tid = threadIdx.x;
   const int s = blockIdx.x / n_ub, ub = blockIdx.x - s * n_ub;
-  const int u0 = ub * DUB;
+  const int u0 = ub * UB;
   const int W = lay.row_words(), RWP = lay.raw_pitch();
   const int cpt = tile / CH;
-  const int nq = ((tn - 1 - s) / S + 1) * cpt;
+  const int items = tn * pieces;  // (tile, piece) work items
   const int warp = tid >> 5, lane = tid & 31;
   const int ty = (warp >> 1) * 4 + (lane >> 3);
   const int tx = (warp & 1) * 8 + (lane & 7);
-  // selection: user ul's half-warp, thread r of it
-  const int ul = tid / DG, r = tid - ul * DG;
-  const unsigned half = 0xffffu << (lane & 16);
-  const float* scu = sc + ul * SCP;
-  float* cvu = cv + ul * CH;
-  int* slu = sl + ul * CH;
 
-  issue_chunk(raw, Q, (long long)s * tile, W, RWP);
-  for (int e = tid; e < DUB * K; e += THREADS) {
-    const int u = e % DUB, k = e / DUB;
+  // the block's items are s, s + S, ...; item w is piece w % pieces of
+  // tile w / pieces
+  int w = s;
+  int t = w / pieces, p = w - t * pieces;
+  int c = piece_first(p, cpt, pieces), c_end = piece_first(p + 1, cpt, pieces);
+  issue_chunk(raw, Q, (long long)t * tile + (long long)c * CH, W, RWP);
+  for (int e = tid; e < UB * K; e += THREADS) {
+    const int u = e % UB, k = e / UB;
     float v = 0.f;
     if (u0 + u < B) {
       const long long o = (long long)(u0 + u) * K + k;
@@ -551,138 +1130,182 @@ tile_topk_deep_kernel(const void* __restrict__ P, const void* __restrict__ Q,
               ? __bfloat162float(static_cast<const __nv_bfloat16*>(P)[o])
               : static_cast<const float*>(P)[o];
     }
-    pt[k * DUB + u] = v;
+    pt[k * UB + u] = v;
   }
+  if (tid < UB) {
+    st.tv[tid] = -INFINITY;
+    st.tl[tid] = NOLANE;
+    st.cnt[tid] = 0;
+  }
+#ifdef MFX_TOPK_STAMPS
+  __shared__ long long tk_st[TK_N];
+  __shared__ long long tk_last;
+  if (tid == 0) {
+    for (int k = 0; k < TK_N; ++k) tk_st[k] = 0;
+    tk_last = clock64();
+  }
+#endif
 
-  int cur = 0;  // the buffer that holds user ul's list
-  for (int q = 0; q < nq; ++q) {
-    const int t = s + (q / cpt) * S, c0 = (q % cpt) * CH;
+  float acc[TU][8];
+  unsigned redo = 0;      // users whose last chunk did not all fit
+  int last_t = t, last_p = p, last_c0 = 0;  // the last chunk scored
+  bool ended = false;     // ... and whether it closed its piece
+  bool have = true;       // chunk c of item w is in flight
+  for (;;) {
     cp_async_wait_all();
-    __syncthreads();
+    // the last chunk is appended; chunk c has landed
+    const bool over = __syncthreads_or(redo != 0);
+    TOPK_STAMP(TK_WAIT);
+    if (over) {  // prune the pools that overflowed, then add what did not fit
+      for (int i = 0; i < UW; ++i) {
+        const int u = warp * UW + i;
+        if (st.cnt[u] > st.cap) prune_user(st, u, depth, lane);
+      }
+      __syncthreads();
+      redo = append<UB>(st, acc, redo, last_c0, ty, tx, lane);
+      __syncthreads();
+      TOPK_STAMP(TK_PRUNE);
+    }
+    if (ended) {  // the piece's lists
+      for (int i = 0; i < UW; ++i) {
+        const int u = warp * UW + i;
+        finish_user(st, u, u0 + u, B, depth, tn, last_t, last_p, pieces,
+                    m_out, a_out, piece_out, lane);
+      }
+      ended = false;
+      TOPK_STAMP(TK_FINISH);
+    }
+    if (!have) break;
     convert_chunk<DT>(qt, raw, K, RWP);
     __syncthreads();
-    if (q + 1 < nq) {
-      const int t1 = s + ((q + 1) / cpt) * S, c1 = ((q + 1) % cpt) * CH;
-      issue_chunk(raw, Q, (long long)t1 * tile + c1, W, RWP);
+    // the next chunk: on in this piece, or the block's next item
+    int t1 = t, p1 = p, c1 = c + 1, e1 = c_end;
+    bool more = true;
+    if (c1 == c_end) {
+      more = w + S < items;
+      if (more) {
+        w += S;
+        t1 = w / pieces;
+        p1 = w - t1 * pieces;
+        c1 = piece_first(p1, cpt, pieces);
+        e1 = piece_first(p1 + 1, cpt, pieces);
+      }
     }
-    float acc[1][8];
-    score_chunk<DT, DUB>(acc, pt, qt, sb, K, ty, tx, t, tile, c0);
-    {
-      float* row = sc + ty * SCP + tx * 4;
-      *reinterpret_cast<float4*>(row) =
-          make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
-      *reinterpret_cast<float4*>(row + 64) =
-          make_float4(acc[0][4], acc[0][5], acc[0][6], acc[0][7]);
-    }
-    __syncthreads();
+    if (more)  // lands while this chunk is scored and selected
+      issue_chunk(raw, Q, (long long)t1 * tile + (long long)c1 * CH, W, RWP);
+    TOPK_STAMP(TK_CONVERT);
+    const int c0 = c * CH;
+    score_chunk<DT, UB>(acc, pt, qt, sb, K, ty, tx, t, tile, c0);
+    TOPK_STAMP(TK_SCORE);
+    redo = append<UB>(st, acc, 0xffffffffu, c0, ty, tx, lane);
+    TOPK_STAMP(TK_APPEND);
+#ifdef MFX_TOPK_STAMPS
+    if (tid == 0) atomicAdd(g_tk + TK_N, 1ull);
+#endif
+    ended = c + 1 == c_end;
+    last_t = t;
+    last_p = p;
+    last_c0 = c0;
+    t = t1;
+    p = p1;
+    c = c1;
+    c_end = e1;
+    have = more;
+  }
+#ifdef MFX_TOPK_STAMPS
+  if (tid == 0)
+    for (int k = 0; k < TK_N; ++k)
+      atomicAdd(g_tk + k, (unsigned long long)tk_st[k]);
+#endif
+}
 
-    // from here on each half-warp works on its own user alone
-    const int L = min(depth, c0);  // the list's length before this chunk
-    float* ov = lists + (size_t)(cur * DUB + ul) * 2 * depth;
-    int* oi = reinterpret_cast<int*>(ov + depth);
-    // the candidates: every score while the list fills, then those above
-    // its last value (one of equal value ranks behind it: a higher lane),
-    // compacted in lane order into (cvu, slu)
-    const bool full = L == depth;
-    const float thr = full ? ov[depth - 1] : 0.f;
-    int n = 0;
+// The pieces' lists of each (user, tile) merged in piece order: one warp a
+// pair, lane p holding piece p's head; `depth` rounds of a shuffle argmax
+// on (value desc, lane asc), the piece that held the best advancing.
+// Lanes differ across pieces, so the order is total and the merge exact.
+__global__ void __launch_bounds__(THREADS)
+tile_topk_merge_kernel(const float* __restrict__ piece_out,
+                       float* __restrict__ m_out, int* __restrict__ a_out,
+                       int B, int tn, int pieces, int depth) {
+  const long long gw =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (gw >= (long long)B * tn) return;
+  const int b = (int)(gw / tn), t = (int)(gw - (long long)b * tn);
+  const float* lv = piece_out + (gw * pieces + lane) * 2 * depth;
+  const int* li = reinterpret_cast<const int*>(lv + depth);
+  int h = 0;
+  float v = -INFINITY;
+  int id = NOLANE;
+  if (lane < pieces) {
+    v = lv[0];
+    id = li[0];
+  }
+  for (int j = 0; j < depth; ++j) {
+    float bv = v;
+    int bi = id;
 #pragma unroll
-    for (int m = 0; m < CH / DG; ++m) {
-      const int e = r + DG * m;
-      const float v = scu[e];
-      const bool keep = !full || v > thr;
-      const unsigned bits = (__ballot_sync(FULL, keep) & half) >> (lane & 16);
-      if (keep) {
-        const int at = n + __popc(bits & ((1u << r) - 1));
-        cvu[at] = v;
-        slu[at] = c0 + e;
+    for (int off = 16; off; off >>= 1) {
+      const float ov = __shfl_xor_sync(FULL, bv, off);
+      const int oi = __shfl_xor_sync(FULL, bi, off);
+      if (ahead(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
       }
-      n += __popc(bits);
     }
-    if (n > 0) {
-      // pad to a power of two with entries that rank behind any score,
-      // then a bitonic sort, the pair ahead first
-      int np = 1;
-      while (np < n) np <<= 1;
-      for (int x = n + r; x < np; x += DG) {
-        cvu[x] = -INFINITY;
-        slu[x] = INT32_MAX;
-      }
-      __syncwarp(half);
-      for (int k = 2; k <= np; k <<= 1)
-        for (int j = k >> 1; j > 0; j >>= 1) {
-          for (int x = r; x < np / 2; x += DG) {  // pair x of the stage
-            const int e = ((x & ~(j - 1)) << 1) | (x & (j - 1));
-            const int f = e | j;
-            const float ve = cvu[e], vf = cvu[f];
-            const int ie = slu[e], jf = slu[f];
-            const bool swap = (e & k) == 0 ? ahead(vf, jf, ve, ie)
-                                           : ahead(ve, ie, vf, jf);
-            if (swap) {
-              cvu[e] = vf;
-              cvu[f] = ve;
-              slu[e] = jf;
-              slu[f] = ie;
-            }
-          }
-          __syncwarp(half);
-        }
-      // merge by rank into the other buffer, truncated to depth
-      float* nv = lists + (size_t)((cur ^ 1) * DUB + ul) * 2 * depth;
-      int* ni = reinterpret_cast<int*>(nv + depth);
-      for (int x = r; x < L; x += DG) {  // the list's elements
-        const float v = ov[x];
-        int lo = 0, hi = n;  // candidates ahead: values above v
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (cvu[mid] > v)
-            lo = mid + 1;
-          else
-            hi = mid;
-        }
-        if (x + lo < depth) {
-          nv[x + lo] = v;
-          ni[x + lo] = oi[x];
-        }
-      }
-      for (int x = r; x < min(n, depth); x += DG) {  // the candidates
-        const float v = cvu[x];
-        int lo = 0, hi = L;  // list elements ahead: values at least v
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (ov[mid] >= v)
-            lo = mid + 1;
-          else
-            hi = mid;
-        }
-        if (x + lo < depth) {
-          nv[x + lo] = v;
-          ni[x + lo] = slu[x];
-        }
-      }
-      __syncwarp(half);
-      cur ^= 1;
+    if (lane == 0) {
+      const long long o = ((long long)j * B + b) * tn + t;
+      m_out[o] = bv;
+      a_out[o] = bi;
     }
-    if (c0 + CH == tile) {  // the tile's end: write the user's list
-      const int b = u0 + ul;
-      const float* fv = lists + (size_t)(cur * DUB + ul) * 2 * depth;
-      const int* fi = reinterpret_cast<const int*>(fv + depth);
-      if (b < B)
-        for (int j = r; j < depth; j += DG) {
-          const long long o = ((long long)j * B + b) * tn + t;
-          m_out[o] = fv[j];
-          a_out[o] = fi[j];
-        }
+    if (lane < pieces && id == bi && id != NOLANE) {
+      ++h;
+      v = h < depth ? lv[h] : -INFINITY;
+      id = h < depth ? li[h] : NOLANE;
     }
   }
 }
 
-// The deep form's launch: its dynamic shared memory, whether the lists
-// live there, and the grid (n_ub user blocks x S tile strides, as many as
-// fill the card's slots). Returns a CUDA error, or 0.
+// Sets a kernel's dynamic shared memory cap to the most the device allows
+// beside its static shared memory: the same value on every launch, so that
+// threads launching at once cannot lower it under each other.
+template <class Kernel>
+cudaError_t set_smem_cap(Kernel kernel, int optin) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              optin - (int)fa.sharedSizeBytes);
+}
+
+// The deep form's block forms: 64 users a block, or 32 (where 64 users'
+// pools do not fit in shared memory beside the rest but 32 users' do).
+enum { FORM_64 = 0, FORM_32 = 1 };
+
 template <int DT>
-int deep_plan(int B, int ipad, int K, int tile, int depth, int lists,
-              size_t& smem, bool& lists_shared, int& n_ub, int& S) {
+size_t form_smem(int form, int K, int depth, bool pools_shared) {
+  return form == FORM_64 ? deep_smem<DT, 64>(K, depth, pools_shared)
+                         : deep_smem<DT, 32>(K, depth, pools_shared);
+}
+
+template <int DT, class Fn>
+int with_deep_form(int form, Fn&& fn) {
+  if (form == FORM_64) return fn(tile_topk_deep_kernel<DT, 64>, 64);
+  return fn(tile_topk_deep_kernel<DT, 32>, 32);
+}
+
+// The deep form's plan on this device: out[0] SMs, out[1] blocks an SM,
+// out[2] 1 where the pools live in shared memory, out[3] users a block,
+// out[4] a pool's slots, out[5] the block form. The rule: the
+// pools (8 bytes a slot, depth + 128 slots a user: 96 KB for 64 users at
+// depth 64) in shared memory beside the users and the two chunk buffers
+// (95 KB at K = 72 in f32) with 64 users a block where they fit (depth up
+// to about 70), else with 32 (up to about 300), else in a device scratch,
+// one region a block, with 64 (pools = 0: this rule; 1 shared memory or
+// an error; 2 the scratch). Returns a CUDA error, or 0.
+template <int DT>
+int deep_info(int K, int depth, int pools, int* out) {
   int dev = 0, sms = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -691,66 +1314,67 @@ int deep_plan(int B, int ipad, int K, int tile, int depth, int lists,
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  // the lists in shared memory where the SM keeps as many blocks with
-  // them there as without, else in the device scratch (a block's lists
-  // stay in L2). measure_topk deep, H100: where the SM keeps 2 blocks
-  // either way, shared memory is 1-3% faster; where it would cost the
-  // second block, up to 37% slower. The occupancy query, not the bytes,
-  // decides: an SM's shared memory also holds a reserve a block.
-  const size_t with = deep_smem<DT>(K, depth, true);
-  const size_t without = deep_smem<DT>(K, depth, false);
-  err = cudaFuncSetAttribute(tile_topk_deep_kernel<DT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin);
-  int per_with = 0, per_without = 0;
-  if (err == cudaSuccess && with <= (size_t)optin)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_with, tile_topk_deep_kernel<DT>, THREADS, with);
-  if (err == cudaSuccess && without <= (size_t)optin)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_without, tile_topk_deep_kernel<DT>, THREADS, without);
+  int form = FORM_64;
+  bool shared = false;
+  if (pools != 2) {  // the pools in shared memory, where a form fits them
+    const int forms[2] = {FORM_64, FORM_32};
+    for (int f : forms)
+      if (!shared && form_smem<DT>(f, K, depth, true) <= (size_t)optin) {
+        form = f;
+        shared = true;
+      }
+    if (pools == 1 && !shared) return (int)cudaErrorInvalidValue;
+    if (!shared) form = FORM_64;
+  }
+  const size_t smem = form_smem<DT>(form, K, depth, shared);
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  int per_sm = 0;
+  err = (cudaError_t)with_deep_form<DT>(form, [&](auto kernel, int) {
+    cudaError_t e = set_smem_cap(kernel, optin);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        THREADS, smem);
+    return (int)e;
+  });
   if (err != cudaSuccess) return (int)err;
-  lists_shared =
-      lists == 1 || (lists == 0 && per_with > 0 && per_with >= per_without);
-  smem = lists_shared ? with : without;
-  const int per_sm = lists_shared ? per_with : per_without;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int tn = ipad / tile;
-  n_ub = (B + DUB - 1) / DUB;
-  S = max(1, min(tn, sms * per_sm / n_ub));
+  out[0] = sms;
+  out[1] = per_sm;
+  out[2] = shared;
+  out[3] = form == FORM_64 ? 64 : 32;
+  out[4] = pool_slots(depth);
+  out[5] = form;
   return 0;
 }
 
 template <int DT>
-int deep_scratch_words(int B, int ipad, int K, int tile, int depth,
-                       int lists, long long& words) {
-  size_t smem;
-  bool shared;
-  int n_ub, S;
-  const int err =
-      deep_plan<DT>(B, ipad, K, tile, depth, lists, smem, shared, n_ub, S);
-  words = shared ? 0 : (long long)n_ub * S * 4 * DUB * depth;
-  return err;
-}
-
-template <int DT>
 int launch_deep(const void* P, const void* Q, const float* sb, float* m_out,
-                int* a_out, float* scratch, long long scratch_words, int B,
-                int ipad, int K, int tile, int depth, int lists,
-                cudaStream_t st) {
-  size_t smem;
-  bool shared;
-  int n_ub, S;
-  const int err =
-      deep_plan<DT>(B, ipad, K, tile, depth, lists, smem, shared, n_ub, S);
-  if (err) return err;
-  if (!shared &&
-      (scratch == nullptr ||
-       scratch_words < (long long)n_ub * S * 4 * DUB * depth))
-    return (int)cudaErrorInvalidValue;
-  tile_topk_deep_kernel<DT><<<n_ub * S, THREADS, smem, st>>>(
-      P, Q, sb, m_out, a_out, shared ? nullptr : scratch, B, K, tile, depth,
-      ipad / tile, n_ub, S);
+                int* a_out, float* scratch, float* piece_out, int B, int ipad,
+                int K, int tile, int depth, int form, int shared, int pieces,
+                int S, cudaStream_t st) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = form_smem<DT>(form, K, depth, shared != 0);
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  const int tn = ipad / tile;
+  err = (cudaError_t)with_deep_form<DT>(form, [&](auto kernel, int ub) {
+    cudaError_t e = set_smem_cap(kernel, optin);
+    if (e != cudaSuccess) return (int)e;
+    const int n_ub = (B + ub - 1) / ub;
+    kernel<<<n_ub * S, THREADS, smem, st>>>(
+        P, Q, sb, m_out, a_out, shared ? nullptr : scratch, piece_out, B, K,
+        tile, depth, tn, n_ub, S, pieces);
+    return (int)cudaGetLastError();
+  });
+  if (err != cudaSuccess || pieces == 1) return (int)err;
+  const long long threads = (long long)B * tn * 32;
+  tile_topk_merge_kernel<<<(unsigned)((threads + THREADS - 1) / THREADS),
+                           THREADS, 0, st>>>(piece_out, m_out, a_out, B, tn,
+                                             pieces, depth);
   return (int)cudaGetLastError();
 }
 
@@ -871,65 +1495,91 @@ extern "C" int mfx_tile_topk(const void* P, const void* Q, const float* sb,
   }
 }
 
-// The deep form: any 1 <= depth <= tile and any tile that is a multiple
-// of 128; the rest as mfx_tile_topk (the launch chooses its own block
-// form). scratch: scratch_words f32 words of device memory, at least
-// what mfx_tile_topk_deep_scratch asks for (unused, and may be null, when
-// that is 0). lists: where the running lists live: 0 as the launch
-// chooses, 1 shared memory, 2 the scratch (measure_topk deep times the
-// two).
-extern "C" int mfx_tile_topk_deep(const void* P, const void* Q,
-                                  const float* sb, float* m_out, int* a_out,
-                                  float* scratch, long long scratch_words,
-                                  int B, int ipad, int K, int tile, int depth,
-                                  int dtype, int lists, void* stream) {
-  if (B < 0 || K <= 0 || K % 8 || K > MAX_K || tile <= 0 || tile % CH ||
-      ipad < 0 || ipad % tile || depth < 1 || depth > tile ||
-      lists < 0 || lists > 2 || (dtype == DT_INT8 && sb == nullptr))
+// The deep form's plan on this device (deep_info): out[0] SMs, out[1]
+// blocks an SM, out[2] 1 where the pools live in shared memory, out[3]
+// users a block, out[4] a pool's slots, out[5] the block form.
+// pools: 0 as the launch chooses, 1 shared memory (an error where they do
+// not fit), 2 the device scratch (measure_topk deep times the two).
+// kernels/serve_topk.py plans the launch from these.
+extern "C" int mfx_tile_topk_deep_info(int K, int depth, int dtype,
+                                       int pools, int* out) {
+  if (K <= 0 || K % 8 || K > MAX_K || depth < 1 || pools < 0 || pools > 2 ||
+      out == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (B == 0 || ipad == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
     case DT_F32:
-      return launch_deep<DT_F32>(P, Q, sb, m_out, a_out, scratch,
-                                 scratch_words, B, ipad, K, tile, depth,
-                                 lists, st);
+      return deep_info<DT_F32>(K, depth, pools, out);
     case DT_BF16:
-      return launch_deep<DT_BF16>(P, Q, sb, m_out, a_out, scratch,
-                                  scratch_words, B, ipad, K, tile, depth,
-                                  lists, st);
+      return deep_info<DT_BF16>(K, depth, pools, out);
     case DT_INT8:
-      return launch_deep<DT_INT8>(P, Q, sb, m_out, a_out, scratch,
-                                  scratch_words, B, ipad, K, tile, depth,
-                                  lists, st);
+      return deep_info<DT_INT8>(K, depth, pools, out);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// f32 words of device scratch mfx_tile_topk_deep needs for these shapes
-// and `lists` (0 where the lists live in shared memory) into *words;
-// returns a CUDA error, or 0.
-extern "C" int mfx_tile_topk_deep_scratch(int B, int ipad, int K, int tile,
-                                          int depth, int dtype, int lists,
-                                          long long* words) {
-  *words = 0;
+// The deep form: any 1 <= depth <= tile and any tile that is a multiple
+// of 128, the rest as mfx_tile_topk. form and shared (whether the pools
+// live in shared memory) come from mfx_tile_topk_deep_info; pieces (a
+// tile's chunks cut into that many pieces, 1-32) and S (work items a user
+// block's blocks stride by) from serve_topk.deep_split. scratch:
+// scratch_words f32 words, the pools of n_ub * S blocks (users a block *
+// 2 * slots words each) where they are not in shared memory; piece_out:
+// piece_words words, (B, tiles, pieces, 2 * depth) piece lists where
+// pieces > 1 (then a second launch merges them into m_out / a_out).
+extern "C" int mfx_tile_topk_deep(const void* P, const void* Q,
+                                  const float* sb, float* m_out, int* a_out,
+                                  float* scratch, long long scratch_words,
+                                  float* piece_out, long long piece_words,
+                                  int B, int ipad, int K, int tile, int depth,
+                                  int dtype, int form, int shared, int pieces,
+                                  int S, void* stream) {
   if (B < 0 || K <= 0 || K % 8 || K > MAX_K || tile <= 0 || tile % CH ||
-      ipad < 0 || ipad % tile || depth < 1 || depth > tile || lists < 0 ||
-      lists > 2)
+      ipad < 0 || ipad % tile || depth < 1 || depth > tile ||
+      (dtype == DT_INT8 && sb == nullptr) || form < FORM_64 ||
+      form > FORM_32 || shared < 0 || shared > 1 ||
+      pieces < 1 || pieces > min(tile / CH, MAX_PIECES) || S < 1)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || ipad == 0) return 0;
+  const long long ub = form == FORM_64 ? 64 : 32;
+  const long long tn = ipad / tile, n_ub = (B + ub - 1) / ub;
+  if (S > tn * pieces ||
+      (!shared &&
+       (scratch == nullptr ||
+        scratch_words < n_ub * S * ub * 2 * (long long)pool_slots(depth))) ||
+      (pieces > 1 && (piece_out == nullptr ||
+                      piece_words < (long long)B * tn * pieces * 2 * depth)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
     case DT_F32:
-      return deep_scratch_words<DT_F32>(B, ipad, K, tile, depth, lists,
-                                        *words);
+      return launch_deep<DT_F32>(P, Q, sb, m_out, a_out, scratch, piece_out,
+                                 B, ipad, K, tile, depth, form, shared,
+                                 pieces, S, st);
     case DT_BF16:
-      return deep_scratch_words<DT_BF16>(B, ipad, K, tile, depth, lists,
-                                         *words);
+      return launch_deep<DT_BF16>(P, Q, sb, m_out, a_out, scratch, piece_out,
+                                  B, ipad, K, tile, depth, form, shared,
+                                  pieces, S, st);
     case DT_INT8:
-      return deep_scratch_words<DT_INT8>(B, ipad, K, tile, depth, lists,
-                                         *words);
+      return launch_deep<DT_INT8>(P, Q, sb, m_out, a_out, scratch, piece_out,
+                                  B, ipad, K, tile, depth, form, shared,
+                                  pieces, S, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
+
+#ifdef MFX_TOPK_STAMPS
+// The measurement build's sums (TK_N phases' cycles over the deep blocks,
+// then the chunks) into out; reset: then zero them.
+extern "C" int mfx_tile_topk_stamps(unsigned long long* out, int reset) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out, g_tk, sizeof(g_tk));
+  if (err == cudaSuccess && reset) {
+    static const unsigned long long zero[TK_N + 1] = {};
+    err = cudaMemcpyToSymbol(g_tk, zero, sizeof(zero));
+  }
+  return (int)err;
+}
+#endif

@@ -18,28 +18,39 @@ On CUDA tensors :func:`tile_topk` launches the kernel (or raises); on CPU
 tensors it runs :func:`tile_topk_plain`. Nothing falls back. The kernel
 has two forms: its lists in registers for ``depth <= 32`` on tiles of at
 most 2,048 items, and the deep form for any other depth and tile that is
-a multiple of 128 (its lists sorted in shared or device memory,
-``csrc/tile_topk.cu``). ``tile_topk.launches`` counts the first form's
-launches, ``tile_topk.deep_launches`` the deep form's.
+a multiple of 128 (each user's best so far in a pool in shared or device
+memory, ``csrc/tile_topk.cu``). ``tile_topk.launches`` counts the first
+form's launches, ``tile_topk.deep_launches`` the deep form's.
+
+The deep form's launch is planned here (:func:`deep_split`,
+:func:`deep_pieces`): where the tiles times the user blocks do not fill
+the card, each tile's chunks are cut into pieces, each piece keeps its own
+top-``depth`` list, and a second launch merges them in piece order
+(:func:`merge_pieces_plain` is that merge in plain PyTorch).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 
 import torch
 
 from mfx_torch.kernels import _build
 
 __all__ = ["tile_topk", "tile_topk2", "tile_topk_plain", "aug_width",
-           "matmul_f32", "AUG_LANES"]
+           "matmul_f32", "AUG_LANES", "deep_split", "deep_pieces",
+           "merge_pieces_plain"]
 
 AUG_LANES = 128  # widest augmented row: rank + bias lane < 128 + 1
 # the register-list form's limits (csrc/tile_topk.cu); beyond them the
 # deep form runs
 MAX_DEPTH = 32
 MAX_TILE = 2048
+CHUNK = 128  # catalog rows a chunk of the kernel
+MAX_PIECES = 32  # pieces a tile of the deep form (one warp lane each)
+_NOLANE = 2 ** 31 - 1  # an empty slot's lane in a piece's list
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -161,7 +172,10 @@ def _outputs(P_aug, Q_aug, tile, depth, sb):
 
 
 def _pairs(m, a, depth):
-    return tuple(x for j in range(depth) for x in (m[j], a[j]))
+    """The (depth, B, n_tiles) outputs as ``depth`` (value, lane) pairs:
+    views made by two ``unbind`` calls, not 2 x depth indexing ops (at
+    depth 64 those took longer on the host than the kernel on the card)."""
+    return tuple(x for pair in zip(m.unbind(0), a.unbind(0)) for x in pair)
 
 
 def _launch(P_aug, Q_aug, tile, depth, sb, users_per_block=0):
@@ -184,29 +198,98 @@ def _launch(P_aug, Q_aug, tile, depth, sb, users_per_block=0):
     return _pairs(m, a, depth)
 
 
+def deep_pieces(cpt: int, pieces: int):
+    """The chunks ``[first, end)`` of each piece when a tile's ``cpt``
+    chunks are cut into ``pieces`` (``csrc/tile_topk.cu``'s
+    ``piece_first``): every chunk in exactly one piece, in order."""
+    return [(p * cpt // pieces, (p + 1) * cpt // pieces)
+            for p in range(pieces)]
+
+
+@functools.lru_cache(maxsize=256)
+def deep_split(n_ub: int, tn: int, cpt: int, slots: int):
+    """``(pieces, S)`` of a deep-form launch: ``n_ub`` user blocks, ``tn``
+    tiles of ``cpt`` chunks, ``slots`` blocks the card holds at once. The
+    grid is ``n_ub * S`` blocks; user block ``ub``'s blocks take the
+    ``tn * pieces`` (tile, piece) items in strides of ``S``. ``pieces``
+    (1 to 32, at most ``cpt``) minimises the rounds of items a block walks
+    times the chunks of the largest piece, plus one a round for the
+    piece's last merges, fewer pieces on a tie: the card is filled where
+    the tiles alone would not fill it (15 tiles x 4 user blocks on 132
+    SMs: 2 pieces), and a large catalog is not cut (977 tiles: 1)."""
+    per_ub = max(1, slots // max(1, n_ub))
+    best = None
+    for pieces in range(1, min(cpt, MAX_PIECES) + 1):
+        items = tn * pieces
+        S = min(items, per_ub)
+        cost = -(-items // S) * (-(-cpt // pieces) + 1)
+        if best is None or cost < best[0]:
+            best = (cost, pieces, S)
+    return best[1], best[2]
+
+
+def merge_pieces_plain(vals, lanes, depth):
+    """The second launch of the deep form in plain PyTorch: per row, the
+    pieces' sorted lists ``vals`` / ``lanes`` (..., pieces, depth), empty
+    slots ``(-inf, 2**31 - 1)``, merged into the top ``depth`` by value
+    descending, then lane ascending. Returns ``(values, lanes)`` (...,
+    depth)."""
+    v = vals.flatten(-2)
+    ln = lanes.flatten(-2).long()
+    order = torch.sort(ln, dim=-1, stable=True).indices
+    v, ln = v.gather(-1, order), ln.gather(-1, order)
+    order = torch.sort(v, dim=-1, descending=True, stable=True).indices
+    return (v.gather(-1, order)[..., :depth],
+            ln.gather(-1, order)[..., :depth].to(torch.int32))
+
+
+_DEEP_INFO = {}
+
+
+def _deep_info(lib, device, K, depth, code, lists):
+    """``mfx_tile_topk_deep_info``'s plan for these shapes on this device,
+    asked once (the device's limits do not change; a serving loop asks at
+    every batch)."""
+    key = (id(lib), device, K, depth, code, lists)
+    if key not in _DEEP_INFO:
+        info = (ctypes.c_int * 6)()
+        _build.check(lib.mfx_tile_topk_deep_info(K, depth, code, lists,
+                                                 info), "tile_topk deep info")
+        _DEEP_INFO[key] = tuple(info)
+    return _DEEP_INFO[key]
+
+
 def _launch_deep(P_aug, Q_aug, tile, depth, sb, lists=0):
     """:func:`tile_topk`'s deep form on CUDA tensors already validated:
-    any depth and any tile that is a multiple of 128. Its running lists
-    take a device scratch where they do not fit in shared memory; the
-    kernel says how much. ``lists`` 1 (shared memory) or 2 (the scratch)
-    holds them to one place (``measure_topk deep`` times both); 0, as
+    any depth and any tile that is a multiple of 128. The kernel says its
+    block form and where the users' pools fit (``_deep_info``);
+    :func:`deep_split` cuts the tiles into pieces where they would not
+    fill the card; the pools take a device scratch where they are not in
+    shared memory, and the pieces' lists one where there is more than one
+    piece. ``lists`` 1 (shared memory) or 2 (the scratch) holds the pools
+    to one place (``measure_topk deep`` times both); 0, as
     :func:`tile_topk` passes, lets the launch choose."""
     m, a = _outputs(P_aug, Q_aug, tile, depth, sb)
     B, K = P_aug.shape
     ipad, code = Q_aug.shape[0], _DTYPE_CODE[Q_aug.dtype]
+    dev = P_aug.device
     lib = _build.load_library()
-    words = ctypes.c_longlong(0)
-    _build.check(lib.mfx_tile_topk_deep_scratch(
-        B, ipad, K, tile, depth, code, lists, ctypes.byref(words)),
-        "tile_topk deep scratch")
-    scratch = (torch.empty(words.value, dtype=torch.float32,
-                           device=P_aug.device) if words.value else None)
-    stream = torch.cuda.current_stream(P_aug.device).cuda_stream
+    sms, per_sm, shared, ub, slots, form = _deep_info(
+        lib, dev.index, K, depth, code, lists)
+    n_ub, tn = -(-B // ub), ipad // tile
+    pieces, S = deep_split(n_ub, tn, tile // CHUNK, sms * per_sm)
+    list_words = 0 if shared else n_ub * S * ub * 2 * slots
+    piece_words = B * tn * pieces * 2 * depth if pieces > 1 else 0
+    scratch = torch.empty(max(1, list_words + piece_words),
+                          dtype=torch.float32, device=dev)
+    base = scratch.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(lib.mfx_tile_topk_deep(
         P_aug.data_ptr(), Q_aug.data_ptr(),
         sb.data_ptr() if sb is not None else None, m.data_ptr(),
-        a.data_ptr(), scratch.data_ptr() if scratch is not None else None,
-        words.value, B, ipad, K, tile, depth, code, lists, stream,
+        a.data_ptr(), base if list_words else None, list_words,
+        base + 4 * list_words if piece_words else None, piece_words,
+        B, ipad, K, tile, depth, code, form, shared, pieces, S, stream,
     ), "tile_topk deep")
     tile_topk.deep_launches += 1
     return _pairs(m, a, depth)

@@ -4,6 +4,7 @@ forms across batch sizes, on ``chip_smoke.py``'s serving shapes.
     python -m mfx_torch.measure_topk kernel [--repeats 20]
     python -m mfx_torch.measure_topk forms  [--repeats 20]
     python -m mfx_torch.measure_topk deep   [--repeats 20]
+    python -m mfx_torch.measure_topk split  [--repeats 3]
 
 The tables are phase 5's: seeded random user rows (``B`` x rank 64) and
 catalog (rank 64, item biases), augmented to width 72 as the fused
@@ -24,12 +25,25 @@ one): the kernel as ``tile_topk`` launches it, and held to each of its
 two block forms, 16 and 128 users a block, interleaved; one JSON line
 each, the forced forms checked bitwise against the launch's own choice.
 
-``deep``: the deep form's two places for its running lists, at 1,000,000
-items, B = 256, tile 1024, f32 and bf16, at depths 33-64 (the launch
-keeps the lists in shared memory where the SM keeps as many blocks): the
-kernel as ``tile_topk`` launches it, and held to the lists in shared
-memory and in the device scratch, interleaved; one JSON line each, the
-held forms checked bitwise against the launch's own choice.
+``deep``: the deep form at ``chip_smoke.py`` phase 23's shapes (1,000,000
+items, B = 256: tile 1024 at depths 33, 64 and 256, bf16 and int8 at 64,
+tile 4096 at depth 64, tile 8192 at depth 2) and at the serving shapes
+(59,047 items, depth 64, tile 4096): the kernel as ``tile_topk`` launches
+it and the stock path, timed in turns (stock, kernel, kernel, stock, ...),
+and, where the pools fit in shared memory, the kernel held to its pools
+in the device scratch, checked bitwise against the launch's own choice;
+one JSON line a shape with the launch's plan (users a block, pieces a
+tile, the pools' place).
+
+``split``: the deep form's time by phase at the same shapes (f32): one
+call under ``torch.profiler`` (device time of the deep kernel and of the
+piece-merge launch), then ``--repeats`` calls through the
+measurement-only build (``_build.load_library("topk_stamps")``:
+``clock64()`` stamps behind extra barriers) and one JSON line a shape:
+each phase's share of the blocks' cycles (``csrc/tile_topk.cu``'s
+``TK_*``: the copies' wait, appending candidates, pruning overflowed
+pools, the pieces' last prunes and lists, converting a chunk, scoring
+it) and its cycles a chunk.
 
 It calls only ``tile_topk`` and the fused recommenders' augmentation,
 which earlier trees of the port have too, so it also times an earlier
@@ -108,13 +122,15 @@ def _event_ms(fn):
 
 def _timed(fns, repeats):
     """Each of ``fns`` (name -> callable) warmed up, then timed
-    ``repeats`` times in turn: name -> stats."""
+    ``repeats`` times in turn, the order reversed every other round (a, b,
+    b, a, ...): name -> stats."""
     for fn in fns.values():
         fn()
     times = {k: [] for k in fns}
-    for _ in range(repeats):
-        for k, fn in fns.items():
-            times[k].append(_event_ms(fn))
+    order = list(fns)
+    for r in range(repeats):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            times[k].append(_event_ms(fns[k]))
     return {k: _stats(v) for k, v in times.items()}
 
 
@@ -185,38 +201,115 @@ def forms(args, head, dev) -> None:
             torch.cuda.empty_cache()
 
 
-DEEP_DEPTHS = (33, 35, 37, 40, 48, 64)
+# chip_smoke.py phase 23's (dtype, depth, tile) at SERVE_ITEMS x SERVE_B,
+# then the serving shapes
+DEEP_CASES = (("f32", 33, 1024), ("f32", 64, 1024), ("f32", 256, 1024),
+              ("f32", 64, 4096), ("f32", 2, 8192), ("bf16", 64, 1024),
+              ("int8", 64, 1024))
+SERVE_DEEP = ("f32", 64, 4096)
 
 
 def deep(args, head, dev) -> None:
+    import ctypes
+
     import torch
 
-    from mfx_torch.kernels import serve_topk
+    from mfx_torch.kernels import _build, serve_topk
 
-    for dtype in ("f32", "bf16"):
-        P_aug, Q_aug, sb = serving_tables(dev, SERVE_B, SERVE_ITEMS, dtype)
-        for depth in DEEP_DEPTHS:
-            fns = {"auto_ms": lambda: serve_topk.tile_topk(
-                P_aug, Q_aug, tile=SERVE_TILE, depth=depth, sb=sb)}
-            want = fns["auto_ms"]()
-            for lists, key in ((1, "shared_ms"), (2, "scratch_ms")):
-                fn = (lambda lists=lists: serve_topk._launch_deep(
-                    P_aug, Q_aug, SERVE_TILE, depth, sb, lists))
-                try:
-                    got = fn()
-                except RuntimeError:  # the lists do not fit in shared memory
-                    continue
-                if any(not torch.equal(a, b) for a, b in zip(got, want)):
+    cases = ([(SERVE_ITEMS, *c) for c in DEEP_CASES]
+             + [(ML25M_ITEMS, *SERVE_DEEP)])
+    for items, dtype, depth, tile in cases:
+        P_aug, Q_aug, sb = serving_tables(dev, SERVE_B, items, dtype,
+                                          tile=tile)
+        fns = {"stock_ms": lambda: stock_topk(P_aug, Q_aug, sb, tile, depth),
+               "kernel_ms": lambda: serve_topk.tile_topk(
+                   P_aug, Q_aug, tile=tile, depth=depth, sb=sb)}
+        plan = {}
+        launch = getattr(serve_topk, "_launch_deep", None)
+        lib = _build.load_library()
+        if hasattr(lib, "mfx_tile_topk_deep_info"):
+            info = (ctypes.c_int * 6)()
+            _build.check(lib.mfx_tile_topk_deep_info(
+                P_aug.shape[1], depth, serve_topk._DTYPE_CODE[Q_aug.dtype],
+                0, info), "deep info")
+            sms, per_sm, shared, ub = info[:4]
+            pieces, S = serve_topk.deep_split(
+                -(-SERVE_B // ub), Q_aug.shape[0] // tile, tile // 128,
+                sms * per_sm)
+            plan = {"users_a_block": ub, "pieces": pieces,
+                    "lists": "shared" if shared else "scratch"}
+            if shared and launch is not None:
+                want = fns["kernel_ms"]()
+                fn = (lambda: launch(P_aug, Q_aug, tile, depth, sb, 2))
+                if any(not torch.equal(a, b) for a, b in zip(fn(), want)):
                     raise AssertionError(
-                        f"tile_topk deep: lists {key} differ from the "
-                        f"launch's choice at depth {depth}, {dtype}")
-                fns[key] = fn
-            print(json.dumps({**head, "deep": f"tile_topk {dtype}",
-                              "items": SERVE_ITEMS, "depth": depth,
-                              "B": SERVE_B, "tile": SERVE_TILE,
-                              "repeats": args.repeats,
-                              **_timed(fns, args.repeats)}), flush=True)
+                        f"tile_topk deep: pools in the scratch differ from "
+                        f"the launch's choice at {items} items, {dtype}, "
+                        f"depth {depth}, tile {tile}")
+                fns["scratch_lists_ms"] = fn
+        print(json.dumps({**head, "deep": f"tile_topk {dtype}",
+                          "items": items, "depth": depth, "B": SERVE_B,
+                          "tile": tile, "repeats": args.repeats, **plan,
+                          **_timed(fns, args.repeats)}), flush=True)
         del P_aug, Q_aug, sb
+        torch.cuda.empty_cache()
+
+
+SPLIT_PHASES = ("wait", "append", "prune", "finish", "convert", "score")
+
+
+def split(args, head, dev) -> None:
+    import ctypes
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mfx_torch.kernels import _build, serve_topk
+
+    stamped = _build.load_library("topk_stamps")
+    cases = ([(SERVE_ITEMS, depth, tile) for dt, depth, tile in DEEP_CASES
+              if dt == "f32"] + [(ML25M_ITEMS, *SERVE_DEEP[1:])])
+    for items, depth, tile in cases:
+        P_aug, Q_aug, _ = serving_tables(dev, SERVE_B, items, "f32",
+                                         tile=tile)
+
+        def run():
+            return serve_topk._launch_deep(P_aug, Q_aug, tile, depth, None)
+
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        device_ms = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            if us > 0:
+                device_ms[ev.key[:60]] = us / 1e3
+        default = serve_topk._build.load_library
+        serve_topk._build.load_library = lambda variant="": stamped
+        try:
+            run()
+            sums = (ctypes.c_ulonglong * (len(SPLIT_PHASES) + 1))()
+            _build.check(stamped.mfx_tile_topk_stamps(sums, 1), "stamps")
+            for _ in range(args.repeats):
+                run()
+            _build.check(stamped.mfx_tile_topk_stamps(sums, 0), "stamps")
+        finally:
+            serve_topk._build.load_library = default
+        cyc, chunks = list(sums)[:-1], sums[len(SPLIT_PHASES)]
+        total = sum(cyc)
+        print(json.dumps({
+            **head, "split": "tile_topk deep f32", "items": items,
+            "depth": depth, "B": SERVE_B, "tile": tile,
+            "repeats": args.repeats, "device_ms": device_ms,
+            "share": {k: c / total for k, c in zip(SPLIT_PHASES, cyc)},
+            "cycles_per_chunk": {k: c / chunks
+                                 for k, c in zip(SPLIT_PHASES, cyc)}}),
+            flush=True)
+        del P_aug, Q_aug
         torch.cuda.empty_cache()
 
 
@@ -224,15 +317,17 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(prog="mfx_torch.measure_topk")
-    ap.add_argument("what", choices=("kernel", "forms", "deep"))
-    ap.add_argument("--repeats", type=int, default=20)
+    ap.add_argument("what", choices=("kernel", "forms", "deep", "split"))
+    ap.add_argument("--repeats", type=int, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure_topk: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    {"kernel": kernel, "forms": forms, "deep": deep}[args.what](
-        args, _header(), dev)
+    if args.repeats is None:
+        args.repeats = 3 if args.what == "split" else 20
+    {"kernel": kernel, "forms": forms, "deep": deep, "split": split}[
+        args.what](args, _header(), dev)
     return 0
 
 

@@ -8,6 +8,7 @@
                                   [--cut N] [--blocks 1,2,4,...]
                                   [--repeats 20]
     python -m mfx_torch.measure_wavefront orders [--cut N] [--repeats 10]
+    python -m mfx_torch.measure_wavefront unit   [--cut N] [--repeats 3]
 
 ``--cell sgd`` is the ``ml25m_rank64`` preset on the ML-25M-shaped
 synthetic (the dense carving applied first, as the trainer does);
@@ -50,6 +51,16 @@ and of 8 strata in flight: every combination once to warm up, then
 ``--repeats`` rounds that time each in turn; every run must give the
 first run's bits. One JSON line per scope and combination (CUDA-event
 ms: min, median, max). It needs a CUDA device.
+
+``unit`` (the sgd cell) breaks ``dense_phase``'s work units down on group
+0 at the card's count: it builds the measurement-only library
+(``_build.load_library("dense_stamps")``: ``clock64()`` stamps behind
+extra barriers), runs group 0 through it ``--repeats`` times after a
+warm-up, and prints one JSON line: each phase's share of the blocks'
+cycles (``csrc/dense_phase.cu``'s ``ST_*``), cycles per panel piece,
+apply unit and chunk, and group 0's time in the default build and in the
+stamped one (CUDA events), whose tables and SSE must be the default
+build's bit for bit. It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -519,12 +530,79 @@ def orders(args) -> int:
     return 0
 
 
+STAMP_PHASES = ("ticket", "wait", "snapshot", "e_and_barrier",
+                "fused_products", "partials_and_sums", "piece_end",
+                "last_piece", "apply_wait", "apply")
+
+
+def unit(args) -> int:
+    import ctypes
+
+    import torch
+
+    from mfx_torch.kernels import _build
+    from mfx_torch.kernels import dense_phase as dp
+
+    if not torch.cuda.is_available():
+        raise SystemExit("measure_wavefront unit: needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    args.cell = "sgd"
+    _, tables, _, dense = _sweeps(args, dev, tiles=True)
+    meta, groups, mu, lr, reg, su, si, _ = dense
+    (win0, nw), grp = meta[0], groups[0]
+    rank, rfmt = tables[0].shape[1], dp.code_format(grp["R"])
+    out = {}
+    for variant in ("", "dense_stamps"):
+        lib = _build.load_library(variant)
+        card = lib.mfx_dense_phase_max_blocks(rank, int(rfmt == "int8"), 0)
+        sched = dp.dense_launch(lib, grp["deps"], grp["sa"].shape[0], su, si,
+                                dev, card, rank, rfmt)
+
+        def run(tabs, n, lib=lib, sched=sched):
+            Pt, Qt = tabs
+            return dp.launch(lib, Pt, Qt[win0 * si:(win0 + nw) * si], grp, lr,
+                             reg, mu, su, si, *sched)
+
+        _timed(run, tables[:2], card)  # warm-up
+        if variant:
+            n = lib.mfx_dense_phase_stamp_count()
+            sums = (ctypes.c_ulonglong * n)()
+            _build.check(lib.mfx_dense_phase_stamps(sums, 1), "stamps")
+        times, got = [], None
+        for _ in range(args.repeats):
+            got, ms = _timed(run, tables[:2], card)
+            times.append(ms)
+        out[variant or "default"] = (got, times, card)
+    want, base_ms, card = out["default"]
+    got, stamped_ms, _ = out["dense_stamps"]
+    if not _same(got, want):
+        raise SystemExit("dense_phase: the stamped build's bits differ")
+    _build.check(lib.mfx_dense_phase_stamps(sums, 0), "stamps")
+    cyc = list(sums)[:len(STAMP_PHASES)]
+    pieces, applies, chunks = list(sums)[len(STAMP_PHASES):]
+    total = sum(cyc)
+    print(json.dumps({
+        "dense": "group 0 unit breakdown", "strata": grp["sa"].shape[0],
+        "blocks": card, "repeats": args.repeats,
+        "share": {k: c / total for k, c in zip(STAMP_PHASES, cyc)},
+        "cycles_per_piece": sum(cyc[1:8]) / pieces,
+        "cycles_per_apply_unit": sum(cyc[8:]) / applies,
+        "cycles_per_chunk": {k: c / chunks for k, c in
+                             zip(STAMP_PHASES[3:6], cyc[3:6])},
+        "panel_pieces": pieces, "apply_units": applies, "chunks": chunks,
+        "default_ms": base_ms, "stamped_ms": stamped_ms,
+        "bitwise_equal": True, "card": torch.cuda.get_device_name(0)}),
+        flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="mfx_torch.measure_wavefront")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for name, fn in (("plan", plan), ("blocks", blocks), ("orders", orders)):
+    for name, fn in (("plan", plan), ("blocks", blocks), ("orders", orders),
+                     ("unit", unit)):
         p = sub.add_parser(name)
-        if name != "orders":
+        if name not in ("orders", "unit"):
             p.add_argument("--cell", choices=("sgd", "bpr", "tile", "step_u"),
                            required=True)
         p.add_argument("--cut", type=int, default=0)
@@ -533,6 +611,7 @@ def main(argv=None) -> int:
     sub.choices["blocks"].add_argument("--blocks", default=None)
     sub.choices["blocks"].add_argument("--repeats", type=int, default=20)
     sub.choices["orders"].add_argument("--repeats", type=int, default=10)
+    sub.choices["unit"].add_argument("--repeats", type=int, default=3)
     args = ap.parse_args(argv)
     return args.fn(args)
 

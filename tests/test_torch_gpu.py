@@ -595,6 +595,66 @@ def test_tile_topk_deep_form_matches_plain(cuda, dtype, depth, tile, B,
     _same_candidates(runs[0], want, P_aug, Q_aug, sb, tile)
 
 
+def _exact_tables(dev, B, items, rank, tile, seed=0):
+    """Tables whose every product and sum is exact in f32 (small integers
+    and quarters): any summation order gives the kernel's bits, so the
+    plain version must equal the kernel bitwise; and many equal scores."""
+    from mfx_torch.kernels.serve_topk import aug_width
+    from mfx_torch.serve.fused import _augment_catalog, _augment_rows
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    P = torch.randint(-3, 4, (B, rank), device=dev, generator=g).float()
+    Q = torch.randint(-3, 4, (items, rank), device=dev,
+                      generator=g).float() / 4
+    bi = torch.randint(-4, 5, (items,), device=dev, generator=g).float() / 2
+    ipad = -(-items // tile) * tile
+    return (_augment_rows(P, torch.float32, aug_width(rank)),
+            _augment_catalog(Q, bi, ipad, torch.float32))
+
+
+@pytest.mark.parametrize("depth,tile,B,rank,items,lists", [
+    # the serving shapes (15 tiles x 4 user blocks: two pieces a tile)
+    (64, 4096, 256, 64, 59_047, 0),
+    # few tiles, a small batch: many pieces a tile, merged by a second
+    # launch; lists in shared memory and in the device scratch
+    (64, 4096, 16, 64, 9_000, 0), (64, 4096, 16, 64, 9_000, 2),
+    (300, 512, 17, 32, 3_000, 0), (1024, 1024, 10, 16, 3_000, 0),
+    (40, 4096, 1, 127, 9_000, 0), (2, 8192, 37, 8, 20_000, 0),
+    (33, 256, 300, 64, 5_000, 2), (128, 128, 1, 64, 500, 0),
+])
+def test_tile_topk_deep_form_is_the_plain_bits_on_exact_scores(
+        cuda, depth, tile, B, rank, items, lists):
+    """On tables whose scores are exact in any order, with many ties, the
+    deep form (as launched, or held to its lists in the device scratch)
+    equals the plain version bitwise: values, and lanes lowest first."""
+    from mfx_torch.kernels.serve_topk import (_launch_deep, tile_topk,
+                                              tile_topk_plain)
+
+    P_aug, Q_aug = _exact_tables(cuda, B, items, rank, tile, seed=depth)
+    got = (tile_topk(P_aug, Q_aug, tile=tile, depth=depth) if lists == 0
+           else _launch_deep(P_aug, Q_aug, tile, depth, None, lists))
+    want = tile_topk_plain(P_aug, Q_aug, tile=tile, depth=depth)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype,depth,tile,B", [
+    ("f32", 32, 1024, 300), ("f32", 2, 2048, 37), ("bf16", 8, 512, 130),
+    ("int8", 32, 256, 256), ("int8", 1, 128, 5), ("bf16", 32, 2048, 1),
+])
+def test_tile_topk_deep_form_is_the_register_forms_bits(cuda, dtype, depth,
+                                                        tile, B):
+    """Where both forms apply (depth <= 32, tile <= 2048) the deep form
+    gives the register-list form's bits: the same FMA chains, the same
+    order."""
+    from mfx_torch.kernels.serve_topk import _launch, _launch_deep
+
+    P_aug, Q_aug, sb = _serve_tables(cuda, B, 5000, 64, tile, dtype)
+    want = _launch(P_aug, Q_aug, tile, depth, sb)
+    got = _launch_deep(P_aug, Q_aug, tile, depth, sb)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_tile_topk_deep_form_takes_the_lowest_lane_on_ties(cuda):
     """Equal scores across chunks and within one: lower lanes first, as
     the reference's max-extract takes them."""
@@ -918,7 +978,9 @@ WAVEFRONT_KERNELS = ["sgd", "sgd_r128", "bpr", "tile", "step_u",
                      "tile_bf16_r128", "step_u_bf16", "step_u_bf16_r32",
                      "epoch_bf16", "dense_echo", "dense_none_echo",
                      "dense_int8_echo_r128", "dense_echo_r32",
-                     "dense_none_int8_echo_r32"] + [
+                     "dense_none_int8_echo_r32", "dense_frozen_int8",
+                     "dense_none_int8", "dense_none_int8_r128",
+                     "dense_none_int8_r32"] + [
     f"{k}_r{rank}" for rank in (16, 8, 4)
     for k in ("sgd", "tile", "step_u", "epoch", "bpr", "sgd_bf16",
               "tile_bf16", "step_u_bf16", "epoch_bf16")] + [

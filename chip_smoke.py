@@ -8,7 +8,8 @@ imports nothing of JAX and nothing of the JAX package mfx. Phases, each
 printed as it ends:
 
 1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: every kernel from mfx_torch/csrc, beside the ML-25M data;
+2. build: every kernel from mfx_torch/csrc, beside the ML-25M data and
+   phase 29's NMF and learnable iALS cell (no hand-written kernel);
 3. kernels against their plain PyTorch versions at the ml25m_rank64
    preset's shapes (su = si = 1024, T = 256, rank 64, int4; the rank-64
    instances of the two kernels that phase 11 runs at rank 128): the first
@@ -336,7 +337,39 @@ printed as it ends:
    epoch, the time-aware held-out RMSE below the untrained model's and
    lane MF's at rank 16. (i) billion_bpr_sharded as phase 8 runs it at
    model.rank=16 and =8: the loss falls every epoch and ends below ln 2
-   (the AUC printed). Both phases' wall times are printed at the end.
+   (the AUC printed). Both phases' wall times are printed at the end;
+29. the Gram-engine solvers (mfx_torch/solvers/als.py, ials.py, nmf.py:
+   stock torch ops, as the reference computes them outside any Pallas
+   kernel; TF32 asserted off). (a) After phase 22, on phase 12's data:
+   netflix100m_rank128_dp with solver=als and parallel.mode=single through
+   mfx_torch.train.driver.train (the synthetic as the loader's cache,
+   written by make_data), the preset's 8 sweeps at rank 128 with biases:
+   ALS-WR's regularized objective never rises (1e-6 relative; the train
+   RMSE is printed, ALS-WR need not lower it), the held-out RMSE
+   (unclipped) ends below the untrained model's, printed beside phase
+   12's; one sweep repeated from the same tables bit for bit; the first
+   8,192 users' rows of a user half-sweep on the card within 3e-3 of the
+   port's CPU solve (in a thread); an item half-sweep with no host sync
+   (sync debug mode 'error'); each half-sweep's split (gather + Gram,
+   scatter, solve, host loop) beside its bound; the checkpoint through
+   the CLI's recommend (the fused recommenders take rank < 128, as the
+   reference's: --fused must refuse it). (b) After phase 22's BPR runs, on
+   phase 8's data: one iALS sweep (IALSConfig's defaults, rank 64) timed
+   and repeated bit for bit, each half-sweep's split; and, while the
+   kernels build (it runs none), a learnable make_implicit_synthetic
+   (50,000 x 5,000, 10,000,000 positives, true rank 8, seed 107): rank
+   32, alpha 30, reg 0.5, 4 sweeps, the sampled AUC on 1,000,000 of the
+   training positives above max(0.70, untrained + 0.1)
+   (tests/unit/test_ials.py:95), and fold_in_implicit of 256 users'
+   histories within 2e-4 of their rows of a user half-sweep. (c) While
+   the kernels build, on phase 4's data: NMF (NMFConfig's defaults, rank
+   64, no biases): the objective never rises from its start, the factors
+   stay >= 0, the held-out RMSE ends below the untrained model's, each
+   half-sweep's split; after phase 19's extra cell, ALS at rank 64 (2
+   sweeps), checkpointed and served by the CLI's recommend --fused:
+   tile_topk launched (counter > 0), each launch made again on its inputs
+   and held against tile_topk_plain as in phase 14. Phase 29's records
+   are one JSON line ({"gram_engine": ...}) before the total time.
 
 Each phase prints its wall time. The second-to-last line is a JSON object
 describing each kernel (times, launches on the main path, and the bound:
@@ -345,7 +378,8 @@ the sweeps also the whole-sweep times on one block and on the card's
 count; for dense_phase those of 256 strata and the times of group 0 and
 of the epoch's dense phase, for dense_phase_int8_r128 those of the whole
 group 0; for tile_topk every variant's times and the stock path's, whose
-f32 depth-2 time is its library_ms, and phase 14's launches and check).
+f32 depth-2 time is its library_ms, and phase 14's and phase 29(c)'s
+launches and checks).
 The rank-128 forms are entries of
 their own (sgd_sweep_r128, dense_phase_int8_r128), their launches from
 phase 12; sgd_sweep_time's launches are phase 16's, and its rank-128 form,
@@ -380,7 +414,7 @@ sgd_sweep_step_u_r16, sgd_sweep_tile_bf16_r16, sgd_sweep_time_r16,
 bpr_sweep_r16 and _r8), their launches from runs (d), (a)-(c), (e), (f),
 (h) and (i); each holds the forms of its kernel that no path runs as its
 "variants" (NARROW_ENTRIES). The BPR and netflix phases' host data are
-made in processes of their own from the script's start (make_data);
+made in processes of their own from the end of the build (make_data);
 stderr repeats each line after the seconds since the start. The script's
 total seconds are printed before the card's line; the last is
 {"ok": true, "device": {...}}. Any failure
@@ -442,7 +476,7 @@ def log(msg: str) -> None:
 
 
 # host data of the BPR and netflix phases: numpy on the host takes minutes
-# for each, so each is made, split and saved from the script's start in a
+# for each, so each is made, split and saved from the end of the build in a
 # process of its own (make_data), and its phase loads it (wait_data)
 DATA_JOBS = ("bpr", "netflix")
 _CHILDREN: list = []
@@ -460,17 +494,24 @@ def make_data(kind: str, out: str) -> None:
                                           make_synthetic)
 
     t0 = time.perf_counter()
+    out = Path(out)
     if kind == "bpr":  # billion-implicit cut to 1/BPR_CUT
-        cfg = preset("billion_bpr_sharded")
+        data = preset("billion_bpr_sharded").data
+        split = (data.test_frac, data.seed)
         coo = make_implicit_synthetic(*(x // BPR_CUT for x in BILLION_SHAPE),
                                       rank=64, seed=104)
     else:  # the netflix entry of mfx_torch/data/loaders.py
-        cfg = preset("netflix100m_rank128_dp")
+        from mfx_torch.data.loaders import GENERATOR_VERSION
+
+        data = preset("netflix100m_rank128_dp").data
+        split = (data.test_frac, data.seed)
         coo = make_synthetic(*NETFLIX_SHAPE, rank=128, seed=103,
                              star_step=1.0, user_zipf_s=0.6)
-    train, test = train_test_split(coo, cfg.data.test_frac,
-                                   seed=cfg.data.seed)
-    out = Path(out)
+        # phase 29(a)'s driver reads it as the loader's cache
+        root = out.parent / "chip_smoke_root_netflix"
+        root.mkdir(parents=True, exist_ok=True)
+        coo.save_npz(root / f"netflix.v{GENERATOR_VERSION}.synthetic.npz")
+    train, test = train_test_split(coo, split[0], seed=split[1])
     train.save_npz(out / "train.npz")
     test.save_npz(out / "test.npz")
     (out / "seconds").write_text(f"{time.perf_counter() - t0:.1f}")
@@ -482,6 +523,8 @@ def start_data() -> None:
     from pathlib import Path
 
     here = Path(__file__).resolve().parent
+    shutil.rmtree(here / "build" / "chip_smoke_root_netflix",
+                  ignore_errors=True)
     for kind in DATA_JOBS:
         out = here / "build" / f"chip_smoke_data_{kind}"
         shutil.rmtree(out, ignore_errors=True)
@@ -510,7 +553,7 @@ def wait_data(kind: str):
     made = (out / "seconds").read_text()
     shutil.rmtree(out)
     log(f"[data] {kind}: made and split in {made} s in a process of its "
-        f"own from the start; waited for and loaded in "
+        f"own from the end of the build; waited for and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
     return train, test
 
@@ -1242,6 +1285,9 @@ def bpr_phases(dev, results, bounds, sweeps, forms):
             dev, fresh_model(rk), train, test, bpr, seed, keys,
             auc_check=False)
     narrow_time("28", t_phase, "(i) the BPR path at ranks 16 and 8")
+    # 29 (b). iALS on the same data, at the preset's rank
+    torch.cuda.empty_cache()
+    GRAM["ials"] = ials_bpr_phase(dev, train, test, fresh_model(), keys)
     return out
 
 
@@ -1764,6 +1810,13 @@ def netflix_phases(dev, results, bounds, sweeps):
     # 22 (netflix). the other bias modes through the trainer
     launches.update(netflix_bias_runs(dev, cfg, train, test, fresh_model,
                                       tests))
+    # 29 (a). ALS on the cell, through the driver
+    torch.cuda.empty_cache()
+    from pathlib import Path
+
+    GRAM["als"] = als_netflix_phase(
+        dev, cfg, train, test, fresh_model, tests,
+        Path(__file__).resolve().parent / "build" / "chip_smoke_root_netflix")
     return launches
 
 
@@ -4695,6 +4748,691 @@ def store_narrow(forms, results, bounds, sweeps):
         f"{_NARROW_S['28']:.1f} s")
 
 
+# phase 29: the Gram-engine solvers (mfx_torch/solvers/als.py, ials.py,
+# nmf.py). The reference computes them outside any Pallas kernel, so their
+# port is stock torch ops: no kernel of theirs is in the kernels line
+ALS_CHECK_ROWS = 8192  # the first user range, solved on the card and the CPU
+ALS_CPU_TOL = 3e-3  # rank 128 with bias: tests/unit/test_als.py:102
+ALS_CPU_THREADS = 4  # the CPU solve's threads, beside the card's host loop
+# ALS-WR's and NMF's regularized objectives never rise (relative):
+# tests/unit/test_nmf.py:88
+RISE_TOL = 1e-6
+# 29(b): the learnable implicit synthetic (users, items, positives, its
+# true rank; seed 107), iALS at IALS_LEARN_RANK with the reference test's
+# settings and gate (tests/unit/test_ials.py:86-95), and fold-in
+IALS_LEARN = (50_000, 5_000, 10_000_000, 8)
+IALS_LEARN_RANK = 32
+IALS_LEARN_CFG = {"alpha": 30.0, "reg": 0.5, "sweeps": 4}
+IALS_AUC_GATE = 0.70
+IALS_AUC_SAMPLE = 1_000_000  # training positives the AUC is taken on
+FOLD_USERS, FOLD_TOL = 256, 2e-4
+ALS64_SWEEPS = 2  # the rank-64 ALS model that is served through tile_topk
+_GRAM_S = {"a": 0.0, "b": 0.0, "c": 0.0}
+GRAM: dict = {}  # phase 29's records, printed as one JSON line
+
+
+def gram_time(part, t0, what):
+    """Adds the seconds since ``t0`` to phase 29 (part)'s wall time."""
+    dt = time.perf_counter() - t0
+    _GRAM_S[part] += dt
+    log(f"[time] phase 29 ({part}: {what}) {dt:.1f} s")
+
+
+def precision_check():
+    """The Grams and solves are true f32, as the reference's on the CPU:
+    TF32 off for matmuls, f32 matmul precision 'highest'."""
+    import torch
+
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError(
+            "TF32 or a float32 matmul precision below 'highest' is on: the "
+            "Gram engine's parity assumes true f32")
+    log("[gram] torch.backends.cuda.matmul.allow_tf32 is False, float32 "
+        "matmul precision 'highest'")
+
+
+def gram_bound(n, rows_target, rows_other, d):
+    """(ms, what sets it, ops ms, bytes ms) for one half-sweep: the Gram's
+    2 n d² FLOPs at the f32 peak; the bytes of each rating's column and
+    value read once, the fixed table read once and the solved table read
+    and written once, at the HBM peak."""
+    nbytes = n * 8 + rows_other * d * 4 + 2 * rows_target * d * 4
+    flops = 2.0 * n * d * d
+    return (*bound(nbytes, flops), flops / PEAK_F32 * 1e3,
+            nbytes / PEAK_BYTES * 1e3)
+
+
+def span_kernels(prof, spans):
+    """The card's kernel time (ms) in a ``torch.profiler`` trace: adds to
+    ``spans[name]`` the kernels launched by ops that start inside a span
+    of that name, returns the whole. Read from the trace's raw events (a
+    kernel names the op that launched it by correlation id), without the
+    profiler's event tree, which takes tens of seconds to build for a
+    half-sweep's tens of thousands of ops. The spans' own device-side
+    annotations are not kernels."""
+    import bisect
+
+    events = prof.profiler.kineto_results.events()
+    opens, closes, names, op_start, launched = [], [], [], {}, []
+    for e in events:
+        name = e.name()
+        if e.device_type().name == "CPU":
+            if name in spans:
+                opens.append(e.start_ns())
+                closes.append(e.end_ns())
+                names.append(name)
+            elif e.linked_correlation_id() == 0:
+                op_start[e.correlation_id()] = e.start_ns()
+        elif name not in spans and not e.is_user_annotation():
+            launched.append((e.linked_correlation_id(), e.duration_ns()))
+    order = sorted(range(len(opens)), key=opens.__getitem__)
+    opens = [opens[i] for i in order]
+    closes = [closes[i] for i in order]
+    names = [names[i] for i in order]
+    total = 0.0
+    for corr, ns in launched:
+        total += ns / 1e6
+        t = op_start.get(corr)
+        if t is None:
+            continue
+        j = bisect.bisect_right(opens, t) - 1
+        if j >= 0 and t <= closes[j]:
+            spans[names[j]] += ns / 1e6
+    return total
+
+
+def half_sweep_split(tag, run, n, rows_target, rows_other, d):
+    """One half-sweep ``run()`` between CUDA events (the card's time from
+    its start to its end) and on the host's clock (the time to issue it),
+    under sync debug mode 'error' (a host sync inside it raises), then
+    ``run()`` again under ``torch.profiler`` for the split: the card's
+    time in the kernels under each of the solvers' spans (``als.SPANS``:
+    gather + Gram, scatter, solve) and in the rest (:func:`span_kernels`).
+    Prints and returns it beside the bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mfx_torch.solvers.als import SPANS
+
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")  # a host sync would raise
+    try:
+        t0 = time.perf_counter()
+        ev0.record()
+        run()
+        ev1.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ev1.synchronize()
+    split = {"device_ms": ev0.elapsed_time(ev1), "host_ms": host_ms}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    spans = dict.fromkeys(SPANS, 0.0)
+    kernels = span_kernels(prof, spans)
+    if not all(spans.values()):
+        raise AssertionError(f"{tag}: the trace holds no kernel time in a "
+                             f"span: {spans}")
+    for s, ms in spans.items():
+        split[s.split(".")[1] + "_ms"] = ms
+    split["kernels_ms"] = kernels
+    split["other_ms"] = kernels - sum(spans.values())
+    b = gram_bound(n, rows_target, rows_other, d)
+    split.update(bound_ms=b[0], bound_by=b[1], ops_ms=b[2], bytes_ms=b[3])
+    split["busy"] = kernels / split["device_ms"]
+    log(f"[gram] {tag}: {split['device_ms']:.3f} ms a half-sweep on the card "
+        f"(CUDA events; {n} ratings, {rows_target} rows, d = {d}), issued "
+        f"in {host_ms:.3f} ms on the host with no host sync; kernels "
+        f"(torch.profiler) {kernels:.3f} ms, {split['busy']:.1%} of it: "
+        f"gather + Gram {split['gather_gram_ms']:.3f}, "
+        f"scatter {split['scatter_ms']:.3f}, solve {split['solve_ms']:.3f}, "
+        f"other {split['other_ms']:.3f}; bound {b[0]:.4f} ms ({b[1]}; FLOPs "
+        f"{b[2]:.4f} ms, bytes {b[3]:.4f} ms)")
+    return split
+
+
+class Ratings:
+    """A split's ratings on the card, for its RMSE and the regularized
+    objectives in float64 (in chunks of 2^20 ratings) without a host copy
+    a call."""
+
+    CHUNK = 1 << 20
+
+    def __init__(self, coo, dev):
+        import torch
+
+        self.u = torch.as_tensor(coo.user).to(dev, torch.int64)
+        self.i = torch.as_tensor(coo.item).to(dev, torch.int64)
+        self.r = torch.as_tensor(coo.rating).to(dev, torch.float64)
+        self.deg_u = torch.bincount(self.u, minlength=coo.num_users).double()
+        self.deg_i = torch.bincount(self.i, minlength=coo.num_items).double()
+
+    def sse(self, m):
+        import torch
+
+        out = torch.zeros((), dtype=torch.float64, device=self.r.device)
+        bu, bi = m.bu.double(), m.bi.double()
+        for s in range(0, self.r.shape[0], self.CHUNK):
+            u, i = self.u[s:s + self.CHUNK], self.i[s:s + self.CHUNK]
+            e = (self.r[s:s + self.CHUNK] - m.mu - bu[u] - bi[i]
+                 - (m.P[u].double() * m.Q[i].double()).sum(1))
+            out += (e * e).sum()
+        return out
+
+    def rmse(self, m) -> float:
+        return math.sqrt(float(self.sse(m)) / self.r.shape[0])
+
+    def objective(self, m, reg) -> tuple[float, float]:
+        """(Σ e² + reg Σ_u n_u (‖p_u‖² + b_u²) + reg Σ_i n_i (‖q_i‖² + b_i²),
+        the RMSE) in one pass: ALS-WR's objective (each half-sweep its
+        exact block minimizer), and weighted NMF's (no biases, μ = 0)."""
+        sse = self.sse(m)
+        pu = (m.P.double() ** 2).sum(1) + m.bu.double() ** 2
+        qi = (m.Q.double() ** 2).sum(1) + m.bi.double() ** 2
+        obj = sse + reg * ((self.deg_u * pu).sum() + (self.deg_i * qi).sum())
+        return float(obj), math.sqrt(float(sse) / self.r.shape[0])
+
+
+def tables(m):
+    return tuple(getattr(m, k).clone() for k in ("P", "Q", "bu", "bi"))
+
+
+def same_tables(a, b):
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(tables(a), tables(b)))
+
+
+def als_netflix_phase(dev, cfg0, train, test, fresh_model, sgd_tests, root):
+    """Phase 29(a): netflix100m_rank128_dp with solver=als and
+    parallel.mode=single through mfx_torch.train.driver.train on the full
+    netflix synthetic (the loader's cache under ``root``), the preset's
+    als.sweeps; the run observed sweep by sweep (ALS-WR's objective, train
+    and held-out RMSE, unclipped; each sweep's device time from CUDA
+    events). Gates: the objective never rises (RISE_TOL; the train RMSE is
+    printed: ALS-WR need not lower it), the held-out RMSE ends below the
+    untrained model's; one sweep repeated from the same tables bit for
+    bit; the first ALS_CHECK_ROWS users' half-sweep rows on the card
+    within ALS_CPU_TOL of the port's CPU solve (run in a thread beside the
+    card's work); the half-sweeps' split, each with no host sync;
+    then the checkpoint through the CLI's recommend. Returns the record."""
+    import contextlib
+    import io
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+
+    from mfx_torch import cli
+    from mfx_torch.config import apply_overrides
+    from mfx_torch.eval.metrics import rmse_mae
+    from mfx_torch.models.mf import MFModel
+    from mfx_torch.solvers import als
+    from mfx_torch.train.driver import train as drive
+
+    t_phase = time.perf_counter()
+    precision_check()
+    cfg = apply_overrides(cfg0, ["solver=als", f"data.root={root}",
+                                 f"checkpoint_dir={root / 'ck'}"])
+    acfg, rank = cfg.als, cfg.model.rank
+    U, I, d = train.num_users, train.num_items, rank + 1
+    init = fresh_model()  # the driver's initial tables (same seed and init)
+    base, _ = rmse_mae(init, test)
+    log(f"[als] cell: netflix100m_rank128_dp with solver=als "
+        f"parallel.mode=single (one card instead of the preset's ring); "
+        f"rank {rank} with biases (d = {d}), reg {acfg.reg}, {acfg.sweeps} "
+        f"sweeps (the preset's), user_chunk {acfg.user_chunk} (rows a "
+        f"solve {als.gram_rowchunk(d, acfg.user_chunk)}); untrained held-out "
+        f"RMSE {base:.5f} (unclipped)")
+
+    # the port's CPU solve of the first user range, in a thread (with
+    # ALS_CPU_THREADS of the host's cores: the card's host loop keeps one)
+    cpu: dict = {}
+    P0, Q0, bu0, bi0 = (t.cpu() for t in tables(init))
+
+    def cpu_solve():
+        try:
+            t0 = time.perf_counter()
+            sel = np.flatnonzero(train.user < ALS_CHECK_ROWS)
+            sel = sel[np.argsort(train.user[sel], kind="stable")]
+            cpu["rows"] = als.als_half_sweep(
+                P0[:ALS_CHECK_ROWS], bu0[:ALS_CHECK_ROWS], Q0, bi0, init.mu,
+                train.user[sel], train.item[sel], train.rating[sel],
+                acfg.reg, True, row_chunk=acfg.user_chunk)
+            cpu["n"], cpu["s"] = sel.shape[0], time.perf_counter() - t0
+        except Exception as exc:  # raised again in the main thread
+            cpu["error"] = exc
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, ALS_CPU_THREADS))
+    worker = threading.Thread(target=cpu_solve)
+    worker.start()
+
+    # the driver, observed: its initial tables, each sweep's device time
+    # and model
+    seen = {"ms": [], "models": []}
+    orig = als.train_sweeps_als
+
+    def observed(model, tr, c, use_bias=True, row_chunk=None, start_sweep=0):
+        seen["init"] = MFModel(*tables(model), model.mu)
+        it = orig(model, tr, c, use_bias, row_chunk, start_sweep)
+        while True:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            try:
+                sweep, m = next(it)
+            except StopIteration:
+                return
+            t1.record()
+            t1.synchronize()
+            seen["ms"].append(t0.elapsed_time(t1))
+            seen["models"].append(m)
+            yield sweep, m
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    als.train_sweeps_als = observed
+    t0 = time.perf_counter()
+    try:
+        res = drive(cfg, device=dev)
+    finally:
+        als.train_sweeps_als = orig
+    drive_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    if (res.epochs_run != acfg.sweeps or len(res.history) != acfg.sweeps
+            or not all(math.isnan(r["train_metric"]) for r in res.history)):
+        raise AssertionError(f"als: {res.epochs_run} sweeps, history "
+                             f"{res.history}")
+    if not same_tables(seen["init"], init):
+        raise AssertionError("als: the driver started from other tables")
+    tr_d, te_d = Ratings(train, dev), Ratings(test, dev)
+    objs, trains = zip(*(tr_d.objective(m, acfg.reg) for m in seen["models"]))
+    objs, trains = list(objs), list(trains)
+    tests = [te_d.rmse(m) for m in seen["models"]]
+    obj0 = tr_d.objective(init, acfg.reg)[0]
+    after0 = seen["models"][0]
+    seen["models"] = []
+    del tr_d, te_d
+    for s, (ms, a, b, o) in enumerate(zip(seen["ms"], trains, tests, objs)):
+        log(f"[als] sweep {s}: {ms / 1e3:.4f} s on the card, objective "
+            f"{o:.6e}, train_rmse {a:.5f} test_rmse {b:.5f} (unclipped; the "
+            f"driver's clipped {res.history[s]['test_rmse']:.5f})")
+    log(f"[als] driver: {drive_s:.1f} s in all (load, split, init, plan, "
+        f"sweeps, evals, checkpoint); peak memory allocated {peak} bytes")
+    # each half-sweep minimizes ALS-WR's objective exactly over its block:
+    # the objective falls; the unregularized train RMSE need not (here it
+    # rises after sweep 0 while the objective falls)
+    if any(b > a * (1 + RISE_TOL) for a, b in zip([obj0] + objs, objs)):
+        raise AssertionError(f"als: the objective rose: {obj0} {objs}")
+    if not tests[-1] < base:
+        raise AssertionError(f"als: held-out {tests[-1]} not below the "
+                             f"untrained {base}")
+    log(f"[als] the objective never rises (untrained {obj0:.6e}); held-out "
+        f"{tests[-1]:.5f} below the untrained {base:.5f}; phase 12's SGD "
+        f"after each of its {len(sgd_tests)} epochs (of the preset's 15; "
+        "for information): " + " ".join(f"{x:.5f}" for x in sgd_tests))
+
+    # one sweep again from the same tables
+    for _, again in orig(seen["init"], train,
+                         dataclasses.replace(acfg, sweeps=1)):
+        pass
+    if not same_tables(again, after0):
+        raise AssertionError("als: a sweep repeated from the same tables "
+                             "differs")
+    del again, after0
+    log("[als] one sweep repeated from the same tables: bit for bit")
+
+    # the half-sweeps' split, from the untrained tables; the card's first
+    # user range against the CPU's
+    (uc, uv, up, uch), (ic, iv, ip, ich) = als.sort_sides(
+        init, train, als.gram_rowchunk(d, acfg.user_chunk))
+    n = train.n_ratings
+    log(f"[als] plan: {sum(len(c) for *_, c in uch)} user chunks in "
+        f"{len(uch)} ranges, {sum(len(c) for *_, c in ich)} item chunks in "
+        f"{len(ich)} ranges; pieces by cap (users / items): "
+        + ", ".join(f"{cap}: {len(up[0][cap][0])} / {len(ip[0][cap][0])}"
+                    for cap in als.BUCKET_CAPS))
+    out: dict = {}
+
+    def user_half():
+        out["u"] = als.als_half_sweep(
+            init.P, init.bu, init.Q, init.bi, init.mu, None, uc, uv,
+            acfg.reg, True, plan=up, chunks=uch)
+
+    def item_half():
+        als.als_half_sweep(init.Q, init.bi, init.P, init.bu, init.mu, None,
+                           ic, iv, acfg.reg, True, plan=ip, chunks=ich)
+
+    split = {"user": half_sweep_split("als user half-sweep", user_half, n, U,
+                                      I, d),
+             "item": half_sweep_split("als item half-sweep", item_half, n, I,
+                                      U, d)}
+    worker.join()
+    torch.set_num_threads(threads)
+    if "error" in cpu:
+        raise cpu["error"]
+    got = out["u"][0][:ALS_CHECK_ROWS].cpu(), out["u"][1][:ALS_CHECK_ROWS].cpu()
+    err = 0.0
+    for g, w in zip(got, cpu["rows"]):
+        err = max(err, float((g - w).abs().max()))
+        if not torch.allclose(g, w, rtol=ALS_CPU_TOL, atol=ALS_CPU_TOL):
+            raise AssertionError(f"als: the card's first {ALS_CHECK_ROWS} "
+                                 f"users differ from the CPU's by {err}")
+    log(f"[als] the first {ALS_CHECK_ROWS} users' half-sweep rows ({cpu['n']}"
+        f" ratings, the hottest users) on the card against the port's CPU "
+        f"solve ({cpu['s']:.1f} s in a thread): max abs err {err:.3e} (tol "
+        f"{ALS_CPU_TOL})")
+    del uc, uv, ic, iv, uch, ich, out
+
+    # serving the checkpoint: stock recommend through the CLI; the fused
+    # recommenders take rank < 128 in both packages (AUG_LANES)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        if cli.main(["recommend", "--checkpoint", str(root / "ck"),
+                     "--users", "0,1,2", "--device", dev.type]) != 0:
+            raise AssertionError("cli recommend failed")
+    recs = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+    if len(recs) != 3 or any(len(r["items"]) != K or max(r["items"]) >= I
+                             for r in recs):
+        raise AssertionError(f"als: CLI recommend: {recs}")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["recommend", "--checkpoint", str(root / "ck"),
+                      "--users", "0", "--fused", "--device", dev.type])
+        raise AssertionError("als: recommend --fused took a rank-128 model")
+    except ValueError as exc:
+        if "rank < 128" not in str(exc):
+            raise
+    log(f"[als] CLI recommend on the checkpoint: 3 users in "
+        f"{time.perf_counter() - t0:.2f} s; --fused refuses rank {rank} "
+        "(fused serving takes rank < 128, as the reference's)")
+    shutil.rmtree(root)
+    gram_time("a", t_phase, "ALS on the netflix cell")
+    return {"sweeps": acfg.sweeps, "sweep_s": [x / 1e3 for x in seen["ms"]],
+            "objective": objs, "train_rmse": trains, "test_rmse": tests,
+            "untrained": base,
+            "peak_bytes": peak, "cpu_max_abs_err": err, "split": split}
+
+
+def ials_bpr_phase(dev, train, test, model, keys):
+    """Phase 29(b), on phase 8's data: one iALS sweep (IALSConfig's
+    defaults) at rank 64 from ``model``, timed, its half-sweeps' split, a
+    repeat from the same tables bit for bit; the sampled AUC printed."""
+    import torch
+
+    from mfx_torch.config import IALSConfig
+    from mfx_torch.eval.metrics import sampled_auc
+    from mfx_torch.models.mf import MFModel
+    from mfx_torch.solvers import ials
+    from mfx_torch.solvers.als import gram_rowchunk, sort_sides
+
+    t_phase = time.perf_counter()
+    precision_check()
+    cfg = dataclasses.replace(IALSConfig(), sweeps=1)
+    U, I, k = model.num_users, model.num_items, model.rank
+    n = train.n_ratings
+    init = tables(model)
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for _, m in ials.train_sweeps_ials(MFModel(*init, model.mu), train,
+                                           cfg):
+            torch.cuda.synchronize()
+        runs.append((m, time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not same_tables(runs[0][0], runs[1][0]):
+        raise AssertionError("ials: a sweep repeated from the same tables "
+                             "differs")
+    times = [t for _, t in runs]
+    auc0 = sampled_auc(model, test, seed=0, pos_keys=keys)
+    auc = sampled_auc(runs[0][0], test, seed=0, pos_keys=keys)
+    log(f"[ials] phase 8's data ({U} x {I}, {n} positives), rank {k}, alpha "
+        f"{cfg.alpha}, reg {cfg.reg}: one sweep {runs[0][1]:.3f} s, again "
+        f"{runs[1][1]:.3f} s (each with its sort and plan), bit for bit; "
+        f"held-out sampled AUC {auc0:.5f} -> {auc:.5f}; peak memory "
+        f"allocated {peak} bytes")
+    del runs
+    (uc, uv, up, uch), (ic, iv, ip, ich) = sort_sides(
+        model, train, gram_rowchunk(k, cfg.user_chunk))
+    P, Q = init[0], init[1]
+    split = {
+        "user": half_sweep_split(
+            "ials user half-sweep", lambda: ials.ials_half_sweep(
+                P, Q, None, uc, uv, cfg.alpha, cfg.reg, plan=up, chunks=uch),
+            n, U, I, k),
+        "item": half_sweep_split(
+            "ials item half-sweep", lambda: ials.ials_half_sweep(
+                Q, P, None, ic, iv, cfg.alpha, cfg.reg, plan=ip, chunks=ich),
+            n, I, U, k)}
+    gram_time("b", t_phase, "iALS on phase 8's data")
+    return {"sweep_s": times, "peak_bytes": peak, "auc": auc,
+            "auc_untrained": auc0, "split": split}
+
+
+def ials_learn_phase(dev):
+    """Phase 29(b), the learnable cell (run while the kernels build: it
+    needs none): make_implicit_synthetic(IALS_LEARN, seed 107), iALS at IALS_LEARN_RANK with IALS_LEARN_CFG: the sampled
+    AUC on the training positives (as tests/unit/test_ials.py:95 measures
+    it) ends above max(IALS_AUC_GATE, untrained + 0.1); the held-out AUC
+    printed. Then fold_in_implicit of the first FOLD_USERS users' training
+    histories against their rows of a user half-sweep from the trained
+    tables, within FOLD_TOL."""
+    import numpy as np
+    import torch
+
+    from mfx_torch.config import IALSConfig
+    from mfx_torch.data.bpr import build_positive_index
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.data.synthetic import make_implicit_synthetic
+    from mfx_torch.eval.metrics import sampled_auc
+    from mfx_torch.models.mf import init_model
+    from mfx_torch.serve import fold_in_implicit
+    from mfx_torch.solvers import ials
+    from mfx_torch.solvers.als import sort_side
+
+    t_phase = time.perf_counter()
+    U, I, n, true_rank = IALS_LEARN
+    train, test = train_test_split(
+        make_implicit_synthetic(U, I, n, rank=true_rank, seed=107), 0.01,
+        seed=0)
+    log(f"[ials] learnable cell: make_implicit_synthetic({U}, {I}, {n}, "
+        f"rank={true_rank}, seed=107), 1% held out (split seed 0); made in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    cfg = IALSConfig(**IALS_LEARN_CFG)
+    keys = np.concatenate([build_positive_index(train),
+                           build_positive_index(test)])
+    keys.sort()
+    sample = train.select(np.arange(IALS_AUC_SAMPLE))  # the split shuffled
+
+    def auc(m, coo):
+        return sampled_auc(m, coo, seed=0, pos_keys=keys)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    model = init_model(g, U, I, IALS_LEARN_RANK)
+    auc0 = auc(model, sample)
+    t0 = time.perf_counter()
+    for _, m in ials.train_sweeps_ials(model, train, cfg):
+        pass
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    auc1, auc_test = auc(m, sample), auc(m, test)
+    log(f"[ials] rank {IALS_LEARN_RANK}, {cfg.sweeps} sweeps (alpha "
+        f"{cfg.alpha}, reg {cfg.reg}) in {train_s:.2f} s (with the sort and "
+        f"plan): sampled AUC on {IALS_AUC_SAMPLE} of the training positives "
+        f"{auc0:.5f} -> {auc1:.5f} (gate > max({IALS_AUC_GATE}, untrained + "
+        f"0.1)); held-out {auc_test:.5f}")
+    if not auc1 > max(IALS_AUC_GATE, auc0 + 0.1):
+        raise AssertionError(f"ials: AUC {auc1} not above max("
+                             f"{IALS_AUC_GATE}, {auc0} + 0.1)")
+    # fold-in against a user half-sweep from the trained tables
+    c, v, plan = sort_side(train.user, train.item, train.rating, U, dev)
+    rows = ials.ials_half_sweep(m.P, m.Q, None, c, v, cfg.alpha, cfg.reg,
+                                plan=plan)
+    starts = plan[1][:FOLD_USERS + 1]
+    c, v = c[:starts[-1]].cpu().numpy(), v[:starts[-1]].cpu().numpy()
+    hists = [(c[a:b], v[a:b]) for a, b in zip(starts[:-1], starts[1:])]
+    folded = fold_in_implicit(m, hists, cfg.alpha, cfg.reg, gram=m.Q.T @ m.Q)
+    want = rows[:FOLD_USERS]
+    err = float((folded - want).abs().max())
+    if not torch.allclose(folded, want, rtol=FOLD_TOL, atol=FOLD_TOL):
+        raise AssertionError(f"fold_in_implicit: max abs err {err} against "
+                             "the half-sweep rows")
+    log(f"[ials] fold_in_implicit of {FOLD_USERS} users' histories "
+        f"({int(starts[-1])} positives) against their half-sweep rows: max "
+        f"abs err {err:.3e} (tol {FOLD_TOL})")
+    gram_time("b", t_phase, "the learnable iALS cell and fold-in")
+    return {"auc_train": auc1, "auc_untrained": auc0, "auc_test": auc_test,
+            "sweeps": cfg.sweeps, "train_s": train_s, "fold_max_abs_err": err}
+
+
+def nmf_phase(dev, cfg0, train, test, fresh_model):
+    """Phase 29(c), on phase 4's data (run while the kernels build: it
+    needs none): NMF (NMFConfig's defaults, rank 64, model.use_bias=false)
+    from phase 4's untrained tables: the objective never rises (RISE_TOL),
+    the factors stay >= 0, the held-out RMSE ends below the untrained
+    model's; the half-sweeps' split. Returns the record."""
+    import torch
+
+    from mfx_torch.eval.metrics import rmse_mae
+    from mfx_torch.solvers import nmf
+    from mfx_torch.solvers.als import gram_rowchunk, sort_sides
+
+    t_phase = time.perf_counter()
+    precision_check()
+    ncfg = cfg0.nmf
+    U, I, k = train.num_users, train.num_items, cfg0.model.rank
+    init = fresh_model()
+    base, _ = rmse_mae(init, test)
+    tr_d, te_d = Ratings(train, dev), Ratings(test, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the objective from NMF's start (the init folded onto the orthant)
+    objs, tests, sweep_s = [tr_d.objective(nmf.fold_nonneg(init),
+                                           ncfg.reg)[0]], [], []
+    t0 = time.perf_counter()
+    for s, m in nmf.train_sweeps_nmf(init, train, ncfg, use_bias=False):
+        torch.cuda.synchronize()
+        sweep_s.append(time.perf_counter() - t0)
+        if not (bool((m.P >= 0).all()) and bool((m.Q >= 0).all())):
+            raise AssertionError(f"nmf: negative factors after sweep {s}")
+        objs.append(tr_d.objective(m, ncfg.reg)[0])
+        tests.append(te_d.rmse(m))
+        t0 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del tr_d, te_d
+    log(f"[nmf] ml25m_rank64 with solver=nmf model.use_bias=false on phase "
+        f"4's data: rank {k}, reg {ncfg.reg}, {ncfg.sweeps} sweeps of "
+        f"{ncfg.inner_iters} inner updates; seconds a sweep "
+        + " ".join(f"{x:.3f}" for x in sweep_s)
+        + "; objective from the start " + " ".join(f"{x:.6e}" for x in objs)
+        + f"; held-out RMSE (unclipped) " + " ".join(f"{x:.5f}" for x in tests)
+        + f"; peak memory allocated {peak} bytes")
+    if any(b > a * (1 + RISE_TOL) for a, b in zip(objs, objs[1:])):
+        raise AssertionError(f"nmf: the objective rose: {objs}")
+    if not tests[-1] < base:
+        raise AssertionError(f"nmf: held-out {tests[-1]} not below the "
+                             f"untrained {base}")
+    log(f"[nmf] the objective never rises, the factors stay >= 0, held-out "
+        f"{tests[-1]:.5f} below the untrained {base:.5f} (the folded start "
+        f"{rmse_mae(nmf.fold_nonneg(init), test)[0]:.5f})")
+    folded = nmf.fold_nonneg(init)
+    (uc, uv, up, uch), (ic, iv, ip, ich) = sort_sides(
+        folded, train, gram_rowchunk(k, ncfg.user_chunk))
+    n = train.n_ratings
+    split = {
+        "user": half_sweep_split(
+            "nmf user half-sweep", lambda: nmf.nmf_half_sweep(
+                folded.P, folded.Q, None, uc, uv, ncfg.reg,
+                inner_iters=ncfg.inner_iters, plan=up, chunks=uch),
+            n, U, I, k),
+        "item": half_sweep_split(
+            "nmf item half-sweep", lambda: nmf.nmf_half_sweep(
+                folded.Q, folded.P, None, ic, iv, ncfg.reg,
+                inner_iters=ncfg.inner_iters, plan=ip, chunks=ich),
+            n, I, U, k)}
+    del uc, uv, ic, iv, uch, ich
+    gram_time("c", t_phase, "NMF on phase 4's data")
+    return {"sweeps": ncfg.sweeps, "sweep_s": sweep_s, "objective": objs,
+            "test_rmse": tests, "untrained": base, "peak_bytes": peak,
+            "split": split}
+
+
+def als64_serve_phase(dev, cfg0, train, test, fresh_model):
+    """Phase 29(c), on phase 4's data: ALS at rank 64 (ml25m_rank64's als
+    block, ALS64_SWEEPS sweeps) checkpointed and served by the CLI's
+    recommend --fused: tile_topk launched (counter > 0), each launch made
+    again on its inputs and held against its plain version. Returns the
+    check."""
+    import contextlib
+    import io
+    import shutil
+    from pathlib import Path
+
+    from mfx_torch import cli
+    from mfx_torch.eval.metrics import rmse_mae
+    from mfx_torch.kernels.serve_topk import tile_topk
+    from mfx_torch.serve import fused
+    from mfx_torch.solvers.als import train_sweeps_als
+    from mfx_torch.train.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    acfg = dataclasses.replace(cfg0.als, sweeps=ALS64_SWEEPS)
+    for _, m in train_sweeps_als(fresh_model(), train, acfg):
+        pass
+    a_rmse = rmse_mae(m, test)[0]
+    ck = Path(__file__).resolve().parent / "build" / "chip_smoke_als64"
+    shutil.rmtree(ck, ignore_errors=True)
+    save_checkpoint(ck, ALS64_SWEEPS - 1, m, cfg0.data.seed)
+    calls = []
+
+    def keep(P_aug, Q_aug, **kw):
+        calls.append((P_aug.clone(), Q_aug.clone(), kw))
+        return tile_topk(P_aug, Q_aug, **kw)
+
+    tile_topk.launches = 0
+    fused.tile_topk = keep
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            if cli.main(["recommend", "--checkpoint", str(ck), "--users",
+                         "0,1,2", "--fused", "--device", dev.type]) != 0:
+                raise AssertionError("cli recommend --fused failed")
+    finally:
+        fused.tile_topk = tile_topk
+    launches = tile_topk.launches
+    recs = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+    if len(recs) != 3 or any(len(x["items"]) != K for x in recs):
+        raise AssertionError(f"als rank 64: CLI recommend --fused: {recs}")
+    if launches < 1:
+        raise AssertionError("recommend --fused never launched tile_topk")
+    err = 0.0
+    for P_aug, Q_aug, kw in calls:
+        e, swaps, gap = hold_topk("tile_topk (ALS recommend)",
+                                  tile_topk(P_aug, Q_aug, **kw), P_aug, Q_aug,
+                                  kw.get("sb"), kw["tile"], kw["depth"])
+        err = max(err, e)
+    shutil.rmtree(ck)
+    log(f"[als] rank 64 (ml25m_rank64's als block, {ALS64_SWEEPS} sweeps) on "
+        f"phase 4's data: held-out {a_rmse:.5f} (unclipped); CLI recommend "
+        f"--fused on its checkpoint: launches {{'tile_topk': {launches}}}, "
+        f"each held against tile_topk_plain on its inputs (P_aug "
+        f"{tuple(calls[0][0].shape)}, Q_aug {tuple(calls[0][1].shape)}, "
+        f"tile {calls[0][2]['tile']}, depth {calls[0][2]['depth']}): max abs "
+        f"err {err:.3e} (tol {TOL})")
+    gram_time("c", t_phase, "ALS at rank 64 served through tile_topk")
+    return {"launches": launches, "max_abs_err": err,
+            "P_aug": list(calls[0][0].shape),
+            "Q_aug": list(calls[0][1].shape), "tile": calls[0][2]["tile"],
+            "depth": calls[0][2]["depth"], "als_test_rmse": a_rmse}
+
 def main() -> int:
     import shutil
     import threading
@@ -4718,7 +5456,6 @@ def main() -> int:
     from mfx_torch.solvers import blocked
     from mfx_torch.solvers.dense_prep import prepare_dense_full
 
-    start_data()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4757,11 +5494,6 @@ def main() -> int:
     log(f"[data] {coo.num_users} x {coo.num_items}, {coo.n_ratings} ratings "
         f"({train.n_ratings} train / {test.n_ratings} test) in "
         f"{time.perf_counter() - t0:.1f} s, beside the build")
-    build_thread.join()
-    if "error" in build:
-        raise build["error"]
-    log(f"[build] all kernels built and loaded in {build['s']:.1f} s "
-        f"({_build.BUILD_DIR})")
     U, I, rank = coo.num_users, coo.num_items, cfg.model.rank
     su, si, T, tpg = sgd.ublock, sgd.iblock, sgd.tile, blocked.TPG
 
@@ -4770,6 +5502,19 @@ def main() -> int:
         g.manual_seed(cfg.model.seed)
         return init_model(g, U, I, rank, global_mean=train.global_mean,
                           device=dev)
+
+    # 29 (c) NMF and (b) the learnable iALS cell launch no hand-written
+    # kernel: they run here, while the kernels build
+    GRAM["nmf"] = nmf_phase(dev, cfg, train, test, fresh_model)
+    GRAM["ials_learn"] = ials_learn_phase(dev)
+    build_thread.join()
+    if "error" in build:
+        raise build["error"]
+    log(f"[build] all kernels built and loaded in {build['s']:.1f} s "
+        f"({_build.BUILD_DIR})")
+    # the BPR and netflix data from here: beside the build they slow it,
+    # and their phases need them minutes later
+    start_data()
 
     # 3. kernels against plain versions at the preset's shapes
     rfmt = blocked.dense_rfmt(sgd, rank, train.rating)
@@ -5009,6 +5754,9 @@ def main() -> int:
     rank32_forms(dev, sgd, sgd, train, cfg.data.seed,
                  "ml25m_rank64's cell at rank 32", *cell25,
                  strata=(DENSE_STRATA, DENSE_WHOLE))
+    # 29 (c). ALS at rank 64 on phase 4's data, served through tile_topk
+    torch.cuda.empty_cache()
+    topk_als = als64_serve_phase(dev, cfg, train, test, fresh_model)
     del m, model, train, test  # coo: phases 15-16 make it temporal
     torch.cuda.empty_cache()
 
@@ -5187,6 +5935,9 @@ def main() -> int:
                 "sgd_sweep_time_r16": "time_mode=True (bias_mode='lane'), "
                                       f"rank 16, {NARROW_BINS[16]} bins",
                 "bpr_sweep_r16": "rank 16", "bpr_sweep_r8": "rank 8"}
+    log(json.dumps({"gram_engine": GRAM}))
+    log(f"[time] phase 29 (the Gram-engine solvers) "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in _GRAM_S.items()))
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")
     log(f"[card] {card}")
     log(json.dumps({"kernels": [
@@ -5202,7 +5953,8 @@ def main() -> int:
          "library_ms": library.get(name),
          **({"library": "torch.matmul (TF32 off) then torch.topk over "
                         "each tile"} if name.startswith("tile_topk") else {}),
-         **({"variants": topk_variants, "ml100k_recommend": topk_ml100k}
+         **({"variants": topk_variants, "ml100k_recommend": topk_ml100k,
+             "als_recommend": topk_als}
             if name == "tile_topk" else {}),
          # the sweeps (the tile-bias ones on ML-1M): a whole sweep on 1
          # block and on the card's count; dense_phase: DENSE_WHOLE strata

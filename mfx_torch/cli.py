@@ -8,6 +8,9 @@
     python -m mfx_torch.cli train --preset ml1m_rank32_biased \
         --set model.rank=64 --set solver=timesvd --set timesvd.kernel=pallas \
         --set data.root=DIR
+    python -m mfx_torch.cli train --preset netflix100m_rank128_dp \
+        --set solver=als --set parallel.mode=single
+        (solver=ials or nmf: also --set model.use_bias=false)
     python -m mfx_torch.cli eval --checkpoint ckpt/ --dataset ml-25m \
         [--split loo] [--ranking-k 10 --ranking-protocol full]
     python -m mfx_torch.cli recommend --checkpoint ckpt/ --users 3,17 [--fused]

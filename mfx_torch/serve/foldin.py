@@ -15,7 +15,9 @@ device. Ragged histories are padded to a (B, D) window, D the next power
 of two of the longest (at least 8); pad slots carry item id ``num_items``
 and weight 0.
 
-``fold_in_implicit`` (iALS) is not ported yet (ROADMAP Queue 1 item 12).
+``fold_in_implicit`` is the implicit-feedback form: one iALS half-step
+for the new rows (``solvers/ials.py``'s normal equations), with the
+catalog's Gram passed in or computed once a call.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 from mfx_torch.models.mf import MFModel
 from mfx_torch.serve.topk import _topk_batch
 
-__all__ = ["fold_in", "fold_in_batch", "recommend_cold"]
+__all__ = ["fold_in", "fold_in_batch", "fold_in_implicit", "recommend_cold"]
 
 
 def _pow2_at_least(n: int, lo: int = 256) -> int:
@@ -68,6 +70,69 @@ def _fold_in_solve(model, items, ratings, lengths, reg, *, use_bias,
     if use_bias:
         return sol[:, :k], sol[:, k]
     return sol, torch.zeros(sol.shape[0], dtype=f, device=F.device)
+
+
+def _fold_in_implicit_solve(F, G, items, vals, lengths, alpha, reg):
+    k = F.shape[1]
+    f = G.dtype
+    D = items.shape[1]
+    lane = torch.arange(D, dtype=torch.int32, device=F.device)
+    mask = (lane[None, :] < lengths[:, None]).to(f)  # (B, D)
+    y = F[items.long().clamp(0, F.shape[0] - 1)].to(f)  # mode="clip"
+    w = alpha * vals * mask  # confidence − 1
+    yw = y * torch.sqrt(w)[:, :, None]
+    A = G[None] + torch.einsum("bmd,bme->bde", yw, yw)
+    b = torch.einsum("bm,bmd->bd", (1.0 + w) * mask, y * mask[:, :, None])
+    A = A + reg * torch.eye(k, dtype=f, device=F.device)
+    # no info check (a host sync): λ·I keeps A positive definite
+    L, _ = torch.linalg.cholesky_ex(A)
+    sol = torch.cholesky_solve(b[..., None], L)[..., 0]
+    deg = mask.sum(dim=1)
+    return torch.where(deg[:, None] > 0, sol, torch.zeros_like(sol))
+
+
+def fold_in_implicit(
+    model: MFModel,
+    histories: list[tuple[np.ndarray, np.ndarray]],  # [(item_ids, strengths)]
+    alpha: float,
+    reg: float,
+    *,
+    transpose: bool = False,
+    max_deg: int = 4096,
+    gram: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Implicit-feedback fold-in: one iALS half-step for new rows against
+    the frozen table, ``x = (QᵀQ + Σ α·r·y yᵀ + λI)⁻¹ Σ (1 + α·r) y``.
+    Returns the (B, k) factor rows on the model's device. ``gram`` is a
+    precomputed QᵀQ (PᵀP with ``transpose=True``), so that a serving
+    process pays no catalog pass a call. Histories longer than
+    ``max_deg`` keep their last ``max_deg`` entries; pad slots carry the
+    out-of-range id ``n`` (clipped onto the last row) and weight 0; an
+    empty history gets zero factors."""
+    B = len(histories)
+    if B == 0:
+        raise ValueError("fold_in_implicit needs at least one history")
+    F = model.P if transpose else model.Q
+    n = F.shape[0]
+    lens = np.array(
+        [min(len(ids), max_deg) for ids, _ in histories], np.int32
+    )
+    D = _pow2_at_least(int(lens.max()) if B else 1, lo=8)
+    items = np.full((B, D), n, np.int32)  # pad: out-of-range id
+    vals = np.zeros((B, D), np.float32)
+    for b, (ids, r) in enumerate(histories):
+        items[b, : lens[b]] = np.asarray(ids)[-max_deg:]
+        vals[b, : lens[b]] = np.asarray(r)[-max_deg:]
+    # bf16 tables solve in f32 (the batched Cholesky takes no bf16)
+    f = torch.float32 if F.dtype == torch.bfloat16 else F.dtype
+    if gram is None:
+        Ff = F.to(f)
+        gram = Ff.T @ Ff
+    dev = F.device
+    return _fold_in_implicit_solve(
+        F, gram.to(dev, f), torch.as_tensor(items, device=dev),
+        torch.as_tensor(vals, device=dev).to(f),
+        torch.as_tensor(lens, device=dev), float(alpha), float(reg))
 
 
 def fold_in_batch(

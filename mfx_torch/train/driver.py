@@ -15,6 +15,13 @@ blocked trainer through the time form of the lane sweep
 the train split; held-out ratings are evaluated at their own timestamps
 (``rmse_mae_time``), and checkpoints, ranking, the AUC and the result get
 the model's biased-MF view at the end of the train window (``as_mf``).
+The Gram-engine solvers (``solver`` 'als', 'ials' or 'nmf', single
+device; ``solvers/als.py``, ``ials.py``, ``nmf.py``) train one sweep an
+epoch entry, the train loss NaN, as the reference's driver reports them;
+iALS is evaluated as implicit feedback (the sampled AUC). A run of theirs
+resumed from a checkpoint goes on at the next sweep, bit for bit the
+unbroken run (the reference's driver runs all its sweeps again from the
+checkpoint's tables).
 Load (through the port's
 own ``mfx_torch.data``), split, initialize (``model.bias_init='baseline'``
 starts a fresh run from the baseline predictor's biases), train, evaluate
@@ -70,6 +77,9 @@ from mfx_torch.train.profile import maybe_trace
 
 __all__ = ["train", "TrainResult"]
 
+# the solvers of the Gram engine (solvers/als.py): one entry a sweep
+GRAM_SOLVERS = ("als", "ials", "nmf")
+
 
 @dataclasses.dataclass
 class TrainResult:
@@ -108,14 +118,23 @@ def _check_supported(cfg: TrainConfig) -> None:
                 "solver='timesvd' runs single-device; use solver='sgd' "
                 "for the data-parallel / row-sharded paths"
             )
+    elif cfg.solver in GRAM_SOLVERS:
+        if mode != "single":
+            raise NotImplementedError(
+                f"mfx_torch.train: solver={cfg.solver!r} parallel={mode!r}; "
+                "the Gram-engine solvers (als, ials, nmf) are ported on one "
+                "device only: their data-parallel and ring modes are ROADMAP "
+                "Queue 1 item 13 (Q1-13); set parallel.mode=single to train "
+                "on one device"
+            )
     elif cfg.solver != "sgd" or mode != "single":
         raise NotImplementedError(
             f"mfx_torch.train: solver={cfg.solver!r} parallel={mode!r}; "
-            "only single-device SGD (parallel.mode=single), timeSVD and the "
-            "BPR ring of one shard are ported: the SGD ring and "
-            "data-parallel modes are ROADMAP Queue 1 item 13 (Q1-13), the "
-            "other solvers Queue 1 item 12; set parallel.mode=single to "
-            "train SGD on one device"
+            "only single-device SGD, ALS, iALS and NMF (parallel.mode="
+            "single), timeSVD and the BPR ring of one shard are ported: the "
+            "SGD ring and data-parallel modes are ROADMAP Queue 1 item 13 "
+            "(Q1-13), svdpp and timesvdpp Queue 1 item 12; set "
+            "parallel.mode=single to train SGD on one device"
         )
     if cfg.model.dtype != "float32":
         if cfg.model.dtype not in TABLE_DTYPES:
@@ -136,8 +155,8 @@ def _check_supported(cfg: TrainConfig) -> None:
                 f"solver={cfg.solver!r}, partitioner="
                 f"{cfg.sgd.partitioner!r}; bf16 tables train on the "
                 "minibatch path only (solver='sgd', partitioner 'fixed' or "
-                "'conflict_free'): the BPR ring and timeSVD trainers keep "
-                "float32 tables (ROADMAP Queue 1 item 12)"
+                "'conflict_free'): the BPR ring, timeSVD and the Gram-engine "
+                "solvers keep float32 tables (ROADMAP Queue 1 item 12)"
             )
 
 
@@ -149,8 +168,34 @@ def _split(cfg: TrainConfig, coo):
     return train_test_split(coo, cfg.data.test_frac, seed=cfg.data.seed)
 
 
+def _sweeps(cfg: TrainConfig, model, train_coo, start_epoch):
+    """The Gram-engine solvers' sweeps as the driver's ``(epoch, model,
+    train_metric)``: one entry a sweep, the train loss NaN (as the
+    reference's driver reports them)."""
+    use_bias = cfg.model.use_bias
+    if cfg.solver == "als":
+        from mfx_torch.solvers.als import train_sweeps_als
+
+        it = train_sweeps_als(model, train_coo, cfg.als, use_bias=use_bias,
+                              start_sweep=start_epoch)
+    elif cfg.solver == "nmf":
+        from mfx_torch.solvers.nmf import train_sweeps_nmf
+
+        it = train_sweeps_nmf(model, train_coo, cfg.nmf, use_bias=use_bias,
+                              start_sweep=start_epoch)
+    else:
+        from mfx_torch.solvers.ials import train_sweeps_ials
+
+        it = train_sweeps_ials(model, train_coo, cfg.ials, use_bias=use_bias,
+                               start_sweep=start_epoch)
+    for sweep, m in it:
+        yield sweep, m, float("nan")
+
+
 def _epochs(cfg: TrainConfig, model, train_coo, seed, dev, start_epoch,
             feats, timings):
+    if cfg.solver in GRAM_SOLVERS:
+        return _sweeps(cfg, model, train_coo, start_epoch)
     if cfg.solver == "timesvd":
         if cfg.timesvd.kernel == "pallas":
             from mfx_torch.solvers.timesvd_blocked import (
@@ -221,7 +266,7 @@ def train(cfg: TrainConfig, device: torch.device | str = "cuda",
                             bi0.to(model.dtype), model.mu)
     log = MetricsLogger(cfg.log_path)
     clip = (0.5, 5.0) if cfg.clip_predictions else None
-    implicit = cfg.solver == "bpr"
+    implicit = cfg.solver in ("bpr", "ials")
     feats = None
     if cfg.solver == "timesvd":
         # the time featurizer, shared by the trainer and the time-aware

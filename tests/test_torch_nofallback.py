@@ -46,6 +46,8 @@ MODULES = [
     "mfx_torch.models.timesvd", "mfx_torch.solvers.timesvd",
     "mfx_torch.solvers.timesvd_blocked", "mfx_torch.api",
     "mfx_torch.serve.rerank", "mfx_torch.version",
+    "mfx_torch.solvers.als", "mfx_torch.solvers.ials",
+    "mfx_torch.solvers.nmf",
 ]
 
 

@@ -102,7 +102,8 @@ printed as it ends:
    mfx_torch.train.driver.train with log_path and checkpoints: the train
    RMSE falls every epoch, the held-out RMSE ends <= 0.533 and below the
    untrained model's, one JSONL record an epoch; the run resumed from its
-   epoch-14 checkpoint equals it bit for bit; the CLI's update with a
+   epoch-26 checkpoint (its last 3 epochs, a cut for the script's time)
+   equals it bit for bit; the CLI's update with a
    seeded delta of 2,000 ratings (10 new users, 10 new items) grows the
    tables by 10 and 10 as step 30, and recommend --fused on it launches
    tile_topk (counter > 0); each of those launches is made again on the
@@ -119,8 +120,9 @@ printed as it ends:
    the card's count (tables and SSE bitwise equal); the rank-128 form on
    the same 2,048 tiles and the whole sweep, checked the same way;
 16. the timeSVD path: mfx_torch.train.driver.train with solver='timesvd',
-   timesvd.kernel='pallas', rank 64 and TimeSVDConfig's defaults (20
-   epochs) but reg_alpha = reg, on phase 15's data handed to the driver
+   timesvd.kernel='pallas', rank 64 and TimeSVDConfig's defaults but
+   reg_alpha = reg and TIME_PATH_EPOCHS (10) of its 20 epochs (a depth cut
+   for the script's time), on phase 15's data handed to the driver
    through data.root as the loader's synthetic cache: the time form
    launched (counter > 0, the lane form not at all), the train RMSE falls
    every epoch, the held-out time-aware RMSE ends below the untrained
@@ -303,12 +305,13 @@ printed as it ends:
    phase 4's tables and held-out RMSE bit for bit and pads its carving;
    each run's epoch seconds split into dense, sparse and bias time, its
    dense_info and held-out RMSE after each epoch;
-27. ranks 16, 8 and 4 of the four sweep kernels against their plain
+27. ranks 16, 8, 4, 2 and 1 of the four sweep kernels against their plain
    versions. On ml1m_rank32_biased's plan (su = si = 512, T = 256, the
    full ML-1M-shaped synthetic), from seeded tables with N(0, 0.1)
-   biases at each rank: the lane, tile, bias-free, epoch and step_u (tpg
-   4) forms on the first 512 tiles of the first sweep (within 1e-4, two
-   kernel runs bitwise), each bf16 form on the first 256 (bitwise to its
+   biases at each rank: the lane (not at rank 1: no lane model there),
+   tile, bias-free, epoch and step_u (tpg 4) forms on the first 512
+   tiles of the first sweep (within 1e-4, two kernel runs bitwise), each
+   bf16 form on the first 256 (bitwise to its
    kernel-order plain version, the f32 form from the same state the
    control that must land off), every form over the whole sweep once on
    one block and twice on the card's count (bitwise). The time form on
@@ -323,29 +326,35 @@ printed as it ends:
    (c) =4 (tile biases, through sgd_sweep_tile), (d) rank 16 with
    sgd.bias_mode=lane (sgd_sweep), (e) rank 16 with
    sgd.step_user_batch=true (sgd_sweep_step_u), (f) rank 16 with
-   sgd.mxu=bf16: each its 30 epochs, its kernel launched and no other,
-   the train RMSE falls every epoch, the held-out RMSE (unclipped) below
-   the untrained model's after every epoch, (a) and (b) within 0.003 of
-   the JAX trainer's CPU run at full size (tools/bias_mode_check.py
-   --rank), (f) within 0.003 of (d); (d)'s model through the stock, fused
-   and certified-exact recommenders (tile_topk at the augmented width 24;
-   exact == stock within 1e-4 modulo near-ties). (g) ml25m_rank64 unchanged
-   but for model.rank=16, 2 epochs on phase 4's data, every rating through
-   the rank-16 lane sweep: held-out below the untrained model's, a second
-   run bit for bit. (h) solver=timesvd at rank 16 with 12 bins, 20 epochs
-   on phase 15's data: the time form launched, the train RMSE falls every
-   epoch, the time-aware held-out RMSE below the untrained model's and
+   sgd.mxu=bf16, and (a2), (a1), (d2), (e2), (f2) the same at ranks 2 and
+   1 ((d2): the baseline predictor mu + bu + bi): each its 30 epochs, its
+   kernel launched and no other, the train RMSE falls every epoch, the
+   held-out RMSE (unclipped) below the untrained model's after every
+   epoch, (a), (b), (a2) and (a1) within 0.003 of the JAX trainer's CPU
+   run at full size (tools/bias_mode_check.py --rank), (f) within 0.003
+   of (d), (f2) of (a2); (d)'s model through the stock, fused and
+   certified-exact recommenders (tile_topk at the augmented width 24;
+   exact == stock within 1e-4 modulo near-ties); (a2)'s model through the
+   CLI's recommend --fused (tile_topk at the augmented width 8, each launch
+   held against tile_topk_plain on its inputs: the "rank2_recommend" of
+   tile_topk's entry). (g) ml25m_rank64 unchanged but for model.rank=16,
+   then =2, 2 epochs on phase 4's data, every rating through the lane
+   sweep: held-out below the untrained model's, a second run bit for bit.
+   (h) solver=timesvd at rank 16 with 12 bins, 20 epochs on phase 15's
+   data: the time form launched, the train RMSE falls every epoch, the
+   time-aware held-out RMSE below the untrained model's and
    lane MF's at rank 16. (i) billion_bpr_sharded as phase 8 runs it at
-   model.rank=16 and =8: the loss falls every epoch and ends below ln 2
-   (the AUC printed). Both phases' wall times are printed at the end;
+   model.rank=16, =8, =2 and =1: the loss falls every epoch, and at 16
+   and 8 ends below ln 2 (at 2 and 1 it starts above 0.70 and is printed;
+   the AUC printed). Both phases' wall times are printed at the end;
 29. the Gram-engine solvers (mfx_torch/solvers/als.py, ials.py, nmf.py:
    stock torch ops, as the reference computes them outside any Pallas
    kernel; TF32 asserted off). (a) After phase 22, on phase 12's data:
    netflix100m_rank128_dp with solver=als and parallel.mode=single through
    mfx_torch.train.driver.train (the synthetic as the loader's cache,
-   written by make_data), the preset's 8 sweeps at rank 128 with biases:
-   ALS-WR's regularized objective never rises (1e-6 relative; the train
-   RMSE is printed, ALS-WR need not lower it), the held-out RMSE
+   written by make_data), 4 of the preset's 8 sweeps at rank 128 with
+   biases: ALS-WR's regularized objective never rises (1e-6 relative; the
+   train RMSE is printed, ALS-WR need not lower it), the held-out RMSE
    (unclipped) ends below the untrained model's, printed beside phase
    12's; one sweep repeated from the same tables bit for bit; the first
    8,192 users' rows of a user half-sweep on the card within 3e-3 of the
@@ -411,11 +420,14 @@ dense_phase_none_echo), their launches from phase 26's runs (c), (g),
 "variants". The forms of phase 27 that phase 28 runs are entries of their
 own (sgd_sweep_r16, sgd_sweep_tile_r16, _r8 and _r4,
 sgd_sweep_step_u_r16, sgd_sweep_tile_bf16_r16, sgd_sweep_time_r16,
-bpr_sweep_r16 and _r8), their launches from runs (d), (a)-(c), (e), (f),
-(h) and (i); each holds the forms of its kernel that no path runs as its
-"variants" (NARROW_ENTRIES). The BPR and netflix phases' host data are
-made in processes of their own from the end of the build (make_data);
-stderr repeats each line after the seconds since the start. The script's
+bpr_sweep_r16 and _r8; sgd_sweep_r2, sgd_sweep_tile_r2 and _r1,
+sgd_sweep_step_u_r2, sgd_sweep_tile_bf16_r2, bpr_sweep_r2 and _r1),
+their launches from runs (d), (a)-(c), (e), (f), (h) and (i), and (d2),
+(a2), (a1), (e2), (f2) and (i); each holds the forms of its kernel that
+no path runs as its "variants" (NARROW_ENTRIES). The BPR and netflix
+phases' host data are made in processes of their own from the end of the
+build (make_data); stderr repeats each line after the seconds since the
+start. The script's
 total seconds are printed before the card's line; the last is
 {"ok": true, "device": {...}}. Any failure
 exits non-zero with no such line, and so does a machine without a CUDA
@@ -456,12 +468,18 @@ JAVA_TOL = 5e-5
 # on the CPU at 0.53173 (each from its own seeded init)
 ML100K_GATE = 0.533
 PROFILE_BATCHES = 256  # phase 14's kernel breakdown
+# phase 14's resumed run starts at this epoch of the 30 (from the
+# checkpoint of the one before): the last 3, a cut for the script's time
+ML100K_RESUME = 27
 # phases 15-16: the temporal recipe of tests/unit/test_timesvd_blocked.py
 # on TimeSVDConfig's 30 bins; the bin shift's spread
 TIME_BINS, TIME_SHIFT = 30, 0.35
 # phase 16's minibatch timeSVD run on the temporal ML-1M: 10 of
 # TimeSVDConfig's 20 epochs, a cut for the script's time
 JNP_TIME_EPOCHS = 10
+# phase 16's blocked timeSVD path (and its lane-MF comparison): 10 of
+# TimeSVDConfig's 20 epochs, a cut for the script's time
+TIME_PATH_EPOCHS = 10
 
 
 _T0 = time.perf_counter()
@@ -1130,9 +1148,9 @@ def bpr_phases(dev, results, bounds, sweeps, forms):
     checks and the path at ranks 32 and 128. Fills ``results``,
     ``bounds`` and ``sweeps`` for bpr_sweep, bpr_sweep_r32 and
     bpr_sweep_r128; returns their launches on the path. Then the BPR parts
-    of phases 27 and 28: ranks 16, 8 and 4 against plain on NARROW_TILES
-    tiles and segment 0 (once on one block, twice on the card's count),
-    into ``forms``; the path at ranks 16 and 8, their launches returned
+    of phases 27 and 28: ranks 16 to 1 against plain on NARROW_TILES tiles
+    and segment 0 (once on one block, twice on the card's count), into
+    ``forms``; the path at ranks 16, 8, 2 and 1, their launches returned
     too."""
     import math
 
@@ -1268,7 +1286,7 @@ def bpr_phases(dev, results, bounds, sweeps, forms):
     log(f"[time] phase 22 (the BPR path at ranks 32 and 128) "
         f"{time.perf_counter() - t_phase:.1f} s")
 
-    # 27-28 (BPR). ranks 16, 8 and 4 against plain; the path at 16 and 8
+    # 27-28 (BPR). ranks 16 to 1 against plain; the path at 16, 8, 2 and 1
     t_phase = time.perf_counter()
     checks = ({}, {}, {})
     for rk in NARROW_RANKS:
@@ -1278,26 +1296,29 @@ def bpr_phases(dev, results, bounds, sweeps, forms):
                        bpr, seed, *checks, tiles=NARROW_TILES)
         forms[name] = tuple(c[name] for c in checks)
         torch.cuda.empty_cache()
-    narrow_time("27", t_phase, "bpr_sweep at ranks 16, 8 and 4")
+    narrow_time("27", t_phase, "bpr_sweep at ranks 16 to 1")
     t_phase = time.perf_counter()
     for rk in NARROW_PATH_BPR:
         out[f"bpr_sweep_r{rk}"] = bpr_rank_run(
             dev, fresh_model(rk), train, test, bpr, seed, keys,
-            auc_check=False)
-    narrow_time("28", t_phase, "(i) the BPR path at ranks 16 and 8")
+            auc_check=False, ln2_check=rk in NARROW_BPR_LN2)
+    narrow_time("28", t_phase, "(i) the BPR path at ranks "
+                + ", ".join(map(str, NARROW_PATH_BPR)))
     # 29 (b). iALS on the same data, at the preset's rank
     torch.cuda.empty_cache()
     GRAM["ials"] = ials_bpr_phase(dev, train, test, fresh_model(), keys)
     return out
 
 
-def bpr_rank_run(dev, model, train, test, bpr, seed, keys, auc_check=True):
+def bpr_rank_run(dev, model, train, test, bpr, seed, keys, auc_check=True,
+                 ln2_check=True):
     """Phase 22, the BPR part: train_epochs_bpr_ring from ``model`` (a
     rank other than the preset's) for the preset's epochs: bpr_sweep
-    launched, the loss falls every epoch and ends below ln 2, the sampled
-    AUC ends above the untrained model's (a smoke check, as phase 8's;
-    with ``auc_check=False``, as in phase 28, printed only). Returns
-    bpr_sweep's launches."""
+    launched, the loss falls every epoch and ends below ln 2 (with
+    ``ln2_check=False``, as phase 28 runs ranks 2 and 1, printed only),
+    the sampled AUC ends above the untrained model's (a smoke check, as
+    phase 8's; with ``auc_check=False``, as in phase 28, printed only).
+    Returns bpr_sweep's launches."""
     import math
 
     import torch
@@ -1341,7 +1362,11 @@ def bpr_rank_run(dev, model, train, test, bpr, seed, keys, auc_check=True):
         raise AssertionError(f"{tag}: the loss did not fall every epoch: "
                              f"{losses}")
     if not losses[-1] < math.log(2):
-        raise AssertionError(f"{tag}: final loss {losses[-1]} not below ln 2")
+        if ln2_check:
+            raise AssertionError(f"{tag}: final loss {losses[-1]} not below "
+                                 "ln 2")
+        log(f"[{tag}] the loss fell every epoch and ends at {losses[-1]!r}, "
+            f"above ln 2 = {math.log(2)!r}")
     if auc_check and not auc > auc0:
         raise AssertionError(f"{tag}: AUC {auc} not above the untrained "
                              f"{auc0}")
@@ -2742,7 +2767,7 @@ def ml100k_phase(dev):
         tmp = Path(tmp)
         run_cfg = apply_overrides(cfg, [
             f"log_path={tmp / 'log.jsonl'}", f"checkpoint_dir={tmp / 'ck'}",
-            "checkpoint_every=15"])
+            f"checkpoint_every={ML100K_RESUME}"])
         t0 = time.perf_counter()
         res = drive(run_cfg, device=dev)
         wall = time.perf_counter() - t0
@@ -2770,19 +2795,23 @@ def ml100k_phase(dev):
         if not all(bool(torch.isfinite(t).all()) for t in fin):
             raise AssertionError("model tables not finite")
 
-        # resume from the epoch-14 checkpoint
+        # resume from the checkpoint of epoch ML100K_RESUME - 1
+        last = ML100K_RESUME - 1
         (tmp / "ck2").mkdir()
-        shutil.copy(tmp / "ck" / "14.npz", tmp / "ck2" / "14.npz")
+        shutil.copy(tmp / "ck" / f"{last}.npz", tmp / "ck2" / f"{last}.npz")
         t0 = time.perf_counter()
         res2 = drive(apply_overrides(run_cfg, [
             f"checkpoint_dir={tmp / 'ck2'}", f"log_path={tmp / 'log2.jsonl'}"
         ]), device=dev)
-        if [h["epoch"] for h in res2.history] != list(range(15, 30)):
-            raise AssertionError("the resumed run did not start at epoch 15")
+        if ([h["epoch"] for h in res2.history]
+                != list(range(ML100K_RESUME, cfg.sgd.epochs))):
+            raise AssertionError(f"the resumed run did not start at epoch "
+                                 f"{ML100K_RESUME}")
         if not all(torch.equal(getattr(res2.model, k), t)
                    for k, t in zip(("P", "Q", "bu", "bi"), fin)):
             raise AssertionError("the resumed run differs from the unbroken")
-        log(f"[ml100k] resumed from the epoch-14 checkpoint: epochs 15-29 in "
+        log(f"[ml100k] resumed from the epoch-{last} checkpoint: epochs "
+            f"{ML100K_RESUME}-{cfg.sgd.epochs - 1} in "
             f"{time.perf_counter() - t0:.1f} s, tables bitwise those of the "
             "unbroken run")
 
@@ -3041,10 +3070,11 @@ def time_path_phase(dev, tcoo):
     root.mkdir(parents=True)
     tcoo.save_npz(root / f"ml-25m.v{GENERATOR_VERSION}.synthetic.npz")
     cfg = timesvd_config(root, f"checkpoint_dir={root / 'ckpt'}",
-                         "checkpoint_every=2")
+                         "checkpoint_every=2",
+                         f"timesvd.epochs={TIME_PATH_EPOCHS}")
     tc, seed, clip = cfg.timesvd, cfg.data.seed, (0.5, 5.0)
-    log(f"[time] path: TimeSVDConfig's {tc.epochs} epochs, su = si = "
-        f"{tsb.BLOCK}, T = {tsb.TILE}")
+    log(f"[time] path: {tc.epochs} of TimeSVDConfig's 20 epochs, su = si "
+        f"= {tsb.BLOCK}, T = {tsb.TILE}")
     res, base_rmse, fresh_model, train, test, launches = timesvd_driver_run(
         dev, cfg, timesvd_config(root, "timesvd.epochs=2"), tcoo, "time")
 
@@ -4280,9 +4310,9 @@ def variant_runs(dev, cfg, train, test, fresh_model, trained, lane_rmse):
             for name, (run, k) in VARIANT_LAUNCHES.items()}
 
 
-# ---- phases 27-28: ranks 16, 8 and 4 of the four sweep kernels ----------
+# ---- phases 27-28: ranks 16 to 1 of the four sweep kernels ---------------
 
-NARROW_RANKS = (16, 8, 4)
+NARROW_RANKS = (16, 8, 4, 2, 1)
 NARROW_TILES = 512  # phase 27: the f32 forms against plain (tiles)
 NARROW_BF16_TILES = 256  # its bf16 forms (the plain sums in kernel order)
 NARROW_BINS = {16: 12, 8: 4}  # the time form's bins: the most each holds
@@ -4295,7 +4325,8 @@ NARROW_FORMS = {"sgd_sweep": ("lane", None, 0),
                 "sgd_sweep_step_u": ("step_u", "update", 0)}
 # phase 28 on ml1m_rank32_biased: (rank, overrides, the kernels it launches
 # and no other, the kernels-line entry its launches go to, that entry's
-# count)
+# count); (a2), (a1), (d2), (e2) and (f2) are (a), (d), (e) and (f) at
+# ranks 2 and 1 (the lane form has none at rank 1)
 NARROW_RUNS = {
     "a": (16, [], {"sgd_sweep_tile"}, "sgd_sweep_tile_r16", "sgd_sweep_tile"),
     "b": (8, [], {"sgd_sweep_tile"}, "sgd_sweep_tile_r8", "sgd_sweep_tile"),
@@ -4306,16 +4337,33 @@ NARROW_RUNS = {
           "sgd_sweep_step_u_r16", "sgd_sweep_step_u"),
     "f": (16, ["sgd.mxu=bf16"], {"sgd_sweep_tile", "sgd_sweep_tile:bf16"},
           "sgd_sweep_tile_bf16_r16", "sgd_sweep_tile:bf16"),
+    "a2": (2, [], {"sgd_sweep_tile"}, "sgd_sweep_tile_r2", "sgd_sweep_tile"),
+    "a1": (1, [], {"sgd_sweep_tile"}, "sgd_sweep_tile_r1", "sgd_sweep_tile"),
+    "d2": (2, ["sgd.bias_mode=lane"], {"sgd_sweep"}, "sgd_sweep_r2",
+           "sgd_sweep"),
+    "e2": (2, ["sgd.step_user_batch=true"], {"sgd_sweep_step_u"},
+           "sgd_sweep_step_u_r2", "sgd_sweep_step_u"),
+    "f2": (2, ["sgd.mxu=bf16"], {"sgd_sweep_tile", "sgd_sweep_tile:bf16"},
+           "sgd_sweep_tile_bf16_r2", "sgd_sweep_tile:bf16"),
 }
-# (a) and (b): the JAX trainer's run of the same configuration on the same
-# full data on a CPU (tools/bias_mode_check.py --preset ml1m_rank32_biased
-# --cut 1 --rank R, from its own seeded init), held-out RMSE after 30
-# epochs; the port's run must end within NARROW_JAX_TOL of it
-NARROW_JAX = {16: 0.52536, 8: 0.52582}
+# (a), (b), (a2) and (a1): the JAX trainer's run of the same configuration
+# on the same full data on a CPU (tools/bias_mode_check.py --preset
+# ml1m_rank32_biased --cut 1 --rank R, from its own seeded init), held-out
+# RMSE after 30 epochs; the port's run must end within NARROW_JAX_TOL of it
+NARROW_JAX = {16: 0.52536, 8: 0.52582, 2: 0.52586, 1: 0.52511}
 NARROW_JAX_TOL = 0.003
-NARROW_BF16_TOL = 0.003  # (f) against (d)
-NARROW_PATH_BPR = (16, 8)  # phase 28 (i)
+# each bf16 run and the f32 run it must end within NARROW_BF16_TOL of
+NARROW_BF16_OF = {"f": "d", "f2": "a2"}
+NARROW_BF16_TOL = 0.003
+NARROW_PATH_BPR = (16, 8, 2, 1)  # phase 28 (i)
+# (i)'s ranks whose loss must also end below ln 2 in the preset's 5
+# epochs; at ranks 2 and 1 it starts at 0.70-0.71 (the untrained model's
+# logits are wider than at rank 8) and falls every epoch, which is their
+# gate, but 5 epochs leave it above ln 2 (printed)
+NARROW_BPR_LN2 = (16, 8)
 NARROW_SERVE_TILE = 256  # (d)'s model served
+# phase 28 (g): ml25m_rank64 at these ranks (the lane form)
+NARROW_ML25M = (16, 2)
 # the kernels line: each entry of phases 27-28 that a path of phase 28
 # runs, and the forms no path runs, held as its "variants"
 NARROW_ENTRIES = {
@@ -4325,11 +4373,21 @@ NARROW_ENTRIES = {
     "sgd_sweep_tile_r4": ("sgd_sweep_tile_none_r4", "sgd_sweep_epoch_r4"),
     "sgd_sweep_step_u_r16": ("sgd_sweep_step_u_r8", "sgd_sweep_step_u_r4"),
     "sgd_sweep_tile_bf16_r16": tuple(
-        f"{n}_r{r}" for r in NARROW_RANKS for n in BF16_FORMS
+        f"{n}_r{r}" for r in (16, 8, 4) for n in BF16_FORMS
         if (n, r) != ("sgd_sweep_tile_bf16", 16)),
     "sgd_sweep_time_r16": ("sgd_sweep_time_r8",),
     "bpr_sweep_r16": (),
     "bpr_sweep_r8": ("bpr_sweep_r4",),
+    "sgd_sweep_r2": (),
+    "sgd_sweep_tile_r2": ("sgd_sweep_tile_none_r2", "sgd_sweep_epoch_r2"),
+    "sgd_sweep_tile_r1": ("sgd_sweep_tile_none_r1", "sgd_sweep_epoch_r1"),
+    "sgd_sweep_step_u_r2": ("sgd_sweep_step_u_r1",),
+    "sgd_sweep_tile_bf16_r2": tuple(
+        f"{n}_r{r}" for r in (2, 1) for n in BF16_FORMS
+        if (n, r) != ("sgd_sweep_tile_bf16", 2)
+        and (r > 1 or BF16_FORMS[n][0] != "lane")),
+    "bpr_sweep_r2": (),
+    "bpr_sweep_r1": (),
 }
 _NARROW_S = {"27": 0.0, "28": 0.0}
 
@@ -4351,8 +4409,9 @@ def narrow_sweep_forms(dev, cfg, train, forms):
     first NARROW_BF16_TILES (bf16_forms: bitwise, the f32 form from the
     same state the control that must land off); every form then over the
     whole sweep once on one block and twice on the card's count
-    (bitwise). Fills ``forms`` {name_r<rank>: ((err, ms, plain_ms),
-    bound, whole-run dict)}."""
+    (bitwise). The lane forms are left out at rank 1, which has no lane
+    model. Fills ``forms`` {name_r<rank>: ((err, ms, plain_ms), bound,
+    whole-run dict)}."""
     import torch
 
     from mfx_torch.kernels import _build
@@ -4394,6 +4453,8 @@ def narrow_sweep_forms(dev, cfg, train, forms):
         card = {"lane": lib.mfx_sgd_sweep_max_blocks(T, rank),
                 "step_u": lib.mfx_sgd_sweep_step_u_max_blocks(T, rank, su)}
         for name, (body, bias, slot_bytes) in NARROW_FORMS.items():
+            if body == "lane" and rank < 2:
+                continue
             label = f"{name}_r{rank}"
 
             def state(n, body=body):
@@ -4423,7 +4484,10 @@ def narrow_sweep_forms(dev, cfg, train, forms):
             log(f"[kernel] {label}: {nt} tiles {res[1]:.4f} ms, plain "
                 f"{res[2]:.4f} ms; bound {b[0]:.4f} ms ({b[1]})")
             forms[label] = (res, b, runs)
+        bodies = tuple(n for n, f in BF16_FORMS.items()
+                       if rank > 1 or f[0] != "lane")
         for name, out in bf16_forms(f"_r{rank}", lane, plain, sw, tl, *args,
+                                    bodies=bodies,
                                     tiles=NARROW_BF16_TILES).items():
             out[2]["critical_tiles"] = sw.deps.prefix(out[2]["tiles"]).critical
             forms[f"{name}_r{rank}"] = out
@@ -4437,11 +4501,13 @@ def narrow_ml1m_phases(dev, forms):
     30 epochs through train_epochs_blocked from the seeded untrained model
     of its rank: its kernels and no other launched, the train RMSE falls
     every epoch and the held-out RMSE (unclipped) lies below the untrained
-    model's after every epoch; (a) and (b) end within NARROW_JAX_TOL of
-    the JAX trainer's run (NARROW_JAX), (f) within NARROW_BF16_TOL of
-    (d). Then (d)'s rank-16 model through the stock, fused and
-    certified-exact recommenders (narrow_serve). Returns each run's
-    launches under its kernels-line entry."""
+    model's after every epoch; (a), (b), (a2) and (a1) end within
+    NARROW_JAX_TOL of the JAX trainer's run (NARROW_JAX), each bf16 run
+    within NARROW_BF16_TOL of its f32 run (NARROW_BF16_OF). Then (d)'s
+    rank-16 model through the stock, fused and certified-exact
+    recommenders (narrow_serve), and (a2)'s rank-2 model through the
+    CLI's recommend --fused (narrow_cli_serve). Returns each run's
+    launches under its kernels-line entry, and (e)'s record."""
     import torch
 
     from mfx_torch.config import apply_overrides, preset
@@ -4456,7 +4522,7 @@ def narrow_ml1m_phases(dev, forms):
     train, test = train_test_split(coo, cfg.data.test_frac,
                                    seed=cfg.data.seed)
     narrow_sweep_forms(dev, cfg, train, forms)
-    narrow_time("27", t_phase, "the ML-1M forms at ranks 16, 8 and 4")
+    narrow_time("27", t_phase, "the ML-1M forms at ranks 16 to 1")
 
     t_phase = time.perf_counter()
     log(f"[narrow] path: ml1m_rank32_biased (su = si = {cfg.sgd.ublock}, T "
@@ -4476,9 +4542,9 @@ def narrow_ml1m_phases(dev, forms):
         if NARROW_JAX.get(rank) is not None and not ov:
             window = (NARROW_JAX[rank] - NARROW_JAX_TOL,
                       NARROW_JAX[rank] + NARROW_JAX_TOL)
-        if key == "f":
-            window = (finals["d"] - NARROW_BF16_TOL,
-                      finals["d"] + NARROW_BF16_TOL)
+        if key in NARROW_BF16_OF:
+            f32 = finals[NARROW_BF16_OF[key]]
+            window = (f32 - NARROW_BF16_TOL, f32 + NARROW_BF16_TOL)
         _, out = train_runs(dev, cfg, train, test, fresh_model,
                             {key: ([f"model.rank={rank}"] + ov, want,
                                    window)},
@@ -4490,10 +4556,44 @@ def narrow_ml1m_phases(dev, forms):
                 f"[{window[0]:.5f}, {window[1]:.5f}]")
     log(f"[narrow] held-out RMSE after 30 epochs, unrounded: " + "; ".join(
         f"({k}) {v!r}" for k, v in finals.items())
-        + f"; (f) - (a) {finals['f'] - finals['a']:.3e}")
+        + "".join(f"; ({k}) - ({f}) {finals[k] - finals[f]:.3e}"
+                  for k, f in NARROW_BF16_OF.items()))
     narrow_serve(dev, last["d"][0], train)
-    narrow_time("28", t_phase, "(a)-(f) on ML-1M, and (d) served")
-    return launches
+    served = narrow_cli_serve(dev, last["a2"][0], cfg)
+    narrow_time("28", t_phase, "(a)-(f2) on ML-1M, (d) and (a2) served")
+    return launches, served
+
+
+def narrow_cli_serve(dev, model, cfg):
+    """Phase 28 (e): (a2)'s rank-2 model (mu + bu + bi + p.q with two
+    latent lanes) checkpointed and served by the CLI's recommend --fused:
+    tile_topk at the augmented width 8 launched (counter > 0), each launch
+    made again on its inputs and held against tile_topk_plain (hold_topk;
+    the largest difference printed). Returns the check's record."""
+    import shutil
+    from pathlib import Path
+
+    from mfx_torch.kernels.serve_topk import aug_width
+    from mfx_torch.train.checkpoint import save_checkpoint
+
+    if aug_width(model.rank) != 8:
+        raise AssertionError(f"rank {model.rank}: augmented width "
+                             f"{aug_width(model.rank)}, not 8")
+    ck = Path(__file__).resolve().parent / "build" / "chip_smoke_rank2"
+    shutil.rmtree(ck, ignore_errors=True)
+    save_checkpoint(ck, cfg.sgd.epochs - 1, model, cfg.data.seed)
+    # tiles of NARROW_SERVE_TILE, as narrow_serve's: the CLI's default
+    # 1,024 leaves ML-1M's 3,706 items 4 tiles, 8 candidates < K
+    rec, recs = fused_cli_check("(e) rank 2", dev, ck, "0,1,2,3",
+                                tile=NARROW_SERVE_TILE)
+    shutil.rmtree(ck)
+    log(f"[narrow] (e) (a2)'s rank-2 model through the CLI's recommend "
+        f"--fused: launches {{'tile_topk': {rec['launches']}}}, each held "
+        f"against tile_topk_plain on its inputs (P_aug {rec['P_aug']}, "
+        f"Q_aug {rec['Q_aug']}, tile {rec['tile']}, depth {rec['depth']}): "
+        f"max abs err {rec['max_abs_err']!r}, lane swaps "
+        f"{rec['lane_swaps']}; first user's items {recs[0]['items']}")
+    return rec
 
 
 def narrow_serve(dev, model, train):
@@ -4552,41 +4652,46 @@ def narrow_serve(dev, model, train):
 
 
 def narrow_ml25m_run(dev, cfg, train, test):
-    """Phase 28 (g): ml25m_rank64 unchanged but for model.rank=16, 2
-    epochs on phase 4's data from the seeded untrained rank-16 model:
-    every rating through the rank-16 lane sweep (no dense phase runs at
-    pack 8), held-out RMSE (unclipped) below the untrained model's, and a
-    second run bit for bit the first."""
+    """Phase 28 (g): ml25m_rank64 unchanged but for model.rank (each of
+    NARROW_ML25M: 16, and 2, the baseline predictor mu + bu + bi), 2
+    epochs on phase 4's data from the seeded untrained model of the rank:
+    every rating through the lane sweep (no dense phase runs below rank
+    32), held-out RMSE (unclipped) below the untrained model's, and a
+    second run bit for bit the first; each run's epoch seconds logged."""
     import torch
 
     from mfx_torch.models.mf import init_model
 
     t_phase = time.perf_counter()
+    for rank in NARROW_ML25M:
+        def fresh_model(rank=rank):
+            g = torch.Generator(device=dev)
+            g.manual_seed(cfg.model.seed)
+            return init_model(g, train.num_users, train.num_items, rank,
+                              global_mean=train.global_mean, device=dev)
 
-    def fresh_model():
-        g = torch.Generator(device=dev)
-        g.manual_seed(cfg.model.seed)
-        return init_model(g, train.num_users, train.num_items, 16,
-                          global_mean=train.global_mean, device=dev)
-
-    runs = {"g": (["model.rank=16", "sgd.epochs=2"], {"sgd_sweep"}, None)}
-    firsts, lasts = [], []
-    for _ in range(2):
-        last: dict = {}
-        _, out = train_runs(dev, cfg, train, test, fresh_model, runs,
-                            "narrow", last=last)
-        firsts.append(out["g"])
-        lasts.append(last["g"])
-    (m1, info), (m2, _) = lasts
-    if info.get("num_strata", 0) or not all(
-            torch.equal(getattr(m1, k), getattr(m2, k))
-            for k in ("P", "Q", "bu", "bi")) or firsts[0][2] != firsts[1][2]:
-        raise AssertionError("(g): a dense phase ran, or a second run "
-                             "differs from the first")
-    log(f"[narrow] (g) ml25m_rank64 at rank 16: a second run repeats the "
-        f"tables and held-out RMSEs {firsts[0][2]} bit for bit; lane sweep "
-        f"launches {firsts[0][0]['sgd_sweep']}")
-    narrow_time("28", t_phase, "(g) ml25m_rank64 at rank 16")
+        key = "g" if rank == 16 else f"g{rank}"
+        runs = {key: ([f"model.rank={rank}", "sgd.epochs=2"], {"sgd_sweep"},
+                      None)}
+        firsts, lasts = [], []
+        for _ in range(2):
+            last: dict = {}
+            _, out = train_runs(dev, cfg, train, test, fresh_model, runs,
+                                "narrow", last=last)
+            firsts.append(out[key])
+            lasts.append(last[key])
+        (m1, info), (m2, _) = lasts
+        if info.get("num_strata", 0) or not all(
+                torch.equal(getattr(m1, k), getattr(m2, k))
+                for k in ("P", "Q", "bu", "bi")) or (
+                    firsts[0][2] != firsts[1][2]):
+            raise AssertionError(f"({key}): a dense phase ran, or a second "
+                                 "run differs from the first")
+        log(f"[narrow] ({key}) ml25m_rank64 at rank {rank}: a second run "
+            f"repeats the tables and held-out RMSEs {firsts[0][2]} bit for "
+            f"bit; lane sweep launches {firsts[0][0]['sgd_sweep']}")
+    narrow_time("28", t_phase, "(g) ml25m_rank64 at ranks "
+                + " and ".join(map(str, NARROW_ML25M)))
 
 
 def narrow_time_phase(dev, tcoo, forms):
@@ -4754,6 +4859,9 @@ def store_narrow(forms, results, bounds, sweeps):
 ALS_CHECK_ROWS = 8192  # the first user range, solved on the card and the CPU
 ALS_CPU_TOL = 3e-3  # rank 128 with bias: tests/unit/test_als.py:102
 ALS_CPU_THREADS = 4  # the CPU solve's threads, beside the card's host loop
+# 29(a)'s sweeps: 4 of the preset's 8, a cut for the script's time (its
+# gate, that the objective never rises, holds sweep by sweep)
+ALS_SWEEPS = 4
 # ALS-WR's and NMF's regularized objectives never rise (relative):
 # tests/unit/test_nmf.py:88
 RISE_TOL = 1e-6
@@ -4979,7 +5087,8 @@ def als_netflix_phase(dev, cfg0, train, test, fresh_model, sgd_tests, root):
     t_phase = time.perf_counter()
     precision_check()
     cfg = apply_overrides(cfg0, ["solver=als", f"data.root={root}",
-                                 f"checkpoint_dir={root / 'ck'}"])
+                                 f"checkpoint_dir={root / 'ck'}",
+                                 f"als.sweeps={ALS_SWEEPS}"])
     acfg, rank = cfg.als, cfg.model.rank
     U, I, d = train.num_users, train.num_items, rank + 1
     init = fresh_model()  # the driver's initial tables (same seed and init)
@@ -4987,7 +5096,7 @@ def als_netflix_phase(dev, cfg0, train, test, fresh_model, sgd_tests, root):
     log(f"[als] cell: netflix100m_rank128_dp with solver=als "
         f"parallel.mode=single (one card instead of the preset's ring); "
         f"rank {rank} with biases (d = {d}), reg {acfg.reg}, {acfg.sweeps} "
-        f"sweeps (the preset's), user_chunk {acfg.user_chunk} (rows a "
+        f"sweeps (of the preset's {cfg0.als.sweeps}), user_chunk {acfg.user_chunk} (rows a "
         f"solve {als.gram_rowchunk(d, acfg.user_chunk)}); untrained held-out "
         f"RMSE {base:.5f} (unclipped)")
 
@@ -5371,15 +5480,10 @@ def als64_serve_phase(dev, cfg0, train, test, fresh_model):
     recommend --fused: tile_topk launched (counter > 0), each launch made
     again on its inputs and held against its plain version. Returns the
     check."""
-    import contextlib
-    import io
     import shutil
     from pathlib import Path
 
-    from mfx_torch import cli
     from mfx_torch.eval.metrics import rmse_mae
-    from mfx_torch.kernels.serve_topk import tile_topk
-    from mfx_torch.serve import fused
     from mfx_torch.solvers.als import train_sweeps_als
     from mfx_torch.train.checkpoint import save_checkpoint
 
@@ -5391,47 +5495,67 @@ def als64_serve_phase(dev, cfg0, train, test, fresh_model):
     ck = Path(__file__).resolve().parent / "build" / "chip_smoke_als64"
     shutil.rmtree(ck, ignore_errors=True)
     save_checkpoint(ck, ALS64_SWEEPS - 1, m, cfg0.data.seed)
+    rec, _ = fused_cli_check("als rank 64", dev, ck, "0,1,2")
+    shutil.rmtree(ck)
+    log(f"[als] rank 64 (ml25m_rank64's als block, {ALS64_SWEEPS} sweeps) on "
+        f"phase 4's data: held-out {a_rmse:.5f} (unclipped); CLI recommend "
+        f"--fused on its checkpoint: launches {{'tile_topk': "
+        f"{rec['launches']}}}, each held against tile_topk_plain on its "
+        f"inputs (P_aug {rec['P_aug']}, Q_aug {rec['Q_aug']}, tile "
+        f"{rec['tile']}, depth {rec['depth']}): max abs err "
+        f"{rec['max_abs_err']:.3e} (tol {TOL})")
+    gram_time("c", t_phase, "ALS at rank 64 served through tile_topk")
+    return {**rec, "als_test_rmse": a_rmse}
+
+
+def fused_cli_check(what, dev, ck, users, tile=None):
+    """The CLI's recommend --fused on the checkpoint ``ck`` for ``users``
+    (comma-separated; ``--tile`` where given): K items each, tile_topk
+    launched (counter > 0), each launch made again on its inputs and held
+    against its plain version (hold_topk). Returns (the check's record,
+    the recommendations)."""
+    import contextlib
+    import io
+
+    from mfx_torch import cli
+    from mfx_torch.kernels.serve_topk import tile_topk
+    from mfx_torch.serve import fused
+
     calls = []
 
     def keep(P_aug, Q_aug, **kw):
         calls.append((P_aug.clone(), Q_aug.clone(), kw))
         return tile_topk(P_aug, Q_aug, **kw)
 
+    args = ["recommend", "--checkpoint", str(ck), "--users", users,
+            "--fused", "--device", dev.type]
     tile_topk.launches = 0
     fused.tile_topk = keep
     buf = io.StringIO()
     try:
         with contextlib.redirect_stdout(buf):
-            if cli.main(["recommend", "--checkpoint", str(ck), "--users",
-                         "0,1,2", "--fused", "--device", dev.type]) != 0:
-                raise AssertionError("cli recommend --fused failed")
+            if cli.main(args + (["--tile", str(tile)] if tile else [])) != 0:
+                raise AssertionError(f"{what}: cli recommend --fused failed")
     finally:
         fused.tile_topk = tile_topk
     launches = tile_topk.launches
     recs = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
-    if len(recs) != 3 or any(len(x["items"]) != K for x in recs):
-        raise AssertionError(f"als rank 64: CLI recommend --fused: {recs}")
+    if (len(recs) != len(users.split(","))
+            or any(len(x["items"]) != K for x in recs)):
+        raise AssertionError(f"{what}: CLI recommend --fused: {recs}")
     if launches < 1:
-        raise AssertionError("recommend --fused never launched tile_topk")
-    err = 0.0
+        raise AssertionError(f"{what}: recommend --fused never launched "
+                             "tile_topk")
+    err, swaps = 0.0, 0
     for P_aug, Q_aug, kw in calls:
-        e, swaps, gap = hold_topk("tile_topk (ALS recommend)",
-                                  tile_topk(P_aug, Q_aug, **kw), P_aug, Q_aug,
-                                  kw.get("sb"), kw["tile"], kw["depth"])
-        err = max(err, e)
-    shutil.rmtree(ck)
-    log(f"[als] rank 64 (ml25m_rank64's als block, {ALS64_SWEEPS} sweeps) on "
-        f"phase 4's data: held-out {a_rmse:.5f} (unclipped); CLI recommend "
-        f"--fused on its checkpoint: launches {{'tile_topk': {launches}}}, "
-        f"each held against tile_topk_plain on its inputs (P_aug "
-        f"{tuple(calls[0][0].shape)}, Q_aug {tuple(calls[0][1].shape)}, "
-        f"tile {calls[0][2]['tile']}, depth {calls[0][2]['depth']}): max abs "
-        f"err {err:.3e} (tol {TOL})")
-    gram_time("c", t_phase, "ALS at rank 64 served through tile_topk")
-    return {"launches": launches, "max_abs_err": err,
+        e, n, _ = hold_topk(f"tile_topk ({what})",
+                            tile_topk(P_aug, Q_aug, **kw), P_aug, Q_aug,
+                            kw.get("sb"), kw["tile"], kw["depth"])
+        err, swaps = max(err, e), swaps + n
+    return {"launches": launches, "max_abs_err": err, "lane_swaps": swaps,
             "P_aug": list(calls[0][0].shape),
             "Q_aug": list(calls[0][1].shape), "tile": calls[0][2]["tile"],
-            "depth": calls[0][2]["depth"], "als_test_rmse": a_rmse}
+            "depth": calls[0][2]["depth"]}, recs
 
 def main() -> int:
     import shutil
@@ -5745,7 +5869,7 @@ def main() -> int:
     # 26. the main path under each dense and MXU setting, on phase 4's data
     launches.update(variant_runs(dev, cfg, train, test, fresh_model, m4,
                                  test_rmse))
-    # 28 (g). the main path's preset at rank 16, on phase 4's data
+    # 28 (g). the main path's preset at ranks 16 and 2, on phase 4's data
     narrow_ml25m_run(dev, cfg, train, test)
 
     # 19 (its extra cell). the rank-32 lane sweep and dense forms on phase
@@ -5760,7 +5884,7 @@ def main() -> int:
     del m, model, train, test  # coo: phases 15-16 make it temporal
     torch.cuda.empty_cache()
 
-    # 7-8. the BPR path; 21-22 at ranks 32 and 128; 27-28 at 16, 8 and 4
+    # 7-8. the BPR path; 21-22 at ranks 32 and 128; 27-28 at 16 to 1
     narrow: dict = {}  # phase 27's forms, stored with store_narrow
     launches.update(bpr_phases(dev, results, bounds, sweeps, narrow))
 
@@ -5792,9 +5916,10 @@ def main() -> int:
     # 19-20. ml1m_rank32_biased: the rank-32 forms against plain on its
     # runs' plan and carving, then the runs through them
     launches.update(rank32_path_phase(dev, results, bounds, sweeps))
-    # 27-28 (ML-1M). ranks 16, 8 and 4 of the SGD sweeps against plain on
+    # 27-28 (ML-1M). ranks 16 to 1 of the SGD sweeps against plain on
     # ml1m_rank32_biased's plan, then its paths at those ranks
-    launches.update(narrow_ml1m_phases(dev, narrow))
+    narrow_launches, topk_r2 = narrow_ml1m_phases(dev, narrow)
+    launches.update(narrow_launches)
     store_narrow(narrow, results, bounds, sweeps)
     for name, (err, ms, plain_ms) in cell25[0].items():
         sweeps[name]["ml25m_cell"] = {
@@ -5850,7 +5975,15 @@ def main() -> int:
                 "sgd_sweep_tile_bf16_r16": "mfx/kernels/sgd_pallas.py:121",
                 "sgd_sweep_time_r16": "mfx/kernels/sgd_pallas.py:63",
                 "bpr_sweep_r16": "mfx/kernels/bpr_pallas.py:47",
-                "bpr_sweep_r8": "mfx/kernels/bpr_pallas.py:47"}
+                "bpr_sweep_r8": "mfx/kernels/bpr_pallas.py:47",
+                # ranks 2 and 1 (pack 64 and 128) of the same bodies
+                "sgd_sweep_r2": "mfx/kernels/sgd_pallas.py:63",
+                "sgd_sweep_tile_r2": "mfx/kernels/sgd_pallas.py:63",
+                "sgd_sweep_tile_r1": "mfx/kernels/sgd_pallas.py:63",
+                "sgd_sweep_step_u_r2": "mfx/kernels/sgd_pallas.py:363",
+                "sgd_sweep_tile_bf16_r2": "mfx/kernels/sgd_pallas.py:121",
+                "bpr_sweep_r2": "mfx/kernels/bpr_pallas.py:47",
+                "bpr_sweep_r1": "mfx/kernels/bpr_pallas.py:47"}
     sources = {"sgd_sweep_r128": "sgd_sweep", "dense_phase_int8_r128":
                "dense_phase", "sgd_sweep_time": "sgd_sweep",
                "sgd_sweep_epoch": "sgd_sweep_tile",
@@ -5882,7 +6015,13 @@ def main() -> int:
                "sgd_sweep_step_u_r16": "sgd_sweep_step_u",
                "sgd_sweep_tile_bf16_r16": "sgd_sweep_tile",
                "sgd_sweep_time_r16": "sgd_sweep",
-               "bpr_sweep_r16": "bpr_sweep", "bpr_sweep_r8": "bpr_sweep"}
+               "bpr_sweep_r16": "bpr_sweep", "bpr_sweep_r8": "bpr_sweep",
+               "sgd_sweep_r2": "sgd_sweep",
+               "sgd_sweep_tile_r2": "sgd_sweep_tile",
+               "sgd_sweep_tile_r1": "sgd_sweep_tile",
+               "sgd_sweep_step_u_r2": "sgd_sweep_step_u",
+               "sgd_sweep_tile_bf16_r2": "sgd_sweep_tile",
+               "bpr_sweep_r2": "bpr_sweep", "bpr_sweep_r1": "bpr_sweep"}
     variants = {"sgd_sweep": "bias_mode='lane', rank 64",
                 "sgd_sweep_tile": "bias_mode='tile'",
                 "dense_phase": "lane, int4 codes, rank 64",
@@ -5934,7 +6073,16 @@ def main() -> int:
                                            "rank 16",
                 "sgd_sweep_time_r16": "time_mode=True (bias_mode='lane'), "
                                       f"rank 16, {NARROW_BINS[16]} bins",
-                "bpr_sweep_r16": "rank 16", "bpr_sweep_r8": "rank 8"}
+                "bpr_sweep_r16": "rank 16", "bpr_sweep_r8": "rank 8",
+                "sgd_sweep_r2": "bias_mode='lane', rank 2: the baseline "
+                                "predictor mu + bu + bi",
+                "sgd_sweep_tile_r2": "bias_mode='tile', rank 2",
+                "sgd_sweep_tile_r1": "bias_mode='tile', rank 1",
+                "sgd_sweep_step_u_r2": "bias_mode='tile', step_user_batch, "
+                                       "rank 2, tpg 4",
+                "sgd_sweep_tile_bf16_r2": "bias_mode='tile', mxu='bf16', "
+                                          "rank 2",
+                "bpr_sweep_r2": "rank 2", "bpr_sweep_r1": "rank 1"}
     log(json.dumps({"gram_engine": GRAM}))
     log(f"[time] phase 29 (the Gram-engine solvers) "
         + ", ".join(f"({k}) {v:.1f} s" for k, v in _GRAM_S.items()))
@@ -5954,7 +6102,7 @@ def main() -> int:
          **({"library": "torch.matmul (TF32 off) then torch.topk over "
                         "each tile"} if name.startswith("tile_topk") else {}),
          **({"variants": topk_variants, "ml100k_recommend": topk_ml100k,
-             "als_recommend": topk_als}
+             "als_recommend": topk_als, "rank2_recommend": topk_r2}
             if name == "tile_topk" else {}),
          # the sweeps (the tile-bias ones on ML-1M): a whole sweep on 1
          # block and on the card's count; dense_phase: DENSE_WHOLE strata

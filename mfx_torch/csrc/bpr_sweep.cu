@@ -1,5 +1,5 @@
-// Fused BPR sweep over (user, positive, negative) triples, ranks 4, 8, 16,
-// 32, 64 and 128.
+// Fused BPR sweep over (user, positive, negative) triples, ranks 1, 2, 4,
+// 8, 16, 32, 64 and 128.
 //
 // Replaces: mfx/kernels/bpr_pallas.py::_kernel_body, driven by
 // bpr_sweep_pallas / _chunk_call (the DSGD-ring BPR sub-step).
@@ -57,10 +57,13 @@
 // longest dependency chain's tiles (a segment of W windows keeps at most
 // W blocks busy) plus the wavefront's ramp.
 //
-// Ranks 4 to 32 and 128. At rank 32 a row is 32 lanes (8 threads a row,
+// Ranks 1 to 32 and 128. At rank 32 a row is 32 lanes (8 threads a row,
 // one float4 of each dot a thread): 96 KB of snapshots at T = 256; at ranks
 // 16, 8 and 4 threads 0-3, 0-1 or 0 of a row's 8 hold a float4 and the rest
-// add zeros (sweep_common.cuh), 48, 24 and 12 KB of snapshots. At rank 128
+// add zeros (sweep_common.cuh), 48, 24 and 12 KB of snapshots; at ranks 2
+// and 1 the row is one float4 whose lanes past the rank hold 0, as at rank
+// 4, and the tables are read and written a float2 or a float a row
+// (sweep_common.cuh, "Ranks 2 and 1"). At rank 128
 // the three snapshots would take 384 KB, so shared memory holds lanes 0-63
 // and 64-127 of the rows in turn (HALF, as in the SGD sweeps): gather
 // lanes 0-63 of p, qi and qj and take each thread's part of x = p.(qi -
@@ -82,7 +85,7 @@ constexpr int SIDES = 3;  // P (users), Q at positives, Q at negatives
 
 template <int H>  // lanes a row in shared memory
 struct SweepSmem {
-  static constexpr int HQ4 = H / 4;  // float4 per row
+  static constexpr int HQ4 = ROW4<H>;  // float4 per row
   // laid out in dynamic shared memory by offset (see bytes)
   float4* Ps;   // (T, HQ4) user-row snapshot
   float4* Qi;   // (T, HQ4) positive-item snapshot
@@ -93,8 +96,9 @@ struct SweepSmem {
   int* key;     // (3, MAX_T) (row << 8 | slot) per side, sorted ascending
 
   __host__ __device__ static size_t bytes(int T) {
-    return (size_t)SIDES * T * H * sizeof(float) + (size_t)SIDES * T * 4 +
-           (size_t)2 * T * 4 + (size_t)SIDES * MAX_T * 4;
+    return (size_t)SIDES * T * HQ4 * sizeof(float4) +
+           (size_t)SIDES * T * 4 + (size_t)2 * T * 4 +
+           (size_t)SIDES * MAX_T * 4;
   }
 
   __device__ static SweepSmem carve(float4* base, int T) {
@@ -125,7 +129,7 @@ __device__ inline float4 bpr_delta(float4 g, float4 w, float lr, float reg) {
 template <int H>
 __device__ inline float4 slot_delta(const SweepSmem<H>& sm, int side, int j,
                                     int q, float lr, float reg) {
-  constexpr int HQ4 = H / 4;
+  constexpr int HQ4 = ROW4<H>;
   const float e = sm.e[j];
   const float4 p = sm.Ps[j * HQ4 + q];
   if (side == 0) {
@@ -139,17 +143,17 @@ __device__ inline float4 slot_delta(const SweepSmem<H>& sm, int side, int j,
                    reg);
 }
 
-// Column quad q of the shared lanes (the row's float4 q_off + q; rows
-// ROW_Q4 float4 wide) of the row at sorted position p of one side. If p
-// starts its row's run of equal keys, sum the deltas of the run's slots in
-// ascending slot order and write base + sum, where base is the row's
-// snapshot (sides 0 and 1) or, for the negatives' add, the row as the
-// positives' add left it in device memory (side 2).
-template <int H, int ROW_Q4>
+// Column quad q of the shared lanes (the row's float4 q_off + q; rows of
+// RANK floats, ld_quad / st_quad) of the row at sorted position p of one
+// side. If p starts its row's run of equal keys, sum the deltas of the
+// run's slots in ascending slot order and write base + sum, where base is
+// the row's snapshot (sides 0 and 1) or, for the negatives' add, the row
+// as the positives' add left it in device memory (side 2).
+template <int H, int RANK>
 __device__ inline void scatter_quad(float* table, long long base,
                                     const SweepSmem<H>& sm, int side, int p,
                                     int q, int q_off, float lr, float reg) {
-  constexpr int HQ4 = H / 4;
+  constexpr int HQ4 = ROW4<H>;
   const int* key = sm.key + side * MAX_T;
   const int k0 = key[p];
   if (k0 == NO_ROW) return;
@@ -163,13 +167,12 @@ __device__ inline void scatter_quad(float* table, long long base,
     a.z += d.z;
     a.w += d.w;
   }
-  float4* row =
-      reinterpret_cast<float4*>(table) + (base + x) * ROW_Q4 + q_off + q;
   const int j0 = k0 & 255;
   const float4 w = side == 0   ? sm.Ps[j0 * HQ4 + q]
                    : side == 1 ? sm.Qi[j0 * HQ4 + q]
-                               : ld_row(row);
-  *row = make_float4(w.x + a.x, w.y + a.y, w.z + a.z, w.w + a.w);
+                               : ld_quad<RANK>(table, base + x, q_off + q);
+  st_quad<RANK>(table, base + x, q_off + q,
+                make_float4(w.x + a.x, w.y + a.y, w.z + a.z, w.w + a.w));
 }
 
 // 1. ids and the unsorted (row, slot) keys of the three sides of the tile
@@ -195,8 +198,9 @@ __device__ inline void load_ids(const SweepSmem<H>& sm, const int* tt, int T,
   for (int s = 0; s < SIDES; ++s) sm.key[s * MAX_T + tid] = k[s];
 }
 
-// 2. the three sides' float4 [q_off, q_off + H / 4) of their rows
-template <int H, int ROW_Q4>
+// 2. the three sides' float4 [q_off, q_off + ROW4<H>) of their rows of
+// RANK floats
+template <int H, int RANK>
 __device__ inline void gather3(const SweepSmem<H>& sm, const float* P,
                                const float* Q, long long pbase,
                                long long qbase, int T, int su, int q_off) {
@@ -204,7 +208,7 @@ __device__ inline void gather3(const SweepSmem<H>& sm, const float* P,
   const float* const src[SIDES] = {P, Q, Q};
   const long long base[SIDES] = {pbase, qbase, qbase};
   const int* const id[SIDES] = {sm.id, sm.id + T, sm.id + 2 * T};
-  gather_rows<H / 4, ROW_Q4, SIDES>(dst, src, base, id, sm.id, T, su, q_off);
+  gather_rows<ROW4<H>, RANK, SIDES>(dst, src, base, id, sm.id, T, su, q_off);
 }
 
 // 4a. this thread's fma chain of each of its slots' x = p.(qi - qj), over
@@ -213,7 +217,7 @@ __device__ inline void gather3(const SweepSmem<H>& sm, const float* P,
 template <int H>
 __device__ inline void x_part(const SweepSmem<H>& sm, int T,
                               float (&v)[DOT_SLOTS]) {
-  constexpr int HQ4 = H / 4;
+  constexpr int HQ4 = ROW4<H>;
   const int g = threadIdx.x >> 3, c = threadIdx.x & 7;
 #pragma unroll
   for (int n = 0; n < DOT_SLOTS; ++n) {
@@ -259,19 +263,18 @@ __device__ inline void update_tile(const SweepSmem<HALF<RANK>>& sm, float* P,
                                    float* Q, long long pbase, long long qbase,
                                    int T, int su, float lr, float reg,
                                    float* tile_loss) {
-  constexpr int H = HALF<RANK>, HQ4 = H / 4, ROW_Q4 = RANK / 4;
-  constexpr int HALVES = RANK / H;
+  constexpr int H = HALF<RANK>, HQ4 = ROW4<H>, HALVES = RANK / H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // 2-4. gather, sort, x (across the halves), e and the loss
-  gather3<H, ROW_Q4>(sm, P, Q, pbase, qbase, T, su, 0);
+  gather3<H, RANK>(sm, P, Q, pbase, qbase, T, su, 0);
   sort_keys<SIDES>(sm.key);
   float v[DOT_SLOTS] = {};
   x_part(sm, T, v);
 #pragma unroll
   for (int h = 1; h < HALVES; ++h) {
     __syncthreads();
-    gather3<H, ROW_Q4>(sm, P, Q, pbase, qbase, T, su, h * HQ4);
+    gather3<H, RANK>(sm, P, Q, pbase, qbase, T, su, h * HQ4);
     __syncthreads();
     x_part(sm, T, v);
   }
@@ -282,7 +285,7 @@ __device__ inline void update_tile(const SweepSmem<HALF<RANK>>& sm, float* P,
   for (int h = HALVES - 1; h >= 0; --h) {
     const int q_off = h * HQ4;
     if (h < HALVES - 1) {  // rank 128: lanes 0-63 again, tile-start values
-      gather3<H, ROW_Q4>(sm, P, Q, pbase, qbase, T, su, q_off);
+      gather3<H, RANK>(sm, P, Q, pbase, qbase, T, su, q_off);
       __syncthreads();
     }
     // 5. scatter the users and the positives: one (side, sorted position,
@@ -290,9 +293,9 @@ __device__ inline void update_tile(const SweepSmem<HALF<RANK>>& sm, float* P,
     for (int w = tid; w < 2 * MAX_T * HQ4; w += THREADS) {
       const int q = w % HQ4, rest = w / HQ4;
       if (rest < MAX_T)
-        scatter_quad<H, ROW_Q4>(P, pbase, sm, 0, rest, q, q_off, lr, reg);
+        scatter_quad<H, RANK>(P, pbase, sm, 0, rest, q, q_off, lr, reg);
       else
-        scatter_quad<H, ROW_Q4>(Q, qbase, sm, 1, rest - MAX_T, q, q_off, lr,
+        scatter_quad<H, RANK>(Q, qbase, sm, 1, rest - MAX_T, q, q_off, lr,
                                 reg);
     }
     if (h == HALVES - 1 && warp == 0) {
@@ -307,7 +310,7 @@ __device__ inline void update_tile(const SweepSmem<HALF<RANK>>& sm, float* P,
 
     // 6. scatter the negatives on top of what step 5 wrote
     for (int w = tid; w < MAX_T * HQ4; w += THREADS)
-      scatter_quad<H, ROW_Q4>(Q, qbase, sm, 2, w / HQ4, w % HQ4, q_off, lr,
+      scatter_quad<H, RANK>(Q, qbase, sm, 2, w / HQ4, w % HQ4, q_off, lr,
                               reg);
     __syncthreads();
   }

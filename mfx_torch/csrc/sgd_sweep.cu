@@ -1,10 +1,11 @@
-// Sparse blocked-SGD sweep (lane-carried biases, ranks 4, 8, 16, 32, 64 and
-// 128), and its time form (blocked timeSVD; ranks 8 to 128).
+// Sparse blocked-SGD sweep (lane-carried biases, ranks 2, 4, 8, 16, 32, 64
+// and 128), and its time form (blocked timeSVD; ranks 8 to 128).
 //
 // Replaces: mfx/kernels/sgd_pallas.py::_kernel_body (bias_mode='lane',
-// pack 32, 16, 8 and 4 at ranks 4 to 32, pack_path='roll' at rank 64, pack
-// 1 at rank 128; with time_mode=True the time form), driven by
-// blocked_sgd_sweep_pallas / _sweep_chunk_call.
+// pack 64, 32, 16, 8 and 4 at ranks 2 to 32, pack_path='roll' at rank 64,
+// pack 1 at rank 128; with time_mode=True the time form), driven by
+// blocked_sgd_sweep_pallas / _sweep_chunk_call. Rank 1 has no lane form:
+// one lane cannot hold both bias lanes.
 //
 // What it computes, per tile of T ratings of one stratum (user block sa,
 // item window tc), in plan order:
@@ -57,7 +58,11 @@
 // below rank 32 a slot's 8 dot threads hold RANK / 4 float4 and the rest
 // add zeros, sweep_common.cuh); the time form's frozen and injected lanes
 // then all lie in the row (n_bins <= rank - 4: 28, 12 and 4 at ranks 32,
-// 16 and 8; none at rank 4, which has no time form).
+// 16 and 8; none at rank 4, which has no time form). At rank 2 the row is
+// [1, bu] in P and [bi, 1] in Q, the baseline predictor mu + bu + bi, both
+// lanes frozen on one side: it is held in one float4 of shared memory
+// whose lanes 2 and 3 are 0 (sweep_common.cuh, "Ranks 2 and 1"), and the
+// frozen lanes are counted against the rank, not the padded 4.
 //
 // The time form (TIME, timeSVD's temporal terms in the lanes). With
 // L = rank - 3 - n_bins, P rows are [p(L), 0 x n_bins, alpha_u, 1, bu] and
@@ -148,7 +153,7 @@ template <int RANK>
 __device__ inline void inject(const TileSmem<HALF<RANK>>& sm,
                               const TimeSmem& ts, int T, int su, int L,
                               int n_bins, int lane0) {
-  constexpr int H = HALF<RANK>, HQ4 = H / 4;
+  constexpr int H = HALF<RANK>, HQ4 = ROW4<H>;
   const int s = threadIdx.x;
   if (s >= T || sm.uid[s] >= su) return;
   float* ps = reinterpret_cast<float*>(sm.Ps + s * HQ4);
@@ -175,12 +180,13 @@ struct Injected {
 };
 
 // Column quad q of the shared half (HQ4 float4 a row; the row's quad
-// q_off + q) of the row at sorted position p on one side (P or Q). If p
+// q_off + q of a table of rows of RANK floats, st_quad) of the row at
+// sorted position p on one side (P or Q). If p
 // starts its row's run of equal keys, write snapshot + the run's summed
 // deltas, the side's frozen lanes left as they were: where the first
 // slot's snapshot holds an injection, the table's value goes back in its
 // place.
-template <int ROW_Q4, int HQ4>
+template <int RANK, int HQ4>
 __device__ inline void scatter_quad(
     float* table, long long base, const int* key, const float4* own,
     const float4* other, const float* e, int p, int q, int q_off, Frozen fz,
@@ -199,7 +205,7 @@ __device__ inline void scatter_quad(
     for (int k = 0; k < 4; ++k)
       if (b >= 0 && b < inj.n && c == k) v[k] = inj.val[j0];
   }
-  reinterpret_cast<float4*>(table)[(base + x) * ROW_Q4 + q_off + q] = w;
+  st_quad<RANK>(table, base + x, q_off + q, w);
 }
 
 // 5. scatter of the lanes in shared memory: one (side, sorted position,
@@ -212,14 +218,14 @@ __device__ inline void scatter_half(const TileSmem<HALF<RANK>>& sm, float* P,
                                     long long qbase, int q_off, Frozen fp,
                                     Frozen fq, Injected ip, Injected iq,
                                     float lr, float reg, bool bf16) {
-  constexpr int HQ4 = HALF<RANK> / 4;
+  constexpr int HQ4 = ROW4<HALF<RANK>>;
   for (int w = threadIdx.x; w < 2 * MAX_T * HQ4; w += THREADS) {
     const int q = w % HQ4, rest = w / HQ4;
     if (rest < MAX_T)
-      scatter_quad<RANK / 4, HQ4>(P, pbase, sm.keyU, sm.Ps, sm.Qs, sm.e,
+      scatter_quad<RANK, HQ4>(P, pbase, sm.keyU, sm.Ps, sm.Qs, sm.e,
                                   rest, q, q_off, fp, ip, lr, reg, bf16);
     else
-      scatter_quad<RANK / 4, HQ4>(Q, qbase, sm.keyI, sm.Qs, sm.Ps, sm.e,
+      scatter_quad<RANK, HQ4>(Q, qbase, sm.keyI, sm.Qs, sm.Ps, sm.e,
                                   rest - MAX_T, q, q_off, fq, iq, lr, reg,
                                   bf16);
   }
@@ -237,8 +243,7 @@ sgd_sweep_kernel(float* P, float* Q, const int* __restrict__ sa,
                  Wavefront wf, float* __restrict__ sums, int tpg, int T,
                  int su, int si, float lr, float reg, float mu, int n_bins,
                  int bf16) {
-  constexpr int H = HALF<RANK>, HQ4 = H / 4;
-  constexpr int ROW_Q4 = RANK / 4, HALVES = RANK / H;
+  constexpr int H = HALF<RANK>, HQ4 = ROW4<H>, HALVES = RANK / H;
   constexpr int ROWS = TIME ? 5 : 3;  // tile stream rows
   extern __shared__ float4 smem_raw[];
   __shared__ int run_slot;
@@ -267,8 +272,8 @@ sgd_sweep_kernel(float* P, float* Q, const int* __restrict__ sa,
       if (TIME) load_time(ts, tt, T);
       const bool ends_stratum = await_tile(wf, t);
       __syncthreads();
-      gather<H, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
-                           /*use_bias=*/0);
+      gather<H, RANK>(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
+                      /*use_bias=*/0);
       sort_keys<2>(sm.keyU);
       if (TIME) {
         inject<RANK>(sm, ts, T, su, L, n_bins, 0);
@@ -279,8 +284,8 @@ sgd_sweep_kernel(float* P, float* Q, const int* __restrict__ sa,
 #pragma unroll
       for (int h = 1; h < HALVES; ++h) {  // rank 128: lanes 64-127
         __syncthreads();
-        gather<H, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T,
-                             su, /*use_bias=*/0, h * HQ4);
+        gather<H, RANK>(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
+                        /*use_bias=*/0, h * HQ4);
         __syncthreads();
         if (TIME) {
           inject<RANK>(sm, ts, T, su, L, n_bins, h * H);
@@ -298,8 +303,8 @@ sgd_sweep_kernel(float* P, float* Q, const int* __restrict__ sa,
                          ip, iq, lr, reg, bf16);
       if (HALVES > 1) {
         __syncthreads();
-        gather<H, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T,
-                             su, /*use_bias=*/0);
+        gather<H, RANK>(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
+                        /*use_bias=*/0);
         __syncthreads();
         if (TIME) {
           inject<RANK>(sm, ts, T, su, L, n_bins, 0);
@@ -346,8 +351,8 @@ int max_blocks(int T, int rank) {
   if (T < 1 || T > MAX_T) return bad;
   return with_rank(rank, bad, [&](auto r) {
     constexpr int R = decltype(r)::value;
-    if constexpr (TIME && R < 8)  // no bin fits at rank 4
-      return bad;
+    if constexpr (TIME ? R < 8 : R < 2)  // no bin fits at rank 4; no
+      return bad;                        // lane model at rank 1
     else
       return resident_blocks(sgd_sweep_kernel<R, TIME>, THREADS,
                              smem_bytes<R, TIME>(T));
@@ -368,7 +373,7 @@ int sweep(float* P, float* Q, const int* sa, const int* tc, const int* tl,
   const Wavefront wf{runs, wait, state, nruns};
   return with_rank(rank, bad, [&](auto r) {
     constexpr int R = decltype(r)::value;
-    if constexpr (TIME && R < 8)
+    if constexpr (TIME ? R < 8 : R < 2)
       return bad;
     else
       return launch<R, TIME>(P, Q, sa, tc, tl, wf, sums, sse_out, nt, blocks,

@@ -1,6 +1,6 @@
 // Sparse blocked-SGD sweep with the user side batched over each group of
-// tpg tiles (sgd.step_user_batch), per-tile biases or none, ranks 4, 8, 16,
-// 32, 64 and 128.
+// tpg tiles (sgd.step_user_batch), per-tile biases or none, ranks 1, 2, 4,
+// 8, 16, 32, 64 and 128.
 //
 // Replaces: mfx/kernels/sgd_pallas.py::_kernel_body_step_u (:363), driven
 // by blocked_sgd_sweep_pallas / _sweep_chunk_call with step_u=True.
@@ -71,6 +71,11 @@
 // pool stays one whole row of rank + 1 floats a user (258 KB a block at
 // su = 512), so at that block size it lives in device memory.
 //
+// Ranks 2 and 1: the tile's rows are one zero-padded float4 in shared
+// memory (sweep_common.cuh, "Ranks 2 and 1"), and the pool's rows, like
+// the table's, are RANK floats, read and written with ld_quad / st_quad
+// (a float2 or a float), so the pool keeps su * (rank + 1) floats.
+//
 // What bounds it on an H100: as the other sweeps, a tile's latency on one
 // SM (phases separated by barriers, the gather waiting on L2), times the
 // tiles on the sweep's longest dependency chain. Beside the per-tile
@@ -115,7 +120,7 @@ sgd_sweep_step_u_kernel(float* P, float* Q, float* bu, float* bi,
                         float* __restrict__ sums, int tpg, int T, int su,
                         int si, int use_bias, int bf16, float lr, float reg,
                         float mu) {
-  constexpr int H = HALF<RANK>, HQ4 = H / 4, ROW_Q4 = RANK / 4;
+  constexpr int H = HALF<RANK>, HQ4 = ROW4<H>, ROW_Q4 = ROW4<RANK>;
   constexpr int HALVES = RANK / H;
   extern __shared__ float4 smem_raw[];
   __shared__ int run_slot;
@@ -126,9 +131,8 @@ sgd_sweep_step_u_kernel(float* P, float* Q, float* bu, float* bi,
   int* cnt = list + MAX_BLOCK;   // their number
   float* acc = SMEM_POOL ? reinterpret_cast<float*>(group + GROUP_SMEM)
                          : pools + blockIdx.x * pool_floats(su, RANK);
-  float4* acc4 = reinterpret_cast<float4*>(acc);  // (su, ROW_Q4) row sums
-  float* accB = acc + (size_t)su * RANK;          // (su,) pooled bias sums
-  float4* P4w = reinterpret_cast<float4*>(P);
+  // acc: (su, RANK) row sums, then (su,) pooled bias sums
+  float* accB = acc + (size_t)su * RANK;
   const int tid = threadIdx.x;
 
   for (int x = tid; x < MAX_BLOCK; x += THREADS) flag[x] = 0;
@@ -158,8 +162,8 @@ sgd_sweep_step_u_kernel(float* P, float* Q, float* bu, float* bi,
         const int q_off = h * HQ4;
         if (h < HALVES - 1) {
           __syncthreads();
-          gather<H, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
-                            BIAS_NONE, q_off);
+          gather<H, RANK>(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
+                          BIAS_NONE, q_off);
           __syncthreads();
         }
         // 5a. user side: the tile's row sums go into the group's pool
@@ -167,9 +171,10 @@ sgd_sweep_step_u_kernel(float* P, float* Q, float* bu, float* bi,
           const int q = w % HQ4, p = w / HQ4;
           if (!starts_run(sm.keyU, p)) continue;
           const int x = sm.keyU[p] >> 8;
-          float4* a = acc4 + x * ROW_Q4 + q_off + q;
-          *a = add4(*a, run_delta<HQ4>(sm.keyU, sm.Ps, sm.Qs, sm.e, p, q, lr,
-                                       reg, bf16));
+          st_quad<RANK>(acc, x, q_off + q,
+                        add4(ld_quad<RANK, false>(acc, x, q_off + q),
+                             run_delta<HQ4>(sm.keyU, sm.Ps, sm.Qs, sm.e, p, q,
+                                            lr, reg, bf16)));
           if (q_off + q == 0 && !flag[x]) {  // one thread a row and tile
             flag[x] = 1;
             list[atomicAdd(cnt, 1)] = x;
@@ -183,8 +188,8 @@ sgd_sweep_step_u_kernel(float* P, float* Q, float* bu, float* bi,
           accB[x] += run_bias_delta(sm.keyU, sm.bus, sm.e, pb, lr, reg, bf16);
         }
         // 5b. item side: applied now, the next tile of the group reads it
-        scatter_side<HQ4, ROW_Q4>(Q, qbase, sm.keyI, sm.Qs, sm.Ps, sm.e,
-                                  q_off, lr, reg, bf16);
+        scatter_side<HQ4, RANK>(Q, qbase, sm.keyI, sm.Qs, sm.Ps, sm.e,
+                                q_off, lr, reg, bf16);
         if (biases)
           scatter_bias(bi, qbase, sm.keyI, sm.bis, sm.e, 0, lr, reg, bf16);
       }
@@ -198,9 +203,10 @@ sgd_sweep_step_u_kernel(float* P, float* Q, float* bu, float* bi,
       const int nrows = *cnt;
       for (int w = tid; w < nrows * ROW_Q4; w += THREADS) {
         const int x = list[w / ROW_Q4], q = w % ROW_Q4;
-        const long long o = (pbase + x) * ROW_Q4 + q;
-        P4w[o] = add4(ld_row(P4w + o), acc4[x * ROW_Q4 + q]);
-        acc4[x * ROW_Q4 + q] = make_float4(0.f, 0.f, 0.f, 0.f);
+        st_quad<RANK>(P, pbase + x, q,
+                      add4(ld_quad<RANK>(P, pbase + x, q),
+                           ld_quad<RANK, false>(acc, x, q)));
+        st_quad<RANK>(acc, x, q, make_float4(0.f, 0.f, 0.f, 0.f));
       }
       for (int w = tid; w < nrows; w += THREADS) {
         const int x = list[w];

@@ -1,5 +1,5 @@
 // Sparse blocked-SGD sweep with per-tile biases, epoch-frozen biases or
-// none, ranks 4, 8, 16, 32, 64 and 128.
+// none, ranks 1, 2, 4, 8, 16, 32, 64 and 128.
 //
 // Replaces: mfx/kernels/sgd_pallas.py::_kernel_body with bias_mode='tile'
 // (its tile_bias branches), bias_mode='epoch' (its epoch_bias branches) or
@@ -58,8 +58,10 @@
 // scattered first, then lanes 0-63 are gathered again (still the tile-start
 // values) and scattered. The biases are gathered with the first half and
 // written once, the epoch form's residuals stored once. The table rows are
-// RANK / 4 float4 wide, the shared rows HALF / 4. Ranks 4 to 32 hold the
-// whole row (sweep_common.cuh, "Ranks 16, 8 and 4").
+// RANK floats, the shared rows ROW4<HALF> float4. Ranks 1 to 32 hold the
+// whole row (sweep_common.cuh, "Ranks 16, 8 and 4" and "Ranks 2 and 1":
+// below rank 4 one zero-padded float4, the table read and written as a
+// float2 or a float).
 //
 // What bounds it on an H100: as sgd_sweep.cu, one SM's latency a tile:
 // its phases (ids, gather, sort, residuals, scatter) are separated by
@@ -87,8 +89,7 @@ sgd_sweep_tile_kernel(float* P, float* Q, float* bu, float* bi,
                       float* __restrict__ sums, int tpg, int T, int su,
                       int si, int use_bias, int bf16, float lr, float reg,
                       float mu) {
-  constexpr int H = HALF<RANK>, HQ4 = H / 4, ROW_Q4 = RANK / 4;
-  constexpr int HALVES = RANK / H;
+  constexpr int H = HALF<RANK>, HQ4 = ROW4<H>, HALVES = RANK / H;
   extern __shared__ float4 smem_raw[];
   __shared__ int run_slot;
   const TileSmem<H> sm = TileSmem<H>::carve(smem_raw, T);
@@ -114,17 +115,17 @@ sgd_sweep_tile_kernel(float* P, float* Q, float* bu, float* bi,
       for (int h = HALVES - 1; h >= 0; --h) {
         if (h < HALVES - 1) {
           __syncthreads();
-          gather<H, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
-                            BIAS_NONE, h * HQ4);
+          gather<H, RANK>(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
+                          BIAS_NONE, h * HQ4);
           __syncthreads();
         }
         const bool biases = use_bias == BIAS_TILE && h == HALVES - 1;
-        scatter_side<HQ4, ROW_Q4>(P, pbase, sm.keyU, sm.Ps, sm.Qs, sm.e,
-                                  h * HQ4, lr, reg, bf16);
+        scatter_side<HQ4, RANK>(P, pbase, sm.keyU, sm.Ps, sm.Qs, sm.e,
+                                h * HQ4, lr, reg, bf16);
         if (biases) scatter_bias(bu, pbase, sm.keyU, sm.bus, sm.e, MAX_T, lr,
                                  reg, bf16);
-        scatter_side<HQ4, ROW_Q4>(Q, qbase, sm.keyI, sm.Qs, sm.Ps, sm.e,
-                                  h * HQ4, lr, reg, bf16);
+        scatter_side<HQ4, RANK>(Q, qbase, sm.keyI, sm.Qs, sm.Ps, sm.e,
+                                h * HQ4, lr, reg, bf16);
         if (biases)
           scatter_bias(bi, qbase, sm.keyI, sm.bis, sm.e, 0, lr, reg, bf16);
       }

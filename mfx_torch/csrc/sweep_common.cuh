@@ -4,7 +4,7 @@
 // f32 tables, with the biases, where there are any outside the tables, in
 // vectors of their own (use_bias: BIAS_NONE, BIAS_TILE, or BIAS_EPOCH for
 // biases that are read and never written). Shared memory holds HALF<RANK>
-// lanes of a row at once: the whole row at ranks 32 and 64 (RANK / 4
+// lanes of a row at once: the whole row at ranks 1 to 64 (ROW4<RANK>
 // float4 a row), lanes 0-63 and 64-127 in turn at rank 128, whose two
 // 128-lane snapshots at T = 256 (256 KB) would not fit a block's 227 KB;
 // the dots are carried across the two halves. The row gather and the key
@@ -24,6 +24,15 @@
 // threads would free no barrier: a tile's phases wait on each other, not
 // on the dot's lanes. The gather, the scatters and the pool walk rows of
 // RANK / 4 float4 with one thread a float4, as at the larger ranks.
+//
+// Ranks 2 and 1 (less than a float4 a row). A row in shared memory stays
+// one float4 (ROW4), whose lanes past the rank hold 0: every phase inside
+// a tile is the rank-4 one, the dot is still the rank-32 order of the row
+// padded with zero lanes, and a pad lane's delta is lr (e 0 - reg 0) = 0
+// and is never stored. Only the table I/O narrows: ld_quad / st_quad read
+// and write a row as a float2 at rank 2 and a float at rank 1 (a float4
+// at rank 4 and up), so no access runs past a row of the table or leaves
+// its alignment.
 //
 // bf16 (sgd.mxu='bf16', the reference's mxu_bf16 branch; a runtime flag of
 // the SGD sweeps): the values read from the tables enter the residual and
@@ -100,14 +109,19 @@ constexpr int NO_ROW = INT_MAX;  // sort key of a pad slot (sorts last)
 // rows; epoch-frozen biases, gathered only
 constexpr int BIAS_NONE = 0, BIAS_TILE = 1, BIAS_EPOCH = 2;
 
-// Lanes of a row in shared memory at once: the whole row at ranks 4 to 64,
+// Lanes of a row in shared memory at once: the whole row at ranks 1 to 64,
 // 64 lanes (two halves) at rank 128.
 template <int RANK>
 constexpr int HALF = RANK < 64 ? RANK : 64;
 
+// float4 a row of LANES lanes takes in shared memory (one, zero-padded,
+// below rank 4)
+template <int LANES>
+constexpr int ROW4 = LANES < 4 ? 1 : LANES / 4;
+
 template <int RANK>  // lanes a row in shared memory
 struct TileSmem {
-  static constexpr int Q4 = RANK / 4;  // float4 per row
+  static constexpr int Q4 = ROW4<RANK>;  // float4 per row
   float4* Ps;  // (T, Q4) user-row snapshot
   float4* Qs;  // (T, Q4) item-row snapshot
   int* uid;    // (T,) block-local user id (su = pad)
@@ -120,7 +134,7 @@ struct TileSmem {
                // after keyU (sort_keys<2>(keyU) sorts both)
 
   __host__ __device__ static size_t bytes(int T) {
-    return (size_t)2 * T * RANK * sizeof(float) + (size_t)5 * T * 4 +
+    return (size_t)2 * T * Q4 * sizeof(float4) + (size_t)5 * T * 4 +
            (size_t)2 * MAX_T * 4;
   }
 
@@ -198,16 +212,49 @@ __device__ inline void load_ids(const TileSmem<RANK>& sm, const int* tt, int T,
 // A load of table data that another SM may have written in this launch:
 // from L2, past this SM's L1 (see "Memory ordering" above).
 __device__ inline float4 ld_row(const float4* p) { return __ldcg(p); }
+__device__ inline float2 ld_row(const float2* p) { return __ldcg(p); }
 __device__ inline float ld_row(const float* p) { return __ldcg(p); }
+
+// Float4 q of row `row` of a table of rows of RANK floats: the row's
+// float4 q at rank 4 and up; below it the whole row (q is 0), a float2 at
+// rank 2 and a float at rank 1, with the lanes past the rank 0. L2: a load
+// from L2 (ld_row), else a plain load (memory only this block writes).
+template <int RANK, bool L2 = true>
+__device__ inline float4 ld_quad(const float* table, long long row, int q) {
+  if constexpr (RANK >= 4) {
+    const float4* p = reinterpret_cast<const float4*>(table) +
+                      row * (RANK / 4) + q;
+    return L2 ? ld_row(p) : *p;
+  } else if constexpr (RANK == 2) {
+    const float2* p = reinterpret_cast<const float2*>(table) + row;
+    const float2 v = L2 ? ld_row(p) : *p;
+    return make_float4(v.x, v.y, 0.f, 0.f);
+  } else {
+    const float* p = table + row;
+    return make_float4(L2 ? ld_row(p) : *p, 0.f, 0.f, 0.f);
+  }
+}
+
+// Stores the lanes of v that lie in the row (ld_quad's layout).
+template <int RANK>
+__device__ inline void st_quad(float* table, long long row, int q,
+                               float4 v) {
+  if constexpr (RANK >= 4)
+    reinterpret_cast<float4*>(table)[row * (RANK / 4) + q] = v;
+  else if constexpr (RANK == 2)
+    reinterpret_cast<float2*>(table)[row] = make_float2(v.x, v.y);
+  else
+    table[row] = v.x;
+}
 
 // 2. snapshot gather of N tables' rows for the T slots of a tile: for each
 // n, float4 [q_off, q_off + HQ4) of row base[n] + id[n][s] of table src[n]
-// (rows ROW_Q4 float4 wide) into dst[n] (T, HQ4), zeros where slot s is a
-// pad (uid[s] >= su). HQ4 threads a row, every load started before any
+// (rows of RANK floats, ld_quad) into dst[n] (T, HQ4), zeros where slot s
+// is a pad (uid[s] >= su). HQ4 threads a row, every load started before any
 // store. The tables are read as they stand in L2: earlier tiles of this
 // launch, on this SM or another, rewrote them. After a barrier behind the
 // ids (and behind await_tile where the scheduler is used).
-template <int HQ4, int ROW_Q4, int N>
+template <int HQ4, int RANK, int N>
 __device__ inline void gather_rows(float4* const* dst, const float* const* src,
                                    const long long* base,
                                    const int* const* id, const int* uid,
@@ -225,8 +272,7 @@ __device__ inline void gather_rows(float4* const* dst, const float* const* src,
     if (s < T && uid[s] < su) {
 #pragma unroll
       for (int n = 0; n < N; ++n)
-        v[n][m] = ld_row(reinterpret_cast<const float4*>(src[n]) +
-                         (base[n] + id[n][s]) * ROW_Q4 + q_off + k);
+        v[n][m] = ld_quad<RANK>(src[n], base[n] + id[n][s], q_off + k);
     }
   }
 #pragma unroll
@@ -239,10 +285,10 @@ __device__ inline void gather_rows(float4* const* dst, const float* const* src,
   }
 }
 
-// 2 for the SGD sweeps: the P and Q rows' float4 [q_off, q_off + RANK / 4)
-// of rows ROW_Q4 float4 wide, and with use_bias the slots' biases.
-template <int RANK, int ROW_Q4 = RANK / 4>
-__device__ inline void gather(const TileSmem<RANK>& sm, const float* P,
+// 2 for the SGD sweeps: the P and Q rows' float4 [q_off, q_off + ROW4<H>)
+// of rows of RANK floats, and with use_bias the slots' biases.
+template <int H, int RANK = H>
+__device__ inline void gather(const TileSmem<H>& sm, const float* P,
                               const float* Q, const float* bu, const float* bi,
                               long long pbase, long long qbase, int T, int su,
                               int use_bias, int q_off = 0) {
@@ -259,7 +305,7 @@ __device__ inline void gather(const TileSmem<RANK>& sm, const float* P,
   const float* const src[2] = {P, Q};
   const long long base[2] = {pbase, qbase};
   const int* const id[2] = {sm.uid, sm.iid};
-  gather_rows<RANK / 4, ROW_Q4, 2>(dst, src, base, id, sm.uid, T, su, q_off);
+  gather_rows<ROW4<H>, RANK, 2>(dst, src, base, id, sm.uid, T, su, q_off);
   if (use_bias && tid < T) {
     sm.bus[tid] = b_u;
     sm.bis[tid] = b_i;
@@ -303,7 +349,7 @@ constexpr int DOT_SLOTS = MAX_T / (THREADS / 8);
 template <int RANK>
 __device__ inline void dot_part(const TileSmem<RANK>& sm, int T,
                                 float (&v)[DOT_SLOTS], bool bf16 = false) {
-  constexpr int Q4 = RANK / 4;
+  constexpr int Q4 = ROW4<RANK>;
   const int g = threadIdx.x >> 3, k = threadIdx.x & 7;
 #pragma unroll
   for (int n = 0; n < DOT_SLOTS; ++n) {
@@ -365,16 +411,16 @@ __device__ inline void gather_residuals(const TileSmem<HALF<RANK>>& sm,
                                         long long pbase, long long qbase,
                                         int T, int su, float mu,
                                         int use_bias, bool bf16) {
-  constexpr int H = HALF<RANK>, HQ4 = H / 4, ROW_Q4 = RANK / 4;
-  gather<H, ROW_Q4>(sm, P, Q, bu, bi, pbase, qbase, T, su, use_bias);
+  constexpr int H = HALF<RANK>, HQ4 = ROW4<H>;
+  gather<H, RANK>(sm, P, Q, bu, bi, pbase, qbase, T, su, use_bias);
   sort_keys<2>(sm.keyU);
   float v[DOT_SLOTS] = {};
   dot_part(sm, T, v, bf16);
 #pragma unroll
   for (int h = 1; h < RANK / H; ++h) {
     __syncthreads();
-    gather<H, ROW_Q4>(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
-                      BIAS_NONE, h * HQ4);
+    gather<H, RANK>(sm, P, Q, nullptr, nullptr, pbase, qbase, T, su,
+                    BIAS_NONE, h * HQ4);
     __syncthreads();
     dot_part(sm, T, v, bf16);
   }
@@ -436,24 +482,25 @@ __device__ inline float run_bias_delta(const int* key, const float* b,
 }
 
 // 5. one side's scatter of the lanes in shared memory (HQ4 float4 a row
-// there; float4 [q_off, q_off + HQ4) of the table's rows, ROW_Q4 wide):
+// there; float4 [q_off, q_off + HQ4) of the table's rows of RANK floats,
+// st_quad):
 // for every (sorted position, column quad), the first position of each
 // row's run writes snapshot + run sum. `own` is the side's snapshot,
 // `other` the other side's.
-template <int HQ4, int ROW_Q4>
+template <int HQ4, int RANK>
 __device__ inline void scatter_side(float* table, long long base,
                                     const int* key, const float4* own,
                                     const float4* other, const float* e,
                                     int q_off, float lr, float reg,
                                     bool bf16) {
-  float4* T4 = reinterpret_cast<float4*>(table);
   for (int w = threadIdx.x; w < MAX_T * HQ4; w += THREADS) {
     const int q = w % HQ4, p = w / HQ4;
     if (!starts_run(key, p)) continue;
     const int x = key[p] >> 8, j0 = key[p] & 255;
-    T4[(base + x) * ROW_Q4 + q_off + q] =
-        add4(own[j0 * HQ4 + q],
-             run_delta<HQ4>(key, own, other, e, p, q, lr, reg, bf16));
+    st_quad<RANK>(table, base + x, q_off + q,
+                  add4(own[j0 * HQ4 + q],
+                       run_delta<HQ4>(key, own, other, e, p, q, lr, reg,
+                                      bf16)));
   }
 }
 
@@ -558,6 +605,8 @@ __device__ inline void publish(const Wavefront& wf, bool ends_stratum,
 template <class F>
 inline int with_rank(int rank, int other, F&& f) {
   switch (rank) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
     case 4: return f(std::integral_constant<int, 4>());
     case 8: return f(std::integral_constant<int, 8>());
     case 16: return f(std::integral_constant<int, 16>());

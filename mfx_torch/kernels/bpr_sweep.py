@@ -3,7 +3,7 @@ version.
 
 Replaces ``mfx/kernels/bpr_pallas.py::_kernel_body`` (driven by
 ``bpr_sweep_pallas`` / ``_chunk_call``), at the ranks of
-``kernels.sgd_sweep.SWEEP_RANKS`` (4 to 128). One call
+``kernels.sgd_sweep.SWEEP_RANKS`` (1 to 128). One call
 runs one whole segment of the ring: the tiles of ``tl``, each a snapshot
 minibatch of T (user, positive, negative) triples of one stratum, on the
 plain ``(rows, rank)`` f32 tables, with the result of walking them in

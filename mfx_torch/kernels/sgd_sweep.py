@@ -20,10 +20,11 @@ They replace the two bodies of ``mfx/kernels/sgd_pallas.py``'s sweep call:
   (``sgd.step_user_batch``): the same, with the user side batched over
   each group of ``tpg`` tiles.
 
-The kernels are built for the ranks of :data:`SWEEP_RANKS`, 4 to 128 (the
-time form from 8: at rank 4 no bin fits); the reference packs 128 // rank
-rows a lane row and takes every rank that divides 128. Ranks 2 and 1 have
-no kernel yet.
+The kernels are built for the ranks of :data:`SWEEP_RANKS`, every rank
+that divides 128, as the reference packs 128 // rank rows a lane row and
+takes each of them; the time form from rank 8 (at rank 4 no bin fits) and
+the lane form from rank 2 (:func:`check_lane_rank`: one lane cannot hold
+both bias lanes).
 
 One call runs one item-sweep: the tiles of ``tl``, each a snapshot
 minibatch (gather, residuals, exact segment-summed scatter), on plain
@@ -71,12 +72,15 @@ __all__ = ["SWEEP_RANKS", "bf16_round", "kernel_dot", "run_sums", "run_add",
            "sgd_sweep", "sgd_sweep_plain", "sgd_sweep_time", "sgd_sweep_tile",
            "sgd_sweep_tile_plain", "sgd_sweep_epoch", "sgd_sweep_epoch_plain",
            "sgd_sweep_step_u", "sgd_sweep_step_u_plain", "check_sweep_args",
-           "check_kernel_limits", "check_deps", "wavefront_launch"]
+           "check_kernel_limits", "check_lane_rank", "check_deps",
+           "wavefront_launch"]
 
 # the ranks every sweep kernel is built for: csrc/sgd_sweep.cu (lane and
-# time forms; the time form's n_bins <= rank - 4 leaves rank 4 none),
-# sgd_sweep_tile.cu, sgd_sweep_step_u.cu and bpr_sweep.cu
-SWEEP_RANKS = (4, 8, 16, 32, 64, 128)
+# time forms; the time form's n_bins <= rank - 4 leaves rank 4 none, the
+# lane form's two bias lanes leave rank 1 none), sgd_sweep_tile.cu,
+# sgd_sweep_step_u.cu and bpr_sweep.cu. Below rank 4 a row is less than a
+# float4: the kernels read and write it as a float2 or a float
+SWEEP_RANKS = (1, 2, 4, 8, 16, 32, 64, 128)
 
 
 def bf16_round(x: torch.Tensor, on: bool = True) -> torch.Tensor:
@@ -199,15 +203,26 @@ def check_kernel_limits(who, P, tl, su, si):
     if P.shape[1] not in SWEEP_RANKS:
         raise NotImplementedError(
             f"{who} kernel is built for rank "
-            f"{' or '.join(map(str, SWEEP_RANKS))}, got {P.shape[1]} (ranks "
-            "2 and 1, less than a float4 a row: ROADMAP Q2-2b, Queue 2 item "
-            "2b; a rank that does not divide 128 has no form in the "
-            "reference either)"
+            f"{' or '.join(map(str, SWEEP_RANKS))}, got {P.shape[1]}: a rank "
+            "that does not divide 128, or one above 128, has no form in the "
+            "reference either"
         )
     if tl.shape[2] > 256 or su > 1024 or si > 1024:
         raise NotImplementedError(
             f"{who} kernel takes tile <= 256 and blocks <= 1024"
         )
+
+
+def check_lane_rank(who, rank):
+    """The lane form needs rank >= 2: P rows ``[p, 1, bu]`` and Q rows
+    ``[q, bi, 1]`` end in two bias lanes. Raises ValueError at rank 1, on
+    every device."""
+    if rank < 2:
+        raise ValueError(
+            f"{who}: the lane form needs rank >= 2, got {rank}: one lane "
+            "cannot hold both bias lanes (the reference's to_lane_model "
+            "writes lane rank-2 = -1, which is lane 0, and then lane 0 "
+            "again, so it drops b_i); use sgd.bias_mode='tile' or 'epoch'")
 
 
 def check_deps(who, deps, nt, dev):
@@ -314,6 +329,8 @@ def _lane_sweep(wrapper, P, Q, sa, tc, tl, lr, reg, mu, su, si, tpg, deps,
     if n_bins and not 1 <= n_bins <= P.shape[1] - 4:
         raise ValueError(f"{who}: needs 1 <= n_bins <= rank-4, got {n_bins} "
                          f"at rank {P.shape[1]}")
+    if not n_bins:
+        check_lane_rank(who, P.shape[1])
     if P.device.type == "cpu":
         return sgd_sweep_plain(P, Q, sa, tc, tl, lr, reg, mu, su=su, si=si,
                                tpg=tpg, n_bins=n_bins, bf16=bf16)

@@ -50,8 +50,9 @@ from mfx_torch.kernels.dense_phase import (bias_step, dense_bias_update,
                                            dense_phase, plan_launch)
 from mfx_torch.kernels.packing import (from_lane_model, lane_tables,
                                        plain_tables, row_add)
-from mfx_torch.kernels.sgd_sweep import (sgd_sweep, sgd_sweep_epoch,
-                                         sgd_sweep_step_u, sgd_sweep_tile)
+from mfx_torch.kernels.sgd_sweep import (check_lane_rank, sgd_sweep,
+                                         sgd_sweep_epoch, sgd_sweep_step_u,
+                                         sgd_sweep_tile)
 from mfx_torch.models.mf import MFModel
 from mfx_torch.solvers.dense_prep import (prepare_dense_device,
                                           prepare_dense_full)
@@ -181,6 +182,8 @@ def train_epochs_blocked(
     bf16 = cfg.mxu == "bf16"
     echo = cfg.dense_echo
     lane = use_bias and cfg.bias_mode == "lane"
+    if lane:
+        check_lane_rank("train_epochs_blocked", model.rank)
     epoch_bias = use_bias and cfg.bias_mode == "epoch"
     dense_bias = "lane" if lane else "frozen" if use_bias else "none"
     dev = torch.device(device) if device is not None else model.device

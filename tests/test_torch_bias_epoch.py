@@ -138,7 +138,7 @@ def test_slots_match_the_reference(rank):
     assert bool((flat[:, 0][~real] == SU).all())
 
 
-@pytest.mark.parametrize("rank", [32, 64, 128, 16, 8, 4])
+@pytest.mark.parametrize("rank", [32, 64, 128, 16, 8, 4, 2, 1])
 def test_epoch_sweep_matches_pallas_interpret(rank):
     """Non-zero biases: the tables and each slot's residual within 1e-4
     (the rank-64 tolerance of tests/test_torch_slice.py: the reference's

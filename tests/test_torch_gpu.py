@@ -79,7 +79,7 @@ def _check(run, plain, P, Q):
     assert bool(torch.isfinite(P1).all()) and bool(torch.isfinite(Q1).all())
 
 
-@pytest.mark.parametrize("rank", [RANK, 128, 32, 16, 8, 4])
+@pytest.mark.parametrize("rank", [RANK, 128, 32, 16, 8, 4, 2])
 @pytest.mark.parametrize("tile", [T, 200])
 def test_sgd_sweep_kernel_matches_plain(cuda, tile, rank):
     train, _, model, u, i, r = _state(cuda, rank=rank)
@@ -96,14 +96,15 @@ def test_sgd_sweep_kernel_matches_plain(cuda, tile, rank):
         assert sgd_sweep.launches == before + 2
 
 
-@pytest.mark.parametrize("rank", [RANK, 128, 32, 16, 8, 4])
+@pytest.mark.parametrize("rank", [RANK, 128, 32, 16, 8, 4, 2])
 @pytest.mark.parametrize("distinct", [4, 64, 1024])
 def test_sgd_sweep_kernel_hot_rows_and_pads(cuda, distinct, rank):
     """Random full tiles at blocks of 1024 and T = 256 where every slot
     repeats one of ``distinct`` rows per side, the last tile half pad:
     long duplicate runs exercise the kernel's segment sums (at rank 128
     in both halves of the row, at rank 32 on 8 threads a row, below it on
-    4, 2 and 1 of a slot's 8 dot threads)."""
+    4, 2 and 1 of a slot's 8 dot threads; at rank 2 a row of one float2
+    in the table)."""
     g = torch.Generator(device=cuda).manual_seed(distinct)
     su = si = 1024
     nt, tile = 32, 256
@@ -125,6 +126,20 @@ def test_sgd_sweep_kernel_hot_rows_and_pads(cuda, distinct, rank):
     kw = dict(su=su, si=si, tpg=TPG)
     _check(lambda Pt, Qt: sgd_sweep(Pt, Qt, *args, **kw),
            lambda Pt, Qt: sgd_sweep_plain(Pt, Qt, *args, **kw), P, Q)
+
+
+def test_lane_form_at_rank_1_raises_before_any_launch(cuda):
+    """One lane cannot hold both bias lanes: the lane form refuses rank 1
+    on the card's tensors as on the CPU's, and launches nothing."""
+    P = torch.zeros(SU, 1, device=cuda)
+    Q = torch.zeros(SI, 1, device=cuda)
+    sa = torch.zeros(1, dtype=torch.int32, device=cuda)
+    tc = torch.zeros(TPG, dtype=torch.int32, device=cuda)
+    tl = torch.zeros(TPG, 3, T, dtype=torch.int32, device=cuda)
+    before = sgd_sweep.launches
+    with pytest.raises(ValueError, match="one lane cannot hold both bias"):
+        sgd_sweep(P, Q, sa, tc, tl, LR, REG, 3.5, su=SU, si=SI, tpg=TPG)
+    assert sgd_sweep.launches == before
 
 
 @pytest.mark.parametrize("rank,rfmt", [(RANK, "int4"), (RANK, "int8"),
@@ -338,7 +353,7 @@ def _check4(run, plain, state, use_bias=True):
 
 
 @pytest.mark.parametrize("use_bias", [True, False])
-@pytest.mark.parametrize("rank", [32, 64, 128, 16, 8, 4])
+@pytest.mark.parametrize("rank", [32, 64, 128, 16, 8, 4, 2, 1])
 @pytest.mark.parametrize("body", ["tile", "step_u"])
 def test_tile_bias_sweep_kernels_match_plain(cuda, body, rank, use_bias):
     kernel, plain = TILE_SWEEPS[body]
@@ -366,7 +381,8 @@ def test_tile_bias_sweep_kernels_match_plain(cuda, body, rank, use_bias):
 @pytest.mark.parametrize("rank,tpg,distinct", [
     (32, 4, 4), (32, 8, 64), (32, 1, 512), (64, 4, 4), (64, 2, 64),
     (64, 8, 1024), (128, 4, 4), (128, 2, 64), (128, 8, 1024), (16, 4, 4),
-    (16, 8, 1024), (8, 2, 64), (8, 4, 1024), (4, 4, 4), (4, 1, 512)])
+    (16, 8, 1024), (8, 2, 64), (8, 4, 1024), (4, 4, 4), (4, 1, 512),
+    (2, 4, 4), (2, 8, 1024), (1, 2, 64), (1, 4, 1024)])
 @pytest.mark.parametrize("body", ["tile", "step_u"])
 def test_tile_bias_sweep_kernels_hot_rows_and_pads(cuda, body, rank, tpg,
                                                    distinct):
@@ -749,7 +765,7 @@ def _bpr_state(dev, tile=64, rank=RANK):
     return coo, model, cfg, st, ring.ring_epoch_tiles(st, cfg, 0, 0)
 
 
-@pytest.mark.parametrize("rank", [RANK, 32, 128, 16, 8, 4])
+@pytest.mark.parametrize("rank", [RANK, 32, 128, 16, 8, 4, 2, 1])
 @pytest.mark.parametrize("tile", [64, 256])
 def test_bpr_sweep_kernel_matches_plain(cuda, tile, rank):
     from mfx_torch.kernels.bpr_sweep import bpr_sweep, bpr_sweep_plain
@@ -766,7 +782,7 @@ def test_bpr_sweep_kernel_matches_plain(cuda, tile, rank):
         assert bpr_sweep.launches == before + 2
 
 
-@pytest.mark.parametrize("rank", [RANK, 32, 128, 16, 8, 4])
+@pytest.mark.parametrize("rank", [RANK, 32, 128, 16, 8, 4, 2, 1])
 @pytest.mark.parametrize("distinct", [4, 64, 512])
 def test_bpr_sweep_kernel_hot_rows_and_pads(cuda, distinct, rank):
     """Random full tiles at the preset's blocks (512) and tile (256) where
@@ -981,9 +997,10 @@ WAVEFRONT_KERNELS = ["sgd", "sgd_r128", "bpr", "tile", "step_u",
                      "dense_none_int8_echo_r32", "dense_frozen_int8",
                      "dense_none_int8", "dense_none_int8_r128",
                      "dense_none_int8_r32"] + [
-    f"{k}_r{rank}" for rank in (16, 8, 4)
+    f"{k}_r{rank}" for rank in (16, 8, 4, 2, 1)
     for k in ("sgd", "tile", "step_u", "epoch", "bpr", "sgd_bf16",
-              "tile_bf16", "step_u_bf16", "epoch_bf16")] + [
+              "tile_bf16", "step_u_bf16", "epoch_bf16")
+    if rank > 1 or not k.startswith("sgd")] + [
     "time_r16", "time_r8"]
 
 
@@ -1211,7 +1228,7 @@ def _check_outs(run, plain, state, n_tables, moved):
     return k1
 
 
-@pytest.mark.parametrize("rank", [32, 64, 128, 16, 8, 4])
+@pytest.mark.parametrize("rank", [32, 64, 128, 16, 8, 4, 2, 1])
 def test_sgd_sweep_epoch_kernel_matches_plain(cuda, rank):
     from mfx_torch.kernels.sgd_sweep import (sgd_sweep_epoch,
                                              sgd_sweep_epoch_plain)
@@ -1242,7 +1259,8 @@ def test_sgd_sweep_epoch_kernel_matches_plain(cuda, rank):
 
 @pytest.mark.parametrize("rank,distinct", [(32, 4), (32, 512), (64, 4),
                                            (64, 1024), (128, 4), (128, 1024),
-                                           (16, 4), (8, 512), (4, 1024)])
+                                           (16, 4), (8, 512), (4, 1024),
+                                           (2, 4), (1, 1024)])
 def test_sgd_sweep_epoch_kernel_hot_rows_and_pads(cuda, rank, distinct):
     """As the tile-bias kernels' case: full tiles at blocks of 1024, long
     duplicate runs, a half-pad tile and a whole pad tile."""
@@ -1458,8 +1476,9 @@ def _hot_tiles(dev, seed, distinct, su=1024, nt=32, tile=256):
 
 
 @pytest.mark.parametrize("distinct", [4, 1024])
-@pytest.mark.parametrize("rank", [32, 64, 128, 16, 8, 4])
-@pytest.mark.parametrize("body", BF16_BODIES)
+@pytest.mark.parametrize("body,rank", [
+    (body, rank) for rank in (32, 64, 128, 16, 8, 4, 2, 1)
+    for body in BF16_BODIES if body != "lane" or rank > 1])
 def test_bf16_sweep_kernels_hot_rows_and_pads(cuda, body, rank, distinct):
     """Each sweep's bf16 form against its plain version (``bf16=True``) on
     hot rows and pads: within 1e-4, bitwise repeatable, and another
@@ -1504,11 +1523,13 @@ def test_bf16_sweep_kernels_hot_rows_and_pads(cuda, body, rank, distinct):
     assert not torch.equal(a[0], b[0])
 
 
-@pytest.mark.parametrize("rank", [16, 8, 4])
-@pytest.mark.parametrize("body", ["sgd", "tile", "step_u", "epoch"])
+@pytest.mark.parametrize("body,rank", [
+    (body, rank) for rank in (16, 8, 4, 2, 1)
+    for body in ("sgd", "tile", "step_u", "epoch")
+    if body != "sgd" or rank > 1])
 def test_bf16_sweep_kernels_below_rank_32_are_the_plain_bits(cuda, body,
                                                              rank):
-    """The bf16 forms at ranks 16, 8 and 4 over a whole small sweep: on 1
+    """The bf16 forms at ranks 16 to 1 over a whole small sweep: on 1
     block and on the card's count the tables are bit for bit the plain
     version's (it takes every sum in the kernel's order: a dot padded with
     zero lanes to 32), and the f32 form from the same state lands off

@@ -333,18 +333,18 @@ def test_sweep_wrappers_cuda_route_reaches_no_plain_version(module, wrappers):
 
 
 @pytest.mark.parametrize("form,item", [
-    ("sgd_sweep rank 2", "Q2-2b"),
-    ("sgd_sweep rank 96", "Queue 2 item 2"),
-    ("sgd_sweep_tile rank 2", "Q2-2b"),
-    ("bpr_sweep rank 1", "Q2-2b"),
+    ("sgd_sweep rank 3", "does not divide 128"),
+    ("sgd_sweep rank 96", "does not divide 128"),
+    ("sgd_sweep_tile rank 6", "does not divide 128"),
+    ("bpr_sweep rank 48", "does not divide 128"),
     ("dense_phase rank 128 int4", "reference's dense path has no other"),
     ("dense_phase rank 16 int8", "reference's dense path has no other"),
 ])
 def test_forms_without_a_kernel_raise(form, item):
     """A rank or code format the kernels lack is refused before any launch
-    (the checks the wrappers make on a card's tensors), naming the ROADMAP
-    item, or for the dense phase saying that the reference has no such
-    form either; the kernels' own forms pass."""
+    (the checks the wrappers make on a card's tensors), saying that the
+    reference has no such form either: the sweeps take every rank that
+    divides 128; the kernels' own forms pass."""
     from mfx_torch.kernels.dense_phase import check_kernel_form
     from mfx_torch.kernels.sgd_sweep import SWEEP_RANKS, check_kernel_limits
 

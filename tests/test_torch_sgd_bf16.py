@@ -3,8 +3,9 @@ with ``bf16=True`` against the reference Pallas kernel with
 ``mxu_bf16=True, exact=False`` in interpret mode (``exact`` wins over
 ``mxu_bf16`` in the reference), in every body the trainer runs (lane,
 tile biases, no biases, the step-batched user side, epoch-frozen biases)
-at ranks 4 to 128, on the same tile plans and initial tables; and the
-kernels' dot order that those plain versions take."""
+at ranks 1 to 128 (the lane form from 2), on the same tile plans and
+initial tables; and the kernels' dot order that those plain versions
+take."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -118,12 +119,16 @@ def _port(body, rank, bf16):
             "bi": bi[:items]}, sse
 
 
-@pytest.mark.parametrize("rank", [32, 64, 128, 16, 8, 4])
-@pytest.mark.parametrize("body", BODIES)
+@pytest.mark.parametrize("body,rank", [
+    (body, rank) for rank in (32, 64, 128, 16, 8, 4, 2, 1) for body in BODIES
+    if body != "lane" or rank > 1])  # no lane model at rank 1
 def test_bf16_sweep_matches_pallas_interpret(body, rank):
     """Tables within ATOL of the reference's bf16 form, their mean
     difference under 1/20 of the f32 form's (module note), the SSE within
-    1e-5 relative."""
+    1e-5 relative. The mean difference is taken over the trained factor
+    tables P and Q; the lane form at rank 2 has no latent lane (P rows
+    ``[1, bu]``, Q rows ``[bi, 1]``), so there it is taken over the
+    biases its two lanes train."""
     ref, sse_j = _reference(body, rank, True)
     got, sse_t = _port(body, rank, True)
     for k in KEYS:
@@ -131,10 +136,11 @@ def test_bf16_sweep_matches_pallas_interpret(body, rank):
                                    err_msg=k)
     assert abs(sse_t - sse_j) <= 1e-5 * sse_j
     f32, _ = _port(body, rank, False)
+    trained = ("bu", "bi") if (body, rank) == ("lane", 2) else ("P", "Q")
 
     def mean_diff(tabs):
         return np.mean([np.abs(tabs[k].numpy() - ref[k]).mean()
-                        for k in ("P", "Q")])
+                        for k in trained])
 
     assert mean_diff(got) < mean_diff(f32) / 20
     if body in ("none", "epoch"):  # no bias vector is written
@@ -146,10 +152,13 @@ def _dot_part_and_butterfly(p, q):
     """The sweep kernels' dot of one row pair as csrc/sweep_common.cuh
     takes it, written out thread by thread: 8 threads, thread k an fma
     chain (exact product, one rounding) over float4 k, k + 8, ... of the
-    row, which is empty and stays 0 past the row's float4; then the
+    row, which is empty and stays 0 past the row's float4 (below rank 4
+    the row is one float4 whose lanes past the rank hold 0); then the
     butterfly (xor 4, 2, 1) read on thread 0."""
     f32 = np.float32
-    q4 = len(p) // 4
+    q4 = -(-len(p) // 4)
+    pad = 4 * q4 - len(p)
+    p, q = np.pad(p, (0, pad)), np.pad(q, (0, pad))
     chains = []
     for k in range(8):
         acc = f32(0)
@@ -163,7 +172,7 @@ def _dot_part_and_butterfly(p, q):
     return chains[0]
 
 
-@pytest.mark.parametrize("rank", [4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("rank", [4, 8, 16, 32, 64, 128, 2, 1])
 def test_kernel_dot_is_the_kernels_order_at_every_rank(rank):
     """kernel_dot at every rank the sweep kernels take against the
     kernels' own order written out thread by thread; below rank 32 the

@@ -15,10 +15,11 @@ from mfx.kernels.sgd_pallas import blocked_sgd_sweep_pallas
 from mfx.models import init_model
 from mfx.models.mf import MFModel as JMFModel
 from mfx.solvers.blocked import sweep_geometry as sweep_geometry_j
+from mfx_torch.config import apply_overrides, preset
 from mfx_torch.convert import model_from_numpy
 from mfx_torch.kernels import packing as pk_t
 from mfx_torch.kernels.sgd_sweep import sgd_sweep, sgd_sweep_plain
-from mfx_torch.solvers.blocked import sweep_geometry
+from mfx_torch.solvers.blocked import sweep_geometry, train_epochs_blocked
 
 U = I = 600
 SU = SI = 256
@@ -27,9 +28,9 @@ LR, REG = 0.012, 0.04
 # rank 128 (pack 1, the netflix100m_rank128_dp geometry) at the shapes of
 # tests/unit/test_pallas_kernel.py::test_pallas_rank128_pack1_interpret;
 # rank 32 (pack 4, ml1m_rank32_biased with bias_mode='lane') and ranks 16,
-# 8 and 4 (pack 8, 16 and 32) at rank 64's
+# 8, 4, 2 and 1 (pack 8 to 128) at rank 64's
 GEOM = {r: dict(users=U, items=I, n=6000, su=SU, tile=T, seed=9, lr=LR,
-                reg=REG, atol=1e-5) for r in (4, 8, 16, 32, 64)}
+                reg=REG, atol=1e-5) for r in (1, 2, 4, 8, 16, 32, 64)}
 GEOM[128] = dict(users=300, items=260, n=3000, su=128, tile=32, seed=5,
                  lr=0.05, reg=0.02, atol=2e-6)
 
@@ -66,15 +67,15 @@ def test_sweep_geometry_matches_reference():
     for items, si in ((17770, 512), (260, 128)):
         assert sweep_geometry(items, 128, si) == sweep_geometry_j(items, 128, si)
     assert sweep_geometry(17770, 128, 512) == 35  # the netflix preset
-    # ranks 16, 8 and 4: the order parameter stays the reference's
-    for rank in (16, 8, 4):
+    # ranks 16 to 1: the order parameter stays the reference's
+    for rank in (16, 8, 4, 2, 1):
         for items, si in ((600, 256), (3706, 512), (59047, 1024),
                           (17770, 512)):
             assert (sweep_geometry(items, rank, si)
                     == sweep_geometry_j(items, rank, si)), (rank, items, si)
 
 
-@pytest.mark.parametrize("rank", [32, 64, 128, 16, 8, 4])
+@pytest.mark.parametrize("rank", [32, 64, 128, 16, 8, 4, 2])
 def test_plain_sweep_matches_pallas_interpret(rank):
     g = GEOM[rank]
     users, items, su, lr, reg = (g["users"], g["items"], g["su"], g["lr"],
@@ -138,6 +139,36 @@ def test_plain_sweep_freezes_constant_lanes_and_skips_pads():
     # pad rows (beyond the real users/items) never move
     torch.testing.assert_close(P[U:], P0[U:], rtol=0, atol=0)
     torch.testing.assert_close(Q[I:], Q0[I:], rtol=0, atol=0)
+
+
+def test_lane_form_at_rank_1_is_refused():
+    """One lane cannot hold both bias lanes (P's constant 1 and Q's, each
+    beside its side's bias): the reference's to_lane_model writes lane
+    rank - 2 = -1 and then lane 0 there, so b_i is dropped. The lane form
+    refuses rank 1 before any step, on the CPU too, and so does the
+    trainer."""
+    coo, skel, tl, model = _setup(rank=1)
+    lane = pk.to_lane_model(model)  # the reference's fault, shown
+    assert np.all(np.asarray(lane.Q)[:, 0] == 1.0)
+    tm = model_from_numpy(_numpy(model), device="cpu")
+    P, Q = pk_t.lane_tables(tm, SU, SI, "cpu")
+    P0 = P.clone()
+    sw = skel.sweeps[0]
+    with pytest.raises(ValueError, match="one lane cannot hold both bias"):
+        sgd_sweep(P, Q[sw.win0 * SI:(sw.win0 + sw.nwin) * SI],
+                  torch.as_tensor(np.asarray(sw.sa)),
+                  torch.as_tensor(np.asarray(sw.tc)),
+                  torch.as_tensor(tl[sw.t0:sw.t1]), LR, REG, float(model.mu),
+                  su=SU, si=SI, tpg=TPG)
+    assert torch.equal(P, P0)
+    cfg = apply_overrides(preset("ml1m_rank32_biased"),
+                          ["sgd.bias_mode=lane", "sgd.ublock=256",
+                           "sgd.iblock=256", "sgd.tile=64", "sgd.epochs=1",
+                           "sgd.plan_device=device"])
+    train, _ = train_test_split(coo, test_frac=0.1, seed=0)
+    with pytest.raises(ValueError, match="drops b_i"):
+        next(iter(train_epochs_blocked(tm, train, cfg.sgd, True,
+                                       device="cpu")))
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "device"])

@@ -26,12 +26,15 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-# ranks 16, 8 and 4 at the trainers' tpg only: the reference's interpret
-# mode compiles its unrolled pack loop (8 to 32 slots a lane row) once a
-# case, 10-50 s at these ranks, and tpg is no rank-dependent part of the form
+# ranks 16 to 1 at the trainers' tpg only, and 2 and 1 with biases only:
+# the reference's interpret mode compiles its unrolled pack loop (8 to 128
+# slots a lane row) once a case, 10-50 s at ranks 16 to 4 and minutes at
+# rank 1, and neither tpg nor the bias terms are rank-dependent parts of
+# the form
 @pytest.mark.parametrize("rank,use_bias,tpg", [
     (rank, use_bias, tpg) for tpg in (4, 2) for use_bias in (True, False)
-    for rank in (32, 64, 128, 16, 8, 4) if tpg == 4 or rank >= 32])
+    for rank in (32, 64, 128, 16, 8, 4, 2, 1)
+    if (tpg == 4 or rank >= 32) and (use_bias or rank >= 4)])
 def test_step_u_sweep_matches_pallas_interpret(rank, use_bias, tpg):
     plans, model = sweep_case(rank, tpg)
     ref, sse_j = run_reference(plans, model, rank, tpg, use_bias, step_u=True)

@@ -102,7 +102,7 @@ def touched_rows(plans, tpg):
 
 
 @pytest.mark.parametrize("use_bias", [True, False])
-@pytest.mark.parametrize("rank", [32, 64, 128, 16, 8, 4])
+@pytest.mark.parametrize("rank", [32, 64, 128, 16, 8, 4, 2, 1])
 def test_tile_sweep_matches_pallas_interpret(rank, use_bias):
     plans, model = sweep_case(rank, 4)
     ref, sse_j = run_reference(plans, model, rank, 4, use_bias)

@@ -94,13 +94,24 @@ def test_two_epochs_match_reference_trainer(step_u):
     assert got[-1][2]["P"].shape == (U, rank)
 
 
-@pytest.mark.parametrize("rank", [16, 8])
+@pytest.mark.parametrize("rank", [16, 8, 2])
 def test_one_epoch_below_rank_32_matches_reference_trainer(rank):
-    """The preset with ``model.rank`` 16 or 8 (pack 8 or 16 in the
+    """The preset with ``model.rank`` 16, 8 or 2 (pack 8, 16 or 64 in the
     reference; no dense phase in either package): one epoch of the port's
     trainer against the reference's on the same plan bits, the RMSEs
     within 1e-5."""
-    ov = CUT + ["sgd.epochs=1", f"model.rank={rank}"]
+    _one_epoch_against_reference(rank, [])
+
+
+def test_one_lane_epoch_at_rank_2_matches_reference_trainer():
+    """The baseline predictor mu + bu + bi: the preset at ``model.rank=2``
+    with ``sgd.bias_mode=lane`` (P rows ``[1, bu]``, Q rows ``[bi, 1]``,
+    both lanes frozen on one side), one epoch against the reference's."""
+    _one_epoch_against_reference(2, ["sgd.bias_mode=lane"])
+
+
+def _one_epoch_against_reference(rank, extra):
+    ov = CUT + ["sgd.epochs=1", f"model.rank={rank}"] + extra
     cfg_j = apply_overrides_j(preset_j("ml1m_rank32_biased"), ov)
     cfg = apply_overrides(preset("ml1m_rank32_biased"), ov)
     assert cfg.model.rank == cfg_j.model.rank == rank

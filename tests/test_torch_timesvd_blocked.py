@@ -347,24 +347,25 @@ def test_reg_alpha_none_warns_as_the_reference_does():
 
 
 def test_time_form_kernel_limits():
-    """The time form's kernel is built for the lane form's ranks (at rank
-    4 no bin fits, so the bin check below refuses it); another rank (2:
-    the plain version takes it) is refused on a card's tensors, naming
-    ROADMAP Q2-2b; a bin count the lanes cannot hold is refused on any
-    device."""
+    """The sweep kernels are built for every rank that divides 128; the
+    time form's bin rule (n_bins <= rank - 4) refuses ranks 4, 2 and 1 on
+    any device, before any kernel check; another rank (12: the plain
+    version takes it) is refused on a card's tensors; a bin count the
+    lanes cannot hold is refused on any device."""
     tl = torch.zeros(4, 5, 256, dtype=torch.int32)
-    assert SWEEP_RANKS == (4, 8, 16, 32, 64, 128)
+    assert SWEEP_RANKS == (1, 2, 4, 8, 16, 32, 64, 128)
     for ok in SWEEP_RANKS:
         check_kernel_limits("sgd_sweep_time", torch.zeros(512, ok), tl, 512,
                             512)
-    with pytest.raises(NotImplementedError, match="Q2-2b"):
-        check_kernel_limits("sgd_sweep_time", torch.zeros(512, 2), tl, 512,
+    with pytest.raises(NotImplementedError, match="does not divide 128"):
+        check_kernel_limits("sgd_sweep_time", torch.zeros(512, 12), tl, 512,
                             512)
-    with pytest.raises(ValueError, match="n_bins"):
-        P4 = torch.zeros(512, 4)
-        sgd_sweep_time(P4, P4, torch.zeros(1, dtype=torch.int32),
-                       torch.zeros(4, dtype=torch.int32), tl, 0.01, 0.02,
-                       3.5, su=512, si=512, tpg=4, n_bins=1)
+    for rank in (4, 2, 1):
+        with pytest.raises(ValueError, match="n_bins"):
+            Pr = torch.zeros(512, rank)
+            sgd_sweep_time(Pr, Pr, torch.zeros(1, dtype=torch.int32),
+                           torch.zeros(4, dtype=torch.int32), tl, 0.01, 0.02,
+                           3.5, su=512, si=512, tpg=4, n_bins=1)
     P = torch.zeros(512, 64)
     i32 = dict(dtype=torch.int32)
     with pytest.raises(ValueError, match="n_bins"):

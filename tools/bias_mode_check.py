@@ -31,8 +31,8 @@ every stratum dense on the full data), (c) (b) with
 ``sgd.bias_mode=lane``, (d) (b) with ``model.use_bias=false``.
 
 ``--rank R`` runs the preset unchanged but for ``model.rank=R`` instead
-(phase 28 (a)-(c) at ranks 16, 8 and 4: tile biases, no dense phase,
-which needs 128 // rank in (1, 2, 4)).
+(phase 28 (a)-(c) at ranks 16, 8 and 4, (a2) and (a1) at ranks 2 and 1:
+tile biases, no dense phase, which needs 128 // rank in (1, 2, 4)).
 
 Prints the threshold where it is fixed, each run's train RMSE and
 held-out RMSE (unclipped) after every epoch, the untrained model's, and

@@ -6,13 +6,13 @@ bit for bit against each other on one card:
     PYTHONPATH=<other checkout> python <other checkout>/tools/kernel_digest.py > b.jsonl
     diff a.jsonl b.jsonl
 
-Forms: ``sgd_sweep`` (lane, ranks 4 to 128; the time form at ranks 8 to
-128), ``sgd_sweep_tile`` (tile biases and none, epoch biases at ranks 4
-to 128), ``sgd_sweep_step_u`` (tile biases, ranks 4 to 128: its pools in
-shared memory at ranks 4 to 32, in device memory at 64 and 128), each SGD
+Forms: ``sgd_sweep`` (lane, ranks 2 to 128; the time form at ranks 8 to
+128), ``sgd_sweep_tile`` (tile biases and none, epoch biases at ranks 1
+to 128), ``sgd_sweep_step_u`` (tile biases, ranks 1 to 128: its pools in
+shared memory at ranks 1 to 32, in device memory at 64 and 128), each SGD
 sweep but the time form also in its bf16 form (a ``bf16`` in the name),
-``bpr_sweep`` (ranks 4 to 128; ranks 16, 8 and 4 of every sweep are
-listed after the other forms),
+``bpr_sweep`` (ranks 1 to 128; ranks 16, 8 and 4 of every sweep are
+listed after the other forms, and after them ranks 2 and 1),
 ``dense_phase`` (lane, frozen and none at ranks 32 and 64 with int4 and
 int8 codes, and at rank 128 with int8; lane and none with ``echo2``, two
 passes a stratum), ``tile_topk`` (f32, bf16 and int8 catalogs at depths 1,
@@ -176,6 +176,19 @@ def main() -> int:
         forms.append((f"bpr_sweep r{rank}", rank, "bpr", 0))
     for rank, nb in ((16, 12), (8, 4)):
         forms.append((f"sgd_sweep time r{rank} {nb} bins", rank, "time", nb))
+    # ranks 2 and 1 of the sweeps (the lane form at 2: one lane cannot hold
+    # both bias lanes), after every form of a parent checkout
+    for rank in (2, 1):
+        for bf16 in ("", " bf16"):
+            if rank > 1:
+                forms.append((f"sgd_sweep lane{bf16} r{rank}", rank, "lane",
+                              0))
+            for mode in ("tile", "none", "epoch"):
+                forms.append((f"sgd_sweep_tile {mode}{bf16} r{rank}", rank,
+                              mode, 0))
+            forms.append((f"sgd_sweep_step_u tile{bf16} r{rank}", rank,
+                          "step_u", 0))
+        forms.append((f"bpr_sweep r{rank}", rank, "bpr", 0))
     for name, rank, mode, extra in forms:
         g = torch.Generator(device=dev).manual_seed(len(name) * 7919 + rank)
         # the new forms' options, passed only where they are on

@@ -52,7 +52,8 @@ printed as it ends:
    epoch and ends below ln 2, bpr_sweep launched (counter > 0), and as a
    smoke check, not a quality gate (this synthetic is barely learnable at
    the cell's density), the held-out sampled AUC ends above the untrained
-   model's; HR/NDCG/MRR@10 (sampled protocol) are printed;
+   model's; HR/NDCG/MRR@10 (sampled protocol, on the first 10,000 held-out
+   positives) are printed;
 9. sgd_sweep_tile and sgd_sweep_step_u against their plain versions at the
    ml1m_rank32_biased preset's shapes (su = si = 512, T = 256, rank 32,
    tpg = 4): the first 2,048 tiles of epoch 0 of the ML-1M-shaped
@@ -121,7 +122,7 @@ printed as it ends:
    the same 2,048 tiles and the whole sweep, checked the same way;
 16. the timeSVD path: mfx_torch.train.driver.train with solver='timesvd',
    timesvd.kernel='pallas', rank 64 and TimeSVDConfig's defaults but
-   reg_alpha = reg and TIME_PATH_EPOCHS (10) of its 20 epochs (a depth cut
+   reg_alpha = reg and TIME_PATH_EPOCHS (6) of its 20 epochs (a depth cut
    for the script's time), on phase 15's data handed to the driver
    through data.root as the loader's synthetic cache: the time form
    launched (counter > 0, the lane form not at all), the train RMSE falls
@@ -131,7 +132,7 @@ printed as it ends:
    and a second run of 2 epochs repeats the first's state after 2 epochs
    (its checkpoint) bit for bit; then timesvd.kernel='jnp' (the
    snapshot-minibatch trainer, with timesvd.dup_trust=16: without it the
-   reference's own trainer reaches NaN on this skew; JNP_TIME_EPOCHS of
+   reference's own trainer reaches NaN on this skew; JNP_TIME_EPOCHS (6) of
    its 20 epochs, a depth cut for the script's time)
    through the driver on the ML-1M-shaped synthetic made temporal the
    same way (seed 101):
@@ -265,10 +266,11 @@ printed as it ends:
    --tile 4096, the processes side by side; the full protocol's ranks of
    2,048 positives against a float64 host recount, and the CLI's full
    hr/ndcg/mrr@10 against full_hr_ndcg_at_k in this process (1e-6);
-24. ml100k_rank16 with model.dtype=bfloat16 through the training driver for its 30
-   epochs: bf16 tables, the train RMSE falls every epoch, the held-out
-   RMSE ends within 0.003 of the reference trainer's bf16 run on the CPU
-   (tools/bf16_check.py), the last checkpoint loads back bf16 bit for
+24. ml100k_rank16 with model.dtype=bfloat16 through the training driver for 15
+   of its 30 epochs (a cut for the script's time): bf16 tables, the train
+   RMSE falls every epoch, the held-out RMSE ends within 0.003 of the
+   reference trainer's bf16 run over as many epochs on the CPU
+   (tools/bf16_check.py --epochs 15), the last checkpoint loads back bf16 bit for
    bit; before it, the bf16 tables' scatter-add kernel (bf16_row_add,
    csrc/row_add_bf16.cu) against its plain version on CPU copies at the
    step's shapes (2,048 slots into the rank-16 table; distinct rows and
@@ -278,7 +280,7 @@ printed as it ends:
 25. the forms of the last reference branches of the trainer's kernels
    against their plain versions: the bf16 form (sgd.mxu='bf16') of every
    SGD sweep body (lane, tile biases, none, epoch-frozen, step_u) on the
-   first BF16_CELL_TILES (1,024) of phase 3's tiles (rank 64, plain
+   first BF16_CELL_TILES (512) of phase 3's tiles (rank 64, plain
    tables with seeded N(0, 0.1) biases; a cut for the script's time),
    tables bitwise equal to the plain version's (it sums in the kernel's
    order; the SSE within 1e-4) and the f32 form from the same state not,
@@ -309,17 +311,17 @@ printed as it ends:
    versions. On ml1m_rank32_biased's plan (su = si = 512, T = 256, the
    full ML-1M-shaped synthetic), from seeded tables with N(0, 0.1)
    biases at each rank: the lane (not at rank 1: no lane model there),
-   tile, bias-free, epoch and step_u (tpg 4) forms on the first 512
+   tile, bias-free, epoch and step_u (tpg 4) forms on the first 256
    tiles of the first sweep (within 1e-4, two kernel runs bitwise), each
-   bf16 form on the first 256 (bitwise to its
+   bf16 form on the first 128 (bitwise to its
    kernel-order plain version, the f32 form from the same state the
    control that must land off), every form over the whole sweep once on
    one block and twice on the card's count (bitwise). The time form on
    phase 15's data at the blocked timeSVD trainer's shapes, rank 16 with
-   12 bins and rank 8 with 4 (512 tiles, then the whole first sweep once
+   12 bins and rank 8 with 4 (256 tiles, then the whole first sweep once
    on one block and twice on the card's count).
-   bpr_sweep on the BPR cell's segment 0 (512 tiles, then the whole
-   segment once on one block and twice on the card's count). Times,
+   bpr_sweep on the BPR cell's segment 0 (256 tiles, then its first
+   131,072 tiles once on one block and twice on the card's count). Times,
    bounds and critical paths printed;
 28. the paths through them, each from the seeded untrained model of its
    rank: ml1m_rank32_biased unchanged but for (a) model.rank=16, (b) =8,
@@ -352,7 +354,7 @@ printed as it ends:
    kernel; TF32 asserted off). (a) After phase 22, on phase 12's data:
    netflix100m_rank128_dp with solver=als and parallel.mode=single through
    mfx_torch.train.driver.train (the synthetic as the loader's cache,
-   written by make_data), 4 of the preset's 8 sweeps at rank 128 with
+   written by make_data), 2 of the preset's 8 sweeps at rank 128 with
    biases: ALS-WR's regularized objective never rises (1e-6 relative; the
    train RMSE is printed, ALS-WR need not lower it), the held-out RMSE
    (unclipped) ends below the untrained model's, printed beside phase
@@ -378,7 +380,36 @@ printed as it ends:
    sweeps), checkpointed and served by the CLI's recommend --fused:
    tile_topk launched (counter > 0), each launch made again on its inputs
    and held against tile_topk_plain as in phase 14. Phase 29's records
-   are one JSON line ({"gram_engine": ...}) before the total time.
+   are one JSON line ({"gram_engine": ...}) before the total time;
+30. SVD++ and timeSVD++ (mfx_torch/solvers/svdpp.py, timesvdpp.py). While
+   the kernels build (neither launches a hand-written kernel): (c)
+   solver=timesvdpp timesvdpp.kernel=jnp timesvdpp.dup_trust=16 through
+   the driver on phase 16's temporal ML-1M (its recipe and seed, written
+   as the loader's cache), 5 of 20 epochs: the train RMSE falls every
+   epoch, the time-aware held-out RMSE ends below the untrained model's;
+   then (a) python -m mfx_torch.cli train --preset ml1m_rank32_biased with
+   solver=svdpp svdpp.dup_trust=16 (its 20 epochs, the ML-1M-shaped
+   synthetic) and, side by side, the preset's minibatch biased MF
+   (solver=sgd sgd.partitioner=fixed sgd.kernel=jnp, 20 epochs, dup_trust
+   16: without it the reference's trainers reach NaN on this skew,
+   tools/svdpp_check.py), each with a JSONL log, both done before any
+   kernel is timed: the train RMSE falls every epoch, the held-out RMSE
+   (clipped, the CLI's) ends below the untrained model's, at most
+   minibatch MF's + 0.01 (the reference's margin) and within 0.003 of the
+   JAX trainer's CPU run (tools/svdpp_check.py). After phase 28 (h): (b)
+   solver=timesvdpp timesvdpp.kernel=pallas at rank 64 with 30 bins
+   (ml25m_rank64's model, TimeSVDPPConfig's defaults but reg_alpha = reg,
+   2 of its 20 epochs) through the driver on phase 15's data (phase 16's
+   data root): sgd_sweep_time launched and no other kernel, the train RMSE
+   falls every epoch, the time-aware held-out RMSE ends below the
+   untrained model's; the run again through the trainer (with capture and
+   timings) gives the driver's model and train RMSEs bit for bit, and each
+   epoch's Y step and S refresh in CUDA events; train_epochs_timesvdpp
+   with lr_y = 0 equals train_epochs_timesvd_blocked over 2 epochs from
+   the driver's model, split and features (torch.equal tables every
+   epoch, equal train RMSEs); the time form against its plain version on
+   the first 2,048 tiles of the path's plan from the tables after one Y
+   step (S != 0), within 1e-4, two kernel runs bitwise.
 
 Each phase prints its wall time. The second-to-last line is a JSON object
 describing each kernel (times, launches on the main path, and the bound:
@@ -391,8 +422,10 @@ f32 depth-2 time is its library_ms, and phase 14's and phase 29(c)'s
 launches and checks).
 The rank-128 forms are entries of
 their own (sgd_sweep_r128, dense_phase_int8_r128), their launches from
-phase 12; sgd_sweep_time's launches are phase 16's, and its rank-128 form,
-which no path runs, is its entry's "r128"; sgd_sweep_epoch and
+phase 12; sgd_sweep_time's launches are phase 16's and phase 30 (b)'s
+(its "launches_by_path"), its check on timeSVD++'s path and phase 30's
+records are its entry's "timesvdpp", and its rank-128 form, which no
+path runs, is its entry's "r128"; sgd_sweep_epoch and
 dense_phase_frozen (the frozen form at int4 and rank 64) take their
 launches from phase 18's mode (a), and dense_phase_frozen's "variants"
 hold the bias-free form and the frozen int8 instances; the rank-32 forms
@@ -451,6 +484,9 @@ ML1M_BODIES_TOL = 1e-3  # final held-out RMSE, per tile vs step_user_batch
 TOL = 1e-4
 # the BPR cell: billion-implicit cut to 1/10 of BILLION_SHAPE, one shard
 BPR_CUT = 10
+# phase 8's printed HR/NDCG/MRR@10: the first held-out positives (of
+# 100,000; a cut for the script's time)
+BPR_RANK_POSITIVES = 10_000
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and f32
 # FLOP/s outside the tensor cores; every kernel here does f32 FMA
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -474,12 +510,12 @@ ML100K_RESUME = 27
 # phases 15-16: the temporal recipe of tests/unit/test_timesvd_blocked.py
 # on TimeSVDConfig's 30 bins; the bin shift's spread
 TIME_BINS, TIME_SHIFT = 30, 0.35
-# phase 16's minibatch timeSVD run on the temporal ML-1M: 10 of
+# phase 16's minibatch timeSVD run on the temporal ML-1M: 6 of
 # TimeSVDConfig's 20 epochs, a cut for the script's time
-JNP_TIME_EPOCHS = 10
-# phase 16's blocked timeSVD path (and its lane-MF comparison): 10 of
+JNP_TIME_EPOCHS = 6
+# phase 16's blocked timeSVD path (and its lane-MF comparison): 6 of
 # TimeSVDConfig's 20 epochs, a cut for the script's time
-TIME_PATH_EPOCHS = 10
+TIME_PATH_EPOCHS = 6
 
 
 _T0 = time.perf_counter()
@@ -668,7 +704,7 @@ def sums_limit(plain, terms) -> float:
 
 
 def compare(name, run_kernel, run_plain, state, tol=TOL, sums=(),
-            plain_again=True, sse_tol=None, control=None):
+            sse_tol=None, control=None):
     """Kernel twice from the same state (bitwise equal), plain once, within
     ``tol`` of it (the scalar within ``sse_tol``, default ``tol``, of
     plain's, relative above 1). ``control``: another kernel run from the
@@ -678,8 +714,7 @@ def compare(name, run_kernel, run_plain, state, tol=TOL, sums=(),
     E, added in another order than plain's): each within sqrt(terms) ulps
     of its largest magnitude (the spread of a reordered sum's rounding)
     and within TOL. Returns (max_abs_err over every entry, kernel ms,
-    plain ms); the plain version's time is that of a second run, or with
-    ``plain_again=False`` of the first."""
+    plain ms); the plain version runs once, and its time is that run's."""
     import torch
 
     outs = []
@@ -709,9 +744,6 @@ def compare(name, run_kernel, run_plain, state, tol=TOL, sums=(),
     tabs = [t.clone() for t in state]
     ms = cuda_ms(lambda: run_kernel(*tabs), reps=3)
     plain_ms = first_ms
-    if plain_again:
-        tabs = [t.clone() for t in state]
-        plain_ms = cuda_ms(lambda: run_plain(*tabs))
     held = f"tol {tol}"
     if control is not None:
         ctl = [t.clone() for t in state]
@@ -1082,13 +1114,14 @@ def serve_phase(model, train, dev, seed):
 
 
 def bpr_form_check(name, st, bpr, seed, results, bounds, sweeps,
-                   tiles=SWEEP_TILES):
+                   tiles=SWEEP_TILES, whole_tiles=None):
     """bpr_sweep at the ring state ``st``'s rank against its plain version
     on the first ``tiles`` tiles of segment 0 of epoch 0 from its tables
     (within TOL, two kernel runs bitwise), the same tiles on one block in
-    plan order, then the whole of segment 0 once on one block and twice
-    on as many as the card holds (bitwise). Fills
-    ``results``, ``bounds`` and ``sweeps`` under ``name``."""
+    plan order, then the whole of segment 0 (its first ``whole_tiles``
+    tiles, if given) once on one block and twice on as many as the card
+    holds (bitwise). Fills ``results``, ``bounds`` and ``sweeps`` under
+    ``name``."""
     from mfx_torch.kernels import _build
     from mfx_torch.kernels.bpr_sweep import bpr_sweep, bpr_sweep_plain
     from mfx_torch.parallel import bpr_sharded as ring
@@ -1128,8 +1161,14 @@ def bpr_form_check(name, st, bpr, seed, results, bounds, sweeps,
     log(f"[kernel] {name}: the same {nt} tiles on one block in plan "
         f"order (no dependency table) {ms_one:.4f} ms")
     del Pt, Qt
-    # the whole of segment 0, on one block and on the card's count
+    # the whole of segment 0 (or its head), on one block and on the card's
+    # count
     whole = tls[0][0, 0]
+    if whole_tiles is not None and whole_tiles < whole.shape[0]:
+        whole = whole[:whole_tiles].contiguous()
+        sa_all = sa_all[:whole_tiles // TPG].contiguous()
+        tc_all = tc_all[:whole_tiles].contiguous()
+        deps_all = deps_all.prefix(whole_tiles)
     sweeps[name] = whole_sweep(
         name,
         lambda Pt, Qt, blocks: bpr_sweep(Pt, Qt[seg], sa_all, tc_all, whole,
@@ -1254,10 +1293,12 @@ def bpr_phases(dev, results, bounds, sweeps, forms):
         f"{sampled_auc(model, new, seed=seed, pos_keys=keys):.5f}, final "
         f"{sampled_auc(m, new, seed=seed, pos_keys=keys):.5f}")
     t_eval = time.perf_counter()
-    rk = hr_ndcg_at_k(m, test, k=cfg.ranking_k, seed=seed, pos_keys=keys)
+    ranked = test.select(np.arange(min(BPR_RANK_POSITIVES, test.n_ratings)))
+    rk = hr_ndcg_at_k(m, ranked, k=cfg.ranking_k, seed=seed, pos_keys=keys)
     log(f"[bpr] test " + " ".join(f"{n}@{cfg.ranking_k} {v:.5f}"
                                    for n, v in rk.items())
-        + f" (sampled protocol, 100 negatives; "
+        + f" (sampled protocol, 100 negatives, the first "
+        f"{ranked.n_ratings} held-out positives; "
         f"{time.perf_counter() - t_eval:.1f} s)")
     log(f"[bpr] launches {{'bpr_sweep': {launches}}}, peak memory allocated "
         f"{peak} bytes")
@@ -1293,7 +1334,8 @@ def bpr_phases(dev, results, bounds, sweeps, forms):
         name = f"bpr_sweep_r{rk}"
         bpr_form_check(name, ring.ring_state(fresh_model(rk), train, bpr,
                                              seed=seed, device=dev),
-                       bpr, seed, *checks, tiles=NARROW_TILES)
+                       bpr, seed, *checks, tiles=NARROW_TILES,
+                       whole_tiles=NARROW_BPR_WHOLE)
         forms[name] = tuple(c[name] for c in checks)
         torch.cuda.empty_cache()
     narrow_time("27", t_phase, "bpr_sweep at ranks 16 to 1")
@@ -2708,10 +2750,12 @@ def ml100k_phase(dev):
            "graph": sgd.make_epoch_fn(cfg.sgd, cfg.model.use_bias)}
     out = {}
     for name, fn in fns.items():
-        t0 = time.perf_counter()
-        fn(m0, plan, cfg.sgd.lr)  # warm-up (the graph: its capture)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
+        first_s = None
+        if name == "graph":  # warm-up: the graph's capture
+            t0 = time.perf_counter()
+            fn(m0, plan, cfg.sgd.lr)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -2724,7 +2768,9 @@ def ml100k_phase(dev):
         out[name] = (m1, float(sse))
         log(f"[ml100k] one epoch, {name}: {dev_ms:.1f} ms on the card "
             f"({dev_ms / nb * 1e3:.1f} us a batch), {host_s:.3f} s to dispatch "
-            f"on the host (first call {first_s:.3f} s)")
+            f"on the host ("
+            + ("its first call" if first_s is None else
+               f"after a first call of {first_s:.3f} s") + ")")
     # the trainer's form makes no host sync inside an epoch: any would
     # raise here
     torch.cuda.set_sync_debug_mode("error")
@@ -3046,7 +3092,8 @@ def time_path_phase(dev, tcoo):
     loader's synthetic cache under a data root in build/), its gates
     against the untrained model and lane MF, a 2-epoch repeat; then the
     minibatch timeSVD trainer through the driver on the temporal ML-1M
-    synthetic. Returns the time form's launches in the first run."""
+    synthetic. Returns the time form's launches in the first run and the
+    data root, which holds both datasets' caches for phase 30."""
     import shutil
 
     import torch
@@ -3133,9 +3180,8 @@ def time_path_phase(dev, tcoo):
         raise AssertionError(f"timesvd jnp: the driver's eval "
                              f"{res1.test_rmse} is not the time-aware one "
                              f"{want}")
-    shutil.rmtree(root, ignore_errors=True)
     log(f"[time] phase 16 {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, root
 
 
 # the rank-32 runs of ml1m_rank32_biased (phase 20): the overrides of each,
@@ -3490,9 +3536,11 @@ DEEP_CASES = (("f32", 33, 1024), ("f32", 64, 1024), ("f32", 256, 1024),
 EXACT_DEPTH, DEEP_TILE, DEEP_K = 64, 4096, 100
 FULL_RECOUNT = 2048  # full protocol's positives recounted in float64
 # phase 24: the reference's minibatch trainer with bf16 tables on the full
-# ml100k_rank16 cell ends at this held-out RMSE (tools/bf16_check.py, on
-# the CPU); the port's run must end within BF16_TOL of it
-BF16_REF, BF16_TOL = 0.537165, 0.003
+# ml100k_rank16 cell after BF16_EPOCHS of the preset's 30 (a cut for the
+# script's time; after 30 it ends at 0.537165) ends at this
+# held-out RMSE (tools/bf16_check.py --epochs 15, on the CPU); the port's
+# run must end within BF16_TOL of it
+BF16_EPOCHS, BF16_REF, BF16_TOL = 15, 0.541155, 0.003
 
 
 def deep_case(what, P_aug, Q_aug, sb, tile, depth, items, rank):
@@ -3894,8 +3942,8 @@ def bf16_add_check(dev, what, table, rows, delta):
 
 def bf16_profile_phase(dev, root, results, bounds, sweeps, library):
     """Phase 24: bf16_row_add against its plain version at the minibatch
-    path's shapes; ml100k_rank16 with bf16 tables through the training driver (its
-    30 epochs; bf16_row_add's launches counted) and their checkpoint bit
+    path's shapes; ml100k_rank16 with bf16 tables through the training driver
+    (BF16_EPOCHS of its 30; bf16_row_add's launches counted) and their checkpoint bit
     for bit; one ml25m_rank64 epoch with profile_phases on phase 23's
     data. Returns bf16_row_add's launches."""
     import tempfile
@@ -3935,7 +3983,8 @@ def bf16_profile_phase(dev, root, results, bounds, sweeps, library):
     build = Path(__file__).resolve().parent / "build"
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         cfg = apply_overrides(preset("ml100k_rank16"), [
-            "model.dtype=bfloat16", f"checkpoint_dir={Path(tmp) / 'ck'}"])
+            "model.dtype=bfloat16", f"sgd.epochs={BF16_EPOCHS}",
+            f"checkpoint_dir={Path(tmp) / 'ck'}"])
         t0 = time.perf_counter()
         bf16_row_add.launches = 0
         GRAPH_LAUNCHES.update(captured=0, replayed=0)
@@ -3962,8 +4011,9 @@ def bf16_profile_phase(dev, root, results, bounds, sweeps, library):
             + " ".join(f"{x:.5f}" for x in trains) + "; held-out RMSE "
             + " ".join(f"{x:.5f}" for x in tests)
             + f"; the reference's bf16 run ends at {BF16_REF}")
-        if res.model.P.dtype != torch.bfloat16 or res.epochs_run != 30:
-            raise AssertionError("not a 30-epoch bf16 run")
+        if (res.model.P.dtype != torch.bfloat16
+                or res.epochs_run != BF16_EPOCHS):
+            raise AssertionError(f"not a {BF16_EPOCHS}-epoch bf16 run")
         if any(b >= a for a, b in zip(trains, trains[1:])):
             raise AssertionError(f"train RMSE did not fall: {trains}")
         if abs(res.test_rmse - BF16_REF) > BF16_TOL:
@@ -3974,7 +4024,7 @@ def bf16_profile_phase(dev, root, results, bounds, sweeps, library):
                    and torch.equal(getattr(saved, k).view(torch.int16),
                                    getattr(res.model, k).view(torch.int16))
                    for k in ("P", "Q", "bu", "bi"))
-        if not same or saved.mu != res.model.mu or epoch != 29:
+        if not same or saved.mu != res.model.mu or epoch != BF16_EPOCHS - 1:
             raise AssertionError("the bf16 checkpoint lost its bits")
         log(f"[bf16] checkpoint of epoch {epoch} loaded back bf16, bit for "
             "bit")
@@ -4009,9 +4059,9 @@ BF16_FORMS = {
 # tiles of the bf16 forms' check against plain at the rank-32 and rank-128
 # cells (SWEEP_TILES at ml25m_rank64's): the plain version takes each sum
 # in the kernel's order, which costs time on hot rows
-VARIANT_TILES = 512
-# and at ml25m_rank64's cell: 1,024 tiles, a cut for the script's time
-BF16_CELL_TILES = 1024
+VARIANT_TILES = 256  # a cut for the script's time
+# and at ml25m_rank64's cell: 512 tiles, a cut for the script's time
+BF16_CELL_TILES = 512
 # the echo forms (echo 2), named at rank 64 with int4 codes
 ECHO_FORMS = {"dense_phase_echo": "lane", "dense_phase_none_echo": "none"}
 ECHO = 2
@@ -4085,7 +4135,7 @@ def bf16_forms(tag, lane_state, plain_state, sw, tl, lr, reg, mu, su, si,
         args = (lr, reg, mu, su, si, tpg)
         res = compare(label, sweep_form_run(body, head, seg, *args),
                       sweep_form_run(body, head, seg, *args, kernel=False),
-                      state(nt), tol=0.0, sse_tol=TOL, plain_again=False,
+                      state(nt), tol=0.0, sse_tol=TOL,
                       control=sweep_form_run(body, head, seg, *args,
                                              bf16=False))
         tabs = state(nt)
@@ -4313,9 +4363,14 @@ def variant_runs(dev, cfg, train, test, fresh_model, trained, lane_rmse):
 # ---- phases 27-28: ranks 16 to 1 of the four sweep kernels ---------------
 
 NARROW_RANKS = (16, 8, 4, 2, 1)
-NARROW_TILES = 512  # phase 27: the f32 forms against plain (tiles)
-NARROW_BF16_TILES = 256  # its bf16 forms (the plain sums in kernel order)
+# phase 27: the f32 forms against plain (tiles), and its bf16 forms (the
+# plain sums in kernel order); cut for the script's time
+NARROW_TILES = 256
+NARROW_BF16_TILES = 128
 NARROW_BINS = {16: 12, 8: 4}  # the time form's bins: the most each holds
+# phase 27's bpr_sweep forms on one block and the card's count: the first
+# 131,072 of segment 0's 624,376 tiles (a cut for the script's time)
+NARROW_BPR_WHOLE = 131_072
 # phase 27's f32 sweep forms at each rank: (body, bias traffic, residual
 # bytes a slot), as BF16_FORMS
 NARROW_FORMS = {"sgd_sweep": ("lane", None, 0),
@@ -4466,7 +4521,7 @@ def narrow_sweep_forms(dev, cfg, train, forms):
             res = compare(
                 label, sweep_form_run(body, head, seg, *args, bf16=False),
                 sweep_form_run(body, head, seg, *args, kernel=False,
-                               bf16=False), state(nt), plain_again=False)
+                               bf16=False), state(nt))
             b = sweep_bound(head[2], head[0], head[1], su, si, tpg, rank,
                             [("P", 0), ("Q", 1)], 10, bias=bias,
                             slot_bytes=slot_bytes)
@@ -4768,7 +4823,7 @@ def narrow_time_phase(dev, tcoo, forms):
                                           mu, **kw, deps=deps),
             lambda Pt, Qt: sgd_sweep_plain(Pt, Qt[seg], sa, tcs, tls, lr,
                                            reg, mu, **kw),
-            (P, Q), plain_again=False)
+            (P, Q))
         bnd = sweep_bound(tls, sa, tcs, su, si, tpg, rank,
                           [("P", 0), ("Q", 1)], None,
                           slot_ops=time_slot_ops(rank, nb))
@@ -4859,9 +4914,9 @@ def store_narrow(forms, results, bounds, sweeps):
 ALS_CHECK_ROWS = 8192  # the first user range, solved on the card and the CPU
 ALS_CPU_TOL = 3e-3  # rank 128 with bias: tests/unit/test_als.py:102
 ALS_CPU_THREADS = 4  # the CPU solve's threads, beside the card's host loop
-# 29(a)'s sweeps: 4 of the preset's 8, a cut for the script's time (its
+# 29(a)'s sweeps: 2 of the preset's 8, a cut for the script's time (its
 # gate, that the objective never rises, holds sweep by sweep)
-ALS_SWEEPS = 4
+ALS_SWEEPS = 2
 # ALS-WR's and NMF's regularized objectives never rise (relative):
 # tests/unit/test_nmf.py:88
 RISE_TOL = 1e-6
@@ -5557,6 +5612,357 @@ def fused_cli_check(what, dev, ck, users, tile=None):
             "Q_aug": list(calls[0][1].shape), "tile": calls[0][2]["tile"],
             "depth": calls[0][2]["depth"]}, recs
 
+# ---- phase 30: SVD++ and timeSVD++ (mfx_torch/solvers/svdpp.py,
+# timesvdpp.py). Their only hand-written kernel is the time form of
+# sgd_sweep.cu, on timeSVD++'s blocked epoch; the rest is stock torch ops,
+# as the reference's XLA
+# 30(a): ml1m_rank32_biased with solver=svdpp through the CLI, SVDPPConfig's
+# 20 epochs, beside the preset's minibatch biased MF for as many. Without
+# dup_trust both of the reference's trainers reach NaN in the first epoch
+# on this synthetic (tools/svdpp_check.py --dup-trust 0), so both take 16,
+# as phase 16's minibatch timeSVD
+SVDPP_OVERRIDES = ["solver=svdpp", "svdpp.dup_trust=16"]
+SVDPP_MF_OVERRIDES = ["solver=sgd", "sgd.partitioner=fixed", "sgd.kernel=jnp",
+                      "sgd.epochs=20", "sgd.dup_trust=16"]
+# the JAX trainer's held-out RMSE (clipped, as the driver's) on the same
+# data and epochs on a CPU (tools/svdpp_check.py --epochs 20, from its own
+# seeded init); the port's must end within SVDPP_JAX_TOL of it
+SVDPP_JAX_RMSE, SVDPP_JAX_TOL = 0.527031, 0.003
+# the reference's own margin over minibatch MF (tests/unit/test_svdpp.py:136)
+SVDPP_MF_MARGIN = 0.01
+# 30(b): the blocked timeSVD++ path on phase 15's data, TIMESVDPP_EPOCHS of
+# TimeSVDPPConfig's 20 (a cut for the script's time); its lr_y = 0 run and
+# the timeSVD run it must equal, TIMESVDPP_COLLAPSE_EPOCHS each
+TIMESVDPP_EPOCHS, TIMESVDPP_COLLAPSE_EPOCHS = 2, 2
+# 30(c): the minibatch timeSVD++ path on phase 16's temporal ML-1M, 5 of
+# the 20 epochs (a cut for the script's time), dup_trust 16 as phase 16's
+TIMESVDPP_JNP_EPOCHS = 5
+
+
+def timesvdpp_config(root, *extra):
+    """Phase 30 (b)'s configuration: ml25m_rank64's model and data with
+    solver='timesvdpp', timesvdpp.kernel='pallas', TimeSVDPPConfig's
+    defaults but reg_alpha = reg, the dataset read from ``root``, no early
+    stop."""
+    from mfx_torch.config import TimeSVDPPConfig, apply_overrides, preset
+
+    reg = TimeSVDPPConfig().reg
+    cfg = apply_overrides(preset("ml25m_rank64"), [
+        "solver=timesvdpp", "timesvdpp.kernel=pallas",
+        f"timesvdpp.reg_alpha={reg}", f"data.root={root}", *extra])
+    return dataclasses.replace(cfg, target_rmse=None)
+
+
+def _log_records(path):
+    with open(path) as f:
+        recs = [json.loads(x) for x in f if x.strip()]
+    return [r for r in recs if "train_metric" in r]
+
+
+def falls_every_epoch(what, trains, epochs):
+    if len(trains) != epochs or any(b >= a for a, b in zip(trains,
+                                                           trains[1:])):
+        raise AssertionError(f"{what}: the train RMSE did not fall every "
+                             f"epoch: {trains}")
+
+
+SVDPP_RUNS = {"svdpp": SVDPP_OVERRIDES, "mf": SVDPP_MF_OVERRIDES}
+
+
+def svdpp_cli_start(root):
+    """Phase 30 (a), its processes: SVD++ and the minibatch biased MF it is
+    held to, python -m mfx_torch.cli train side by side on the card (each
+    with a JSONL log under ``root``). They launch no hand-written kernel,
+    so they run while the kernels build. Returns {key: process}."""
+    procs = {}
+    for key, ov in SVDPP_RUNS.items():
+        args = ["train", "--preset", "ml1m_rank32_biased"]
+        for o in ov + [f"log_path={root / (key + '.jsonl')}"]:
+            args += ["--set", o]
+        procs[key] = _spawn(args)
+        _CHILDREN.append((key, None, procs[key]))
+    return procs
+
+
+def svdpp_cli_phase(dev, root, procs, t0):
+    """Phase 30 (a): waits for ``procs`` (svdpp_cli_start's, started at
+    ``t0``) and holds their results to the gates."""
+    import torch
+
+    from mfx_torch.config import apply_overrides, preset
+    from mfx_torch.data.loaders import load_dataset
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.eval.metrics import rmse_mae
+    from mfx_torch.models.mf import init_model
+
+    runs = SVDPP_RUNS
+    outs = {k: json.loads(_finish(p, f"train {k}")[-1])
+            for k, p in procs.items()}
+    wall = time.perf_counter() - t0
+    cfg = apply_overrides(preset("ml1m_rank32_biased"), SVDPP_OVERRIDES)
+    coo = load_dataset("ml-1m", cache=False)  # the CLI's data
+    train, test = train_test_split(coo, cfg.data.test_frac,
+                                   seed=cfg.data.seed)
+    g = torch.Generator(device=dev)
+    g.manual_seed(cfg.model.seed)
+    base, _ = rmse_mae(init_model(g, coo.num_users, coo.num_items,
+                                  cfg.model.rank,
+                                  global_mean=train.global_mean,
+                                  init_scale=cfg.model.init_scale),
+                       test, clip=(0.5, 5.0))
+    recs = {k: _log_records(root / f"{k}.jsonl") for k in runs}
+    for k in runs:
+        log(f"[svdpp] (a) {k} ({' '.join(runs[k])}): {outs[k]}; train_rmse "
+            + " ".join(f"{r['train_metric']:.5f}" for r in recs[k])
+            + "; held-out rmse " + " ".join(f"{r['test_rmse']:.5f}"
+                                          for r in recs[k])
+            + "; epoch_s " + " ".join(f"{r['epoch_s']}" for r in recs[k]))
+    pp, mf = outs["svdpp"]["test_rmse"], outs["mf"]["test_rmse"]
+    log(f"[svdpp] (a) held-out (clipped): SVD++ {pp:.6f}, minibatch MF "
+        f"{mf:.6f}, untrained {base:.6f}, the JAX trainer's SVD++ on the "
+        f"CPU {SVDPP_JAX_RMSE} (tools/svdpp_check.py); {wall:.1f} s, the "
+        "two processes side by side while the kernels built")
+    falls_every_epoch("svdpp (a)", [r["train_metric"] for r in recs["svdpp"]],
+                      cfg.svdpp.epochs)
+    if not (pp < base and pp <= mf + SVDPP_MF_MARGIN
+            and abs(pp - SVDPP_JAX_RMSE) <= SVDPP_JAX_TOL):
+        raise AssertionError(
+            f"svdpp (a): held-out {pp} not below the untrained {base}, above "
+            f"minibatch MF's {mf} + {SVDPP_MF_MARGIN}, or not within "
+            f"{SVDPP_JAX_TOL} of the JAX trainer's {SVDPP_JAX_RMSE}")
+    return {"held_out": pp, "mf_held_out": mf, "untrained": base,
+            "jax_cpu": SVDPP_JAX_RMSE,
+            "epoch_s": [r["epoch_s"] for r in recs["svdpp"]]}
+
+
+def timesvdpp_kernel_check(dev, state, train, cfg, feats):
+    """The time form against its plain version on the first SWEEP_TILES
+    tiles of the first sweep of timeSVD++'s plan, on the time-lane tables
+    of ``state`` (a TimeSVDppState after one Y step, so S != 0) packed as
+    the trainer packs X = P + S. Returns (tiles, max abs err, ms, plain
+    ms)."""
+    import torch
+
+    from mfx_torch.models.svdpp import implicit_scale, implicit_sums
+    from mfx_torch.models.timesvd import TimeSVDModel
+    from mfx_torch.kernels.sgd_sweep import sgd_sweep_plain, sgd_sweep_time
+    from mfx_torch.solvers import timesvd_blocked as tsb
+    from mfx_torch.solvers.blocked import TPG, sweep_geometry
+
+    tc, nb = cfg.timesvdpp, feats.n_bins
+    su = si = tsb.BLOCK
+    t = {k: torch.as_tensor(getattr(state, k), device=dev)
+         for k in ("P", "Q", "Y", "bu", "bi", "bt", "alpha")}
+    nu = implicit_scale(train.user, train.num_users, device=dev)
+    S = implicit_sums(t["Y"], train.user, train.item, nu)
+    ts = TimeSVDModel(t["P"] + S, t["Q"], t["bu"], t["bi"],
+                      float(state.mu), t["bt"], t["alpha"])
+    P, Q = tsb._tables(ts, nb, su, si, dev)
+    tb, dv = feats.features(train.user, train.timestamp)
+    plan = tsb.build_temporal_plan_skeleton(
+        train, tb, dv, su=su, si=si, tile=tsb.TILE, tpg=TPG,
+        nwin=sweep_geometry(train.num_items, cfg.model.rank, si), device=dev)
+    tl, sws = tsb.plan_temporal_epoch_device(*plan, cfg.data.seed, 0)
+    sw = sws[0]
+    nt = min(SWEEP_TILES, sw.t1 - sw.t0)
+    sa, tcs = sw.sa[:nt // TPG].contiguous(), sw.tc[:nt].contiguous()
+    tls, deps = tl[sw.t0:sw.t0 + nt], sw.deps.prefix(nt)
+    seg = slice(sw.win0 * si, (sw.win0 + sw.nwin) * si)
+    kw = dict(su=su, si=si, tpg=TPG, n_bins=nb)
+    lr, reg, mu = tc.lr, tc.reg, ts.mu
+    log(f"[timesvdpp] (b) sgd_sweep_time: {nt} tiles of the first sweep of "
+        f"the path's plan, from the tables after one Y step (|S| max "
+        f"{float(S.abs().max()):.4f}); critical path {deps.critical} tiles")
+    return (nt,) + compare(
+        "sgd_sweep_time (timeSVD++)",
+        lambda Pt, Qt: sgd_sweep_time(Pt, Qt[seg], sa, tcs, tls, lr, reg, mu,
+                                      **kw, deps=deps),
+        lambda Pt, Qt: sgd_sweep_plain(Pt, Qt[seg], sa, tcs, tls, lr, reg,
+                                       mu, **kw),
+        (P, Q))
+
+
+def timesvdpp_blocked_phase(dev, tcoo, root):
+    """Phase 30 (b): blocked timeSVD++ through the driver on phase 15's
+    data (``tcoo``, the loader's cache under ``root``): its gates, a repeat
+    through the trainer (bitwise, with the Y step's CUDA-event times), the
+    lr_y = 0 run against solver='timesvd' timesvd.kernel='pallas', and the
+    time form against its plain version on the path's plan. Returns (the
+    time form's launches in the driver's run, the kernel check's entry)."""
+    import torch
+
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.models.mf import init_model
+    from mfx_torch.models.timesvd import fit_time_features, init_timesvd
+    from mfx_torch.solvers.timesvd import rmse_mae_time
+    from mfx_torch.solvers.timesvd_blocked import train_epochs_timesvd_blocked
+    from mfx_torch.solvers.timesvdpp import train_epochs_timesvdpp
+    from mfx_torch.train.driver import train as drive
+
+    t0 = time.perf_counter()
+    cfg = timesvdpp_config(root, f"timesvdpp.epochs={TIMESVDPP_EPOCHS}")
+    tc, seed = cfg.timesvdpp, cfg.data.seed
+    train, test = train_test_split(tcoo, cfg.data.test_frac, seed=seed)
+    U, I, rank = tcoo.num_users, tcoo.num_items, cfg.model.rank
+    feats = fit_time_features(train, n_bins=tc.n_bins, beta=tc.beta)
+
+    def fresh_model():  # the driver's initial model
+        g = torch.Generator(device=dev)
+        g.manual_seed(cfg.model.seed)
+        return init_model(g, U, I, rank, global_mean=train.global_mean,
+                          init_scale=cfg.model.init_scale)
+
+    base, _ = rmse_mae_time(
+        init_timesvd(None, U, I, rank, tc.n_bins, base=fresh_model()), feats,
+        test, clip=(0.5, 5.0))
+    kernel_counts(reset=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    res = drive(cfg, device=dev, resume=False)
+    wall = time.perf_counter() - t1
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    trains = [r["train_metric"] for r in res.history]
+    epoch_s = [r["epoch_s"] for r in res.history]
+    log(f"[timesvdpp] (b) driver: solver='timesvdpp' kernel='pallas', rank "
+        f"{rank}, {tc.n_bins} bins, lr {tc.lr} decay {tc.lr_decay} reg "
+        f"{tc.reg} = reg_alpha, lr_y = lr, y_trust {tc.y_trust}: "
+        f"{res.epochs_run} epochs in {wall:.1f} s (load, split, features, "
+        f"plan and evals included); epoch_s {epoch_s} (the driver's, without "
+        f"the eval); launches {counts}; peak memory allocated {peak} bytes")
+    log(f"[timesvdpp] (b) train_rmse " + " ".join(f"{x:.5f}" for x in trains)
+        + "; held-out time-aware rmse " + " ".join(
+            f"{r['test_rmse']:.5f}" for r in res.history)
+        + f" (untrained {base:.5f}, clipped as the driver's)")
+    expect_kernels("timesvdpp (b)", counts, {"sgd_sweep_time"})
+    falls_every_epoch("timesvdpp (b)", trains, tc.epochs)
+    if not res.test_rmse < base:
+        raise AssertionError(f"timesvdpp (b): held-out {res.test_rmse} not "
+                             f"below the untrained {base}")
+
+    # the repeat, through the trainer: the driver's model bit for bit, and
+    # the Y step's share of each epoch (CUDA events)
+    timings, cap, first = {}, {}, None
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for epoch, ts, tr in train_epochs_timesvdpp(
+            fresh_model(), train, tc, seed=seed, feats=feats, device=dev,
+            capture=cap, timings=timings):
+        first = cap["state"] if first is None else first
+        if round(tr, 6) != trains[epoch]:
+            raise AssertionError(f"timesvdpp (b): the repeat's train RMSE "
+                                 f"{tr} is not the driver's {trains[epoch]}")
+    torch.cuda.synchronize()
+    rep_s = time.perf_counter() - t1
+    view = ts.as_mf(feats)
+    if not all(torch.equal(getattr(view, k), getattr(res.model, k))
+               for k in ("P", "Q", "bu", "bi")):
+        raise AssertionError("timesvdpp (b): a second run differs from the "
+                             "driver's run")
+    y_ms = timings["y_ms"]
+    log(f"[timesvdpp] (b) a second run (the trainer) repeats the driver's "
+        f"model bit for bit: {rep_s:.2f} s with its prep "
+        f"{timings['prep_s']:.2f} s; the Y step and S refresh each epoch "
+        + " ".join(f"{x:.2f}" for x in y_ms) + " ms (CUDA events), "
+        + " ".join(f"{100 * y / (1e3 * e):.1f}%" for y, e in zip(y_ms,
+                                                                 epoch_s))
+        + " of the driver's epochs")
+
+    # lr_y = 0: the timeSVD path's tables and train RMSE bit for bit (the
+    # two trainers on the driver's split, features and initial model)
+    e = TIMESVDPP_COLLAPSE_EPOCHS
+    zero = [(tr, m) for _, m, tr in train_epochs_timesvdpp(
+        fresh_model(), train, dataclasses.replace(tc, epochs=e, lr_y=0.0),
+        seed=seed, feats=feats, device=dev)]
+    tsvd_cfg = timesvd_config(root, f"timesvd.epochs={e}")
+    tsvd = [(float(tr), m) for _, m, tr in train_epochs_timesvd_blocked(
+        fresh_model(), train, tsvd_cfg.timesvd, seed=seed, feats=feats,
+        device=dev)]
+    keys = ("P", "Q", "bu", "bi", "bt", "alpha")
+    same = all(torch.equal(getattr(a, k), getattr(b, k))
+               for (_, a), (_, b) in zip(zero, tsvd) for k in keys)
+    tr0, tr1 = [x for x, _ in zero], [x for x, _ in tsvd]
+    log(f"[timesvdpp] (b) timesvdpp.lr_y=0 (train_epochs_timesvdpp) against "
+        f"timesvd.kernel=pallas (train_epochs_timesvd_blocked), {e} epochs "
+        f"from the driver's model, split and features: train_rmse {tr0} / "
+        f"{tr1}, tables equal every epoch {same}")
+    if len(zero) != e or not same or tr0 != tr1:
+        raise AssertionError("timesvdpp (b): the lr_y = 0 run is not the "
+                             "timeSVD run")
+    nt, err, ms, plain_ms = timesvdpp_kernel_check(dev, first, train, cfg,
+                                                   feats)
+    log(f"[time] phase 30 (b) {time.perf_counter() - t0:.1f} s")
+    return counts["sgd_sweep_time"], {
+        "tiles": nt, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "epoch_s": epoch_s, "y_step_ms": y_ms,
+        "peak_bytes": peak, "held_out": res.test_rmse, "untrained": base}
+
+
+def timesvdpp_jnp_phase(dev, root):
+    """Phase 30 (c): the minibatch timeSVD++ trainer through the driver on
+    phase 16's temporal ML-1M (its recipe and seed), written as the
+    loader's cache under ``root``. It launches no hand-written kernel, so
+    it runs while the kernels build."""
+    import torch
+
+    from mfx_torch.config import apply_overrides, preset
+    from mfx_torch.data.loaders import GENERATOR_VERSION, load_dataset
+    from mfx_torch.data.synthetic import ML1M_SHAPE, make_synthetic
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.models.mf import init_model
+    from mfx_torch.models.timesvd import fit_time_features, init_timesvd
+    from mfx_torch.solvers.timesvd import rmse_mae_time
+    from mfx_torch.train.driver import train as drive
+
+    t0 = time.perf_counter()
+    temporal(make_synthetic(*ML1M_SHAPE, rank=32, seed=101, star_step=1.0,
+                            user_zipf_s=0.6), 101).save_npz(
+        root / f"ml-1m.v{GENERATOR_VERSION}.synthetic.npz")
+    cfg = apply_overrides(preset("ml1m_rank32_biased"), [
+        "solver=timesvdpp", "timesvdpp.dup_trust=16",
+        f"timesvdpp.epochs={TIMESVDPP_JNP_EPOCHS}", f"data.root={root}"])
+    tc = cfg.timesvdpp
+    coo = load_dataset("ml-1m", root=root)  # the driver's data
+    train, test = train_test_split(coo, cfg.data.test_frac,
+                                   seed=cfg.data.seed)
+    g = torch.Generator(device=dev)
+    g.manual_seed(cfg.model.seed)
+    m0 = init_model(g, coo.num_users, coo.num_items, cfg.model.rank,
+                    global_mean=train.global_mean,
+                    init_scale=cfg.model.init_scale)
+    feats = fit_time_features(train, n_bins=tc.n_bins, beta=tc.beta)
+    base, _ = rmse_mae_time(init_timesvd(None, coo.num_users, coo.num_items,
+                                         cfg.model.rank, tc.n_bins, base=m0),
+                            feats, test, clip=(0.5, 5.0))
+    kernel_counts(reset=True)
+    res = drive(cfg, device=dev, resume=False)
+    counts = kernel_counts()
+    trains = [r["train_metric"] for r in res.history]
+    log(f"[timesvdpp] (c) jnp (ML-1M-shaped, dup_trust 16): "
+        f"{res.epochs_run} epochs, epoch_s "
+        f"{[r['epoch_s'] for r in res.history]}; train_rmse "
+        + " ".join(f"{x:.5f}" for x in trains) + "; held-out time-aware rmse "
+        + " ".join(f"{r['test_rmse']:.5f}" for r in res.history)
+        + f" (untrained {base:.5f}); launches {counts}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    expect_kernels("timesvdpp (c)", counts, set())
+    falls_every_epoch("timesvdpp (c)", trains, tc.epochs)
+    if not res.test_rmse < base:
+        raise AssertionError(f"timesvdpp (c): held-out {res.test_rmse} not "
+                             f"below the untrained {base}")
+    return {"held_out": res.test_rmse, "untrained": base,
+            "epoch_s": [r["epoch_s"] for r in res.history]}
+
+
+def svdpp_early(dev, root):
+    """Phase 30 (c) and the start of (a), while the kernels build (neither
+    launches a hand-written kernel). Returns (c)'s records and (a)'s
+    processes with their start time."""
+    t0 = time.perf_counter()
+    rec_c = timesvdpp_jnp_phase(dev, root)
+    log(f"[time] phase 30 (c) {time.perf_counter() - t0:.1f} s")
+    return rec_c, svdpp_cli_start(root), time.perf_counter()
+
 def main() -> int:
     import shutil
     import threading
@@ -5631,9 +6037,21 @@ def main() -> int:
     # kernel: they run here, while the kernels build
     GRAM["nmf"] = nmf_phase(dev, cfg, train, test, fresh_model)
     GRAM["ials_learn"] = ials_learn_phase(dev)
+    # 30 (c) minibatch timeSVD++, and (a)'s SVD++ processes: no
+    # hand-written kernel either
+    svdpp_root = _build.BUILD_DIR.parent / "chip_smoke_svdpp"
+    shutil.rmtree(svdpp_root, ignore_errors=True)
+    svdpp_root.mkdir(parents=True)
+    timesvdpp_jnp, svdpp_procs, svdpp_t0 = svdpp_early(dev, svdpp_root)
     build_thread.join()
     if "error" in build:
         raise build["error"]
+    # (a)'s processes end before any kernel is timed
+    t0 = time.perf_counter()
+    svdpp_cli = svdpp_cli_phase(dev, svdpp_root, svdpp_procs, svdpp_t0)
+    shutil.rmtree(svdpp_root, ignore_errors=True)
+    log(f"[time] phase 30 (a) after the build {time.perf_counter() - t0:.1f} "
+        "s")
     log(f"[build] all kernels built and loaded in {build['s']:.1f} s "
         f"({_build.BUILD_DIR})")
     # the BPR and netflix data from here: beside the build they slow it,
@@ -5908,9 +6326,19 @@ def main() -> int:
     time_kernel_phase(dev, tcoo, results, bounds, sweeps)
     # 19 (second part). the rank-32 time form, on phase 15's data
     rank32_time_phase(dev, tcoo, results, bounds, sweeps)
-    launches["sgd_sweep_time"] = time_path_phase(dev, tcoo)
+    launches["sgd_sweep_time"], time_root = time_path_phase(dev, tcoo)
     # 27-28 (timeSVD). the time form at ranks 16 and 8; the path at 16
     launches["sgd_sweep_time_r16"] = narrow_time_phase(dev, tcoo, narrow)
+    # 30. SVD++ through the CLI; timeSVD++, blocked on phase 15's data
+    # (through the time form) and minibatch on phase 16's temporal ML-1M
+    time_paths = {"timesvd": launches["sgd_sweep_time"]}
+    time_paths["timesvdpp"], timesvdpp = timesvdpp_blocked_phase(dev, tcoo,
+                                                                time_root)
+    timesvdpp.update(svdpp_cli=svdpp_cli, jnp_ml1m=timesvdpp_jnp)
+    launches["sgd_sweep_time"] = sum(time_paths.values())
+    sweeps["sgd_sweep_time"].update(launches_by_path=time_paths,
+                                    timesvdpp=timesvdpp)
+    shutil.rmtree(time_root, ignore_errors=True)
     del tcoo
 
     # 19-20. ml1m_rank32_biased: the rank-32 forms against plain on its

@@ -30,6 +30,7 @@ from mfx_torch.eval.ranking import (
     full_hr_ndcg_at_k, hr_ndcg_at_k, user_topk_metrics,
 )
 from mfx_torch.models.mf import MFModel, init_model
+from mfx_torch.models.svdpp import SVDppModel, init_svdpp
 from mfx_torch.models.timesvd import (TimeSVDModel, fit_time_features,
                                       init_timesvd)
 from mfx_torch.serve import (
@@ -44,8 +45,6 @@ from mfx_torch.version import __version__
 # the reference's public names that the port does not have yet, each with
 # the ROADMAP item that ports it
 NOT_PORTED = {
-    "SVDppModel": "Queue 1 item 12 (SVD++)",
-    "init_svdpp": "Queue 1 item 12 (SVD++)",
     "ShardedTopKRecommender": "Queue 1 item 13 (the sharded recommender)",
     "BlendResult": "Queue 1 item 9 (blend)",
     "fit_blend": "Queue 1 item 9 (blend)",
@@ -66,7 +65,7 @@ __all__ = [
     "leave_one_out_split",
     "rmse", "rmse_mae", "sampled_auc", "hr_ndcg_at_k", "full_hr_ndcg_at_k",
     "user_topk_metrics", "evaluate",
-    "MFModel", "init_model",
+    "MFModel", "init_model", "SVDppModel", "init_svdpp",
     "TimeSVDModel", "init_timesvd", "fit_time_features",
     "load_checkpoint", "save_checkpoint",
     "TrainResult", "train", "TopKRecommender",

@@ -8,6 +8,12 @@
     python -m mfx_torch.cli train --preset ml1m_rank32_biased \
         --set model.rank=64 --set solver=timesvd --set timesvd.kernel=pallas \
         --set data.root=DIR
+    python -m mfx_torch.cli train --preset ml1m_rank32_biased \
+        --set solver=svdpp
+    python -m mfx_torch.cli train --preset ml25m_rank64 \
+        --set solver=timesvdpp --set timesvdpp.kernel=pallas \
+        --set timesvdpp.reg_alpha=0.02 --set data.root=DIR
+        (timesvdpp.kernel=jnp: the minibatch epoch, any rank)
     python -m mfx_torch.cli train --preset netflix100m_rank128_dp \
         --set solver=als --set parallel.mode=single
         (solver=ials or nmf: also --set model.use_bias=false)
@@ -27,8 +33,8 @@ Configs come from the ``mfx_torch.config`` presets (the reference's) and
 (``mfx.cli``) and prints the same JSON, plus ``--device`` (default ``cuda``; ``cpu`` runs
 the kernels' plain versions). Datasets named with ``--dataset`` are read
 from ``--root`` (and cached there) when it is given; otherwise their
-seeded synthetic stand-in is generated in memory. timeSVD needs a
-dataset with timestamps: a real one's cache under ``data.root``
+seeded synthetic stand-in is generated in memory. timeSVD and timeSVD++
+need a dataset with timestamps: a real one's cache under ``data.root``
 (``{name}.v{V}.npz``) keeps them; the synthetic stand-ins have none.
 """
 

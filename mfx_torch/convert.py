@@ -15,10 +15,13 @@ import numpy as np
 import torch
 
 from mfx_torch.models.mf import MFModel
+from mfx_torch.models.svdpp import SVDppModel
 from mfx_torch.models.timesvd import TimeSVDModel
 
 __all__ = ["model_from_numpy", "model_to_numpy", "timesvd_from_numpy",
-           "merged_to_plain", "plain_to_merged"]
+           "svdpp_from_numpy", "svdpp_to_numpy",
+           "timesvdpp_state_from_numpy", "merged_to_plain",
+           "plain_to_merged"]
 
 _LANES = 128     # lanes of a merged row
 _BIAS_ROWS = 8   # bias rows behind each block's factor rows
@@ -60,6 +63,39 @@ def timesvd_from_numpy(arrays: dict,
     t = {k: torch.tensor(np.asarray(arrays[k]), dtype=torch.float32,
                          device=device) for k in ("bt", "alpha")}
     return TimeSVDModel(m.P, m.Q, m.bu, m.bi, m.mu, t["bt"], t["alpha"])
+
+
+def svdpp_from_numpy(arrays: dict,
+                     device: torch.device | str = "cuda") -> SVDppModel:
+    """``{"P", "Q", "Y", "bu", "bi", "mu", "nu"}`` numpy arrays (the
+    reference ``SVDppModel``'s fields through ``np.asarray``) -> an
+    ``SVDppModel`` on ``device``, the card unless told otherwise. The
+    tables are copied."""
+    m = model_from_numpy(arrays, device=device)
+    t = {k: torch.tensor(np.asarray(arrays[k], np.float32),
+                         dtype=torch.float32, device=device)
+         for k in ("Y", "nu")}
+    return SVDppModel(m.P, m.Q, t["Y"], m.bu, m.bi, m.mu, t["nu"])
+
+
+def svdpp_to_numpy(model: SVDppModel) -> dict:
+    """Inverse of :func:`svdpp_from_numpy`: host float32 copies of the
+    tables, ``mu`` as a 0-d float32 array (the reference's dtype)."""
+    out = {k: getattr(model, k).detach().cpu().numpy().copy()
+           for k in ("P", "Q", "Y", "bu", "bi", "nu")}
+    out["mu"] = np.asarray(model.mu, np.float32)
+    return out
+
+
+def timesvdpp_state_from_numpy(arrays: dict):
+    """The reference ``TimeSVDppState``'s fields (or any mapping of its
+    keys) -> the port's ``TimeSVDppState``, float32 host copies: the
+    ``init_state`` of ``solvers.timesvdpp.train_epochs_timesvdpp``."""
+    from mfx_torch.solvers.timesvdpp import TimeSVDppState
+
+    return TimeSVDppState(**{
+        k: np.array(arrays[k], np.float32) for k in (
+            "P", "Q", "Y", "bu", "bi", "mu", "bt", "alpha", "nu")})
 
 
 def _split_merged(M: np.ndarray, rank: int, block: int):

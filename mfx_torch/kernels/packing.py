@@ -29,7 +29,7 @@ from mfx_torch.models.timesvd import TimeSVDModel
 
 __all__ = ["to_lane_model", "from_lane_model", "to_tlane_model",
            "from_tlane_model", "pad_rows", "lane_tables", "plain_tables",
-           "row_add", "bf16_order", "bf16_row_add"]
+           "row_add", "segment_row_add", "bf16_order", "bf16_row_add"]
 
 
 def to_lane_model(model: MFModel) -> MFModel:
@@ -139,6 +139,32 @@ def row_add(table, rows, delta, order=None):
         table.index_add_(0, rows, delta)
     else:
         table.index_put_((rows,), delta, accumulate=True)
+
+
+def segment_row_add(table, rows, delta):
+    """:func:`row_add` for deltas that share few rows many times (a COO's
+    user or item column), in the order ``index_add_`` takes on the CPU:
+    each row's value, then its deltas in slot order. The rows are sorted
+    stably; each row's current value and its deltas are laid out as one
+    segment and summed in order (``torch.segment_reduce``: on the card one
+    thread a lane of a row, no float atomics), and the sums are written
+    back once a row. On the card ``index_put_`` walks a run of one row
+    serially, and a Zipf-hot item holds tens of thousands of ratings; here
+    no row repeats in a scatter. Each device repeats its bits; a 2-D
+    table gets ``index_add_``'s bits on either (the card sums a lane in
+    order), a 1-D one may sum another way on the card. f32 tables."""
+    srows, order = torch.sort(rows, stable=True)
+    uniq, counts = torch.unique_consecutive(srows, return_counts=True)
+    m, n = uniq.shape[0], rows.shape[0]
+    seg = torch.repeat_interleave(
+        torch.arange(m, device=rows.device), counts, output_size=n)
+    starts = torch.cumsum(counts + 1, 0) - (counts + 1)
+    ext = delta.new_empty((n + m,) + tuple(delta.shape[1:]))
+    ext[starts] = table.index_select(0, uniq)
+    ext[torch.arange(n, device=rows.device) + seg + 1] = delta.index_select(
+        0, order)
+    table.index_copy_(0, uniq, torch.segment_reduce(ext, "sum",
+                                                     lengths=counts + 1))
 
 
 def bf16_order(table, rows):

@@ -36,7 +36,7 @@ from mfx_torch.models.timesvd import (TimeFeatures, TimeSVDModel,
 from mfx_torch.solvers.sgd import plan_epoch
 
 __all__ = ["timesvd_minibatch_update", "train_epochs_timesvd",
-           "rmse_mae_time"]
+           "timesvd_epoch", "rmse_mae_time"]
 
 
 def _step(tabs, mu, n_bins, u, i, r, w, tb, dv, rates, *, unique_rows,
@@ -160,31 +160,41 @@ def train_epochs_timesvd(
     lr_a0 = cfg.lr if cfg.lr_alpha is None else cfg.lr_alpha
     reg_t = cfg.reg if cfg.reg_t is None else cfg.reg_t
     reg_a = 10.0 * cfg.reg if cfg.reg_alpha is None else cfg.reg_alpha
-    unique_rows = cfg.partitioner == "conflict_free"
-    trust = cfg.dup_trust > 0.0 and not unique_rows
-    nb = ts.n_bins
     for epoch in range(start_epoch, cfg.epochs):
         decay = cfg.lr_decay ** epoch
-        rates = tuple(mb.as_scalar(x, dev) for x in (
-            cfg.lr * decay, lr_t0 * decay, lr_a0 * decay, cfg.reg, reg_t,
-            reg_a))
         plan = plan_epoch(train, cfg, seed, epoch, device=dev, extras=extras)
-        b = plan.batches
-        B = plan.batch_size
-        u = mb.clamp_ids(b["users"], ts.num_users + B)
-        i = mb.clamp_ids(b["items"], ts.num_items + B)
-        tb = b["tbins"].long()
-        tabs = _sinked(ts, B)
-        sse = torch.zeros((), dtype=torch.float32, device=dev)
-        for k in range(plan.num_batches):
-            counts = (_counts(b["users"][k], b["items"][k], b["tbins"][k],
-                              b["weights"][k], nb) if trust else None)
-            sse += _step(tabs, ts.mu, nb, u[k], i[k], b["ratings"][k],
-                         b["weights"][k], tb[k], b["devs"][k], rates,
-                         unique_rows=unique_rows, dup_trust=cfg.dup_trust,
-                         counts=counts)
-        ts = _unsinked(tabs, ts)
+        ts, sse = timesvd_epoch(ts, plan, (
+            cfg.lr * decay, lr_t0 * decay, lr_a0 * decay, cfg.reg, reg_t,
+            reg_a), cfg)
         yield epoch, ts, float(torch.sqrt(sse / max(1, plan.n_real)))
+
+
+def timesvd_epoch(ts: TimeSVDModel, plan, rates, cfg):
+    """One snapshot-minibatch epoch over ``plan`` (``solvers.sgd.
+    plan_epoch`` with the ``tbins`` and ``devs`` extras) on copies of
+    ``ts``'s tables; returns ``(new_model, sse)``, the sse a 0-d f32
+    tensor. ``rates``: (lr, lr_t, lr_a, reg, reg_t, reg_a) as floats;
+    ``cfg`` gives the partitioner and ``dup_trust``. The epoch of the
+    timeSVD trainer, and of timeSVD++'s over ``X = P + S``."""
+    dev, nb = ts.device, ts.n_bins
+    rates = tuple(mb.as_scalar(x, dev) for x in rates)
+    unique_rows = cfg.partitioner == "conflict_free"
+    trust = cfg.dup_trust > 0.0 and not unique_rows
+    b = plan.batches
+    B = plan.batch_size
+    u = mb.clamp_ids(b["users"], ts.num_users + B)
+    i = mb.clamp_ids(b["items"], ts.num_items + B)
+    tb = b["tbins"].long()
+    tabs = _sinked(ts, B)
+    sse = torch.zeros((), dtype=torch.float32, device=dev)
+    for k in range(plan.num_batches):
+        counts = (_counts(b["users"][k], b["items"][k], b["tbins"][k],
+                          b["weights"][k], nb) if trust else None)
+        sse += _step(tabs, ts.mu, nb, u[k], i[k], b["ratings"][k],
+                     b["weights"][k], tb[k], b["devs"][k], rates,
+                     unique_rows=unique_rows, dup_trust=cfg.dup_trust,
+                     counts=counts)
+    return _unsinked(tabs, ts), sse
 
 
 def rmse_mae_time(model: TimeSVDModel, feats: TimeFeatures, coo: RatingsCOO,

@@ -15,6 +15,13 @@ blocked trainer through the time form of the lane sweep
 the train split; held-out ratings are evaluated at their own timestamps
 (``rmse_mae_time``), and checkpoints, ranking, the AUC and the result get
 the model's biased-MF view at the end of the train window (``as_mf``).
+SVD++ (``solver='svdpp'``, ``solvers/svdpp.py``) trains the minibatch
+epoch over ``X = P + S`` and a full-batch step on its implicit factors Y,
+and yields the MF view; timeSVD++ (``solver='timesvdpp'``,
+``solvers/timesvdpp.py``) adds that step to timeSVD's epoch, by
+``timesvdpp.kernel`` 'jnp' or 'pallas' as timeSVD's, and is evaluated as
+timeSVD is. Both run on one device (SVD++'s data-parallel trainer is
+Q1-13) and cannot resume from the MF-view checkpoint, as the reference's.
 The Gram-engine solvers (``solver`` 'als', 'ials' or 'nmf', single
 device; ``solvers/als.py``, ``ials.py``, ``nmf.py``) train one sweep an
 epoch entry, the train loss NaN, as the reference's driver reports them;
@@ -112,11 +119,26 @@ def _check_supported(cfg: TrainConfig) -> None:
                 "is ported (ROADMAP Queue 1 item 13); set "
                 "parallel.model_axis=1"
             )
-    elif cfg.solver == "timesvd":
+    elif cfg.solver in ("timesvd", "timesvdpp"):
         if mode != "single":
             raise ValueError(
-                "solver='timesvd' runs single-device; use solver='sgd' "
-                "for the data-parallel / row-sharded paths"
+                f"solver={cfg.solver!r} runs single-device; use "
+                "solver='sgd' for the data-parallel / row-sharded paths"
+            )
+    elif cfg.solver == "svdpp":
+        if mode in ("dp", "hybrid"):
+            raise NotImplementedError(
+                f"mfx_torch.train: solver='svdpp' parallel={mode!r}; the "
+                "data-parallel SVD++ trainer (svdpp_dp) is ROADMAP Queue 1 "
+                "item 13 (Q1-13); set parallel.mode=single to train on one "
+                "device"
+            )
+        if mode != "single":
+            # the reference's own refusal (mfx/train/driver.py)
+            raise ValueError(
+                "solver='svdpp' runs single-device or data-parallel "
+                "(parallel.mode in ('single', 'dp', 'hybrid')); use "
+                "solver='sgd' for the row-sharded ring paths"
             )
     elif cfg.solver in GRAM_SOLVERS:
         if mode != "single":
@@ -130,11 +152,11 @@ def _check_supported(cfg: TrainConfig) -> None:
     elif cfg.solver != "sgd" or mode != "single":
         raise NotImplementedError(
             f"mfx_torch.train: solver={cfg.solver!r} parallel={mode!r}; "
-            "only single-device SGD, ALS, iALS and NMF (parallel.mode="
-            "single), timeSVD and the BPR ring of one shard are ported: the "
-            "SGD ring and data-parallel modes are ROADMAP Queue 1 item 13 "
-            "(Q1-13), svdpp and timesvdpp Queue 1 item 12; set "
-            "parallel.mode=single to train SGD on one device"
+            "only single-device SGD, ALS, iALS, NMF, SVD++, timeSVD and "
+            "timeSVD++ (parallel.mode=single) and the BPR ring of one shard "
+            "are ported: the SGD ring and data-parallel modes are ROADMAP "
+            "Queue 1 item 13 (Q1-13); set parallel.mode=single to train SGD "
+            "on one device"
         )
     if cfg.model.dtype != "float32":
         if cfg.model.dtype not in TABLE_DTYPES:
@@ -155,8 +177,9 @@ def _check_supported(cfg: TrainConfig) -> None:
                 f"solver={cfg.solver!r}, partitioner="
                 f"{cfg.sgd.partitioner!r}; bf16 tables train on the "
                 "minibatch path only (solver='sgd', partitioner 'fixed' or "
-                "'conflict_free'): the BPR ring, timeSVD and the Gram-engine "
-                "solvers keep float32 tables (ROADMAP Queue 1 item 12)"
+                "'conflict_free'): the BPR ring, timeSVD, SVD++, timeSVD++ "
+                "and the Gram-engine solvers keep float32 tables (ROADMAP "
+                "Queue 1 item 12)"
             )
 
 
@@ -196,6 +219,21 @@ def _epochs(cfg: TrainConfig, model, train_coo, seed, dev, start_epoch,
             feats, timings):
     if cfg.solver in GRAM_SOLVERS:
         return _sweeps(cfg, model, train_coo, start_epoch)
+    if cfg.solver == "svdpp":
+        from mfx_torch.solvers.svdpp import train_epochs_svdpp
+
+        # start_epoch > 0 raises there: the MF-view checkpoint cannot
+        # carry the implicit Y table
+        return train_epochs_svdpp(model, train_coo, cfg.svdpp,
+                                  cfg.model.use_bias, seed=seed,
+                                  start_epoch=start_epoch, device=dev)
+    if cfg.solver == "timesvdpp":
+        from mfx_torch.solvers.timesvdpp import train_epochs_timesvdpp
+
+        return train_epochs_timesvdpp(model, train_coo, cfg.timesvdpp,
+                                      cfg.model.use_bias, seed=seed,
+                                      start_epoch=start_epoch, feats=feats,
+                                      device=dev)
     if cfg.solver == "timesvd":
         if cfg.timesvd.kernel == "pallas":
             from mfx_torch.solvers.timesvd_blocked import (
@@ -268,11 +306,11 @@ def train(cfg: TrainConfig, device: torch.device | str = "cuda",
     clip = (0.5, 5.0) if cfg.clip_predictions else None
     implicit = cfg.solver in ("bpr", "ials")
     feats = None
-    if cfg.solver == "timesvd":
+    if cfg.solver in ("timesvd", "timesvdpp"):
         # the time featurizer, shared by the trainer and the time-aware
         # eval (deterministic from the train split: refitted, not saved)
-        feats = fit_time_features(train_coo, n_bins=cfg.timesvd.n_bins,
-                                  beta=cfg.timesvd.beta)
+        tc = cfg.timesvd if cfg.solver == "timesvd" else cfg.timesvdpp
+        feats = fit_time_features(train_coo, n_bins=tc.n_bins, beta=tc.beta)
 
     def _mf(m):
         # a temporal model folds its time terms in at the end of the train

@@ -376,11 +376,20 @@ def test_parallel_modes_are_refused(tmp_path, solver, mode):
         train(cfg, device="cpu")
 
 
+# svdpp and timesvdpp train at parallel.mode=single since they were
+# ported (tests/test_torch_svdpp.py, test_torch_timesvdpp.py); in the
+# preset's own row-sharded mode the driver refuses them as the reference's
+# does (mfx/train/driver.py)
+STILL_REFUSED = {"svdpp": "runs single-device or data-parallel",
+                 "timesvdpp": "runs single-device; use solver='sgd'"}
+
+
 @pytest.mark.parametrize("solver", ["svdpp", "timesvdpp"])
 def test_other_solvers_still_refused(tmp_path, solver):
     from mfx_torch.train.driver import train
 
-    cfg = apply_overrides(preset("netflix100m_rank128_dp"),
-                          overrides(tmp_path, solver))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    cfg = apply_overrides(preset("netflix100m_rank128_dp"), [
+        f"solver={solver}", f"data.root={tmp_path}"])
+    assert cfg.parallel.mode == "sharded"
+    with pytest.raises(ValueError, match=STILL_REFUSED[solver]):
         train(cfg, device="cpu")

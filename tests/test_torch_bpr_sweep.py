@@ -82,7 +82,10 @@ def test_plain_matches_the_pallas_kernel():
     _hold_plain_to_the_pallas_kernel(RANK, 2_500)
 
 
-@pytest.mark.parametrize("rank", [32, 128, 16, 8, 4, 2, 1])
+# ranks from 1 up: the reference's interpret mode compiles longest at rank
+# 1, and a run spread over workers ends sooner when its longest cases
+# start first
+@pytest.mark.parametrize("rank", [1, 2, 4, 8, 16, 32, 128])
 def test_plain_matches_the_pallas_kernel_at_other_ranks(rank):
     """The kernel's other forms: pack 4 and pack 1 in the reference. Rank
     128 on 1,000 triples, as the reference's own test keeps its interpret

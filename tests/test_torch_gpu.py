@@ -328,6 +328,53 @@ def test_blocked_timesvd_through_the_kernel_is_repeatable(cuda, rank):
     assert runs[0][1][0] < runs[0][0][0]
 
 
+@pytest.mark.parametrize("rank", [RANK, 32])
+def test_blocked_timesvdpp_on_the_card_is_its_cpu_run(cuda, rank):
+    """``train_epochs_timesvdpp`` with ``kernel='pallas'`` (30 bins, 16 at
+    rank 32): two runs of 2 epochs on the card bitwise equal (tables, Y,
+    train RMSE) through the time form, never its plain version; the train
+    RMSE falls; its first epoch on the CPU from the card's plan bits
+    within 1e-5 (train RMSE) and 1e-4 (tables and Y: the card's sorted
+    scatter sums in another order than the CPU's)."""
+    from mfx_torch.config import TimeSVDPPConfig
+    from mfx_torch.solvers.timesvdpp import train_epochs_timesvdpp
+
+    nb = TIME_BINS.get(rank, 30)
+    train, *_ = _time_case(cuda, rank, nb, SU, T, 3)
+    cfg = TimeSVDPPConfig(lr=0.01, reg=0.02, epochs=2, n_bins=nb,
+                          kernel="pallas", reg_alpha=0.02)
+    base = init_model(torch.Generator(device=cuda).manual_seed(0), U, I,
+                      rank, global_mean=train.global_mean)
+    runs = []
+    for _ in range(2):
+        before = sgd_sweep_time.launches
+        cap = {}
+        runs.append([(tr, m, cap["state"].Y) for _, m, tr in
+                     train_epochs_timesvdpp(base, train, cfg, seed=0,
+                                            capture=cap)])
+        assert sgd_sweep_time.launches > before
+    a, b = runs
+    for (ta, ma, ya), (tb, mb_, yb) in zip(a, b):
+        assert ta == tb and np.array_equal(ya, yb) and np.abs(ya).max() > 0
+        for k in ("P", "Q", "bu", "bi", "bt", "alpha"):
+            assert torch.equal(getattr(ma, k), getattr(mb_, k)), k
+    assert a[1][0] < a[0][0]
+    cpu = init_model(torch.Generator().manual_seed(0), U, I, rank)
+    for k in ("P", "Q", "bu", "bi"):
+        getattr(cpu, k).copy_(getattr(base, k).cpu())
+    cpu.mu = base.mu
+    cap = {}
+    (_, mc, trc), = train_epochs_timesvdpp(
+        cpu, train, dataclasses.replace(cfg, epochs=1), seed=0, capture=cap,
+        plan_rand=lambda e, n: pdv.epoch_rand(n, 0, e, cuda).cpu())
+    assert abs(trc - a[0][0]) <= 1e-5
+    for k in ("P", "Q", "bu", "bi", "bt", "alpha"):
+        np.testing.assert_allclose(getattr(mc, k).numpy(),
+                                   getattr(a[0][1], k).cpu().numpy(),
+                                   atol=1e-4, err_msg=k)
+    np.testing.assert_allclose(cap["state"].Y, a[0][2], atol=1e-4)
+
+
 # ---- sgd_sweep_tile, sgd_sweep_step_u (tile biases) ---------------------
 
 TILE_SWEEPS = {"tile": (sgd_sweep_tile, sgd_sweep_tile_plain),

@@ -47,7 +47,8 @@ MODULES = [
     "mfx_torch.solvers.timesvd_blocked", "mfx_torch.api",
     "mfx_torch.serve.rerank", "mfx_torch.version",
     "mfx_torch.solvers.als", "mfx_torch.solvers.ials",
-    "mfx_torch.solvers.nmf",
+    "mfx_torch.solvers.nmf", "mfx_torch.models.svdpp",
+    "mfx_torch.solvers.svdpp", "mfx_torch.solvers.timesvdpp",
 ]
 
 
@@ -134,6 +135,49 @@ def test_loaders_default_to_the_card(tmp_path):
     assert model_from_numpy(arrays, device="cpu").device.type == "cpu"
     with pytest.raises((RuntimeError, AssertionError)):
         model_from_numpy(arrays)
+
+
+def test_svdpp_family_defaults_to_the_card(tmp_path):
+    """SVDppModel.load_npz, svdpp_from_numpy and implicit_scale put their
+    tensors on the card unless asked otherwise (so here, with no card,
+    they raise); the SVD++ and timeSVD++ trainers run on their model's
+    device, so a model on a device without a kernel reaches no CPU
+    fallback."""
+    import inspect
+
+    from mfx_torch.config import SVDPPConfig, TimeSVDPPConfig
+    from mfx_torch.convert import model_from_numpy, svdpp_from_numpy
+    from mfx_torch.data.coo import RatingsCOO
+    from mfx_torch.models.svdpp import SVDppModel, implicit_scale
+    from mfx_torch.solvers.svdpp import train_epochs_svdpp
+    from mfx_torch.solvers.timesvdpp import train_epochs_timesvdpp
+
+    for fn in (SVDppModel.load_npz, svdpp_from_numpy, implicit_scale):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    a = {"P": np.ones((4, 8)), "Q": np.ones((6, 8)), "Y": np.zeros((6, 8)),
+         "bu": np.zeros(4), "bi": np.zeros(6), "mu": 3.0, "nu": np.ones(4)}
+    svdpp_from_numpy(a, device="cpu").save_npz(tmp_path / "s.npz")
+    assert SVDppModel.load_npz(tmp_path / "s.npz",
+                               device="cpu").device.type == "cpu"
+    coo = RatingsCOO(np.arange(4, dtype=np.int32), np.arange(4, dtype=np.int32),
+                     np.full(4, 3.0, np.float32), 4, 6,
+                     timestamp=np.arange(4, dtype=np.int64))
+    meta = model_from_numpy(a, device="cpu").to("meta")
+    for run in (lambda: train_epochs_svdpp(meta, coo, SVDPPConfig(epochs=1),
+                                           True),
+                lambda: train_epochs_timesvdpp(
+                    meta, coo, TimeSVDPPConfig(epochs=1, n_bins=2,
+                                               kernel="pallas",
+                                               reg_alpha=0.02))):
+        with pytest.raises((NotImplementedError, RuntimeError, ValueError)):
+            next(run())
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the defaults would succeed")
+    for build in (lambda: SVDppModel.load_npz(tmp_path / "s.npz"),
+                  lambda: svdpp_from_numpy(a),
+                  lambda: implicit_scale(coo.user, 4)):
+        with pytest.raises((RuntimeError, AssertionError)):
+            build()
 
 
 def test_wrappers_on_a_missing_card_raise():

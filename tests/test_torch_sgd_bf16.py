@@ -120,7 +120,10 @@ def _port(body, rank, bf16):
 
 
 @pytest.mark.parametrize("body,rank", [
-    (body, rank) for rank in (32, 64, 128, 16, 8, 4, 2, 1) for body in BODIES
+    # ranks from 1 up: the reference's interpret mode compiles longest at
+    # rank 1 (128 slots a lane row), and a run spread over workers ends
+    # sooner when its longest cases start first
+    (body, rank) for rank in (1, 2, 4, 8, 16, 32, 64, 128) for body in BODIES
     if body != "lane" or rank > 1])  # no lane model at rank 1
 def test_bf16_sweep_matches_pallas_interpret(body, rank):
     """Tables within ATOL of the reference's bf16 form, their mean

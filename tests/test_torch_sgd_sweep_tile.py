@@ -38,10 +38,16 @@ def _one_thread():
 def sweep_case(rank, tpg):
     """(plans, model): the reference tests' geometry (su = si = 128,
     T = 32, two windows a sweep) on a 300 x 260 x 3000 synthetic, with
-    numpy-seeded biases so that the bias terms are live."""
+    numpy-seeded biases so that the bias terms are live. At ranks 16 to 1
+    (8 to 128 slots a reference lane row) the plan is one sweep over all
+    three windows: the reference's interpret mode compiles its unrolled
+    pack loop once for each sweep shape, up to minutes a compile at those
+    packs, and the two sweeps of two windows and one compiled it twice.
+    Ranks 32 to 128 keep the two sweeps."""
     coo = synthetic.make_synthetic(U, I, N, seed=5)
+    nwin = NWIN if rank > 16 else -(-I // SI)
     plans = bh.build_sweep_plans(coo.user, coo.item, coo.rating, U, I, SU, SI,
-                                 T, tpg, NWIN, epoch_permutation(N, 0, 0))
+                                 T, tpg, nwin, epoch_permutation(N, 0, 0))
     rng = np.random.default_rng(rank + tpg)
     m = init_model(2, U, I, rank, global_mean=coo.global_mean)
     model = JMFModel(

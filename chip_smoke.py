@@ -409,7 +409,33 @@ printed as it ends:
    the driver's model, split and features (torch.equal tables every
    epoch, equal train RMSEs); the time form against its plain version on
    the first 2,048 tiles of the path's plan from the tables after one Y
-   step (S != 0), within 1e-4, two kernel runs bitwise.
+   step (S != 0), within 1e-4, two kernel runs bitwise;
+31. the snapshot-minibatch BPR trainers (mfx_torch/solvers/bpr.py,
+   parallel/data_parallel.py, the 'jnp' path of parallel/bpr_sharded.py:
+   stock torch ops, as the reference computes them outside any Pallas
+   kernel; bf16 tables scatter through bf16_row_add). After phase 29 (b),
+   on phase 8's data: (a) billion_bpr_sharded with parallel.mode=single
+   bpr.kernel=jnp (rank 64, batch 131,072, lr 0.05, reg 0.002), sampling
+   on the card, 2 of its 5 epochs: the loss falls, epoch 1 (the sampler
+   and the batch loop, one CUDA-graph replay a batch) under
+   torch.cuda.set_sync_debug_mode('error'), epoch 0 again from a second
+   trainer bit for bit; epoch s, peak memory, the sampled AUC and HR@10
+   beside the untrained model's. On phase 29 (b)'s learnable cell at rank
+   64: (b) bpr.neg_weighting=popularity with device sampling, 2 epochs:
+   no drawn negative is a positive of its user, the loss falls; (c) the
+   ring's 'jnp' path of one shard with device sampling, 2 epochs: the loss
+   falls, the held-out sampled AUC ends above the untrained model's; (d)
+   model.dtype=bfloat16 on (a)'s path, 2 epochs: bf16_row_add launched,
+   the loss falls, and the kernel bit for bit its plain version on a
+   batch's Q scatter at the positives (131,072 rows, rank 64). The
+   host-sampled runs, on the learnable cell cut to 1/10 of its users and
+   positives, from the CPU-seeded init, 2 epochs: (d) f32 and bf16, each
+   epoch's loss within 1e-7 of the port's CPU run
+   (tools/bpr_minibatch_check.py --cut 10); (b) parallel.mode=dp bit for
+   bit (d)'s f32 run; (c) the 'jnp' ring with host sampling, gated as
+   with device sampling. Phase 31's
+   records are one JSON line ({"bpr_minibatch": ...}) before the total
+   time.
 
 Each phase prints its wall time. The second-to-last line is a JSON object
 describing each kernel (times, launches on the main path, and the bound:
@@ -441,11 +467,12 @@ launches from phase 22's runs; tile_topk_deep (the deep form, phase
 23) takes its launches from phase 23's serving path, its time and bound
 from the serving path's shapes, the stock path's time as its library_ms,
 and holds the 1M-item cases as its "variants"; bf16_row_add (phase 24)
-takes its launches from the bf16 training-driver run (the wrapper's
-outside a graph capture, plus the launches a captured step holds times
-its replays, counted by the step runner: solvers/sgd.py
-GRAPH_LAUNCHES), its plain_ms from the host CPU and its library_ms from
-index_put_. The forms of phase 25 are entries of their own at rank 64
+takes its launches from the bf16 training-driver run and phase 31
+(d)'s bf16 runs (its "launches_by_path"; the wrapper's outside a graph
+capture, plus the launches a captured step holds times its replays,
+counted by the step runners: kernels/packing.py GRAPH_LAUNCHES), its
+plain_ms from the host CPU and its library_ms from index_put_, and holds
+phase 31 (d)'s check at that path's shape among its "variants". The forms of phase 25 are entries of their own at rank 64
 (sgd_sweep_bf16, sgd_sweep_tile_bf16, sgd_sweep_tile_none_bf16,
 sgd_sweep_epoch_bf16, sgd_sweep_step_u_bf16, dense_phase_echo,
 dense_phase_none_echo), their launches from phase 26's runs (c), (g),
@@ -1180,7 +1207,7 @@ def bpr_form_check(name, st, bpr, seed, results, bounds, sweeps,
     sweeps[name]["critical_tiles"] = deps.critical
 
 
-def bpr_phases(dev, results, bounds, sweeps, forms):
+def bpr_phases(dev, results, bounds, sweeps, forms, learn):
     """Phases 7 and 8: bpr_sweep against its plain version at the BPR
     cell's shapes and on a whole segment, then the BPR path's 5 epochs;
     and the BPR parts of phases 21 and 22 on the same data: the same
@@ -1190,7 +1217,9 @@ def bpr_phases(dev, results, bounds, sweeps, forms):
     of phases 27 and 28: ranks 16 to 1 against plain on NARROW_TILES tiles
     and segment 0 (once on one block, twice on the card's count), into
     ``forms``; the path at ranks 16, 8, 2 and 1, their launches returned
-    too."""
+    too. Then phase 31 on the same data and on ``learn``, phase 29 (b)'s
+    learnable cell; its bf16_row_add launches and the kernel's check at its
+    shape are returned as ``bf16_row_add_mb``."""
     import math
 
     import numpy as np
@@ -1349,6 +1378,11 @@ def bpr_phases(dev, results, bounds, sweeps, forms):
     # 29 (b). iALS on the same data, at the preset's rank
     torch.cuda.empty_cache()
     GRAM["ials"] = ials_bpr_phase(dev, train, test, fresh_model(), keys)
+    # 31. the snapshot-minibatch BPR trainers, on the same data and on the
+    # learnable cell
+    torch.cuda.empty_cache()
+    out["bf16_row_add_mb"] = bpr_minibatch_phase(dev, train, test, keys,
+                                                 auc0, fresh_model, learn)
     return out
 
 
@@ -1413,6 +1447,401 @@ def bpr_rank_run(dev, model, train, test, bpr, seed, keys, auc_check=True,
         raise AssertionError(f"{tag}: AUC {auc} not above the untrained "
                              f"{auc0}")
     return launches
+
+
+# phase 31: the snapshot-minibatch BPR trainers (solvers/bpr.py,
+# parallel/data_parallel.py, parallel/bpr_sharded.py's 'jnp' ring)
+BPR_MB_EPOCHS = 2  # of billion_bpr_sharded's 5: depth, cut for time
+BPR_MB_CUT = 10  # the host-sampled runs' cell: the learnable cell's users
+# and positives / 10, where the host sampler and the CPU runs are cheap
+# tools/bpr_minibatch_check.py --cut 10 (the port's CPU run; the JAX
+# trainer's f32 losses are the same to the last digit, its bf16 ones within
+# 4.4e-7): each epoch's mean loss from the CPU-seeded init, host sampling
+BPR_MB_CPU = {"float32": (0.696141351010101, 0.6726486111111111),
+              "bfloat16": (0.6962630050505051, 0.6727754419191919)}
+# of each epoch's loss: about one f32 ulp of the epoch's loss sum (6.9e5,
+# ulp 0.0625) over its 990,000 positives, 6.3e-8; the card has read a
+# difference of 0 at both dtypes in every run so far
+BPR_MB_TOL = {"float32": 1e-7, "bfloat16": 1e-7}
+BPR_MB: dict = {}  # phase 31's records, printed as one JSON line
+_LEARN_CELL: dict = {}  # phase 31's positive keys and untrained AUC there
+
+
+def _falls(what, losses):
+    if any(b >= a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"{what}: the loss did not fall every epoch: "
+                             f"{losses}")
+
+
+def _finite(what, m, shape):
+    import torch
+
+    if not all(bool(torch.isfinite(getattr(m, k).float()).all())
+               for k in ("P", "Q")) or (
+            tuple(m.P.shape), tuple(m.Q.shape)) != shape:
+        raise AssertionError(f"{what}: tables not finite or mis-shaped")
+
+
+def _mb_epochs(dev, what, make, epochs, check=None):
+    """Run a trainer's epochs (``make()`` returns a SnapshotTrainer),
+    timing each on the host's clock with the card synchronized; ``check``
+    sees each epoch's batches before they train. Returns (trainer, mean
+    losses, epoch seconds, prep seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = make()
+    torch.cuda.synchronize()
+    prep = time.perf_counter() - t0
+    losses, walls = [], []
+    for epoch in range(epochs):
+        t0 = time.perf_counter()
+        b = tr.batches(epoch)
+        if check is not None:
+            check(epoch, b)
+        losses.append(float(tr.run.run(b)) / tr.train.n_ratings)
+        del b
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    log(f"[bpr-mb] {what}: prep {prep:.3f} s; epoch_s "
+        + " ".join(f"{x:.4f}" for x in walls) + "; mean_loss "
+        + " ".join(f"{x:.6f}" for x in losses))
+    return tr, losses, walls, prep
+
+
+def _learn_cell(dev, learn):
+    """Phase 31 (b)-(d)'s setup on ``learn``, phase 29 (b)'s learnable
+    cell: the preset's bpr section as phase 31 runs it (bpr.kernel=jnp,
+    device sampling, BPR_MB_EPOCHS epochs), a maker of the seeded rank-64
+    model, the positive keys of both splits, the untrained held-out
+    sampled AUC (both made once) and the preset's data seed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mfx_torch.config import apply_overrides, preset
+    from mfx_torch.data.bpr import build_positive_index
+    from mfx_torch.eval.metrics import sampled_auc
+    from mfx_torch.models.mf import init_model
+
+    cfg = apply_overrides(preset("billion_bpr_sharded"),
+                          ["parallel.mode=single", "bpr.kernel=jnp"])
+    bpr = dataclasses.replace(cfg.bpr, epochs=BPR_MB_EPOCHS,
+                              sample_device="device")
+    ltrain, ltest = learn
+
+    def lmodel(dtype="float32"):
+        g = torch.Generator(device=dev)
+        g.manual_seed(cfg.model.seed)
+        return init_model(g, ltrain.num_users, ltrain.num_items,
+                          cfg.model.rank, init_scale=cfg.model.init_scale,
+                          dtype=dtype)
+
+    if "keys" not in _LEARN_CELL:  # the same cell every call
+        _LEARN_CELL["keys"] = np.sort(np.concatenate([
+            build_positive_index(ltrain), build_positive_index(ltest)]))
+        _LEARN_CELL["auc0"] = sampled_auc(lmodel(), ltest,
+                                          seed=cfg.data.seed,
+                                          pos_keys=_LEARN_CELL["keys"])
+    return (bpr, lmodel, _LEARN_CELL["keys"], _LEARN_CELL["auc0"],
+            cfg.data.seed)
+
+
+def _ring_jnp_run(dev, cell, make_model, keys, auc0, bpr, seed,
+                  sample_device):
+    """Phase 31 (c): the ring's 'jnp' path of one shard on ``cell`` (train,
+    held-out) from ``make_model()``, ``bpr``'s epochs: the loss falls, the
+    held-out sampled AUC ends above the untrained model's (``auc0``)."""
+    import dataclasses
+
+    import torch
+
+    from mfx_torch.eval.metrics import sampled_auc
+    from mfx_torch.parallel import bpr_sharded as ring
+
+    ctrain, ctest = cell
+    rcfg = dataclasses.replace(bpr, sample_device=sample_device)
+    t0 = time.perf_counter()
+    out = []
+    for _, rm, loss in ring.train_epochs_bpr_ring(
+            make_model(), ctrain, rcfg, shards=1, seed=seed, device=dev):
+        torch.cuda.synchronize()
+        out.append((loss, time.perf_counter() - t0))
+        t0 = time.perf_counter()
+    rl = [x for x, _ in out]
+    rank = rm.rank
+    _finite(f"(c) {sample_device}", rm, ((ctrain.num_users, rank),
+                                         (ctrain.num_items, rank)))
+    rauc = sampled_auc(rm, ctest, seed=seed, pos_keys=keys)
+    log(f"[bpr-mb] (c) ring bpr.kernel=jnp, {sample_device} sampling, "
+        f"{ctrain.num_users} x {ctrain.num_items}, {ctrain.n_ratings} "
+        "positives: epoch_s " + " ".join(f"{t:.4f}" for _, t in out)
+        + " (the first with the prep); mean_loss "
+        + " ".join(f"{x:.6f}" for x in rl)
+        + f"; held-out AUC {auc0:.5f} -> {rauc:.5f}")
+    _falls(f"(c) {sample_device}", rl)
+    if not rauc > auc0:
+        raise AssertionError(f"(c) {sample_device}: held-out AUC {rauc} not "
+                             f"above the untrained {auc0}")
+    BPR_MB.setdefault("c", {})[sample_device] = {
+        "positives": ctrain.n_ratings, "mean_loss": rl,
+        "epoch_s": [t for _, t in out], "auc": rauc, "auc_untrained": auc0}
+
+
+def bpr_minibatch_cut_runs(dev, bpr, rank, init_scale, model_seed):
+    """Phase 31's host-sampled runs, which spend their time in the
+    reference's NumPy sampler, on the learnable cell cut to 1/BPR_MB_CUT of
+    its users and positives, from the CPU-seeded init (seed 0, bpr's
+    epochs): (d) the single trainer with f32 and bf16 tables, each epoch's
+    loss within BPR_MB_TOL of the port's CPU run (BPR_MB_CPU); (b)
+    parallel.mode=dp bit for bit (d)'s f32 run, tables and losses; (c) the
+    'jnp' ring with host sampling."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mfx_torch.data.bpr import build_positive_index
+    from mfx_torch.data.split import train_test_split
+    from mfx_torch.data.synthetic import make_implicit_synthetic
+    from mfx_torch.eval.metrics import sampled_auc
+    from mfx_torch.models.mf import init_model
+    from mfx_torch.parallel.data_parallel import train_epochs_bpr_dp
+    from mfx_torch.solvers import bpr as mb
+
+    t_part = time.perf_counter()
+    U_c, I_c, n_c, true_rank = IALS_LEARN
+    ctrain, ctest = train_test_split(make_implicit_synthetic(
+        U_c // BPR_MB_CUT, I_c, n_c // BPR_MB_CUT, rank=true_rank, seed=107),
+        0.01, seed=0)
+    g = torch.Generator()
+    g.manual_seed(model_seed)
+    cpu_init = init_model(g, ctrain.num_users, ctrain.num_items, rank,
+                          init_scale=init_scale, device="cpu")
+    host = dataclasses.replace(bpr, sample_device="host")
+    what = (f"the cut cell ({ctrain.num_users} x {ctrain.num_items}, "
+            f"{ctrain.n_ratings} positives)")
+    cut, last = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        runs = [(loss, m) for _, m, loss in mb.train_epochs_bpr(
+            cpu_init.astype(dtype), ctrain, host, seed=0, device=dev)]
+        wall = time.perf_counter() - t0
+        got = [loss for loss, _ in runs]
+        last[dtype] = runs[-1][1]
+        want = BPR_MB_CPU[dtype]
+        err = max(abs(a - b) for a, b in zip(got, want))
+        log(f"[bpr-mb] (d) {what}, {dtype}, host sampling from the "
+            f"CPU-seeded init ({wall:.3f} s): mean_loss "
+            + " ".join(f"{x!r}" for x in got) + f"; the port's CPU run "
+            f"{want}; max difference {err:.3e} (tol {BPR_MB_TOL[dtype]})")
+        if not err <= BPR_MB_TOL[dtype]:
+            raise AssertionError(f"(d) {dtype}: the card's losses {got} not "
+                                 f"within {BPR_MB_TOL[dtype]} of the CPU's "
+                                 f"{want}")
+        cut[dtype] = {"mean_loss": got, "cpu": list(want), "max_diff": err,
+                      "s": wall}
+    t0 = time.perf_counter()
+    dp = [(loss, m) for _, m, loss in train_epochs_bpr_dp(
+        cpu_init, ctrain, bpr, seed=0, device=dev)]
+    dp_s = time.perf_counter() - t0
+    m_dp, m_single = dp[-1][1], last["float32"]
+    if [x for x, _ in dp] != cut["float32"]["mean_loss"] or not all(
+            torch.equal(getattr(m_dp, k), getattr(m_single, k))
+            for k in ("P", "Q")):
+        raise AssertionError("(b): dp differs from the host-sampled single "
+                             "run")
+    log(f"[bpr-mb] (b) parallel.mode=dp on {what}, {len(dp)} epochs "
+        f"({dp_s:.3f} s): tables and every epoch's mean loss bit for bit "
+        f"the single trainer's with sample_device=host "
+        f"({cut['float32']['s']:.3f} s)")
+    BPR_MB["b"] = {"dp_bitwise": True, "dp_positives": ctrain.n_ratings,
+                   "dp_s": dp_s, "single_host_s": cut["float32"]["s"]}
+    del dp, last, m_dp, m_single
+    keys = np.sort(np.concatenate([build_positive_index(ctrain),
+                                   build_positive_index(ctest)]))
+    auc0 = sampled_auc(cpu_init, ctest, seed=0, pos_keys=keys)
+    _ring_jnp_run(dev, (ctrain, ctest), lambda: cpu_init, keys, auc0, bpr, 0,
+                  "host")
+    log(f"[time] phase 31 (b)-(d): the host-sampled runs on the cut cell "
+        f"{time.perf_counter() - t_part:.1f} s of it")
+    return cut
+
+
+def bpr_minibatch_phase(dev, train, test, keys, auc0, fresh_model, learn):
+    """Phase 31, the snapshot-minibatch BPR trainers. (a) On phase 8's
+    data (billion-implicit / BPR_CUT): billion_bpr_sharded with
+    parallel.mode=single bpr.kernel=jnp, rank 64, batch 131,072, device
+    sampling, BPR_MB_EPOCHS of its 5 epochs through SnapshotTrainer: the
+    loss falls; epoch 1, sampler and batch loop, under
+    torch.cuda.set_sync_debug_mode('error'); epoch 0 again from a second
+    trainer bit for bit; epoch s, peak memory and the sampled AUC and
+    HR@10 beside the untrained model's. (b) On ``learn`` (phase 29 (b)'s
+    learnable cell), rank 64: popularity negatives, device sampling, 2
+    epochs: no drawn negative is a positive of its user, the loss falls.
+    (c) The ring's 'jnp' path there with device sampling. (d) bf16 tables
+    on (a)'s path there, 2 epochs: bf16_row_add launched, the loss falls,
+    and the kernel held bit for bit against its plain version on a batch's
+    Q scatter at the positives (131,072 rows of 5,000 items, rank 64).
+    Then bpr_minibatch_cut_runs: (b)'s dp run, (c)'s host-sampled ring and
+    (d)'s comparison with the CPU, on the cell cut to 1/BPR_MB_CUT.
+    Returns bf16_row_add's launches in (d), and the kernel's check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mfx_torch.config import apply_overrides, preset
+    from mfx_torch.data.bpr import members_2key
+    from mfx_torch.eval.metrics import sampled_auc
+    from mfx_torch.eval.ranking import hr_ndcg_at_k
+    from mfx_torch.kernels.packing import GRAPH_LAUNCHES, bf16_row_add
+    from mfx_torch.solvers import bpr as mb
+
+    t_phase = time.perf_counter()
+    cfg = apply_overrides(preset("billion_bpr_sharded"),
+                          ["parallel.mode=single", "bpr.kernel=jnp"])
+    seed = cfg.data.seed
+    bpr = dataclasses.replace(cfg.bpr, epochs=BPR_MB_EPOCHS,
+                              sample_device="device")
+    U, I, rank = train.num_users, train.num_items, cfg.model.rank
+    log(f"[bpr-mb] (a) billion_bpr_sharded with parallel.mode=single "
+        f"bpr.kernel=jnp on phase 8's data ({U} x {I}, {train.n_ratings} "
+        f"positives): rank {rank}, batch {bpr.batch_size}, lr {bpr.lr}, reg "
+        f"{bpr.reg}, device sampling, {bpr.epochs} of "
+        f"{cfg.bpr.epochs} epochs")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = mb.SnapshotTrainer(fresh_model(), train, bpr, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    losses, walls, m0 = [], [], None
+    for epoch in range(bpr.epochs):
+        t0 = time.perf_counter()
+        if epoch == 0:
+            loss_t = tr.epoch(epoch)
+        else:
+            torch.cuda.set_sync_debug_mode("error")  # a host sync raises
+            try:
+                loss_t = tr.epoch(epoch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        losses.append(float(loss_t) / train.n_ratings)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if epoch == 0:
+            m0 = tr.model()
+    peak = torch.cuda.max_memory_allocated(dev)
+    m = tr.model()
+    _finite("(a)", m, ((U, rank), (I, rank)))
+    log(f"[bpr-mb] (a) epoch_s " + " ".join(f"{x:.4f}" for x in walls)
+        + " (sampling on the card and the batch loop, one graph replay a "
+        f"batch of {-(-train.n_ratings // bpr.batch_size)}); mean_loss "
+        + " ".join(f"{x:.6f}" for x in losses) + f"; peak memory allocated "
+        f"{peak} bytes; epoch 1 (sampler and batch loop) under "
+        "set_sync_debug_mode('error'): no host sync")
+    _falls("(a)", losses)
+    del tr
+    tr2 = mb.SnapshotTrainer(fresh_model(), train, bpr, seed=seed, device=dev)
+    again = float(tr2.epoch(0)) / train.n_ratings
+    if again != losses[0] or not all(
+            torch.equal(getattr(tr2.run, k), getattr(m0, k))
+            for k in ("P", "Q")):
+        raise AssertionError("(a): epoch 0 again differs from the first run")
+    del tr2, m0
+    log("[bpr-mb] (a) epoch 0 from a second trainer: tables and loss bit "
+        "for bit")
+    ranked = test.select(np.arange(min(BPR_RANK_POSITIVES, test.n_ratings)))
+    auc = sampled_auc(m, test, seed=seed, pos_keys=keys)
+    rk0 = hr_ndcg_at_k(fresh_model(), ranked, k=cfg.ranking_k, seed=seed,
+                       pos_keys=keys)
+    rk = hr_ndcg_at_k(m, ranked, k=cfg.ranking_k, seed=seed, pos_keys=keys)
+    log(f"[bpr-mb] (a) held-out sampled AUC {auc0:.5f} untrained, "
+        f"{auc:.5f} after {bpr.epochs} epochs; HR@{cfg.ranking_k} "
+        f"{rk0['hr']:.5f} -> {rk['hr']:.5f} (the first {ranked.n_ratings} "
+        "held-out positives, 100 sampled negatives each)")
+    BPR_MB["a"] = {"epoch_s": walls, "mean_loss": losses, "peak_bytes": peak,
+                   "auc_untrained": auc0, "auc": auc, "hr10_untrained":
+                   rk0["hr"], "hr10": rk["hr"]}
+    del m
+    torch.cuda.empty_cache()
+
+    # (b)-(d): the learnable cell, rank 64
+    _, lmodel, lkeys, lauc0, _ = _learn_cell(dev, learn)
+    log(f"[bpr-mb] (b)-(d) the learnable cell: {learn[0].num_users} x "
+        f"{learn[0].num_items}, {learn[0].n_ratings} train / "
+        f"{learn[1].n_ratings} held-out positives; untrained held-out "
+        f"sampled AUC {lauc0:.5f}")
+    pop = dataclasses.replace(bpr, neg_weighting="popularity")
+    hits = []
+
+    def no_positive(epoch, b):
+        real = b["weights"].reshape(-1) > 0
+        u, j = b["users"].reshape(-1)[real], b["neg"].reshape(-1)[real]
+        i = b["pos"].reshape(-1)[real]
+        hit = members_2key(tr_pop.pu, tr_pop.pi, u, j)
+        hits.append((int(hit.sum()), int((hit & (j == i)).sum())))
+
+    tr_pop = None
+
+    def make_pop():
+        nonlocal tr_pop
+        tr_pop = mb.SnapshotTrainer(lmodel(), learn[0], pop, seed=seed,
+                                    device=dev)
+        return tr_pop
+
+    _, pl, pw, _ = _mb_epochs(dev, "(b) neg_weighting=popularity, device "
+                              "sampling", make_pop, pop.epochs, no_positive)
+    log(f"[bpr-mb] (b) drawn negatives that are positives of their user, "
+        f"per epoch (of them the positive itself, the fallback): {hits}")
+    if any(h for h, _ in hits):
+        raise AssertionError(f"(b): popularity negatives hold positives: "
+                             f"{hits}")
+    _falls("(b) popularity", pl)
+    pop_rec = {"popularity_loss": pl, "popularity_epoch_s": pw,
+               "positive_negatives": hits}
+    del tr_pop
+
+    # (c) the ring's 'jnp' path, one shard, sampling on the card
+    _ring_jnp_run(dev, learn, lmodel, lkeys, lauc0, bpr, seed, "device")
+
+    # (d) bf16 tables on (a)'s path
+    bf16_row_add.launches = 0
+    GRAPH_LAUNCHES.update(captured=0, replayed=0)
+    tr_bf, bl, bw, _ = _mb_epochs(
+        dev, "(d) model.dtype=bfloat16, device sampling",
+        lambda: mb.SnapshotTrainer(lmodel("bfloat16"), learn[0], bpr,
+                                   seed=seed, device=dev), bpr.epochs)
+    torch.cuda.synchronize()
+    launches = (bf16_row_add.launches - GRAPH_LAUNCHES["captured"]
+                + GRAPH_LAUNCHES["replayed"])
+    bauc = sampled_auc(tr_bf.model(), learn[1], seed=seed, pos_keys=lkeys)
+    log(f"[bpr-mb] (d) bf16_row_add launches {launches} (the wrapper's "
+        f"{bf16_row_add.launches}, {GRAPH_LAUNCHES['captured']} captured, "
+        f"{GRAPH_LAUNCHES['replayed']} replayed); held-out AUC {lauc0:.5f} "
+        f"-> {bauc:.5f}")
+    if launches < 1 or tr_bf.run.P.dtype != torch.bfloat16:
+        raise AssertionError("(d): bf16_row_add never launched")
+    _falls("(d) bf16", bl)
+    # the kernel at this path's shape, its counts read above: the first
+    # batch of an epoch, Q's scatter at the positives (duplicate rows)
+    run, b = tr_bf.run, tr_bf.batches(bpr.epochs)
+    b = {k: v[0] for k, v in b.items()}
+    users, pos, neg = (b[k].long() for k in ("users", "pos", "neg"))
+    d_qi = mb.bpr_compute_deltas(run.P, run.Q, users, pos, neg,
+                                 b["weights"], run.lr, run.reg)[1]
+    check = bf16_add_check(dev, "phase 31 (d), a batch's Q scatter at the "
+                           "positives", run.Q, pos, d_qi.to(torch.bfloat16))
+    del tr_bf, run, b, users, pos, neg, d_qi
+    cut = bpr_minibatch_cut_runs(dev, bpr, rank, cfg.model.init_scale,
+                                 cfg.model.seed)
+    BPR_MB["b"].update(pop_rec)
+    BPR_MB["d"] = {"mean_loss": bl, "epoch_s": bw, "auc": bauc,
+                   "bf16_row_add": launches, "row_add_check": check,
+                   "cut": cut}
+    log(f"[time] phase 31 {time.perf_counter() - t_phase:.1f} s")
+    return launches, check
 
 
 def tile_bias_compare(results, bounds, state, seg, sa, tc, tl, lr, reg, mu,
@@ -3977,8 +4406,7 @@ def bf16_profile_phase(dev, root, results, bounds, sweeps, library):
     library["bf16_row_add"] = cases[0]["library_ms"]
     sweeps["bf16_row_add"] = {"plain_on": "the host CPU", "variants": cases}
 
-    from mfx_torch.kernels.packing import bf16_row_add
-    from mfx_torch.solvers.sgd import GRAPH_LAUNCHES
+    from mfx_torch.kernels.packing import GRAPH_LAUNCHES, bf16_row_add
 
     build = Path(__file__).resolve().parent / "build"
     with tempfile.TemporaryDirectory(dir=build) as tmp:
@@ -5455,7 +5883,8 @@ def ials_learn_phase(dev):
         f"abs err {err:.3e} (tol {FOLD_TOL})")
     gram_time("b", t_phase, "the learnable iALS cell and fold-in")
     return {"auc_train": auc1, "auc_untrained": auc0, "auc_test": auc_test,
-            "sweeps": cfg.sweeps, "train_s": train_s, "fold_max_abs_err": err}
+            "sweeps": cfg.sweeps, "train_s": train_s,
+            "fold_max_abs_err": err}, (train, test)
 
 
 def nmf_phase(dev, cfg0, train, test, fresh_model):
@@ -6036,7 +6465,7 @@ def main() -> int:
     # 29 (c) NMF and (b) the learnable iALS cell launch no hand-written
     # kernel: they run here, while the kernels build
     GRAM["nmf"] = nmf_phase(dev, cfg, train, test, fresh_model)
-    GRAM["ials_learn"] = ials_learn_phase(dev)
+    GRAM["ials_learn"], learn = ials_learn_phase(dev)  # and phase 31's
     # 30 (c) minibatch timeSVD++, and (a)'s SVD++ processes: no
     # hand-written kernel either
     svdpp_root = _build.BUILD_DIR.parent / "chip_smoke_svdpp"
@@ -6304,7 +6733,15 @@ def main() -> int:
 
     # 7-8. the BPR path; 21-22 at ranks 32 and 128; 27-28 at 16 to 1
     narrow: dict = {}  # phase 27's forms, stored with store_narrow
-    launches.update(bpr_phases(dev, results, bounds, sweeps, narrow))
+    launches.update(bpr_phases(dev, results, bounds, sweeps, narrow, learn))
+    del learn
+    # 31 (d)'s bf16 runs: bf16_row_add's second caller
+    mb_launches, mb_check = launches.pop("bf16_row_add_mb")
+    sweeps["bf16_row_add"]["launches_by_path"] = {
+        "minibatch_sgd": launches["bf16_row_add"],
+        "bpr_minibatch": mb_launches}
+    sweeps["bf16_row_add"]["variants"].append(mb_check)
+    launches["bf16_row_add"] += mb_launches
 
     # 9-10. the tile-bias path
     launches.update(tile_bias_phases(dev, sweeps))
@@ -6478,7 +6915,8 @@ def main() -> int:
                                   f"2048): depth {EXACT_DEPTH}, tile "
                                   f"{DEEP_TILE}, the trained ML-25M catalog",
                 "bf16_row_add": "bf16 tables' scatter-add in slot order "
-                                "(minibatch SGD, model.dtype=bfloat16); "
+                                "(minibatch SGD and the snapshot-minibatch "
+                                "BPR trainers, model.dtype=bfloat16); "
                                 "library_ms: index_put_(accumulate=True)",
                 "sgd_sweep_bf16": "bias_mode='lane', mxu='bf16', rank 64",
                 "sgd_sweep_tile_bf16": "bias_mode='tile', mxu='bf16', "
@@ -6512,6 +6950,7 @@ def main() -> int:
                                           "rank 2",
                 "bpr_sweep_r2": "rank 2", "bpr_sweep_r1": "rank 1"}
     log(json.dumps({"gram_engine": GRAM}))
+    log(json.dumps({"bpr_minibatch": BPR_MB}))
     log(f"[time] phase 29 (the Gram-engine solvers) "
         + ", ".join(f"({k}) {v:.1f} s" for k, v in _GRAM_S.items()))
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")

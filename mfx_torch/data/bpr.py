@@ -12,8 +12,12 @@ reference's. Searches over it use int64 composite keys
 fixed-depth 32-bit binary searches only because JAX runs in 32 bits, and
 both find the same lower bound. Random numbers come from the caller: the
 uniform draw ``x`` of :func:`complement_draw`, or an explicit
-``torch.Generator``. The popularity-weighted device sampler is not ported
-(the fused ring refuses that weighting; ROADMAP Queue 1 item 12).
+``torch.Generator``. The popularity-weighted device sampler
+(:func:`sample_negatives_weighted_device`, the snapshot-minibatch trainers'
+``bpr.neg_weighting='popularity'``) takes each round's two uniform draws
+the same way and searches the reference's double-single CDF
+(:func:`split_cdf_f32`) with int64 keys that order its (hi, lo) pairs as
+the reference's lexicographic search does (:func:`upperbound_cdf2`).
 """
 
 from __future__ import annotations
@@ -30,8 +34,11 @@ __all__ = [
     "lowerbound_2key",
     "members_2key",
     "popularity_cdf",
+    "split_cdf_f32",
+    "upperbound_cdf2",
     "sample_negatives",
     "sample_negatives_device",
+    "sample_negatives_weighted_device",
     "bpr_epoch_triples",
 ]
 
@@ -185,14 +192,17 @@ def complement_draw(pi, start, cnt, navail, base, fallback, x=None,
     Per slot: ``pi[start : start + cnt)`` holds the slot's positives as
     strictly increasing ids inside [base, base + span), and
     ``navail = span - cnt`` is the complement size. With x ~ U[0, navail)
-    (``x``, or drawn from ``generator``), the smallest m with
+    (``x``, or ``x(navail)`` where it is a function, or drawn from
+    ``generator``), the smallest m with
     ``pi[start + m] - base - m > x`` gives j = base + x + m, the x-th
     non-positive id. ``steps`` fixed binary-search steps, as the
     reference's, must be >= ceil(log2(max cnt + 1)). Slots with
     navail <= 0 return ``fallback``."""
     if x is None:
         x = uniform_below(navail, generator)
-    x = x.to(torch.int32)
+    elif callable(x):
+        x = x(navail)
+    x = x.to(navail.device, torch.int32)
     lo = torch.zeros_like(cnt)
     hi = cnt.clone()
     nmax = pi.shape[0] - 1
@@ -219,6 +229,83 @@ def sample_negatives_device(users, pu, pi, num_items: int, x=None,
     fallback = pi[start.clamp(max=nmax).long()]
     return complement_draw(pi, start, cnt, num_items - cnt, zeros, fallback,
                            x=x, generator=generator)
+
+
+def split_cdf_f32(cdf: np.ndarray, device=None):
+    """Double-single form of a float64 CDF: float32 ``(hi, lo)`` tensors on
+    ``device`` with ``hi + lo == cdf`` to ~2^-48, the reference's. A plain
+    f32 cast collapses long-tail items (a count-1 item's mass ~1e-8 is below
+    the f32 ulp near 1.0) so that no draw can reach them; the pair keeps
+    every item reachable with its true mass."""
+    hi = cdf.astype(np.float32)
+    lo = (cdf - hi.astype(np.float64)).astype(np.float32)
+    return (torch.from_numpy(hi).to(device), torch.from_numpy(lo).to(device))
+
+
+def _f32_key(x: torch.Tensor) -> torch.Tensor:
+    """int64 in [0, 2**32) ordering float32 values as ``<`` does (no NaN;
+    -0.0 is made +0.0 first, as the two compare equal)."""
+    b = (x.to(torch.float32) + 0.0).view(torch.int32).to(torch.int64)
+    return torch.where(b >= 0, b + 2**31, -1 - b)
+
+
+def _cdf2_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """int64 keys ordering (hi, lo) float32 pairs lexicographically: hi's
+    key in the high 32 bits (hi >= 0 here, so the key stays below 2**63)."""
+    return (_f32_key(hi) << 32) + _f32_key(lo)
+
+
+def upperbound_cdf2(hi, lo, q_hi, q_lo):
+    """First index whose (hi, lo) pair is > (q_hi, q_lo) lexicographically:
+    the reference's ``_upperbound_cdf2`` (a fixed-depth binary search on the
+    pairs). A float64 ``hi + lo`` would not do: near a binade edge of hi the
+    query's lo (up to half an ulp of u either way) reorders the sums, and
+    the search would pick another item now and then."""
+    keys = _cdf2_key(hi, lo)
+    return torch.searchsorted(keys, _cdf2_key(q_hi, q_lo),
+                              right=True).to(torch.int32)
+
+
+def sample_negatives_weighted_device(users, pu, pi, cdf, fallback=None,
+                                     rounds: int = 16, draw=None,
+                                     generator: torch.Generator | None = None):
+    """Device-side popularity-weighted negatives: inverse-CDF draws from
+    ``cdf`` (a :func:`split_cdf_f32` pair, or one float32 tensor for a
+    small catalog) and ``rounds`` fixed redraw rounds that replace the
+    draws colliding with the user's positives (:func:`members_2key`); the
+    slots still colliding after the last round get ``fallback`` (the slot's
+    positive: a zero-gradient pair), where it is given. The measure has no
+    order-statistic shortcut, so rejection leaves a residual: per slot the
+    user's share of the weighted mass to the power ``rounds + 1``.
+
+    ``draw(r)`` returns round ``r``'s (0 the first draw, 1 … ``rounds`` the
+    redraws) uniforms ``(u, u2)``, float32 in [0, 1) of the users' shape;
+    else they come from ``generator``. ``u`` picks the CDF entry and ``u2``
+    refines the query below the f32 ulp, ``q_lo = (u2 - 0.5) * 2**-24``, so
+    that sub-ulp gaps of the pair are reached in proportion to their mass,
+    as the reference's. Every round redraws every slot, as the
+    reference's."""
+    pair = isinstance(cdf, (tuple, list))
+    c_hi, c_lo = cdf if pair else (cdf.to(torch.float32), None)
+
+    def pick(r):
+        if draw is not None:
+            u, u2 = (x.to(users.device, torch.float32) for x in draw(r))
+        else:
+            u, u2 = (torch.rand(users.shape, generator=generator,
+                                device=users.device) for _ in range(2))
+        if not pair:
+            return torch.searchsorted(c_hi, u, right=True).to(torch.int32)
+        return upperbound_cdf2(c_hi, c_lo, u, (u2 - 0.5) * 2.0**-24)
+
+    neg = pick(0)
+    for r in range(rounds):
+        coll = members_2key(pu, pi, users, neg)
+        neg = torch.where(coll, pick(1 + r), neg)
+    if fallback is not None:
+        neg = torch.where(members_2key(pu, pi, users, neg),
+                          fallback.to(neg.dtype), neg)
+    return neg
 
 
 def bpr_epoch_triples(

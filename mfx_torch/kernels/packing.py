@@ -29,7 +29,8 @@ from mfx_torch.models.timesvd import TimeSVDModel
 
 __all__ = ["to_lane_model", "from_lane_model", "to_tlane_model",
            "from_tlane_model", "pad_rows", "lane_tables", "plain_tables",
-           "row_add", "segment_row_add", "bf16_order", "bf16_row_add"]
+           "row_add", "segment_row_add", "bf16_order", "bf16_row_add",
+           "GRAPH_LAUNCHES"]
 
 
 def to_lane_model(model: MFModel) -> MFModel:
@@ -214,3 +215,11 @@ def bf16_row_add(table, rows, delta, order=None):
 
 
 bf16_row_add.launches = 0
+
+# bf16_row_add's launches in captured steps (bf16 tables on the card,
+# ``solvers.capture.CapturedLoop``): the wrapper counts a launch as it
+# records it into a graph ("captured"); each replay of the graph launches
+# the kernel again, unseen by the wrapper ("replayed", counted where the
+# step is replayed). The kernel's launches are the wrapper's count -
+# captured + replayed.
+GRAPH_LAUNCHES = {"captured": 0, "replayed": 0}

@@ -14,8 +14,9 @@ refresh, after which the model is a biased MF over the effective table
 through :meth:`SVDppModel.as_mf`.
 
 The scatter-adds go through ``kernels.packing.segment_row_add`` (each
-row's sum in slot order, then ``row_add``: an order that repeats from run
-to run, no float atomics), in chunks of ratings, so that no gather of
+row's value and deltas summed in slot order, the sum written once with
+``index_copy_``: an order that repeats from run to run, no float
+atomics), in chunks of ratings, so that no gather of
 every rating's row is held at once (at ML-25M scale one full gather of
 rank-64 rows is 5.8 GB). ``SVDppModel`` holds the tables as
 buffers of an ``nn.Module``; ``save_npz`` / ``load_npz`` use the

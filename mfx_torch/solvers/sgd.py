@@ -29,18 +29,10 @@ from mfx_torch.data import partition as part
 from mfx_torch.data.coo import RatingsCOO
 from mfx_torch.data.split import epoch_permutation
 from mfx_torch.kernels import minibatch as mb
-from mfx_torch.kernels.packing import bf16_row_add
 from mfx_torch.models.mf import MFModel
+from mfx_torch.solvers.capture import CapturedLoop
 
-__all__ = ["EpochPlan", "plan_epoch", "make_epoch_fn", "train_epochs",
-           "GRAPH_LAUNCHES"]
-
-# bf16_row_add's launches in captured steps (bf16 tables on the card): the
-# wrapper counts a launch as it records it into a graph ("captured"); each
-# replay of the graph launches the kernel again, unseen by the wrapper
-# ("replayed", counted where the step is replayed). The kernel's launches
-# are the wrapper's count - captured + replayed.
-GRAPH_LAUNCHES = {"captured": 0, "replayed": 0}
+__all__ = ["EpochPlan", "plan_epoch", "make_epoch_fn", "train_epochs"]
 
 
 @dataclasses.dataclass
@@ -121,56 +113,32 @@ def _epoch_inputs(model: MFModel, plan: EpochPlan, trust: bool) -> dict:
 
 
 class _CapturedStep:
-    """The per-batch step captured once as a CUDA graph on the card. The
-    graph reads batch ``k`` of static epoch buffers and advances ``k``
-    itself, so an epoch is a copy of the plan and the tables into static
-    buffers and one replay a batch: the same kernels on the same data as
-    the eager loop, without its host dispatch of every op. Recaptured
-    when the tables' shapes, the batch size or ``mu`` change, or an
-    epoch has more batches than the buffers hold."""
+    """The per-batch step on static tables (with their sink rows), replayed
+    once a batch as a CUDA graph on the card (:class:`CapturedLoop`): an
+    epoch is a copy of the tables and the plan into static buffers and one
+    replay a batch. Recaptured when the tables' shapes, the batch size or
+    ``mu`` change, or an epoch has more batches than the buffers hold."""
 
     def __init__(self, model: MFModel, plan: EpochPlan, reg: float,
                  step_kw: dict, trust: bool):
         dev = model.device
         self.key = self.key_of(model, plan)
-        cap = plan.num_batches + plan.num_batches // 4 + 16
         self.tabs = mb.with_sinks([torch.zeros_like(t)
                                    for t in _tables(model)], plan.batch_size)
         self.rows = (model.num_users, model.num_items) * 2
-        self.bufs = {k: torch.zeros((cap,) + tuple(v.shape[1:]),
-                                    dtype=v.dtype, device=dev)
-                     for k, v in _epoch_inputs(model, plan, trust).items()}
-        self.cap = cap
-        self.k = torch.zeros(1, dtype=torch.int64, device=dev)
         self.sse = torch.zeros((), dtype=torch.float32, device=dev)
         # lr and reg in the tables' dtype, as the reference casts them
         self.lr = torch.zeros((), dtype=model.P.dtype, device=dev)
-        # every tensor the graph reads stays referenced here: the graph
-        # holds addresses, and a freed one would be handed out again
         self.reg = mb.as_scalar(reg, dev, model.P.dtype)
         mu = model.mu
 
-        def body():
-            row = {k: v.index_select(0, self.k)[0]
-                   for k, v in self.bufs.items()}
+        def step(row):
             _step(self.tabs, mu, row["u"], row["i"], row["r"], row["w"],
                   row.get("cu"), row.get("ci"), self.lr, self.reg, self.sse,
                   **step_kw)
-            self.k.add_(1)
 
-        # warm up off the capture on zero tables and weights (a no-op step)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                body()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        before = bf16_row_add.launches
-        with torch.cuda.graph(self.graph):
-            body()
-        self.row_adds = bf16_row_add.launches - before  # a replay's
-        GRAPH_LAUNCHES["captured"] += self.row_adds
+        # captured on zero tables and weights (the warm-up's a no-op step)
+        self.loop = CapturedLoop(step, _epoch_inputs(model, plan, trust), dev)
 
     @staticmethod
     def key_of(model: MFModel, plan: EpochPlan):
@@ -179,21 +147,15 @@ class _CapturedStep:
 
     def fits(self, model: MFModel, plan: EpochPlan) -> bool:
         return (self.key == self.key_of(model, plan)
-                and plan.num_batches <= self.cap)
+                and plan.num_batches <= self.loop.cap)
 
     def run(self, model: MFModel, plan: EpochPlan, lr: float, trust: bool):
-        nb = plan.num_batches
         for t, src, n in zip(self.tabs, _tables(model), self.rows):
             t[:n].copy_(src)
             t[n:].zero_()
-        for k, v in _epoch_inputs(model, plan, trust).items():
-            self.bufs[k][:nb].copy_(v)
-        self.k.zero_()
         self.sse.zero_()
         self.lr.fill_(lr)
-        for _ in range(nb):
-            self.graph.replay()
-        GRAPH_LAUNCHES["replayed"] += self.row_adds * nb
+        self.loop.run(_epoch_inputs(model, plan, trust))
         return ([t[:n].clone() for t, n in zip(self.tabs, self.rows)],
                 self.sse.clone())
 

@@ -15,8 +15,9 @@ epoch-frozen implicit sums.
        y_j += lr_y * (sum_{u: j in N(u)} nu_u A_u  -  reg_y deg_j y_j)
 
    two passes over the training COO in padded chunks, every scatter-add
-   through ``kernels.packing.segment_row_add`` (each row's sum in slot
-   order, then ``row_add``: no float atomics, no one-hot matmuls), with
+   through ``kernels.packing.segment_row_add`` (each row's value and
+   deltas summed in slot order, the sum written once with
+   ``index_copy_``: no float atomics, no one-hot matmuls), with
    the reference's trust cap and its production stabilization
    (:func:`_apply_y_step`).
 

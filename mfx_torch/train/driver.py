@@ -6,8 +6,13 @@ the ported trainers: single-device SGD (``solver='sgd'``,
 128, or tile biases / none without it, per tile or with
 ``sgd.step_user_batch``; the ``als`` block, which only other modes read,
 is ignored, as the reference's driver ignores it here); and the fused
-BPR ring of one shard (``solver='bpr'``, ``parallel.mode`` 'sharded' or
-'hybrid' with ``model_axis = data_axis = 1``); and timeSVD
+BPR trainers (``solver='bpr'``): the snapshot-minibatch trainer
+(``parallel.mode='single'``, ``solvers/bpr.py``), the data-parallel one on
+one data shard (``'dp'``, ``parallel/data_parallel.py``: the single
+trainer with host sampling), and the ring of one shard (``'sharded'`` or
+``'hybrid'`` with ``model_axis = data_axis = 1``, ``parallel/bpr_sharded.py``)
+by ``bpr.kernel``: the fused kernel (``'pallas'``) or the
+snapshot-minibatch ring (``'jnp'``); and timeSVD
 (``solver='timesvd'``, single device), by ``timesvd.kernel``: 'jnp', the
 snapshot-minibatch trainer (``solvers/timesvd.py``), or 'pallas', the
 blocked trainer through the time form of the lane sweep
@@ -49,9 +54,11 @@ run) unless ``resume=False``.
 'full' against the whole catalog minus the train items, 'user' over the
 served top-K lists), with its record keys. ``model.dtype='bfloat16'``
 trains bf16 tables where the reference does, on the minibatch path
-(``sgd.kernel='jnp'``); the fused blocked kernel (``'pallas'``) is
-refused with the reference's own error, and the BPR ring and timeSVD keep
-float32 tables here. ``profile_phases`` (``solver='sgd'``,
+(``sgd.kernel='jnp'``) and the snapshot-minibatch BPR trainers (single,
+data-parallel and the ``'jnp'`` ring); the fused blocked kernel
+(``sgd.kernel='pallas'``) is refused with the reference's own error, and
+the fused BPR ring, timeSVD, SVD++ and timeSVD++ keep float32 tables
+here. ``profile_phases`` (``solver='sgd'``,
 ``parallel.mode='single'``) adds the reference's per-epoch fields:
 ``plan_ms``, the epoch's planning time; for the blocked trainer
 ``dense_ms`` and ``sparse_ms``, its dense groups' and sparse sweeps'
@@ -105,13 +112,15 @@ class TrainResult:
 def _check_supported(cfg: TrainConfig) -> None:
     mode = cfg.parallel.mode
     if cfg.solver == "bpr":
-        if mode not in ("sharded", "hybrid"):
+        if mode == "dp" and cfg.parallel.data_axis != 1:
             raise NotImplementedError(
-                f"mfx_torch.train: solver='bpr' parallel={mode!r}; only the "
-                "fused BPR ring is ported, the snapshot-minibatch trainers "
-                "are ROADMAP Queue 1 item 12"
+                f"mfx_torch.train: solver='bpr' parallel.mode='dp' over "
+                f"data_axis={cfg.parallel.data_axis} shards; only one data "
+                "shard is ported (ROADMAP Queue 1 item 13); set "
+                "parallel.data_axis=1"
             )
-        if cfg.parallel.model_axis != 1 or cfg.parallel.data_axis != 1:
+        if mode in ("sharded", "hybrid") and (
+                cfg.parallel.model_axis != 1 or cfg.parallel.data_axis != 1):
             raise NotImplementedError(
                 f"mfx_torch.train: a BPR ring of model_axis="
                 f"{cfg.parallel.model_axis} x data_axis="
@@ -153,8 +162,9 @@ def _check_supported(cfg: TrainConfig) -> None:
         raise NotImplementedError(
             f"mfx_torch.train: solver={cfg.solver!r} parallel={mode!r}; "
             "only single-device SGD, ALS, iALS, NMF, SVD++, timeSVD and "
-            "timeSVD++ (parallel.mode=single) and the BPR ring of one shard "
-            "are ported: the SGD ring and data-parallel modes are ROADMAP "
+            "timeSVD++ (parallel.mode=single) and the BPR trainers (single, "
+            "dp of one data shard, the ring of one shard) are ported: the "
+            "SGD ring and data-parallel modes are ROADMAP "
             "Queue 1 item 13 (Q1-13); set parallel.mode=single to train SGD "
             "on one device"
         )
@@ -171,15 +181,21 @@ def _check_supported(cfg: TrainConfig) -> None:
                 "(bf16 accumulation loses SGD deltas); use kernel='jnp' or "
                 "'blocked_jnp' for low-precision tables"
             )
-        if cfg.solver != "sgd" or cfg.sgd.partitioner == "blocked":
+        fused_ring = cfg.solver == "bpr" and cfg.bpr.kernel == "pallas" and (
+            mode in ("sharded", "hybrid"))
+        if fused_ring or cfg.solver not in ("sgd", "bpr") or (
+                cfg.solver == "sgd" and cfg.sgd.partitioner == "blocked"):
             raise NotImplementedError(
                 f"mfx_torch.train: model.dtype={cfg.model.dtype!r} with "
-                f"solver={cfg.solver!r}, partitioner="
+                f"solver={cfg.solver!r}, parallel.mode={mode!r}, "
+                f"bpr.kernel={cfg.bpr.kernel!r}, sgd.partitioner="
                 f"{cfg.sgd.partitioner!r}; bf16 tables train on the "
-                "minibatch path only (solver='sgd', partitioner 'fixed' or "
-                "'conflict_free'): the BPR ring, timeSVD, SVD++, timeSVD++ "
-                "and the Gram-engine solvers keep float32 tables (ROADMAP "
-                "Queue 1 item 12)"
+                "minibatch path only: minibatch SGD (partitioner 'fixed' or "
+                "'conflict_free') and the snapshot-minibatch BPR trainers "
+                "(parallel.mode 'single' or 'dp', or the ring with "
+                "bpr.kernel='jnp'); the fused BPR ring, timeSVD, SVD++, "
+                "timeSVD++ and the Gram-engine solvers keep float32 tables "
+                "(ROADMAP Queue 1 item 12)"
             )
 
 
@@ -248,11 +264,24 @@ def _epochs(cfg: TrainConfig, model, train_coo, seed, dev, start_epoch,
                        seed=seed, start_epoch=start_epoch, feats=feats,
                        device=dev)
     if cfg.solver == "bpr":
-        from mfx_torch.parallel.bpr_sharded import train_epochs_bpr_ring
+        mode = cfg.parallel.mode
+        if mode == "dp":
+            from mfx_torch.parallel.data_parallel import train_epochs_bpr_dp
 
-        return train_epochs_bpr_ring(model, train_coo, cfg.bpr, shards=1,
-                                     seed=seed, device=dev,
-                                     start_epoch=start_epoch)
+            return train_epochs_bpr_dp(model, train_coo, cfg.bpr,
+                                       data_axis=cfg.parallel.data_axis,
+                                       seed=seed, start_epoch=start_epoch,
+                                       device=dev)
+        if mode in ("sharded", "hybrid"):
+            from mfx_torch.parallel.bpr_sharded import train_epochs_bpr_ring
+
+            return train_epochs_bpr_ring(model, train_coo, cfg.bpr, shards=1,
+                                         seed=seed, device=dev,
+                                         start_epoch=start_epoch)
+        from mfx_torch.solvers.bpr import train_epochs_bpr
+
+        return train_epochs_bpr(model, train_coo, cfg.bpr, seed=seed,
+                                start_epoch=start_epoch, device=dev)
     from mfx_torch.solvers.sgd import train_epochs
 
     return train_epochs(model, train_coo, cfg.sgd, cfg.model.use_bias,

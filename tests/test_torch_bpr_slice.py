@@ -124,10 +124,10 @@ def test_two_epochs_match_the_reference_ring_at_other_ranks(rank):
 
 
 @pytest.mark.parametrize("change,exc,what", [
-    ({"kernel": "jnp"}, NotImplementedError, "Queue 1 item 12"),
     ({"kernel": "jnp", "neg_weighting": "popularity"}, ValueError,
      "uniform-exact"),
     ("shards=2", NotImplementedError, "Queue 1 item 13"),
+    ({"kernel": "jnp", "_shards": 2}, NotImplementedError, "Queue 1 item 13"),
 ])
 def test_ring_refusals(change, exc, what):
     train, _ = _split()
@@ -138,6 +138,8 @@ def test_ring_refusals(change, exc, what):
     if change == "shards=2":
         shards = 2
     else:
+        change = dict(change)
+        shards = change.pop("_shards", 1)
         cfg = dataclasses.replace(CFG, **change)
     with pytest.raises(exc, match=what):
         next(ring.train_epochs_bpr_ring(model, train, cfg, shards=shards,
@@ -153,9 +155,10 @@ def _overrides(root):
 @pytest.mark.parametrize("override,what", [
     (["parallel.model_axis=32"], "Queue 1 item 13"),
     (["parallel.model_axis=1", "parallel.data_axis=2"], "Queue 1 item 13"),
-    (["parallel.mode=single"], "Queue 1 item 12"),
-    (["parallel.mode=dp"], "Queue 1 item 12"),
+    (["parallel.mode=dp", "parallel.data_axis=2"], "Queue 1 item 13"),
     (["parallel.model_axis=1", "model.dtype=bfloat16"], "Queue 1 item 12"),
+    (["parallel.mode=hybrid", "parallel.model_axis=1",
+      "model.dtype=bfloat16"], "Queue 1 item 12"),
 ])
 def test_driver_refusals(override, what):
     from mfx_torch.train.driver import train
@@ -198,6 +201,83 @@ def test_cli_prints_the_reference_json_keys(tmp_path):
         "test_hr@10", "test_ndcg@10", "test_mrr@10"}
     assert outs[0]["preset"] == outs[1]["preset"] == "billion_bpr_sharded"
     assert outs[0]["epochs_run"] == outs[1]["epochs_run"] == 2
+
+
+def test_ring_trains_the_jnp_kernel_on_cpu():
+    """``bpr.kernel='jnp'`` on a ring of one shard (refused before the
+    snapshot-minibatch ring was ported): two epochs on the CPU, the loss
+    falls, and the model comes back in the original item labelling."""
+    train, _ = _split()
+    m0 = init_model(1, U, I, RANK, global_mean=0.0)
+    arrays = {k: np.asarray(getattr(m0, k))
+              for k in ("P", "Q", "bu", "bi", "mu")}
+    cfg = dataclasses.replace(CFG, kernel="jnp", batch_size=512)
+    out = [(loss, m) for _, m, loss in ring.train_epochs_bpr_ring(
+        model_from_numpy(arrays, device="cpu"), train, cfg, seed=SEED,
+        device="cpu")]
+    assert len(out) == 2 and out[1][0] < out[0][0] < np.log(2) + 0.05
+    assert out[-1][1].Q.shape == (I, RANK)
+    ref = [m for _, m, _ in ring_j.train_epochs_bpr_ring(
+        m0, train, cfg, make_mesh(model=1), seed=SEED)]
+    np.testing.assert_allclose(model_to_numpy(out[-1][1])["Q"],
+                               np.asarray(ref[-1].Q), rtol=0, atol=1e-5)
+
+
+# the snapshot-minibatch paths through the driver (refused before they were
+# ported): single, data-parallel of one shard, the 'jnp' ring; bf16 tables
+# and popularity negatives on them
+MINIBATCH_PATHS = {
+    "single": ["parallel.mode=single"],
+    "dp": ["parallel.mode=dp"],
+    "jnp_ring": ["bpr.kernel=jnp"],
+    "single_bf16_popularity": ["parallel.mode=single", "bpr.kernel=jnp",
+                               "bpr.neg_weighting=popularity",
+                               "model.dtype=bfloat16"],
+    "dp_bf16": ["parallel.mode=dp", "model.dtype=bfloat16"],
+    "jnp_ring_bf16_device": ["bpr.kernel=jnp", "model.dtype=bfloat16",
+                             "bpr.sample_device=device"],
+}
+
+
+@pytest.mark.parametrize("path", sorted(MINIBATCH_PATHS))
+def test_driver_trains_the_snapshot_minibatch_paths(tmp_path, path):
+    from mfx_torch.train.driver import train
+
+    cfg = apply_overrides(preset("billion_bpr_sharded"),
+                          _overrides(tmp_path) + MINIBATCH_PATHS[path])
+    res = train(cfg, device="cpu")
+    assert res.epochs_run == 2 and len(res.history) == 2
+    assert res.history[1]["train_metric"] < res.history[0]["train_metric"]
+    assert 0.0 <= res.test_auc <= 1.0 and res.test_rmse is None
+    assert set(res.test_ranking) == {"hr", "ndcg", "mrr"}
+    dtype = torch.bfloat16 if "bf16" in path else torch.float32
+    assert res.model.P.dtype == res.model.Q.dtype == dtype
+    assert res.model.P.shape == (256, RANK)
+    assert res.model.Q.shape == (128, RANK)
+
+
+@pytest.mark.parametrize("path", ["single", "dp", "jnp_ring"])
+def test_cli_trains_the_snapshot_minibatch_paths(tmp_path, path):
+    """The port's CLI prints the reference CLI's keys on each path (the
+    reference's own CLI is run on the single path beside it)."""
+    outs = []
+    runs = [("mfx_torch.cli", ["--device", "cpu"])]
+    if path == "single":
+        runs.append(("mfx.cli", []))
+    for pkg, extra in runs:
+        args = [sys.executable, "-m", pkg, "train", "--preset",
+                "billion_bpr_sharded", *extra]
+        for ov in _overrides(tmp_path) + MINIBATCH_PATHS[path]:
+            args += ["--set", ov]
+        res = subprocess.run(args, cwd=ROOT, capture_output=True, text=True,
+                             timeout=300)
+        assert res.returncode == 0, res.stderr[-2000:]
+        outs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+    for out in outs:
+        assert set(out) == {"preset", "epochs_run", "updates_per_sec",
+                            "test_auc", "test_hr@10", "test_ndcg@10",
+                            "test_mrr@10"}
+        assert out["epochs_run"] == 2
 
 
 def test_ring_on_its_own_generators_repeats_and_reports_times():

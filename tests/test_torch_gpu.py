@@ -1176,6 +1176,7 @@ def test_bf16_minibatch_on_the_card(cuda, partitioner, trust):
     1e-3 of the CPU's (the dot's f32 sum order may differ on the card and
     flip a bf16 rounding)."""
     from mfx_torch.eval.metrics import rmse_mae
+    from mfx_torch.kernels import packing
     from mfx_torch.models.mf import MFModel
     from mfx_torch.solvers import sgd
 
@@ -1190,10 +1191,10 @@ def test_bf16_minibatch_on_the_card(cuda, partitioner, trust):
     plan = sgd.plan_epoch(train, cfg, 0, 0, device=cuda)
     me, se = sgd.make_epoch_fn(cfg, True, graph=False)(model, plan, cfg.lr)
     graph = sgd.make_epoch_fn(cfg, True)
-    replayed = sgd.GRAPH_LAUNCHES["replayed"]
+    replayed = packing.GRAPH_LAUNCHES["replayed"]
     runs = [graph(model, plan, cfg.lr) for _ in range(2)]
     # four scatter-adds a step (P, Q, bu, bi), one replay a batch
-    assert (sgd.GRAPH_LAUNCHES["replayed"] - replayed
+    assert (packing.GRAPH_LAUNCHES["replayed"] - replayed
             == 2 * 4 * plan.num_batches)
     keys = ("P", "Q", "bu", "bi")
     for mg, sg in runs:
@@ -1205,6 +1206,79 @@ def test_bf16_minibatch_on_the_card(cuda, partitioner, trust):
     a = rmse_mae(card[-1][1], test)[0]
     b = rmse_mae(host[-1][1], test)[0]
     assert abs(a - b) <= 1e-3 and card[-1][2] < card[0][2]
+
+
+# the snapshot-minibatch BPR paths through the driver; billion_bpr_sharded's
+# batch of 131,072 makes synthetic-small-implicit's 7,920 positives one
+# batch an epoch, which the captured loop's warm-up must fit
+SNAPSHOT_PATHS = {
+    "single": ["parallel.mode=single"],
+    "dp": ["parallel.mode=dp"],
+    "jnp_ring": ["bpr.kernel=jnp"],
+    "single_bf16": ["parallel.mode=single", "model.dtype=bfloat16"],
+}
+
+
+@pytest.mark.parametrize("path", sorted(SNAPSHOT_PATHS))
+def test_snapshot_bpr_paths_train_one_batch_epochs_on_the_card(cuda,
+                                                               tmp_path,
+                                                               path):
+    """Each snapshot-minibatch BPR path trains 2 one-batch epochs on the
+    card through the driver: the loss falls, the tables stay finite in
+    their dtype on the card."""
+    from mfx_torch.config import apply_overrides, preset
+    from mfx_torch.train.driver import train
+
+    cfg = apply_overrides(preset("billion_bpr_sharded"), [
+        "parallel.model_axis=1", "data.dataset=synthetic-small-implicit",
+        f"data.root={tmp_path}", "bpr.ublock=128", "bpr.iblock=128",
+        "bpr.tile=64", "bpr.epochs=2"] + SNAPSHOT_PATHS[path])
+    assert cfg.bpr.batch_size >= 8_000
+    res = train(cfg, device=cuda)
+    assert res.epochs_run == 2
+    assert res.history[1]["train_metric"] < res.history[0]["train_metric"]
+    dtype = torch.bfloat16 if "bf16" in path else torch.float32
+    for t in (res.model.P, res.model.Q):
+        assert t.is_cuda and t.dtype == dtype
+        assert bool(torch.isfinite(t.float()).all())
+    assert 0.0 <= res.test_auc <= 1.0
+
+
+@pytest.mark.parametrize("batch_size", [16_384, 1_024])
+def test_snapshot_bpr_on_the_card_is_the_cpus(cuda, batch_size):
+    """``train_epochs_bpr`` with host sampling (the same triples on either
+    device), 2 epochs of one batch (16,384) or eight (1,024): the card's
+    graph-replayed loop twice bit for bit, and within 1e-5 of the CPU's
+    eager loop (tables) and 1e-6 (losses). With device sampling the
+    second epoch, sampler and batch loop, makes no host sync."""
+    from mfx_torch.config import BPRConfig
+    from mfx_torch.solvers import bpr as mb
+
+    coo = synthetic.make_implicit_synthetic(256, 128, 8_000, rank=8, seed=9)
+    cfg = BPRConfig(lr=0.05, reg=0.002, epochs=2, batch_size=batch_size,
+                    sample_device="host")
+    g = torch.Generator().manual_seed(0)
+    model = init_model(g, 256, 128, 16, device="cpu")
+    card = [list(mb.train_epochs_bpr(model, coo, cfg, device=cuda))
+            for _ in range(2)]
+    cpu = list(mb.train_epochs_bpr(model, coo, cfg, device="cpu"))
+    for (_, m1, l1), (_, m2, l2), (_, mc, lc) in zip(*card, cpu):
+        assert l1 == l2 and abs(l1 - lc) <= 1e-6
+        for k in ("P", "Q"):
+            assert getattr(m1, k).is_cuda
+            assert torch.equal(getattr(m1, k), getattr(m2, k))
+            torch.testing.assert_close(getattr(m1, k).cpu(), getattr(mc, k),
+                                       rtol=0, atol=1e-5)
+    tr = mb.SnapshotTrainer(model, coo, dataclasses.replace(
+        cfg, sample_device="device"), device=cuda)
+    losses = [float(tr.epoch(0))]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = tr.epoch(1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    losses.append(float(loss))
+    assert losses[1] < losses[0]
 
 
 def test_mmr_and_full_ranks_on_the_card_are_the_cpus(cuda):

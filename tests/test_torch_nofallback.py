@@ -36,7 +36,8 @@ MODULES = [
     "mfx_torch.data.loaders", "mfx_torch.data.split", "mfx_torch.data.bpr",
     "mfx_torch.kernels.plan_ring_device", "mfx_torch.kernels.bpr_sweep",
     "mfx_torch.solvers.bpr", "mfx_torch.parallel",
-    "mfx_torch.parallel.bpr_sharded", "mfx_torch.eval",
+    "mfx_torch.parallel.bpr_sharded", "mfx_torch.parallel.data_parallel",
+    "mfx_torch.eval",
     "mfx_torch.eval.ranking", "mfx_torch.measure_bpr",
     "mfx_torch.measure_wavefront", "mfx_torch.data.partition",
     "mfx_torch.oracle", "mfx_torch.oracle.java_oracle",
